@@ -1,0 +1,29 @@
+"""PyTorch + CUDA port of exploring_flash_attention_tpu for NVIDIA Hopper.
+
+The JAX package beside it is the reference.  This package imports torch
+and NumPy, never JAX.  Kernels written by hand for sm_90a live in
+``csrc/`` and are built at first use on a CUDA tensor (``kernels.py``); on
+CPU tensors every kernel wrapper runs its plain PyTorch version.
+"""
+
+from exploring_flash_attention_tpu_torch.configs import cdiv
+from exploring_flash_attention_tpu_torch.models import (
+    GenerationEngine,
+    ModelConfig,
+    forward,
+    init_params,
+)
+from exploring_flash_attention_tpu_torch.ops import (
+    attention_partial_local,
+    flash_attention,
+)
+
+__all__ = [
+    "GenerationEngine",
+    "ModelConfig",
+    "attention_partial_local",
+    "cdiv",
+    "flash_attention",
+    "forward",
+    "init_params",
+]

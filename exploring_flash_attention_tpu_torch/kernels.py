@@ -1,0 +1,107 @@
+"""Build and load the hand-written Hopper kernels in ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds, not minutes).  The build happens at first use, into
+``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
+sources and flags, so a fresh checkout builds its own kernels and an
+edited source never loads a stale library.  Nothing here runs at import
+time: the CPU-only test machines import every module and have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / "kernels"
+LIB_NAME = "libeft_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, lse, batch, hq, hkv, lq, lkv, d, diag_off, scale,
+    # device, stream
+    "eft_prefill_attention": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+    # q, pages, scales, page_table, seq_lens, slots, o, batch, hq, hkv, d,
+    # page_size, max_pages, max_seqs, scale, device, stream
+    "eft_paged_decode": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels build only where the CUDA "
+            "toolkit is installed")
+    return path
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    """The directory of the library built from the current sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless this source hash is already built; return
+    the library's path.  ``ptxas.log`` beside it holds nvcc's ``-Xptxas -v``
+    report (registers, shared memory and spills per kernel)."""
+    out = build_dir()
+    lib = out / LIB_NAME
+    if lib.exists():
+        return lib
+    out.mkdir(parents=True, exist_ok=True)
+    tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {res.returncode}:\n{res.stderr}")
+    (out / "ptxas.log").write_text(res.stderr)
+    os.replace(tmp, lib)            # atomic: concurrent builders agree
+    return lib
+
+
+def ptxas_report() -> str:
+    """nvcc's ``-Xptxas -v`` output of the current build."""
+    return (build().parent / "ptxas.log").read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.eft_error_string.argtypes = [ctypes.c_int]
+    lib.eft_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error (it then never ran)."""
+    if err != 0:
+        msg = library().eft_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")

@@ -1,0 +1,199 @@
+"""LM inference engine of the port: prefill -> paged INT8 KV-cache -> decode.
+
+Counterpart of ``models/generate.py`` in the JAX package:
+
+- :func:`forward_collect_kv` runs the causal forward over the prompt
+  (attention on kernel H1) and collects each layer's post-RoPE K and V;
+- :func:`_decode_forward` advances every sequence one token: single-token
+  projections, the cache append, paged decode attention (kernel H6-decode)
+  per layer, logits;
+- :class:`GenerationEngine` owns the per-layer caches and the page
+  allocation and exposes :meth:`GenerationEngine.generate`.
+
+The cache stores post-rotation K, and decode rotates each new token's q/k
+at its per-sequence position read from the cache's ``seq_lens``, so
+``seq_lens`` doubles as the RoPE position counter.  The decode loop is a
+Python loop; the tokens stay on the device until the loop ends.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from exploring_flash_attention_tpu_torch.configs import cdiv
+from exploring_flash_attention_tpu_torch.models.transformer import (
+    ModelConfig,
+    Params,
+    _mlp_block,
+    _rmsnorm,
+    rope,
+)
+from exploring_flash_attention_tpu_torch.ops.attention import flash_attention
+from exploring_flash_attention_tpu_torch.serving.decode import (
+    paged_decode_attention,
+)
+from exploring_flash_attention_tpu_torch.serving.kv_cache import (
+    PagedKVCache,
+    PageAllocator,
+    append_prompts,
+    append_tokens,
+    make_cache,
+)
+
+
+def forward_collect_kv(
+    params: Params,
+    tokens: torch.Tensor,          # [B, L] int
+    config: ModelConfig,
+) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Causal forward returning (logits f32 [B, L, V], per-layer (k, v) in
+    cache layout [B, L, Hkv, d])."""
+    c = config
+    x = params["embed"][tokens.long()].to(c.dtype)
+    kvs = []
+    for p in params["layers"]:
+        h = _rmsnorm(x, p["ln1"], c.norm_eps)
+        q = torch.einsum("ble,ehd->bhld", h, p["wq"])
+        k = torch.einsum("ble,ehd->bhld", h, p["wk"])
+        v = torch.einsum("ble,ehd->bhld", h, p["wv"])
+        if c.use_rope:
+            pos = torch.arange(k.shape[2], device=x.device)
+            q = rope(q, pos, c.rope_theta)
+            k = rope(k, pos, c.rope_theta)     # the cache stores rotated K
+        kvs.append((k, v))                     # [B, Hkv, L, d]
+        o = flash_attention(q, k, v, causal=True)
+        x = x + torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
+        x = x + _mlp_block(p, x, c)
+    x = _rmsnorm(x, params["ln_f"], c.norm_eps)
+    logits = torch.einsum("ble,ve->blv", x,
+                          params["embed"].to(c.dtype)).float()
+    return logits, [(k.transpose(1, 2), v.transpose(1, 2)) for k, v in kvs]
+
+
+def _decode_forward(
+    params: Params,
+    tokens: torch.Tensor,          # [B] int, the last sampled token per seq
+    caches: List[PagedKVCache],
+    slots: torch.Tensor,           # int32 [B]
+    config: ModelConfig,
+) -> torch.Tensor:
+    """One decode step: appends each layer's new K/V to its cache in place
+    and returns logits f32 [B, V]."""
+    c = config
+    x = params["embed"][tokens.long()].to(c.dtype)          # [B, E]
+    for p, cache in zip(params["layers"], caches):
+        h = _rmsnorm(x, p["ln1"], c.norm_eps)
+        q = torch.einsum("be,ehd->bhd", h, p["wq"])          # [B, Hq, d]
+        k = torch.einsum("be,ehd->bhd", h, p["wk"])          # [B, Hkv, d]
+        v = torch.einsum("be,ehd->bhd", h, p["wv"])
+        if c.use_rope:
+            pos = cache.seq_lens[slots.long()]               # this token's pos
+            q = rope(q, pos[:, None], c.rope_theta)
+            k = rope(k, pos[:, None], c.rope_theta)
+        append_tokens(cache, slots, k, v)
+        o = paged_decode_attention(q.contiguous(), cache, slots)  # [B, Hq, d]
+        x = x + torch.einsum("bhd,hde->be", o.to(x.dtype), p["wo"])
+        x2 = x[:, None, :]                                   # [B, 1, E]
+        x = (x2 + _mlp_block(p, x2, c))[:, 0]
+    xf = _rmsnorm(x, params["ln_f"], c.norm_eps)
+    return torch.einsum("be,ve->bv", xf, params["embed"].to(c.dtype)).float()
+
+
+def sample(logits: torch.Tensor, temperature: float = 0.0,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Greedy (temperature 0) or temperature sampling -> [B] int32."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+class GenerationEngine:
+    """Batch text generation over per-layer paged INT8 KV-caches, on the
+    device of the parameters."""
+
+    def __init__(
+        self,
+        params: Params,
+        config: ModelConfig,
+        max_seqs: int = 8,
+        max_len: int = 2048,
+        page_size: int = 128,
+    ):
+        self.params = params
+        self.config = config
+        self.device = params["embed"].device
+        self.page_size = page_size
+        pages_per_seq = cdiv(max_len, page_size)
+        n_pages = max_seqs * pages_per_seq
+        self.caches = [
+            make_cache(
+                config.n_kv_heads, config.d_head, n_pages,
+                page_size=page_size, max_seqs=max_seqs,
+                max_pages_per_seq=pages_per_seq, device=self.device,
+            )
+            for _ in range(config.n_layers)
+        ]
+        # all layers share one page map (identical table per layer)
+        self.allocator = PageAllocator(n_pages)
+        self.max_seqs = max_seqs
+        self.pages_per_seq = pages_per_seq
+        self._mapped_pages: List[int] = []
+
+    def _map_slots(self, bsz: int) -> torch.Tensor:
+        # the table is built on the host and copied once per layer
+        self._mapped_pages = []
+        table = np.zeros((self.max_seqs, self.pages_per_seq), np.int32)
+        for s in range(bsz):
+            pages = self.allocator.alloc(self.pages_per_seq)
+            self._mapped_pages.extend(pages)
+            table[s, :len(pages)] = pages
+        table_t = torch.from_numpy(table).to(self.device)
+        for cache in self.caches:
+            cache.page_table.copy_(table_t)
+            cache.seq_lens.zero_()
+        return torch.arange(bsz, dtype=torch.int32, device=self.device)
+
+    def _release_slots(self) -> None:
+        self.allocator.free(self._mapped_pages)
+        self._mapped_pages = []
+
+    @torch.no_grad()
+    def generate(
+        self,
+        prompt,                     # [B, L_prompt] int (array or tensor)
+        max_new_tokens: int,
+        temperature: float = 0.0,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """Returns the generated tokens [B, max_new_tokens] (int32).  The
+        slots are freed on return: holding them for multi-turn generation
+        (``hold=True`` in the JAX package) comes with
+        ``continue_generation``."""
+        prompt = (prompt.to(self.device) if isinstance(prompt, torch.Tensor)
+                  else torch.as_tensor(np.asarray(prompt), device=self.device))
+        bsz = prompt.shape[0]
+        if bsz > self.max_seqs:
+            raise ValueError(f"batch {bsz} > max_seqs {self.max_seqs}")
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        try:
+            # inside the try so a partial allocation still gets freed
+            slots = self._map_slots(bsz)
+            logits, kvs = forward_collect_kv(self.params, prompt, self.config)
+            for cache, (k, v) in zip(self.caches, kvs):
+                append_prompts(cache, slots, k, v)
+            tok = sample(logits[:, -1, :], temperature, generator)
+            out = [tok]
+            for _ in range(max_new_tokens - 1):
+                logits = _decode_forward(self.params, tok, self.caches,
+                                         slots, self.config)
+                tok = sample(logits, temperature, generator)
+                out.append(tok)
+            result = torch.stack(out, dim=1).cpu().numpy()
+        finally:
+            self._release_slots()           # the engine stays reusable
+        return result

@@ -1,0 +1,35 @@
+"""Weights from the JAX package into the port."""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from exploring_flash_attention_tpu_torch.models.transformer import Params
+
+
+def params_from_jax(tree: Any, device: torch.device | str = "cpu",
+                    dtype: Optional[torch.dtype] = None) -> Params:
+    """The JAX package's params pytree, with its leaves as NumPy arrays
+    (e.g. ``jax.device_get(params)``), as the port's parameters on
+    ``device``, in ``dtype`` or else bf16 for bf16 leaves and f32 for the
+    rest.
+
+    Leaves go through f32, which is exact for f32 and bf16:
+    ``torch.from_numpy`` refuses ml_dtypes' bf16 arrays."""
+
+    def leaf(a) -> torch.Tensor:
+        a = np.asarray(a)
+        target = dtype or (torch.bfloat16 if a.dtype.name == "bfloat16"
+                           else torch.float32)
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=target)
+
+    return {
+        "embed": leaf(tree["embed"]),
+        "ln_f": leaf(tree["ln_f"]),
+        "layers": [{name: leaf(x) for name, x in layer.items()}
+                   for layer in tree["layers"]],
+    }

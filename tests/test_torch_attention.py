@@ -1,0 +1,118 @@
+"""Port attention (prefill, kernel H1's plain version) vs the JAX package.
+
+The same NumPy inputs go through the JAX function (Pallas in interpret
+mode on the CPU, as the JAX tests run it) and through the port's CPU path,
+in f32.  Tolerance: atol 1e-5 on O and LSE — both sides compute in f32 and
+differ only in summation order (O is a convex combination of O(1) values,
+LSE is O(1))."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from exploring_flash_attention_tpu.configs import cdiv as jax_cdiv
+from exploring_flash_attention_tpu.ops.attention_v1 import (
+    causal_partial_onepass_eligible,
+)
+from exploring_flash_attention_tpu.ops.attention_vjp import (
+    flash_attention as jax_flash_attention,
+)
+from exploring_flash_attention_tpu.parallel.partials import (
+    attention_partial_local as jax_attention_partial_local,
+)
+from exploring_flash_attention_tpu_torch.configs import cdiv
+from exploring_flash_attention_tpu_torch.oracle import (
+    AccuracyError,
+    check_accuracy,
+    naive_attention,
+)
+from exploring_flash_attention_tpu_torch.ops.attention import (
+    attention_partial_local,
+    flash_attention,
+)
+
+ATOL = 1e-5
+
+
+def _qkv(seed, b, hq, hkv, lq, lkv, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, lq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, lkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, lkv, d)).astype(np.float32)
+    return q, k, v
+
+
+# (route, Lq, Lkv): B4 is the causal one-pass kernel (L % 8 == 0), B8 the
+# split-KV partial kernel the ragged prompt falls to
+ROUTES = [("b4", 64, 64), ("b8", 17, 17), ("b4_cross", 24, 40)]
+
+
+@pytest.mark.parametrize("route,lq,lkv", ROUTES)
+def test_attention_partial_local_matches_jax(route, lq, lkv):
+    d = 64
+    assert causal_partial_onepass_eligible(lq, lkv, d) == route.startswith(
+        "b4")
+    q, k, v = _qkv(0, 2, 4, 2, lq, lkv, d)                 # GQA 4/2
+    o_ref, lse_ref = jax_attention_partial_local(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
+    o, lse = attention_partial_local(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("lq,lkv", [(64, 64), (17, 17), (24, 16)])
+def test_attention_partial_local_matches_f64_oracle(lq, lkv):
+    """(24, 16): the first 8 q rows see no key and must give (0, -inf)."""
+    q, k, v = _qkv(1, 1, 4, 2, lq, lkv, 64)
+    rep = lambda x: np.repeat(x, 2, axis=1)                # noqa: E731
+    o_ref, lse_ref = naive_attention(q, rep(k), rep(v), causal=True,
+                                     return_lse=True)
+    o, lse = attention_partial_local(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(o.numpy(), o_ref, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=ATOL)
+    if lq > lkv:
+        assert np.isneginf(lse.numpy()[..., :lq - lkv]).all()
+        assert (o.numpy()[..., :lq - lkv, :] == 0).all()
+
+
+def test_flash_attention_forward_matches_jax():
+    q, k, v = _qkv(2, 2, 4, 2, 32, 32, 64)
+    ref = jax_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), causal=True)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=True)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_flash_attention_refuses_what_is_not_ported():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(3, 1, 2, 2, 8, 8, 64))
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_attention(q.requires_grad_(), k, v, causal=True)
+    q = q.detach()
+    with pytest.raises(NotImplementedError, match="window"):
+        flash_attention(q, k, v, causal=True, window=4)
+    with pytest.raises(NotImplementedError, match="non-causal"):
+        flash_attention(q, k, v, causal=False)
+    with pytest.raises(NotImplementedError, match="static"):
+        flash_attention(q, k, v, causal=True,
+                        positions=(torch.tensor(0), torch.tensor(0)))
+
+
+@pytest.mark.parametrize("a,b", [(0, 128), (1, 128), (128, 128),
+                                 (129, 128), (280, 128), (1024, 128)])
+def test_cdiv_matches_jax(a, b):
+    assert cdiv(a, b) == jax_cdiv(a, b) == -(-a // b)
+
+
+def test_check_accuracy_passes_and_fails():
+    rng = np.random.default_rng(4)
+    ref = rng.standard_normal((2, 8, 16))
+    stats = check_accuracy(ref + 1e-4, ref)
+    assert stats["max_abs"] < 2e-4
+    with pytest.raises(AccuracyError, match="max_abs"):
+        check_accuracy(ref + 0.1, ref)

@@ -1,0 +1,130 @@
+"""Port generation (prefill + paged INT8 decode) vs the JAX engine.
+
+At a small f32 config both engines must emit the same greedy tokens from
+the same weights and prompt.  The decode path must also reproduce the
+port's own full forward at every step, up to INT8 cache error (agreement,
+or a near-tie under a 0.15 logit gap, as tests/test_generate.py states).
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from exploring_flash_attention_tpu.configs import TileConfig as JTileConfig
+from exploring_flash_attention_tpu.models import generate as jgen
+from exploring_flash_attention_tpu.models import transformer as jtf
+from exploring_flash_attention_tpu_torch.models import (
+    GenerationEngine,
+    ModelConfig,
+    forward,
+    forward_collect_kv,
+    init_params,
+)
+
+REPO = Path(__file__).resolve().parents[1]
+KW = dict(vocab_size=128, n_layers=2, n_heads=4, n_kv_heads=2, d_model=128,
+          d_head=64, d_ff=256)
+CFG = ModelConfig(**KW)
+JCFG = jtf.ModelConfig(**KW, tile=JTileConfig(block_q=64, block_kv=64))
+
+
+def _prompt(seed, b, l):
+    return np.random.default_rng(seed).integers(
+        0, KW["vocab_size"], (b, l)).astype(np.int32)
+
+
+def test_greedy_tokens_match_jax_engine():
+    prompt = _prompt(0, 2, 24)
+    jeng = jgen.GenerationEngine(jtf.init_params(JCFG, seed=0), JCFG,
+                                 max_seqs=2, max_len=256)
+    ref = jeng.generate(jnp.asarray(prompt), max_new_tokens=5)
+    eng = GenerationEngine(init_params(CFG, seed=0), CFG, max_seqs=2,
+                           max_len=256)
+    got = eng.generate(prompt, max_new_tokens=5)
+    assert got.shape == (2, 5) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, np.asarray(ref))
+
+
+def test_forward_collect_kv_matches_jax_and_forward():
+    params = init_params(CFG, seed=1)
+    toks = _prompt(1, 2, 32)
+    logits, kvs = forward_collect_kv(params, torch.from_numpy(toks), CFG)
+    full = forward(params, torch.from_numpy(toks), CFG)
+    torch.testing.assert_close(logits, full, rtol=0, atol=1e-6)
+    _, jkvs = jgen.forward_collect_kv(jtf.init_params(JCFG, seed=1),
+                                      jnp.asarray(toks), JCFG)
+    assert len(kvs) == CFG.n_layers
+    for (k, v), (jk, jv) in zip(kvs, jkvs):
+        assert k.shape == (2, 32, CFG.n_kv_heads, CFG.d_head)
+        np.testing.assert_allclose(k.numpy(), np.asarray(jk), atol=1e-4)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=1e-4)
+
+
+def test_decode_matches_full_forward_logits():
+    params = init_params(CFG, seed=2)
+    prompt = _prompt(2, 2, 17)
+    out = GenerationEngine(params, CFG, max_seqs=2, max_len=64).generate(
+        prompt, max_new_tokens=4)
+    seq = prompt
+    for t in range(4):
+        logits = forward(params, torch.from_numpy(seq), CFG)[:, -1].numpy()
+        nxt = logits.argmax(-1)
+        for b in range(2):
+            if nxt[b] != out[b, t]:
+                gap = abs(logits[b, nxt[b]] - logits[b, out[b, t]])
+                assert gap < 0.15, (t, b, gap)
+        seq = np.concatenate([seq, out[:, t:t + 1]], axis=1)
+
+
+def test_temperature_sampling_reproducible_from_seed():
+    params = init_params(CFG, seed=3)
+    prompt = _prompt(3, 1, 8)
+    a = GenerationEngine(params, CFG, max_seqs=1, max_len=32).generate(
+        prompt, 3, temperature=0.8, seed=7)
+    b = GenerationEngine(params, CFG, max_seqs=1, max_len=32).generate(
+        prompt, 3, temperature=0.8, seed=7)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_engine_reusable_and_pages_released():
+    params = init_params(CFG, seed=4)
+    prompt = _prompt(4, 1, 8)
+    eng = GenerationEngine(params, CFG, max_seqs=1, max_len=32)
+    a = eng.generate(prompt, 2)
+    assert eng.allocator.free_pages == eng.allocator.n_pages
+    np.testing.assert_array_equal(a, eng.generate(prompt, 2))
+
+
+def test_engine_refuses_over_capacity_and_hold():
+    """Multi-turn generation is not ported, so the engine takes no
+    ``hold`` and keeps no slots across calls."""
+    eng = GenerationEngine(init_params(CFG, seed=0), CFG, max_seqs=1,
+                           max_len=32)
+    with pytest.raises(ValueError, match="max_seqs"):
+        eng.generate(np.zeros((2, 4), np.int32), 2)
+    with pytest.raises(TypeError, match="hold"):
+        eng.generate(np.zeros((1, 4), np.int32), 2, hold=True)
+    assert not hasattr(eng, "release")
+    assert eng.allocator.free_pages == eng.allocator.n_pages
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys\n"
+        "import exploring_flash_attention_tpu_torch as p\n"
+        "import exploring_flash_attention_tpu_torch.kernels\n"
+        "import exploring_flash_attention_tpu_torch.oracle\n"
+        "import exploring_flash_attention_tpu_torch.utils\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'exploring_flash_attention_tpu.'))\n"
+        "             or m == 'exploring_flash_attention_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

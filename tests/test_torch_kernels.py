@@ -1,0 +1,122 @@
+"""Hand-written Hopper kernels vs their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA sm_90 card and skips without one (decided
+in the ``cuda_device`` fixture, never at import time, so every test worker
+collects the same tests).  Run them on the card with
+``python -m pytest tests/test_torch_kernels.py -m cuda``.
+
+Tolerances (bf16 inputs, f32 accumulation on both sides):
+- H1 vs plain: O to 2e-2 abs (the kernel rounds P and O to bf16, one bf16
+  ulp of an O(1) value is 7.8e-3); LSE to 4e-3 (l sums P rounded to bf16,
+  each term within 2^-9 relative, so ln(l) moves by at most ~2e-3).
+- H6-decode vs plain: 5e-3 abs on O (P rounded to bf16 before P V, O
+  rounded to bf16; O is an average over ~270 tokens, so its rounding
+  errors stay near one bf16 ulp of |O| < 0.5).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from exploring_flash_attention_tpu_torch.oracle import naive_attention
+from exploring_flash_attention_tpu_torch.ops.attention import (
+    causal_attention_plain,
+    prefill_attention,
+)
+from exploring_flash_attention_tpu_torch.serving import (
+    append_prompts,
+    gather_kv,
+    make_cache,
+    paged_decode_attention,
+    paged_decode_plain,
+)
+
+pytestmark = pytest.mark.cuda
+
+O_TOL = 2e-2
+LSE_TOL = 4e-3
+DECODE_O_TOL = 5e-3
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; none is visible")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("the kernels are built for sm_90a (Hopper)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _qkv(dev, b, hq, hkv, lq, lkv, d, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dev, torch.bfloat16)  # noqa: E731
+    return mk(b, hq, lq, d), mk(b, hkv, lkv, d), mk(b, hkv, lkv, d)
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lkv,d", [
+    (8, 8, 4, 256, 256, 128),     # the generation slice's prefill
+    (2, 8, 4, 200, 216, 128),     # ragged, Lq != Lkv
+    (2, 4, 2, 17, 17, 64),        # ragged below one tile, d=64
+    (1, 4, 4, 80, 48, 128),       # Lq > Lkv: 32 rows see no key
+])
+def test_prefill_kernel_matches_plain_and_oracle(cuda_device, b, hq, hkv,
+                                                 lq, lkv, d):
+    q, k, v = _qkv(cuda_device, b, hq, hkv, lq, lkv, d)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = prefill_attention(q, k, v, scale, lkv - lq)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = causal_attention_plain(q, k, v, scale, lkv - lq)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert (o.float() - o_ref).abs().max().item() < O_TOL
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse[fin] - lse_ref[fin]).abs().max().item() < LSE_TOL
+    group = hq // hkv
+    oracle = naive_attention(q, k.repeat_interleave(group, 1),
+                             v.repeat_interleave(group, 1), causal=True)
+    assert np.abs(o.float().cpu().numpy() - oracle).max() < O_TOL
+
+
+def test_prefill_kernel_counts_launches_and_refuses_f32(cuda_device):
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 64)
+    before = prefill_attention.launches
+    prefill_attention(q, k, v, 0.125, 0)
+    assert prefill_attention.launches == before + 1
+    with pytest.raises(TypeError, match="bf16"):
+        prefill_attention(q.float(), k.float(), v.float(), 0.125, 0)
+    assert prefill_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(8, 4, 128), (8, 2, 64)])
+def test_decode_kernel_matches_plain_and_oracle(cuda_device, hq, hkv, d):
+    b, ps = 8, 128
+    lens = [257 + 3 * i for i in range(b)]                 # 257 .. 278
+    max_pages = 4
+    cache = make_cache(hkv, d, b * max_pages, page_size=ps, max_seqs=b,
+                       max_pages_per_seq=max_pages, device=cuda_device)
+    perm = torch.randperm(b * max_pages,
+                          generator=torch.Generator().manual_seed(0))
+    cache.page_table.copy_(perm.view(b, max_pages).to(torch.int32))
+    g = torch.Generator().manual_seed(1)
+    slots = torch.arange(b, dtype=torch.int32, device=cuda_device)
+    for s, n in enumerate(lens):
+        kp = torch.randn(1, n, hkv, d, generator=g).to(cuda_device)
+        vp = torch.randn(1, n, hkv, d, generator=g).to(cuda_device)
+        append_prompts(cache, slots[s:s + 1], kp, vp)
+    q = torch.randn(b, hq, d, generator=g).to(cuda_device, torch.bfloat16)
+    before = paged_decode_attention.launches
+    o = paged_decode_attention(q, cache, slots)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    ref = paged_decode_plain(q, cache, slots, 1.0 / math.sqrt(d))
+    assert o.dtype == torch.bfloat16 and o.shape == (b, hq, d)
+    assert (o.float() - ref).abs().max().item() < DECODE_O_TOL
+    for s in range(b):
+        kf, vf = gather_kv(cache, s)
+        oracle = naive_attention(q[s].view(hkv, hq // hkv, d), kf, vf)
+        got = o[s].float().view(hkv, hq // hkv, d).cpu().numpy()
+        assert np.abs(got - oracle).max() < DECODE_O_TOL

@@ -1,0 +1,96 @@
+"""Port flagship LM (single device) vs the JAX package.
+
+Both packages draw their weights from ``np.random.default_rng(seed)`` in
+the same order, so the f32 weights must be equal to the bit.  Logits are
+compared in f32 at atol 1e-4: they are O(1) sums over d_model=128 after
+two layers, and the two sides differ in summation order and in their
+libm's cos/sin for RoPE (a few ulp)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from exploring_flash_attention_tpu.configs import TileConfig as JTileConfig
+from exploring_flash_attention_tpu.models import transformer as jtf
+from exploring_flash_attention_tpu_torch.models import (
+    ModelConfig,
+    forward,
+    init_params,
+    params_from_jax,
+    rope,
+)
+
+KW = dict(vocab_size=128, n_layers=2, n_heads=4, n_kv_heads=2, d_model=128,
+          d_head=64, d_ff=256)
+CFG = ModelConfig(**KW)
+JCFG = jtf.ModelConfig(**KW, tile=JTileConfig(block_q=64, block_kv=64))
+
+
+def _leaves(params):
+    out = [params["embed"], params["ln_f"]]
+    for layer in params["layers"]:
+        out.extend(layer[name] for name in sorted(layer))
+    return out
+
+
+def test_init_params_equal_jax_bitwise():
+    jp = jax.device_get(jtf.init_params(JCFG, seed=3))
+    tp = init_params(CFG, seed=3)
+    for j, t in zip(_leaves(jp), _leaves(tp), strict=True):
+        assert t.dtype == torch.float32 and t.shape == j.shape
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+def test_params_from_jax_keeps_values_and_dtypes():
+    jcfg_bf16 = jtf.ModelConfig(**KW, dtype=jnp.bfloat16)
+    jp = jax.device_get(jtf.init_params(jcfg_bf16, seed=0))
+    tp = params_from_jax(jp)
+    for j, t in zip(_leaves(jp), _leaves(tp), strict=True):
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(j, np.float32))
+    tp32 = params_from_jax(jp, dtype=torch.float32)
+    assert all(t.dtype == torch.float32 for t in _leaves(tp32))
+
+
+@pytest.mark.parametrize("seq_len", [32, 20])
+def test_forward_logits_match_jax(seq_len):
+    """32 takes the B4 route of the JAX prefill, 20 the B8 one."""
+    jp = jtf.init_params(JCFG, seed=1)
+    toks = np.random.default_rng(1).integers(
+        0, KW["vocab_size"], (2, seq_len)).astype(np.int32)
+    ref = np.asarray(jtf.forward(jp, jnp.asarray(toks), JCFG))
+    got = forward(init_params(CFG, seed=1), torch.from_numpy(toks), CFG)
+    assert got.shape == (2, seq_len, KW["vocab_size"])
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+
+
+def test_forward_is_causal():
+    params = init_params(CFG, seed=2)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, KW["vocab_size"], (1, 16)))
+    a = forward(params, toks, CFG)
+    toks2 = toks.clone()
+    toks2[0, 10:] = (toks2[0, 10:] + 1) % KW["vocab_size"]
+    b = forward(params, toks2, CFG)
+    torch.testing.assert_close(a[:, :10], b[:, :10], rtol=0, atol=1e-6)
+    assert not torch.allclose(a[:, 10:], b[:, 10:])
+
+
+def test_rope_matches_jax():
+    x = np.random.default_rng(5).standard_normal((2, 4, 9, 64)).astype(
+        np.float32)
+    pos = np.arange(9, dtype=np.int32) + 100
+    ref = np.asarray(jtf.rope(jnp.asarray(x), jnp.asarray(pos), 10000.0))
+    got = rope(torch.from_numpy(x), torch.from_numpy(pos), 10000.0)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+def test_model_config_validation():
+    with pytest.raises(ValueError, match="divisible"):
+        ModelConfig(n_heads=6, n_kv_heads=4)
+    with pytest.raises(ValueError, match="even"):
+        ModelConfig(d_head=63)

@@ -15,19 +15,31 @@ Phases, one line each; any failure exits non-zero before the last line:
    version and the f64 oracle, at the slice's shapes and one ragged case;
 4. decode: kernel H6-decode (paged INT8 decode) vs its plain version and
    the f64 oracle over the dequantized cache, at ragged contexts 257..280;
-5. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
+5. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
+   its plain version and the f64 oracle, a C = 256 chunk appended to
+   ragged histories 257..280;
+6. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
    GQA 8/4, d_head 128, d_ff 4096, bf16, random weights from seed 0) runs
    GenerationEngine.generate on [8, 256] prompts for 24 tokens.  Every
    kernel's launch counter is zeroed just before and read just after: H1
    must launch n_layers = 4 times, H6-decode 4 * 23 = 92.  Each generated
    token is checked against a fresh full forward over the sequence so far
    (agreement, or a near-tie under LOGIT_GAP).  Tokens/s come from the
-   host clock around a second, synchronized call; kernel times from CUDA
-   events (L2 flushed before each call) beside their plain versions.
+   host clock around a second, synchronized call;
+7. multiturn: the same model holds its slots (generate(hold=True)), then
+   continue_generation feeds a second turn of 256 tokens (turn 1's last
+   token and 255 new ones, chunk at positions 279..534) and decodes 24
+   more.  Counters: turn 1 H1 4, H6-decode 92; turn 2 H6-extend 4,
+   H6-decode 92, H1 0.  Each turn-2 token is checked against the full
+   forward over the whole stream so far, and every layer's cache against
+   forward_collect_kv over the concatenated stream; release() must return
+   every page.
 
-Every check also runs a control: the same comparison against a known-wrong
-path that hides one key from each row.  The control must read beyond the
-check's limit, so each limit is shown to tell a wrong mask from a right one.
+Kernel times come from CUDA events (L2 flushed before each call) beside
+their plain versions.  Every check also runs a control: the same comparison
+against a known-wrong path (one key hidden from each row, or a stream one
+token short).  The control must read beyond the check's limit, so each
+limit is shown to tell a wrong path from a right one.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -54,11 +66,18 @@ ROOT = Path(__file__).resolve().parent
 H1_O_TOL = 2e-2        # P and O rounded to bf16; one ulp at |x|~2 is 7.8e-3
 H1_LSE_TOL = 4e-3      # l sums bf16-rounded P: ln(l) within ~2^-9
 DECODE_O_TOL = 5e-3    # P*v_scale and O rounded to bf16; sound runs 1.4e-3
+EXTEND_O_TOL = 5e-3    # as DECODE_O_TOL: P*v_scale and O rounded to bf16;
+                       # sound runs 2.7e-3, its control 0.25
 LOGIT_GAP = 0.0625     # decode vs full forward: a flip must be a near-tie,
                        # 4 bf16 ulps of a logit in [2, 4); sound runs 0.0312
+CACHE_KV_TOL = 0.2     # cache after turn 2 vs forward_collect_kv: the int8
+                       # step (|k| <= ~5: 5/254 = 0.02) plus bf16 rounding
+                       # of K/V that two paths computed (ulp 0.03 at |k| ~ 4);
+                       # sound runs 0.106, the one-token-short control 7.6
 
 H1_SRC = "exploring_flash_attention_tpu_torch/csrc/prefill_attention.cu"
 H6_SRC = "exploring_flash_attention_tpu_torch/csrc/paged_decode.cu"
+H6E_SRC = "exploring_flash_attention_tpu_torch/csrc/paged_extend.cu"
 
 
 class PhaseError(RuntimeError):
@@ -144,11 +163,14 @@ def phase_h1(torch, dev):
 
 
 def make_decode_case(torch, dev, b=8, hq=8, hkv=4, d=128, ps=128,
-                     max_len=1024, seed=1):
+                     max_len=1024, seed=1, chunk=0):
     """A cache like the engine's (max_len 1024 -> 8 pages per slot) filled
-    through append_prompts with ragged contexts 257..280, and one bf16 q."""
+    through append_prompts with ragged contexts 257..280, and one bf16 q
+    [B, Hq, d].  With ``chunk`` = C, append_chunks then adds C more tokens
+    per sequence and q is [B, C, Hq, d]."""
     from exploring_flash_attention_tpu_torch.configs import cdiv
     from exploring_flash_attention_tpu_torch.serving import (
+        append_chunks,
         append_prompts,
         make_cache,
     )
@@ -165,14 +187,21 @@ def make_decode_case(torch, dev, b=8, hq=8, hkv=4, d=128, ps=128,
         kp = torch.randn(1, int(n), hkv, d, generator=gen).to(dev)
         vp = torch.randn(1, int(n), hkv, d, generator=gen).to(dev)
         append_prompts(cache, slots[s:s + 1], kp, vp)
+    if chunk:
+        append_chunks(cache, slots,
+                      torch.randn(b, chunk, hkv, d, generator=gen).to(dev),
+                      torch.randn(b, chunk, hkv, d, generator=gen).to(dev))
+        return cache, _bf16(torch, dev, gen, b, chunk, hq, d), slots, lens
     q = _bf16(torch, dev, gen, b, hq, d)
     return cache, q, slots, lens
 
 
 @contextlib.contextmanager
 def newest_token_hidden(cache, slots):
-    """A known-wrong decode: each sequence's newest cached token is hidden
-    (an off-by-one length), for the controls of the decode checks."""
+    """A known-wrong path: each sequence's newest cached token is hidden
+    (an off-by-one length), for the controls of the decode and extend
+    checks.  In extend, where row i sits at seq_lens - C + i, it hides
+    every chunk row's own (diagonal) key."""
     idx = slots.long()
     cache.seq_lens[idx] -= 1
     try:
@@ -219,6 +248,49 @@ def phase_decode(torch, dev):
     return e_o
 
 
+def phase_extend(torch, dev):
+    from exploring_flash_attention_tpu_torch.oracle import naive_attention
+    from exploring_flash_attention_tpu_torch.serving import (
+        gather_kv,
+        paged_extend_attention,
+        paged_extend_plain,
+    )
+
+    c = 256
+    cache, q, slots, lens = make_decode_case(torch, dev, chunk=c)
+    b, _, hq, d = q.shape
+    hkv = cache.num_kv_heads
+    scale = 1.0 / math.sqrt(d)
+    o = paged_extend_attention(q, cache, slots)
+    torch.cuda.synchronize()
+    ref = paged_extend_plain(q, cache, slots, scale)
+    e_o = (o.float() - ref).abs().max().item()
+    e_or = 0.0                  # first and last chunk row of every sequence
+    for s in range(b):
+        kf, vf = gather_kv(cache, s)
+        for i in (0, c - 1):
+            pos = int(lens[s]) + i
+            oracle = naive_attention(q[s, i].view(hkv, hq // hkv, d),
+                                     kf[:, :pos + 1], vf[:, :pos + 1])
+            got = o[s, i].float().view(hkv, hq // hkv, d).cpu().numpy()
+            e_or = max(e_or, float(np.abs(got - oracle).max()))
+    with newest_token_hidden(cache, slots):         # control
+        bad = paged_extend_plain(q, cache, slots, scale)
+    e_bad = (o.float() - bad).abs().max().item()
+    print(f"  extend B={b} C={c} Hq={hq} Hkv={hkv} d={d} "
+          f"ps={cache.page_size} history {lens.min()}..{lens.max()}: "
+          f"max|dO| vs plain {e_o:.3e} (tol {EXTEND_O_TOL:g}), vs f64 "
+          f"oracle on rows 0 and C-1 {e_or:.3e} (tol {EXTEND_O_TOL:g}), "
+          f"control (diagonal key hidden) {e_bad:.3e}")
+    _require(torch.isfinite(o.float()).all().item(), "H6-extend O not finite")
+    _require(e_o < EXTEND_O_TOL and e_or < EXTEND_O_TOL,
+             "H6-extend outside tolerance")
+    _require(e_bad > EXTEND_O_TOL,
+             "H6-extend tolerance cannot tell a wrong mask")
+    print("phase extend: ok")
+    return e_o
+
+
 def compare_with_full_forward(torch, params, cfg, prompt, out):
     """Greedy replay: at every step, the decode path's token against the
     full forward's argmax over the sequence so far.  Returns (agreements,
@@ -243,43 +315,70 @@ def compare_with_full_forward(torch, params, cfg, prompt, out):
     return agree, out.size, worst_gap
 
 
-def phase_slice(torch, dev):
-    from unittest import mock
-
-    from exploring_flash_attention_tpu_torch.models import (
-        GenerationEngine,
-        flagship_config,
-        init_params,
-    )
-    from exploring_flash_attention_tpu_torch.models import (
-        generate as generate_module,
-    )
+def _counted():
     from exploring_flash_attention_tpu_torch.ops.attention import (
         prefill_attention,
     )
     from exploring_flash_attention_tpu_torch.serving import (
         paged_decode_attention,
+        paged_extend_attention,
+    )
+    return {"h1": prefill_attention, "h6": paged_decode_attention,
+            "h6e": paged_extend_attention}
+
+
+def zero_counters():
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in _counted().items()}
+
+
+def make_flagship(torch, dev):
+    """The full-width flagship LM with random weights from seed 0, and the
+    [8, 256] prompts of both generation phases."""
+    from types import SimpleNamespace
+
+    from exploring_flash_attention_tpu_torch.models import (
+        flagship_config,
+        init_params,
     )
 
     cfg = flagship_config()
-    bsz, l_prompt, n_new = 8, 256, 24
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     prompt = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (bsz, l_prompt)).astype(np.int32)
+        0, cfg.vocab_size, (8, 256)).astype(np.int32)
+    return SimpleNamespace(cfg=cfg, params=params, prompt=prompt,
+                           t_init=t_init)
+
+
+def phase_slice(torch, dev, lm):
+    from unittest import mock
+
+    from exploring_flash_attention_tpu_torch.models import GenerationEngine
+    from exploring_flash_attention_tpu_torch.models import (
+        generate as generate_module,
+    )
+    from exploring_flash_attention_tpu_torch.serving import (
+        paged_decode_attention,
+    )
+
+    cfg, params, prompt = lm.cfg, lm.params, lm.prompt
+    (bsz, l_prompt), n_new = prompt.shape, 24
     eng = GenerationEngine(params, cfg, max_seqs=bsz, max_len=1024)
 
-    prefill_attention.launches = 0
-    paged_decode_attention.launches = 0
+    zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = eng.generate(prompt, max_new_tokens=n_new)
     t_first = time.perf_counter() - t0
-    launches = {"h1": prefill_attention.launches,
-                "h6": paged_decode_attention.launches}
-    want = {"h1": cfg.n_layers, "h6": cfg.n_layers * (n_new - 1)}
+    launches = read_counters()
+    want = {"h1": cfg.n_layers, "h6": cfg.n_layers * (n_new - 1), "h6e": 0}
     print(f"  slice launches {launches} (expected {want})")
     _require(launches == want, "the main path missed a kernel")
     _require(out.shape == (bsz, n_new) and out.dtype == np.int32
@@ -306,7 +405,7 @@ def phase_slice(torch, dev):
         bad = eng.generate(prompt, max_new_tokens=n_new)
     bad_agree, _, bad_gap = compare_with_full_forward(
         torch, params, cfg, prompt, bad)
-    print(f"  slice init {t_init:.2f} s, first generate {t_first:.3f} s, "
+    print(f"  slice init {lm.t_init:.2f} s, first generate {t_first:.3f} s, "
           f"second {dt:.4f} s: {tok_s:.1f} tokens/s "
           f"(B={bsz}, prompt {l_prompt}, {n_new} new, incl. prefill); "
           f"repeat identical: {bool(np.array_equal(out, out2))}; "
@@ -322,6 +421,126 @@ def phase_slice(torch, dev):
     return launches, tok_s
 
 
+def phase_multiturn(torch, dev, lm):
+    from unittest import mock
+
+    from exploring_flash_attention_tpu_torch.models import (
+        GenerationEngine,
+        forward_collect_kv,
+    )
+    from exploring_flash_attention_tpu_torch.models import (
+        generate as generate_module,
+    )
+    from exploring_flash_attention_tpu_torch.serving import (
+        gather_kv,
+        paged_extend_attention,
+    )
+
+    cfg, params, prompt = lm.cfg, lm.params, lm.prompt
+    bsz, n_new, l_turn = prompt.shape[0], 24, 256
+    eng = GenerationEngine(params, cfg, max_seqs=bsz, max_len=1024)
+    zero_counters()
+    out1 = eng.generate(prompt, max_new_tokens=n_new, hold=True)
+    turn1 = read_counters()
+    # turn 2: turn 1's last token, which was never fed into the cache, then
+    # 255 user tokens; the chunk sits at 256 + 23 = 279 .. 534
+    turn = np.concatenate([out1[:, -1:], np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (bsz, l_turn - 1)).astype(np.int32)], axis=1)
+    zero_counters()
+    out2 = eng.continue_generation(turn, max_new_tokens=n_new)
+    turn2 = read_counters()
+    want1 = {"h1": cfg.n_layers, "h6": cfg.n_layers * (n_new - 1), "h6e": 0}
+    want2 = {"h1": 0, "h6": cfg.n_layers * (n_new - 1), "h6e": cfg.n_layers}
+    print(f"  multiturn launches turn 1 {turn1} (expected {want1}), "
+          f"turn 2 {turn2} (expected {want2})")
+    _require(turn1 == want1 and turn2 == want2,
+             "the multi-turn path missed a kernel")
+    _require(out2.shape == (bsz, n_new) and out2.dtype == np.int32
+             and (out2 >= 0).all() and (out2 < cfg.vocab_size).all(),
+             f"bad tokens {out2.shape} {out2.dtype}")
+
+    # the cache holds prompt ++ turn 1 ++ the user's tokens ++ turn 2 but
+    # its last token; the control stream lacks turn 1's last token
+    prefix = np.concatenate([prompt, out1, turn[:, 1:]], axis=1)
+    stream = np.concatenate([prefix, out2[:, :-1]], axis=1)
+    short = np.concatenate([prompt, out1[:, :-1], turn[:, 1:], out2[:, :-1]],
+                           axis=1)
+    n = stream.shape[1]
+    _, kvs = forward_collect_kv(params, torch.from_numpy(stream).to(dev), cfg)
+    _, kvs_bad = forward_collect_kv(params, torch.from_numpy(short).to(dev),
+                                    cfg)
+    e_kv = e_bad = 0.0
+    for cache, (k_ref, v_ref), (k_bad, _) in zip(eng.caches, kvs, kvs_bad):
+        _require(bool((cache.seq_lens[:bsz] == n).all()),
+                 f"cache lengths {cache.seq_lens.tolist()}, expected {n}")
+        for s in range(bsz):
+            k, v = gather_kv(cache, s)                  # [Hkv, n, d] f32
+            e_kv = max(e_kv,
+                       (k - k_ref[s].transpose(0, 1)).abs().max().item(),
+                       (v - v_ref[s].transpose(0, 1)).abs().max().item())
+            e_bad = max(e_bad, (k[:, :n - 1] - k_bad[s].transpose(0, 1))
+                        .abs().max().item())
+    del kvs, kvs_bad
+    eng.release()
+    free = eng.allocator.free_pages
+
+    torch.cuda.synchronize()
+    eng.generate(prompt, max_new_tokens=n_new, hold=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.continue_generation(turn, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    eng.release()
+    tok_s = bsz * n_new / dt
+
+    # controls: the turn without its first token (turn 1's last), and the
+    # turn with every chunk row's own key hidden in the extend kernel
+    def hide_diagonal(q, cache, slots):
+        with newest_token_hidden(cache, slots):
+            return paged_extend_attention(q, cache, slots)
+
+    eng.generate(prompt, max_new_tokens=n_new, hold=True)
+    short_out = eng.continue_generation(turn[:, 1:], max_new_tokens=n_new)
+    eng.release()
+    eng.generate(prompt, max_new_tokens=n_new, hold=True)
+    with mock.patch.object(generate_module, "paged_extend_attention",
+                           hide_diagonal):
+        diag_out = eng.continue_generation(turn, max_new_tokens=n_new)
+    eng.release()
+    agree, steps, worst_gap = compare_with_full_forward(
+        torch, params, cfg, prefix, out2)
+    bad_agree, _, bad_gap = compare_with_full_forward(
+        torch, params, cfg, prefix, short_out)
+    diag_agree, _, diag_gap = compare_with_full_forward(
+        torch, params, cfg, prefix, diag_out)
+    print(f"  multiturn cache after turn 2 ({n} tokens, {cfg.n_layers} "
+          f"layers): max|dK|,|dV| vs forward_collect_kv over the stream "
+          f"{e_kv:.3e} (tol {CACHE_KV_TOL:g}), control (turn without its "
+          f"first token) {e_bad:.3e}; pages free after release {free}/"
+          f"{eng.allocator.n_pages}")
+    print(f"  multiturn turn 2 second call {dt:.4f} s: {tok_s:.1f} tokens/s "
+          f"(B={bsz}, turn {l_turn}, {n_new} new, incl. the extend); repeat "
+          f"identical: {bool(np.array_equal(out2, again))}; full-forward "
+          f"agreement {agree}/{steps}, largest gap of a disagreement "
+          f"{worst_gap:.4f} (limit {LOGIT_GAP}); control (turn without its "
+          f"first token) {bad_agree}/{steps}, largest gap {bad_gap:.4f}; "
+          f"diagonal key hidden in extend (not required to fail: a one-key "
+          f"mask fault is the extend phase's to catch) {diag_agree}/{steps}, "
+          f"largest gap {diag_gap:.4f}")
+    _require(e_kv < CACHE_KV_TOL, "the cache after turn 2 differs from "
+             "the forward over the stream")
+    _require(e_bad > CACHE_KV_TOL,
+             "the cache check cannot tell a stream one token short")
+    _require(free == eng.allocator.n_pages, "release() kept pages")
+    _require(worst_gap < LOGIT_GAP,
+             "a turn-2 token differs from the full forward's beyond a tie")
+    _require(bad_gap >= LOGIT_GAP,
+             "the full-forward check cannot tell a turn one token short")
+    print("phase multiturn: ok")
+    return turn2, tok_s
+
+
 def time_kernels(torch, dev):
     from exploring_flash_attention_tpu_torch.ops.attention import (
         causal_attention_plain,
@@ -330,6 +549,8 @@ def time_kernels(torch, dev):
     from exploring_flash_attention_tpu_torch.serving import (
         paged_decode_attention,
         paged_decode_plain,
+        paged_extend_attention,
+        paged_extend_plain,
     )
     from exploring_flash_attention_tpu_torch.utils import time_cuda
 
@@ -343,12 +564,17 @@ def time_kernels(torch, dev):
     cache, qd, slots, _ = make_decode_case(torch, dev)
     h6 = (time_cuda(lambda: paged_decode_attention(qd, cache, slots)),
           time_cuda(lambda: paged_decode_plain(qd, cache, slots, s)))
+    cache, qe, slots, _ = make_decode_case(torch, dev, chunk=256)
+    h6e = (time_cuda(lambda: paged_extend_attention(qe, cache, slots)),
+           time_cuda(lambda: paged_extend_plain(qe, cache, slots, s)))
     print(f"  times (CUDA events, median of 50 calls, L2 flushed before "
           f"each): "
           f"H1 {h1[0]:.4f} ms vs plain {h1[1]:.4f} ms at B=8 Hq=8 Hkv=4 "
           f"L=256 d=128; H6-decode {h6[0]:.4f} ms vs plain {h6[1]:.4f} ms "
-          f"at B=8 Hq=8 Hkv=4 ctx 257..280 d=128")
-    return h1, h6
+          f"at B=8 Hq=8 Hkv=4 ctx 257..280 d=128; H6-extend {h6e[0]:.4f} ms "
+          f"vs plain {h6e[1]:.4f} ms at B=8 C=256 Hq=8 Hkv=4 history "
+          f"257..280 d=128")
+    return h1, h6, h6e
 
 
 def main() -> int:
@@ -370,8 +596,11 @@ def main() -> int:
     phase_build(kernels)
     h1_err = phase_h1(torch, dev)
     h6_err = phase_decode(torch, dev)
-    launches, _ = phase_slice(torch, dev)
-    h1_ms, h6_ms = time_kernels(torch, dev)
+    h6e_err = phase_extend(torch, dev)
+    lm = make_flagship(torch, dev)
+    launches, _ = phase_slice(torch, dev, lm)
+    turn2, _ = phase_multiturn(torch, dev, lm)
+    h1_ms, h6_ms, h6e_ms = time_kernels(torch, dev)
     _require("jax" not in sys.modules, "JAX was imported")
     print(json.dumps({"kernels": [
         {"name": "H1 causal prefill attention", "route": "cuda",
@@ -386,6 +615,12 @@ def main() -> int:
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:74",
          "launches": launches["h6"], "max_abs_err": h6_err,
          "ms": h6_ms[0], "plain_ms": h6_ms[1]},
+        {"name": "H6-extend paged INT8 chunked-prefill attention",
+         "route": "cuda", "source": H6E_SRC,
+         "replaces": "exploring_flash_attention_tpu/serving/decode.py:257",
+         "also_replaces": "exploring_flash_attention_tpu/serving/decode.py:455",
+         "launches": turn2["h6e"], "max_abs_err": h6e_err,
+         "ms": h6e_ms[0], "plain_ms": h6e_ms[1]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
 C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds, not minutes).  The build happens at first use, into
+seconds, not minutes).  One ``nvcc`` per source runs in parallel, then one
+links the objects.  The build happens at first use, into
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
-sources and flags, so a fresh checkout builds its own kernels and an
-edited source never loads a stale library.  Nothing here runs at import
+sources, headers and flags, so a fresh checkout builds its own kernels and
+an edited source never loads a stale library.  Nothing here runs at import
 time: the CPU-only test machines import every module and have no ``nvcc``.
 """
 
@@ -24,7 +25,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / "kernels"
 LIB_NAME = "libeft_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -37,6 +38,9 @@ _SIGNATURES = {
     # q, pages, scales, page_table, seq_lens, slots, o, batch, hq, hkv, d,
     # page_size, max_pages, max_seqs, scale, device, stream
     "eft_paged_decode": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    # q, pages, scales, page_table, seq_lens, slots, o, batch, c, hq, hkv, d,
+    # page_size, max_pages, max_seqs, scale, device, stream
+    "eft_paged_extend": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
 }
 
 
@@ -56,7 +60,7 @@ def _sources():
 def build_dir() -> Path:
     """The directory of the library built from the current sources."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):          # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
@@ -71,13 +75,29 @@ def build() -> Path:
     if lib.exists():
         return lib
     out.mkdir(parents=True, exist_ok=True)
-    tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    tag = os.getpid()               # concurrent builds write apart
+    jobs = []
+    for src in _sources():
+        obj = out / f"{src.stem}.{tag}.o"
+        log = out / f"{src.stem}.{tag}.log"
+        with open(log, "w") as err:
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.DEVNULL, stderr=err)
+        jobs.append((proc, obj, log))
+    codes = [proc.wait() for proc, _, _ in jobs]     # every job ends first
+    reports = [log.read_text() for _, _, log in jobs]
+    for code, report in zip(codes, reports):
+        if code != 0:
+            raise RuntimeError(f"nvcc failed with code {code}:\n{report}")
+    tmp = out / f"{LIB_NAME}.{tag}.tmp"
+    res = subprocess.run(
+        [_nvcc(), "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+        capture_output=True, text=True, check=False)
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{res.stderr}")
-    (out / "ptxas.log").write_text(res.stderr)
+            f"nvcc link failed with code {res.returncode}:\n{res.stderr}")
+    (out / "ptxas.log").write_text("".join(reports))
     os.replace(tmp, lib)            # atomic: concurrent builders agree
     return lib
 

@@ -1,4 +1,5 @@
-"""LM inference engine of the port: prefill -> paged INT8 KV-cache -> decode.
+"""LM inference engine of the port: prefill -> paged INT8 KV-cache -> decode,
+and multi-turn continuation over the held cache.
 
 Counterpart of ``models/generate.py`` in the JAX package:
 
@@ -7,13 +8,19 @@ Counterpart of ``models/generate.py`` in the JAX package:
 - :func:`_decode_forward` advances every sequence one token: single-token
   projections, the cache append, paged decode attention (kernel H6-decode)
   per layer, logits;
+- :func:`_extend_forward` feeds a new turn of C tokens per sequence: the
+  chunk is appended to the cache, then attends over the whole paged
+  history (kernel H6-extend), with no recompute of the earlier turns;
 - :class:`GenerationEngine` owns the per-layer caches and the page
-  allocation and exposes :meth:`GenerationEngine.generate`.
+  allocation and exposes :meth:`GenerationEngine.generate`,
+  :meth:`GenerationEngine.continue_generation` and
+  :meth:`GenerationEngine.release`.
 
-The cache stores post-rotation K, and decode rotates each new token's q/k
-at its per-sequence position read from the cache's ``seq_lens``, so
-``seq_lens`` doubles as the RoPE position counter.  The decode loop is a
-Python loop; the tokens stay on the device until the loop ends.
+The cache stores post-rotation K, and decode and extend rotate each new
+token's q/k at its per-sequence position read from the cache's
+``seq_lens`` before the append, so ``seq_lens`` doubles as the RoPE
+position counter.  The decode loop is a Python loop; the tokens stay on
+the device until the loop ends.
 """
 
 from __future__ import annotations
@@ -34,10 +41,12 @@ from exploring_flash_attention_tpu_torch.models.transformer import (
 from exploring_flash_attention_tpu_torch.ops.attention import flash_attention
 from exploring_flash_attention_tpu_torch.serving.decode import (
     paged_decode_attention,
+    paged_extend_attention,
 )
 from exploring_flash_attention_tpu_torch.serving.kv_cache import (
     PagedKVCache,
     PageAllocator,
+    append_chunks,
     append_prompts,
     append_tokens,
     make_cache,
@@ -102,6 +111,39 @@ def _decode_forward(
     return torch.einsum("be,ve->bv", xf, params["embed"].to(c.dtype)).float()
 
 
+def _extend_forward(
+    params: Params,
+    tokens: torch.Tensor,          # [B, C] int, a new turn per sequence
+    caches: List[PagedKVCache],
+    slots: torch.Tensor,           # int32 [B]
+    config: ModelConfig,
+) -> torch.Tensor:
+    """Multi-turn continuation forward: appends each layer's chunk K/V to
+    its cache in place, attends over the paged history and returns logits
+    f32 [B, C, V]."""
+    c = config
+    x = params["embed"][tokens.long()].to(c.dtype)          # [B, C, E]
+    for p, cache in zip(params["layers"], caches):
+        h = _rmsnorm(x, p["ln1"], c.norm_eps)
+        q = torch.einsum("ble,ehd->bhld", h, p["wq"])        # [B, Hq, C, d]
+        k = torch.einsum("ble,ehd->bhld", h, p["wk"])
+        v = torch.einsum("ble,ehd->bhld", h, p["wv"])
+        if c.use_rope:
+            # the chunk's positions, read before the append moves seq_lens
+            pos = cache.seq_lens[slots.long()][:, None] + torch.arange(
+                tokens.shape[1], device=x.device)            # [B, C]
+            q = rope(q, pos[:, None], c.rope_theta)
+            k = rope(k, pos[:, None], c.rope_theta)
+        # append first: the chunk reads itself back quantized, as decode does
+        append_chunks(cache, slots, k.transpose(1, 2), v.transpose(1, 2))
+        o = paged_extend_attention(q.transpose(1, 2).contiguous(), cache,
+                                   slots)                    # [B, C, Hq, d]
+        x = x + torch.einsum("blhd,hde->ble", o.to(x.dtype), p["wo"])
+        x = x + _mlp_block(p, x, c)
+    xf = _rmsnorm(x, params["ln_f"], c.norm_eps)
+    return torch.einsum("ble,ve->blv", xf, params["embed"].to(c.dtype)).float()
+
+
 def sample(logits: torch.Tensor, temperature: float = 0.0,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Greedy (temperature 0) or temperature sampling -> [B] int32."""
@@ -143,6 +185,8 @@ class GenerationEngine:
         self.max_seqs = max_seqs
         self.pages_per_seq = pages_per_seq
         self._mapped_pages: List[int] = []
+        self._held_slots: Optional[torch.Tensor] = None
+        self._held_len = 0          # tokens in each held sequence's cache
 
     def _map_slots(self, bsz: int) -> torch.Tensor:
         # the table is built on the host and copied once per layer
@@ -162,6 +206,32 @@ class GenerationEngine:
         self.allocator.free(self._mapped_pages)
         self._mapped_pages = []
 
+    def _tokens(self, tokens) -> torch.Tensor:
+        if isinstance(tokens, torch.Tensor):
+            return tokens.to(self.device)
+        return torch.as_tensor(np.asarray(tokens), device=self.device)
+
+    def _check_room(self, n_tokens: int) -> None:
+        room = self.pages_per_seq * self.page_size
+        if n_tokens > room:
+            raise ValueError(f"{n_tokens} tokens per sequence exceed the "
+                             f"{room} a slot holds (max_len)")
+
+    def _decode(self, logits: torch.Tensor, slots: torch.Tensor,
+                max_new_tokens: int, temperature: float,
+                generator: torch.Generator) -> np.ndarray:
+        """Sample from the last position's logits [B, V], then decode one
+        token per step: [B, max_new_tokens] int32.  The newest sampled
+        token is never fed into the cache."""
+        tok = sample(logits, temperature, generator)
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            logits = _decode_forward(self.params, tok, self.caches, slots,
+                                     self.config)
+            tok = sample(logits, temperature, generator)
+            out.append(tok)
+        return torch.stack(out, dim=1).cpu().numpy()
+
     @torch.no_grad()
     def generate(
         self,
@@ -169,16 +239,22 @@ class GenerationEngine:
         max_new_tokens: int,
         temperature: float = 0.0,
         seed: int = 0,
+        hold: bool = False,
     ) -> np.ndarray:
-        """Returns the generated tokens [B, max_new_tokens] (int32).  The
-        slots are freed on return: holding them for multi-turn generation
-        (``hold=True`` in the JAX package) comes with
-        ``continue_generation``."""
-        prompt = (prompt.to(self.device) if isinstance(prompt, torch.Tensor)
-                  else torch.as_tensor(np.asarray(prompt), device=self.device))
-        bsz = prompt.shape[0]
+        """Returns the generated tokens [B, max_new_tokens] (int32).
+
+        ``hold=True`` keeps the batch's cache slots mapped after the call,
+        so :meth:`continue_generation` can extend the conversation without
+        re-running the prompt; :meth:`release` frees them.  While slots are
+        held, ``generate`` raises ``RuntimeError``.  An error during the
+        call frees the slots."""
+        prompt = self._tokens(prompt)
+        bsz, l_prompt = prompt.shape
         if bsz > self.max_seqs:
             raise ValueError(f"batch {bsz} > max_seqs {self.max_seqs}")
+        if self._held_slots is not None:
+            raise RuntimeError("slots held: call release() first")
+        self._check_room(l_prompt + max_new_tokens - 1)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         try:
             # inside the try so a partial allocation still gets freed
@@ -186,14 +262,59 @@ class GenerationEngine:
             logits, kvs = forward_collect_kv(self.params, prompt, self.config)
             for cache, (k, v) in zip(self.caches, kvs):
                 append_prompts(cache, slots, k, v)
-            tok = sample(logits[:, -1, :], temperature, generator)
-            out = [tok]
-            for _ in range(max_new_tokens - 1):
-                logits = _decode_forward(self.params, tok, self.caches,
-                                         slots, self.config)
-                tok = sample(logits, temperature, generator)
-                out.append(tok)
-            result = torch.stack(out, dim=1).cpu().numpy()
-        finally:
+            result = self._decode(logits[:, -1, :], slots, max_new_tokens,
+                                  temperature, generator)
+        except BaseException:
             self._release_slots()           # the engine stays reusable
+            raise
+        if hold:
+            self._held_slots = slots
+            self._held_len = l_prompt + max_new_tokens - 1
+        else:
+            self._release_slots()
         return result
+
+    @torch.no_grad()
+    def continue_generation(
+        self,
+        new_tokens,                 # [B, C] int: the next turn
+        max_new_tokens: int,
+        temperature: float = 0.0,
+        seed: int = 1,
+    ) -> np.ndarray:
+        """Multi-turn continuation over the held slots: the new turn's
+        tokens attend to the existing cache through the paged extend kernel
+        (no recompute of the history), then decoding proceeds as in
+        :meth:`generate`.  Returns [B, max_new_tokens] (int32).
+
+        The turn starts with the previous call's last token, which was
+        never fed into the cache.  Without held slots this raises
+        ``RuntimeError``; a batch other than the held one, or a turn that
+        would overflow a slot, raises ``ValueError`` and leaves the slots
+        held.  An error during the call frees them."""
+        if self._held_slots is None:
+            raise RuntimeError("no held slots: generate(..., hold=True) first")
+        slots = self._held_slots
+        new_tokens = self._tokens(new_tokens)
+        if new_tokens.shape[0] != slots.shape[0]:
+            raise ValueError(f"batch {new_tokens.shape[0]} does not match "
+                             f"the {slots.shape[0]} held slots")
+        length = self._held_len + new_tokens.shape[1] + max_new_tokens - 1
+        self._check_room(length)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        try:
+            logits = _extend_forward(self.params, new_tokens, self.caches,
+                                     slots, self.config)
+            result = self._decode(logits[:, -1, :], slots, max_new_tokens,
+                                  temperature, generator)
+        except BaseException:
+            self.release()
+            raise
+        self._held_len = length
+        return result
+
+    def release(self) -> None:
+        """Free the slots held by ``generate(..., hold=True)``."""
+        if self._held_slots is not None:
+            self._held_slots = None
+            self._release_slots()

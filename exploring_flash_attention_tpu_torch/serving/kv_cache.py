@@ -132,6 +132,33 @@ def append_tokens(
     cache.seq_lens[ids] += 1
 
 
+def append_chunks(
+    cache: PagedKVCache,
+    seq_ids: torch.Tensor,       # int [B] cache slots being written
+    k_new: torch.Tensor,         # [B, C, Hkv, d] C new K rows per sequence
+    v_new: torch.Tensor,
+) -> None:
+    """Append C tokens per sequence in place at each sequence's current
+    ``seq_lens`` (any offset, not only a page boundary), then advance
+    ``seq_lens`` by C: :func:`append_tokens` over a chunk, the multi-turn
+    cache write.  Only the C rows are written, so the rows already in a
+    partly filled page survive.  The pages must already be mapped.
+    (``append_tokens`` does not call this with C = 1: the position arange
+    would add kernel launches to every decode step.)"""
+    ids = seq_ids.long()
+    c = k_new.shape[1]
+    pos = cache.seq_lens[ids].long()[:, None] + torch.arange(
+        c, device=k_new.device)                                 # [B, C]
+    page_ids = cache.page_table[ids[:, None], pos // cache.page_size].long()
+    offset = pos % cache.page_size
+    kq, ks = _quantize_rows(k_new)                      # [B,C,H,d], [B,C,H]
+    vq, vs = _quantize_rows(v_new)
+    # pages[page_ids[b, i], :, h, offset[b, i], :] = kv[b, i, :, h, :]
+    cache.kv_pages[page_ids, :, :, offset, :] = torch.stack([kq, vq], dim=2)
+    cache.kv_scales[page_ids, :, :, 0, offset] = torch.stack([ks, vs], dim=2)
+    cache.seq_lens[ids] += c
+
+
 def append_prompts(
     cache: PagedKVCache,
     seq_ids: torch.Tensor,       # int [B] cache slots (page tables mapped)

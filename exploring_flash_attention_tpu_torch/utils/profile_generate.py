@@ -1,18 +1,22 @@
-"""Where one ``GenerationEngine.generate`` call spends its time on the card.
+"""Where a generation call spends its time on the card: one
+``GenerationEngine.generate`` (turn 1) and one ``continue_generation``
+over the held cache (turn 2).
 
 Run from the repository root on a machine with one CUDA card:
 
     python -m exploring_flash_attention_tpu_torch.utils.profile_generate
 
 It drives the flagship LM (``models.flagship_config``, random weights from
-seed 0) on [8, 256] prompts for 24 new tokens, as ``chip_smoke.py`` does,
-and prints:
+seed 0) on [8, 256] prompts for 24 new tokens, then a second turn of 256
+tokens (turn 1's last token and 255 new ones) for 24 more, as
+``chip_smoke.py`` does.  For each turn it prints:
 
-- the host-clock time of ``generate`` and of its two halves (prefill:
-  ``forward_collect_kv`` + the cache writes + the first sample; decode: the
-  other 23 steps), over ``--repeats`` synchronized calls, sorted;
-- one ``torch.profiler`` run of ``generate``: the wall time, the kernel
-  time summed over the device rows of ``key_averages()`` (the CPU-op rows
+- the host-clock time of the call and of its two halves (the first
+  forward: prefill, or the extend over the held cache, with the cache
+  writes and the first sample; decode: the other 23 steps), over
+  ``--repeats`` synchronized calls, sorted;
+- one ``torch.profiler`` run of the call: the wall time, the kernel time
+  summed over the device rows of ``key_averages()`` (the CPU-op rows
   repeat their kernels' time, so they are left out), their ratio (the
   device busy share), the number of kernel launches, and the kernels that
   take the most device time.
@@ -34,6 +38,7 @@ from exploring_flash_attention_tpu_torch.models import (
 )
 from exploring_flash_attention_tpu_torch.models.generate import (
     _decode_forward,
+    _extend_forward,
     forward_collect_kv,
     sample,
 )
@@ -49,19 +54,15 @@ def _timed(fn) -> float:
 
 
 @torch.no_grad()
-def split_prefill_decode(eng: GenerationEngine, prompt: np.ndarray,
-                         n_new: int):
-    """Host seconds of (prefill, decode) of one greedy generation, run step
-    by step as ``generate`` runs it."""
-    slots = eng._map_slots(prompt.shape[0])
-    tokens = torch.as_tensor(prompt, device=eng.device)
+def split_first_decode(eng: GenerationEngine, first, slots: torch.Tensor,
+                       n_new: int):
+    """Host seconds of (``first()``, the logits of the call's first forward,
+    and its sample; the other decode steps) of one greedy call, run step
+    by step as the engine runs it."""
     state = {}
 
-    def prefill():
-        logits, kvs = forward_collect_kv(eng.params, tokens, eng.config)
-        for cache, (k, v) in zip(eng.caches, kvs):
-            append_prompts(cache, slots, k, v)
-        state["tok"] = sample(logits[:, -1])
+    def head():
+        state["tok"] = sample(first())
 
     def decode():
         tok = state["tok"]
@@ -69,10 +70,55 @@ def split_prefill_decode(eng: GenerationEngine, prompt: np.ndarray,
             tok = sample(_decode_forward(eng.params, tok, eng.caches, slots,
                                          eng.config))
 
+    return _timed(head), _timed(decode)
+
+
+def split_prefill_decode(eng: GenerationEngine, prompt: np.ndarray,
+                         n_new: int):
+    slots = eng._map_slots(prompt.shape[0])
+    tokens = torch.as_tensor(prompt, device=eng.device)
+
+    def prefill():
+        logits, kvs = forward_collect_kv(eng.params, tokens, eng.config)
+        for cache, (k, v) in zip(eng.caches, kvs):
+            append_prompts(cache, slots, k, v)
+        return logits[:, -1]
+
     try:
-        return _timed(prefill), _timed(decode)
+        return split_first_decode(eng, prefill, slots, n_new)
     finally:
         eng._release_slots()
+
+
+def split_extend_decode(eng: GenerationEngine, prompt: np.ndarray,
+                        turn: np.ndarray, n_new: int):
+    eng.generate(prompt, n_new, hold=True)
+    tokens = torch.as_tensor(turn, device=eng.device)
+
+    def extend():
+        return _extend_forward(eng.params, tokens, eng.caches,
+                               eng._held_slots, eng.config)[:, -1]
+
+    try:
+        return split_first_decode(eng, extend, eng._held_slots, n_new)
+    finally:
+        eng.release()
+
+
+def profile_call(name: str, call, top: int) -> None:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = _timed(call)
+    kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"{name}: profiled wall {wall * 1e3:.3f} ms, summed kernel time "
+          f"{dev_ms:.3f} ms, device busy share {dev_ms / (wall * 1e3):.4f}, "
+          f"kernels launched {sum(e.count for e in kern)}")
+    for e in sorted(kern, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  n={e.count:5d}  "
+              f"{e.key[:100]}")
 
 
 def main() -> None:
@@ -85,37 +131,49 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
     cfg = flagship_config()
-    bsz, l_prompt, n_new = 8, 256, 24
+    bsz, l_prompt, l_turn, n_new = 8, 256, 256, 24
     params = init_params(cfg, seed=0, device=dev)
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (bsz, l_prompt)).astype(np.int32)
     eng = GenerationEngine(params, cfg, max_seqs=bsz, max_len=1024)
+    out1 = eng.generate(prompt, n_new, hold=True)
+    turn = np.concatenate([out1[:, -1:], np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (bsz, l_turn - 1)).astype(np.int32)], axis=1)
     for _ in range(3):                                  # builds, warms up
-        eng.generate(prompt, n_new)
+        eng.continue_generation(turn, n_new)
+        eng.release()
+        eng.generate(prompt, n_new, hold=True)
+    eng.release()
 
-    total, pre, dec = [], [], []
+    def turn2():
+        eng.generate(prompt, n_new, hold=True)
+        try:
+            return _timed(lambda: eng.continue_generation(turn, n_new))
+        finally:
+            eng.release()
+
+    total, pre, dec, total2, ext, dec2 = [], [], [], [], [], []
     for _ in range(args.repeats):
         total.append(_timed(lambda: eng.generate(prompt, n_new)))
         p, d = split_prefill_decode(eng, prompt, n_new)
         pre.append(p)
         dec.append(d)
+        total2.append(turn2())
+        e, d = split_extend_decode(eng, prompt, turn, n_new)
+        ext.append(e)
+        dec2.append(d)
     print(f"generate s {sorted(total)}")
-    print(f"prefill s {sorted(pre)}")
-    print(f"decode ({n_new - 1} steps) s {sorted(dec)}")
+    print(f"  prefill s {sorted(pre)}")
+    print(f"  decode ({n_new - 1} steps) s {sorted(dec)}")
+    print(f"continue_generation s {sorted(total2)}")
+    print(f"  extend ({l_turn} tokens) s {sorted(ext)}")
+    print(f"  decode ({n_new - 1} steps) s {sorted(dec2)}")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = _timed(lambda: eng.generate(prompt, n_new))
-    kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    print(f"profiled wall {wall * 1e3:.3f} ms, summed kernel time "
-          f"{dev_ms:.3f} ms, device busy share {dev_ms / (wall * 1e3):.4f}, "
-          f"kernels launched {sum(e.count for e in kern)}")
-    for e in sorted(kern, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:args.top]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  n={e.count:5d}  "
-              f"{e.key[:100]}")
+    profile_call("generate", lambda: eng.generate(prompt, n_new), args.top)
+    eng.generate(prompt, n_new, hold=True)
+    profile_call("continue_generation",
+                 lambda: eng.continue_generation(turn, n_new), args.top)
+    eng.release()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

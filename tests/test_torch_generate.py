@@ -101,16 +101,35 @@ def test_engine_reusable_and_pages_released():
 
 
 def test_engine_refuses_over_capacity_and_hold():
-    """Multi-turn generation is not ported, so the engine takes no
-    ``hold`` and keeps no slots across calls."""
+    """Slots are held only between ``generate(hold=True)`` and
+    ``release()``: a second ``generate`` then raises, ``continue_generation``
+    raises without them, and a wrong batch or an overflowing turn raises
+    while leaving them held.  A slot holds 2 pages of 16 tokens."""
     eng = GenerationEngine(init_params(CFG, seed=0), CFG, max_seqs=1,
-                           max_len=32)
+                           max_len=32, page_size=16)
     with pytest.raises(ValueError, match="max_seqs"):
         eng.generate(np.zeros((2, 4), np.int32), 2)
-    with pytest.raises(TypeError, match="hold"):
-        eng.generate(np.zeros((1, 4), np.int32), 2, hold=True)
-    assert not hasattr(eng, "release")
+    with pytest.raises(ValueError, match="max_len"):
+        eng.generate(np.zeros((1, 30), np.int32), 4)
+    with pytest.raises(RuntimeError, match="no held slots"):
+        eng.continue_generation(np.zeros((1, 4), np.int32), 2)
     assert eng.allocator.free_pages == eng.allocator.n_pages
+
+    eng.generate(np.zeros((1, 4), np.int32), 2, hold=True)      # 5 cached
+    held = eng.allocator.free_pages
+    assert held < eng.allocator.n_pages
+    with pytest.raises(RuntimeError, match="release"):
+        eng.generate(np.zeros((1, 4), np.int32), 2)
+    with pytest.raises(ValueError, match="held slots"):
+        eng.continue_generation(np.zeros((2, 4), np.int32), 2)
+    with pytest.raises(ValueError, match="max_len"):
+        eng.continue_generation(np.zeros((1, 27), np.int32), 2)
+    assert eng.allocator.free_pages == held
+    eng.continue_generation(np.zeros((1, 25), np.int32), 2)     # 31 cached
+    eng.release()
+    eng.release()                                   # a second one is a no-op
+    assert eng.allocator.free_pages == eng.allocator.n_pages
+    assert eng.generate(np.zeros((1, 4), np.int32), 2).shape == (1, 2)
 
 
 def test_port_never_imports_jax():

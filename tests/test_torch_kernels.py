@@ -12,6 +12,11 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
 - H6-decode vs plain: 5e-3 abs on O (P rounded to bf16 before P V, O
   rounded to bf16; O is an average over ~270 tokens, so its rounding
   errors stay near one bf16 ulp of |O| < 0.5).
+- H6-extend vs plain: 5e-3 abs plus 2^-7 of |O|.  Each chunk row is a
+  decode row over its own causal prefix, but a row that sees only a few
+  keys (a short history) has |O| up to ~3, where rounding O to bf16 alone
+  moves it by up to 2^-8 of |O| (a kernel-exact emulation on the CPU
+  reads 1.18e-2 at |O| = 2.24 in the ragged case, as the card does).
 """
 
 import math
@@ -26,11 +31,14 @@ from exploring_flash_attention_tpu_torch.ops.attention import (
     prefill_attention,
 )
 from exploring_flash_attention_tpu_torch.serving import (
+    append_chunks,
     append_prompts,
     gather_kv,
     make_cache,
     paged_decode_attention,
     paged_decode_plain,
+    paged_extend_attention,
+    paged_extend_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -38,6 +46,7 @@ pytestmark = pytest.mark.cuda
 O_TOL = 2e-2
 LSE_TOL = 4e-3
 DECODE_O_TOL = 5e-3
+EXTEND_O_TOL = 5e-3
 
 
 @pytest.fixture
@@ -120,3 +129,58 @@ def test_decode_kernel_matches_plain_and_oracle(cuda_device, hq, hkv, d):
         oracle = naive_attention(q[s].view(hkv, hq // hkv, d), kf, vf)
         got = o[s].float().view(hkv, hq // hkv, d).cpu().numpy()
         assert np.abs(got - oracle).max() < DECODE_O_TOL
+
+
+def _extend_case(dev, hq, hkv, d, hist, c, ps=128, seed=2):
+    """Ragged histories through append_prompts, then one C-token chunk
+    through append_chunks, in a permuted page table; bf16 q [B, C, Hq, d]."""
+    b = len(hist)
+    max_pages = -(-(max(hist) + c) // ps)
+    cache = make_cache(hkv, d, b * max_pages, page_size=ps, max_seqs=b,
+                       max_pages_per_seq=max_pages, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(b * max_pages, generator=g)
+    cache.page_table.copy_(perm.view(b, max_pages).to(torch.int32))
+    slots = torch.arange(b, dtype=torch.int32, device=dev)
+    for s, n in enumerate(hist):
+        kp = torch.randn(1, n, hkv, d, generator=g).to(dev)
+        vp = torch.randn(1, n, hkv, d, generator=g).to(dev)
+        append_prompts(cache, slots[s:s + 1], kp, vp)
+    append_chunks(cache, slots, torch.randn(b, c, hkv, d, generator=g).to(dev),
+                  torch.randn(b, c, hkv, d, generator=g).to(dev))
+    q = torch.randn(b, c, hq, d, generator=g).to(dev, torch.bfloat16)
+    return cache, q, slots
+
+
+@pytest.mark.parametrize("hq,hkv,d,hist,c", [
+    (8, 4, 128, [257 + 3 * i for i in range(8)], 256),   # the multi-turn slice
+    (8, 2, 64, [130, 1, 200, 77], 77),                   # ragged, G=4, d=64
+])
+def test_extend_kernel_matches_plain_and_oracle(cuda_device, hq, hkv, d,
+                                                hist, c):
+    cache, q, slots = _extend_case(cuda_device, hq, hkv, d, hist, c)
+    o = paged_extend_attention(q, cache, slots)
+    torch.cuda.synchronize()
+    ref = paged_extend_plain(q, cache, slots, 1.0 / math.sqrt(d))
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert ((o.float() - ref).abs()
+            <= EXTEND_O_TOL + 2 ** -7 * ref.abs()).all()
+    g = hq // hkv
+    for s, n in enumerate(hist):
+        kf, vf = gather_kv(cache, s)
+        for i in (0, c // 2, c - 1):
+            oracle = naive_attention(q[s, i].view(hkv, g, d),
+                                     kf[:, :n + i + 1], vf[:, :n + i + 1])
+            got = o[s, i].float().view(hkv, g, d).cpu().numpy()
+            assert (np.abs(got - oracle)
+                    <= EXTEND_O_TOL + 2 ** -7 * np.abs(oracle)).all(), (s, i)
+
+
+def test_extend_kernel_counts_launches_and_refuses_f32(cuda_device):
+    cache, q, slots = _extend_case(cuda_device, 4, 2, 64, [5, 140], 9)
+    before = paged_extend_attention.launches
+    paged_extend_attention(q, cache, slots)
+    assert paged_extend_attention.launches == before + 1
+    with pytest.raises(TypeError, match="bf16"):
+        paged_extend_attention(q.float(), cache, slots)
+    assert paged_extend_attention.launches == before + 1

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's generation path once on one NVIDIA H100.
+"""Drive the PyTorch port's generation and training paths on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -18,7 +18,12 @@ Phases, one line each; any failure exits non-zero before the last line:
 5. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
    its plain version and the f64 oracle, a C = 256 chunk appended to
    ragged histories 257..280;
-6. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
+6. bwd:    kernels H3-dkv and H3-dq (the causal attention backward, through
+   flash_attention_bwd) vs attention_bwd_plain and f64 autograd of the
+   plain forward, at the training shape (B=8, Hq=8, Hkv=4, L=1024,
+   d=128), a ragged cross case (Lq=200, Lkv=216) and L=3072, B=1 (where
+   the JAX package takes B12/B13); two runs must be bitwise equal;
+7. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
    GQA 8/4, d_head 128, d_ff 4096, bf16, random weights from seed 0) runs
    GenerationEngine.generate on [8, 256] prompts for 24 tokens.  Every
    kernel's launch counter is zeroed just before and read just after: H1
@@ -26,14 +31,23 @@ Phases, one line each; any failure exits non-zero before the last line:
    token is checked against a fresh full forward over the sequence so far
    (agreement, or a near-tie under LOGIT_GAP).  Tokens/s come from the
    host clock around a second, synchronized call;
-7. multiturn: the same model holds its slots (generate(hold=True)), then
+8. multiturn: the same model holds its slots (generate(hold=True)), then
    continue_generation feeds a second turn of 256 tokens (turn 1's last
    token and 255 new ones, chunk at positions 279..534) and decodes 24
    more.  Counters: turn 1 H1 4, H6-decode 92; turn 2 H6-extend 4,
    H6-decode 92, H1 0.  Each turn-2 token is checked against the full
    forward over the whole stream so far, and every layer's cache against
    forward_collect_kv over the concatenated stream; release() must return
-   every page.
+   every page;
+9. train:  the same model, trainable (fresh weights from seed 0), takes
+   make_train_step's AdamW steps (lr 1e-3) on tokens [8, 1025] from
+   np.random.default_rng(0).  Every step must launch H1, H3-dkv and H3-dq
+   n_layers = 4 times each.  Before the steps, the step-0 loss and every
+   parameter's gradient are held against the same model with the plain
+   attention patched in (mock.patch), with the diagonal key hidden in the
+   forward (loss) and in the backward (gradients) as controls; the loss
+   must fall strictly over 5 steps, and tokens/s and TFLOP/s come from the
+   host clock around further synchronized steps.
 
 Kernel times come from CUDA events (L2 flushed before each call) beside
 their plain versions.  Every check also runs a control: the same comparison
@@ -48,6 +62,7 @@ Then a JSON line describing the kernels, the nvidia-smi line, and last
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -75,9 +90,31 @@ CACHE_KV_TOL = 0.2     # cache after turn 2 vs forward_collect_kv: the int8
                        # of K/V that two paths computed (ulp 0.03 at |k| ~ 4);
                        # sound runs 0.106, the one-token-short control 7.6
 
+H3_REL_TOL = 2e-2      # per gradient, max|d| / max|ref|: P and dS rounded to
+                       # bf16 before their products, the gradients to bf16;
+                       # sound runs 3.4e-3..5.7e-3 (a CPU emulation of those
+                       # roundings 3e-3..7e-3), the diagonal-hidden control
+                       # 0.36..1.03
+TRAIN_LOSS_TOL = 7e-5  # step-0 loss (10.6) vs the plain attention: a mean
+                       # over 8,192 tokens of near-uniform predictions
+                       # (random weights), moved only where H1's bf16 O
+                       # differs by an ulp; sound runs 2.4e-5, the
+                       # diagonal-hidden forward 1.8e-4
+GRAD_REL_TOL = 6e-2    # largest per-leaf ||dg|| / ||g_plain|| over the 38
+                       # leaves: bf16 gradients through 4 layers; sound runs
+                       # 2.4e-2, the diagonal-hidden backward 0.15
+
 H1_SRC = "exploring_flash_attention_tpu_torch/csrc/prefill_attention.cu"
 H6_SRC = "exploring_flash_attention_tpu_torch/csrc/paged_decode.cu"
 H6E_SRC = "exploring_flash_attention_tpu_torch/csrc/paged_extend.cu"
+H3_SRC = "exploring_flash_attention_tpu_torch/csrc/attention_bwd.cu"
+BWD_PY = "exploring_flash_attention_tpu/ops/attention_bwd.py"
+
+# (B, Hq, Hkv, Lq, Lkv, d) of the bwd phase: the training shape first (its
+# error goes into the kernels line), a ragged cross case, and a length
+# where the JAX package takes B12/B13
+BWD_SHAPES = [(8, 8, 4, 1024, 1024, 128), (8, 8, 4, 200, 216, 128),
+              (1, 8, 4, 3072, 3072, 128)]
 
 
 class PhaseError(RuntimeError):
@@ -291,6 +328,71 @@ def phase_extend(torch, dev):
     return e_o
 
 
+def _rel(got, ref) -> float:
+    """max|got - ref| / max|ref|."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def f64_attention_grads(torch, q, k, v, do, scale, diag_off):
+    """Gradients of sum(o * do) by f64 autograd through the plain forward
+    (every row must see a key: a row that sees none has no gradient)."""
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        causal_attention_plain,
+    )
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    o, _ = causal_attention_plain(qd, kd, vd, scale, diag_off)
+    return torch.autograd.grad((o * do.double()).sum(), (qd, kd, vd))
+
+
+def phase_bwd(torch, dev):
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+        attention_bwd_plain,
+        flash_attention_bwd,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    main_err = None             # max |d| vs plain at the main path's shape
+    for b, hq, hkv, lq, lkv, d in BWD_SHAPES:
+        q = _bf16(torch, dev, gen, b, hq, lq, d)
+        k = _bf16(torch, dev, gen, b, hkv, lkv, d)
+        v = _bf16(torch, dev, gen, b, hkv, lkv, d)
+        do = _bf16(torch, dev, gen, b, hq, lq, d)
+        scale, off = 1.0 / math.sqrt(d), lkv - lq
+        out, lse = prefill_attention(q, k, v, scale, off)     # H1's residuals
+        grads = flash_attention_bwd(q, k, v, out, do, lse, scale)
+        again = flash_attention_bwd(q, k, v, out, do, lse, scale)
+        torch.cuda.synchronize()
+        identical = all(torch.equal(x, y) for x, y in zip(grads, again))
+        plain = attention_bwd_plain(q, k, v, out, do, lse, scale, off)
+        f64 = f64_attention_grads(torch, q, k, v, do, scale, off)
+        # control: the plain backward with each row's diagonal key hidden
+        bad = attention_bwd_plain(q, k, v, out, do, lse, scale, off - 1)
+        e_plain = [_rel(g, r) for g, r in zip(grads, plain)]
+        e_f64 = [_rel(g, r) for g, r in zip(grads, f64)]
+        e_bad = [_rel(g, r) for g, r in zip(grads, bad)]
+        fmt = lambda e: " ".join(                               # noqa: E731
+            f"{n} {x:.3e}" for n, x in zip(("dq", "dk", "dv"), e))
+        print(f"  bwd B={b} Hq={hq} Hkv={hkv} Lq={lq} Lkv={lkv} d={d}: "
+              f"max|d|/max|ref| vs plain {fmt(e_plain)}; vs f64 autograd "
+              f"{fmt(e_f64)} (tol {H3_REL_TOL:g}); control (diagonal key "
+              f"hidden) {fmt(e_bad)}; two runs bitwise equal: {identical}")
+        _require(all(torch.isfinite(g.float()).all().item() for g in grads),
+                 "H3 gradients not finite")
+        _require(max(e_plain + e_f64) < H3_REL_TOL, "H3 outside tolerance")
+        _require(min(e_bad) > H3_REL_TOL,
+                 "H3 tolerance cannot tell a wrong mask")
+        _require(identical, "H3 is not deterministic")
+        if main_err is None:
+            main_err = [(g.float() - r.float()).abs().max().item()
+                        for g, r in zip(grads, plain)]
+    print("phase bwd: ok")
+    return {"h3dq": main_err[0], "h3dkv": max(main_err[1:])}
+
+
 def compare_with_full_forward(torch, params, cfg, prompt, out):
     """Greedy replay: at every step, the decode path's token against the
     full forward's argmax over the sequence so far.  Returns (agreements,
@@ -316,7 +418,9 @@ def compare_with_full_forward(torch, params, cfg, prompt, out):
 
 
 def _counted():
-    from exploring_flash_attention_tpu_torch.ops.attention import (
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
         prefill_attention,
     )
     from exploring_flash_attention_tpu_torch.serving import (
@@ -324,7 +428,13 @@ def _counted():
         paged_extend_attention,
     )
     return {"h1": prefill_attention, "h6": paged_decode_attention,
-            "h6e": paged_extend_attention}
+            "h6e": paged_extend_attention, "h3dkv": attention_bwd_dkv,
+            "h3dq": attention_bwd_dq}
+
+
+def launches_only(**counts):
+    """The expected counters: the named ones, every other kernel 0."""
+    return {name: counts.get(name, 0) for name in _counted()}
 
 
 def zero_counters():
@@ -378,7 +488,7 @@ def phase_slice(torch, dev, lm):
     out = eng.generate(prompt, max_new_tokens=n_new)
     t_first = time.perf_counter() - t0
     launches = read_counters()
-    want = {"h1": cfg.n_layers, "h6": cfg.n_layers * (n_new - 1), "h6e": 0}
+    want = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1))
     print(f"  slice launches {launches} (expected {want})")
     _require(launches == want, "the main path missed a kernel")
     _require(out.shape == (bsz, n_new) and out.dtype == np.int32
@@ -449,8 +559,8 @@ def phase_multiturn(torch, dev, lm):
     zero_counters()
     out2 = eng.continue_generation(turn, max_new_tokens=n_new)
     turn2 = read_counters()
-    want1 = {"h1": cfg.n_layers, "h6": cfg.n_layers * (n_new - 1), "h6e": 0}
-    want2 = {"h1": 0, "h6": cfg.n_layers * (n_new - 1), "h6e": cfg.n_layers}
+    want1 = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1))
+    want2 = launches_only(h6=cfg.n_layers * (n_new - 1), h6e=cfg.n_layers)
     print(f"  multiturn launches turn 1 {turn1} (expected {want1}), "
           f"turn 2 {turn2} (expected {want2})")
     _require(turn1 == want1 and turn2 == want2,
@@ -541,9 +651,151 @@ def phase_multiturn(torch, dev, lm):
     return turn2, tok_s
 
 
-def time_kernels(torch, dev):
+def train_step_flop(cfg, b, l):
+    """FLOPs of one train step (forward + backward): 6 per matmul weight
+    per token for the projections, the SwiGLU FFN and the tied logits, and
+    for causal attention 4·B·Hq·L²·d/2 forward (S and P V on the visible
+    half) plus 2.5 times that backward (S recomputed, dP, dV, dQ, dK)."""
+    e, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    per_layer = 2 * e * hq * dh + 2 * e * hkv * dh + 3 * e * cfg.d_ff
+    weights = cfg.n_layers * per_layer + cfg.vocab_size * e
+    attn_fwd = 4 * b * hq * l * l * dh / 2
+    return 6 * weights * b * l + cfg.n_layers * 3.5 * attn_fwd
+
+
+def plain_flash_attention(q, k, v, causal=True, hidden=0):
+    """The model's attention on the plain PyTorch forward, differentiated
+    by autograd: the reference path of the train checks.  ``hidden=1``
+    hides each row's diagonal key, a known-wrong forward."""
     from exploring_flash_attention_tpu_torch.ops.attention import (
         causal_attention_plain,
+    )
+    o, _ = causal_attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[3]),
+                                  k.shape[2] - q.shape[2] - hidden)
+    return o.to(q.dtype)
+
+
+def hide_diagonal_bwd(q, k, v, out, do, lse, scale, diag_off):
+    """A known-wrong backward: the plain one with each row's diagonal key
+    hidden."""
+    from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+        attention_bwd_plain,
+    )
+    return attention_bwd_plain(q, k, v, out, do, lse, scale, diag_off - 1)
+
+
+def phase_train(torch, dev):
+    from unittest import mock
+
+    from exploring_flash_attention_tpu_torch.models import (
+        flagship_config,
+        init_params,
+        loss_fn,
+        make_train_step,
+        make_trainable,
+        named_param_leaves,
+    )
+    from exploring_flash_attention_tpu_torch.models import (
+        transformer as transformer_module,
+    )
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd as attention_bwd_module,
+    )
+
+    cfg = flagship_config()
+    bsz, seq, n_steps, n_timed = 8, 1024, 5, 5
+    params = make_trainable(init_params(cfg, seed=0, device=dev))
+    names, leaves = zip(*named_param_leaves(params))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (bsz, seq + 1)).astype(np.int32)).to(dev)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+
+    def loss_and_grads():
+        loss = loss_fn(params, inputs, targets, cfg)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    def leaf_err(grads, ref):
+        """The largest per-leaf ||g - ref|| / ||ref||, and its leaf."""
+        errs = [((g.float() - r.float()).norm() / r.float().norm()).item()
+                for g, r in zip(grads, ref)]
+        worst = int(np.argmax(errs))
+        return errs[worst], names[worst]
+
+    loss_k, grads_k = loss_and_grads()
+    with mock.patch.object(transformer_module, "flash_attention",
+                           plain_flash_attention):
+        loss_p, grads_p = loss_and_grads()
+    with mock.patch.object(transformer_module, "flash_attention",
+                           functools.partial(plain_flash_attention,
+                                             hidden=1)):
+        loss_bad = loss_and_grads()[0]
+    with mock.patch.object(attention_bwd_module, "causal_attention_bwd",
+                           hide_diagonal_bwd):
+        grads_bad = loss_and_grads()[1]
+    e_grad, leaf = leaf_err(grads_k, grads_p)
+    e_bad, leaf_bad = leaf_err(grads_bad, grads_p)
+    del grads_k, grads_p, grads_bad
+    print(f"  train step-0 loss {loss_k:.6f}, with the plain attention "
+          f"{loss_p:.6f}: |d| {abs(loss_k - loss_p):.3e} (tol "
+          f"{TRAIN_LOSS_TOL:g}), control (diagonal key hidden in the "
+          f"forward) {abs(loss_bad - loss_p):.3e}; largest per-leaf "
+          f"||dg||/||g|| over {len(leaves)} leaves vs the plain path "
+          f"{e_grad:.3e} at {leaf} (tol {GRAD_REL_TOL:g}), control "
+          f"(diagonal key hidden in the backward) {e_bad:.3e} at {leaf_bad}")
+    _require(math.isfinite(loss_k), "step-0 loss not finite")
+    _require(abs(loss_k - loss_p) < TRAIN_LOSS_TOL,
+             "the step-0 loss differs from the plain path's")
+    _require(abs(loss_bad - loss_p) > TRAIN_LOSS_TOL,
+             "the loss check cannot tell a wrong mask")
+    _require(e_grad < GRAD_REL_TOL, "gradients differ from the plain path's")
+    _require(e_bad > GRAD_REL_TOL,
+             "the gradient check cannot tell a wrong backward")
+
+    step, opt_init = make_train_step(cfg)
+    opt = opt_init(params)
+    want = launches_only(h1=cfg.n_layers, h3dkv=cfg.n_layers,
+                         h3dq=cfg.n_layers)
+    losses, counts = [], []
+    for _ in range(n_steps):
+        zero_counters()
+        losses.append(step(params, opt, tokens).item())
+        counts.append(read_counters())
+    print(f"  train launches per step {counts[0]} (expected {want}); AdamW "
+          f"losses over {n_steps} steps {[round(x, 6) for x in losses]}")
+    _require(all(c == want for c in counts), "a train step missed a kernel")
+    _require(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    _require(all(b < a for a, b in zip(losses, losses[1:])),
+             "the loss did not fall strictly over the AdamW steps")
+
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    flop = train_step_flop(cfg, bsz, seq)
+    print(f"  train step {flop / 1e12:.3f} TFLOP (matmuls, causal attention "
+          f"incl. its recompute): {flop / med / 1e12:.1f} TFLOP/s at the "
+          f"median step; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    tok_s = bsz * seq / med
+    print(f"  train step times s {[round(t, 5) for t in sorted(times)]}: "
+          f"median {med:.5f} s, {tok_s:.1f} training tokens/s (B={bsz}, "
+          f"L={seq}, forward + backward + AdamW)")
+    print("phase train: ok")
+    return counts[0], tok_s
+
+
+def time_kernels(torch, dev):
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        attention_bwd_plain,
+        causal_attention_plain,
+        flash_attention_bwd,
         prefill_attention,
     )
     from exploring_flash_attention_tpu_torch.serving import (
@@ -567,15 +819,33 @@ def time_kernels(torch, dev):
     cache, qe, slots, _ = make_decode_case(torch, dev, chunk=256)
     h6e = (time_cuda(lambda: paged_extend_attention(qe, cache, slots)),
            time_cuda(lambda: paged_extend_plain(qe, cache, slots, s)))
-    print(f"  times (CUDA events, median of 50 calls, L2 flushed before "
-          f"each): "
+    del cache
+    # the training shape: H3's pair against the whole plain backward
+    q, do = (_bf16(torch, dev, gen, 8, 8, 1024, 128) for _ in range(2))
+    k, v = (_bf16(torch, dev, gen, 8, 4, 1024, 128) for _ in range(2))
+    out, lse = prefill_attention(q, k, v, s, 0)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    h3 = {"dkv": time_cuda(lambda: attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                     s, 0), n_iter=20),
+          "dq": time_cuda(lambda: attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   s, 0), n_iter=20),
+          "pair": time_cuda(lambda: flash_attention_bwd(q, k, v, out, do,
+                                                        lse, s), n_iter=20),
+          "plain": time_cuda(lambda: attention_bwd_plain(
+              q, k, v, out, do, lse, s, 0), n_iter=20)}
+    h1_long = time_cuda(lambda: prefill_attention(q, k, v, s, 0), n_iter=20)
+    print(f"  times (CUDA events, median of 50 calls, 20 at L=1024, L2 "
+          f"flushed before each): "
           f"H1 {h1[0]:.4f} ms vs plain {h1[1]:.4f} ms at B=8 Hq=8 Hkv=4 "
           f"L=256 d=128; H6-decode {h6[0]:.4f} ms vs plain {h6[1]:.4f} ms "
           f"at B=8 Hq=8 Hkv=4 ctx 257..280 d=128; H6-extend {h6e[0]:.4f} ms "
           f"vs plain {h6e[1]:.4f} ms at B=8 C=256 Hq=8 Hkv=4 history "
           f"257..280 d=128")
-    return h1, h6, h6e
-
+    print(f"  times at B=8 Hq=8 Hkv=4 L=1024 d=128: H3-dkv {h3['dkv']:.4f} "
+          f"ms, H3-dq {h3['dq']:.4f} ms, flash_attention_bwd (delta + both) "
+          f"{h3['pair']:.4f} ms vs attention_bwd_plain {h3['plain']:.4f} "
+          f"ms; H1 forward {h1_long:.4f} ms")
+    return h1, h6, h6e, h3
 
 def main() -> int:
     import torch
@@ -597,10 +867,13 @@ def main() -> int:
     h1_err = phase_h1(torch, dev)
     h6_err = phase_decode(torch, dev)
     h6e_err = phase_extend(torch, dev)
+    h3_err = phase_bwd(torch, dev)
     lm = make_flagship(torch, dev)
     launches, _ = phase_slice(torch, dev, lm)
     turn2, _ = phase_multiturn(torch, dev, lm)
-    h1_ms, h6_ms, h6e_ms = time_kernels(torch, dev)
+    del lm
+    train, _ = phase_train(torch, dev)
+    h1_ms, h6_ms, h6e_ms, h3_ms = time_kernels(torch, dev)
     _require("jax" not in sys.modules, "JAX was imported")
     print(json.dumps({"kernels": [
         {"name": "H1 causal prefill attention", "route": "cuda",
@@ -621,6 +894,17 @@ def main() -> int:
          "also_replaces": "exploring_flash_attention_tpu/serving/decode.py:455",
          "launches": turn2["h6e"], "max_abs_err": h6e_err,
          "ms": h6e_ms[0], "plain_ms": h6e_ms[1]},
+        # plain_ms of both H3 entries is the whole plain backward
+        {"name": "H3-dkv causal attention backward, dK and dV",
+         "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
+         "also_replaces": [f"{BWD_PY}:{n}" for n in (281, 377, 112, 205)],
+         "launches": train["h3dkv"], "max_abs_err": h3_err["h3dkv"],
+         "ms": h3_ms["dkv"], "plain_ms": h3_ms["plain"]},
+        {"name": "H3-dq causal attention backward, dQ",
+         "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
+         "also_replaces": [f"{BWD_PY}:{n}" for n in (281, 377, 112, 205)],
+         "launches": train["h3dq"], "max_abs_err": h3_err["h3dq"],
+         "ms": h3_ms["dq"], "plain_ms": h3_ms["plain"]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,18 +12,26 @@ from exploring_flash_attention_tpu_torch.models import (
     ModelConfig,
     forward,
     init_params,
+    loss_fn,
+    make_train_step,
 )
 from exploring_flash_attention_tpu_torch.ops import (
+    attention_bwd_plain,
     attention_partial_local,
     flash_attention,
+    flash_attention_bwd,
 )
 
 __all__ = [
     "GenerationEngine",
     "ModelConfig",
+    "attention_bwd_plain",
     "attention_partial_local",
     "cdiv",
     "flash_attention",
+    "flash_attention_bwd",
     "forward",
     "init_params",
+    "loss_fn",
+    "make_train_step",
 ]

@@ -39,25 +39,6 @@ namespace {
 
 using namespace eft;
 
-// Copy rows [row0, row0 + 64) of a [n_rows, D] bf16 matrix into a padded
-// shared tile with 16-byte loads; rows past n_rows are zero (a garbage
-// row could hold NaN, and 0 * NaN would poison P V).
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int row0, int n_rows) {
-  constexpr int VEC = 8;                       // bf16 per 16 bytes
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * Layout<D>::LDH + c) = val;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, Lq, D]

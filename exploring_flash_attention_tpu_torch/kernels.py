@@ -41,6 +41,12 @@ _SIGNATURES = {
     # q, pages, scales, page_table, seq_lens, slots, o, batch, c, hq, hkv, d,
     # page_size, max_pages, max_seqs, scale, device, stream
     "eft_paged_extend": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    # q, k, v, do, lse, delta, dk, dv, batch, hq, hkv, lq, lkv, d, diag_off,
+    # scale, device, stream
+    "eft_attention_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, do, lse, delta, dq, batch, hq, hkv, lq, lkv, d, diag_off,
+    # scale, device, stream
+    "eft_attention_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
 }
 
 

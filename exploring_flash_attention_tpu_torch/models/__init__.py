@@ -8,9 +8,17 @@ from exploring_flash_attention_tpu_torch.models.transformer import (
     flagship_config,
     forward,
     init_params,
+    loss_fn,
+    make_train_step,
+    make_trainable,
+    named_param_leaves,
+    param_leaves,
     rope,
 )
-from exploring_flash_attention_tpu_torch.models.weights import params_from_jax
+from exploring_flash_attention_tpu_torch.models.weights import (
+    params_from_jax,
+    trainable_params_from_jax,
+)
 
 __all__ = [
     "GenerationEngine",
@@ -19,7 +27,13 @@ __all__ = [
     "forward",
     "forward_collect_kv",
     "init_params",
+    "loss_fn",
+    "make_train_step",
+    "make_trainable",
+    "named_param_leaves",
+    "param_leaves",
     "params_from_jax",
     "rope",
     "sample",
+    "trainable_params_from_jax",
 ]

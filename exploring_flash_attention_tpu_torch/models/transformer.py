@@ -1,19 +1,21 @@
-"""Flagship decoder LM of the port, single device.
+"""Flagship decoder LM of the port, single device: forward and training.
 
 Counterpart of ``models/transformer.py`` in the JAX package: pre-RMSNorm,
-GQA attention with half-split RoPE, SwiGLU FFN, tied embeddings.
-Parameters are a plain dictionary with the JAX pytree's structure and leaf
-shapes (``wq [E, H, d]``, ``wo [H, d, E]``, ...), so both packages' weights
-map one to one.  Every attention call is :func:`flash_attention` (kernel H1
-on the card); projections, FFN and logits are ``torch.einsum``, as the JAX
-package leaves them to XLA.  The mesh and sequence-parallel paths are not
-ported.
+GQA attention with half-split RoPE, SwiGLU FFN, tied embeddings, the
+cross-entropy loss and the train step.  Parameters are a plain dictionary
+with the JAX pytree's structure and leaf shapes (``wq [E, H, d]``,
+``wo [H, d, E]``, ...), so both packages' weights map one to one.  Every
+attention call is :func:`flash_attention` (kernel H1 on the card, and H3
+in its backward); projections, FFN and logits are ``torch.einsum``, as the
+JAX package leaves them to XLA.  The mesh and sequence-parallel paths are
+not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+import functools
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -146,3 +148,91 @@ def forward(params: Params, tokens: torch.Tensor, config: ModelConfig
     x = _rmsnorm(x, params["ln_f"], config.norm_eps)
     return torch.einsum("ble,ve->blv", x,
                         params["embed"].to(config.dtype)).float()
+
+
+def loss_fn(params: Params, inputs: torch.Tensor, targets: torch.Tensor,
+            config: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy over f32 logits: an f32 scalar.  The
+    counterpart of the JAX package's ``loss_fn`` (``:266-277``, optax's
+    integer-label softmax cross-entropy, then the mean)."""
+    logits = forward(params, inputs, config)
+    return F.cross_entropy(logits.flatten(0, 1), targets.flatten().long())
+
+
+def named_param_leaves(params: Params) -> List[Tuple[str, torch.Tensor]]:
+    """(name, tensor) of every parameter in ``jax.tree.leaves`` order
+    (dictionary keys sorted: ``embed``, every layer's leaves by name,
+    ``ln_f``): the order the optimizer and the tests share."""
+    return ([("embed", params["embed"])]
+            + [(f"layers.{i}.{name}", layer[name])
+               for i, layer in enumerate(params["layers"])
+               for name in sorted(layer)]
+            + [("ln_f", params["ln_f"])])
+
+
+def param_leaves(params: Params) -> List[torch.Tensor]:
+    """The parameter tensors in :func:`named_param_leaves` order."""
+    return [leaf for _, leaf in named_param_leaves(params)]
+
+
+def make_trainable(params: Params) -> Params:
+    """Set ``requires_grad`` on every leaf of ``params``, in place; returns
+    ``params``."""
+    for leaf in param_leaves(params):
+        leaf.requires_grad_(True)
+    return params
+
+
+def adamw(leaves: Iterable[torch.Tensor], lr: float = 1e-3
+          ) -> torch.optim.Optimizer:
+    """``torch.optim.AdamW`` with ``optax.adamw``'s defaults set explicitly:
+    betas (0.9, 0.999), eps 1e-8 and weight decay 1e-4 (torch's own default
+    decay is 1e-2)."""
+    return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
+
+
+def make_train_step(
+    config: ModelConfig,
+    mesh: Optional[Any] = None,
+    learning_rate: float = 1e-3,
+    optimizer: Optional[OptimizerFactory] = None,
+) -> Tuple[Callable[..., torch.Tensor],
+           Callable[[Params], torch.optim.Optimizer]]:
+    """Returns ``(train_step, optimizer_init)``: the single-device train
+    step of the JAX package (``:280-306``).
+
+    ``optimizer_init(params)`` sets ``requires_grad`` on the leaves of
+    ``params`` (in place) and returns ``optimizer(param_leaves(params))``.
+    ``optimizer`` is any factory from that leaf list to a torch optimizer
+    (SGD in the tests); the default is :func:`adamw` at ``learning_rate``.
+
+    ``train_step(params, opt, tokens)`` takes int tokens ``[B, L+1]`` (a
+    tensor or an array), runs the forward on ``tokens[:, :-1]`` against the
+    targets ``tokens[:, 1:]``, the backward and one ``opt.step()``, and
+    returns the loss (an f32 scalar tensor, detached, not synchronized).
+    Unlike the JAX step, which returns new params and optimizer state, it
+    updates ``params`` and ``opt`` in place.  The sharded step is not
+    ported: a ``mesh`` raises ``NotImplementedError``."""
+    if mesh is not None:
+        raise NotImplementedError("the sharded train step is not ported yet")
+    if optimizer is None:
+        optimizer = functools.partial(adamw, lr=learning_rate)
+
+    def optimizer_init(params: Params) -> torch.optim.Optimizer:
+        return optimizer(param_leaves(make_trainable(params)))
+
+    def train_step(params: Params, opt: torch.optim.Optimizer,
+                   tokens) -> torch.Tensor:
+        tokens = torch.as_tensor(tokens, device=params["embed"].device)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, inputs, targets, config)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return train_step, optimizer_init

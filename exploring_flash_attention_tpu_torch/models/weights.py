@@ -7,7 +7,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from exploring_flash_attention_tpu_torch.models.transformer import Params
+from exploring_flash_attention_tpu_torch.models.transformer import (
+    Params,
+    make_trainable,
+)
 
 
 def params_from_jax(tree: Any, device: torch.device | str = "cpu",
@@ -33,3 +36,12 @@ def params_from_jax(tree: Any, device: torch.device | str = "cpu",
         "layers": [{name: leaf(x) for name, x in layer.items()}
                    for layer in tree["layers"]],
     }
+
+
+def trainable_params_from_jax(tree: Any, device: torch.device | str = "cpu",
+                              dtype: Optional[torch.dtype] = None) -> Params:
+    """:func:`params_from_jax` with ``requires_grad`` set on every leaf: the
+    JAX package's params as the port's trainable parameters.  Their
+    gradients and the optimizer follow ``param_leaves`` order, which is
+    ``jax.tree.leaves``' order of the same tree."""
+    return make_trainable(params_from_jax(tree, device=device, dtype=dtype))

@@ -1,8 +1,8 @@
-"""Causal attention forward of the port: the prefill path, on kernel H1.
+"""Causal attention of the port: the forward on kernel H1, differentiable.
 
 Counterparts of ``parallel/partials.py:attention_partial_local`` (the causal
-static-positions route) and of the forward of
-``ops/attention_vjp.py:flash_attention`` in the JAX package.  Layouts are
+static-positions route) and of ``ops/attention_vjp.py:flash_attention`` in
+the JAX package, whose backward is ``ops/attention_bwd.py`` (H3).  Layouts are
 the JAX package's: q ``[B, Hq, Lq, d]``, k/v ``[B, Hkv, Lkv, d]``, q head
 ``h`` reading KV head ``h // (Hq / Hkv)``.
 
@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from exploring_flash_attention_tpu_torch import kernels
@@ -24,14 +25,16 @@ from exploring_flash_attention_tpu_torch import kernels
 def causal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: float, diag_off: int
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of H1 in f32 math: (o f32 [B,H,Lq,d] normalized,
-    lse f32 [B,H,Lq] natural log, scale included).  Row ``i`` sees key ``j``
-    iff ``j <= i + diag_off``; a row that sees nothing gives (0, -inf)."""
+    """Plain PyTorch version of H1 in f32 math (f64 for f64 inputs): (o
+    [B,H,Lq,d] normalized, lse [B,H,Lq] natural log, scale included).  Row
+    ``i`` sees key ``j`` iff ``j <= i + diag_off``; a row that sees nothing
+    gives (0, -inf)."""
     group = q.shape[1] // k.shape[1]
     lq, lkv = q.shape[2], k.shape[2]
-    kf = k.float().repeat_interleave(group, dim=1)
-    vf = v.float().repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    ct = torch.promote_types(q.dtype, torch.float32)
+    kf = k.to(ct).repeat_interleave(group, dim=1)
+    vf = v.to(ct).repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * scale
     row = torch.arange(lq, device=q.device)[:, None]
     col = torch.arange(lkv, device=q.device)[None, :]
     s = s.masked_fill(col > row + diag_off, float("-inf"))
@@ -89,10 +92,39 @@ def _check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
                              "16-byte aligned")
 
 
+def _require_static(positions) -> None:
+    """Static positions are Python or NumPy ints, as the JAX package's
+    ``ops/attention_vjp.py:65`` reads them; anything else is traced."""
+    if not all(isinstance(p, (int, np.integer)) for p in positions):
+        raise NotImplementedError("only static (int) positions are ported")
+
+
 def _diag_offset(lq: int, lkv: int,
                  static_positions: Optional[Tuple[int, int]]) -> int:
     q_pos0, kv_pos0 = static_positions or (lkv - lq, 0)
     return int(q_pos0) - int(kv_pos0)
+
+
+def _ported_diag_offset(lq: int, lkv: int, causal: bool,
+                        static_positions: Optional[Tuple[int, int]],
+                        window: Optional[int]) -> int:
+    """The argument checks that ``flash_attention`` and
+    ``flash_attention_bwd`` share; returns the static diagonal offset.
+
+    A window of Lkv or more is plain causal, as in the JAX package; a
+    narrower one raises ``NotImplementedError``, a window without ``causal``
+    ``ValueError``.  Non-causal attention and traced positions raise
+    ``NotImplementedError``."""
+    if window is not None:
+        if not causal:
+            raise ValueError("window requires causal=True")
+        if window < lkv:
+            raise NotImplementedError("windowed attention is not ported yet")
+    if not causal:
+        raise NotImplementedError("non-causal attention is not ported yet")
+    if static_positions is not None:
+        _require_static(static_positions)
+    return _diag_offset(lq, lkv, static_positions)
 
 
 def attention_partial_local(
@@ -118,6 +150,33 @@ def attention_partial_local(
     return o.float(), lse
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of ``_flash_attention_static`` in the JAX package
+    (``ops/attention_vjp.py:83-126``): the forward is :func:`prefill_attention`
+    (H1 on the card), which saves ``(q, k, v, out, lse)`` as ``_fwd_static``
+    does; the backward is ``flash_attention_bwd`` (H3-dkv and H3-dq)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, diag_off: int):
+        out, lse = prefill_attention(q, k, v, scale, diag_off)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.diag_off = scale, diag_off
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        # local import: ops.attention_bwd imports this module
+        from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+            causal_attention_bwd,
+        )
+        q, k, v, out, lse = ctx.saved_tensors
+        # autograd hands dO over as a permuted view (out of the
+        # "bhld,hde->ble" einsum); the kernels take contiguous rows
+        dq, dk, dv = causal_attention_bwd(
+            q, k, v, out, do.contiguous(), lse, ctx.scale, ctx.diag_off)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,               # [B, Hq, Lq, d]
     k: torch.Tensor,               # [B, Hkv, Lkv, d]
@@ -127,23 +186,17 @@ def flash_attention(
     positions: Optional[Tuple[int, int]] = None,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Forward of the JAX package's ``flash_attention``: o in q.dtype.
+    """The JAX package's ``flash_attention``, differentiable: o in q.dtype.
 
-    Only the causal forward with static (int) positions is ported.  The
-    backward kernels are not, so an input that requires grad raises."""
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward in the port yet")
-    if window is not None:
-        raise NotImplementedError("windowed attention is not ported yet")
-    if not causal:
-        raise NotImplementedError("non-causal attention is not ported yet")
-    if positions is not None and not all(
-            isinstance(p, int) for p in positions):
-        raise NotImplementedError("only static (int) positions are ported")
+    Only causal attention with static positions (Python or NumPy ints, or
+    the default decode convention) is ported.  A window of Lkv or more is
+    plain causal, as in the JAX package; a narrower one raises
+    ``NotImplementedError`` and a window without ``causal`` ``ValueError``.
+    The backward runs H3; where autograd records nothing (no grad mode, or
+    no input that requires grad) the call is the forward alone."""
+    diag_off = _ported_diag_offset(q.shape[2], k.shape[2], causal, positions,
+                                   window)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
-    o, _ = prefill_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), scale,
-        _diag_offset(q.shape[2], k.shape[2], positions))
-    return o
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), scale, diag_off)

@@ -16,8 +16,9 @@ tokens (turn 1's last token and 255 new ones) for 24 more, as
   writes and the first sample; decode: the other 23 steps), over
   ``--repeats`` synchronized calls, sorted;
 - one ``torch.profiler`` run of the call: the wall time, the kernel time
-  summed over the device rows of ``key_averages()`` (the CPU-op rows
-  repeat their kernels' time, so they are left out), their ratio (the
+  summed over the device rows of ``key_averages()`` (the CPU-op and
+  annotation rows repeat their kernels' time, so they are left out), their
+  ratio (the
   device busy share), the number of kernel launches, and the kernels that
   take the most device time.
 """
@@ -105,12 +106,18 @@ def split_extend_decode(eng: GenerationEngine, prompt: np.ndarray,
         eng.release()
 
 
-def profile_call(name: str, call, top: int) -> None:
+def profile_call(name: str, call, top: int):
+    """Profile one ``call()`` and print its wall time, summed kernel time,
+    device busy share, launches and top kernels; return the summed kernel
+    time (ms) and the kernel rows.  Rows of user annotations
+    (``Optimizer.step``, for one) span kernels that have rows of their
+    own, so they are left out."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = _timed(call)
-    kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+            and not e.is_user_annotation]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     print(f"{name}: profiled wall {wall * 1e3:.3f} ms, summed kernel time "
           f"{dev_ms:.3f} ms, device busy share {dev_ms / (wall * 1e3):.4f}, "
@@ -119,6 +126,7 @@ def profile_call(name: str, call, top: int) -> None:
                     reverse=True)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  n={e.count:5d}  "
               f"{e.key[:100]}")
+    return dev_ms, kern
 
 
 def main() -> None:

@@ -103,9 +103,12 @@ def test_flash_attention_forward_matches_jax():
 
 def test_flash_attention_refuses_what_is_not_ported():
     q, k, v = (torch.from_numpy(x) for x in _qkv(3, 1, 2, 2, 8, 8, 64))
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(q.requires_grad_(), k, v, causal=True)
-    q = q.detach()
+    # gradients flow: the backward is ported (tests/test_torch_bwd.py
+    # checks their values)
+    qg = q.clone().requires_grad_()
+    flash_attention(qg, k, v, causal=True).sum().backward()
+    assert qg.grad.shape == q.shape and torch.isfinite(qg.grad).all()
+    assert qg.grad.abs().max() > 0
     with pytest.raises(NotImplementedError, match="window"):
         flash_attention(q, k, v, causal=True, window=4)
     with pytest.raises(NotImplementedError, match="non-causal"):
@@ -113,6 +116,54 @@ def test_flash_attention_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="static"):
         flash_attention(q, k, v, causal=True,
                         positions=(torch.tensor(0), torch.tensor(0)))
+
+
+def test_flash_attention_records_no_graph_without_grad():
+    """Under ``no_grad``, or with no input that requires grad, the call is
+    the forward alone: the same output, no graph kept."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(8, 1, 2, 2, 8, 8, 64))
+    qg = q.clone().requires_grad_()
+    with_graph = flash_attention(qg, k, v, causal=True)
+    assert with_graph.grad_fn is not None
+    with torch.no_grad():
+        under_no_grad = flash_attention(qg, k, v, causal=True)
+    no_leaf = flash_attention(q, k, v, causal=True)
+    for got in (under_no_grad, no_leaf):
+        assert got.grad_fn is None and not got.requires_grad
+        assert torch.equal(got, with_graph.detach())
+
+
+def test_flash_attention_takes_numpy_int_positions_as_static():
+    """JAX counts ``np.integer`` positions as static
+    (``ops/attention_vjp.py:65``)."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(5, 1, 2, 2, 8, 12, 64))
+    want = flash_attention(q, k, v, causal=True, positions=(6, 1))
+    for pos in [(np.int32(6), np.int64(1)), (np.int64(6), 1)]:
+        got = flash_attention(q, k, v, causal=True, positions=pos)
+        assert torch.equal(got, want)
+    ref = jax_flash_attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                              jnp.asarray(v.numpy()), causal=True,
+                              positions=(np.int32(6), np.int32(1)))
+    np.testing.assert_allclose(want.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [12, 13, 100])
+def test_flash_attention_window_covering_every_key_is_causal(window):
+    """A window of Lkv or more is plain causal (``ops/attention_vjp.py:61``);
+    Lkv = 12 here."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(6, 1, 2, 2, 8, 12, 64))
+    assert torch.equal(flash_attention(q, k, v, causal=True, window=window),
+                       flash_attention(q, k, v, causal=True))
+
+
+def test_flash_attention_window_without_causal_raises_value_error():
+    """As the JAX package does (``ops/attention_vjp.py:59-60``)."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(7, 1, 2, 2, 8, 8, 64))
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q, k, v, causal=False, window=8)
+    with pytest.raises(ValueError, match="causal"):
+        jax_flash_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                            causal=False, window=8)
 
 
 @pytest.mark.parametrize("a,b", [(0, 128), (1, 128), (128, 128),

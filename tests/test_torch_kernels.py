@@ -17,6 +17,13 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
   keys (a short history) has |O| up to ~3, where rounding O to bf16 alone
   moves it by up to 2^-8 of |O| (a kernel-exact emulation on the CPU
   reads 1.18e-2 at |O| = 2.24 in the ragged case, as the card does).
+- H3 (H3-dkv + H3-dq) vs plain: 2e-2 of max|ref| per gradient.  The
+  kernels round P and dS to bf16 before their products and the gradients
+  to bf16; a CPU emulation of those roundings reads 3e-3..7e-3 of max|ref|
+  at these shapes, and the plain backward with each row's diagonal key
+  hidden reads 0.2..1.2 (``tests/test_torch_bwd.py`` rehearses both).  On
+  an H100, ``chip_smoke.py``'s bwd phase reads 3.4e-3..5.7e-3 at L=1024,
+  a ragged cross case and L=3072, its diagonal-hidden control 0.36..1.03.
 """
 
 import math
@@ -28,7 +35,14 @@ import torch
 from exploring_flash_attention_tpu_torch.oracle import naive_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
     causal_attention_plain,
+    flash_attention,
     prefill_attention,
+)
+from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+    attention_bwd_dkv,
+    attention_bwd_dq,
+    attention_bwd_plain,
+    flash_attention_bwd,
 )
 from exploring_flash_attention_tpu_torch.serving import (
     append_chunks,
@@ -47,6 +61,7 @@ O_TOL = 2e-2
 LSE_TOL = 4e-3
 DECODE_O_TOL = 5e-3
 EXTEND_O_TOL = 5e-3
+BWD_REL_TOL = 2e-2
 
 
 @pytest.fixture
@@ -184,3 +199,89 @@ def test_extend_kernel_counts_launches_and_refuses_f32(cuda_device):
     with pytest.raises(TypeError, match="bf16"):
         paged_extend_attention(q.float(), cache, slots)
     assert paged_extend_attention.launches == before + 1
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def _bwd_case(dev, b, hq, hkv, lq, lkv, d, diag_off, seed=4):
+    q, k, v = _qkv(dev, b, hq, hkv, lq, lkv, d, seed=seed)
+    do = _qkv(dev, b, hq, hkv, lq, lkv, d, seed=seed + 1)[0]
+    scale = 1.0 / math.sqrt(d)
+    out, lse = prefill_attention(q, k, v, scale, diag_off)
+    return q, k, v, out, do, lse, scale
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lkv,d,diag_off", [
+    (8, 8, 4, 1024, 1024, 128, 0),    # the training slice's attention
+    (2, 8, 4, 200, 216, 128, 16),     # ragged, Lq != Lkv
+    (2, 8, 2, 77, 130, 64, 53),       # ragged, G=4, d=64
+    (1, 4, 2, 96, 80, 128, -16),      # Lq > Lkv: 16 rows see no key
+    (1, 4, 4, 100, 100, 64, -24),     # negative static offset, d=64
+    (1, 8, 4, 3072, 3072, 128, 0),    # where JAX takes B12/B13
+])
+def test_bwd_kernels_match_plain(cuda_device, b, hq, hkv, lq, lkv, d,
+                                  diag_off):
+    q, k, v, out, do, lse, scale = _bwd_case(cuda_device, b, hq, hkv, lq,
+                                             lkv, d, diag_off)
+    positions = (diag_off, 0)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, scale,
+                                     static_positions=positions)
+    torch.cuda.synchronize()
+    ref = attention_bwd_plain(q, k, v, out, do, lse, scale, diag_off)
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.dtype == torch.bfloat16, name
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel(got, want) < BWD_REL_TOL, name
+    if diag_off < 0:                  # rows that see no key: zero dQ
+        assert (dq[:, :, :-diag_off] == 0).all()
+    if lkv > lq + diag_off:           # keys no row sees: zero dK, dV
+        assert (dk[:, :, lq + diag_off:] == 0).all()
+        assert (dv[:, :, lq + diag_off:] == 0).all()
+
+
+def test_bwd_kernels_are_bitwise_reproducible(cuda_device):
+    args = _bwd_case(cuda_device, 2, 8, 4, 520, 520, 128, 0)
+    first = flash_attention_bwd(*args)
+    for _ in range(3):
+        for a, b in zip(first, flash_attention_bwd(*args)):
+            assert torch.equal(a, b)
+
+
+def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
+    q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 1, 2, 2, 64, 64,
+                                             64, 0)
+    before = (attention_bwd_dkv.launches, attention_bwd_dq.launches)
+    flash_attention_bwd(q, k, v, out, do, lse, scale)
+    assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_attention_bwd(q.float(), k.float(), v.float(), out.float(),
+                            do.float(), lse, scale)
+    assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_autograd_through_flash_attention_runs_h1_and_h3(cuda_device):
+    """The training call: a permuted dO out of the output projection's
+    einsum, as autograd hands it over."""
+    q, k, v = _qkv(cuda_device, 2, 8, 4, 300, 300, 128, seed=6)
+    w = _qkv(cuda_device, 1, 8, 8, 128, 128, 64, seed=7)[0][0]  # [H, d, E]
+    counts = (prefill_attention.launches, attention_bwd_dkv.launches,
+              attention_bwd_dq.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash_attention(*leaves, causal=True)
+    loss = torch.einsum("bhld,hde->ble", o, w).float().square().mean()
+    grads = torch.autograd.grad(loss, leaves)
+    assert (prefill_attention.launches, attention_bwd_dkv.launches,
+            attention_bwd_dq.launches) == tuple(c + 1 for c in counts)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_ref = causal_attention_plain(*ref_leaves, 1.0 / math.sqrt(128), 0)[0]
+    loss_ref = torch.einsum("bhld,hde->ble", o_ref.to(torch.bfloat16),
+                            w).float().square().mean()
+    for name, got, want in zip(("dq", "dk", "dv"), grads,
+                               torch.autograd.grad(loss_ref, ref_leaves)):
+        assert _rel(got, want) < BWD_REL_TOL, name

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's generation and training paths on one NVIDIA H100.
+"""Drive the PyTorch port's dense forward, generation and training paths on
+one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -11,19 +12,34 @@ Phases, one line each; any failure exits non-zero before the last line:
    limit from nvidia-smi;
 2. build:  nvcc builds the kernels of exploring_flash_attention_tpu_torch/
    csrc/ and its -Xptxas -v report (registers, shared memory) is printed;
-3. h1:     kernel H1 (causal prefill attention) vs its plain PyTorch
-   version and the f64 oracle, at the slice's shapes and one ragged case;
-4. decode: kernel H6-decode (paged INT8 decode) vs its plain version and
+3. h1:     kernel H1 (the attention forward) vs its plain PyTorch
+   version and the f64 oracle, causal, at the slice's shapes and one
+   ragged case;
+4. v1:     flash_attention_v1, the dense forward, on H1 at bench.py's
+   canonical shape (B=32, H=8, L=1024, d=128, bf16, non-causal; inputs
+   from np.random.default_rng(1) as bench.py makes them): the main call,
+   with every counter zeroed before and read after (H1 1), passes
+   bench.py's gate (f32 O of [:2, :2] vs the f64 oracle, max|dO| <= 1e-3)
+   and matches the plain version over the whole tensor; then one case per
+   JAX route (d=32, GQA ragged cross, a ragged KV of 8200, causal cross,
+   window 512 at L=4096 and its LSE partial, each one H1 launch; a KV of
+   8192 over 16 Q tiles
+   per head, one H1 launch over KV spans and one launch of H2, the
+   split-KV combine), against the plain version and the oracle.  H1, the
+   plain version and scaled_dot_product_attention are timed at the
+   canonical shape, the window call must take under half the causal
+   call's time, and the split case is timed at several span counts;
+5. decode: kernel H6-decode (paged INT8 decode) vs its plain version and
    the f64 oracle over the dequantized cache, at ragged contexts 257..280;
-5. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
+6. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
    its plain version and the f64 oracle, a C = 256 chunk appended to
    ragged histories 257..280;
-6. bwd:    kernels H3-dkv and H3-dq (the causal attention backward, through
+7. bwd:    kernels H3-dkv and H3-dq (the causal attention backward, through
    flash_attention_bwd) vs attention_bwd_plain and f64 autograd of the
    plain forward, at the training shape (B=8, Hq=8, Hkv=4, L=1024,
    d=128), a ragged cross case (Lq=200, Lkv=216) and L=3072, B=1 (where
    the JAX package takes B12/B13); two runs must be bitwise equal;
-7. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
+8. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
    GQA 8/4, d_head 128, d_ff 4096, bf16, random weights from seed 0) runs
    GenerationEngine.generate on [8, 256] prompts for 24 tokens.  Every
    kernel's launch counter is zeroed just before and read just after: H1
@@ -31,7 +47,7 @@ Phases, one line each; any failure exits non-zero before the last line:
    token is checked against a fresh full forward over the sequence so far
    (agreement, or a near-tie under LOGIT_GAP).  Tokens/s come from the
    host clock around a second, synchronized call;
-8. multiturn: the same model holds its slots (generate(hold=True)), then
+9. multiturn: the same model holds its slots (generate(hold=True)), then
    continue_generation feeds a second turn of 256 tokens (turn 1's last
    token and 255 new ones, chunk at positions 279..534) and decodes 24
    more.  Counters: turn 1 H1 4, H6-decode 92; turn 2 H6-extend 4,
@@ -39,7 +55,7 @@ Phases, one line each; any failure exits non-zero before the last line:
    forward over the whole stream so far, and every layer's cache against
    forward_collect_kv over the concatenated stream; release() must return
    every page;
-9. train:  the same model, trainable (fresh weights from seed 0), takes
+10. train:  the same model, trainable (fresh weights from seed 0), takes
    make_train_step's AdamW steps (lr 1e-3) on tokens [8, 1025] from
    np.random.default_rng(0).  Every step must launch H1, H3-dkv and H3-dq
    n_layers = 4 times each.  Before the steps, the step-0 loss and every
@@ -50,10 +66,15 @@ Phases, one line each; any failure exits non-zero before the last line:
    host clock around further synchronized steps.
 
 Kernel times come from CUDA events (L2 flushed before each call) beside
-their plain versions.  Every check also runs a control: the same comparison
-against a known-wrong path (one key hidden from each row, or a stream one
-token short).  The control must read beyond the check's limit, so each
-limit is shown to tell a wrong path from a right one.
+their plain versions, their bounds on the H100 (the larger of the
+operations at 989 TFLOP/s, 67 for H2's f32 work, and the bytes at
+3.35 TB/s) and, where one
+PyTorch call computes the same function, that call's time
+(scaled_dot_product_attention for H1, its autograd backward for H3).
+Every check also runs a control: the same comparison against a
+known-wrong path (one key hidden from each row, the scale off by 10%, the
+last 64-key tile dropped, or a stream one token short).  The control must read beyond the check's
+limit, so each limit is shown to tell a wrong path from a right one.
 
 Then a JSON line describing the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  The script imports no JAX.
@@ -104,11 +125,34 @@ GRAD_REL_TOL = 6e-2    # largest per-leaf ||dg|| / ||g_plain|| over the 38
                        # leaves: bf16 gradients through 4 layers; sound runs
                        # 2.4e-2, the diagonal-hidden backward 0.15
 
+V1_GATE_TOL = 1e-3     # bench.py's gate (bench.py:66-82): f32 O of [:2, :2]
+                       # at the canonical shape vs the f64 oracle on the
+                       # bf16-rounded inputs
+V1_O_TOL = 2e-3        # f32 O in the further v1 checks, vs the plain
+                       # version and the oracle: P rounded to bf16 before
+                       # P V; sound runs 1.6e-4..5.7e-4, the controls (scale
+                       # off by 10%, last 64-key tile dropped) 2.7e-2 and up
+V1_WINDOW_O_TOL = 1e-2  # the window cases: rows that see a handful of keys
+                       # have |O| up to ~3 and move by up to ~2^-9 of
+                       # |v0 - v1|; sound runs 4.3e-3, the controls 0.1 and
+                       # up.  A CPU emulation of H1's roundings reads within
+                       # half of each limit, both controls beyond 5x
+                       # (tests/test_torch_attention_v1.py)
+H2_O_TOL = 1e-5        # H2 vs its plain version on the same f32 partials:
+                       # both merge in f32 and differ in summation order
+
+H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, SXM data sheet
+H100_F32_FLOPS = 67e12        # float32 outside the tensor cores, same
+H100_HBM_BYTES_S = 3.35e12    # HBM3 rate, same source
+
 H1_SRC = "exploring_flash_attention_tpu_torch/csrc/prefill_attention.cu"
+H2_SRC = "exploring_flash_attention_tpu_torch/csrc/splitkv_combine.cu"
 H6_SRC = "exploring_flash_attention_tpu_torch/csrc/paged_decode.cu"
 H6E_SRC = "exploring_flash_attention_tpu_torch/csrc/paged_extend.cu"
 H3_SRC = "exploring_flash_attention_tpu_torch/csrc/attention_bwd.cu"
 BWD_PY = "exploring_flash_attention_tpu/ops/attention_bwd.py"
+V1_PY = "exploring_flash_attention_tpu/ops/attention_v1.py"
+SPLITKV_PY = "exploring_flash_attention_tpu/ops/attention_v2_splitkv.py"
 
 # (B, Hq, Hkv, Lq, Lkv, d) of the bwd phase: the training shape first (its
 # error goes into the kernels line), a ragged cross case, and a length
@@ -116,6 +160,23 @@ BWD_PY = "exploring_flash_attention_tpu/ops/attention_bwd.py"
 BWD_SHAPES = [(8, 8, 4, 1024, 1024, 128), (8, 8, 4, 200, 216, 128),
               (1, 8, 4, 3072, 3072, 128)]
 
+# the v1 phase: bench.py's canonical shape (bench.py:33), then one case per
+# JAX route that flash_attention_v1 takes; (route, B, Hq, Hkv, Lq, Lkv, d,
+# causal, window, heads refereed by the f64 oracle)
+V1_CANON = (32, 8, 1024, 128)
+V1_WINDOW = 512
+V1_SPLIT_ROUTE = "long-KV split-KV route (B8 spans, B9, B10: H1 spans + H2)"
+V1_CASES = [
+    ("B6/B7 d=32 at the reference shape", 32, 8, 8, 1024, 1024, 32, False,
+     None, 2),
+    ("B2 GQA, ragged and cross", 8, 8, 2, 1000, 1100, 128, False, None, 2),
+    ("B3 streaming, a KV no one-pass span tiles", 2, 8, 8, 1024, 8200, 128,
+     False, None, 1),
+    ("B4 causal, cross, GQA", 8, 8, 4, 512, 1024, 128, True, None, 2),
+    ("B5 sliding window", 4, 8, 4, 4096, 4096, 128, True, V1_WINDOW, 1),
+    (V1_SPLIT_ROUTE, 1, 8, 8, 1024, 8192, 128, False, None, 1),
+]
+SPLIT_SWEEP = (1, 2, 4, 8, 16)      # KV spans timed at the long-KV case
 
 class PhaseError(RuntimeError):
     pass
@@ -160,7 +221,7 @@ def _bf16(torch, dev, gen, *shape):
 def phase_h1(torch, dev):
     from exploring_flash_attention_tpu_torch.oracle import naive_attention
     from exploring_flash_attention_tpu_torch.ops.attention import (
-        causal_attention_plain,
+        attention_plain,
         prefill_attention,
     )
 
@@ -174,7 +235,7 @@ def phase_h1(torch, dev):
         scale = 1.0 / math.sqrt(d)
         o, lse = prefill_attention(q, k, v, scale, lkv - lq)
         torch.cuda.synchronize()
-        o_ref, lse_ref = causal_attention_plain(q, k, v, scale, lkv - lq)
+        o_ref, lse_ref = attention_plain(q, k, v, scale, True, lkv - lq)
         e_o = (o.float() - o_ref).abs().max().item()
         e_lse = (lse - lse_ref).abs().max().item()
         g = hq // hkv
@@ -182,7 +243,7 @@ def phase_h1(torch, dev):
                                  v.repeat_interleave(g, 1), causal=True)
         e_or = float(np.abs(o.float().cpu().numpy() - oracle).max())
         # control: the plain version with each row's diagonal key hidden
-        o_bad, _ = causal_attention_plain(q, k, v, scale, lkv - lq - 1)
+        o_bad, _ = attention_plain(q, k, v, scale, True, lkv - lq - 1)
         e_bad = (o.float() - o_bad).abs().max().item()
         print(f"  h1 B={b} Hq={hq} Hkv={hkv} Lq={lq} Lkv={lkv} d={d}: "
               f"max|dO| vs plain {e_o:.3e} (tol {H1_O_TOL:g}), "
@@ -197,6 +258,263 @@ def phase_h1(torch, dev):
             main_err = e_o
     print("phase h1: ok")
     return main_err
+
+
+def roofline(flop: float, nbytes: float, peak: float = H100_BF16_FLOPS):
+    """(bound_ms, bound_by): the least time the H100 could take, the larger
+    of the operations over their peak (bf16 tensor cores unless said) and
+    the bytes over HBM's rate."""
+    t_op = flop / peak * 1e3
+    t_mem = nbytes / H100_HBM_BYTES_S * 1e3
+    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def visible_pairs(lq: int, lkv: int, causal: bool, window) -> int:
+    """The (q row, key) pairs that attention needs under the decode
+    convention: every pair, the causal ones, or those inside the band."""
+    if not causal:
+        return lq * lkv
+    last = np.arange(lq) + lkv - lq                # each row's last key
+    first = np.zeros(lq) if window is None else last - window + 1
+    return int((np.minimum(last, lkv - 1) - np.maximum(first, 0) + 1)
+               .clip(min=0).sum())
+
+
+def v1_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed):
+    """Standard-normal q, k, v from np.random.default_rng(seed), rounded to
+    bf16 on the card, as bench.py makes its inputs."""
+    from exploring_flash_attention_tpu_torch.oracle import make_qkv
+
+    return [torch.from_numpy(x).to(dev, torch.bfloat16) for x in make_qkv(
+        b, hq, lq, d, seed=seed, seq_len_kv=lkv, heads_kv=hkv)]
+
+
+def v1_readings(torch, q, k, v, o, lse, causal, window, nb, nh):
+    """One v1 check: max|dO| (and max|dLSE|, with lse) of the kernel's f32
+    output vs the plain version over the whole tensor and vs the f64
+    oracle over [:nb, :nh]; and two known-wrong controls vs the oracle on
+    that slice: the plain version with the scale off by 10%, and with the
+    last 64-key tile dropped."""
+    from exploring_flash_attention_tpu_torch.oracle import naive_attention
+    from exploring_flash_attention_tpu_torch.ops import attention_plain
+
+    scale, diag = 1.0 / math.sqrt(q.shape[3]), k.shape[2] - q.shape[2]
+    plain, lse_plain = attention_plain(q, k, v, scale, causal, diag, window)
+    r = {"plain": (o - plain).abs().max().item()}
+    del plain
+    heads = torch.tensor([h * k.shape[1] // q.shape[1] for h in range(nh)],
+                         device=q.device)
+    qs, ks, vs = q[:nb, :nh], k[:nb, heads], v[:nb, heads]
+    o64, lse64 = naive_attention(qs, ks, vs, causal=causal, window=window,
+                                 return_lse=True)
+    r["oracle"] = float(np.abs(o[:nb, :nh].cpu().numpy() - o64).max())
+    bad, _ = attention_plain(qs, ks, vs, 1.1 * scale, causal, diag, window)
+    r["scale"] = float(np.abs(bad.cpu().numpy() - o64).max())
+    bad, _ = attention_plain(qs, ks[:, :, :-64], vs[:, :, :-64], scale,
+                             causal, diag, window)
+    r["drop"] = float(np.abs(bad.cpu().numpy() - o64).max())
+    if lse is not None:
+        fin = torch.isfinite(lse_plain)
+        _require(torch.equal(torch.isfinite(lse), fin), "H1 LSE not finite "
+                 "where the plain version's is")
+        r["lse_plain"] = (lse - lse_plain)[fin].abs().max().item()
+        r["lse_oracle"] = float(np.abs(lse[:nb, :nh].cpu().numpy()
+                                       - lse64).max())
+    _require(torch.isfinite(o).all().item(), "O not finite")
+    return r
+
+
+def v1_check(r, tol, what):
+    """The readings within ``tol``, both controls beyond it."""
+    _require(max(r["plain"], r["oracle"]) < tol, f"{what} outside tolerance")
+    _require(min(r["scale"], r["drop"]) > tol,
+             f"the check cannot tell a wrong path ({what})")
+
+
+def counted_call(torch, fn, want):
+    """Run fn with every counter zeroed; the launches must be ``want``."""
+    zero_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_counters()
+    _require(got == want, f"launches {got}, expected {want}")
+    return out
+
+
+def phase_v1(torch, dev):
+    """flash_attention_v1, the dense forward, through its user entry
+    points on H1 (and H2 where the KV is split): bench.py's gate at the
+    canonical shape, one case per JAX route, H1 against the plain version
+    and scaled_dot_product_attention's time, the window's loop bounds, and
+    the split's spans."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_plain,
+        flash_attention_v1,
+        flash_attention_v1_window_partial,
+    )
+    from exploring_flash_attention_tpu_torch.ops.attention_v1 import (
+        split_kv_span,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    b, h, l, d = V1_CANON
+    q, k, v = v1_inputs(torch, dev, b, h, h, l, l, d, seed=1)
+    # the main path: one call at the canonical shape, counters read
+    zero_counters()
+    o = flash_attention_v1(q, k, v, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    _require(launches == launches_only(h1=1),
+             f"v1 launches {launches}, expected one H1")
+    r = v1_readings(torch, q, k, v, o, None, False, None, 2, 2)
+    print(f"  v1 gate B={b} H={h} L={l} d={d} bf16 in, f32 out (bench.py's "
+          f"route B1): max|dO| on [:2, :2] vs f64 oracle {r['oracle']:.3e} "
+          f"(bench.py's limit {V1_GATE_TOL:g}); whole tensor vs plain "
+          f"{r['plain']:.3e} (tol {V1_O_TOL:g}); controls vs f64 oracle: "
+          f"scale off by 10% {r['scale']:.3e}, last 64-key tile dropped "
+          f"{r['drop']:.3e}; launches {launches}")
+    _require(r["oracle"] <= V1_GATE_TOL, "H1 fails bench.py's gate")
+    _require(r["plain"] < V1_O_TOL, "H1 differs from the plain version")
+    _require(min(r["scale"], r["drop"]) > V1_GATE_TOL,
+             "the gate cannot tell a wrong path")
+    gate_err = r["plain"]
+    del o
+
+    scale = 1.0 / math.sqrt(d)
+    t = {"ms": time_cuda(lambda: flash_attention_v1(q, k, v), n_iter=20),
+         "plain_ms": time_cuda(lambda: attention_plain(q, k, v, scale, False),
+                               n_iter=5, n_warmup=1),
+         "library_ms": time_cuda(lambda: sdpa(q, k, v), n_iter=20)}
+    flop = 4 * b * h * l * l * d
+    t["bound_ms"], t["bound_by"] = roofline(flop, 4 * b * h * l * d * 2)
+    print(f"  v1 times at B={b} H={h} L={l} d={d} bf16 (CUDA events, "
+          f"median, L2 flushed): H1 {t['ms']:.4f} ms = "
+          f"{flop / t['ms'] / 1e9:.1f} TFLOP/s ({flop / 1e9:.1f} GFLOP); "
+          f"plain {t['plain_ms']:.4f} ms; scaled_dot_product_attention "
+          f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']})")
+    del q, k, v
+
+    h2 = None
+    for i, (route, b, hq, hkv, lq, lkv, d, causal, window, nh) in enumerate(
+            V1_CASES):
+        q, k, v = v1_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed=2 + i)
+        span = None if causal else split_kv_span(b, hq, lq, lkv)
+        _require((span is not None) == (route == V1_SPLIT_ROUTE),
+                 f"{route}: KV span {span}")
+        want = launches_only(h1=1, h2=int(span is not None))
+        o = counted_call(torch, lambda: flash_attention_v1(
+            q, k, v, causal=causal, window=window, out_dtype=torch.float32),
+            want)
+        tol = V1_O_TOL if window is None else V1_WINDOW_O_TOL
+        r = v1_readings(torch, q, k, v, o, None, causal, window, 1, nh)
+        print(f"  v1 {route}: B={b} Hq={hq} Hkv={hkv} Lq={lq} Lkv={lkv} "
+              f"d={d} causal={causal} window={window} KV span {span}: "
+              f"max|dO| vs plain {r['plain']:.3e}, vs f64 oracle on "
+              f"[:1, :{nh}] {r['oracle']:.3e} (tol {tol:g}); controls: "
+              f"scale off by 10% {r['scale']:.3e}, last 64-key tile "
+              f"dropped {r['drop']:.3e}; launches {want}")
+        v1_check(r, tol, route)
+        del o
+        ms = time_cuda(lambda: flash_attention_v1(
+            q, k, v, causal=causal, window=window), n_iter=10)
+        flop = 4 * b * hq * d * visible_pairs(lq, lkv, causal, window)
+        lib = ""                # SDPA masks causal top-left: none then
+        if not causal:
+            lib = time_cuda(lambda: sdpa(q, k, v, enable_gqa=hq != hkv),
+                            n_iter=10)
+            lib = f"; scaled_dot_product_attention {lib:.4f} ms"
+        bound = roofline(flop, 2 * d * 2 * (b * hq * lq + b * hkv * lkv))
+        print(f"  v1 time of that call (bf16 O): {ms:.4f} ms = "
+              f"{flop / ms / 1e9:.1f} TFLOP/s of the visible work "
+              f"({flop / 1e9:.2f} GFLOP), bound {bound[0]:.4f} ms "
+              f"({bound[1]}){lib}")
+        if span is not None:
+            h2 = split_timings(torch, q, k, v, span, want)
+        if window is None:
+            continue
+        o, lse = counted_call(torch, lambda: flash_attention_v1_window_partial(
+            q, k, v, window), launches_only(h1=1))
+        r = v1_readings(torch, q, k, v, o, lse, True, window, 1, nh)
+        print(f"  v1 flash_attention_v1_window_partial, same shape (B5 with "
+              f"LSE): max|dO| vs plain {r['plain']:.3e}, vs f64 oracle "
+              f"{r['oracle']:.3e} (tol {tol:g}); max|dLSE| vs plain "
+              f"{r['lse_plain']:.3e}, vs f64 oracle {r['lse_oracle']:.3e} "
+              f"(tol {H1_LSE_TOL:g}); controls {r['scale']:.3e}, "
+              f"{r['drop']:.3e}; one H1 launch")
+        v1_check(r, tol, "window partial")
+        _require(max(r["lse_plain"], r["lse_oracle"]) < H1_LSE_TOL,
+                 "the window partial's LSE is outside tolerance")
+        del o, lse
+        t_win = time_cuda(lambda: flash_attention_v1(
+            q, k, v, causal=True, window=window), n_iter=10)
+        t_causal = time_cuda(lambda: flash_attention_v1(q, k, v, causal=True),
+                             n_iter=10)
+        print(f"  v1 window {window} vs causal at B={b} Hq={hq} Hkv={hkv} "
+              f"L={lq} d={d}: {t_win:.4f} ms vs {t_causal:.4f} ms, ratio "
+              f"{t_win / t_causal:.3f} (must be < 0.5: tiles outside the "
+              f"band are skipped)")
+        _require(t_win < 0.5 * t_causal,
+                 "the window call does not skip the tiles outside its band")
+    _require(h2 is not None, "no v1 case ran the split-KV pair")
+    print("phase v1: ok")
+    return launches, gate_err, t, h2
+
+
+def split_timings(torch, q, k, v, span, want):
+    """At the split case: H2 against its plain version on H1's span
+    partials (error, times, bound), then the whole call at several span
+    counts, one span (H1 alone) first."""
+    from exploring_flash_attention_tpu_torch.configs import cdiv
+    from exploring_flash_attention_tpu_torch.ops import (
+        prefill_attention,
+        splitkv_combine,
+        splitkv_combine_plain,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    b, hq, lq, d = q.shape
+    lkv = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    o_part, lse = prefill_attention(q, k, v, scale, 0, False, kv_span=span,
+                                    out_dtype=torch.float32)
+    nkb = o_part.shape[2]
+    got = splitkv_combine(o_part, lse, torch.float32)
+    err = (got - splitkv_combine_plain(o_part, lse)).abs().max().item()
+    _require(err < H2_O_TOL, f"H2 differs from its plain version: {err:.3e}")
+    rows = b * hq * lq
+    h2 = {"launches": want["h2"], "max_abs_err": err,
+          "ms": time_cuda(lambda: splitkv_combine(o_part, lse, q.dtype)),
+          "plain_ms": time_cuda(lambda: splitkv_combine_plain(o_part, lse)),
+          "library_ms": None}
+    # its operations (an FMA per partial element, an exp per partial) are
+    # f32 outside the tensor cores
+    h2["bound_ms"], h2["bound_by"] = roofline(
+        nkb * rows * (2 * d + 1), nkb * rows * (d + 1) * 4 + rows * d * 2,
+        H100_F32_FLOPS)
+    spans = time_cuda(lambda: prefill_attention(
+        q, k, v, scale, 0, False, kv_span=span, out_dtype=torch.float32),
+        n_iter=10)
+    sweep = []
+    for n in SPLIT_SWEEP:
+        sp = cdiv(cdiv(lkv, n), 64) * 64
+        if n == 1:
+            ms = time_cuda(lambda: prefill_attention(
+                q, k, v, scale, 0, False, with_lse=False), n_iter=10)
+        else:
+            ms = time_cuda(lambda: splitkv_combine(*prefill_attention(
+                q, k, v, scale, 0, False, kv_span=sp,
+                out_dtype=torch.float32), q.dtype), n_iter=10)
+        sweep.append(f"{n} span{'s' * (n > 1)} {ms:.4f} ms")
+    print(f"  v1 split at B={b} Hq={hq} Lq={lq} Lkv={lkv} d={d}, {nkb} "
+          f"spans of {span} keys: H2 vs its plain version {err:.3e} (tol "
+          f"{H2_O_TOL:g}); H1 spans {spans:.4f} ms, H2 {h2['ms']:.4f} ms vs "
+          f"plain {h2['plain_ms']:.4f} ms (bound {h2['bound_ms']:.4f} ms, "
+          f"{h2['bound_by']}); whole call (bf16 O) by span count: "
+          + ", ".join(sweep))
+    return h2
 
 
 def make_decode_case(torch, dev, b=8, hq=8, hkv=4, d=128, ps=128,
@@ -338,10 +656,10 @@ def f64_attention_grads(torch, q, k, v, do, scale, diag_off):
     """Gradients of sum(o * do) by f64 autograd through the plain forward
     (every row must see a key: a row that sees none has no gradient)."""
     from exploring_flash_attention_tpu_torch.ops.attention import (
-        causal_attention_plain,
+        attention_plain,
     )
     qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
-    o, _ = causal_attention_plain(qd, kd, vd, scale, diag_off)
+    o, _ = attention_plain(qd, kd, vd, scale, True, diag_off)
     return torch.autograd.grad((o * do.double()).sum(), (qd, kd, vd))
 
 
@@ -422,12 +740,14 @@ def _counted():
         attention_bwd_dkv,
         attention_bwd_dq,
         prefill_attention,
+        splitkv_combine,
     )
     from exploring_flash_attention_tpu_torch.serving import (
         paged_decode_attention,
         paged_extend_attention,
     )
-    return {"h1": prefill_attention, "h6": paged_decode_attention,
+    return {"h1": prefill_attention, "h2": splitkv_combine,
+            "h6": paged_decode_attention,
             "h6e": paged_extend_attention, "h3dkv": attention_bwd_dkv,
             "h3dq": attention_bwd_dq}
 
@@ -668,9 +988,9 @@ def plain_flash_attention(q, k, v, causal=True, hidden=0):
     by autograd: the reference path of the train checks.  ``hidden=1``
     hides each row's diagonal key, a known-wrong forward."""
     from exploring_flash_attention_tpu_torch.ops.attention import (
-        causal_attention_plain,
+        attention_plain,
     )
-    o, _ = causal_attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[3]),
+    o, _ = attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[3]), True,
                                   k.shape[2] - q.shape[2] - hidden)
     return o.to(q.dtype)
 
@@ -790,11 +1110,18 @@ def phase_train(torch, dev):
 
 
 def time_kernels(torch, dev):
+    """CUDA-event medians (L2 flushed before each call) of H6-decode,
+    H6-extend and H3 beside their plain versions, their bounds from these
+    inputs and, for H3, the backward of scaled_dot_product_attention; and
+    H1 at the generation and training shapes (the v1 phase times H1 at
+    the canonical shape)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
     from exploring_flash_attention_tpu_torch.ops import (
         attention_bwd_dkv,
         attention_bwd_dq,
         attention_bwd_plain,
-        causal_attention_plain,
+        attention_plain,
         flash_attention_bwd,
         prefill_attention,
     )
@@ -812,40 +1139,98 @@ def time_kernels(torch, dev):
     v = _bf16(torch, dev, gen, 8, 4, 256, 128)
     s = 1.0 / math.sqrt(128)
     h1 = (time_cuda(lambda: prefill_attention(q, k, v, s, 0)),
-          time_cuda(lambda: causal_attention_plain(q, k, v, s, 0)))
-    cache, qd, slots, _ = make_decode_case(torch, dev)
-    h6 = (time_cuda(lambda: paged_decode_attention(qd, cache, slots)),
-          time_cuda(lambda: paged_decode_plain(qd, cache, slots, s)))
-    cache, qe, slots, _ = make_decode_case(torch, dev, chunk=256)
-    h6e = (time_cuda(lambda: paged_extend_attention(qe, cache, slots)),
-           time_cuda(lambda: paged_extend_plain(qe, cache, slots, s)))
+          time_cuda(lambda: attention_plain(q, k, v, s, True, 0)))
+    out = {}
+
+    def h1_bound(l, b=8, hq=8, hkv=4, d=128):
+        """H1's causal bound at the slice's widths: q, k, v and o in bf16,
+        the f32 LSE."""
+        return roofline(4 * b * hq * d * visible_pairs(l, l, True, None),
+                        2 * d * 2 * (b * hq * l + b * hkv * l)
+                        + 4 * b * hq * l)[0]
+
+    # H6: int8 K and V rows plus their f32 scales for every cached token,
+    # q and o in bf16; 4 flops per (q head, token, d)
+    hq, hkv, d = 8, 4, 128
+    cache, qd, slots, lens = make_decode_case(torch, dev)
+    n_tok = int(lens.sum())
+    out["h6"] = {
+        "ms": time_cuda(lambda: paged_decode_attention(qd, cache, slots)),
+        "plain_ms": time_cuda(lambda: paged_decode_plain(qd, cache, slots,
+                                                         s)),
+        "library_ms": None}
+    out["h6"]["bound_ms"], out["h6"]["bound_by"] = roofline(
+        4 * hq * d * n_tok,
+        n_tok * hkv * (2 * d + 8) + 2 * len(lens) * hq * d * 2)
+    c = 256
+    cache, qe, slots, lens = make_decode_case(torch, dev, chunk=c)
+    seen = sum(c * int(n) + c * (c + 1) // 2 for n in lens)  # (row, key)
+    out["h6e"] = {
+        "ms": time_cuda(lambda: paged_extend_attention(qe, cache, slots)),
+        "plain_ms": time_cuda(lambda: paged_extend_plain(qe, cache, slots,
+                                                         s)),
+        "library_ms": None}
+    out["h6e"]["bound_ms"], out["h6e"]["bound_by"] = roofline(
+        4 * hq * d * seen,
+        int(lens.sum() + c * len(lens)) * hkv * (2 * d + 8)
+        + 2 * len(lens) * c * hq * d * 2)
     del cache
-    # the training shape: H3's pair against the whole plain backward
-    q, do = (_bf16(torch, dev, gen, 8, 8, 1024, 128) for _ in range(2))
-    k, v = (_bf16(torch, dev, gen, 8, 4, 1024, 128) for _ in range(2))
-    out, lse = prefill_attention(q, k, v, s, 0)
-    delta = (do.float() * out.float()).sum(dim=-1)
-    h3 = {"dkv": time_cuda(lambda: attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                     s, 0), n_iter=20),
-          "dq": time_cuda(lambda: attention_bwd_dq(q, k, v, do, lse, delta,
-                                                   s, 0), n_iter=20),
-          "pair": time_cuda(lambda: flash_attention_bwd(q, k, v, out, do,
-                                                        lse, s), n_iter=20),
-          "plain": time_cuda(lambda: attention_bwd_plain(
-              q, k, v, out, do, lse, s, 0), n_iter=20)}
+    # the training shape: H3's pair against the whole plain backward and
+    # the autograd backward through scaled_dot_product_attention (its
+    # forward recorded once, outside the timed calls)
+    b, l = 8, 1024
+    q, do = (_bf16(torch, dev, gen, b, hq, l, d) for _ in range(2))
+    k, v = (_bf16(torch, dev, gen, b, hkv, l, d) for _ in range(2))
+    o, lse = prefill_attention(q, k, v, s, 0)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    leaves = [x.detach().clone().requires_grad_() for x in (
+        q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1))]
+    o_lib = sdpa(*leaves, is_causal=True)
+    lib = time_cuda(lambda: torch.autograd.grad(o_lib, leaves, do,
+                                                retain_graph=True), n_iter=20)
+    plain = time_cuda(lambda: attention_bwd_plain(q, k, v, o, do, lse, s, 0),
+                      n_iter=20)
+    pairs = b * hq * l * (l + 1) // 2           # the causal (row, key) pairs
+    q_bytes, kv_bytes, row_bytes = b * hq * l * d * 2, b * hkv * l * d * 2, \
+        b * hq * l * 4
+    out["h3dkv"] = {
+        "ms": time_cuda(lambda: attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                  s, 0), n_iter=20),
+        "plain_ms": plain, "library_ms": lib}
+    out["h3dkv"]["bound_ms"], out["h3dkv"]["bound_by"] = roofline(
+        8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)
+    out["h3dq"] = {
+        "ms": time_cuda(lambda: attention_bwd_dq(q, k, v, do, lse, delta,
+                                                 s, 0), n_iter=20),
+        "plain_ms": plain, "library_ms": lib}
+    out["h3dq"]["bound_ms"], out["h3dq"]["bound_by"] = roofline(
+        6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)
+    pair = time_cuda(lambda: flash_attention_bwd(q, k, v, o, do, lse, s),
+                     n_iter=20)
     h1_long = time_cuda(lambda: prefill_attention(q, k, v, s, 0), n_iter=20)
+    del leaves, o_lib
     print(f"  times (CUDA events, median of 50 calls, 20 at L=1024, L2 "
           f"flushed before each): "
-          f"H1 {h1[0]:.4f} ms vs plain {h1[1]:.4f} ms at B=8 Hq=8 Hkv=4 "
-          f"L=256 d=128; H6-decode {h6[0]:.4f} ms vs plain {h6[1]:.4f} ms "
-          f"at B=8 Hq=8 Hkv=4 ctx 257..280 d=128; H6-extend {h6e[0]:.4f} ms "
-          f"vs plain {h6e[1]:.4f} ms at B=8 C=256 Hq=8 Hkv=4 history "
+          f"H1 {h1[0]:.4f} ms vs plain {h1[1]:.4f} ms (bound "
+          f"{h1_bound(256):.4f} ms) at B=8 Hq=8 Hkv=4 "
+          f"L=256 d=128; H6-decode {out['h6']['ms']:.4f} ms vs plain "
+          f"{out['h6']['plain_ms']:.4f} ms (bound "
+          f"{out['h6']['bound_ms']:.4f} ms, {out['h6']['bound_by']}) at B=8 "
+          f"Hq=8 Hkv=4 ctx 257..280 d=128; H6-extend "
+          f"{out['h6e']['ms']:.4f} ms vs plain {out['h6e']['plain_ms']:.4f} "
+          f"ms (bound {out['h6e']['bound_ms']:.4f} ms, "
+          f"{out['h6e']['bound_by']}) at B=8 C=256 Hq=8 Hkv=4 history "
           f"257..280 d=128")
-    print(f"  times at B=8 Hq=8 Hkv=4 L=1024 d=128: H3-dkv {h3['dkv']:.4f} "
-          f"ms, H3-dq {h3['dq']:.4f} ms, flash_attention_bwd (delta + both) "
-          f"{h3['pair']:.4f} ms vs attention_bwd_plain {h3['plain']:.4f} "
-          f"ms; H1 forward {h1_long:.4f} ms")
-    return h1, h6, h6e, h3
+    print(f"  times at B=8 Hq=8 Hkv=4 L=1024 d=128 causal: H3-dkv "
+          f"{out['h3dkv']['ms']:.4f} ms (bound "
+          f"{out['h3dkv']['bound_ms']:.4f} ms), H3-dq {out['h3dq']['ms']:.4f} "
+          f"ms (bound {out['h3dq']['bound_ms']:.4f} ms), flash_attention_bwd "
+          f"(delta + both) {pair:.4f} ms vs attention_bwd_plain {plain:.4f} "
+          f"ms and the backward of scaled_dot_product_attention {lib:.4f} "
+          f"ms; H1 forward {h1_long:.4f} ms (bound {h1_bound(1024):.4f} "
+          f"ms)")
+    return out
+
 
 def main() -> int:
     import torch
@@ -865,6 +1250,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
     phase_build(kernels)
     h1_err = phase_h1(torch, dev)
+    v1_launches, v1_err, v1_t, h2 = phase_v1(torch, dev)
     h6_err = phase_decode(torch, dev)
     h6e_err = phase_extend(torch, dev)
     h3_err = phase_bwd(torch, dev)
@@ -873,38 +1259,46 @@ def main() -> int:
     turn2, _ = phase_multiturn(torch, dev, lm)
     del lm
     train, _ = phase_train(torch, dev)
-    h1_ms, h6_ms, h6e_ms, h3_ms = time_kernels(torch, dev)
+    t = time_kernels(torch, dev)
     _require("jax" not in sys.modules, "JAX was imported")
     print(json.dumps({"kernels": [
-        {"name": "H1 causal prefill attention", "route": "cuda",
-         "source": H1_SRC,
-         "replaces": "exploring_flash_attention_tpu/ops/attention_v1.py:489",
-         "also_replaces":
-             "exploring_flash_attention_tpu/ops/attention_v2_splitkv.py:51",
-         "launches": launches["h1"], "max_abs_err": h1_err,
-         "ms": h1_ms[0], "plain_ms": h1_ms[1]},
+        # H1's numbers are the v1 phase's: its main call at bench.py's
+        # canonical shape, and its times there
+        {"name": "H1 attention forward (none, causal, window; d 32/64/128)",
+         "route": "cuda", "source": H1_SRC, "replaces": f"{V1_PY}:1139",
+         "also_replaces": [f"{V1_PY}:{n}" for n in (387, 213, 489, 901,
+                                                     1261, 1357)]
+         + [f"{SPLITKV_PY}:51", f"{SPLITKV_PY}:213"],
+         "launches": v1_launches["h1"], "max_abs_err": v1_err,
+         "launches_by_path": {"v1": v1_launches["h1"],
+                              "slice": launches["h1"],
+                              "train_step": train["h1"]},
+         **v1_t},
+        # H2 runs in the v1 phase's split case, its main path
+        {"name": "H2 split-KV combine (LSE-weighted merge of span partials)",
+         "route": "cuda", "source": H2_SRC, "replaces": f"{SPLITKV_PY}:330",
+         **h2},
         {"name": "H6-decode paged INT8 decode attention", "route": "cuda",
          "source": H6_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:74",
-         "launches": launches["h6"], "max_abs_err": h6_err,
-         "ms": h6_ms[0], "plain_ms": h6_ms[1]},
+         "launches": launches["h6"], "max_abs_err": h6_err, **t["h6"]},
         {"name": "H6-extend paged INT8 chunked-prefill attention",
          "route": "cuda", "source": H6E_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:257",
          "also_replaces": "exploring_flash_attention_tpu/serving/decode.py:455",
-         "launches": turn2["h6e"], "max_abs_err": h6e_err,
-         "ms": h6e_ms[0], "plain_ms": h6e_ms[1]},
-        # plain_ms of both H3 entries is the whole plain backward
+         "launches": turn2["h6e"], "max_abs_err": h6e_err, **t["h6e"]},
+        # plain_ms of both H3 entries is the whole plain backward, and
+        # library_ms the whole backward of scaled_dot_product_attention
         {"name": "H3-dkv causal attention backward, dK and dV",
          "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
          "also_replaces": [f"{BWD_PY}:{n}" for n in (281, 377, 112, 205)],
          "launches": train["h3dkv"], "max_abs_err": h3_err["h3dkv"],
-         "ms": h3_ms["dkv"], "plain_ms": h3_ms["plain"]},
+         **t["h3dkv"]},
         {"name": "H3-dq causal attention backward, dQ",
          "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
          "also_replaces": [f"{BWD_PY}:{n}" for n in (281, 377, 112, 205)],
          "launches": train["h3dq"], "max_abs_err": h3_err["h3dq"],
-         "ms": h3_ms["dq"], "plain_ms": h3_ms["plain"]},
+         **t["h3dq"]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,10 @@ from exploring_flash_attention_tpu_torch.ops import (
     attention_partial_local,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_v1,
+    flash_attention_v1_causal_partial,
+    flash_attention_v1_window_partial,
+    splitkv_combine,
 )
 
 __all__ = [
@@ -30,8 +34,12 @@ __all__ = [
     "cdiv",
     "flash_attention",
     "flash_attention_bwd",
+    "flash_attention_v1",
+    "flash_attention_v1_causal_partial",
+    "flash_attention_v1_window_partial",
     "forward",
     "init_params",
     "loss_fn",
     "make_train_step",
+    "splitkv_combine",
 ]

@@ -19,7 +19,11 @@ constexpr int BQ = 64;        // Q rows per block
 constexpr int BKV = 64;       // K/V rows per tile
 constexpr int WARPS = 4;      // each warp owns 16 Q rows
 constexpr int THREADS = WARPS * 32;
-constexpr int PAD_H = 8;      // bf16 row padding: rows stay 32-byte aligned
+// Row padding.  A WMMA fragment's base must be 32-byte aligned; fragments
+// start on multiples of 16 rows and 16 columns, and 16 padded rows are a
+// multiple of 32 bytes at every D (at D = 32 a bf16 row is 80 bytes, so
+// single rows are only 16-byte aligned, which the 16-byte tile loads need).
+constexpr int PAD_H = 8;      // bf16 row padding
 constexpr int PAD_F = 4;      // f32 row padding
 
 template <int D>

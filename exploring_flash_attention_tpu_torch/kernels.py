@@ -32,9 +32,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse, batch, hq, hkv, lq, lkv, d, diag_off, scale,
-    # device, stream
-    "eft_prefill_attention": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, o, lse, batch, hq, hkv, lq, lkv, d, mask, diag_off, window,
+    # kv_span, out_f32, scale, device, stream
+    "eft_prefill_attention": [_P] * 5 + [_I] * 11 + [_F, _I, _P],
+    # o_part, lse, o, n_bh, nkb, lq, d, out_f32, device, stream
+    "eft_splitkv_combine": [_P] * 3 + [_I] * 6 + [_P],
     # q, pages, scales, page_table, seq_lens, slots, o, batch, hq, hkv, d,
     # page_size, max_pages, max_seqs, scale, device, stream
     "eft_paged_decode": [_P] * 7 + [_I] * 7 + [_F, _I, _P],

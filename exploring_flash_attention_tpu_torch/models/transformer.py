@@ -57,9 +57,11 @@ def flagship_config() -> ModelConfig:
 
 
 def init_params(config: ModelConfig, seed: int = 0,
-                device: torch.device | str = "cpu") -> Params:
+                device: torch.device | str = "cuda") -> Params:
     """Random weights drawn from ``np.random.default_rng(seed)`` in the JAX
-    package's order, so both packages build the same f32 weights."""
+    package's order, so both packages build the same f32 weights; on the
+    card unless ``device`` says otherwise (``"cpu"`` runs the plain
+    paths)."""
     rng = np.random.default_rng(seed)
     c = config
 

@@ -13,12 +13,12 @@ from exploring_flash_attention_tpu_torch.models.transformer import (
 )
 
 
-def params_from_jax(tree: Any, device: torch.device | str = "cpu",
+def params_from_jax(tree: Any, device: torch.device | str = "cuda",
                     dtype: Optional[torch.dtype] = None) -> Params:
     """The JAX package's params pytree, with its leaves as NumPy arrays
     (e.g. ``jax.device_get(params)``), as the port's parameters on
-    ``device``, in ``dtype`` or else bf16 for bf16 leaves and f32 for the
-    rest.
+    ``device`` (the card by default), in ``dtype`` or else bf16 for bf16
+    leaves and f32 for the rest.
 
     Leaves go through f32, which is exact for f32 and bf16:
     ``torch.from_numpy`` refuses ml_dtypes' bf16 arrays."""
@@ -38,7 +38,7 @@ def params_from_jax(tree: Any, device: torch.device | str = "cpu",
     }
 
 
-def trainable_params_from_jax(tree: Any, device: torch.device | str = "cpu",
+def trainable_params_from_jax(tree: Any, device: torch.device | str = "cuda",
                               dtype: Optional[torch.dtype] = None) -> Params:
     """:func:`params_from_jax` with ``requires_grad`` set on every leaf: the
     JAX package's params as the port's trainable parameters.  Their

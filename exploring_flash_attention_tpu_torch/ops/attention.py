@@ -1,10 +1,12 @@
-"""Causal attention of the port: the forward on kernel H1, differentiable.
+"""Attention of the port on kernel H1: the partial, and the causal
+differentiable call.
 
-Counterparts of ``parallel/partials.py:attention_partial_local`` (the causal
-static-positions route) and of ``ops/attention_vjp.py:flash_attention`` in
-the JAX package, whose backward is ``ops/attention_bwd.py`` (H3).  Layouts are
-the JAX package's: q ``[B, Hq, Lq, d]``, k/v ``[B, Hkv, Lkv, d]``, q head
-``h`` reading KV head ``h // (Hq / Hkv)``.
+Counterparts of ``parallel/partials.py:attention_partial_local`` (its
+static-positions routes) and of ``ops/attention_vjp.py:flash_attention`` in
+the JAX package, whose backward is ``ops/attention_bwd.py`` (H3);
+``ops/attention_v1.py`` holds ``flash_attention_v1`` on the same kernel.
+Layouts are the JAX package's: q ``[B, Hq, Lq, d]``, k/v
+``[B, Hkv, Lkv, d]``, q head ``h`` reading KV head ``h // (Hq / Hkv)``.
 
 Causal masking uses the decode convention: q row ``i`` sits at global
 position ``q_pos0 + i`` and key ``j`` at ``kv_pos0 + j``; the default
@@ -22,12 +24,16 @@ import torch
 from exploring_flash_attention_tpu_torch import kernels
 
 
-def causal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           scale: float, diag_off: int
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, causal: bool = True, diag_off: int = 0,
+                    window: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of H1 in f32 math (f64 for f64 inputs): (o
-    [B,H,Lq,d] normalized, lse [B,H,Lq] natural log, scale included).  Row
-    ``i`` sees key ``j`` iff ``j <= i + diag_off``; a row that sees nothing
+    [B,H,Lq,d] normalized, lse [B,H,Lq] natural log, scale included).
+
+    Non-causal rows see every key.  Causal row ``i`` sees key ``j`` iff
+    ``j <= i + diag_off``; a ``window`` (causal only, inclusive) further
+    needs ``j >= i + diag_off - window + 1``.  A row that sees nothing
     gives (0, -inf)."""
     group = q.shape[1] // k.shape[1]
     lq, lkv = q.shape[2], k.shape[2]
@@ -35,43 +41,95 @@ def causal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.to(ct).repeat_interleave(group, dim=1)
     vf = v.to(ct).repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * scale
-    row = torch.arange(lq, device=q.device)[:, None]
-    col = torch.arange(lkv, device=q.device)[None, :]
-    s = s.masked_fill(col > row + diag_off, float("-inf"))
+    if causal:
+        last = torch.arange(lq, device=q.device)[:, None] + diag_off
+        col = torch.arange(lkv, device=q.device)[None, :]
+        hidden = col > last
+        if window is not None:
+            hidden |= col < last - window + 1
+        s = s.masked_fill(hidden, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     shift = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
     p = torch.exp(s - shift[..., None])
     return torch.einsum("bhqk,bhkd->bhqd", p, vf), lse
 
 
-def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      scale: float, diag_off: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal attention forward: (o in q.dtype, lse f32 [B, Hq, Lq]).
+H1_HEAD_DIMS = (32, 64, 128)
+H1_TILE = 64                    # keys per K/V tile; a KV span is whole tiles
+_MASK_NONE, _MASK_CAUSAL, _MASK_WINDOW = 0, 1, 2      # csrc enum Mask
 
-    CPU tensors take :func:`causal_attention_plain`.  CUDA tensors launch
-    kernel H1 (``csrc/prefill_attention.cu``), which takes contiguous bf16
-    q/k/v with d in {64, 128}, or raise.  ``prefill_attention.launches``
-    counts kernel launches."""
-    if q.device.type == "cpu":
-        o, lse = causal_attention_plain(q, k, v, scale, diag_off)
-        return o.to(q.dtype), lse
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float, diag_off: int = 0, causal: bool = True,
+                      window: Optional[int] = None,
+                      out_dtype: Optional[torch.dtype] = None,
+                      with_lse: bool = True, kv_span: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Attention forward: (o in ``out_dtype`` or q.dtype, lse f32
+    [B, Hq, Lq] or None without ``with_lse``).  The mask is none, causal
+    at ``diag_off``, or a causal ``window`` (see :func:`attention_plain`);
+    a window that holds every key the causal rows see is plain causal.
+
+    With ``kv_span`` (a multiple of 64 keys) the KV is cut into
+    nkb = cdiv(Lkv, kv_span) spans and both outputs gain a span axis: o
+    [B, Hq, nkb, Lq, d] normalized over each span and lse [B, Hq, nkb, Lq]
+    of each span, the partials that ``splitkv_combine`` merges.
+
+    CPU tensors take :func:`attention_plain`.  CUDA tensors launch kernel
+    H1 (``csrc/prefill_attention.cu``), once per call, or raise: it takes
+    contiguous bf16 q/k/v with d in {32, 64, 128} and writes bf16 or f32
+    O.  ``prefill_attention.launches`` counts kernel launches."""
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
-    _check_cuda_inputs("H1 prefill attention", q, k, v)
+    out_dtype = out_dtype or q.dtype
+    if window is not None:
+        if not causal or window < 1:
+            raise ValueError(f"a window needs causal=True and window >= 1, "
+                             f"got causal={causal}, window={window}")
+        if window >= lq + diag_off:     # the last row sees keys 0..window-1
+            window = None
+    if kv_span is not None and (kv_span <= 0 or kv_span % H1_TILE):
+        raise ValueError(f"kv_span must be a positive multiple of {H1_TILE}, "
+                         f"got {kv_span}")
+    if q.device.type == "cpu":
+        if kv_span is None:
+            o, lse = attention_plain(q, k, v, scale, causal, diag_off, window)
+        else:
+            parts = [attention_plain(q, k[:, :, s:s + kv_span],
+                                     v[:, :, s:s + kv_span], scale, causal,
+                                     diag_off - s, window)
+                     for s in range(0, lkv, kv_span)]
+            o = torch.stack([p[0] for p in parts], dim=2)
+            lse = torch.stack([p[1] for p in parts], dim=2)
+        return o.to(out_dtype), lse if with_lse else None
+    _check_cuda_inputs("H1 attention", q, k, v)
     if (k.shape != (b, hkv, lkv, d) or v.shape != k.shape
-            or hq % hkv or d not in (64, 128) or lq == 0 or lkv == 0):
+            or hq % hkv or d not in H1_HEAD_DIMS or lq == 0 or lkv == 0):
         raise ValueError(
             f"H1 takes q [B,Hq,Lq,d], k/v [B,Hkv,Lkv,d] with Hq % Hkv == 0 "
-            f"and d in (64, 128); got {tuple(q.shape)}, {tuple(k.shape)}, "
-            f"{tuple(v.shape)}")
-    o = torch.empty_like(q)
-    lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+            f"and d in {H1_HEAD_DIMS}; got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"H1 writes bf16 or f32 O, not {out_dtype}")
+    if not all(-2 ** 31 <= int(x) < 2 ** 31 for x in (diag_off, window or 0)):
+        raise ValueError(f"diag_off {diag_off} and window {window} must "
+                         "fit in 32 bits")
+    nkb = 1 if kv_span is None else -(-lkv // kv_span)
+    if nkb > 65535:
+        raise ValueError(f"{nkb} KV spans exceed the grid's 65535")
+    mask = (_MASK_NONE if not causal
+            else _MASK_CAUSAL if window is None else _MASK_WINDOW)
+    rows = (b, hq, lq) if kv_span is None else (b, hq, nkb, lq)
+    o = torch.empty((*rows, d), dtype=out_dtype, device=q.device)
+    lse = (torch.empty(rows, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     err = kernels.library().eft_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, hq, hkv, lq, lkv, d, diag_off, scale,
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check_launch(err, "H1 prefill attention")
+        lse.data_ptr() if with_lse else None, b, hq, hkv, lq, lkv, d, mask,
+        int(diag_off), int(window or 0), int(kv_span or 0),
+        int(out_dtype == torch.float32), scale, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check_launch(err, "H1 attention")
     prefill_attention.launches += 1
     return o, lse
 
@@ -136,18 +194,33 @@ def attention_partial_local(
     static_positions: Optional[Tuple[int, int]] = None,
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Normalized causal partial attention over a local KV shard:
-    (o f32 [B,H,Lq,d], lse f32 [B,H,Lq]).  Only the causal route with
-    static positions is ported; the kernel fixes its own tiles, so the JAX
-    signature's ``config`` is not taken."""
-    if not causal or window is not None:
+    """Normalized partial attention over a local KV shard: (o f32
+    [B,H,Lq,d], lse f32 [B,H,Lq]), O written in f32 by H1 on the card.
+
+    Non-causal; causal at static positions; or a causal ``window`` at the
+    decode-convention positions, as ``parallel/partials.py:46-81`` routes
+    it (a window of Lkv or more is plain causal, any other positions raise
+    ``NotImplementedError``).  Traced positions are not ported, and the
+    kernel fixes its own tiles, so the JAX signature's ``config`` is not
+    taken."""
+    lq, lkv = q.shape[2], k.shape[2]
+    if window is not None and not causal:
         raise NotImplementedError(
-            "only causal attention without a window is ported")
+            "window requires causal=True with static positions")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
-    o, lse = prefill_attention(
-        q, k, v, scale, _diag_offset(q.shape[2], k.shape[2], static_positions))
-    return o.float(), lse
+    if static_positions is not None:
+        _require_static(static_positions)
+    if window is not None and window >= lkv:
+        window = None               # the band covers every key: causal
+    if window is not None and static_positions is not None and tuple(
+            int(p) for p in static_positions) != (lkv - lq, 0):
+        raise NotImplementedError(
+            "windowed partial attention needs decode-convention positions; "
+            f"got Lq={lq}, Lkv={lkv}, positions={static_positions}")
+    return prefill_attention(
+        q, k, v, scale, _diag_offset(lq, lkv, static_positions), causal,
+        window, out_dtype=torch.float32)
 
 
 class _FlashAttention(torch.autograd.Function):

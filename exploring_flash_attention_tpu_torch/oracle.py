@@ -23,13 +23,18 @@ def _f64(x) -> np.ndarray:
 
 
 def naive_attention(q, k, v, scale: Optional[float] = None,
-                    causal: bool = False, return_lse: bool = False):
+                    causal: bool = False, window: Optional[int] = None,
+                    return_lse: bool = False):
     """Materialized-scores attention in float64 over [..., L, d] inputs.
 
     Causal uses the decode convention: the q rows are the LAST Lq
-    positions, so row i sees keys j <= i + (Lkv - Lq).  A row that sees no
-    key gives O = 0 and LSE = -inf.  ``return_lse`` also returns the
-    natural-log row LSE of the scaled scores."""
+    positions, so row i sees keys j <= i + (Lkv - Lq).  ``window`` (causal
+    only) keeps each row's last ``window`` positions, its own included:
+    j >= i + (Lkv - Lq) - window + 1.  A row that sees no key gives O = 0
+    and LSE = -inf.  ``return_lse`` also returns the natural-log row LSE
+    of the scaled scores."""
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True")
     q64, k64, v64 = _f64(q), _f64(k), _f64(v)
     if scale is None:
         scale = 1.0 / math.sqrt(q64.shape[-1])
@@ -37,6 +42,9 @@ def naive_attention(q, k, v, scale: Optional[float] = None,
     if causal:
         lq, lk = scores.shape[-2], scores.shape[-1]
         mask = np.tril(np.ones((lq, lk), dtype=bool), k=lk - lq)
+        if window is not None:
+            mask &= ~np.tril(np.ones((lq, lk), dtype=bool),
+                             k=lk - lq - window)
         scores = np.where(mask, scores, -np.inf)
     m = scores.max(axis=-1, keepdims=True)
     m = np.where(np.isneginf(m), 0.0, m)
@@ -91,3 +99,20 @@ def check_accuracy(out, ref, name: str = "impl", max_abs_tol: float = 1e-2,
         raise AccuracyError(f"{name}: accuracy check failed: "
                             + "; ".join(failures))
     return stats
+
+
+def make_qkv(batch: int, heads: int, seq_len: int, head_dim: int,
+             dtype=np.float32, seed: int = 0,
+             seq_len_kv: Optional[int] = None,
+             heads_kv: Optional[int] = None):
+    """Seeded standard-normal q, k, v in the [B, H, L, d] layout, drawn as
+    the JAX package's ``oracle/reference.py:make_qkv`` draws them (the same
+    arrays for the same arguments).  ``heads_kv`` gives k and v fewer heads
+    (GQA)."""
+    rng = np.random.default_rng(seed)
+    lkv = seq_len if seq_len_kv is None else seq_len_kv
+    hkv = heads if heads_kv is None else heads_kv
+    q = rng.standard_normal((batch, heads, seq_len, head_dim)).astype(dtype)
+    k = rng.standard_normal((batch, hkv, lkv, head_dim)).astype(dtype)
+    v = rng.standard_normal((batch, hkv, lkv, head_dim)).astype(dtype)
+    return q, k, v

@@ -59,7 +59,7 @@ def make_cache(
     page_size: int = 128,
     max_seqs: int = 64,
     max_pages_per_seq: Optional[int] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> PagedKVCache:
     if page_size <= 0:
         raise ValueError(f"page_size must be positive, got {page_size}")

@@ -40,7 +40,7 @@ from exploring_flash_attention_tpu.ops.attention_vjp import (
     flash_attention as jax_flash_attention,
 )
 from exploring_flash_attention_tpu_torch.ops.attention import (
-    causal_attention_plain,
+    attention_plain,
     flash_attention,
 )
 from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
@@ -230,7 +230,7 @@ def test_card_limit_holds_kernel_roundings_and_not_a_mask_fault(lq, lkv, d):
     q, k, v, do = (torch.randn(*s, generator=gen).bfloat16() for s in (
         (1, 4, lq, d), (1, 2, lkv, d), (1, 2, lkv, d), (1, 4, lq, d)))
     scale, diag_off = 1.0 / math.sqrt(d), lkv - lq
-    out, lse = causal_attention_plain(q, k, v, scale, diag_off)
+    out, lse = attention_plain(q, k, v, scale, True, diag_off)
     out = out.bfloat16()
     ref = attention_bwd_plain(q, k, v, out, do, lse, scale, diag_off)
     emu = _kernel_emulation(q, k, v, out, do, lse, scale, diag_off)
@@ -243,7 +243,7 @@ def test_card_limit_holds_kernel_roundings_and_not_a_mask_fault(lq, lkv, d):
 
 def test_flash_attention_bwd_refuses_what_is_not_ported():
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(9, 1, 2, 2, 8, 8, 16))
-    out, lse = causal_attention_plain(q, k, v, 0.25, 0)
+    out, lse = attention_plain(q, k, v, 0.25, True, 0)
     args = (q, k, v, out, do, lse)
     with pytest.raises(NotImplementedError, match="traced"):
         flash_attention_bwd(*args, positions=(torch.tensor(0),

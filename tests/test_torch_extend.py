@@ -65,7 +65,7 @@ def _fill_both(seed, hkv, d, hist, c, max_pages=3):
     jc = jkv.PagedKVCache(jc.kv_pages, jc.kv_scales, jnp.asarray(table),
                           jc.seq_lens, jc.page_size, jc.head_pack)
     tc = make_cache(hkv, d, b * max_pages, page_size=PS, max_seqs=b,
-                    max_pages_per_seq=max_pages)
+                    max_pages_per_seq=max_pages, device="cpu")
     tc.page_table.copy_(torch.from_numpy(table))
     tslots = torch.from_numpy(slots)
     for s, (kp, vp) in enumerate(prompts):
@@ -149,7 +149,8 @@ def test_paged_extend_chunk_over_empty_history_and_window():
     a window is not ported and raises."""
     hq, hkv, d, c = 4, 2, 64, 20
     rng = np.random.default_rng(5)
-    tc = make_cache(hkv, d, 2, page_size=PS, max_seqs=1, max_pages_per_seq=2)
+    tc = make_cache(hkv, d, 2, page_size=PS, max_seqs=1, max_pages_per_seq=2,
+                    device="cpu")
     tc.page_table[0] = torch.tensor([1, 0], dtype=torch.int32)
     k = rng.standard_normal((1, c, hkv, d)).astype(np.float32)
     v = rng.standard_normal((1, c, hkv, d)).astype(np.float32)
@@ -188,8 +189,9 @@ def test_multi_turn_greedy_tokens_match_jax_engine():
     j2 = np.asarray(jeng.continue_generation(jnp.asarray(jturn), 3))
     jeng.release()
 
-    eng = GenerationEngine(init_params(ModelConfig(**KW), seed=0),
-                           ModelConfig(**KW), max_seqs=2, max_len=256)
+    eng = GenerationEngine(
+        init_params(ModelConfig(**KW), seed=0, device="cpu"),
+        ModelConfig(**KW), max_seqs=2, max_len=256)
     t1 = eng.generate(prompt, 4, hold=True)
     np.testing.assert_array_equal(t1, j1)
     t2 = eng.continue_generation(
@@ -208,7 +210,7 @@ def test_multi_turn_cache_matches_forward_over_the_stream():
     starts with turn 1's last token, which was never fed into the cache; a
     stream without it is one token short and must fail the same check."""
     cfg = ModelConfig(**KW)
-    params = init_params(cfg, seed=0)
+    params = init_params(cfg, seed=0, device="cpu")
     eng = GenerationEngine(params, cfg, max_seqs=2, max_len=256)
     prompt, turn_new = _turns(1, 2, 120, 20)       # turn 2 crosses 128
     g1 = eng.generate(prompt, 3, hold=True)
@@ -235,8 +237,8 @@ def test_continue_generation_error_frees_the_slots(monkeypatch):
     from exploring_flash_attention_tpu_torch.models import generate as gen
 
     cfg = ModelConfig(**KW)
-    eng = GenerationEngine(init_params(cfg, seed=2), cfg, max_seqs=2,
-                           max_len=64)
+    eng = GenerationEngine(init_params(cfg, seed=2, device="cpu"), cfg,
+                           max_seqs=2, max_len=64)
     prompt, turn = _turns(2, 2, 8, 4)
     eng.generate(prompt, 2, hold=True)
     assert eng.allocator.free_pages < eng.allocator.n_pages

@@ -43,15 +43,15 @@ def test_greedy_tokens_match_jax_engine():
     jeng = jgen.GenerationEngine(jtf.init_params(JCFG, seed=0), JCFG,
                                  max_seqs=2, max_len=256)
     ref = jeng.generate(jnp.asarray(prompt), max_new_tokens=5)
-    eng = GenerationEngine(init_params(CFG, seed=0), CFG, max_seqs=2,
-                           max_len=256)
+    eng = GenerationEngine(init_params(CFG, seed=0, device="cpu"), CFG,
+                           max_seqs=2, max_len=256)
     got = eng.generate(prompt, max_new_tokens=5)
     assert got.shape == (2, 5) and got.dtype == np.int32
     np.testing.assert_array_equal(got, np.asarray(ref))
 
 
 def test_forward_collect_kv_matches_jax_and_forward():
-    params = init_params(CFG, seed=1)
+    params = init_params(CFG, seed=1, device="cpu")
     toks = _prompt(1, 2, 32)
     logits, kvs = forward_collect_kv(params, torch.from_numpy(toks), CFG)
     full = forward(params, torch.from_numpy(toks), CFG)
@@ -66,7 +66,7 @@ def test_forward_collect_kv_matches_jax_and_forward():
 
 
 def test_decode_matches_full_forward_logits():
-    params = init_params(CFG, seed=2)
+    params = init_params(CFG, seed=2, device="cpu")
     prompt = _prompt(2, 2, 17)
     out = GenerationEngine(params, CFG, max_seqs=2, max_len=64).generate(
         prompt, max_new_tokens=4)
@@ -82,7 +82,7 @@ def test_decode_matches_full_forward_logits():
 
 
 def test_temperature_sampling_reproducible_from_seed():
-    params = init_params(CFG, seed=3)
+    params = init_params(CFG, seed=3, device="cpu")
     prompt = _prompt(3, 1, 8)
     a = GenerationEngine(params, CFG, max_seqs=1, max_len=32).generate(
         prompt, 3, temperature=0.8, seed=7)
@@ -92,7 +92,7 @@ def test_temperature_sampling_reproducible_from_seed():
 
 
 def test_engine_reusable_and_pages_released():
-    params = init_params(CFG, seed=4)
+    params = init_params(CFG, seed=4, device="cpu")
     prompt = _prompt(4, 1, 8)
     eng = GenerationEngine(params, CFG, max_seqs=1, max_len=32)
     a = eng.generate(prompt, 2)
@@ -105,8 +105,8 @@ def test_engine_refuses_over_capacity_and_hold():
     ``release()``: a second ``generate`` then raises, ``continue_generation``
     raises without them, and a wrong batch or an overflowing turn raises
     while leaving them held.  A slot holds 2 pages of 16 tokens."""
-    eng = GenerationEngine(init_params(CFG, seed=0), CFG, max_seqs=1,
-                           max_len=32, page_size=16)
+    eng = GenerationEngine(init_params(CFG, seed=0, device="cpu"), CFG,
+                           max_seqs=1, max_len=32, page_size=16)
     with pytest.raises(ValueError, match="max_seqs"):
         eng.generate(np.zeros((2, 4), np.int32), 2)
     with pytest.raises(ValueError, match="max_len"):

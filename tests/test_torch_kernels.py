@@ -9,6 +9,9 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
 - H1 vs plain: O to 2e-2 abs (the kernel rounds P and O to bf16, one bf16
   ulp of an O(1) value is 7.8e-3); LSE to 4e-3 (l sums P rounded to bf16,
   each term within 2^-9 relative, so ln(l) moves by at most ~2e-3).
+- H2 (the split-KV combine) vs plain: 1e-5 abs on the same f32 partials
+  (both merge in f32, in different orders) for f32 O; bf16 O one rounding
+  more, 2^-8 of |O| plus 1e-5.
 - H6-decode vs plain: 5e-3 abs on O (P rounded to bf16 before P V, O
   rounded to bf16; O is an average over ~270 tokens, so its rounding
   errors stay near one bf16 ulp of |O| < 0.5).
@@ -34,9 +37,19 @@ import torch
 
 from exploring_flash_attention_tpu_torch.oracle import naive_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
-    causal_attention_plain,
+    attention_partial_local,
+    attention_plain,
     flash_attention,
     prefill_attention,
+)
+from exploring_flash_attention_tpu_torch.ops.attention_v1 import (
+    flash_attention_v1,
+    flash_attention_v1_window_partial,
+    split_kv_span,
+)
+from exploring_flash_attention_tpu_torch.ops.attention_v2_splitkv import (
+    splitkv_combine,
+    splitkv_combine_plain,
 )
 from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
     attention_bwd_dkv,
@@ -62,6 +75,7 @@ LSE_TOL = 4e-3
 DECODE_O_TOL = 5e-3
 EXTEND_O_TOL = 5e-3
 BWD_REL_TOL = 2e-2
+H2_O_TOL = 1e-5
 
 
 @pytest.fixture
@@ -93,7 +107,7 @@ def test_prefill_kernel_matches_plain_and_oracle(cuda_device, b, hq, hkv,
     scale = 1.0 / math.sqrt(d)
     o, lse = prefill_attention(q, k, v, scale, lkv - lq)
     torch.cuda.synchronize()
-    o_ref, lse_ref = causal_attention_plain(q, k, v, scale, lkv - lq)
+    o_ref, lse_ref = attention_plain(q, k, v, scale, True, lkv - lq)
     assert o.dtype == torch.bfloat16 and o.shape == q.shape
     assert (o.float() - o_ref).abs().max().item() < O_TOL
     fin = torch.isfinite(lse_ref)
@@ -113,6 +127,146 @@ def test_prefill_kernel_counts_launches_and_refuses_f32(cuda_device):
     with pytest.raises(TypeError, match="bf16"):
         prefill_attention(q.float(), k.float(), v.float(), 0.125, 0)
     assert prefill_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("mode", ["none", "causal", "window"])
+def test_h1_modes_match_plain_and_oracle(cuda_device, mode, d):
+    """Each mask at each head dim, ragged and cross (Lq=200, Lkv=330), GQA
+    4/2, through ``flash_attention_v1``: one launch, bf16 O."""
+    b, hq, hkv, lq, lkv = 2, 4, 2, 200, 330
+    causal, window = mode != "none", 100 if mode == "window" else None
+    q, k, v = _qkv(cuda_device, b, hq, hkv, lq, lkv, d, seed=8)
+    before = prefill_attention.launches
+    o = flash_attention_v1(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 1
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    o_ref, _ = attention_plain(q, k, v, 1.0 / math.sqrt(d), causal,
+                               lkv - lq, window)
+    assert (o.float() - o_ref).abs().max().item() < O_TOL
+    oracle = naive_attention(q, k.repeat_interleave(2, 1),
+                             v.repeat_interleave(2, 1), causal=causal,
+                             window=window)
+    assert np.abs(o.float().cpu().numpy() - oracle).max() < O_TOL
+
+
+def test_h1_window_suffix_band_gives_merge_identity(cuda_device):
+    """The window partial with the rows past the KV span (``row_off`` =
+    Lq): f32 O and LSE against the plain version; rows whose band misses
+    every key give (0, -inf)."""
+    lq, lkv, window = 128, 256, 100
+    q, k, v = _qkv(cuda_device, 1, 8, 4, lq, lkv, 128, seed=9)
+    o, lse = flash_attention_v1_window_partial(q, k, v, window, row_off=lq)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = attention_plain(q, k, v, 1.0 / math.sqrt(128), True,
+                                     lkv, window)
+    assert o.dtype == torch.float32
+    blind = torch.isneginf(lse_ref)
+    assert blind.any() and torch.equal(torch.isneginf(lse), blind)
+    assert (o[blind] == 0).all()
+    assert (o - o_ref).abs().max().item() < O_TOL
+    assert (lse[~blind] - lse_ref[~blind]).abs().max().item() < LSE_TOL
+
+
+def test_partial_returns_f32_o_written_by_h1(cuda_device):
+    """``attention_partial_local`` gets O from H1 in f32, not bf16 cast up:
+    O is not bf16-representable everywhere, and its largest error against
+    the f64 oracle stays below half a bf16 ulp at max|O| (rounding O to
+    bf16 alone could cost that much)."""
+    q, k, v = _qkv(cuda_device, 2, 8, 4, 512, 512, 128, seed=10)
+    o, lse = attention_partial_local(q, k, v)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    assert not torch.equal(o, o.bfloat16().float())
+    oracle = naive_attention(q, k.repeat_interleave(2, 1),
+                             v.repeat_interleave(2, 1), causal=True)
+    half_ulp = 2.0 ** (np.floor(np.log2(np.abs(oracle).max())) - 8)
+    assert np.abs(o.cpu().numpy() - oracle).max() < half_ulp
+
+
+def test_h1_refuses_what_it_cannot_take(cuda_device):
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 96)
+    before = prefill_attention.launches
+    with pytest.raises(ValueError, match="32, 64, 128"):
+        flash_attention_v1(q, k, v)
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 64)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_attention_v1(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="f32"):
+        flash_attention_v1(q, k, v, out_dtype=torch.float16)
+    assert prefill_attention.launches == before
+
+
+@pytest.mark.parametrize("causal,lq,lkv,span", [
+    (False, 200, 1000, 256),      # 4 spans, the last ragged (232 keys)
+    (True, 512, 512, 128),        # spans past a row's diagonal: (0, -inf)
+])
+def test_h1_span_partials_match_plain(cuda_device, causal, lq, lkv, span):
+    """H1's span mode: one launch writes every span's f32 O and LSE, as
+    the plain version over each span computes them."""
+    q, k, v = _qkv(cuda_device, 1, 4, 2, lq, lkv, 128, seed=11)
+    before = prefill_attention.launches
+    o, lse = prefill_attention(q, k, v, 0.125, lkv - lq, causal,
+                               out_dtype=torch.float32, kv_span=span)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 1
+    o_ref, lse_ref = prefill_attention(q.cpu(), k.cpu(), v.cpu(), 0.125,
+                                       lkv - lq, causal,
+                                       out_dtype=torch.float32, kv_span=span)
+    nkb = -(-lkv // span)
+    assert o.shape == (1, 4, nkb, lq, 128) and lse.shape == (1, 4, nkb, lq)
+    assert (o.cpu() - o_ref).abs().max().item() < O_TOL
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse.cpu()), fin)
+    assert (lse.cpu()[fin] - lse_ref[fin]).abs().max().item() < LSE_TOL
+    if causal:
+        assert not fin.all() and (o.cpu()[~fin] == 0).all()
+
+
+def test_h2_combine_matches_plain_and_counts(cuda_device):
+    g = torch.Generator().manual_seed(12)
+    o_p = torch.randn(2, 4, 5, 300, 64, generator=g)
+    lse = 3 * torch.randn(2, 4, 5, 300, generator=g)
+    o_p[:, :, 2, :50] = 0
+    lse[:, :, 2, :50] = float("-inf")     # a span that saw nothing
+    o_p[0, 0, :, 7] = 0
+    lse[0, 0, :, 7] = float("-inf")       # a row that saw nothing at all
+    ref = splitkv_combine_plain(o_p, lse)
+    o_p, lse = o_p.to(cuda_device), lse.to(cuda_device)
+    before = splitkv_combine.launches
+    got = splitkv_combine(o_p, lse)
+    got16 = splitkv_combine(o_p, lse, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert splitkv_combine.launches == before + 2
+    assert got.dtype == torch.float32 and got16.dtype == torch.bfloat16
+    assert (got.cpu() - ref).abs().max().item() < H2_O_TOL
+    assert ((got16.float().cpu() - ref).abs()
+            <= H2_O_TOL + 2 ** -8 * ref.abs()).all()
+    assert (got[0, 0, 7] == 0).all()
+    with pytest.raises(TypeError, match="f32"):
+        splitkv_combine(o_p.bfloat16(), lse)
+    assert splitkv_combine.launches == before + 2
+
+
+def test_flash_attention_v1_long_kv_runs_h1_spans_and_h2(cuda_device):
+    """A long non-causal KV over few Q tiles: one H1 launch over 8 spans
+    of 512 keys and one H2 launch, against the plain version and the
+    oracle."""
+    lq, lkv = 128, 4096
+    assert split_kv_span(1, 4, lq, lkv) == 512
+    q, k, v = _qkv(cuda_device, 1, 4, 2, lq, lkv, 128, seed=13)
+    before = (prefill_attention.launches, splitkv_combine.launches)
+    o = flash_attention_v1(q, k, v)
+    torch.cuda.synchronize()
+    assert (prefill_attention.launches, splitkv_combine.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    o_ref, _ = attention_plain(q, k, v, 1.0 / math.sqrt(128), False)
+    assert (o.float() - o_ref).abs().max().item() < O_TOL
+    oracle = naive_attention(q, k.repeat_interleave(2, 1),
+                             v.repeat_interleave(2, 1))
+    assert np.abs(o.float().cpu().numpy() - oracle).max() < O_TOL
 
 
 @pytest.mark.parametrize("hq,hkv,d", [(8, 4, 128), (8, 2, 64)])
@@ -279,7 +433,7 @@ def test_autograd_through_flash_attention_runs_h1_and_h3(cuda_device):
     assert (prefill_attention.launches, attention_bwd_dkv.launches,
             attention_bwd_dq.launches) == tuple(c + 1 for c in counts)
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    o_ref = causal_attention_plain(*ref_leaves, 1.0 / math.sqrt(128), 0)[0]
+    o_ref = attention_plain(*ref_leaves, 1.0 / math.sqrt(128), True, 0)[0]
     loss_ref = torch.einsum("bhld,hde->ble", o_ref.to(torch.bfloat16),
                             w).float().square().mean()
     for name, got, want in zip(("dq", "dk", "dv"), grads,

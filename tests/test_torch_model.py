@@ -6,6 +6,8 @@ compared in f32 at atol 1e-4: they are O(1) sums over d_model=128 after
 two layers, and the two sides differ in summation order and in their
 libm's cos/sin for RoPE (a few ulp)."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,9 @@ from exploring_flash_attention_tpu_torch.models import (
     init_params,
     params_from_jax,
     rope,
+    trainable_params_from_jax,
 )
+from exploring_flash_attention_tpu_torch.serving import make_cache
 
 KW = dict(vocab_size=128, n_layers=2, n_heads=4, n_kv_heads=2, d_model=128,
           d_head=64, d_ff=256)
@@ -37,7 +41,7 @@ def _leaves(params):
 
 def test_init_params_equal_jax_bitwise():
     jp = jax.device_get(jtf.init_params(JCFG, seed=3))
-    tp = init_params(CFG, seed=3)
+    tp = init_params(CFG, seed=3, device="cpu")
     for j, t in zip(_leaves(jp), _leaves(tp), strict=True):
         assert t.dtype == torch.float32 and t.shape == j.shape
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
@@ -46,12 +50,12 @@ def test_init_params_equal_jax_bitwise():
 def test_params_from_jax_keeps_values_and_dtypes():
     jcfg_bf16 = jtf.ModelConfig(**KW, dtype=jnp.bfloat16)
     jp = jax.device_get(jtf.init_params(jcfg_bf16, seed=0))
-    tp = params_from_jax(jp)
+    tp = params_from_jax(jp, device="cpu")
     for j, t in zip(_leaves(jp), _leaves(tp), strict=True):
         assert t.dtype == torch.bfloat16
         np.testing.assert_array_equal(t.float().numpy(),
                                       np.asarray(j, np.float32))
-    tp32 = params_from_jax(jp, dtype=torch.float32)
+    tp32 = params_from_jax(jp, device="cpu", dtype=torch.float32)
     assert all(t.dtype == torch.float32 for t in _leaves(tp32))
 
 
@@ -62,14 +66,15 @@ def test_forward_logits_match_jax(seq_len):
     toks = np.random.default_rng(1).integers(
         0, KW["vocab_size"], (2, seq_len)).astype(np.int32)
     ref = np.asarray(jtf.forward(jp, jnp.asarray(toks), JCFG))
-    got = forward(init_params(CFG, seed=1), torch.from_numpy(toks), CFG)
+    got = forward(init_params(CFG, seed=1, device="cpu"),
+                  torch.from_numpy(toks), CFG)
     assert got.shape == (2, seq_len, KW["vocab_size"])
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
 
 
 def test_forward_is_causal():
-    params = init_params(CFG, seed=2)
+    params = init_params(CFG, seed=2, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, KW["vocab_size"], (1, 16)))
     a = forward(params, toks, CFG)
@@ -94,3 +99,14 @@ def test_model_config_validation():
         ModelConfig(n_heads=6, n_kv_heads=4)
     with pytest.raises(ValueError, match="even"):
         ModelConfig(d_head=63)
+
+
+
+@pytest.mark.parametrize("fn", [init_params, params_from_jax,
+                                trainable_params_from_jax, make_cache],
+                         ids=lambda fn: fn.__name__)
+def test_entry_points_default_to_the_card(fn):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU (``device="cpu"``, as every CPU test passes)."""
+    default = inspect.signature(fn).parameters["device"].default
+    assert torch.device(default).type == "cuda"

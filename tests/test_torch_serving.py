@@ -61,7 +61,7 @@ def _fill_both(seed, b, hkv, d, l_prompt, n_tokens, max_seqs=4, n_pages=12):
                                jnp.asarray(v))
 
     tc = make_cache(hkv, d, n_pages, page_size=PS, max_seqs=max_seqs,
-                    max_pages_per_seq=3)
+                    max_pages_per_seq=3, device="cpu")
     tc.page_table.copy_(torch.from_numpy(table))
     tslots = torch.from_numpy(slots)
     append_prompts(tc, tslots, torch.from_numpy(kp), torch.from_numpy(vp))
@@ -122,14 +122,14 @@ def test_paged_decode_matches_f64_oracle_over_gathered_cache():
 
 
 def test_paged_decode_empty_sequence_gives_zeros():
-    tc = make_cache(2, 64, 4, page_size=PS, max_seqs=2)
+    tc = make_cache(2, 64, 4, page_size=PS, max_seqs=2, device="cpu")
     q = torch.ones((1, 4, 64))
     out = paged_decode_attention(q, tc, torch.tensor([1], dtype=torch.int32))
     assert (out == 0).all()
 
 
 def test_paged_decode_refuses_window():
-    tc = make_cache(2, 64, 4, page_size=PS, max_seqs=2)
+    tc = make_cache(2, 64, 4, page_size=PS, max_seqs=2, device="cpu")
     with pytest.raises(NotImplementedError, match="window"):
         paged_decode_attention(torch.ones((1, 4, 64)), tc,
                                torch.tensor([0], dtype=torch.int32),

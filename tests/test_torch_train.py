@@ -58,7 +58,7 @@ def test_loss_and_every_gradient_match_jax(seq_len):
     inputs, targets = toks[:, :-1], toks[:, 1:]
     ref_loss, ref_grads = jax.value_and_grad(jtf.loss_fn)(
         jp, jnp.asarray(inputs), jnp.asarray(targets), JCFG)
-    params = trainable_params_from_jax(jax.device_get(jp))
+    params = trainable_params_from_jax(jax.device_get(jp), device="cpu")
     leaves = param_leaves(params)
     assert all(t.requires_grad and t.dtype == torch.float32 for t in leaves)
     loss = loss_fn(params, torch.from_numpy(inputs),
@@ -87,7 +87,8 @@ def _run_jax(optimizer, toks, n_steps):
 
 def _run_port(optimizer, toks, n_steps):
     step, opt_init = make_train_step(CFG, optimizer=optimizer)
-    params = params_from_jax(jax.device_get(jtf.init_params(JCFG, seed=0)))
+    params = params_from_jax(jax.device_get(jtf.init_params(JCFG, seed=0)),
+                             device="cpu")
     opt = opt_init(params)
     losses = [step(params, opt, toks).item() for _ in range(n_steps)]
     return param_leaves(params), losses
@@ -119,7 +120,8 @@ def test_default_optimizer_is_adamw_with_optax_defaults():
     defaults = {k: p.default for k, p in
                 inspect.signature(optax.adamw).parameters.items()}
     _, opt_init = make_train_step(CFG, learning_rate=3e-4)
-    params = params_from_jax(jax.device_get(jtf.init_params(JCFG, seed=0)))
+    params = params_from_jax(jax.device_get(jtf.init_params(JCFG, seed=0)),
+                             device="cpu")
     opt = opt_init(params)
     assert isinstance(opt, torch.optim.AdamW)
     group = opt.param_groups[0]
@@ -139,8 +141,8 @@ def test_profile_split_times_the_real_step():
     runs = []
     for timed in (False, True):
         step, opt_init = make_train_step(CFG)
-        params = params_from_jax(jax.device_get(jtf.init_params(JCFG,
-                                                                seed=0)))
+        params = params_from_jax(
+            jax.device_get(jtf.init_params(JCFG, seed=0)), device="cpu")
         opt = opt_init(params)
         if timed:
             parts, loss = split_step(step, params, opt, toks)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's dense forward, generation and training paths on
-one NVIDIA H100.
+"""Drive the PyTorch port's dense, quantized and d-tiled forwards, generation
+and training paths on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -29,17 +29,31 @@ Phases, one line each; any failure exits non-zero before the last line:
    plain version and scaled_dot_product_attention are timed at the
    canonical shape, the window call must take under half the causal
    call's time, and the split case is timed at several span counts;
-5. decode: kernel H6-decode (paged INT8 decode) vs its plain version and
+5. quant:  flash_attention_kvquant (kernel H4-kvq, int8 or e4m3 K/V) and
+   flash_attention_int8 (kernel H4-int8, int8 Q/K/V, pv_mode bf16 and
+   int8) at the JAX suite's shapes (bench/suite.py:363, :395, :1173):
+   the suite's gates at its gate inputs, then one launch per call at the
+   canonical shape, a KV of 8192 and a ragged KV (kvquant), at L=4096
+   and the JAX test's ragged case (int8), each against the plain version
+   and the f64 oracle over the dequantized tensors, with the neighbouring
+   block's scales as a further control; times beside
+   scaled_dot_product_attention over the dequantized bf16 tensors, and
+   the int8 calls also with the per-call quantize_int8 of Q;
+6. dtiled: flash_attention_v1_dtiled (kernel H5) at d=512, B=4, H=8,
+   L=1024 with bf16, e4m3 and int8 K/V (bench/suite.py:279, :309) and a
+   ragged d=256 case, the suite's gate first; the last d-chunk left out
+   of S is a further control;
+7. decode: kernel H6-decode (paged INT8 decode) vs its plain version and
    the f64 oracle over the dequantized cache, at ragged contexts 257..280;
-6. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
+8. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
    its plain version and the f64 oracle, a C = 256 chunk appended to
    ragged histories 257..280;
-7. bwd:    kernels H3-dkv and H3-dq (the causal attention backward, through
+9. bwd:    kernels H3-dkv and H3-dq (the causal attention backward, through
    flash_attention_bwd) vs attention_bwd_plain and f64 autograd of the
    plain forward, at the training shape (B=8, Hq=8, Hkv=4, L=1024,
    d=128), a ragged cross case (Lq=200, Lkv=216) and L=3072, B=1 (where
    the JAX package takes B12/B13); two runs must be bitwise equal;
-8. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
+10. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
    GQA 8/4, d_head 128, d_ff 4096, bf16, random weights from seed 0) runs
    GenerationEngine.generate on [8, 256] prompts for 24 tokens.  Every
    kernel's launch counter is zeroed just before and read just after: H1
@@ -47,7 +61,7 @@ Phases, one line each; any failure exits non-zero before the last line:
    token is checked against a fresh full forward over the sequence so far
    (agreement, or a near-tie under LOGIT_GAP).  Tokens/s come from the
    host clock around a second, synchronized call;
-9. multiturn: the same model holds its slots (generate(hold=True)), then
+11. multiturn: the same model holds its slots (generate(hold=True)), then
    continue_generation feeds a second turn of 256 tokens (turn 1's last
    token and 255 new ones, chunk at positions 279..534) and decodes 24
    more.  Counters: turn 1 H1 4, H6-decode 92; turn 2 H6-extend 4,
@@ -55,7 +69,7 @@ Phases, one line each; any failure exits non-zero before the last line:
    forward over the whole stream so far, and every layer's cache against
    forward_collect_kv over the concatenated stream; release() must return
    every page;
-10. train:  the same model, trainable (fresh weights from seed 0), takes
+12. train:  the same model, trainable (fresh weights from seed 0), takes
    make_train_step's AdamW steps (lr 1e-3) on tokens [8, 1025] from
    np.random.default_rng(0).  Every step must launch H1, H3-dkv and H3-dq
    n_layers = 4 times each.  Before the steps, the step-0 loss and every
@@ -67,10 +81,11 @@ Phases, one line each; any failure exits non-zero before the last line:
 
 Kernel times come from CUDA events (L2 flushed before each call) beside
 their plain versions, their bounds on the H100 (the larger of the
-operations at 989 TFLOP/s, 67 for H2's f32 work, and the bytes at
-3.35 TB/s) and, where one
-PyTorch call computes the same function, that call's time
-(scaled_dot_product_attention for H1, its autograd backward for H3).
+operations at 989 TFLOP/s bf16 and 1,979 TOP/s int8, 67 TFLOP/s for H2's
+f32 work, and the bytes at 3.35 TB/s) and, where one PyTorch call
+computes the same function, that call's time (scaled_dot_product_attention
+for H1 and H5, causal or with a band mask where H1's mask is, its
+autograd backward for H3).
 Every check also runs a control: the same comparison against a
 known-wrong path (one key hidden from each row, the scale off by 10%, the
 last 64-key tile dropped, or a stream one token short).  The control must read beyond the check's
@@ -90,6 +105,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -141,7 +157,32 @@ V1_WINDOW_O_TOL = 1e-2  # the window cases: rows that see a handful of keys
 H2_O_TOL = 1e-5        # H2 vs its plain version on the same f32 partials:
                        # both merge in f32 and differ in summation order
 
+# The quant and dtiled phases hold f32 O against the plain version (the
+# whole tensor) and the f64 oracle over the dequantized tensors (a slice),
+# each within its own limit; every known-wrong control must read beyond
+# both.  The suite's gates (bench/suite.py) at its gate inputs come first.
+# CPU emulations of each kernel's roundings on inputs made the same way
+# read within half of each limit (tests/test_torch_quant.py,
+# tests/test_torch_dtiled.py).
+KVQ_GATE_TOL = 1e-3    # bench/suite.py:383
+KVQ_O_TOL = 5e-4       # H4-kvq rounds P to fp16: the emulation reads
+                       # <= 8.1e-5, the controls 1.8e-2 and up
+INT8_GATE_TOL = 1.5e-3  # bench/suite.py:420, :1200 (pv_mode bf16)
+INT8_PV8_TOL = 3e-2    # pv_mode int8 vs the oracle, the JAX test's tier
+                       # (tests/test_attention_int8.py:53); B18's own
+                       # requantized P reads 2.7e-2 at the gate inputs
+INT8_RAGGED_TOL = 1e-2  # tests/test_attention_int8.py:62, its ragged case
+INT8_PLAIN_TOL = 1e-3  # H4-int8 vs the plain version, which computes B18's
+                       # function: summation order and a rare P flip differ
+DTILED_GATE_TOL = 2e-3  # bench/suite.py:299, :334
+DTILED_O_TOL = 4e-3    # H5 vs the plain version over the whole tensor (32
+                       # heads) and the oracle slice: p * v_scale rounded to
+                       # bf16, as B19 does; the emulation reads <= 9.5e-4 on
+                       # one or two heads, an H100 1.32e-3 over 32 (fp8),
+                       # the controls 0.12 and up
+
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, SXM data sheet
+H100_INT8_OPS = 1979e12       # dense int8 tensor-core peak, same source
 H100_F32_FLOPS = 67e12        # float32 outside the tensor cores, same
 H100_HBM_BYTES_S = 3.35e12    # HBM3 rate, same source
 
@@ -150,6 +191,12 @@ H2_SRC = "exploring_flash_attention_tpu_torch/csrc/splitkv_combine.cu"
 H6_SRC = "exploring_flash_attention_tpu_torch/csrc/paged_decode.cu"
 H6E_SRC = "exploring_flash_attention_tpu_torch/csrc/paged_extend.cu"
 H3_SRC = "exploring_flash_attention_tpu_torch/csrc/attention_bwd.cu"
+H4KVQ_SRC = "exploring_flash_attention_tpu_torch/csrc/kvquant_attention.cu"
+H4INT8_SRC = "exploring_flash_attention_tpu_torch/csrc/int8_attention.cu"
+H5_SRC = "exploring_flash_attention_tpu_torch/csrc/dtiled_attention.cu"
+KVQ_PY = "exploring_flash_attention_tpu/ops/attention_kvquant.py"
+INT8_PY = "exploring_flash_attention_tpu/ops/attention_int8.py"
+DTILED_PY = "exploring_flash_attention_tpu/ops/attention_v1_dtiled.py"
 BWD_PY = "exploring_flash_attention_tpu/ops/attention_bwd.py"
 V1_PY = "exploring_flash_attention_tpu/ops/attention_v1.py"
 SPLITKV_PY = "exploring_flash_attention_tpu/ops/attention_v2_splitkv.py"
@@ -177,6 +224,32 @@ V1_CASES = [
     (V1_SPLIT_ROUTE, 1, 8, 8, 1024, 8192, 128, False, None, 1),
 ]
 SPLIT_SWEEP = (1, 2, 4, 8, 16)      # KV spans timed at the long-KV case
+
+# the quant phase (bench/suite.py:363, :395, :1173): (case, B, H, Lq, Lkv,
+# d, kind, block, seed, heads refereed by the f64 oracle)
+KVQ_CASES = [
+    ("canonical int8", 32, 8, 1024, 1024, 128, "int8", 512, 1, 2),
+    ("canonical fp8", 32, 8, 1024, 1024, 128, "fp8", 512, 1, 2),
+    ("B16's route (JAX streams)", 2, 8, 1024, 8192, 128, "int8", 128, 2, 1),
+    ("ragged KV", 2, 8, 1024, 1100, 128, "fp8", 128, 3, 2),
+]
+# (case, B, H, Lq, Lkv, d, block, pv_modes, seed, heads, oracle limits)
+INT8_CASES = [
+    ("canonical", 32, 8, 1024, 1024, 128, 512, ("bf16", "int8"), 1, 2,
+     {"bf16": INT8_GATE_TOL, "int8": INT8_PV8_TOL}),
+    ("L=4096", 8, 8, 4096, 4096, 128, 512, ("bf16",), 4, 1,
+     {"bf16": INT8_GATE_TOL}),
+    ("ragged KV (tests/test_attention_int8.py:56)", 1, 1, 128, 200, 64, 128,
+     ("bf16", "int8"), 0, 1, {"bf16": INT8_RAGGED_TOL, "int8": INT8_PV8_TOL}),
+]
+# the dtiled phase (bench/suite.py:279, :309): (case, B, H, Lq, Lkv, d,
+# kind, block, seed, heads refereed by the f64 oracle)
+DTILED_CASES = [
+    ("d=512 bf16", 4, 8, 1024, 1024, 512, "bf16", None, 1, 2),
+    ("d=512 fp8", 4, 8, 1024, 1024, 512, "fp8", 512, 1, 2),
+    ("d=512 int8", 4, 8, 1024, 1024, 512, "int8", 512, 1, 2),
+    ("d=256 ragged bf16", 2, 8, 1000, 1100, 256, "bf16", None, 5, 2),
+]
 
 class PhaseError(RuntimeError):
     pass
@@ -420,17 +493,34 @@ def phase_v1(torch, dev):
         del o
         ms = time_cuda(lambda: flash_attention_v1(
             q, k, v, causal=causal, window=window), n_iter=10)
+        ms_plain = time_cuda(lambda: attention_plain(
+            q, k, v, 1.0 / math.sqrt(d), causal, lkv - lq, window),
+            n_iter=3, n_warmup=1)
         flop = 4 * b * hq * d * visible_pairs(lq, lkv, causal, window)
-        lib = ""                # SDPA masks causal top-left: none then
-        if not causal:
-            lib = time_cuda(lambda: sdpa(q, k, v, enable_gqa=hq != hkv),
-                            n_iter=10)
-            lib = f"; scaled_dot_product_attention {lib:.4f} ms"
+        # SDPA masks causal top-left, which is H1's diagonal only where
+        # Lq == Lkv; a window is a boolean band mask there
+        lib = ""
+        mask = None
+        if window is not None and lq == lkv:
+            i = torch.arange(lq, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                  - window)
+        if not causal or mask is not None:
+            ms_lib = time_cuda(lambda: sdpa(q, k, v, attn_mask=mask,
+                                            enable_gqa=hq != hkv), n_iter=10)
+            lib = f"; scaled_dot_product_attention {ms_lib:.4f} ms"
+            if mask is not None:
+                lib += " (a boolean band mask)"
+                t["library_ms_by_case"] = {"B5 window": ms_lib}
+        elif lq != lkv:
+            lib = ("; no library time: SDPA's top-left causal diagonal is "
+                   "not H1's at Lq != Lkv")
+        del mask
         bound = roofline(flop, 2 * d * 2 * (b * hq * lq + b * hkv * lkv))
         print(f"  v1 time of that call (bf16 O): {ms:.4f} ms = "
               f"{flop / ms / 1e9:.1f} TFLOP/s of the visible work "
               f"({flop / 1e9:.2f} GFLOP), bound {bound[0]:.4f} ms "
-              f"({bound[1]}){lib}")
+              f"({bound[1]}); plain {ms_plain:.4f} ms{lib}")
         if span is not None:
             h2 = split_timings(torch, q, k, v, span, want)
         if window is None:
@@ -515,6 +605,357 @@ def split_timings(torch, q, k, v, span, want):
           f"{h2['bound_by']}); whole call (bf16 O) by span count: "
           + ", ".join(sweep))
     return h2
+
+
+def held(torch, what, o, plain, o64, bad, tol_plain, tol_oracle, nb, nh,
+         note=""):
+    """One check of the quant and dtiled phases: the kernel's f32 O vs the
+    plain version over the whole tensor (within ``tol_plain``) and vs the
+    f64 oracle on [:nb, :nh] (within ``tol_oracle``); every known-wrong
+    control in ``bad`` (the plain version run wrongly on that slice) must
+    read beyond both limits, vs the oracle and vs the plain version."""
+    _require(torch.isfinite(o).all().item(), f"{what}: O not finite")
+    e_plain = (o - plain).abs().max().item()
+    e_oracle = float(np.abs(o[:nb, :nh].cpu().numpy() - o64).max())
+    ps = plain[:nb, :nh].cpu().numpy()
+    ctl = {name: (float(np.abs(x - o64).max()), float(np.abs(x - ps).max()))
+           for name, x in bad.items()}
+    print(f"  {what}: max|dO| vs plain {e_plain:.3e} (tol {tol_plain:g}), "
+          f"vs f64 oracle on [:{nb}, :{nh}] {e_oracle:.3e} (tol "
+          f"{tol_oracle:g}); controls vs oracle / plain: "
+          + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, (a, b) in ctl.items())
+          + note)
+    _require(e_plain < tol_plain and e_oracle < tol_oracle,
+             f"{what} outside tolerance")
+    _require(all(a > tol_oracle and b > tol_plain for a, b in ctl.values()),
+             f"the check cannot tell a wrong path ({what})")
+    return e_plain
+
+
+def gate_reading(what, o, o64, tol):
+    """A suite gate: max|dO| of the whole f32 O vs the f64 oracle, <= tol
+    as bench/suite.py:57 holds it."""
+    err = float(np.abs(o.cpu().numpy() - o64).max())
+    print(f"  {what}: max|dO| vs f64 oracle {err:.3e} (the suite's limit "
+          f"{tol:g})")
+    _require(err <= tol, f"{what} fails the suite's gate")
+    return err
+
+
+def rolled(qt):
+    """The neighbouring block's scales: what a wrong scale index reads."""
+    from exploring_flash_attention_tpu_torch.ops import QuantizedTensor
+
+    return QuantizedTensor(qt.values, qt.scales.roll(1, dims=2), qt.block)
+
+
+def dropped_tile(qt):
+    """The quantized tensor without its last 64 keys (scales unchanged)."""
+    from exploring_flash_attention_tpu_torch.ops import QuantizedTensor
+
+    return QuantizedTensor(qt.values[:, :, :-64], qt.scales, qt.block)
+
+
+def heads(qt, b0, b1, nh=None):
+    """Batch rows [b0, b1) and the first ``nh`` heads of a quantized
+    tensor, values and scales alike."""
+    from exploring_flash_attention_tpu_torch.ops import QuantizedTensor
+
+    return QuantizedTensor(qt.values[b0:b1, :nh], qt.scales[b0:b1, :nh],
+                           qt.block)
+
+
+def kernel_times(call, plain, library, flop_by_peak, nbytes,
+                 n_iter=20):
+    """CUDA-event medians (L2 flushed) of one entry-point call, its plain
+    version and the library call (if any), and the bound: the operations
+    at each type's peak, summed, against the bytes at HBM's rate."""
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    t = {"ms": time_cuda(call, n_iter=n_iter),
+         "plain_ms": time_cuda(plain, n_iter=3, n_warmup=1),
+         "library_ms": library and time_cuda(library, n_iter=n_iter)}
+    t_op = sum(f / peak for f, peak in flop_by_peak) * 1e3
+    t_mem = nbytes / H100_HBM_BYTES_S * 1e3
+    t["bound_ms"], t["bound_by"] = ((t_op, "operations") if t_op >= t_mem
+                                    else (t_mem, "bytes"))
+    return t
+
+
+def phase_quant(torch, dev):
+    """flash_attention_kvquant (H4-kvq) and flash_attention_int8 (H4-int8)
+    through their entry points: the suite's gates at its gate inputs, one
+    launch per call at the suite's shapes and the further JAX routes,
+    each against the plain version and the f64 oracle beside its
+    controls, and the times of the canonical calls."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.oracle import naive_attention
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_int8_plain,
+        attention_kvquant_plain,
+        dequantize,
+        flash_attention_int8,
+        flash_attention_kvquant,
+        quantize_fp8,
+        quantize_int8,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    quant = {"int8": quantize_int8, "fp8": quantize_fp8}
+    f32 = torch.float32
+    gates = {}
+    for kind in ("int8", "fp8"):        # bench/suite.py:375-383
+        q, k, v = v1_inputs(torch, dev, 2, 4, 4, 512, 512, 128, seed=0)
+        kq, vq = quant[kind](k, 512), quant[kind](v, 512)
+        o = counted_call(torch, lambda: flash_attention_kvquant(
+            q, kq, vq, out_dtype=f32), launches_only(h4kvq=1))
+        gates[f"kvquant {kind}"] = gate_reading(
+            f"quant kvquant {kind} gate (2, 4, 512, 128) block 512",
+            o, naive_attention(q, dequantize(kq), dequantize(vq)),
+            KVQ_GATE_TOL)
+    for b, h, l, seed in ((2, 4, 512, 0), (1, 2, 512, 0)):   # :412, :1192
+        q, k, v = v1_inputs(torch, dev, b, h, h, l, l, 128, seed=seed)
+        qq, kq, vq = (quantize_int8(x, 512) for x in (q, k, v))
+        o = counted_call(torch, lambda: flash_attention_int8(
+            qq, kq, vq, out_dtype=f32), launches_only(h4int8=1))
+        gates[f"int8 ({b}, {h})"] = gate_reading(
+            f"quant int8 pv_mode bf16 gate ({b}, {h}, {l}, 128) "
+            f"block 512", o,
+            naive_attention(*(dequantize(x) for x in (qq, kq, vq))),
+            INT8_GATE_TOL)
+    del q, k, v, o
+
+    kvq = {}
+    for case, b, h, lq, lkv, d, kind, block, seed, nh in KVQ_CASES:
+        q, k, v = v1_inputs(torch, dev, b, h, h, lq, lkv, d, seed=seed)
+        kq, vq = quant[kind](k, block), quant[kind](v, block)
+        del k, v
+        o = counted_call(torch, lambda: flash_attention_kvquant(
+            q, kq, vq, out_dtype=f32), launches_only(h4kvq=1))
+        kvq.setdefault("launches", read_counters()["h4kvq"])
+        scale = 1.0 / math.sqrt(d)
+        qs, ks, vs = q[:1, :nh], heads(kq, 0, 1, nh), heads(vq, 0, 1, nh)
+        bad = {"scale x1.1": attention_kvquant_plain(qs, ks, vs, 1.1 * scale),
+               "last tile dropped": attention_kvquant_plain(
+                   qs, dropped_tile(ks), dropped_tile(vs), scale)}
+        if kq.scales.shape[2] > 1:
+            bad["scales rolled"] = attention_kvquant_plain(
+                qs, rolled(ks), rolled(vs), scale)
+        err = held(torch, f"quant kvquant {case}: B={b} H={h} Lq={lq} "
+                   f"Lkv={lkv} d={d} {kind} block {block}", o,
+                   attention_kvquant_plain(q, kq, vq, scale),
+                   naive_attention(qs, dequantize(ks), dequantize(vs)),
+                   {n: x.cpu().numpy() for n, x in bad.items()},
+                   KVQ_O_TOL, KVQ_O_TOL, 1, nh, "; one H4-kvq launch")
+        if case.startswith("canonical"):
+            qd, kd, vd = q, dequantize(kq, q.dtype), dequantize(vq, q.dtype)
+            t = kernel_times(
+                lambda: flash_attention_kvquant(q, kq, vq),
+                lambda: attention_kvquant_plain(q, kq, vq, scale),
+                lambda: sdpa(qd, kd, vd),
+                [(4 * b * h * lq * lkv * d, H100_BF16_FLOPS)],
+                2 * b * h * lq * d * 2 + 2 * b * h * lkv * d
+                + 2 * kq.scales.numel() * 4)
+            print(f"  quant kvquant {kind} times at B={b} H={h} L={lq} "
+                  f"d={d}: H4-kvq {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
+                  f"over the dequantized bf16 K/V {t['library_ms']:.4f} ms "
+                  f"(the dequant not counted), bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']})")
+            kvq.setdefault("t", {})[kind] = t
+        kvq.setdefault("err", err)
+        del q, kq, vq, o
+
+    int8 = {}
+    for case, b, h, lq, lkv, d, block, modes, seed, nh, tols in INT8_CASES:
+        q, k, v = v1_inputs(torch, dev, b, h, h, max(lq, lkv), max(lq, lkv),
+                            d, seed=seed)
+        q, k, v = q[:, :, :lq], k[:, :, :lkv], v[:, :, :lkv]
+        qq, kq, vq = (quantize_int8(x, block) for x in (q, k, v))
+        del k, v
+        scale = 1.0 / math.sqrt(d)
+        qs, ks, vs = (heads(x, 0, 1, nh) for x in (qq, kq, vq))
+        o64 = naive_attention(*(dequantize(x) for x in (qs, ks, vs)))
+        for mode in modes:
+            o = counted_call(torch, lambda: flash_attention_int8(
+                qq, kq, vq, out_dtype=f32, pv_mode=mode),
+                launches_only(h4int8=1))
+            int8.setdefault("launches", read_counters()["h4int8"])
+            # the plain version one batch row at a time bounds its memory
+            plain = torch.cat([attention_int8_plain(
+                *(heads(x, i, i + 1) for x in (qq, kq, vq)), scale, mode)
+                for i in range(b)])
+            bad = {"scale x1.1": attention_int8_plain(qs, ks, vs, 1.1 * scale,
+                                                      mode),
+                   "last tile dropped": attention_int8_plain(
+                       qs, dropped_tile(ks), dropped_tile(vs), scale, mode)}
+            if kq.scales.shape[2] > 1:
+                bad["scales rolled"] = attention_int8_plain(
+                    qs, rolled(ks), rolled(vs), scale, mode)
+            err = held(torch, f"quant int8 {case}: B={b} H={h} Lq={lq} "
+                       f"Lkv={lkv} d={d} block {block} pv_mode {mode}", o,
+                       plain, o64, {n: x.cpu().numpy() for n, x in bad.items()},
+                       INT8_PLAIN_TOL, tols[mode], 1, nh,
+                       "; one H4-int8 launch")
+            int8.setdefault("err", err)
+            del o, plain
+            if case != "canonical" and not case.startswith("L="):
+                continue
+            qd, kd, vd = (dequantize(x, q.dtype) for x in (qq, kq, vq))
+            ops = 2 * b * h * lq * lkv * d
+            pv_peak = H100_INT8_OPS if mode == "int8" else H100_BF16_FLOPS
+            t = kernel_times(
+                lambda: flash_attention_int8(qq, kq, vq, pv_mode=mode),
+                lambda: [attention_int8_plain(
+                    *(heads(x, i, i + 1) for x in (qq, kq, vq)), scale, mode)
+                    for i in range(b)],
+                lambda: sdpa(qd, kd, vd),
+                [(ops, H100_INT8_OPS), (ops, pv_peak)],
+                b * h * (lq + 2 * lkv) * d + b * h * lq * d * 2
+                + 4 * (qq.scales.numel() + 2 * kq.scales.numel()))
+            t["ms_with_q_quant"] = time_cuda(lambda: flash_attention_int8(
+                quantize_int8(q, block), kq, vq, pv_mode=mode), n_iter=20)
+            print(f"  quant int8 {case} pv_mode {mode} times at B={b} H={h} "
+                  f"L={lq} d={d}: H4-int8 {t['ms']:.4f} ms alone, "
+                  f"{t['ms_with_q_quant']:.4f} ms with quantize_int8 of Q "
+                  f"per call; plain {t['plain_ms']:.4f} ms; "
+                  f"scaled_dot_product_attention over the dequantized bf16 "
+                  f"Q/K/V {t['library_ms']:.4f} ms (the dequant not "
+                  f"counted); bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            int8.setdefault("t", {})[f"{case} {mode}"] = t
+            del qd, kd, vd
+        del q, qq, kq, vq
+    print("phase quant: ok")
+    return gates, kvq, int8
+
+
+def sdpa_backends(torch, q, k, v):
+    """The scaled_dot_product_attention backends that take these inputs,
+    with the time of each, and the time of the default call."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    out = {}
+    for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            # a backend that refuses the inputs warns, then raises
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                sdpa(q, k, v)
+                torch.cuda.synchronize()
+                out[name] = time_cuda(lambda: sdpa(q, k, v), n_iter=10)
+        except RuntimeError:
+            continue
+    return out, time_cuda(lambda: sdpa(q, k, v), n_iter=20)
+
+
+def phase_dtiled(torch, dev):
+    """flash_attention_v1_dtiled (H5) through its entry point: the suite's
+    gates at d=512, one launch per call at the suite's shape with bf16,
+    fp8 and int8 K/V and a ragged d=256 case, each against the plain
+    version and the f64 oracle beside its controls, and the times of the
+    d=512 calls."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.oracle import naive_attention
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_dtiled_plain,
+        attention_plain,
+        dequantize,
+        flash_attention_v1_dtiled,
+        quantize_fp8,
+        quantize_int8,
+    )
+
+    quant = {"int8": quantize_int8, "fp8": quantize_fp8}
+    f32 = torch.float32
+    gates = {}
+    for kind in ("bf16", "fp8", "int8"):        # bench/suite.py:295, :326
+        q, k, v = v1_inputs(torch, dev, 1, 2, 2, 512, 512, 512, seed=0)
+        if kind != "bf16":
+            k, v = quant[kind](k, 512), quant[kind](v, 512)
+        o = counted_call(torch, lambda: flash_attention_v1_dtiled(
+            q, k, v, out_dtype=f32), launches_only(h5=1))
+        kd, vd = (k, v) if kind == "bf16" else (dequantize(k), dequantize(v))
+        gates[kind] = gate_reading(
+            f"dtiled {kind} gate (1, 2, 512, 512) block 512", o,
+            naive_attention(q, kd, vd), DTILED_GATE_TOL)
+
+    out = {}
+    for case, b, h, lq, lkv, d, kind, block, seed, nh in DTILED_CASES:
+        q, k, v = v1_inputs(torch, dev, b, h, h, lq, lkv, d, seed=seed)
+        if kind != "bf16":
+            k, v = quant[kind](k, block), quant[kind](v, block)
+        o = counted_call(torch, lambda: flash_attention_v1_dtiled(
+            q, k, v, out_dtype=f32), launches_only(h5=1))
+        out.setdefault("launches", read_counters()["h5"])
+        scale = 1.0 / math.sqrt(d)
+        if kind == "bf16":
+            ks, vs = k[:1, :nh], v[:1, :nh]
+            kd, vd = ks, vs
+            short = ks[:, :, :-64], vs[:, :, :-64]
+            bad_rolled = None
+        else:
+            ks, vs = heads(k, 0, 1, nh), heads(v, 0, 1, nh)
+            kd, vd = dequantize(ks), dequantize(vs)
+            short = dropped_tile(ks), dropped_tile(vs)
+            bad_rolled = attention_dtiled_plain(q[:1, :nh], rolled(ks),
+                                                rolled(vs), scale)
+        qs = q[:1, :nh]
+        bad = {"scale x1.1": attention_dtiled_plain(qs, ks, vs, 1.1 * scale),
+               "last tile dropped": attention_dtiled_plain(qs, *short, scale),
+               "last d-chunk out of S": attention_plain(
+                   qs[..., :-128], kd[..., :-128], vd, scale, False)[0]}
+        if bad_rolled is not None:
+            bad["scales rolled"] = bad_rolled
+        err = held(torch, f"dtiled {case}: B={b} H={h} Lq={lq} Lkv={lkv} "
+                   f"d={d} block {block}", o,
+                   attention_dtiled_plain(q, k, v, scale),
+                   naive_attention(qs, kd, vd),
+                   {n: x.cpu().numpy() for n, x in bad.items()},
+                   DTILED_O_TOL, DTILED_O_TOL, 1, nh, "; one H5 launch")
+        out.setdefault("err", err)
+        del o
+        if not case.startswith("d=512"):
+            continue
+        flop = 4 * b * h * lq * lkv * d
+        kv_bytes = (2 * b * h * lkv * d * 2 if kind == "bf16" else
+                    2 * b * h * lkv * d + 8 * k.scales.numel())
+        lib = None
+        if kind != "bf16":
+            kd, vd = dequantize(k, q.dtype), dequantize(v, q.dtype)
+            lib = lambda: sdpa(q, kd, vd)                   # noqa: E731
+        t = kernel_times(lambda: flash_attention_v1_dtiled(q, k, v),
+                         lambda: attention_dtiled_plain(q, k, v, scale),
+                         lib, [(flop, H100_BF16_FLOPS)],
+                         2 * b * h * lq * d * 2 + kv_bytes)
+        if kind == "bf16":
+            backends, t["library_ms"] = sdpa_backends(torch, q, k, v)
+            t["library_backends_ms"] = backends
+            default = t["library_ms"]
+            lib_note = (f"scaled_dot_product_attention {default:.4f} ms "
+                        f"(backends that take d={d}: "
+                        + ", ".join(f"{n} {x:.4f} ms"
+                                    for n, x in backends.items()) + ")")
+        else:
+            lib_note = (f"scaled_dot_product_attention over the dequantized "
+                        f"bf16 K/V {t['library_ms']:.4f} ms (the dequant not "
+                        f"counted)")
+        print(f"  dtiled {case} times at B={b} H={h} L={lq}: H5 "
+              f"{t['ms']:.4f} ms = {flop / t['ms'] / 1e9:.1f} TFLOP/s, plain "
+              f"{t['plain_ms']:.4f} ms, {lib_note}, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        out.setdefault("t", {})[kind] = t
+        del q, k, v
+    print("phase dtiled: ok")
+    return gates, out
 
 
 def make_decode_case(torch, dev, b=8, hq=8, hkv=4, d=128, ps=128,
@@ -739,6 +1180,9 @@ def _counted():
     from exploring_flash_attention_tpu_torch.ops import (
         attention_bwd_dkv,
         attention_bwd_dq,
+        flash_attention_int8,
+        flash_attention_kvquant,
+        flash_attention_v1_dtiled,
         prefill_attention,
         splitkv_combine,
     )
@@ -749,7 +1193,8 @@ def _counted():
     return {"h1": prefill_attention, "h2": splitkv_combine,
             "h6": paged_decode_attention,
             "h6e": paged_extend_attention, "h3dkv": attention_bwd_dkv,
-            "h3dq": attention_bwd_dq}
+            "h3dq": attention_bwd_dq, "h4kvq": flash_attention_kvquant,
+            "h4int8": flash_attention_int8, "h5": flash_attention_v1_dtiled}
 
 
 def launches_only(**counts):
@@ -1140,7 +1585,9 @@ def time_kernels(torch, dev):
     s = 1.0 / math.sqrt(128)
     h1 = (time_cuda(lambda: prefill_attention(q, k, v, s, 0)),
           time_cuda(lambda: attention_plain(q, k, v, s, True, 0)))
-    out = {}
+    # Lq == Lkv here, so SDPA's top-left causal diagonal is H1's
+    out = {"h1_causal_library": {"L=256": time_cuda(lambda: sdpa(
+        q, k, v, is_causal=True, enable_gqa=True))}}
 
     def h1_bound(l, b=8, hq=8, hkv=4, d=128):
         """H1's causal bound at the slice's widths: q, k, v and o in bf16,
@@ -1208,11 +1655,14 @@ def time_kernels(torch, dev):
     pair = time_cuda(lambda: flash_attention_bwd(q, k, v, o, do, lse, s),
                      n_iter=20)
     h1_long = time_cuda(lambda: prefill_attention(q, k, v, s, 0), n_iter=20)
+    out["h1_causal_library"]["L=1024"] = time_cuda(lambda: sdpa(
+        q, k, v, is_causal=True, enable_gqa=True), n_iter=20)
     del leaves, o_lib
     print(f"  times (CUDA events, median of 50 calls, 20 at L=1024, L2 "
           f"flushed before each): "
           f"H1 {h1[0]:.4f} ms vs plain {h1[1]:.4f} ms (bound "
-          f"{h1_bound(256):.4f} ms) at B=8 Hq=8 Hkv=4 "
+          f"{h1_bound(256):.4f} ms; scaled_dot_product_attention causal "
+          f"{out['h1_causal_library']['L=256']:.4f} ms) at B=8 Hq=8 Hkv=4 "
           f"L=256 d=128; H6-decode {out['h6']['ms']:.4f} ms vs plain "
           f"{out['h6']['plain_ms']:.4f} ms (bound "
           f"{out['h6']['bound_ms']:.4f} ms, {out['h6']['bound_by']}) at B=8 "
@@ -1228,7 +1678,8 @@ def time_kernels(torch, dev):
           f"(delta + both) {pair:.4f} ms vs attention_bwd_plain {plain:.4f} "
           f"ms and the backward of scaled_dot_product_attention {lib:.4f} "
           f"ms; H1 forward {h1_long:.4f} ms (bound {h1_bound(1024):.4f} "
-          f"ms)")
+          f"ms; scaled_dot_product_attention causal "
+          f"{out['h1_causal_library']['L=1024']:.4f} ms)")
     return out
 
 
@@ -1251,6 +1702,8 @@ def main() -> int:
     phase_build(kernels)
     h1_err = phase_h1(torch, dev)
     v1_launches, v1_err, v1_t, h2 = phase_v1(torch, dev)
+    quant_gates, kvq, int8 = phase_quant(torch, dev)
+    dtiled_gates, h5 = phase_dtiled(torch, dev)
     h6_err = phase_decode(torch, dev)
     h6e_err = phase_extend(torch, dev)
     h3_err = phase_bwd(torch, dev)
@@ -1273,7 +1726,10 @@ def main() -> int:
          "launches_by_path": {"v1": v1_launches["h1"],
                               "slice": launches["h1"],
                               "train_step": train["h1"]},
-         **v1_t},
+         **v1_t, "library_ms_by_case": {
+             **v1_t["library_ms_by_case"],
+             **{f"B4 causal {n}": x
+                for n, x in t["h1_causal_library"].items()}}},
         # H2 runs in the v1 phase's split case, its main path
         {"name": "H2 split-KV combine (LSE-weighted merge of span partials)",
          "route": "cuda", "source": H2_SRC, "replaces": f"{SPLITKV_PY}:330",
@@ -1299,6 +1755,30 @@ def main() -> int:
          "also_replaces": [f"{BWD_PY}:{n}" for n in (281, 377, 112, 205)],
          "launches": train["h3dq"], "max_abs_err": h3_err["h3dq"],
          **t["h3dq"]},
+        # the quant and dtiled phases: each call of the phase is one
+        # launch; the numbers are those of the canonical int8 (H4-kvq),
+        # pv_mode bf16 (H4-int8) and bf16 d=512 (H5) calls, and library_ms
+        # of the quantized calls is SDPA over the dequantized bf16 tensors
+        {"name": "H4-kvq attention over int8 / e4m3 K and V",
+         "route": "cuda", "source": H4KVQ_SRC, "replaces": f"{KVQ_PY}:47",
+         "also_replaces": f"{KVQ_PY}:114", "launches": kvq["launches"],
+         "max_abs_err": kvq["err"], **kvq["t"]["int8"],
+         "fp8": kvq["t"]["fp8"], "gates": {
+             n: x for n, x in quant_gates.items() if n.startswith("kvquant")}},
+        {"name": "H4-int8 attention, int8 Q, K and V (pv_mode bf16 / int8)",
+         "route": "cuda", "source": H4INT8_SRC, "replaces": f"{INT8_PY}:50",
+         "launches": int8["launches"], "max_abs_err": int8["err"],
+         **int8["t"]["canonical bf16"],
+         "by_case": {n: x for n, x in int8["t"].items()
+                     if n != "canonical bf16"},
+         "gates": {n: x for n, x in quant_gates.items()
+                   if n.startswith("int8")}},
+        {"name": "H5 d-tiled attention forward (bf16, int8, e4m3 K/V)",
+         "route": "cuda", "source": H5_SRC, "replaces": f"{DTILED_PY}:75",
+         "launches": h5["launches"], "max_abs_err": h5["err"],
+         **h5["t"]["bf16"],
+         "by_kind": {n: x for n, x in h5["t"].items() if n != "bf16"},
+         "gates": dtiled_gates},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

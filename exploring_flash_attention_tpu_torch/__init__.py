@@ -16,30 +16,42 @@ from exploring_flash_attention_tpu_torch.models import (
     make_train_step,
 )
 from exploring_flash_attention_tpu_torch.ops import (
+    QuantizedTensor,
     attention_bwd_plain,
     attention_partial_local,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_int8,
+    flash_attention_kvquant,
     flash_attention_v1,
     flash_attention_v1_causal_partial,
+    flash_attention_v1_dtiled,
     flash_attention_v1_window_partial,
+    quantize_fp8,
+    quantize_int8,
     splitkv_combine,
 )
 
 __all__ = [
     "GenerationEngine",
+    "QuantizedTensor",
     "ModelConfig",
     "attention_bwd_plain",
     "attention_partial_local",
     "cdiv",
     "flash_attention",
     "flash_attention_bwd",
+    "flash_attention_int8",
+    "flash_attention_kvquant",
     "flash_attention_v1",
     "flash_attention_v1_causal_partial",
+    "flash_attention_v1_dtiled",
     "flash_attention_v1_window_partial",
     "forward",
     "init_params",
     "loss_fn",
     "make_train_step",
+    "quantize_fp8",
+    "quantize_int8",
     "splitkv_combine",
 ]

@@ -49,6 +49,15 @@ _SIGNATURES = {
     # q, k, v, do, lse, delta, dq, batch, hq, hkv, lq, lkv, d, diag_off,
     # scale, device, stream
     "eft_attention_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, ks, vs, o, batch, heads, lq, lkv, d, block, n_blocks,
+    # kv_kind, out_f32, scale_log2, device, stream
+    "eft_kvquant_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _P],
+    # q, k, v, qs, ks, vs, o, batch, heads, lq, lkv, d, q_block, n_qb,
+    # kv_block, n_kvb, pv_int8, out_f32, scale_log2, device, stream
+    "eft_int8_attention": [_P] * 7 + [_I] * 11 + [_F, _I, _P],
+    # q, k, v, ks, vs, o, batch, heads, lq, lkv, d, block, n_blocks,
+    # kv_kind, out_f32, scale_log2, device, stream
+    "eft_dtiled_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _P],
 }
 
 

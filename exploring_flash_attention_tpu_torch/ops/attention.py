@@ -23,6 +23,8 @@ import torch
 
 from exploring_flash_attention_tpu_torch import kernels
 
+LOG2E = math.log2(math.e)      # the kernels' exp2 basis: scale * LOG2E
+
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, causal: bool = True, diag_off: int = 0,

@@ -25,11 +25,10 @@ import torch
 
 from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.ops.attention import (
+    LOG2E,
     _check_cuda_inputs,
     _ported_diag_offset,
 )
-
-LOG2E = math.log2(math.e)
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 

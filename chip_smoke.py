@@ -12,6 +12,10 @@ Phases, one line each; any failure exits non-zero before the last line:
    limit from nvidia-smi;
 2. build:  nvcc builds the kernels of exploring_flash_attention_tpu_torch/
    csrc/ and its -Xptxas -v report (registers, shared memory) is printed;
+   the SASS of H1's and H4-int8's kernel functions (cuobjdump) must hold
+   wgmma instructions: HGMMA in every H1 function and in H4-int8's
+   pv_mode bf16 ones, IGMMA in every H4-int8 function, and no HMMA or
+   IMMA (the mma.sync and WMMA forms they replaced);
 3. h1:     kernel H1 (the attention forward) vs its plain PyTorch
    version and the f64 oracle, causal, at the slice's shapes and one
    ragged case;
@@ -101,6 +105,7 @@ import contextlib
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -237,6 +242,12 @@ KVQ_CASES = [
 INT8_CASES = [
     ("canonical", 32, 8, 1024, 1024, 128, 512, ("bf16", "int8"), 1, 2,
      {"bf16": INT8_GATE_TOL, "int8": INT8_PV8_TOL}),
+    # kv blocks shorter than a 128-key tile: one run per block, each
+    # issuing the tile's every P V step
+    ("canonical, kv block 64", 32, 8, 1024, 1024, 128, 64, ("bf16", "int8"),
+     1, 2, {"bf16": INT8_GATE_TOL, "int8": INT8_PV8_TOL}),
+    ("canonical, kv block 16", 32, 8, 1024, 1024, 128, 16, ("bf16", "int8"),
+     1, 2, {"bf16": INT8_GATE_TOL, "int8": INT8_PV8_TOL}),
     ("L=4096", 8, 8, 4096, 4096, 128, 512, ("bf16",), 4, 1,
      {"bf16": INT8_GATE_TOL}),
     ("ragged KV (tests/test_attention_int8.py:56)", 1, 1, 128, 200, 64, 128,
@@ -280,11 +291,41 @@ def phase_build(kernels):
     lib = kernels.build()
     kernels.library()
     dt = time.perf_counter() - t0
+    # registers, spills, and the notes where ptxas serializes wgmma
+    # (C7510-C7520, "Potential Performance Loss")
     report = [ln.strip() for ln in kernels.ptxas_report().splitlines()
-              if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+              if "Compiling entry" in ln or "Used" in ln or "spill" in ln
+              or "(C75" in ln]
     for ln in report:
         print(f"  ptxas: {ln}")
     print(f"phase build: ok {lib.relative_to(ROOT)} in {dt:.1f} s")
+    check_sass(kernels)
+
+
+def check_sass(kernels):
+    """H1 and H4-int8 run on wgmma: HGMMA in every H1 function and in the
+    pv_mode bf16 H4-int8 ones (template argument false, ``Lb0E``), IGMMA
+    in every H4-int8 function, no HMMA or IMMA in any of them."""
+    sass = kernels.sass_by_function()
+    found = {"prefill_attention_kernel": 0, "int8_attention_kernel": 0}
+    for name, text in sass.items():
+        kind = next((k for k in found if k in name), None)
+        if kind is None:
+            continue
+        found[kind] += 1
+        counts = {op: len(re.findall(rf"\b{op}\b", text))
+                  for op in ("HGMMA", "IGMMA", "HMMA", "IMMA")}
+        print(f"  sass: {kind} {name.split(kind)[1][:12]}: {counts}")
+        need = (["HGMMA"] if kind.startswith("prefill") else
+                ["IGMMA"] + (["HGMMA"] if "Lb0E" in name else []))
+        _require(all(counts[op] > 0 for op in need),
+                 f"{name}: no {need} in its SASS")
+        _require(counts["HMMA"] == counts["IMMA"] == 0,
+                 f"{name}: mma.sync / WMMA instructions in its SASS")
+    _require(found["prefill_attention_kernel"] == 3
+             and found["int8_attention_kernel"] == 4,
+             f"kernel functions in the SASS: {found}")
+    print("phase sass: ok")
 
 
 def _bf16(torch, dev, gen, *shape):
@@ -462,6 +503,7 @@ def phase_v1(torch, dev):
          "library_ms": time_cuda(lambda: sdpa(q, k, v), n_iter=20)}
     flop = 4 * b * h * l * l * d
     t["bound_ms"], t["bound_by"] = roofline(flop, 4 * b * h * l * d * 2)
+    t["tflops"] = flop / t["ms"] / 1e9
     print(f"  v1 times at B={b} H={h} L={l} d={d} bf16 (CUDA events, "
           f"median, L2 flushed): H1 {t['ms']:.4f} ms = "
           f"{flop / t['ms'] / 1e9:.1f} TFLOP/s ({flop / 1e9:.1f} GFLOP); "
@@ -513,8 +555,9 @@ def phase_v1(torch, dev):
                 lib += " (a boolean band mask)"
                 t["library_ms_by_case"] = {"B5 window": ms_lib}
         elif lq != lkv:
-            lib = ("; no library time: SDPA's top-left causal diagonal is "
-                   "not H1's at Lq != Lkv")
+            lib = ("; SDPA's is_causal masks top-left, not H1's diagonal at "
+                   "Lq != Lkv: its library time (an explicit bottom-right "
+                   "mask) is in the times line")
         del mask
         bound = roofline(flop, 2 * d * 2 * (b * hq * lq + b * hkv * lkv))
         print(f"  v1 time of that call (bf16 O): {ms:.4f} ms = "
@@ -563,6 +606,7 @@ def split_timings(torch, q, k, v, span, want):
         splitkv_combine,
         splitkv_combine_plain,
     )
+    from exploring_flash_attention_tpu_torch.ops.attention import H1_TILE
     from exploring_flash_attention_tpu_torch.utils import time_cuda
 
     b, hq, lq, d = q.shape
@@ -589,7 +633,7 @@ def split_timings(torch, q, k, v, span, want):
         n_iter=10)
     sweep = []
     for n in SPLIT_SWEEP:
-        sp = cdiv(cdiv(lkv, n), 64) * 64
+        sp = cdiv(cdiv(lkv, n), H1_TILE) * H1_TILE
         if n == 1:
             ms = time_cuda(lambda: prefill_attention(
                 q, k, v, scale, 0, False, with_lse=False), n_iter=10)
@@ -800,7 +844,7 @@ def phase_quant(torch, dev):
                        "; one H4-int8 launch")
             int8.setdefault("err", err)
             del o, plain
-            if case != "canonical" and not case.startswith("L="):
+            if not case.startswith(("canonical", "L=")):
                 continue
             qd, kd, vd = (dequantize(x, q.dtype) for x in (qq, kq, vq))
             ops = 2 * b * h * lq * lkv * d
@@ -814,10 +858,12 @@ def phase_quant(torch, dev):
                 [(ops, H100_INT8_OPS), (ops, pv_peak)],
                 b * h * (lq + 2 * lkv) * d + b * h * lq * d * 2
                 + 4 * (qq.scales.numel() + 2 * kq.scales.numel()))
+            t["tops"] = 2 * ops / t["ms"] / 1e9
             t["ms_with_q_quant"] = time_cuda(lambda: flash_attention_int8(
                 quantize_int8(q, block), kq, vq, pv_mode=mode), n_iter=20)
             print(f"  quant int8 {case} pv_mode {mode} times at B={b} H={h} "
-                  f"L={lq} d={d}: H4-int8 {t['ms']:.4f} ms alone, "
+                  f"L={lq} d={d}: H4-int8 {t['ms']:.4f} ms alone "
+                  f"({t['tops']:.1f} TOP/s), "
                   f"{t['ms_with_q_quant']:.4f} ms with quantize_int8 of Q "
                   f"per call; plain {t['plain_ms']:.4f} ms; "
                   f"scaled_dot_product_attention over the dequantized bf16 "
@@ -1122,8 +1168,10 @@ def phase_bwd(torch, dev):
         do = _bf16(torch, dev, gen, b, hq, lq, d)
         scale, off = 1.0 / math.sqrt(d), lkv - lq
         out, lse = prefill_attention(q, k, v, scale, off)     # H1's residuals
-        grads = flash_attention_bwd(q, k, v, out, do, lse, scale)
-        again = flash_attention_bwd(q, k, v, out, do, lse, scale)
+        grads = flash_attention_bwd(q, k, v, out, do, lse, scale,
+                                    causal=True)
+        again = flash_attention_bwd(q, k, v, out, do, lse, scale,
+                                    causal=True)
         torch.cuda.synchronize()
         identical = all(torch.equal(x, y) for x, y in zip(grads, again))
         plain = attention_bwd_plain(q, k, v, out, do, lse, scale, off)
@@ -1558,8 +1606,10 @@ def time_kernels(torch, dev):
     """CUDA-event medians (L2 flushed before each call) of H6-decode,
     H6-extend and H3 beside their plain versions, their bounds from these
     inputs and, for H3, the backward of scaled_dot_product_attention; and
-    H1 at the generation and training shapes (the v1 phase times H1 at
-    the canonical shape)."""
+    H1 at the generation and training shapes and at the v1 phase's causal
+    cross case beside scaled_dot_product_attention (is_causal where Lq ==
+    Lkv, a bottom-right boolean mask at Lq=512, Lkv=1024); the v1 phase
+    times H1 at the canonical shape."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from exploring_flash_attention_tpu_torch.ops import (
@@ -1652,12 +1702,26 @@ def time_kernels(torch, dev):
         "plain_ms": plain, "library_ms": lib}
     out["h3dq"]["bound_ms"], out["h3dq"]["bound_by"] = roofline(
         6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)
-    pair = time_cuda(lambda: flash_attention_bwd(q, k, v, o, do, lse, s),
-                     n_iter=20)
+    pair = time_cuda(lambda: flash_attention_bwd(q, k, v, o, do, lse, s,
+                                                 causal=True), n_iter=20)
     h1_long = time_cuda(lambda: prefill_attention(q, k, v, s, 0), n_iter=20)
     out["h1_causal_library"]["L=1024"] = time_cuda(lambda: sdpa(
         q, k, v, is_causal=True, enable_gqa=True), n_iter=20)
     del leaves, o_lib
+    # the v1 phase's causal cross case (B4 at Lq != Lkv): SDPA's is_causal
+    # masks top-left, so its library call takes H1's bottom-right diagonal
+    # as an explicit boolean mask
+    lq, lkv = 512, 1024
+    q = _bf16(torch, dev, gen, b, hq, lq, d)
+    k, v = (_bf16(torch, dev, gen, b, hkv, lkv, d) for _ in range(2))
+    i = torch.arange(lq, device=dev)[:, None]
+    cross = torch.arange(lkv, device=dev)[None, :] <= i + lkv - lq
+    out["h1_causal_library"]["Lq=512 Lkv=1024"] = time_cuda(lambda: sdpa(
+        q, k, v, attn_mask=cross, enable_gqa=True), n_iter=20)
+    h1_cross = time_cuda(lambda: prefill_attention(q, k, v, s, lkv - lq),
+                         n_iter=20)
+    cross_bound = roofline(4 * b * hq * d * visible_pairs(lq, lkv, True, None),
+                           2 * d * 2 * (b * hq * lq + b * hkv * lkv))[0]
     print(f"  times (CUDA events, median of 50 calls, 20 at L=1024, L2 "
           f"flushed before each): "
           f"H1 {h1[0]:.4f} ms vs plain {h1[1]:.4f} ms (bound "
@@ -1680,6 +1744,10 @@ def time_kernels(torch, dev):
           f"ms; H1 forward {h1_long:.4f} ms (bound {h1_bound(1024):.4f} "
           f"ms; scaled_dot_product_attention causal "
           f"{out['h1_causal_library']['L=1024']:.4f} ms)")
+    print(f"  times at B=8 Hq=8 Hkv=4 Lq={lq} Lkv={lkv} d=128 causal (B4 "
+          f"cross): H1 {h1_cross:.4f} ms (bound {cross_bound:.4f} ms); "
+          f"scaled_dot_product_attention with the bottom-right boolean mask "
+          f"{out['h1_causal_library']['Lq=512 Lkv=1024']:.4f} ms")
     return out
 
 
@@ -1723,6 +1791,8 @@ def main() -> int:
                                                      1261, 1357)]
          + [f"{SPLITKV_PY}:51", f"{SPLITKV_PY}:213"],
          "launches": v1_launches["h1"], "max_abs_err": v1_err,
+         "design": "wgmma",
+         "bound_share": v1_t["bound_ms"] / v1_t["ms"],
          "launches_by_path": {"v1": v1_launches["h1"],
                               "slice": launches["h1"],
                               "train_step": train["h1"]},
@@ -1768,7 +1838,9 @@ def main() -> int:
         {"name": "H4-int8 attention, int8 Q, K and V (pv_mode bf16 / int8)",
          "route": "cuda", "source": H4INT8_SRC, "replaces": f"{INT8_PY}:50",
          "launches": int8["launches"], "max_abs_err": int8["err"],
-         **int8["t"]["canonical bf16"],
+         **int8["t"]["canonical bf16"], "design": "wgmma",
+         "bound_share": (int8["t"]["canonical bf16"]["bound_ms"]
+                         / int8["t"]["canonical bf16"]["ms"]),
          "by_case": {n: x for n, x in int8["t"].items()
                      if n != "canonical bf16"},
          "gates": {n: x for n, x in quant_gates.items()

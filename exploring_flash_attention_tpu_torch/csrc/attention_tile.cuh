@@ -1,12 +1,14 @@
-// Pieces shared by the tiled attention kernels H1 (prefill_attention.cu),
-// H6-extend (paged_extend.cu) and H3 (attention_bwd.cu): the shared-memory
+// Pieces shared by the WMMA attention kernels H6-extend (paged_extend.cu),
+// H3 (attention_bwd.cu), H4-kvq (kvquant_attention.cu) and H5
+// (dtiled_attention.cu): the shared-memory
 // layout of one 64-row Q tile against 64-column K/V tiles, the tile load,
 // the warp reductions, and each warp's two tensor-core products on its 16
 // rows.
 //
 // The forward kernels keep S, P and O in shared memory between the
 // products, because WMMA accumulator fragments have no documented element
-// layout to rescale in registers.  Four warps each own 16 rows.
+// layout to rescale in registers.  Four warps each own 16 rows.  H1 and
+// H4-int8 run on wgmma instead (wgmma_tile.cuh).
 
 #pragma once
 

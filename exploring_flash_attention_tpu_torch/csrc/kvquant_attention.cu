@@ -8,11 +8,11 @@
 //   B16 _kvquant_kernel           exploring_flash_attention_tpu/ops/attention_kvquant.py:47
 //   B17 _kvquant_onepass_kernel   exploring_flash_attention_tpu/ops/attention_kvquant.py:114
 //
-// Design.  H1's loop (prefill_attention.cu) without a mask: one block per
+// Design.  attention_tile.cuh's WMMA loop without a mask: one block per
 // (batch*head, 64-row Q tile) walks 64-key tiles with an online softmax in
 // f32 in the exp2 basis.  Each K/V tile's codes convert on their way into
 // shared memory (exact), because WMMA takes no fp8 operand: K to bf16,
-// for S = Q K_codes^T on H1's bf16 WMMA tiles (attention_tile.cuh); V to
+// for S = Q K_codes^T on bf16 WMMA tiles (attention_tile.cuh); V to
 // fp16, for P V on fp16 WMMA tiles.  The scales are read per key,
 // scale[key / block], so any block works, a ragged last one included:
 //   - the K scale folds into the S-column multiply,
@@ -32,10 +32,11 @@
 
 // Cost at the canonical shape (B=32, H=8, L=1024, d=128): 137.4 GFLOP,
 // 0.139 ms at 989 TFLOP/s bf16, against ~201 MB of bf16 Q and O and int8
-// K and V, 0.060 ms at 3.35 TB/s: the bound is the tensor cores.  Like H1
-// this simple form reaches a few per cent of it (four warps, every product
-// through shared memory); Hopper's e4m3 wgmma at twice the bf16 rate, with
-// the codes fed by TMA, is the fast form.
+// K and V, 0.060 ms at 3.35 TB/s: the bound is the tensor cores.  This
+// simple form reaches a few per cent of it (four warps, every product
+// through shared memory); the fast form is H1's and H4-int8's on
+// wgmma_tile.cuh (a TMA ring, S, P and O in registers), with e4m3 wgmma at
+// twice the bf16 rate or the codes converted into the V buffer.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>

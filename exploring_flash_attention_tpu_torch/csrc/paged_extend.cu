@@ -26,8 +26,8 @@
 // P * v_scale[col] rounded to bf16 before P V.  Columns at or past
 // seq_lens are masked before the exp and their v_scale is zeroed, as B22
 // does (decode.py:587-588): a freed and reused page holds old codes past
-// the tail.  The tensor-core products and the layout are H1's
-// (attention_tile.cuh).
+// the tail.  The tensor-core products and the layout are
+// attention_tile.cuh's (WMMA through shared memory).
 //
 // Layout, per serving/kv_cache.py of the port: pages int8
 // [n_pages, 2, Hkv, ps, d] (0 = K, 1 = V), scales f32 [n_pages, 2, Hkv, 1, ps];
@@ -38,7 +38,7 @@
 // 279..534): about 4*8*8*256*(279 + 128.5)*128 = 3.4 GFLOP per layer, and
 // about 4.4 MB of int8 pages plus 0.14 MB of scales per layer, over
 // 8 * 4 * 8 = 256 blocks.  That is a few microseconds of tensor-core work
-// and of HBM time: latency-bound, like H1.  A fast version would run wgmma
+// and of HBM time: latency-bound.  A fast version would run wgmma
 // on register-resident S/P/O, convert and stage pages through a TMA or
 // cp.async ring with producer/consumer warps, and split long histories
 // across SMs with an (O, LSE) merge.

@@ -1,10 +1,8 @@
 // Tile loads shared by the quantized and d-tiled forwards H4-kvq
-// (kvquant_attention.cu), H4-int8 (int8_attention.cu) and H5
-// (dtiled_attention.cu): int8 or e4m3 codes converted to bf16 or fp16 on
-// their way into shared memory (exact: every int8 and every e4m3 value
-// fits the 8-bit mantissa of bf16 and the range and 11-bit mantissa of
-// fp16), a bf16 tile cut from a wider row, and the int8 tile in the
-// chunked layout that int8 WMMA fragments load from.
+// (kvquant_attention.cu) and H5 (dtiled_attention.cu): int8 or e4m3 codes
+// converted to bf16 or fp16 on their way into shared memory (exact: every
+// int8 and every e4m3 value fits the 8-bit mantissa of bf16 and the range
+// and 11-bit mantissa of fp16), and a bf16 tile cut from a wider row.
 
 #pragma once
 
@@ -77,25 +75,6 @@ __device__ __forceinline__ void load_tile_as(T* dst, const void* src,
     } else {
       codes16_to<KIND>(d, static_cast<const uint8_t*>(src) + at);
     }
-  }
-}
-
-// Rows [row0, row0 + 64) of a [n_rows, D] int8 matrix into the chunked
-// layout [D / 16][64][16]: element (r, c) at ((c / 16) * 64 + r) * 16 +
-// c % 16.  Every 16x16 int8 WMMA fragment (row block, 16-column chunk)
-// then starts on a multiple of 256 bytes with ldm 16, as load_matrix_sync
-// requires 32-byte-aligned bases; a row-major tile would put every odd
-// chunk 16 bytes off.  Rows past n_rows are zero.
-template <int D>
-__device__ __forceinline__ void load_i8_chunked(int8_t* dst, const int8_t* src,
-                                                int row0, int n_rows) {
-  for (int i = threadIdx.x; i < 64 * (D / 16); i += THREADS) {
-    const int r = i % 64;
-    const int chunk = i / 64;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + chunk * 16);
-    *reinterpret_cast<uint4*>(dst + (chunk * 64 + r) * 16) = val;
   }
 }
 

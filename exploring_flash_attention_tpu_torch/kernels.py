@@ -124,6 +124,24 @@ def ptxas_report() -> str:
     return (build().parent / "ptxas.log").read_text()
 
 
+def sass_by_function() -> dict:
+    """The SASS of every kernel function in the current build, by its
+    (mangled) name, from ``cuobjdump --dump-sass``: what the card runs, to
+    check which tensor-core instructions a kernel issues (``HGMMA`` and
+    ``IGMMA`` for wgmma, ``HMMA`` and ``IMMA`` for mma.sync and WMMA)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "--dump-sass", str(build())],
+                         capture_output=True, text=True, check=True)
+    out, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return {n: "\n".join(lines) for n, lines in out.items()}
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""

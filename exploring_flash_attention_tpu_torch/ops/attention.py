@@ -57,7 +57,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 H1_HEAD_DIMS = (32, 64, 128)
-H1_TILE = 64                    # keys per K/V tile; a KV span is whole tiles
+H1_TILE = 128                   # Q rows per block and keys per K/V tile; a
+                                # KV span is whole tiles
 _MASK_NONE, _MASK_CAUSAL, _MASK_WINDOW = 0, 1, 2      # csrc enum Mask
 
 
@@ -72,7 +73,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     at ``diag_off``, or a causal ``window`` (see :func:`attention_plain`);
     a window that holds every key the causal rows see is plain causal.
 
-    With ``kv_span`` (a multiple of 64 keys) the KV is cut into
+    With ``kv_span`` (a multiple of 128 keys) the KV is cut into
     nkb = cdiv(Lkv, kv_span) spans and both outputs gain a span axis: o
     [B, Hq, nkb, Lq, d] normalized over each span and lse [B, Hq, nkb, Lq]
     of each span, the partials that ``splitkv_combine`` merges.
@@ -192,7 +193,7 @@ def attention_partial_local(
     k: torch.Tensor,               # [B, Hkv, Lkv, d]
     v: torch.Tensor,
     scale: Optional[float] = None,
-    causal: bool = True,
+    causal: bool = False,
     static_positions: Optional[Tuple[int, int]] = None,
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -146,7 +146,7 @@ def flash_attention_bwd(
     do: torch.Tensor,              # its cotangent, same shape
     lse: torch.Tensor,             # [B, Hq, Lq] f32, natural log, scale in
     scale: Optional[float] = None,
-    causal: bool = True,
+    causal: bool = False,
     static_positions: Optional[Tuple[int, int]] = None,
     positions=None,
     window: Optional[int] = None,

@@ -31,10 +31,11 @@ from exploring_flash_attention_tpu_torch.ops.attention_v2_splitkv import (
     splitkv_combine,
 )
 
-# H1 keeps two blocks resident per SM at d=128 (110 KB of shared memory
-# each) and an H100 has 132 SMs: one wave of blocks.
-RESIDENT_BLOCKS = 2 * 132
-MIN_SPAN = 512                  # keys per span at the least: 8 K/V tiles
+# H1 keeps one block resident per SM (384 threads and 224 KB of shared
+# memory at d=128, csrc/prefill_attention.cu) and an H100 has 132 SMs: one
+# wave of blocks.
+RESIDENT_BLOCKS = 132
+MIN_SPAN = 512                  # keys per span at the least: 4 K/V tiles
 
 
 def split_kv_span(b: int, hq: int, lq: int, lkv: int) -> Optional[int]:
@@ -43,7 +44,7 @@ def split_kv_span(b: int, hq: int, lq: int, lkv: int) -> Optional[int]:
     than half of one wave of :data:`RESIDENT_BLOCKS`, the KV is cut into
     as many spans as keep the blocks within that wave, each of at least
     :data:`MIN_SPAN` keys: at B=1, H=8, Lq=1024, Lkv=8192, 2 spans and
-    256 blocks instead of 128.  A second, partly filled wave costs a whole
+    128 blocks instead of 64.  A second, partly filled wave costs a whole
     block's time, so more spans than fit one wave are slower (PERF.md)."""
     nkb = min(RESIDENT_BLOCKS // (b * hq * cdiv(lq, H1_TILE)),
               lkv // MIN_SPAN)

@@ -6,12 +6,15 @@ in f32.  Tolerance: atol 1e-5 on O and LSE — both sides compute in f32 and
 differ only in summation order (O is a convex combination of O(1) values,
 LSE is O(1))."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from exploring_flash_attention_tpu.configs import cdiv as jax_cdiv
+from exploring_flash_attention_tpu.ops import attention_bwd as jax_bwd_mod
 from exploring_flash_attention_tpu.ops.attention_v1 import (
     causal_partial_onepass_eligible,
 )
@@ -30,6 +33,9 @@ from exploring_flash_attention_tpu_torch.oracle import (
 from exploring_flash_attention_tpu_torch.ops.attention import (
     attention_partial_local,
     flash_attention,
+)
+from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+    flash_attention_bwd,
 )
 
 ATOL = 1e-5
@@ -57,7 +63,8 @@ def test_attention_partial_local_matches_jax(route, lq, lkv):
     o_ref, lse_ref = jax_attention_partial_local(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
     o, lse = attention_partial_local(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True)
     assert o.dtype == torch.float32 and lse.dtype == torch.float32
     # each side against the f64 oracle first, so that a failure names the
     # side that drifted (this case once failed in a full parallel run with
@@ -75,6 +82,34 @@ def test_attention_partial_local_matches_jax(route, lq, lkv):
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("port,jax_fn", [
+    (attention_partial_local, jax_attention_partial_local),
+    (flash_attention_bwd, jax_bwd_mod.flash_attention_bwd),
+])
+def test_port_defaults_match_jax(port, jax_fn):
+    """Every parameter the port shares with the JAX function has its name
+    and its default: a caller who leaves one out gets the same function on
+    both sides.  Then ``attention_partial_local`` without ``causal`` is
+    held against JAX's non-causal result on a case where causal differs."""
+    ours = inspect.signature(port).parameters
+    theirs = inspect.signature(jax_fn).parameters
+    shared = [name for name in ours if name in theirs]
+    assert "causal" in shared and len(shared) >= 6
+    for name in shared:
+        assert ours[name].default == theirs[name].default, name
+    if port is attention_partial_local:
+        q, k, v = _qkv(11, 1, 4, 2, 32, 48, 64)
+        o_ref, lse_ref = jax_attention_partial_local(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        o, lse = port(*(torch.from_numpy(x) for x in (q, k, v)))
+        np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref),
+                                   atol=ATOL)
+        causal_o, _ = port(*(torch.from_numpy(x) for x in (q, k, v)),
+                           causal=True)
+        assert (causal_o - o).abs().max() > 100 * ATOL
+
+
 @pytest.mark.parametrize("lq,lkv", [(64, 64), (17, 17), (24, 16)])
 def test_attention_partial_local_matches_f64_oracle(lq, lkv):
     """(24, 16): the first 8 q rows see no key and must give (0, -inf)."""
@@ -83,7 +118,8 @@ def test_attention_partial_local_matches_f64_oracle(lq, lkv):
     o_ref, lse_ref = naive_attention(q, rep(k), rep(v), causal=True,
                                      return_lse=True)
     o, lse = attention_partial_local(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True)
     np.testing.assert_allclose(o.numpy(), o_ref, atol=ATOL)
     np.testing.assert_allclose(lse.numpy(), lse_ref, atol=ATOL)
     if lq > lkv:

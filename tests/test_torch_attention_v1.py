@@ -133,11 +133,12 @@ def test_flash_attention_v1_long_kv_split_route():
 
 
 @pytest.mark.parametrize("b,hq,lq,lkv,span", [
-    (32, 8, 1024, 1024, None),     # bench.py's shape: 4096 blocks
-    (1, 8, 1024, 2048, 1024),      # 128 blocks: 2 spans fill one wave
+    (32, 8, 1024, 1024, None),     # bench.py's shape: 2048 blocks
+    (1, 8, 1024, 2048, 1024),      # 64 blocks: 2 spans fill one wave
     (1, 8, 1024, 8192, 4096),
-    (1, 16, 1024, 8192, None),     # 256 blocks: one wave already
-    (1, 1, 64, 4224, 576),         # one Q tile: spans of at least 512 keys
+    (1, 16, 1024, 8192, None),     # 128 blocks: one wave already
+    (1, 1, 64, 4224, 640),         # one Q tile: 8 spans of whole 128-key
+                                   # tiles, at least 512 keys each
     (1, 4, 128, 1000, None),       # too short to cut into two 512-key spans
 ])
 def test_split_kv_span_fills_the_card(b, hq, lq, lkv, span):
@@ -146,7 +147,7 @@ def test_split_kv_span_fills_the_card(b, hq, lq, lkv, span):
 
 @pytest.mark.parametrize("route,hq,hkv,lq,lkv,span,causal", [
     ("b8_multi_span", 4, 2, 128, 512, 128, False),
-    ("b9_ragged_span", 2, 2, 100, 500, 192, False),
+    ("b9_ragged_span", 2, 2, 100, 500, 256, False),
     ("b9_causal_cross", 4, 2, 64, 320, 128, True),
 ])
 def test_span_partials_match_jax_splitkv_partial(route, hq, hkv, lq, lkv,
@@ -349,13 +350,15 @@ def test_attention_partial_local_routes_match_jax(causal, window):
 def test_attention_partial_local_window_refusals():
     q, k, v = _t(*_qkv(19, 1, 2, 2, 64, 128, 64))
     with pytest.raises(NotImplementedError, match="positions"):
-        attention_partial_local(q, k, v, window=16, static_positions=(0, 0))
+        attention_partial_local(q, k, v, causal=True, window=16,
+                                static_positions=(0, 0))
     with pytest.raises(NotImplementedError, match="causal"):
         attention_partial_local(q, k, v, causal=False, window=16)
     # a window covering every key is causal at any static positions
-    o, lse = attention_partial_local(q, k, v, window=128,
+    o, lse = attention_partial_local(q, k, v, causal=True, window=128,
                                      static_positions=(100, 0))
-    o_c, lse_c = attention_partial_local(q, k, v, static_positions=(100, 0))
+    o_c, lse_c = attention_partial_local(q, k, v, causal=True,
+                                         static_positions=(100, 0))
     assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
 
 
@@ -390,7 +393,7 @@ CARD_WINDOW_O_TOL = 1e-2
 
 
 def _h1_emulation(q, k, v, scale, causal, diag_off, window):
-    """H1's arithmetic on the CPU: 64-key tiles, f32 S in the exp2 basis,
+    """H1's arithmetic on the CPU: 128-key tiles, f32 S in the exp2 basis,
     an online softmax whose P is rounded to bf16 before P V and summed
     into l from the rounded values; f32 O and the natural-log LSE."""
     lq, lkv = q.shape[-2], k.shape[-2]
@@ -398,9 +401,9 @@ def _h1_emulation(q, k, v, scale, causal, diag_off, window):
     l = torch.zeros(q.shape[:-1])
     o = torch.zeros(q.shape)
     last = torch.arange(lq)[:, None] + diag_off
-    for kv0 in range(0, lkv, 64):
-        s = q @ k[..., kv0:kv0 + 64, :].transpose(-1, -2) * (scale * LOG2E)
-        col = torch.arange(kv0, min(kv0 + 64, lkv))[None, :]
+    for kv0 in range(0, lkv, 128):
+        s = q @ k[..., kv0:kv0 + 128, :].transpose(-1, -2) * (scale * LOG2E)
+        col = torch.arange(kv0, min(kv0 + 128, lkv))[None, :]
         seen = torch.ones(lq, col.shape[1], dtype=torch.bool)
         if causal:
             seen &= col <= last
@@ -412,7 +415,7 @@ def _h1_emulation(q, k, v, scale, causal, diag_off, window):
         p = torch.exp2(s - m_use[..., None]).bfloat16().float()
         alpha = torch.exp2(m - m_use)
         l = l * alpha + p.sum(-1)
-        o = o * alpha[..., None] + p @ v[..., kv0:kv0 + 64, :]
+        o = o * alpha[..., None] + p @ v[..., kv0:kv0 + 128, :]
         m = m_new
     den = torch.where(l == 0, 1.0, l)
     lse = torch.where(l == 0, float("-inf"), m / LOG2E + torch.log(den))

@@ -246,17 +246,18 @@ def test_flash_attention_bwd_refuses_what_is_not_ported():
     out, lse = attention_plain(q, k, v, 0.25, True, 0)
     args = (q, k, v, out, do, lse)
     with pytest.raises(NotImplementedError, match="traced"):
-        flash_attention_bwd(*args, positions=(torch.tensor(0),
-                                              torch.tensor(0)))
+        flash_attention_bwd(*args, causal=True,
+                            positions=(torch.tensor(0), torch.tensor(0)))
     with pytest.raises(NotImplementedError, match="static"):
-        flash_attention_bwd(*args, static_positions=(torch.tensor(0), 0))
+        flash_attention_bwd(*args, causal=True,
+                            static_positions=(torch.tensor(0), 0))
     with pytest.raises(NotImplementedError, match="window"):
-        flash_attention_bwd(*args, window=4)
+        flash_attention_bwd(*args, causal=True, window=4)
     with pytest.raises(ValueError, match="causal"):
         flash_attention_bwd(*args, causal=False, window=4)
     with pytest.raises(NotImplementedError, match="non-causal"):
         flash_attention_bwd(*args, causal=False)
     # a window that covers every key is plain causal, as in the JAX package
-    for got, want in zip(flash_attention_bwd(*args, window=8),
-                         flash_attention_bwd(*args)):
+    for got, want in zip(flash_attention_bwd(*args, causal=True, window=8),
+                         flash_attention_bwd(*args, causal=True)):
         assert torch.equal(got, want)

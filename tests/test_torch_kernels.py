@@ -203,7 +203,7 @@ def test_partial_returns_f32_o_written_by_h1(cuda_device):
     the f64 oracle stays below half a bf16 ulp at max|O| (rounding O to
     bf16 alone could cost that much)."""
     q, k, v = _qkv(cuda_device, 2, 8, 4, 512, 512, 128, seed=10)
-    o, lse = attention_partial_local(q, k, v)
+    o, lse = attention_partial_local(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert o.dtype == torch.float32 and lse.dtype == torch.float32
     assert not torch.equal(o, o.bfloat16().float())
@@ -223,12 +223,16 @@ def test_h1_refuses_what_it_cannot_take(cuda_device):
         flash_attention_v1(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="f32"):
         flash_attention_v1(q, k, v, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        prefill_attention(q, k, v, 0.125, 0, kv_span=64)   # half a K/V tile
     assert prefill_attention.launches == before
 
 
 @pytest.mark.parametrize("causal,lq,lkv,span", [
     (False, 200, 1000, 256),      # 4 spans, the last ragged (232 keys)
     (True, 512, 512, 128),        # spans past a row's diagonal: (0, -inf)
+    (False, 200, 1000, 384),      # spans of three 128-key tiles
+    (True, 1000, 1000, 384),      # causal, the last span 232 keys
 ])
 def test_h1_span_partials_match_plain(cuda_device, causal, lq, lkv, span):
     """H1's span mode: one launch writes every span's f32 O and LSE, as
@@ -250,6 +254,54 @@ def test_h1_span_partials_match_plain(cuda_device, causal, lq, lkv, span):
     assert (lse.cpu()[fin] - lse_ref[fin]).abs().max().item() < LSE_TOL
     if causal:
         assert not fin.all() and (o.cpu()[~fin] == 0).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("lq,lkv", [
+    (127, 127), (128, 128), (129, 129), (257, 257), (127, 257), (257, 129),
+])
+def test_h1_ragged_edges_of_128_tiles(cuda_device, lq, lkv, d, causal):
+    """Lq and Lkv at and around H1's 128-row Q tile and 128-key K/V tile:
+    the TMA box past a head's end is zero-filled and the columns past Lkv
+    are masked in registers.  GQA 4/2, f32 O and LSE against the plain
+    version, O against the f64 oracle."""
+    q, k, v = _qkv(cuda_device, 2, 4, 2, lq, lkv, d, seed=30)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = prefill_attention(q, k, v, scale, lkv - lq, causal,
+                               out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = attention_plain(q, k, v, scale, causal, lkv - lq)
+    assert (o - o_ref).abs().max().item() < O_TOL
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse[fin] - lse_ref[fin]).abs().max().item() < LSE_TOL
+    oracle = naive_attention(q, k.repeat_interleave(2, 1),
+                             v.repeat_interleave(2, 1), causal=causal)
+    assert np.abs(o.cpu().numpy() - oracle).max() < O_TOL
+
+
+@pytest.mark.parametrize("lq,lkv,window", [
+    (512, 512, 100),       # band edges inside every 128-key tile
+    (300, 700, 129),       # one key wider than a tile, cross
+    (256, 256, 127),       # one key narrower than a tile
+])
+def test_h1_window_band_crosses_kv_tiles(cuda_device, lq, lkv, window):
+    """A sliding window whose band edges cross 128-key tiles: the tiles
+    outside every row's band are skipped, the edges masked per row."""
+    q, k, v = _qkv(cuda_device, 1, 8, 4, lq, lkv, 128, seed=31)
+    before = prefill_attention.launches
+    o = flash_attention_v1(q, k, v, causal=True, window=window,
+                           out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 1
+    o_ref, _ = attention_plain(q, k, v, 1.0 / math.sqrt(128), True,
+                               lkv - lq, window)
+    assert (o - o_ref).abs().max().item() < O_TOL
+    oracle = naive_attention(q, k.repeat_interleave(2, 1),
+                             v.repeat_interleave(2, 1), causal=True,
+                             window=window)
+    assert np.abs(o.cpu().numpy() - oracle).max() < O_TOL
 
 
 def test_h2_combine_matches_plain_and_counts(cuda_device):
@@ -410,7 +462,7 @@ def test_bwd_kernels_match_plain(cuda_device, b, hq, hkv, lq, lkv, d,
                                              lkv, d, diag_off)
     positions = (diag_off, 0)
     dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, scale,
-                                     static_positions=positions)
+                                     causal=True, static_positions=positions)
     torch.cuda.synchronize()
     ref = attention_bwd_plain(q, k, v, out, do, lse, scale, diag_off)
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
@@ -427,9 +479,9 @@ def test_bwd_kernels_match_plain(cuda_device, b, hq, hkv, lq, lkv, d,
 
 def test_bwd_kernels_are_bitwise_reproducible(cuda_device):
     args = _bwd_case(cuda_device, 2, 8, 4, 520, 520, 128, 0)
-    first = flash_attention_bwd(*args)
+    first = flash_attention_bwd(*args, causal=True)
     for _ in range(3):
-        for a, b in zip(first, flash_attention_bwd(*args)):
+        for a, b in zip(first, flash_attention_bwd(*args, causal=True)):
             assert torch.equal(a, b)
 
 
@@ -437,12 +489,12 @@ def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 1, 2, 2, 64, 64,
                                              64, 0)
     before = (attention_bwd_dkv.launches, attention_bwd_dq.launches)
-    flash_attention_bwd(q, k, v, out, do, lse, scale)
+    flash_attention_bwd(q, k, v, out, do, lse, scale, causal=True)
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
         before[0] + 1, before[1] + 1)
     with pytest.raises(TypeError, match="bf16"):
         flash_attention_bwd(q.float(), k.float(), v.float(), out.float(),
-                            do.float(), lse, scale)
+                            do.float(), lse, scale, causal=True)
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
         before[0] + 1, before[1] + 1)
 
@@ -516,6 +568,12 @@ def test_kvquant_kernel_refuses_what_it_cannot_take(cuda_device):
     (200, 1100, 128, 64, 128),    # ragged, any Q block
     (128, 200, 64, 128, 128),     # tests/test_attention_int8.py:56
     (256, 256, 64, 128, 48),      # a kv block that splits the 64-key tiles
+    # kv blocks shorter than the 128-key tile: several runs per tile, each
+    # with its v_scale; in int8 mode 16 and 48 end inside a 32-key step
+    (200, 300, 128, 64, 16),
+    (200, 300, 128, 64, 32),
+    (200, 300, 128, 64, 48),
+    (200, 300, 128, 64, 64),
 ])
 def test_int8_kernel_matches_plain_and_oracle(cuda_device, pv_mode, lq, lkv,
                                               d, q_block, kv_block):
@@ -537,6 +595,12 @@ def test_int8_kernel_matches_plain_and_oracle(cuda_device, pv_mode, lq, lkv,
     if pv_mode == "bf16" or (lq, lkv, d) == (128, 200, 64):
         assert _max_err(o, oracle) < INT8_ORACLE_TOL[pv_mode]
     assert _max_err(o, oracle) < _max_err(plain, oracle) + INT8_PLAIN_TOL
+    if vq.scales.shape[2] > 1:
+        # the neighbouring block's V scales: a path the check tells apart
+        wrong = QuantizedTensor(vq.values, vq.scales.roll(1, dims=2),
+                                vq.block)
+        assert _max_err(o, attention_int8_plain(
+            qq, kq, wrong, 1.0 / math.sqrt(d), pv_mode)) > 10 * INT8_PLAIN_TOL
 
 
 def test_int8_kernel_refuses_what_it_cannot_take(cuda_device):

@@ -347,6 +347,36 @@ def h4kvq_emulation(q, k_q, v_q, scale):
     return o / l[..., None]
 
 
+def h4int8_emulation(q_q, k_q, v_q, scale, pv_mode):
+    """H4-int8's arithmetic on the CPU: B18's one-pass softmax (m over
+    every key, l summing the f32 p, P rounded to bf16 or to round(p *
+    127)), with P V taken as the kernel takes it: per 128-key tile, one
+    run per kv block the tile holds, each run's product times its
+    v_scale (times f32(1/127) in int8 mode) added into O in f32."""
+    lkv = k_q.shape[2]
+    qs = _expand(q_q.scales, q_q.shape, q_q.block)
+    ks = _expand(k_q.scales, k_q.shape, k_q.block)[..., 0]
+    s = q_q.values.float() @ k_q.values.float().transpose(-1, -2)
+    s = s * ((qs * ks[:, :, None, :])
+             * torch.tensor(scale * LOG2E, dtype=torch.float32))
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    if pv_mode == "int8":
+        p_lp, f = torch.round(p * 127.0), torch.tensor(1.0 / 127.0)
+    else:
+        p_lp, f = p.bfloat16().float(), torch.tensor(1.0)
+    v = v_q.values.float()
+    o = torch.zeros(p.shape[:-1] + (v.shape[-1],))
+    block = v_q.block
+    for kv0 in range(0, lkv, 128):
+        end = min(kv0 + 128, lkv)
+        for b in range(kv0 // block, -(-end // block)):
+            r = slice(max(kv0, b * block), min(end, (b + 1) * block))
+            o += (p_lp[..., r] @ v[:, :, r]) * (v_q.scales[:, :, b, None,
+                                                           None] * f)
+    return o / l
+
+
 def _rolled(qt):
     """The neighbouring block's scales: what a wrong scale index reads."""
     return QuantizedTensor(qt.values, torch.roll(qt.scales, 1, dims=2),
@@ -397,16 +427,20 @@ def test_card_limits_hold_h4kvq_roundings(kind, shape, seed, block, tol):
 def test_card_limits_hold_h4int8_roundings(pv_mode, shape, seed):
     """H4-int8 computes B18's function, which the plain version
     reproduces: the card holds the kernel to the plain version within
-    CARD_INT8_PLAIN_TOL, and the controls read beyond twice that limit
+    CARD_INT8_PLAIN_TOL, which the emulation of the kernel's runs meets
+    with room to spare, and the controls read beyond twice that limit
     (the scale off by 10%, the last 64-key tile dropped and, with more
-    than one block, the neighbouring block's scales).  Against the f64 oracle, pv_mode bf16 reads within
-    half the suite's gate; pv_mode int8's requantized P is B18's own
-    error, which test_b18_int8_pv_reads_near_its_tier shows JAX reading
-    as well: within the tier, and the controls beyond twice it."""
+    than one block, the neighbouring block's scales).  Against the f64
+    oracle, pv_mode bf16 reads within half the suite's gate; pv_mode
+    int8's requantized P is B18's own error, which
+    test_b18_int8_pv_reads_near_its_tier shows JAX reading as well:
+    within the tier, and the controls beyond twice it."""
     q, k, v = _bf16_qkv(*shape, 128, seed)
     qq, kq, vq = (quantize_int8(x, 512) for x in (q, k, v))
     scale = 1.0 / np.sqrt(128)
-    got = attention_int8_plain(qq, kq, vq, scale, pv_mode).numpy()
+    got = h4int8_emulation(qq, kq, vq, scale, pv_mode).numpy()
+    plain = attention_int8_plain(qq, kq, vq, scale, pv_mode).numpy()
+    assert np.abs(got - plain).max() < CARD_INT8_PLAIN_TOL / 100
     qd, kd, vd = (dequantize(x) for x in (qq, kq, vq))
     if pv_mode == "bf16":
         assert np.abs(got - naive_attention(qd, kd, vd)).max() < \

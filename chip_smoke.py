@@ -12,10 +12,11 @@ Phases, one line each; any failure exits non-zero before the last line:
    limit from nvidia-smi;
 2. build:  nvcc builds the kernels of exploring_flash_attention_tpu_torch/
    csrc/ and its -Xptxas -v report (registers, shared memory) is printed;
-   the SASS of H1's and H4-int8's kernel functions (cuobjdump) must hold
-   wgmma instructions: HGMMA in every H1 function and in H4-int8's
-   pv_mode bf16 ones, IGMMA in every H4-int8 function, and no HMMA or
-   IMMA (the mma.sync and WMMA forms they replaced);
+   the SASS of the kernel functions of H1, H4-int8, H4-kvq and H5
+   (cuobjdump) must hold wgmma instructions: HGMMA in every H1, H4-kvq
+   and H5 function and in H4-int8's pv_mode bf16 ones, IGMMA in every
+   H4-int8 function, and no HMMA or IMMA (the mma.sync and WMMA forms
+   they replaced);
 3. h1:     kernel H1 (the attention forward) vs its plain PyTorch
    version and the f64 oracle, causal, at the slice's shapes and one
    ragged case;
@@ -170,8 +171,9 @@ H2_O_TOL = 1e-5        # H2 vs its plain version on the same f32 partials:
 # read within half of each limit (tests/test_torch_quant.py,
 # tests/test_torch_dtiled.py).
 KVQ_GATE_TOL = 1e-3    # bench/suite.py:383
-KVQ_O_TOL = 5e-4       # H4-kvq rounds P to fp16: the emulation reads
-                       # <= 8.1e-5, the controls 1.8e-2 and up
+KVQ_O_TOL = 5e-4       # H4-kvq rounds P * v_scale / vmax to fp16 (vmax
+                       # per 128-key tile): the emulation reads <= 8.1e-5,
+                       # the controls 1.8e-2 and up
 INT8_GATE_TOL = 1.5e-3  # bench/suite.py:420, :1200 (pv_mode bf16)
 INT8_PV8_TOL = 3e-2    # pv_mode int8 vs the oracle, the JAX test's tier
                        # (tests/test_attention_int8.py:53); B18's own
@@ -302,12 +304,21 @@ def phase_build(kernels):
     check_sass(kernels)
 
 
+# the wgmma kernels' functions in the SASS: H1 (d 32, 64, 128), H4-int8
+# (d 64, 128 x pv_mode), H4-kvq (d 64, 128 x int8, e4m3) and H5 (d 128,
+# 256, 384, 512 x bf16, int8, e4m3)
+WGMMA_FUNCTIONS = {"prefill_attention_kernel": 3, "int8_attention_kernel": 4,
+                   "kvquant_attention_kernel": 4,
+                   "dtiled_attention_kernel": 12}
+
+
 def check_sass(kernels):
-    """H1 and H4-int8 run on wgmma: HGMMA in every H1 function and in the
-    pv_mode bf16 H4-int8 ones (template argument false, ``Lb0E``), IGMMA
-    in every H4-int8 function, no HMMA or IMMA in any of them."""
+    """H1, H4-int8, H4-kvq and H5 run on wgmma: HGMMA in every H1, H4-kvq
+    and H5 function and in the pv_mode bf16 H4-int8 ones (template
+    argument false, ``Lb0E``), IGMMA in every H4-int8 function, no HMMA or
+    IMMA in any of them."""
     sass = kernels.sass_by_function()
-    found = {"prefill_attention_kernel": 0, "int8_attention_kernel": 0}
+    found = dict.fromkeys(WGMMA_FUNCTIONS, 0)
     for name, text in sass.items():
         kind = next((k for k in found if k in name), None)
         if kind is None:
@@ -316,15 +327,13 @@ def check_sass(kernels):
         counts = {op: len(re.findall(rf"\b{op}\b", text))
                   for op in ("HGMMA", "IGMMA", "HMMA", "IMMA")}
         print(f"  sass: {kind} {name.split(kind)[1][:12]}: {counts}")
-        need = (["HGMMA"] if kind.startswith("prefill") else
-                ["IGMMA"] + (["HGMMA"] if "Lb0E" in name else []))
+        need = (["IGMMA"] + (["HGMMA"] if "Lb0E" in name else [])
+                if kind.startswith("int8") else ["HGMMA"])
         _require(all(counts[op] > 0 for op in need),
                  f"{name}: no {need} in its SASS")
         _require(counts["HMMA"] == counts["IMMA"] == 0,
                  f"{name}: mma.sync / WMMA instructions in its SASS")
-    _require(found["prefill_attention_kernel"] == 3
-             and found["int8_attention_kernel"] == 4,
-             f"kernel functions in the SASS: {found}")
+    _require(found == WGMMA_FUNCTIONS, f"kernel functions in the SASS: {found}")
     print("phase sass: ok")
 
 
@@ -801,8 +810,10 @@ def phase_quant(torch, dev):
                 [(4 * b * h * lq * lkv * d, H100_BF16_FLOPS)],
                 2 * b * h * lq * d * 2 + 2 * b * h * lkv * d
                 + 2 * kq.scales.numel() * 4)
+            t["tflops"] = 4 * b * h * lq * lkv * d / t["ms"] / 1e9
             print(f"  quant kvquant {kind} times at B={b} H={h} L={lq} "
-                  f"d={d}: H4-kvq {t['ms']:.4f} ms, plain "
+                  f"d={d}: H4-kvq {t['ms']:.4f} ms "
+                  f"({t['tflops']:.1f} TFLOP/s), plain "
                   f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
                   f"over the dequantized bf16 K/V {t['library_ms']:.4f} ms "
                   f"(the dequant not counted), bound {t['bound_ms']:.4f} ms "
@@ -1832,7 +1843,9 @@ def main() -> int:
         {"name": "H4-kvq attention over int8 / e4m3 K and V",
          "route": "cuda", "source": H4KVQ_SRC, "replaces": f"{KVQ_PY}:47",
          "also_replaces": f"{KVQ_PY}:114", "launches": kvq["launches"],
-         "max_abs_err": kvq["err"], **kvq["t"]["int8"],
+         "max_abs_err": kvq["err"], **kvq["t"]["int8"], "design": "wgmma",
+         "bound_share": (kvq["t"]["int8"]["bound_ms"]
+                         / kvq["t"]["int8"]["ms"]),
          "fp8": kvq["t"]["fp8"], "gates": {
              n: x for n, x in quant_gates.items() if n.startswith("kvquant")}},
         {"name": "H4-int8 attention, int8 Q, K and V (pv_mode bf16 / int8)",
@@ -1848,7 +1861,8 @@ def main() -> int:
         {"name": "H5 d-tiled attention forward (bf16, int8, e4m3 K/V)",
          "route": "cuda", "source": H5_SRC, "replaces": f"{DTILED_PY}:75",
          "launches": h5["launches"], "max_abs_err": h5["err"],
-         **h5["t"]["bf16"],
+         **h5["t"]["bf16"], "design": "wgmma",
+         "bound_share": h5["t"]["bf16"]["bound_ms"] / h5["t"]["bf16"]["ms"],
          "by_kind": {n: x for n, x in h5["t"].items() if n != "bf16"},
          "gates": dtiled_gates},
     ]}))

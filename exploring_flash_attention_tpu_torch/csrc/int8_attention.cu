@@ -113,12 +113,6 @@ struct Tiles {
   static constexpr size_t bytes = bars + 8 * (4 * STAGES + 1) + 1024;
 };
 
-// the byte offset of (row, byte) in a 128-byte-swizzled tile of 128-byte
-// rows: 16-byte chunk c of row r sits at chunk c ^ (r % 8)
-__device__ __forceinline__ uint32_t swz128(int row, int byte) {
-  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
-}
-
 template <int D>
 __device__ __forceinline__ void wgmma_qk(int (&s)[BKV / 2],
                                          const unsigned char* q_wg,
@@ -238,20 +232,9 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D]
                 make_uint4(w[0], w[1], w[2], w[3]);
           }
         } else {
-          // bf16 [D / 64][128 keys][64]: 8 codes of one key per chunk
-          for (int x = ct; x < BKV * (D / 8); x += CONVERTERS) {
-            const int key = x / (D / 8), c8 = x % (D / 8);
-            const uint2 raw =
-                *reinterpret_cast<const uint2*>(v_s + key * D + c8 * 8);
-            const signed char* b = reinterpret_cast<const signed char*>(&raw);
-            uint32_t w[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              w[e] = pack_bf16x2(float(b[2 * e]), float(b[2 * e + 1]));
-            *reinterpret_cast<uint4*>(conv + (c8 / 8) * (BKV * 128)
-                                      + swz128(key, (c8 % 8) * 16)) =
-                make_uint4(w[0], w[1], w[2], w[3]);
-          }
+          // bf16 [D / 64][128 keys][64]
+          convert_codes_tile<KV_INT8, false, D>(v_s, conv, BKV, ct,
+                                                CONVERTERS);
         }
         fence_proxy_async();
         mbar_arrive(&conv_full[s]);

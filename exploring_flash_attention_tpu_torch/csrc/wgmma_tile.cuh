@@ -1,5 +1,6 @@
-// The Hopper mainloop pieces shared by H1 (prefill_attention.cu) and
-// H4-int8 (int8_attention.cu), for sm_90a:
+// The Hopper mainloop pieces shared by H1 (prefill_attention.cu), H4-int8
+// (int8_attention.cu), H4-kvq (kvquant_attention.cu) and H5
+// (dtiled_attention.cu), for sm_90a:
 //
 // - TMA descriptors, made on the host for each call with
 //   cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint, so the
@@ -26,6 +27,10 @@
 //   product: k-step kk of P V takes the pairs of columns 16 kk .. 16 kk +
 //   15, registers 4 kk .. 4 kk + 3.  An s32 accumulator has no such map to
 //   the s8 A fragment.
+// - The conversion of int8 or e4m3 codes into bf16 or fp16 in shared
+//   memory, in the swizzled layout a TMA load of the 16-bit tile would
+//   give (convert_codes_tile): wgmma has no bf16 x int8 or bf16 x e4m3
+//   form, so the quantized forwards convert K and V where they land.
 
 #pragma once
 
@@ -37,6 +42,9 @@
 
 namespace eft {
 namespace hopper {
+
+// element type of K and V (the kv_kind argument of the C entry points)
+enum KvKind : int { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
 
 // ---------------------------------------------------------------- host
 
@@ -349,6 +357,150 @@ __device__ __forceinline__ void wgmma_rs_bf16_n128(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 
+// As wgmma_rs_bf16_n64 in fp16: D[64 x 64] (+)= A[64 x 16] B[16 x 64],
+// A the fp16 A fragment in registers, B fp16 in shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_f16_n64(float (&d)[32], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// As wgmma_rs_bf16_n128 in fp16: D[64 x 128] (+)= A[64 x 16] B[16 x 128],
+// A the fp16 A fragment in registers, B fp16 in shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_f16_n128(float (&d)[64], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 -> f32, A and B in shared
+// memory (descriptors), both K-major.
+__device__ __forceinline__ void wgmma_ss_bf16_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// As wgmma_ss_bf16_n64 with scale-d false: D = A B, whatever D held.
+__device__ __forceinline__ void wgmma_ss_bf16_n64_first(float (&d)[32],
+                                                      uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 -> f32, A in shared memory
+// K-major, B in shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_ss_bf16_n128_tb(float (&d)[64],
+                                                    uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 64] (+)= A[64 x 32] B[32 x 64], s8 -> s32 (exact), A and B in
 // shared memory, both K-major (the only form integer wgmma takes).
 __device__ __forceinline__ void wgmma_ss_s8_n64(int (&d)[32], uint64_t da,
@@ -515,17 +667,27 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi,
   return r;
 }
 
+// lo and hi rounded to fp16 (to nearest even) and packed, lo in the low
+// half: one register of an fp16 A fragment
+__device__ __forceinline__ uint32_t pack_f16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 // The epilogue of an m64nD f32 O accumulator: O / l of the two rows this
 // thread owns (rows row0 and row0 + 8, each l summed over the quad), as
-// bf16 or f32, at o + (base + row) * D for the rows below lq; a row with
-// l = 0 (it saw no key) stores O = 0.  With lse, its natural-log LSE too,
-// m ln 2 + ln l (m in the exp2 basis), -inf where l = 0.
+// bf16 or f32, at o + (base + row) * ld + col for the rows below lq (ld
+// and col set where D is a slice of a wider row); a row with l = 0 (it
+// saw no key) stores O = 0.  With lse, its natural-log LSE too, m ln 2 +
+// ln l (m in the exp2 basis), -inf where l = 0.
 template <int D>
 __device__ __forceinline__ void store_o_rows(const float (&acc_o)[D / 2],
                                              const float (&l)[2],
                                              const float (&m)[2], int row0,
                                              int lq, size_t base, void* o,
-                                             int out_f32, float* lse) {
+                                             int out_f32, float* lse,
+                                             int ld = D, int col = 0) {
   const int col0 = 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -535,14 +697,14 @@ __device__ __forceinline__ void store_o_rows(const float (&acc_o)[D / 2],
     const float denom = l_row == 0.f ? 1.f : l_row;
     const size_t row = base + qi;
     if (out_f32) {
-      float* orow = static_cast<float*>(o) + row * D;
+      float* orow = static_cast<float*>(o) + row * ld + col;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<float2*>(orow + 8 * j + col0) =
             make_float2(acc_o[4 * j + 2 * r] / denom,
                         acc_o[4 * j + 2 * r + 1] / denom);
     } else {
-      __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(o) + row * D;
+      __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(o) + row * ld + col;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
@@ -561,6 +723,108 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ------------------------------------------------------ code conversion
+
+// the byte offset of (row, byte) in a 128-byte-swizzled tile of 128-byte
+// rows: 16-byte chunk c of row r sits at chunk c ^ (r % 8)
+__device__ __forceinline__ uint32_t swz128(int row, int byte) {
+  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+// 4 int8 codes -> 4 f32, exact: each byte with its sign bit flipped, u =
+// code + 128, is the low byte of the f32 2^23 + u, from which 2^23 + 128
+// is taken
+__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t x = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+// two f32 that bf16 holds exactly -> bf16x2 (their high halves), lo low
+__device__ __forceinline__ uint32_t exact_bf16x2(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// 4 int8 codes -> two fp16x2, exact: the byte, sign flipped, is the low
+// byte of the fp16 1024 + u, from which 1024 + 128 is taken
+__device__ __forceinline__ void s8x4_to_f16x2(uint32_t w, uint32_t& h0,
+                                              uint32_t& h1) {
+  const uint32_t x = w ^ 0x80808080u;
+  const uint32_t a = __byte_perm(x, 0x64646464u, 0x4140);
+  const uint32_t b = __byte_perm(x, 0x64646464u, 0x4342);
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(h0) : "r"(a), "r"(0x64806480u));
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(h1) : "r"(b), "r"(0x64806480u));
+}
+
+// 4 e4m3 codes -> two fp16x2 (exact, the byte order kept), sm_89 and up
+__device__ __forceinline__ void e4m3x4_to_f16x2(uint32_t w, uint32_t& h0,
+                                                uint32_t& h1) {
+  asm("{\n.reg .b16 lo, hi;\nmov.b32 {lo, hi}, %2;\n"
+      "cvt.rn.f16x2.e4m3x2 %0, lo;\ncvt.rn.f16x2.e4m3x2 %1, hi;\n}\n"
+      : "=r"(h0), "=r"(h1) : "r"(w));
+}
+
+// fp16x2 -> bf16x2 through f32, exact for the values of e4m3
+__device__ __forceinline__ uint32_t f16x2_to_bf16x2(uint32_t h) {
+  uint32_t r;
+  asm("{\n.reg .b16 lo, hi;\n.reg .f32 flo, fhi;\nmov.b32 {lo, hi}, %1;\n"
+      "cvt.f32.f16 flo, lo;\ncvt.f32.f16 fhi, hi;\n"
+      "cvt.rn.bf16x2.f32 %0, fhi, flo;\n}\n"
+      : "=r"(r) : "r"(h));
+  return r;
+}
+
+// 16 codes (KIND int8 or e4m3) -> 16 bf16 or fp16 values, exact (every
+// int8 and e4m3 value fits either type), in order: out[i] holds codes 2i
+// and 2i + 1, the first in the low half
+template <int KIND, bool TO_F16>
+__device__ __forceinline__ void codes16_convert(const uint4& in,
+                                                uint32_t (&out)[8]) {
+  const uint32_t w[4] = {in.x, in.y, in.z, in.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (KIND == KV_INT8 && TO_F16) {
+      s8x4_to_f16x2(w[i], out[2 * i], out[2 * i + 1]);
+    } else if constexpr (KIND == KV_INT8) {
+      float f[4];
+      s8x4_to_f32(w[i], f);
+      out[2 * i] = exact_bf16x2(f[0], f[1]);
+      out[2 * i + 1] = exact_bf16x2(f[2], f[3]);
+    } else {
+      uint32_t h0, h1;
+      e4m3x4_to_f16x2(w[i], h0, h1);
+      out[2 * i] = TO_F16 ? h0 : f16x2_to_bf16x2(h0);
+      out[2 * i + 1] = TO_F16 ? h1 : f16x2_to_bf16x2(h1);
+    }
+  }
+}
+
+// A [rows][COLS] tile of codes (row-major, COLS bytes a row, COLS 64 or
+// 128) -> 16-bit values in the layout a TMA load of the 16-bit tile gives:
+// COLS / 64 boxes of [rows][64], 128-byte rows, 128-byte swizzle, box after
+// box (rows a multiple of 8).  Thread t of n converts the 16-byte pieces
+// t, t + n, ...; the caller fences (fence_proxy_async) before wgmma reads.
+template <int KIND, bool TO_F16, int COLS>
+__device__ __forceinline__ void convert_codes_tile(const unsigned char* src,
+                                                   unsigned char* dst,
+                                                   int rows, int t, int n) {
+  constexpr int PIECES = COLS / 16;
+  for (int x = t; x < rows * PIECES; x += n) {
+    const int row = x / PIECES, c = (x % PIECES) * 16;
+    const uint4 in = *reinterpret_cast<const uint4*>(src + row * COLS + c);
+    uint32_t out[8];
+    codes16_convert<KIND, TO_F16>(in, out);
+    unsigned char* box = dst + (c / 64) * rows * 128;
+    const int byte = (c % 64) * 2;
+    *reinterpret_cast<uint4*>(box + swz128(row, byte)) =
+        make_uint4(out[0], out[1], out[2], out[3]);
+    *reinterpret_cast<uint4*>(box + swz128(row, byte + 16)) =
+        make_uint4(out[4], out[5], out[6], out[7]);
+  }
 }
 
 }  // namespace hopper

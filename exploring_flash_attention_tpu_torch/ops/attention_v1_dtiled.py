@@ -4,7 +4,8 @@ Counterpart of ``flash_attention_v1_dtiled`` (``ops/attention_v1_dtiled.py:191``
 in the JAX package, whose TPU kernel B19 accumulates S over d-chunks of Q
 and K, runs the online softmax on the f32 S and accumulates P V chunk by
 chunk into a full-width f32 O.  Here a call is one launch of H5
-(``csrc/dtiled_attention.cu``).  K and V are bf16, or both int8 or e4m3
+(``csrc/dtiled_attention.cu``), whose warpgroups each hold 128 of O's
+columns.  K and V are bf16, or both int8 or e4m3
 :class:`~.quant.QuantizedTensor`s, whose K scale folds into the softmax
 constant and whose V scale rides P.  Layout [B, H, L, d], non-causal.
 """
@@ -33,8 +34,8 @@ from exploring_flash_attention_tpu_torch.ops.quant import (
     check_cuda_quantized,
 )
 
-H5_D_CHUNK = 128
-H5_MAX_D = 512           # O is full width in f32 shared memory
+H5_D_CHUNK = 128         # one consumer warpgroup's O columns
+H5_MAX_D = 512           # four consumer warpgroups and a producer
 
 KV = Union[torch.Tensor, QuantizedTensor]
 

@@ -27,7 +27,7 @@ INT8_MAX = 127.0
 FP8_MAX = 448.0                 # e4m3's largest normal value
 FP8_DTYPE = torch.float8_e4m3fn
 # the element type of K and V, as the kernels' kv_kind argument numbers it
-# (csrc/quant_tile.cuh, enum KvKind)
+# (csrc/wgmma_tile.cuh, enum KvKind)
 KV_KIND = {torch.bfloat16: 0, torch.int8: 1, FP8_DTYPE: 2}
 
 

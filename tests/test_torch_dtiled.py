@@ -153,7 +153,8 @@ CARD_DTILED_O_TOL = 4e-3      # vs the plain version and the oracle slice
 
 
 def h5_emulation(q, k, v, scale):
-    """H5's arithmetic on the CPU: 64-key tiles; S in f32 times
+    """H5's arithmetic on the CPU: 64-key tiles (the kernel's K/V tile,
+    64 keys by 128 columns a chunk); S in f32 times
     f32(scale * log2e) * k_scale per key; an online softmax in the exp2
     basis whose l sums the f32 p; p * v_scale rounded to bf16 before P V
     with the V codes (bf16 K/V: scales of 1)."""

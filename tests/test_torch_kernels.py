@@ -28,7 +28,8 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
   an H100, ``chip_smoke.py``'s bwd phase reads 3.4e-3..5.7e-3 at L=1024,
   a ragged cross case and L=3072, its diagonal-hidden control 0.36..1.03.
 - H4-kvq vs plain and the oracle over the dequantized K/V: 5e-4 abs on f32
-  O (P rounded to fp16; a CPU emulation reads <= 8.1e-5,
+  O (P rounded to fp16 as p * v_scale / vmax, vmax the largest V scale of
+  each 128-key tile; a CPU emulation of those roundings reads <= 8.1e-5,
   ``tests/test_torch_quant.py``).
 - H4-int8 vs plain (B18's function, which the plain version reproduces):
   1e-3 abs in either ``pv_mode`` (summation order and a rare flip of a P
@@ -36,8 +37,10 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
   the JAX test's shape), and never further than the plain version plus
   1e-3.
 - H5 vs plain and the oracle: 4e-3 abs on f32 O (p * v_scale rounded to
-  bf16, as B19 does; a CPU emulation reads <= 9.5e-4 on a head or two,
-  ``tests/test_torch_dtiled.py``, an H100 1.32e-3 over 32 heads).
+  bf16 per 64-key tile, as B19 does; a CPU emulation reads <= 9.5e-4 on a
+  head or two, ``tests/test_torch_dtiled.py``, an H100 1.32e-3 over 32
+  heads).  Two H5 runs are bitwise equal: one warpgroup sums S over the
+  d-chunks in a fixed order.
 """
 
 import math
@@ -531,6 +534,11 @@ def _max_err(got, ref):
     (256, 256, 128, 128),
     (200, 1100, 128, 128),        # ragged Q and KV, a ragged last block
     (130, 300, 64, 100),          # d=64, a block no tile lines up with
+] + [
+    # the edges of the 128-key tiles, with blocks shorter than, equal to
+    # and longer than a tile (the V scales' vmax per tile)
+    (200, lkv, 128, block) for lkv in (127, 129, 1100)
+    for block in (16, 64, 128, 512)
 ])
 def test_kvquant_kernel_matches_plain_and_oracle(cuda_device, kind, lq, lkv,
                                                  d, block):
@@ -621,6 +629,11 @@ def test_int8_kernel_refuses_what_it_cannot_take(cuda_device):
     (512, 512, 512, 512),
     (200, 330, 256, 128),         # ragged
     (64, 100, 128, 64),
+    # Lq and Lkv off the 64-row and 64-key tiles, at every warpgroup count
+    (100, 130, 128, 64),
+    (65, 191, 256, 48),
+    (70, 150, 384, 64),
+    (130, 200, 512, 100),
 ])
 def test_dtiled_kernel_matches_plain_and_oracle(cuda_device, kind, lq, lkv,
                                                 d, block):
@@ -636,6 +649,19 @@ def test_dtiled_kernel_matches_plain_and_oracle(cuda_device, kind, lq, lkv,
     assert _max_err(o, attention_dtiled_plain(q, k, v, scale)) < DTILED_O_TOL
     kd, vd = (k, v) if kind == "bf16" else (dequantize(k), dequantize(v))
     assert _max_err(o, naive_attention(q, kd, vd)) < DTILED_O_TOL
+
+
+@pytest.mark.parametrize("kind", ["bf16", "fp8"])
+def test_dtiled_kernel_is_bitwise_reproducible(cuda_device, kind):
+    """One warpgroup sums S over the d-chunks in a fixed order: two runs
+    give the same bits."""
+    q, k, v = _qkv(cuda_device, 2, 4, 4, 300, 330, 512, seed=23)
+    if kind != "bf16":
+        k, v = QUANT[kind](k, 64), QUANT[kind](v, 64)
+    first = flash_attention_v1_dtiled(q, k, v, out_dtype=torch.float32)
+    second = flash_attention_v1_dtiled(q, k, v, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_dtiled_kernel_refuses_what_it_cannot_take(cuda_device):

@@ -319,11 +319,12 @@ CARD_INT8_PLAIN_TOL = 1e-3    # either mode vs the plain version, which
 
 
 def h4kvq_emulation(q, k_q, v_q, scale):
-    """H4-kvq's arithmetic on the CPU: 64-key tiles, S = q . codes in f32
-    times k_scale * f32(scale * log2e) per key, an online softmax in the
-    exp2 basis whose l sums the f32 p; P times each key's share of the
-    tile's largest V scale, p * (v_scale / vmax), rounded to fp16 before
-    P V with the V codes, and the tile's product times vmax."""
+    """H4-kvq's arithmetic on the CPU: 128-key tiles (the kernel's K/V
+    tile), S = q . codes in f32 times k_scale * f32(scale * log2e) per
+    key, an online softmax in the exp2 basis whose l sums the f32 p; P
+    times each key's share of the tile's largest V scale, p * (v_scale /
+    vmax), rounded to fp16 before P V with the V codes, and the tile's
+    product times vmax."""
     lkv = k_q.shape[2]
     kc, vc = k_q.values.float(), v_q.values.float()
     ks = _expand(k_q.scales, k_q.shape, k_q.block)[..., 0]
@@ -332,8 +333,8 @@ def h4kvq_emulation(q, k_q, v_q, scale):
     m = torch.full(q.shape[:-1], float("-inf"))
     l = torch.zeros(q.shape[:-1])
     o = torch.zeros(q.shape)
-    for kv0 in range(0, lkv, 64):
-        t = slice(kv0, kv0 + 64)
+    for kv0 in range(0, lkv, 128):
+        t = slice(kv0, kv0 + 128)
         s = (q.float() @ kc[..., t, :].transpose(-1, -2)) \
             * (ks[..., None, t] * c)
         m_new = torch.maximum(m, s.amax(-1))

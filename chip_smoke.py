@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's dense, quantized and d-tiled forwards, generation
-and training paths on one NVIDIA H100.
+"""Drive the PyTorch port's dense, quantized and d-tiled forwards, generation,
+training and encoder training paths on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -12,11 +12,11 @@ Phases, one line each; any failure exits non-zero before the last line:
    limit from nvidia-smi;
 2. build:  nvcc builds the kernels of exploring_flash_attention_tpu_torch/
    csrc/ and its -Xptxas -v report (registers, shared memory) is printed;
-   the SASS of the kernel functions of H1, H4-int8, H4-kvq and H5
-   (cuobjdump) must hold wgmma instructions: HGMMA in every H1, H4-kvq
-   and H5 function and in H4-int8's pv_mode bf16 ones, IGMMA in every
-   H4-int8 function, and no HMMA or IMMA (the mma.sync and WMMA forms
-   they replaced);
+   the SASS of the kernel functions of H1, H3, H4-int8, H4-kvq and H5
+   (cuobjdump) must hold wgmma instructions: HGMMA in every H1, H3-dkv,
+   H3-dq, H4-kvq and H5 function and in H4-int8's pv_mode bf16 ones,
+   IGMMA in every H4-int8 function, and no HMMA or IMMA (the mma.sync and
+   WMMA forms they replaced);
 3. h1:     kernel H1 (the attention forward) vs its plain PyTorch
    version and the f64 oracle, causal, at the slice's shapes and one
    ragged case;
@@ -53,11 +53,14 @@ Phases, one line each; any failure exits non-zero before the last line:
 8. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
    its plain version and the f64 oracle, a C = 256 chunk appended to
    ragged histories 257..280;
-9. bwd:    kernels H3-dkv and H3-dq (the causal attention backward, through
+9. bwd:    kernels H3-dkv and H3-dq (the attention backward, through
    flash_attention_bwd) vs attention_bwd_plain and f64 autograd of the
    plain forward, at the training shape (B=8, Hq=8, Hkv=4, L=1024,
    d=128), a ragged cross case (Lq=200, Lkv=216) and L=3072, B=1 (where
-   the JAX package takes B12/B13); two runs must be bitwise equal;
+   the JAX package takes B12/B13), each under no mask, causal and a
+   window of 100 keys; the controls: the last 64-key tile dropped, the
+   diagonal key hidden, the window one key narrower; two runs must be
+   bitwise equal;
 10. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
    GQA 8/4, d_head 128, d_ff 4096, bf16, random weights from seed 0) runs
    GenerationEngine.generate on [8, 256] prompts for 24 tokens.  Every
@@ -82,7 +85,16 @@ Phases, one line each; any failure exits non-zero before the last line:
    attention patched in (mock.patch), with the diagonal key hidden in the
    forward (loss) and in the backward (gradients) as controls; the loss
    must fall strictly over 5 steps, and tokens/s and TFLOP/s come from the
-   host clock around further synchronized steps.
+   host clock around further synchronized steps;
+13. encoder: the JAX suite's encoder entry (bench/suite.py:1057-1102):
+   the same geometry, fresh weights from seed 0, trained bidirectionally
+   by make_mlm_train_step (AdamW, lr 1e-3) on tokens [8, 1024] under one
+   fixed MLM mask.  Every step must launch H1, H3-dkv and H3-dq n_layers
+   = 4 times each, all without a mask.  The step-0 loss and every
+   gradient are held against the plain attention patched in, with a
+   causal forward (loss) and a causal backward (gradients) as controls;
+   the loss must fall over 5 steps; encoder training tokens/s come from
+   the host clock around further steps.
 
 Kernel times come from CUDA events (L2 flushed before each call) beside
 their plain versions, their bounds on the H100 (the larger of the
@@ -90,7 +102,8 @@ operations at 989 TFLOP/s bf16 and 1,979 TOP/s int8, 67 TFLOP/s for H2's
 f32 work, and the bytes at 3.35 TB/s) and, where one PyTorch call
 computes the same function, that call's time (scaled_dot_product_attention
 for H1 and H5, causal or with a band mask where H1's mask is, its
-autograd backward for H3).
+autograd backward under the same mask for H3, which is timed causal and
+without a mask, each kernel alone and the delta reduction apart).
 Every check also runs a control: the same comparison against a
 known-wrong path (one key hidden from each row, the scale off by 10%, the
 last 64-key tile dropped, or a stream one token short).  The control must read beyond the check's
@@ -143,6 +156,9 @@ TRAIN_LOSS_TOL = 7e-5  # step-0 loss (10.6) vs the plain attention: a mean
                        # (random weights), moved only where H1's bf16 O
                        # differs by an ulp; sound runs 2.4e-5, the
                        # diagonal-hidden forward 1.8e-4
+ENCODER_LOSS_TOL = 1e-3  # the encoder's step-0 MLM loss vs the plain
+                       # attention, a mean over the ~1,270 masked tokens
+                       # only: sound runs 1.4e-4, the causal forward 1.1e-2
 GRAD_REL_TOL = 6e-2    # largest per-leaf ||dg|| / ||g_plain|| over the 38
                        # leaves: bf16 gradients through 4 layers; sound runs
                        # 2.4e-2, the diagonal-hidden backward 0.15
@@ -213,6 +229,11 @@ SPLITKV_PY = "exploring_flash_attention_tpu/ops/attention_v2_splitkv.py"
 # where the JAX package takes B12/B13
 BWD_SHAPES = [(8, 8, 4, 1024, 1024, 128), (8, 8, 4, 200, 216, 128),
               (1, 8, 4, 3072, 3072, 128)]
+# the masks H3 takes, as (causal, window): the bwd phase runs every shape
+# under each; the window crosses the 64-key tiles and is narrower than
+# every shape's Lkv
+BWD_MASKS = {"none": (False, None), "causal": (True, None),
+             "window": (True, 100)}
 
 # the v1 phase: bench.py's canonical shape (bench.py:33), then one case per
 # JAX route that flash_attention_v1 takes; (route, B, Hq, Hkv, Lq, Lkv, d,
@@ -305,16 +326,18 @@ def phase_build(kernels):
 
 
 # the wgmma kernels' functions in the SASS: H1 (d 32, 64, 128), H4-int8
-# (d 64, 128 x pv_mode), H4-kvq (d 64, 128 x int8, e4m3) and H5 (d 128,
-# 256, 384, 512 x bf16, int8, e4m3)
+# (d 64, 128 x pv_mode), H4-kvq (d 64, 128 x int8, e4m3), H5 (d 128,
+# 256, 384, 512 x bf16, int8, e4m3), H3-dkv and H3-dq (d 64, 128)
 WGMMA_FUNCTIONS = {"prefill_attention_kernel": 3, "int8_attention_kernel": 4,
                    "kvquant_attention_kernel": 4,
-                   "dtiled_attention_kernel": 12}
+                   "dtiled_attention_kernel": 12,
+                   "attention_bwd_dkv_kernel": 2,
+                   "attention_bwd_dq_kernel": 2}
 
 
 def check_sass(kernels):
-    """H1, H4-int8, H4-kvq and H5 run on wgmma: HGMMA in every H1, H4-kvq
-    and H5 function and in the pv_mode bf16 H4-int8 ones (template
+    """H1, H3, H4-int8, H4-kvq and H5 run on wgmma: HGMMA in every H1, H3,
+    H4-kvq and H5 function and in the pv_mode bf16 H4-int8 ones (template
     argument false, ``Lb0E``), IGMMA in every H4-int8 function, no HMMA or
     IMMA in any of them."""
     sass = kernels.sass_by_function()
@@ -1150,18 +1173,42 @@ def _rel(got, ref) -> float:
             / ref.float().abs().max()).item()
 
 
-def f64_attention_grads(torch, q, k, v, do, scale, diag_off):
+def f64_attention_grads(torch, q, k, v, do, scale, causal, diag_off,
+                        window=None):
     """Gradients of sum(o * do) by f64 autograd through the plain forward
-    (every row must see a key: a row that sees none has no gradient)."""
+    under the mask (every row must see a key: a row that sees none has no
+    gradient)."""
     from exploring_flash_attention_tpu_torch.ops.attention import (
         attention_plain,
     )
     qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
-    o, _ = attention_plain(qd, kd, vd, scale, True, diag_off)
+    o, _ = attention_plain(qd, kd, vd, scale, causal, diag_off, window)
     return torch.autograd.grad((o * do.double()).sum(), (qd, kd, vd))
 
 
+def bwd_control(torch, mask, q, k, v, out, do, lse, scale, off, window):
+    """(what, grads) of the known-wrong backward beside each mask: the
+    diagonal key hidden (causal), the last 64-key tile dropped, its dK and
+    dV rows left zero (none), the window one key narrower (window)."""
+    from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+        attention_bwd_plain,
+    )
+    if mask == "causal":
+        return "diagonal key hidden", attention_bwd_plain(
+            q, k, v, out, do, lse, scale, True, off - 1)
+    if mask == "window":
+        return "window one key narrower", attention_bwd_plain(
+            q, k, v, out, do, lse, scale, True, off, window - 1)
+    dq, dk, dv = attention_bwd_plain(q, k[:, :, :-64], v[:, :, :-64], out,
+                                     do, lse, scale, False)
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 64))  # noqa: E731
+    return "last 64-key tile dropped", (dq, pad(dk), pad(dv))
+
+
 def phase_bwd(torch, dev):
+    """H3 through flash_attention_bwd at every BWD_SHAPES case under each
+    mask (BWD_MASKS), against attention_bwd_plain and f64 autograd, beside
+    the mask's known-wrong control; two runs must be bitwise equal."""
     from exploring_flash_attention_tpu_torch.ops.attention import (
         prefill_attention,
     )
@@ -1171,44 +1218,50 @@ def phase_bwd(torch, dev):
     )
 
     gen = torch.Generator().manual_seed(3)
-    main_err = None             # max |d| vs plain at the main path's shape
+    errs = {}                   # max |d| vs plain at the first shape, by mask
     for b, hq, hkv, lq, lkv, d in BWD_SHAPES:
         q = _bf16(torch, dev, gen, b, hq, lq, d)
         k = _bf16(torch, dev, gen, b, hkv, lkv, d)
         v = _bf16(torch, dev, gen, b, hkv, lkv, d)
         do = _bf16(torch, dev, gen, b, hq, lq, d)
         scale, off = 1.0 / math.sqrt(d), lkv - lq
-        out, lse = prefill_attention(q, k, v, scale, off)     # H1's residuals
-        grads = flash_attention_bwd(q, k, v, out, do, lse, scale,
-                                    causal=True)
-        again = flash_attention_bwd(q, k, v, out, do, lse, scale,
-                                    causal=True)
-        torch.cuda.synchronize()
-        identical = all(torch.equal(x, y) for x, y in zip(grads, again))
-        plain = attention_bwd_plain(q, k, v, out, do, lse, scale, off)
-        f64 = f64_attention_grads(torch, q, k, v, do, scale, off)
-        # control: the plain backward with each row's diagonal key hidden
-        bad = attention_bwd_plain(q, k, v, out, do, lse, scale, off - 1)
-        e_plain = [_rel(g, r) for g, r in zip(grads, plain)]
-        e_f64 = [_rel(g, r) for g, r in zip(grads, f64)]
-        e_bad = [_rel(g, r) for g, r in zip(grads, bad)]
-        fmt = lambda e: " ".join(                               # noqa: E731
-            f"{n} {x:.3e}" for n, x in zip(("dq", "dk", "dv"), e))
-        print(f"  bwd B={b} Hq={hq} Hkv={hkv} Lq={lq} Lkv={lkv} d={d}: "
-              f"max|d|/max|ref| vs plain {fmt(e_plain)}; vs f64 autograd "
-              f"{fmt(e_f64)} (tol {H3_REL_TOL:g}); control (diagonal key "
-              f"hidden) {fmt(e_bad)}; two runs bitwise equal: {identical}")
-        _require(all(torch.isfinite(g.float()).all().item() for g in grads),
-                 "H3 gradients not finite")
-        _require(max(e_plain + e_f64) < H3_REL_TOL, "H3 outside tolerance")
-        _require(min(e_bad) > H3_REL_TOL,
-                 "H3 tolerance cannot tell a wrong mask")
-        _require(identical, "H3 is not deterministic")
-        if main_err is None:
-            main_err = [(g.float() - r.float()).abs().max().item()
-                        for g, r in zip(grads, plain)]
+        for mask, (causal, window) in BWD_MASKS.items():
+            out, lse = prefill_attention(q, k, v, scale, off, causal,
+                                         window)        # H1's residuals
+            run = lambda: flash_attention_bwd(                  # noqa: E731
+                q, k, v, out, do, lse, scale, causal=causal, window=window)
+            grads, again = run(), run()
+            torch.cuda.synchronize()
+            identical = all(torch.equal(x, y) for x, y in zip(grads, again))
+            plain = attention_bwd_plain(q, k, v, out, do, lse, scale, causal,
+                                        off, window)
+            f64 = f64_attention_grads(torch, q, k, v, do, scale, causal, off,
+                                      window)
+            what, bad = bwd_control(torch, mask, q, k, v, out, do, lse,
+                                    scale, off, window)
+            e_plain = [_rel(g, r) for g, r in zip(grads, plain)]
+            e_f64 = [_rel(g, r) for g, r in zip(grads, f64)]
+            e_bad = [_rel(g, r) for g, r in zip(grads, bad)]
+            fmt = lambda e: " ".join(                           # noqa: E731
+                f"{n} {x:.3e}" for n, x in zip(("dq", "dk", "dv"), e))
+            print(f"  bwd {mask}{f' {window}' if window else ''} B={b} "
+                  f"Hq={hq} Hkv={hkv} Lq={lq} Lkv={lkv} d={d}: "
+                  f"max|d|/max|ref| vs plain {fmt(e_plain)}; vs f64 "
+                  f"autograd {fmt(e_f64)} (tol {H3_REL_TOL:g}); control "
+                  f"({what}) {fmt(e_bad)}; two runs bitwise equal: "
+                  f"{identical}")
+            _require(all(torch.isfinite(g.float()).all().item()
+                         for g in grads), "H3 gradients not finite")
+            _require(max(e_plain + e_f64) < H3_REL_TOL,
+                     "H3 outside tolerance")
+            _require(min(e_bad) > H3_REL_TOL,
+                     f"H3 tolerance cannot tell a wrong mask ({mask})")
+            _require(identical, "H3 is not deterministic")
+            errs.setdefault(mask, [(g.float() - r.float()).abs().max().item()
+                                   for g, r in zip(grads, plain)])
+            del out, lse, grads, again, plain, f64, bad
     print("phase bwd: ok")
-    return {"h3dq": main_err[0], "h3dkv": max(main_err[1:])}
+    return {m: {"h3dq": e[0], "h3dkv": max(e[1:])} for m, e in errs.items()}
 
 
 def compare_with_full_forward(torch, params, cfg, prompt, out):
@@ -1487,25 +1540,46 @@ def train_step_flop(cfg, b, l):
     return 6 * weights * b * l + cfg.n_layers * 3.5 * attn_fwd
 
 
-def plain_flash_attention(q, k, v, causal=True, hidden=0):
+def plain_flash_attention(q, k, v, causal=True, hidden=0, as_causal=False):
     """The model's attention on the plain PyTorch forward, differentiated
-    by autograd: the reference path of the train checks.  ``hidden=1``
-    hides each row's diagonal key, a known-wrong forward."""
+    by autograd: the reference path of the train and encoder checks.
+    Known-wrong forwards: ``hidden=1`` hides each row's diagonal key,
+    ``as_causal`` masks a bidirectional call causally."""
     from exploring_flash_attention_tpu_torch.ops.attention import (
         attention_plain,
     )
-    o, _ = attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[3]), True,
-                                  k.shape[2] - q.shape[2] - hidden)
+    o, _ = attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[3]),
+                           causal or as_causal,
+                           k.shape[2] - q.shape[2] - hidden)
     return o.to(q.dtype)
 
 
-def hide_diagonal_bwd(q, k, v, out, do, lse, scale, diag_off):
+def hide_diagonal_bwd(q, k, v, out, do, lse, scale, causal, diag_off,
+                      window):
     """A known-wrong backward: the plain one with each row's diagonal key
     hidden."""
     from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
         attention_bwd_plain,
     )
-    return attention_bwd_plain(q, k, v, out, do, lse, scale, diag_off - 1)
+    return attention_bwd_plain(q, k, v, out, do, lse, scale, True,
+                               diag_off - 1, window)
+
+
+def causal_bwd(q, k, v, out, do, lse, scale, causal, diag_off, window):
+    """A known-wrong backward of a bidirectional forward: the plain one
+    under the causal mask."""
+    from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+        attention_bwd_plain,
+    )
+    return attention_bwd_plain(q, k, v, out, do, lse, scale, True, diag_off)
+
+
+def leaf_err(named_leaves, grads, ref):
+    """The largest per-leaf ||g - ref|| / ||ref||, and its leaf's name."""
+    errs = [((g.float() - r.float()).norm() / r.float().norm()).item()
+            for g, r in zip(grads, ref)]
+    worst = int(np.argmax(errs))
+    return errs[worst], named_leaves[worst]
 
 
 def phase_train(torch, dev):
@@ -1538,13 +1612,6 @@ def phase_train(torch, dev):
         loss = loss_fn(params, inputs, targets, cfg)
         return loss.item(), torch.autograd.grad(loss, leaves)
 
-    def leaf_err(grads, ref):
-        """The largest per-leaf ||g - ref|| / ||ref||, and its leaf."""
-        errs = [((g.float() - r.float()).norm() / r.float().norm()).item()
-                for g, r in zip(grads, ref)]
-        worst = int(np.argmax(errs))
-        return errs[worst], names[worst]
-
     loss_k, grads_k = loss_and_grads()
     with mock.patch.object(transformer_module, "flash_attention",
                            plain_flash_attention):
@@ -1553,11 +1620,11 @@ def phase_train(torch, dev):
                            functools.partial(plain_flash_attention,
                                              hidden=1)):
         loss_bad = loss_and_grads()[0]
-    with mock.patch.object(attention_bwd_module, "causal_attention_bwd",
+    with mock.patch.object(attention_bwd_module, "masked_attention_bwd",
                            hide_diagonal_bwd):
         grads_bad = loss_and_grads()[1]
-    e_grad, leaf = leaf_err(grads_k, grads_p)
-    e_bad, leaf_bad = leaf_err(grads_bad, grads_p)
+    e_grad, leaf = leaf_err(names, grads_k, grads_p)
+    e_bad, leaf_bad = leaf_err(names, grads_bad, grads_p)
     del grads_k, grads_p, grads_bad
     print(f"  train step-0 loss {loss_k:.6f}, with the plain attention "
           f"{loss_p:.6f}: |d| {abs(loss_k - loss_p):.3e} (tol "
@@ -1610,6 +1677,109 @@ def phase_train(torch, dev):
           f"median {med:.5f} s, {tok_s:.1f} training tokens/s (B={bsz}, "
           f"L={seq}, forward + backward + AdamW)")
     print("phase train: ok")
+    return counts[0], tok_s
+
+
+def phase_encoder(torch, dev):
+    """The JAX suite's encoder entry (bench/suite.py:1057-1102) on the
+    port: the flagship geometry trained with make_mlm_train_step (AdamW,
+    lr 1e-3) on tokens [8, 1024] from np.random.default_rng(0), under one
+    fixed mask in every step, as the suite holds its rng fixed."""
+    from unittest import mock
+
+    from exploring_flash_attention_tpu_torch.models import (
+        flagship_config,
+        init_params,
+        make_mlm_train_step,
+        make_trainable,
+        mask_tokens,
+        mlm_loss,
+        named_param_leaves,
+    )
+    from exploring_flash_attention_tpu_torch.models import (
+        transformer as transformer_module,
+    )
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd as attention_bwd_module,
+    )
+
+    cfg = flagship_config()
+    bsz, seq, n_steps, n_timed = 8, 1024, 5, 5
+    mtok = cfg.vocab_size - 1
+    params = make_trainable(init_params(cfg, seed=0, device=dev))
+    names, leaves = zip(*named_param_leaves(params))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size - 1, (bsz, seq)).astype(np.int32)).to(dev)
+    _, mask = mask_tokens(tokens, torch.Generator(device=dev).manual_seed(0),
+                          mtok)
+
+    def loss_and_grads():
+        loss = mlm_loss(params, tokens, None, cfg, mtok, mask=mask)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    loss_k, grads_k = loss_and_grads()
+    with mock.patch.object(transformer_module, "flash_attention",
+                           plain_flash_attention):
+        loss_p, grads_p = loss_and_grads()
+    with mock.patch.object(transformer_module, "flash_attention",
+                           functools.partial(plain_flash_attention,
+                                             as_causal=True)):
+        loss_bad = loss_and_grads()[0]
+    with mock.patch.object(attention_bwd_module, "masked_attention_bwd",
+                           causal_bwd):
+        grads_bad = loss_and_grads()[1]
+    e_grad, leaf = leaf_err(names, grads_k, grads_p)
+    e_bad, leaf_bad = leaf_err(names, grads_bad, grads_p)
+    del grads_k, grads_p, grads_bad
+    print(f"  encoder step-0 MLM loss {loss_k:.6f} over "
+          f"{int(mask.sum())} masked tokens, with the plain attention "
+          f"{loss_p:.6f}: |d| {abs(loss_k - loss_p):.3e} (tol "
+          f"{ENCODER_LOSS_TOL:g}), control (causal forward) "
+          f"{abs(loss_bad - loss_p):.3e}; largest per-leaf ||dg||/||g|| "
+          f"over {len(leaves)} leaves vs the plain path {e_grad:.3e} at "
+          f"{leaf} (tol {GRAD_REL_TOL:g}), control (causal backward) "
+          f"{e_bad:.3e} at {leaf_bad}")
+    _require(math.isfinite(loss_k), "encoder step-0 loss not finite")
+    _require(abs(loss_k - loss_p) < ENCODER_LOSS_TOL,
+             "the encoder's step-0 loss differs from the plain path's")
+    _require(abs(loss_bad - loss_p) > ENCODER_LOSS_TOL,
+             "the encoder's loss check cannot tell a causal forward")
+    _require(e_grad < GRAD_REL_TOL,
+             "encoder gradients differ from the plain path's")
+    _require(e_bad > GRAD_REL_TOL,
+             "the encoder's gradient check cannot tell a causal backward")
+
+    step, opt_init = make_mlm_train_step(cfg)
+    opt = opt_init(params)
+    want = launches_only(h1=cfg.n_layers, h3dkv=cfg.n_layers,
+                         h3dq=cfg.n_layers)
+    losses, counts = [], []
+    for _ in range(n_steps):
+        zero_counters()
+        losses.append(step(params, opt, tokens, None, mask).item())
+        counts.append(read_counters())
+    print(f"  encoder launches per step {counts[0]} (expected {want}); "
+          f"AdamW MLM losses over {n_steps} steps "
+          f"{[round(x, 6) for x in losses]}")
+    _require(all(c == want for c in counts),
+             "an encoder step missed a kernel")
+    _require(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    _require(all(b < a for a, b in zip(losses, losses[1:])),
+             "the MLM loss did not fall strictly over the AdamW steps")
+
+    times = []
+    for _ in range(n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, tokens, None, mask)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    tok_s = bsz * seq / med
+    print(f"  encoder step times s {[round(t, 5) for t in sorted(times)]}: "
+          f"median {med:.5f} s, {tok_s:.1f} encoder training tokens/s "
+          f"(B={bsz}, L={seq}, MLM forward + backward + AdamW, fixed mask)")
+    print("phase encoder: ok")
     return counts[0], tok_s
 
 
@@ -1683,42 +1853,59 @@ def time_kernels(torch, dev):
         int(lens.sum() + c * len(lens)) * hkv * (2 * d + 8)
         + 2 * len(lens) * c * hq * d * 2)
     del cache
-    # the training shape: H3's pair against the whole plain backward and
-    # the autograd backward through scaled_dot_product_attention (its
-    # forward recorded once, outside the timed calls)
+    # H3 at the training shape, causal (the train step) and without a mask
+    # (the encoder step): each kernel alone, the delta reduction alone, the
+    # pair through flash_attention_bwd, against the whole plain backward
+    # and the autograd backward through scaled_dot_product_attention under
+    # the same mask (its forward recorded once, outside the timed calls)
     b, l = 8, 1024
     q, do = (_bf16(torch, dev, gen, b, hq, l, d) for _ in range(2))
     k, v = (_bf16(torch, dev, gen, b, hkv, l, d) for _ in range(2))
-    o, lse = prefill_attention(q, k, v, s, 0)
-    delta = (do.float() * o.float()).sum(dim=-1)
-    leaves = [x.detach().clone().requires_grad_() for x in (
-        q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1))]
-    o_lib = sdpa(*leaves, is_causal=True)
-    lib = time_cuda(lambda: torch.autograd.grad(o_lib, leaves, do,
-                                                retain_graph=True), n_iter=20)
-    plain = time_cuda(lambda: attention_bwd_plain(q, k, v, o, do, lse, s, 0),
-                      n_iter=20)
-    pairs = b * hq * l * (l + 1) // 2           # the causal (row, key) pairs
     q_bytes, kv_bytes, row_bytes = b * hq * l * d * 2, b * hkv * l * d * 2, \
         b * hq * l * 4
-    out["h3dkv"] = {
-        "ms": time_cuda(lambda: attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                  s, 0), n_iter=20),
-        "plain_ms": plain, "library_ms": lib}
-    out["h3dkv"]["bound_ms"], out["h3dkv"]["bound_by"] = roofline(
-        8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)
-    out["h3dq"] = {
-        "ms": time_cuda(lambda: attention_bwd_dq(q, k, v, do, lse, delta,
-                                                 s, 0), n_iter=20),
-        "plain_ms": plain, "library_ms": lib}
-    out["h3dq"]["bound_ms"], out["h3dq"]["bound_by"] = roofline(
-        6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)
-    pair = time_cuda(lambda: flash_attention_bwd(q, k, v, o, do, lse, s,
-                                                 causal=True), n_iter=20)
+    for causal in (True, False):
+        o, lse = prefill_attention(q, k, v, s, 0, causal)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        leaves = [x.detach().clone().requires_grad_() for x in (
+            q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1))]
+        o_lib = sdpa(*leaves, is_causal=causal)
+        lib = time_cuda(lambda: torch.autograd.grad(
+            o_lib, leaves, do, retain_graph=True), n_iter=20)
+        plain = time_cuda(lambda: attention_bwd_plain(
+            q, k, v, o, do, lse, s, causal, 0), n_iter=20)
+        pairs = visible_pairs(l, l, causal, None) * b * hq
+        t = {"h3dkv": {"ms": time_cuda(lambda: attention_bwd_dkv(
+                 q, k, v, do, lse, delta, s, causal, 0), n_iter=20),
+                 "plain_ms": plain, "library_ms": lib},
+             "h3dq": {"ms": time_cuda(lambda: attention_bwd_dq(
+                 q, k, v, do, lse, delta, s, causal, 0), n_iter=20),
+                 "plain_ms": plain, "library_ms": lib}}
+        t["h3dkv"]["bound_ms"], t["h3dkv"]["bound_by"] = roofline(
+            8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)
+        t["h3dq"]["bound_ms"], t["h3dq"]["bound_by"] = roofline(
+            6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)
+        for x in t.values():
+            x["bound_share"] = x["bound_ms"] / x["ms"]
+        delta_ms = time_cuda(lambda: (do.float() * o.float()).sum(dim=-1),
+                             n_iter=20)
+        pair = time_cuda(lambda: flash_attention_bwd(
+            q, k, v, o, do, lse, s, causal=causal), n_iter=20)
+        name = "causal" if causal else "none"
+        out[f"h3_{name}"] = {**t, "delta_ms": delta_ms, "pair_ms": pair}
+        print(f"  times at B=8 Hq=8 Hkv=4 L=1024 d=128, mask {name}: "
+              f"H3-dkv {t['h3dkv']['ms']:.4f} ms (bound "
+              f"{t['h3dkv']['bound_ms']:.4f} ms, "
+              f"{t['h3dkv']['bound_share']:.1%}), H3-dq "
+              f"{t['h3dq']['ms']:.4f} ms (bound {t['h3dq']['bound_ms']:.4f} "
+              f"ms, {t['h3dq']['bound_share']:.1%}), the delta reduction "
+              f"{delta_ms:.4f} ms, flash_attention_bwd (delta + both) "
+              f"{pair:.4f} ms vs attention_bwd_plain {plain:.4f} ms and the "
+              f"backward of scaled_dot_product_attention "
+              f"(is_causal={causal}) {lib:.4f} ms")
+        del leaves, o_lib
     h1_long = time_cuda(lambda: prefill_attention(q, k, v, s, 0), n_iter=20)
     out["h1_causal_library"]["L=1024"] = time_cuda(lambda: sdpa(
         q, k, v, is_causal=True, enable_gqa=True), n_iter=20)
-    del leaves, o_lib
     # the v1 phase's causal cross case (B4 at Lq != Lkv): SDPA's is_causal
     # masks top-left, so its library call takes H1's bottom-right diagonal
     # as an explicit boolean mask
@@ -1746,13 +1933,8 @@ def time_kernels(torch, dev):
           f"ms (bound {out['h6e']['bound_ms']:.4f} ms, "
           f"{out['h6e']['bound_by']}) at B=8 C=256 Hq=8 Hkv=4 history "
           f"257..280 d=128")
-    print(f"  times at B=8 Hq=8 Hkv=4 L=1024 d=128 causal: H3-dkv "
-          f"{out['h3dkv']['ms']:.4f} ms (bound "
-          f"{out['h3dkv']['bound_ms']:.4f} ms), H3-dq {out['h3dq']['ms']:.4f} "
-          f"ms (bound {out['h3dq']['bound_ms']:.4f} ms), flash_attention_bwd "
-          f"(delta + both) {pair:.4f} ms vs attention_bwd_plain {plain:.4f} "
-          f"ms and the backward of scaled_dot_product_attention {lib:.4f} "
-          f"ms; H1 forward {h1_long:.4f} ms (bound {h1_bound(1024):.4f} "
+    print(f"  times at B=8 Hq=8 Hkv=4 L=1024 d=128 causal: H1 forward "
+          f"{h1_long:.4f} ms (bound {h1_bound(1024):.4f} "
           f"ms; scaled_dot_product_attention causal "
           f"{out['h1_causal_library']['L=1024']:.4f} ms)")
     print(f"  times at B=8 Hq=8 Hkv=4 Lq={lq} Lkv={lkv} d=128 causal (B4 "
@@ -1791,6 +1973,7 @@ def main() -> int:
     turn2, _ = phase_multiturn(torch, dev, lm)
     del lm
     train, _ = phase_train(torch, dev)
+    encoder, _ = phase_encoder(torch, dev)
     t = time_kernels(torch, dev)
     _require("jax" not in sys.modules, "JAX was imported")
     print(json.dumps({"kernels": [
@@ -1806,7 +1989,8 @@ def main() -> int:
          "bound_share": v1_t["bound_ms"] / v1_t["ms"],
          "launches_by_path": {"v1": v1_launches["h1"],
                               "slice": launches["h1"],
-                              "train_step": train["h1"]},
+                              "train_step": train["h1"],
+                              "encoder_step": encoder["h1"]},
          **v1_t, "library_ms_by_case": {
              **v1_t["library_ms_by_case"],
              **{f"B4 causal {n}": x
@@ -1824,18 +2008,26 @@ def main() -> int:
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:257",
          "also_replaces": "exploring_flash_attention_tpu/serving/decode.py:455",
          "launches": turn2["h6e"], "max_abs_err": h6e_err, **t["h6e"]},
-        # plain_ms of both H3 entries is the whole plain backward, and
-        # library_ms the whole backward of scaled_dot_product_attention
-        {"name": "H3-dkv causal attention backward, dK and dV",
-         "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
-         "also_replaces": [f"{BWD_PY}:{n}" for n in (281, 377, 112, 205)],
-         "launches": train["h3dkv"], "max_abs_err": h3_err["h3dkv"],
-         **t["h3dkv"]},
-        {"name": "H3-dq causal attention backward, dQ",
-         "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
-         "also_replaces": [f"{BWD_PY}:{n}" for n in (281, 377, 112, 205)],
-         "launches": train["h3dq"], "max_abs_err": h3_err["h3dq"],
-         **t["h3dq"]},
+        # H3's numbers are the training shape's, causal as the train step
+        # runs it; "none" holds them without a mask, as the encoder step
+        # runs it.  plain_ms is the whole plain backward, and library_ms
+        # the whole backward of scaled_dot_product_attention
+        *({"name": f"H3-{n} attention backward, {what} (none, causal, "
+                   "window; d 64/128)",
+           "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
+           "also_replaces": [f"{BWD_PY}:{x}" for x in (281, 377, 112, 205)],
+           "launches": train[f"h3{n}"],
+           "max_abs_err": h3_err["causal"][f"h3{n}"], "design": "wgmma",
+           **t["h3_causal"][f"h3{n}"],
+           "launches_by_path": {"train_step": train[f"h3{n}"],
+                                "encoder_step": encoder[f"h3{n}"]},
+           "max_abs_err_by_mask": {m: e[f"h3{n}"] for m, e in h3_err.items()},
+           "none": t["h3_none"][f"h3{n}"],
+           "delta_ms": {m: t[f"h3_{m}"]["delta_ms"]
+                        for m in ("causal", "none")},
+           "pair_ms": {m: t[f"h3_{m}"]["pair_ms"]
+                       for m in ("causal", "none")}}
+          for n, what in (("dkv", "dK and dV"), ("dq", "dQ"))),
         # the quant and dtiled phases: each call of the phase is one
         # launch; the numbers are those of the canonical int8 (H4-kvq),
         # pv_mode bf16 (H4-int8) and bf16 d=512 (H5) calls, and library_ms

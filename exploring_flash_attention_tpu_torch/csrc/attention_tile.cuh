@@ -1,11 +1,11 @@
-// Pieces shared by the WMMA attention kernels H6-extend (paged_extend.cu)
-// and H3 (attention_bwd.cu): the shared-memory layout of one 64-row Q tile
-// against 64-column K/V tiles, the tile load, the warp reductions, and
-// each warp's two tensor-core products on its 16 rows.
+// Pieces of the WMMA attention kernel H6-extend (paged_extend.cu), its only
+// user: the shared-memory layout of one 64-row Q tile against 64-column
+// K/V tiles, the warp reductions, and each warp's two tensor-core products
+// on its 16 rows.
 //
 // H6-extend keeps S, P and O in shared memory between the products,
 // because WMMA accumulator fragments have no documented element layout to
-// rescale in registers.  Four warps each own 16 rows.  H1, H4-int8,
+// rescale in registers.  Four warps each own 16 rows.  H1, H3, H4-int8,
 // H4-kvq and H5 run on wgmma instead (wgmma_tile.cuh).
 
 #pragma once
@@ -43,25 +43,6 @@ struct Layout {
   static constexpr size_t alpha = l + size_t(BQ) * 4;
   static constexpr size_t bytes = alpha + size_t(BQ) * 4;
 };
-
-// Copy rows [row0, row0 + 64) of a [n_rows, D] bf16 matrix into a padded
-// shared tile with 16-byte loads; rows past n_rows are zero (a garbage
-// row could hold NaN, and 0 * NaN would poison a product).
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int row0, int n_rows) {
-  constexpr int VEC = 8;                       // bf16 per 16 bytes
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * Layout<D>::LDH + c) = val;
-  }
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll

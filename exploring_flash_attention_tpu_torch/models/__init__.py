@@ -1,3 +1,8 @@
+from exploring_flash_attention_tpu_torch.models.encoder import (
+    make_mlm_train_step,
+    mask_tokens,
+    mlm_loss,
+)
 from exploring_flash_attention_tpu_torch.models.generate import (
     GenerationEngine,
     forward_collect_kv,
@@ -28,8 +33,11 @@ __all__ = [
     "forward_collect_kv",
     "init_params",
     "loss_fn",
+    "make_mlm_train_step",
     "make_train_step",
     "make_trainable",
+    "mask_tokens",
+    "mlm_loss",
     "named_param_leaves",
     "param_leaves",
     "params_from_jax",

@@ -6,9 +6,9 @@ cross-entropy loss and the train step.  Parameters are a plain dictionary
 with the JAX pytree's structure and leaf shapes (``wq [E, H, d]``,
 ``wo [H, d, E]``, ...), so both packages' weights map one to one.  Every
 attention call is :func:`flash_attention` (kernel H1 on the card, and H3
-in its backward); projections, FFN and logits are ``torch.einsum``, as the
-JAX package leaves them to XLA.  The mesh and sequence-parallel paths are
-not ported.
+in its backward), causal or, for the encoder, without a mask; projections,
+FFN and logits are ``torch.einsum``, as the JAX package leaves them to
+XLA.  The mesh and sequence-parallel paths are not ported.
 """
 
 from __future__ import annotations
@@ -115,9 +115,10 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
 
 
-def _attn_block(p: Params, x: torch.Tensor, config: ModelConfig
-                ) -> torch.Tensor:
-    """x: [B, L, E] -> the attention branch's residual update."""
+def _attn_block(p: Params, x: torch.Tensor, config: ModelConfig,
+                causal: bool = True) -> torch.Tensor:
+    """x: [B, L, E] -> the attention branch's residual update; causal or,
+    for the encoder, bidirectional."""
     c = config
     h = _rmsnorm(x, p["ln1"], c.norm_eps)
     q = torch.einsum("ble,ehd->bhld", h, p["wq"])
@@ -127,7 +128,7 @@ def _attn_block(p: Params, x: torch.Tensor, config: ModelConfig
         pos = torch.arange(x.shape[1], device=x.device)
         q = rope(q, pos, c.rope_theta)
         k = rope(k, pos, c.rope_theta)
-    o = flash_attention(q, k, v, causal=True)
+    o = flash_attention(q, k, v, causal=causal)
     return torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
 
 
@@ -140,12 +141,14 @@ def _mlp_block(p: Params, x: torch.Tensor, config: ModelConfig
     return torch.einsum("blf,fe->ble", act, p["w_down"])
 
 
-def forward(params: Params, tokens: torch.Tensor, config: ModelConfig
-            ) -> torch.Tensor:
-    """Logits f32 [B, L, V] of a causal forward over int tokens [B, L]."""
+def forward(params: Params, tokens: torch.Tensor, config: ModelConfig,
+            causal: bool = True) -> torch.Tensor:
+    """Logits f32 [B, L, V] of a forward over int tokens [B, L]: causal, or
+    with ``causal=False`` the same stack bidirectionally (the encoder,
+    ``models/encoder.py``), as the JAX package's ``forward`` (``:242-263``)."""
     x = params["embed"][tokens.long()].to(config.dtype)
     for p in params["layers"]:
-        x = x + _attn_block(p, x, config)
+        x = x + _attn_block(p, x, config, causal)
         x = x + _mlp_block(p, x, config)
     x = _rmsnorm(x, params["ln_f"], config.norm_eps)
     return torch.einsum("ble,ve->blv", x,
@@ -197,6 +200,21 @@ def adamw(leaves: Iterable[torch.Tensor], lr: float = 1e-3
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 
 
+def make_optimizer_init(optimizer: Optional[OptimizerFactory],
+                        learning_rate: float
+                        ) -> Callable[[Params], torch.optim.Optimizer]:
+    """The ``optimizer_init`` of the train steps: it sets ``requires_grad``
+    on the leaves of ``params`` (in place) and returns ``optimizer`` over
+    :func:`param_leaves`, :func:`adamw` at ``learning_rate`` by default."""
+    if optimizer is None:
+        optimizer = functools.partial(adamw, lr=learning_rate)
+
+    def optimizer_init(params: Params) -> torch.optim.Optimizer:
+        return optimizer(param_leaves(make_trainable(params)))
+
+    return optimizer_init
+
+
 def make_train_step(
     config: ModelConfig,
     mesh: Optional[Any] = None,
@@ -221,11 +239,7 @@ def make_train_step(
     ported: a ``mesh`` raises ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError("the sharded train step is not ported yet")
-    if optimizer is None:
-        optimizer = functools.partial(adamw, lr=learning_rate)
-
-    def optimizer_init(params: Params) -> torch.optim.Optimizer:
-        return optimizer(param_leaves(make_trainable(params)))
+    optimizer_init = make_optimizer_init(optimizer, learning_rate)
 
     def train_step(params: Params, opt: torch.optim.Optimizer,
                    tokens) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Attention of the port on kernel H1: the partial, and the causal
-differentiable call.
+"""Attention of the port on kernel H1: the partial, and the differentiable
+call (no mask, causal or a causal window).
 
 Counterparts of ``parallel/partials.py:attention_partial_local`` (its
 static-positions routes) and of ``ops/attention_vjp.py:flash_attention`` in
@@ -8,9 +8,9 @@ the JAX package, whose backward is ``ops/attention_bwd.py`` (H3);
 Layouts are the JAX package's: q ``[B, Hq, Lq, d]``, k/v
 ``[B, Hkv, Lkv, d]``, q head ``h`` reading KV head ``h // (Hq / Hkv)``.
 
-Causal masking uses the decode convention: q row ``i`` sits at global
-position ``q_pos0 + i`` and key ``j`` at ``kv_pos0 + j``; the default
-positions ``(Lkv - Lq, 0)`` make the q rows the last Lq positions.
+Causal and window masking use the decode convention: q row ``i`` sits at
+global position ``q_pos0 + i`` and key ``j`` at ``kv_pos0 + j``; the
+default positions ``(Lkv - Lq, 0)`` make the q rows the last Lq positions.
 """
 
 from __future__ import annotations
@@ -38,17 +38,13 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     needs ``j >= i + diag_off - window + 1``.  A row that sees nothing
     gives (0, -inf)."""
     group = q.shape[1] // k.shape[1]
-    lq, lkv = q.shape[2], k.shape[2]
     ct = torch.promote_types(q.dtype, torch.float32)
     kf = k.to(ct).repeat_interleave(group, dim=1)
     vf = v.to(ct).repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * scale
-    if causal:
-        last = torch.arange(lq, device=q.device)[:, None] + diag_off
-        col = torch.arange(lkv, device=q.device)[None, :]
-        hidden = col > last
-        if window is not None:
-            hidden |= col < last - window + 1
+    hidden = hidden_keys(q.shape[2], k.shape[2], causal, diag_off, window,
+                         q.device)
+    if hidden is not None:
         s = s.masked_fill(hidden, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     shift = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
@@ -56,10 +52,37 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, vf), lse
 
 
+def hidden_keys(lq: int, lkv: int, causal: bool, diag_off: int,
+                window: Optional[int], device: torch.device
+                ) -> Optional[torch.Tensor]:
+    """The mask of :func:`attention_plain`: [Lq, Lkv] bool, True where q row
+    ``i`` does not see key ``j``; None without a mask (non-causal)."""
+    if not causal:
+        return None
+    last = torch.arange(lq, device=device)[:, None] + diag_off
+    col = torch.arange(lkv, device=device)[None, :]
+    hidden = col > last
+    if window is not None:
+        hidden |= col < last - window + 1
+    return hidden
+
+
 H1_HEAD_DIMS = (32, 64, 128)
 H1_TILE = 128                   # Q rows per block and keys per K/V tile; a
                                 # KV span is whole tiles
 _MASK_NONE, _MASK_CAUSAL, _MASK_WINDOW = 0, 1, 2      # csrc enum Mask
+
+
+def mask_args(causal: bool, diag_off: int, window: Optional[int]
+              ) -> Tuple[int, int, int]:
+    """(mask, diag_off, window) as the kernels' C entries take them (H1,
+    H3): the csrc ``Mask`` code, and both ints checked to fit 32 bits."""
+    if not all(-2 ** 31 <= int(x) < 2 ** 31 for x in (diag_off, window or 0)):
+        raise ValueError(f"diag_off {diag_off} and window {window} must "
+                         "fit in 32 bits")
+    mask = (_MASK_NONE if not causal
+            else _MASK_CAUSAL if window is None else _MASK_WINDOW)
+    return mask, int(diag_off), int(window or 0)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,22 +137,18 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{tuple(k.shape)}, {tuple(v.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"H1 writes bf16 or f32 O, not {out_dtype}")
-    if not all(-2 ** 31 <= int(x) < 2 ** 31 for x in (diag_off, window or 0)):
-        raise ValueError(f"diag_off {diag_off} and window {window} must "
-                         "fit in 32 bits")
+    mask = mask_args(causal, diag_off, window)
     nkb = 1 if kv_span is None else -(-lkv // kv_span)
     if nkb > 65535:
         raise ValueError(f"{nkb} KV spans exceed the grid's 65535")
-    mask = (_MASK_NONE if not causal
-            else _MASK_CAUSAL if window is None else _MASK_WINDOW)
     rows = (b, hq, lq) if kv_span is None else (b, hq, nkb, lq)
     o = torch.empty((*rows, d), dtype=out_dtype, device=q.device)
     lse = (torch.empty(rows, dtype=torch.float32, device=q.device)
            if with_lse else None)
     err = kernels.library().eft_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr() if with_lse else None, b, hq, hkv, lq, lkv, d, mask,
-        int(diag_off), int(window or 0), int(kv_span or 0),
+        lse.data_ptr() if with_lse else None, b, hq, hkv, lq, lkv, d, *mask,
+        int(kv_span or 0),
         int(out_dtype == torch.float32), scale, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(err, "H1 attention")
@@ -166,26 +185,25 @@ def _diag_offset(lq: int, lkv: int,
     return int(q_pos0) - int(kv_pos0)
 
 
-def _ported_diag_offset(lq: int, lkv: int, causal: bool,
-                        static_positions: Optional[Tuple[int, int]],
-                        window: Optional[int]) -> int:
+def _ported_mask(lq: int, lkv: int, causal: bool,
+                 static_positions: Optional[Tuple[int, int]],
+                 window: Optional[int]) -> Tuple[int, Optional[int]]:
     """The argument checks that ``flash_attention`` and
-    ``flash_attention_bwd`` share; returns the static diagonal offset.
+    ``flash_attention_bwd`` share, as the JAX package makes them
+    (``ops/attention_vjp.py:57-69``, ``ops/attention_bwd.py:629-635``):
+    returns the static diagonal offset and the window.
 
-    A window of Lkv or more is plain causal, as in the JAX package; a
-    narrower one raises ``NotImplementedError``, a window without ``causal``
-    ``ValueError``.  Non-causal attention and traced positions raise
-    ``NotImplementedError``."""
+    A window without ``causal`` raises ``ValueError``; a window of Lkv or
+    more is plain causal (None).  Non-causal attention ignores the
+    positions.  Traced positions raise ``NotImplementedError``."""
     if window is not None:
         if not causal:
             raise ValueError("window requires causal=True")
-        if window < lkv:
-            raise NotImplementedError("windowed attention is not ported yet")
-    if not causal:
-        raise NotImplementedError("non-causal attention is not ported yet")
+        if window >= lkv:
+            window = None           # the band covers every key: causal
     if static_positions is not None:
         _require_static(static_positions)
-    return _diag_offset(lq, lkv, static_positions)
+    return _diag_offset(lq, lkv, static_positions), window
 
 
 def attention_partial_local(
@@ -230,27 +248,29 @@ class _FlashAttention(torch.autograd.Function):
     """Counterpart of ``_flash_attention_static`` in the JAX package
     (``ops/attention_vjp.py:83-126``): the forward is :func:`prefill_attention`
     (H1 on the card), which saves ``(q, k, v, out, lse)`` as ``_fwd_static``
-    does; the backward is ``flash_attention_bwd`` (H3-dkv and H3-dq)."""
+    does; the backward is ``flash_attention_bwd`` (H3-dkv and H3-dq) under
+    the same mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, diag_off: int):
-        out, lse = prefill_attention(q, k, v, scale, diag_off)
+    def forward(ctx, q, k, v, scale: float, causal: bool, diag_off: int,
+                window: Optional[int]):
+        out, lse = prefill_attention(q, k, v, scale, diag_off, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.diag_off = scale, diag_off
+        ctx.mask = (scale, causal, diag_off, window)
         return out
 
     @staticmethod
     def backward(ctx, do):
         # local import: ops.attention_bwd imports this module
         from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
-            causal_attention_bwd,
+            masked_attention_bwd,
         )
         q, k, v, out, lse = ctx.saved_tensors
         # autograd hands dO over as a permuted view (out of the
         # "bhld,hde->ble" einsum); the kernels take contiguous rows
-        dq, dk, dv = causal_attention_bwd(
-            q, k, v, out, do.contiguous(), lse, ctx.scale, ctx.diag_off)
-        return dq, dk, dv, None, None
+        dq, dk, dv = masked_attention_bwd(q, k, v, out, do.contiguous(), lse,
+                                          *ctx.mask)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -264,15 +284,24 @@ def flash_attention(
 ) -> torch.Tensor:
     """The JAX package's ``flash_attention``, differentiable: o in q.dtype.
 
-    Only causal attention with static positions (Python or NumPy ints, or
-    the default decode convention) is ported.  A window of Lkv or more is
-    plain causal, as in the JAX package; a narrower one raises
-    ``NotImplementedError`` and a window without ``causal`` ``ValueError``.
-    The backward runs H3; where autograd records nothing (no grad mode, or
-    no input that requires grad) the call is the forward alone."""
-    diag_off = _ported_diag_offset(q.shape[2], k.shape[2], causal, positions,
-                                   window)
+    Non-causal, causal at static positions (Python or NumPy ints, or the
+    default decode convention), or a causal ``window`` at the decode
+    convention's positions: JAX's forward takes a band only there
+    (``parallel/partials.py:63-76``), and so does the port, which raises
+    ``NotImplementedError`` for other positions.  A window of Lkv or more is
+    plain causal; a window without ``causal`` raises ``ValueError``; traced
+    positions raise ``NotImplementedError``.  The backward runs H3 under the
+    same mask; where autograd records nothing (no grad mode, or no input
+    that requires grad) the call is the forward alone."""
+    lq, lkv = q.shape[2], k.shape[2]
+    diag_off, window = _ported_mask(lq, lkv, causal, positions, window)
+    if window is not None and positions is not None and tuple(
+            int(p) for p in positions) != (lkv - lq, 0):
+        raise NotImplementedError(
+            "windowed attention needs decode-convention positions; got "
+            f"Lq={lq}, Lkv={lkv}, positions={positions}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), scale, diag_off)
+                                 v.contiguous(), scale, causal, diag_off,
+                                 window)

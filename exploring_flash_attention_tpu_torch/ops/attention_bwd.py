@@ -1,17 +1,18 @@
-"""Causal attention backward of the port: kernels H3-dkv and H3-dq.
+"""Attention backward of the port: kernels H3-dkv and H3-dq.
 
 Counterpart of ``ops/attention_bwd.py:flash_attention_bwd`` in the JAX
-package, for its causal static-positions route.  The JAX package picks one
-of three kernel routes by a VMEM rule (fused B11; one-pass B12 + B13; tiled
-B14 + B15), and all five kernels compute the same gradient, so the port has
-one route on the card (``csrc/attention_bwd.cu``)::
+package at static positions, under its three masks: none, causal, and a
+causal sliding window.  The JAX package picks one of three kernel routes by
+a VMEM rule (fused B11; one-pass B12 + B13; tiled B14 + B15), and all five
+kernels compute the same gradient, so the port has one route on the card
+(``csrc/attention_bwd.cu``)::
 
     P  = exp2(s·scale·log2e − lse·log2e)   (0 where masked or lse = −inf)
     dV = Pᵀ dO    dP = dO Vᵀ    dS = P∘(dP − delta)·scale
     dQ = dS K     dK = dSᵀ Q
 
 with delta = rowsum(dO∘O) in f32, reduced by torch outside the kernels, as
-the JAX package does at ``:678``.  Layouts and the causal convention are
+the JAX package does at ``:678``.  Layouts and the mask convention are
 ``ops/attention.py``'s; for GQA, dK and dV are summed over each q-head
 group and come back ``[B, Hkv, Lkv, d]``.
 """
@@ -27,7 +28,9 @@ from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.ops.attention import (
     LOG2E,
     _check_cuda_inputs,
-    _ported_diag_offset,
+    _ported_mask,
+    hidden_keys,
+    mask_args,
 )
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -35,16 +38,19 @@ Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, do: torch.Tensor,
-                        lse: torch.Tensor, scale: float, diag_off: int
+                        lse: torch.Tensor, scale: float, causal: bool = True,
+                        diag_off: int = 0, window: Optional[int] = None
                         ) -> Grads:
     """Plain PyTorch version of H3 in f32 math: (dq, dk, dv) in the dtypes
     of q, k and v.
 
-    P is recomputed from ``lse`` as ``_recompute_p`` does in the JAX
-    package (``ops/attention_bwd.py:52-100``): row ``i`` sees key ``j`` iff
-    ``j <= i + diag_off``, and a row whose LSE is -inf (it sees no key)
-    gets P = 0 and dS = 0 (``:98``, ``:189``).  delta comes from the given
-    ``out``.  P and dS stay f32 here; the kernels round both to bf16
+    The mask is :func:`~.attention.attention_plain`'s: non-causal rows see
+    every key; causal row ``i`` sees key ``j`` iff ``j <= i + diag_off``;
+    a ``window`` further needs ``j >= i + diag_off - window + 1``.  P is
+    recomputed from ``lse`` as ``_recompute_p`` does in the JAX package
+    (``ops/attention_bwd.py:52-100``), and a row whose LSE is -inf (it sees
+    no key) gets P = 0 and dS = 0 (``:98``, ``:189``).  delta comes from the
+    given ``out``.  P and dS stay f32 here; the kernels round both to bf16
     before their products."""
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
@@ -52,9 +58,10 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf, dof = q.float(), do.float()
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    row = torch.arange(lq, device=q.device)[:, None]
-    col = torch.arange(lkv, device=q.device)[None, :]
-    hidden = (col > row + diag_off) | torch.isneginf(lse)[..., None]
+    hidden = torch.isneginf(lse)[..., None]
+    band = hidden_keys(lq, lkv, causal, diag_off, window, q.device)
+    if band is not None:
+        hidden = hidden | band
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
     arg = s * (scale * LOG2E) - lse[..., None] * LOG2E
     p = torch.exp2(arg.masked_fill(hidden, float("-inf")))
@@ -89,26 +96,32 @@ def _check_bwd_inputs(name: str, q, k, v, do, lse, delta) -> None:
                              f"[B, Hq, Lq] on {q.device}")
 
 
-def _launch_args(q, k, diag_off, scale):
+def _launch_args(q, k, scale, causal, diag_off, window):
+    if window is not None and window < 1:
+        raise ValueError(f"a window needs window >= 1, got {window}")
     b, hq, lq, d = q.shape
-    return (b, hq, k.shape[1], lq, k.shape[2], d, diag_off, scale,
-            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    return (b, hq, k.shape[1], lq, k.shape[2], d,
+            *mask_args(causal, diag_off, window), scale, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, lse: torch.Tensor,
-                      delta: torch.Tensor, scale: float, diag_off: int
+                      delta: torch.Tensor, scale: float, causal: bool = True,
+                      diag_off: int = 0, window: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel H3-dkv on CUDA tensors: (dk, dv) bf16 [B, Hkv, Lkv, d],
-    each summed over its GQA group in f32 inside the kernel.  Takes
-    contiguous bf16 q/k/v/do and f32 lse/delta [B, Hq, Lq], or raises.
-    ``attention_bwd_dkv.launches`` counts launches."""
+    each summed over its GQA group in f32 inside the kernel, under the mask
+    of :func:`attention_bwd_plain`.  Takes contiguous bf16 q/k/v/do and f32
+    lse/delta [B, Hq, Lq], or raises.  ``attention_bwd_dkv.launches``
+    counts launches."""
     _check_bwd_inputs("H3-dkv", q, k, v, do, lse, delta)
+    args = _launch_args(q, k, scale, causal, diag_off, window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = kernels.library().eft_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_launch_args(q, k, diag_off, scale))
+        *args)
     kernels.check_launch(err, "H3-dkv")
     attention_bwd_dkv.launches += 1
     return dk, dv
@@ -119,17 +132,18 @@ attention_bwd_dkv.launches = 0
 
 def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      do: torch.Tensor, lse: torch.Tensor,
-                     delta: torch.Tensor, scale: float, diag_off: int
+                     delta: torch.Tensor, scale: float, causal: bool = True,
+                     diag_off: int = 0, window: Optional[int] = None
                      ) -> torch.Tensor:
     """Launch kernel H3-dq on CUDA tensors: dq bf16 [B, Hq, Lq, d].  Takes
     what :func:`attention_bwd_dkv` takes, or raises.
     ``attention_bwd_dq.launches`` counts launches."""
     _check_bwd_inputs("H3-dq", q, k, v, do, lse, delta)
+    args = _launch_args(q, k, scale, causal, diag_off, window)
     dq = torch.empty_like(q)
     err = kernels.library().eft_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_launch_args(q, k, diag_off, scale))
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args)
     kernels.check_launch(err, "H3-dq")
     attention_bwd_dq.launches += 1
     return dq
@@ -151,37 +165,45 @@ def flash_attention_bwd(
     positions=None,
     window: Optional[int] = None,
 ) -> Grads:
-    """Causal attention backward: (dq, dk, dv) in the dtypes and shapes of
-    q, k and v.
+    """Attention backward: (dq, dk, dv) in the dtypes and shapes of q, k
+    and v.
+
+    The mask is the JAX function's: none (``causal=False``, positions
+    ignored); causal at ``static_positions``, which default to the decode
+    convention ``(Lkv - Lq, 0)``; or a causal ``window`` at any static
+    positions, as the JAX backward takes it.  A window of Lkv or more is
+    plain causal, a window without ``causal`` raises ``ValueError``, and
+    traced ``positions`` (sequence parallelism) are not ported and raise
+    ``NotImplementedError``.
 
     CPU tensors take :func:`attention_bwd_plain`.  CUDA tensors take H1's
-    contract (contiguous bf16, d in {64, 128}, Hq % Hkv == 0, any Lq, Lkv
-    and static diagonal offset): delta is reduced by torch, then kernels
-    H3-dkv and H3-dq launch, or the call raises.  ``static_positions``
-    defaults to the decode convention ``(Lkv - Lq, 0)``.  Traced
-    ``positions`` (sequence parallelism) and a window narrower than Lkv
-    are not ported and raise ``NotImplementedError``."""
+    contract (contiguous bf16, d in {64, 128}, Hq % Hkv == 0, any Lq and
+    Lkv): delta is reduced by torch, then kernels H3-dkv and H3-dq launch,
+    or the call raises."""
     if positions is not None:
         raise NotImplementedError(
             "traced positions (sequence parallelism) are not ported yet")
-    diag_off = _ported_diag_offset(q.shape[2], k.shape[2], causal,
-                                   static_positions, window)
+    diag_off, window = _ported_mask(q.shape[2], k.shape[2], causal,
+                                    static_positions, window)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
-    return causal_attention_bwd(q, k, v, out, do, lse, scale, diag_off)
+    return masked_attention_bwd(q, k, v, out, do, lse, scale, causal,
+                                diag_off, window)
 
 
-def causal_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, do: torch.Tensor,
-                         lse: torch.Tensor, scale: float, diag_off: int
-                         ) -> Grads:
-    """:func:`flash_attention_bwd` after its argument checks, at a static
-    diagonal offset: the plain version for CPU tensors, H3-dkv and H3-dq
-    for CUDA tensors."""
+                         lse: torch.Tensor, scale: float, causal: bool,
+                         diag_off: int, window: Optional[int]) -> Grads:
+    """:func:`flash_attention_bwd` after its argument checks, under a mask
+    given as :func:`attention_bwd_plain` takes it: the plain version for CPU
+    tensors, H3-dkv and H3-dq for CUDA tensors."""
     if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, out, do, lse, scale, diag_off)
+        return attention_bwd_plain(q, k, v, out, do, lse, scale, causal,
+                                   diag_off, window)
     do = do.to(q.dtype)
     delta = (do.float() * out.float()).sum(dim=-1)
-    dk, dv = attention_bwd_dkv(q, k, v, do, lse, delta, scale, diag_off)
-    dq = attention_bwd_dq(q, k, v, do, lse, delta, scale, diag_off)
+    mask = (scale, causal, diag_off, window)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, delta, *mask)
+    dq = attention_bwd_dq(q, k, v, do, lse, delta, *mask)
     return dq, dk, dv

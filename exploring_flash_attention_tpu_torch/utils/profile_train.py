@@ -16,7 +16,11 @@ does.  It prints:
   ``utils/profile_generate.py`` reads one: the wall time, the summed kernel
   time, their ratio (the device busy share), the number of kernel
   launches, the kernels that take the most device time, and H1, H3-dkv
-  and H3-dq's share of the kernel time.
+  and H3-dq's share of the kernel time;
+- the same for one step of the encoder (``make_mlm_train_step``, the same
+  geometry bidirectional, tokens [8, 1024] under one fixed mask, as
+  ``chip_smoke.py``'s encoder phase runs it): its host-clock step times
+  and its profiled step.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ from exploring_flash_attention_tpu_torch.models import (
     flagship_config,
     init_params,
     loss_fn,
+    make_mlm_train_step,
     make_train_step,
+    mask_tokens,
 )
 from exploring_flash_attention_tpu_torch.models import transformer
 from exploring_flash_attention_tpu_torch.utils.profile_generate import (
@@ -80,6 +86,16 @@ def split_step(step, params, opt, tokens):
     return (t1 - t0, t2 - t1, t3 - t2), loss
 
 
+def profile_attention(what, call, top) -> None:
+    """Profile one call and print H1, H3-dkv and H3-dq's share of its
+    kernel time."""
+    dev_ms, kern = profile_call(what, call, top)
+    attn_ms = sum(e.self_device_time_total for e in kern
+                  if any(n in e.key for n in ATTENTION_KERNELS)) / 1e3
+    print(f"  H1 + H3-dkv + H3-dq: {attn_ms:.3f} ms, "
+          f"{attn_ms / dev_ms:.4f} of the kernel time")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=5)
@@ -111,12 +127,27 @@ def main() -> None:
     print(f"  forward + loss s {sorted(fwd)}")
     print(f"  backward s {sorted(bwd)}")
     print(f"  optimizer s {sorted(upd)}")
-    dev_ms, kern = profile_call("train step",
-                                lambda: step(params, opt, tokens), args.top)
-    attn_ms = sum(e.self_device_time_total for e in kern
-                  if any(n in e.key for n in ATTENTION_KERNELS)) / 1e3
-    print(f"  H1 + H3-dkv + H3-dq: {attn_ms:.3f} ms, "
-          f"{attn_ms / dev_ms:.4f} of the kernel time")
+    profile_attention("train step", lambda: step(params, opt, tokens),
+                      args.top)
+    del params, opt
+
+    params = init_params(cfg, seed=0, device=dev)
+    mlm_tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size - 1, (8, 1024)).astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, mask = mask_tokens(mlm_tokens, gen, cfg.vocab_size - 1)
+    step, opt_init = make_mlm_train_step(cfg)
+    opt = opt_init(params)
+    run = lambda: step(params, opt, mlm_tokens, None, mask)  # noqa: E731
+    for _ in range(3):
+        run()
+    total = []
+    for _ in range(args.repeats):
+        t0 = _sync_clock()
+        run()
+        total.append(_sync_clock() - t0)
+    print(f"encoder step s {sorted(total)}")
+    profile_attention("encoder step", run, args.top)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

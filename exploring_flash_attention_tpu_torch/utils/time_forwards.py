@@ -1,6 +1,7 @@
-"""Time the quantized and d-tiled forwards on the card, for A/B runs.
+"""Time the quantized and d-tiled forwards, or the backward pair, on the
+card, for A/B runs.
 
-    python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT]
+    python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT] [--bwd]
 
 ROOT (default: this checkout) is the root of a checkout of the port, for
 example a ``git archive`` of another commit unpacked under ``build/``; its
@@ -9,8 +10,10 @@ median milliseconds (L2 flushed before each call) of
 ``flash_attention_kvquant`` at the canonical shape (B=32, H=8, L=1024,
 d=128, int8 and e4m3 K/V, block 512) and of ``flash_attention_v1_dtiled``
 at d=512 (B=4, H=8, L=1024; int8, e4m3 and bf16 K/V), inputs from
-``make_qkv(seed=1)`` rounded to bf16.  Alternate two roots in one call
-(parent, change, change, parent) to compare them on one card.
+``make_qkv(seed=1)`` rounded to bf16; with ``--bwd``, of H3-dkv and H3-dq
+alone at the training shape (B=8, Hq=8, Hkv=4, L=1024, d=128), causal and
+without a mask.  Alternate two roots in one call (parent, change, change,
+parent) to compare them on one card.
 """
 
 from __future__ import annotations
@@ -19,7 +22,41 @@ import sys
 from pathlib import Path
 
 
-def main(root: Path) -> str:
+def time_bwd(root: Path) -> str:
+    """H3-dkv and H3-dq alone, causal and without a mask."""
+    import math
+
+    import torch
+
+    from exploring_flash_attention_tpu_torch.oracle import make_qkv
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+               for x in make_qkv(8, 8, 1024, 128, seed=1, heads_kv=4))
+    do = torch.from_numpy(make_qkv(8, 8, 1024, 128, seed=2)[0]).to(
+        "cuda", torch.bfloat16)
+    scale = 1.0 / math.sqrt(128)
+    out = []
+    for causal in (True, False):
+        o, lse = prefill_attention(q, k, v, scale, 0, causal)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        for name, fn in (("H3-dkv", attention_bwd_dkv),
+                         ("H3-dq", attention_bwd_dq)):
+            ms = time_cuda(lambda: fn(q, k, v, do, lse, delta, scale, causal,
+                                      0), n_iter=30)
+            out.append(f"{name} {'causal' if causal else 'none'} {ms:.4f} ms")
+    return f"{root.name or root}: " + " | ".join(out)
+
+
+def main(root: Path, bwd: bool = False) -> str:
+    if bwd:
+        sys.path.insert(0, str(root))
+        return time_bwd(root)
     sys.path.insert(0, str(root))
     import torch
 
@@ -50,4 +87,6 @@ def main(root: Path) -> str:
 
 if __name__ == "__main__":
     here = Path(__file__).resolve().parents[2]
-    print(main(Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else here))
+    roots = [a for a in sys.argv[1:] if a != "--bwd"]
+    print(main(Path(roots[0]).resolve() if roots else here,
+               "--bwd" in sys.argv[1:]))

@@ -138,6 +138,10 @@ def test_flash_attention_forward_matches_jax():
 
 
 def test_flash_attention_refuses_what_is_not_ported():
+    """Traced positions still raise, and so does a window at positions
+    other than the decode convention, on both sides; the non-causal and
+    windowed calls, once refused, now match JAX's (their gradients:
+    ``tests/test_torch_bwd.py``)."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(3, 1, 2, 2, 8, 8, 64))
     # gradients flow: the backward is ported (tests/test_torch_bwd.py
     # checks their values)
@@ -145,13 +149,25 @@ def test_flash_attention_refuses_what_is_not_ported():
     flash_attention(qg, k, v, causal=True).sum().backward()
     assert qg.grad.shape == q.shape and torch.isfinite(qg.grad).all()
     assert qg.grad.abs().max() > 0
-    with pytest.raises(NotImplementedError, match="window"):
-        flash_attention(q, k, v, causal=True, window=4)
-    with pytest.raises(NotImplementedError, match="non-causal"):
-        flash_attention(q, k, v, causal=False)
     with pytest.raises(NotImplementedError, match="static"):
         flash_attention(q, k, v, causal=True,
                         positions=(torch.tensor(0), torch.tensor(0)))
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    np.testing.assert_allclose(
+        flash_attention(q, k, v, causal=False).numpy(),
+        np.asarray(jax_flash_attention(jq, jk, jv, causal=False)), atol=ATOL)
+    # JAX's band forward takes Lkv in multiples of 128
+    qw, kw, vw = (torch.from_numpy(x) for x in _qkv(3, 1, 2, 2, 128, 128, 64))
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in (qw, kw, vw))
+    np.testing.assert_allclose(
+        flash_attention(qw, kw, vw, causal=True, window=48).numpy(),
+        np.asarray(jax_flash_attention(jq, jk, jv, causal=True, window=48)),
+        atol=ATOL)
+    with pytest.raises(NotImplementedError, match="positions"):
+        flash_attention(qw, kw, vw, causal=True, positions=(8, 8), window=48)
+    with pytest.raises(NotImplementedError, match="positions"):
+        jax_flash_attention(jq, jk, jv, causal=True, positions=(8, 8),
+                            window=48)
 
 
 def test_flash_attention_records_no_graph_without_grad():

@@ -20,13 +20,14 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
   keys (a short history) has |O| up to ~3, where rounding O to bf16 alone
   moves it by up to 2^-8 of |O| (a kernel-exact emulation on the CPU
   reads 1.18e-2 at |O| = 2.24 in the ragged case, as the card does).
-- H3 (H3-dkv + H3-dq) vs plain: 2e-2 of max|ref| per gradient.  The
-  kernels round P and dS to bf16 before their products and the gradients
-  to bf16; a CPU emulation of those roundings reads 3e-3..7e-3 of max|ref|
-  at these shapes, and the plain backward with each row's diagonal key
-  hidden reads 0.2..1.2 (``tests/test_torch_bwd.py`` rehearses both).  On
-  an H100, ``chip_smoke.py``'s bwd phase reads 3.4e-3..5.7e-3 at L=1024,
-  a ragged cross case and L=3072, its diagonal-hidden control 0.36..1.03.
+- H3 (H3-dkv + H3-dq) vs plain: 2e-2 of max|ref| per gradient, under
+  each of the three masks.  The kernels round P and dS to bf16 before
+  their products and the gradients to bf16; a CPU emulation of those
+  roundings reads 3e-3..7e-3 of max|ref| at these shapes, and known-wrong
+  masks (each row's diagonal key hidden; the last 64 keys dropped; the
+  window one key narrower) read beyond it (``tests/test_torch_bwd.py``
+  rehearses both).  On an H100, ``chip_smoke.py``'s bwd phase reads
+  3.4e-3..5.7e-3 at L=1024, a ragged cross case and L=3072 (WMMA, causal).
 - H4-kvq vs plain and the oracle over the dequantized K/V: 5e-4 abs on f32
   O (P rounded to fp16 as p * v_scale / vmax, vmax the largest V scale of
   each 128-key tile; a CPU emulation of those roundings reads <= 8.1e-5,
@@ -49,6 +50,12 @@ import numpy as np
 import pytest
 import torch
 
+from exploring_flash_attention_tpu_torch.models import (
+    ModelConfig,
+    init_params,
+    make_mlm_train_step,
+    mask_tokens,
+)
 from exploring_flash_attention_tpu_torch.oracle import naive_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
     attention_partial_local,
@@ -443,52 +450,78 @@ def _rel(got, ref):
             / ref.float().abs().max()).item()
 
 
-def _bwd_case(dev, b, hq, hkv, lq, lkv, d, diag_off, seed=4):
+def _bwd_case(dev, b, hq, hkv, lq, lkv, d, diag_off, seed=4, causal=True,
+              window=None):
+    """Inputs of one backward and H1's residuals under the mask.  Q and dO
+    carry a ramp over d on top of the noise, so that their tiles, which
+    H3-dkv reads both K-major and MN-major, are far from symmetric."""
     q, k, v = _qkv(dev, b, hq, hkv, lq, lkv, d, seed=seed)
     do = _qkv(dev, b, hq, hkv, lq, lkv, d, seed=seed + 1)[0]
+    ramp = torch.linspace(0.5, 1.5, d, device=dev)
+    q, do = (q.float() * ramp).bfloat16(), (do.float() * ramp).bfloat16()
     scale = 1.0 / math.sqrt(d)
-    out, lse = prefill_attention(q, k, v, scale, diag_off)
+    out, lse = prefill_attention(q, k, v, scale, diag_off, causal, window)
     return q, k, v, out, do, lse, scale
 
 
-@pytest.mark.parametrize("b,hq,hkv,lq,lkv,d,diag_off", [
-    (8, 8, 4, 1024, 1024, 128, 0),    # the training slice's attention
-    (2, 8, 4, 200, 216, 128, 16),     # ragged, Lq != Lkv
-    (2, 8, 2, 77, 130, 64, 53),       # ragged, G=4, d=64
-    (1, 4, 2, 96, 80, 128, -16),      # Lq > Lkv: 16 rows see no key
-    (1, 4, 4, 100, 100, 64, -24),     # negative static offset, d=64
-    (1, 8, 4, 3072, 3072, 128, 0),    # where JAX takes B12/B13
+BWD_MASKS = {"none": (False, None), "causal": (True, None),
+             "window": (True, 100)}
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lkv,d,diag_off,mask", [
+    *[(1, 4, 4 // g, lq, lkv, d, lkv - lq, mask)
+      for mask in BWD_MASKS for g in (1, 2) for d in (64, 128)
+      for lq, lkv in ((127, 127), (128, 128), (129, 129), (257, 257),
+                      (1000, 1100))],
+    (8, 8, 4, 1024, 1024, 128, 0, "causal"),   # the training slice
+    (8, 8, 4, 1024, 1024, 128, 0, "none"),     # the encoder's attention
+    (2, 8, 4, 200, 216, 128, 16, "causal"),    # ragged, Lq != Lkv
+    (2, 8, 2, 77, 130, 64, 53, "causal"),      # ragged, G=4, d=64
+    (1, 4, 2, 96, 80, 128, -16, "causal"),     # Lq > Lkv: 16 rows see no key
+    (1, 4, 4, 100, 100, 64, -24, "causal"),    # negative static offset, d=64
+    (1, 4, 2, 300, 300, 128, -40, "window"),   # a band off the diagonal
+    (1, 8, 4, 3072, 3072, 128, 0, "causal"),   # where JAX takes B12/B13
 ])
 def test_bwd_kernels_match_plain(cuda_device, b, hq, hkv, lq, lkv, d,
-                                  diag_off):
+                                  diag_off, mask):
+    causal, window = BWD_MASKS[mask]
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, b, hq, hkv, lq,
-                                             lkv, d, diag_off)
+                                             lkv, d, diag_off, causal=causal,
+                                             window=window)
     positions = (diag_off, 0)
     dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, scale,
-                                     causal=True, static_positions=positions)
+                                     causal=causal,
+                                     static_positions=positions,
+                                     window=window)
     torch.cuda.synchronize()
-    ref = attention_bwd_plain(q, k, v, out, do, lse, scale, diag_off)
+    ref = attention_bwd_plain(q, k, v, out, do, lse, scale, causal,
+                              diag_off, window)
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         assert got.dtype == torch.bfloat16, name
         assert torch.isfinite(got.float()).all(), name
         assert _rel(got, want) < BWD_REL_TOL, name
-    if diag_off < 0:                  # rows that see no key: zero dQ
+    if causal and diag_off < 0:       # rows that see no key: zero dQ
         assert (dq[:, :, :-diag_off] == 0).all()
-    if lkv > lq + diag_off:           # keys no row sees: zero dK, dV
+    if causal and lkv > lq + diag_off:    # keys no row sees: zero dK, dV
         assert (dk[:, :, lq + diag_off:] == 0).all()
         assert (dv[:, :, lq + diag_off:] == 0).all()
 
 
-def test_bwd_kernels_are_bitwise_reproducible(cuda_device):
-    args = _bwd_case(cuda_device, 2, 8, 4, 520, 520, 128, 0)
-    first = flash_attention_bwd(*args, causal=True)
+@pytest.mark.parametrize("mask", BWD_MASKS)
+def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask):
+    causal, window = BWD_MASKS[mask]
+    args = _bwd_case(cuda_device, 2, 8, 4, 520, 520, 128, 0, causal=causal,
+                     window=window)
+    first = flash_attention_bwd(*args, causal=causal, window=window)
     for _ in range(3):
-        for a, b in zip(first, flash_attention_bwd(*args, causal=True)):
+        for a, b in zip(first, flash_attention_bwd(*args, causal=causal,
+                                                   window=window)):
             assert torch.equal(a, b)
 
 
 def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
+    """... and d=32, which H1 takes and H3 does not."""
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 1, 2, 2, 64, 64,
                                              64, 0)
     before = (attention_bwd_dkv.launches, attention_bwd_dq.launches)
@@ -498,30 +531,63 @@ def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
     with pytest.raises(TypeError, match="bf16"):
         flash_attention_bwd(q.float(), k.float(), v.float(), out.float(),
                             do.float(), lse, scale, causal=True)
+    q32, k32, v32, out32, do32, lse32, scale32 = _bwd_case(
+        cuda_device, 1, 2, 2, 64, 64, 32, 0)
+    with pytest.raises(ValueError, match="d in"):
+        flash_attention_bwd(q32, k32, v32, out32, do32, lse32, scale32)
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
         before[0] + 1, before[1] + 1)
 
 
-def test_autograd_through_flash_attention_runs_h1_and_h3(cuda_device):
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 100)])
+def test_autograd_through_flash_attention_runs_h1_and_h3(cuda_device, causal,
+                                                         window):
     """The training call: a permuted dO out of the output projection's
-    einsum, as autograd hands it over."""
+    einsum, as autograd hands it over; causal, without a mask (the
+    encoder) and in a window."""
     q, k, v = _qkv(cuda_device, 2, 8, 4, 300, 300, 128, seed=6)
     w = _qkv(cuda_device, 1, 8, 8, 128, 128, 64, seed=7)[0][0]  # [H, d, E]
     counts = (prefill_attention.launches, attention_bwd_dkv.launches,
               attention_bwd_dq.launches)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    o = flash_attention(*leaves, causal=True)
+    o = flash_attention(*leaves, causal=causal, window=window)
     loss = torch.einsum("bhld,hde->ble", o, w).float().square().mean()
     grads = torch.autograd.grad(loss, leaves)
     assert (prefill_attention.launches, attention_bwd_dkv.launches,
             attention_bwd_dq.launches) == tuple(c + 1 for c in counts)
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    o_ref = attention_plain(*ref_leaves, 1.0 / math.sqrt(128), True, 0)[0]
+    o_ref = attention_plain(*ref_leaves, 1.0 / math.sqrt(128), causal, 0,
+                            window)[0]
     loss_ref = torch.einsum("bhld,hde->ble", o_ref.to(torch.bfloat16),
                             w).float().square().mean()
     for name, got, want in zip(("dq", "dk", "dv"), grads,
                                torch.autograd.grad(loss_ref, ref_leaves)):
         assert _rel(got, want) < BWD_REL_TOL, name
+
+
+def test_mlm_train_step_runs_h1_and_h3_without_a_mask(cuda_device):
+    """A small bf16 encoder takes two MLM steps on the card: every layer
+    launches H1 once and H3-dkv and H3-dq once a step, the loss is finite
+    and falls on a fixed batch and mask."""
+    cfg = ModelConfig(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      d_model=256, d_head=64, d_ff=512, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=cuda_device)
+    step, opt_init = make_mlm_train_step(cfg, learning_rate=3e-3)
+    opt = opt_init(params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size - 1, (2, 200))).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    _, mask = mask_tokens(tokens, gen, cfg.vocab_size - 1)
+    losses = []
+    for _ in range(2):
+        before = (prefill_attention.launches, attention_bwd_dkv.launches,
+                  attention_bwd_dq.launches)
+        losses.append(step(params, opt, tokens, None, mask).item())
+        after = (prefill_attention.launches, attention_bwd_dkv.launches,
+                 attention_bwd_dq.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2)
+    assert all(math.isfinite(x) for x in losses) and losses[1] < losses[0]
 
 
 def _max_err(got, ref):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's dense, quantized and d-tiled forwards, generation,
-training and encoder training paths on one NVIDIA H100.
+training and encoder training paths, and the windowed model's training and
+generation, on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -12,9 +13,10 @@ Phases, one line each; any failure exits non-zero before the last line:
    limit from nvidia-smi;
 2. build:  nvcc builds the kernels of exploring_flash_attention_tpu_torch/
    csrc/ and its -Xptxas -v report (registers, shared memory) is printed;
-   the SASS of the kernel functions of H1, H3, H4-int8, H4-kvq and H5
-   (cuobjdump) must hold wgmma instructions: HGMMA in every H1, H3-dkv,
-   H3-dq, H4-kvq and H5 function and in H4-int8's pv_mode bf16 ones,
+   the SASS of the kernel functions of H1, H3, H4-int8, H4-kvq, H5 and
+   H6-extend (cuobjdump) must hold wgmma instructions: HGMMA in every H1,
+   H3-dkv, H3-dq, H4-kvq, H5 and H6-extend function and in H4-int8's
+   pv_mode bf16 ones,
    IGMMA in every H4-int8 function, and no HMMA or IMMA (the mma.sync and
    WMMA forms they replaced);
 3. h1:     kernel H1 (the attention forward) vs its plain PyTorch
@@ -48,11 +50,19 @@ Phases, one line each; any failure exits non-zero before the last line:
    L=1024 with bf16, e4m3 and int8 K/V (bench/suite.py:279, :309) and a
    ragged d=256 case, the suite's gate first; the last d-chunk left out
    of S is a further control;
-7. decode: kernel H6-decode (paged INT8 decode) vs its plain version and
-   the f64 oracle over the dequantized cache, at ragged contexts 257..280;
+7. decode: kernel H6-decode (paged INT8 decode, split across the SMs) and
+   H2's merge of its partials, through paged_decode_attention, vs the
+   plain version and the f64 oracle over each slot's band of the
+   dequantized cache, at the slice's contexts 257..280, the JAX suite's
+   decode entry (B=32, Hq=Hkv=8, page size 256, 2048 tokens;
+   bench/suite.py:455-472) without and with a window of 512, and the
+   windowed model's (contexts 4609..4632, window 4096); the controls: the
+   newest token hidden, the window one key narrower; the window of 512
+   must take less time than no window;
 8. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
    its plain version and the f64 oracle, a C = 256 chunk appended to
-   ragged histories 257..280;
+   ragged histories 257..280, and the windowed model's second turn (C =
+   256 over 4609..4632, window 4096), controls as decode's;
 9. bwd:    kernels H3-dkv and H3-dq (the attention backward, through
    flash_attention_bwd) vs attention_bwd_plain and f64 autograd of the
    plain forward, at the training shape (B=8, Hq=8, Hkv=4, L=1024,
@@ -65,15 +75,16 @@ Phases, one line each; any failure exits non-zero before the last line:
    GQA 8/4, d_head 128, d_ff 4096, bf16, random weights from seed 0) runs
    GenerationEngine.generate on [8, 256] prompts for 24 tokens.  Every
    kernel's launch counter is zeroed just before and read just after: H1
-   must launch n_layers = 4 times, H6-decode 4 * 23 = 92.  Each generated
+   must launch n_layers = 4 times, H6-decode and H2 4 * 23 = 92.  Each
+   generated
    token is checked against a fresh full forward over the sequence so far
    (agreement, or a near-tie under LOGIT_GAP).  Tokens/s come from the
    host clock around a second, synchronized call;
 11. multiturn: the same model holds its slots (generate(hold=True)), then
    continue_generation feeds a second turn of 256 tokens (turn 1's last
    token and 255 new ones, chunk at positions 279..534) and decodes 24
-   more.  Counters: turn 1 H1 4, H6-decode 92; turn 2 H6-extend 4,
-   H6-decode 92, H1 0.  Each turn-2 token is checked against the full
+   more.  Counters: turn 1 H1 4, H6-decode 92, H2 92; turn 2 H6-extend 4,
+   H6-decode 92, H2 92, H1 0.  Each turn-2 token is checked against the full
    forward over the whole stream so far, and every layer's cache against
    forward_collect_kv over the concatenated stream; release() must return
    every page;
@@ -94,7 +105,24 @@ Phases, one line each; any failure exits non-zero before the last line:
    gradient are held against the plain attention patched in, with a
    causal forward (loss) and a causal backward (gradients) as controls;
    the loss must fall over 5 steps; encoder training tokens/s come from
-   the host clock around further steps.
+   the host clock around further steps;
+14. window_train: the windowed model (A8), the JAX suite's long-context
+   entry (bench/suite.py:1003-1053: vocab 2048, the flagship's layers,
+   window 4096), fresh weights from seed 0, make_train_step's AdamW on
+   tokens [1, 32769].  Step 0's loss and every gradient against the plain
+   attention patched in (blockwise over the bands), the band shifted back
+   one key (forward; backward, on H3) and dropped (forward) as controls;
+   a warm-up and 5 timed steps, each launching H1, H3-dkv and H3-dq 4
+   times, the last loss below the first (the suite's gate); training
+   tokens/s;
+15. window_generate: the same model served: [8, 4608] prompts (longer
+   than the window) for 24 tokens held, then a 256-token second turn and
+   24 more (max_len 5120, page size 128).  Counters: turn 1 H1 4,
+   H6-decode 92, H2 92; turn 2 H6-extend 4, H6-decode 92, H2 92.  Tokens
+   against the windowed full forward (agreement or a near-tie), the cache
+   after turn 2 against forward_collect_kv over the stream; controls: the
+   band dropped in decode and a turn one token short (tokens), a stream
+   one token short (cache); tokens/s of both turns.
 
 Kernel times come from CUDA events (L2 flushed before each call) beside
 their plain versions, their bounds on the H100 (the larger of the
@@ -139,6 +167,14 @@ H1_LSE_TOL = 4e-3      # l sums bf16-rounded P: ln(l) within ~2^-9
 DECODE_O_TOL = 5e-3    # P*v_scale and O rounded to bf16; sound runs 1.4e-3
 EXTEND_O_TOL = 5e-3    # as DECODE_O_TOL: P*v_scale and O rounded to bf16;
                        # sound runs 2.7e-3, its control 0.25
+PAGED_REL_TOL = 1e-2   # every decode and extend case also holds max|dO| /
+                       # max|O_ref| under this: over thousands of keys |O|
+                       # is ~0.1 and a one-key fault moves it by ~3e-3, under
+                       # the absolute limits.  A CPU emulation of the
+                       # kernels' roundings (P * v_scale and O to bf16) reads
+                       # 2.8e-3..4.2e-3 at every case's shape, the controls
+                       # (newest token hidden, window one key narrower)
+                       # 2.9e-2 and up
 LOGIT_GAP = 0.0625     # decode vs full forward: a flip must be a near-tie,
                        # 4 bf16 ulps of a logit in [2, 4); sound runs 0.0312
 CACHE_KV_TOL = 0.2     # cache after turn 2 vs forward_collect_kv: the int8
@@ -285,6 +321,32 @@ DTILED_CASES = [
     ("d=256 ragged bf16", 2, 8, 1000, 1100, 256, "bf16", None, 5, 2),
 ]
 
+# the windowed model (A8): the JAX suite's long-context configuration
+# (bench/suite.py:1019-1024), its window; window_train's (B, L) (the
+# suite's, :1034) and window_generate's (B, prompt, new tokens, second
+# turn, max_len)
+WINDOW = 4096
+WINDOW_TRAIN = (1, 32768)
+WINDOW_GENERATE = (8, 4608, 24, 256, 5120)
+# the decode phase's cases: (case, B, Hq, Hkv, page size, contexts (first,
+# last; B spread between), max_len, window)
+DECODE_CASES = [
+    ("slice", 8, 8, 4, 128, (257, 280), 1024, None),
+    ("JAX suite decode entry (bench/suite.py:455-472)", 32, 8, 8, 256,
+     (2048, 2048), 2048, None),
+    ("the same, window 512 (bench/suite.py:490-500)", 32, 8, 8, 256,
+     (2048, 2048), 2048, 512),
+    ("windowed model's generation", 8, 8, 4, 128, (4609, 4632), 5120,
+     WINDOW),
+]
+# the extend phase's: (case, B, Hq, Hkv, page size, histories, max_len, C,
+# window)
+EXTEND_CASES = [
+    ("multi-turn", 8, 8, 4, 128, (257, 280), 1024, 256, None),
+    ("windowed turn 2", 8, 8, 4, 128, (4609, 4632), 5120, 256, WINDOW),
+]
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -327,19 +389,21 @@ def phase_build(kernels):
 
 # the wgmma kernels' functions in the SASS: H1 (d 32, 64, 128), H4-int8
 # (d 64, 128 x pv_mode), H4-kvq (d 64, 128 x int8, e4m3), H5 (d 128,
-# 256, 384, 512 x bf16, int8, e4m3), H3-dkv and H3-dq (d 64, 128)
+# 256, 384, 512 x bf16, int8, e4m3), H3-dkv and H3-dq (d 64, 128),
+# H6-extend (d 64, 128)
 WGMMA_FUNCTIONS = {"prefill_attention_kernel": 3, "int8_attention_kernel": 4,
                    "kvquant_attention_kernel": 4,
                    "dtiled_attention_kernel": 12,
                    "attention_bwd_dkv_kernel": 2,
-                   "attention_bwd_dq_kernel": 2}
+                   "attention_bwd_dq_kernel": 2,
+                   "paged_extend_kernel": 2}
 
 
 def check_sass(kernels):
-    """H1, H3, H4-int8, H4-kvq and H5 run on wgmma: HGMMA in every H1, H3,
-    H4-kvq and H5 function and in the pv_mode bf16 H4-int8 ones (template
-    argument false, ``Lb0E``), IGMMA in every H4-int8 function, no HMMA or
-    IMMA in any of them."""
+    """H1, H3, H4-int8, H4-kvq, H5 and H6-extend run on wgmma: HGMMA in
+    every H1, H3, H4-kvq, H5 and H6-extend function and in the pv_mode bf16
+    H4-int8 ones (template argument false, ``Lb0E``), IGMMA in every
+    H4-int8 function, no HMMA or IMMA in any of them."""
     sass = kernels.sass_by_function()
     found = dict.fromkeys(WGMMA_FUNCTIONS, 0)
     for name, text in sass.items():
@@ -1038,12 +1102,13 @@ def phase_dtiled(torch, dev):
     return gates, out
 
 
-def make_decode_case(torch, dev, b=8, hq=8, hkv=4, d=128, ps=128,
-                     max_len=1024, seed=1, chunk=0):
-    """A cache like the engine's (max_len 1024 -> 8 pages per slot) filled
-    through append_prompts with ragged contexts 257..280, and one bf16 q
-    [B, Hq, d].  With ``chunk`` = C, append_chunks then adds C more tokens
-    per sequence and q is [B, C, Hq, d]."""
+def make_paged_case(torch, dev, b=8, hq=8, hkv=4, d=128, ps=128,
+                    lens=(257, 280), max_len=1024, seed=1, chunk=0):
+    """A cache like the engine's (cdiv(max_len, ps) pages per slot, a
+    permuted page table) filled through append_prompts with contexts
+    spread from lens[0] to lens[1], and one bf16 q [B, Hq, d].  With
+    ``chunk`` = C, append_chunks then adds C more tokens per sequence and q
+    is [B, C, Hq, d]."""
     from exploring_flash_attention_tpu_torch.configs import cdiv
     from exploring_flash_attention_tpu_torch.serving import (
         append_chunks,
@@ -1058,7 +1123,7 @@ def make_decode_case(torch, dev, b=8, hq=8, hkv=4, d=128, ps=128,
     perm = torch.randperm(b * pages_per_seq, generator=gen)
     cache.page_table.copy_(perm.view(b, pages_per_seq).to(torch.int32))
     slots = torch.arange(b, dtype=torch.int32, device=dev)
-    lens = np.linspace(257, 280, b).round().astype(int)
+    lens = np.linspace(*lens, b).round().astype(int)
     for s, n in enumerate(lens):
         kp = torch.randn(1, int(n), hkv, d, generator=gen).to(dev)
         vp = torch.randn(1, int(n), hkv, d, generator=gen).to(dev)
@@ -1086,85 +1151,240 @@ def newest_token_hidden(cache, slots):
         cache.seq_lens[idx] += 1
 
 
-def phase_decode(torch, dev):
+def gathered_kv(torch, cache, slots, pos, window):
+    """The library call's inputs: each slot's K and V gathered from the
+    pages and dequantized, bf16 [B, Hkv, L, d] padded to the longest
+    sequence, and the boolean mask [B, 1, R, L] of the columns row r at
+    position pos[b, r] sees (the same band the kernels take)."""
+    from exploring_flash_attention_tpu_torch.serving import gather_kv
+
+    kvs = [gather_kv(cache, int(s)) for s in slots.tolist()]
+    lmax = max(k.shape[1] for k, _ in kvs)
+    pad = lambda x: torch.nn.functional.pad(         # noqa: E731
+        x, (0, 0, 0, lmax - x.shape[1]))
+    k = torch.stack([pad(k) for k, _ in kvs]).to(torch.bfloat16)
+    v = torch.stack([pad(v) for _, v in kvs]).to(torch.bfloat16)
+    col = torch.arange(lmax, device=k.device)
+    p = torch.as_tensor(pos, device=k.device)[:, :, None]
+    mask = col <= p
+    if window is not None:
+        mask &= col > p - window
+    return k, v, mask[:, None]
+
+
+def band_oracle(q, cache, slot, pos, window):
+    """f64 attention of q [R, Hq, d] (rows at positions pos [R]) over the
+    gathered, dequantized cache of one slot, each row over its band."""
     from exploring_flash_attention_tpu_torch.oracle import naive_attention
+    from exploring_flash_attention_tpu_torch.serving import gather_kv
+
+    kf, vf = gather_kv(cache, slot)                   # [Hkv, L, d]
+    hkv, hq, d = kf.shape[0], q.shape[1], q.shape[2]
+    out = np.zeros(q.shape)
+    for r, p in enumerate(pos):
+        lo = 0 if window is None else max(0, p - window + 1)
+        out[r] = naive_attention(q[r].view(hkv, hq // hkv, d),
+                                 kf[:, lo:p + 1], vf[:, lo:p + 1]
+                                 ).reshape(hq, d)
+    return out
+
+
+def paged_check(what, o, ref, oracle, controls, tol):
+    """One decode or extend check: the kernel's O vs the plain version
+    (the whole tensor) and vs the f64 oracle (``oracle``: the kernel's
+    rows the oracle computed, and the oracle's), each within ``tol`` and
+    within PAGED_REL_TOL of max|O_ref|; every known-wrong control (the
+    plain version run wrongly) must read beyond PAGED_REL_TOL against the
+    kernel's O."""
+    o = o.float()
+    top = ref.abs().max().item()
+    e_plain = (o - ref).abs().max().item()
+    got, o64 = oracle
+    e_or = float(np.abs(got - o64).max())
+    top64 = float(np.abs(o64).max())
+    ctl = {n: (o - x).abs().max().item() / top for n, x in controls.items()}
+    print(f"  {what}: max|dO| vs plain {e_plain:.3e} ({e_plain / top:.3e} of "
+          f"max|O| {top:.3e}), vs f64 oracle on the dequantized cache "
+          f"{e_or:.3e} ({e_or / top64:.3e}); limits {tol:g} and "
+          f"{PAGED_REL_TOL:g} of max|O|; controls (of max|O|): "
+          + ", ".join(f"{n} {x:.3e}" for n, x in ctl.items()))
+    _require(o.isfinite().all().item(), f"{what}: O not finite")
+    _require(max(e_plain, e_or) < tol and e_plain / top < PAGED_REL_TOL
+             and e_or / top64 < PAGED_REL_TOL, f"{what} outside tolerance")
+    _require(min(ctl.values()) > PAGED_REL_TOL,
+             f"the check cannot tell a wrong path ({what})")
+    return e_plain
+
+
+def paged_work(hq, hkv, d, pairs, tokens, rows):
+    """The work of paged attention for ``kernel_times``' bound: 4 d bf16
+    flops per visible (q head, key) pair of every row; each visible cached
+    token's K and V codes and scales read once, q read and O written once
+    in bf16."""
+    return ([(4 * d * hq * pairs, H100_BF16_FLOPS)],
+            tokens * hkv * (2 * d + 8) + 2 * rows * hq * d * 2)
+
+
+def phase_decode(torch, dev):
+    """H6-decode, merged by H2, through paged_decode_attention at each of
+    DECODE_CASES: one launch of each per call, O against the plain version
+    and the f64 oracle over each slot's band of the dequantized cache,
+    beside its controls (the newest token hidden; under a window, the
+    window one key narrower); times of the kernel alone, the call, the
+    plain version and scaled_dot_product_attention over the gathered,
+    dequantized K/V under the same band mask (the gather and the dequant
+    left out), and the bound."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.ops import (
+        splitkv_combine,
+        splitkv_combine_plain,
+    )
     from exploring_flash_attention_tpu_torch.serving import (
-        gather_kv,
+        decode_split,
         paged_decode_attention,
+        paged_decode_partials,
         paged_decode_plain,
     )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
 
-    cache, q, slots, lens = make_decode_case(torch, dev)
-    b, hq, d = q.shape
-    hkv = cache.num_kv_heads
-    o = paged_decode_attention(q, cache, slots)
-    torch.cuda.synchronize()
-    ref = paged_decode_plain(q, cache, slots, 1.0 / math.sqrt(d))
-    e_o = (o.float() - ref).abs().max().item()
-    e_or = 0.0
-    for s in range(b):
-        kf, vf = gather_kv(cache, s)
-        oracle = naive_attention(q[s].view(hkv, hq // hkv, d), kf, vf)
-        got = o[s].float().view(hkv, hq // hkv, d).cpu().numpy()
-        e_or = max(e_or, float(np.abs(got - oracle).max()))
-    with newest_token_hidden(cache, slots):         # control
-        bad = paged_decode_plain(q, cache, slots, 1.0 / math.sqrt(d))
-    e_bad = (o.float() - bad).abs().max().item()
-    print(f"  decode B={b} Hq={hq} Hkv={hkv} d={d} ps={cache.page_size} "
-          f"ctx {lens.min()}..{lens.max()}: max|dO| vs plain {e_o:.3e} "
-          f"(tol {DECODE_O_TOL:g}), vs f64 oracle on the dequantized cache "
-          f"{e_or:.3e} (tol {DECODE_O_TOL:g}), control (newest token "
-          f"hidden) {e_bad:.3e}")
-    _require(torch.isfinite(o.float()).all().item(), "H6 O not finite")
-    _require(e_o < DECODE_O_TOL and e_or < DECODE_O_TOL,
-             "H6-decode outside tolerance")
-    _require(e_bad > DECODE_O_TOL,
-             "H6-decode tolerance cannot tell a wrong mask")
+    out, made = {}, None
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, b, hq, hkv, ps, lens, max_len, window in DECODE_CASES:
+        key = (b, hq, hkv, ps, lens, max_len)
+        if made is None or made[0] != key:
+            made = None                              # free the last cache
+            made = (key, make_paged_case(torch, dev, b, hq, hkv, 128, ps,
+                                         lens, max_len))
+        cache, q, slots, ctx = made[1]
+        d = q.shape[-1]
+        scale = 1.0 / math.sqrt(d)
+        call = lambda: paged_decode_attention(        # noqa: E731
+            q, cache, slots, window=window)
+        o = counted_call(torch, call, launches_only(h6=1, h2=1))
+        ref = paged_decode_plain(q, cache, slots, scale, window)
+        oracle = np.stack([band_oracle(q[s:s + 1], cache, s,
+                                       [int(n) - 1], window)[0]
+                           for s, n in enumerate(ctx)])
+        controls = {}
+        with newest_token_hidden(cache, slots):
+            controls["newest token hidden"] = paged_decode_plain(
+                q, cache, slots, scale, window)
+        if window is not None:
+            controls["window one key narrower"] = paged_decode_plain(
+                q, cache, slots, scale, window - 1)
+        split = decode_split(cache, b, window, n_sms)
+        what = (f"decode {name}: B={b} Hq={hq} Hkv={hkv} d={d} ps={ps} "
+                f"ctx {ctx.min()}..{ctx.max()} window {window}, "
+                f"{split[0]} runs of {split[1]} pages")
+        err = paged_check(what, o, ref, (o.float().cpu().numpy(), oracle),
+                          controls, DECODE_O_TOL)
+        del o, ref, controls
+
+        o_part, lse = paged_decode_partials(q, cache, slots, scale, window)
+        e_h2 = (splitkv_combine(o_part, lse, torch.float32)
+                - splitkv_combine_plain(o_part, lse)).abs().max().item()
+        _require(e_h2 < H2_O_TOL, f"H2 on the decode partials: {e_h2:.3e}")
+        vis = np.minimum(ctx, window or ctx.max())
+        k, v, mask = gathered_kv(torch, cache, slots, ctx[:, None] - 1,
+                                 window)
+        qs = q[:, :, None]
+        t = kernel_times(call, lambda: paged_decode_plain(
+            q, cache, slots, scale, window), lambda: sdpa(
+            qs, k, v, attn_mask=mask, enable_gqa=hq != hkv),
+            *paged_work(hq, hkv, d, int(vis.sum()), int(vis.sum()), b))
+        t["with_merge_ms"] = t["ms"]
+        t["ms"] = time_cuda(lambda: paged_decode_partials(
+            q, cache, slots, scale, window))
+        t["h2_ms"] = time_cuda(lambda: splitkv_combine(o_part, lse, q.dtype))
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["split"] = list(split)
+        t["max_abs_err"] = err
+        out[name] = t
+        print(f"  decode {name} times: H6-decode {t['ms']:.4f} ms (bound "
+              f"{t['bound_ms']:.4f} ms, {t['bound_by']}, "
+              f"{t['bound_share']:.1%}), H2 on its partials "
+              f"{t['h2_ms']:.4f} ms (vs its plain version {e_h2:.3e}), "
+              f"paged_decode_attention {t['with_merge_ms']:.4f} ms; plain "
+              f"{t['plain_ms']:.4f} ms; scaled_dot_product_attention over "
+              f"the gathered, dequantized K/V {t['library_ms']:.4f} ms")
+        del k, v, mask, o_part, lse
+    made = None
+    suite = out[DECODE_CASES[1][0]]["ms"]
+    windowed = out[DECODE_CASES[2][0]]["ms"]
+    print(f"  decode window 512 vs no window at the suite's shape: "
+          f"{windowed:.4f} ms vs {suite:.4f} ms, ratio "
+          f"{windowed / suite:.3f} (must be < 1: pages before the band are "
+          f"not read)")
+    _require(windowed < suite, "the windowed decode reads pages before the "
+             "band")
     print("phase decode: ok")
-    return e_o
+    return out
 
 
 def phase_extend(torch, dev):
-    from exploring_flash_attention_tpu_torch.oracle import naive_attention
+    """H6-extend through paged_extend_attention at each of EXTEND_CASES:
+    one launch per call, O against the plain version and the f64 oracle
+    (every chunk row's band of the dequantized cache, rows 0, C/2 and C-1
+    of every sequence), beside its controls (every row's own key hidden;
+    under a window, the window one key narrower); times as the decode
+    phase's."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
     from exploring_flash_attention_tpu_torch.serving import (
-        gather_kv,
         paged_extend_attention,
         paged_extend_plain,
     )
 
-    c = 256
-    cache, q, slots, lens = make_decode_case(torch, dev, chunk=c)
-    b, _, hq, d = q.shape
-    hkv = cache.num_kv_heads
-    scale = 1.0 / math.sqrt(d)
-    o = paged_extend_attention(q, cache, slots)
-    torch.cuda.synchronize()
-    ref = paged_extend_plain(q, cache, slots, scale)
-    e_o = (o.float() - ref).abs().max().item()
-    e_or = 0.0                  # first and last chunk row of every sequence
-    for s in range(b):
-        kf, vf = gather_kv(cache, s)
-        for i in (0, c - 1):
-            pos = int(lens[s]) + i
-            oracle = naive_attention(q[s, i].view(hkv, hq // hkv, d),
-                                     kf[:, :pos + 1], vf[:, :pos + 1])
-            got = o[s, i].float().view(hkv, hq // hkv, d).cpu().numpy()
-            e_or = max(e_or, float(np.abs(got - oracle).max()))
-    with newest_token_hidden(cache, slots):         # control
-        bad = paged_extend_plain(q, cache, slots, scale)
-    e_bad = (o.float() - bad).abs().max().item()
-    print(f"  extend B={b} C={c} Hq={hq} Hkv={hkv} d={d} "
-          f"ps={cache.page_size} history {lens.min()}..{lens.max()}: "
-          f"max|dO| vs plain {e_o:.3e} (tol {EXTEND_O_TOL:g}), vs f64 "
-          f"oracle on rows 0 and C-1 {e_or:.3e} (tol {EXTEND_O_TOL:g}), "
-          f"control (diagonal key hidden) {e_bad:.3e}")
-    _require(torch.isfinite(o.float()).all().item(), "H6-extend O not finite")
-    _require(e_o < EXTEND_O_TOL and e_or < EXTEND_O_TOL,
-             "H6-extend outside tolerance")
-    _require(e_bad > EXTEND_O_TOL,
-             "H6-extend tolerance cannot tell a wrong mask")
+    out = {}
+    for name, b, hq, hkv, ps, lens, max_len, c, window in EXTEND_CASES:
+        cache, q, slots, hist = make_paged_case(torch, dev, b, hq, hkv, 128,
+                                                ps, lens, max_len, chunk=c)
+        d = q.shape[-1]
+        scale = 1.0 / math.sqrt(d)
+        call = lambda: paged_extend_attention(        # noqa: E731
+            q, cache, slots, window=window)
+        o = counted_call(torch, call, launches_only(h6e=1))
+        ref = paged_extend_plain(q, cache, slots, scale, window)
+        rows = [0, c // 2, c - 1]
+        oracle = np.stack([band_oracle(q[s, rows], cache, s,
+                                       [int(n) + i for i in rows], window)
+                           for s, n in enumerate(hist)])
+        controls = {}
+        with newest_token_hidden(cache, slots):
+            controls["every row's own key hidden"] = paged_extend_plain(
+                q, cache, slots, scale, window)
+        if window is not None:
+            controls["window one key narrower"] = paged_extend_plain(
+                q, cache, slots, scale, window - 1)
+        what = (f"extend {name}: B={b} C={c} Hq={hq} Hkv={hkv} d={d} "
+                f"ps={ps} history {hist.min()}..{hist.max()} window {window}")
+        err = paged_check(what, o, ref,
+                          (o[:, rows].float().cpu().numpy(), oracle),
+                          controls, EXTEND_O_TOL)
+        del o, ref, controls
+        pos = hist[:, None] + np.arange(c)[None]              # [B, C]
+        first = pos - (window or 2 ** 40) + 1
+        pairs = int((pos - np.maximum(first, 0) + 1).sum())
+        tokens = int((hist + c - np.maximum(first[:, 0], 0)).sum())
+        k, v, mask = gathered_kv(torch, cache, slots, pos, window)
+        qs = q.transpose(1, 2)
+        t = kernel_times(call, lambda: paged_extend_plain(
+            q, cache, slots, scale, window), lambda: sdpa(
+            qs, k, v, attn_mask=mask, enable_gqa=hq != hkv),
+            *paged_work(hq, hkv, d, pairs, tokens, b * c))
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["max_abs_err"] = err
+        t["gflop"] = 4 * d * hq * pairs / 1e9
+        out[name] = t
+        print(f"  extend {name} times: H6-extend {t['ms']:.4f} ms (bound "
+              f"{t['bound_ms']:.4f} ms, {t['bound_by']}, {t['gflop']:.2f} "
+              f"GFLOP, {t['bound_share']:.1%}); plain {t['plain_ms']:.4f} "
+              f"ms; scaled_dot_product_attention over the gathered, "
+              f"dequantized K/V {t['library_ms']:.4f} ms")
+        del cache, q, k, v, mask
     print("phase extend: ok")
-    return e_o
+    return out
 
 
 def _rel(got, ref) -> float:
@@ -1299,11 +1519,11 @@ def _counted():
         splitkv_combine,
     )
     from exploring_flash_attention_tpu_torch.serving import (
-        paged_decode_attention,
+        paged_decode_partials,
         paged_extend_attention,
     )
     return {"h1": prefill_attention, "h2": splitkv_combine,
-            "h6": paged_decode_attention,
+            "h6": paged_decode_partials,
             "h6e": paged_extend_attention, "h3dkv": attention_bwd_dkv,
             "h3dq": attention_bwd_dq, "h4kvq": flash_attention_kvquant,
             "h4int8": flash_attention_int8, "h5": flash_attention_v1_dtiled}
@@ -1365,7 +1585,8 @@ def phase_slice(torch, dev, lm):
     out = eng.generate(prompt, max_new_tokens=n_new)
     t_first = time.perf_counter() - t0
     launches = read_counters()
-    want = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1))
+    want = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1),
+                         h2=cfg.n_layers * (n_new - 1))
     print(f"  slice launches {launches} (expected {want})")
     _require(launches == want, "the main path missed a kernel")
     _require(out.shape == (bsz, n_new) and out.dtype == np.int32
@@ -1383,9 +1604,9 @@ def phase_slice(torch, dev, lm):
         torch, params, cfg, prompt, out)
 
     # control: the same engine with every decode step's newest token hidden
-    def hide_newest(q, cache, slots):
+    def hide_newest(q, cache, slots, window=None):
         with newest_token_hidden(cache, slots):
-            return paged_decode_attention(q, cache, slots)
+            return paged_decode_attention(q, cache, slots, window=window)
 
     with mock.patch.object(generate_module, "paged_decode_attention",
                            hide_newest):
@@ -1436,8 +1657,10 @@ def phase_multiturn(torch, dev, lm):
     zero_counters()
     out2 = eng.continue_generation(turn, max_new_tokens=n_new)
     turn2 = read_counters()
-    want1 = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1))
-    want2 = launches_only(h6=cfg.n_layers * (n_new - 1), h6e=cfg.n_layers)
+    want1 = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1),
+                          h2=cfg.n_layers * (n_new - 1))
+    want2 = launches_only(h6=cfg.n_layers * (n_new - 1), h6e=cfg.n_layers,
+                          h2=cfg.n_layers * (n_new - 1))
     print(f"  multiturn launches turn 1 {turn1} (expected {want1}), "
           f"turn 2 {turn2} (expected {want2})")
     _require(turn1 == want1 and turn2 == want2,
@@ -1483,9 +1706,9 @@ def phase_multiturn(torch, dev, lm):
 
     # controls: the turn without its first token (turn 1's last), and the
     # turn with every chunk row's own key hidden in the extend kernel
-    def hide_diagonal(q, cache, slots):
+    def hide_diagonal(q, cache, slots, window=None):
         with newest_token_hidden(cache, slots):
-            return paged_extend_attention(q, cache, slots)
+            return paged_extend_attention(q, cache, slots, window=window)
 
     eng.generate(prompt, max_new_tokens=n_new, hold=True)
     short_out = eng.continue_generation(turn[:, 1:], max_new_tokens=n_new)
@@ -1540,18 +1763,54 @@ def train_step_flop(cfg, b, l):
     return 6 * weights * b * l + cfg.n_layers * 3.5 * attn_fwd
 
 
-def plain_flash_attention(q, k, v, causal=True, hidden=0, as_causal=False):
+def plain_flash_attention(q, k, v, causal=True, window=None, hidden=0,
+                          as_causal=False):
     """The model's attention on the plain PyTorch forward, differentiated
-    by autograd: the reference path of the train and encoder checks.
-    Known-wrong forwards: ``hidden=1`` hides each row's diagonal key,
-    ``as_causal`` masks a bidirectional call causally."""
+    by autograd: the reference path of the train, encoder and window_train
+    checks.  Known-wrong forwards: ``hidden=1`` hides each row's diagonal
+    key (under a window, the band shifts back one key), ``as_causal``
+    masks a bidirectional call causally.
+
+    Beyond 4096 rows, q is cut into blocks of 2048 rows, each against the
+    keys its rows see (their bands, under a window) and under
+    ``torch.utils.checkpoint``: the whole score matrix of L = 32768 would
+    take 34 GB."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
     from exploring_flash_attention_tpu_torch.ops.attention import (
         attention_plain,
     )
-    o, _ = attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[3]),
-                           causal or as_causal,
-                           k.shape[2] - q.shape[2] - hidden)
-    return o.to(q.dtype)
+
+    scale = 1.0 / math.sqrt(q.shape[3])
+    lq, lkv = q.shape[2], k.shape[2]
+
+    def part(qb, kb, vb, diag):
+        o, _ = attention_plain(qb, kb, vb, scale, causal or as_causal, diag,
+                               window)
+        return o.to(q.dtype)
+
+    diag = lkv - lq - hidden                # row i sees keys j <= i + diag
+    if lq <= 4096 or not causal:
+        return part(q, k, v, diag)
+    outs = []
+    for r0 in range(0, lq, 2048):
+        r1 = min(r0 + 2048, lq)
+        c0 = 0 if window is None else max(0, r0 + diag - window + 1)
+        c1 = min(lkv, r1 + diag)
+        outs.append(checkpoint(part, q[:, :, r0:r1], k[:, :, c0:c1],
+                               v[:, :, c0:c1], r0 + diag - c0,
+                               use_reentrant=False))
+    return torch.cat(outs, dim=2)
+
+
+def shifted_bwd(bwd, q, k, v, out, do, lse, scale, causal, diag_off,
+                window):
+    """A known-wrong backward on the kernels themselves: ``bwd`` (H3's
+    ``masked_attention_bwd``) with each row's band shifted back one key,
+    its diagonal key hidden (the plain backward would need the 34 GB score
+    matrix at L = 32768)."""
+    return bwd(q, k, v, out, do, lse, scale, causal, diag_off - 1, window)
 
 
 def hide_diagonal_bwd(q, k, v, out, do, lse, scale, causal, diag_off,
@@ -1783,11 +2042,276 @@ def phase_encoder(torch, dev):
     return counts[0], tok_s
 
 
+def phase_window_train(torch, dev):
+    """The windowed model (A8) trained at the JAX suite's long-context entry
+    (bench/suite.py:1003-1053): models.long_context_config (window 4096),
+    fresh weights from seed 0, make_train_step's AdamW (lr 1e-3) on tokens
+    [1, 32769] from np.random.default_rng(0).  Step 0's loss and every
+    gradient against the same model with the plain attention patched in
+    (blockwise over the bands), beside controls: each row's band shifted
+    back one key (its diagonal hidden) in the forward and, on H3 itself,
+    in the backward, and the band dropped (full causal) in the forward.
+    Then a warm-up and 5 timed steps, each launching H1, H3-dkv and H3-dq
+    once a layer; the last loss must be below the first, the suite's gate
+    (bench/suite.py:1045-1048)."""
+    from unittest import mock
+
+    from exploring_flash_attention_tpu_torch.models import (
+        init_params,
+        long_context_config,
+        loss_fn,
+        make_train_step,
+        make_trainable,
+        named_param_leaves,
+    )
+    from exploring_flash_attention_tpu_torch.models import (
+        transformer as transformer_module,
+    )
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd as attention_bwd_module,
+    )
+
+    cfg = long_context_config()
+    (bsz, seq), n_timed = WINDOW_TRAIN, 5
+    params = make_trainable(init_params(cfg, seed=0, device=dev))
+    names, leaves = zip(*named_param_leaves(params))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (bsz, seq + 1)).astype(np.int32)).to(dev)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+
+    def loss_and_grads():
+        loss = loss_fn(params, inputs, targets, cfg)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    def loss_only(attention):
+        with mock.patch.object(transformer_module, "flash_attention",
+                               attention), torch.no_grad():
+            return loss_fn(params, inputs, targets, cfg).item()
+
+    loss_k, grads_k = loss_and_grads()
+    with mock.patch.object(transformer_module, "flash_attention",
+                           plain_flash_attention):
+        loss_p, grads_p = loss_and_grads()
+    loss_bad = loss_only(functools.partial(plain_flash_attention, hidden=1))
+    loss_full = loss_only(
+        lambda q, k, v, causal=True, window=None: plain_flash_attention(
+            q, k, v, causal))
+    with mock.patch.object(attention_bwd_module, "masked_attention_bwd",
+                           functools.partial(
+                               shifted_bwd,
+                               attention_bwd_module.masked_attention_bwd)):
+        grads_bad = loss_and_grads()[1]
+    e_grad, leaf = leaf_err(names, grads_k, grads_p)
+    e_bad, leaf_bad = leaf_err(names, grads_bad, grads_p)
+    del grads_k, grads_p, grads_bad
+    ctl = {"band shifted back one key": abs(loss_bad - loss_p),
+           "band dropped (full causal)": abs(loss_full - loss_p)}
+    print(f"  window_train B={bsz} L={seq} window {cfg.window}: step-0 loss "
+          f"{loss_k:.6f}, with the plain attention {loss_p:.6f}: |d| "
+          f"{abs(loss_k - loss_p):.3e} (tol {TRAIN_LOSS_TOL:g}), controls "
+          f"in the forward: "
+          + ", ".join(f"{n} {x:.3e}" for n, x in ctl.items())
+          + f"; largest per-leaf ||dg||/||g|| over {len(leaves)} leaves vs "
+          f"the plain path {e_grad:.3e} at {leaf} (tol {GRAD_REL_TOL:g}), "
+          f"control (band shifted back one key in H3) {e_bad:.3e} at "
+          f"{leaf_bad}")
+    _require(math.isfinite(loss_k), "step-0 loss not finite")
+    _require(abs(loss_k - loss_p) < TRAIN_LOSS_TOL,
+             "the windowed step-0 loss differs from the plain path's")
+    _require(min(ctl.values()) > TRAIN_LOSS_TOL,
+             "the windowed loss check cannot tell a wrong band")
+    _require(e_grad < GRAD_REL_TOL,
+             "windowed gradients differ from the plain path's")
+    _require(e_bad > GRAD_REL_TOL,
+             "the windowed gradient check cannot tell a wrong backward")
+
+    step, opt_init = make_train_step(cfg)
+    opt = opt_init(params)
+    want = launches_only(h1=cfg.n_layers, h3dkv=cfg.n_layers,
+                         h3dq=cfg.n_layers)
+    losses, counts, times = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1 + n_timed):                     # a warm-up, then timed
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(params, opt, tokens).item())
+        times.append(time.perf_counter() - t0)
+        counts.append(read_counters())
+    med = float(np.median(times[1:]))
+    tok_s = bsz * seq / med
+    print(f"  window_train launches per step {counts[0]} (expected {want}); "
+          f"AdamW losses {[round(x, 6) for x in losses]}; timed steps s "
+          f"{[round(t, 5) for t in sorted(times[1:])]}: median {med:.5f} s, "
+          f"{tok_s:.1f} training tokens/s (B={bsz}, L={seq}, window "
+          f"{cfg.window}, forward + backward + AdamW); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _require(all(c == want for c in counts), "a windowed step missed a kernel")
+    _require(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    _require(losses[-1] < losses[0], "the windowed loss did not fall over "
+             "the steps (bench/suite.py:1045-1048's gate)")
+    print("phase window_train: ok")
+    return counts[0], tok_s
+
+
+def phase_window_generate(torch, dev):
+    """The windowed model (A8) served: models.long_context_config
+    (window 4096), weights from seed 0, GenerationEngine (page size 128,
+    max_len 5120) on [8, 4608] prompts, longer than the window (4 pages
+    of 128 fall wholly before every band), for 24 tokens held, then a
+    256-token second turn (turn 1's last token and 255 new ones) and 24
+    more.  Counters: turn 1 H1 4, H6-decode 92, H2 92; turn 2 H6-extend 4,
+    H6-decode 92, H2 92.  Tokens against the windowed full forward's argmax
+    (agreement or a near-tie), the cache after turn 2 against
+    forward_collect_kv over the stream, each beside its controls: a decode
+    without its band and a turn one token short for the tokens, a stream
+    one token short for the cache."""
+    from unittest import mock
+
+    from exploring_flash_attention_tpu_torch.models import (
+        GenerationEngine,
+        forward_collect_kv,
+        init_params,
+        long_context_config,
+    )
+    from exploring_flash_attention_tpu_torch.models import (
+        generate as generate_module,
+    )
+    from exploring_flash_attention_tpu_torch.serving import (
+        gather_kv,
+        paged_decode_attention,
+    )
+
+    cfg = long_context_config()
+    params = init_params(cfg, seed=0, device=dev)
+    bsz, l_prompt, n_new, l_turn, max_len = WINDOW_GENERATE
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (bsz, l_prompt)).astype(np.int32)
+    eng = GenerationEngine(params, cfg, max_seqs=bsz, max_len=max_len)
+    zero_counters()
+    out1 = eng.generate(prompt, max_new_tokens=n_new, hold=True)
+    turn1 = read_counters()
+    turn = np.concatenate([out1[:, -1:], np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (bsz, l_turn - 1)).astype(np.int32)], axis=1)
+    zero_counters()
+    out2 = eng.continue_generation(turn, max_new_tokens=n_new)
+    turn2 = read_counters()
+    steps = cfg.n_layers * (n_new - 1)
+    want1 = launches_only(h1=cfg.n_layers, h6=steps, h2=steps)
+    want2 = launches_only(h6e=cfg.n_layers, h6=steps, h2=steps)
+    print(f"  window_generate launches turn 1 {turn1} (expected {want1}), "
+          f"turn 2 {turn2} (expected {want2})")
+    _require(turn1 == want1 and turn2 == want2,
+             "the windowed generation missed a kernel")
+    for out in (out1, out2):
+        _require(out.shape == (bsz, n_new) and out.dtype == np.int32
+                 and (out >= 0).all() and (out < cfg.vocab_size).all(),
+                 f"bad tokens {out.shape} {out.dtype}")
+
+    prefix = np.concatenate([prompt, out1, turn[:, 1:]], axis=1)
+    stream = np.concatenate([prefix, out2[:, :-1]], axis=1)
+    short = np.concatenate([prompt, out1[:, :-1], turn[:, 1:], out2[:, :-1]],
+                           axis=1)
+    n = stream.shape[1]
+    _, kvs = forward_collect_kv(params, torch.from_numpy(stream).to(dev), cfg)
+    _, kvs_bad = forward_collect_kv(params, torch.from_numpy(short).to(dev),
+                                    cfg)
+    e_kv = e_bad = 0.0
+    for cache, (k_ref, v_ref), (k_bad, _) in zip(eng.caches, kvs, kvs_bad):
+        _require(bool((cache.seq_lens[:bsz] == n).all()),
+                 f"cache lengths {cache.seq_lens.tolist()}, expected {n}")
+        for s in range(bsz):
+            k, v = gather_kv(cache, s)
+            e_kv = max(e_kv,
+                       (k - k_ref[s].transpose(0, 1)).abs().max().item(),
+                       (v - v_ref[s].transpose(0, 1)).abs().max().item())
+            e_bad = max(e_bad, (k[:, :n - 1] - k_bad[s].transpose(0, 1))
+                        .abs().max().item())
+    del kvs, kvs_bad
+    eng.release()
+    free = eng.allocator.free_pages
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again1 = eng.generate(prompt, max_new_tokens=n_new, hold=True)
+    torch.cuda.synchronize()
+    dt1 = time.perf_counter() - t0
+    again2 = eng.continue_generation(turn, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    dt2 = time.perf_counter() - t0 - dt1
+    eng.release()
+
+    # controls: the band dropped in decode (turn 1) and turn 2 without its
+    # first token, both required to fail; and, printed, every decode step
+    # with its newest token hidden and the decode band one key narrower
+    def hide_newest(q, cache, slots, window=None):
+        with newest_token_hidden(cache, slots):
+            return paged_decode_attention(q, cache, slots, window=window)
+
+    def narrower(q, cache, slots, window=None):
+        return paged_decode_attention(q, cache, slots, window=window - 1)
+
+    def no_band(q, cache, slots, window=None):
+        return paged_decode_attention(q, cache, slots)
+
+    bad = {}
+    for name, fn in (("newest token hidden", hide_newest),
+                     ("decode window one key narrower", narrower),
+                     ("band dropped in decode", no_band)):
+        with mock.patch.object(generate_module, "paged_decode_attention", fn):
+            bad[name] = (prompt, eng.generate(prompt, max_new_tokens=n_new))
+    eng.generate(prompt, max_new_tokens=n_new, hold=True)
+    bad["turn 2 without its first token"] = (prefix, eng.continue_generation(
+        turn[:, 1:], max_new_tokens=n_new))
+    eng.release()
+    agree1, steps1, gap1 = compare_with_full_forward(torch, params, cfg,
+                                                     prompt, out1)
+    agree2, steps2, gap2 = compare_with_full_forward(torch, params, cfg,
+                                                     prefix, out2)
+    ctl = {name: compare_with_full_forward(torch, params, cfg, pre, out)
+           for name, (pre, out) in bad.items()}
+    short_turn = ctl.pop("turn 2 without its first token")
+    no_band_turn = ctl.pop("band dropped in decode")
+    print(f"  window_generate cache after turn 2 ({n} tokens, window "
+          f"{cfg.window}): max|dK|,|dV| vs forward_collect_kv over the "
+          f"stream {e_kv:.3e} (tol {CACHE_KV_TOL:g}), control (stream one "
+          f"token short) {e_bad:.3e}; pages free after release {free}/"
+          f"{eng.allocator.n_pages}")
+    print(f"  window_generate B={bsz} prompt {l_prompt}: turn 1 {dt1:.4f} s "
+          f"({bsz * n_new / dt1:.1f} tokens/s incl. prefill), turn 2 "
+          f"{dt2:.4f} s ({bsz * n_new / dt2:.1f} tokens/s incl. the "
+          f"extend); repeats identical: "
+          f"{bool(np.array_equal(out1, again1) and np.array_equal(out2, again2))}"
+          f"; full-forward agreement turn 1 {agree1}/{steps1}, largest gap "
+          f"of a disagreement {gap1:.4f}; turn 2 {agree2}/{steps2}, "
+          f"{gap2:.4f} (limit {LOGIT_GAP}); controls: band dropped in "
+          f"decode (turn 1) {no_band_turn[0]}/{no_band_turn[1]}, largest gap "
+          f"{no_band_turn[2]:.4f}, turn 2 without its first token "
+          f"{short_turn[0]}/{short_turn[1]}, largest gap "
+          f"{short_turn[2]:.4f}; one-key controls (not required to fail: "
+          f"over 4096 keys a one-key fault moves no logit beyond a near-tie "
+          f"at random weights, the decode phase's windowed case catches "
+          f"it): " + ", ".join(f"{name} {a}/{st}, largest gap {g:.4f}"
+                               for name, (a, st, g) in ctl.items()))
+    _require(e_kv < CACHE_KV_TOL, "the windowed cache after turn 2 differs "
+             "from the forward over the stream")
+    _require(e_bad > CACHE_KV_TOL,
+             "the cache check cannot tell a stream one token short")
+    _require(free == eng.allocator.n_pages, "release() kept pages")
+    _require(max(gap1, gap2) < LOGIT_GAP, "a windowed token differs from "
+             "the windowed full forward's beyond a tie")
+    _require(min(short_turn[2], no_band_turn[2]) >= LOGIT_GAP,
+             "the windowed full-forward check cannot tell a decode without "
+             "its band or a turn one token short")
+    print("phase window_generate: ok")
+    return turn1, turn2, {"turn1_tokens_s": bsz * n_new / dt1,
+                          "turn2_tokens_s": bsz * n_new / dt2}
+
+
 def time_kernels(torch, dev):
-    """CUDA-event medians (L2 flushed before each call) of H6-decode,
-    H6-extend and H3 beside their plain versions, their bounds from these
-    inputs and, for H3, the backward of scaled_dot_product_attention; and
-    H1 at the generation and training shapes and at the v1 phase's causal
+    """CUDA-event medians (L2 flushed before each call) of H3 beside its
+    plain version, its bounds from these inputs and the backward of
+    scaled_dot_product_attention; and H1 at the generation and training shapes and at the v1 phase's causal
     cross case beside scaled_dot_product_attention (is_causal where Lq ==
     Lkv, a bottom-right boolean mask at Lq=512, Lkv=1024); the v1 phase
     times H1 at the canonical shape."""
@@ -1800,12 +2324,6 @@ def time_kernels(torch, dev):
         attention_plain,
         flash_attention_bwd,
         prefill_attention,
-    )
-    from exploring_flash_attention_tpu_torch.serving import (
-        paged_decode_attention,
-        paged_decode_plain,
-        paged_extend_attention,
-        paged_extend_plain,
     )
     from exploring_flash_attention_tpu_torch.utils import time_cuda
 
@@ -1827,32 +2345,7 @@ def time_kernels(torch, dev):
                         2 * d * 2 * (b * hq * l + b * hkv * l)
                         + 4 * b * hq * l)[0]
 
-    # H6: int8 K and V rows plus their f32 scales for every cached token,
-    # q and o in bf16; 4 flops per (q head, token, d)
     hq, hkv, d = 8, 4, 128
-    cache, qd, slots, lens = make_decode_case(torch, dev)
-    n_tok = int(lens.sum())
-    out["h6"] = {
-        "ms": time_cuda(lambda: paged_decode_attention(qd, cache, slots)),
-        "plain_ms": time_cuda(lambda: paged_decode_plain(qd, cache, slots,
-                                                         s)),
-        "library_ms": None}
-    out["h6"]["bound_ms"], out["h6"]["bound_by"] = roofline(
-        4 * hq * d * n_tok,
-        n_tok * hkv * (2 * d + 8) + 2 * len(lens) * hq * d * 2)
-    c = 256
-    cache, qe, slots, lens = make_decode_case(torch, dev, chunk=c)
-    seen = sum(c * int(n) + c * (c + 1) // 2 for n in lens)  # (row, key)
-    out["h6e"] = {
-        "ms": time_cuda(lambda: paged_extend_attention(qe, cache, slots)),
-        "plain_ms": time_cuda(lambda: paged_extend_plain(qe, cache, slots,
-                                                         s)),
-        "library_ms": None}
-    out["h6e"]["bound_ms"], out["h6e"]["bound_by"] = roofline(
-        4 * hq * d * seen,
-        int(lens.sum() + c * len(lens)) * hkv * (2 * d + 8)
-        + 2 * len(lens) * c * hq * d * 2)
-    del cache
     # H3 at the training shape, causal (the train step) and without a mask
     # (the encoder step): each kernel alone, the delta reduction alone, the
     # pair through flash_attention_bwd, against the whole plain backward
@@ -1925,14 +2418,7 @@ def time_kernels(torch, dev):
           f"H1 {h1[0]:.4f} ms vs plain {h1[1]:.4f} ms (bound "
           f"{h1_bound(256):.4f} ms; scaled_dot_product_attention causal "
           f"{out['h1_causal_library']['L=256']:.4f} ms) at B=8 Hq=8 Hkv=4 "
-          f"L=256 d=128; H6-decode {out['h6']['ms']:.4f} ms vs plain "
-          f"{out['h6']['plain_ms']:.4f} ms (bound "
-          f"{out['h6']['bound_ms']:.4f} ms, {out['h6']['bound_by']}) at B=8 "
-          f"Hq=8 Hkv=4 ctx 257..280 d=128; H6-extend "
-          f"{out['h6e']['ms']:.4f} ms vs plain {out['h6e']['plain_ms']:.4f} "
-          f"ms (bound {out['h6e']['bound_ms']:.4f} ms, "
-          f"{out['h6e']['bound_by']}) at B=8 C=256 Hq=8 Hkv=4 history "
-          f"257..280 d=128")
+          f"L=256 d=128 (the decode and extend phases time H6)")
     print(f"  times at B=8 Hq=8 Hkv=4 L=1024 d=128 causal: H1 forward "
           f"{h1_long:.4f} ms (bound {h1_bound(1024):.4f} "
           f"ms; scaled_dot_product_attention causal "
@@ -1941,6 +2427,63 @@ def time_kernels(torch, dev):
           f"cross): H1 {h1_cross:.4f} ms (bound {cross_bound:.4f} ms); "
           f"scaled_dot_product_attention with the bottom-right boolean mask "
           f"{out['h1_causal_library']['Lq=512 Lkv=1024']:.4f} ms")
+    del q, k, v
+    out["window_train_shape"] = window_attention_times(torch, dev, gen)
+    return out
+
+
+def window_attention_times(torch, dev, gen):
+    """H1 and H3 at the windowed model's training shape (B=1, Hq=8, Hkv=4,
+    L=32768, d=128) under its window and under the causal mask alone: the
+    band's tiles must take under half the causal time (O(L * window)
+    pairs, not O(L^2)).  No library time: SDPA takes a band only as a
+    dense L x L mask, over all L^2 pairs."""
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    (b, l), hq, hkv, d = WINDOW_TRAIN, 8, 4, 128
+    s = 1.0 / math.sqrt(d)
+    q, do = (_bf16(torch, dev, gen, b, hq, l, d) for _ in range(2))
+    k, v = (_bf16(torch, dev, gen, b, hkv, l, d) for _ in range(2))
+    q_bytes, kv_bytes, row_bytes = b * hq * l * d * 2, b * hkv * l * d * 2, \
+        b * hq * l * 4
+    out = {}
+    for name, window in (("window", WINDOW), ("causal", None)):
+        o, lse = prefill_attention(q, k, v, s, 0, True, window)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        pairs = visible_pairs(l, l, True, window) * b * hq
+        t = {"h1": {"ms": time_cuda(lambda: prefill_attention(
+                 q, k, v, s, 0, True, window), n_iter=10)},
+             "h3dkv": {"ms": time_cuda(lambda: attention_bwd_dkv(
+                 q, k, v, do, lse, delta, s, True, 0, window), n_iter=10)},
+             "h3dq": {"ms": time_cuda(lambda: attention_bwd_dq(
+                 q, k, v, do, lse, delta, s, True, 0, window), n_iter=10)}}
+        work = {"h1": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+                "h3dkv": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes
+                          + 2 * row_bytes),
+                "h3dq": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes
+                         + 2 * row_bytes)}
+        for kern, (flop, nbytes) in work.items():
+            t[kern]["bound_ms"], t[kern]["bound_by"] = roofline(flop, nbytes)
+            t[kern]["bound_share"] = t[kern]["bound_ms"] / t[kern]["ms"]
+        out[name] = t
+        del o, lse, delta
+    print(f"  times at B={b} Hq={hq} Hkv={hkv} L={l} d={d}, window "
+          f"{WINDOW} vs causal: "
+          + "; ".join(f"{n} {out['window'][n]['ms']:.4f} ms (bound "
+                      f"{out['window'][n]['bound_ms']:.4f}, "
+                      f"{out['window'][n]['bound_share']:.1%}) vs "
+                      f"{out['causal'][n]['ms']:.4f} ms, ratio "
+                      f"{out['window'][n]['ms'] / out['causal'][n]['ms']:.3f}"
+                      for n in ("h1", "h3dkv", "h3dq"))
+          + " (each must be < 0.5: tiles outside the band are skipped)")
+    _require(all(out["window"][n]["ms"] < 0.5 * out["causal"][n]["ms"]
+                 for n in ("h1", "h3dkv", "h3dq")),
+             "H1 or H3 does not skip the tiles outside the band")
     return out
 
 
@@ -1965,8 +2508,8 @@ def main() -> int:
     v1_launches, v1_err, v1_t, h2 = phase_v1(torch, dev)
     quant_gates, kvq, int8 = phase_quant(torch, dev)
     dtiled_gates, h5 = phase_dtiled(torch, dev)
-    h6_err = phase_decode(torch, dev)
-    h6e_err = phase_extend(torch, dev)
+    h6 = phase_decode(torch, dev)
+    h6e = phase_extend(torch, dev)
     h3_err = phase_bwd(torch, dev)
     lm = make_flagship(torch, dev)
     launches, _ = phase_slice(torch, dev, lm)
@@ -1974,7 +2517,12 @@ def main() -> int:
     del lm
     train, _ = phase_train(torch, dev)
     encoder, _ = phase_encoder(torch, dev)
+    wtrain, _ = phase_window_train(torch, dev)
+    wturn1, wturn2, _ = phase_window_generate(torch, dev)
     t = time_kernels(torch, dev)
+    h6_main, h6e_main = h6[DECODE_CASES[0][0]], h6e[EXTEND_CASES[0][0]]
+    main_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "bound_share", "max_abs_err")
     _require("jax" not in sys.modules, "JAX was imported")
     print(json.dumps({"kernels": [
         # H1's numbers are the v1 phase's: its main call at bench.py's
@@ -1990,24 +2538,47 @@ def main() -> int:
          "launches_by_path": {"v1": v1_launches["h1"],
                               "slice": launches["h1"],
                               "train_step": train["h1"],
-                              "encoder_step": encoder["h1"]},
+                              "encoder_step": encoder["h1"],
+                              "window_train_step": wtrain["h1"],
+                              "window_generate_turn_1": wturn1["h1"]},
+         "window_train_shape": {m: t["window_train_shape"][m]["h1"]
+                                for m in ("window", "causal")},
          **v1_t, "library_ms_by_case": {
              **v1_t["library_ms_by_case"],
              **{f"B4 causal {n}": x
                 for n, x in t["h1_causal_library"].items()}}},
-        # H2 runs in the v1 phase's split case, its main path
+        # H2: its numbers are the v1 phase's split case; on the generation
+        # path it merges every decode step's partials
         {"name": "H2 split-KV combine (LSE-weighted merge of span partials)",
          "route": "cuda", "source": H2_SRC, "replaces": f"{SPLITKV_PY}:330",
-         **h2},
-        {"name": "H6-decode paged INT8 decode attention", "route": "cuda",
+         **h2, "launches": launches["h2"],
+         "launches_by_path": {"v1": h2["launches"], "slice": launches["h2"],
+                              "multiturn_turn_2": turn2["h2"],
+                              "window_generate_turn_1": wturn1["h2"],
+                              "window_generate_turn_2": wturn2["h2"]},
+         "decode_merge_ms": {n: x["h2_ms"] for n, x in h6.items()}},
+        # H6's numbers are the slice's and the multi-turn's cases; by_case
+        # holds every case of the decode and extend phases
+        {"name": "H6-decode paged INT8 decode attention (window; split "
+                 "across the SMs, merged by H2)", "route": "cuda",
          "source": H6_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:74",
-         "launches": launches["h6"], "max_abs_err": h6_err, **t["h6"]},
-        {"name": "H6-extend paged INT8 chunked-prefill attention",
+         "launches": launches["h6"],
+         **{k: h6_main[k] for k in main_keys},
+         "design": "split-KV over a 1-D TMA (cp.async.bulk) ring, H2 merge",
+         "with_merge_ms": h6_main["with_merge_ms"], "by_case": h6,
+         "launches_by_path": {"slice": launches["h6"],
+                              "multiturn_turn_2": turn2["h6"],
+                              "window_generate_turn_1": wturn1["h6"],
+                              "window_generate_turn_2": wturn2["h6"]}},
+        {"name": "H6-extend paged INT8 chunked-prefill attention (window)",
          "route": "cuda", "source": H6E_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:257",
          "also_replaces": "exploring_flash_attention_tpu/serving/decode.py:455",
-         "launches": turn2["h6e"], "max_abs_err": h6e_err, **t["h6e"]},
+         "launches": turn2["h6e"], **{k: h6e_main[k] for k in main_keys},
+         "design": "wgmma", "by_case": h6e,
+         "launches_by_path": {"multiturn_turn_2": turn2["h6e"],
+                              "window_generate_turn_2": wturn2["h6e"]}},
         # H3's numbers are the training shape's, causal as the train step
         # runs it; "none" holds them without a mask, as the encoder step
         # runs it.  plain_ms is the whole plain backward, and library_ms
@@ -2020,9 +2591,13 @@ def main() -> int:
            "max_abs_err": h3_err["causal"][f"h3{n}"], "design": "wgmma",
            **t["h3_causal"][f"h3{n}"],
            "launches_by_path": {"train_step": train[f"h3{n}"],
-                                "encoder_step": encoder[f"h3{n}"]},
+                                "encoder_step": encoder[f"h3{n}"],
+                                "window_train_step": wtrain[f"h3{n}"]},
            "max_abs_err_by_mask": {m: e[f"h3{n}"] for m, e in h3_err.items()},
            "none": t["h3_none"][f"h3{n}"],
+           "window_train_shape": {
+               m: t["window_train_shape"][m][f"h3{n}"]
+               for m in ("window", "causal")},
            "delta_ms": {m: t[f"h3_{m}"]["delta_ms"]
                         for m in ("causal", "none")},
            "pair_ms": {m: t[f"h3_{m}"]["pair_ms"]

@@ -1,39 +1,92 @@
-// H6-decode: paged INT8 decode attention on Hopper (sm_90a).
+// H6-decode: paged INT8 decode attention on Hopper (sm_90a), split across
+// the SMs; H2 (splitkv_combine.cu) merges its partials.
 //
 // Replaces the TPU kernel B20 _decode_kernel
 // (exploring_flash_attention_tpu/serving/decode.py:74): one new token per
-// sequence attends over that sequence's whole paged INT8 KV history.
+// sequence attends over that sequence's paged INT8 KV history, or, with a
+// sliding window, over its last `window` positions only.
 //
 // B20 runs ONE program over a flattened (sequence, page) work list,
 // because a TPU core runs its grid in order and a deep DMA window had to
 // stay full across sequence boundaries.  Here the card runs blocks in
-// parallel, so the design is one block per (batch row, KV head).  The
-// block serves the head's whole GQA group (G q heads read the same K/V),
-// reads its own slot, seq_lens[slot] and page-table row from device memory
-// (no host sync), and walks the pages with an online softmax.  Dequant is
-// folded as in B20: S = (q . K^T) * scale * k_scale[col]; columns at or past
-// the sequence length are masked; l sums the unscaled p; P * v_scale[col]
-// is rounded to the q dtype (bf16) before P V.
+// parallel, and one block per (sequence, KV head) is 32 blocks on 132 SMs
+// at the slice's shape.  So this is the FlashDecoding form: the grid is
+// (n_split, Hkv, B) and block (k, kh, b) takes run k of the sequence's
+// visible pages, pages_per_split of them from the first in-band page on
+// (B20's page list, decode.py:120-121), chosen on the host from the
+// cache's shape (serving/decode.py decode_split), so that no host sync
+// reads seq_lens.  It writes the run's partial in H2's layout: O [B, Hq,
+// n_split, 1, d] normalized over the run and its natural-log LSE [B, Hq,
+// n_split, 1], scale included; a run that sees nothing writes the merge
+// identity (0, -inf), and so does an empty or invalid slot.
+//
+// Cost: the bytes.  Every visible cached token is one int8 K row and one
+// V row of d bytes and two f32 scales per KV head: 138 MB at the JAX
+// suite's decode entry (B=32, Hkv=8, d=128, 2048 tokens), 0.041 ms at
+// 3.35 TB/s, against 4 flops per (q head, token, d).  The block holds its
+// G <= 8 q heads' rows in registers and stages the pages with 1-D TMA:
+//   - the run is cut into tiles of 128 tokens (a page of 128 or 256 is one
+//     or two), each tile being four contiguous slabs: K and V codes
+//     (128 * d bytes each) and their scales (512 bytes each), which
+//     thread 0 brings into a ring of three stages with cp.async.bulk on
+//     an mbarrier, so the next two tiles are in flight while one is
+//     computed; no thread reads K or V from global memory;
+//   - S = q K^T: d / 16 lanes per token, 16 codes (one 16-byte shared
+//     load) per lane, converted exactly to f32, the group's rows' dot
+//     products summed over the lanes by a shuffle tree, then
+//     * k_scale * scale * log2(e); a column outside [first visible,
+//     seq_len) is -inf;
+//   - the online softmax, one warp per q row: the tile's max by shuffles,
+//     p = exp2(s - m), l summing the unscaled p, P * v_scale rounded to
+//     bf16 (as B20 rounds it to the q dtype); a hidden column's P * v_scale
+//     is 0 whatever its (possibly reused) page holds;
+//   - O += P V: warp w walks the tile's tokens 32w .. 32w + 31, each lane
+//     owning d / 32 columns of every q row (one 4-byte shared load of V
+//     per token), O rescaled by alpha per tile; the four warps' sums meet
+//     in shared memory at the end.
 //
 // Layout, per serving/kv_cache.py of the port: pages int8
 // [n_pages, 2, Hkv, ps, d] (0 = K, 1 = V), scales f32 [n_pages, 2, Hkv, 1, ps].
-//
-// Cost: per layer and step the block set reads B*ctx*Hkv*d*2 bytes of int8
-// plus 8 bytes of scales per (token, head): about 2.3 MB at B=8, ctx~280,
-// Hkv=4, d=128.  That is bandwidth work, and tiny: with B*Hkv = 32 blocks
-// on 132 SMs the kernel is latency-bound.  A fast version splits each
-// sequence's pages across several blocks (split-KV) and merges the
-// (O, LSE) partials in a second pass, and loads pages with cp.async/TMA.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "wgmma_tile.cuh"
+
 namespace {
 
-constexpr int MAX_G = 8;          // q heads per KV head served by one block
-constexpr int MAX_SMEM = 48 * 1024;
+using namespace eft::hopper;
+
+constexpr int TILE = 128;        // tokens per stage
+constexpr int STAGES = 3;        // tiles in the ring
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+
+// Shared memory of one block: the ring (K codes, V codes, K scales, V
+// scales per stage), S [GMAX][TILE], P * v_scale [TILE][GMAX], alpha, m,
+// l of each q row, the barriers.  The four warps' O sums reuse the ring.
+template <int D, int GMAX>
+struct Smem {
+  static constexpr uint32_t CODES = TILE * D;
+  static constexpr uint32_t STAGE = 2 * CODES + 2 * TILE * 4;
+  static constexpr size_t ring = 0;
+  static constexpr size_t s = ring + size_t(STAGES) * STAGE;
+  static constexpr size_t p = s + size_t(GMAX) * TILE * 4;
+  static constexpr size_t rows = p + size_t(TILE) * GMAX * 4;   // alpha, m, l
+  static constexpr size_t bars = (rows + 3 * GMAX * 4 + 15) / 16 * 16;
+  static constexpr size_t bytes = bars + 8 * STAGES;
+  static_assert(size_t(WARPS) * GMAX * D * 4 <= STAGE, "O sums fit a stage");
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -42,180 +95,311 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One block of D threads per (batch row, KV head).  Thread t owns output
-// column t of every q head of the group; for Q K^T each warp takes one key
-// row at a time with its lanes splitting d.
-template <int D>
-__global__ void __launch_bounds__(D)
+template <int D, int GMAX>
+__global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
                     const int8_t* __restrict__ pages,      // [n_pages, 2, Hkv, ps, D]
                     const float* __restrict__ scales,      // [n_pages, 2, Hkv, 1, ps]
                     const int* __restrict__ page_table,    // [max_seqs, max_pages]
                     const int* __restrict__ seq_lens,      // [max_seqs]
                     const int* __restrict__ slots,         // [B]
-                    __nv_bfloat16* __restrict__ o,         // [B, Hq, D]
-                    int hq, int hkv, int page_size, int max_pages,
-                    int max_seqs, float scale) {
-  constexpr int NW = D / 32;
-  constexpr int EPL = D / 32;                  // d elements per lane
-  extern __shared__ __align__(16) float dsmem[];
-  __shared__ float red[MAX_G][NW];
+                    float* __restrict__ o_part,            // [B, Hq, n_split, 1, D]
+                    float* __restrict__ lse,               // [B, Hq, n_split, 1]
+                    int hq, int hkv, int ps, int max_pages, int max_seqs,
+                    int window, int pages_per_split, float scale_log2) {
+  using S = Smem<D, GMAX>;
+  constexpr int LPT = D / 16;          // lanes per token in S = q K^T
+  constexpr int TPI = THREADS / LPT;   // tokens per pass of the block
+  constexpr int CPL = D / 32;          // O columns per lane in P V
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_s = reinterpret_cast<float*>(smem + S::s);
+  float* s_p = reinterpret_cast<float*>(smem + S::p);
+  float* s_alpha = reinterpret_cast<float*>(smem + S::rows);
+  float* s_m = s_alpha + GMAX;
+  float* s_l = s_m + GMAX;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::bars);
+
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int group = hq / hkv;
-  float* sq = dsmem;                           // [group][D] q in f32
-  float* sp = sq + group * D;                  // [group][page_size] S, then P
 
-  const int b = blockIdx.x;
-  const int hk = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
+  // this block's run: tokens [tok_begin, tok_end) of the sequence
   const int slot = slots[b];
-  const int n = (slot >= 0 && slot < max_seqs) ? seq_lens[slot] : 0;
-  const __nv_bfloat16* qb = q + (size_t(b) * hq + size_t(hk) * group) * D;
-  for (int g = 0; g < group; ++g) sq[g * D + tid] = __bfloat162float(qb[g * D + tid]);
+  const bool valid = slot >= 0 && slot < max_seqs;
+  const int n = valid ? min(seq_lens[slot], max_pages * ps) : 0;
+  const int first_vis = window > 0 ? max(n - window, 0) : 0;
+  const int run0 = first_vis / ps + split * pages_per_split;
+  const int run1 = min(run0 + pages_per_split, (n + ps - 1) / ps);
+  const int tok_begin = max(run0 * ps, first_vis);
+  const int tok_end = min(run1 * ps, n);
+  const int tile0 = tok_begin / TILE;
+  const int n_tiles = tok_end > tok_begin ? (tok_end - 1) / TILE - tile0 + 1
+                                          : 0;
+  const int* pt = page_table + size_t(valid ? slot : 0) * max_pages;
 
-  float m[MAX_G], l[MAX_G], acc[MAX_G];
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    m[g] = -CUDART_INF_F;
-    l[g] = 0.f;
-    acc[g] = 0.f;
+  auto issue = [&](int i) {            // tile i of the run into its stage
+    const int tok = (tile0 + i) * TILE;
+    const size_t page = size_t(pt[tok / ps]);
+    const int off = tok % ps;
+    unsigned char* st = smem + S::ring + size_t(i % STAGES) * S::STAGE;
+    uint64_t* bar = &full[i % STAGES];
+    const size_t k_slab = (page * 2 * hkv + kh) * ps + off;   // K rows
+    const size_t v_slab = k_slab + size_t(hkv) * ps;          // V rows
+    mbar_arrive_expect_tx(bar, S::STAGE);
+    bulk_load(st, pages + k_slab * D, S::CODES, bar);
+    bulk_load(st + S::CODES, pages + v_slab * D, S::CODES, bar);
+    bulk_load(st + 2 * S::CODES, scales + k_slab, TILE * 4, bar);
+    bulk_load(st + 2 * S::CODES + TILE * 4, scales + v_slab, TILE * 4, bar);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+    for (int i = 0; i < STAGES && i < n_tiles; ++i) issue(i);
   }
 
-  const size_t slab = size_t(page_size) * D;   // one (K or V, head) of a page
-  const int n_pages = (n + page_size - 1) / page_size;
-  for (int j = 0; j < n_pages; ++j) {
-    const size_t page = size_t(page_table[size_t(slot) * max_pages + j]);
-    const int ntok = min(n - j * page_size, page_size);
-    const int8_t* kp = pages + ((page * 2 + 0) * hkv + hk) * slab;
-    const int8_t* vp = pages + ((page * 2 + 1) * hkv + hk) * slab;
-    const float* ks = scales + ((page * 2 + 0) * hkv + hk) * page_size;
-    const float* vs = scales + ((page * 2 + 1) * hkv + hk) * page_size;
-    __syncthreads();                 // q staged / previous page's P consumed
-
-    // S = (q . k) * scale * k_scale for the page's visible rows
-    for (int t = warp; t < ntok; t += NW) {
-      const int8_t* kr = kp + size_t(t) * D + lane * EPL;
-      float kf[EPL];
+  // this lane's 16 columns of every q row of the group, in f32
+  const int chunk = lane % LPT;
+  float qr[GMAX][16];
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) kf[e] = float(kr[e]);
+  for (int g = 0; g < GMAX; ++g) {
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g < group) {
-          float part = 0.f;
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) part += sq[g * D + lane * EPL + e] * kf[e];
-          part = warp_sum(part);
-          if (lane == 0) sp[g * page_size + t] = part * scale * ks[t];
-        }
-      }
-    }
-    __syncthreads();
-
-    float m_new[MAX_G], alpha[MAX_G];
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < group) {
-        float pm = -CUDART_INF_F;
-        for (int t = 0; t < ntok; ++t) pm = fmaxf(pm, sp[g * page_size + t]);
-        m_new[g] = fmaxf(m[g], pm);
-        alpha[g] = expf(m[g] - m_new[g]);      // 0 while m was -inf
-      }
-    }
-    __syncthreads();                 // every thread has read S
-
-    // P = exp(S - m_new); l sums the unscaled p; the stored P carries the
-    // V scale and is rounded to bf16, the q dtype
-    float psum[MAX_G];
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) psum[g] = 0.f;
-    for (int t = tid; t < ntok; t += D) {
-      const float vsc = vs[t];
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g < group) {
-          const float p = expf(sp[g * page_size + t] - m_new[g]);
-          psum[g] += p;
-          sp[g * page_size + t] = __bfloat162float(__float2bfloat16(p * vsc));
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < group) {
-        const float w = warp_sum(psum[g]);
-        if (lane == 0) red[g][warp] = w;
-      }
-    }
-    __syncthreads();
-
-    float pv[MAX_G];
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      pv[g] = 0.f;
-      if (g < group) {
-        float total = 0.f;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) total += red[g][w];
-        l[g] = l[g] * alpha[g] + total;
-      }
-    }
-    // O column tid += P V
-    for (int t = 0; t < ntok; ++t) {
-      const float vv = float(vp[size_t(t) * D + tid]);
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g)
-        if (g < group) pv[g] += sp[g * page_size + t] * vv;
-    }
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < group) {
-        acc[g] = acc[g] * alpha[g] + pv[g];
-        m[g] = m_new[g];
-      }
-    }
-  }
-
-  __nv_bfloat16* ob = o + (size_t(b) * hq + size_t(hk) * group) * D;
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
+    for (int e = 0; e < 16; ++e) qr[g][e] = 0.f;
     if (g < group) {
-      const float denom = l[g] == 0.f ? 1.f : l[g];
-      ob[g * D + tid] = __float2bfloat16(acc[g] / denom);
+      const __nv_bfloat16* src =
+          q + (size_t(b) * hq + size_t(kh) * group + g) * D + chunk * 16;
+      const uint4 raw[2] = {reinterpret_cast<const uint4*>(src)[0],
+                            reinterpret_cast<const uint4*>(src)[1]};
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(raw);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) qr[g][e] = __bfloat162float(h[e]);
     }
+  }
+  // the softmax state of rows warp and warp + 4 (this warp's)
+  float m_row[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_row[2] = {0.f, 0.f};
+  float acc[GMAX][CPL];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[g][c] = 0.f;
+  __syncthreads();                     // barriers initialized
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const unsigned char* st = smem + S::ring + size_t(i % STAGES) * S::STAGE;
+    const int8_t* k_s = reinterpret_cast<const int8_t*>(st);
+    const int8_t* v_s = k_s + S::CODES;
+    const float* ks_s = reinterpret_cast<const float*>(st + 2 * S::CODES);
+    const float* vs_s = ks_s + TILE;
+    const int base = (tile0 + i) * TILE;
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+
+    // S = q K^T * k_scale * scale * log2(e), -inf outside the run's band
+    for (int t = tid / LPT; t < TILE; t += TPI) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(k_s + t * D +
+                                                        chunk * 16);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      float kf[16];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        float f[4];
+        s8x4_to_f32(w[x], f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) kf[4 * x + e] = f[e];
+      }
+      float dot[GMAX];
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) sum = fmaf(qr[g][e], kf[e], sum);
+#pragma unroll
+        for (int off = LPT / 2; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        dot[g] = sum;
+      }
+      if (chunk == 0) {
+        const int col = base + t;
+        const bool vis = col >= tok_begin && col < tok_end;
+        const float kc = ks_s[t] * scale_log2;
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g)
+          if (g < group) s_s[g * TILE + t] = vis ? dot[g] * kc : -CUDART_INF_F;
+      }
+    }
+    __syncthreads();
+
+    // the online softmax: warp w takes rows w and w + 4
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int g = warp + WARPS * r;
+      if (g >= group) continue;
+      float x[TILE / 32];
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < TILE / 32; ++j) {
+        x[j] = s_s[g * TILE + lane + 32 * j];
+        mx = fmaxf(mx, x[j]);
+      }
+      const float m_new = fmaxf(m_row[r], warp_max(mx));
+      const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TILE / 32; ++j) {
+        const int t = lane + 32 * j;
+        const float p = exp2f(x[j] - m_use);                 // 0 where hidden
+        psum += p;
+        s_p[t * GMAX + g] = x[j] == -CUDART_INF_F
+            ? 0.f : __bfloat162float(__float2bfloat16(p * vs_s[t]));
+      }
+      const float alpha = exp2f(m_row[r] - m_use);
+      l_row[r] = l_row[r] * alpha + warp_sum(psum);
+      m_row[r] = m_new;
+      if (lane == 0) s_alpha[g] = alpha;
+    }
+    __syncthreads();
+
+    // O = alpha O + P V over this warp's 32 tokens
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      const float a = g < group ? s_alpha[g] : 0.f;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[g][c] *= a;
+    }
+    for (int t = warp * 32; t < warp * 32 + 32; ++t) {
+      float vf[CPL];
+      if constexpr (CPL == 4) {
+        float f[4];
+        s8x4_to_f32(*reinterpret_cast<const uint32_t*>(v_s + t * D + 4 * lane),
+                    f);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) vf[c] = f[c];
+      } else {
+        const int8_t* v2 = v_s + t * D + 2 * lane;
+        vf[0] = float(v2[0]);
+        vf[1] = float(v2[1]);
+      }
+      float pg[GMAX];
+      if constexpr (GMAX >= 4) {
+#pragma unroll
+        for (int g4 = 0; g4 < GMAX / 4; ++g4) {
+          const float4 p4 =
+              *reinterpret_cast<const float4*>(s_p + t * GMAX + 4 * g4);
+          pg[4 * g4] = p4.x;
+          pg[4 * g4 + 1] = p4.y;
+          pg[4 * g4 + 2] = p4.z;
+          pg[4 * g4 + 3] = p4.w;
+        }
+      } else {
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) pg[g] = s_p[t * GMAX + g];
+      }
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) acc[g][c] = fmaf(pg[g], vf[c], acc[g][c]);
+    }
+    __syncthreads();                   // the stage, S and P are free again
+    if (tid == 0 && i + STAGES < n_tiles) issue(i + STAGES);
+  }
+
+  // the four warps' O sums meet in the (now idle) ring; rows' m and l
+  float* red = reinterpret_cast<float*>(smem + S::ring);   // [WARPS][GMAX][D]
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      red[(warp * GMAX + g) * D + CPL * lane + c] = acc[g][c];
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int g = warp + WARPS * r;
+      if (g < group) {
+        s_m[g] = m_row[r];
+        s_l[g] = l_row[r];
+      }
+    }
+  }
+  __syncthreads();
+  const size_t row0 = size_t(b) * hq + size_t(kh) * group;  // first q head
+  for (int x = tid; x < group * D; x += THREADS) {
+    const int g = x / D, col = x % D;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) sum += red[(w * GMAX + g) * D + col];
+    const float l = s_l[g];
+    o_part[((row0 + g) * n_split + split) * D + col] = sum / (l == 0.f ? 1.f : l);
+  }
+  if (tid < group) {
+    const float l = s_l[tid];
+    lse[(row0 + tid) * n_split + split] =
+        l == 0.f ? -CUDART_INF_F
+                 : s_m[tid] * 0.6931471805599453f + logf(l);
   }
 }
 
-template <int D>
+template <int D, int GMAX>
 int launch(const void* q, const void* pages, const void* scales,
            const void* page_table, const void* seq_lens, const void* slots,
-           void* o, int batch, int hq, int hkv, int page_size, int max_pages,
-           int max_seqs, float scale, cudaStream_t stream) {
-  const int group = hq / hkv;
-  const size_t bytes = size_t(group) * (D + page_size) * sizeof(float);
-  if (group > MAX_G || bytes > MAX_SMEM) return int(cudaErrorInvalidValue);
-  const dim3 grid(batch, hkv);
-  paged_decode_kernel<D><<<grid, D, bytes, stream>>>(
+           void* o_part, void* lse, int batch, int hq, int hkv, int ps,
+           int max_pages, int max_seqs, int window, int n_split,
+           int pages_per_split, float scale, cudaStream_t stream) {
+  using S = Smem<D, GMAX>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      paged_decode_kernel<D, GMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::bytes));
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid(n_split, hkv, batch);
+  paged_decode_kernel<D, GMAX><<<grid, THREADS, S::bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const int8_t*>(pages), static_cast<const float*>(scales),
       static_cast<const int*>(page_table), static_cast<const int*>(seq_lens),
-      static_cast<const int*>(slots), static_cast<__nv_bfloat16*>(o), hq, hkv,
-      page_size, max_pages, max_seqs, scale);
+      static_cast<const int*>(slots), static_cast<float*>(o_part),
+      static_cast<float*>(lse), hq, hkv, ps, max_pages, max_seqs, window,
+      pages_per_split, scale * 1.4426950408889634f);
   return int(cudaGetLastError());
+}
+
+template <int D>
+int launch_group(int group, const void* q, const void* pages,
+                 const void* scales, const void* page_table,
+                 const void* seq_lens, const void* slots, void* o_part,
+                 void* lse, int batch, int hq, int hkv, int ps, int max_pages,
+                 int max_seqs, int window, int n_split, int pages_per_split,
+                 float scale, cudaStream_t stream) {
+#define EFT_DECODE_LAUNCH(G)                                                 \
+  return launch<D, G>(q, pages, scales, page_table, seq_lens, slots, o_part, \
+                      lse, batch, hq, hkv, ps, max_pages, max_seqs, window,  \
+                      n_split, pages_per_split, scale, stream)
+  if (group == 1) EFT_DECODE_LAUNCH(1);
+  if (group == 2) EFT_DECODE_LAUNCH(2);
+  if (group <= 4) EFT_DECODE_LAUNCH(4);
+  EFT_DECODE_LAUNCH(8);
+#undef EFT_DECODE_LAUNCH
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
-// serving/decode.py has already checked shapes, dtypes and contiguity.
+// serving/decode.py has already checked shapes, dtypes, contiguity and
+// alignment and planned the split; the checks here only refuse what would
+// index out of bounds.  window: 0 for none.
 extern "C" int eft_paged_decode(const void* q, const void* pages,
                                 const void* scales, const void* page_table,
                                 const void* seq_lens, const void* slots,
-                                void* o, int batch, int hq, int hkv, int d,
-                                int page_size, int max_pages, int max_seqs,
-                                float scale, int device, void* stream) {
-  if (batch <= 0 || hkv <= 0 || hq % hkv != 0 || page_size <= 0)
+                                void* o_part, void* lse, int batch, int hq,
+                                int hkv, int d, int page_size, int max_pages,
+                                int max_seqs, int window, int n_split,
+                                int pages_per_split, float scale, int device,
+                                void* stream) {
+  const int group = hkv > 0 ? hq / hkv : 0;
+  if (batch <= 0 || batch > 65535 || hkv <= 0 || hkv > 65535 ||
+      hq % hkv != 0 || group > 8 || page_size % TILE != 0 || page_size <= 0 ||
+      max_pages <= 0 || int64_t(max_pages) * page_size > INT32_MAX ||
+      window < 0 || n_split <= 0 || n_split > INT32_MAX / 65535 ||
+      pages_per_split <= 0 ||
+      (window == 0 && int64_t(n_split) * pages_per_split < max_pages))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -223,13 +407,15 @@ extern "C" int eft_paged_decode(const void* q, const void* pages,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch<64>(q, pages, scales, page_table, seq_lens, slots, o,
-                        batch, hq, hkv, page_size, max_pages, max_seqs, scale,
-                        s);
+      return launch_group<64>(group, q, pages, scales, page_table, seq_lens,
+                              slots, o_part, lse, batch, hq, hkv, page_size,
+                              max_pages, max_seqs, window, n_split,
+                              pages_per_split, scale, s);
     case 128:
-      return launch<128>(q, pages, scales, page_table, seq_lens, slots, o,
-                         batch, hq, hkv, page_size, max_pages, max_seqs,
-                         scale, s);
+      return launch_group<128>(group, q, pages, scales, page_table, seq_lens,
+                               slots, o_part, lse, batch, hq, hkv, page_size,
+                               max_pages, max_seqs, window, n_split,
+                               pages_per_split, scale, s);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -1,5 +1,5 @@
 // H6-extend: chunked-prefill attention over the paged INT8 KV cache on
-// Hopper (sm_90a).  bf16 q, int8 pages, f32 accumulate.
+// Hopper (sm_90a).  bf16 q, int8 pages, f32 accumulate, bf16 O.
 //
 // Replaces two TPU kernels of the JAX package that compute the same
 // function and differ only by a VMEM rule (serving/decode.py:645-646):
@@ -7,237 +7,487 @@
 //   B22 _extend_onepass_kernel   exploring_flash_attention_tpu/serving/decode.py:455
 // B22 holds all of a sequence's pages resident, B21 streams them.  Each
 // sequence's C newest tokens are already appended to the cache (so they
-// read themselves back quantized) and attend causally over its whole
-// paged history: chunk row i sits at position q_start + i, where
-// q_start = seq_lens[slot] - C, and sees column col iff col <= q_start + i.
+// read themselves back quantized) and attend causally over its paged
+// history: chunk row i sits at position q_start + i, where q_start =
+// seq_lens[slot] - C, and sees column col iff col <= q_start + i and, with
+// a sliding window, col >= q_start + i - window + 1 (decode.py:368-369).
 //
-// Design.  B21 runs one program per sequence because a TPU core runs its
-// grid in order.  Here one block takes one (batch row, KV head) and one
-// tile of 64 of the GQA-flattened rows: row r is chunk position r / G and
-// q head kh * G + r % G (decode.py:326-329), so the G q heads share every
-// K/V tile the block loads.  The block reads slots[b], seq_lens[slot] and
-// the page-table row on the device (no host sync) and walks 64-column
-// tiles of its pages only up to the last column its own rows can see: the
-// causal skip, whose bound is per sequence because histories are ragged.
-// Each tile's int8 K and V convert to bf16 exactly, so K enters the
-// tensor-core product unscaled.  The dequant folds as in B21
-// (decode.py:373-392): S = (q . K) * scale * k_scale[col] in the exp2
-// basis, an online softmax in f32 whose l sums the unscaled p, and
-// P * v_scale[col] rounded to bf16 before P V.  Columns at or past
-// seq_lens are masked before the exp and their v_scale is zeroed, as B22
-// does (decode.py:587-588): a freed and reused page holds old codes past
-// the tail.  The tensor-core products and the layout are
-// attention_tile.cuh's (WMMA through shared memory).
+// Cost at the multi-turn slice (B=8, C=256, Hq=8, Hkv=4, d=128, chunk at
+// 279..534): 3.4 GFLOP and 4.6 MB of int8 pages and scales per layer,
+// microseconds of either; in the windowed model's second turn (C=256 over
+// ~4,600 positions, window 4096) 34 GFLOP, 0.035 ms at 989 TFLOP/s bf16:
+// the tensor cores, which only wgmma reaches.
+//
+// Design (H4-kvq's block, kvquant_attention.cu, on wgmma_tile.cuh).  One
+// block per (128-row tile of the GQA-flattened chunk rows, KV head,
+// sequence): row r is chunk position r / G and q head kh * G + r % G
+// (decode.py:326-329), so the G q heads share every K/V tile the block
+// loads; rows past C * G are zero.  Two consumer warpgroups of 64 rows and
+// one producer warpgroup (setmaxnreg: 56 and 224 per thread):
+//   - each consumer warpgroup stages its 64 Q rows straight from q [B, C,
+//     Hq, d] into the 128-byte-swizzled layout a TMA load would give (the
+//     flattened rows are not a box of q);
+//   - the producer's first thread reads the page table on the device (no
+//     host sync) and loads the code tiles K_0, V_0, K_1, ... (128 keys of
+//     one page each: the page size is a multiple of 128, so a tile never
+//     straddles a page) by TMA through a ring of three code slots, the
+//     pages viewed as [n_pages * 2 * Hkv, ps, d] at (0, offset, page * 2 *
+//     Hkv + {0, Hkv} + kh); all 128 producer threads convert each tile
+//     exactly to bf16, K in the K-major layout S = Q K^T reads and V in the
+//     MN-major one P V reads (convert_codes_tile), into two converted
+//     stages, and write per key k_scale * scale * log2(e) and v_scale, both
+//     zero past seq_lens (a freed and reused page holds old codes past the
+//     tail, as B22 guards at decode.py:587-588);
+//   - each consumer warpgroup runs H1's loop: S on bf16 wgmma into
+//     registers, s * (k_scale * scale * log2 e) per column (B21's S *
+//     k_scale in the exp2 basis), the mask by selects in the edge tiles
+//     only, the online softmax in f32 with l summing the unscaled p (B21,
+//     decode.py:383-386), P * v_scale rounded to bf16 as the A fragment of
+//     P V on bf16 wgmma, S of tile i overlapping P V of tile i - 1.
+// Tiles are skipped per Q tile: those past the last row's position, and,
+// under a window, those before the first row's band (pages wholly before
+// every row's band are never read).  A row that sees nothing gives zeros.
+// No wgmma sits under a branch of its own (ptxas would serialize them all,
+// C7520).
 //
 // Layout, per serving/kv_cache.py of the port: pages int8
 // [n_pages, 2, Hkv, ps, d] (0 = K, 1 = V), scales f32 [n_pages, 2, Hkv, 1, ps];
-// q and o [B, C, Hq, d], read and written in place of the TPU wrapper's
-// [B, Hkv, C*G, d] transpose.
+// q and o [B, C, Hq, d].
 //
-// Cost at the multi-turn slice (B=8, C=256, Hq=8, Hkv=4, d=128, chunk at
-// 279..534): about 4*8*8*256*(279 + 128.5)*128 = 3.4 GFLOP per layer, and
-// about 4.4 MB of int8 pages plus 0.14 MB of scales per layer, over
-// 8 * 4 * 8 = 256 blocks.  That is a few microseconds of tensor-core work
-// and of HBM time: latency-bound.  A fast version would run wgmma
-// on register-resident S/P/O, convert and stage pages through a TMA or
-// cp.async ring with producer/consumer warps, and split long histories
-// across SMs with an (O, LSE) merge.
+// Budget at d=128, as H4-kvq's: Q 32 KB, two converted stages of K and V
+// 128 KB, three code slots 48 KB, scales 2 KB.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "attention_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
-using namespace eft;
+using namespace eft::hopper;
 
-// 16 int8 values -> 16 bf16 (exact for |x| <= 127) in shared memory
-__device__ __forceinline__ void int8x16_to_bf16(__nv_bfloat16* dst,
-                                                const int8_t* src) {
-  const int4 raw = *reinterpret_cast<const int4*>(src);
-  const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
-  __align__(16) __nv_bfloat16 out[16];
+constexpr int BQ = 128;          // flattened chunk rows per block
+constexpr int BKV = 128;         // keys per K/V tile
+constexpr int STAGES = 2;        // converted K/V stages
+constexpr int SLOTS = 3;         // code slots, K and V tiles in turn
+constexpr int CONSUMERS = 2;     // warpgroups of 64 rows
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
+constexpr int CONVERTERS = 128;  // the whole producer warpgroup
+constexpr int SLOT_BAR = 1;      // named barrier: a code slot read
+constexpr int Q_BAR = 2;         // named barriers 2, 3: a warpgroup's Q rows
+// registers per thread after setmaxnreg: 128 * 56 + 256 * 224 = 384 * 168,
+// what the launch allocates (more, and the consumers' setmaxnreg.inc waits
+// forever)
+constexpr int PRODUCER_REGS = 56;
+constexpr int CONSUMER_REGS = 224;
+
+// Shared memory of one block.  Q and the converted K and V are boxes of 64
+// bf16 columns (128-byte rows, the swizzle width) by 128 rows, box after
+// box; a code slot is a plain [128][D] tile of codes.  Each stage's scales:
+// k_scale * scale * log2e per key, then v_scale per key.
+template <int D>
+struct Tiles {
+  static constexpr int NBOX = D / 64;
+  static constexpr uint32_t Q_BYTES = BQ * D * 2;
+  static constexpr uint32_t CONV_BYTES = BKV * D * 2;
+  static constexpr uint32_t CODE_BYTES = BKV * D;
+  static constexpr int SCALES = 2 * BKV;            // floats per stage
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + Q_BYTES;
+  static constexpr size_t v = k + size_t(STAGES) * CONV_BYTES;
+  static constexpr size_t codes = v + size_t(STAGES) * CONV_BYTES;
+  static constexpr size_t scales = codes + size_t(SLOTS) * CODE_BYTES;
+  static constexpr size_t bars = scales + size_t(STAGES) * SCALES * 4;
+  static constexpr size_t bytes = bars + 8 * (SLOTS + 3 * STAGES) + 1024;
+};
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_rs_bf16_n128(o, a[0], a[1], a[2], a[3], db, 1);
+  else
+    wgmma_rs_bf16_n64(o, a[0], a[1], a[2], a[3], db, 1);
+}
+
+// S = Q K^T of one converted K tile (issued, not waited for)
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&acc_s)[BKV / 2],
+                                         const unsigned char* q_wg,
+                                         const unsigned char* k_s) {
 #pragma unroll
-  for (int e = 0; e < 16; ++e) out[e] = __float2bfloat16(float(x[e]));
-  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(out)[0];
-  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(out)[1];
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int box = kk / 4, off = (kk % 4) * 32;
+    const uint64_t da = gmma_desc(q_wg + box * BQ * 128 + off, 16, 1024, 128);
+    const uint64_t db = gmma_desc(k_s + box * BKV * 128 + off, 16, 1024, 128);
+    if (kk == 0) wgmma_ss_bf16_n128_first(acc_s, da, db);
+    else wgmma_ss_bf16_n128(acc_s, da, db, 1);
+  }
+}
+
+// O += P V of one converted V tile, 16 keys a step (issued, not waited for)
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc_o)[D / 2],
+                                         const uint32_t (&pa)[BKV / 4],
+                                         const unsigned char* v_s) {
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    wgmma_pv<D>(acc_o, &pa[4 * kk],
+                gmma_desc(v_s + kk * 16 * 128, BKV * 128, 1024, 128));
+}
+
+// The online softmax of one S tile, in registers: s * kc[col] (kc =
+// k_scale * scale * log2e of this thread's columns), the columns outside
+// each row's [lo, hi] masked unless the tile is whole, the new row max
+// (quad shuffles), p = exp2(s - m_use) in f32; alpha = exp2(m_old - m_use)
+__device__ __forceinline__ void softmax_exp(float (&acc_s)[BKV / 2],
+                                            float (&m)[2], float (&alpha)[2],
+                                            bool whole, int col_base,
+                                            const int (&lo)[2],
+                                            const int (&hi)[2],
+                                            const float* kc) {
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  if (whole) {
+#pragma unroll
+    for (int e = 0; e < BKV / 2; ++e) {
+      acc_s[e] = acc_s[e] * kc[acc_col(e)];
+      mx[acc_row8(e) / 8] = fmaxf(mx[acc_row8(e) / 8], acc_s[e]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < BKV / 2; ++e) {
+      const int r = acc_row8(e) / 8;
+      const int col = col_base + acc_col(e);
+      acc_s[e] = col >= lo[r] && col <= hi[r] ? acc_s[e] * kc[acc_col(e)]
+                                              : -CUDART_INF_F;
+      mx[r] = fmaxf(mx[r], acc_s[e]);
+    }
+  }
+  float m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    m_use[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+    alpha[r] = exp2f(m[r] - m_use[r]);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int e = 0; e < BKV / 2; ++e)
+    acc_s[e] = exp2_approx(acc_s[e] - m_use[acc_row8(e) / 8]);
+}
+
+// l = l * alpha + the f32 p (unscaled, as B21 sums it); P * v_scale packed
+// as the bf16 A fragment of P V (vs: this thread's columns' v_scale)
+__device__ __forceinline__ void pack_p(const float (&p)[BKV / 2],
+                                       uint32_t (&pa)[BKV / 4], float (&l)[2],
+                                       const float (&alpha)[2],
+                                       const float* vs) {
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BKV / 4; ++j) {
+    const int col = acc_col(2 * j);
+    psum[j & 1] += p[2 * j] + p[2 * j + 1];
+    pa[j] = pack_bf16x2(p[2 * j] * vs[col], p[2 * j + 1] * vs[col + 1]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+}
+
+// One consumer warpgroup's 64 rows of the block (this thread owns two):
+// stages its Q rows, runs H1's loop over the tiles [kv_begin, kv_begin +
+// 128 n_tiles), then writes O / l to its rows of o.  Per tile i, S of tile
+// i is issued; O is rescaled by tile i - 1's alpha while it runs; P V of
+// tile i - 1 is issued behind it; the softmax of tile i runs while P V is
+// in flight; after P V has landed, P of tile i is packed.
+template <int D>
+__device__ __forceinline__ void consume(
+    unsigned char* sq, const unsigned char* sk, const unsigned char* sv,
+    const float* sscale, uint64_t* k_full, uint64_t* v_full, uint64_t* empty,
+    const __nv_bfloat16* q, __nv_bfloat16* o, int b, int kh, int c, int hq,
+    int group, int t0, int q_start, int window, int kv_begin, int n_tiles) {
+  using T = Tiles<D>;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int ct = threadIdx.x % 128;
+  const int rows = c * group;
+
+  // this warpgroup's Q rows, zero past the chunk, swizzled as TMA would
+  for (int x = ct; x < 64 * (D / 8); x += 128) {
+    const int r = wg * 64 + x / (D / 8), ch = x % (D / 8);
+    const int t = t0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (t < rows)
+      val = *reinterpret_cast<const uint4*>(
+          q + ((size_t(b) * c + t / group) * hq + size_t(kh) * group +
+               t % group) * D + ch * 8);
+    *reinterpret_cast<uint4*>(sq + (ch / 8) * BQ * 128 +
+                              swz128(r, (ch % 8) * 16)) = val;
+  }
+  fence_proxy_async();
+  named_bar_sync(Q_BAR + wg, 128);
+
+  // each owned row sees keys [lo, hi]; a row past the chunk sees none
+  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t0 + r0 + 8 * r;
+    const int pos = q_start + t / group;
+    hi[r] = t < rows ? pos : -1;
+    lo[r] = window > 0 ? max(pos - window + 1, 0) : 0;
+  }
+  // a tile is whole (no key of it masked for any row of this warpgroup)
+  // when it ends at or before the first row's position and, under a
+  // window, starts inside the last row's band
+  const int wg_first = q_start + (t0 + wg * 64) / group;
+  const int wg_last = q_start + min(t0 + wg * 64 + 63, rows - 1) / group;
+  auto is_whole = [&](int kv0) {
+    bool whole = kv0 + BKV - 1 <= wg_first;
+    if (window > 0) whole = whole && kv0 >= wg_last - window + 1;
+    return whole;
+  };
+
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  float acc_o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
+  const unsigned char* q_wg = sq + wg * 64 * 128;
+
+  if (n_tiles > 0) {
+    float alpha[2];
+    uint32_t pa[BKV / 4];
+    {
+      // tile 0 (O is still zero: no rescale)
+      float acc_s[BKV / 2];
+      mbar_wait(&k_full[0], 0);
+      wgmma_fence();
+      issue_qk<D>(acc_s, q_wg, sk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_s);
+      softmax_exp(acc_s, m, alpha, is_whole(kv_begin), kv_begin + col0, lo,
+                  hi, sscale + col0);
+      mbar_wait(&v_full[0], 0);
+      pack_p(acc_s, pa, l, alpha, sscale + BKV + col0);
+    }
+    for (int i = 1; i < n_tiles; ++i) {
+      const int s = i % STAGES, prev = (i - 1) % STAGES;
+      const int kv0 = kv_begin + i * BKV;
+      const float* sc = sscale + s * T::SCALES;
+      float acc_s[BKV / 2];
+      mbar_wait(&k_full[s], (i / STAGES) & 1);
+      wgmma_fence();
+      issue_qk<D>(acc_s, q_wg, sk + s * T::CONV_BYTES);
+      wgmma_commit();
+      fence_regs(acc_s);
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc_o[e] *= alpha[acc_row8(e) / 8];
+      fence_regs(acc_o);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv<D>(acc_o, pa, sv + prev * T::CONV_BYTES);
+      wgmma_commit();
+      fence_regs(acc_o);
+      fence_regs(pa);
+      wgmma_wait<1>();                   // S of tile i
+      softmax_exp(acc_s, m, alpha, is_whole(kv0), kv0 + col0, lo, hi,
+                  sc + col0);
+      wgmma_wait<0>();                   // P V of tile i - 1
+      fence_regs(acc_o);
+      fence_regs(pa);
+      mbar_arrive(&empty[prev]);
+      mbar_wait(&v_full[s], (i / STAGES) & 1);
+      pack_p(acc_s, pa, l, alpha, sc + BKV + col0);
+    }
+    const int last = (n_tiles - 1) % STAGES;
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc_o[e] *= alpha[acc_row8(e) / 8];
+    fence_regs(acc_o);
+    fence_regs(pa);
+    wgmma_fence();
+    issue_pv<D>(acc_o, pa, sv + last * T::CONV_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_o);
+    fence_regs(pa);
+    mbar_arrive(&empty[last]);
+  }
+
+  // O / l of the two owned rows, bf16, at their [B, C, Hq, D] addresses; a
+  // row with l = 0 (it saw no key) stores 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_row = quad_sum(l[r]);
+    const int t = t0 + r0 + 8 * r;
+    if (t >= rows) continue;
+    const float denom = l_row == 0.f ? 1.f : l_row;
+    __nv_bfloat16* orow =
+        o + ((size_t(b) * c + t / group) * hq + size_t(kh) * group +
+             t % group) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
+          __floats2bfloat162_rn(acc_o[4 * j + 2 * r] / denom,
+                                acc_o[4 * j + 2 * r + 1] / denom);
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-paged_extend_kernel(const __nv_bfloat16* __restrict__ q,   // [B, C, Hq, D]
-                    const int8_t* __restrict__ pages,      // [n_pages, 2, Hkv, ps, D]
+__global__ void __launch_bounds__(THREADS, 1)
+paged_extend_kernel(const __grid_constant__ CUtensorMap tkv,  // [P*2*Hkv, ps, D] int8
+                    const __nv_bfloat16* __restrict__ q,   // [B, C, Hq, D]
                     const float* __restrict__ scales,      // [n_pages, 2, Hkv, 1, ps]
                     const int* __restrict__ page_table,    // [max_seqs, max_pages]
                     const int* __restrict__ seq_lens,      // [max_seqs]
                     const int* __restrict__ slots,         // [B]
                     __nv_bfloat16* __restrict__ o,         // [B, C, Hq, D]
-                    int c, int hq, int hkv, int page_size, int max_pages,
-                    int max_seqs, float scale_log2) {
-  using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + L::k);
-  __nv_bfloat16* sv = reinterpret_cast<__nv_bfloat16*>(smem + L::v);
-  float* ss = reinterpret_cast<float*>(smem + L::s);
-  __nv_bfloat16* sp = reinterpret_cast<__nv_bfloat16*>(smem + L::p);
-  float* so = reinterpret_cast<float*>(smem + L::o);
-  float* sm = reinterpret_cast<float*>(smem + L::m);
-  float* sl = reinterpret_cast<float*>(smem + L::l);
-  float* salpha = reinterpret_cast<float*>(smem + L::alpha);
-  float* sks = reinterpret_cast<float*>(smem + L::bytes);   // k_scale * scale * log2e
-  float* svs = sks + BKV;                                   // v_scale, 0 past seq_lens
+                    int c, int hq, int hkv, int ps, int max_pages,
+                    int max_seqs, int window, float scale_log2) {
+  using T = Tiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sq = smem + T::q;
+  unsigned char* sk = smem + T::k;
+  unsigned char* sv = smem + T::v;
+  unsigned char* scodes = smem + T::codes;
+  float* sscale = reinterpret_cast<float*>(smem + T::scales);
+  uint64_t* code_full = reinterpret_cast<uint64_t*>(smem + T::bars);
+  uint64_t* k_full = code_full + SLOTS;     // K converted, its scales written
+  uint64_t* v_full = k_full + STAGES;       // V converted, its scales written
+  uint64_t* empty = v_full + STAGES;        // the stage consumed
 
   const int group = hq / hkv;
-  const int rows = c * group;                  // GQA-flattened chunk rows
-  const int t0 = blockIdx.x * BQ;              // this block's first row
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int rows = c * group;
+  // the last row tile first: it sees the most keys
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int kh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
 
   const int slot = slots[b];
   const bool valid = slot >= 0 && slot < max_seqs;
-  const int n = valid ? seq_lens[slot] : 0;    // includes the chunk
+  const int n = valid ? min(seq_lens[slot], max_pages * ps) : 0;  // with the chunk
   const int q_start = n - c;                   // position of chunk row 0
-  // the tile's last row sees columns [0, kv_end); later tiles are skipped
-  const int kv_end = min(n, q_start + (min(t0 + BQ, rows) - 1) / group + 1);
-
-  // Q rows straight from [B, C, Hq, D]; rows past the chunk are zero
-  constexpr int VEC = 8;                       // bf16 per 16 bytes
-  for (int i = threadIdx.x; i < BQ * (D / VEC); i += THREADS) {
-    const int r = i / (D / VEC);
-    const int col = (i % (D / VEC)) * VEC;
-    const int t = t0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < rows) {
-      const size_t row = (size_t(b) * c + t / group) * hq + kh * group + t % group;
-      val = *reinterpret_cast<const uint4*>(q + row * D + col);
-    }
-    *reinterpret_cast<uint4*>(sq + r * L::LDH + col) = val;
-  }
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += THREADS) so[i] = 0.f;
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    sm[r] = -CUDART_INF_F;
-    sl[r] = 0.f;
-  }
-
+  // the key tiles some row of this block sees: up to the last row's
+  // position, from the first row's band edge (rounded down to a tile) on
+  const int kv_end = max(q_start + (min(t0 + BQ, rows) - 1) / group + 1, 0);
+  const int kv_begin =
+      window > 0 ? max(q_start + t0 / group - window + 1, 0) / BKV * BKV : 0;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV
+                                        : 0;
   const int* pt = page_table + size_t(valid ? slot : 0) * max_pages;
-  const size_t slab = size_t(page_size) * D;   // one (K or V, head) of a page
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
-    // page_size is a multiple of BKV, so a tile never straddles two pages
-    const size_t page = size_t(pt[kv0 / page_size]);
-    const int off = kv0 % page_size;
-    const int8_t* kp = pages + ((page * 2 + 0) * hkv + kh) * slab + size_t(off) * D;
-    const int8_t* vp = pages + ((page * 2 + 1) * hkv + kh) * slab + size_t(off) * D;
-    const float* ksc = scales + ((page * 2 + 0) * hkv + kh) * page_size + off;
-    const float* vsc = scales + ((page * 2 + 1) * hkv + kh) * page_size + off;
-    __syncthreads();               // Q staged / previous tile consumed
-    for (int i = threadIdx.x; i < BKV * (D / 16); i += THREADS) {
-      const int t = i / (D / 16);
-      const int col = (i % (D / 16)) * 16;
-      int8x16_to_bf16(sk + t * L::LDH + col, kp + size_t(t) * D + col);
-      int8x16_to_bf16(sv + t * L::LDH + col, vp + size_t(t) * D + col);
-    }
-    for (int t = threadIdx.x; t < BKV; t += THREADS) {
-      sks[t] = ksc[t] * scale_log2;
-      svs[t] = kv0 + t < n ? vsc[t] : 0.f;
-    }
-    __syncthreads();
 
-    warp_qk<D>(sq, sk, ss, r0);            // S = Q K^T, this warp's rows
-    __syncwarp();
-
-    // online softmax over the warp's rows, in the exp2 basis; the mask is
-    // per row: row t sees columns up to q_start + t / G
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int t = t0 + r;
-      const int lim = t < rows ? q_start + t / group : -1;   // last visible
-      float s[BKV / 32];
-      float tmax = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < BKV / 32; ++j) {
-        const int col = lane + 32 * j;
-        s[j] = kv0 + col <= lim ? ss[r * L::LDS + col] * sks[col]
-                                : -CUDART_INF_F;
-        tmax = fmaxf(tmax, s[j]);
-      }
-      tmax = warp_max(tmax);
-      const float m_old = sm[r];
-      const float m_new = fmaxf(m_old, tmax);
-      const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BKV / 32; ++j) {
-        const int col = lane + 32 * j;
-        const float p = exp2f(s[j] - m_use);
-        psum += p;                                  // l sums the unscaled p
-        sp[r * L::LDP + col] = __float2bfloat16(p * svs[col]);
-      }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_use);
-        sm[r] = m_new;
-        sl[r] = sl[r] * alpha + psum;
-        salpha[r] = alpha;
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SLOTS; ++s) mbar_init(&code_full[s], 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], CONVERTERS);
+      mbar_init(&v_full[s], CONVERTERS);
+      mbar_init(&empty[s], CONSUMERS * 128);
     }
-    __syncwarp();
-
-    warp_rescale_pv<D>(sp, sv, so, salpha, r0, lane);   // O = alpha O + P V
+    mbar_init_fence();
   }
-  __syncthreads();                 // O, l complete (also when no tile ran)
+  __syncthreads();
 
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int t = t0 + r;
-    if (t >= rows) break;
-    const float denom = sl[r] == 0.f ? 1.f : sl[r];
-    const size_t row = (size_t(b) * c + t / group) * hq + kh * group + t % group;
-    __nv_bfloat16* orow = o + row * D;
-    for (int col = lane; col < D; col += 32)
-      orow[col] = __float2bfloat16(so[r * L::LDO + col] / denom);
+  if (warp >= CONSUMERS * 4) {
+    // the producer warpgroup: its first thread issues the TMA loads of the
+    // code tiles K_0, V_0, K_1, ... through the slots; all 128 threads
+    // convert each tile to bf16 and write its keys' factors, and agree (a
+    // named barrier) that the slot is read before its next load is issued
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int ct = threadIdx.x - CONSUMERS * 128;
+    auto load_codes = [&](int j) {
+      const int slot_j = j % SLOTS, kv0 = kv_begin + (j / 2) * BKV;
+      const int page = pt[kv0 / ps];
+      mbar_arrive_expect_tx(&code_full[slot_j], T::CODE_BYTES);
+      tma_load_3d(scodes + slot_j * T::CODE_BYTES, &tkv, &code_full[slot_j],
+                  0, kv0 % ps, (page * 2 + (j & 1)) * hkv + kh);
+    };
+    if (ct == 0)
+      for (int j = 0; j < SLOTS && j < 2 * n_tiles; ++j) load_codes(j);
+    for (int j = 0; j < 2 * n_tiles; ++j) {
+      const int i = j / 2, s = i % STAGES, slot_j = j % SLOTS;
+      const int kv0 = kv_begin + i * BKV;
+      float* sc = sscale + s * T::SCALES;
+      const unsigned char* src = scodes + slot_j * T::CODE_BYTES;
+      const size_t page = size_t(pt[kv0 / ps]);
+      const float* gsc = scales + ((page * 2 + (j & 1)) * hkv + kh) * ps +
+                         kv0 % ps;
+      if ((j & 1) == 0) mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+      mbar_wait(&code_full[slot_j], (j / SLOTS) & 1);
+      if ((j & 1) == 0) {
+        convert_codes_tile<KV_INT8, false, D>(src, sk + s * T::CONV_BYTES,
+                                              BKV, ct, CONVERTERS);
+        for (int t = ct; t < BKV; t += CONVERTERS)
+          sc[t] = kv0 + t < n ? gsc[t] * scale_log2 : 0.f;
+      } else {
+        convert_codes_tile<KV_INT8, false, D>(src, sv + s * T::CONV_BYTES,
+                                              BKV, ct, CONVERTERS);
+        for (int t = ct; t < BKV; t += CONVERTERS)
+          sc[BKV + t] = kv0 + t < n ? gsc[t] : 0.f;
+      }
+      fence_proxy_async();
+      mbar_arrive((j & 1) ? &v_full[s] : &k_full[s]);
+      named_bar_sync(SLOT_BAR, CONVERTERS);
+      if (ct == 0 && j + SLOTS < 2 * n_tiles) load_codes(j + SLOTS);
+    }
+    return;
   }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  consume<D>(sq, sk, sv, sscale, k_full, v_full, empty, q, o, b, kh, c, hq,
+             group, t0, q_start, window, kv_begin, n_tiles);
 }
 
 template <int D>
 int launch(const void* q, const void* pages, const void* scales,
            const void* page_table, const void* seq_lens, const void* slots,
-           void* o, int batch, int c, int hq, int hkv, int page_size,
-           int max_pages, int max_seqs, float scale, cudaStream_t stream) {
-  const size_t bytes = Layout<D>::bytes + 2 * BKV * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
+           void* o, int batch, int c, int hq, int hkv, int ps, int max_pages,
+           int max_seqs, int n_pages, int window, float scale,
+           cudaStream_t stream) {
+  using T = Tiles<D>;
+  CUtensorMap tkv;
+  const int err = make_tmap(&tkv, pages, 1, D, ps, n_pages * 2 * hkv, D, BKV,
+                            0);
+  if (err) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
       paged_extend_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(bytes));
-  if (err != cudaSuccess) return int(err);
+      int(T::bytes));
+  if (attr != cudaSuccess) return int(attr);
   const int rows = c * (hq / hkv);
   const dim3 grid((rows + BQ - 1) / BQ, hkv, batch);
-  paged_extend_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const int8_t*>(pages), static_cast<const float*>(scales),
-      static_cast<const int*>(page_table), static_cast<const int*>(seq_lens),
-      static_cast<const int*>(slots), static_cast<__nv_bfloat16*>(o), c, hq,
-      hkv, page_size, max_pages, max_seqs, scale * 1.4426950408889634f);
+  paged_extend_kernel<D><<<grid, THREADS, T::bytes, stream>>>(
+      tkv, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const float*>(scales), static_cast<const int*>(page_table),
+      static_cast<const int*>(seq_lens), static_cast<const int*>(slots),
+      static_cast<__nv_bfloat16*>(o), c, hq, hkv, ps, max_pages, max_seqs,
+      window, scale * 1.4426950408889634f);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
-// serving/decode.py has already checked shapes, dtypes and contiguity; the
-// checks here only refuse what would index out of bounds.
+// serving/decode.py has already checked shapes, dtypes, contiguity and
+// alignment; the checks here only refuse what would index out of bounds.
+// window: 0 for none.
 extern "C" int eft_paged_extend(const void* q, const void* pages,
                                 const void* scales, const void* page_table,
                                 const void* seq_lens, const void* slots,
                                 void* o, int batch, int c, int hq, int hkv,
                                 int d, int page_size, int max_pages,
-                                int max_seqs, float scale, int device,
-                                void* stream) {
-  if (batch <= 0 || c <= 0 || hkv <= 0 || hq % hkv != 0 || page_size <= 0 ||
-      page_size % BKV != 0)
+                                int max_seqs, int n_pages, int window,
+                                float scale, int device, void* stream) {
+  if (batch <= 0 || batch > 65535 || c <= 0 || hkv <= 0 || hkv > 65535 ||
+      hq % hkv != 0 || page_size <= 0 || page_size % BKV != 0 ||
+      page_size > 256 || max_pages <= 0 || n_pages <= 0 ||
+      int64_t(max_pages) * page_size > INT32_MAX ||
+      int64_t(n_pages) * 2 * hkv > INT32_MAX ||
+      int64_t(c) * (hq / hkv) > INT32_MAX - BQ || window < 0)
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -247,11 +497,11 @@ extern "C" int eft_paged_extend(const void* q, const void* pages,
     case 64:
       return launch<64>(q, pages, scales, page_table, seq_lens, slots, o,
                         batch, c, hq, hkv, page_size, max_pages, max_seqs,
-                        scale, s);
+                        n_pages, window, scale, s);
     case 128:
       return launch<128>(q, pages, scales, page_table, seq_lens, slots, o,
                          batch, c, hq, hkv, page_size, max_pages, max_seqs,
-                         scale, s);
+                         n_pages, window, scale, s);
     default:
       return int(cudaErrorInvalidValue);
   }

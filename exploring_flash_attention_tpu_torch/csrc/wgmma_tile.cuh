@@ -1,6 +1,8 @@
-// The Hopper mainloop pieces shared by H1 (prefill_attention.cu), H4-int8
-// (int8_attention.cu), H4-kvq (kvquant_attention.cu) and H5
-// (dtiled_attention.cu), for sm_90a:
+// The Hopper mainloop pieces shared by H1 (prefill_attention.cu), H3
+// (attention_bwd.cu), H4-int8 (int8_attention.cu), H4-kvq
+// (kvquant_attention.cu), H5 (dtiled_attention.cu), H6-extend
+// (paged_extend.cu) and, for its barriers and 1-D bulk copies, H6-decode
+// (paged_decode.cu), for sm_90a:
 //
 // - TMA descriptors, made on the host for each call with
 //   cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint, so the
@@ -158,6 +160,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global memory into shared memory at dst, completing on bar:
+// the 1-D form of TMA, which needs no descriptor
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

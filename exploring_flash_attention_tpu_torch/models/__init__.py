@@ -13,6 +13,7 @@ from exploring_flash_attention_tpu_torch.models.transformer import (
     flagship_config,
     forward,
     init_params,
+    long_context_config,
     loss_fn,
     make_train_step,
     make_trainable,
@@ -32,6 +33,7 @@ __all__ = [
     "forward",
     "forward_collect_kv",
     "init_params",
+    "long_context_config",
     "loss_fn",
     "make_mlm_train_step",
     "make_train_step",

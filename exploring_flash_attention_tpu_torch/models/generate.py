@@ -6,8 +6,8 @@ Counterpart of ``models/generate.py`` in the JAX package:
 - :func:`forward_collect_kv` runs the causal forward over the prompt
   (attention on kernel H1) and collects each layer's post-RoPE K and V;
 - :func:`_decode_forward` advances every sequence one token: single-token
-  projections, the cache append, paged decode attention (kernel H6-decode)
-  per layer, logits;
+  projections, the cache append, paged decode attention (kernel H6-decode,
+  merged by H2) per layer, logits;
 - :func:`_extend_forward` feeds a new turn of C tokens per sequence: the
   chunk is appended to the cache, then attends over the whole paged
   history (kernel H6-extend), with no recompute of the earlier turns;
@@ -19,8 +19,9 @@ Counterpart of ``models/generate.py`` in the JAX package:
 The cache stores post-rotation K, and decode and extend rotate each new
 token's q/k at its per-sequence position read from the cache's
 ``seq_lens`` before the append, so ``seq_lens`` doubles as the RoPE
-position counter.  The decode loop is a Python loop; the tokens stay on
-the device until the loop ends.
+position counter.  Every attention call takes the config's ``window``, so
+a windowed model is served on the same paths.  The decode loop is a
+Python loop; the tokens stay on the device until the loop ends.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ def forward_collect_kv(
             q = rope(q, pos, c.rope_theta)
             k = rope(k, pos, c.rope_theta)     # the cache stores rotated K
         kvs.append((k, v))                     # [B, Hkv, L, d]
-        o = flash_attention(q, k, v, causal=True)
+        o = flash_attention(q, k, v, causal=True, window=c.window)
         x = x + torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
         x = x + _mlp_block(p, x, c)
     x = _rmsnorm(x, params["ln_f"], c.norm_eps)
@@ -103,7 +104,8 @@ def _decode_forward(
             q = rope(q, pos[:, None], c.rope_theta)
             k = rope(k, pos[:, None], c.rope_theta)
         append_tokens(cache, slots, k, v)
-        o = paged_decode_attention(q.contiguous(), cache, slots)  # [B, Hq, d]
+        o = paged_decode_attention(q.contiguous(), cache, slots,
+                                   window=c.window)          # [B, Hq, d]
         x = x + torch.einsum("bhd,hde->be", o.to(x.dtype), p["wo"])
         x2 = x[:, None, :]                                   # [B, 1, E]
         x = (x2 + _mlp_block(p, x2, c))[:, 0]
@@ -137,7 +139,7 @@ def _extend_forward(
         # append first: the chunk reads itself back quantized, as decode does
         append_chunks(cache, slots, k.transpose(1, 2), v.transpose(1, 2))
         o = paged_extend_attention(q.transpose(1, 2).contiguous(), cache,
-                                   slots)                    # [B, C, Hq, d]
+                                   slots, window=c.window)   # [B, C, Hq, d]
         x = x + torch.einsum("blhd,hde->ble", o.to(x.dtype), p["wo"])
         x = x + _mlp_block(p, x, c)
     xf = _rmsnorm(x, params["ln_f"], c.norm_eps)

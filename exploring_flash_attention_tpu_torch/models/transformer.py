@@ -1,14 +1,16 @@
 """Flagship decoder LM of the port, single device: forward and training.
 
 Counterpart of ``models/transformer.py`` in the JAX package: pre-RMSNorm,
-GQA attention with half-split RoPE, SwiGLU FFN, tied embeddings, the
-cross-entropy loss and the train step.  Parameters are a plain dictionary
-with the JAX pytree's structure and leaf shapes (``wq [E, H, d]``,
-``wo [H, d, E]``, ...), so both packages' weights map one to one.  Every
-attention call is :func:`flash_attention` (kernel H1 on the card, and H3
-in its backward), causal or, for the encoder, without a mask; projections,
-FFN and logits are ``torch.einsum``, as the JAX package leaves them to
-XLA.  The mesh and sequence-parallel paths are not ported.
+GQA attention with half-split RoPE, SwiGLU FFN, tied embeddings, an
+optional sliding window on every layer, the cross-entropy loss and the
+train step.  Parameters are a plain dictionary with the JAX pytree's
+structure and leaf shapes (``wq [E, H, d]``, ``wo [H, d, E]``, ...), so
+both packages' weights map one to one.  Every attention call is
+:func:`flash_attention` (kernel H1 on the card, and H3 in its backward),
+causal (banded under ``ModelConfig.window``) or, for the encoder, without
+a mask; projections, FFN and logits are ``torch.einsum``, as the JAX
+package leaves them to XLA.  The mesh and sequence-parallel paths are not
+ported.
 """
 
 from __future__ import annotations
@@ -39,12 +41,19 @@ class ModelConfig:
     norm_eps: float = 1e-5
     use_rope: bool = True
     rope_theta: float = 10000.0
+    # sliding-window (local) attention width of every layer, the query's
+    # own position included; None = full causal.  Trains on H1's and H3's
+    # band (O(L * window)) and serves on H6's (pages before the band are
+    # never read)
+    window: Optional[int] = None
 
     def __post_init__(self):
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be divisible by n_kv_heads")
         if self.use_rope and self.d_head % 2:
             raise ValueError("RoPE needs an even d_head")
+        if self.window is not None and self.window < 1:
+            raise ValueError(f"window must be >= 1, got {self.window}")
 
 
 def flagship_config() -> ModelConfig:
@@ -53,6 +62,17 @@ def flagship_config() -> ModelConfig:
     return ModelConfig(
         vocab_size=32768, n_layers=4, n_heads=8, n_kv_heads=4, d_model=1024,
         d_head=128, d_ff=4096, dtype=torch.bfloat16,
+    )
+
+
+def long_context_config() -> ModelConfig:
+    """The windowed LM of the JAX package's long-context training entry
+    (``bench/suite.py:1019-1024``), at full width and depth, in bf16: the
+    flagship's layers with a 2048-token vocabulary (the f32 logits of
+    32,768 positions bound its memory) and a window of 4096."""
+    return ModelConfig(
+        vocab_size=2048, n_layers=4, n_heads=8, n_kv_heads=4, d_model=1024,
+        d_head=128, d_ff=4096, dtype=torch.bfloat16, window=4096,
     )
 
 
@@ -117,9 +137,14 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def _attn_block(p: Params, x: torch.Tensor, config: ModelConfig,
                 causal: bool = True) -> torch.Tensor:
-    """x: [B, L, E] -> the attention branch's residual update; causal or,
-    for the encoder, bidirectional."""
+    """x: [B, L, E] -> the attention branch's residual update; causal
+    (within ``config.window`` of each position, if set) or, for the
+    encoder, bidirectional.  A window without ``causal`` raises
+    ``NotImplementedError``, as the JAX package's ``_attn_block`` does."""
     c = config
+    if not causal and c.window is not None:
+        raise NotImplementedError(
+            "windows are causal-only (encoder models use window=None)")
     h = _rmsnorm(x, p["ln1"], c.norm_eps)
     q = torch.einsum("ble,ehd->bhld", h, p["wq"])
     k = torch.einsum("ble,ehd->bhld", h, p["wk"])
@@ -128,7 +153,7 @@ def _attn_block(p: Params, x: torch.Tensor, config: ModelConfig,
         pos = torch.arange(x.shape[1], device=x.device)
         q = rope(q, pos, c.rope_theta)
         k = rope(k, pos, c.rope_theta)
-    o = flash_attention(q, k, v, causal=causal)
+    o = flash_attention(q, k, v, causal=causal, window=c.window)
     return torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
 
 

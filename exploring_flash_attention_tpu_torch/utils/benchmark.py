@@ -14,6 +14,11 @@ import torch
 
 # more than the H100's 50 MB L2, so writing it evicts everything
 L2_FLUSH_BYTES = 128 << 20
+# a spin kernel of this many cycles (~0.15 ms) runs between the flush and
+# each timed call, so that the host has queued the call's kernels before
+# the start event is reached: a wrapper's Python that outlasts the flush
+# would otherwise leave the card idle inside the timed window
+HOST_LEAD_CYCLES = 250_000
 
 
 def time_cuda(fn: Callable[[], object], n_iter: int = 50,
@@ -21,8 +26,10 @@ def time_cuda(fn: Callable[[], object], n_iter: int = 50,
     """Median device milliseconds of one call of ``fn`` over ``n_iter``
     calls, after ``n_warmup`` untimed ones.  The L2 cache is flushed before
     every timed call, because the decode step finds its KV cache cold
-    (the other layers' weights pass through L2 in between).  Raises where
-    there is no card: a timing taken on the CPU is not a device time."""
+    (the other layers' weights pass through L2 in between).  The host's
+    time before the call's first launch is kept out of the window; its
+    time between two launches of one call is not.  Raises where there is
+    no card: a timing taken on the CPU is not a device time."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_cuda needs a CUDA device")
     for _ in range(n_warmup):
@@ -32,6 +39,7 @@ def time_cuda(fn: Callable[[], object], n_iter: int = 50,
                torch.cuda.Event(enable_timing=True)) for _ in range(n_iter)]
     for start, end in events:
         flush.zero_()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start.record()
         fn()
         end.record()

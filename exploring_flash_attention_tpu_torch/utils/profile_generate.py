@@ -9,7 +9,10 @@ Run from the repository root on a machine with one CUDA card:
 It drives the flagship LM (``models.flagship_config``, random weights from
 seed 0) on [8, 256] prompts for 24 new tokens, then a second turn of 256
 tokens (turn 1's last token and 255 new ones) for 24 more, as
-``chip_smoke.py`` does.  For each turn it prints:
+``chip_smoke.py`` does; with ``--model windowed``, the windowed LM
+(``models.long_context_config``, window 4096) on [8, 4608] prompts
+(``max_len`` 5120), as ``chip_smoke.py``'s window_generate phase does.
+For each turn it prints:
 
 - the host-clock time of the call and of its two halves (the first
   forward: prefill, or the extend over the held cache, with the cache
@@ -19,8 +22,9 @@ tokens (turn 1's last token and 255 new ones) for 24 more, as
   summed over the device rows of ``key_averages()`` (the CPU-op and
   annotation rows repeat their kernels' time, so they are left out), their
   ratio (the
-  device busy share), the number of kernel launches, and the kernels that
-  take the most device time.
+  device busy share), the number of kernel launches, the share of the
+  kernel time that the paged attention takes (H6-decode, H2 and
+  H6-extend), and the kernels that take the most device time.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from exploring_flash_attention_tpu_torch.models import (
     GenerationEngine,
     flagship_config,
     init_params,
+    long_context_config,
 )
 from exploring_flash_attention_tpu_torch.models.generate import (
     _decode_forward,
@@ -106,6 +111,12 @@ def split_extend_decode(eng: GenerationEngine, prompt: np.ndarray,
         eng.release()
 
 
+# the kernel functions of the paged attention, by the names they print as
+PAGED_KERNELS = {"paged_decode_kernel": "H6-decode",
+                 "splitkv_combine_kernel": "H2",
+                 "paged_extend_kernel": "H6-extend"}
+
+
 def profile_call(name: str, call, top: int):
     """Profile one ``call()`` and print its wall time, summed kernel time,
     device busy share, launches and top kernels; return the summed kernel
@@ -119,9 +130,14 @@ def profile_call(name: str, call, top: int):
     kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
             and not e.is_user_annotation]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    paged = {tag: sum(e.self_device_time_total for e in kern
+                      if tag in e.key) / 1e3
+             for tag in PAGED_KERNELS}
     print(f"{name}: profiled wall {wall * 1e3:.3f} ms, summed kernel time "
           f"{dev_ms:.3f} ms, device busy share {dev_ms / (wall * 1e3):.4f}, "
-          f"kernels launched {sum(e.count for e in kern)}")
+          f"kernels launched {sum(e.count for e in kern)}; paged attention "
+          + ", ".join(f"{PAGED_KERNELS[t]} {ms:.3f} ms ({ms / dev_ms:.1%})"
+                      for t, ms in paged.items()))
     for e in sorted(kern, key=lambda e: e.self_device_time_total,
                     reverse=True)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  n={e.count:5d}  "
@@ -133,17 +149,22 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--top", type=int, default=14)
+    ap.add_argument("--model", choices=("flagship", "windowed"),
+                    default="flagship")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
-    cfg = flagship_config()
-    bsz, l_prompt, l_turn, n_new = 8, 256, 256, 24
+    if args.model == "flagship":
+        cfg, l_prompt, max_len = flagship_config(), 256, 1024
+    else:
+        cfg, l_prompt, max_len = long_context_config(), 4608, 5120
+    bsz, l_turn, n_new = 8, 256, 24
     params = init_params(cfg, seed=0, device=dev)
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (bsz, l_prompt)).astype(np.int32)
-    eng = GenerationEngine(params, cfg, max_seqs=bsz, max_len=1024)
+    eng = GenerationEngine(params, cfg, max_seqs=bsz, max_len=max_len)
     out1 = eng.generate(prompt, n_new, hold=True)
     turn = np.concatenate([out1[:, -1:], np.random.default_rng(1).integers(
         0, cfg.vocab_size, (bsz, l_turn - 1)).astype(np.int32)], axis=1)

@@ -9,9 +9,10 @@ rtol 1e-6: under ``jit`` XLA rewrites ``absmax / 127`` into a multiply,
 so a scale may differ from the port's division by one ulp.  Extend
 outputs agree to atol 1e-5 (both f32, O a convex combination of O(1)
 values; they differ in summation order only), on both TPU routes (B22
-one-pass and B21 streaming) and against the f64 oracle over the gathered
-cache.  At a small f32 config both engines emit the same greedy tokens
-over two turns.
+one-pass and B21 streaming), with and without a sliding window, and
+against the f64 oracle over the gathered cache.  At a small f32 config
+both engines emit the same greedy tokens over two turns, the windowed
+model's too.
 """
 
 import jax.numpy as jnp
@@ -145,8 +146,9 @@ def test_paged_extend_matches_f64_oracle(hq, hkv, c):
 
 
 def test_paged_extend_chunk_over_empty_history_and_window():
-    """A chunk that is the whole sequence is causal attention over itself;
-    a window is not ported and raises."""
+    """A chunk that is the whole sequence is causal attention over itself,
+    and under a window of 8 banded attention over itself (each row sees
+    its last 8 positions, the f64 oracle's band)."""
     hq, hkv, d, c = 4, 2, 64, 20
     rng = np.random.default_rng(5)
     tc = make_cache(hkv, d, 2, page_size=PS, max_seqs=1, max_pages_per_seq=2,
@@ -163,8 +165,49 @@ def test_paged_extend_chunk_over_empty_history_and_window():
     ref = naive_attention(q[0].transpose(1, 0, 2), rep(kf), rep(vf),
                           causal=True)                    # [Hq, C, d]
     np.testing.assert_allclose(got[0].transpose(1, 0, 2), ref, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="window"):
-        paged_extend_attention(torch.from_numpy(q), tc, slots, window=8)
+    banded = paged_extend_attention(torch.from_numpy(q), tc, slots,
+                                    window=8).numpy()
+    ref = naive_attention(q[0].transpose(1, 0, 2), rep(kf), rep(vf),
+                          causal=True, window=8)
+    np.testing.assert_allclose(banded[0].transpose(1, 0, 2), ref, atol=ATOL)
+    assert np.abs(banded[0, 8:] - got[0, 8:]).max() > 1e-3
+    np.testing.assert_array_equal(banded[0, :8], got[0, :8])
+
+
+@pytest.mark.parametrize("window", [30, 130, 500])
+@pytest.mark.parametrize("route", ["b22_onepass", "b21_streaming"])
+def test_windowed_paged_extend_matches_jax_and_banded_oracle(route, window,
+                                                             monkeypatch):
+    """``paged_extend_attention(window=)`` against JAX's on both TPU routes
+    (atol 1e-5) and every chunk row against the f64 oracle over its band
+    of the gathered cache.  Chunk rows sit at 100..139 and 150..189: a
+    window of 30 lies inside a page for some rows and crosses 128 for
+    others, 130 reaches back over a page boundary, 500 holds every key
+    (equal to no window)."""
+    if route == "b21_streaming":
+        monkeypatch.setattr(jdec, "EXTEND_ONEPASS_MAX_BYTES", 0)
+    hq, hkv, d, c = 4, 2, 64, 40
+    jc, tc, slots = _fill_both(6, hkv, d, HIST, c)
+    q = np.random.default_rng(7).standard_normal(
+        (len(HIST), c, hq, d)).astype(np.float32)
+    ref = jdec.paged_extend_attention(jnp.asarray(q), jc, jnp.asarray(slots),
+                                      window=window)
+    got = paged_extend_attention(torch.from_numpy(q), tc,
+                                 torch.from_numpy(slots), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+    for s, n in enumerate(HIST):
+        k, v = (x.numpy() for x in gather_kv(tc, s))      # [Hkv, L, d]
+        for i in range(0, c, 3):
+            pos = n + i
+            lo = max(0, pos - window + 1)
+            oracle = naive_attention(q[s, i].reshape(hkv, hq // hkv, d),
+                                     k[:, lo:pos + 1], v[:, lo:pos + 1])
+            np.testing.assert_allclose(
+                got[s, i].numpy().reshape(oracle.shape), oracle, atol=ATOL)
+    if window >= max(HIST) + c:
+        np.testing.assert_array_equal(
+            got.numpy(), paged_extend_attention(
+                torch.from_numpy(q), tc, torch.from_numpy(slots)).numpy())
 
 
 KW = dict(vocab_size=128, n_layers=2, n_heads=4, n_kv_heads=2, d_model=128,
@@ -200,6 +243,32 @@ def test_multi_turn_greedy_tokens_match_jax_engine():
     np.testing.assert_array_equal(t2, j2)
     eng.release()
     assert eng.allocator.free_pages == eng.allocator.n_pages
+
+
+def test_windowed_multi_turn_greedy_tokens_match_jax_engine():
+    """The windowed model (window 48) on both engines: prompts of 128
+    tokens (JAX's band prefill takes lane-aligned lengths), longer than
+    the window, so every decode step and the second turn's chunk (at
+    positions 130..139, inside one page) read only their band of the
+    paged history; the greedy tokens of both turns are equal."""
+    prompt, turn_new = _turns(3, 2, 128, 10)
+    jcfg = jtf.ModelConfig(**KW, window=48)
+    jeng = jgen.GenerationEngine(jtf.init_params(jcfg, seed=0), jcfg,
+                                 max_seqs=2, max_len=256)
+    j1 = np.asarray(jeng.generate(jnp.asarray(prompt), 3, hold=True))
+    jturn = np.concatenate([j1[:, -1:], turn_new], axis=1)
+    j2 = np.asarray(jeng.continue_generation(jnp.asarray(jturn), 4))
+    jeng.release()
+
+    cfg = ModelConfig(**KW, window=48)
+    eng = GenerationEngine(init_params(cfg, seed=0, device="cpu"), cfg,
+                           max_seqs=2, max_len=256)
+    t1 = eng.generate(prompt, 3, hold=True)
+    np.testing.assert_array_equal(t1, j1)
+    t2 = eng.continue_generation(
+        np.concatenate([t1[:, -1:], turn_new], axis=1), 4)
+    np.testing.assert_array_equal(t2, j2)
+    eng.release()
 
 
 def test_multi_turn_cache_matches_forward_over_the_stream():

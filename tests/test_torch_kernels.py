@@ -12,9 +12,12 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
 - H2 (the split-KV combine) vs plain: 1e-5 abs on the same f32 partials
   (both merge in f32, in different orders) for f32 O; bf16 O one rounding
   more, 2^-8 of |O| plus 1e-5.
-- H6-decode vs plain: 5e-3 abs on O (P rounded to bf16 before P V, O
-  rounded to bf16; O is an average over ~270 tokens, so its rounding
-  errors stay near one bf16 ulp of |O| < 0.5).
+- H6-decode (its split-KV partials merged by H2) vs plain: 5e-3 abs on O
+  (P rounded to bf16 before P V, O rounded to bf16; O is an average over
+  ~270 tokens, so its rounding errors stay near one bf16 ulp of |O| <
+  0.5); under a window, and in H6-extend's matrix of cases, 5e-3 abs plus
+  2^-7 of |O|, as for H6-extend: a window of 1 leaves one key, |O| up to
+  ~4.
 - H6-extend vs plain: 5e-3 abs plus 2^-7 of |O|.  Each chunk row is a
   decode row over its own causal prefix, but a row that sees only a few
   keys (a short history) has |O| up to ~3, where rounding O to bf16 alone
@@ -93,9 +96,12 @@ from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
 from exploring_flash_attention_tpu_torch.serving import (
     append_chunks,
     append_prompts,
+    decode_split,
     gather_kv,
     make_cache,
     paged_decode_attention,
+    paged_decode_partials,
+    paged_decode_partials_plain,
     paged_decode_plain,
     paged_extend_attention,
     paged_extend_plain,
@@ -376,10 +382,11 @@ def test_decode_kernel_matches_plain_and_oracle(cuda_device, hq, hkv, d):
         vp = torch.randn(1, n, hkv, d, generator=g).to(cuda_device)
         append_prompts(cache, slots[s:s + 1], kp, vp)
     q = torch.randn(b, hq, d, generator=g).to(cuda_device, torch.bfloat16)
-    before = paged_decode_attention.launches
+    before = (paged_decode_partials.launches, splitkv_combine.launches)
     o = paged_decode_attention(q, cache, slots)
     torch.cuda.synchronize()
-    assert paged_decode_attention.launches == before + 1
+    assert (paged_decode_partials.launches,
+            splitkv_combine.launches) == (before[0] + 1, before[1] + 1)
     ref = paged_decode_plain(q, cache, slots, 1.0 / math.sqrt(d))
     assert o.dtype == torch.bfloat16 and o.shape == (b, hq, d)
     assert (o.float() - ref).abs().max().item() < DECODE_O_TOL
@@ -388,6 +395,170 @@ def test_decode_kernel_matches_plain_and_oracle(cuda_device, hq, hkv, d):
         oracle = naive_attention(q[s].view(hkv, hq // hkv, d), kf, vf)
         got = o[s].float().view(hkv, hq // hkv, d).cpu().numpy()
         assert np.abs(got - oracle).max() < DECODE_O_TOL
+
+
+def _paged_case(dev, hq, hkv, d, ps, lens, c=0, seed=3):
+    """Ragged histories ``lens`` (0 for an empty sequence) through
+    append_prompts in a permuted page table, then, with ``c``, one C-token
+    chunk through append_chunks; the rows past each sequence's end in its
+    last page then get old codes and scales, as a freed and reused page
+    holds.  Returns (cache, bf16 q [B, Hq, d] or [B, C, Hq, d], slots)."""
+    b = len(lens)
+    max_pages = -(-(max(lens) + c) // ps) + 1
+    cache = make_cache(hkv, d, b * max_pages, page_size=ps, max_seqs=b,
+                       max_pages_per_seq=max_pages, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(b * max_pages, generator=g)
+    cache.page_table.copy_(perm.view(b, max_pages).to(torch.int32))
+    slots = torch.arange(b, dtype=torch.int32, device=dev)
+    for s, n in enumerate(lens):
+        if n:
+            append_prompts(cache, slots[s:s + 1],
+                           torch.randn(1, n, hkv, d, generator=g).to(dev),
+                           torch.randn(1, n, hkv, d, generator=g).to(dev))
+    if c:
+        append_chunks(cache, slots,
+                      torch.randn(b, c, hkv, d, generator=g).to(dev),
+                      torch.randn(b, c, hkv, d, generator=g).to(dev))
+    for s, n in enumerate(lens):
+        end = n + c
+        page = int(cache.page_table[s, end // ps])
+        off = end % ps
+        cache.kv_pages[page, :, :, off:] = torch.randint(
+            -127, 128, cache.kv_pages[page, :, :, off:].shape,
+            generator=g).to(dev, torch.int8)
+        cache.kv_scales[page, :, :, :, off:] = 1e3
+    shape = (b, c, hq, d) if c else (b, hq, d)
+    return cache, torch.randn(*shape, generator=g).to(dev, torch.bfloat16), \
+        slots
+
+
+def _paged_close(got, ref):
+    """5e-3 abs plus 2^-7 of |O|: P * v_scale and O rounded to bf16; a row
+    that sees a key or two (a window of 1, a short history) has |O| up to
+    ~4, where rounding O alone moves it by up to 2^-9 of |O|."""
+    err = (got.float() - ref.float()).abs()
+    return bool((err <= DECODE_O_TOL + 2 ** -7 * ref.float().abs()).all())
+
+
+DECODE_LENS = [0, 1, 127, 128, 129, 300, 700, 1000]
+
+
+@pytest.mark.parametrize("window", [None, 1, 100, 300])
+@pytest.mark.parametrize("ps", [128, 256])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 4, 128), (8, 1, 64),
+                                      (6, 2, 64)])
+def test_decode_kernel_masks_pages_groups(cuda_device, hq, hkv, d, ps,
+                                          window):
+    """H6-decode + H2 against the plain version and the f64 oracle over each
+    sequence's band of the gathered cache: every mask, page sizes 128 and
+    256, d 64 and 128, groups 1, 2, 8 and 3, ragged lengths around the
+    128-token tiles and pages, an empty sequence (zeros), a reused page
+    with old codes past each tail, and a row whose slot is -1 (zeros)."""
+    cache, q, slots = _paged_case(cuda_device, hq, hkv, d, ps, DECODE_LENS)
+    scale = 1.0 / math.sqrt(d)
+    o = paged_decode_attention(q, cache, slots, window=window)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    ref = paged_decode_plain(q, cache, slots, scale, window)
+    assert _paged_close(o, ref)
+    assert (o[0] == 0).all()                               # empty sequence
+    g = hq // hkv
+    for s, n in enumerate(DECODE_LENS):
+        if not n:
+            continue
+        kf, vf = gather_kv(cache, s)
+        lo = max(0, n - window) if window else 0
+        oracle = naive_attention(q[s].view(hkv, g, d), kf[:, lo:],
+                                 vf[:, lo:])
+        assert _paged_close(o[s].float().view(hkv, g, d).cpu(),
+                            torch.from_numpy(oracle)), s
+    bad = slots.clone()
+    bad[3] = -1
+    o_bad = paged_decode_attention(q, cache, bad, window=window)
+    assert (o_bad[3] == 0).all()
+    assert torch.equal(o_bad[4:], o[4:])
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_decode_kernel_partials_and_reruns(cuda_device, window):
+    """H6-decode's partials against their plain version, run by run (f32
+    O to 5e-3 + 2^-7 |O|, LSE to 4e-3), runs past a sequence's band the
+    merge identity (0, -inf) exactly, and two runs bitwise equal."""
+    cache, q, slots = _paged_case(cuda_device, 8, 4, 128, 128, DECODE_LENS)
+    scale = 1.0 / math.sqrt(128)
+    o, lse = paged_decode_partials(q, cache, slots, scale, window)
+    o2, lse2 = paged_decode_partials(q, cache, slots, scale, window)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    n_split, per = decode_split(cache, len(DECODE_LENS), window,
+                                torch.cuda.get_device_properties(0)
+                                .multi_processor_count)
+    o_ref, lse_ref = paged_decode_partials_plain(q, cache, slots, scale,
+                                                 window, n_split, per)
+    assert o.shape == o_ref.shape and lse.shape == lse_ref.shape
+    assert _paged_close(o, o_ref)
+    empty = torch.isneginf(lse_ref)
+    assert torch.equal(torch.isneginf(lse), empty)
+    assert (o[empty] == 0).all()
+    assert (lse[~empty] - lse_ref[~empty]).abs().max().item() < LSE_TOL
+
+
+def test_decode_kernel_refuses_what_it_cannot_take(cuda_device):
+    cache, q, slots = _paged_case(cuda_device, 8, 4, 128, 128, [5, 9])
+    for bad in (dict(window=0), dict(q=q.float())):
+        before = paged_decode_partials.launches
+        with pytest.raises((ValueError, TypeError)):
+            paged_decode_attention(bad.get("q", q), cache, slots,
+                                   window=bad.get("window"))
+        assert paged_decode_partials.launches == before
+    odd, q64, s64 = _paged_case(cuda_device, 8, 4, 128, 128, [5, 9])
+    odd.page_size = 64
+    with pytest.raises(ValueError, match="page sizes"):
+        paged_decode_attention(q64, odd, s64)
+
+
+EXTEND_CASES = [
+    # (hq, hkv, d, ps, histories, C)
+    (8, 4, 128, 128, [257 + 3 * i for i in range(8)], 256),  # multi-turn
+    (8, 8, 128, 256, [0, 1, 300, 555], 77),                   # G=1
+    (8, 1, 64, 128, [130, 0, 200, 77], 40),                   # G=8, d=64
+    (4, 2, 64, 256, [700, 3], 1),                             # C = 1
+]
+
+
+@pytest.mark.parametrize("window", [None, 1, 77, 300])
+@pytest.mark.parametrize("hq,hkv,d,ps,hist,c", EXTEND_CASES)
+def test_extend_kernel_masks_pages_groups(cuda_device, hq, hkv, d, ps, hist,
+                                          c, window):
+    """H6-extend against the plain version and the f64 oracle over each
+    chunk row's band: the causal mask alone and windows of 1, 77 and 300
+    keys, page sizes 128 and 256, d 64 and 128, groups 1, 2 and 8, ragged
+    and empty histories, C from 1 to 256 (C * G below and above the
+    128-row tile), old codes past each tail, a slot of -1 (zeros); two
+    runs bitwise equal."""
+    cache, q, slots = _paged_case(cuda_device, hq, hkv, d, ps, hist, c)
+    scale = 1.0 / math.sqrt(d)
+    o = paged_extend_attention(q, cache, slots, window=window)
+    again = paged_extend_attention(q, cache, slots, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert _paged_close(o, paged_extend_plain(q, cache, slots, scale, window))
+    g = hq // hkv
+    for s, n in enumerate(hist):
+        kf, vf = gather_kv(cache, s)
+        for i in sorted({0, c // 2, c - 1}):
+            pos = n + i
+            lo = max(0, pos - window + 1) if window else 0
+            oracle = naive_attention(q[s, i].view(hkv, g, d),
+                                     kf[:, lo:pos + 1], vf[:, lo:pos + 1])
+            assert _paged_close(o[s, i].float().view(hkv, g, d).cpu(),
+                                torch.from_numpy(oracle)), (s, i)
+    bad = slots.clone()
+    bad[1] = -1
+    o_bad = paged_extend_attention(q, cache, bad, window=window)
+    assert (o_bad[1] == 0).all() and torch.equal(o_bad[0], o[0])
 
 
 def _extend_case(dev, hq, hkv, d, hist, c, ps=128, seed=2):

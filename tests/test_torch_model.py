@@ -101,6 +101,52 @@ def test_model_config_validation():
         ModelConfig(d_head=63)
 
 
+@pytest.mark.parametrize("window", [0, -1])
+def test_model_config_refuses_a_window_below_one(window):
+    """As JAX's ``ModelConfig`` (``models/transformer.py:82-83``)."""
+    with pytest.raises(ValueError, match="window"):
+        ModelConfig(window=window)
+    with pytest.raises(ValueError, match="window"):
+        jtf.ModelConfig(window=window)
+
+
+def test_model_config_defaults_match_jax():
+    """Every field the port's config shares with JAX's has its default,
+    the new ``window`` (None, full causal) included."""
+    import dataclasses
+
+    theirs = {f.name: f.default for f in dataclasses.fields(jtf.ModelConfig)}
+    ours = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    assert "window" in ours and ours["window"] is None
+    for name, default in ours.items():
+        if name != "dtype":           # a torch dtype on one side, jnp's on the other
+            assert default == theirs[name], name
+
+
+def test_windowed_forward_matches_jax_and_bidirectional_raises():
+    """The windowed forward's logits against JAX's (L = 128, window 40;
+    JAX's band forward takes lane-aligned lengths), a band that changes
+    them, and a window without ``causal`` raising ``NotImplementedError``
+    on both sides (an encoder has no window)."""
+    cfg = ModelConfig(**KW, window=40)
+    jcfg = jtf.ModelConfig(**KW, tile=JTileConfig(block_q=64, block_kv=64),
+                           window=40)
+    jp = jtf.init_params(jcfg, seed=6)
+    toks = np.random.default_rng(6).integers(
+        0, KW["vocab_size"], (2, 128)).astype(np.int32)
+    ref = np.asarray(jtf.forward(jp, jnp.asarray(toks), jcfg))
+    params = init_params(cfg, seed=6, device="cpu")
+    got = forward(params, torch.from_numpy(toks), cfg)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+    full = forward(params, torch.from_numpy(toks), CFG)
+    torch.testing.assert_close(got[:, :40], full[:, :40], rtol=0, atol=1e-6)
+    assert (got[:, 40:] - full[:, 40:]).abs().max() > 1e-3
+    with pytest.raises(NotImplementedError, match="causal-only"):
+        forward(params, torch.from_numpy(toks), cfg, causal=False)
+    with pytest.raises(NotImplementedError, match="causal-only"):
+        jtf.forward(jp, jnp.asarray(toks), jcfg, causal=False)
+
+
 
 @pytest.mark.parametrize("fn", [init_params, params_from_jax,
                                 trainable_params_from_jax, make_cache],

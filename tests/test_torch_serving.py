@@ -8,7 +8,9 @@ compared through ``gather_kv`` (dequantized [Hkv, L, d]).  Under ``jit``,
 XLA rewrites the JAX cache's ``absmax / 127`` into ``absmax * (1/127)``,
 so a scale may differ from the port's division by one ulp: the
 dequantized caches agree to rtol 1e-6 (the int8 codes are equal here).
-Decode outputs agree to atol 1e-5 (f32, summation order only)."""
+Decode outputs agree to atol 1e-5 (f32, summation order only), with and
+without a sliding window, and the split that H6-decode runs on the card
+(page runs, then H2's merge) is emulated with the plain versions."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,13 +22,20 @@ from exploring_flash_attention_tpu.serving.decode import (
     paged_decode_attention as jax_paged_decode_attention,
 )
 from exploring_flash_attention_tpu_torch.oracle import naive_attention
+from exploring_flash_attention_tpu_torch.ops.attention_v2_splitkv import (
+    splitkv_combine_plain,
+)
 from exploring_flash_attention_tpu_torch.serving import (
     PageAllocator,
     append_prompts,
     append_tokens,
+    decode_split,
     gather_kv,
     make_cache,
     paged_decode_attention,
+    paged_decode_partials,
+    paged_decode_partials_plain,
+    paged_decode_plain,
 )
 from exploring_flash_attention_tpu_torch.serving.kv_cache import (
     _quantize_rows,
@@ -128,12 +137,112 @@ def test_paged_decode_empty_sequence_gives_zeros():
     assert (out == 0).all()
 
 
-def test_paged_decode_refuses_window():
+LENS = (450, 100, 800)            # tests/test_serving.py:170's contexts
+
+
+def _fill_ragged(seed, hkv, d, lens, max_pages=7):
+    """Ragged prompts (one ``append_prompts`` per slot) in a JAX and a port
+    cache; slot s owns pages [7s, 7s+7) in a permuted order."""
+    b = len(lens)
+    rng = np.random.default_rng(seed)
+    table = np.stack([np.roll(np.arange(max_pages), s + 2) + max_pages * s
+                      for s in range(b)]).astype(np.int32)
+    jc = jkv.make_cache(hkv, d, b * max_pages, page_size=PS, max_seqs=b,
+                        max_pages_per_seq=max_pages)
+    jc = jkv.PagedKVCache(jc.kv_pages, jc.kv_scales, jnp.asarray(table),
+                          jc.seq_lens, jc.page_size, jc.head_pack)
+    tc = make_cache(hkv, d, b * max_pages, page_size=PS, max_seqs=b,
+                    max_pages_per_seq=max_pages, device="cpu")
+    tc.page_table.copy_(torch.from_numpy(table))
+    slots = np.arange(b, dtype=np.int32)
+    for s, n in enumerate(lens):
+        kp = rng.standard_normal((1, n, hkv, d)).astype(np.float32)
+        vp = rng.standard_normal((1, n, hkv, d)).astype(np.float32)
+        jc = jkv.append_prompts(jc, jnp.asarray(slots[s:s + 1]),
+                                jnp.asarray(kp), jnp.asarray(vp))
+        append_prompts(tc, torch.from_numpy(slots[s:s + 1]),
+                       torch.from_numpy(kp), torch.from_numpy(vp))
+    return jc, tc, slots
+
+
+@pytest.mark.parametrize("window", [50, 200, 300, 1000])
+def test_windowed_decode_matches_jax_and_banded_oracle(window):
+    """tests/test_serving.py:170 on the port, against JAX's
+    ``paged_decode_attention(window=)`` (atol 1e-5, f32 summation order)
+    and the f64 oracle over each slot's band of the gathered cache.  The
+    band lies inside one page (50 of 450), crosses pages (200, 300), or
+    holds the whole context (1000, equal to no window); where it is
+    narrower than the context the result must differ from full decode."""
+    hq, hkv, d = 4, 2, 64
+    jc, tc, slots = _fill_ragged(11, hkv, d, LENS)
+    q = np.random.default_rng(12).standard_normal(
+        (len(LENS), hq, d)).astype(np.float32)
+    ref = np.asarray(jax_paged_decode_attention(
+        jnp.asarray(q), jc, jnp.asarray(slots), window=window))
+    got = paged_decode_attention(torch.from_numpy(q), tc,
+                                 torch.from_numpy(slots), window=window)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+    full = paged_decode_attention(torch.from_numpy(q), tc,
+                                  torch.from_numpy(slots)).numpy()
+    for s, n in enumerate(LENS):
+        k, v = gather_kv(tc, s)                          # [Hkv, L, d]
+        lo = max(0, n - window)
+        oracle = naive_attention(q[s].reshape(hkv, hq // hkv, d),
+                                 k.numpy()[:, lo:], v.numpy()[:, lo:])
+        np.testing.assert_allclose(got[s].numpy().reshape(oracle.shape),
+                                   oracle, atol=ATOL)
+        if n > window:
+            assert np.abs(got[s].numpy() - full[s]).max() > 1e-3, s
+        else:
+            np.testing.assert_array_equal(got[s].numpy(), full[s])
+
+
+@pytest.mark.parametrize("window,n_sms", [(None, 132), (None, 8),
+                                          (None, 1), (200, 132), (60, 4)])
+def test_decode_split_partials_merge_to_plain_decode(window, n_sms):
+    """H6-decode's split, emulated with its plain versions: the planner's
+    page runs, each run's (O, LSE), then H2's merge
+    (``splitkv_combine_plain``) must give the unsplit plain decode (atol
+    1e-6: f32, the merge's summation order).  Runs cover every visible
+    page; a run that sees no key (past the sequence, or a slot whose
+    length is 0) is the merge identity (0, -inf)."""
+    hq, hkv, d = 4, 2, 64
+    _, tc, slots = _fill_ragged(13, hkv, d, LENS + (0,))
+    q = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (len(slots), hq, d)).astype(np.float32))
+    ts = torch.from_numpy(slots)
+    n_split, per = decode_split(tc, len(slots), window, n_sms)
+    span = (tc.max_pages_per_seq if window is None
+            else min(tc.max_pages_per_seq, -(-window // PS) + 1))
+    assert n_split * per >= span and (n_split - 1) * per < span
+    assert n_split == 1 or len(slots) * hkv * n_split <= 2 * n_sms
+    o, lse = paged_decode_partials_plain(q, tc, ts, 0.125, window, n_split,
+                                         per)
+    assert o.shape == (len(slots), hq, n_split, 1, d)
+    assert lse.shape == (len(slots), hq, n_split, 1)
+    merged = splitkv_combine_plain(o, lse)[:, :, 0]
+    ref = paged_decode_plain(q, tc, ts, 0.125, window)
+    torch.testing.assert_close(merged, ref, rtol=0, atol=1e-6)
+    for s, n in enumerate(LENS + (0,)):
+        first = max(n - window, 0) if window else 0
+        n_runs = -(-(-(-n // PS) - first // PS) // per) if n else 0
+        empty = slice(n_runs, None)
+        assert (lse[s, :, empty] == float("-inf")).all(), s
+        assert (o[s, :, empty] == 0).all(), s
+        assert torch.isfinite(lse[s, :, :n_runs]).all(), s
+    if n_sms == 132:                # what the CPU entry point plans
+        got = paged_decode_partials(q, tc, ts, 0.125, window)
+        torch.testing.assert_close(got[0], o, rtol=0, atol=0)
+        torch.testing.assert_close(got[1], lse, rtol=0, atol=0)
+
+
+def test_paged_decode_refuses_a_window_below_one():
     tc = make_cache(2, 64, 4, page_size=PS, max_seqs=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
-        paged_decode_attention(torch.ones((1, 4, 64)), tc,
-                               torch.tensor([0], dtype=torch.int32),
-                               window=16)
+    for bad in (0, -3):
+        with pytest.raises(ValueError, match="window"):
+            paged_decode_attention(torch.ones((1, 4, 64)), tc,
+                                   torch.tensor([0], dtype=torch.int32),
+                                   window=bad)
 
 
 def test_allocator_exhaustion_and_reuse():

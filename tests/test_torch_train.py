@@ -159,3 +159,52 @@ def test_profile_split_times_the_real_step():
 def test_make_train_step_refuses_a_mesh():
     with pytest.raises(NotImplementedError, match="sharded"):
         make_train_step(CFG, mesh=object())
+
+
+WCFG = ModelConfig(**KW, window=48)
+JWCFG = jtf.ModelConfig(**KW, tile=JTileConfig(block_q=64, block_kv=64),
+                        window=48)
+
+
+def test_windowed_loss_and_every_gradient_match_jax():
+    """The windowed model (window 48 at L = 128; JAX's band forward takes
+    lane-aligned lengths): the loss and every gradient against JAX's
+    windowed ``loss_fn``, at the tolerances of the unwindowed test above.
+    The band matters here: the unwindowed loss differs."""
+    jp = jtf.init_params(JWCFG, seed=5)
+    toks = _tokens(5, 2, 129)
+    inputs, targets = toks[:, :-1], toks[:, 1:]
+    ref_loss, ref_grads = jax.value_and_grad(jtf.loss_fn)(
+        jp, jnp.asarray(inputs), jnp.asarray(targets), JWCFG)
+    params = trainable_params_from_jax(jax.device_get(jp), device="cpu")
+    loss = loss_fn(params, torch.from_numpy(inputs),
+                   torch.from_numpy(targets), WCFG)
+    np.testing.assert_allclose(loss.item(), float(ref_loss), atol=2e-5)
+    full = loss_fn(params, torch.from_numpy(inputs),
+                   torch.from_numpy(targets), CFG)
+    assert abs(full.item() - loss.item()) > 1e-3
+    grads = torch.autograd.grad(loss, param_leaves(params))
+    ref_leaves = jax.tree.leaves(ref_grads)
+    assert len(ref_leaves) == len(grads)
+    for i, (g, r) in enumerate(zip(grads, ref_leaves)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-5,
+                                   rtol=1e-3, err_msg=f"leaf {i}")
+
+
+def test_windowed_model_trains():
+    """tests/test_model.py:132 on the port: the windowed model's AdamW
+    steps lower the loss (B=2, L=256, window 96)."""
+    cfg = ModelConfig(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      d_model=256, d_head=64, d_ff=512, window=96)
+    jcfg = jtf.ModelConfig(vocab_size=512, n_layers=2, n_heads=4,
+                           n_kv_heads=2, d_model=256, d_head=64, d_ff=512)
+    step, opt_init = make_train_step(cfg)
+    params = params_from_jax(jax.device_get(jtf.init_params(jcfg, seed=0)),
+                             device="cpu", dtype=torch.float32)
+    opt = opt_init(params)
+    toks = np.random.default_rng(0).integers(0, 512, (2, 257)).astype(
+        np.int32)
+    l0 = step(params, opt, toks).item()
+    for _ in range(3):
+        loss = step(params, opt, toks).item()
+    assert loss < l0

@@ -18,7 +18,8 @@ Phases, one line each; any failure exits non-zero before the last line:
    H3-dkv, H3-dq, H4-kvq, H5 and H6-extend function and in H4-int8's
    pv_mode bf16 ones,
    IGMMA in every H4-int8 function, and no HMMA or IMMA (the mma.sync and
-   WMMA forms they replaced);
+   WMMA forms they replaced); every H2 function must load with 128-bit
+   global loads (LDG.E.128);
 3. h1:     kernel H1 (the attention forward) vs its plain PyTorch
    version and the f64 oracle, causal, at the slice's shapes and one
    ragged case;
@@ -50,15 +51,21 @@ Phases, one line each; any failure exits non-zero before the last line:
    L=1024 with bf16, e4m3 and int8 K/V (bench/suite.py:279, :309) and a
    ragged d=256 case, the suite's gate first; the last d-chunk left out
    of S is a further control;
-7. decode: kernel H6-decode (paged INT8 decode, split across the SMs) and
-   H2's merge of its partials, through paged_decode_attention, vs the
-   plain version and the f64 oracle over each slot's band of the
-   dequantized cache, at the slice's contexts 257..280, the JAX suite's
-   decode entry (B=32, Hq=Hkv=8, page size 256, 2048 tokens;
-   bench/suite.py:455-472) without and with a window of 512, and the
-   windowed model's (contexts 4609..4632, window 4096); the controls: the
-   newest token hidden, the window one key narrower; the window of 512
-   must take less time than no window;
+7. decode: kernel H6-decode (paged INT8 decode, split across the SMs,
+   the runs merged by the last block of each sequence and KV head),
+   through paged_decode_attention, one launch per call, vs the plain
+   version and the f64 oracle over each slot's band of the dequantized
+   cache, at the slice's contexts 257..280, the JAX suite's decode entry
+   (B=32, Hq=Hkv=8, page size 256, 2048 tokens; bench/suite.py:455-472)
+   without and with a window of 512, the windowed model's (contexts
+   4609..4632, window 4096) and B=1 at 8100 tokens (64 runs of one page);
+   the controls: the newest token hidden, the window one key narrower;
+   the fused O vs the plain merge of the kernel's own partials within one
+   bf16 ulp of max|O|, beside the merge with each row's last non-empty
+   run left out, which must read beyond the limits; the tickets zero
+   after each case; the fused call no slower than the kernel alone
+   followed by H2 (the two-launch form), and the window of 512 faster
+   than no window;
 8. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
    its plain version and the f64 oracle, a C = 256 chunk appended to
    ragged histories 257..280, and the windowed model's second turn (C =
@@ -75,19 +82,19 @@ Phases, one line each; any failure exits non-zero before the last line:
    GQA 8/4, d_head 128, d_ff 4096, bf16, random weights from seed 0) runs
    GenerationEngine.generate on [8, 256] prompts for 24 tokens.  Every
    kernel's launch counter is zeroed just before and read just after: H1
-   must launch n_layers = 4 times, H6-decode and H2 4 * 23 = 92.  Each
-   generated
+   must launch n_layers = 4 times, H6-decode 4 * 23 = 92 and H2 never.
+   Each generated
    token is checked against a fresh full forward over the sequence so far
    (agreement, or a near-tie under LOGIT_GAP).  Tokens/s come from the
    host clock around a second, synchronized call;
 11. multiturn: the same model holds its slots (generate(hold=True)), then
    continue_generation feeds a second turn of 256 tokens (turn 1's last
    token and 255 new ones, chunk at positions 279..534) and decodes 24
-   more.  Counters: turn 1 H1 4, H6-decode 92, H2 92; turn 2 H6-extend 4,
-   H6-decode 92, H2 92, H1 0.  Each turn-2 token is checked against the full
-   forward over the whole stream so far, and every layer's cache against
-   forward_collect_kv over the concatenated stream; release() must return
-   every page;
+   more.  Counters: turn 1 H1 4, H6-decode 92; turn 2 H6-extend 4,
+   H6-decode 92; H2 0 in both, H1 0 in turn 2.  Each turn-2 token is
+   checked against the full forward over the whole stream so far, and
+   every layer's cache against forward_collect_kv over the concatenated
+   stream; release() must return every page;
 12. train:  the same model, trainable (fresh weights from seed 0), takes
    make_train_step's AdamW steps (lr 1e-3) on tokens [8, 1025] from
    np.random.default_rng(0).  Every step must launch H1, H3-dkv and H3-dq
@@ -118,7 +125,7 @@ Phases, one line each; any failure exits non-zero before the last line:
 15. window_generate: the same model served: [8, 4608] prompts (longer
    than the window) for 24 tokens held, then a 256-token second turn and
    24 more (max_len 5120, page size 128).  Counters: turn 1 H1 4,
-   H6-decode 92, H2 92; turn 2 H6-extend 4, H6-decode 92, H2 92.  Tokens
+   H6-decode 92; turn 2 H6-extend 4, H6-decode 92; H2 0 in both.  Tokens
    against the windowed full forward (agreement or a near-tie), the cache
    after turn 2 against forward_collect_kv over the stream; controls: the
    band dropped in decode and a turn one token short (tokens), a stream
@@ -214,6 +221,9 @@ V1_WINDOW_O_TOL = 1e-2  # the window cases: rows that see a handful of keys
                        # (tests/test_torch_attention_v1.py)
 H2_O_TOL = 1e-5        # H2 vs its plain version on the same f32 partials:
                        # both merge in f32 and differ in summation order
+# The fused decode's bf16 O vs the plain merge of the kernel's own f32
+# partials: one bf16 ulp of max|O| (one rounding of an f32 merge that
+# differs from the plain one by summation order only).
 
 # The quant and dtiled phases hold f32 O against the plain version (the
 # whole tensor) and the f64 oracle over the dequantized tensors (a slice),
@@ -329,7 +339,9 @@ WINDOW = 4096
 WINDOW_TRAIN = (1, 32768)
 WINDOW_GENERATE = (8, 4608, 24, 256, 5120)
 # the decode phase's cases: (case, B, Hq, Hkv, page size, contexts (first,
-# last; B spread between), max_len, window)
+# last; B spread between), max_len, window); the last one's split has more
+# runs (64 of one page) than a row's lanes in the kernel's merge (32)
+DECODE_LONG = "B=1 long context"
 DECODE_CASES = [
     ("slice", 8, 8, 4, 128, (257, 280), 1024, None),
     ("JAX suite decode entry (bench/suite.py:455-472)", 32, 8, 8, 256,
@@ -338,6 +350,7 @@ DECODE_CASES = [
      (2048, 2048), 2048, 512),
     ("windowed model's generation", 8, 8, 4, 128, (4609, 4632), 5120,
      WINDOW),
+    (DECODE_LONG, 1, 8, 4, 128, (8100, 8100), 8192, None),
 ]
 # the extend phase's: (case, B, Hq, Hkv, page size, histories, max_len, C,
 # window)
@@ -403,8 +416,17 @@ def check_sass(kernels):
     """H1, H3, H4-int8, H4-kvq, H5 and H6-extend run on wgmma: HGMMA in
     every H1, H3, H4-kvq, H5 and H6-extend function and in the pv_mode bf16
     H4-int8 ones (template argument false, ``Lb0E``), IGMMA in every
-    H4-int8 function, no HMMA or IMMA in any of them."""
+    H4-int8 function, no HMMA or IMMA in any of them.  H2 (d 32, 64, 128)
+    reads its partials with 128-bit global loads (``LDG.E.128``, with any
+    cache modifiers) in every function."""
     sass = kernels.sass_by_function()
+    h2 = {n: len(re.findall(r"\bLDG\.E(?:\.\w+)*?\.128\b", t))
+          for n, t in sass.items() if "splitkv_combine_kernel" in n}
+    print(f"  sass: splitkv_combine_kernel 128-bit loads: "
+          + ", ".join(f"{n.split('splitkv_combine_kernel')[1][:8]} {c}"
+                      for n, c in h2.items()))
+    _require(len(h2) == 3 and all(h2.values()),
+             f"H2's functions lack 128-bit global loads: {h2}")
     found = dict.fromkeys(WGMMA_FUNCTIONS, 0)
     for name, text in sass.items():
         kind = next((k for k in found if k in name), None)
@@ -692,6 +714,14 @@ def phase_v1(torch, dev):
     return launches, gate_err, t, h2
 
 
+def merge_bound(nkb, rows, d):
+    """H2's bound for ``rows`` rows of ``nkb`` f32 partials into bf16 O:
+    an FMA per partial element and an exp per partial, f32 outside the
+    tensor cores; each partial and LSE read once, O written once."""
+    return roofline(nkb * rows * (2 * d + 1),
+                    nkb * rows * (d + 1) * 4 + rows * d * 2, H100_F32_FLOPS)
+
+
 def split_timings(torch, q, k, v, span, want):
     """At the split case: H2 against its plain version on H1's span
     partials (error, times, bound), then the whole call at several span
@@ -721,9 +751,12 @@ def split_timings(torch, q, k, v, span, want):
           "library_ms": None}
     # its operations (an FMA per partial element, an exp per partial) are
     # f32 outside the tensor cores
-    h2["bound_ms"], h2["bound_by"] = roofline(
-        nkb * rows * (2 * d + 1), nkb * rows * (d + 1) * 4 + rows * d * 2,
-        H100_F32_FLOPS)
+    h2["bound_ms"], h2["bound_by"] = merge_bound(nkb, rows, d)
+    h2["bound_share"] = h2["bound_ms"] / h2["ms"]
+    # the same call on 8 rows: what a launch costs in this harness
+    tiny = (torch.randn(1, 1, nkb, 8, d, device=q.device),
+            torch.randn(1, 1, nkb, 8, device=q.device))
+    h2["floor_ms"] = time_cuda(lambda: splitkv_combine(*tiny, q.dtype))
     spans = time_cuda(lambda: prefill_attention(
         q, k, v, scale, 0, False, kv_span=span, out_dtype=torch.float32),
         n_iter=10)
@@ -742,7 +775,9 @@ def split_timings(torch, q, k, v, span, want):
           f"spans of {span} keys: H2 vs its plain version {err:.3e} (tol "
           f"{H2_O_TOL:g}); H1 spans {spans:.4f} ms, H2 {h2['ms']:.4f} ms vs "
           f"plain {h2['plain_ms']:.4f} ms (bound {h2['bound_ms']:.4f} ms, "
-          f"{h2['bound_by']}); whole call (bf16 O) by span count: "
+          f"{h2['bound_by']}, {h2['bound_share']:.1%} of it; the same call "
+          f"on 8 rows {h2['floor_ms']:.4f} ms); whole call (bf16 O) by span "
+          f"count: "
           + ", ".join(sweep))
     return h2
 
@@ -1138,17 +1173,17 @@ def make_paged_case(torch, dev, b=8, hq=8, hkv=4, d=128, ps=128,
 
 
 @contextlib.contextmanager
-def newest_token_hidden(cache, slots):
-    """A known-wrong path: each sequence's newest cached token is hidden
-    (an off-by-one length), for the controls of the decode and extend
-    checks.  In extend, where row i sits at seq_lens - C + i, it hides
-    every chunk row's own (diagonal) key."""
+def newest_token_hidden(cache, slots, n=1):
+    """A known-wrong path: each sequence's newest cached token (or ``n``
+    newest) is hidden (an off-by-one length), for the controls of the
+    decode and extend checks.  In extend, where row i sits at seq_lens - C
+    + i, it hides every chunk row's own (diagonal) key."""
     idx = slots.long()
-    cache.seq_lens[idx] -= 1
+    cache.seq_lens[idx] -= n
     try:
         yield
     finally:
-        cache.seq_lens[idx] += 1
+        cache.seq_lens[idx] += n
 
 
 def gathered_kv(torch, cache, slots, pos, window):
@@ -1189,13 +1224,13 @@ def band_oracle(q, cache, slot, pos, window):
     return out
 
 
-def paged_check(what, o, ref, oracle, controls, tol):
+def paged_check(what, o, ref, oracle, controls, tol, shown=None):
     """One decode or extend check: the kernel's O vs the plain version
     (the whole tensor) and vs the f64 oracle (``oracle``: the kernel's
     rows the oracle computed, and the oracle's), each within ``tol`` and
     within PAGED_REL_TOL of max|O_ref|; every known-wrong control (the
     plain version run wrongly) must read beyond PAGED_REL_TOL against the
-    kernel's O."""
+    kernel's O; those in ``shown`` are printed only."""
     o = o.float()
     top = ref.abs().max().item()
     e_plain = (o - ref).abs().max().item()
@@ -1203,11 +1238,15 @@ def paged_check(what, o, ref, oracle, controls, tol):
     e_or = float(np.abs(got - o64).max())
     top64 = float(np.abs(o64).max())
     ctl = {n: (o - x).abs().max().item() / top for n, x in controls.items()}
+    seen = {n: (o - x).abs().max().item() / top
+            for n, x in (shown or {}).items()}
     print(f"  {what}: max|dO| vs plain {e_plain:.3e} ({e_plain / top:.3e} of "
           f"max|O| {top:.3e}), vs f64 oracle on the dequantized cache "
           f"{e_or:.3e} ({e_or / top64:.3e}); limits {tol:g} and "
           f"{PAGED_REL_TOL:g} of max|O|; controls (of max|O|): "
-          + ", ".join(f"{n} {x:.3e}" for n, x in ctl.items()))
+          + ", ".join(f"{n} {x:.3e}" for n, x in ctl.items())
+          + "".join(f"; {n} {x:.3e} (shown, not required)"
+                    for n, x in seen.items()))
     _require(o.isfinite().all().item(), f"{what}: O not finite")
     _require(max(e_plain, e_or) < tol and e_plain / top < PAGED_REL_TOL
              and e_or / top64 < PAGED_REL_TOL, f"{what} outside tolerance")
@@ -1226,14 +1265,23 @@ def paged_work(hq, hkv, d, pairs, tokens, rows):
 
 
 def phase_decode(torch, dev):
-    """H6-decode, merged by H2, through paged_decode_attention at each of
-    DECODE_CASES: one launch of each per call, O against the plain version
-    and the f64 oracle over each slot's band of the dequantized cache,
-    beside its controls (the newest token hidden; under a window, the
-    window one key narrower); times of the kernel alone, the call, the
-    plain version and scaled_dot_product_attention over the gathered,
-    dequantized K/V under the same band mask (the gather and the dequant
-    left out), and the bound."""
+    """H6-decode through paged_decode_attention at each of DECODE_CASES:
+    one launch per call, the runs merged inside it by the last block of
+    each (sequence, KV head); O against the plain version and the f64
+    oracle over each slot's band of the dequantized cache, beside its
+    controls (the newest token hidden; under a window, the window one key
+    narrower); O against the plain merge of the kernel's own partials
+    (paged_decode_partials, the kernel without its merge) within one bf16
+    ulp of max|O|, beside the merge with each row's last non-empty run left
+    out, which must read beyond PAGED_REL_TOL of max|O| (as paged_check's
+    controls) wherever the split has more than one run; the tickets zero
+    after each case.
+    Times, in one run: the kernel alone, the fused call and the two-launch
+    form (the kernel alone, then H2), in turns, the fused call no slower
+    than the two-launch form; the plain version, scaled_dot_product_attention
+    over the gathered, dequantized K/V under the same band mask (the
+    gather and the dequant left out), and the bounds of the call and of
+    the merge."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from exploring_flash_attention_tpu_torch.ops import (
@@ -1245,6 +1293,7 @@ def phase_decode(torch, dev):
         paged_decode_attention,
         paged_decode_partials,
         paged_decode_plain,
+        ticket_buffer,
     )
     from exploring_flash_attention_tpu_torch.utils import time_cuda
 
@@ -1261,15 +1310,25 @@ def phase_decode(torch, dev):
         scale = 1.0 / math.sqrt(d)
         call = lambda: paged_decode_attention(        # noqa: E731
             q, cache, slots, window=window)
-        o = counted_call(torch, call, launches_only(h6=1, h2=1))
+        o = counted_call(torch, call, launches_only(h6=1))
         ref = paged_decode_plain(q, cache, slots, scale, window)
         oracle = np.stack([band_oracle(q[s:s + 1], cache, s,
                                        [int(n) - 1], window)[0]
                            for s, n in enumerate(ctx)])
-        controls = {}
+        controls, shown = {}, {}
         with newest_token_hidden(cache, slots):
             controls["newest token hidden"] = paged_decode_plain(
                 q, cache, slots, scale, window)
+        if name == DECODE_LONG:
+            # one sequence over 8100 keys: a one-key fault moves O by less
+            # than PAGED_REL_TOL (a CPU rehearsal reads 6.7e-3 of max|O|),
+            # so it is shown; the tokens of the last run hidden must fail
+            shown = controls
+            tail = int((ctx.max() - 1) % ps + 1)
+            with newest_token_hidden(cache, slots, tail):
+                controls = {f"the last run's {tail} tokens hidden":
+                            paged_decode_plain(q, cache, slots, scale,
+                                               window)}
         if window is not None:
             controls["window one key narrower"] = paged_decode_plain(
                 q, cache, slots, scale, window - 1)
@@ -1278,13 +1337,41 @@ def phase_decode(torch, dev):
                 f"ctx {ctx.min()}..{ctx.max()} window {window}, "
                 f"{split[0]} runs of {split[1]} pages")
         err = paged_check(what, o, ref, (o.float().cpu().numpy(), oracle),
-                          controls, DECODE_O_TOL)
-        del o, ref, controls
+                          controls, DECODE_O_TOL, shown)
+        del ref, controls, shown
 
+        # the merge inside the kernel vs the plain merge of its partials
         o_part, lse = paged_decode_partials(q, cache, slots, scale, window)
+        merged = splitkv_combine_plain(o_part, lse)[:, :, 0]
+        top = merged.abs().max().item()
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        e_merge = (o.float() - merged).abs().max().item()
+        note = ""
+        if split[0] > 1:
+            # control: each row's last run that saw a key left out
+            run = torch.arange(split[0], device=dev)[:, None]
+            last = torch.where(lse.isfinite(), run, -1).amax(dim=2,
+                                                             keepdim=True)
+            drop = run == last
+            bad = splitkv_combine_plain(
+                o_part.masked_fill(drop[..., None], 0.0),
+                lse.masked_fill(drop, float("-inf")))[:, :, 0]
+            c_abs = (o.float() - bad).abs().max().item()
+            note = (f"; control (each row's last non-empty run left out) "
+                    f"{c_abs:.3e}, {c_abs / top:.3e} of max|O| (must exceed "
+                    f"{PAGED_REL_TOL:g} of it, as paged_check's controls)")
+            _require(c_abs / top > PAGED_REL_TOL,
+                     f"the merge check cannot tell a run left out ({name})")
+        print(f"  decode {name}: fused O vs the plain merge of the kernel's "
+              f"own partials {e_merge:.3e} (one bf16 ulp of max|O| "
+              f"{top:.3e}: {ulp:.3e}){note}")
+        _require(e_merge <= ulp, f"the fused merge differs from the plain "
+                 f"merge of the kernel's partials ({name})")
         e_h2 = (splitkv_combine(o_part, lse, torch.float32)
                 - splitkv_combine_plain(o_part, lse)).abs().max().item()
         _require(e_h2 < H2_O_TOL, f"H2 on the decode partials: {e_h2:.3e}")
+        del o, merged
+
         vis = np.minimum(ctx, window or ctx.max())
         k, v, mask = gathered_kv(torch, cache, slots, ctx[:, None] - 1,
                                  window)
@@ -1293,21 +1380,41 @@ def phase_decode(torch, dev):
             q, cache, slots, scale, window), lambda: sdpa(
             qs, k, v, attn_mask=mask, enable_gqa=hq != hkv),
             *paged_work(hq, hkv, d, int(vis.sum()), int(vis.sum()), b))
-        t["with_merge_ms"] = t["ms"]
-        t["ms"] = time_cuda(lambda: paged_decode_partials(
-            q, cache, slots, scale, window))
+        alone = lambda: paged_decode_partials(        # noqa: E731
+            q, cache, slots, scale, window)
+        two = lambda: splitkv_combine(*alone(), q.dtype)[:, :, 0]  # noqa: E731
+        # in turns: fused, two-launch, alone, alone, two-launch, fused
+        fused_ms, two_ms, alone_ms = [t["ms"]], [], []
+        for fn, acc in ((two, two_ms), (alone, alone_ms), (alone, alone_ms),
+                        (two, two_ms), (call, fused_ms)):
+            acc.append(time_cuda(fn))
+        t["ms"] = float(np.mean(fused_ms))
+        t["partials_ms"] = float(np.mean(alone_ms))
+        t["two_launch_ms"] = float(np.mean(two_ms))
+        t["merge_ms"] = t["ms"] - t["partials_ms"]
         t["h2_ms"] = time_cuda(lambda: splitkv_combine(o_part, lse, q.dtype))
+        t["merge_bound_ms"], _ = merge_bound(split[0], b * hq, d)
         t["bound_share"] = t["bound_ms"] / t["ms"]
         t["split"] = list(split)
         t["max_abs_err"] = err
+        t["merge_err"] = e_merge
+        tickets = ticket_buffer(dev)
+        _require(tickets is not None and not tickets.any().item(),
+                 f"tickets not zero after the {name} case")
         out[name] = t
-        print(f"  decode {name} times: H6-decode {t['ms']:.4f} ms (bound "
-              f"{t['bound_ms']:.4f} ms, {t['bound_by']}, "
-              f"{t['bound_share']:.1%}), H2 on its partials "
-              f"{t['h2_ms']:.4f} ms (vs its plain version {e_h2:.3e}), "
-              f"paged_decode_attention {t['with_merge_ms']:.4f} ms; plain "
-              f"{t['plain_ms']:.4f} ms; scaled_dot_product_attention over "
-              f"the gathered, dequantized K/V {t['library_ms']:.4f} ms")
+        print(f"  decode {name} times: paged_decode_attention (one launch) "
+              f"{t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
+              f"{t['bound_by']}, {t['bound_share']:.1%}), H6-decode without "
+              f"its merge {t['partials_ms']:.4f} ms, so the merge "
+              f"{t['merge_ms']:.4f} ms (its bound {t['merge_bound_ms']:.4f} "
+              f"ms); the two-launch form (without its merge, then H2) "
+              f"{t['two_launch_ms']:.4f} ms, H2 alone {t['h2_ms']:.4f} ms "
+              f"(vs its plain version {e_h2:.3e}); every form timed "
+              f"twice in turns; plain {t['plain_ms']:.4f} ms; "
+              f"scaled_dot_product_attention over the gathered, dequantized "
+              f"K/V {t['library_ms']:.4f} ms; tickets zero after the case")
+        _require(t["ms"] <= t["two_launch_ms"], f"the fused call is slower "
+                 f"than the two-launch form ({name})")
         del k, v, mask, o_part, lse
     made = None
     suite = out[DECODE_CASES[1][0]]["ms"]
@@ -1318,6 +1425,8 @@ def phase_decode(torch, dev):
           f"not read)")
     _require(windowed < suite, "the windowed decode reads pages before the "
              "band")
+    _require(out[DECODE_LONG]["split"][0] > 32,
+             f"the {DECODE_LONG} case planned {out[DECODE_LONG]['split']}")
     print("phase decode: ok")
     return out
 
@@ -1585,8 +1694,7 @@ def phase_slice(torch, dev, lm):
     out = eng.generate(prompt, max_new_tokens=n_new)
     t_first = time.perf_counter() - t0
     launches = read_counters()
-    want = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1),
-                         h2=cfg.n_layers * (n_new - 1))
+    want = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1))
     print(f"  slice launches {launches} (expected {want})")
     _require(launches == want, "the main path missed a kernel")
     _require(out.shape == (bsz, n_new) and out.dtype == np.int32
@@ -1657,10 +1765,8 @@ def phase_multiturn(torch, dev, lm):
     zero_counters()
     out2 = eng.continue_generation(turn, max_new_tokens=n_new)
     turn2 = read_counters()
-    want1 = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1),
-                          h2=cfg.n_layers * (n_new - 1))
-    want2 = launches_only(h6=cfg.n_layers * (n_new - 1), h6e=cfg.n_layers,
-                          h2=cfg.n_layers * (n_new - 1))
+    want1 = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1))
+    want2 = launches_only(h6=cfg.n_layers * (n_new - 1), h6e=cfg.n_layers)
     print(f"  multiturn launches turn 1 {turn1} (expected {want1}), "
           f"turn 2 {turn2} (expected {want2})")
     _require(turn1 == want1 and turn2 == want2,
@@ -2160,12 +2266,12 @@ def phase_window_generate(torch, dev):
     max_len 5120) on [8, 4608] prompts, longer than the window (4 pages
     of 128 fall wholly before every band), for 24 tokens held, then a
     256-token second turn (turn 1's last token and 255 new ones) and 24
-    more.  Counters: turn 1 H1 4, H6-decode 92, H2 92; turn 2 H6-extend 4,
-    H6-decode 92, H2 92.  Tokens against the windowed full forward's argmax
-    (agreement or a near-tie), the cache after turn 2 against
-    forward_collect_kv over the stream, each beside its controls: a decode
-    without its band and a turn one token short for the tokens, a stream
-    one token short for the cache."""
+    more.  Counters: turn 1 H1 4, H6-decode 92; turn 2 H6-extend 4,
+    H6-decode 92; H2 0 in both.  Tokens against the windowed full
+    forward's argmax (agreement or a near-tie), the cache after turn 2
+    against forward_collect_kv over the stream, each beside its controls:
+    a decode without its band and a turn one token short for the tokens, a
+    stream one token short for the cache."""
     from unittest import mock
 
     from exploring_flash_attention_tpu_torch.models import (
@@ -2197,8 +2303,8 @@ def phase_window_generate(torch, dev):
     out2 = eng.continue_generation(turn, max_new_tokens=n_new)
     turn2 = read_counters()
     steps = cfg.n_layers * (n_new - 1)
-    want1 = launches_only(h1=cfg.n_layers, h6=steps, h2=steps)
-    want2 = launches_only(h6e=cfg.n_layers, h6=steps, h2=steps)
+    want1 = launches_only(h1=cfg.n_layers, h6=steps)
+    want2 = launches_only(h6e=cfg.n_layers, h6=steps)
     print(f"  window_generate launches turn 1 {turn1} (expected {want1}), "
           f"turn 2 {turn2} (expected {want2})")
     _require(turn1 == want1 and turn2 == want2,
@@ -2547,26 +2653,40 @@ def main() -> int:
              **v1_t["library_ms_by_case"],
              **{f"B4 causal {n}": x
                 for n, x in t["h1_causal_library"].items()}}},
-        # H2: its numbers are the v1 phase's split case; on the generation
-        # path it merges every decode step's partials
+        # H2: its numbers are the v1 phase's split case, its launches that
+        # call's.  Its arithmetic (csrc/lse_merge.cuh) also runs inside
+        # H6-decode, whose last block merges the runs: decode_merge_ms is
+        # that merge's cost (the fused call less the kernel without it)
+        # beside the two-launch form, with H2 after the kernel
         {"name": "H2 split-KV combine (LSE-weighted merge of span partials)",
          "route": "cuda", "source": H2_SRC, "replaces": f"{SPLITKV_PY}:330",
-         **h2, "launches": launches["h2"],
+         **h2, "launches": h2["launches"],
+         "design": "a row per d/4 lanes, 16-byte loads, LSEs read once "
+                   "into registers (csrc/lse_merge.cuh, shared with "
+                   "H6-decode's merge)",
          "launches_by_path": {"v1": h2["launches"], "slice": launches["h2"],
                               "multiturn_turn_2": turn2["h2"],
                               "window_generate_turn_1": wturn1["h2"],
                               "window_generate_turn_2": wturn2["h2"]},
-         "decode_merge_ms": {n: x["h2_ms"] for n, x in h6.items()}},
+         "decode_merge_ms": {n: x["merge_ms"] for n, x in h6.items()},
+         "decode_merge_bound_ms": {n: x["merge_bound_ms"]
+                                   for n, x in h6.items()},
+         "decode_two_launch_ms": {n: x["two_launch_ms"]
+                                  for n, x in h6.items()},
+         "decode_h2_ms": {n: x["h2_ms"] for n, x in h6.items()}},
         # H6's numbers are the slice's and the multi-turn's cases; by_case
         # holds every case of the decode and extend phases
         {"name": "H6-decode paged INT8 decode attention (window; split "
-                 "across the SMs, merged by H2)", "route": "cuda",
-         "source": H6_SRC,
+                 "across the SMs, the runs merged in its last block)",
+         "route": "cuda", "source": H6_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:74",
          "launches": launches["h6"],
          **{k: h6_main[k] for k in main_keys},
-         "design": "split-KV over a 1-D TMA (cp.async.bulk) ring, H2 merge",
-         "with_merge_ms": h6_main["with_merge_ms"], "by_case": h6,
+         "design": "split-KV over a 1-D TMA (cp.async.bulk) ring, merged "
+                   "by the last block of each (sequence, KV head) on an "
+                   "atomic ticket",
+         "partials_ms": h6_main["partials_ms"],
+         "two_launch_ms": h6_main["two_launch_ms"], "by_case": h6,
          "launches_by_path": {"slice": launches["h6"],
                               "multiturn_turn_2": turn2["h6"],
                               "window_generate_turn_1": wturn1["h6"],

@@ -1,0 +1,155 @@
+// The LSE-weighted merge of split-KV partials, written once for both of
+// its forms: H2 (splitkv_combine.cu, the split path of flash_attention_v1)
+// and the last block of each (sequence, KV head) in H6-decode
+// (paged_decode.cu), which merges the runs of its own launch.
+//
+// The arithmetic is B10's (exploring_flash_attention_tpu/ops/
+// attention_v2_splitkv.py:330-341): over a row's nkb partials (O_k, lse_k),
+//   m = max_k lse_k            (0 when every lse_k is -inf)
+//   w_k = exp(lse_k - m) / sum_j exp(lse_j - m)   (a zero sum taken as 1)
+//   O = sum_k w_k O_k          in f32, rounded once by the caller.
+//
+// Layout.  A row of D = 4L columns is owned by a group of L lanes of one
+// warp (L = 8, 16 or 32: 4, 2 or 1 rows a warp), lane j holding columns
+// 4j .. 4j + 3, read as one 16-byte load per partial.  The row's LSEs are
+// read once, lse_k by lane k % L of the group; the max and the sum reduce
+// by shuffles within the group, and each weight, computed once by the lane
+// that read its LSE, reaches the other lanes by __shfl_sync.  No LSE is
+// read inside the O loop, which is unrolled by 4 partials so that four
+// 16-byte loads are in flight before the first FMA; the first four are
+// issued beside the LSE load, ahead of the reductions.
+//
+// More than L partials are taken L at a time (a chunk); the running max
+// rescales the sum and O of the earlier chunks as in an online softmax,
+// and the last chunk folds 1 / sum into its weights.  With nkb <= L (one
+// chunk) this is exactly w_k = exp(lse_k - m) * inv as above.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace eft {
+
+// kL2: the partials were written by other blocks of the same launch (the
+// decode merge), so they are read through L2 (ld.global.cg); L1 is not
+// coherent across SMs.  Otherwise they are a finished input, read once by
+// the read-only path without allocating in L1.
+template <bool kL2>
+__device__ __forceinline__ float merge_load(const float* p) {
+  if constexpr (kL2) {
+    return __ldcg(p);
+  } else {
+    return __ldg(p);
+  }
+}
+
+template <bool kL2>
+__device__ __forceinline__ float4 merge_load4(const float* p) {
+  if constexpr (kL2) {
+    return __ldcg(reinterpret_cast<const float4*>(p));
+  } else {
+    float4 v;                           // not volatile: free to schedule
+    asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+        : "l"(p));
+    return v;
+  }
+}
+
+template <int L>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off, L));
+  return x;
+}
+
+template <int L>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off, L);
+  return x;
+}
+
+// Partials u < cnt (cnt <= U) of this lane's 4 columns, from row `r` on
+// in steps of `stride` rows of D floats; zeros past cnt.
+template <int L, int U, bool kL2>
+__device__ __forceinline__ void merge_load_group(float4 (&v)[U],
+                                                 const float* col, size_t r,
+                                                 size_t stride, int cnt) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    v[u] = u < cnt ? merge_load4<kL2>(col + (r + u * stride) * (4 * L))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The merged f32 O of one row, this lane's 4 columns.  Partial k of the row
+// is row `first + k * stride` of o_part [.., D] and of lse.  Every lane of
+// the warp calls it with the same nkb (the shuffles take the whole warp);
+// a lane whose row does not exist passes a row that does and drops the
+// result.
+template <int L, int U, bool kL2>
+__device__ __forceinline__ float4 lse_merge_row(const float* __restrict__ o_part,
+                                                const float* __restrict__ lse,
+                                                size_t first, size_t stride,
+                                                int nkb) {
+  const int j = threadIdx.x % L;        // this lane's place in its group
+  const float* col = o_part + 4 * j;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float m = -CUDART_INF_F, den = 0.f;
+  for (int c0 = 0; c0 < nkb; c0 += L) {
+    const int n = min(L, nkb - c0);     // partials in this chunk
+    const size_t r0 = first + size_t(c0) * stride;
+    const float x = j < n ? merge_load<kL2>(lse + r0 + size_t(j) * stride)
+                          : -CUDART_INF_F;
+    float4 v[U];
+    merge_load_group<L, U, kL2>(v, col, r0, stride, min(n, U));
+    const float m_new = fmaxf(m, group_max<L>(x));
+    const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
+    float w = expf(x - m_use);          // 0 where lse_k is -inf
+    float alpha = expf(m - m_use);      // 0 before the first finite lse
+    den = den * alpha + group_sum<L>(w);
+    m = m_new;
+    if (c0 + L >= nkb) {                // the last chunk: fold in 1 / sum
+      const float inv = 1.f / (den == 0.f ? 1.f : den);
+      w *= inv;
+      alpha *= inv;
+    }
+    acc.x *= alpha;
+    acc.y *= alpha;
+    acc.z *= alpha;
+    acc.w *= alpha;
+    for (int i = 0;;) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float wu = __shfl_sync(0xffffffffu, w, min(i + u, n - 1), L);
+        const float wk = i + u < n ? wu : 0.f;
+        acc.x = fmaf(wk, v[u].x, acc.x);
+        acc.y = fmaf(wk, v[u].y, acc.y);
+        acc.z = fmaf(wk, v[u].z, acc.z);
+        acc.w = fmaf(wk, v[u].w, acc.w);
+      }
+      i += U;
+      if (i >= n) break;
+      merge_load_group<L, U, kL2>(v, col, r0 + size_t(i) * stride, stride,
+                                  min(n - i, U));
+    }
+  }
+  return acc;
+}
+
+// Four f32 values rounded to bf16 and written as one 8-byte store.
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = packed;
+}
+
+}  // namespace eft

@@ -1,5 +1,5 @@
 // H6-decode: paged INT8 decode attention on Hopper (sm_90a), split across
-// the SMs; H2 (splitkv_combine.cu) merges its partials.
+// the SMs, its runs merged by the last block of each (sequence, KV head).
 //
 // Replaces the TPU kernel B20 _decode_kernel
 // (exploring_flash_attention_tpu/serving/decode.py:74): one new token per
@@ -19,6 +19,24 @@
 // n_split, 1, d] normalized over the run and its natural-log LSE [B, Hq,
 // n_split, 1], scale included; a run that sees nothing writes the merge
 // identity (0, -inf), and so does an empty or invalid slot.
+//
+// The merge (FUSED, what paged_decode_attention launches: B20 is one
+// pallas_call and so is this).  With n_split == 1 the block writes its
+// normalized bf16 O [B, Hq, d] directly: no partial, no ticket.  Otherwise
+// every block, whatever its run saw, writes its partial, then arrives on
+// the ticket of its (batch row, KV head): after a barrier, thread 0
+// fences (release) and adds 1 to tickets[b * Hkv + kh].  The block that
+// draws n_split - 1 is the last: it fences (acquire), reads the n_split
+// partials of its G rows through L2 (L1 is not coherent across SMs),
+// merges them with lse_merge.cuh (H2's arithmetic) into bf16 O, and
+// stores 0 back to the ticket, so the buffer is zero for the next launch
+// with no host work and no memset (a CUDA graph replays it as it is).  A
+// ticket per batch row, not per slot: rows with an invalid slot (-1) do
+// not share one.  A ticket, not a thread-block cluster: a cluster caps
+// n_split at 8 (16 non-portable), and decode_split plans up to
+// 2 * 132 / (B * Hkv) runs (66 at B=1, Hkv=4).  Without FUSED the kernel
+// writes the partials only (paged_decode_partials: the kernel alone, for
+// the tests and the timings).
 //
 // Cost: the bytes.  Every visible cached token is one int8 K row and one
 // V row of d bytes and two f32 scales per KV head: 138 MB at the JAX
@@ -54,6 +72,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "lse_merge.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -64,10 +83,12 @@ constexpr int TILE = 128;        // tokens per stage
 constexpr int STAGES = 3;        // tiles in the ring
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
+constexpr int MERGE_UNROLL = 8;  // 16-byte loads in flight a lane, merging
 
 // Shared memory of one block: the ring (K codes, V codes, K scales, V
 // scales per stage), S [GMAX][TILE], P * v_scale [TILE][GMAX], alpha, m,
-// l of each q row, the barriers.  The four warps' O sums reuse the ring.
+// l of each q row, the ticket drawn, the barriers.  The four warps' O sums
+// reuse the ring.
 template <int D, int GMAX>
 struct Smem {
   static constexpr uint32_t CODES = TILE * D;
@@ -76,7 +97,8 @@ struct Smem {
   static constexpr size_t s = ring + size_t(STAGES) * STAGE;
   static constexpr size_t p = s + size_t(GMAX) * TILE * 4;
   static constexpr size_t rows = p + size_t(TILE) * GMAX * 4;   // alpha, m, l
-  static constexpr size_t bars = (rows + 3 * GMAX * 4 + 15) / 16 * 16;
+  static constexpr size_t ticket = rows + 3 * GMAX * 4;
+  static constexpr size_t bars = (ticket + 4 + 15) / 16 * 16;
   static constexpr size_t bytes = bars + 8 * STAGES;
   static_assert(size_t(WARPS) * GMAX * D * 4 <= STAGE, "O sums fit a stage");
 };
@@ -95,7 +117,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D, int GMAX>
+template <int D, int GMAX, bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
                     const int8_t* __restrict__ pages,      // [n_pages, 2, Hkv, ps, D]
@@ -105,6 +127,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
                     const int* __restrict__ slots,         // [B]
                     float* __restrict__ o_part,            // [B, Hq, n_split, 1, D]
                     float* __restrict__ lse,               // [B, Hq, n_split, 1]
+                    __nv_bfloat16* __restrict__ o,         // [B, Hq, D] (FUSED)
+                    int* __restrict__ tickets,             // [B * Hkv] (FUSED)
                     int hq, int hkv, int ps, int max_pages, int max_seqs,
                     int window, int pages_per_split, float scale_log2) {
   using S = Smem<D, GMAX>;
@@ -323,60 +347,94 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
   }
   __syncthreads();
   const size_t row0 = size_t(b) * hq + size_t(kh) * group;  // first q head
+  const bool direct = FUSED && n_split == 1;   // normalized bf16 O at once
   for (int x = tid; x < group * D; x += THREADS) {
     const int g = x / D, col = x % D;
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) sum += red[(w * GMAX + g) * D + col];
     const float l = s_l[g];
-    o_part[((row0 + g) * n_split + split) * D + col] = sum / (l == 0.f ? 1.f : l);
+    const float val = sum / (l == 0.f ? 1.f : l);
+    if (direct)
+      o[(row0 + g) * D + col] = __float2bfloat16(val);
+    else
+      o_part[((row0 + g) * n_split + split) * D + col] = val;
   }
-  if (tid < group) {
+  if (!direct && tid < group) {
     const float l = s_l[tid];
     lse[(row0 + tid) * n_split + split] =
         l == 0.f ? -CUDART_INF_F
                  : s_m[tid] * 0.6931471805599453f + logf(l);
   }
+  if constexpr (FUSED) {
+    if (direct) return;
+    // arrive on the ticket once every thread's partial is written
+    int* ticket = tickets + size_t(b) * hkv + kh;
+    int* s_ticket = reinterpret_cast<int*>(smem + S::ticket);
+    __syncthreads();
+    if (tid == 0) {
+      // release the block's partial, acquire the others' (if last)
+      asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;"
+                   : "=r"(*s_ticket)
+                   : "l"(ticket)
+                   : "memory");
+    }
+    __syncthreads();
+    if (*s_ticket != n_split - 1) return;
+    // the last block: merge the n_split partials of the group's rows, a
+    // row per D / 4 lanes, each lane 4 columns (lse_merge.cuh)
+    constexpr int L = D / 4;
+    constexpr int RPW = 32 / L;        // rows per warp
+#pragma unroll
+    for (int g0 = 0; g0 < GMAX; g0 += WARPS * RPW) {
+      const int gw = g0 + warp * RPW;  // this warp's first row
+      if (gw >= group) continue;       // the whole warp: its shuffles agree
+      const int g = gw + lane / L;
+      const size_t r = row0 + min(g, group - 1);
+      const float4 acc = eft::lse_merge_row<L, MERGE_UNROLL, true>(
+          o_part, lse, r * n_split, 1, n_split);
+      if (g < group) eft::store_bf16x4(o + r * D + 4 * (lane % L), acc);
+    }
+    if (tid == 0) *ticket = 0;         // zero again for the next launch
+  }
 }
 
-template <int D, int GMAX>
-int launch(const void* q, const void* pages, const void* scales,
-           const void* page_table, const void* seq_lens, const void* slots,
-           void* o_part, void* lse, int batch, int hq, int hkv, int ps,
-           int max_pages, int max_seqs, int window, int n_split,
-           int pages_per_split, float scale, cudaStream_t stream) {
+// The launch's arguments, as eft_paged_decode takes them.
+struct Args {
+  const void *q, *pages, *scales, *page_table, *seq_lens, *slots;
+  void *o_part, *lse, *o, *tickets;
+  int batch, hq, hkv, ps, max_pages, max_seqs, window, n_split,
+      pages_per_split;
+  float scale;
+};
+
+template <int D, int GMAX, bool FUSED>
+int launch(const Args& a, cudaStream_t stream) {
   using S = Smem<D, GMAX>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_kernel<D, GMAX>,
+      paged_decode_kernel<D, GMAX, FUSED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::bytes));
   if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(n_split, hkv, batch);
-  paged_decode_kernel<D, GMAX><<<grid, THREADS, S::bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const int8_t*>(pages), static_cast<const float*>(scales),
-      static_cast<const int*>(page_table), static_cast<const int*>(seq_lens),
-      static_cast<const int*>(slots), static_cast<float*>(o_part),
-      static_cast<float*>(lse), hq, hkv, ps, max_pages, max_seqs, window,
-      pages_per_split, scale * 1.4426950408889634f);
+  const dim3 grid(a.n_split, a.hkv, a.batch);
+  paged_decode_kernel<D, GMAX, FUSED><<<grid, THREADS, S::bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const int8_t*>(a.pages), static_cast<const float*>(a.scales),
+      static_cast<const int*>(a.page_table),
+      static_cast<const int*>(a.seq_lens), static_cast<const int*>(a.slots),
+      static_cast<float*>(a.o_part), static_cast<float*>(a.lse),
+      static_cast<__nv_bfloat16*>(a.o), static_cast<int*>(a.tickets), a.hq,
+      a.hkv, a.ps, a.max_pages, a.max_seqs, a.window, a.pages_per_split,
+      a.scale * 1.4426950408889634f);
   return int(cudaGetLastError());
 }
 
-template <int D>
-int launch_group(int group, const void* q, const void* pages,
-                 const void* scales, const void* page_table,
-                 const void* seq_lens, const void* slots, void* o_part,
-                 void* lse, int batch, int hq, int hkv, int ps, int max_pages,
-                 int max_seqs, int window, int n_split, int pages_per_split,
-                 float scale, cudaStream_t stream) {
-#define EFT_DECODE_LAUNCH(G)                                                 \
-  return launch<D, G>(q, pages, scales, page_table, seq_lens, slots, o_part, \
-                      lse, batch, hq, hkv, ps, max_pages, max_seqs, window,  \
-                      n_split, pages_per_split, scale, stream)
-  if (group == 1) EFT_DECODE_LAUNCH(1);
-  if (group == 2) EFT_DECODE_LAUNCH(2);
-  if (group <= 4) EFT_DECODE_LAUNCH(4);
-  EFT_DECODE_LAUNCH(8);
-#undef EFT_DECODE_LAUNCH
+template <int D, bool FUSED>
+int launch_group(const Args& a, cudaStream_t stream) {
+  const int group = a.hq / a.hkv;
+  if (group == 1) return launch<D, 1, FUSED>(a, stream);
+  if (group == 2) return launch<D, 2, FUSED>(a, stream);
+  if (group <= 4) return launch<D, 4, FUSED>(a, stream);
+  return launch<D, 8, FUSED>(a, stream);
 }
 
 }  // namespace
@@ -384,39 +442,39 @@ int launch_group(int group, const void* q, const void* pages,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // serving/decode.py has already checked shapes, dtypes, contiguity and
 // alignment and planned the split; the checks here only refuse what would
-// index out of bounds.  window: 0 for none.
+// index out of bounds.  window: 0 for none.  fused: 1 merges the runs into
+// bf16 o [B, Hq, d] (o_part and lse are then the workspace, tickets B * Hkv
+// zeroed ints); 0 writes the partials only (o and tickets unused).
 extern "C" int eft_paged_decode(const void* q, const void* pages,
                                 const void* scales, const void* page_table,
                                 const void* seq_lens, const void* slots,
-                                void* o_part, void* lse, int batch, int hq,
-                                int hkv, int d, int page_size, int max_pages,
+                                void* o_part, void* lse, void* o,
+                                void* tickets, int batch, int hq, int hkv,
+                                int d, int page_size, int max_pages,
                                 int max_seqs, int window, int n_split,
-                                int pages_per_split, float scale, int device,
-                                void* stream) {
+                                int pages_per_split, int fused, float scale,
+                                int device, void* stream) {
   const int group = hkv > 0 ? hq / hkv : 0;
   if (batch <= 0 || batch > 65535 || hkv <= 0 || hkv > 65535 ||
       hq % hkv != 0 || group > 8 || page_size % TILE != 0 || page_size <= 0 ||
       max_pages <= 0 || int64_t(max_pages) * page_size > INT32_MAX ||
       window < 0 || n_split <= 0 || n_split > INT32_MAX / 65535 ||
       pages_per_split <= 0 ||
-      (window == 0 && int64_t(n_split) * pages_per_split < max_pages))
+      (window == 0 && int64_t(n_split) * pages_per_split < max_pages) ||
+      (fused && (o == nullptr || tickets == nullptr)) ||
+      ((!fused || n_split > 1) && (o_part == nullptr || lse == nullptr)))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return launch_group<64>(group, q, pages, scales, page_table, seq_lens,
-                              slots, o_part, lse, batch, hq, hkv, page_size,
-                              max_pages, max_seqs, window, n_split,
-                              pages_per_split, scale, s);
-    case 128:
-      return launch_group<128>(group, q, pages, scales, page_table, seq_lens,
-                               slots, o_part, lse, batch, hq, hkv, page_size,
-                               max_pages, max_seqs, window, n_split,
-                               pages_per_split, scale, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  const Args a{q, pages, scales, page_table, seq_lens, slots, o_part, lse, o,
+               tickets, batch, hq, hkv, page_size, max_pages, max_seqs,
+               window, n_split, pages_per_split, scale};
+  if (d == 64)
+    return fused ? launch_group<64, true>(a, s) : launch_group<64, false>(a, s);
+  if (d == 128)
+    return fused ? launch_group<128, true>(a, s)
+                 : launch_group<128, false>(a, s);
+  return int(cudaErrorInvalidValue);
 }

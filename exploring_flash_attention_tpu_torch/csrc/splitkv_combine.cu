@@ -6,90 +6,72 @@
 // Each of nkb partials holds an O normalized over its KV span and the
 // span's natural-log LSE; a row's attention over the whole KV is
 //   O = sum_k w_k O_k,  w_k = exp(lse_k - max lse) / sum_j exp(lse_j - max lse)
-// as B10 computes it.  A row whose partials are all (0, -inf) gives O = 0.
+// as B10 computes it (lse_merge.cuh, shared with H6-decode's own merge).
+// A row whose partials are all (0, -inf) gives O = 0.
 //
-// Design.  One warp per output row (batch*head, q row); each lane owns
-// D / 32 columns, so every partial's row is read once, coalesced, and the
-// weights (one exp per partial, the same in every lane) never leave
-// registers.  The work is a pass over the partials' bytes: nkb * D * 4
-// read and D * 2 or 4 written per row, bound by HBM.
+// Cost: the bytes.  A row reads nkb * (D + 1) * 4 bytes and writes D * 2
+// or 4; the work is one FMA per partial element.  At the v1 split case
+// (2 partials of 8192 rows, d=128) that is 10 MB, 0.0031 ms at 3.35 TB/s,
+// so the kernel is a matter of latency: how soon each row's bytes are in
+// flight.  Design:
+//   - a row of D columns is D / 4 lanes (32 at d=128, 16 at d=64, 8 at
+//     d=32: 1, 2 or 4 rows a warp), each lane owning 4 consecutive
+//     columns, read with one 16-byte load per partial through the
+//     read-only path without allocating in L1 (each byte is read once);
+//   - the row's LSEs are read once, one per lane, beside its first four
+//     16-byte loads, and reduced by shuffles within the row's lanes; each
+//     weight reaches the lanes by __shfl_sync (lse_merge.cuh);
+//   - O is written as one 8-byte store of 4 bf16, or one float4, per lane;
+//   - a block is 4 warps (40 registers a thread, 12 blocks an SM): at the
+//     v1 split case 2048 blocks of 4 rows fill the 132 SMs, 1584 at once.
+//     Held to 32 registers (16 blocks an SM, one wave) it spilled and read
+//     slower on an H100.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
+
+#include "lse_merge.cuh"
 
 namespace {
 
-constexpr int ROWS = 8;                 // warps, one row each, per block
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int MERGE_UNROLL = 4;         // 16-byte loads in flight a lane
 
 template <int D>
-__global__ void __launch_bounds__(ROWS * 32)
+__global__ void __launch_bounds__(THREADS)
 splitkv_combine_kernel(const float* __restrict__ o_part,  // [BH, nkb, Lq, D]
                        const float* __restrict__ lse,     // [BH, nkb, Lq]
                        void* __restrict__ o,              // [BH, Lq, D]
                        int out_f32, int n_rows, int nkb, int lq) {
-  const int row = blockIdx.x * ROWS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= n_rows) return;
-  const int bh = row / lq;
-  const int qi = row % lq;
+  constexpr int L = D / 4;             // lanes per row
+  constexpr int RPW = 32 / L;          // rows per warp
+  constexpr int ROWS = WARPS * RPW;    // rows per block
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp_row = blockIdx.x * ROWS + warp * RPW;
+  if (warp_row >= n_rows) return;      // the whole warp: its shuffles agree
+  const int row = warp_row + lane / L;
+  const int r = min(row, n_rows - 1);  // a row past the end merges the last
+  const int bh = r / lq, qi = r % lq;
   // partial k of this row sits at (bh * nkb + k) * lq + qi
-  const size_t first = size_t(bh) * nkb * lq + qi;
-
-  float m = -CUDART_INF_F;
-  for (int kb = lane; kb < nkb; kb += 32)
-    m = fmaxf(m, lse[first + size_t(kb) * lq]);
-  m = warp_max(m);
-  const float m_use = m == -CUDART_INF_F ? 0.f : m;
-  float den = 0.f;
-  for (int kb = lane; kb < nkb; kb += 32)
-    den += expf(lse[first + size_t(kb) * lq] - m_use);
-  den = warp_sum(den);
-  const float inv = 1.f / (den == 0.f ? 1.f : den);
-
-  float acc[D / 32];
-#pragma unroll
-  for (int j = 0; j < D / 32; ++j) acc[j] = 0.f;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const size_t r = first + size_t(kb) * lq;
-    const float w = expf(lse[r] - m_use) * inv;
-    const float* src = o_part + r * D;
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) acc[j] += w * src[lane + 32 * j];
-  }
-  const size_t out = size_t(row) * D;
+  const float4 acc = eft::lse_merge_row<L, MERGE_UNROLL, false>(
+      o_part, lse, size_t(bh) * nkb * lq + qi, size_t(lq), nkb);
+  if (row >= n_rows) return;
+  const size_t out = size_t(row) * D + 4 * (lane % L);
   if (out_f32) {
-    float* dst = static_cast<float*>(o) + out;
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) dst[lane + 32 * j] = acc[j];
+    *reinterpret_cast<float4*>(static_cast<float*>(o) + out) = acc;
   } else {
-    __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(o) + out;
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j)
-      dst[lane + 32 * j] = __float2bfloat16(acc[j]);
+    eft::store_bf16x4(static_cast<__nv_bfloat16*>(o) + out, acc);
   }
 }
 
 template <int D>
 int launch(const void* o_part, const void* lse, void* o, int out_f32,
            int n_rows, int nkb, int lq, cudaStream_t stream) {
+  constexpr int ROWS = WARPS * (128 / D);
   const dim3 grid((n_rows + ROWS - 1) / ROWS);
-  splitkv_combine_kernel<D><<<grid, ROWS * 32, 0, stream>>>(
+  splitkv_combine_kernel<D><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(lse), o,
       out_f32, n_rows, nkb, lq);
   return int(cudaGetLastError());
@@ -98,13 +80,16 @@ int launch(const void* o_part, const void* lse, void* o, int out_f32,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
-// ops/attention_v2_splitkv.py has already checked shapes, dtypes and
-// contiguity.  n_bh = batch * heads; d in {32, 64, 128}.
+// ops/attention_v2_splitkv.py has already checked shapes, dtypes,
+// contiguity and 16-byte alignment.  n_bh = batch * heads; d in
+// {32, 64, 128}.
 extern "C" int eft_splitkv_combine(const void* o_part, const void* lse,
                                    void* o, int n_bh, int nkb, int lq, int d,
                                    int out_f32, int device, void* stream) {
   if (n_bh <= 0 || nkb <= 0 || lq <= 0 ||
-      int64_t(n_bh) * lq > int64_t(INT32_MAX))
+      int64_t(n_bh) * lq > int64_t(INT32_MAX) ||
+      (reinterpret_cast<uintptr_t>(o_part) | reinterpret_cast<uintptr_t>(o)) %
+          16 != 0)
     return int(cudaErrorInvalidValue);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);

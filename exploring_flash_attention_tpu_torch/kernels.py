@@ -37,10 +37,10 @@ _SIGNATURES = {
     "eft_prefill_attention": [_P] * 5 + [_I] * 11 + [_F, _I, _P],
     # o_part, lse, o, n_bh, nkb, lq, d, out_f32, device, stream
     "eft_splitkv_combine": [_P] * 3 + [_I] * 6 + [_P],
-    # q, pages, scales, page_table, seq_lens, slots, o_part, lse, batch, hq,
-    # hkv, d, page_size, max_pages, max_seqs, window, n_split,
-    # pages_per_split, scale, device, stream
-    "eft_paged_decode": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
+    # q, pages, scales, page_table, seq_lens, slots, o_part, lse, o,
+    # tickets, batch, hq, hkv, d, page_size, max_pages, max_seqs, window,
+    # n_split, pages_per_split, fused, scale, device, stream
+    "eft_paged_decode": [_P] * 10 + [_I] * 11 + [_F, _I, _P],
     # q, pages, scales, page_table, seq_lens, slots, o, batch, c, hq, hkv, d,
     # page_size, max_pages, max_seqs, n_pages, window, scale, device, stream
     "eft_paged_extend": [_P] * 7 + [_I] * 10 + [_F, _I, _P],

@@ -7,7 +7,7 @@ Counterpart of ``models/generate.py`` in the JAX package:
   (attention on kernel H1) and collects each layer's post-RoPE K and V;
 - :func:`_decode_forward` advances every sequence one token: single-token
   projections, the cache append, paged decode attention (kernel H6-decode,
-  merged by H2) per layer, logits;
+  one launch with its merge) per layer, logits;
 - :func:`_extend_forward` feeds a new turn of C tokens per sequence: the
   chunk is appended to the cache, then attends over the whole paged
   history (kernel H6-extend), with no recompute of the earlier turns;

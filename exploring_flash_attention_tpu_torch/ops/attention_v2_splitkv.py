@@ -41,8 +41,9 @@ def splitkv_combine(
 
     CPU tensors take :func:`splitkv_combine_plain`.  CUDA tensors launch
     kernel H2 (``csrc/splitkv_combine.cu``), once per call, or raise: it
-    takes contiguous f32 partials with d in {32, 64, 128} and writes bf16
-    or f32.  ``splitkv_combine.launches`` counts kernel launches."""
+    takes contiguous f32 partials (O 16-byte aligned) with d in {32, 64,
+    128} and writes bf16 or f32.  ``splitkv_combine.launches`` counts kernel
+    launches."""
     out_dtype = out_dtype or o_partials.dtype
     b, h, nkb, lq, d = o_partials.shape
     if lses.shape != (b, h, nkb, lq):
@@ -57,6 +58,8 @@ def splitkv_combine(
             raise TypeError(f"H2 combine: the kernel takes f32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("H2 combine: inputs must be contiguous")
+    if o_partials.data_ptr() % 16:
+        raise ValueError("H2 combine: the partials must be 16-byte aligned")
     if d not in H1_HEAD_DIMS or b * h * lq >= 2 ** 31:
         raise ValueError(f"H2 takes d in {H1_HEAD_DIMS} and fewer than 2^31 "
                          f"rows; got {tuple(o_partials.shape)}")

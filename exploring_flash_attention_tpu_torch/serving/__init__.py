@@ -6,6 +6,7 @@ from exploring_flash_attention_tpu_torch.serving.decode import (
     paged_decode_plain,
     paged_extend_attention,
     paged_extend_plain,
+    ticket_buffer,
 )
 from exploring_flash_attention_tpu_torch.serving.kv_cache import (
     PageAllocator,
@@ -32,4 +33,5 @@ __all__ = [
     "paged_decode_plain",
     "paged_extend_attention",
     "paged_extend_plain",
+    "ticket_buffer",
 ]

@@ -1,5 +1,5 @@
 """Paged attention of the port over the INT8 KV cache: decode on kernel
-H6-decode (merged by H2), chunked-prefill extend on kernel H6-extend.
+H6-decode, chunked-prefill extend on kernel H6-extend.
 
 Counterpart of ``serving/decode.py`` in the JAX package:
 
@@ -18,12 +18,13 @@ The INT8 dequant folds into the softmax as in the JAX kernels:
 ``P V``.  The JAX signatures' ``interpret``, ``n_buf`` and ``q_strip`` are
 TPU knobs and are not taken.
 
-On the card, decode is split-KV (the FlashDecoding form): H6-decode
-writes one f32 partial (O normalized over a run of pages, and its
-natural-log LSE) per (sequence, KV head, split), and H2
-(``ops/attention_v2_splitkv.py``) merges them.  :func:`decode_split`
-plans the runs on the host, from the cache's shape and the SM count
-only (no read of ``seq_lens``).
+On the card, decode is split-KV (the FlashDecoding form) in one launch:
+each block of H6-decode writes one f32 partial (O normalized over a run
+of pages, and its natural-log LSE) per (sequence, KV head, split), and
+the last block of each (sequence, KV head) to finish, found by an atomic
+ticket, merges them into O as H2 (``ops/attention_v2_splitkv.py``)
+would.  :func:`decode_split` plans the runs on the host, from the
+cache's shape and the SM count only (no read of ``seq_lens``).
 """
 
 from __future__ import annotations
@@ -36,9 +37,6 @@ import torch
 
 from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import cdiv
-from exploring_flash_attention_tpu_torch.ops.attention_v2_splitkv import (
-    splitkv_combine,
-)
 from exploring_flash_attention_tpu_torch.serving.kv_cache import PagedKVCache
 
 PAGE_SIZES = (128, 256)         # what H6-decode and H6-extend take
@@ -154,8 +152,8 @@ def paged_decode_partials_plain(q: torch.Tensor, cache: PagedKVCache,
 
     Run k of a sequence holds its pages ``j0 + k * pages_per_split`` up to
     the next run's, ``j0`` the page of its first visible column; a run
-    that sees nothing gives the merge identity (0, -inf).  H2's merge of
-    the partials is :func:`paged_decode_plain`."""
+    that sees nothing gives the merge identity (0, -inf).  Their merge
+    (``splitkv_combine_plain``) is :func:`paged_decode_plain`."""
     b, hq, d = q.shape
     ps = cache.page_size
     s, v, row_pos = _visible_scores(q[:, None], cache, seq_slots, scale,
@@ -214,6 +212,60 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+_TICKETS = {}                   # device index -> zeroed int32 tickets
+
+
+def ticket_buffer(device: torch.device) -> Optional[torch.Tensor]:
+    """The fused H6-decode's tickets on ``device`` (one int32 per batch row
+    and KV head, zero between launches), or None before its first launch
+    there."""
+    return _TICKETS.get(device.index)
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed tickets on ``device``: the kept buffer, or a
+    new zeroed one in its place when it is too small."""
+    buf = _TICKETS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKETS[device.index] = buf
+    return buf
+
+
+def _launch_decode(q: torch.Tensor, cache: PagedKVCache,
+                   seq_slots: torch.Tensor, scale: float,
+                   window: Optional[int], fused: bool):
+    """One launch of H6-decode on q's device: the f32 partials (o [B, Hq,
+    n_split, 1, d], lse [B, Hq, n_split, 1]; None when ``fused`` with one
+    run, which writes O directly) and, with ``fused``, the merged bf16 o
+    [B, Hq, d] (else None)."""
+    _check_paged_inputs("H6-decode", q, cache, seq_slots, window)
+    b, hq, d = q.shape
+    hkv = cache.num_kv_heads
+    n_split, per = decode_split(cache, b, window, _sm_count(q.device.index))
+    o_part = lse = o = tickets = None
+    if not fused or n_split > 1:
+        o_part = torch.empty((b, hq, n_split, 1, d), dtype=torch.float32,
+                             device=q.device)
+        lse = torch.empty((b, hq, n_split, 1), dtype=torch.float32,
+                          device=q.device)
+    if fused:
+        o = torch.empty_like(q)
+        tickets = _tickets(q.device, b * hkv)
+    ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731
+    err = kernels.library().eft_paged_decode(
+        q.data_ptr(), cache.kv_pages.data_ptr(), cache.kv_scales.data_ptr(),
+        cache.page_table.data_ptr(), cache.seq_lens.data_ptr(),
+        seq_slots.data_ptr(), ptr(o_part), ptr(lse), ptr(o), ptr(tickets),
+        b, hq, hkv, d, cache.page_size, cache.max_pages_per_seq,
+        cache.page_table.shape[0], window or 0, n_split, per, int(fused),
+        scale, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check_launch(err, "H6-decode")
+    paged_decode_partials.launches += 1
+    return o_part, lse, o
+
+
 def paged_decode_partials(
     q: torch.Tensor,               # [B, Hq, d] one token per sequence
     cache: PagedKVCache,
@@ -223,11 +275,13 @@ def paged_decode_partials(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """H6-decode alone: the split's partials, (o f32 [B, Hq, n_split, 1, d],
     lse f32 [B, Hq, n_split, 1]), with the split of :func:`decode_split`
-    (132 SMs for CPU tensors).
+    (132 SMs for CPU tensors).  They are what :func:`paged_decode_attention`
+    merges inside the same kernel.
 
     CPU tensors take :func:`paged_decode_partials_plain`.  CUDA tensors
-    launch kernel H6-decode (``csrc/paged_decode.cu``) once, or raise.
-    ``paged_decode_partials.launches`` counts kernel launches."""
+    launch kernel H6-decode (``csrc/paged_decode.cu``) once, without its
+    merge, or raise.  ``paged_decode_partials.launches`` counts the
+    launches of H6-decode, with or without the merge."""
     b, hq, d = q.shape
     if hq % cache.num_kv_heads:
         raise ValueError(f"q heads {hq} not divisible by kv heads "
@@ -239,22 +293,9 @@ def paged_decode_partials(
         split = decode_split(cache, b, window, 132)
         return paged_decode_partials_plain(q, cache, seq_slots, scale,
                                            window, *split)
-    _check_paged_inputs("H6-decode", q, cache, seq_slots, window)
-    n_split, per = decode_split(cache, b, window, _sm_count(q.device.index))
-    o = torch.empty((b, hq, n_split, 1, d), dtype=torch.float32,
-                    device=q.device)
-    lse = torch.empty((b, hq, n_split, 1), dtype=torch.float32,
-                      device=q.device)
-    err = kernels.library().eft_paged_decode(
-        q.data_ptr(), cache.kv_pages.data_ptr(), cache.kv_scales.data_ptr(),
-        cache.page_table.data_ptr(), cache.seq_lens.data_ptr(),
-        seq_slots.data_ptr(), o.data_ptr(), lse.data_ptr(), b, hq,
-        cache.num_kv_heads, d, cache.page_size, cache.max_pages_per_seq,
-        cache.page_table.shape[0], window or 0, n_split, per, scale,
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check_launch(err, "H6-decode")
-    paged_decode_partials.launches += 1
-    return o, lse
+    o_part, lse, _ = _launch_decode(q, cache, seq_slots, scale, window,
+                                    fused=False)
+    return o_part, lse
 
 
 paged_decode_partials.launches = 0
@@ -273,9 +314,13 @@ def paged_decode_attention(
     band are never read.
 
     CPU tensors take :func:`paged_decode_plain`.  CUDA tensors launch
-    kernel H6-decode (:func:`paged_decode_partials`), which takes bf16 q
-    with d in {64, 128}, at most 8 q heads per KV head and page sizes 128
-    and 256, and then H2 (``splitkv_combine``), once each, or raise."""
+    kernel H6-decode once, with its merge (counted in
+    ``paged_decode_partials.launches``), or raise: it takes bf16 q with d
+    in {64, 128}, at most 8 q heads per KV head and page sizes 128 and 256.
+    The f32 partials' workspace and O are allocated per call; the tickets
+    (:func:`ticket_buffer`) are kept per device, zero between launches, and
+    belong to one stream: the port launches on the current stream only, and
+    two launches in flight at once on two streams would share them."""
     hq, d = q.shape[1:]
     if hq % cache.num_kv_heads:
         raise ValueError(f"q heads {hq} not divisible by kv heads "
@@ -286,8 +331,7 @@ def paged_decode_attention(
     if q.device.type == "cpu":
         return paged_decode_plain(q, cache, seq_slots, scale,
                                   window).to(q.dtype)
-    o_part, lse = paged_decode_partials(q, cache, seq_slots, scale, window)
-    return splitkv_combine(o_part, lse, q.dtype)[:, :, 0]
+    return _launch_decode(q, cache, seq_slots, scale, window, fused=True)[2]
 
 
 def paged_extend_attention(

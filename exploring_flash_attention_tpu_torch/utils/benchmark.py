@@ -22,14 +22,16 @@ HOST_LEAD_CYCLES = 250_000
 
 
 def time_cuda(fn: Callable[[], object], n_iter: int = 50,
-              n_warmup: int = 5) -> float:
+              n_warmup: int = 5, flush_l2: bool = True) -> float:
     """Median device milliseconds of one call of ``fn`` over ``n_iter``
     calls, after ``n_warmup`` untimed ones.  The L2 cache is flushed before
-    every timed call, because the decode step finds its KV cache cold
-    (the other layers' weights pass through L2 in between).  The host's
-    time before the call's first launch is kept out of the window; its
-    time between two launches of one call is not.  Raises where there is
-    no card: a timing taken on the CPU is not a device time."""
+    every timed call (unless ``flush_l2`` is False), because the decode
+    step finds its KV cache cold (the other layers' weights pass through
+    L2 in between); the flush writes, so the call also writes back the
+    dirty lines it evicts.  The host's time before the call's first launch
+    is kept out of the window; its time between two launches of one call
+    is not.  Raises where there is no card: a timing taken on the CPU is
+    not a device time."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_cuda needs a CUDA device")
     for _ in range(n_warmup):
@@ -38,7 +40,8 @@ def time_cuda(fn: Callable[[], object], n_iter: int = 50,
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(n_iter)]
     for start, end in events:
-        flush.zero_()
+        if flush_l2:
+            flush.zero_()
         torch.cuda._sleep(HOST_LEAD_CYCLES)
         start.record()
         fn()

@@ -1,7 +1,7 @@
-"""Time the quantized and d-tiled forwards, or the backward pair, on the
-card, for A/B runs.
+"""Time the quantized and d-tiled forwards, the backward pair, or the
+split-KV merges, on the card, for A/B runs.
 
-    python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT] [--bwd]
+    python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT] [--bwd | --merge]
 
 ROOT (default: this checkout) is the root of a checkout of the port, for
 example a ``git archive`` of another commit unpacked under ``build/``; its
@@ -12,8 +12,16 @@ d=128, int8 and e4m3 K/V, block 512) and of ``flash_attention_v1_dtiled``
 at d=512 (B=4, H=8, L=1024; int8, e4m3 and bf16 K/V), inputs from
 ``make_qkv(seed=1)`` rounded to bf16; with ``--bwd``, of H3-dkv and H3-dq
 alone at the training shape (B=8, Hq=8, Hkv=4, L=1024, d=128), causal and
-without a mask.  Alternate two roots in one call (parent, change, change,
-parent) to compare them on one card.
+without a mask; with ``--merge``, of H2 (``splitkv_combine``, bf16 O) on
+random f32 partials at the v1 split case (8192 rows of 2 partials,
+d=128), at the slice's decode merge (64 rows of 8), at one long sequence's
+(8 rows of 64) and on 8 rows of 2 (what any launch costs in this
+harness), each with L2 flushed (``time_cuda``) and warm, then of
+``paged_decode_attention`` and the kernel without its merge
+(``paged_decode_partials``; a root without the fused kernel runs its H2
+after it) at the slice's shape (B=8, Hq=8, Hkv=4, contexts 257..280) and
+at B=1 over 8100 tokens (64 runs).  Alternate two roots in one call
+(parent, change, change, parent) to compare them on one card.
 """
 
 from __future__ import annotations
@@ -53,11 +61,82 @@ def time_bwd(root: Path) -> str:
     return f"{root.name or root}: " + " | ".join(out)
 
 
-def main(root: Path, bwd: bool = False) -> str:
-    if bwd:
-        sys.path.insert(0, str(root))
-        return time_bwd(root)
+def _paged_case(b, hq, hkv, lens, max_len, seed=1):
+    """A cache of ``max_len`` tokens a slot with a permuted page table
+    (page size 128, d=128), sequences of ``lens`` tokens of random K/V,
+    and one bf16 q [B, Hq, d]."""
+    import numpy as np
+    import torch
+
+    from exploring_flash_attention_tpu_torch.serving import (
+        append_prompts,
+        make_cache,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    pages = -(-max_len // 128)
+    cache = make_cache(hkv, 128, b * pages, page_size=128, max_seqs=b,
+                       max_pages_per_seq=pages, device="cuda")
+    cache.page_table.copy_(torch.randperm(b * pages, generator=gen)
+                           .view(b, pages).to(torch.int32))
+    slots = torch.arange(b, dtype=torch.int32, device="cuda")
+    for s, n in enumerate(np.linspace(*lens, b).round().astype(int)):
+        k, v = (torch.randn(1, int(n), hkv, 128, generator=gen).to("cuda")
+                for _ in range(2))
+        append_prompts(cache, slots[s:s + 1], k, v)
+    q = torch.randn(b, hq, 128, generator=gen).to("cuda", torch.bfloat16)
+    return q, cache, slots
+
+
+def time_merge(root: Path) -> str:
+    """H2 by shape, flushed and warm; the decode call and the kernel
+    without its merge.  The timing harness is this file's checkout's
+    (``benchmark.py`` beside it), so that both roots of an A/B are timed
+    alike."""
+    import importlib.util
+
+    import torch
+
+    from exploring_flash_attention_tpu_torch.ops import splitkv_combine
+    from exploring_flash_attention_tpu_torch.serving import (
+        paged_decode_attention,
+        paged_decode_partials,
+    )
+
+    spec = importlib.util.spec_from_file_location(
+        "_eft_benchmark", Path(__file__).with_name("benchmark.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    time_cuda = bench.time_cuda
+
+    gen = torch.Generator().manual_seed(0)
+    out = []
+    for name, shape in (("v1 split", (1, 8, 2, 1024, 128)),
+                        ("slice merge", (8, 8, 8, 1, 128)),
+                        ("long merge", (1, 8, 64, 1, 128)),
+                        ("8 rows", (1, 1, 2, 8, 128))):
+        o_p = torch.randn(*shape, generator=gen).to("cuda")
+        lse = (3 * torch.randn(*shape[:4], generator=gen)).to("cuda")
+        ms = [time_cuda(lambda: splitkv_combine(o_p, lse, torch.bfloat16),
+                        n_iter=100, flush_l2=f) for f in (True, False)]
+        out.append(f"H2 {name} {ms[0]:.4f} / warm {ms[1]:.4f} ms")
+    for name, b, lens, max_len in (("slice", 8, (257, 280), 1024),
+                                   ("B=1 8100", 1, (8100, 8100), 8192)):
+        q, cache, slots = _paged_case(b, 8, 4, lens, max_len)
+        call = lambda: paged_decode_attention(q, cache, slots)  # noqa: E731
+        alone = lambda: paged_decode_partials(q, cache, slots)  # noqa: E731
+        ms = [time_cuda(fn, n_iter=100) for fn in (call, alone, call, alone)]
+        out.append(f"decode {name} call {(ms[0] + ms[2]) / 2:.4f} ms, "
+                   f"kernel without its merge {(ms[1] + ms[3]) / 2:.4f} ms")
+    return f"{root.name or root}: " + " | ".join(out)
+
+
+def main(root: Path, mode: str = "") -> str:
     sys.path.insert(0, str(root))
+    if mode == "--bwd":
+        return time_bwd(root)
+    if mode == "--merge":
+        return time_merge(root)
     import torch
 
     from exploring_flash_attention_tpu_torch.oracle import make_qkv
@@ -87,6 +166,7 @@ def main(root: Path, bwd: bool = False) -> str:
 
 if __name__ == "__main__":
     here = Path(__file__).resolve().parents[2]
-    roots = [a for a in sys.argv[1:] if a != "--bwd"]
+    roots = [a for a in sys.argv[1:] if not a.startswith("--")]
+    modes = [a for a in sys.argv[1:] if a.startswith("--")]
     print(main(Path(roots[0]).resolve() if roots else here,
-               "--bwd" in sys.argv[1:]))
+               modes[0] if modes else ""))

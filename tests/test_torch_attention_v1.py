@@ -179,13 +179,16 @@ def test_span_partials_match_jax_splitkv_partial(route, hq, hkv, lq, lkv,
                     lse64[fin], what="LSE")
 
 
-def test_splitkv_combine_matches_jax():
+@pytest.mark.parametrize("d,nkb", [(32, 4), (64, 33), (128, 2)])
+def test_splitkv_combine_matches_jax(d, nkb):
     """H2's plain version vs ``splitkv_combine`` on partials whose rows
     include a span that saw nothing (0, -inf) and a row that saw nothing
-    in any span (gives 0); the f64 merge referees both."""
+    in any span (gives 0); the f64 merge referees both.  The (d, nkb)
+    pairs are H2's three row layouts on the card (a row of d / 4 lanes),
+    33 partials being more than a row's lanes."""
     rng = np.random.default_rng(22)
-    o_p = rng.standard_normal((2, 3, 4, 40, 32)).astype(np.float32)
-    lse = (3 * rng.standard_normal((2, 3, 4, 40))).astype(np.float32)
+    o_p = rng.standard_normal((2, 3, nkb, 40, d)).astype(np.float32)
+    lse = (3 * rng.standard_normal((2, 3, nkb, 40))).astype(np.float32)
     o_p[:, :, 1, :7] = 0
     lse[:, :, 1, :7] = -np.inf
     o_p[0, 0, :, 5] = 0

@@ -12,7 +12,10 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
 - H2 (the split-KV combine) vs plain: 1e-5 abs on the same f32 partials
   (both merge in f32, in different orders) for f32 O; bf16 O one rounding
   more, 2^-8 of |O| plus 1e-5.
-- H6-decode (its split-KV partials merged by H2) vs plain: 5e-3 abs on O
+- H6-decode's own merge (its last block per sequence and KV head) vs the
+  plain merge of the kernel's own partials: one bf16 ulp of max|O| (one
+  rounding to bf16 of an f32 merge that differs by summation order).
+- H6-decode (its split-KV partials merged in the kernel) vs plain: 5e-3 abs on O
   (P rounded to bf16 before P V, O rounded to bf16; O is an average over
   ~270 tokens, so its rounding errors stay near one bf16 ulp of |O| <
   0.5); under a window, and in H6-extend's matrix of cases, 5e-3 abs plus
@@ -105,6 +108,7 @@ from exploring_flash_attention_tpu_torch.serving import (
     paged_decode_plain,
     paged_extend_attention,
     paged_extend_plain,
+    ticket_buffer,
 )
 
 pytestmark = pytest.mark.cuda
@@ -345,6 +349,37 @@ def test_h2_combine_matches_plain_and_counts(cuda_device):
     assert splitkv_combine.launches == before + 2
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nkb", [1, 2, 3, 33])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_h2_row_layouts_match_plain(cuda_device, d, nkb, out_dtype):
+    """H2 at each row layout (a row is d / 4 lanes: 4, 2 or 1 rows a warp)
+    and partial count (one; a few; 33, more than a row's lanes at every d),
+    f32 and bf16 O, over 2 x 3 x 37 = 222 rows, no multiple of a block's
+    16, 8 or 4 rows, against its plain version: a span that saw nothing
+    weighs 0, a row whose partials are all (0, -inf) gives 0."""
+    g = torch.Generator().manual_seed(40 + d + nkb)
+    o_p = torch.randn(2, 3, nkb, 37, d, generator=g)
+    lse = 3 * torch.randn(2, 3, nkb, 37, generator=g)
+    o_p[:, :, -1, :9] = 0
+    lse[:, :, -1, :9] = float("-inf")     # the last span saw nothing
+    o_p[1, 2, :, 36] = 0
+    lse[1, 2, :, 36] = float("-inf")      # the last row saw nothing at all
+    ref = splitkv_combine_plain(o_p, lse)
+    before = splitkv_combine.launches
+    got = splitkv_combine(o_p.to(cuda_device), lse.to(cuda_device),
+                          out_dtype)
+    torch.cuda.synchronize()
+    assert splitkv_combine.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (2, 3, 37, d)
+    err = (got.float().cpu() - ref).abs()
+    if out_dtype == torch.float32:
+        assert err.max().item() < H2_O_TOL
+    else:
+        assert (err <= H2_O_TOL + 2 ** -8 * ref.abs()).all()
+    assert (got[1, 2, 36] == 0).all()
+
+
 def test_flash_attention_v1_long_kv_runs_h1_spans_and_h2(cuda_device):
     """A long non-causal KV over few Q tiles: one H1 launch over 8 spans
     of 512 keys and one H2 launch, against the plain version and the
@@ -386,7 +421,7 @@ def test_decode_kernel_matches_plain_and_oracle(cuda_device, hq, hkv, d):
     o = paged_decode_attention(q, cache, slots)
     torch.cuda.synchronize()
     assert (paged_decode_partials.launches,
-            splitkv_combine.launches) == (before[0] + 1, before[1] + 1)
+            splitkv_combine.launches) == (before[0] + 1, before[1])
     ref = paged_decode_plain(q, cache, slots, 1.0 / math.sqrt(d))
     assert o.dtype == torch.bfloat16 and o.shape == (b, hq, d)
     assert (o.float() - ref).abs().max().item() < DECODE_O_TOL
@@ -397,14 +432,16 @@ def test_decode_kernel_matches_plain_and_oracle(cuda_device, hq, hkv, d):
         assert np.abs(got - oracle).max() < DECODE_O_TOL
 
 
-def _paged_case(dev, hq, hkv, d, ps, lens, c=0, seed=3):
+def _paged_case(dev, hq, hkv, d, ps, lens, c=0, seed=3, max_pages=None):
     """Ragged histories ``lens`` (0 for an empty sequence) through
-    append_prompts in a permuted page table, then, with ``c``, one C-token
-    chunk through append_chunks; the rows past each sequence's end in its
-    last page then get old codes and scales, as a freed and reused page
-    holds.  Returns (cache, bf16 q [B, Hq, d] or [B, C, Hq, d], slots)."""
+    append_prompts in a permuted page table of ``max_pages`` pages a slot
+    (by default one more than the longest sequence takes), then, with
+    ``c``, one C-token chunk through append_chunks; the rows past each
+    sequence's end in its last page then get old codes and scales, as a
+    freed and reused page holds.  Returns (cache, bf16 q [B, Hq, d] or [B,
+    C, Hq, d], slots)."""
     b = len(lens)
-    max_pages = -(-(max(lens) + c) // ps) + 1
+    max_pages = max_pages or -(-(max(lens) + c) // ps) + 1
     cache = make_cache(hkv, d, b * max_pages, page_size=ps, max_seqs=b,
                        max_pages_per_seq=max_pages, device=dev)
     g = torch.Generator().manual_seed(seed)
@@ -450,11 +487,12 @@ DECODE_LENS = [0, 1, 127, 128, 129, 300, 700, 1000]
                                       (6, 2, 64)])
 def test_decode_kernel_masks_pages_groups(cuda_device, hq, hkv, d, ps,
                                           window):
-    """H6-decode + H2 against the plain version and the f64 oracle over each
-    sequence's band of the gathered cache: every mask, page sizes 128 and
-    256, d 64 and 128, groups 1, 2, 8 and 3, ragged lengths around the
-    128-token tiles and pages, an empty sequence (zeros), a reused page
-    with old codes past each tail, and a row whose slot is -1 (zeros)."""
+    """H6-decode (one launch, its merge inside) against the plain version
+    and the f64 oracle over each sequence's band of the gathered cache:
+    every mask, page sizes 128 and 256, d 64 and 128, groups 1, 2, 8 and
+    3, ragged lengths around the 128-token tiles and pages, an empty
+    sequence (zeros), a reused page with old codes past each tail, and a
+    row whose slot is -1 (zeros)."""
     cache, q, slots = _paged_case(cuda_device, hq, hkv, d, ps, DECODE_LENS)
     scale = 1.0 / math.sqrt(d)
     o = paged_decode_attention(q, cache, slots, window=window)
@@ -516,6 +554,53 @@ def test_decode_kernel_refuses_what_it_cannot_take(cuda_device):
     odd.page_size = 64
     with pytest.raises(ValueError, match="page sizes"):
         paged_decode_attention(q64, odd, s64)
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+@pytest.mark.parametrize("window", [None, "narrower than the context"])
+@pytest.mark.parametrize("n_runs", [1, 8, 40])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_fused_decode_merges_its_runs(cuda_device, group, d, n_runs,
+                                      window):
+    """The fused H6-decode (one launch; the last block of each batch row and
+    KV head to arrive on its ticket merges the runs) at GQA groups 1 to 8,
+    d 64 and 128, and 1, 8 or 40 runs of one page each (B=4 rows on one KV
+    head: a long sequence, an empty one, slot -1, one half as long), with
+    and without a window: O against the plain version, zeros on the empty
+    and invalid rows, and within one bf16 ulp of max|O| of the plain merge
+    of the kernel's own partials; three calls bitwise equal and every
+    ticket zero after them."""
+    ps = 128
+    lens = [n_runs * ps - 10, 0, 0, n_runs * ps // 2 + 3]
+    cache, q, slots = _paged_case(cuda_device, group, 1, d, ps, lens,
+                                  seed=50 + n_runs, max_pages=n_runs)
+    slots[2] = -1
+    window = None if window is None else max(n_runs * ps - 60, 50)
+    scale = 1.0 / math.sqrt(d)
+    before = (paged_decode_partials.launches, splitkv_combine.launches)
+    runs = [paged_decode_attention(q, cache, slots, window=window)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert (paged_decode_partials.launches,
+            splitkv_combine.launches) == (before[0] + 3, before[1])
+    o = runs[0]
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert all(torch.equal(o, x) for x in runs[1:])
+    assert not ticket_buffer(cuda_device).any()
+    ref = paged_decode_plain(q, cache, torch.where(slots < 0, 1, slots),
+                             scale, window)
+    assert _paged_close(o, ref)
+    assert (o[1:3] == 0).all()
+    o_part, lse = paged_decode_partials(q, cache, slots, scale, window)
+    assert o_part.shape[2] == n_runs
+    merged = splitkv_combine_plain(o_part, lse)[:, :, 0]
+    top = merged.abs().max().item()
+    assert (o.float() - merged).abs().max().item() <= _bf16_ulp(top)
 
 
 EXTEND_CASES = [

@@ -10,7 +10,8 @@ so a scale may differ from the port's division by one ulp: the
 dequantized caches agree to rtol 1e-6 (the int8 codes are equal here).
 Decode outputs agree to atol 1e-5 (f32, summation order only), with and
 without a sliding window, and the split that H6-decode runs on the card
-(page runs, then H2's merge) is emulated with the plain versions."""
+(page runs, then their merge in its last block) is emulated with the
+plain versions."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -165,6 +166,23 @@ def _fill_ragged(seed, hkv, d, lens, max_pages=7):
     return jc, tc, slots
 
 
+def _jax_cache_of(tc, jc):
+    """A JAX cache holding the port cache's codes and scales, in the JAX
+    layout (``jc.head_pack`` consecutive heads on one row's lanes), so
+    that both decode functions read the same data: filled apart, a scale
+    one ulp apart can move a code by one (a 1.5e-5 change of O over 4500
+    tokens)."""
+    n, _, hkv, ps, d = tc.kv_pages.shape
+    pk = jc.head_pack
+    pages = tc.kv_pages.numpy().reshape(n, 2, hkv // pk, pk, ps, d)
+    pages = pages.transpose(0, 1, 2, 4, 3, 5).reshape(n, 2, hkv // pk, ps,
+                                                      pk * d)
+    return jkv.PagedKVCache(
+        jnp.asarray(pages), jnp.asarray(tc.kv_scales.numpy()),
+        jnp.asarray(tc.page_table.numpy()), jnp.asarray(tc.seq_lens.numpy()),
+        jc.page_size, pk)
+
+
 @pytest.mark.parametrize("window", [50, 200, 300, 1000])
 def test_windowed_decode_matches_jax_and_banded_oracle(window):
     """tests/test_serving.py:170 on the port, against JAX's
@@ -197,17 +215,28 @@ def test_windowed_decode_matches_jax_and_banded_oracle(window):
             np.testing.assert_array_equal(got[s].numpy(), full[s])
 
 
-@pytest.mark.parametrize("window,n_sms", [(None, 132), (None, 8),
-                                          (None, 1), (200, 132), (60, 4)])
-def test_decode_split_partials_merge_to_plain_decode(window, n_sms):
+@pytest.mark.parametrize("window,n_sms,lens,max_pages", [
+    pytest.param(None, 132, LENS + (0,), 7, id="None-132"),
+    pytest.param(None, 8, LENS + (0,), 7, id="None-8"),
+    pytest.param(None, 1, LENS + (0,), 7, id="None-1"),
+    pytest.param(200, 132, LENS + (0,), 7, id="200-132"),
+    pytest.param(60, 4, LENS + (0,), 7, id="60-4"),
+    # B=1 over 36 of 40 pages: 40 runs of one page, more than the 32
+    # lanes that hold a row's partials in H6-decode's merge
+    pytest.param(None, 132, (4500,), 40, id="None-132-40-runs"),
+])
+def test_decode_split_partials_merge_to_plain_decode(window, n_sms, lens,
+                                                     max_pages):
     """H6-decode's split, emulated with its plain versions: the planner's
-    page runs, each run's (O, LSE), then H2's merge
-    (``splitkv_combine_plain``) must give the unsplit plain decode (atol
-    1e-6: f32, the merge's summation order).  Runs cover every visible
-    page; a run that sees no key (past the sequence, or a slot whose
-    length is 0) is the merge identity (0, -inf)."""
+    page runs, each run's (O, LSE), then the merge that H6-decode's last
+    block does (``splitkv_combine_plain``) must give the unsplit plain
+    decode (atol 1e-6: f32, the merge's summation order).  Runs cover
+    every visible page; a run that sees no key (past the sequence, or a
+    slot whose length is 0) is the merge identity (0, -inf).  With more
+    than 32 runs the port's ``paged_decode_attention`` is also held
+    against the JAX function's (atol 1e-5)."""
     hq, hkv, d = 4, 2, 64
-    _, tc, slots = _fill_ragged(13, hkv, d, LENS + (0,))
+    jc, tc, slots = _fill_ragged(13, hkv, d, lens, max_pages)
     q = torch.from_numpy(np.random.default_rng(14).standard_normal(
         (len(slots), hq, d)).astype(np.float32))
     ts = torch.from_numpy(slots)
@@ -223,7 +252,7 @@ def test_decode_split_partials_merge_to_plain_decode(window, n_sms):
     merged = splitkv_combine_plain(o, lse)[:, :, 0]
     ref = paged_decode_plain(q, tc, ts, 0.125, window)
     torch.testing.assert_close(merged, ref, rtol=0, atol=1e-6)
-    for s, n in enumerate(LENS + (0,)):
+    for s, n in enumerate(lens):
         first = max(n - window, 0) if window else 0
         n_runs = -(-(-(-n // PS) - first // PS) // per) if n else 0
         empty = slice(n_runs, None)
@@ -234,6 +263,14 @@ def test_decode_split_partials_merge_to_plain_decode(window, n_sms):
         got = paged_decode_partials(q, tc, ts, 0.125, window)
         torch.testing.assert_close(got[0], o, rtol=0, atol=0)
         torch.testing.assert_close(got[1], lse, rtol=0, atol=0)
+    if max_pages > 32:
+        assert n_split > 32
+        want = jax_paged_decode_attention(jnp.asarray(q.numpy()),
+                                          _jax_cache_of(tc, jc),
+                                          jnp.asarray(slots), scale=0.125)
+        got = paged_decode_attention(q, tc, ts, scale=0.125)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+        np.testing.assert_allclose(got.numpy(), merged.numpy(), atol=ATOL)
 
 
 def test_paged_decode_refuses_a_window_below_one():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's dense, quantized and d-tiled forwards, generation,
-training and encoder training paths, and the windowed model's training and
-generation, on one NVIDIA H100.
+"""Drive the PyTorch port's dense, split-KV, quantized and d-tiled forwards,
+the continuous-batching scheduler, generation, training and encoder
+training paths, and the windowed model's training and generation, on one
+NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -37,7 +38,15 @@ Phases, one line each; any failure exits non-zero before the last line:
    plain version and scaled_dot_product_attention are timed at the
    canonical shape, the window call must take under half the causal
    call's time, and the split case is timed at several span counts;
-5. quant:  flash_attention_kvquant (kernel H4-kvq, int8 or e4m3 K/V) and
+5. v2:     the split-KV V2 API at the JAX suite's bench_splitkv entry
+   (bench/suite.py:345-360: B=32, H=8, L=1024, d=128, two KV spans of
+   512), non-causal and causal: flash_attention_v2 is one H1 launch over
+   the spans and one H2 launch (counters zeroed before, read after),
+   flash_attention_splitkv_partial's partials have JAX's shape, causal
+   spans above the diagonal are (0, -inf); O against the plain version
+   and the f64 oracle, the v1 controls and the last span's LSE set to
+   -inf beyond the limit; times beside scaled_dot_product_attention;
+6. quant:  flash_attention_kvquant (kernel H4-kvq, int8 or e4m3 K/V) and
    flash_attention_int8 (kernel H4-int8, int8 Q/K/V, pv_mode bf16 and
    int8) at the JAX suite's shapes (bench/suite.py:363, :395, :1173):
    the suite's gates at its gate inputs, then one launch per call at the
@@ -47,11 +56,11 @@ Phases, one line each; any failure exits non-zero before the last line:
    block's scales as a further control; times beside
    scaled_dot_product_attention over the dequantized bf16 tensors, and
    the int8 calls also with the per-call quantize_int8 of Q;
-6. dtiled: flash_attention_v1_dtiled (kernel H5) at d=512, B=4, H=8,
+7. dtiled: flash_attention_v1_dtiled (kernel H5) at d=512, B=4, H=8,
    L=1024 with bf16, e4m3 and int8 K/V (bench/suite.py:279, :309) and a
    ragged d=256 case, the suite's gate first; the last d-chunk left out
    of S is a further control;
-7. decode: kernel H6-decode (paged INT8 decode, split across the SMs,
+8. decode: kernel H6-decode (paged INT8 decode, split across the SMs,
    the runs merged by the last block of each sequence and KV head),
    through paged_decode_attention, one launch per call, vs the plain
    version and the f64 oracle over each slot's band of the dequantized
@@ -66,11 +75,20 @@ Phases, one line each; any failure exits non-zero before the last line:
    after each case; the fused call no slower than the kernel alone
    followed by H2 (the two-launch form), and the window of 512 faster
    than no window;
-8. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
+9. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
    its plain version and the f64 oracle, a C = 256 chunk appended to
    ragged histories 257..280, and the windowed model's second turn (C =
    256 over 4609..4632, window 4096), controls as decode's;
-9. bwd:    kernels H3-dkv and H3-dq (the attention backward, through
+10. scheduler: ContinuousBatchingScheduler at the JAX suite's
+   bench_scheduler_e2e (bench/suite.py:504-650: Hq = Hkv = 8, d = 128,
+   page size 256, 16 slots): its one-step gate (2e-2 of the f64 oracle
+   over the dequantized cache; control: the newest token hidden), then
+   its churn run (48 requests, prompts 256..2048, 64..192 new tokens,
+   16 up front and 4 more every 8 steps, sync=False) with the step's
+   CUDA graph replayed (counters: one H6-decode launch a step) and again
+   with the fused step eager: every step's output bitwise equal between
+   the two, the completion map right, every page back; tokens/s of each;
+11. bwd:    kernels H3-dkv and H3-dq (the attention backward, through
    flash_attention_bwd) vs attention_bwd_plain and f64 autograd of the
    plain forward, at the training shape (B=8, Hq=8, Hkv=4, L=1024,
    d=128), a ragged cross case (Lq=200, Lkv=216) and L=3072, B=1 (where
@@ -78,16 +96,19 @@ Phases, one line each; any failure exits non-zero before the last line:
    window of 100 keys; the controls: the last 64-key tile dropped, the
    diagonal key hidden, the window one key narrower; two runs must be
    bitwise equal;
-10. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
+12. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
    GQA 8/4, d_head 128, d_ff 4096, bf16, random weights from seed 0) runs
    GenerationEngine.generate on [8, 256] prompts for 24 tokens.  Every
    kernel's launch counter is zeroed just before and read just after: H1
    must launch n_layers = 4 times, H6-decode 4 * 23 = 92 and H2 never.
-   Each generated
+   The decode steps after the first replay one CUDA graph; the counters
+   count the replays' launches.  The tokens equal, bitwise, those of a
+   loop over _decode_forward (the eager steps), and each generated
    token is checked against a fresh full forward over the sequence so far
-   (agreement, or a near-tie under LOGIT_GAP).  Tokens/s come from the
-   host clock around a second, synchronized call;
-11. multiturn: the same model holds its slots (generate(hold=True)), then
+   (agreement, or a near-tie under LOGIT_GAP); the control engine is
+   built, and captures its graph, under the patch.  Tokens/s come from
+   the host clock around a second, synchronized call, graphed and eager;
+13. multiturn: the same model holds its slots (generate(hold=True)), then
    continue_generation feeds a second turn of 256 tokens (turn 1's last
    token and 255 new ones, chunk at positions 279..534) and decodes 24
    more.  Counters: turn 1 H1 4, H6-decode 92; turn 2 H6-extend 4,
@@ -95,7 +116,7 @@ Phases, one line each; any failure exits non-zero before the last line:
    checked against the full forward over the whole stream so far, and
    every layer's cache against forward_collect_kv over the concatenated
    stream; release() must return every page;
-12. train:  the same model, trainable (fresh weights from seed 0), takes
+14. train:  the same model, trainable (fresh weights from seed 0), takes
    make_train_step's AdamW steps (lr 1e-3) on tokens [8, 1025] from
    np.random.default_rng(0).  Every step must launch H1, H3-dkv and H3-dq
    n_layers = 4 times each.  Before the steps, the step-0 loss and every
@@ -104,7 +125,7 @@ Phases, one line each; any failure exits non-zero before the last line:
    forward (loss) and in the backward (gradients) as controls; the loss
    must fall strictly over 5 steps, and tokens/s and TFLOP/s come from the
    host clock around further synchronized steps;
-13. encoder: the JAX suite's encoder entry (bench/suite.py:1057-1102):
+15. encoder: the JAX suite's encoder entry (bench/suite.py:1057-1102):
    the same geometry, fresh weights from seed 0, trained bidirectionally
    by make_mlm_train_step (AdamW, lr 1e-3) on tokens [8, 1024] under one
    fixed MLM mask.  Every step must launch H1, H3-dkv and H3-dq n_layers
@@ -113,7 +134,7 @@ Phases, one line each; any failure exits non-zero before the last line:
    causal forward (loss) and a causal backward (gradients) as controls;
    the loss must fall over 5 steps; encoder training tokens/s come from
    the host clock around further steps;
-14. window_train: the windowed model (A8), the JAX suite's long-context
+16. window_train: the windowed model (A8), the JAX suite's long-context
    entry (bench/suite.py:1003-1053: vocab 2048, the flagship's layers,
    window 4096), fresh weights from seed 0, make_train_step's AdamW on
    tokens [1, 32769].  Step 0's loss and every gradient against the plain
@@ -122,14 +143,16 @@ Phases, one line each; any failure exits non-zero before the last line:
    a warm-up and 5 timed steps, each launching H1, H3-dkv and H3-dq 4
    times, the last loss below the first (the suite's gate); training
    tokens/s;
-15. window_generate: the same model served: [8, 4608] prompts (longer
+17. window_generate: the same model served: [8, 4608] prompts (longer
    than the window) for 24 tokens held, then a 256-token second turn and
    24 more (max_len 5120, page size 128).  Counters: turn 1 H1 4,
    H6-decode 92; turn 2 H6-extend 4, H6-decode 92; H2 0 in both.  Tokens
    against the windowed full forward (agreement or a near-tie), the cache
    after turn 2 against forward_collect_kv over the stream; controls: the
    band dropped in decode and a turn one token short (tokens), a stream
-   one token short (cache); tokens/s of both turns.
+   one token short (cache), each patched engine built under its patch;
+   turn 1's tokens bitwise those of the eager loop; tokens/s of both
+   turns, and of turn 1 eager.
 
 Kernel times come from CUDA events (L2 flushed before each call) beside
 their plain versions, their bounds on the H100 (the larger of the
@@ -218,7 +241,9 @@ V1_WINDOW_O_TOL = 1e-2  # the window cases: rows that see a handful of keys
                        # |v0 - v1|; sound runs 4.3e-3, the controls 0.1 and
                        # up.  A CPU emulation of H1's roundings reads within
                        # half of each limit, both controls beyond 5x
-                       # (tests/test_torch_attention_v1.py)
+                       # (tests/test_torch_attention_v1.py).  The v2
+                       # phase's causal call holds its first rows, which
+                       # see 1..n keys, to the same limit
 H2_O_TOL = 1e-5        # H2 vs its plain version on the same f32 partials:
                        # both merge in f32 and differ in summation order
 # The fused decode's bf16 O vs the plain merge of the kernel's own f32
@@ -298,6 +323,11 @@ V1_CASES = [
     (V1_SPLIT_ROUTE, 1, 8, 8, 1024, 8192, 128, False, None, 1),
 ]
 SPLIT_SWEEP = (1, 2, 4, 8, 16)      # KV spans timed at the long-KV case
+# the v2 phase: the JAX suite's bench_splitkv (bench/suite.py:345-360),
+# whose config cuts the 1024 keys into JAX's nkb = 2 spans of 512
+V2_SHAPE = (32, 8, 1024, 128)
+V2_CONFIG = {"block_q": 1024, "block_kv": 512, "kv_tiles_per_block": 1}
+V2_NKB = 2
 
 # the quant phase (bench/suite.py:363, :395, :1173): (case, B, H, Lq, Lkv,
 # d, kind, block, seed, heads refereed by the f64 oracle)
@@ -352,6 +382,16 @@ DECODE_CASES = [
      WINDOW),
     (DECODE_LONG, 1, 8, 4, 128, (8100, 8100), 8192, None),
 ]
+# the scheduler phase: the JAX suite's bench_scheduler_e2e
+# (bench/suite.py:504-650): (Hq, Hkv, d), page size, slots, its gate's
+# limit (:538), and the churn's 48 requests
+SCHED_HEADS = (8, 8, 128)
+SCHED_PAGE = 256
+SCHED_SLOTS = 16
+SCHED_TOL = 2e-2
+SCHED_REQUESTS = 48
+SCHED_PROMPTS = (256, 512, 1024, 2048)
+SCHED_NEW = (64, 128, 192)
 # the extend phase's: (case, B, Hq, Hkv, page size, histories, max_len, C,
 # window)
 EXTEND_CASES = [
@@ -712,6 +752,130 @@ def phase_v1(torch, dev):
     _require(h2 is not None, "no v1 case ran the split-KV pair")
     print("phase v1: ok")
     return launches, gate_err, t, h2
+
+
+def phase_v2(torch, dev):
+    """The split-KV V2 API, the reference's third tier, at the JAX suite's
+    bench_splitkv entry (bench/suite.py:345-360: B=32, H=8, L=1024,
+    d=128, SplitKVConfig(block_q=1024, block_kv=512, kv_tiles_per_block=1),
+    inputs as bench.py makes them), non-causal and causal:
+    flash_attention_v2 (one H1 launch over the KV spans, one H2 launch,
+    counters zeroed before and read after) against the plain version and
+    the f64 oracle, beside the v1 phase's controls and a further one (the
+    kernel's own partials merged with one span's LSE set to -inf);
+    flash_attention_splitkv_partial's partials in JAX's shape (nkb = 2);
+    times of the call, H1's spans and H2 beside
+    scaled_dot_product_attention."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch import SplitKVConfig
+    from exploring_flash_attention_tpu_torch.oracle import naive_attention
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_plain,
+        flash_attention_splitkv_partial,
+        flash_attention_v2,
+        splitkv_combine,
+        splitkv_combine_plain,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    b, h, l, d = V2_SHAPE
+    cfg = SplitKVConfig(**V2_CONFIG)
+    q, k, v = v1_inputs(torch, dev, b, h, h, l, l, d, seed=1)
+    scale = 1.0 / math.sqrt(d)
+    out, launches = {}, {}
+    for causal in (False, True):
+        mask = "causal" if causal else "none"
+        # causal rows near the top see a handful of keys, |O| up to ~3:
+        # the window cases' limit, for the same reason
+        tol = V1_WINDOW_O_TOL if causal else V1_O_TOL
+        zero_counters()
+        o = flash_attention_v2(q, k, v, config=cfg, causal=causal,
+                               out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        launches[mask] = read_counters()
+        _require(launches[mask] == launches_only(h1=1, h2=1),
+                 f"v2 {mask} launches {launches[mask]}, expected H1 1, H2 1")
+        r = v1_readings(torch, q, k, v, o, None, causal, None, 2, 2)
+        o_p, lse = flash_attention_splitkv_partial(q, k, v, config=cfg,
+                                                   causal=causal)
+        _require(o_p.shape == (b, h, V2_NKB, l, d)
+                 and lse.shape == (b, h, V2_NKB, l),
+                 f"partials {tuple(o_p.shape)}, {tuple(lse.shape)}: JAX's "
+                 f"nkb is {V2_NKB}")
+        e_merge = (splitkv_combine(o_p, lse, torch.float32) - o).abs().max()
+        # control: the last span's keys lost in the merge
+        lse_bad = lse.clone()
+        lse_bad[:2, :2, -1] = float("-inf")
+        bad = splitkv_combine_plain(o_p[:2, :2], lse_bad[:2, :2])
+        o64 = naive_attention(q[:2, :2], k[:2, :2], v[:2, :2], causal=causal)
+        r["span"] = float(np.abs(bad.cpu().numpy() - o64).max())
+        dead = torch.isneginf(lse)
+        if causal:          # q rows 0..511 see nothing of the second span
+            _require(bool(dead[:, :, 1, :l // 2].all())
+                     and not dead[:, :, 1, l // 2:].any()
+                     and not dead[:, :, 0].any()
+                     and bool((o_p[:, :, 1, :l // 2] == 0).all()),
+                     "a causal span above the diagonal is not (0, -inf)")
+        else:
+            _require(not dead.any(), "a non-causal span LSE is -inf")
+        print(f"  v2 bench_splitkv {mask}: B={b} H={h} L={l} d={d}, "
+              f"{V2_NKB} spans of {cfg.kv_span(l)} keys, f32 O: max|dO| vs "
+              f"plain {r['plain']:.3e}, vs f64 oracle on [:2, :2] "
+              f"{r['oracle']:.3e} (tol {tol:g}); the partials merged "
+              f"again vs the call {e_merge.item():.3e}; controls vs oracle: "
+              f"scale off by 10% {r['scale']:.3e}, last 64-key tile dropped "
+              f"{r['drop']:.3e}, last span's LSE -inf {r['span']:.3e}; "
+              f"launches {launches[mask]}")
+        _require(max(r["plain"], r["oracle"]) < tol,
+                 f"v2 {mask} outside tolerance")
+        _require(min(r["scale"], r["drop"], r["span"]) > tol,
+                 f"the v2 check cannot tell a wrong path ({mask})")
+        _require(e_merge.item() < H2_O_TOL, "the partials merge elsewhere")
+        del o, o_p, lse, lse_bad, bad
+
+        o_p, lse = flash_attention_splitkv_partial(q, k, v, config=cfg,
+                                                   causal=causal)
+        flop = 4 * b * h * d * visible_pairs(l, l, causal, None)
+        t = {"max_abs_err": r["plain"],
+             "ms": time_cuda(lambda: flash_attention_v2(
+                 q, k, v, config=cfg, causal=causal), n_iter=20),
+             "plain_ms": time_cuda(lambda: splitkv_combine_plain(
+                 *attention_plain_spans(torch, q, k, v, scale, causal,
+                                        cfg.kv_span(l))), n_iter=3,
+                 n_warmup=1),
+             "library_ms": time_cuda(lambda: sdpa(q, k, v, is_causal=causal),
+                                     n_iter=20),
+             "h1_spans_ms": time_cuda(lambda: flash_attention_splitkv_partial(
+                 q, k, v, config=cfg, causal=causal), n_iter=20),
+             "h2_ms": time_cuda(lambda: splitkv_combine(o_p, lse, q.dtype),
+                                n_iter=20)}
+        t["bound_ms"], t["bound_by"] = roofline(flop, 4 * b * h * l * d * 2)
+        t["h2_bound_ms"] = merge_bound(V2_NKB, b * h * l, d)[0]
+        print(f"  v2 times {mask} (CUDA events, median, L2 flushed): the "
+              f"call {t['ms']:.4f} ms = {flop / t['ms'] / 1e9:.1f} TFLOP/s "
+              f"(H1 over the spans {t['h1_spans_ms']:.4f} ms, H2 "
+              f"{t['h2_ms']:.4f} ms, its bound {t['h2_bound_ms']:.4f} ms); "
+              f"scaled_dot_product_attention {t['library_ms']:.4f} ms; "
+              f"plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})")
+        out[mask] = t
+        del o_p, lse
+    print("phase v2: ok")
+    return launches, out
+
+
+def attention_plain_spans(torch, q, k, v, scale, causal, span):
+    """The plain version of flash_attention_splitkv_partial on the card:
+    H1's plain version over each span, f32 partials."""
+    from exploring_flash_attention_tpu_torch.ops import attention_plain
+
+    lq, lkv = q.shape[2], k.shape[2]
+    parts = [attention_plain(q, k[:, :, s:s + span], v[:, :, s:s + span],
+                             scale, causal, lkv - lq - s)
+             for s in range(0, lkv, span)]
+    return (torch.stack([p[0] for p in parts], dim=2),
+            torch.stack([p[1] for p in parts], dim=2))
 
 
 def merge_bound(nkb, rows, d):
@@ -1431,6 +1595,160 @@ def phase_decode(torch, dev):
     return out
 
 
+def churn_requests(torch, dev, seed=0):
+    """The churn run's 48 requests (bench/suite.py:576-591): prompts of
+    256, 512, 1024 and 2048 tokens and 64, 128 and 192 new ones, bf16
+    prompt K/V and one fixed (q, k, v) per request, made on the card from
+    a seeded generator."""
+    from exploring_flash_attention_tpu_torch.serving import Request
+
+    hq, hkv, d = SCHED_HEADS
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev,  # noqa: E731
+                                dtype=torch.bfloat16)
+    reqs = []
+    for r in range(SCHED_REQUESTS):
+        pl = SCHED_PROMPTS[r % len(SCHED_PROMPTS)]
+        step = (mk(hq, d), mk(hkv, d), mk(hkv, d))
+        reqs.append(Request(r, mk(pl, hkv, d), mk(pl, hkv, d),
+                            SCHED_NEW[r % len(SCHED_NEW)],
+                            lambda i, step=step: step))
+    return reqs
+
+
+def churn_scheduler(dev):
+    from exploring_flash_attention_tpu_torch.serving import (
+        ContinuousBatchingScheduler,
+    )
+
+    longest = max(SCHED_PROMPTS) + max(SCHED_NEW)
+    return ContinuousBatchingScheduler(
+        *SCHED_HEADS, n_pages=SCHED_SLOTS * (longest + SCHED_PAGE - 1)
+        // SCHED_PAGE + 32, page_size=SCHED_PAGE, max_seqs=SCHED_SLOTS,
+        max_pages_per_seq=(longest + SCHED_PAGE) // SCHED_PAGE, device=dev)
+
+
+def run_churn(torch, sched, reqs):
+    """The suite's churn (bench/suite.py:619-641): 16 requests up front,
+    4 more every 8 steps, every step sync=False, one sync at the end.
+    Returns (tokens after the first step, steps, seconds after the first
+    step, every step's output)."""
+    arrival, steps = SCHED_SLOTS, 1
+    for r in reqs[:arrival]:
+        sched.submit(r)
+    outs = [sched.step(sync=False)[1]]       # builds, loads, captures
+    torch.cuda.synchronize()
+    tokens = 0
+    t0 = time.perf_counter()
+    while sched.pending or sched.active or arrival < len(reqs):
+        if steps % 8 == 0 and arrival < len(reqs):
+            for r in reqs[arrival:arrival + 4]:
+                sched.submit(r)
+            arrival = min(arrival + 4, len(reqs))
+        rids, out = sched.step(sync=False)
+        if out is not None:
+            outs.append(out)
+            tokens += len(rids)
+        steps += 1
+        _require(steps < 5000, "the churn run did not converge")
+    outs[-1].cpu()                             # the one sync at the end
+    return tokens, steps, time.perf_counter() - t0, outs
+
+
+def phase_scheduler(torch, dev):
+    """The continuous-batching scheduler at the JAX suite's
+    bench_scheduler_e2e (bench/suite.py:504-650): Hq = Hkv = 8, d = 128,
+    page size 256, 16 slots.  Its one-step gate first: one request (a
+    256-token prompt, f32 inputs from np.random.default_rng(0) as the suite
+    draws them) within 2e-2 of the f64 oracle over the dequantized cache,
+    the newest token hidden as the control beyond it.  Then the churn run
+    twice on the same requests: the step's CUDA graph replayed (the main
+    path, counters zeroed before and read after: one H6-decode launch a
+    step) and the fused step run eagerly; every step's output bitwise
+    equal between the two, the completion map right and every page back
+    in both; tokens/s of each."""
+    from exploring_flash_attention_tpu_torch.oracle import naive_attention
+    from exploring_flash_attention_tpu_torch.serving import (
+        ContinuousBatchingScheduler,
+        Request,
+        gather_kv,
+    )
+    from exploring_flash_attention_tpu_torch.serving.scheduler import (
+        _fused_step,
+    )
+
+    hq, hkv, d = SCHED_HEADS
+    rng = np.random.default_rng(0)
+    kp, vp = (torch.from_numpy(rng.standard_normal((256, hkv, d)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    qs, ks, vs = (torch.from_numpy(rng.standard_normal((h, d)).astype(
+        np.float32)).to(dev) for h in (hq, hkv, hkv))
+    gs = ContinuousBatchingScheduler(hq, hkv, d, n_pages=8,
+                                     page_size=SCHED_PAGE, max_seqs=2,
+                                     device=dev)
+    gs.submit(Request(rid=0, prompt_k=kp, prompt_v=vp, max_new_tokens=2,
+                      step_inputs=lambda i: (qs, ks, vs)))
+    (rid, out0), = gs.step()
+    kd, vd = gather_kv(gs.cache, 0)
+    q3 = qs[:, None, :].cpu()
+    ref = naive_attention(q3, kd, vd)[:, 0]
+    bad = naive_attention(q3, kd[:, :-1], vd[:, :-1])[:, 0]
+    err, err_bad = float(np.abs(out0 - ref).max()), float(np.abs(
+        out0 - bad).max())
+    print(f"  scheduler gate (bench/suite.py:521-538): one step over a "
+          f"256-token prompt, max|dO| vs the f64 oracle over the "
+          f"dequantized cache {err:.3e} (limit {SCHED_TOL:g}); control "
+          f"(newest token hidden) {err_bad:.3e}")
+    _require(rid == 0 and err < SCHED_TOL, "the scheduler fails its gate")
+    _require(err_bad > SCHED_TOL, "the gate cannot tell a wrong step")
+    del gs
+
+    reqs = churn_requests(torch, dev)
+    want_done = {r.rid: r.max_new_tokens for r in reqs}
+    runs = {}
+    for mode in ("graphed", "eager"):
+        sched = churn_scheduler(dev)
+        if mode == "eager":
+            def eager(sched=sched):
+                b = sched._bufs
+                return _fused_step(sched.cache, b.q, b.k, b.v,
+                                   b.append_ids, b.decode_slots)
+            sched._run_fused_step = eager
+        zero_counters()
+        tokens, steps, wall, outs = run_churn(torch, sched, reqs)
+        launches = read_counters()
+        _require(launches == launches_only(h6=steps),
+                 f"scheduler {mode} launches {launches}, expected "
+                 f"H6-decode {steps} (one a step)")
+        _require(sched.completed == want_done,
+                 f"scheduler {mode}: completion map {sched.completed}")
+        _require(sched.allocator.free_pages == sched.allocator.n_pages,
+                 f"scheduler {mode}: pages not returned")
+        _require(mode == "eager" or sched._graph is not None,
+                 "the graphed run captured no graph")
+        runs[mode] = {"tokens": tokens, "steps": steps, "wall_s": wall,
+                      "tokens_s": tokens / wall, "launches": launches,
+                      "outs": outs}
+        print(f"  scheduler churn, {mode} step: {tokens} tokens in "
+              f"{steps - 1} steps after the first, {wall:.4f} s: "
+              f"{tokens / wall:.1f} tokens/s ({wall / (steps - 1) * 1e3:.4f} "
+              f"ms a step, admissions and prefills included); launches "
+              f"{launches}")
+        del sched
+    g_outs, e_outs = runs["graphed"].pop("outs"), runs["eager"].pop("outs")
+    same = [torch.equal(a, b) for a, b in zip(g_outs, e_outs)]
+    _require(len(g_outs) == len(e_outs) == runs["graphed"]["steps"],
+             "the two churn runs took different steps")
+    _require(all(torch.isfinite(o).all().item() for o in g_outs),
+             "a scheduler output is not finite")
+    print(f"  scheduler churn: graphed vs eager step outputs bitwise equal "
+          f"in {sum(same)}/{len(same)} steps; completion map of "
+          f"{len(want_done)} requests and every page back in both")
+    _require(all(same), "a replayed step differs from the eager step")
+    print("phase scheduler: ok")
+    return runs
+
+
 def phase_extend(torch, dev):
     """H6-extend through paged_extend_attention at each of EXTEND_CASES:
     one launch per call, O against the plain version and the f64 oracle
@@ -1683,6 +2001,9 @@ def phase_slice(torch, dev, lm):
     from exploring_flash_attention_tpu_torch.serving import (
         paged_decode_attention,
     )
+    from exploring_flash_attention_tpu_torch.utils.profile_generate import (
+        eager_generate,
+    )
 
     cfg, params, prompt = lm.cfg, lm.params, lm.prompt
     (bsz, l_prompt), n_new = prompt.shape, 24
@@ -1695,46 +2016,76 @@ def phase_slice(torch, dev, lm):
     t_first = time.perf_counter() - t0
     launches = read_counters()
     want = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1))
-    print(f"  slice launches {launches} (expected {want})")
+    print(f"  slice launches {launches} (expected {want}; the first decode "
+          f"step eager, then {n_new - 2} replays of its CUDA graph)")
     _require(launches == want, "the main path missed a kernel")
     _require(out.shape == (bsz, n_new) and out.dtype == np.int32
              and (out >= 0).all() and (out < cfg.vocab_size).all(),
              f"bad tokens {out.shape} {out.dtype}")
 
+    zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out2 = eng.generate(prompt, max_new_tokens=n_new)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    replayed = read_counters()
+    _require(replayed == want, f"a call of replays only launched {replayed}")
     tok_s = bsz * n_new / dt
+    eager, dt_eager = timed_eager_generate(torch, eager_generate, eng,
+                                           prompt, n_new)
 
     agree, steps, worst_gap = compare_with_full_forward(
         torch, params, cfg, prompt, out)
 
-    # control: the same engine with every decode step's newest token hidden
+    # control: every decode step's newest token hidden; the engine is built,
+    # and its graph captured, under the patch
+    ran = []
+
     def hide_newest(q, cache, slots, window=None):
+        ran.append(1)
         with newest_token_hidden(cache, slots):
             return paged_decode_attention(q, cache, slots, window=window)
 
     with mock.patch.object(generate_module, "paged_decode_attention",
                            hide_newest):
-        bad = eng.generate(prompt, max_new_tokens=n_new)
+        bad = GenerationEngine(params, cfg, max_seqs=bsz,
+                               max_len=1024).generate(prompt, n_new)
     bad_agree, _, bad_gap = compare_with_full_forward(
         torch, params, cfg, prompt, bad)
     print(f"  slice init {lm.t_init:.2f} s, first generate {t_first:.3f} s, "
-          f"second {dt:.4f} s: {tok_s:.1f} tokens/s "
-          f"(B={bsz}, prompt {l_prompt}, {n_new} new, incl. prefill); "
-          f"repeat identical: {bool(np.array_equal(out, out2))}; "
-          f"full-forward agreement {agree}/{steps}, largest gap of a "
-          f"disagreement {worst_gap:.4f} (limit {LOGIT_GAP}); control "
-          f"(newest token hidden) {bad_agree}/{steps}, largest gap "
-          f"{bad_gap:.4f}")
+          f"second {dt:.4f} s: {tok_s:.1f} tokens/s with the decode steps "
+          f"replayed as a CUDA graph, {bsz * n_new / dt_eager:.1f} tokens/s "
+          f"with them eager ({dt_eager:.4f} s; B={bsz}, prompt {l_prompt}, "
+          f"{n_new} new, incl. prefill); tokens of the graphed engine "
+          f"bitwise those of the eager loop over _decode_forward: "
+          f"{bool(np.array_equal(out, eager))}; repeat identical: "
+          f"{bool(np.array_equal(out, out2))}; full-forward agreement "
+          f"{agree}/{steps}, largest gap of a disagreement {worst_gap:.4f} "
+          f"(limit {LOGIT_GAP}); control (newest token hidden, patched "
+          f"before the capture; the patch ran {len(ran)} times) "
+          f"{bad_agree}/{steps}, largest gap {bad_gap:.4f}")
+    _require(np.array_equal(out, eager) and np.array_equal(out, out2),
+             "the graphed decode differs from the eager loop")
     _require(worst_gap < LOGIT_GAP,
              "a decode token differs from the full forward's beyond a tie")
-    _require(bad_gap >= LOGIT_GAP,
+    _require(ran and bad_gap >= LOGIT_GAP,
              "the full-forward check cannot tell a wrong decode path")
     print("phase slice: ok")
-    return launches, tok_s
+    return launches, {"tokens_s": tok_s, "eager_tokens_s":
+                      bsz * n_new / dt_eager}
+
+
+def timed_eager_generate(torch, eager_generate, eng, prompt, n_new):
+    """The tokens of a greedy generate with every decode step eager (a
+    loop over _decode_forward) and the seconds of a second, synchronized
+    such call."""
+    tokens = eager_generate(eng, prompt, n_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_generate(eng, prompt, n_new)
+    torch.cuda.synchronize()
+    return tokens, time.perf_counter() - t0
 
 
 def phase_multiturn(torch, dev, lm):
@@ -2271,7 +2622,10 @@ def phase_window_generate(torch, dev):
     forward's argmax (agreement or a near-tie), the cache after turn 2
     against forward_collect_kv over the stream, each beside its controls:
     a decode without its band and a turn one token short for the tokens, a
-    stream one token short for the cache."""
+    stream one token short for the cache.  Turn 1's tokens (its decode
+    steps replayed as a CUDA graph) bitwise those of a loop over
+    _decode_forward; each patched control builds its engine, and captures
+    its graph, under the patch."""
     from unittest import mock
 
     from exploring_flash_attention_tpu_torch.models import (
@@ -2286,6 +2640,9 @@ def phase_window_generate(torch, dev):
     from exploring_flash_attention_tpu_torch.serving import (
         gather_kv,
         paged_decode_attention,
+    )
+    from exploring_flash_attention_tpu_torch.utils.profile_generate import (
+        eager_generate,
     )
 
     cfg = long_context_config()
@@ -2346,6 +2703,8 @@ def phase_window_generate(torch, dev):
     torch.cuda.synchronize()
     dt2 = time.perf_counter() - t0 - dt1
     eng.release()
+    eager, dt_eager = timed_eager_generate(torch, eager_generate, eng,
+                                           prompt, n_new)
 
     # controls: the band dropped in decode (turn 1) and turn 2 without its
     # first token, both required to fail; and, printed, every decode step
@@ -2360,12 +2719,22 @@ def phase_window_generate(torch, dev):
     def no_band(q, cache, slots, window=None):
         return paged_decode_attention(q, cache, slots)
 
-    bad = {}
+    # each patched engine is built, and its decode graph captured, under
+    # the patch; ran counts the patched calls
+    bad, ran = {}, []
     for name, fn in (("newest token hidden", hide_newest),
                      ("decode window one key narrower", narrower),
                      ("band dropped in decode", no_band)):
-        with mock.patch.object(generate_module, "paged_decode_attention", fn):
-            bad[name] = (prompt, eng.generate(prompt, max_new_tokens=n_new))
+        def patched(*args, fn=fn, **kw):
+            ran.append(name)
+            return fn(*args, **kw)
+
+        with mock.patch.object(generate_module, "paged_decode_attention",
+                               patched):
+            bad[name] = (prompt, GenerationEngine(
+                params, cfg, max_seqs=bsz, max_len=max_len).generate(
+                    prompt, max_new_tokens=n_new))
+        _require(name in ran, f"the patched decode ({name}) never ran")
     eng.generate(prompt, max_new_tokens=n_new, hold=True)
     bad["turn 2 without its first token"] = (prefix, eng.continue_generation(
         turn[:, 1:], max_new_tokens=n_new))
@@ -2384,9 +2753,13 @@ def phase_window_generate(torch, dev):
           f"token short) {e_bad:.3e}; pages free after release {free}/"
           f"{eng.allocator.n_pages}")
     print(f"  window_generate B={bsz} prompt {l_prompt}: turn 1 {dt1:.4f} s "
-          f"({bsz * n_new / dt1:.1f} tokens/s incl. prefill), turn 2 "
-          f"{dt2:.4f} s ({bsz * n_new / dt2:.1f} tokens/s incl. the "
-          f"extend); repeats identical: "
+          f"({bsz * n_new / dt1:.1f} tokens/s incl. prefill, decode steps "
+          f"replayed as a CUDA graph; {bsz * n_new / dt_eager:.1f} tokens/s "
+          f"with them eager, {dt_eager:.4f} s), turn 2 {dt2:.4f} s "
+          f"({bsz * n_new / dt2:.1f} tokens/s incl. the extend); turn 1 "
+          f"tokens of the graphed engine bitwise those of the eager loop "
+          f"over _decode_forward: {bool(np.array_equal(out1, eager))}; "
+          f"the patched decodes ran {len(ran)} times; repeats identical: "
           f"{bool(np.array_equal(out1, again1) and np.array_equal(out2, again2))}"
           f"; full-forward agreement turn 1 {agree1}/{steps1}, largest gap "
           f"of a disagreement {gap1:.4f}; turn 2 {agree2}/{steps2}, "
@@ -2404,6 +2777,8 @@ def phase_window_generate(torch, dev):
     _require(e_bad > CACHE_KV_TOL,
              "the cache check cannot tell a stream one token short")
     _require(free == eng.allocator.n_pages, "release() kept pages")
+    _require(np.array_equal(out1, eager),
+             "the graphed windowed decode differs from the eager loop")
     _require(max(gap1, gap2) < LOGIT_GAP, "a windowed token differs from "
              "the windowed full forward's beyond a tie")
     _require(min(short_turn[2], no_band_turn[2]) >= LOGIT_GAP,
@@ -2411,6 +2786,7 @@ def phase_window_generate(torch, dev):
              "its band or a turn one token short")
     print("phase window_generate: ok")
     return turn1, turn2, {"turn1_tokens_s": bsz * n_new / dt1,
+                          "turn1_eager_tokens_s": bsz * n_new / dt_eager,
                           "turn2_tokens_s": bsz * n_new / dt2}
 
 
@@ -2612,19 +2988,21 @@ def main() -> int:
     phase_build(kernels)
     h1_err = phase_h1(torch, dev)
     v1_launches, v1_err, v1_t, h2 = phase_v1(torch, dev)
+    v2_launches, v2_t = phase_v2(torch, dev)
     quant_gates, kvq, int8 = phase_quant(torch, dev)
     dtiled_gates, h5 = phase_dtiled(torch, dev)
     h6 = phase_decode(torch, dev)
     h6e = phase_extend(torch, dev)
+    sched = phase_scheduler(torch, dev)
     h3_err = phase_bwd(torch, dev)
     lm = make_flagship(torch, dev)
-    launches, _ = phase_slice(torch, dev, lm)
+    launches, gen = phase_slice(torch, dev, lm)
     turn2, _ = phase_multiturn(torch, dev, lm)
     del lm
     train, _ = phase_train(torch, dev)
     encoder, _ = phase_encoder(torch, dev)
     wtrain, _ = phase_window_train(torch, dev)
-    wturn1, wturn2, _ = phase_window_generate(torch, dev)
+    wturn1, wturn2, wgen = phase_window_generate(torch, dev)
     t = time_kernels(torch, dev)
     h6_main, h6e_main = h6[DECODE_CASES[0][0]], h6e[EXTEND_CASES[0][0]]
     main_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -2642,6 +3020,8 @@ def main() -> int:
          "design": "wgmma",
          "bound_share": v1_t["bound_ms"] / v1_t["ms"],
          "launches_by_path": {"v1": v1_launches["h1"],
+                              "v2": v2_launches["none"]["h1"],
+                              "v2_causal": v2_launches["causal"]["h1"],
                               "slice": launches["h1"],
                               "train_step": train["h1"],
                               "encoder_step": encoder["h1"],
@@ -2664,7 +3044,11 @@ def main() -> int:
          "design": "a row per d/4 lanes, 16-byte loads, LSEs read once "
                    "into registers (csrc/lse_merge.cuh, shared with "
                    "H6-decode's merge)",
-         "launches_by_path": {"v1": h2["launches"], "slice": launches["h2"],
+         "v2": v2_t,
+         "launches_by_path": {"v1": h2["launches"],
+                              "v2": v2_launches["none"]["h2"],
+                              "v2_causal": v2_launches["causal"]["h2"],
+                              "slice": launches["h2"],
                               "multiturn_turn_2": turn2["h2"],
                               "window_generate_turn_1": wturn1["h2"],
                               "window_generate_turn_2": wturn2["h2"]},
@@ -2687,7 +3071,16 @@ def main() -> int:
                    "atomic ticket",
          "partials_ms": h6_main["partials_ms"],
          "two_launch_ms": h6_main["two_launch_ms"], "by_case": h6,
+         "generate_tokens_s": {"graphed": gen["tokens_s"],
+                               "eager": gen["eager_tokens_s"],
+                               "windowed_graphed": wgen["turn1_tokens_s"],
+                               "windowed_eager":
+                                   wgen["turn1_eager_tokens_s"]},
+         "scheduler": sched,
          "launches_by_path": {"slice": launches["h6"],
+                              "scheduler_step": (
+                                  sched["graphed"]["launches"]["h6"]
+                                  / sched["graphed"]["steps"]),
                               "multiturn_turn_2": turn2["h6"],
                               "window_generate_turn_1": wturn1["h6"],
                               "window_generate_turn_2": wturn2["h6"]}},

@@ -6,7 +6,7 @@ and NumPy, never JAX.  Kernels written by hand for sm_90a live in
 CPU tensors every kernel wrapper runs its plain PyTorch version.
 """
 
-from exploring_flash_attention_tpu_torch.configs import cdiv
+from exploring_flash_attention_tpu_torch.configs import SplitKVConfig, cdiv
 from exploring_flash_attention_tpu_torch.models import (
     GenerationEngine,
     ModelConfig,
@@ -23,10 +23,13 @@ from exploring_flash_attention_tpu_torch.ops import (
     flash_attention_bwd,
     flash_attention_int8,
     flash_attention_kvquant,
+    flash_attention_splitkv_partial,
     flash_attention_v1,
     flash_attention_v1_causal_partial,
     flash_attention_v1_dtiled,
     flash_attention_v1_window_partial,
+    flash_attention_v2,
+    merge_partials,
     quantize_fp8,
     quantize_int8,
     splitkv_combine,
@@ -36,6 +39,7 @@ __all__ = [
     "GenerationEngine",
     "QuantizedTensor",
     "ModelConfig",
+    "SplitKVConfig",
     "attention_bwd_plain",
     "attention_partial_local",
     "cdiv",
@@ -43,14 +47,17 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_int8",
     "flash_attention_kvquant",
+    "flash_attention_splitkv_partial",
     "flash_attention_v1",
     "flash_attention_v1_causal_partial",
     "flash_attention_v1_dtiled",
     "flash_attention_v1_window_partial",
+    "flash_attention_v2",
     "forward",
     "init_params",
     "loss_fn",
     "make_train_step",
+    "merge_partials",
     "quantize_fp8",
     "quantize_int8",
     "splitkv_combine",

@@ -20,18 +20,26 @@ The cache stores post-rotation K, and decode and extend rotate each new
 token's q/k at its per-sequence position read from the cache's
 ``seq_lens`` before the append, so ``seq_lens`` doubles as the RoPE
 position counter.  Every attention call takes the config's ``window``, so
-a windowed model is served on the same paths.  The decode loop is a
-Python loop; the tokens stay on the device until the loop ends.
+a windowed model is served on the same paths.
+
+On the card each decode step after the first is one CUDA graph replay
+(``graphs.StepGraph``): :func:`_decode_forward` and :func:`sample` over a
+fixed token buffer, captured once per engine, batch size and temperature
+after the first step of that batch has run eagerly, and shared by
+``generate`` and ``continue_generation``: the JAX package's single
+dispatch (a ``jax.jit`` around a ``lax.scan``).  On the CPU the steps run
+eagerly.  The tokens stay on the device until the loop ends.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from exploring_flash_attention_tpu_torch.configs import cdiv
+from exploring_flash_attention_tpu_torch.graphs import StepGraph
 from exploring_flash_attention_tpu_torch.models.transformer import (
     ModelConfig,
     Params,
@@ -189,6 +197,11 @@ class GenerationEngine:
         self._mapped_pages: List[int] = []
         self._held_slots: Optional[torch.Tensor] = None
         self._held_len = 0          # tokens in each held sequence's cache
+        # what the decode graphs read stays in place: the slot ids of each
+        # batch size, the generator (re-seeded per call) and the graphs
+        self._slot_ids: Dict[int, torch.Tensor] = {}
+        self._generator = torch.Generator(device=self.device)
+        self._graphs: Dict[Tuple[int, float], StepGraph] = {}
 
     def _map_slots(self, bsz: int) -> torch.Tensor:
         # the table is built on the host and copied once per layer
@@ -202,7 +215,10 @@ class GenerationEngine:
         for cache in self.caches:
             cache.page_table.copy_(table_t)
             cache.seq_lens.zero_()
-        return torch.arange(bsz, dtype=torch.int32, device=self.device)
+        if bsz not in self._slot_ids:
+            self._slot_ids[bsz] = torch.arange(bsz, dtype=torch.int32,
+                                               device=self.device)
+        return self._slot_ids[bsz]
 
     def _release_slots(self) -> None:
         self.allocator.free(self._mapped_pages)
@@ -220,19 +236,49 @@ class GenerationEngine:
                              f"{room} a slot holds (max_len)")
 
     def _decode(self, logits: torch.Tensor, slots: torch.Tensor,
-                max_new_tokens: int, temperature: float,
-                generator: torch.Generator) -> np.ndarray:
+                max_new_tokens: int, temperature: float) -> np.ndarray:
         """Sample from the last position's logits [B, V], then decode one
         token per step: [B, max_new_tokens] int32.  The newest sampled
-        token is never fed into the cache."""
-        tok = sample(logits, temperature, generator)
-        out = [tok]
-        for _ in range(max_new_tokens - 1):
-            logits = _decode_forward(self.params, tok, self.caches, slots,
-                                     self.config)
-            tok = sample(logits, temperature, generator)
-            out.append(tok)
-        return torch.stack(out, dim=1).cpu().numpy()
+        token is never fed into the cache.
+
+        On the card the steps replay the CUDA graph of (batch size,
+        temperature): :func:`_decode_forward` and :func:`sample` over a
+        fixed token buffer.  A batch without a graph runs its first step
+        eagerly (which builds and loads the kernels and reserves the
+        decode tickets), then captures it; a failed capture raises."""
+        gen = self._generator
+        tok = sample(logits, temperature, gen)
+        if self.device.type != "cuda":
+            out = [tok]
+            for _ in range(max_new_tokens - 1):
+                logits = _decode_forward(self.params, tok, self.caches,
+                                         slots, self.config)
+                tok = sample(logits, temperature, gen)
+                out.append(tok)
+            return torch.stack(out, dim=1).cpu().numpy()
+        out = torch.empty((tok.shape[0], max_new_tokens), dtype=torch.int32,
+                          device=self.device)
+        out[:, 0] = tok
+        key, first = (tok.shape[0], temperature), 1
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph.out.copy_(tok)
+        elif max_new_tokens > 1:
+            buf = tok.clone()
+
+            def decode_step() -> torch.Tensor:
+                logits = _decode_forward(self.params, buf, self.caches,
+                                         slots, self.config)
+                return buf.copy_(sample(logits, temperature, gen))
+
+            out[:, 1] = decode_step()
+            graph = self._graphs[key] = StepGraph(
+                decode_step, self.device,
+                generators=(gen,) if temperature else ())
+            first = 2
+        for i in range(first, max_new_tokens):
+            out[:, i] = graph.replay()
+        return out.cpu().numpy()
 
     @torch.no_grad()
     def generate(
@@ -257,7 +303,7 @@ class GenerationEngine:
         if self._held_slots is not None:
             raise RuntimeError("slots held: call release() first")
         self._check_room(l_prompt + max_new_tokens - 1)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._generator.manual_seed(seed)
         try:
             # inside the try so a partial allocation still gets freed
             slots = self._map_slots(bsz)
@@ -265,7 +311,7 @@ class GenerationEngine:
             for cache, (k, v) in zip(self.caches, kvs):
                 append_prompts(cache, slots, k, v)
             result = self._decode(logits[:, -1, :], slots, max_new_tokens,
-                                  temperature, generator)
+                                  temperature)
         except BaseException:
             self._release_slots()           # the engine stays reusable
             raise
@@ -303,12 +349,12 @@ class GenerationEngine:
                              f"the {slots.shape[0]} held slots")
         length = self._held_len + new_tokens.shape[1] + max_new_tokens - 1
         self._check_room(length)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._generator.manual_seed(seed)
         try:
             logits = _extend_forward(self.params, new_tokens, self.caches,
                                      slots, self.config)
             result = self._decode(logits[:, -1, :], slots, max_new_tokens,
-                                  temperature, generator)
+                                  temperature)
         except BaseException:
             self.release()
             raise

@@ -2,6 +2,7 @@ from exploring_flash_attention_tpu_torch.ops.attention import (
     attention_partial_local,
     attention_plain,
     flash_attention,
+    merge_partials,
     prefill_attention,
 )
 from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
@@ -28,6 +29,8 @@ from exploring_flash_attention_tpu_torch.ops.attention_v1_dtiled import (
     flash_attention_v1_dtiled,
 )
 from exploring_flash_attention_tpu_torch.ops.attention_v2_splitkv import (
+    flash_attention_splitkv_partial,
+    flash_attention_v2,
     splitkv_combine,
     splitkv_combine_plain,
 )
@@ -53,10 +56,13 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_int8",
     "flash_attention_kvquant",
+    "flash_attention_splitkv_partial",
     "flash_attention_v1",
     "flash_attention_v1_causal_partial",
     "flash_attention_v1_dtiled",
     "flash_attention_v1_window_partial",
+    "flash_attention_v2",
+    "merge_partials",
     "prefill_attention",
     "quantize_fp8",
     "quantize_int8",

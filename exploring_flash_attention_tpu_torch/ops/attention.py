@@ -2,7 +2,8 @@
 call (no mask, causal or a causal window).
 
 Counterparts of ``parallel/partials.py:attention_partial_local`` (its
-static-positions routes) and of ``ops/attention_vjp.py:flash_attention`` in
+static-positions routes) and ``merge_partials``, and of
+``ops/attention_vjp.py:flash_attention`` in
 the JAX package, whose backward is ``ops/attention_bwd.py`` (H3);
 ``ops/attention_v1.py`` holds ``flash_attention_v1`` on the same kernel.
 Layouts are the JAX package's: q ``[B, Hq, Lq, d]``, k/v
@@ -96,10 +97,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     at ``diag_off``, or a causal ``window`` (see :func:`attention_plain`);
     a window that holds every key the causal rows see is plain causal.
 
-    With ``kv_span`` (a multiple of 128 keys) the KV is cut into
-    nkb = cdiv(Lkv, kv_span) spans and both outputs gain a span axis: o
-    [B, Hq, nkb, Lq, d] normalized over each span and lse [B, Hq, nkb, Lq]
-    of each span, the partials that ``splitkv_combine`` merges.
+    With ``kv_span`` the KV is cut into nkb = cdiv(Lkv, kv_span) spans and
+    both outputs gain a span axis: o [B, Hq, nkb, Lq, d] normalized over
+    each span and lse [B, Hq, nkb, Lq] of each span, the partials that
+    ``splitkv_combine`` merges.  The plain path takes any positive span;
+    H1 takes whole 128-key tiles.
 
     CPU tensors take :func:`attention_plain`.  CUDA tensors launch kernel
     H1 (``csrc/prefill_attention.cu``), once per call, or raise: it takes
@@ -114,9 +116,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"got causal={causal}, window={window}")
         if window >= lq + diag_off:     # the last row sees keys 0..window-1
             window = None
-    if kv_span is not None and (kv_span <= 0 or kv_span % H1_TILE):
-        raise ValueError(f"kv_span must be a positive multiple of {H1_TILE}, "
-                         f"got {kv_span}")
+    if kv_span is not None and kv_span <= 0:
+        raise ValueError(f"kv_span must be positive, got {kv_span}")
     if q.device.type == "cpu":
         if kv_span is None:
             o, lse = attention_plain(q, k, v, scale, causal, diag_off, window)
@@ -137,6 +138,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{tuple(k.shape)}, {tuple(v.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"H1 writes bf16 or f32 O, not {out_dtype}")
+    if kv_span is not None and kv_span % H1_TILE:
+        raise ValueError(
+            f"H1 takes a kv_span that is a multiple of {H1_TILE} keys (whole "
+            f"K/V tiles); got kv_span={kv_span} for q {tuple(q.shape)} and "
+            f"k/v {tuple(k.shape)}")
     mask = mask_args(causal, diag_off, window)
     nkb = 1 if kv_span is None else -(-lkv // kv_span)
     if nkb > 65535:
@@ -242,6 +248,27 @@ def attention_partial_local(
     return prefill_attention(
         q, k, v, scale, _diag_offset(lq, lkv, static_positions), causal,
         window, out_dtype=torch.float32)
+
+
+def merge_partials(
+    o_a: torch.Tensor, lse_a: torch.Tensor,      # [..., Lq, d], [..., Lq]
+    o_b: torch.Tensor, lse_b: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Associative merge of two normalized partials: (o, lse) of attention
+    over the union of the two KV sets.  The identity is (0, -inf).  The
+    JAX package's formula (``parallel/partials.py:108-128``), operation for
+    operation; plain PyTorch on any device."""
+    m = torch.maximum(lse_a, lse_b)
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    w_a = torch.where(torch.isneginf(lse_a), 0.0, torch.exp(lse_a - m_safe))
+    w_b = torch.where(torch.isneginf(lse_b), 0.0, torch.exp(lse_b - m_safe))
+    denom = w_a + w_b
+    denom_safe = torch.where(denom == 0.0, 1.0, denom)
+    o = (o_a * (w_a / denom_safe)[..., None]
+         + o_b * (w_b / denom_safe)[..., None])
+    lse = m + torch.log(denom_safe)
+    lse = torch.where(denom == 0.0, float("-inf"), lse)
+    return o, lse
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -1,19 +1,30 @@
-"""The split-KV merge of the port, on kernel H2.
+"""Split-KV attention of the port (the reference's V2 tier): the span
+partials on kernel H1, their merge on kernel H2.
 
-Counterpart of ``splitkv_combine`` (``ops/attention_v2_splitkv.py:619``)
-in the JAX package.  The partials it merges come from kernel H1's span
-mode (``prefill_attention(..., kv_span=)``): per KV span, an O normalized
-over the span and the span's natural-log LSE.
+Counterparts of ``flash_attention_splitkv_partial`` (``:348``),
+``splitkv_combine`` (``:619``) and ``flash_attention_v2`` (``:657``) in the
+JAX package's ``ops/attention_v2_splitkv.py``.  The partials come from
+H1's span mode (``prefill_attention(..., kv_span=)``): per KV span, an O
+normalized over the span and the span's natural-log LSE, in one launch
+for every span; H2 merges them by their LSE in one more.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from exploring_flash_attention_tpu_torch import kernels
-from exploring_flash_attention_tpu_torch.ops.attention import H1_HEAD_DIMS
+from exploring_flash_attention_tpu_torch.configs import SplitKVConfig, cdiv
+from exploring_flash_attention_tpu_torch.ops.attention import (
+    H1_HEAD_DIMS,
+    H1_TILE,
+    _diag_offset,
+    _require_static,
+    prefill_attention,
+)
 
 
 def splitkv_combine_plain(o_partials: torch.Tensor, lses: torch.Tensor
@@ -77,3 +88,81 @@ def splitkv_combine(
 
 
 splitkv_combine.launches = 0
+
+
+def flash_attention_splitkv_partial(
+    q: torch.Tensor,               # [B, Hq, Lq, d]
+    k: torch.Tensor,               # [B, Hkv, Lkv, d]
+    v: torch.Tensor,
+    config: SplitKVConfig = SplitKVConfig(),
+    scale: Optional[float] = None,
+    causal: bool = False,
+    workspace_dtype: torch.dtype = torch.float32,
+    positions: Optional[Tuple[int, int]] = None,
+    static_positions: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 of the split-KV pair: (o_partial [B, Hq, nkb, Lq, d] in
+    ``workspace_dtype``, normalized over each span, lse f32 [B, Hq, nkb,
+    Lq], natural log), the KV cut into nkb = cdiv(Lkv, span) spans of
+    ``config.kv_span(Lkv)`` keys.  A span that sees no key gives (0, -inf).
+
+    ``static_positions`` (Python or NumPy ints ``(q_pos0, kv_pos0)``, the
+    global positions of q row 0 and KV row 0) place the causal diagonal;
+    by default the q rows are the last Lq positions.  Traced
+    ``positions`` are not ported (``ROADMAP.md`` B.1 item 1) and raise
+    ``NotImplementedError``.  GQA: k/v may carry fewer heads (Hq % Hkv ==
+    0).
+
+    CPU tensors take H1's plain version over each span.  CUDA tensors
+    launch H1 once over every span (``prefill_attention``), or raise: H1
+    takes bf16 q/k/v with d in {32, 64, 128}, writes bf16 or f32 partials
+    and takes spans of whole 128-key tiles.  A single span covering the
+    whole KV is handed to H1 rounded up to whole tiles (the same result)."""
+    if positions is not None and static_positions is not None:
+        raise ValueError("pass positions OR static_positions, not both")
+    if positions is not None:
+        raise NotImplementedError(
+            "traced positions are not ported (ROADMAP.md B.1 item 1); pass "
+            "static_positions")
+    b, hq, lq, d = q.shape
+    hkv, lkv = k.shape[1], k.shape[2]
+    if (k.shape != (b, hkv, lkv, d) or v.shape != (b, hkv, lkv, d)
+            or hq % hkv != 0):
+        raise ValueError(f"shape mismatch: q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} v={tuple(v.shape)}")
+    if static_positions is not None:
+        _require_static(static_positions)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    span = config.kv_span(lkv)
+    if span >= lkv and q.device.type != "cpu":
+        span = cdiv(lkv, H1_TILE) * H1_TILE          # one span either way
+    return prefill_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), scale,
+        _diag_offset(lq, lkv, static_positions), causal,
+        out_dtype=workspace_dtype, kv_span=span)
+
+
+def flash_attention_v2(
+    q: torch.Tensor,               # [B, Hq, Lq, d]
+    k: torch.Tensor,               # [B, Hkv, Lkv, d]
+    v: torch.Tensor,
+    config: SplitKVConfig = SplitKVConfig(),
+    scale: Optional[float] = None,
+    causal: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The split-KV pair: :func:`flash_attention_splitkv_partial`, then
+    :func:`splitkv_combine`; o [B, Hq, Lq, d] in ``out_dtype`` or q.dtype.
+    On the card, one H1 launch and one H2 launch.
+
+    The JAX package keeps the workspace in q's dtype (bf16 for bf16
+    inputs); the port keeps it in f32, because H2 merges f32 partials
+    only.  So for bf16 inputs the port rounds once (O to ``out_dtype``)
+    where JAX rounds twice (each partial, then O), and lands nearer the
+    f64 oracle: within JAX's bf16 tier (``tests/test_attention_v2.py``,
+    1.5e-2)."""
+    o_part, lse = flash_attention_splitkv_partial(
+        q, k, v, config=config, scale=scale, causal=causal,
+        workspace_dtype=torch.promote_types(q.dtype, torch.float32))
+    return splitkv_combine(o_part, lse, out_dtype or q.dtype)

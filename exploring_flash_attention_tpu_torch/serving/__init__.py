@@ -6,22 +6,32 @@ from exploring_flash_attention_tpu_torch.serving.decode import (
     paged_decode_plain,
     paged_extend_attention,
     paged_extend_plain,
+    reserve_tickets,
     ticket_buffer,
 )
 from exploring_flash_attention_tpu_torch.serving.kv_cache import (
     PageAllocator,
     PagedKVCache,
     append_chunks,
+    append_prompt,
     append_prompts,
     append_tokens,
     gather_kv,
     make_cache,
+    set_seq_lens,
+)
+from exploring_flash_attention_tpu_torch.serving.scheduler import (
+    ContinuousBatchingScheduler,
+    Request,
 )
 
 __all__ = [
+    "ContinuousBatchingScheduler",
     "PageAllocator",
     "PagedKVCache",
+    "Request",
     "append_chunks",
+    "append_prompt",
     "append_prompts",
     "append_tokens",
     "decode_split",
@@ -33,5 +43,7 @@ __all__ = [
     "paged_decode_plain",
     "paged_extend_attention",
     "paged_extend_plain",
+    "reserve_tickets",
+    "set_seq_lens",
     "ticket_buffer",
 ]

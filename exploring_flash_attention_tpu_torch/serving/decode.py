@@ -218,15 +218,27 @@ _TICKETS = {}                   # device index -> zeroed int32 tickets
 def ticket_buffer(device: torch.device) -> Optional[torch.Tensor]:
     """The fused H6-decode's tickets on ``device`` (one int32 per batch row
     and KV head, zero between launches), or None before its first launch
-    there."""
+    or :func:`reserve_tickets` there."""
     return _TICKETS.get(device.index)
 
 
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
+def reserve_tickets(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed tickets on ``device``: the kept buffer, or a
-    new zeroed one in its place when it is too small."""
+    new zeroed one in its place when it is too small.  A CUDA graph that
+    holds H6-decode keeps the raw pointer of the buffer in place when it
+    was captured, so its capture reserves the batch's tickets first and
+    the graph keeps a reference to that buffer (``graphs.StepGraph``): a
+    later, larger batch swaps in a new buffer and the old one lives on
+    with the graph.  Each buffer returns to zero after every launch, so
+    the graphs and the eager calls that share one stay correct as long as
+    they run in order on one stream."""
     buf = _TICKETS.get(device.index)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"H6-decode needs {n} tickets during a CUDA graph capture, "
+                "but fewer are reserved: call reserve_tickets before the "
+                "capture")
         buf = torch.zeros(n, dtype=torch.int32, device=device)
         _TICKETS[device.index] = buf
     return buf
@@ -251,7 +263,7 @@ def _launch_decode(q: torch.Tensor, cache: PagedKVCache,
                           device=q.device)
     if fused:
         o = torch.empty_like(q)
-        tickets = _tickets(q.device, b * hkv)
+        tickets = reserve_tickets(q.device, b * hkv)
     ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731
     err = kernels.library().eft_paged_decode(
         q.data_ptr(), cache.kv_pages.data_ptr(), cache.kv_scales.data_ptr(),

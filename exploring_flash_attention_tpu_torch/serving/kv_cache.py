@@ -14,9 +14,12 @@ because the TPU's page copies need a 128-wide last dimension.  The port
 never packs: at d = 128 the two layouts are the same bits, and at d < 128
 caches are compared through :func:`gather_kv`.
 
-Unlike the JAX package's functional updates, the append functions write
-the cache's tensors in place: a decode step then costs no copy of the
-cache.  Page management (:class:`PageAllocator`) is host-side Python.
+Unlike the JAX package's functional updates, the append functions and
+:func:`set_seq_lens` write the cache's tensors in place: a decode step
+then costs no copy of the cache.  Writes to out-of-range slots are
+dropped, as the JAX package's ``mode="drop"`` scatters drop them, without
+a host sync.  Page management (:class:`PageAllocator`) is host-side
+Python.
 """
 
 from __future__ import annotations
@@ -108,6 +111,28 @@ def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def _drop_out_of_range(seq_ids: torch.Tensor, n: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """Row bookkeeping of the writes that drop rows whose slot is out of
+    range, as the JAX package's ``mode="drop"`` scatters do, with no host
+    sync (so a CUDA graph can hold it) and no race.
+
+    Returns ``(safe, valid, src, keep)``: ``safe`` the slot ids clamped to
+    [0, n) (int64), ``valid`` whether each row's slot is in range, ``src``
+    the row whose write each row repeats and ``keep`` whether that row is
+    valid.  A dropped row repeats the first valid row's write, bit for
+    bit, so the two never race for one target with different values; when
+    no row is valid, every row repeats row 0 (``keep`` False), whose
+    caller writes back what its target holds."""
+    ids = seq_ids.long()
+    safe = ids.clamp(0, n - 1)
+    valid = safe == ids
+    rows = torch.arange(ids.shape[0], device=ids.device)
+    src = torch.where(valid, rows, valid.to(torch.int32).argmax())
+    return safe, valid, src, valid[src]
+
+
 def append_tokens(
     cache: PagedKVCache,
     seq_ids: torch.Tensor,       # int [B] cache slots being written
@@ -117,19 +142,28 @@ def append_tokens(
     """Append one token per sequence in place (quantize + scatter) at each
     sequence's ``seq_lens`` position, then advance ``seq_lens``.
 
-    The pages must already be mapped in the page table and ``seq_ids``
-    must be distinct valid slots (the JAX version's drop-out-of-range mode
-    serves its scheduler, which is not ported)."""
-    ids = seq_ids.long()
-    pos = cache.seq_lens[ids].long()                            # [B]
-    page_ids = cache.page_table[ids, pos // cache.page_size].long()
+    The pages must already be mapped in the page table.  Rows whose
+    ``seq_ids`` are out of range (negative, or ``max_seqs`` and past) are
+    dropped: no page write, no length bump.  The scheduler's fixed-capacity
+    step pads its batch with such rows.  The valid slots must be distinct.
+    No step waits on the host, so a CUDA graph can hold the call."""
+    safe, valid, src, keep = _drop_out_of_range(seq_ids,
+                                                cache.seq_lens.shape[0])
+    slot = safe[src]                    # the slot each row's write goes to
+    pos = cache.seq_lens[slot]
+    page_idx = (pos // cache.page_size).clamp_max(cache.max_pages_per_seq - 1)
+    page_ids = cache.page_table[slot, page_idx]
     offset = pos % cache.page_size
-    kq, ks = _quantize_rows(k_new)                              # [B,H,d],[B,H]
-    vq, vs = _quantize_rows(v_new)
+    kv, sc = _quantize_rows(torch.stack([k_new, v_new], dim=1)[src])
+    # with no valid row, every row writes back what its target holds
+    kv = torch.where(keep[:, None, None, None], kv,
+                     cache.kv_pages[page_ids, :, :, offset, :])
+    sc = torch.where(keep[:, None, None], sc,
+                     cache.kv_scales[page_ids, :, :, 0, offset])
     # pages[page_ids[b], :, h, offset[b], :] = kv[b, :, h, :]
-    cache.kv_pages[page_ids, :, :, offset, :] = torch.stack([kq, vq], dim=1)
-    cache.kv_scales[page_ids, :, :, 0, offset] = torch.stack([ks, vs], dim=1)
-    cache.seq_lens[ids] += 1
+    cache.kv_pages[page_ids, :, :, offset, :] = kv
+    cache.kv_scales[page_ids, :, :, 0, offset] = sc
+    cache.seq_lens.scatter_add_(0, safe, valid.to(cache.seq_lens.dtype))
 
 
 def append_chunks(
@@ -159,16 +193,56 @@ def append_chunks(
     cache.seq_lens[ids] += c
 
 
+def append_prompt(
+    cache: PagedKVCache,
+    seq_id: int,
+    k_prompt: torch.Tensor,      # [L, Hkv, d]
+    v_prompt: torch.Tensor,
+    start: Optional[int] = None,
+    page_ids: Optional[List[int]] = None,
+) -> None:
+    """Append one sequence's prompt K/V in place (the prefill path), as a
+    host loop over pages: each page's rows are quantized and written with
+    one update, then ``seq_lens[seq_id]`` becomes ``start + L``.
+
+    ``start`` (the write position) defaults to ``seq_lens[seq_id]``, read
+    from the device; it must lie on a page boundary, or this raises
+    ``ValueError``.  ``page_ids`` (the slot's mapped pages, on the host)
+    spare the page-table reads; by default they come from the table."""
+    l = k_prompt.shape[0]
+    ps = cache.page_size
+    if start is None:
+        start = int(cache.seq_lens[seq_id])
+    if start % ps != 0:
+        raise ValueError("prompt append must start on a page boundary")
+    for p0 in range(0, l, ps):
+        n = min(ps, l - p0)
+        pidx = (start + p0) // ps
+        page_id = (page_ids[pidx] if page_ids is not None
+                   else int(cache.page_table[seq_id, pidx]))
+        kq, ks = _quantize_rows(k_prompt[p0:p0 + n])        # [n,H,d], [n,H]
+        vq, vs = _quantize_rows(v_prompt[p0:p0 + n])
+        cache.kv_pages[page_id, :, :, :n] = torch.stack(
+            [kq.transpose(0, 1), vq.transpose(0, 1)])       # [2, H, n, d]
+        cache.kv_scales[page_id, :, :, 0, :n] = torch.stack(
+            [ks.transpose(0, 1), vs.transpose(0, 1)])       # [2, H, n]
+    cache.seq_lens[seq_id] = start + l
+
+
 def append_prompts(
     cache: PagedKVCache,
     seq_ids: torch.Tensor,       # int [B] cache slots (page tables mapped)
     k_prompts: torch.Tensor,     # [B, L, Hkv, d], the same L for the batch
     v_prompts: torch.Tensor,
+    page_ids: Optional[torch.Tensor] = None,     # int [B, cdiv(L, ps)]
 ) -> None:
     """Batched prefill append in place: quantize and scatter every
     sequence's prompt K/V.  Sequences must be empty (prompts start at
     position 0); a ragged last page is zero-padded (the decode kernel masks
-    past ``seq_lens``)."""
+    past ``seq_lens``).  ``page_ids``, the destination pages, when the
+    caller (the scheduler's allocator) already knows them; by default they
+    come from the page table.  Rows whose ``seq_ids`` are out of range get
+    no length (their pages, given or looked up, are still written)."""
     b, l, hkv, d = k_prompts.shape
     ps = cache.page_size
     npg = cdiv(l, ps)
@@ -187,11 +261,35 @@ def append_prompts(
 
     kq, ks = prep(k_prompts)
     vq, vs = prep(v_prompts)
-    ids = seq_ids.long()
-    page_ids = cache.page_table[ids, :npg].reshape(-1).long()
+    if page_ids is None:
+        page_ids = cache.page_table[
+            seq_ids.long().clamp(0, cache.seq_lens.shape[0] - 1), :npg]
+    page_ids = page_ids.reshape(-1).long()
     cache.kv_pages[page_ids] = torch.stack([kq, vq], dim=1)
     cache.kv_scales[page_ids] = torch.stack([ks, vs], dim=1)
-    cache.seq_lens[ids] = l
+    _set_lens(cache, seq_ids, torch.full_like(seq_ids, l))
+
+
+def _set_lens(cache: PagedKVCache, seq_ids: torch.Tensor,
+              new_lens: torch.Tensor) -> None:
+    safe, _, src, keep = _drop_out_of_range(seq_ids,
+                                            cache.seq_lens.shape[0])
+    slot = safe[src]
+    cache.seq_lens[slot] = torch.where(
+        keep, new_lens.to(cache.seq_lens.dtype)[src], cache.seq_lens[slot])
+
+
+def set_seq_lens(
+    cache: PagedKVCache,
+    seq_ids: torch.Tensor,       # int [B] cache slots
+    new_lens: torch.Tensor,      # int [B]
+) -> None:
+    """Set per-sequence lengths in place (the speculative-decoding
+    rollback: rejected draft tokens stay in their pages but the kernels
+    mask past ``seq_lens``, and the next append overwrites them).  Pages
+    stay mapped.  Out-of-range ``seq_ids`` are dropped."""
+    _set_lens(cache, seq_ids, torch.as_tensor(new_lens,
+                                              device=cache.seq_lens.device))
 
 
 def gather_kv(cache: PagedKVCache, seq_id: int

@@ -12,19 +12,23 @@ tokens (turn 1's last token and 255 new ones) for 24 more, as
 ``chip_smoke.py`` does; with ``--model windowed``, the windowed LM
 (``models.long_context_config``, window 4096) on [8, 4608] prompts
 (``max_len`` 5120), as ``chip_smoke.py``'s window_generate phase does.
-For each turn it prints:
+The engine replays each decode step as a CUDA graph; beside it runs the
+same call with the decode steps eager, a loop over ``_decode_forward``
+(``eager_generate``).  For each turn it prints:
 
-- the host-clock time of the call and of its two halves (the first
-  forward: prefill, or the extend over the held cache, with the cache
-  writes and the first sample; decode: the other 23 steps), over
-  ``--repeats`` synchronized calls, sorted;
-- one ``torch.profiler`` run of the call: the wall time, the kernel time
+- the host-clock time of the call, graphed and eager, and of the eager
+  call's two halves (the first forward: prefill, or the extend over the
+  held cache, with the cache writes and the first sample; decode: the
+  other 23 steps), over ``--repeats`` synchronized calls, sorted;
+- one ``torch.profiler`` run of each call: the wall time, the kernel time
   summed over the device rows of ``key_averages()`` (the CPU-op and
   annotation rows repeat their kernels' time, so they are left out), their
-  ratio (the
-  device busy share), the number of kernel launches, the share of the
-  kernel time that the paged attention takes (H6-decode, H2 and
-  H6-extend), and the kernels that take the most device time.
+  ratio (the device busy share), the number of kernel launches, the share
+  of the kernel time that the paged attention takes (H6-decode, H2 and
+  H6-extend), and the kernels that take the most device time; for
+  ``generate``, also a call of one new token (prefill and the first
+  sample only), so that the launches, kernel time and host time of one
+  decode step, graphed and eager, are the difference over the other 23.
 """
 
 from __future__ import annotations
@@ -79,19 +83,40 @@ def split_first_decode(eng: GenerationEngine, first, slots: torch.Tensor,
     return _timed(head), _timed(decode)
 
 
+def _prefill(eng: GenerationEngine, prompt: np.ndarray,
+             slots: torch.Tensor) -> torch.Tensor:
+    """``generate``'s prefill on mapped slots: the last position's logits."""
+    logits, kvs = forward_collect_kv(
+        eng.params, torch.as_tensor(prompt, device=eng.device), eng.config)
+    for cache, (k, v) in zip(eng.caches, kvs):
+        append_prompts(cache, slots, k, v)
+    return logits[:, -1]
+
+
+@torch.no_grad()
+def eager_generate(eng: GenerationEngine, prompt: np.ndarray,
+                   n_new: int) -> np.ndarray:
+    """Greedy ``eng.generate(prompt, n_new)`` with every decode step run
+    eagerly, a loop over ``_decode_forward``: the reference the engine's
+    replayed step graph is held to, bitwise."""
+    slots = eng._map_slots(prompt.shape[0])
+    try:
+        out = [sample(_prefill(eng, prompt, slots))]
+        for _ in range(n_new - 1):
+            out.append(sample(_decode_forward(eng.params, out[-1],
+                                              eng.caches, slots,
+                                              eng.config)))
+        return torch.stack(out, dim=1).cpu().numpy()
+    finally:
+        eng._release_slots()
+
+
 def split_prefill_decode(eng: GenerationEngine, prompt: np.ndarray,
                          n_new: int):
     slots = eng._map_slots(prompt.shape[0])
-    tokens = torch.as_tensor(prompt, device=eng.device)
-
-    def prefill():
-        logits, kvs = forward_collect_kv(eng.params, tokens, eng.config)
-        for cache, (k, v) in zip(eng.caches, kvs):
-            append_prompts(cache, slots, k, v)
-        return logits[:, -1]
-
     try:
-        return split_first_decode(eng, prefill, slots, n_new)
+        return split_first_decode(eng, lambda: _prefill(eng, prompt, slots),
+                                  slots, n_new)
     finally:
         eng._release_slots()
 
@@ -133,16 +158,17 @@ def profile_call(name: str, call, top: int):
     paged = {tag: sum(e.self_device_time_total for e in kern
                       if tag in e.key) / 1e3
              for tag in PAGED_KERNELS}
+    launches = sum(e.count for e in kern)
     print(f"{name}: profiled wall {wall * 1e3:.3f} ms, summed kernel time "
           f"{dev_ms:.3f} ms, device busy share {dev_ms / (wall * 1e3):.4f}, "
-          f"kernels launched {sum(e.count for e in kern)}; paged attention "
+          f"kernels launched {launches}; paged attention "
           + ", ".join(f"{PAGED_KERNELS[t]} {ms:.3f} ms ({ms / dev_ms:.1%})"
                       for t, ms in paged.items()))
     for e in sorted(kern, key=lambda e: e.self_device_time_total,
                     reverse=True)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  n={e.count:5d}  "
               f"{e.key[:100]}")
-    return dev_ms, kern
+    return {"wall_ms": wall * 1e3, "kernel_ms": dev_ms, "launches": launches}
 
 
 def main() -> None:
@@ -181,9 +207,10 @@ def main() -> None:
         finally:
             eng.release()
 
-    total, pre, dec, total2, ext, dec2 = [], [], [], [], [], []
+    total, eager, pre, dec, total2, ext, dec2 = ([] for _ in range(7))
     for _ in range(args.repeats):
         total.append(_timed(lambda: eng.generate(prompt, n_new)))
+        eager.append(_timed(lambda: eager_generate(eng, prompt, n_new)))
         p, d = split_prefill_decode(eng, prompt, n_new)
         pre.append(p)
         dec.append(d)
@@ -191,16 +218,30 @@ def main() -> None:
         e, d = split_extend_decode(eng, prompt, turn, n_new)
         ext.append(e)
         dec2.append(d)
-    print(f"generate s {sorted(total)}")
-    print(f"  prefill s {sorted(pre)}")
-    print(f"  decode ({n_new - 1} steps) s {sorted(dec)}")
-    print(f"continue_generation s {sorted(total2)}")
-    print(f"  extend ({l_turn} tokens) s {sorted(ext)}")
-    print(f"  decode ({n_new - 1} steps) s {sorted(dec2)}")
+    print(f"generate s, decode steps graphed {sorted(total)}")
+    print(f"generate s, decode steps eager {sorted(eager)}")
+    print(f"  eager: prefill s {sorted(pre)}")
+    print(f"  eager: decode ({n_new - 1} steps) s {sorted(dec)}")
+    print(f"continue_generation s, decode steps graphed {sorted(total2)}")
+    print(f"  eager: extend ({l_turn} tokens) s {sorted(ext)}")
+    print(f"  eager: decode ({n_new - 1} steps) s {sorted(dec2)}")
 
-    profile_call("generate", lambda: eng.generate(prompt, n_new), args.top)
+    one = profile_call("generate, 1 new token (prefill and first sample)",
+                       lambda: eng.generate(prompt, 1), args.top)
+    runs = {"graphed": profile_call(
+        "generate, decode steps graphed",
+        lambda: eng.generate(prompt, n_new), args.top),
+        "eager": profile_call(
+        "generate, decode steps eager",
+        lambda: eager_generate(eng, prompt, n_new), args.top)}
+    for mode, r in runs.items():
+        per = {k: (r[k] - one[k]) / (n_new - 1) for k in r}
+        print(f"one decode step, {mode}: {per['launches']:.1f} launches, "
+              f"kernel time {per['kernel_ms']:.4f} ms, profiled wall "
+              f"{per['wall_ms']:.4f} ms, device busy share "
+              f"{per['kernel_ms'] / per['wall_ms']:.4f}")
     eng.generate(prompt, n_new, hold=True)
-    profile_call("continue_generation",
+    profile_call("continue_generation, decode steps graphed",
                  lambda: eng.continue_generation(turn, n_new), args.top)
     eng.release()
     print(subprocess.run(

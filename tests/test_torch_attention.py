@@ -6,6 +6,7 @@ in f32.  Tolerance: atol 1e-5 on O and LSE — both sides compute in f32 and
 differ only in summation order (O is a convex combination of O(1) values,
 LSE is O(1))."""
 
+import dataclasses
 import inspect
 
 import jax.numpy as jnp
@@ -15,6 +16,13 @@ import torch
 
 from exploring_flash_attention_tpu.configs import cdiv as jax_cdiv
 from exploring_flash_attention_tpu.ops import attention_bwd as jax_bwd_mod
+from exploring_flash_attention_tpu.ops import (
+    attention_v2_splitkv as jax_v2_mod,
+)
+from exploring_flash_attention_tpu.parallel import partials as jax_partials_mod
+from exploring_flash_attention_tpu.serving import decode as jax_decode_mod
+from exploring_flash_attention_tpu.serving import kv_cache as jax_kv_mod
+from exploring_flash_attention_tpu.serving import scheduler as jax_sched_mod
 from exploring_flash_attention_tpu.ops.attention_v1 import (
     causal_partial_onepass_eligible,
 )
@@ -33,6 +41,24 @@ from exploring_flash_attention_tpu_torch.oracle import (
 from exploring_flash_attention_tpu_torch.ops.attention import (
     attention_partial_local,
     flash_attention,
+    merge_partials,
+)
+from exploring_flash_attention_tpu_torch.ops.attention_v2_splitkv import (
+    flash_attention_splitkv_partial,
+    flash_attention_v2,
+)
+from exploring_flash_attention_tpu_torch.serving import (
+    ContinuousBatchingScheduler,
+    Request,
+    append_chunks,
+    append_prompt,
+    append_prompts,
+    append_tokens,
+    gather_kv,
+    make_cache,
+    paged_decode_attention,
+    paged_extend_attention,
+    set_seq_lens,
 )
 from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
     flash_attention_bwd,
@@ -82,21 +108,61 @@ def test_attention_partial_local_matches_jax(route, lq, lkv):
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=ATOL)
 
 
-@pytest.mark.parametrize("port,jax_fn", [
-    (attention_partial_local, jax_attention_partial_local),
-    (flash_attention_bwd, jax_bwd_mod.flash_attention_bwd),
-])
-def test_port_defaults_match_jax(port, jax_fn):
+def _same_default(ours, theirs) -> bool:
+    """Defaults the two packages spell in their own types: a dtype by its
+    name, a config dataclass by its fields."""
+    if isinstance(ours, torch.dtype):
+        return str(ours).removeprefix("torch.") == np.dtype(theirs).name
+    if dataclasses.is_dataclass(ours):
+        return dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    return ours == theirs
+
+
+# (port, JAX counterpart, parameters both must have, fewest shared)
+DEFAULTS_CASES = [
+    (attention_partial_local, jax_attention_partial_local, ("causal",), 6),
+    (flash_attention_bwd, jax_bwd_mod.flash_attention_bwd, ("causal",), 6),
+    (flash_attention_splitkv_partial, jax_v2_mod.flash_attention_splitkv_partial,
+     ("config", "scale", "causal", "workspace_dtype", "positions",
+      "static_positions"), 9),
+    (flash_attention_v2, jax_v2_mod.flash_attention_v2,
+     ("config", "scale", "causal", "out_dtype"), 7),
+    (merge_partials, jax_partials_mod.merge_partials,
+     ("o_a", "lse_a", "o_b", "lse_b"), 4),
+    (ContinuousBatchingScheduler, jax_sched_mod.ContinuousBatchingScheduler,
+     ("n_pages", "page_size", "max_seqs", "max_pages_per_seq"), 7),
+    (Request, jax_sched_mod.Request, ("max_new_tokens", "step_inputs"), 5),
+    (make_cache, jax_kv_mod.make_cache,
+     ("page_size", "max_seqs", "max_pages_per_seq"), 6),
+    (append_tokens, jax_kv_mod.append_tokens, ("seq_ids",), 4),
+    (append_chunks, jax_kv_mod.append_chunks, ("seq_ids",), 4),
+    (append_prompt, jax_kv_mod.append_prompt, ("start", "page_ids"), 6),
+    (append_prompts, jax_kv_mod.append_prompts, ("page_ids",), 5),
+    (set_seq_lens, jax_kv_mod.set_seq_lens, ("new_lens",), 3),
+    (gather_kv, jax_kv_mod.gather_kv, ("seq_id",), 2),
+    (paged_decode_attention, jax_decode_mod.paged_decode_attention,
+     ("scale", "window"), 5),
+    (paged_extend_attention, jax_decode_mod.paged_extend_attention,
+     ("scale", "window"), 5),
+]
+
+
+@pytest.mark.parametrize("port,jax_fn,required,n_shared", DEFAULTS_CASES,
+                         ids=[f"port{i}-jax_fn{i}"
+                              for i in range(len(DEFAULTS_CASES))])
+def test_port_defaults_match_jax(port, jax_fn, required, n_shared):
     """Every parameter the port shares with the JAX function has its name
     and its default: a caller who leaves one out gets the same function on
-    both sides.  Then ``attention_partial_local`` without ``causal`` is
-    held against JAX's non-causal result on a case where causal differs."""
+    both sides (the scheduler's ``n_pages=256, page_size=128,
+    max_seqs=16``, ``causal=False`` on both V2 functions).  Then
+    ``attention_partial_local`` without ``causal`` is held against JAX's
+    non-causal result on a case where causal differs."""
     ours = inspect.signature(port).parameters
     theirs = inspect.signature(jax_fn).parameters
     shared = [name for name in ours if name in theirs]
-    assert "causal" in shared and len(shared) >= 6
+    assert set(required) <= set(shared) and len(shared) >= n_shared
     for name in shared:
-        assert ours[name].default == theirs[name].default, name
+        assert _same_default(ours[name].default, theirs[name].default), name
     if port is attention_partial_local:
         q, k, v = _qkv(11, 1, 4, 2, 32, 48, 64)
         o_ref, lse_ref = jax_attention_partial_local(

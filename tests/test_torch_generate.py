@@ -25,6 +25,9 @@ from exploring_flash_attention_tpu_torch.models import (
     forward_collect_kv,
     init_params,
 )
+from exploring_flash_attention_tpu_torch.utils.profile_generate import (
+    eager_generate,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 KW = dict(vocab_size=128, n_layers=2, n_heads=4, n_kv_heads=2, d_model=128,
@@ -147,3 +150,23 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_eager_reference_matches_generate_and_reseeds():
+    """``eager_generate`` (the loop over ``_decode_forward`` that the card's
+    replayed decode graph is held to, bitwise) gives ``generate``'s greedy
+    tokens, and so the JAX engine's; one engine re-seeds its generator at
+    every call, so a temperature call repeats from its seed."""
+    prompt = _prompt(0, 2, 24)
+    eng = GenerationEngine(init_params(CFG, seed=0, device="cpu"), CFG,
+                           max_seqs=2, max_len=256)
+    ref = jgen.GenerationEngine(jtf.init_params(JCFG, seed=0), JCFG,
+                                max_seqs=2, max_len=256).generate(
+        jnp.asarray(prompt), max_new_tokens=5)
+    got = eager_generate(eng, prompt, 5)
+    np.testing.assert_array_equal(got, eng.generate(prompt, 5))
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    assert eng.allocator.free_pages == eng.allocator.n_pages
+    hot = [eng.generate(prompt, 4, temperature=0.8, seed=s)
+           for s in (7, 7, 8)]
+    np.testing.assert_array_equal(hot[0], hot[1])

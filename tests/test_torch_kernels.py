@@ -50,13 +50,17 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
   d-chunks in a fixed order.
 """
 
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from exploring_flash_attention_tpu_torch import SplitKVConfig
+from exploring_flash_attention_tpu_torch.graphs import StepGraph
 from exploring_flash_attention_tpu_torch.models import (
+    GenerationEngine,
     ModelConfig,
     init_params,
     make_mlm_train_step,
@@ -75,6 +79,8 @@ from exploring_flash_attention_tpu_torch.ops.attention_v1 import (
     split_kv_span,
 )
 from exploring_flash_attention_tpu_torch.ops.attention_v2_splitkv import (
+    flash_attention_splitkv_partial,
+    flash_attention_v2,
     splitkv_combine,
     splitkv_combine_plain,
 )
@@ -97,6 +103,8 @@ from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
     flash_attention_bwd,
 )
 from exploring_flash_attention_tpu_torch.serving import (
+    ContinuousBatchingScheduler,
+    Request,
     append_chunks,
     append_prompts,
     decode_split,
@@ -108,7 +116,12 @@ from exploring_flash_attention_tpu_torch.serving import (
     paged_decode_plain,
     paged_extend_attention,
     paged_extend_plain,
+    reserve_tickets,
     ticket_buffer,
+)
+from exploring_flash_attention_tpu_torch.serving.scheduler import _fused_step
+from exploring_flash_attention_tpu_torch.utils.profile_generate import (
+    eager_generate,
 )
 
 pytestmark = pytest.mark.cuda
@@ -998,3 +1011,205 @@ def test_dtiled_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(TypeError, match="bf16"):
         flash_attention_v1_dtiled(q.float(), k.float(), v.float())
     assert flash_attention_v1_dtiled.launches == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lq,lkv,block_kv,tiles", [
+    (1024, 1024, 512, 1),         # the JAX suite's bench_splitkv config
+    (300, 1000, 128, 3),          # 3 spans of 384 keys, the last ragged
+    (100, 200, 512, 4),           # one span of 200 keys: rounded to tiles
+])
+def test_v2_runs_h1_spans_then_h2(cuda_device, causal, lq, lkv, block_kv,
+                                  tiles):
+    """flash_attention_v2 on the card: one H1 launch over the spans, one H2
+    launch; the partials' shape is JAX's (nkb spans of
+    ``SplitKVConfig.kv_span``), causal spans wholly above a row's diagonal
+    give (0, -inf), and O matches the plain version (bf16 O, the H1
+    limit) and the f64 oracle."""
+    q, k, v = _qkv(cuda_device, 2, 4, 2, lq, lkv, 128, seed=31)
+    cfg = SplitKVConfig(block_q=1024, block_kv=block_kv,
+                        kv_tiles_per_block=tiles)
+    nkb = -(-lkv // cfg.kv_span(lkv))
+    before = (prefill_attention.launches, splitkv_combine.launches)
+    o_p, lse = flash_attention_splitkv_partial(q, k, v, config=cfg,
+                                               causal=causal)
+    o = flash_attention_v2(q, k, v, config=cfg, causal=causal)
+    torch.cuda.synchronize()
+    assert (prefill_attention.launches - before[0],
+            splitkv_combine.launches - before[1]) == (2, 1)
+    assert o_p.shape == (2, 4, nkb, lq, 128) and lse.shape == (2, 4, nkb,
+                                                                 lq)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    o_ref = flash_attention_v2(q.cpu(), k.cpu(), v.cpu(), config=cfg,
+                               causal=causal)
+    assert (o.float().cpu() - o_ref.float()).abs().max().item() < O_TOL
+    rep = lambda x: x.repeat_interleave(2, dim=1)            # noqa: E731
+    oracle = naive_attention(q, rep(k), rep(v), causal=causal)
+    assert np.abs(o.float().cpu().numpy() - oracle).max() < O_TOL
+    _, lse_ref = flash_attention_splitkv_partial(q.cpu(), k.cpu(), v.cpu(),
+                                                 config=cfg, causal=causal)
+    dead = torch.isneginf(lse_ref)
+    assert torch.equal(torch.isneginf(lse.cpu()), dead)
+    assert (o_p.cpu()[dead] == 0).all()
+    assert dead.any() == (causal and lkv > cfg.kv_span(lkv))
+
+
+def test_v2_refuses_spans_off_h1_tiles(cuda_device):
+    """Spans of 64 keys over a KV of 300 run on the CPU and raise on the
+    card, naming the shapes, before any launch."""
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 300, 64)
+    cfg = SplitKVConfig(block_kv=64, kv_tiles_per_block=1)
+    before = prefill_attention.launches
+    with pytest.raises(ValueError, match=r"kv_span=64.*\(1, 2, 300, 64\)"):
+        flash_attention_splitkv_partial(q, k, v, config=cfg)
+    assert prefill_attention.launches == before
+    o_p, _ = flash_attention_splitkv_partial(q.cpu(), k.cpu(), v.cpu(),
+                                             config=cfg)
+    assert o_p.shape[2] == 5
+
+
+def _graph_sched(dev, cap, seed, hq=8, hkv=4, d=128, n_req=6):
+    """A scheduler on the card with ``n_req`` requests of mixed prompt and
+    output lengths (bf16 step inputs, new each step) for ``cap`` slots."""
+    sched = ContinuousBatchingScheduler(hq, hkv, d, n_pages=48,
+                                        page_size=128, max_seqs=cap,
+                                        device=dev)
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g).to(  # noqa: E731
+        dev, torch.bfloat16)
+    lens = [(300, 6), (129, 3), (40, 9), (500, 4), (77, 5), (256, 7)]
+    for rid, (plen, n_new) in enumerate(lens[:n_req]):
+        inputs = [(mk(hq, d), mk(hkv, d), mk(hkv, d)) for _ in range(n_new)]
+        sched.submit(Request(rid, mk(plen, hkv, d), mk(plen, hkv, d), n_new,
+                             lambda i, inputs=inputs: inputs[i]))
+    return sched, {rid: n for rid, (_, n) in enumerate(lens[:n_req])}
+
+
+def _clone_cache(cache):
+    return dataclasses.replace(
+        cache, kv_pages=cache.kv_pages.clone(),
+        kv_scales=cache.kv_scales.clone(),
+        page_table=cache.page_table.clone(), seq_lens=cache.seq_lens.clone())
+
+
+def _caches_equal(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+               ("kv_pages", "kv_scales", "page_table", "seq_lens"))
+
+
+def test_scheduler_step_graph_equals_the_eager_step(cuda_device):
+    """Every step of the scheduler (the first eager, then its CUDA graph's
+    replays) equals, bitwise, the eager fused step on a copy of the same
+    cache and inputs, output and cache both; each step counts one
+    H6-decode launch; the tickets are zero after the replays; a sync=False
+    output stays as it was while later steps run; every page comes
+    back."""
+    sched, lens = _graph_sched(cuda_device, 4, seed=41)
+    run = sched._run_fused_step
+    seen = []
+
+    def spy():
+        b = sched._bufs
+        copy = _clone_cache(sched.cache)
+        eager = _fused_step(copy, b.q, b.k, b.v, b.append_ids,
+                            b.decode_slots)
+        before = paged_decode_partials.launches
+        out = run()
+        seen.append((paged_decode_partials.launches - before, eager, copy,
+                     out.clone()))
+        return out
+
+    sched._run_fused_step = spy
+    outs = []
+    while sched.pending or sched.active:
+        rids, out = sched.step(sync=False)
+        outs.append((out, out.clone()))
+        torch.cuda.synchronize()
+        launches, eager, copy, got = seen[-1]
+        assert launches == 1
+        assert torch.equal(got, eager)
+        assert _caches_equal(copy, sched.cache)
+    assert sched._graph is not None and len(seen) > 5
+    assert all(torch.equal(a, b) for a, b in outs)
+    assert not sched._graph.tickets.any()
+    assert not ticket_buffer(cuda_device).any()
+    assert sched.completed == lens
+    assert sched.allocator.free_pages == sched.allocator.n_pages
+
+
+def test_graph_keeps_the_tickets_it_captured(cuda_device):
+    """A graph holds the tickets buffer in place at its capture: a larger
+    reservation later swaps in a new buffer, and the old graph still
+    replays right (bitwise its eager output) on its own, zeroed buffer;
+    a graph captured after the swap reads the new one; both replay in
+    turns.  A capture that would need more tickets than are reserved
+    raises."""
+    cache, q, slots = _paged_case(cuda_device, 8, 4, 128, 128, DECODE_LENS)
+
+    def decode(n):
+        return lambda: paged_decode_attention(q[:n], cache, slots[:n])
+
+    eager = [decode(n)() for n in (4, 8)]
+    g4 = StepGraph(decode(4), cuda_device)
+    old_ptr = g4.tickets.data_ptr()
+    reserve_tickets(cuda_device, g4.tickets.numel() + 512)   # the swap
+    new = ticket_buffer(cuda_device)
+    assert new.data_ptr() != old_ptr
+    torch.cuda.empty_cache()
+    junk = torch.full((new.numel() * 64,), 7, dtype=torch.int32,
+                      device=cuda_device)
+    g8 = StepGraph(decode(8), cuda_device)
+    assert g8.tickets is new and g4.tickets.data_ptr() == old_ptr
+    for _ in range(3):
+        assert torch.equal(g4.replay(), eager[0])
+        assert torch.equal(g8.replay(), eager[1])
+    torch.cuda.synchronize()
+    assert not g4.tickets.any() and not new.any() and (junk == 7).all()
+    big = _paged_case(cuda_device, 8, 4, 128, 128,
+                      [10] * (new.numel() // 4 + 1))
+    with pytest.raises(RuntimeError, match="reserve_tickets"):
+        StepGraph(lambda: paged_decode_attention(big[1], big[0], big[2]),
+                  cuda_device)
+
+
+def _small_lm(dev, window=None):
+    cfg = ModelConfig(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                      d_model=256, d_head=64, d_ff=512, dtype=torch.bfloat16,
+                      window=window)
+    return cfg, init_params(cfg, seed=0, device=dev)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_generate_replays_a_graph_equal_to_the_eager_loop(cuda_device,
+                                                          window):
+    """``generate`` on the card: the first decode step of a batch eager,
+    then its graph's replays; tokens bitwise those of a loop over
+    ``_decode_forward`` (greedy), at every call; launches counted per
+    replay (H1 n_layers, H6-decode n_layers per step); temperature
+    sampling replays with the engine's generator registered and repeats
+    from its seed."""
+    cfg, params = _small_lm(cuda_device, window)
+    eng = GenerationEngine(params, cfg, max_seqs=4, max_len=512)
+    prompt = np.random.default_rng(0).integers(0, 512, (3, 150)).astype(
+        np.int32)
+    ref = eager_generate(eng, prompt, 12)
+    for _ in range(2):
+        before = (prefill_attention.launches, paged_decode_partials.launches)
+        out = eng.generate(prompt, 12)
+        assert (prefill_attention.launches - before[0],
+                paged_decode_partials.launches - before[1]) == (2, 2 * 11)
+        assert np.array_equal(out, ref)
+    assert list(eng._graphs) == [(3, 0.0)]
+    hot = [eng.generate(prompt, 12, temperature=0.9, seed=s)
+           for s in (5, 5, 6)]
+    assert list(eng._graphs) == [(3, 0.0), (3, 0.9)]
+    assert np.array_equal(hot[0], hot[1]) and not np.array_equal(hot[0],
+                                                                 hot[2])
+    assert ((hot[0] >= 0) & (hot[0] < 512)).all()
+    eng.generate(prompt, 8, hold=True)
+    turn = np.random.default_rng(1).integers(0, 512, (3, 20))
+    before = paged_decode_partials.launches
+    eng.continue_generation(turn, 6)
+    assert paged_decode_partials.launches - before == 2 * 5
+    eng.release()
+    assert eng.allocator.free_pages == eng.allocator.n_pages

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's dense, split-KV, quantized and d-tiled forwards,
-the continuous-batching scheduler, generation, training and encoder
-training paths, and the windowed model's training and generation, on one
-NVIDIA H100.
+the continuous-batching scheduler, generation, speculative decoding,
+training, encoder and seq2seq training paths, and the windowed model's
+training and generation, on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -77,8 +77,10 @@ Phases, one line each; any failure exits non-zero before the last line:
    than no window;
 9. extend: kernel H6-extend (chunked prefill over the paged INT8 cache) vs
    its plain version and the f64 oracle, a C = 256 chunk appended to
-   ragged histories 257..280, and the windowed model's second turn (C =
-   256 over 4609..4632, window 4096), controls as decode's;
+   ragged histories 257..280, the windowed model's second turn (C =
+   256 over 4609..4632, window 4096) and the speculative verify (C = 5
+   over 257..284, some chunks across a page boundary), controls as
+   decode's;
 10. scheduler: ContinuousBatchingScheduler at the JAX suite's
    bench_scheduler_e2e (bench/suite.py:504-650: Hq = Hkv = 8, d = 128,
    page size 256, 16 slots): its one-step gate (2e-2 of the f64 oracle
@@ -91,9 +93,9 @@ Phases, one line each; any failure exits non-zero before the last line:
 11. bwd:    kernels H3-dkv and H3-dq (the attention backward, through
    flash_attention_bwd) vs attention_bwd_plain and f64 autograd of the
    plain forward, at the training shape (B=8, Hq=8, Hkv=4, L=1024,
-   d=128), a ragged cross case (Lq=200, Lkv=216) and L=3072, B=1 (where
-   the JAX package takes B12/B13), each under no mask, causal and a
-   window of 100 keys; the controls: the last 64-key tile dropped, the
+   d=128), a ragged cross case (Lq=200, Lkv=216), L=3072, B=1 (where
+   the JAX package takes B12/B13) and the seq2seq cross attention's Lq=256
+   against Lkv=1024, each under no mask, causal and a window of 100 keys; the controls: the last 64-key tile dropped, the
    diagonal key hidden, the window one key narrower; two runs must be
    bitwise equal;
 12. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
@@ -152,7 +154,38 @@ Phases, one line each; any failure exits non-zero before the last line:
    band dropped in decode and a turn one token short (tokens), a stream
    one token short (cache), each patched engine built under its patch;
    turn 1's tokens bitwise those of the eager loop; tokens/s of both
-   turns, and of turn 1 eager.
+   turns, and of turn 1 eager;
+18. speculative (after multiturn): SpeculativeEngine at the JAX suite's
+   bench_spec_decode (bench/suite.py:1380-1495): the flagship target with
+   a 1-layer paged draft at its widths (seed 7), then with itself as the
+   draft, [8, 256] prompts, 24 new tokens, gamma 4; and at
+   bench_spec_decode_distilled (:1498-1620): the flagship trained 300
+   AdamW steps on the det_p 0.9 Markov task, a tiny draft (1 layer, d_model
+   512) distilled from it for 600 steps by distill_draft (counters: H1,
+   H6-decode for its corpus, H1 and H3 for its steps), then 8 x 256
+   Markov prompts for 128 tokens with the dense draft (window 128) at
+   gamma 12, 16 and 20.  Each leg: counters zeroed before the first call
+   (H1 per prefill layer of both models, H6-extend per target layer a
+   round, H6-decode gamma + 1 per draft layer a round when paged; the
+   rounds after the first replay one CUDA graph), graphed calls bitwise
+   the eager rounds' tokens, every token against the full forward
+   (agreement or a near-tie under LOGIT_GAP), tokens/s graphed and eager
+   beside the vanilla engine's on the same prompts; controls, each engine
+   captured under its patch: the rollback one token late (must fail) and
+   the verify with each chunk row's own key hidden (shown);
+19. seq2seq (after encoder): the encoder-decoder family at the
+   flagship's widths, 2 encoder and 2 decoder layers, trained by
+   make_seq2seq_train_step (Adam, lr 3e-3) on src [8, 1024], tgt
+   [8, 257]: 6 launches each of H1, H3-dkv and H3-dq a step (cross
+   attention at Lq=256, Lkv=1024 without a mask), the step-0 loss and
+   every gradient against the plain attention beside controls (the
+   decoder's self-attention seeing the future, the cross backward
+   without its last 64 keys), the loss falling over 10 steps, and the
+   step's forward / backward / Adam split on the host clock.
+
+``python3 chip_smoke.py --only PHASE,...`` runs the build and the named
+phases alone (no kernels line), for a quicker call while a phase is
+worked on.
 
 Kernel times come from CUDA events (L2 flushed before each call) beside
 their plain versions, their bounds on the H100 (the larger of the
@@ -174,6 +207,7 @@ Then a JSON line describing the kernels, the nvidia-smi line, and last
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -228,6 +262,10 @@ ENCODER_LOSS_TOL = 1e-3  # the encoder's step-0 MLM loss vs the plain
 GRAD_REL_TOL = 6e-2    # largest per-leaf ||dg|| / ||g_plain|| over the 38
                        # leaves: bf16 gradients through 4 layers; sound runs
                        # 2.4e-2, the diagonal-hidden backward 0.15
+SEQ2SEQ_LOSS_TOL = 5e-4  # the seq2seq step-0 loss vs the plain attention, a
+                       # mean over 2,048 target tokens: between the train
+                       # phase's 8,192 tokens (sound 2.4e-5) and the
+                       # encoder's ~1,270 (sound 1.4e-4)
 
 V1_GATE_TOL = 1e-3     # bench.py's gate (bench.py:66-82): f32 O of [:2, :2]
                        # at the canonical shape vs the f64 oracle on the
@@ -299,7 +337,9 @@ SPLITKV_PY = "exploring_flash_attention_tpu/ops/attention_v2_splitkv.py"
 # error goes into the kernels line), a ragged cross case, and a length
 # where the JAX package takes B12/B13
 BWD_SHAPES = [(8, 8, 4, 1024, 1024, 128), (8, 8, 4, 200, 216, 128),
-              (1, 8, 4, 3072, 3072, 128)]
+              (1, 8, 4, 3072, 3072, 128),
+              # the seq2seq cross attention: Lq = 256 against Lkv = 1024
+              (8, 8, 4, 256, 1024, 128)]
 # the masks H3 takes, as (causal, window): the bwd phase runs every shape
 # under each; the window crosses the 64-key tiles and is narrower than
 # every shape's Lkv
@@ -397,7 +437,23 @@ SCHED_NEW = (64, 128, 192)
 EXTEND_CASES = [
     ("multi-turn", 8, 8, 4, 128, (257, 280), 1024, 256, None),
     ("windowed turn 2", 8, 8, 4, 128, (4609, 4632), 5120, 256, WINDOW),
+    # the speculative verify: C = gamma + 1 = 5 chunk rows (C * G = 10 of
+    # a 64-row warpgroup tile) after the flagship's 256-token prompts (the
+    # card tests add chunks across page boundaries)
+    ("speculative verify", 8, 8, 4, 128, (257, 284), 1024, 5, None),
 ]
+# the speculative phase: bench_spec_decode's legs (bench/suite.py:1380-1495)
+# as (B, prompt, new tokens, gamma, max_len), and bench_spec_decode_
+# distilled's (:1498-1620)
+SPEC_SHAPE = (8, 256, 24, 4, 1024)
+SPEC_DISTILL = {"sub": 1024, "det_p": 0.9, "train_steps": 300,
+                "train_shape": (16, 129), "distill_steps": 600,
+                "n_prompts": 64, "prompt_len": 32, "prompt": 256, "new": 128,
+                "max_len": 512, "window": 128, "gammas": (12, 16, 20)}
+# the seq2seq phase: JAX's default depths at the flagship's widths, (B,
+# L_src, L_tgt), Adam at models/seq2seq.py's default lr 3e-3
+SEQ2SEQ_SHAPE = (8, 1024, 256)
+SEQ2SEQ_STEPS = 10
 
 
 class PhaseError(RuntimeError):
@@ -1904,8 +1960,11 @@ def phase_bwd(torch, dev):
             _require(min(e_bad) > H3_REL_TOL,
                      f"H3 tolerance cannot tell a wrong mask ({mask})")
             _require(identical, "H3 is not deterministic")
-            errs.setdefault(mask, [(g.float() - r.float()).abs().max().item()
-                                   for g, r in zip(grads, plain)])
+            err = [(g.float() - r.float()).abs().max().item()
+                   for g, r in zip(grads, plain)]
+            errs.setdefault(mask, err)
+            if (b, hq, hkv, lq, lkv, d) == BWD_SHAPES[-1] and mask == "none":
+                errs["cross"] = err         # the seq2seq cross attention's
             del out, lse, grads, again, plain, f64, bad
     print("phase bwd: ok")
     return {m: {"h3dq": e[0], "h3dkv": max(e[1:])} for m, e in errs.items()}
@@ -2790,6 +2849,430 @@ def phase_window_generate(torch, dev):
                           "turn2_tokens_s": bsz * n_new / dt2}
 
 
+def timed(torch, fn, repeats=1):
+    """(the last call's result, the least host seconds of ``repeats``
+    synchronized calls)."""
+    best = None
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return out, best
+
+
+def spec_leg(torch, eng, prompt, n_new, gamma, repeats=3):
+    """One SpeculativeEngine leg: a first call with every counter zeroed
+    (its first round eager, then replays of the round's CUDA graph), which
+    must launch H1 once per layer of each model's prefill, H6-extend once
+    per target layer a round and, with a paged draft, H6-decode gamma + 1
+    times per draft layer a round; then ``repeats`` graphed calls (the
+    least time kept) and one with every round eager, all bitwise the
+    first call's tokens."""
+    zero_counters()
+    out, stats = eng.generate(prompt, n_new, gamma=gamma)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    rounds = int(stats["rounds"])
+    t_layers, d_layers = eng.tcfg.n_layers, eng.dcfg.n_layers
+    want = launches_only(
+        h1=t_layers + d_layers, h6e=rounds * t_layers,
+        h6=rounds * (gamma + 1) * d_layers if eng.draft_mode == "paged"
+        else 0)
+    _require(launches == want, f"a speculative generate launched {launches}, "
+             f"expected {want}")
+    (again, _), dt = timed(torch, lambda: eng.generate(prompt, n_new,
+                                                       gamma=gamma), repeats)
+    eng.graphed = False
+    try:
+        (eager, _), dt_eager = timed(torch, lambda: eng.generate(
+            prompt, n_new, gamma=gamma))
+    finally:
+        eng.graphed = True
+    _require(np.array_equal(out, again) and np.array_equal(out, eager),
+             "the graphed rounds' tokens differ from the eager rounds'")
+    _require(out.shape == (prompt.shape[0], n_new) and out.dtype == np.int32
+             and (out >= 0).all() and (out < eng.tcfg.vocab_size).all(),
+             f"bad tokens {out.shape} {out.dtype}")
+    tokens = prompt.shape[0] * n_new
+    return out, {"launches": launches, "rounds": rounds,
+                 "acceptance": stats["acceptance_rate"],
+                 "tokens_per_round": stats["tokens_per_round"],
+                 "tokens_s": tokens / dt, "eager_tokens_s": tokens / dt_eager}
+
+
+def spec_gate(torch, params, cfg, prompt, out, vanilla):
+    """Every speculative token against the full forward's argmax over its
+    own prefix (agreement, or a near-tie under LOGIT_GAP), and how many
+    equal vanilla greedy decoding's."""
+    with torch.no_grad():
+        agree, steps, gap = compare_with_full_forward(torch, params, cfg,
+                                                      prompt, out)
+    return {"agree": agree, "steps": steps, "worst_gap": gap,
+            "equal_to_vanilla": int((out == vanilla).sum())}
+
+
+def markov_source(seed, sub, det_p):
+    """bench_spec_decode_distilled's task (bench/suite.py:1531-1545): a
+    permutation of a sub-vocabulary, each next token its successor with
+    probability det_p, else uniform; every draw from one
+    np.random.default_rng(seed), in the suite's order."""
+    rng = np.random.default_rng(seed)
+    succ = rng.permutation(sub).astype(np.int64)
+
+    def markov(n, length):
+        out = np.empty((n, length), np.int64)
+        out[:, 0] = rng.integers(0, sub, n)
+        for t in range(1, length):
+            det = succ[out[:, t - 1]]
+            noise = rng.integers(0, sub, n)
+            out[:, t] = np.where(rng.random(n) < det_p, det, noise)
+        return out.astype(np.int32)
+
+    return markov
+
+
+def phase_speculative(torch, dev, lm):
+    """Speculative decoding on the port at the JAX suite's two entries.
+    bench_spec_decode (bench/suite.py:1380-1495): the flagship target
+    (seed 0) with a 1-layer draft at its widths (seed 7, paged), then with
+    itself as the draft, on the [8, 256] prompts for 24 tokens, gamma 4;
+    bench_spec_decode_distilled (:1498-1620): the flagship trained 300
+    AdamW steps on the det_p 0.9 Markov task, a tiny draft distilled from
+    it for 600 steps (distill_draft: its corpus on H1 and H6-decode, its
+    steps on H1 and H3), then 8 x 256 Markov prompts for 128 tokens with
+    the dense draft (window 128) at gamma 12, 16 and 20.  Each leg's
+    launches, its graphed rounds bitwise its eager ones, every token
+    against the full forward (agreement or a near-tie), tokens/s graphed
+    and eager beside the vanilla engine's on the same prompts.  Controls:
+    the rollback one token late (required to fail the token check), the
+    verify with every chunk row's own key hidden (shown)."""
+    from unittest import mock
+
+    from exploring_flash_attention_tpu_torch.models import (
+        GenerationEngine,
+        SpeculativeEngine,
+        init_params,
+    )
+    from exploring_flash_attention_tpu_torch.models import (
+        generate as generate_module,
+    )
+    from exploring_flash_attention_tpu_torch.models import (
+        speculative as spec_module,
+    )
+    from exploring_flash_attention_tpu_torch.serving import (
+        paged_extend_attention,
+        set_seq_lens,
+    )
+
+    cfg, params, prompt = lm.cfg, lm.params, lm.prompt
+    bsz, _, n_new, gamma, max_len = SPEC_SHAPE
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    dparams = init_params(dcfg, seed=7, device=dev)
+    van = GenerationEngine(params, cfg, max_seqs=bsz, max_len=max_len)
+    van.generate(prompt, n_new)
+    vanilla, dt = timed(torch, lambda: van.generate(prompt, n_new), 3)
+    out = {"vanilla_tokens_s": bsz * n_new / dt, "legs": {}}
+    for name, (dp, dc) in (("random draft", (dparams, dcfg)),
+                           ("self draft", (params, cfg))):
+        eng = SpeculativeEngine(params, cfg, dp, dc, max_seqs=bsz,
+                                max_len=max_len)
+        toks, leg = spec_leg(torch, eng, prompt, n_new, gamma)
+        leg["gate"] = spec_gate(torch, params, cfg, prompt, toks, vanilla)
+        out["legs"][name] = leg
+        del eng
+
+    # controls, each engine built (and its round captured) under its patch
+    ran = []
+
+    def late_rollback(cache, slots, new_lens):
+        ran.append("rollback")
+        return set_seq_lens(cache, slots, new_lens + 1)
+
+    def hide_newest(q, cache, slots, window=None):
+        ran.append("verify")
+        with newest_token_hidden(cache, slots):
+            return paged_extend_attention(q, cache, slots, window=window)
+
+    controls = {}
+    for name, module, attr, fn in (
+            ("rollback one token late", spec_module, "set_seq_lens",
+             late_rollback),
+            ("verify with each row's own key hidden", generate_module,
+             "paged_extend_attention", hide_newest)):
+        with mock.patch.object(module, attr, fn):
+            bad = SpeculativeEngine(params, cfg, dparams, dcfg, max_seqs=bsz,
+                                    max_len=max_len).generate(
+                prompt, n_new, gamma=gamma)[0]
+        controls[name] = spec_gate(torch, params, cfg, prompt, bad, vanilla)
+    for name, leg in out["legs"].items():
+        g = leg["gate"]
+        print(f"  speculative {name} (B={bsz}, prompt {prompt.shape[1]}, "
+              f"{n_new} new, gamma {gamma}, paged draft): launches "
+              f"{leg['launches']}; {leg['rounds']} rounds, acceptance "
+              f"{leg['acceptance']:.4f}, {leg['tokens_per_round']:.3f} tokens "
+              f"a round; {leg['tokens_s']:.1f} tokens/s graphed, "
+              f"{leg['eager_tokens_s']:.1f} eager, vanilla "
+              f"{out['vanilla_tokens_s']:.1f}; tokens equal to vanilla "
+              f"{g['equal_to_vanilla']}/{g['steps']}; full-forward agreement "
+              f"{g['agree']}/{g['steps']}, largest gap of a disagreement "
+              f"{g['worst_gap']:.4f} (limit {LOGIT_GAP})")
+        _require(g["worst_gap"] < LOGIT_GAP, f"a speculative token ({name}) "
+                 "differs from the full forward's beyond a tie")
+    print("  speculative controls (patched before each capture; the patches "
+          f"ran {len(ran)} times): " + "; ".join(
+              f"{n} {c['agree']}/{c['steps']}, largest gap "
+              f"{c['worst_gap']:.4f}" for n, c in controls.items()))
+    _require(set(ran) == {"rollback", "verify"}, "a patched control never ran")
+    _require(controls["rollback one token late"]["worst_gap"] >= LOGIT_GAP,
+             "the token check cannot tell a rollback one token late")
+    out["controls"] = controls
+    del van
+    out["distilled"] = distilled_legs(torch, dev, cfg)
+    print("phase speculative: ok")
+    return out
+
+
+def distilled_legs(torch, dev, cfg):
+    """bench_spec_decode_distilled on the port (see phase_speculative)."""
+    from exploring_flash_attention_tpu_torch.models import (
+        GenerationEngine,
+        ModelConfig,
+        SpeculativeEngine,
+        distill_draft,
+        init_params,
+        make_train_step,
+        make_trainable,
+    )
+
+    s = SPEC_DISTILL
+    markov = markov_source(11, s["sub"], s["det_p"])
+    tparams = make_trainable(init_params(cfg, seed=0, device=dev))
+    step, opt_init = make_train_step(cfg)
+    opt = opt_init(tparams)
+    t0 = time.perf_counter()
+    losses = [step(tparams, opt, markov(*s["train_shape"]))
+              for _ in range(s["train_steps"])]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    del opt
+    tiny = ModelConfig(vocab_size=cfg.vocab_size, n_layers=1, n_heads=4,
+                       n_kv_heads=4, d_model=512, d_head=128, d_ff=2048,
+                       dtype=torch.bfloat16)
+    zero_counters()
+    t0 = time.perf_counter()
+    dparams, dst = distill_draft(
+        tparams, cfg, init_params(tiny, seed=7, device=dev), tiny,
+        steps=s["distill_steps"], batch=16, n_seqs=s["n_prompts"], seed=3,
+        prompts=markov(s["n_prompts"], s["prompt_len"]))
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    launches = read_counters()
+    steps, n_dec = s["distill_steps"], 256 - s["prompt_len"] - 1
+    want = launches_only(h1=2 * cfg.n_layers + steps * tiny.n_layers,
+                         h6=cfg.n_layers * n_dec, h3dkv=steps * tiny.n_layers,
+                         h3dq=steps * tiny.n_layers)
+    print(f"  distilled: target trained {s['train_steps']} AdamW steps on "
+          f"the Markov task in {train_s:.1f} s (loss {losses[0].item():.4f} "
+          f"-> {losses[-1].item():.4f}); draft distilled in {distill_s:.1f} "
+          f"s, agreement {dst['agree_first']:.4f} -> {dst['agree_last']:.4f}"
+          f", loss {dst['loss_last']:.4f}; launches of distill_draft "
+          f"{launches} (expected {want})")
+    _require(launches == want, "distill_draft missed a kernel")
+    _require(losses[-1].item() < losses[0].item(),
+             "the target's Markov loss did not fall")
+    mprompt = markov(SPEC_SHAPE[0], s["prompt"])
+    bsz, n_new = mprompt.shape[0], s["new"]
+    van = GenerationEngine(tparams, cfg, max_seqs=bsz, max_len=s["max_len"])
+    van.generate(mprompt, n_new)
+    vanilla, dt = timed(torch, lambda: van.generate(mprompt, n_new), 3)
+    out = {"train_s": train_s, "distill_s": distill_s, "distill": dst,
+           "distill_launches": launches, "vanilla_tokens_s": bsz * n_new / dt,
+           "gammas": {}}
+    for g in s["gammas"]:
+        eng = SpeculativeEngine(tparams, cfg, dparams, tiny, max_seqs=bsz,
+                                max_len=s["max_len"], draft_mode="dense",
+                                draft_window=s["window"])
+        toks, leg = spec_leg(torch, eng, mprompt, n_new, g)
+        leg["gate"] = spec_gate(torch, tparams, cfg, mprompt, toks, vanilla)
+        out["gammas"][g] = leg
+        gate = leg["gate"]
+        print(f"  speculative distilled gamma {g} (B={bsz}, Markov prompt "
+              f"{s['prompt']}, {n_new} new, dense draft window "
+              f"{s['window']}): launches {leg['launches']}; {leg['rounds']} "
+              f"rounds, acceptance {leg['acceptance']:.4f}, "
+              f"{leg['tokens_per_round']:.3f} tokens a round; "
+              f"{leg['tokens_s']:.1f} tokens/s graphed, "
+              f"{leg['eager_tokens_s']:.1f} eager, vanilla "
+              f"{out['vanilla_tokens_s']:.1f}; tokens equal to vanilla "
+              f"{gate['equal_to_vanilla']}/{gate['steps']}; full-forward "
+              f"agreement {gate['agree']}/{gate['steps']}, largest gap "
+              f"{gate['worst_gap']:.4f} (limit {LOGIT_GAP})")
+        _require(gate["worst_gap"] < LOGIT_GAP, "a distilled speculative "
+                 "token differs from the full forward's beyond a tie")
+        del eng
+    return out
+
+
+def phase_seq2seq(torch, dev):
+    """The seq2seq family (A7) at the flagship's widths and JAX's default
+    depths (2 encoder, 2 decoder layers), trained by
+    make_seq2seq_train_step (Adam, lr 3e-3) on src [8, 1024] and tgt
+    [8, 257] from np.random.default_rng(0).  Every step launches H1, H3-dkv
+    and H3-dq 6 times each: the encoder's self-attention without a mask,
+    the decoder's causal, the cross attention without a mask at Lq = 256,
+    Lkv = 1024.  The step-0 loss and every gradient against the plain
+    attention patched in, beside controls required to fail: the decoder's
+    self-attention without its causal mask (loss), the cross backward
+    without its last 64 source keys (gradients); shown, not required: the
+    forward's cross attention without its last 64 keys and with one key
+    hidden.  The loss must fall over 10 steps.  The bwd phase holds H3
+    itself at the cross shape, with the last 64-key tile dropped as its
+    control."""
+    from unittest import mock
+
+    from exploring_flash_attention_tpu_torch.models import (
+        Seq2SeqConfig,
+        flagship_config,
+        init_seq2seq_params,
+        make_seq2seq_train_step,
+        make_trainable,
+        seq2seq_loss,
+        tree_leaves,
+    )
+    from exploring_flash_attention_tpu_torch.models import (
+        seq2seq as s2s_module,
+    )
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd as attention_bwd_module,
+    )
+    from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+        attention_bwd_plain,
+    )
+    from exploring_flash_attention_tpu_torch.utils.profile_train import (
+        split_step,
+    )
+
+    cfg = Seq2SeqConfig(base=flagship_config(), n_enc_layers=2,
+                        n_dec_layers=2)
+    bsz, l_src, l_tgt = SEQ2SEQ_SHAPE
+    params = make_trainable(init_seq2seq_params(cfg, seed=0, device=dev))
+    leaves = tree_leaves(params)
+    names = [f"leaf {i}" for i in range(len(leaves))]
+    rng = np.random.default_rng(0)
+    vocab = cfg.base.vocab_size
+    src = torch.from_numpy(rng.integers(0, vocab, (bsz, l_src)).astype(
+        np.int32)).to(dev)
+    tgt = torch.from_numpy(rng.integers(0, vocab, (bsz, l_tgt + 1)).astype(
+        np.int32)).to(dev)
+
+    def loss_and_grads():
+        loss = seq2seq_loss(params, src, tgt, cfg)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    def cross_dropped(n):
+        def attention(q, k, v, causal=False):
+            if q.shape[2] != k.shape[2]:            # the cross attention
+                k, v = k[:, :, :-n], v[:, :, :-n]
+            return plain_flash_attention(q, k, v, causal=causal)
+        return attention
+
+    kernel_bwd = attention_bwd_module.masked_attention_bwd
+
+    def cross_bwd_dropped(q, k, v, out, do, lse, scale, causal, diag_off,
+                          window):
+        if q.shape[2] == k.shape[2]:
+            return kernel_bwd(q, k, v, out, do, lse, scale, causal,
+                              diag_off, window)
+        dq, dk, dv = attention_bwd_plain(q, k[:, :, :-64], v[:, :, :-64],
+                                         out, do, lse, scale, False)
+        pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 64))  # noqa
+        return dq, pad(dk), pad(dv)
+
+    def sees_future(q, k, v, causal=False):
+        return plain_flash_attention(q, k, v, causal=False)
+
+    loss_k, grads_k = loss_and_grads()
+    with mock.patch.object(s2s_module, "flash_attention",
+                           plain_flash_attention):
+        loss_p, grads_p = loss_and_grads()
+    with mock.patch.object(s2s_module, "flash_attention", sees_future):
+        loss_bad = loss_and_grads()[0]
+    shown = {}                  # cross-attention faults: (loss, gradients)
+    for n in (64, 1):
+        with mock.patch.object(s2s_module, "flash_attention",
+                               cross_dropped(n)):
+            shown[n] = loss_and_grads()
+    with mock.patch.object(attention_bwd_module, "masked_attention_bwd",
+                           cross_bwd_dropped):
+        grads_bad = loss_and_grads()[1]
+    e_grad, leaf = leaf_err(names, grads_k, grads_p)
+    e_bad, leaf_bad = leaf_err(names, grads_bad, grads_p)
+    shown = {n: (abs(x - loss_p), leaf_err(names, g, grads_p)[0])
+             for n, (x, g) in shown.items()}
+    del grads_k, grads_p, grads_bad
+    print(f"  seq2seq step-0 loss {loss_k:.6f} over {bsz * l_tgt} target "
+          f"tokens, with the plain attention {loss_p:.6f}: |d| "
+          f"{abs(loss_k - loss_p):.3e} (tol {SEQ2SEQ_LOSS_TOL:g}), control "
+          f"(the decoder's self-attention sees the future) "
+          f"{abs(loss_bad - loss_p):.3e}; largest per-leaf ||dg||/||g|| "
+          f"over {len(leaves)} leaves vs the plain path {e_grad:.3e} at "
+          f"{leaf} (tol {GRAD_REL_TOL:g}), control (the cross backward "
+          f"without its last 64 source keys) {e_bad:.3e} at {leaf_bad}; "
+          f"shown, not required (a cross attention over 1024 keys of a "
+          f"random model is near their average): the forward's cross "
+          f"attention without its last 64 source keys |d loss| "
+          f"{shown[64][0]:.3e}, gradients {shown[64][1]:.3e}; with one "
+          f"source key hidden {shown[1][0]:.3e}, {shown[1][1]:.3e}")
+    _require(math.isfinite(loss_k), "seq2seq step-0 loss not finite")
+    _require(abs(loss_k - loss_p) < SEQ2SEQ_LOSS_TOL,
+             "the seq2seq step-0 loss differs from the plain path's")
+    _require(abs(loss_bad - loss_p) > SEQ2SEQ_LOSS_TOL,
+             "the seq2seq loss check cannot tell a decoder that sees the "
+             "future")
+    _require(e_grad < GRAD_REL_TOL,
+             "seq2seq gradients differ from the plain path's")
+    _require(e_bad > GRAD_REL_TOL, "the seq2seq gradient check cannot tell "
+             "a cross backward short of 64 keys")
+
+    step, opt_init = make_seq2seq_train_step(cfg)
+    opt = opt_init(params)
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    want = launches_only(h1=n_attn, h3dkv=n_attn, h3dq=n_attn)
+    losses, counts = [], []
+    for _ in range(SEQ2SEQ_STEPS):
+        zero_counters()
+        losses.append(step(params, opt, src, tgt).item())
+        counts.append(read_counters())
+    print(f"  seq2seq launches per step {counts[0]} (expected {want}); Adam "
+          f"losses over {SEQ2SEQ_STEPS} steps "
+          f"{[round(x, 6) for x in losses]}")
+    _require(all(c == want for c in counts), "a seq2seq step missed a kernel")
+    _require(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    _require(losses[-1] < losses[0], "the seq2seq loss did not fall")
+    parts = np.array([split_step(step, params, opt, src, tgt,
+                                 module=s2s_module,
+                                 loss_name="seq2seq_loss")[0]
+                      for _ in range(5)])
+    med = np.median(parts, axis=0)
+    step_s = float(np.median(parts.sum(axis=1)))
+    out = {"launches": counts[0], "losses": losses, "step_ms": step_s * 1e3,
+           "forward_ms": med[0] * 1e3, "backward_ms": med[1] * 1e3,
+           "optimizer_ms": med[2] * 1e3,
+           "target_tokens_s": bsz * l_tgt / step_s,
+           "tokens_s": bsz * (l_src + l_tgt) / step_s}
+    print(f"  seq2seq step (B={bsz}, L_src={l_src}, L_tgt={l_tgt}, median of "
+          f"5, synchronized at each part): {out['step_ms']:.3f} ms = forward "
+          f"and loss {out['forward_ms']:.3f} + backward "
+          f"{out['backward_ms']:.3f} + Adam {out['optimizer_ms']:.3f}; "
+          f"{out['target_tokens_s']:.1f} target tokens/s, "
+          f"{out['tokens_s']:.1f} source + target tokens/s")
+    print("phase seq2seq: ok")
+    return out
+
+
 def time_kernels(torch, dev):
     """CUDA-event medians (L2 flushed before each call) of H3 beside its
     plain version, its bounds from these inputs and the backward of
@@ -2911,7 +3394,72 @@ def time_kernels(torch, dev):
           f"{out['h1_causal_library']['Lq=512 Lkv=1024']:.4f} ms")
     del q, k, v
     out["window_train_shape"] = window_attention_times(torch, dev, gen)
+    out["seq2seq_cross"] = cross_attention_times(torch, dev, gen)
     return out
+
+
+def cross_attention_times(torch, dev, gen):
+    """H1 and H3 without a mask at the seq2seq cross attention's shape
+    (B=8, Hq=8, Hkv=4, Lq=256, Lkv=1024, d=128), each beside its plain
+    version, its bound and the library call: scaled_dot_product_attention
+    for H1, its autograd backward for H3 (each H3 kernel alone against the
+    whole backward)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        attention_bwd_plain,
+        attention_plain,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    b, hq, hkv, lq, lkv, d = BWD_SHAPES[-1]
+    s, off = 1.0 / math.sqrt(d), lkv - lq
+    q, do = (_bf16(torch, dev, gen, b, hq, lq, d) for _ in range(2))
+    k, v = (_bf16(torch, dev, gen, b, hkv, lkv, d) for _ in range(2))
+    o, lse = prefill_attention(q, k, v, s, off, False)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    leaves = [x.detach().clone().requires_grad_() for x in (
+        q, k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv,
+                                                                  1))]
+    o_lib = sdpa(*leaves)
+    lib_bwd = time_cuda(lambda: torch.autograd.grad(
+        o_lib, leaves, do, retain_graph=True), n_iter=20)
+    plain_bwd = time_cuda(lambda: attention_bwd_plain(
+        q, k, v, o, do, lse, s, False, off), n_iter=5, n_warmup=1)
+    pairs = b * hq * lq * lkv
+    q_bytes, kv_bytes = b * hq * lq * d * 2, b * hkv * lkv * d * 2
+    row_bytes = b * hq * lq * 4
+    t = {"h1": {"ms": time_cuda(lambda: prefill_attention(
+             q, k, v, s, off, False), n_iter=20),
+             "plain_ms": time_cuda(lambda: attention_plain(
+                 q, k, v, s, False, off), n_iter=5, n_warmup=1),
+             "library_ms": time_cuda(lambda: sdpa(q, k, v, enable_gqa=True),
+                                     n_iter=20)},
+         "h3dkv": {"ms": time_cuda(lambda: attention_bwd_dkv(
+             q, k, v, do, lse, delta, s, False, off), n_iter=20),
+             "plain_ms": plain_bwd, "library_ms": lib_bwd},
+         "h3dq": {"ms": time_cuda(lambda: attention_bwd_dq(
+             q, k, v, do, lse, delta, s, False, off), n_iter=20),
+             "plain_ms": plain_bwd, "library_ms": lib_bwd}}
+    work = {"h1": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+            "h3dkv": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes
+                      + 2 * row_bytes),
+            "h3dq": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes
+                     + 2 * row_bytes)}
+    for kern, (flop, nbytes) in work.items():
+        t[kern]["bound_ms"], t[kern]["bound_by"] = roofline(flop, nbytes)
+        t[kern]["bound_share"] = t[kern]["bound_ms"] / t[kern]["ms"]
+    print(f"  times at the seq2seq cross shape B={b} Hq={hq} Hkv={hkv} "
+          f"Lq={lq} Lkv={lkv} d={d}, no mask: "
+          + "; ".join(f"{n} {t[n]['ms']:.4f} ms (bound "
+                      f"{t[n]['bound_ms']:.4f}, {t[n]['bound_share']:.1%}; "
+                      f"plain {t[n]['plain_ms']:.4f}; library "
+                      f"{t[n]['library_ms']:.4f})" for n in t)
+          + " (library: SDPA for H1, its whole autograd backward for H3)")
+    return t
 
 
 def window_attention_times(torch, dev, gen):
@@ -2969,9 +3517,38 @@ def window_attention_times(torch, dev, gen):
     return out
 
 
-def main() -> int:
+# the phases `--only` takes (a quicker call while a phase is worked on; the
+# full run, with no arguments, runs every phase and prints the kernels line)
+PHASES = ("h1", "v1", "v2", "quant", "dtiled", "decode", "extend",
+          "scheduler", "bwd", "slice", "multiturn", "speculative", "train",
+          "encoder", "seq2seq", "window_train", "window_generate",
+          "time_kernels")
+
+
+def run_only(torch, dev, names):
+    """Run the named phases alone, in PHASES order."""
+    lm = None
+    for name in PHASES:
+        if name not in names:
+            continue
+        fn = globals()["time_kernels" if name == "time_kernels"
+                       else f"phase_{name}"]
+        if name in ("slice", "multiturn", "speculative"):
+            lm = lm or make_flagship(torch, dev)
+            fn(torch, dev, lm)
+        else:
+            fn(torch, dev)
+
+
+def main(argv) -> int:
     import torch
 
+    only = None
+    if argv:
+        _require(len(argv) == 2 and argv[0] == "--only"
+                 and set(argv[1].split(",")) <= set(PHASES),
+                 f"usage: chip_smoke.py [--only PHASE,...] (of {PHASES})")
+        only = set(argv[1].split(","))
     smi = phase_device(torch)
     sys.path.insert(0, str(ROOT))
     try:
@@ -2986,6 +3563,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     phase_build(kernels)
+    if only is not None:
+        run_only(torch, dev, only)
+        _require("jax" not in sys.modules, "JAX was imported")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     h1_err = phase_h1(torch, dev)
     v1_launches, v1_err, v1_t, h2 = phase_v1(torch, dev)
     v2_launches, v2_t = phase_v2(torch, dev)
@@ -2998,13 +3583,19 @@ def main() -> int:
     lm = make_flagship(torch, dev)
     launches, gen = phase_slice(torch, dev, lm)
     turn2, _ = phase_multiturn(torch, dev, lm)
+    spec = phase_speculative(torch, dev, lm)
     del lm
     train, _ = phase_train(torch, dev)
     encoder, _ = phase_encoder(torch, dev)
+    s2s = phase_seq2seq(torch, dev)
     wtrain, _ = phase_window_train(torch, dev)
     wturn1, wturn2, wgen = phase_window_generate(torch, dev)
     t = time_kernels(torch, dev)
     h6_main, h6e_main = h6[DECODE_CASES[0][0]], h6e[EXTEND_CASES[0][0]]
+    spec_rand = spec["legs"]["random draft"]
+    spec_self = spec["legs"]["self draft"]["launches"]
+    spec_dist = spec["distilled"]["gammas"][SPEC_DISTILL["gammas"][0]]
+    distill = spec["distilled"]["distill_launches"]
     main_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                  "bound_share", "max_abs_err")
     _require("jax" not in sys.modules, "JAX was imported")
@@ -3026,7 +3617,13 @@ def main() -> int:
                               "train_step": train["h1"],
                               "encoder_step": encoder["h1"],
                               "window_train_step": wtrain["h1"],
-                              "window_generate_turn_1": wturn1["h1"]},
+                              "window_generate_turn_1": wturn1["h1"],
+                              "spec_generate": spec_rand["launches"]["h1"],
+                              "spec_generate_distilled":
+                                  spec_dist["launches"]["h1"],
+                              "distill_draft": distill["h1"],
+                              "seq2seq_step": s2s["launches"]["h1"]},
+         "seq2seq_cross_shape": t["seq2seq_cross"]["h1"],
          "window_train_shape": {m: t["window_train_shape"][m]["h1"]
                                 for m in ("window", "causal")},
          **v1_t, "library_ms_by_case": {
@@ -3083,7 +3680,9 @@ def main() -> int:
                                   / sched["graphed"]["steps"]),
                               "multiturn_turn_2": turn2["h6"],
                               "window_generate_turn_1": wturn1["h6"],
-                              "window_generate_turn_2": wturn2["h6"]}},
+                              "window_generate_turn_2": wturn2["h6"],
+                              "spec_generate": spec_rand["launches"]["h6"],
+                              "distill_draft": distill["h6"]}},
         {"name": "H6-extend paged INT8 chunked-prefill attention (window)",
          "route": "cuda", "source": H6E_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:257",
@@ -3091,7 +3690,12 @@ def main() -> int:
          "launches": turn2["h6e"], **{k: h6e_main[k] for k in main_keys},
          "design": "wgmma", "by_case": h6e,
          "launches_by_path": {"multiturn_turn_2": turn2["h6e"],
-                              "window_generate_turn_2": wturn2["h6e"]}},
+                              "window_generate_turn_2": wturn2["h6e"],
+                              "spec_generate": spec_rand["launches"]["h6e"],
+                              "spec_generate_self": spec_self["h6e"],
+                              "spec_generate_distilled":
+                                  spec_dist["launches"]["h6e"]},
+         "speculative": spec},
         # H3's numbers are the training shape's, causal as the train step
         # runs it; "none" holds them without a mask, as the encoder step
         # runs it.  plain_ms is the whole plain backward, and library_ms
@@ -3105,12 +3709,18 @@ def main() -> int:
            **t["h3_causal"][f"h3{n}"],
            "launches_by_path": {"train_step": train[f"h3{n}"],
                                 "encoder_step": encoder[f"h3{n}"],
-                                "window_train_step": wtrain[f"h3{n}"]},
+                                "window_train_step": wtrain[f"h3{n}"],
+                                "seq2seq_step": s2s["launches"][f"h3{n}"],
+                                "distill_draft": distill[f"h3{n}"]},
+           "seq2seq_cross_shape": t["seq2seq_cross"][f"h3{n}"],
+           "max_abs_err_seq2seq_cross_shape":
+               h3_err["cross"][f"h3{n}"],
            "max_abs_err_by_mask": {m: e[f"h3{n}"] for m, e in h3_err.items()},
            "none": t["h3_none"][f"h3{n}"],
            "window_train_shape": {
                m: t["window_train_shape"][m][f"h3{n}"]
                for m in ("window", "causal")},
+           "seq2seq": s2s,
            "delta_ms": {m: t[f"h3_{m}"]["delta_ms"]
                         for m in ("causal", "none")},
            "pair_ms": {m: t[f"h3_{m}"]["pair_ms"]
@@ -3155,7 +3765,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except Exception:                       # report the failure, exit non-zero
         traceback.print_exc()
         print("chip_smoke FAILED", file=sys.stderr)

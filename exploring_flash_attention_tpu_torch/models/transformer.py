@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from exploring_flash_attention_tpu_torch.models.tree import tree_leaves
 from exploring_flash_attention_tpu_torch.ops.attention import flash_attention
 
 Params = Dict[str, Any]
@@ -201,13 +202,15 @@ def named_param_leaves(params: Params) -> List[Tuple[str, torch.Tensor]]:
 
 
 def param_leaves(params: Params) -> List[torch.Tensor]:
-    """The parameter tensors in :func:`named_param_leaves` order."""
-    return [leaf for _, leaf in named_param_leaves(params)]
+    """The parameter tensors of any of the port's parameter trees (LM,
+    encoder, seq2seq) in ``jax.tree.leaves`` order (``tree_leaves``); for
+    the LM that is :func:`named_param_leaves` order."""
+    return tree_leaves(params)
 
 
 def make_trainable(params: Params) -> Params:
-    """Set ``requires_grad`` on every leaf of ``params``, in place; returns
-    ``params``."""
+    """Set ``requires_grad`` on every leaf of ``params`` (any of the port's
+    parameter trees), in place; returns ``params``."""
     for leaf in param_leaves(params):
         leaf.requires_grad_(True)
     return params
@@ -222,17 +225,26 @@ def adamw(leaves: Iterable[torch.Tensor], lr: float = 1e-3
                              weight_decay=1e-4)
 
 
+def adam(leaves: Iterable[torch.Tensor], lr: float = 1e-3
+         ) -> torch.optim.Optimizer:
+    """``torch.optim.Adam`` with ``optax.adam``'s defaults set explicitly:
+    betas (0.9, 0.999), eps 1e-8, no weight decay."""
+    return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
 
 
 def make_optimizer_init(optimizer: Optional[OptimizerFactory],
-                        learning_rate: float
+                        learning_rate: float,
+                        default: Callable[..., torch.optim.Optimizer] = adamw
                         ) -> Callable[[Params], torch.optim.Optimizer]:
     """The ``optimizer_init`` of the train steps: it sets ``requires_grad``
     on the leaves of ``params`` (in place) and returns ``optimizer`` over
-    :func:`param_leaves`, :func:`adamw` at ``learning_rate`` by default."""
+    :func:`param_leaves`, ``default`` (:func:`adamw`) at ``learning_rate``
+    when ``optimizer`` is None."""
     if optimizer is None:
-        optimizer = functools.partial(adamw, lr=learning_rate)
+        optimizer = functools.partial(default, lr=learning_rate)
 
     def optimizer_init(params: Params) -> torch.optim.Optimizer:
         return optimizer(param_leaves(make_trainable(params)))

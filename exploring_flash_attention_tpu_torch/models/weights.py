@@ -11,6 +11,7 @@ from exploring_flash_attention_tpu_torch.models.transformer import (
     Params,
     make_trainable,
 )
+from exploring_flash_attention_tpu_torch.models.tree import tree_map
 
 
 def params_from_jax(tree: Any, device: torch.device | str = "cuda",
@@ -18,7 +19,10 @@ def params_from_jax(tree: Any, device: torch.device | str = "cuda",
     """The JAX package's params pytree, with its leaves as NumPy arrays
     (e.g. ``jax.device_get(params)``), as the port's parameters on
     ``device`` (the card by default), in ``dtype`` or else bf16 for bf16
-    leaves and f32 for the rest.
+    leaves and f32 for the rest.  Any nested dict/list tree converts leaf
+    by leaf with its structure kept: the LM's and encoder's ``embed`` /
+    ``layers`` / ``ln_f``, seq2seq's ``enc_layers``, ``dec_layers`` (with
+    their ``cross`` blocks), ``ln_enc`` and ``ln_f``.
 
     Leaves go through f32, which is exact for f32 and bf16:
     ``torch.from_numpy`` refuses ml_dtypes' bf16 arrays."""
@@ -30,12 +34,7 @@ def params_from_jax(tree: Any, device: torch.device | str = "cuda",
         return torch.from_numpy(a.astype(np.float32)).to(
             device=device, dtype=target)
 
-    return {
-        "embed": leaf(tree["embed"]),
-        "ln_f": leaf(tree["ln_f"]),
-        "layers": [{name: leaf(x) for name, x in layer.items()}
-                   for layer in tree["layers"]],
-    }
+    return tree_map(leaf, tree)
 
 
 def trainable_params_from_jax(tree: Any, device: torch.device | str = "cuda",

@@ -176,14 +176,18 @@ def append_chunks(
     ``seq_lens`` (any offset, not only a page boundary), then advance
     ``seq_lens`` by C: :func:`append_tokens` over a chunk, the multi-turn
     cache write.  Only the C rows are written, so the rows already in a
-    partly filled page survive.  The pages must already be mapped.
+    partly filled page survive.  The pages must already be mapped; rows
+    past the slot's last mapped page write into that page, as in
+    :func:`append_tokens` (the JAX package's gather clamps the page index
+    the same way).
     (``append_tokens`` does not call this with C = 1: the position arange
     would add kernel launches to every decode step.)"""
     ids = seq_ids.long()
     c = k_new.shape[1]
     pos = cache.seq_lens[ids].long()[:, None] + torch.arange(
         c, device=k_new.device)                                 # [B, C]
-    page_ids = cache.page_table[ids[:, None], pos // cache.page_size].long()
+    page_idx = (pos // cache.page_size).clamp_max(cache.max_pages_per_seq - 1)
+    page_ids = cache.page_table[ids[:, None], page_idx].long()
     offset = pos % cache.page_size
     kq, ks = _quantize_rows(k_new)                      # [B,C,H,d], [B,C,H]
     vq, vs = _quantize_rows(v_new)

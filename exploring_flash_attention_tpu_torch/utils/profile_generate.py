@@ -29,11 +29,21 @@ same call with the decode steps eager, a loop over ``_decode_forward``
   ``generate``, also a call of one new token (prefill and the first
   sample only), so that the launches, kernel time and host time of one
   decode step, graphed and eager, are the difference over the other 23.
+
+With ``--model speculative`` it drives ``SpeculativeEngine`` instead, at
+``chip_smoke.py``'s speculative legs (the flagship target on the same
+prompts, 24 new tokens, gamma 4; a 1-layer paged draft at the flagship's
+widths from seed 7, then the target as its own draft): the host-clock
+time of a call, its rounds graphed and eager, and one profiled graphed
+call beside a call of one new token (the two prefills only), so that one
+round's launches, kernel time, wall time and busy share are the
+difference over the rounds.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import time
 
@@ -42,6 +52,7 @@ import torch
 
 from exploring_flash_attention_tpu_torch.models import (
     GenerationEngine,
+    SpeculativeEngine,
     flagship_config,
     init_params,
     long_context_config,
@@ -144,8 +155,9 @@ PAGED_KERNELS = {"paged_decode_kernel": "H6-decode",
 
 def profile_call(name: str, call, top: int):
     """Profile one ``call()`` and print its wall time, summed kernel time,
-    device busy share, launches and top kernels; return the summed kernel
-    time (ms) and the kernel rows.  Rows of user annotations
+    device busy share, launches and top kernels; return them (``wall_ms``,
+    ``kernel_ms``, ``launches``) and the kernel rows (``kernels``).  Rows
+    of user annotations
     (``Optimizer.step``, for one) span kernels that have rows of their
     own, so they are left out."""
     from torch.profiler import ProfilerActivity, profile
@@ -168,20 +180,66 @@ def profile_call(name: str, call, top: int):
                     reverse=True)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  n={e.count:5d}  "
               f"{e.key[:100]}")
-    return {"wall_ms": wall * 1e3, "kernel_ms": dev_ms, "launches": launches}
+    return {"wall_ms": wall * 1e3, "kernel_ms": dev_ms, "launches": launches,
+            "kernels": kern}
+
+
+def profile_speculative(dev: torch.device, repeats: int, top: int) -> None:
+    """The ``--model speculative`` run (see the module note)."""
+    cfg = flagship_config()
+    bsz, n_new, gamma = 8, 24, 4
+    params = init_params(cfg, seed=0, device=dev)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (bsz, 256)).astype(np.int32)
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    for name, dparams, draft_cfg in (
+            ("1-layer paged draft", init_params(dcfg, seed=7, device=dev),
+             dcfg),
+            ("self draft", params, cfg)):
+        eng = SpeculativeEngine(params, cfg, dparams, draft_cfg,
+                                max_seqs=bsz, max_len=1024)
+        run = lambda: eng.generate(prompt, n_new, gamma=gamma)  # noqa: E731
+        for _ in range(3):                              # builds, captures
+            _, stats = run()
+        rounds = int(stats["rounds"])
+        graphed = [_timed(run) for _ in range(repeats)]
+        eng.graphed = False
+        eager = [_timed(run) for _ in range(repeats)]
+        eng.graphed = True
+        print(f"speculative generate, {name}, gamma {gamma}, {rounds} rounds "
+              f"(acceptance {stats['acceptance_rate']:.4f}): s, rounds "
+              f"graphed {sorted(graphed)}; eager {sorted(eager)}")
+        one = profile_call(f"{name}: 1 new token (the two prefills)",
+                           lambda: eng.generate(prompt, 1, gamma=gamma), top)
+        full = profile_call(f"{name}: {n_new} new tokens, rounds graphed",
+                            run, top)
+        per = {k: (full[k] - one[k]) / rounds
+               for k in ("wall_ms", "kernel_ms", "launches")}
+        print(f"one round, {name}: {per['launches']:.1f} launches, kernel "
+              f"time {per['kernel_ms']:.4f} ms, profiled wall "
+              f"{per['wall_ms']:.4f} ms, device busy share "
+              f"{per['kernel_ms'] / per['wall_ms']:.4f}")
+        del eng
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--top", type=int, default=14)
-    ap.add_argument("--model", choices=("flagship", "windowed"),
-                    default="flagship")
+    ap.add_argument("--model", choices=("flagship", "windowed",
+                                        "speculative"), default="flagship")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
+    if args.model == "speculative":
+        profile_speculative(dev, args.repeats, args.top)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip())
+        return
     if args.model == "flagship":
         cfg, l_prompt, max_len = flagship_config(), 256, 1024
     else:
@@ -235,7 +293,8 @@ def main() -> None:
         "generate, decode steps eager",
         lambda: eager_generate(eng, prompt, n_new), args.top)}
     for mode, r in runs.items():
-        per = {k: (r[k] - one[k]) / (n_new - 1) for k in r}
+        per = {k: (r[k] - one[k]) / (n_new - 1)
+               for k in ("wall_ms", "kernel_ms", "launches")}
         print(f"one decode step, {mode}: {per['launches']:.1f} launches, "
               f"kernel time {per['kernel_ms']:.4f} ms, profiled wall "
               f"{per['wall_ms']:.4f} ms, device busy share "

@@ -20,7 +20,11 @@ does.  It prints:
 - the same for one step of the encoder (``make_mlm_train_step``, the same
   geometry bidirectional, tokens [8, 1024] under one fixed mask, as
   ``chip_smoke.py``'s encoder phase runs it): its host-clock step times
-  and its profiled step.
+  and its profiled step;
+- the same for one seq2seq step (``make_seq2seq_train_step``, 2 encoder
+  and 2 decoder layers at the flagship's widths, src [8, 1024], tgt
+  [8, 257], as ``chip_smoke.py``'s seq2seq phase runs it): its host-clock
+  step times, their three parts, and its profiled step.
 """
 
 from __future__ import annotations
@@ -34,14 +38,16 @@ import numpy as np
 import torch
 
 from exploring_flash_attention_tpu_torch.models import (
+    Seq2SeqConfig,
     flagship_config,
     init_params,
-    loss_fn,
+    init_seq2seq_params,
     make_mlm_train_step,
+    make_seq2seq_train_step,
     make_train_step,
     mask_tokens,
 )
-from exploring_flash_attention_tpu_torch.models import transformer
+from exploring_flash_attention_tpu_torch.models import seq2seq, transformer
 from exploring_flash_attention_tpu_torch.utils.profile_generate import (
     profile_call,
 )
@@ -56,14 +62,18 @@ def _sync_clock() -> float:
     return time.perf_counter()
 
 
-def split_step(step, params, opt, tokens):
+def split_step(step, params, opt, *inputs, module=transformer,
+               loss_name="loss_fn"):
     """Host seconds of (forward and loss, backward, optimizer step) of one
-    call of ``step``, the step that ``make_train_step`` built, with a
-    synchronize at each boundary.  The step itself is not copied: its loss
-    function is wrapped (the end of the forward) and ``opt`` hooked (the
-    end of the backward and of the update).  Returns the parts and the
-    step's loss."""
+    call ``step(params, opt, *inputs)``, the step that ``make_train_step``
+    built (or, with ``module`` and ``loss_name``, another train step whose
+    loss function is ``module.<loss_name>``: ``models.seq2seq``'s
+    ``seq2seq_loss``), with a synchronize at each boundary.  The step
+    itself is not copied: its loss function is wrapped (the end of the
+    forward) and ``opt`` hooked (the end of the backward and of the
+    update).  Returns the parts and the step's loss."""
     marks = []
+    loss_fn = getattr(module, loss_name)
 
     def mark(*_):
         marks.append(_sync_clock())
@@ -76,9 +86,9 @@ def split_step(step, params, opt, tokens):
     hooks = (opt.register_step_pre_hook(mark),
              opt.register_step_post_hook(mark))
     try:
-        with mock.patch.object(transformer, "loss_fn", marked_loss_fn):
+        with mock.patch.object(module, loss_name, marked_loss_fn):
             t0 = _sync_clock()
-            loss = step(params, opt, tokens)
+            loss = step(params, opt, *inputs)
     finally:
         for hook in hooks:
             hook.remove()
@@ -89,8 +99,9 @@ def split_step(step, params, opt, tokens):
 def profile_attention(what, call, top) -> None:
     """Profile one call and print H1, H3-dkv and H3-dq's share of its
     kernel time."""
-    dev_ms, kern = profile_call(what, call, top)
-    attn_ms = sum(e.self_device_time_total for e in kern
+    prof = profile_call(what, call, top)
+    dev_ms = prof["kernel_ms"]
+    attn_ms = sum(e.self_device_time_total for e in prof["kernels"]
                   if any(n in e.key for n in ATTENTION_KERNELS)) / 1e3
     print(f"  H1 + H3-dkv + H3-dq: {attn_ms:.3f} ms, "
           f"{attn_ms / dev_ms:.4f} of the kernel time")
@@ -148,6 +159,30 @@ def main() -> None:
         total.append(_sync_clock() - t0)
     print(f"encoder step s {sorted(total)}")
     profile_attention("encoder step", run, args.top)
+    del params, opt
+
+    s2s_cfg = Seq2SeqConfig(base=cfg, n_enc_layers=2, n_dec_layers=2)
+    params = init_seq2seq_params(s2s_cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    src, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)
+                                 .astype(np.int32)).to(dev)
+                for shape in ((8, 1024), (8, 257)))
+    step, opt_init = make_seq2seq_train_step(s2s_cfg)
+    opt = opt_init(params)
+    run = lambda: step(params, opt, src, tgt)  # noqa: E731
+    for _ in range(3):
+        run()
+    total, parts = [], []
+    for _ in range(args.repeats):
+        t0 = _sync_clock()
+        run()
+        total.append(_sync_clock() - t0)
+        parts.append(split_step(step, params, opt, src, tgt, module=seq2seq,
+                                loss_name="seq2seq_loss")[0])
+    print(f"seq2seq step s {sorted(total)}")
+    for i, what in enumerate(("forward + loss", "backward", "optimizer")):
+        print(f"  {what} s {sorted(p[i] for p in parts)}")
+    profile_attention("seq2seq step", run, args.top)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

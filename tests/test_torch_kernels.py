@@ -62,10 +62,18 @@ from exploring_flash_attention_tpu_torch.graphs import StepGraph
 from exploring_flash_attention_tpu_torch.models import (
     GenerationEngine,
     ModelConfig,
+    Seq2SeqConfig,
+    SpeculativeEngine,
     init_params,
+    init_seq2seq_params,
     make_mlm_train_step,
+    make_seq2seq_train_step,
     mask_tokens,
+    seq2seq_loss,
+    tree_leaves,
+    tree_map,
 )
+from exploring_flash_attention_tpu_torch.models import seq2seq as s2s
 from exploring_flash_attention_tpu_torch.oracle import naive_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
     attention_partial_local,
@@ -622,6 +630,9 @@ EXTEND_CASES = [
     (8, 8, 128, 256, [0, 1, 300, 555], 77),                   # G=1
     (8, 1, 64, 128, [130, 0, 200, 77], 40),                   # G=8, d=64
     (4, 2, 64, 256, [700, 3], 1),                             # C = 1
+    # the speculative verify's C = gamma + 1 = 5 (10 rows of a 64-row
+    # tile), chunks across page boundaries 128, 256 and 384
+    (8, 4, 128, 128, [125, 252, 381, 126, 0, 3], 5),
 ]
 
 
@@ -633,8 +644,8 @@ def test_extend_kernel_masks_pages_groups(cuda_device, hq, hkv, d, ps, hist,
     chunk row's band: the causal mask alone and windows of 1, 77 and 300
     keys, page sizes 128 and 256, d 64 and 128, groups 1, 2 and 8, ragged
     and empty histories, C from 1 to 256 (C * G below and above the
-    128-row tile), old codes past each tail, a slot of -1 (zeros); two
-    runs bitwise equal."""
+    128-row tile; the verify's C = 5 across page boundaries), old codes
+    past each tail, a slot of -1 (zeros); two runs bitwise equal."""
     cache, q, slots = _paged_case(cuda_device, hq, hkv, d, ps, hist, c)
     scale = 1.0 / math.sqrt(d)
     o = paged_extend_attention(q, cache, slots, window=window)
@@ -1213,3 +1224,131 @@ def test_generate_replays_a_graph_equal_to_the_eager_loop(cuda_device,
     assert paged_decode_partials.launches - before == 2 * 5
     eng.release()
     assert eng.allocator.free_pages == eng.allocator.n_pages
+
+
+def _spec_state(eng, loop):
+    state = [loop.pending, loop.count, loop.out, loop.rounds, loop.accepted,
+             *[t for kv in loop.bufs for t in kv]]
+    if loop.slot_pos is not None:
+        state.append(loop.slot_pos)
+    for cache in eng.tcaches + eng.dcaches:
+        state += [cache.kv_pages, cache.kv_scales, cache.seq_lens]
+    return state
+
+
+@pytest.mark.parametrize("mode", ["paged", "dense"])
+def test_spec_round_replay_after_rollback_equals_eager(cuda_device, mode):
+    """A self-draft whose embedding is zeroed for one round (its logits all
+    0: it proposes token 0, which the target rejects) and then restored
+    (the next round accepts): the second round replayed from its CUDA
+    graph against the same round run eagerly on a copy of every state
+    tensor, bitwise (caches, lengths, counts, output, ring).  The plan of
+    H6-decode captured with the graph reads no ``seq_lens``, so the
+    rollback leaves it valid."""
+    cfg, tparams = _small_lm(cuda_device)
+    dparams = tree_map(torch.clone, tparams)
+    eng = SpeculativeEngine(tparams, cfg, dparams, cfg, max_seqs=2,
+                            max_len=512, draft_mode=mode)
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 512, (2, 130)).astype(np.int32)).to(cuda_device)
+    gamma = 4
+    slots, mapped = eng._map(2)
+    try:
+        loop = eng._loop(2, gamma, 0.0)
+        eng._prefill(loop, prompt, slots, 64, 0.0)
+        embed = dparams["embed"].clone()
+        dparams["embed"].zero_()
+        eng._round(loop, slots, gamma, 0.0)                 # eager
+        torch.cuda.synchronize()
+        assert loop.count.tolist() == [2, 2]                # none accepted
+        dparams["embed"].copy_(embed)
+        graph = StepGraph(lambda: eng._round(loop, slots, gamma, 0.0),
+                          cuda_device)
+        state = _spec_state(eng, loop)
+        saved = [t.clone() for t in state]
+        eng._round(loop, slots, gamma, 0.0)
+        eager = [t.clone() for t in state]
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(loop.accepted) > 0
+        for t, e in zip(state, eager):
+            assert torch.equal(t, e)
+    finally:
+        eng._release(mapped)
+
+
+@pytest.mark.parametrize("mode", ["paged", "dense"])
+def test_spec_generate_graphed_equals_eager(cuda_device, mode):
+    """``SpeculativeEngine.generate`` on the card: greedy tokens of the
+    graphed rounds bitwise those of every round eager, at every call;
+    launches counted per replay (H1 per layer of both prefills, H6-extend
+    per target layer a round, H6-decode gamma + 1 per draft layer a round
+    with the paged draft); temperature replays with the engine's generator
+    registered and repeats from its seed; every page comes back."""
+    cfg, tparams = _small_lm(cuda_device)
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    dparams = init_params(dcfg, seed=3, device=cuda_device)
+    eng = SpeculativeEngine(tparams, cfg, dparams, dcfg, max_seqs=4,
+                            max_len=512, draft_mode=mode, draft_window=64)
+    prompt = np.random.default_rng(9).integers(0, 512, (3, 140)).astype(
+        np.int32)
+    eng.graphed = False
+    ref, ref_stats = eng.generate(prompt, 20, gamma=3)
+    eng.graphed = True
+    for _ in range(2):
+        before = (prefill_attention.launches, paged_decode_partials.launches,
+                  paged_extend_attention.launches)
+        out, stats = eng.generate(prompt, 20, gamma=3)
+        rounds = int(stats["rounds"])
+        assert (prefill_attention.launches - before[0],
+                paged_decode_partials.launches - before[1],
+                paged_extend_attention.launches - before[2]) == (
+            3, 4 * rounds if mode == "paged" else 0, 2 * rounds)
+        assert np.array_equal(out, ref) and stats == ref_stats
+    hot = [eng.generate(prompt, 12, gamma=3, temperature=0.9, seed=s)[0]
+           for s in (5, 5, 6)]
+    assert np.array_equal(hot[0], hot[1]) and not np.array_equal(hot[0],
+                                                                 hot[2])
+    assert sorted(k[2] for k in eng._loops) == [0.0, 0.9]
+    assert eng.t_alloc.free_pages == eng.t_alloc.n_pages
+
+
+def test_seq2seq_step_runs_h1_and_h3_across_lengths(cuda_device):
+    """A seq2seq train step on the card: per step H1, H3-dkv and H3-dq
+    once per encoder layer and twice per decoder layer (its causal
+    self-attention and its cross attention without a mask at Lq = 96,
+    Lkv = 200); the step-0 loss within 1e-3 and every gradient within
+    6e-2 (||dg|| / ||g||) of the same model with the plain attention."""
+    base = dataclasses.replace(_small_lm(cuda_device)[0], n_layers=1)
+    cfg = Seq2SeqConfig(base=base, n_enc_layers=1, n_dec_layers=2)
+    params = init_seq2seq_params(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(10)
+    src = torch.from_numpy(rng.integers(0, 512, (2, 200)).astype(
+        np.int32)).to(cuda_device)
+    tgt = torch.from_numpy(rng.integers(0, 512, (2, 97)).astype(
+        np.int32)).to(cuda_device)
+    step, opt_init = make_seq2seq_train_step(cfg)
+    opt = opt_init(params)
+    leaves = tree_leaves(params)
+    loss = seq2seq_loss(params, src, tgt, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+
+    def plain(q, k, v, causal=False):
+        o, _ = attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[3]), causal,
+                               k.shape[2] - q.shape[2])
+        return o.to(q.dtype)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(s2s, "flash_attention", plain)
+        ref_loss = seq2seq_loss(params, src, tgt, cfg)
+        ref = torch.autograd.grad(ref_loss, leaves)
+    assert abs(loss.item() - ref_loss.item()) < 1e-3
+    for g, r in zip(grads, ref):
+        assert ((g.float() - r.float()).norm()
+                / r.float().norm()).item() < 6e-2
+    counted = (prefill_attention, attention_bwd_dkv, attention_bwd_dq)
+    before = [fn.launches for fn in counted]
+    step(params, opt, src, tgt)
+    assert [fn.launches - n for fn, n in zip(counted, before)] == [5, 5, 5]

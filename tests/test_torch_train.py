@@ -156,6 +156,25 @@ def test_profile_split_times_the_real_step():
         assert torch.equal(a, b)
 
 
+def test_profile_attention_reads_profile_call(monkeypatch, capsys):
+    """``profile_train.profile_attention`` reads ``profile_call``'s result
+    (the summed kernel time and the kernel rows) and prints H1 + H3's
+    share of the kernel time."""
+    from types import SimpleNamespace
+
+    from exploring_flash_attention_tpu_torch.utils import profile_train
+
+    rows = [SimpleNamespace(key="prefill_attention_kernel<128>",
+                            self_device_time_total=300.0),
+            SimpleNamespace(key="attention_bwd_dq_kernel<128>",
+                            self_device_time_total=100.0),
+            SimpleNamespace(key="gemm", self_device_time_total=600.0)]
+    monkeypatch.setattr(profile_train, "profile_call", lambda *a: {
+        "wall_ms": 2.0, "kernel_ms": 1.0, "launches": 3, "kernels": rows})
+    profile_train.profile_attention("step", lambda: None, 4)
+    assert "0.400 ms, 0.4000 of the kernel time" in capsys.readouterr().out
+
+
 def test_make_train_step_refuses_a_mesh():
     with pytest.raises(NotImplementedError, match="sharded"):
         make_train_step(CFG, mesh=object())

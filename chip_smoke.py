@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's dense, split-KV, quantized and d-tiled forwards,
 the continuous-batching scheduler, generation, speculative decoding,
-training, encoder and seq2seq training paths, and the windowed model's
-training and generation, on one NVIDIA H100.
+training, encoder and seq2seq training paths, the sequence-parallel ring
+and sharded train step, and the windowed model's training and generation,
+on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -181,7 +182,29 @@ Phases, one line each; any failure exits non-zero before the last line:
    every gradient against the plain attention beside controls (the
    decoder's self-attention seeing the future, the cross backward
    without its last 64 keys), the loss falling over 10 steps, and the
-   step's forward / backward / Adam split on the host clock.
+   step's forward / backward / Adam split on the host clock;
+20. parallel (after seq2seq): the sequence-parallel paths on one card.
+   A causal ring of 4 ranks at the flagship's widths (Hq 8, Hkv 4, d 128,
+   bf16), B=8 x L=1024 (the train step's shape) and B=1 x L=32768 (256
+   and 8192 rows a rank), composed by hand through parallel.ring's hop
+   functions: every (rank, source) hop's H1, H3-dkv and H3-dq at its
+   traced pair (a device int32 tensor) bitwise their static launches and
+   against the plain versions, the controls kv_pos0 a 64-key tile off
+   (the diagonal hop) and a future hop shown its keys; launches per rank
+   (H1 4 forward, H3-dkv and H3-dq 4 backward); the composed O, LSE and
+   gradients against one-device H1 and H3, with one hop a tile off as
+   control; hop times (diagonal and past hop) beside the static launch,
+   SDPA under the hop's mask and the bound.  One hop captured in a CUDA
+   graph replays bitwise its eager calls at 16 pairs written into the
+   offsets tensor.  make_train_step(mesh=) on a one-rank NCCL group
+   (MeshConfig(1, 1, 1)) at the flagship's widths on tokens [8, 1025]
+   (SGD) against mesh=None: the loss and every leaf's gradient, the ring's
+   diagonal key hidden as control, counters zeroed before the mesh step
+   and read after (H1 4, H3-dkv 4, H3-dq 4), step times of both; then
+   parallel.dryrun.dryrun_multichip(1) on the card.  Collectives across
+   ranks are not run: NCCL takes one card a rank, and this machine has
+   one; tests/test_torch_parallel.py and tests/test_torch_sharded.py run
+   them on gloo ranks on the CPU.
 
 ``python3 chip_smoke.py --only PHASE,...`` runs the build and the named
 phases alone (no kernels line), for a quicker call while a phase is
@@ -3517,12 +3540,537 @@ def window_attention_times(torch, dev, gen):
     return out
 
 
+# ---- the parallel phase: sequence-parallel paths on one card ----
+
+RING_SP = 4                 # ranks of the ring composed on one card
+RING_SHAPES = [(8, 1024), (1, 32768)]   # (B, L): the train step's shape
+                                        # and the long context, L / 4 a rank
+RING_WIDTHS = (8, 4, 128)   # the flagship's Hq, Hkv, d
+RING_HOP_O_TOL = V1_WINDOW_O_TOL  # a hop's f32 partial vs the plain
+                            # version: the causal hops' first rows see 1..n
+                            # keys, as the window cases' do (|O| up to ~3, P
+                            # rounded to bf16); sound hops read 2.8e-3..3.7e-3,
+                            # the controls (a tile off, the future shown)
+                            # 0.11 and up (PR 13, calls 2-3)
+RING_O_TOL = V1_O_TOL       # the merged ring O vs one-device H1, both f32
+                            # from the kernel: sound 1.2e-4..5.9e-4, the
+                            # control (rank 0's diagonal hop a tile off) 3.6
+                            # and up (PR 13, call 3)
+
+
+def _hop_readings(torch, o, lse, ref_o, ref_lse):
+    """max|dO| and max|dLSE| of an f32 partial vs its reference; the rows
+    whose LSE is -inf must match (each side's O 0 there)."""
+    _require(torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse)),
+             "a hop's rows that see no key differ from the reference's")
+    fin = torch.isfinite(ref_lse)
+    e_lse = (lse - ref_lse)[fin].abs().max().item() if fin.any() else 0.0
+    return (o - ref_o).abs().max().item(), e_lse
+
+
+def _rel_or_zero(torch, got, ref):
+    """max|got - ref| / max|ref|, or max|got| where ref is all zero (a hop
+    that sees no key must give exactly zero)."""
+    peak = ref.float().abs().max().item()
+    diff = (got.float() - ref.float()).abs().max().item()
+    return diff / peak if peak > 0 else diff
+
+
+def ring_on_one_card(torch, dev, b, l, gen, times):
+    """Every (rank, source) hop of a causal RING_SP-rank ring at [B, L] run
+    on one card through parallel.ring's hop functions, the shards passed
+    by hand: per hop, H1, H3-dkv and H3-dq at the traced pair against the
+    same kernels at static offsets (bitwise) and the plain versions, with
+    the known-wrong controls (kv_pos0 a 64-key tile off on the diagonal
+    hop, the future hop shown its keys); then the composed ring against
+    one-device H1 and H3, with one hop's offset a tile off as control."""
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        attention_plain,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+        attention_bwd_plain,
+        flash_attention_bwd,
+        masked_attention_bwd,
+    )
+    from exploring_flash_attention_tpu_torch.parallel.ring import (
+        ring_hop_backward,
+        ring_hop_forward,
+        ring_offsets,
+    )
+
+    hq, hkv, d = RING_WIDTHS
+    n, ll = RING_SP, l // RING_SP
+    scale = 1.0 / math.sqrt(d)
+    q, do = (_bf16(torch, dev, gen, b, hq, l, d) for _ in range(2))
+    k, v = (_bf16(torch, dev, gen, b, hkv, l, d) for _ in range(2))
+    qs, ks, vs, dos = (x.chunk(n, dim=2) for x in (q, k, v, do))
+    qs, ks, vs, dos = ([c.contiguous() for c in x] for x in (qs, ks, vs, dos))
+    worst = {"h1_o": 0.0, "h1_lse": 0.0, "h3dkv": 0.0, "h3dq": 0.0}
+    ctrl = {"h1_tile": math.inf, "h1_future": math.inf,
+            "h3_tile": math.inf, "h3_future": math.inf}
+    outs, outs32, lses, launches = [], [], [], None
+
+    def fwd_rank(my, offs):
+        o = lse = None
+        for s in range(n):
+            src = (my - s) % n
+            o, lse = ring_hop_forward(qs[my], ks[src], vs[src], offs[s], o,
+                                      lse, scale, True)
+        return o, lse
+
+    for my in range(n):
+        offs = ring_offsets(my, n, ll, ll, dev)
+        zero_counters()
+        o, lse = fwd_rank(my, offs)
+        torch.cuda.synchronize()
+        fwd_counts = read_counters()
+        outs.append(o.to(torch.bfloat16))
+        outs32.append(o)
+        lses.append(lse)
+        for s in range(n):
+            src = (my - s) % n
+            diag = (my - src) * ll
+            o_t, l_t = prefill_attention(qs[my], ks[src], vs[src], scale,
+                                         offs[s], True,
+                                         out_dtype=torch.float32)
+            o_s, l_s = prefill_attention(qs[my], ks[src], vs[src], scale,
+                                         diag, True, out_dtype=torch.float32)
+            _require(torch.equal(o_t, o_s) and torch.equal(l_t, l_s),
+                     "H1 at a traced pair differs from its static launch")
+            p_o, p_l = attention_plain(qs[my], ks[src], vs[src], scale, True,
+                                       diag)
+            e_o, e_l = _hop_readings(torch, o_t, l_t, p_o, p_l)
+            worst["h1_o"] = max(worst["h1_o"], e_o)
+            worst["h1_lse"] = max(worst["h1_lse"], e_l)
+            if src == my:                   # the diagonal: a tile off
+                bad, _ = attention_plain(qs[my], ks[src], vs[src], scale,
+                                         True, diag - 64)
+                ctrl["h1_tile"] = min(ctrl["h1_tile"],
+                                      (o_t - bad).abs().max().item())
+            if src > my:                    # the future, shown its keys
+                _require(bool((o_t == 0).all()) and bool(
+                    torch.isneginf(l_t).all()), "a future hop saw a key")
+                bad, _ = attention_plain(qs[my], ks[src], vs[src], scale,
+                                         False, 0)
+                ctrl["h1_future"] = min(ctrl["h1_future"],
+                                        (o_t - bad).abs().max().item())
+            del o_t, o_s, p_o, p_l
+        # the backward, each hop under the ring's global O and LSE
+        out = outs[my]
+        delta = (dos[my].float() * out.float()).sum(dim=-1)
+        zero_counters()
+        for s in range(n):
+            src = (my - s) % n
+            ring_hop_backward(qs[my], ks[src], vs[src], out, dos[my], lses[my],
+                              delta, offs[s], scale, True)
+        torch.cuda.synchronize()
+        bwd_counts = read_counters()
+        launches = launches or {"forward_per_rank": fwd_counts,
+                                "backward_per_rank": bwd_counts}
+        for s in range(n):
+            src = (my - s) % n
+            diag = (my - src) * ll
+            g_t = ring_hop_backward(qs[my], ks[src], vs[src], out, dos[my],
+                                    lses[my], delta, offs[s], scale, True)
+            g_s = masked_attention_bwd(qs[my], ks[src], vs[src], out, dos[my],
+                                       lses[my], scale, True, diag, None,
+                                       delta=delta)
+            _require(all(torch.equal(x, y) for x, y in zip(g_t, g_s)),
+                     "H3 at a traced pair differs from its static launch")
+            g_p = attention_bwd_plain(qs[my], ks[src], vs[src], out, dos[my],
+                                      lses[my], scale, True, diag)
+            worst["h3dq"] = max(worst["h3dq"],
+                                _rel_or_zero(torch, g_t[0], g_p[0]))
+            worst["h3dkv"] = max(worst["h3dkv"],
+                                 _rel_or_zero(torch, g_t[1], g_p[1]),
+                                 _rel_or_zero(torch, g_t[2], g_p[2]))
+            if src == my:
+                bad = attention_bwd_plain(qs[my], ks[src], vs[src], out,
+                                          dos[my], lses[my], scale, True,
+                                          diag - 64)
+                ctrl["h3_tile"] = min(ctrl["h3_tile"], min(
+                    _rel_or_zero(torch, x, y) for x, y in zip(g_t, bad)))
+            if src > my:
+                _require(all(bool((x == 0).all()) for x in g_t),
+                         "a future hop's gradients are not zero")
+                bad = attention_bwd_plain(qs[my], ks[src], vs[src], out,
+                                          dos[my], lses[my], scale, False, 0)
+                ctrl["h3_future"] = min(ctrl["h3_future"], max(
+                    x.float().abs().max().item() for x in bad))
+            del g_t, g_s, g_p
+    print(f"  ring hops B={b} L={l} ({n} ranks of {ll}) Hq={hq} Hkv={hkv} "
+          f"d={d}, every (rank, source) hop at its traced pair, bitwise its "
+          f"static launch: H1 f32 O vs plain max|d| {worst['h1_o']:.3e}, "
+          f"LSE {worst['h1_lse']:.3e} (tol {RING_HOP_O_TOL:g}, "
+          f"{H1_LSE_TOL:g}); "
+          f"controls: kv_pos0 a tile off {ctrl['h1_tile']:.3e}, a future "
+          f"hop shown its keys {ctrl['h1_future']:.3e}; H3 max|d|/max|ref| "
+          f"vs plain dq {worst['h3dq']:.3e} dk/dv {worst['h3dkv']:.3e} (tol "
+          f"{H3_REL_TOL:g}); controls: a tile off {ctrl['h3_tile']:.3e}, "
+          f"the future shown {ctrl['h3_future']:.3e}; launches {launches}")
+    _require(worst["h1_o"] < RING_HOP_O_TOL and worst["h1_lse"] < H1_LSE_TOL,
+             "a hop's H1 is outside tolerance")
+    _require(max(worst["h3dq"], worst["h3dkv"]) < H3_REL_TOL,
+             "a hop's H3 is outside tolerance")
+    _require(min(ctrl["h1_tile"], ctrl["h1_future"]) > RING_HOP_O_TOL,
+             "the hop check cannot tell a wrong offset (H1)")
+    _require(min(ctrl["h3_tile"], ctrl["h3_future"]) > H3_REL_TOL,
+             "the hop check cannot tell a wrong offset (H3)")
+    want_f = launches_only(h1=n)
+    want_b = launches_only(h3dkv=n, h3dq=n)
+    _require(launches["forward_per_rank"] == want_f
+             and launches["backward_per_rank"] == want_b,
+             f"ring launches {launches}, expected {want_f}, {want_b}")
+
+    # the composed ring against one device
+    one_o, one_lse = prefill_attention(q, k, v, scale, 0, True,
+                                       out_dtype=torch.float32)
+    ring_o = torch.cat(outs32, dim=2)
+    ring_lse = torch.cat(lses, dim=2)
+    e_o = (ring_o - one_o).abs().max().item()
+    e_lse = (ring_lse - one_lse).abs().max().item()
+    one_g = flash_attention_bwd(q, k, v, one_o.to(torch.bfloat16), do,
+                                one_lse, scale, causal=True)
+    dq = [torch.zeros_like(x, dtype=torch.float32) for x in qs]
+    dk = [torch.zeros_like(x, dtype=torch.float32) for x in ks]
+    dv = [torch.zeros_like(x, dtype=torch.float32) for x in vs]
+
+    def bwd_all(offsets):
+        for x in dq + dk + dv:
+            x.zero_()
+        for my in range(n):
+            delta = (dos[my].float() * outs[my].float()).sum(dim=-1)
+            for s in range(n):
+                src = (my - s) % n
+                g = ring_hop_backward(qs[my], ks[src], vs[src], outs[my],
+                                      dos[my], lses[my], delta,
+                                      offsets[my][s], scale, True)
+                dq[my] += g[0].float()
+                dk[src] += g[1].float()
+                dv[src] += g[2].float()
+        return [torch.cat(x, dim=2) for x in (dq, dk, dv)]
+
+    offsets = [ring_offsets(my, n, ll, ll, dev) for my in range(n)]
+    e_g = [_rel(g, r) for g, r in zip(bwd_all(offsets), one_g)]
+    # control: rank 0's diagonal hop with kv_pos0 a 64-key tile off (its
+    # first rows see a handful of keys, so the tile shows at any L)
+    bad_offs = [x.clone() for x in offsets]
+    bad_offs[0][0, 1] += 64
+    bad_o, _ = fwd_rank(0, bad_offs[0])
+    e_bad_o = (bad_o - one_o[:, :, :ll]).abs().max().item()
+    e_bad_g = [_rel(g, r) for g, r in zip(bwd_all(bad_offs), one_g)]
+    print(f"  ring composed B={b} L={l}: O vs one-device H1 (f32) max|d| "
+          f"{e_o:.3e}, LSE {e_lse:.3e} (tol {RING_O_TOL:g}, "
+          f"{H1_LSE_TOL:g}); dq dk dv vs one-device H3 max|d|/max|ref| "
+          + " ".join(f"{x:.3e}" for x in e_g) + f" (tol {H3_REL_TOL:g}); "
+          f"control (rank 0's diagonal hop a tile off): O {e_bad_o:.3e}, "
+          "grads " + " ".join(f"{x:.3e}" for x in e_bad_g))
+    _require(e_o < RING_O_TOL and e_lse < H1_LSE_TOL,
+             "the ring's O differs from one device's")
+    _require(max(e_g) < H3_REL_TOL, "the ring's gradients differ")
+    _require(e_bad_o > RING_O_TOL and min(e_bad_g) > H3_REL_TOL,
+             "the ring check cannot tell a wrong hop")
+    out = {"b": b, "l": l, "l_local": ll, "hop_worst": worst,
+           "hop_controls": ctrl, "launches": launches,
+           "ring_o_err": e_o, "ring_lse_err": e_lse, "ring_grad_err": e_g,
+           "control_o": e_bad_o, "control_grads": e_bad_g}
+    if times:
+        out["times"] = hop_times(torch, qs, ks, vs, dos, outs, lses, scale)
+    return out
+
+
+def hop_times(torch, qs, ks, vs, dos, outs, lses, scale):
+    """CUDA-event medians (L2 flushed) of rank 1's diagonal hop (the
+    causal triangle) and its past hop (every key) at the traced pair beside
+    the static launch, SDPA under the hop's mask (is_causal on the
+    diagonal, none on the past hop; its autograd backward for H3) and the
+    bound; H3 each kernel alone."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.parallel.ring import ring_offsets
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    n, ll = len(qs), qs[0].shape[2]
+    b, hq, _, d = qs[0].shape
+    hkv = ks[0].shape[1]
+    offs = ring_offsets(1, n, ll, ll, qs[0].device)
+    q, do, out, lse = qs[1], dos[1], outs[1], lses[1]
+    delta = (do.float() * out.float()).sum(dim=-1)
+    q_bytes, kv_bytes = b * hq * ll * d * 2, b * hkv * ll * d * 2
+    row_bytes = b * hq * ll * 4
+    res = {}
+    for name, s, causal_lib in (("diagonal", 0, True), ("past", 1, False)):
+        src = (1 - s) % n
+        k, v, diag = ks[src], vs[src], (1 - src) * ll
+        pairs = b * hq * (ll * (ll + 1) // 2 if causal_lib else ll * ll)
+        iters = 20 if ll > 1024 else 50
+        t = {"h1": {"ms": time_cuda(lambda: prefill_attention(
+                 q, k, v, scale, offs[s], True, out_dtype=torch.float32),
+                 n_iter=iters),
+                 "static_ms": time_cuda(lambda: prefill_attention(
+                     q, k, v, scale, diag, True, out_dtype=torch.float32),
+                     n_iter=iters),
+                 "library_ms": time_cuda(lambda: sdpa(
+                     q, k, v, is_causal=causal_lib, enable_gqa=True),
+                     n_iter=iters)},
+             "h3dkv": {"ms": time_cuda(lambda: attention_bwd_dkv(
+                 q, k, v, do, lse, delta, scale, True, offs[s]),
+                 n_iter=iters),
+                 "static_ms": time_cuda(lambda: attention_bwd_dkv(
+                     q, k, v, do, lse, delta, scale, True, diag),
+                     n_iter=iters)},
+             "h3dq": {"ms": time_cuda(lambda: attention_bwd_dq(
+                 q, k, v, do, lse, delta, scale, True, offs[s]),
+                 n_iter=iters),
+                 "static_ms": time_cuda(lambda: attention_bwd_dq(
+                     q, k, v, do, lse, delta, scale, True, diag),
+                     n_iter=iters)}}
+        leaves = [x.detach().clone().requires_grad_() for x in (
+            q, k.repeat_interleave(hq // hkv, 1),
+            v.repeat_interleave(hq // hkv, 1))]
+        o_lib = sdpa(*leaves, is_causal=causal_lib)
+        lib = time_cuda(lambda: torch.autograd.grad(
+            o_lib, leaves, do, retain_graph=True), n_iter=iters)
+        t["h3dkv"]["library_ms"] = t["h3dq"]["library_ms"] = lib
+        del leaves, o_lib
+        work = {"h1": (4 * d * pairs, q_bytes + 2 * kv_bytes + 2 * q_bytes
+                       + row_bytes),
+                "h3dkv": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes
+                          + 2 * row_bytes),
+                "h3dq": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes
+                         + 2 * row_bytes)}
+        for kern, (flop, nbytes) in work.items():
+            t[kern]["bound_ms"], t[kern]["bound_by"] = roofline(flop, nbytes)
+            t[kern]["bound_share"] = t[kern]["bound_ms"] / t[kern]["ms"]
+        res[name] = t
+        print(f"  hop times B={b} L_local={ll} {name} hop (rank 1, source "
+              f"{src}, traced pair {offs[s].tolist()}): "
+              + "; ".join(f"{x} {t[x]['ms']:.4f} ms (static "
+                          f"{t[x]['static_ms']:.4f}, bound "
+                          f"{t[x]['bound_ms']:.4f} {t[x]['bound_by']}, "
+                          f"{t[x]['bound_share']:.1%}; library "
+                          f"{t[x]['library_ms']:.4f})" for x in t)
+              + " (library: SDPA, is_causal on the diagonal hop; its whole "
+                "autograd backward for H3)")
+    return res
+
+
+def hop_graph_check(torch, dev):
+    """One hop (H1, H3-dkv, H3-dq at a traced pair) captured in a CUDA
+    graph, then replayed after each rank's pairs are written into the
+    offsets tensor: every replay bitwise the eager calls at those offsets,
+    so nothing reads the pair on the host."""
+    from exploring_flash_attention_tpu_torch.graphs import no_collection
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+        masked_attention_bwd,
+    )
+    from exploring_flash_attention_tpu_torch.parallel.ring import ring_offsets
+
+    gen = torch.Generator().manual_seed(11)
+    hq, hkv, d = RING_WIDTHS
+    b, ll = 8, 256
+    scale = 1.0 / math.sqrt(d)
+    q, do = (_bf16(torch, dev, gen, b, hq, ll, d) for _ in range(2))
+    k, v = (_bf16(torch, dev, gen, b, hkv, ll, d) for _ in range(2))
+    out = _bf16(torch, dev, gen, b, hq, ll, d)
+    lse = torch.randn(b, hq, ll, generator=gen).to(dev) + 6.0
+    offs = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def hop():
+        o, l_ = prefill_attention(q, k, v, scale, offs, True,
+                                  out_dtype=torch.float32)
+        return (o, l_, *masked_attention_bwd(q, k, v, out, do, lse, scale,
+                                             True, offs, None))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hop()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with no_collection(), torch.cuda.graph(graph):
+        captured = hop()
+    pairs = torch.cat([ring_offsets(my, RING_SP, ll, ll, dev)
+                       for my in range(RING_SP)])
+    same = []
+    for pair in pairs:
+        offs.copy_(pair)
+        graph.replay()
+        eager = hop()
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(x, y) for x, y in zip(captured, eager)))
+    print(f"  hop graph: H1 + H3-dkv + H3-dq captured once, replayed at "
+          f"{len(pairs)} traced pairs written into the offsets tensor: "
+          f"bitwise the eager calls at every one: {all(same)}")
+    _require(all(same), "a replayed hop differs from its eager call")
+    return len(pairs)
+
+
+def sharded_train_check(torch, dev):
+    """make_train_step(mesh=) on a one-rank NCCL group (MeshConfig(1, 1,
+    1): the ring's single hop at the traced pair (0, 0), the tp and data
+    all-reduces over one rank) at the flagship's widths on tokens
+    [8, 1025], against make_train_step(mesh=None) on the same weights (SGD
+    at 0.1): the loss, every leaf's gradient (the mesh step's after its
+    all-reduces) and the updated parameters, with the ring's diagonal key
+    hidden (its offsets one key off) as the control; the launches of the
+    mesh step; step times of both."""
+    import tempfile
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from exploring_flash_attention_tpu_torch.configs import MeshConfig
+    from exploring_flash_attention_tpu_torch.models import (
+        flagship_config,
+        init_params,
+        make_train_step,
+        named_param_leaves,
+    )
+    from exploring_flash_attention_tpu_torch.parallel import ring as ring_mod
+    from exploring_flash_attention_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+    )
+
+    cfg = flagship_config()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 1025)).astype(np.int32)).to(dev)
+    sgd = lambda leaves: torch.optim.SGD(leaves, lr=0.1)   # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(0, 1, f"file://{tmp}/rendezvous", "cuda")
+        try:
+            mesh = make_mesh(MeshConfig(1, 1, 1), "cuda")
+            runs = {}
+            for name, m in (("one_device", None), ("mesh", mesh),
+                            ("control", mesh)):
+                params = init_params(cfg, seed=0, device=dev)
+                step, opt_init = make_train_step(cfg, mesh=m, optimizer=sgd)
+                opt = opt_init(params)
+                orig = ring_mod.ring_offsets
+                hide = (lambda *a: orig(*a) + torch.tensor(     # noqa: E731
+                    [0, 1], dtype=torch.int32, device=dev))
+                with (mock.patch.object(ring_mod, "ring_offsets", hide)
+                      if name == "control" else contextlib.nullcontext()):
+                    zero_counters()
+                    loss = step(params, opt, tokens).item()
+                    torch.cuda.synchronize()
+                    counts = read_counters()
+                names, leaves = zip(*named_param_leaves(params))
+                grads = [x.grad.clone() for x in leaves]
+                new = [x.detach().clone() for x in leaves]
+                times = []
+                if name != "control":
+                    for _ in range(4):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        step(params, opt, tokens)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                runs[name] = {"loss": loss, "grads": grads, "new": new,
+                              "counts": counts,
+                              "step_s": float(np.median(times[1:]))
+                              if times else None}
+                del params, opt, step, leaves
+        finally:
+            dist.destroy_process_group()
+    ref = runs["one_device"]
+    want = launches_only(h1=cfg.n_layers, h3dkv=cfg.n_layers,
+                         h3dq=cfg.n_layers)
+    res = {}
+    for name in ("mesh", "control"):
+        r = runs[name]
+        e_grad, leaf = leaf_err(names, r["grads"], ref["grads"])
+        res[name] = {"loss_err": abs(r["loss"] - ref["loss"]),
+                     "grad_err": e_grad, "leaf": leaf,
+                     "params_bitwise": all(torch.equal(x, y) for x, y in zip(
+                         r["new"], ref["new"]))}
+    m, c = res["mesh"], res["control"]
+    print(f"  sharded step (MeshConfig(1, 1, 1), NCCL, one rank) at the "
+          f"flagship's widths, tokens [8, 1025], SGD 0.1: loss "
+          f"{runs['mesh']['loss']:.6f} vs mesh=None {ref['loss']:.6f}, |d| "
+          f"{m['loss_err']:.3e} (tol {TRAIN_LOSS_TOL:g}); largest per-leaf "
+          f"||dg|| / ||g|| {m['grad_err']:.3e} at {m['leaf']} (tol "
+          f"{GRAD_REL_TOL:g}); updated params bitwise: "
+          f"{m['params_bitwise']}; control (the ring's diagonal key hidden) "
+          f"loss {c['loss_err']:.3e}, grads {c['grad_err']:.3e} at "
+          f"{c['leaf']}; launches {runs['mesh']['counts']} (expected "
+          f"{want}); step times s: mesh {runs['mesh']['step_s']:.5f}, "
+          f"mesh=None {ref['step_s']:.5f}")
+    _require(m["loss_err"] < TRAIN_LOSS_TOL and m["grad_err"] < GRAD_REL_TOL,
+             "the sharded step differs from the one-device step")
+    _require(c["loss_err"] > TRAIN_LOSS_TOL and c["grad_err"] > GRAD_REL_TOL,
+             "the sharded-step check cannot tell a wrong ring")
+    _require(runs["mesh"]["counts"] == want,
+             "the sharded step missed a kernel")
+    return {"loss_err": m["loss_err"], "grad_err": m["grad_err"],
+            "params_bitwise": m["params_bitwise"],
+            "control": c, "launches": runs["mesh"]["counts"],
+            "step_s": runs["mesh"]["step_s"],
+            "one_device_step_s": ref["step_s"]}
+
+
+def phase_parallel(torch, dev):
+    """The sequence-parallel paths on one card: the ring's hops at both
+    RING_SHAPES, the hop under graph replay, the sharded train step on a
+    one-rank NCCL group and parallel.dryrun.dryrun_multichip(1).  A
+    collective across ranks needs a card a rank (NCCL refuses two ranks on
+    one GPU); the gloo tests on the CPU check those."""
+    from exploring_flash_attention_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+    )
+
+    gen = torch.Generator().manual_seed(13)
+    rings = {f"B={b} L={l}": ring_on_one_card(torch, dev, b, l, gen,
+                                              times=True)
+             for b, l in RING_SHAPES}
+    graph_pairs = hop_graph_check(torch, dev)
+    sharded = sharded_train_check(torch, dev)
+    dry = dryrun_multichip(1, "cuda")
+    print("phase parallel: ok")
+    return {"rings": rings, "graph_pairs": graph_pairs, "sharded": sharded,
+            "dryrun": dry}
+
+
+def ring_launches(par, which, kern):
+    """A kernel's launches per rank in one ring pass (both shapes agree)."""
+    counts = {r["launches"][which][kern] for r in par["rings"].values()}
+    _require(len(counts) == 1, f"ring launches differ by shape: {counts}")
+    return counts.pop()
+
+
+def device_offset_readings(par, kern):
+    """The kernels line's record of a kernel's traced-offset mode: per ring
+    shape, the worst hop against its plain version (H1: max|dO| of the f32
+    partial; H3: max|d| / max|ref|) and the hop times; the graph replays;
+    the sharded step's check."""
+    err = {"h1": "h1_o", "h3dkv": "h3dkv", "h3dq": "h3dq"}[kern]
+    return {"mode": "offsets read by every block from a device int32 pair "
+                    "(q_pos0, kv_pos0)",
+            "graph_replay_pairs_bitwise": par["graph_pairs"],
+            "by_ring_shape": {
+                name: {"max_hop_err_vs_plain": r["hop_worst"][err],
+                       "hop_times": {hop: x[kern]
+                                     for hop, x in r["times"].items()}}
+                for name, r in par["rings"].items()},
+            "sharded_train_step": par["sharded"]}
+
+
 # the phases `--only` takes (a quicker call while a phase is worked on; the
 # full run, with no arguments, runs every phase and prints the kernels line)
 PHASES = ("h1", "v1", "v2", "quant", "dtiled", "decode", "extend",
           "scheduler", "bwd", "slice", "multiturn", "speculative", "train",
-          "encoder", "seq2seq", "window_train", "window_generate",
-          "time_kernels")
+          "encoder", "seq2seq", "parallel", "window_train",
+          "window_generate", "time_kernels")
 
 
 def run_only(torch, dev, names):
@@ -3588,6 +4136,7 @@ def main(argv) -> int:
     train, _ = phase_train(torch, dev)
     encoder, _ = phase_encoder(torch, dev)
     s2s = phase_seq2seq(torch, dev)
+    par = phase_parallel(torch, dev)
     wtrain, _ = phase_window_train(torch, dev)
     wturn1, wturn2, wgen = phase_window_generate(torch, dev)
     t = time_kernels(torch, dev)
@@ -3622,7 +4171,12 @@ def main(argv) -> int:
                               "spec_generate_distilled":
                                   spec_dist["launches"]["h1"],
                               "distill_draft": distill["h1"],
-                              "seq2seq_step": s2s["launches"]["h1"]},
+                              "seq2seq_step": s2s["launches"]["h1"],
+                              "sharded_train_step":
+                                  par["sharded"]["launches"]["h1"],
+                              "ring_forward_per_rank": ring_launches(
+                                  par, "forward_per_rank", "h1")},
+         "device_offsets": device_offset_readings(par, "h1"),
          "seq2seq_cross_shape": t["seq2seq_cross"]["h1"],
          "window_train_shape": {m: t["window_train_shape"][m]["h1"]
                                 for m in ("window", "causal")},
@@ -3711,7 +4265,12 @@ def main(argv) -> int:
                                 "encoder_step": encoder[f"h3{n}"],
                                 "window_train_step": wtrain[f"h3{n}"],
                                 "seq2seq_step": s2s["launches"][f"h3{n}"],
-                                "distill_draft": distill[f"h3{n}"]},
+                                "distill_draft": distill[f"h3{n}"],
+                                "sharded_train_step":
+                                    par["sharded"]["launches"][f"h3{n}"],
+                                "ring_backward_per_rank": ring_launches(
+                                    par, "backward_per_rank", f"h3{n}")},
+           "device_offsets": device_offset_readings(par, f"h3{n}"),
            "seq2seq_cross_shape": t["seq2seq_cross"][f"h3{n}"],
            "max_abs_err_seq2seq_cross_shape":
                h3_err["cross"][f"h3{n}"],

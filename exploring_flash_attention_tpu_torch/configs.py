@@ -1,7 +1,8 @@
 """Config helpers of the PyTorch port.
 
-Counterpart of ``exploring_flash_attention_tpu/configs.py``: ``cdiv`` and
-the split-KV knobs (:class:`SplitKVConfig`).  The Hopper kernels fix their
+Counterpart of ``exploring_flash_attention_tpu/configs.py``: ``cdiv``,
+the split-KV knobs (:class:`SplitKVConfig`) and the device mesh's layout
+(:class:`MeshConfig`).  The Hopper kernels fix their
 own tiles in ``csrc/``, so the JAX package's ``TileConfig`` on its own
 comes back only when a kernel takes tile sizes as launch parameters.
 """
@@ -9,7 +10,7 @@ comes back only when a kernel takes tile sizes as launch parameters.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def cdiv(a: int, b: int) -> int:
@@ -88,3 +89,25 @@ class SplitKVConfig:
         block_kv = min(self.block_kv, max(seq_len_kv, 8))
         return min(self.kv_tiles_per_block,
                    cdiv(seq_len_kv, block_kv)) * block_kv
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout of the multi-GPU paths, the JAX package's
+    ``MeshConfig`` (``configs.py:139-157``): ``dp`` data (batch), ``tp``
+    tensor (heads and FFN columns), ``sp`` sequence (ring, Ulysses or the
+    windowed tail hop over the sequence).  ``parallel.make_mesh`` lays the
+    ranks of a ``torch.distributed`` job out in this shape."""
+
+    dp: int = 1
+    tp: int = 1
+    sp: int = 1
+    axis_names: Tuple[str, str, str] = ("dp", "tp", "sp")
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return (self.dp, self.tp, self.sp)
+
+    @property
+    def n_devices(self) -> int:
+        return self.dp * self.tp * self.sp

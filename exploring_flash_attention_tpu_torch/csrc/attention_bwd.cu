@@ -12,8 +12,10 @@
 //   B15 _dq_kernel            :205  tiled dQ, grid (bh, n_q, n_kv)
 // H3-dkv takes the dK/dV halves and H3-dq the dQ halves.  B11's fused form
 // would need a sum of dQ across blocks (atomics, whose order changes from
-// run to run), so it is split as B12 and B13 are.  Not ported: B14/B15's
-// traced offsets.
+// run to run), so it is split as B12 and B13 are.  The traced offsets of
+// B11-B15 (their offs_ref SMEM operand) come as a device pointer to the
+// int32 pair (q_pos0, kv_pos0), read by each block before it derives its
+// loop bounds: no host read, and a CUDA graph replays with new offsets.
 //
 //   P  = exp2(S * scale * log2e - lse * log2e),  S = Q K^T,
 //        0 where row i does not see key j and on rows with lse = -inf
@@ -353,8 +355,11 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq,
                          bf16* __restrict__ dk,            // [B, Hkv, Lkv, D]
                          bf16* __restrict__ dv,            // [B, Hkv, Lkv, D]
                          int hq, int hkv, int lq, int lkv, int mask,
-                         int diag_off, int window, float scale) {
+                         int diag_off, int window,
+                         const int* __restrict__ offs,  // (q_pos0, kv_pos0) or null
+                         float scale) {
   using T = DkvTiles<D>;
+  if (offs != nullptr) diag_off = offs[0] - offs[1];
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sk = smem + T::k;
@@ -563,8 +568,11 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq,
                         const float* __restrict__ delta,   // [B, Hq, Lq]
                         bf16* __restrict__ dq,             // [B, Hq, Lq, D]
                         int hq, int group, int lq, int lkv, int mask,
-                        int diag_off, int window, float scale) {
+                        int diag_off, int window,
+                        const int* __restrict__ offs,  // (q_pos0, kv_pos0) or null
+                        float scale) {
   using T = DqTiles<D>;
+  if (offs != nullptr) diag_off = offs[0] - offs[1];
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sq = smem + T::q;
@@ -653,7 +661,8 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int batch, int hq, int hkv, int lq, int lkv, int mask,
-               int diag_off, int window, float scale, cudaStream_t stream) {
+               int diag_off, int window, const int* offs, float scale,
+               cudaStream_t stream) {
   using T = DkvTiles<D>;
   CUtensorMap m[4];
   const int err = make_maps<D>(m, q, dout, k, v, batch, hq, hkv, lq, lkv,
@@ -667,7 +676,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   attention_bwd_dkv_kernel<D><<<grid, THREADS, T::bytes, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), hq, hkv, lq, lkv, mask, diag_off, window,
+      static_cast<bf16*>(dv), hq, hkv, lq, lkv, mask, diag_off, window, offs,
       scale);
   return int(cudaGetLastError());
 }
@@ -676,7 +685,7 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int batch,
               int hq, int hkv, int lq, int lkv, int mask, int diag_off,
-              int window, float scale, cudaStream_t stream) {
+              int window, const int* offs, float scale, cudaStream_t stream) {
   using T = DqTiles<D>;
   CUtensorMap m[4];
   const int err = make_maps<D>(m, q, dout, k, v, batch, hq, hkv, lq, lkv,
@@ -690,7 +699,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   attention_bwd_dq_kernel<D><<<grid, THREADS, T::bytes, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), hq, hq / hkv,
-      lq, lkv, mask, diag_off, window, scale);
+      lq, lkv, mask, diag_off, window, offs, scale);
   return int(cudaGetLastError());
 }
 
@@ -709,27 +718,30 @@ bool bad_args(int batch, int hq, int hkv, int lq, int lkv, int mask,
 // in ops/attention_bwd.py have already checked shapes, dtypes, contiguity
 // and alignment; the checks here only refuse what would index out of
 // bounds or exceed a grid dimension.  mask: 0 none, 1 causal, 2 window
-// (window >= 1), as eft_prefill_attention takes it.
+// (window >= 1) and offs (null, or the device int32 pair (q_pos0, kv_pos0)
+// that replaces diag_off), as eft_prefill_attention takes them.
 extern "C" int eft_attention_bwd_dkv(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
                                      void* dk, void* dv, int batch, int hq,
                                      int hkv, int lq, int lkv, int d,
                                      int mask, int diag_off, int window,
-                                     float scale, int device, void* stream) {
+                                     const void* offs, float scale,
+                                     int device, void* stream) {
   if (bad_args(batch, hq, hkv, lq, lkv, mask, window))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* po = static_cast<const int*>(offs);
   switch (d) {
     case 64:
       return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, hq,
-                            hkv, lq, lkv, mask, diag_off, window, scale, s);
+                            hkv, lq, lkv, mask, diag_off, window, po, scale, s);
     case 128:
       return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, hq,
-                             hkv, lq, lkv, mask, diag_off, window, scale, s);
+                             hkv, lq, lkv, mask, diag_off, window, po, scale, s);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -740,20 +752,22 @@ extern "C" int eft_attention_bwd_dq(const void* q, const void* k,
                                     const void* lse, const void* delta,
                                     void* dq, int batch, int hq, int hkv,
                                     int lq, int lkv, int d, int mask,
-                                    int diag_off, int window, float scale,
+                                    int diag_off, int window,
+                                    const void* offs, float scale,
                                     int device, void* stream) {
   if (bad_args(batch, hq, hkv, lq, lkv, mask, window))
     return int(cudaErrorInvalidValue);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* po = static_cast<const int*>(offs);
   switch (d) {
     case 64:
       return launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, lq,
-                           lkv, mask, diag_off, window, scale, s);
+                           lkv, mask, diag_off, window, po, scale, s);
     case 128:
       return launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, hq, hkv,
-                            lq, lkv, mask, diag_off, window, scale, s);
+                            lq, lkv, mask, diag_off, window, po, scale, s);
     default:
       return int(cudaErrorInvalidValue);
   }

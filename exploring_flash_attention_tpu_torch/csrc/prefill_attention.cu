@@ -21,8 +21,10 @@
 // block per (batch*q-head, Q tile, span), and each block writes the
 // partial (O normalized over its span, the span's LSE) of B8's multi-span
 // form and B9 into o [B, Hq, nkb, Lq, D] and lse [B, Hq, nkb, Lq];
-// H2 (splitkv_combine.cu) merges them.  B9's traced offsets are not
-// ported here.
+// H2 (splitkv_combine.cu) merges them.  B9's traced offsets come as a
+// device pointer to the int32 pair (q_pos0, kv_pos0): each block reads it
+// before it derives anything from diag_off, so the host never reads the
+// offsets and a launch captured in a CUDA graph takes new ones on replay.
 // Causal and window masks use the decode convention: row i sits at
 // position i + diag_off of the key axis (diag_off = q_pos0 - kv_pos0,
 // Lkv - Lq by default) and sees key j iff j <= i + diag_off; a window
@@ -342,9 +344,12 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, 
                          int out_f32,                           // o f32, else bf16
                          float* __restrict__ lse,               // [B, Hq, Lq] or null
                          int hq, int group, int lq, int lkv, int mask,
-                         int diag_off, int window, int kv_span,
-                         float scale_log2) {
+                         int diag_off, int window,
+                         const int* __restrict__ offs,  // (q_pos0, kv_pos0) or null
+                         int kv_span, float scale_log2) {
   using T = Tiles<D>;
+  // traced offsets: the diagonal comes from device memory, not the host
+  if (offs != nullptr) diag_off = offs[0] - offs[1];
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sq = smem + T::q;
@@ -424,8 +429,8 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            int out_f32, void* lse, int batch, int hq, int hkv, int lq,
-           int lkv, int mask, int diag_off, int window, int kv_span,
-           float scale, cudaStream_t stream) {
+           int lkv, int mask, int diag_off, int window, const int* offs,
+           int kv_span, float scale, cudaStream_t stream) {
   using T = Tiles<D>;
   CUtensorMap tq, tk, tv;
   int err = make_tmap(&tq, q, 2, D, lq, batch * hq, T::BOX, BQ, T::ROW);
@@ -442,7 +447,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
                   (lkv + span - 1) / span);
   prefill_attention_kernel<D><<<grid, THREADS, T::bytes, stream>>>(
       tq, tk, tv, o, out_f32, static_cast<float*>(lse), hq, hq / hkv, lq,
-      lkv, mask, diag_off, window, span, scale * 1.4426950408889634f);
+      lkv, mask, diag_off, window, offs, span, scale * 1.4426950408889634f);
   return int(cudaGetLastError());
 }
 
@@ -452,13 +457,16 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // ops/attention.py has already checked shapes, dtypes, contiguity and
 // alignment; the checks here only refuse what would index out of bounds.
 // mask: 0 none, 1 causal, 2 window (window >= 1); lse may be null.
+// offs: null (diag_off holds the diagonal) or a device pointer to the
+// int32 pair (q_pos0, kv_pos0), whose difference replaces diag_off.
 // kv_span: 0 for one span over the whole KV, else a multiple of 128 keys,
 // and o / lse hold cdiv(lkv, kv_span) partials per row.
 extern "C" int eft_prefill_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int batch, int hq, int hkv, int lq,
                                      int lkv, int d, int mask, int diag_off,
-                                     int window, int kv_span, int out_f32,
+                                     int window, const void* offs,
+                                     int kv_span, int out_f32,
                                      float scale, int device, void* stream) {
   if (batch <= 0 || hkv <= 0 || hq % hkv != 0 || lq <= 0 || lkv <= 0 ||
       mask < MASK_NONE || mask > MASK_WINDOW ||
@@ -469,16 +477,17 @@ extern "C" int eft_prefill_attention(const void* q, const void* k,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* o_offs = static_cast<const int*>(offs);
   switch (d) {
     case 32:
       return launch<32>(q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv,
-                        mask, diag_off, window, kv_span, scale, s);
+                        mask, diag_off, window, o_offs, kv_span, scale, s);
     case 64:
       return launch<64>(q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv,
-                        mask, diag_off, window, kv_span, scale, s);
+                        mask, diag_off, window, o_offs, kv_span, scale, s);
     case 128:
       return launch<128>(q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv,
-                         mask, diag_off, window, kv_span, scale, s);
+                         mask, diag_off, window, o_offs, kv_span, scale, s);
     default:
       return int(cudaErrorInvalidValue);
   }

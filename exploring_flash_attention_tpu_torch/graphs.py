@@ -16,7 +16,9 @@ launches whichever way a step runs.
 
 from __future__ import annotations
 
-from typing import Callable, Generic, Sequence, TypeVar
+import contextlib
+import gc
+from typing import Callable, Generic, Iterator, Sequence, TypeVar
 
 import torch
 
@@ -46,6 +48,24 @@ def launch_counted():
             flash_attention_v1_dtiled)
 
 
+@contextlib.contextmanager
+def no_collection() -> Iterator[None]:
+    """Collect Python's cyclic garbage now, then keep the collector off
+    until the block ends: wrap a CUDA graph capture in it.  A dead engine's
+    graphs can sit in a reference cycle; collected inside another capture,
+    their teardown frees device memory, which a capturing stream forbids,
+    and that capture fails (torch's ``graph`` no longer collects before a
+    capture, ``torch.compiler.config.force_cudagraph_gc``)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class StepGraph(Generic[T]):
     """``step()`` captured as one CUDA graph on ``device``; :meth:`replay`
     runs it again and returns the same output tensors, rewritten.
@@ -70,7 +90,7 @@ class StepGraph(Generic[T]):
         counted = launch_counted()
         before = [fn.launches for fn in counted]
         try:
-            with torch.cuda.graph(self.graph):
+            with no_collection(), torch.cuda.graph(self.graph):
                 self.out: T = step()
         finally:
             captured = [fn.launches - n for fn, n in zip(counted, before)]

@@ -33,8 +33,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, batch, hq, hkv, lq, lkv, d, mask, diag_off, window,
-    # kv_span, out_f32, scale, device, stream
-    "eft_prefill_attention": [_P] * 5 + [_I] * 11 + [_F, _I, _P],
+    # offs, kv_span, out_f32, scale, device, stream (offs: null, or the
+    # device int32 pair (q_pos0, kv_pos0) that replaces diag_off)
+    "eft_prefill_attention": [_P] * 5 + [_I] * 9 + [_P] + [_I] * 2
+                             + [_F, _I, _P],
     # o_part, lse, o, n_bh, nkb, lq, d, out_f32, device, stream
     "eft_splitkv_combine": [_P] * 3 + [_I] * 6 + [_P],
     # q, pages, scales, page_table, seq_lens, slots, o_part, lse, o,
@@ -45,11 +47,11 @@ _SIGNATURES = {
     # page_size, max_pages, max_seqs, n_pages, window, scale, device, stream
     "eft_paged_extend": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
     # q, k, v, do, lse, delta, dk, dv, batch, hq, hkv, lq, lkv, d, mask,
-    # diag_off, window, scale, device, stream
-    "eft_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+    # diag_off, window, offs, scale, device, stream
+    "eft_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_P, _F, _I, _P],
     # q, k, v, do, lse, delta, dq, batch, hq, hkv, lq, lkv, d, mask,
-    # diag_off, window, scale, device, stream
-    "eft_attention_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
+    # diag_off, window, offs, scale, device, stream
+    "eft_attention_bwd_dq": [_P] * 7 + [_I] * 9 + [_P, _F, _I, _P],
     # q, k, v, ks, vs, o, batch, heads, lq, lkv, d, block, n_blocks,
     # kv_kind, out_f32, scale_log2, device, stream
     "eft_kvquant_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _P],

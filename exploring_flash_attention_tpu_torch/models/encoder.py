@@ -10,8 +10,10 @@ with the masked-language-model objective::
 
 The mask is drawn from an explicit ``torch.Generator``.  Its bits differ
 from ``jax.random``'s for the same seed, so a comparison with the JAX
-package hands both sides the same mask (``mask=``).  The sharded step is
-not ported.
+package hands both sides the same mask (``mask=``).  The sharded step
+runs over a (dp, tp, sp) mesh as the decoder's does
+(``models/transformer.py``), with bidirectional attention over sp through
+Ulysses (``parallel/ulysses.py``).
 """
 
 from __future__ import annotations
@@ -19,14 +21,22 @@ from __future__ import annotations
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from exploring_flash_attention_tpu_torch.models.transformer import (
     ModelConfig,
     OptimizerFactory,
     Params,
+    dp_rows,
     forward,
     make_optimizer_init,
+    param_leaves,
+    reduce_over_data,
+)
+from exploring_flash_attention_tpu_torch.parallel.mesh import (
+    axis_size,
+    check_mesh,
 )
 
 
@@ -84,13 +94,18 @@ def make_mlm_train_step(
     ``mask``), runs :func:`mlm_loss`, the backward and one ``opt.step()``,
     and returns the loss (detached, not synchronized).  It updates
     ``params`` and ``opt`` in place, where the JAX step returns new ones.
-    The sharded step is not ported: a ``mesh`` raises
-    ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded MLM train step is not ported yet")
+
+    With a ``mesh`` (``:100-140`` of the JAX package), every rank calls the
+    step on the same global tokens, generator state or ``mask`` (the mask
+    is drawn at the global shape, so every rank draws the same), with its
+    tp slices of the parameters; it takes its dp rows and sp block, divides
+    its masked cross-entropy by the global masked count, and sums the
+    gradients and the loss over dp and sp (JAX's ``psum``)."""
     optimizer_init = make_optimizer_init(optimizer, learning_rate)
     mtok = config.vocab_size - 1 if mask_token is None else mask_token
+    if mesh is not None:
+        return _sharded_mlm_step(config, mesh, mtok, mask_rate), \
+            optimizer_init
 
     def train_step(params: Params, opt: torch.optim.Optimizer, tokens,
                    generator: Optional[torch.Generator],
@@ -104,3 +119,40 @@ def make_mlm_train_step(
         return loss.detach()
 
     return train_step, optimizer_init
+
+
+def _sharded_mlm_step(config: ModelConfig, mesh, mtok: int,
+                      mask_rate: float) -> Callable[..., torch.Tensor]:
+    check_mesh(mesh)
+    tp_g, sp_g = mesh.get_group("tp"), mesh.get_group("sp")
+
+    def train_step(params: Params, opt: torch.optim.Optimizer, tokens,
+                   generator: Optional[torch.Generator],
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        tokens = torch.as_tensor(tokens, device=params["embed"].device)
+        if mask is None:
+            inputs, mask = mask_tokens(tokens, generator, mtok, mask_rate)
+        else:
+            mask = torch.as_tensor(mask, dtype=torch.bool,
+                                   device=tokens.device)
+            inputs = torch.where(mask, mtok, tokens)
+        l_local = tokens.shape[1] // axis_size(mesh, "sp")
+        cols = slice(mesh.get_local_rank("sp") * l_local,
+                     (mesh.get_local_rank("sp") + 1) * l_local)
+        inputs, tokens, mask = (dp_rows(x, mesh)[:, cols]
+                                for x in (inputs, tokens, mask))
+        denom = mask.sum().float().reshape(1)
+        for axis in ("dp", "sp"):
+            dist.all_reduce(denom, group=mesh.get_group(axis))
+        opt.zero_grad(set_to_none=True)
+        logits = forward(params, inputs, config, False, tp_g, sp_g)
+        ce = F.cross_entropy(logits.flatten(0, 1), tokens.flatten().long(),
+                             reduction="none").view(tokens.shape)
+        loss = torch.where(mask, ce, 0.0).sum() / denom.clamp(min=1)[0]
+        loss.backward()
+        loss = reduce_over_data(mesh, [p.grad for p in param_leaves(params)],
+                                loss.detach(), mean=False)
+        opt.step()
+        return loss
+
+    return train_step

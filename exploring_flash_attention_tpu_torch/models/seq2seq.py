@@ -16,8 +16,11 @@ the loss is teacher-forcing cross-entropy over the target.  Parameters
 have the JAX pytree's structure and leaf shapes, and ``init_seq2seq_params``
 draws the JAX package's NumPy numbers in its order, so a seed gives the
 same weights in both packages.  Every attention is :func:`flash_attention`,
-differentiable through H3.  The sharded step (``mesh``) and
-``seq2seq_param_spec`` are not ported: they come with the multi-GPU port.
+differentiable through H3.  The sharded step (``mesh``) runs as the
+decoder-only one does (``models/transformer.py``): tp cuts every
+attention and FFN, sp cuts both the source and the target, the decoder's
+causal self-attention runs the ring and the encoder's and the cross
+attention run Ulysses (K/V gathered when the heads do not split).
 """
 
 from __future__ import annotations
@@ -27,8 +30,14 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from exploring_flash_attention_tpu_torch.models.parallel_layers import (
+    f_tp,
+    g_tp,
+    gather_seq,
+)
 from exploring_flash_attention_tpu_torch.models.transformer import (
     ModelConfig,
     OptimizerFactory,
@@ -36,10 +45,24 @@ from exploring_flash_attention_tpu_torch.models.transformer import (
     _mlp_block,
     _rmsnorm,
     adam,
+    dp_rows,
     make_optimizer_init,
+    param_leaves,
+    reduce_over_data,
     rope,
 )
 from exploring_flash_attention_tpu_torch.ops.attention import flash_attention
+from exploring_flash_attention_tpu_torch.parallel.mesh import (
+    axis_size,
+    check_mesh,
+    shard_tree,
+)
+from exploring_flash_attention_tpu_torch.parallel.ring import (
+    ring_flash_attention,
+)
+from exploring_flash_attention_tpu_torch.parallel.ulysses import (
+    ulysses_flash_attention,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,49 +141,76 @@ def _qkv(p: Params, h: torch.Tensor, kv_src: Optional[torch.Tensor] = None
     return q, k, v
 
 
-def _self_attn(p: Params, x: torch.Tensor, c: ModelConfig,
-               causal: bool) -> torch.Tensor:
+def _sp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, sp_axis) -> torch.Tensor:
+    """Attention of (possibly) sequence-sharded q/k/v, as the JAX package's
+    ``_sp_attention`` routes it: one device; the ring for causal shards;
+    Ulysses for bidirectional and cross-length ones, or K/V gathered when
+    the heads do not split over sp."""
+    if sp_axis is None:
+        return flash_attention(q, k, v, causal=causal)
+    if causal:
+        return ring_flash_attention(q, k, v, sp_axis, None, True)
+    n = dist.get_world_size(sp_axis)
+    if q.shape[1] % n == 0 and k.shape[1] % n == 0:
+        return ulysses_flash_attention(q, k, v, sp_axis, None, False)
+    return flash_attention(q, gather_seq(k, sp_axis, 2),
+                           gather_seq(v, sp_axis, 2), causal=False)
+
+
+def _self_attn(p: Params, x: torch.Tensor, c: ModelConfig, causal: bool,
+               tp_axis=None, sp_axis=None) -> torch.Tensor:
     h = _rmsnorm(x, p["ln1"], c.norm_eps)
+    if tp_axis is not None:
+        h = f_tp(h, tp_axis)          # the norm's grad needs the tp sum
     q, k, v = _qkv(p, h)
     if c.use_rope:
-        pos = torch.arange(x.shape[1], device=x.device)
+        pos0 = 0 if sp_axis is None else dist.get_rank(sp_axis) * x.shape[1]
+        pos = pos0 + torch.arange(x.shape[1], device=x.device)
         q = rope(q, pos, c.rope_theta)
         k = rope(k, pos, c.rope_theta)
-    o = flash_attention(q, k, v, causal=causal)
-    return torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
+    o = _sp_attention(q, k, v, causal, sp_axis)
+    out = torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
+    return out if tp_axis is None else g_tp(out, tp_axis)
 
 
 def _cross_attn(p: Params, x: torch.Tensor, memory: torch.Tensor,
-                c: ModelConfig) -> torch.Tensor:
+                c: ModelConfig, tp_axis=None, sp_axis=None) -> torch.Tensor:
     """Decoder queries against encoder memory: Lq = L_tgt, Lkv = L_src, no
-    mask, no positions."""
+    mask, no positions.  Under sp each side carries its own sequence
+    block, and Ulysses gathers each side's own length."""
     h = _rmsnorm(x, p["ln_x"], c.norm_eps)
+    if tp_axis is not None:
+        h = f_tp(h, tp_axis)
+        memory = f_tp(memory, tp_axis)
     q, k, v = _qkv(p["cross"], h, kv_src=memory)
-    o = flash_attention(q, k, v, causal=False)
-    return torch.einsum("bhld,hde->ble", o.to(x.dtype), p["cross"]["wo"])
+    o = _sp_attention(q, k, v, False, sp_axis)
+    out = torch.einsum("bhld,hde->ble", o.to(x.dtype), p["cross"]["wo"])
+    return out if tp_axis is None else g_tp(out, tp_axis)
 
 
-def encode(params: Params, src_tokens: torch.Tensor,
-           config: Seq2SeqConfig) -> torch.Tensor:
+def encode(params: Params, src_tokens: torch.Tensor, config: Seq2SeqConfig,
+           tp_axis=None, sp_axis=None) -> torch.Tensor:
     """Encoder memory [B, L_src, E]: bidirectional self-attention."""
     c = config.base
     x = params["embed"][src_tokens.long()].to(c.dtype)
     for p in params["enc_layers"]:
-        x = x + _self_attn(p, x, c, causal=False)
-        x = x + _mlp_block(p, x, c)
+        x = x + _self_attn(p, x, c, False, tp_axis, sp_axis)
+        x = x + _mlp_block(p, x, c, tp_axis)
     return _rmsnorm(x, params["ln_enc"], c.norm_eps)
 
 
 def decode(params: Params, tgt_tokens: torch.Tensor, memory: torch.Tensor,
-           config: Seq2SeqConfig) -> torch.Tensor:
+           config: Seq2SeqConfig, tp_axis=None, sp_axis=None
+           ) -> torch.Tensor:
     """Decoder logits f32 [B, L_tgt, V]: causal self-attention, cross
     attention, MLP per layer."""
     c = config.base
     x = params["embed"][tgt_tokens.long()].to(c.dtype)
     for p in params["dec_layers"]:
-        x = x + _self_attn(p, x, c, causal=True)
-        x = x + _cross_attn(p, x, memory, c)
-        x = x + _mlp_block(p, x, c)
+        x = x + _self_attn(p, x, c, True, tp_axis, sp_axis)
+        x = x + _cross_attn(p, x, memory, c, tp_axis, sp_axis)
+        x = x + _mlp_block(p, x, c, tp_axis)
     x = _rmsnorm(x, params["ln_f"], c.norm_eps)
     return torch.einsum("ble,ve->blv", x, params["embed"].to(c.dtype)).float()
 
@@ -200,13 +250,17 @@ def make_seq2seq_train_step(
     and tgt [B, L_tgt + 1], runs :func:`seq2seq_loss`, the backward and one
     ``opt.step()``, and returns the loss (detached, not synchronized); it
     updates ``params`` and ``opt`` in place where the JAX step returns new
-    ones.  A ``mesh`` raises ``NotImplementedError``: the sharded step
-    comes with the multi-GPU port (A9)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded seq2seq train step is not ported yet (A9)")
+    ones.
+
+    With a ``mesh`` (``:298-363`` of the JAX package), every rank calls the
+    step on the same global src and tgt with its tp slices of the
+    parameters (:func:`shard_seq2seq_params`): it takes its dp rows and
+    its sp block of both sequences, and averages the gradients and the
+    loss over dp and sp."""
     optimizer_init = make_optimizer_init(optimizer, learning_rate,
                                          default=adam)
+    if mesh is not None:
+        return _sharded_seq2seq_step(config, mesh), optimizer_init
 
     def train_step(params: Params, opt: torch.optim.Optimizer, src,
                    tgt) -> torch.Tensor:
@@ -220,3 +274,54 @@ def make_seq2seq_train_step(
         return loss.detach()
 
     return train_step, optimizer_init
+
+
+def _sharded_seq2seq_step(config: Seq2SeqConfig, mesh
+                          ) -> Callable[..., torch.Tensor]:
+    check_mesh(mesh)
+    tp_g, sp_g = mesh.get_group("tp"), mesh.get_group("sp")
+    sp, sp_idx = axis_size(mesh, "sp"), mesh.get_local_rank("sp")
+
+    def train_step(params: Params, opt: torch.optim.Optimizer, src,
+                   tgt) -> torch.Tensor:
+        dev = params["embed"].device
+        src = dp_rows(torch.as_tensor(src, device=dev), mesh)
+        tgt = dp_rows(torch.as_tensor(tgt, device=dev), mesh)
+        ls, lt = src.shape[1] // sp, (tgt.shape[1] - 1) // sp
+        src_l = src[:, sp_idx * ls:(sp_idx + 1) * ls]
+        tgt_in = tgt[:, sp_idx * lt:(sp_idx + 1) * lt]
+        tgt_out = tgt[:, sp_idx * lt + 1:(sp_idx + 1) * lt + 1]
+        opt.zero_grad(set_to_none=True)
+        memory = encode(params, src_l, config, tp_g, sp_g)
+        logits = decode(params, tgt_in, memory, config, tp_g, sp_g)
+        loss = F.cross_entropy(logits.flatten(0, 1),
+                               tgt_out.flatten().long())
+        loss.backward()
+        loss = reduce_over_data(mesh, [p.grad for p in param_leaves(params)],
+                                loss.detach(), mean=True)
+        opt.step()
+        return loss
+
+    return train_step
+
+
+def seq2seq_param_spec(config: Seq2SeqConfig) -> Params:
+    """The dim each parameter is cut along over tp (None: replicated):
+    heads and FFN columns, norms and the embedding whole, as the JAX
+    package's ``seq2seq_param_spec`` (``:266-295``)."""
+    attn = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+    mlp = {"ln2": None, "w_gate": 1, "w_up": 1, "w_down": 0}
+    enc_layer = {"ln1": None, **attn, **mlp}
+    dec_layer = {"ln1": None, **attn, "ln_x": None, "cross": dict(attn),
+                 **mlp}
+    return {"embed": None, "ln_enc": None, "ln_f": None,
+            "enc_layers": [dict(enc_layer)
+                           for _ in range(config.n_enc_layers)],
+            "dec_layers": [dict(dec_layer)
+                           for _ in range(config.n_dec_layers)]}
+
+
+def shard_seq2seq_params(params: Params, mesh, config: Seq2SeqConfig
+                         ) -> Params:
+    """This rank's tp slices of the full seq2seq ``params`` (copies)."""
+    return shard_tree(params, seq2seq_param_spec(config), mesh)

@@ -9,8 +9,17 @@ both packages' weights map one to one.  Every attention call is
 :func:`flash_attention` (kernel H1 on the card, and H3 in its backward),
 causal (banded under ``ModelConfig.window``) or, for the encoder, without
 a mask; projections, FFN and logits are ``torch.einsum``, as the JAX
-package leaves them to XLA.  The mesh and sequence-parallel paths are not
-ported.
+package leaves them to XLA.
+
+The sharded train step (``make_train_step(mesh=)``) runs one rank of a
+``torch.distributed`` job over a (dp, tp, sp) ``DeviceMesh``
+(``parallel/mesh.py``), as the JAX package's runs one device of its
+``shard_map``: dp cuts the batch; tp cuts heads and FFN columns, with
+Megatron's conjugate all-reduces (``models/parallel_layers.py``); sp cuts
+the sequence, and attention runs the differentiable ring
+(``parallel/ring.py``, H1 and H3 at traced positions), Ulysses for the
+encoder, the one-hop tail for a window, or, with ``sp_attn="allgather"``,
+K/V gathered over sp and masked at this shard's traced offset.
 """
 
 from __future__ import annotations
@@ -21,10 +30,30 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from exploring_flash_attention_tpu_torch.models.parallel_layers import (
+    f_tp,
+    g_tp,
+    gather_seq,
+)
 from exploring_flash_attention_tpu_torch.models.tree import tree_leaves
 from exploring_flash_attention_tpu_torch.ops.attention import flash_attention
+from exploring_flash_attention_tpu_torch.parallel.mesh import (
+    axis_size,
+    check_mesh,
+    shard_tree,
+)
+from exploring_flash_attention_tpu_torch.parallel.ring import (
+    ring_flash_attention,
+)
+from exploring_flash_attention_tpu_torch.parallel.ulysses import (
+    ulysses_flash_attention,
+)
+from exploring_flash_attention_tpu_torch.parallel.window import (
+    sp_window_attention,
+)
 
 Params = Dict[str, Any]
 
@@ -42,6 +71,10 @@ class ModelConfig:
     norm_eps: float = 1e-5
     use_rope: bool = True
     rope_theta: float = 10000.0
+    # sequence-parallel attention: "ring" rotates K/V shards (O(L_local)
+    # memory both passes), "allgather" gathers K/V over sp (O(L), short
+    # sequences only)
+    sp_attn: str = "ring"
     # sliding-window (local) attention width of every layer, the query's
     # own position included; None = full causal.  Trains on H1's and H3's
     # band (O(L * window)) and serves on H6's (pages before the band are
@@ -53,6 +86,8 @@ class ModelConfig:
             raise ValueError("n_heads must be divisible by n_kv_heads")
         if self.use_rope and self.d_head % 2:
             raise ValueError("RoPE needs an even d_head")
+        if self.sp_attn not in ("ring", "allgather"):
+            raise ValueError(f"unknown sp_attn {self.sp_attn!r}")
         if self.window is not None and self.window < 1:
             raise ValueError(f"window must be >= 1, got {self.window}")
 
@@ -137,56 +172,98 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _attn_block(p: Params, x: torch.Tensor, config: ModelConfig,
-                causal: bool = True) -> torch.Tensor:
-    """x: [B, L, E] -> the attention branch's residual update; causal
+                causal: bool = True, tp_axis=None, sp_axis=None
+                ) -> torch.Tensor:
+    """x: [B, L_local, E] -> the attention branch's residual update; causal
     (within ``config.window`` of each position, if set) or, for the
     encoder, bidirectional.  A window without ``causal`` raises
-    ``NotImplementedError``, as the JAX package's ``_attn_block`` does."""
+    ``NotImplementedError``, as the JAX package's ``_attn_block`` does.
+
+    ``tp_axis`` and ``sp_axis`` are the mesh's groups inside the sharded
+    step (None on one device): x is replicated over tp and this rank's
+    sequence block over sp.  Routing as JAX's (``:142-235``): RoPE at
+    global positions; bidirectional: Ulysses, or K/V gathered when the
+    heads do not split over sp; a window: the one-hop tail; causal: the
+    ring, or with ``sp_attn="allgather"`` K/V gathered and the causal mask
+    at this shard's traced offset."""
     c = config
     if not causal and c.window is not None:
         raise NotImplementedError(
             "windows are causal-only (encoder models use window=None)")
     h = _rmsnorm(x, p["ln1"], c.norm_eps)
+    # Megatron's f between the replicated norm and the column-parallel
+    # projections: the norm's gradient sees the tp-summed cotangent
+    if tp_axis is not None:
+        h = f_tp(h, tp_axis)
     q = torch.einsum("ble,ehd->bhld", h, p["wq"])
     k = torch.einsum("ble,ehd->bhld", h, p["wk"])
     v = torch.einsum("ble,ehd->bhld", h, p["wv"])
+    l_local = x.shape[1]
+    pos0 = 0 if sp_axis is None else dist.get_rank(sp_axis) * l_local
     if c.use_rope:
-        pos = torch.arange(x.shape[1], device=x.device)
+        pos = pos0 + torch.arange(l_local, device=x.device)
         q = rope(q, pos, c.rope_theta)
         k = rope(k, pos, c.rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=c.window)
-    return torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
+    if sp_axis is None:
+        o = flash_attention(q, k, v, causal=causal, window=c.window)
+    elif not causal:
+        n = dist.get_world_size(sp_axis)
+        if q.shape[1] % n == 0 and k.shape[1] % n == 0:
+            o = ulysses_flash_attention(q, k, v, sp_axis, None, False)
+        else:
+            o = flash_attention(q, gather_seq(k, sp_axis, 2),
+                                gather_seq(v, sp_axis, 2), causal=False)
+    elif c.window is not None:
+        o = sp_window_attention(q, k, v, sp_axis, c.window)
+    elif c.sp_attn == "ring":
+        o = ring_flash_attention(q, k, v, sp_axis, None, True)
+    else:
+        # all-gather: q stays local, K/V gathered (reduce-scattered
+        # backward), the causal mask at this shard's traced offset
+        positions = tuple(torch.full((), p0, dtype=torch.int32,
+                                     device=x.device) for p0 in (pos0, 0))
+        o = flash_attention(q, gather_seq(k, sp_axis, 2),
+                            gather_seq(v, sp_axis, 2), causal=True,
+                            positions=positions)
+    out = torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
+    return out if tp_axis is None else g_tp(out, tp_axis)
 
 
-def _mlp_block(p: Params, x: torch.Tensor, config: ModelConfig
-               ) -> torch.Tensor:
+def _mlp_block(p: Params, x: torch.Tensor, config: ModelConfig,
+               tp_axis=None) -> torch.Tensor:
     h = _rmsnorm(x, p["ln2"], config.norm_eps)
+    if tp_axis is not None:
+        h = f_tp(h, tp_axis)
     gate = torch.einsum("ble,ef->blf", h, p["w_gate"])
     up = torch.einsum("ble,ef->blf", h, p["w_up"])
     act = F.silu(gate.float()).to(x.dtype) * up
-    return torch.einsum("blf,fe->ble", act, p["w_down"])
+    out = torch.einsum("blf,fe->ble", act, p["w_down"])
+    return out if tp_axis is None else g_tp(out, tp_axis)
 
 
 def forward(params: Params, tokens: torch.Tensor, config: ModelConfig,
-            causal: bool = True) -> torch.Tensor:
+            causal: bool = True, tp_axis=None, sp_axis=None
+            ) -> torch.Tensor:
     """Logits f32 [B, L, V] of a forward over int tokens [B, L]: causal, or
     with ``causal=False`` the same stack bidirectionally (the encoder,
-    ``models/encoder.py``), as the JAX package's ``forward`` (``:242-263``)."""
+    ``models/encoder.py``), as the JAX package's ``forward`` (``:242-263``).
+    Inside the sharded step, ``tp_axis`` / ``sp_axis`` are the mesh's
+    groups and tokens this rank's [B/dp, L/sp] block."""
     x = params["embed"][tokens.long()].to(config.dtype)
     for p in params["layers"]:
-        x = x + _attn_block(p, x, config, causal)
-        x = x + _mlp_block(p, x, config)
+        x = x + _attn_block(p, x, config, causal, tp_axis, sp_axis)
+        x = x + _mlp_block(p, x, config, tp_axis)
     x = _rmsnorm(x, params["ln_f"], config.norm_eps)
     return torch.einsum("ble,ve->blv", x,
                         params["embed"].to(config.dtype)).float()
 
 
 def loss_fn(params: Params, inputs: torch.Tensor, targets: torch.Tensor,
-            config: ModelConfig) -> torch.Tensor:
+            config: ModelConfig, tp_axis=None, sp_axis=None) -> torch.Tensor:
     """Mean next-token cross-entropy over f32 logits: an f32 scalar.  The
     counterpart of the JAX package's ``loss_fn`` (``:266-277``, optax's
     integer-label softmax cross-entropy, then the mean)."""
-    logits = forward(params, inputs, config)
+    logits = forward(params, inputs, config, True, tp_axis, sp_axis)
     return F.cross_entropy(logits.flatten(0, 1), targets.flatten().long())
 
 
@@ -259,8 +336,8 @@ def make_train_step(
     optimizer: Optional[OptimizerFactory] = None,
 ) -> Tuple[Callable[..., torch.Tensor],
            Callable[[Params], torch.optim.Optimizer]]:
-    """Returns ``(train_step, optimizer_init)``: the single-device train
-    step of the JAX package (``:280-306``).
+    """Returns ``(train_step, optimizer_init)``: the train step of the JAX
+    package (``:280-344``).
 
     ``optimizer_init(params)`` sets ``requires_grad`` on the leaves of
     ``params`` (in place) and returns ``optimizer(param_leaves(params))``.
@@ -272,20 +349,89 @@ def make_train_step(
     targets ``tokens[:, 1:]``, the backward and one ``opt.step()``, and
     returns the loss (an f32 scalar tensor, detached, not synchronized).
     Unlike the JAX step, which returns new params and optimizer state, it
-    updates ``params`` and ``opt`` in place.  The sharded step is not
-    ported: a ``mesh`` raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded train step is not ported yet")
+    updates ``params`` and ``opt`` in place.
+
+    With a ``mesh`` (``parallel.make_mesh``), every rank calls the step on
+    the same global tokens with its tp slices of the parameters
+    (:func:`shard_params`) and an optimizer over them: it takes its dp rows
+    and its sp block of the sequence, averages the gradients and the loss
+    over dp and sp (``all_reduce``, JAX's ``pmean``) and steps its own
+    optimizer; the returned loss is the global mean."""
     optimizer_init = make_optimizer_init(optimizer, learning_rate)
+    if mesh is None:
+        def train_step(params: Params, opt: torch.optim.Optimizer,
+                       tokens) -> torch.Tensor:
+            tokens = torch.as_tensor(tokens, device=params["embed"].device)
+            inputs, targets = tokens[:, :-1], tokens[:, 1:]
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(params, inputs, targets, config)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return train_step, optimizer_init
+
+    check_mesh(mesh)
+    tp_g, sp_g = mesh.get_group("tp"), mesh.get_group("sp")
 
     def train_step(params: Params, opt: torch.optim.Optimizer,
                    tokens) -> torch.Tensor:
-        tokens = torch.as_tensor(tokens, device=params["embed"].device)
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        tokens = dp_rows(torch.as_tensor(tokens,
+                                         device=params["embed"].device), mesh)
+        l_local = (tokens.shape[1] - 1) // axis_size(mesh, "sp")
+        start = mesh.get_local_rank("sp") * l_local
+        inputs = tokens[:, start:start + l_local]
+        targets = tokens[:, start + 1:start + 1 + l_local]
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params, inputs, targets, config)
+        loss = loss_fn(params, inputs, targets, config, tp_g, sp_g)
         loss.backward()
+        loss = reduce_over_data(mesh, [p.grad for p in param_leaves(params)],
+                                loss.detach(), mean=True)
         opt.step()
-        return loss.detach()
+        return loss
 
     return train_step, optimizer_init
+
+
+def dp_rows(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of global ``tokens``: the ``dp`` index's block of
+    the batch, as JAX's ``P("dp", None)`` hands it to the device."""
+    n = axis_size(mesh, "dp")
+    if tokens.shape[0] % n:
+        raise ValueError(f"a batch of {tokens.shape[0]} does not split over "
+                         f"{n} dp ranks")
+    return tokens.chunk(n)[mesh.get_local_rank("dp")]
+
+
+def reduce_over_data(mesh, grads: List[torch.Tensor], loss: torch.Tensor,
+                     mean: bool) -> torch.Tensor:
+    """Sum (or average, with ``mean``) ``grads``, in place, and ``loss``
+    over the dp and sp axes, which both cut the token stream: JAX's
+    ``psum`` / ``pmean`` over ``("dp", "sp")``, as one all-reduce a group
+    of one flat f32 buffer.  Returns the reduced loss."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [loss.reshape(1).float()])
+    for axis in ("dp", "sp"):
+        dist.all_reduce(flat, group=mesh.get_group(axis))
+    if mean:
+        flat /= axis_size(mesh, "dp") * axis_size(mesh, "sp")
+    for g, part in zip(grads, flat.split([g.numel() for g in grads] + [1])):
+        g.copy_(part.view_as(g))
+    return flat[-1].to(loss.dtype)
+
+
+def param_spec(config: ModelConfig) -> Params:
+    """The dim each parameter is cut along over tp (None: replicated), in
+    the parameters' structure: heads of wq/wk/wv/wo and FFN columns, as the
+    JAX package's ``param_spec`` (``:347-364``) shards them."""
+    layer = {"ln1": None, "ln2": None, "wq": 1, "wk": 1, "wv": 1, "wo": 0,
+             "w_gate": 1, "w_up": 1, "w_down": 0}
+    return {"embed": None, "ln_f": None,
+            "layers": [dict(layer) for _ in range(config.n_layers)]}
+
+
+def shard_params(params: Params, mesh, config: ModelConfig) -> Params:
+    """This rank's tp slices of the full ``params`` (copies), to train with
+    the sharded step; ``parallel.mesh.gather_tree`` with
+    :func:`param_spec` puts them back together."""
+    return shard_tree(params, param_spec(config), mesh)

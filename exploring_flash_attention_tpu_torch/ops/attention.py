@@ -12,12 +12,22 @@ Layouts are the JAX package's: q ``[B, Hq, Lq, d]``, k/v
 Causal and window masking use the decode convention: q row ``i`` sits at
 global position ``q_pos0 + i`` and key ``j`` at ``kv_pos0 + j``; the
 default positions ``(Lkv - Lq, 0)`` make the q rows the last Lq positions.
+
+Positions are static (Python or NumPy ints, known on the host, as the JAX
+package reads them at ``ops/attention_vjp.py:65``) or traced: 0-d integer
+tensors, the port's counterpart of JAX's traced values (a sequence-parallel
+shard's offsets).  Traced positions reach the kernels as one int32 pair
+``(q_pos0, kv_pos0)`` in device memory (:func:`traced_pair`), which every
+block of H1 and H3 reads itself: no value goes back to the host, and a
+call captured in a CUDA graph replays with whatever the pair then holds.
+Internally a mask's ``diag_off`` is either the static int ``q_pos0 -
+kv_pos0`` or that pair.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,6 +35,9 @@ import torch
 from exploring_flash_attention_tpu_torch import kernels
 
 LOG2E = math.log2(math.e)      # the kernels' exp2 basis: scale * LOG2E
+# a mask's diagonal: the static int q_pos0 - kv_pos0, or the traced pair
+# (q_pos0, kv_pos0), int32 [2] on the inputs' device
+DiagOff = Union[int, torch.Tensor]
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -36,8 +49,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Non-causal rows see every key.  Causal row ``i`` sees key ``j`` iff
     ``j <= i + diag_off``; a ``window`` (causal only, inclusive) further
-    needs ``j >= i + diag_off - window + 1``.  A row that sees nothing
-    gives (0, -inf)."""
+    needs ``j >= i + diag_off - window + 1``.  ``diag_off`` is an int or
+    a traced pair (the mask is then built by tensor arithmetic).  A row
+    that sees nothing gives (0, -inf)."""
     group = q.shape[1] // k.shape[1]
     ct = torch.promote_types(q.dtype, torch.float32)
     kf = k.to(ct).repeat_interleave(group, dim=1)
@@ -53,19 +67,51 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, vf), lse
 
 
-def hidden_keys(lq: int, lkv: int, causal: bool, diag_off: int,
+def hidden_keys(lq: int, lkv: int, causal: bool, diag_off: DiagOff,
                 window: Optional[int], device: torch.device
                 ) -> Optional[torch.Tensor]:
     """The mask of :func:`attention_plain`: [Lq, Lkv] bool, True where q row
     ``i`` does not see key ``j``; None without a mask (non-causal)."""
     if not causal:
         return None
-    last = torch.arange(lq, device=device)[:, None] + diag_off
+    last = torch.arange(lq, device=device)[:, None] + diagonal(diag_off)
     col = torch.arange(lkv, device=device)[None, :]
     hidden = col > last
     if window is not None:
         hidden |= col < last - window + 1
     return hidden
+
+
+def is_static(positions) -> bool:
+    """Whether ``(q_pos0, kv_pos0)`` are static: Python or NumPy ints, as
+    the JAX package's ``ops/attention_vjp.py:65`` tells them apart."""
+    return all(isinstance(p, (int, np.integer)) for p in positions)
+
+
+def traced_pair(positions, device: torch.device) -> torch.Tensor:
+    """Traced positions ``(q_pos0, kv_pos0)`` as the kernels read them: a
+    contiguous int32 [2] on ``device``.  Each position is a 0-d integer
+    tensor (an int also goes); nothing is read back to the host."""
+    for p in positions:
+        if isinstance(p, torch.Tensor) and (
+                p.dim() != 0 or p.is_floating_point() or p.is_complex()
+                or p.dtype == torch.bool):
+            raise TypeError(f"a traced position is a 0-d integer tensor, got "
+                            f"{p.dtype} of shape {tuple(p.shape)}")
+        elif not isinstance(p, (torch.Tensor, int, np.integer)):
+            raise TypeError(f"positions are ints or 0-d integer tensors, "
+                            f"got {type(p).__name__}")
+    return torch.stack([torch.as_tensor(p, device=device).to(torch.int32)
+                        for p in positions])
+
+
+def diagonal(diag_off: DiagOff):
+    """A mask's diagonal for tensor arithmetic: the static int, or ``q_pos0
+    - kv_pos0`` of a traced pair as a 0-d int64 tensor (a 0-d tensor is
+    such a diagonal already)."""
+    if isinstance(diag_off, torch.Tensor) and diag_off.dim() == 1:
+        return diag_off[0].long() - diag_off[1].long()
+    return diag_off
 
 
 H1_HEAD_DIMS = (32, 64, 128)
@@ -74,28 +120,40 @@ H1_TILE = 128                   # Q rows per block and keys per K/V tile; a
 _MASK_NONE, _MASK_CAUSAL, _MASK_WINDOW = 0, 1, 2      # csrc enum Mask
 
 
-def mask_args(causal: bool, diag_off: int, window: Optional[int]
-              ) -> Tuple[int, int, int]:
-    """(mask, diag_off, window) as the kernels' C entries take them (H1,
-    H3): the csrc ``Mask`` code, and both ints checked to fit 32 bits."""
+def mask_args(causal: bool, diag_off: DiagOff, window: Optional[int],
+              device: torch.device) -> Tuple[int, int, int, Optional[int]]:
+    """(mask, diag_off, window, offs) as the kernels' C entries take them
+    (H1, H3): the csrc ``Mask`` code, the static diagonal and the window,
+    both checked to fit 32 bits, and the device address of a traced pair
+    (None when the diagonal is static; its int is then the one read)."""
+    offs = None
+    if isinstance(diag_off, torch.Tensor):
+        if (diag_off.dtype != torch.int32 or diag_off.shape != (2,)
+                or not diag_off.is_contiguous()
+                or diag_off.device != device):
+            raise ValueError(f"traced positions must be a contiguous int32 "
+                             f"[2] on {device} (traced_pair)")
+        diag_off, offs = 0, diag_off.data_ptr()
     if not all(-2 ** 31 <= int(x) < 2 ** 31 for x in (diag_off, window or 0)):
         raise ValueError(f"diag_off {diag_off} and window {window} must "
                          "fit in 32 bits")
     mask = (_MASK_NONE if not causal
             else _MASK_CAUSAL if window is None else _MASK_WINDOW)
-    return mask, int(diag_off), int(window or 0)
+    return mask, int(diag_off), int(window or 0), offs
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      scale: float, diag_off: int = 0, causal: bool = True,
+                      scale: float, diag_off: DiagOff = 0, causal: bool = True,
                       window: Optional[int] = None,
                       out_dtype: Optional[torch.dtype] = None,
                       with_lse: bool = True, kv_span: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Attention forward: (o in ``out_dtype`` or q.dtype, lse f32
     [B, Hq, Lq] or None without ``with_lse``).  The mask is none, causal
-    at ``diag_off``, or a causal ``window`` (see :func:`attention_plain`);
-    a window that holds every key the causal rows see is plain causal.
+    at ``diag_off`` (an int, or a traced pair from :func:`traced_pair`,
+    which the kernel reads from device memory), or a causal ``window`` (see
+    :func:`attention_plain`); at a static diagonal, a window that holds
+    every key the causal rows see is plain causal.
 
     With ``kv_span`` the KV is cut into nkb = cdiv(Lkv, kv_span) spans and
     both outputs gain a span axis: o [B, Hq, nkb, Lq, d] normalized over
@@ -114,8 +172,9 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not causal or window < 1:
             raise ValueError(f"a window needs causal=True and window >= 1, "
                              f"got causal={causal}, window={window}")
-        if window >= lq + diag_off:     # the last row sees keys 0..window-1
-            window = None
+        if (not isinstance(diag_off, torch.Tensor)
+                and window >= lq + diag_off):
+            window = None               # the last row sees keys 0..window-1
     if kv_span is not None and kv_span <= 0:
         raise ValueError(f"kv_span must be positive, got {kv_span}")
     if q.device.type == "cpu":
@@ -124,7 +183,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             parts = [attention_plain(q, k[:, :, s:s + kv_span],
                                      v[:, :, s:s + kv_span], scale, causal,
-                                     diag_off - s, window)
+                                     diagonal(diag_off) - s, window)
                      for s in range(0, lkv, kv_span)]
             o = torch.stack([p[0] for p in parts], dim=2)
             lse = torch.stack([p[1] for p in parts], dim=2)
@@ -143,7 +202,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"H1 takes a kv_span that is a multiple of {H1_TILE} keys (whole "
             f"K/V tiles); got kv_span={kv_span} for q {tuple(q.shape)} and "
             f"k/v {tuple(k.shape)}")
-    mask = mask_args(causal, diag_off, window)
+    mask = mask_args(causal, diag_off, window, q.device)
     nkb = 1 if kv_span is None else -(-lkv // kv_span)
     if nkb > 65535:
         raise ValueError(f"{nkb} KV spans exceed the grid's 65535")
@@ -178,38 +237,42 @@ def _check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
                              "16-byte aligned")
 
 
-def _require_static(positions) -> None:
-    """Static positions are Python or NumPy ints, as the JAX package's
-    ``ops/attention_vjp.py:65`` reads them; anything else is traced."""
-    if not all(isinstance(p, (int, np.integer)) for p in positions):
-        raise NotImplementedError("only static (int) positions are ported")
+def static_diagonal(lq: int, lkv: int,
+                    static_positions: Optional[Tuple[int, int]]) -> int:
+    """``q_pos0 - kv_pos0`` of static positions, by default the decode
+    convention's ``Lkv - Lq``.  Tensors raise ``TypeError``: they go in
+    ``positions``, the traced argument."""
+    if static_positions is None:
+        return lkv - lq
+    if not is_static(static_positions):
+        raise TypeError("static_positions take Python or NumPy ints; pass "
+                        "tensors as the traced positions")
+    return int(static_positions[0]) - int(static_positions[1])
 
 
-def _diag_offset(lq: int, lkv: int,
-                 static_positions: Optional[Tuple[int, int]]) -> int:
-    q_pos0, kv_pos0 = static_positions or (lkv - lq, 0)
-    return int(q_pos0) - int(kv_pos0)
+def _decode_convention(positions, lq: int, lkv: int) -> bool:
+    """Whether static ``positions`` are the default ``(Lkv - Lq, 0)``, the
+    only ones the JAX package's band forward takes
+    (``parallel/partials.py:63-68``)."""
+    return positions is None or tuple(int(p) for p in positions) == (
+        lkv - lq, 0)
 
 
-def _ported_mask(lq: int, lkv: int, causal: bool,
-                 static_positions: Optional[Tuple[int, int]],
-                 window: Optional[int]) -> Tuple[int, Optional[int]]:
-    """The argument checks that ``flash_attention`` and
-    ``flash_attention_bwd`` share, as the JAX package makes them
-    (``ops/attention_vjp.py:57-69``, ``ops/attention_bwd.py:629-635``):
-    returns the static diagonal offset and the window.
-
-    A window without ``causal`` raises ``ValueError``; a window of Lkv or
-    more is plain causal (None).  Non-causal attention ignores the
-    positions.  Traced positions raise ``NotImplementedError``."""
-    if window is not None:
-        if not causal:
-            raise ValueError("window requires causal=True")
-        if window >= lkv:
-            window = None           # the band covers every key: causal
-    if static_positions is not None:
-        _require_static(static_positions)
-    return _diag_offset(lq, lkv, static_positions), window
+def mask_diagonal(lq: int, lkv: int, causal: bool, positions,
+                  device: torch.device, static_positions=None) -> DiagOff:
+    """The ``diag_off`` of ``positions`` or ``static_positions`` (neither:
+    the decode convention): the static int, or the traced pair on
+    ``device``.  Without ``causal`` positions mean nothing and give 0.
+    Both kinds at once raise ``ValueError``, as in the JAX package."""
+    if positions is not None and static_positions is not None:
+        raise ValueError("pass positions OR static_positions, not both")
+    if positions is None:
+        return static_diagonal(lq, lkv, static_positions)
+    if not causal:
+        return 0
+    if is_static(positions):
+        return static_diagonal(lq, lkv, positions)
+    return traced_pair(positions, device)
 
 
 def attention_partial_local(
@@ -218,36 +281,52 @@ def attention_partial_local(
     v: torch.Tensor,
     scale: Optional[float] = None,
     causal: bool = False,
+    positions=None,
     static_positions: Optional[Tuple[int, int]] = None,
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Normalized partial attention over a local KV shard: (o f32
-    [B,H,Lq,d], lse f32 [B,H,Lq]), O written in f32 by H1 on the card.
+    [B,H,Lq,d], lse f32 [B,H,Lq]), O written in f32 by H1 on the card.  A
+    row that sees no key gives (0, -inf), the merge identity.
 
-    Non-causal; causal at static positions; or a causal ``window`` at the
+    Non-causal; causal at ``positions`` (a sequence-parallel shard's
+    ``(q_pos0, kv_pos0)``, traced as 0-d integer tensors: B9's route) or
+    ``static_positions`` (ints); or a causal ``window`` at the
     decode-convention positions, as ``parallel/partials.py:46-81`` routes
-    it (a window of Lkv or more is plain causal, any other positions raise
-    ``NotImplementedError``).  Traced positions are not ported, and the
-    kernel fixes its own tiles, so the JAX signature's ``config`` is not
-    taken."""
+    it (a window of Lkv or more is plain causal; other positions, and any
+    traced ones, raise ``NotImplementedError``).  The kernel fixes its own
+    tiles, so the JAX signature's ``config`` is not taken."""
     lq, lkv = q.shape[2], k.shape[2]
-    if window is not None and not causal:
+    if window is not None and (not causal or positions is not None):
         raise NotImplementedError(
             "window requires causal=True with static positions")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
-    if static_positions is not None:
-        _require_static(static_positions)
+    diag_off = mask_diagonal(lq, lkv, causal, positions, q.device,
+                             static_positions)
     if window is not None and window >= lkv:
         window = None               # the band covers every key: causal
-    if window is not None and static_positions is not None and tuple(
-            int(p) for p in static_positions) != (lkv - lq, 0):
+    if window is not None and not _decode_convention(static_positions, lq,
+                                                     lkv):
         raise NotImplementedError(
             "windowed partial attention needs decode-convention positions; "
             f"got Lq={lq}, Lkv={lkv}, positions={static_positions}")
-    return prefill_attention(
-        q, k, v, scale, _diag_offset(lq, lkv, static_positions), causal,
-        window, out_dtype=torch.float32)
+    return prefill_attention(q, k, v, scale, diag_off, causal, window,
+                             out_dtype=torch.float32)
+
+
+def checked_window(causal: bool, window: Optional[int], lkv: int
+                   ) -> Optional[int]:
+    """The window check of ``flash_attention`` and ``flash_attention_bwd``,
+    as the JAX package makes it (``ops/attention_vjp.py:57-61``,
+    ``ops/attention_bwd.py:631-635``): a window without ``causal`` raises
+    ``ValueError``; a window of Lkv or more is plain causal (None)."""
+    if window is not None:
+        if not causal:
+            raise ValueError("window requires causal=True")
+        if window >= lkv:
+            return None             # the band covers every key: causal
+    return window
 
 
 def merge_partials(
@@ -272,14 +351,15 @@ def merge_partials(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Counterpart of ``_flash_attention_static`` in the JAX package
-    (``ops/attention_vjp.py:83-126``): the forward is :func:`prefill_attention`
-    (H1 on the card), which saves ``(q, k, v, out, lse)`` as ``_fwd_static``
-    does; the backward is ``flash_attention_bwd`` (H3-dkv and H3-dq) under
-    the same mask."""
+    """Counterpart of ``_flash_attention_static`` and, at traced positions,
+    ``_flash_attention`` in the JAX package (``ops/attention_vjp.py:83-166``):
+    the forward is :func:`prefill_attention` (H1 on the card), which saves
+    ``(q, k, v, out, lse)`` and the mask, a traced pair included, as
+    ``_fwd`` does; the backward is ``flash_attention_bwd`` (H3-dkv and
+    H3-dq) under the same mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, causal: bool, diag_off: int,
+    def forward(ctx, q, k, v, scale: float, causal: bool, diag_off: DiagOff,
                 window: Optional[int]):
         out, lse = prefill_attention(q, k, v, scale, diag_off, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -311,19 +391,25 @@ def flash_attention(
 ) -> torch.Tensor:
     """The JAX package's ``flash_attention``, differentiable: o in q.dtype.
 
-    Non-causal, causal at static positions (Python or NumPy ints, or the
-    default decode convention), or a causal ``window`` at the decode
-    convention's positions: JAX's forward takes a band only there
-    (``parallel/partials.py:63-76``), and so does the port, which raises
-    ``NotImplementedError`` for other positions.  A window of Lkv or more is
-    plain causal; a window without ``causal`` raises ``ValueError``; traced
-    positions raise ``NotImplementedError``.  The backward runs H3 under the
-    same mask; where autograd records nothing (no grad mode, or no input
-    that requires grad) the call is the forward alone."""
+    Non-causal; causal at static positions (Python or NumPy ints, or the
+    default decode convention) or at traced ones (0-d integer tensors, a
+    sequence-parallel shard's offsets, which the kernels read from device
+    memory); or a causal ``window`` at the decode convention's positions:
+    JAX's forward takes a band only there (``parallel/partials.py:63-76``),
+    and so does the port, which raises ``NotImplementedError`` for other
+    positions and for traced ones (``ops/attention_vjp.py:70-73``).  A
+    window of Lkv or more is plain causal; a window without ``causal``
+    raises ``ValueError``.  The backward runs H3 under the same mask; where
+    autograd records nothing (no grad mode, or no input that requires
+    grad) the call is the forward alone."""
     lq, lkv = q.shape[2], k.shape[2]
-    diag_off, window = _ported_mask(lq, lkv, causal, positions, window)
-    if window is not None and positions is not None and tuple(
-            int(p) for p in positions) != (lkv - lq, 0):
+    window = checked_window(causal, window, lkv)
+    diag_off = mask_diagonal(lq, lkv, causal, positions, q.device)
+    if window is not None and isinstance(diag_off, torch.Tensor):
+        raise NotImplementedError(
+            "window with traced shard positions is not supported; shard "
+            "windows at the caller or use static positions")
+    if window is not None and not _decode_convention(positions, lq, lkv):
         raise NotImplementedError(
             "windowed attention needs decode-convention positions; got "
             f"Lq={lq}, Lkv={lkv}, positions={positions}")

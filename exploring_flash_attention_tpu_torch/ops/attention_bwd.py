@@ -1,11 +1,11 @@
 """Attention backward of the port: kernels H3-dkv and H3-dq.
 
 Counterpart of ``ops/attention_bwd.py:flash_attention_bwd`` in the JAX
-package at static positions, under its three masks: none, causal, and a
-causal sliding window.  The JAX package picks one of three kernel routes by
-a VMEM rule (fused B11; one-pass B12 + B13; tiled B14 + B15), and all five
-kernels compute the same gradient, so the port has one route on the card
-(``csrc/attention_bwd.cu``)::
+package at static or traced positions, under its three masks: none,
+causal, and a causal sliding window.  The JAX package picks one of three
+kernel routes by a VMEM rule (fused B11; one-pass B12 + B13; tiled B14 +
+B15), and all five kernels compute the same gradient, so the port has one
+route on the card (``csrc/attention_bwd.cu``)::
 
     P  = exp2(s·scale·log2e − lse·log2e)   (0 where masked or lse = −inf)
     dV = Pᵀ dO    dP = dO Vᵀ    dS = P∘(dP − delta)·scale
@@ -27,10 +27,12 @@ import torch
 from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.ops.attention import (
     LOG2E,
+    DiagOff,
     _check_cuda_inputs,
-    _ported_mask,
+    checked_window,
     hidden_keys,
     mask_args,
+    mask_diagonal,
 )
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -39,14 +41,15 @@ Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, do: torch.Tensor,
                         lse: torch.Tensor, scale: float, causal: bool = True,
-                        diag_off: int = 0, window: Optional[int] = None
+                        diag_off: DiagOff = 0, window: Optional[int] = None
                         ) -> Grads:
     """Plain PyTorch version of H3 in f32 math: (dq, dk, dv) in the dtypes
     of q, k and v.
 
     The mask is :func:`~.attention.attention_plain`'s: non-causal rows see
     every key; causal row ``i`` sees key ``j`` iff ``j <= i + diag_off``;
-    a ``window`` further needs ``j >= i + diag_off - window + 1``.  P is
+    a ``window`` further needs ``j >= i + diag_off - window + 1``
+    (``diag_off`` an int or a traced pair, ``ops/attention.py``).  P is
     recomputed from ``lse`` as ``_recompute_p`` does in the JAX package
     (``ops/attention_bwd.py:52-100``), and a row whose LSE is -inf (it sees
     no key) gets P = 0 and dS = 0 (``:98``, ``:189``).  delta comes from the
@@ -101,14 +104,14 @@ def _launch_args(q, k, scale, causal, diag_off, window):
         raise ValueError(f"a window needs window >= 1, got {window}")
     b, hq, lq, d = q.shape
     return (b, hq, k.shape[1], lq, k.shape[2], d,
-            *mask_args(causal, diag_off, window), scale, q.device.index,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            *mask_args(causal, diag_off, window, q.device), scale,
+            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, lse: torch.Tensor,
                       delta: torch.Tensor, scale: float, causal: bool = True,
-                      diag_off: int = 0, window: Optional[int] = None
+                      diag_off: DiagOff = 0, window: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel H3-dkv on CUDA tensors: (dk, dv) bf16 [B, Hkv, Lkv, d],
     each summed over its GQA group in f32 inside the kernel, under the mask
@@ -133,7 +136,7 @@ attention_bwd_dkv.launches = 0
 def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      do: torch.Tensor, lse: torch.Tensor,
                      delta: torch.Tensor, scale: float, causal: bool = True,
-                     diag_off: int = 0, window: Optional[int] = None
+                     diag_off: DiagOff = 0, window: Optional[int] = None
                      ) -> torch.Tensor:
     """Launch kernel H3-dq on CUDA tensors: dq bf16 [B, Hq, Lq, d].  Takes
     what :func:`attention_bwd_dkv` takes, or raises.
@@ -169,22 +172,22 @@ def flash_attention_bwd(
     and v.
 
     The mask is the JAX function's: none (``causal=False``, positions
-    ignored); causal at ``static_positions``, which default to the decode
-    convention ``(Lkv - Lq, 0)``; or a causal ``window`` at any static
-    positions, as the JAX backward takes it.  A window of Lkv or more is
-    plain causal, a window without ``causal`` raises ``ValueError``, and
-    traced ``positions`` (sequence parallelism) are not ported and raise
-    ``NotImplementedError``.
+    ignored); causal at ``static_positions`` (ints), which default to the
+    decode convention ``(Lkv - Lq, 0)``, or at traced ``positions`` (0-d
+    integer tensors, a sequence-parallel shard's offsets: B11-B15's traced
+    form, read by H3 from device memory); or a causal ``window`` at either,
+    as the JAX backward takes it.  A window of Lkv or more is plain causal;
+    a window without ``causal``, or both kinds of positions, raise
+    ``ValueError``.
 
     CPU tensors take :func:`attention_bwd_plain`.  CUDA tensors take H1's
     contract (contiguous bf16, d in {64, 128}, Hq % Hkv == 0, any Lq and
     Lkv): delta is reduced by torch, then kernels H3-dkv and H3-dq launch,
     or the call raises."""
-    if positions is not None:
-        raise NotImplementedError(
-            "traced positions (sequence parallelism) are not ported yet")
-    diag_off, window = _ported_mask(q.shape[2], k.shape[2], causal,
-                                    static_positions, window)
+    lq, lkv = q.shape[2], k.shape[2]
+    window = checked_window(causal, window, lkv)
+    diag_off = mask_diagonal(lq, lkv, causal, positions, q.device,
+                             static_positions)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
     return masked_attention_bwd(q, k, v, out, do, lse, scale, causal,
@@ -194,15 +197,19 @@ def flash_attention_bwd(
 def masked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, do: torch.Tensor,
                          lse: torch.Tensor, scale: float, causal: bool,
-                         diag_off: int, window: Optional[int]) -> Grads:
+                         diag_off: DiagOff, window: Optional[int],
+                         delta: Optional[torch.Tensor] = None) -> Grads:
     """:func:`flash_attention_bwd` after its argument checks, under a mask
     given as :func:`attention_bwd_plain` takes it: the plain version for CPU
-    tensors, H3-dkv and H3-dq for CUDA tensors."""
+    tensors, H3-dkv and H3-dq for CUDA tensors.  ``delta`` (rowsum(dO∘O),
+    f32 [B, Hq, Lq]) is reduced here unless the caller has it (the ring
+    reduces it once for all its hops)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, do, lse, scale, causal,
                                    diag_off, window)
     do = do.to(q.dtype)
-    delta = (do.float() * out.float()).sum(dim=-1)
+    if delta is None:
+        delta = (do.float() * out.float()).sum(dim=-1)
     mask = (scale, causal, diag_off, window)
     dk, dv = attention_bwd_dkv(q, k, v, do, lse, delta, *mask)
     dq = attention_bwd_dq(q, k, v, do, lse, delta, *mask)

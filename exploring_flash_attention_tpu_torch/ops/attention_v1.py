@@ -102,7 +102,8 @@ def flash_attention_v1_causal_partial(
     normalized, lse [B,H,Lq] f32 natural log), at the positions
     ``(q_pos0, kv_pos0)`` (the decode convention by default): the causal
     route of :func:`attention_partial_local`."""
-    return attention_partial_local(q, k, v, scale, True, static_positions)
+    return attention_partial_local(q, k, v, scale, True,
+                                   static_positions=static_positions)
 
 
 def flash_attention_v1_window_partial(

@@ -21,8 +21,7 @@ from exploring_flash_attention_tpu_torch.configs import SplitKVConfig, cdiv
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H1_HEAD_DIMS,
     H1_TILE,
-    _diag_offset,
-    _require_static,
+    mask_diagonal,
     prefill_attention,
 )
 
@@ -109,38 +108,31 @@ def flash_attention_splitkv_partial(
     ``static_positions`` (Python or NumPy ints ``(q_pos0, kv_pos0)``, the
     global positions of q row 0 and KV row 0) place the causal diagonal;
     by default the q rows are the last Lq positions.  Traced
-    ``positions`` are not ported (``ROADMAP.md`` B.1 item 1) and raise
-    ``NotImplementedError``.  GQA: k/v may carry fewer heads (Hq % Hkv ==
-    0).
+    ``positions`` (0-d integer tensors: B9's offsets, which H1 reads from
+    device memory) place it too.  GQA: k/v may carry fewer heads (Hq % Hkv
+    == 0).
 
     CPU tensors take H1's plain version over each span.  CUDA tensors
     launch H1 once over every span (``prefill_attention``), or raise: H1
     takes bf16 q/k/v with d in {32, 64, 128}, writes bf16 or f32 partials
     and takes spans of whole 128-key tiles.  A single span covering the
     whole KV is handed to H1 rounded up to whole tiles (the same result)."""
-    if positions is not None and static_positions is not None:
-        raise ValueError("pass positions OR static_positions, not both")
-    if positions is not None:
-        raise NotImplementedError(
-            "traced positions are not ported (ROADMAP.md B.1 item 1); pass "
-            "static_positions")
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     if (k.shape != (b, hkv, lkv, d) or v.shape != (b, hkv, lkv, d)
             or hq % hkv != 0):
         raise ValueError(f"shape mismatch: q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)}")
-    if static_positions is not None:
-        _require_static(static_positions)
+    diag_off = mask_diagonal(lq, lkv, causal, positions, q.device,
+                             static_positions)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     span = config.kv_span(lkv)
     if span >= lkv and q.device.type != "cpu":
         span = cdiv(lkv, H1_TILE) * H1_TILE          # one span either way
     return prefill_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), scale,
-        _diag_offset(lq, lkv, static_positions), causal,
-        out_dtype=workspace_dtype, kv_span=span)
+        q.contiguous(), k.contiguous(), v.contiguous(), scale, diag_off,
+        causal, out_dtype=workspace_dtype, kv_span=span)
 
 
 def flash_attention_v2(

@@ -7,6 +7,7 @@ differ only in summation order (O is a convex combination of O(1) values,
 LSE is O(1))."""
 
 import dataclasses
+import importlib
 import inspect
 
 import jax.numpy as jnp
@@ -110,12 +111,65 @@ def test_attention_partial_local_matches_jax(route, lq, lkv):
 
 def _same_default(ours, theirs) -> bool:
     """Defaults the two packages spell in their own types: a dtype by its
-    name, a config dataclass by its fields."""
+    name, a config dataclass by the fields both have (the JAX
+    ``ModelConfig``'s TPU ``tile`` has no counterpart)."""
     if isinstance(ours, torch.dtype):
         return str(ours).removeprefix("torch.") == np.dtype(theirs).name
     if dataclasses.is_dataclass(ours):
-        return dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        shared = ({f.name for f in dataclasses.fields(ours)}
+                  & {f.name for f in dataclasses.fields(theirs)})
+        return bool(shared) and all(
+            _same_default(getattr(ours, n), getattr(theirs, n))
+            for n in shared)
     return ours == theirs
+
+
+# every module whose public functions the port exports, and its JAX
+# counterpart: each exported callable that JAX has by the same name is a
+# case of test_port_defaults_match_jax below
+_EXPORTING = ["", ".configs", ".ops", ".models", ".models.transformer",
+              ".models.encoder", ".models.seq2seq", ".models.parallel_layers",
+              ".parallel", ".parallel.mesh", ".parallel.ring",
+              ".parallel.ulysses", ".parallel.window", ".serving"]
+# the multi-device entry points, which must be among those cases
+_MESH_ENTRIES = {"make_mesh", "MeshConfig", "param_spec", "shard_params",
+                 "seq2seq_param_spec", "shard_seq2seq_params",
+                 "make_train_step", "make_mlm_train_step",
+                 "make_seq2seq_train_step", "ring_attention",
+                 "ring_flash_attention", "ulysses_attention",
+                 "ulysses_flash_attention", "sp_window_attention",
+                 "splitkv_attention_xhost", "f_tp", "g_tp", "gather_seq"}
+
+
+def _exported_pairs():
+    """(port callable, JAX callable) of every public name the port's
+    modules export (their ``__all__``, else their public functions) that
+    the JAX module of the same path has, sharing at least one parameter."""
+    pairs, names = {}, set()
+    for sub in _EXPORTING:
+        ours = importlib.import_module("exploring_flash_attention_tpu_torch"
+                                       + sub)
+        theirs = importlib.import_module("exploring_flash_attention_tpu"
+                                         + sub)
+        public = getattr(ours, "__all__", None) or [
+            n for n, x in vars(ours).items() if not n.startswith("_")
+            and (inspect.isfunction(x) or inspect.isclass(x))
+            and x.__module__ == ours.__name__]
+        for name in public:
+            port, jax_fn = getattr(ours, name, None), getattr(theirs, name,
+                                                              None)
+            if not (callable(port) and callable(jax_fn)):
+                continue
+            try:
+                a = inspect.signature(port).parameters
+                b = inspect.signature(jax_fn).parameters
+            except (TypeError, ValueError):
+                continue
+            if any(n in b for n in a):
+                pairs[(id(port), id(jax_fn))] = (port, jax_fn, (), 1)
+                names.add(name)
+    assert _MESH_ENTRIES <= names, _MESH_ENTRIES - names
+    return list(pairs.values())
 
 
 # (port, JAX counterpart, parameters both must have, fewest shared)
@@ -147,6 +201,11 @@ DEFAULTS_CASES = [
 ]
 
 
+_LISTED = {(id(c[0]), id(c[1])) for c in DEFAULTS_CASES}
+DEFAULTS_CASES += [c for c in _exported_pairs()
+                   if (id(c[0]), id(c[1])) not in _LISTED]
+
+
 @pytest.mark.parametrize("port,jax_fn,required,n_shared", DEFAULTS_CASES,
                          ids=[f"port{i}-jax_fn{i}"
                               for i in range(len(DEFAULTS_CASES))])
@@ -154,7 +213,10 @@ def test_port_defaults_match_jax(port, jax_fn, required, n_shared):
     """Every parameter the port shares with the JAX function has its name
     and its default: a caller who leaves one out gets the same function on
     both sides (the scheduler's ``n_pages=256, page_size=128,
-    max_seqs=16``, ``causal=False`` on both V2 functions).  Then
+    max_seqs=16``, ``causal=False`` on both V2 functions).  The cases are
+    the listed ones and every other public callable the port's modules
+    export that JAX has by name (``_exported_pairs``: the parallel package,
+    ``make_mesh``, ``param_spec``, the ``mesh=`` train steps, ...).  Then
     ``attention_partial_local`` without ``causal`` is held against JAX's
     non-causal result on a case where causal differs."""
     ours = inspect.signature(port).parameters
@@ -204,10 +266,10 @@ def test_flash_attention_forward_matches_jax():
 
 
 def test_flash_attention_refuses_what_is_not_ported():
-    """Traced positions still raise, and so does a window at positions
-    other than the decode convention, on both sides; the non-causal and
-    windowed calls, once refused, now match JAX's (their gradients:
-    ``tests/test_torch_bwd.py``)."""
+    """A window at positions other than the decode convention raises on
+    both sides, and so does a window at traced positions; traced positions
+    without a window, the non-causal and the windowed calls, once refused,
+    now match JAX's (their gradients: ``tests/test_torch_bwd.py``)."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(3, 1, 2, 2, 8, 8, 64))
     # gradients flow: the backward is ported (tests/test_torch_bwd.py
     # checks their values)
@@ -215,10 +277,13 @@ def test_flash_attention_refuses_what_is_not_ported():
     flash_attention(qg, k, v, causal=True).sum().backward()
     assert qg.grad.shape == q.shape and torch.isfinite(qg.grad).all()
     assert qg.grad.abs().max() > 0
-    with pytest.raises(NotImplementedError, match="static"):
-        flash_attention(q, k, v, causal=True,
-                        positions=(torch.tensor(0), torch.tensor(0)))
     jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    np.testing.assert_allclose(
+        flash_attention(q, k, v, causal=True,
+                        positions=(torch.tensor(0), torch.tensor(0))).numpy(),
+        np.asarray(jax_flash_attention(
+            jq, jk, jv, causal=True,
+            positions=(jnp.int32(0), jnp.int32(0)))), atol=ATOL)
     np.testing.assert_allclose(
         flash_attention(q, k, v, causal=False).numpy(),
         np.asarray(jax_flash_attention(jq, jk, jv, causal=False)), atol=ATOL)
@@ -234,6 +299,12 @@ def test_flash_attention_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="positions"):
         jax_flash_attention(jq, jk, jv, causal=True, positions=(8, 8),
                             window=48)
+    with pytest.raises(NotImplementedError, match="traced"):
+        flash_attention(qw, kw, vw, causal=True, window=48,
+                        positions=(torch.tensor(0), torch.tensor(0)))
+    with pytest.raises(NotImplementedError, match="traced"):
+        jax_flash_attention(jq, jk, jv, causal=True, window=48,
+                            positions=(jnp.int32(0), jnp.int32(0)))
 
 
 def test_flash_attention_records_no_graph_without_grad():

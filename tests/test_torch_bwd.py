@@ -310,18 +310,20 @@ def test_card_limit_holds_kernel_roundings_and_not_a_mask_fault(lq, lkv, d,
 
 
 def test_flash_attention_bwd_refuses_what_is_not_ported():
-    """Traced positions still raise; a window without ``causal`` raises
-    ``ValueError`` as in the JAX package; the non-causal and windowed
-    backward, once refused, now match JAX's."""
+    """Tensors as ``static_positions`` raise ``TypeError`` (traced
+    positions go in ``positions``, whose backward
+    ``tests/test_torch_traced.py`` holds against JAX's); a window without
+    ``causal`` raises ``ValueError`` as in the JAX package; the non-causal
+    and windowed backward, once refused, now match JAX's."""
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(9, 1, 2, 2, 8, 8, 16))
     out, lse = attention_plain(q, k, v, 0.25, True, 0)
     args = (q, k, v, out, do, lse)
-    with pytest.raises(NotImplementedError, match="traced"):
-        flash_attention_bwd(*args, causal=True,
-                            positions=(torch.tensor(0), torch.tensor(0)))
-    with pytest.raises(NotImplementedError, match="static"):
+    with pytest.raises(TypeError, match="static"):
         flash_attention_bwd(*args, causal=True,
                             static_positions=(torch.tensor(0), 0))
+    with pytest.raises(ValueError, match="OR"):
+        flash_attention_bwd(*args, causal=True, static_positions=(0, 0),
+                            positions=(torch.tensor(0), torch.tensor(0)))
     with pytest.raises(ValueError, match="causal"):
         flash_attention_bwd(*args, causal=False, window=4)
     with pytest.raises(ValueError, match="causal"):

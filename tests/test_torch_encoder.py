@@ -179,7 +179,10 @@ def test_mask_tokens_rate_and_untouched_positions():
 
 
 def test_make_mlm_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="sharded"):
+    """The sharded step takes a ``DeviceMesh`` with the axes (dp, tp, sp)
+    (``parallel.make_mesh``; its cases: ``tests/test_torch_sharded.py``);
+    anything else is refused."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_mlm_train_step(CFG, mesh=object())
 
 

@@ -788,6 +788,42 @@ def test_bwd_kernels_match_plain(cuda_device, b, hq, hkv, lq, lkv, d,
         assert (dv[:, :, lq + diag_off:] == 0).all()
 
 
+@pytest.mark.parametrize("pos,mask", [
+    ((256, 256), "causal"),        # a ring's diagonal hop
+    ((0, 300), "causal"),          # a hop wholly in the future: no key
+    ((300, 0), "causal"),          # a past hop: every key
+    ((100, 37), "window"),         # a band off the diagonal
+])
+def test_traced_offsets_equal_the_static_launch(cuda_device, pos, mask):
+    """H1, H3-dkv and H3-dq at traced positions (the int32 pair in device
+    memory that every block reads, B9's and B11-B15's traced form) are
+    bitwise the same kernels at the static diagonal, through the public
+    calls too; a hop that sees no key gives (0, -inf) and zero
+    gradients."""
+    causal, window = BWD_MASKS[mask]
+    diag = pos[0] - pos[1]
+    q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 2, 8, 4, 300, 300,
+                                             128, diag, causal=causal,
+                                             window=window)
+    lse = torch.where(torch.isneginf(lse), 5.0, lse)   # a ring's global LSE
+    offs = torch.tensor(pos, dtype=torch.int32, device=q.device)
+    traced = (offs[0], offs[1])
+    fwd = [prefill_attention(q, k, v, scale, d, causal, window,
+                             out_dtype=torch.float32) for d in (offs, diag)]
+    assert all(torch.equal(a, b) for a, b in zip(*fwd))
+    bwd = [flash_attention_bwd(q, k, v, out, do, lse, scale, causal=causal,
+                               window=window, **kw)
+           for kw in ({"positions": traced}, {"static_positions": pos})]
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+    if mask == "causal":
+        part = attention_partial_local(q, k, v, scale, True,
+                                       positions=traced)
+        assert all(torch.equal(a, b) for a, b in zip(part, fwd[0]))
+    if pos == (0, 300):
+        assert (fwd[0][0] == 0).all() and torch.isneginf(fwd[0][1]).all()
+        assert all((g == 0).all() for g in bwd[0])
+
+
 @pytest.mark.parametrize("mask", BWD_MASKS)
 def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask):
     causal, window = BWD_MASKS[mask]

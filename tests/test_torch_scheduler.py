@@ -321,3 +321,38 @@ def test_append_tokens_drops_out_of_range_rows(ids):
     if not valid:
         assert torch.equal(tc.kv_pages, before[0])
         assert torch.equal(tc.kv_scales, before[1])
+
+
+def test_graph_capture_keeps_the_collector_off():
+    """``graphs.no_collection``, around every CUDA graph capture: cyclic
+    garbage (a dead engine's graphs in a reference cycle) is collected
+    before the block, and the collector stays off inside it, so no graph's
+    teardown frees device memory during a capture; it is on again after,
+    also when the block raises, and stays off if it was off."""
+    import gc
+    import weakref
+
+    from exploring_flash_attention_tpu_torch.graphs import no_collection
+
+    class Node:
+        pass
+
+    a, b = Node(), Node()
+    a.other, b.other = b, a
+    dead = weakref.ref(a)
+    del a, b
+    assert gc.isenabled()
+    with no_collection():
+        assert dead() is None and not gc.isenabled()
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError):
+        with no_collection():
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with no_collection():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

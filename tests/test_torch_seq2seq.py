@@ -127,7 +127,10 @@ def test_seq2seq_trains():
 
 
 def test_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A9"):
+    """The sharded step takes a ``DeviceMesh`` with the axes (dp, tp, sp)
+    (``parallel.make_mesh``; its cases: ``tests/test_torch_sharded.py``);
+    anything else is refused."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_seq2seq_train_step(CFG, mesh=object())
 
 

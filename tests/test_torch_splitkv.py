@@ -217,11 +217,11 @@ def test_v2_bf16():
 
 
 def test_partial_refuses_traced_positions_and_both_kinds():
+    """Tensors as ``static_positions`` raise ``TypeError`` (they are
+    the traced ``positions``, held against JAX's in
+    ``tests/test_torch_traced.py``), and so do both kinds at once."""
     q, k, v = _t(*make_qkv(1, 1, 128, 64, dtype=np.float32, seed=9))
-    with pytest.raises(NotImplementedError, match="B.1 item 1"):
-        flash_attention_splitkv_partial(q, k, v, causal=True,
-                                        positions=(128, 0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="traced"):
         flash_attention_splitkv_partial(
             q, k, v, causal=True, static_positions=(torch.tensor(128), 0))
     with pytest.raises(ValueError, match="OR"):

@@ -183,7 +183,24 @@ Phases, one line each; any failure exits non-zero before the last line:
    decoder's self-attention seeing the future, the cross backward
    without its last 64 keys), the loss falling over 10 steps, and the
    step's forward / backward / Adam split on the host clock;
-20. parallel (after seq2seq): the sequence-parallel paths on one card.
+20. tiles (after v1): H1's two new forms through flash_attention_v1.
+   TileConfig(softmax="bound") at bench.py's canonical shape (the
+   phase's main path, counters zeroed before and read after: H1 1 and
+   one call of the statistic's torch ops, ops/attention.bound_kmax)
+   against the f64 oracle and the plain bound version within 2e-3, the
+   v1 gate's controls beyond it; a causal bound call whose K/V grow by
+   one 128-key tile keeps its first rows bitwise; traced offsets bitwise
+   the static launch; over KV spans (H1 + H2) and under a window against
+   the plain version.  The 64-row Q tile (block_q <= 64) bitwise the
+   128-row one on the same inputs, exact and bound, timed with it at the
+   canonical shape and at B=1 H=8 L=1024 causal; the flagship's forward
+   with ModelConfig.tile's block_q=64 bitwise the default's.  Then
+   utils/: autotune_v1 at both shapes, autotune_window, autotune_splitkv
+   and autotune_dtiled once each, every winner read back from the disk
+   cache; a torch.profiler trace (utils.trace) of each form for the
+   kernels' device times and the statistic's kernels; kernel_report's
+   table of H1 exact, bound, the 64-row tile and SDPA.
+21. parallel (after seq2seq): the sequence-parallel paths on one card.
    A causal ring of 4 ranks at the flagship's widths (Hq 8, Hkv 4, d 128,
    bf16), B=8 x L=1024 (the train step's shape) and B=1 x L=32768 (256
    and 8192 rows a rank), composed by hand through parallel.ring's hop
@@ -234,6 +251,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -519,11 +537,12 @@ def phase_build(kernels):
     check_sass(kernels)
 
 
-# the wgmma kernels' functions in the SASS: H1 (d 32, 64, 128), H4-int8
+# the wgmma kernels' functions in the SASS: H1 (d 32, 64, 128 x Q tiles of
+# 64 and 128 rows x the exact and bound statistics), H4-int8
 # (d 64, 128 x pv_mode), H4-kvq (d 64, 128 x int8, e4m3), H5 (d 128,
 # 256, 384, 512 x bf16, int8, e4m3), H3-dkv and H3-dq (d 64, 128),
 # H6-extend (d 64, 128)
-WGMMA_FUNCTIONS = {"prefill_attention_kernel": 3, "int8_attention_kernel": 4,
+WGMMA_FUNCTIONS = {"prefill_attention_kernel": 12, "int8_attention_kernel": 4,
                    "kvquant_attention_kernel": 4,
                    "dtiled_attention_kernel": 12,
                    "attention_bwd_dkv_kernel": 2,
@@ -882,7 +901,7 @@ def phase_v2(torch, dev):
                  and lse.shape == (b, h, V2_NKB, l),
                  f"partials {tuple(o_p.shape)}, {tuple(lse.shape)}: JAX's "
                  f"nkb is {V2_NKB}")
-        e_merge = (splitkv_combine(o_p, lse, torch.float32) - o).abs().max()
+        e_merge = (splitkv_combine(o_p, lse, out_dtype=torch.float32) - o).abs().max()
         # control: the last span's keys lost in the merge
         lse_bad = lse.clone()
         lse_bad[:2, :2, -1] = float("-inf")
@@ -927,7 +946,7 @@ def phase_v2(torch, dev):
                                      n_iter=20),
              "h1_spans_ms": time_cuda(lambda: flash_attention_splitkv_partial(
                  q, k, v, config=cfg, causal=causal), n_iter=20),
-             "h2_ms": time_cuda(lambda: splitkv_combine(o_p, lse, q.dtype),
+             "h2_ms": time_cuda(lambda: splitkv_combine(o_p, lse, out_dtype=q.dtype),
                                 n_iter=20)}
         t["bound_ms"], t["bound_by"] = roofline(flop, 4 * b * h * l * d * 2)
         t["h2_bound_ms"] = merge_bound(V2_NKB, b * h * l, d)[0]
@@ -975,7 +994,7 @@ def split_timings(torch, q, k, v, span, want):
         splitkv_combine,
         splitkv_combine_plain,
     )
-    from exploring_flash_attention_tpu_torch.ops.attention import H1_TILE
+    from exploring_flash_attention_tpu_torch.ops.attention import H1_KV_TILE
     from exploring_flash_attention_tpu_torch.utils import time_cuda
 
     b, hq, lq, d = q.shape
@@ -984,12 +1003,12 @@ def split_timings(torch, q, k, v, span, want):
     o_part, lse = prefill_attention(q, k, v, scale, 0, False, kv_span=span,
                                     out_dtype=torch.float32)
     nkb = o_part.shape[2]
-    got = splitkv_combine(o_part, lse, torch.float32)
+    got = splitkv_combine(o_part, lse, out_dtype=torch.float32)
     err = (got - splitkv_combine_plain(o_part, lse)).abs().max().item()
     _require(err < H2_O_TOL, f"H2 differs from its plain version: {err:.3e}")
     rows = b * hq * lq
     h2 = {"launches": want["h2"], "max_abs_err": err,
-          "ms": time_cuda(lambda: splitkv_combine(o_part, lse, q.dtype)),
+          "ms": time_cuda(lambda: splitkv_combine(o_part, lse, out_dtype=q.dtype)),
           "plain_ms": time_cuda(lambda: splitkv_combine_plain(o_part, lse)),
           "library_ms": None}
     # its operations (an FMA per partial element, an exp per partial) are
@@ -999,20 +1018,20 @@ def split_timings(torch, q, k, v, span, want):
     # the same call on 8 rows: what a launch costs in this harness
     tiny = (torch.randn(1, 1, nkb, 8, d, device=q.device),
             torch.randn(1, 1, nkb, 8, device=q.device))
-    h2["floor_ms"] = time_cuda(lambda: splitkv_combine(*tiny, q.dtype))
+    h2["floor_ms"] = time_cuda(lambda: splitkv_combine(*tiny, out_dtype=q.dtype))
     spans = time_cuda(lambda: prefill_attention(
         q, k, v, scale, 0, False, kv_span=span, out_dtype=torch.float32),
         n_iter=10)
     sweep = []
     for n in SPLIT_SWEEP:
-        sp = cdiv(cdiv(lkv, n), H1_TILE) * H1_TILE
+        sp = cdiv(cdiv(lkv, n), H1_KV_TILE) * H1_KV_TILE
         if n == 1:
             ms = time_cuda(lambda: prefill_attention(
                 q, k, v, scale, 0, False, with_lse=False), n_iter=10)
         else:
             ms = time_cuda(lambda: splitkv_combine(*prefill_attention(
                 q, k, v, scale, 0, False, kv_span=sp,
-                out_dtype=torch.float32), q.dtype), n_iter=10)
+                out_dtype=torch.float32), out_dtype=q.dtype), n_iter=10)
         sweep.append(f"{n} span{'s' * (n > 1)} {ms:.4f} ms")
     print(f"  v1 split at B={b} Hq={hq} Lq={lq} Lkv={lkv} d={d}, {nkb} "
           f"spans of {span} keys: H2 vs its plain version {err:.3e} (tol "
@@ -1610,7 +1629,7 @@ def phase_decode(torch, dev):
               f"{top:.3e}: {ulp:.3e}){note}")
         _require(e_merge <= ulp, f"the fused merge differs from the plain "
                  f"merge of the kernel's partials ({name})")
-        e_h2 = (splitkv_combine(o_part, lse, torch.float32)
+        e_h2 = (splitkv_combine(o_part, lse, out_dtype=torch.float32)
                 - splitkv_combine_plain(o_part, lse)).abs().max().item()
         _require(e_h2 < H2_O_TOL, f"H2 on the decode partials: {e_h2:.3e}")
         del o, merged
@@ -1625,7 +1644,7 @@ def phase_decode(torch, dev):
             *paged_work(hq, hkv, d, int(vis.sum()), int(vis.sum()), b))
         alone = lambda: paged_decode_partials(        # noqa: E731
             q, cache, slots, scale, window)
-        two = lambda: splitkv_combine(*alone(), q.dtype)[:, :, 0]  # noqa: E731
+        two = lambda: splitkv_combine(*alone(), out_dtype=q.dtype)[:, :, 0]  # noqa: E731
         # in turns: fused, two-launch, alone, alone, two-launch, fused
         fused_ms, two_ms, alone_ms = [t["ms"]], [], []
         for fn, acc in ((two, two_ms), (alone, alone_ms), (alone, alone_ms),
@@ -1635,7 +1654,7 @@ def phase_decode(torch, dev):
         t["partials_ms"] = float(np.mean(alone_ms))
         t["two_launch_ms"] = float(np.mean(two_ms))
         t["merge_ms"] = t["ms"] - t["partials_ms"]
-        t["h2_ms"] = time_cuda(lambda: splitkv_combine(o_part, lse, q.dtype))
+        t["h2_ms"] = time_cuda(lambda: splitkv_combine(o_part, lse, out_dtype=q.dtype))
         t["merge_bound_ms"], _ = merge_bound(split[0], b * hq, d)
         t["bound_share"] = t["bound_ms"] / t["ms"]
         t["split"] = list(split)
@@ -1955,7 +1974,8 @@ def phase_bwd(torch, dev):
             out, lse = prefill_attention(q, k, v, scale, off, causal,
                                          window)        # H1's residuals
             run = lambda: flash_attention_bwd(                  # noqa: E731
-                q, k, v, out, do, lse, scale, causal=causal, window=window)
+                q, k, v, out, do, lse, scale=scale, causal=causal,
+                window=window)
             grads, again = run(), run()
             torch.cuda.synchronize()
             identical = all(torch.equal(x, y) for x, y in zip(grads, again))
@@ -2303,10 +2323,11 @@ def train_step_flop(cfg, b, l):
 
 
 def plain_flash_attention(q, k, v, causal=True, window=None, hidden=0,
-                          as_causal=False):
+                          as_causal=False, config=None):
     """The model's attention on the plain PyTorch forward, differentiated
     by autograd: the reference path of the train, encoder and window_train
-    checks.  Known-wrong forwards: ``hidden=1`` hides each row's diagonal
+    checks (``config``, the model's tile, leaves the plain result as it
+    is).  Known-wrong forwards: ``hidden=1`` hides each row's diagonal
     key (under a window, the band shifts back one key), ``as_causal``
     masks a bidirectional call causally.
 
@@ -2633,8 +2654,8 @@ def phase_window_train(torch, dev):
         loss_p, grads_p = loss_and_grads()
     loss_bad = loss_only(functools.partial(plain_flash_attention, hidden=1))
     loss_full = loss_only(
-        lambda q, k, v, causal=True, window=None: plain_flash_attention(
-            q, k, v, causal))
+        lambda q, k, v, causal=True, window=None, config=None:
+        plain_flash_attention(q, k, v, causal))
     with mock.patch.object(attention_bwd_module, "masked_attention_bwd",
                            functools.partial(
                                shifted_bwd,
@@ -3196,7 +3217,7 @@ def phase_seq2seq(torch, dev):
         return loss.item(), torch.autograd.grad(loss, leaves)
 
     def cross_dropped(n):
-        def attention(q, k, v, causal=False):
+        def attention(q, k, v, causal=False, config=None):
             if q.shape[2] != k.shape[2]:            # the cross attention
                 k, v = k[:, :, :-n], v[:, :, :-n]
             return plain_flash_attention(q, k, v, causal=causal)
@@ -3214,7 +3235,7 @@ def phase_seq2seq(torch, dev):
         pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 64))  # noqa
         return dq, pad(dk), pad(dv)
 
-    def sees_future(q, k, v, causal=False):
+    def sees_future(q, k, v, causal=False, config=None):
         return plain_flash_attention(q, k, v, causal=False)
 
     loss_k, grads_k = loss_and_grads()
@@ -3370,7 +3391,7 @@ def time_kernels(torch, dev):
         delta_ms = time_cuda(lambda: (do.float() * o.float()).sum(dim=-1),
                              n_iter=20)
         pair = time_cuda(lambda: flash_attention_bwd(
-            q, k, v, o, do, lse, s, causal=causal), n_iter=20)
+            q, k, v, o, do, lse, scale=s, causal=causal), n_iter=20)
         name = "causal" if causal else "none"
         out[f"h3_{name}"] = {**t, "delta_ms": delta_ms, "pair_ms": pair}
         print(f"  times at B=8 Hq=8 Hkv=4 L=1024 d=128, mask {name}: "
@@ -3489,8 +3510,9 @@ def window_attention_times(torch, dev, gen):
     """H1 and H3 at the windowed model's training shape (B=1, Hq=8, Hkv=4,
     L=32768, d=128) under its window and under the causal mask alone: the
     band's tiles must take under half the causal time (O(L * window)
-    pairs, not O(L^2)).  No library time: SDPA takes a band only as a
-    dense L x L mask, over all L^2 pairs."""
+    pairs, not O(L^2)).  SDPA takes a band only as a dense L x L boolean
+    mask, over all L^2 pairs: its backward under that mask is H3's library
+    time (:func:`window_library_bwd`)."""
     from exploring_flash_attention_tpu_torch.ops import (
         attention_bwd_dkv,
         attention_bwd_dq,
@@ -3537,7 +3559,46 @@ def window_attention_times(torch, dev, gen):
     _require(all(out["window"][n]["ms"] < 0.5 * out["causal"][n]["ms"]
                  for n in ("h1", "h3dkv", "h3dq")),
              "H1 or H3 does not skip the tiles outside the band")
+    out["window_library_bwd"] = window_library_bwd(torch, q, k, v, do,
+                                                   WINDOW)
     return out
+
+
+def window_library_bwd(torch, q, k, v, do, window):
+    """The backward of scaled_dot_product_attention (autograd, the
+    memory-efficient backend, K/V repeated to q's heads) under the window
+    as a dense boolean L x L band mask: at the largest L of q's, halving,
+    whose mask and the backend's work space fit the card."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    g = q.shape[1] // k.shape[1]
+    l = q.shape[2]
+    while l >= 2 * window:
+        try:
+            i = torch.arange(l, device=q.device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :]
+                                                 > i[:, None] - window)
+            leaves = [x[:, :, :l].detach().clone().requires_grad_()
+                      for x in (q, k.repeat_interleave(g, 1),
+                                v.repeat_interleave(g, 1))]
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o = sdpa(*leaves, attn_mask=mask)
+            d_o = do[:, :, :l].contiguous()
+            ms = time_cuda(lambda: torch.autograd.grad(
+                o, leaves, d_o, retain_graph=True), n_iter=5, n_warmup=2)
+        except torch.cuda.OutOfMemoryError:
+            l //= 2
+            continue
+        r = {"L": l, "ms": ms, "mask_bytes": l * l,
+             "backend": "EFFICIENT_ATTENTION"}
+        print(f"  SDPA backward under the window {window} as a dense boolean "
+              f"mask ({l * l / 2**30:.2f} GiB), B={q.shape[0]} H="
+              f"{q.shape[1]} L={l}: {ms:.4f} ms")
+        return r
+    raise PhaseError("SDPA's masked backward fits at no L")
 
 
 # ---- the parallel phase: sequence-parallel paths on one card ----
@@ -3731,7 +3792,7 @@ def ring_on_one_card(torch, dev, b, l, gen, times):
     e_o = (ring_o - one_o).abs().max().item()
     e_lse = (ring_lse - one_lse).abs().max().item()
     one_g = flash_attention_bwd(q, k, v, one_o.to(torch.bfloat16), do,
-                                one_lse, scale, causal=True)
+                                one_lse, scale=scale, causal=True)
     dq = [torch.zeros_like(x, dtype=torch.float32) for x in qs]
     dk = [torch.zeros_like(x, dtype=torch.float32) for x in ks]
     dv = [torch.zeros_like(x, dtype=torch.float32) for x in vs]
@@ -4065,9 +4126,386 @@ def device_offset_readings(par, kern):
             "sharded_train_step": par["sharded"]}
 
 
+# ---- the tiles phase: H1's bound statistic and 64-row Q tile, and the
+# utils/ tools on the card ----
+
+BOUND_O_TOL = 2e-3     # the bound form's f32 O vs the f64 oracle and the
+                       # plain bound version: the JAX package's bf16 bound
+                       # tier (tests/test_attention_v1.py:441-448), whose
+                       # docstring expects ~1.0e-3 against exact's 4e-4 (the
+                       # top weight is no longer exactly 1.0 in bf16)
+TILES_SMALL = (1, 8, 1024, 128)      # B, H, L, d, causal: 64 blocks of
+                                     # 128 rows on 132 SMs, 128 of 64
+TILES_GROW = (8, 8, 4, 1024, 128)    # B, Hq, Hkv, L, d: causal, then K/V
+                                     # (and q) grown by one 128-key tile
+TILES_TRACED = (8, 8, 4, 1024, 128, ((2048, 1024), (1024, 2048)))
+# B, Hq, Hkv, L, d, (q_pos0, kv_pos0): a ring hop on the diagonal's far
+# side and one whose rows see no key
+TILES_SPLIT = (1, 8, 8, 1024, 8192, 128)     # the v1 phase's split route
+TILES_WINDOW = (4, 8, 4, 4096, 128, V1_WINDOW)
+
+
+def bound_plain(q, k, v, causal, diag_off, window=None):
+    """The plain version of H1's bound form: attention_plain with the
+    bound shift of bound_shift (f32 math)."""
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        attention_plain,
+        bound_kmax,
+        bound_shift,
+    )
+
+    scale = 1.0 / math.sqrt(q.shape[3])
+    shift = bound_shift(q, bound_kmax(k), scale, causal, diag_off)
+    return attention_plain(q, k, v, scale, causal, diag_off, window, shift)
+
+
+def kernel_rows(torch, prof, n_calls):
+    """{kernel name: (launches a call, device ms a call)} of the CUDA rows
+    of a torch.profiler run of ``n_calls`` calls."""
+    rows = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and not e.is_user_annotation:
+            rows[e.key] = (e.count / n_calls,
+                           e.self_device_time_total / 1e3 / n_calls)
+    return rows
+
+
+def in_turns(torch, fns, n_iter=20):
+    """Median ms of each of ``fns`` (time_cuda), timed in the order a, b,
+    ..., then reversed, the two readings averaged: a drift of the card's
+    clock over the run weighs on both alike."""
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    first = {n: time_cuda(f, n_iter=n_iter) for n, f in fns.items()}
+    second = {n: time_cuda(f, n_iter=n_iter)
+              for n, f in reversed(list(fns.items()))}
+    return {n: (first[n] + second[n]) / 2 for n in fns}
+
+
+def phase_tiles(torch, dev):
+    """H1's two new forms through flash_attention_v1: the bound statistic
+    (TileConfig(softmax="bound")) at the canonical shape against the f64
+    oracle and the plain bound version with the v1 gate's controls, its
+    causal invariance to a whole K/V tile, traced offsets against the
+    static launch, spans and a window against the plain version; the
+    64-row Q tile (block_q <= 64) bitwise against the 128-row one and
+    timed at two shapes; ModelConfig.tile through the flagship's forward;
+    and utils/'s autotune_v1 (winner cached and read back from disk),
+    trace and kernel_report on the card."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch import TileConfig
+    from exploring_flash_attention_tpu_torch.models import (
+        flagship_config,
+        forward,
+        init_params,
+    )
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_plain,
+        flash_attention_v1,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        bound_kmax,
+        traced_pair,
+    )
+    from exploring_flash_attention_tpu_torch.utils import (
+        attention_flops,
+        autotune_dtiled,
+        autotune_splitkv,
+        autotune_v1,
+        autotune_window,
+        kernel_report,
+        roofline_attention_tflops,
+        time_cuda,
+        trace,
+    )
+    import exploring_flash_attention_tpu_torch.utils.autotune as autotune
+
+    bound, tile64 = TileConfig(softmax="bound"), TileConfig(block_q=64)
+    bound64 = TileConfig(block_q=64, softmax="bound")
+    out = {}
+    b, h, l, d = V1_CANON
+    q, k, v = v1_inputs(torch, dev, b, h, h, l, l, d, seed=1)
+    # the main path: the bound form at the canonical shape, counters read
+    zero_counters()
+    bound_kmax.launches = 0
+    o = flash_attention_v1(q, k, v, bound, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    launches, stat_calls = read_counters(), bound_kmax.launches
+    _require(launches == launches_only(h1=1) and stat_calls == 1,
+             f"bound launches {launches}, statistic calls {stat_calls}: "
+             "expected one H1 and one statistic")
+    r = v1_readings(torch, q, k, v, o, None, False, None, 2, 2)
+    e_plain = (o - bound_plain(q, k, v, False, 0)[0]).abs().max().item()
+    o_exact = flash_attention_v1(q, k, v, out_dtype=torch.float32)
+    r_exact = v1_readings(torch, q, k, v, o_exact, None, False, None, 2, 2)
+    print(f"  tiles bound B={b} H={h} L={l} d={d} bf16 in, f32 out: "
+          f"max|dO| on [:2, :2] vs f64 oracle {r['oracle']:.3e} (tol "
+          f"{BOUND_O_TOL:g}; exact {r_exact['oracle']:.3e}); whole tensor "
+          f"vs the plain bound version {e_plain:.3e}, vs the plain exact "
+          f"version {r['plain']:.3e} (tol {BOUND_O_TOL:g}); controls vs f64 "
+          f"oracle: scale off by 10% {r['scale']:.3e}, last 64-key tile "
+          f"dropped {r['drop']:.3e}; launches {launches}, statistic calls "
+          f"{stat_calls}")
+    _require(max(r["oracle"], e_plain, r["plain"]) <= BOUND_O_TOL,
+             "H1's bound form outside tolerance")
+    _require(min(r["scale"], r["drop"]) > BOUND_O_TOL,
+             "the bound gate cannot tell a wrong path")
+    out["bound"] = {"launches": launches["h1"], "statistic_calls": stat_calls,
+                    "max_abs_err": e_plain, "oracle_err": r["oracle"],
+                    "exact_oracle_err": r_exact["oracle"]}
+    # the 64-row tile on the same inputs: bitwise, exact and bound
+    for name, cfg, ref in (("exact", tile64, o_exact), ("bound", bound64, o)):
+        o64 = flash_attention_v1(q, k, v, cfg, out_dtype=torch.float32)
+        _require(torch.equal(o64, ref),
+                 f"64-row tile differs from 128 ({name}): "
+                 f"{(o64 - ref).abs().max().item():.3e}")
+    del o, o_exact, o64
+    print("  tiles 64-row Q tile at the canonical shape: O bitwise the "
+          "128-row tile's, exact and bound")
+
+    # times at the canonical shape: the calls (L2 flushed), then each
+    # kernel's device time from one trace of all four forms
+    scale = 1.0 / math.sqrt(d)
+    calls = {"exact": lambda: flash_attention_v1(q, k, v),
+             "bound": lambda: flash_attention_v1(q, k, v, bound),
+             "tile64": lambda: flash_attention_v1(q, k, v, tile64),
+             "bound64": lambda: flash_attention_v1(q, k, v, bound64)}
+    t = in_turns(torch, calls)
+    t["statistic"] = time_cuda(lambda: bound_kmax(k), n_iter=20)
+    t["sdpa"] = time_cuda(lambda: sdpa(q, k, v), n_iter=20)
+    t["plain_bound"] = time_cuda(lambda: bound_plain(q, k, v, False, 0),
+                                 n_iter=5, n_warmup=1)
+    n_prof = 10
+    prof_rows = {}
+    for name in ("exact", "bound", "tile64", "bound64"):
+        with trace(str(ROOT / "build" / "tiles_trace" / name)) as tr:
+            for _ in range(n_prof):
+                calls[name]()
+        prof_rows[name] = kernel_rows(torch, tr.profiler, n_prof)
+        _require(os.path.exists(tr.path), f"no Chrome trace at {tr.path}")
+    h1_ms = {n: sum(ms for key, (_, ms) in rows.items()
+                    if "prefill_attention_kernel" in key)
+             for n, rows in prof_rows.items()}
+    stat = {key: x for key, x in prof_rows["bound"].items()
+            if "prefill_attention_kernel" not in key}
+    flop = attention_flops(b, h, l, l, d)
+    nbytes = 4 * b * h * l * d * 2
+    t["bound_ms"], t["bound_by"] = roofline(flop, nbytes)
+    # the statistic reads K once and writes B*Hkv*L/128 floats
+    t["statistic_bound_ms"], _ = roofline(0, b * h * l * d * 2)
+    print(f"  tiles times at B={b} H={h} L={l} d={d} (CUDA events, median, "
+          f"L2 flushed, in turns): call exact {t['exact']:.4f} ms, bound "
+          f"{t['bound']:.4f}, 64-row tile {t['tile64']:.4f}, 64-row bound "
+          f"{t['bound64']:.4f}; the statistic alone {t['statistic']:.4f} ms "
+          f"(bound {t['statistic_bound_ms']:.4f}, bytes); plain bound "
+          f"{t['plain_bound']:.4f}; SDPA {t['sdpa']:.4f}; H1's bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    print(f"  tiles H1 kernel device ms (torch.profiler, {n_prof} calls, L2 "
+          f"warm): " + ", ".join(f"{n} {x:.4f}" for n, x in h1_ms.items())
+          + f"; the statistic's kernels a call: "
+          + ", ".join(f"{key[:48]} x{n:g} {ms:.4f} ms"
+                      for key, (n, ms) in stat.items()))
+    out["canonical"] = {**t, "h1_kernel_ms": h1_ms,
+                        "statistic_kernels": {key: {"per_call": n, "ms": ms}
+                                              for key, (n, ms) in stat.items()}}
+
+    # the tools: kernel_report's table, autotune_v1 with its disk cache
+    entries = [("H1 exact", lambda x: flash_attention_v1(x, k, v), q, flop,
+                nbytes),
+               ("H1 bound", lambda x: flash_attention_v1(x, k, v, bound), q,
+                flop, nbytes),
+               ("H1 64-row tile", lambda x: flash_attention_v1(x, k, v,
+                                                               tile64),
+                q, flop, nbytes),
+               ("SDPA", lambda x: sdpa(x, k, v), q, flop, nbytes)]
+    print(f"  tiles kernel_report at B={b} H={h} L={l} d={d} "
+          "(time_fn_chained, q := the last output; roofline "
+          f"{roofline_attention_tflops(b, h, l, d):.1f} TFLOP/s, "
+          "roofline_attention_tflops at the H100's peaks):")
+    out["report"] = kernel_report(entries)
+    cache = ROOT / "build" / "autotune.json"
+    cache.unlink(missing_ok=True)
+    autotune._CACHE_PATH = str(cache)
+    autotune._CACHE.clear()
+    win = {"canonical": autotune_v1(q, k, v)}
+    canon = (q, k, v)
+
+    b, h, l, d = TILES_SMALL
+    q, k, v = v1_inputs(torch, dev, b, h, h, l, l, d, seed=3)
+    zero_counters()
+    o64 = flash_attention_v1(q, k, v, tile64, causal=True,
+                             out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    launches64 = read_counters()
+    _require(launches64 == launches_only(h1=1),
+             f"64-row tile launches {launches64}, expected one H1")
+    o128 = flash_attention_v1(q, k, v, causal=True, out_dtype=torch.float32)
+    _require(torch.equal(o64, o128), "64-row tile differs from 128, causal")
+    # a causal call at Lq == Lkv: its first rows see 1..n keys and have
+    # |O| up to ~3, so the window cases' limit, beside the control of each
+    # row's diagonal key hidden
+    e64 = (o64 - attention_plain(q, k, v, 1.0 / math.sqrt(d), True, 0)[0]
+           ).abs().max().item()
+    e64_bad = (o64 - attention_plain(q, k, v, 1.0 / math.sqrt(d), True, -1)[0]
+               ).abs().max().item()
+    _require(e64 < V1_WINDOW_O_TOL < e64_bad,
+             f"64-row tile vs plain {e64:.3e}, control {e64_bad:.3e}")
+    ts = in_turns(torch, {
+        "tile128": lambda: flash_attention_v1(q, k, v, causal=True),
+        "tile64": lambda: flash_attention_v1(q, k, v, tile64, causal=True)})
+    ts["sdpa"] = time_cuda(lambda: sdpa(q, k, v, is_causal=True), n_iter=20)
+    ts["plain"] = time_cuda(lambda: attention_plain(
+        q, k, v, 1.0 / math.sqrt(d), True, 0), n_iter=5, n_warmup=1)
+    flop_c = attention_flops(b, h, l, l, d, causal=True)
+    ts["bound_ms"], ts["bound_by"] = roofline(flop_c, 4 * b * h * l * d * 2)
+    win["small causal"] = autotune_v1(q, k, v, causal=True)
+    print(f"  tiles 64-row Q tile at B={b} H={h} L={l} d={d} causal: O "
+          f"bitwise the 128-row tile's; vs plain {e64:.3e} (tol "
+          f"{V1_WINDOW_O_TOL:g}; control, each row's diagonal key hidden, "
+          f"{e64_bad:.3e}); launches {launches64}; times 128-row "
+          f"{ts['tile128']:.4f} ms, 64-row {ts['tile64']:.4f} ms (ratio "
+          f"{ts['tile128'] / ts['tile64']:.3f}); SDPA {ts['sdpa']:.4f}; "
+          f"plain {ts['plain']:.4f}; bound {ts['bound_ms']:.4f} "
+          f"({ts['bound_by']})")
+    out["small_causal"] = {**ts, "launches": launches64["h1"],
+                           "max_abs_err": e64}
+    del o64, o128
+    # the winners cached: the in-process cache cleared, read from disk
+    autotune._CACHE.clear()
+    again = {"canonical": autotune_v1(*canon, candidates=[]),
+             "small causal": autotune_v1(q, k, v, causal=True,
+                                         candidates=[])}
+    _require(again == win and cache.exists(),
+             f"autotune's disk cache gave {again}, swept {win}")
+    print(f"  tiles autotune_v1 winners (block_q): "
+          + ", ".join(f"{n} {c.block_q}" for n, c in win.items())
+          + f"; read back from {cache.relative_to(ROOT)} after the "
+          "in-process cache was cleared")
+    out["autotune"] = {n: c.block_q for n, c in win.items()}
+    del q, k, v, canon
+
+    # causal invariance: K/V (and q) grown by one 128-key tile leave the
+    # first L rows bitwise unchanged, both Q tiles
+    b, hq, hkv, l, d = TILES_GROW
+    q, k, v = v1_inputs(torch, dev, b, hq, hkv, l + 128, l + 128, d, seed=4)
+    for cfg in (bound, bound64):
+        short = flash_attention_v1(q[:, :, :l].contiguous(),
+                                   k[:, :, :l].contiguous(),
+                                   v[:, :, :l].contiguous(), cfg,
+                                   causal=True, out_dtype=torch.float32)
+        grown = flash_attention_v1(q, k, v, cfg, causal=True,
+                                   out_dtype=torch.float32)
+        _require(torch.equal(grown[:, :, :l], short),
+                 f"bound causal rows moved when K/V grew by a tile "
+                 f"(block_q {cfg.block_q})")
+    # causal at Lq == Lkv: the window cases' limit, as for the 64-row tile
+    e_grow = (grown - bound_plain(q, k, v, True, 0)[0]).abs().max().item()
+    e_grow_bad = (grown - bound_plain(q, k, v, True, -1)[0]
+                  ).abs().max().item()
+    _require(e_grow < V1_WINDOW_O_TOL < e_grow_bad,
+             f"causal bound vs plain {e_grow:.3e}, control {e_grow_bad:.3e}")
+    print(f"  tiles causal bound B={b} Hq={hq} Hkv={hkv} L={l} grown to "
+          f"{l + 128}: the first {l} rows bitwise unchanged (Q tiles 128 "
+          f"and 64); vs the plain bound version {e_grow:.3e} (tol "
+          f"{V1_WINDOW_O_TOL:g}; control, each row's diagonal key hidden, "
+          f"{e_grow_bad:.3e})")
+    del q, k, v, short, grown
+
+    # traced offsets: bitwise the static launch; a hop whose rows see no
+    # key gives (0, -inf)
+    b, hq, hkv, l, d, hops = TILES_TRACED
+    q, k, v = v1_inputs(torch, dev, b, hq, hkv, l, l, d, seed=5)
+    for q_pos0, kv_pos0 in hops:
+        pair = traced_pair((torch.tensor(q_pos0), torch.tensor(kv_pos0)),
+                           dev)
+        got = prefill_attention(q, k, v, scale, pair, True,
+                                out_dtype=torch.float32, softmax="bound")
+        ref = prefill_attention(q, k, v, scale, q_pos0 - kv_pos0, True,
+                                out_dtype=torch.float32, softmax="bound")
+        _require(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                 f"traced bound at ({q_pos0}, {kv_pos0}) differs from static")
+        if q_pos0 < kv_pos0:
+            _require(bool((got[0] == 0).all() and torch.isneginf(got[1]).all()),
+                     "rows that see no key are not (0, -inf)")
+        else:
+            e_tr = (got[0] - bound_plain(q, k, v, True, q_pos0 - kv_pos0)[0]
+                    ).abs().max().item()
+            _require(e_tr < BOUND_O_TOL, f"traced bound vs plain {e_tr:.3e}")
+    print(f"  tiles bound at traced offsets {hops}, B={b} Hq={hq} Hkv={hkv} "
+          f"L={l}: O and LSE bitwise the static launch's; vs the plain bound "
+          f"version {e_tr:.3e}; the hop past the diagonal (0, -inf)")
+    del q, k, v, got, ref
+
+    # spans (H1 over KV spans + H2) and a window, against the plain version
+    b, hq, hkv, lq, lkv, d = TILES_SPLIT
+    q, k, v = v1_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed=6)
+    o = counted_call(torch, lambda: flash_attention_v1(
+        q, k, v, bound, out_dtype=torch.float32),
+        launches_only(h1=1, h2=1))
+    e_span = (o - bound_plain(q, k, v, False, 0)[0]).abs().max().item()
+    _require(e_span < BOUND_O_TOL, f"bound over spans vs plain {e_span:.3e}")
+    win["splitkv"] = autotune_splitkv(q, k, v)
+    del q, k, v, o
+    b, hq, hkv, l, d, window = TILES_WINDOW
+    q, k, v = v1_inputs(torch, dev, b, hq, hkv, l, l, d, seed=7)
+    o = counted_call(torch, lambda: flash_attention_v1(
+        q, k, v, bound, causal=True, window=window,
+        out_dtype=torch.float32), launches_only(h1=1))
+    e_win = (o - bound_plain(q, k, v, True, 0, window)[0]).abs().max().item()
+    _require(e_win < V1_WINDOW_O_TOL, f"bound window vs plain {e_win:.3e}")
+    win["window"] = autotune_window(q, k, v, window)
+    del q, k, v, o
+    q, k, v = v1_inputs(torch, dev, 1, 8, 8, 1024, 1024, 256, seed=8)
+    zero_counters()
+    win["dtiled"] = autotune_dtiled(q, k, v)
+    torch.cuda.synchronize()
+    _require(read_counters() == launches_only(h5=1),
+             "autotune_dtiled runs its first candidate once")
+    autotune._CACHE.clear()
+    _require(autotune_dtiled(q, k, v, candidates=[]) == win["dtiled"]
+             and autotune_splitkv(*v1_inputs(torch, dev, *TILES_SPLIT,
+                                             seed=6))
+             == win["splitkv"], "autotune's disk cache lost a winner")
+    print(f"  tiles autotune on the card: window {window} at L={l} block_q "
+          f"{win['window'].block_q}; split-KV at Lkv={TILES_SPLIT[4]} "
+          f"kv_tiles_per_block {win['splitkv'].kv_tiles_per_block}; "
+          f"d-tiled at d=256 (H5 reads no field: the first candidate, one "
+          f"launch) {win['dtiled']}; read back from disk")
+    out["autotune"].update(
+        window=win["window"].block_q,
+        splitkv_kv_tiles_per_block=win["splitkv"].kv_tiles_per_block)
+    print(f"  tiles bound over KV spans (B={TILES_SPLIT[0]} Lq="
+          f"{TILES_SPLIT[3]} Lkv={TILES_SPLIT[4]}, H1 1 + H2 1) vs plain "
+          f"{e_span:.3e} (tol {BOUND_O_TOL:g}); window {window} at L={l} "
+          f"(H1 1) vs plain {e_win:.3e} (tol {V1_WINDOW_O_TOL:g})")
+    out["paths"] = {"span": e_span, "window": e_win}
+    del q, k, v
+
+    # ModelConfig.tile reaches H1: the flagship's forward with 64-row tiles
+    cfg = flagship_config()
+    params = init_params(cfg, seed=0, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 1024))).to(dev)
+    zero_counters()
+    with torch.no_grad():
+        ref = forward(params, tokens, cfg)
+        got = forward(params, tokens, dataclasses.replace(cfg, tile=tile64))
+    torch.cuda.synchronize()
+    fl = read_counters()
+    _require(torch.equal(got, ref) and fl == launches_only(
+        h1=2 * cfg.n_layers), f"forward with tile block_q=64: launches {fl}")
+    print(f"  tiles flagship forward [2, 1024] with ModelConfig.tile "
+          f"block_q=64: logits bitwise the default's; launches {fl}")
+    del params, ref, got
+    print("phase tiles: ok")
+    return out
+
+
 # the phases `--only` takes (a quicker call while a phase is worked on; the
 # full run, with no arguments, runs every phase and prints the kernels line)
-PHASES = ("h1", "v1", "v2", "quant", "dtiled", "decode", "extend",
+PHASES = ("h1", "v1", "tiles", "v2", "quant", "dtiled", "decode", "extend",
           "scheduler", "bwd", "slice", "multiturn", "speculative", "train",
           "encoder", "seq2seq", "parallel", "window_train",
           "window_generate", "time_kernels")
@@ -4121,6 +4559,7 @@ def main(argv) -> int:
         return 0
     h1_err = phase_h1(torch, dev)
     v1_launches, v1_err, v1_t, h2 = phase_v1(torch, dev)
+    tiles = phase_tiles(torch, dev)
     v2_launches, v2_t = phase_v2(torch, dev)
     quant_gates, kvq, int8 = phase_quant(torch, dev)
     dtiled_gates, h5 = phase_dtiled(torch, dev)
@@ -4184,6 +4623,42 @@ def main(argv) -> int:
              **v1_t["library_ms_by_case"],
              **{f"B4 causal {n}": x
                 for n, x in t["h1_causal_library"].items()}}},
+        # H1's two new forms, the tiles phase's: the bound statistic at the
+        # canonical shape (ms the whole call, the statistic's torch ops
+        # included; kernel_ms the kernel's device time from the trace) and
+        # the 64-row Q tile at B=1 H=8 L=1024 causal
+        {"name": "H1 bound statistic (TileConfig softmax='bound')",
+         "route": "cuda", "source": H1_SRC, "replaces": f"{V1_PY}:1139",
+         "also_replaces": [f"{V1_PY}:{n}" for n in (387, 213, 1261, 1357)],
+         "launches": tiles["bound"]["launches"],
+         "max_abs_err": tiles["bound"]["max_abs_err"],
+         "ms": tiles["canonical"]["bound"],
+         "plain_ms": tiles["canonical"]["plain_bound"],
+         "bound_ms": tiles["canonical"]["bound_ms"],
+         "bound_by": tiles["canonical"]["bound_by"],
+         "library_ms": tiles["canonical"]["sdpa"],
+         "kernel_ms": tiles["canonical"]["h1_kernel_ms"]["bound"],
+         "exact_kernel_ms": tiles["canonical"]["h1_kernel_ms"]["exact"],
+         "exact_ms": tiles["canonical"]["exact"],
+         "statistic_ms": tiles["canonical"]["statistic"],
+         "statistic_calls": tiles["bound"]["statistic_calls"],
+         "statistic_kernels": tiles["canonical"]["statistic_kernels"],
+         "oracle_err": tiles["bound"]["oracle_err"],
+         "paths_err": tiles["paths"]},
+        {"name": "H1 64-row Q tile (TileConfig block_q <= 64)",
+         "route": "cuda", "source": H1_SRC, "replaces": f"{V1_PY}:489",
+         "launches": tiles["small_causal"]["launches"],
+         "max_abs_err": tiles["small_causal"]["max_abs_err"],
+         "ms": tiles["small_causal"]["tile64"],
+         "plain_ms": tiles["small_causal"]["plain"],
+         "bound_ms": tiles["small_causal"]["bound_ms"],
+         "bound_by": tiles["small_causal"]["bound_by"],
+         "library_ms": tiles["small_causal"]["sdpa"],
+         "tile128_ms": tiles["small_causal"]["tile128"],
+         "canonical_ms": {"tile64": tiles["canonical"]["tile64"],
+                          "tile128": tiles["canonical"]["exact"]},
+         "autotune_block_q": tiles["autotune"],
+         "kernel_report": tiles["report"]},
         # H2: its numbers are the v1 phase's split case, its launches that
         # call's.  Its arithmetic (csrc/lse_merge.cuh) also runs inside
         # H6-decode, whose last block merges the runs: decode_merge_ms is
@@ -4272,6 +4747,8 @@ def main(argv) -> int:
                                     par, "backward_per_rank", f"h3{n}")},
            "device_offsets": device_offset_readings(par, f"h3{n}"),
            "seq2seq_cross_shape": t["seq2seq_cross"][f"h3{n}"],
+           "window_library_bwd": t["window_train_shape"][
+               "window_library_bwd"],
            "max_abs_err_seq2seq_cross_shape":
                h3_err["cross"][f"h3{n}"],
            "max_abs_err_by_mask": {m: e[f"h3{n}"] for m, e in h3_err.items()},

@@ -6,7 +6,13 @@ and NumPy, never JAX.  Kernels written by hand for sm_90a live in
 CPU tensors every kernel wrapper runs its plain PyTorch version.
 """
 
-from exploring_flash_attention_tpu_torch.configs import SplitKVConfig, cdiv
+from exploring_flash_attention_tpu_torch.configs import (
+    MeshConfig,
+    Precision,
+    SplitKVConfig,
+    TileConfig,
+    cdiv,
+)
 from exploring_flash_attention_tpu_torch.models import (
     GenerationEngine,
     ModelConfig,
@@ -34,15 +40,24 @@ from exploring_flash_attention_tpu_torch.ops import (
     quantize_int8,
     splitkv_combine,
 )
+from exploring_flash_attention_tpu_torch.oracle import (
+    check_accuracy,
+    naive_attention,
+    print_comparison,
+)
 
 __all__ = [
     "GenerationEngine",
+    "MeshConfig",
+    "Precision",
     "QuantizedTensor",
     "ModelConfig",
     "SplitKVConfig",
+    "TileConfig",
     "attention_bwd_plain",
     "attention_partial_local",
     "cdiv",
+    "check_accuracy",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_int8",
@@ -58,6 +73,8 @@ __all__ = [
     "loss_fn",
     "make_train_step",
     "merge_partials",
+    "naive_attention",
+    "print_comparison",
     "quantize_fp8",
     "quantize_int8",
     "splitkv_combine",

@@ -32,6 +32,29 @@
 // own position, as oracle/reference.py:51).  A row that sees no key gives
 // (O = 0, LSE = -inf).
 //
+// Two launch forms, both template parameters, neither the default:
+//  - a 64-row Q tile (q_rows = 64, TileConfig.block_q <= 64): one consumer
+//    warpgroup and the producer, 256 threads, setmaxnreg 24 / 232 (128 x
+//    24 + 128 x 232 = 256 x 128, what the launch allocates under
+//    __launch_bounds__(256, 2)).  Twice the blocks of the 128-row tile for
+//    a short Lq; each row meets the same K/V tiles in the same order, and a
+//    tile wholly masked for a row adds p = 0 at alpha = 1, so O and the LSE
+//    are bitwise those of the 128-row tile.
+//  - the bound statistic (softmax="bound", B1-B3's opt-in form,
+//    exploring_flash_attention_tpu/ops/attention_v1.py:1110-1137,1735-1753):
+//    each row's shift is fixed before the K/V loop at
+//    m_i = sqrt(|q_i|^2 kmax2) * scale * log2(e) - BOUND_SHIFT, with
+//    |q_i|^2 the f32 sum of squares of the bf16 row read from the Q tile in
+//    shared memory and kmax2 an entry of the caller's prefix maxima
+//    (cummax over 128-key tiles) of each tile's largest |k_j|^2 per KV
+//    head: the entry of the last K/V tile that the last row of the row's
+//    128-row group sees (the last tile without a mask).  So one form serves
+//    static and traced offsets, spans and both Q tiles, a causal output is
+//    bitwise unchanged when K/V grow by whole 128-key tiles, and zero-filled
+//    tail keys (norm 0) cannot raise the bound.  There is no running max and
+//    no rescale of O: p = bf16(exp2(s - m_i)) lies in (0, 2^64], which bf16,
+//    the f32 l and the f32 O hold.
+//
 // Cost at the canonical shape (B=32, H=8, L=1024, d=128, non-causal):
 // 4*32*8*1024*1024*128 = 137.4 GFLOP, 0.139 ms at the H100's 989 TFLOP/s
 // dense bf16, while Q, K, V and O (268 MB in bf16) take 0.080 ms at
@@ -86,30 +109,42 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "wgmma_tile.cuh"
 
 namespace {
 
 using namespace eft::hopper;
 
-constexpr int BQ = 128;          // Q rows per block
 constexpr int BKV = 128;         // keys per K/V tile; a KV span is whole tiles
 constexpr int STAGES = 3;        // K/V ring depth
-constexpr int CONSUMERS = 2;     // warpgroups of 64 Q rows
-constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
-// registers per thread after setmaxnreg: 128 * 24 + 256 * 240 = 384 * 168,
-// what the launch allocates (more, and the consumers' setmaxnreg.inc waits
-// forever)
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_REGS = 240;
+// the row statistic's group: a row's bound reads the K/V tile that the last
+// row of its 128-row group sees, whatever the Q tile
+constexpr int BOUND_ROWS = 128;
+constexpr float BOUND_SHIFT = 64.f;
+
+// NC consumer warpgroups of 64 Q rows (1 or 2) and the producer warpgroup.
+// Registers per thread after setmaxnreg: 128 * 24 + 256 * 240 = 384 * 168
+// and 128 * 24 + 128 * 232 = 256 * 128, what the launch allocates (more,
+// and the consumers' setmaxnreg.inc waits forever)
+template <int NC>
+struct Block {
+  static constexpr int BQ = 64 * NC;                 // Q rows per block
+  static constexpr int THREADS = (NC + 1) * 128;
+  static constexpr int MIN_BLOCKS = NC == 1 ? 2 : 1;  // caps at 128 / 168
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = NC == 1 ? 232 : 240;
+};
 
 // the mask argument of eft_prefill_attention
 enum Mask : int { MASK_NONE = 0, MASK_CAUSAL = 1, MASK_WINDOW = 2 };
 
 // Shared memory of one block.  Every tile is TMA boxes of BOX columns
 // (rows of BOX * 2 bytes, the swizzle width) by 128 rows, box after box.
-template <int D>
+template <int D, int NC>
 struct Tiles {
+  static constexpr int BQ = Block<NC>::BQ;
   static constexpr int BOX = D >= 64 ? 64 : 32;
   static constexpr int ROW = BOX * 2;                 // bytes; = swizzle
   static constexpr int NBOX = D / BOX;
@@ -139,15 +174,15 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
 }
 
 // S = Q K^T of one K tile (issued, not waited for)
-template <int D>
+template <int D, int NC>
 __device__ __forceinline__ void issue_qk(float (&acc_s)[BKV / 2],
                                          const unsigned char* q_wg,
                                          const unsigned char* k_s) {
-  using T = Tiles<D>;
+  using T = Tiles<D, NC>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int box = kk * 16 / T::BOX, off = (kk * 16 % T::BOX) * 2;
-    const uint64_t da = gmma_desc(q_wg + box * BQ * T::ROW + off, 16,
+    const uint64_t da = gmma_desc(q_wg + box * T::BQ * T::ROW + off, 16,
                                   8 * T::ROW, T::ROW);
     const uint64_t db = gmma_desc(k_s + box * BKV * T::ROW + off, 16,
                                   8 * T::ROW, T::ROW);
@@ -161,7 +196,7 @@ template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc_o)[D / 2],
                                          const uint32_t (&pa)[BKV / 4],
                                          const unsigned char* v_s) {
-  using T = Tiles<D>;
+  using T = Tiles<D, 1>;                 // V's layout: the same for any NC
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk)
     wgmma_pv<D>(acc_o, &pa[4 * kk],
@@ -171,11 +206,34 @@ __device__ __forceinline__ void issue_pv(float (&acc_o)[D / 2],
 
 // The online softmax of one S tile, in registers: the mask (unless the
 // tile is whole) and the scale, the new row max (quad shuffles), p =
-// exp2(s - m_use) in f32; alpha = exp2(m_old - m_use) for O and l
+// exp2(s - m_use) in f32; alpha = exp2(m_old - m_use) for O and l.  The
+// bound form takes the row's fixed shift m: p = exp2(s - m), alpha = 1.
+template <bool BOUND>
 __device__ __forceinline__ void softmax_exp(
     float (&acc_s)[BKV / 2],
     float (&m)[2], float (&alpha)[2], bool whole, int col_base,
     const int (&lo)[2], const int (&hi)[2], float scale_log2) {
+  if constexpr (BOUND) {
+    // p = exp2(s * scale_log2 - m) as one FMA; masked keys give 2^-inf
+    const float neg_m[2] = {-m[0], -m[1]};
+    if (whole) {
+#pragma unroll
+      for (int e = 0; e < BKV / 2; ++e)
+        acc_s[e] = exp2_approx(
+            fmaf(acc_s[e], scale_log2, neg_m[acc_row8(e) / 8]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < BKV / 2; ++e) {
+        const int r = acc_row8(e) / 8;
+        const int col = col_base + acc_col(e);
+        acc_s[e] = col >= lo[r] && col <= hi[r]
+                       ? exp2_approx(fmaf(acc_s[e], scale_log2, neg_m[r]))
+                       : 0.f;
+      }
+    }
+    alpha[0] = alpha[1] = 1.f;
+    return;
+  }
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
   if (whole) {
 #pragma unroll
@@ -228,13 +286,14 @@ __device__ __forceinline__ void pack_p(const float (&p)[BKV / 2],
 // register an in-flight wgmma reads or writes is written meanwhile (ptxas
 // would serialize every wgmma, C7513), and the arithmetic and its order
 // are those of the plain loop: O_i = alpha_i O_{i-1} + P_i V_i.
-template <int D>
+template <int D, int NC, bool BOUND>
 __device__ __forceinline__ void consume(
     const unsigned char* sq, const unsigned char* sk, const unsigned char* sv,
     uint64_t* full, uint64_t* empty, uint64_t* q_full, void* o, int out_f32,
     float* lse, int lq, int lkv, int mask, int diag_off, int window,
-    float scale_log2, int q0, int bh, int span, int kv_begin, int n_tiles) {
-  using T = Tiles<D>;
+    float scale_log2, int q0, int bh, int span, int kv_begin, int n_tiles,
+    float kmax2) {
+  using T = Tiles<D, NC>;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wg = warp / 4;
@@ -274,6 +333,31 @@ __device__ __forceinline__ void consume(
 
   if (n_tiles > 0) {
     mbar_wait(q_full, 0);
+    if constexpr (BOUND) {
+      // |q_i|^2 of the two owned rows from the Q tile: a row's bytes stay
+      // in its own ROW bytes under the swizzle, so each lane of the quad
+      // sums every fourth 16-byte chunk of each box and the quad adds
+      const int lrow = wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float sq_sum = 0.f;
+#pragma unroll
+        for (int x = 0; x < T::NBOX; ++x)
+#pragma unroll
+          for (int c = lane % 4; c < T::ROW / 16; c += 4) {
+            const uint4 w = *reinterpret_cast<const uint4*>(
+                sq + x * T::BQ * T::ROW + (lrow + 8 * r) * T::ROW + c * 16);
+            const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float lo_f = __uint_as_float(ws[j] << 16);
+              const float hi_f = __uint_as_float(ws[j] & 0xffff0000u);
+              sq_sum += lo_f * lo_f + hi_f * hi_f;
+            }
+          }
+        m[r] = sqrtf(quad_sum(sq_sum) * kmax2) * scale_log2 - BOUND_SHIFT;
+      }
+    }
     float alpha[2];
     uint32_t pa[BKV / 4];
     {
@@ -281,11 +365,12 @@ __device__ __forceinline__ void consume(
       float acc_s[BKV / 2];
       mbar_wait(&full[0], 0);
       wgmma_fence();
-      issue_qk<D>(acc_s, q_wg, sk);
+      issue_qk<D, NC>(acc_s, q_wg, sk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc_s);
-      softmax_exp(acc_s, m, alpha, is_whole(kv_begin), kv_begin + col0, lo, hi, scale_log2);
+      softmax_exp<BOUND>(acc_s, m, alpha, is_whole(kv_begin), kv_begin + col0,
+                         lo, hi, scale_log2);
       pack_p(acc_s, pa, l, alpha);
     }
     for (int i = 1; i < n_tiles; ++i) {
@@ -294,13 +379,15 @@ __device__ __forceinline__ void consume(
       float acc_s[BKV / 2];
       mbar_wait(&full[s], (i / STAGES) & 1);
       wgmma_fence();
-      issue_qk<D>(acc_s, q_wg, sk + s * T::KV_BYTES);
+      issue_qk<D, NC>(acc_s, q_wg, sk + s * T::KV_BYTES);
       wgmma_commit();
       fence_regs(acc_s);
-      // O of the tiles before i - 1, rescaled by tile i - 1's alpha, while
-      // S of tile i runs; then P V of tile i - 1
+      // O of the tiles before i - 1, rescaled by tile i - 1's alpha (the
+      // exact form), while S of tile i runs; then P V of tile i - 1
+      if constexpr (!BOUND) {
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) acc_o[e] *= alpha[acc_row8(e) / 8];
+        for (int e = 0; e < D / 2; ++e) acc_o[e] *= alpha[acc_row8(e) / 8];
+      }
       fence_regs(acc_o);
       fence_regs(pa);
       wgmma_fence();
@@ -309,7 +396,8 @@ __device__ __forceinline__ void consume(
       fence_regs(acc_o);
       fence_regs(pa);
       wgmma_wait<1>();                 // S of tile i
-      softmax_exp(acc_s, m, alpha, is_whole(kv0), kv0 + col0, lo, hi, scale_log2);
+      softmax_exp<BOUND>(acc_s, m, alpha, is_whole(kv0), kv0 + col0, lo, hi,
+                         scale_log2);
       wgmma_wait<0>();                 // P V of tile i - 1
       fence_regs(acc_o);
       fence_regs(pa);
@@ -317,8 +405,10 @@ __device__ __forceinline__ void consume(
       pack_p(acc_s, pa, l, alpha);
     }
     const int last = (n_tiles - 1) % STAGES;
+    if constexpr (!BOUND) {
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) acc_o[e] *= alpha[acc_row8(e) / 8];
+      for (int e = 0; e < D / 2; ++e) acc_o[e] *= alpha[acc_row8(e) / 8];
+    }
     fence_regs(acc_o);
     fence_regs(pa);
     wgmma_fence();
@@ -335,8 +425,8 @@ __device__ __forceinline__ void consume(
                   o, out_f32, lse);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int D, int NC, bool BOUND>
+__global__ void __launch_bounds__(Block<NC>::THREADS, Block<NC>::MIN_BLOCKS)
 prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, D]
                          const __grid_constant__ CUtensorMap tk,  // [B*Hkv, Lkv, D]
                          const __grid_constant__ CUtensorMap tv,  // [B*Hkv, Lkv, D]
@@ -346,8 +436,13 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, 
                          int hq, int group, int lq, int lkv, int mask,
                          int diag_off, int window,
                          const int* __restrict__ offs,  // (q_pos0, kv_pos0) or null
-                         int kv_span, float scale_log2) {
-  using T = Tiles<D>;
+                         int kv_span, float scale_log2,
+                         // [B*Hkv, cdiv(Lkv, 128)] prefix maxima of |k|^2
+                         // (the bound form) or null
+                         const float* __restrict__ kmax) {
+  using T = Tiles<D, NC>;
+  constexpr int BQ = T::BQ;
+  constexpr int CONSUMERS = NC;
   // traced offsets: the diagonal comes from device memory, not the host
   if (offs != nullptr) diag_off = offs[0] - offs[1];
   extern __shared__ unsigned char smem_raw[];
@@ -400,7 +495,7 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, 
   if (warp >= CONSUMERS * 4) {
     // the producer warpgroup gives its registers to the consumers; its
     // first lane loads Q once, then K and V tile by tile through the ring
-    setmaxnreg_dec<PRODUCER_REGS>();
+    setmaxnreg_dec<Block<NC>::PRODUCER_REGS>();
     if (warp == CONSUMERS * 4 && lane == 0 && n_tiles > 0) {
       mbar_arrive_expect_tx(q_full, T::Q_BYTES);
       for (int x = 0; x < T::NBOX; ++x)
@@ -419,35 +514,54 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, 
       }
     }
   } else {
-    setmaxnreg_inc<CONSUMER_REGS>();
-    consume<D>(sq, sk, sv, full, empty, q_full, o, out_f32, lse, lq, lkv,
-               mask, diag_off, window, scale_log2, q0, bh, span, kv_begin,
-               n_tiles);
+    setmaxnreg_inc<Block<NC>::CONSUMER_REGS>();
+    // the bound form's |k|^2 statistic: the prefix maximum at the last K/V
+    // tile that the last row of this block's 128-row group sees (every
+    // tile without a mask), from diag_off as this block has it
+    float kmax2 = 0.f;
+    if constexpr (BOUND) {
+      const int n_kv = (lkv + BKV - 1) / BKV;
+      int idx = n_kv - 1;
+      if (mask != MASK_NONE) {
+        const long long g_last =
+            min(q0 / BOUND_ROWS * BOUND_ROWS + BOUND_ROWS, lq) - 1;
+        const long long x = g_last + diag_off;
+        idx = x < 0 ? 0 : int(clamp64(x / BKV, 0, n_kv - 1));
+      }
+      kmax2 = kmax[size_t(bhk) * n_kv + idx];
+    }
+    consume<D, NC, BOUND>(sq, sk, sv, full, empty, q_full, o, out_f32, lse,
+                          lq, lkv, mask, diag_off, window, scale_log2, q0, bh,
+                          span, kv_begin, n_tiles, kmax2);
   }
 }
 
-template <int D>
+template <int D, int NC, bool BOUND>
 int launch(const void* q, const void* k, const void* v, void* o,
            int out_f32, void* lse, int batch, int hq, int hkv, int lq,
            int lkv, int mask, int diag_off, int window, const int* offs,
-           int kv_span, float scale, cudaStream_t stream) {
-  using T = Tiles<D>;
+           int kv_span, float scale, const float* kmax,
+           cudaStream_t stream) {
+  using T = Tiles<D, NC>;
+  constexpr int BQ = T::BQ;
   CUtensorMap tq, tk, tv;
   int err = make_tmap(&tq, q, 2, D, lq, batch * hq, T::BOX, BQ, T::ROW);
   if (!err) err = make_tmap(&tk, k, 2, D, lkv, batch * hkv, T::BOX, BKV, T::ROW);
   if (!err) err = make_tmap(&tv, v, 2, D, lkv, batch * hkv, T::BOX, BKV, T::ROW);
   if (err) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_attention_kernel<D>,
+      prefill_attention_kernel<D, NC, BOUND>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
   if (attr != cudaSuccess) return int(attr);
   // no span: one span of whole tiles covering the KV
   const int span = kv_span ? kv_span : (lkv + BKV - 1) / BKV * BKV;
   const dim3 grid(batch * hq * ((lq + BQ - 1) / BQ), 1,
                   (lkv + span - 1) / span);
-  prefill_attention_kernel<D><<<grid, THREADS, T::bytes, stream>>>(
-      tq, tk, tv, o, out_f32, static_cast<float*>(lse), hq, hq / hkv, lq,
-      lkv, mask, diag_off, window, offs, span, scale * 1.4426950408889634f);
+  prefill_attention_kernel<D, NC, BOUND>
+      <<<grid, Block<NC>::THREADS, T::bytes, stream>>>(
+          tq, tk, tv, o, out_f32, static_cast<float*>(lse), hq, hq / hkv, lq,
+          lkv, mask, diag_off, window, offs, span,
+          scale * 1.4426950408889634f, kmax);
   return int(cudaGetLastError());
 }
 
@@ -460,37 +574,47 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // offs: null (diag_off holds the diagonal) or a device pointer to the
 // int32 pair (q_pos0, kv_pos0), whose difference replaces diag_off.
 // kv_span: 0 for one span over the whole KV, else a multiple of 128 keys,
-// and o / lse hold cdiv(lkv, kv_span) partials per row.
+// and o / lse hold cdiv(lkv, kv_span) partials per row.  q_rows: the Q
+// tile, 64 or 128.  kmax: null (the exact statistic) or the bound form's
+// f32 [batch * hkv, cdiv(lkv, 128)] prefix maxima of |k|^2.
 extern "C" int eft_prefill_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int batch, int hq, int hkv, int lq,
                                      int lkv, int d, int mask, int diag_off,
                                      int window, const void* offs,
-                                     int kv_span, int out_f32,
-                                     float scale, int device, void* stream) {
+                                     int kv_span, int out_f32, float scale,
+                                     int q_rows, const void* kmax,
+                                     int device, void* stream) {
   if (batch <= 0 || hkv <= 0 || hq % hkv != 0 || lq <= 0 || lkv <= 0 ||
       mask < MASK_NONE || mask > MASK_WINDOW ||
       (mask == MASK_WINDOW && window < 1) || kv_span < 0 ||
-      kv_span % BKV != 0)
+      kv_span % BKV != 0 || (q_rows != 64 && q_rows != 128) ||
+      (d != 32 && d != 64 && d != 128))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* o_offs = static_cast<const int*>(offs);
-  switch (d) {
-    case 32:
-      return launch<32>(q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv,
-                        mask, diag_off, window, o_offs, kv_span, scale, s);
-    case 64:
-      return launch<64>(q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv,
-                        mask, diag_off, window, o_offs, kv_span, scale, s);
-    case 128:
-      return launch<128>(q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv,
-                         mask, diag_off, window, o_offs, kv_span, scale, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  const float* km = static_cast<const float*>(kmax);
+  // one instance per (d, Q tile, statistic)
+  auto go = [&](auto dc, auto nc, auto bound) {
+    return launch<decltype(dc)::value, decltype(nc)::value,
+                  decltype(bound)::value>(
+        q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv, mask, diag_off,
+        window, o_offs, kv_span, scale, km, s);
+  };
+  auto by_tile = [&](auto dc) {
+    using T = std::true_type;
+    using F = std::false_type;
+    using N1 = std::integral_constant<int, 1>;
+    using N2 = std::integral_constant<int, 2>;
+    if (q_rows == 64) return km ? go(dc, N1{}, T{}) : go(dc, N1{}, F{});
+    return km ? go(dc, N2{}, T{}) : go(dc, N2{}, F{});
+  };
+  if (d == 32) return by_tile(std::integral_constant<int, 32>{});
+  if (d == 64) return by_tile(std::integral_constant<int, 64>{});
+  return by_tile(std::integral_constant<int, 128>{});
 }
 
 extern "C" const char* eft_error_string(int err) {

@@ -33,10 +33,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, batch, hq, hkv, lq, lkv, d, mask, diag_off, window,
-    # offs, kv_span, out_f32, scale, device, stream (offs: null, or the
-    # device int32 pair (q_pos0, kv_pos0) that replaces diag_off)
+    # offs, kv_span, out_f32, scale, q_rows, kmax, device, stream (offs:
+    # null, or the device int32 pair (q_pos0, kv_pos0) that replaces
+    # diag_off; kmax: null, or the bound statistic's prefix maxima)
     "eft_prefill_attention": [_P] * 5 + [_I] * 9 + [_P] + [_I] * 2
-                             + [_F, _I, _P],
+                             + [_F, _I, _P, _I, _P],
     # o_part, lse, o, n_bh, nkb, lq, d, out_f32, device, stream
     "eft_splitkv_combine": [_P] * 3 + [_I] * 6 + [_P],
     # q, pages, scales, page_table, seq_lens, slots, o_part, lse, o,

@@ -145,7 +145,7 @@ def _sharded_mlm_step(config: ModelConfig, mesh, mtok: int,
         for axis in ("dp", "sp"):
             dist.all_reduce(denom, group=mesh.get_group(axis))
         opt.zero_grad(set_to_none=True)
-        logits = forward(params, inputs, config, False, tp_g, sp_g)
+        logits = forward(params, inputs, config, tp_g, sp_g, causal=False)
         ce = F.cross_entropy(logits.flatten(0, 1), tokens.flatten().long(),
                              reduction="none").view(tokens.shape)
         loss = torch.where(mask, ce, 0.0).sum() / denom.clamp(min=1)[0]

@@ -82,7 +82,8 @@ def forward_collect_kv(
             q = rope(q, pos, c.rope_theta)
             k = rope(k, pos, c.rope_theta)     # the cache stores rotated K
         kvs.append((k, v))                     # [B, Hkv, L, d]
-        o = flash_attention(q, k, v, causal=True, window=c.window)
+        o = flash_attention(q, k, v, config=c.tile, causal=True,
+                            window=c.window)
         x = x + torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
         x = x + _mlp_block(p, x, c)
     x = _rmsnorm(x, params["ln_f"], c.norm_eps)

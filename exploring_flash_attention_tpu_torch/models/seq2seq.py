@@ -142,20 +142,21 @@ def _qkv(p: Params, h: torch.Tensor, kv_src: Optional[torch.Tensor] = None
 
 
 def _sp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, sp_axis) -> torch.Tensor:
+                  c: ModelConfig, causal: bool, sp_axis) -> torch.Tensor:
     """Attention of (possibly) sequence-sharded q/k/v, as the JAX package's
     ``_sp_attention`` routes it: one device; the ring for causal shards;
     Ulysses for bidirectional and cross-length ones, or K/V gathered when
-    the heads do not split over sp."""
+    the heads do not split over sp.  Every route takes ``c.tile``."""
     if sp_axis is None:
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, config=c.tile, causal=causal)
     if causal:
-        return ring_flash_attention(q, k, v, sp_axis, None, True)
+        return ring_flash_attention(q, k, v, sp_axis, c.tile, None, True)
     n = dist.get_world_size(sp_axis)
     if q.shape[1] % n == 0 and k.shape[1] % n == 0:
-        return ulysses_flash_attention(q, k, v, sp_axis, None, False)
+        return ulysses_flash_attention(q, k, v, sp_axis, c.tile, None, False)
     return flash_attention(q, gather_seq(k, sp_axis, 2),
-                           gather_seq(v, sp_axis, 2), causal=False)
+                           gather_seq(v, sp_axis, 2), config=c.tile,
+                           causal=False)
 
 
 def _self_attn(p: Params, x: torch.Tensor, c: ModelConfig, causal: bool,
@@ -169,7 +170,7 @@ def _self_attn(p: Params, x: torch.Tensor, c: ModelConfig, causal: bool,
         pos = pos0 + torch.arange(x.shape[1], device=x.device)
         q = rope(q, pos, c.rope_theta)
         k = rope(k, pos, c.rope_theta)
-    o = _sp_attention(q, k, v, causal, sp_axis)
+    o = _sp_attention(q, k, v, c, causal, sp_axis)
     out = torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
     return out if tp_axis is None else g_tp(out, tp_axis)
 
@@ -184,7 +185,7 @@ def _cross_attn(p: Params, x: torch.Tensor, memory: torch.Tensor,
         h = f_tp(h, tp_axis)
         memory = f_tp(memory, tp_axis)
     q, k, v = _qkv(p["cross"], h, kv_src=memory)
-    o = _sp_attention(q, k, v, False, sp_axis)
+    o = _sp_attention(q, k, v, c, False, sp_axis)
     out = torch.einsum("bhld,hde->ble", o.to(x.dtype), p["cross"]["wo"])
     return out if tp_axis is None else g_tp(out, tp_axis)
 

@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.models.parallel_layers import (
     f_tp,
     g_tp,
@@ -68,6 +69,9 @@ class ModelConfig:
     d_head: int = 64
     d_ff: int = 1024
     dtype: torch.dtype = torch.float32
+    # the attention ops' tiles: H1 reads block_q (128 rows here, its
+    # default tile; 64 rows when block_q <= 64)
+    tile: TileConfig = TileConfig(block_q=128, block_kv=128)
     norm_eps: float = 1e-5
     use_rope: bool = True
     rope_theta: float = 10000.0
@@ -185,7 +189,8 @@ def _attn_block(p: Params, x: torch.Tensor, config: ModelConfig,
     global positions; bidirectional: Ulysses, or K/V gathered when the
     heads do not split over sp; a window: the one-hop tail; causal: the
     ring, or with ``sp_attn="allgather"`` K/V gathered and the causal mask
-    at this shard's traced offset."""
+    at this shard's traced offset.  Every route takes ``config.tile``, as
+    JAX's passes ``c.tile``."""
     c = config
     if not causal and c.window is not None:
         raise NotImplementedError(
@@ -205,26 +210,28 @@ def _attn_block(p: Params, x: torch.Tensor, config: ModelConfig,
         q = rope(q, pos, c.rope_theta)
         k = rope(k, pos, c.rope_theta)
     if sp_axis is None:
-        o = flash_attention(q, k, v, causal=causal, window=c.window)
+        o = flash_attention(q, k, v, config=c.tile, causal=causal,
+                            window=c.window)
     elif not causal:
         n = dist.get_world_size(sp_axis)
         if q.shape[1] % n == 0 and k.shape[1] % n == 0:
-            o = ulysses_flash_attention(q, k, v, sp_axis, None, False)
+            o = ulysses_flash_attention(q, k, v, sp_axis, c.tile, None, False)
         else:
             o = flash_attention(q, gather_seq(k, sp_axis, 2),
-                                gather_seq(v, sp_axis, 2), causal=False)
+                                gather_seq(v, sp_axis, 2), config=c.tile,
+                                causal=False)
     elif c.window is not None:
-        o = sp_window_attention(q, k, v, sp_axis, c.window)
+        o = sp_window_attention(q, k, v, sp_axis, c.window, c.tile)
     elif c.sp_attn == "ring":
-        o = ring_flash_attention(q, k, v, sp_axis, None, True)
+        o = ring_flash_attention(q, k, v, sp_axis, c.tile, None, True)
     else:
         # all-gather: q stays local, K/V gathered (reduce-scattered
         # backward), the causal mask at this shard's traced offset
         positions = tuple(torch.full((), p0, dtype=torch.int32,
                                      device=x.device) for p0 in (pos0, 0))
         o = flash_attention(q, gather_seq(k, sp_axis, 2),
-                            gather_seq(v, sp_axis, 2), causal=True,
-                            positions=positions)
+                            gather_seq(v, sp_axis, 2), config=c.tile,
+                            causal=True, positions=positions)
     out = torch.einsum("bhld,hde->ble", o.to(x.dtype), p["wo"])
     return out if tp_axis is None else g_tp(out, tp_axis)
 
@@ -242,7 +249,7 @@ def _mlp_block(p: Params, x: torch.Tensor, config: ModelConfig,
 
 
 def forward(params: Params, tokens: torch.Tensor, config: ModelConfig,
-            causal: bool = True, tp_axis=None, sp_axis=None
+            tp_axis=None, sp_axis=None, causal: bool = True
             ) -> torch.Tensor:
     """Logits f32 [B, L, V] of a forward over int tokens [B, L]: causal, or
     with ``causal=False`` the same stack bidirectionally (the encoder,
@@ -263,7 +270,7 @@ def loss_fn(params: Params, inputs: torch.Tensor, targets: torch.Tensor,
     """Mean next-token cross-entropy over f32 logits: an f32 scalar.  The
     counterpart of the JAX package's ``loss_fn`` (``:266-277``, optax's
     integer-label softmax cross-entropy, then the mean)."""
-    logits = forward(params, inputs, config, True, tp_axis, sp_axis)
+    logits = forward(params, inputs, config, tp_axis, sp_axis)
     return F.cross_entropy(logits.flatten(0, 1), targets.flatten().long())
 
 

@@ -22,6 +22,13 @@ block of H1 and H3 reads itself: no value goes back to the host, and a
 call captured in a CUDA graph replays with whatever the pair then holds.
 Internally a mask's ``diag_off`` is either the static int ``q_pos0 -
 kv_pos0`` or that pair.
+
+H1 takes two forms beside its default (``csrc/prefill_attention.cu``): a
+64-row Q tile (``TileConfig.block_q <= 64``: :func:`h1_q_rows`) and the
+bound statistic (``softmax="bound"``), whose row shift is fixed before the
+K/V loop from ``||q_i||`` and a prefix maximum of ``||k_j||^2`` over
+128-key tiles (:func:`bound_kmax`, :func:`bound_shift`), as the JAX
+package's B3 computes it (``ops/attention_v1.py:1110-1137,1735-1753``).
 """
 
 from __future__ import annotations
@@ -33,8 +40,15 @@ import numpy as np
 import torch
 
 from exploring_flash_attention_tpu_torch import kernels
+from exploring_flash_attention_tpu_torch.configs import TileConfig, cdiv
 
 LOG2E = math.log2(math.e)      # the kernels' exp2 basis: scale * LOG2E
+# the bound statistic's shift below the Cauchy-Schwarz bound, in bits
+# (the JAX package's ops/attention_v1.py:1110): p <= 2^64
+BOUND_SHIFT = 64.0
+# the statistic's row group: a row reads the K/V tile that the last row of
+# its group of 128 sees, whatever H1's Q tile (csrc BOUND_ROWS)
+BOUND_ROWS = 128
 # a mask's diagonal: the static int q_pos0 - kv_pos0, or the traced pair
 # (q_pos0, kv_pos0), int32 [2] on the inputs' device
 DiagOff = Union[int, torch.Tensor]
@@ -42,7 +56,8 @@ DiagOff = Union[int, torch.Tensor]
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, causal: bool = True, diag_off: int = 0,
-                    window: Optional[int] = None
+                    window: Optional[int] = None,
+                    shift: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of H1 in f32 math (f64 for f64 inputs): (o
     [B,H,Lq,d] normalized, lse [B,H,Lq] natural log, scale included).
@@ -51,20 +66,94 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``j <= i + diag_off``; a ``window`` (causal only, inclusive) further
     needs ``j >= i + diag_off - window + 1``.  ``diag_off`` is an int or
     a traced pair (the mask is then built by tensor arithmetic).  A row
-    that sees nothing gives (0, -inf)."""
+    that sees nothing gives (0, -inf).
+
+    ``shift`` [B, H, Lq] (natural log, :func:`bound_shift`) is the bound
+    statistic: p = exp(s - shift) with no row max, l = sum p, lse = shift
+    + ln l, summed over 128-key tiles in order as H1 sums them (a tile a
+    row does not see adds exact zeros, so causal rows are bitwise
+    unchanged when the KV grows by whole tiles)."""
     group = q.shape[1] // k.shape[1]
     ct = torch.promote_types(q.dtype, torch.float32)
     kf = k.to(ct).repeat_interleave(group, dim=1)
     vf = v.to(ct).repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * scale
     hidden = hidden_keys(q.shape[2], k.shape[2], causal, diag_off, window,
                          q.device)
+    if shift is not None:
+        return _bound_plain(q.to(ct), kf, vf, scale, hidden, shift.to(ct))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * scale
     if hidden is not None:
         s = s.masked_fill(hidden, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
-    shift = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
-    p = torch.exp(s - shift[..., None])
+    row_shift = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
+    p = torch.exp(s - row_shift[..., None])
     return torch.einsum("bhqk,bhkd->bhqd", p, vf), lse
+
+
+def _bound_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, hidden: Optional[torch.Tensor],
+                 shift: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention_plain` under the bound statistic, over 128-key
+    tiles (q, k, v in the compute type, k/v at q's heads)."""
+    o = torch.zeros_like(q[..., :v.shape[-1]])
+    l_row = torch.zeros_like(shift)
+    for j in range(0, k.shape[2], H1_KV_TILE):
+        s = torch.einsum("bhqd,bhkd->bhqk", q,
+                         k[:, :, j:j + H1_KV_TILE]) * scale
+        if hidden is not None:
+            s = s.masked_fill(hidden[:, j:j + H1_KV_TILE], float("-inf"))
+        p = torch.exp(s - shift[..., None])
+        l_row = l_row + p.sum(dim=-1)
+        o = o + torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, j:j + H1_KV_TILE])
+    seen = l_row > 0
+    o = o / torch.where(seen, l_row, 1.0)[..., None]
+    lse = torch.where(seen, shift + torch.log(l_row), float("-inf"))
+    return o, lse
+
+
+def bound_kmax(k: torch.Tensor) -> torch.Tensor:
+    """The bound statistic's K side: f32 [B, Hkv, cdiv(Lkv, 128)], the
+    prefix maxima (cummax over 128-key tiles) of each tile's largest
+    ``||k_j||^2``.  Zero-filled tail keys have norm 0.  Torch ops on either
+    device (a norm, a pad, a max, a cummax, a square), as the JAX package
+    computes it with XLA outside its kernel; ``bound_kmax.launches`` counts
+    calls."""
+    b, hkv, lkv, _ = k.shape
+    n_kv = cdiv(lkv, H1_KV_TILE)
+    norm = torch.linalg.vector_norm(
+        k, dim=-1, dtype=torch.promote_types(k.dtype, torch.float32))
+    if n_kv * H1_KV_TILE != lkv:
+        norm = torch.nn.functional.pad(norm, (0, n_kv * H1_KV_TILE - lkv))
+    tile_max = norm.view(b, hkv, n_kv, H1_KV_TILE).amax(dim=-1)
+    bound_kmax.launches += 1
+    return torch.cummax(tile_max, dim=-1).values.square()
+
+
+bound_kmax.launches = 0
+
+
+def bound_shift(q: torch.Tensor, kmax: torch.Tensor, scale: float,
+                causal: bool, diag_off: DiagOff) -> torch.Tensor:
+    """Each row's bound shift in the natural log, [B, Hq, Lq]:
+    ``sqrt(||q_i||^2 kmax) scale - 64 ln 2``, H1's ``m_i`` of the bound
+    form.  ``kmax`` is :func:`bound_kmax`'s, read at the last K/V tile that
+    the last row of the row's 128-row group sees (the last tile without a
+    mask), whatever the Q tile: the index H1 computes per block."""
+    lq = q.shape[2]
+    n_kv = kmax.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    if causal:
+        rows = torch.arange(lq, device=q.device)
+        last = torch.clamp(rows // BOUND_ROWS * BOUND_ROWS + BOUND_ROWS,
+                           max=lq) - 1
+        idx = torch.clamp(torch.div(last + diagonal(diag_off), H1_KV_TILE,
+                                    rounding_mode="floor"), 0, n_kv - 1)
+    else:
+        idx = torch.full((lq,), n_kv - 1, device=q.device)
+    group = q.shape[1] // kmax.shape[1]
+    k_sq = kmax.to(ct).repeat_interleave(group, dim=1)[:, :, idx]
+    q_sq = q.to(ct).square().sum(dim=-1)
+    return torch.sqrt(q_sq * k_sq) * scale - BOUND_SHIFT * math.log(2.0)
 
 
 def hidden_keys(lq: int, lkv: int, causal: bool, diag_off: DiagOff,
@@ -115,8 +204,15 @@ def diagonal(diag_off: DiagOff):
 
 
 H1_HEAD_DIMS = (32, 64, 128)
-H1_TILE = 128                   # Q rows per block and keys per K/V tile; a
-                                # KV span is whole tiles
+H1_KV_TILE = 128                # keys per K/V tile; a KV span is whole tiles
+H1_Q_ROWS = (64, 128)           # Q rows per block: H1's two Q tiles
+
+
+def h1_q_rows(config: TileConfig) -> int:
+    """H1's Q tile for ``config``: 64 rows when ``block_q <= 64``, else 128
+    (the default)."""
+    return 64 if config.block_q <= 64 else 128
+
 _MASK_NONE, _MASK_CAUSAL, _MASK_WINDOW = 0, 1, 2      # csrc enum Mask
 
 
@@ -146,7 +242,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: float, diag_off: DiagOff = 0, causal: bool = True,
                       window: Optional[int] = None,
                       out_dtype: Optional[torch.dtype] = None,
-                      with_lse: bool = True, kv_span: Optional[int] = None
+                      with_lse: bool = True, kv_span: Optional[int] = None,
+                      q_rows: int = 128, softmax: str = "exact"
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Attention forward: (o in ``out_dtype`` or q.dtype, lse f32
     [B, Hq, Lq] or None without ``with_lse``).  The mask is none, causal
@@ -161,10 +258,18 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``splitkv_combine`` merges.  The plain path takes any positive span;
     H1 takes whole 128-key tiles.
 
+    ``q_rows`` (64 or 128, :func:`h1_q_rows`) is H1's Q tile; it leaves the
+    result unchanged.  ``softmax="bound"`` fixes each row's shift before
+    the K/V loop (:func:`bound_shift`, from :func:`bound_kmax`'s statistic
+    over the whole KV, so every span of a row shares it) instead of the
+    running row max: the same function within bf16's rounding of P, under
+    every mask, offset and span.
+
     CPU tensors take :func:`attention_plain`.  CUDA tensors launch kernel
     H1 (``csrc/prefill_attention.cu``), once per call, or raise: it takes
     contiguous bf16 q/k/v with d in {32, 64, 128} and writes bf16 or f32
-    O.  ``prefill_attention.launches`` counts kernel launches."""
+    O.  ``prefill_attention.launches`` counts kernel launches; the bound
+    form's statistic adds :func:`bound_kmax`'s torch ops before it."""
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     out_dtype = out_dtype or q.dtype
@@ -177,13 +282,20 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             window = None               # the last row sees keys 0..window-1
     if kv_span is not None and kv_span <= 0:
         raise ValueError(f"kv_span must be positive, got {kv_span}")
+    if q_rows not in H1_Q_ROWS or softmax not in ("exact", "bound"):
+        raise ValueError(f"H1 takes q_rows in {H1_Q_ROWS} and softmax "
+                         f"'exact' or 'bound'; got {q_rows}, {softmax!r}")
+    kmax = bound_kmax(k) if softmax == "bound" else None
     if q.device.type == "cpu":
+        shift = (None if kmax is None
+                 else bound_shift(q, kmax, scale, causal, diag_off))
         if kv_span is None:
-            o, lse = attention_plain(q, k, v, scale, causal, diag_off, window)
+            o, lse = attention_plain(q, k, v, scale, causal, diag_off, window,
+                                     shift)
         else:
             parts = [attention_plain(q, k[:, :, s:s + kv_span],
                                      v[:, :, s:s + kv_span], scale, causal,
-                                     diagonal(diag_off) - s, window)
+                                     diagonal(diag_off) - s, window, shift)
                      for s in range(0, lkv, kv_span)]
             o = torch.stack([p[0] for p in parts], dim=2)
             lse = torch.stack([p[1] for p in parts], dim=2)
@@ -197,9 +309,9 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{tuple(k.shape)}, {tuple(v.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"H1 writes bf16 or f32 O, not {out_dtype}")
-    if kv_span is not None and kv_span % H1_TILE:
+    if kv_span is not None and kv_span % H1_KV_TILE:
         raise ValueError(
-            f"H1 takes a kv_span that is a multiple of {H1_TILE} keys (whole "
+            f"H1 takes a kv_span that is a multiple of {H1_KV_TILE} keys (whole "
             f"K/V tiles); got kv_span={kv_span} for q {tuple(q.shape)} and "
             f"k/v {tuple(k.shape)}")
     mask = mask_args(causal, diag_off, window, q.device)
@@ -214,7 +326,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if with_lse else None, b, hq, hkv, lq, lkv, d, *mask,
         int(kv_span or 0),
-        int(out_dtype == torch.float32), scale, q.device.index,
+        int(out_dtype == torch.float32), scale, q_rows,
+        None if kmax is None else kmax.data_ptr(), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(err, "H1 attention")
     prefill_attention.launches += 1
@@ -279,6 +392,7 @@ def attention_partial_local(
     q: torch.Tensor,               # [B, Hq, Lq, d]
     k: torch.Tensor,               # [B, Hkv, Lkv, d]
     v: torch.Tensor,
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
     causal: bool = False,
     positions=None,
@@ -294,8 +408,9 @@ def attention_partial_local(
     ``static_positions`` (ints); or a causal ``window`` at the
     decode-convention positions, as ``parallel/partials.py:46-81`` routes
     it (a window of Lkv or more is plain causal; other positions, and any
-    traced ones, raise ``NotImplementedError``).  The kernel fixes its own
-    tiles, so the JAX signature's ``config`` is not taken."""
+    traced ones, raise ``NotImplementedError``).  H1 reads
+    ``config.block_q`` (its Q tile, :func:`h1_q_rows`) and no other field;
+    ``softmax`` is ``flash_attention_v1``'s alone, as in the JAX package."""
     lq, lkv = q.shape[2], k.shape[2]
     if window is not None and (not causal or positions is not None):
         raise NotImplementedError(
@@ -312,7 +427,8 @@ def attention_partial_local(
             "windowed partial attention needs decode-convention positions; "
             f"got Lq={lq}, Lkv={lkv}, positions={static_positions}")
     return prefill_attention(q, k, v, scale, diag_off, causal, window,
-                             out_dtype=torch.float32)
+                             out_dtype=torch.float32,
+                             q_rows=h1_q_rows(config))
 
 
 def checked_window(causal: bool, window: Optional[int], lkv: int
@@ -360,8 +476,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool, diag_off: DiagOff,
-                window: Optional[int]):
-        out, lse = prefill_attention(q, k, v, scale, diag_off, causal, window)
+                window: Optional[int], q_rows: int = 128):
+        out, lse = prefill_attention(q, k, v, scale, diag_off, causal, window,
+                                     q_rows=q_rows)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (scale, causal, diag_off, window)
         return out
@@ -377,13 +494,14 @@ class _FlashAttention(torch.autograd.Function):
         # "bhld,hde->ble" einsum); the kernels take contiguous rows
         dq, dk, dv = masked_attention_bwd(q, k, v, out, do.contiguous(), lse,
                                           *ctx.mask)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
     q: torch.Tensor,               # [B, Hq, Lq, d]
     k: torch.Tensor,               # [B, Hkv, Lkv, d]
     v: torch.Tensor,
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
     causal: bool = False,
     positions: Optional[Tuple[int, int]] = None,
@@ -401,7 +519,9 @@ def flash_attention(
     window of Lkv or more is plain causal; a window without ``causal``
     raises ``ValueError``.  The backward runs H3 under the same mask; where
     autograd records nothing (no grad mode, or no input that requires
-    grad) the call is the forward alone."""
+    grad) the call is the forward alone.  The forward's H1 reads
+    ``config.block_q`` (its Q tile, :func:`h1_q_rows`); H3 and the other
+    fields do not read ``config``."""
     lq, lkv = q.shape[2], k.shape[2]
     window = checked_window(causal, window, lkv)
     diag_off = mask_diagonal(lq, lkv, causal, positions, q.device)
@@ -417,4 +537,4 @@ def flash_attention(
         scale = 1.0 / math.sqrt(q.shape[3])
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), scale, causal, diag_off,
-                                 window)
+                                 window, h1_q_rows(config))

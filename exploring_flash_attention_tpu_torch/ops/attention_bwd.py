@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from exploring_flash_attention_tpu_torch import kernels
+from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
     LOG2E,
     DiagOff,
@@ -162,10 +163,11 @@ def flash_attention_bwd(
     out: torch.Tensor,             # forward output [B, Hq, Lq, d]
     do: torch.Tensor,              # its cotangent, same shape
     lse: torch.Tensor,             # [B, Hq, Lq] f32, natural log, scale in
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
     causal: bool = False,
-    static_positions: Optional[Tuple[int, int]] = None,
     positions=None,
+    static_positions: Optional[Tuple[int, int]] = None,
     window: Optional[int] = None,
 ) -> Grads:
     """Attention backward: (dq, dk, dv) in the dtypes and shapes of q, k
@@ -183,7 +185,8 @@ def flash_attention_bwd(
     CPU tensors take :func:`attention_bwd_plain`.  CUDA tensors take H1's
     contract (contiguous bf16, d in {64, 128}, Hq % Hkv == 0, any Lq and
     Lkv): delta is reduced by torch, then kernels H3-dkv and H3-dq launch,
-    or the call raises."""
+    or the call raises.  ``config`` is taken at the JAX package's place and
+    not read: H3 fixes its own tiles."""
     lq, lkv = q.shape[2], k.shape[2]
     window = checked_window(causal, window, lkv)
     diag_off = mask_diagonal(lq, lkv, causal, positions, q.device,

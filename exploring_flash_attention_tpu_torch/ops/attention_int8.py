@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from exploring_flash_attention_tpu_torch import kernels
+from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import LOG2E
 from exploring_flash_attention_tpu_torch.ops.quant import (
     QuantizedTensor,
@@ -73,6 +74,7 @@ def flash_attention_int8(
     q_q: QuantizedTensor,          # int8 [B, H, Lq, d] + per-Lq-block scales
     k_q: QuantizedTensor,          # int8 [B, H, Lkv, d]
     v_q: QuantizedTensor,
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
     out_dtype: torch.dtype = torch.bfloat16,
     pv_mode: str = "bf16",         # "bf16" (accurate) | "int8" (fastest)
@@ -85,8 +87,9 @@ def flash_attention_int8(
     ``pv_mode`` is "bf16" or "int8" (``ValueError`` otherwise; JAX reads
     any other value as "bf16").  Dropped: JAX's ``q_q.block == block_q``
     (``attention_int8.py:152``), a TPU tile rule, since the port reads
-    each row's Q scale as ``scales[row // q_q.block]``; and the
-    ``config`` and ``interpret`` knobs.
+    each row's Q scale as ``scales[row // q_q.block]``.  ``config`` is
+    taken at the JAX package's place and not read: H4-int8 fixes its own
+    tiles.
 
     CPU tensors take :func:`attention_int8_plain`.  CUDA tensors launch
     H4-int8 once per call, or raise: it takes contiguous int8 values with

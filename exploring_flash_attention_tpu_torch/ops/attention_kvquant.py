@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from exploring_flash_attention_tpu_torch import kernels
+from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
     LOG2E,
     _check_cuda_inputs,
@@ -47,6 +48,7 @@ def flash_attention_kvquant(
     q: torch.Tensor,               # [B, H, Lq, d]
     k_q: QuantizedTensor,          # int8 or e4m3 [B, H, Lkv, d] + scales
     v_q: QuantizedTensor,
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
@@ -54,8 +56,8 @@ def flash_attention_kvquant(
     ``out_dtype`` or q.dtype; the default scale is ``1/sqrt(d)``.
 
     As in the JAX package, K and V quant blocks must match and each must
-    carry cdiv(Lkv, block) scales (``ValueError``).  The JAX signature's
-    ``config`` and ``interpret`` are TPU knobs and are not taken.
+    carry cdiv(Lkv, block) scales (``ValueError``).  ``config`` is taken at
+    the JAX package's place and not read: H4-kvq fixes its own tiles.
 
     CPU tensors take :func:`attention_kvquant_plain`.  CUDA tensors launch
     H4-kvq once per call, or raise: it takes contiguous bf16 q with d in

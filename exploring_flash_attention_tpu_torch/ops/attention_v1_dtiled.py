@@ -18,6 +18,7 @@ from typing import Optional, Union
 import torch
 
 from exploring_flash_attention_tpu_torch import kernels
+from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
     LOG2E,
     _check_cuda_inputs,
@@ -53,6 +54,8 @@ def flash_attention_v1_dtiled(
     q: torch.Tensor,               # [B, H, Lq, d]
     k: KV,                         # [B, H, Lkv, d] or its QuantizedTensor
     v: KV,
+    config: TileConfig = TileConfig(block_q=256, block_kv=256, d_tile_qk=128,
+                                    d_tile_v=128),
     scale: Optional[float] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
@@ -64,8 +67,9 @@ def flash_attention_v1_dtiled(
     TPU tile rules: "L divisible by blocks", "d divisible by the d tiles"
     and "quant block == block_kv" (``attention_v1_dtiled.py:225,230,275``);
     the kernel masks ragged L and reads the scales per key,
-    ``scales[key // block]``.  Neither ``config`` nor ``interpret`` is
-    taken.
+    ``scales[key // block]``.  ``config`` is taken at the JAX package's
+    place, with its default, and not read: H5 fixes its tiles (64 Q rows,
+    64-key tiles, 128-column d chunks) from d.
 
     CPU tensors take :func:`attention_dtiled_plain`.  CUDA tensors launch
     H5 once per call, or raise: it takes contiguous bf16 q (and bf16 K/V

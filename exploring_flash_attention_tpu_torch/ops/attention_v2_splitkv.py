@@ -20,7 +20,8 @@ from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import SplitKVConfig, cdiv
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H1_HEAD_DIMS,
-    H1_TILE,
+    H1_KV_TILE,
+    h1_q_rows,
     mask_diagonal,
     prefill_attention,
 )
@@ -44,10 +45,13 @@ def splitkv_combine_plain(o_partials: torch.Tensor, lses: torch.Tensor
 def splitkv_combine(
     o_partials: torch.Tensor,      # [B, H, nkb, Lq, d] f32
     lses: torch.Tensor,            # [B, H, nkb, Lq] f32
+    block_q: int = 128,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Merge split-KV partials by their LSE: o [B, H, Lq, d] in
-    ``out_dtype`` (the partials' dtype by default).
+    ``out_dtype`` (the partials' dtype by default).  ``block_q`` is the
+    JAX kernel's row block (B10's grid); H2 sizes its own rows from d and
+    does not read it.
 
     CPU tensors take :func:`splitkv_combine_plain`.  CUDA tensors launch
     kernel H2 (``csrc/splitkv_combine.cu``), once per call, or raise: it
@@ -115,7 +119,8 @@ def flash_attention_splitkv_partial(
     CPU tensors take H1's plain version over each span.  CUDA tensors
     launch H1 once over every span (``prefill_attention``), or raise: H1
     takes bf16 q/k/v with d in {32, 64, 128}, writes bf16 or f32 partials
-    and takes spans of whole 128-key tiles.  A single span covering the
+    and takes spans of whole 128-key tiles.  H1 reads ``block_q`` (its Q
+    tile) and ``kv_tiles_per_block`` (the span) of ``config``.  A single span covering the
     whole KV is handed to H1 rounded up to whole tiles (the same result)."""
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
@@ -129,10 +134,11 @@ def flash_attention_splitkv_partial(
         scale = 1.0 / math.sqrt(d)
     span = config.kv_span(lkv)
     if span >= lkv and q.device.type != "cpu":
-        span = cdiv(lkv, H1_TILE) * H1_TILE          # one span either way
+        span = cdiv(lkv, H1_KV_TILE) * H1_KV_TILE    # one span either way
     return prefill_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), scale, diag_off,
-        causal, out_dtype=workspace_dtype, kv_span=span)
+        causal, out_dtype=workspace_dtype, kv_span=span,
+        q_rows=h1_q_rows(config))
 
 
 def flash_attention_v2(
@@ -157,4 +163,5 @@ def flash_attention_v2(
     o_part, lse = flash_attention_splitkv_partial(
         q, k, v, config=config, scale=scale, causal=causal,
         workspace_dtype=torch.promote_types(q.dtype, torch.float32))
-    return splitkv_combine(o_part, lse, out_dtype or q.dtype)
+    return splitkv_combine(o_part, lse, config.block_q,
+                           out_dtype or q.dtype)

@@ -66,7 +66,8 @@ class AccuracyError(AssertionError):
 
 def error_stats(out, ref, rel_floor: float = 1e-3) -> dict:
     """max-abs / filtered max-rel / mean-rel error triple (relative error
-    only where |ref| > rel_floor)."""
+    only where |ref| > rel_floor), and where the largest absolute error
+    lies (``worst_index``, ``worst_out``, ``worst_ref``)."""
     out64, ref64 = _f64(out), _f64(ref)
     if out64.shape != ref64.shape:
         raise ValueError(f"shape mismatch: {out64.shape} vs {ref64.shape}")
@@ -78,7 +79,12 @@ def error_stats(out, ref, rel_floor: float = 1e-3) -> dict:
         max_rel, mean_rel = float(rel.max()), float(rel.mean())
     else:
         max_rel = mean_rel = 0.0
-    return {"max_abs": max_abs, "max_rel": max_rel, "mean_rel": mean_rel}
+    worst = (np.unravel_index(int(abs_err.argmax()), abs_err.shape)
+             if abs_err.size else ())
+    return {"max_abs": max_abs, "max_rel": max_rel, "mean_rel": mean_rel,
+            "worst_index": worst,
+            "worst_out": float(out64[worst]) if abs_err.size else 0.0,
+            "worst_ref": float(ref64[worst]) if abs_err.size else 0.0}
 
 
 def check_accuracy(out, ref, name: str = "impl", max_abs_tol: float = 1e-2,
@@ -99,6 +105,19 @@ def check_accuracy(out, ref, name: str = "impl", max_abs_tol: float = 1e-2,
         raise AccuracyError(f"{name}: accuracy check failed: "
                             + "; ".join(failures))
     return stats
+
+
+def print_comparison(out, ref, name: str = "impl",
+                     rel_floor: float = 1e-3) -> None:
+    """Print the error report of ``out`` against ``ref``, as the JAX
+    package's ``print_comparison`` does."""
+    stats = error_stats(out, ref, rel_floor=rel_floor)
+    print(f"--- {name} vs oracle ---")
+    print(f"  max abs err : {stats['max_abs']:.6e}")
+    print(f"  max rel err : {stats['max_rel']:.6e}  (|ref| > {rel_floor:g})")
+    print(f"  mean rel err: {stats['mean_rel']:.6e}")
+    print(f"  worst @ {stats['worst_index']}: out={stats['worst_out']:.6f} "
+          f"ref={stats['worst_ref']:.6f}")
 
 
 def make_qkv(batch: int, heads: int, seq_len: int, head_dim: int,

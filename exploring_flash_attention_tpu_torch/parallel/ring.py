@@ -36,7 +36,9 @@ from typing import List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
+    h1_q_rows,
     merge_partials,
     prefill_attention,
 )
@@ -61,14 +63,15 @@ def ring_offsets(my: int, n: int, lq_local: int, lkv_local: int,
 def ring_hop_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      offs: Optional[torch.Tensor],
                      o: Optional[torch.Tensor], lse: Optional[torch.Tensor],
-                     scale: float, causal: bool
+                     scale: float, causal: bool, q_rows: int = 128
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One hop's forward, no communication: the partial (f32 O, LSE) of q
-    over this K/V shard (H1, causal at the traced pair ``offs``, or without
-    a mask), merged into the running (o, lse) unless they are None."""
+    over this K/V shard (H1 at its Q tile of ``q_rows``, causal at the
+    traced pair ``offs``, or without a mask), merged into the running (o,
+    lse) unless they are None."""
     o_p, lse_p = prefill_attention(q, k, v, scale,
                                    offs if causal else 0, causal,
-                                   out_dtype=torch.float32)
+                                   out_dtype=torch.float32, q_rows=q_rows)
     if o is None:
         return o_p, lse_p
     return merge_partials(o, lse, o_p, lse_p)
@@ -107,7 +110,7 @@ class _Exchange:
         return self.recv
 
 
-def _ring_forward(q, k, v, group, scale, causal):
+def _ring_forward(q, k, v, group, scale, causal, q_rows):
     n, my = dist.get_world_size(group), dist.get_rank(group)
     offs = (ring_offsets(my, n, q.shape[2], k.shape[2], q.device)
             if causal else [None] * n)
@@ -116,7 +119,7 @@ def _ring_forward(q, k, v, group, scale, causal):
     for s in range(n):
         nxt = _Exchange(kv, group, my, n) if s < n - 1 else None
         o, lse = ring_hop_forward(q, kv[0], kv[1], offs[s], o, lse, scale,
-                                  causal)
+                                  causal, q_rows)
         if nxt is not None:
             kv = nxt.wait()
     return o, lse
@@ -147,8 +150,8 @@ def _ring_backward(q, k, v, out, do, lse, group, scale, causal):
 
 class _RingFlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, group, scale, causal):
-        o, lse = _ring_forward(q, k, v, group, scale, causal)
+    def forward(ctx, q, k, v, group, scale, causal, q_rows):
+        o, lse = _ring_forward(q, k, v, group, scale, causal, q_rows)
         out = o.to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.ring = (group, scale, causal)
@@ -158,7 +161,7 @@ class _RingFlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _ring_backward(q, k, v, out, g, lse, *ctx.ring)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def ring_flash_attention(
@@ -166,6 +169,7 @@ def ring_flash_attention(
     k_l: torch.Tensor,             # [B, Hkv, Lkv_local, d]
     v_l: torch.Tensor,
     group,
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
     causal: bool = False,
 ) -> torch.Tensor:
@@ -174,11 +178,13 @@ def ring_flash_attention(
     shard's output [B, Hq, Lq_local, d] in q's dtype.  Shard ``r`` holds
     positions ``[r * L_local, (r + 1) * L_local)``; ``causal`` masks by
     those global positions.  GQA: k/v may carry fewer heads.  One H1 launch
-    a hop forward, one H3-dkv and one H3-dq a hop backward, ``sp`` hops."""
+    a hop forward, one H3-dkv and one H3-dq a hop backward, ``sp`` hops.
+    H1 reads ``config.block_q`` (its Q tile); H3 reads no field."""
     if scale is None:
         scale = 1.0 / math.sqrt(q_l.shape[3])
     return _RingFlashAttention.apply(q_l.contiguous(), k_l.contiguous(),
-                                     v_l.contiguous(), group, scale, causal)
+                                     v_l.contiguous(), group, scale, causal,
+                                     h1_q_rows(config))
 
 
 def ring_attention(
@@ -187,6 +193,7 @@ def ring_attention(
     v: torch.Tensor,
     mesh,
     axis_name: str = "sp",
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
     causal: bool = False,
     batch_axis: Optional[str] = None,
@@ -205,4 +212,5 @@ def ring_attention(
         return shard(x, mesh, axis_name, 2)
 
     return ring_flash_attention(local(q), local(k), local(v),
-                                mesh.get_group(axis_name), scale, causal)
+                                mesh.get_group(axis_name), config, scale,
+                                causal)

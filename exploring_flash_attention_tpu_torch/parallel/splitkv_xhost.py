@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
     attention_partial_local,
 )
@@ -34,15 +35,18 @@ def splitkv_attention_xhost(
     v: torch.Tensor,
     mesh,
     axis_name: str = "sp",
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention with K/V sequence-sharded over ``axis_name``: each rank
     takes its block of k and v, and every rank returns the whole output
-    [B, Hq, Lq, d] in q's dtype (replicated over the axis, as JAX's)."""
+    [B, Hq, Lq, d] in q's dtype (replicated over the axis, as JAX's).
+    ``config`` goes to :func:`attention_partial_local` (H1 reads
+    ``block_q``)."""
     group = mesh.get_group(axis_name)
     o_p, lse = attention_partial_local(
         q.contiguous(), shard(k, mesh, axis_name, 2),
-        shard(v, mesh, axis_name, 2), scale)
+        shard(v, mesh, axis_name, 2), config, scale)
     m = lse.clone()
     dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
     m = torch.where(torch.isneginf(m), 0.0, m)

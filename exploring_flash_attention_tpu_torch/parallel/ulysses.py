@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import flash_attention
 from exploring_flash_attention_tpu_torch.parallel.mesh import (
     axis_size,
@@ -81,20 +82,23 @@ def ulysses_flash_attention(
     k_l: torch.Tensor,             # [B, Hkv, Lkv/sp, d]
     v_l: torch.Tensor,
     group,
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
     causal: bool = False,
 ) -> torch.Tensor:
     """Shard-local Ulysses attention over ``group`` (the ``sp`` axis),
     called by every rank on its own sequence block: this block's output
     [B, Hq, Lq/sp, d].  q and k/v may carry different lengths (cross
-    attention: each side gathers its own).  Differentiable."""
+    attention: each side gathers its own).  Differentiable.  ``config``
+    goes to :func:`flash_attention` (H1 reads ``block_q``)."""
     sp = dist.get_world_size(group)
     _check_heads(q_l.shape[1], k_l.shape[1], sp)
     if sp == 1:
-        return flash_attention(q_l, k_l, v_l, scale=scale, causal=causal)
+        return flash_attention(q_l, k_l, v_l, config, scale=scale,
+                               causal=causal)
     qh, kh, vh = (_SeqToHeads.apply(x.contiguous(), group, sp)
                   for x in (q_l, k_l, v_l))
-    o = flash_attention(qh, kh, vh, scale=scale, causal=causal)
+    o = flash_attention(qh, kh, vh, config, scale=scale, causal=causal)
     return _HeadsToSeq.apply(o.contiguous(), group, sp)
 
 
@@ -104,6 +108,7 @@ def ulysses_attention(
     v: torch.Tensor,
     mesh,
     axis_name: str = "sp",
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
     causal: bool = False,
 ) -> torch.Tensor:
@@ -114,4 +119,4 @@ def ulysses_attention(
     _check_heads(q.shape[1], k.shape[1], axis_size(mesh, axis_name))
     return ulysses_flash_attention(
         *(shard(x, mesh, axis_name, 2) for x in (q, k, v)),
-        mesh.get_group(axis_name), scale, causal)
+        mesh.get_group(axis_name), config, scale, causal)

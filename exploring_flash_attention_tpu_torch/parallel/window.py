@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
     attention_partial_local,
     merge_partials,
@@ -85,13 +86,13 @@ def _tail(k_l, v_l, group, t):
     return _shift(kv, kv, group, 1)
 
 
-def _sp_window_forward(q_l, k_l, v_l, group, window, scale):
+def _sp_window_forward(q_l, k_l, v_l, group, window, scale, config):
     l_local = q_l.shape[2]
     _validate(l_local, window)
     t = _tail_len(window, l_local)
     tail = _tail(k_l, v_l, group, t)
-    o, lse = attention_partial_local(q_l, k_l, v_l, scale, causal=True,
-                                     window=window)
+    o, lse = attention_partial_local(q_l, k_l, v_l, config, scale,
+                                     causal=True, window=window)
     if tail is None:                    # shard 0: no left neighbour
         return o, lse
     o_b, lse_b = flash_attention_v1_window_partial(
@@ -102,19 +103,20 @@ def _sp_window_forward(q_l, k_l, v_l, group, window, scale):
             torch.cat([lse_t, lse[:, :, t:]], dim=2))
 
 
-def _sp_window_backward(q_l, k_l, v_l, out, g, lse, group, window, scale):
+def _sp_window_backward(q_l, k_l, v_l, out, g, lse, group, window, scale,
+                        config):
     l_local = q_l.shape[2]
     t = _tail_len(window, l_local)
     tail = _tail(k_l, v_l, group, t)    # recomputed, not saved
     if tail is None:
-        dq, dk, dv = flash_attention_bwd(q_l, k_l, v_l, out, g, lse, scale,
-                                         causal=True, window=window)
+        dq, dk, dv = flash_attention_bwd(q_l, k_l, v_l, out, g, lse, config,
+                                         scale, causal=True, window=window)
         d_tail = None
     else:
         k_cat = torch.cat([tail[0], k_l], dim=2)
         v_cat = torch.cat([tail[1], v_l], dim=2)
         dq, dk_cat, dv_cat = flash_attention_bwd(
-            q_l, k_cat, v_cat, out, g, lse, scale, causal=True,
+            q_l, k_cat, v_cat, out, g, lse, config, scale, causal=True,
             static_positions=(t, 0), window=window)
         dk, dv = dk_cat[:, :, t:], dv_cat[:, :, t:]
         d_tail = torch.stack([dk_cat[:, :, :t], dv_cat[:, :, :t]])
@@ -130,11 +132,11 @@ def _sp_window_backward(q_l, k_l, v_l, out, g, lse, group, window, scale):
 
 class _SpWindowAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, group, window, scale):
-        o, lse = _sp_window_forward(q, k, v, group, window, scale)
+    def forward(ctx, q, k, v, group, window, scale, config):
+        o, lse = _sp_window_forward(q, k, v, group, window, scale, config)
         out = o.to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window = (group, window, scale)
+        ctx.window = (group, window, scale, config)
         return out
 
     @staticmethod
@@ -142,7 +144,7 @@ class _SpWindowAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _sp_window_backward(q, k, v, out, g.contiguous(), lse,
                                          *ctx.window)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def sp_window_attention(
@@ -151,14 +153,17 @@ def sp_window_attention(
     v_l: torch.Tensor,
     group,
     window: int = 1024,
+    config: TileConfig = TileConfig(),
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Differentiable causal sliding-window attention over an sp-sharded
     sequence, called by every rank of ``group`` on its own shard: this
     shard's output in q's dtype.  One hop forward, two backward; O(L_local
     * window) work a rank.  ``window`` must not exceed L_local
-    (``NotImplementedError``).  GQA: k/v may carry fewer heads."""
+    (``NotImplementedError``).  GQA: k/v may carry fewer heads.  The
+    shard's own band reads ``config.block_q`` (H1's Q tile)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q_l.shape[3])
     return _SpWindowAttention.apply(q_l.contiguous(), k_l.contiguous(),
-                                    v_l.contiguous(), group, window, scale)
+                                    v_l.contiguous(), group, window, scale,
+                                    config)

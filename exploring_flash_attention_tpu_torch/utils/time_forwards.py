@@ -117,7 +117,7 @@ def time_merge(root: Path) -> str:
                         ("8 rows", (1, 1, 2, 8, 128))):
         o_p = torch.randn(*shape, generator=gen).to("cuda")
         lse = (3 * torch.randn(*shape[:4], generator=gen)).to("cuda")
-        ms = [time_cuda(lambda: splitkv_combine(o_p, lse, torch.bfloat16),
+        ms = [time_cuda(lambda: splitkv_combine(o_p, lse, out_dtype=torch.bfloat16),
                         n_iter=100, flush_l2=f) for f in (True, False)]
         out.append(f"H2 {name} {ms[0]:.4f} / warm {ms[1]:.4f} ms")
     for name, b, lens, max_len in (("slice", 8, (257, 280), 1024),

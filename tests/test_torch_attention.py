@@ -111,8 +111,8 @@ def test_attention_partial_local_matches_jax(route, lq, lkv):
 
 def _same_default(ours, theirs) -> bool:
     """Defaults the two packages spell in their own types: a dtype by its
-    name, a config dataclass by the fields both have (the JAX
-    ``ModelConfig``'s TPU ``tile`` has no counterpart)."""
+    name, a config dataclass (``TileConfig``, ``ModelConfig`` and its
+    ``tile``) by the fields both have."""
     if isinstance(ours, torch.dtype):
         return str(ours).removeprefix("torch.") == np.dtype(theirs).name
     if dataclasses.is_dataclass(ours):
@@ -236,6 +236,24 @@ def test_port_defaults_match_jax(port, jax_fn, required, n_shared):
         causal_o, _ = port(*(torch.from_numpy(x) for x in (q, k, v)),
                            causal=True)
         assert (causal_o - o).abs().max() > 100 * ATOL
+
+
+@pytest.mark.parametrize("port,jax_fn,required,n_shared", DEFAULTS_CASES,
+                         ids=[f"port{i}-jax_fn{i}"
+                              for i in range(len(DEFAULTS_CASES))])
+def test_port_parameter_order_matches_jax(port, jax_fn, required, n_shared):
+    """The parameters the port shares with the JAX function come in JAX's
+    order, and every ``config`` the JAX function takes the port takes too:
+    a positional call written for one package binds the same parameters in
+    the other (``flash_attention_v1(q, k, v, cfg)``, ``forward(p, t, c,
+    tp, sp)``, ``flash_attention_bwd``'s ``positions`` before
+    ``static_positions``).  The cases are test_port_defaults_match_jax's."""
+    ours = list(inspect.signature(port).parameters)
+    theirs = list(inspect.signature(jax_fn).parameters)
+    assert ([n for n in ours if n in theirs]
+            == [n for n in theirs if n in ours])
+    if "config" in theirs:
+        assert "config" in ours
 
 
 @pytest.mark.parametrize("lq,lkv", [(64, 64), (17, 17), (24, 16)])

@@ -201,7 +201,7 @@ def test_splitkv_combine_matches_jax(d, nkb):
     ref = (o_p * w[..., None]).sum(2)
     _check_both(got.numpy(), want, ref)
     assert (got[0, 0, 5] == 0).all()
-    assert splitkv_combine(*_t(o_p, lse), torch.bfloat16).dtype == \
+    assert splitkv_combine(*_t(o_p, lse), out_dtype=torch.bfloat16).dtype == \
         torch.bfloat16
 
 

@@ -57,7 +57,7 @@ import numpy as np
 import pytest
 import torch
 
-from exploring_flash_attention_tpu_torch import SplitKVConfig
+from exploring_flash_attention_tpu_torch import SplitKVConfig, TileConfig
 from exploring_flash_attention_tpu_torch.graphs import StepGraph
 from exploring_flash_attention_tpu_torch.models import (
     GenerationEngine,
@@ -220,6 +220,108 @@ def test_h1_modes_match_plain_and_oracle(cuda_device, mode, d):
     assert np.abs(o.float().cpu().numpy() - oracle).max() < O_TOL
 
 
+def _bound_plain(q, k, v, scale, causal, diag_off, window=None):
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        bound_kmax,
+        bound_shift,
+    )
+    shift = bound_shift(q, bound_kmax(k), scale, causal, diag_off)
+    return attention_plain(q, k, v, scale, causal, diag_off, window, shift)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("mode", ["none", "causal", "window"])
+@pytest.mark.parametrize("block_q", [64, 128])
+def test_h1_bound_matches_plain_and_oracle(cuda_device, mode, d, block_q):
+    """H1's bound form (``TileConfig(softmax="bound")``) under each mask at
+    each head dim and both Q tiles, ragged and cross (Lq=200, Lkv=330),
+    GQA 4/2: one H1 launch, f32 O and LSE against the plain bound version
+    (O_TOL, LSE_TOL) and O against the f64 oracle."""
+    b, hq, hkv, lq, lkv = 2, 4, 2, 200, 330
+    causal, window = mode != "none", 100 if mode == "window" else None
+    q, k, v = _qkv(cuda_device, b, hq, hkv, lq, lkv, d, seed=21)
+    scale = 1.0 / math.sqrt(d)
+    before = prefill_attention.launches
+    o, lse = prefill_attention(q, k, v, scale, lkv - lq, causal, window,
+                               out_dtype=torch.float32,
+                               q_rows=64 if block_q == 64 else 128,
+                               softmax="bound")
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 1
+    o_ref, lse_ref = _bound_plain(q, k, v, scale, causal, lkv - lq, window)
+    assert (o - o_ref).abs().max().item() < O_TOL
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse[fin] - lse_ref[fin]).abs().max().item() < LSE_TOL
+    oracle = naive_attention(q, k.repeat_interleave(2, 1),
+                             v.repeat_interleave(2, 1), causal=causal,
+                             window=window)
+    assert np.abs(o.cpu().numpy() - oracle).max() < O_TOL
+    o_v1 = flash_attention_v1(q, k, v, TileConfig(block_q=block_q,
+                                                  softmax="bound"),
+                              causal=causal, window=window,
+                              out_dtype=torch.float32)
+    assert torch.equal(o_v1, o)
+
+
+@pytest.mark.parametrize("causal,positions", [
+    (False, (0, 0)), (True, (100, 0)), (True, (1024, 512)),
+    (True, (0, 700))])
+def test_h1_bound_traced_positions_equal_static(cuda_device, causal,
+                                                positions):
+    """The bound form at traced positions (a device pair) is bitwise the
+    static launch, over one span and over 128-key spans; a call whose
+    rows see no key gives (0, -inf)."""
+    q, k, v = _qkv(cuda_device, 2, 8, 4, 256, 640, 128, seed=22)
+    scale = 1.0 / math.sqrt(128)
+    pair = torch.tensor(positions, dtype=torch.int32, device=cuda_device)
+    diag = positions[0] - positions[1]
+    for span in (None, 256):
+        static = prefill_attention(q, k, v, scale, diag, causal,
+                                   out_dtype=torch.float32, kv_span=span,
+                                   softmax="bound")
+        traced = prefill_attention(q, k, v, scale, pair if causal else 0,
+                                   causal, out_dtype=torch.float32,
+                                   kv_span=span, softmax="bound")
+        assert all(torch.equal(a, b) for a, b in zip(static, traced))
+    if causal and diag < -q.shape[2]:
+        assert (static[0] == 0).all() and torch.isneginf(static[1]).all()
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lkv,d,causal,window", [
+    (1, 8, 8, 1024, 1024, 128, True, None),
+    (2, 8, 4, 200, 330, 64, False, None),
+    (2, 4, 2, 333, 333, 32, True, 100),
+    (1, 8, 4, 1024, 8192, 128, False, None),
+])
+def test_h1_q_tile_64_is_bitwise_the_128_tile(cuda_device, b, hq, hkv, lq,
+                                              lkv, d, causal, window):
+    """The 64-row Q tile (one consumer warpgroup, 256 threads) gives O and
+    the LSE of the 128-row tile bitwise, exact and bound: each row meets
+    the same K/V tiles in the same order, and a tile wholly masked for a
+    row adds p = 0 at alpha = 1."""
+    q, k, v = _qkv(cuda_device, b, hq, hkv, lq, lkv, d, seed=23)
+    scale = 1.0 / math.sqrt(d)
+    for softmax in ("exact", "bound"):
+        got = [prefill_attention(q, k, v, scale, lkv - lq, causal, window,
+                                 out_dtype=torch.float32, q_rows=rows,
+                                 softmax=softmax) for rows in (64, 128)]
+        assert torch.equal(got[0][0], got[1][0])
+        assert torch.equal(got[0][1], got[1][1])
+
+
+def test_h1_bound_causal_rows_keep_their_bits_when_kv_grows(cuda_device):
+    """Causal bound outputs are bitwise unchanged when q and K/V grow by a
+    whole 128-key tile, at both Q tiles."""
+    q, k, v = _qkv(cuda_device, 2, 8, 4, 640, 640, 128, seed=24)
+    for block_q in (64, 128):
+        cfg = TileConfig(block_q=block_q, softmax="bound")
+        short = flash_attention_v1(*(x[:, :, :512].contiguous()
+                                     for x in (q, k, v)), cfg, causal=True)
+        grown = flash_attention_v1(q, k, v, cfg, causal=True)
+        assert torch.equal(grown[:, :, :512], short)
+
+
 def test_h1_window_suffix_band_gives_merge_identity(cuda_device):
     """The window partial with the rows past the KV span (``row_off`` =
     Lq): f32 O and LSE against the plain version; rows whose band misses
@@ -357,7 +459,7 @@ def test_h2_combine_matches_plain_and_counts(cuda_device):
     o_p, lse = o_p.to(cuda_device), lse.to(cuda_device)
     before = splitkv_combine.launches
     got = splitkv_combine(o_p, lse)
-    got16 = splitkv_combine(o_p, lse, torch.bfloat16)
+    got16 = splitkv_combine(o_p, lse, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert splitkv_combine.launches == before + 2
     assert got.dtype == torch.float32 and got16.dtype == torch.bfloat16
@@ -389,7 +491,7 @@ def test_h2_row_layouts_match_plain(cuda_device, d, nkb, out_dtype):
     ref = splitkv_combine_plain(o_p, lse)
     before = splitkv_combine.launches
     got = splitkv_combine(o_p.to(cuda_device), lse.to(cuda_device),
-                          out_dtype)
+                          out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert splitkv_combine.launches == before + 1
     assert got.dtype == out_dtype and got.shape == (2, 3, 37, d)
@@ -769,7 +871,7 @@ def test_bwd_kernels_match_plain(cuda_device, b, hq, hkv, lq, lkv, d,
                                              lkv, d, diag_off, causal=causal,
                                              window=window)
     positions = (diag_off, 0)
-    dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, scale,
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, scale=scale,
                                      causal=causal,
                                      static_positions=positions,
                                      window=window)
@@ -811,12 +913,13 @@ def test_traced_offsets_equal_the_static_launch(cuda_device, pos, mask):
     fwd = [prefill_attention(q, k, v, scale, d, causal, window,
                              out_dtype=torch.float32) for d in (offs, diag)]
     assert all(torch.equal(a, b) for a, b in zip(*fwd))
-    bwd = [flash_attention_bwd(q, k, v, out, do, lse, scale, causal=causal,
+    bwd = [flash_attention_bwd(q, k, v, out, do, lse, scale=scale,
+                               causal=causal,
                                window=window, **kw)
            for kw in ({"positions": traced}, {"static_positions": pos})]
     assert all(torch.equal(a, b) for a, b in zip(*bwd))
     if mask == "causal":
-        part = attention_partial_local(q, k, v, scale, True,
+        part = attention_partial_local(q, k, v, scale=scale, causal=True,
                                        positions=traced)
         assert all(torch.equal(a, b) for a, b in zip(part, fwd[0]))
     if pos == (0, 300):
@@ -841,16 +944,17 @@ def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 1, 2, 2, 64, 64,
                                              64, 0)
     before = (attention_bwd_dkv.launches, attention_bwd_dq.launches)
-    flash_attention_bwd(q, k, v, out, do, lse, scale, causal=True)
+    flash_attention_bwd(q, k, v, out, do, lse, scale=scale, causal=True)
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
         before[0] + 1, before[1] + 1)
     with pytest.raises(TypeError, match="bf16"):
         flash_attention_bwd(q.float(), k.float(), v.float(), out.float(),
-                            do.float(), lse, scale, causal=True)
+                            do.float(), lse, scale=scale, causal=True)
     q32, k32, v32, out32, do32, lse32, scale32 = _bwd_case(
         cuda_device, 1, 2, 2, 64, 64, 32, 0)
     with pytest.raises(ValueError, match="d in"):
-        flash_attention_bwd(q32, k32, v32, out32, do32, lse32, scale32)
+        flash_attention_bwd(q32, k32, v32, out32, do32, lse32,
+                            scale=scale32)
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
         before[0] + 1, before[1] + 1)
 
@@ -1371,7 +1475,7 @@ def test_seq2seq_step_runs_h1_and_h3_across_lengths(cuda_device):
     loss = seq2seq_loss(params, src, tgt, cfg)
     grads = torch.autograd.grad(loss, leaves)
 
-    def plain(q, k, v, causal=False):
+    def plain(q, k, v, causal=False, config=None):
         o, _ = attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[3]), causal,
                                k.shape[2] - q.shape[2])
         return o.to(q.dtype)

@@ -112,14 +112,20 @@ def test_model_config_refuses_a_window_below_one(window):
 
 def test_model_config_defaults_match_jax():
     """Every field the port's config shares with JAX's has its default,
-    the new ``window`` (None, full causal) included."""
+    the new ``window`` (None, full causal) included, and the port has every
+    field JAX's has; ``tile`` is each package's own ``TileConfig`` with the
+    same field values."""
     import dataclasses
 
     theirs = {f.name: f.default for f in dataclasses.fields(jtf.ModelConfig)}
     ours = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     assert "window" in ours and ours["window"] is None
+    assert list(ours) == list(theirs)
     for name, default in ours.items():
-        if name != "dtype":           # a torch dtype on one side, jnp's on the other
+        if name == "tile":
+            assert (dataclasses.astuple(default)
+                    == dataclasses.astuple(theirs[name])), name
+        elif name != "dtype":         # a torch dtype on one side, jnp's on the other
             assert default == theirs[name], name
 
 

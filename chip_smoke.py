@@ -16,7 +16,8 @@ Phases, one line each; any failure exits non-zero before the last line:
 2. build:  nvcc builds the kernels of exploring_flash_attention_tpu_torch/
    csrc/ and its -Xptxas -v report (registers, shared memory) is printed;
    the SASS of the kernel functions of H1, H3, H4-int8, H4-kvq, H5 and
-   H6-extend (cuobjdump) must hold wgmma instructions: HGMMA in every H1,
+   H6-extend (cuobjdump) must hold wgmma instructions: HGMMA in every H1
+   (D 32, 64, 128, 256),
    H3-dkv, H3-dq, H4-kvq, H5 and H6-extend function and in H4-int8's
    pv_mode bf16 ones,
    IGMMA in every H4-int8 function, and no HMMA or IMMA (the mma.sync and
@@ -222,6 +223,30 @@ Phases, one line each; any failure exits non-zero before the last line:
    ranks are not run: NCCL takes one card a rank, and this machine has
    one; tests/test_torch_parallel.py and tests/test_torch_sharded.py run
    them on gloo ranks on the CPU.
+
+22. heads (after speculative): the serving kernels at head geometries the
+   JAX model takes beyond the flagship's (d a multiple of 16 from 16 to
+   256, any GQA group, pages a multiple of 128 below 2^15).  H1 at d 16,
+   80, 96 and 256 on a GQA group of 16 (B=2, Lq=1000, Lkv=1100): no mask,
+   causal and a window of 100 with the LSE, and over 256-key spans, each
+   one counted launch against the plain version and the f64 oracle beside
+   the v1 phase's controls (scale off by 10%, the last 64-key tile
+   dropped); H2 on those spans at d 80 and 256 (control: each row's last
+   span left out); H6-decode and H6-extend at (d, Hq, Hkv, page size)
+   (16, 32, 1, 1024), (80, 16, 1, 512), (256, 8, 8, 128) and (256, 32, 2,
+   512) over B=8 contexts 257..1100 (extend: a 64-token chunk after them),
+   beside the decode and extend phases' controls, the fused merge against
+   the plain merge of the kernel's own partials, the tickets zero; every
+   kernel timed at d 80 and 256 beside its plain version, SDPA and the
+   bound.  Then two models at the flagship's widths with only the
+   attention geometry changed, heads256 (4 q heads over one KV head of
+   256, page size 512) and heads80g16 (16 q heads over one KV head of 80,
+   page size 128), each served as the slice and multiturn phases serve the
+   flagship (counters, graphed tokens bitwise the eager loop's, tokens
+   against the full forward, the cache against the stream, tokens/s), and
+   heads80g16 through the continuous-batching scheduler (its gate, 12
+   requests graphed and eager, bitwise equal, one H6-decode launch a
+   step).
 
 ``python3 chip_smoke.py --only PHASE,...`` runs the build and the named
 phases alone (no kernels line), for a quicker call while a phase is
@@ -537,33 +562,34 @@ def phase_build(kernels):
     check_sass(kernels)
 
 
-# the wgmma kernels' functions in the SASS: H1 (d 32, 64, 128 x Q tiles of
-# 64 and 128 rows x the exact and bound statistics), H4-int8
+# the wgmma kernels' functions in the SASS: H1 (D 32, 64, 128, 256 x Q
+# tiles of 64 and 128 rows x the exact and bound statistics), H4-int8
 # (d 64, 128 x pv_mode), H4-kvq (d 64, 128 x int8, e4m3), H5 (d 128,
 # 256, 384, 512 x bf16, int8, e4m3), H3-dkv and H3-dq (d 64, 128),
-# H6-extend (d 64, 128)
-WGMMA_FUNCTIONS = {"prefill_attention_kernel": 12, "int8_attention_kernel": 4,
+# H6-extend (D 64, 128, 256)
+WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 4,
                    "kvquant_attention_kernel": 4,
                    "dtiled_attention_kernel": 12,
                    "attention_bwd_dkv_kernel": 2,
                    "attention_bwd_dq_kernel": 2,
-                   "paged_extend_kernel": 2}
+                   "paged_extend_kernel": 3}
+H2_FUNCTIONS = 16              # one instance per d, 16 to 256 by 16
 
 
 def check_sass(kernels):
     """H1, H3, H4-int8, H4-kvq, H5 and H6-extend run on wgmma: HGMMA in
     every H1, H3, H4-kvq, H5 and H6-extend function and in the pv_mode bf16
     H4-int8 ones (template argument false, ``Lb0E``), IGMMA in every
-    H4-int8 function, no HMMA or IMMA in any of them.  H2 (d 32, 64, 128)
-    reads its partials with 128-bit global loads (``LDG.E.128``, with any
-    cache modifiers) in every function."""
+    H4-int8 function, no HMMA or IMMA in any of them.  H2 (every d of the
+    rule) reads its partials with 128-bit global loads (``LDG.E.128``,
+    with any cache modifiers) in every function."""
     sass = kernels.sass_by_function()
     h2 = {n: len(re.findall(r"\bLDG\.E(?:\.\w+)*?\.128\b", t))
           for n, t in sass.items() if "splitkv_combine_kernel" in n}
     print(f"  sass: splitkv_combine_kernel 128-bit loads: "
           + ", ".join(f"{n.split('splitkv_combine_kernel')[1][:8]} {c}"
                       for n, c in h2.items()))
-    _require(len(h2) == 3 and all(h2.values()),
+    _require(len(h2) == H2_FUNCTIONS and all(h2.values()),
              f"H2's functions lack 128-bit global loads: {h2}")
     found = dict.fromkeys(WGMMA_FUNCTIONS, 0)
     for name, text in sass.items():
@@ -2072,9 +2098,11 @@ def read_counters():
     return {name: fn.launches for name, fn in _counted().items()}
 
 
-def make_flagship(torch, dev):
+def make_flagship(torch, dev, name="flagship", page_size=128, **heads):
     """The full-width flagship LM with random weights from seed 0, and the
-    [8, 256] prompts of both generation phases."""
+    [8, 256] prompts of both generation phases.  ``heads`` (n_heads,
+    n_kv_heads, d_head) change its attention geometry alone, as the heads
+    phase's models do; ``page_size`` is its cache's."""
     from types import SimpleNamespace
 
     from exploring_flash_attention_tpu_torch.models import (
@@ -2082,15 +2110,17 @@ def make_flagship(torch, dev):
         init_params,
     )
 
-    cfg = flagship_config()
+    cfg = dataclasses.replace(flagship_config(), **heads)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (8, 256)).astype(np.int32)
-    return SimpleNamespace(cfg=cfg, params=params, prompt=prompt,
-                           t_init=t_init)
+    return SimpleNamespace(
+        cfg=cfg, params=params, prompt=prompt, t_init=t_init, name=name,
+        page_size=page_size,
+        tag=lambda phase: phase if name == "flagship" else f"{name} {phase}")
 
 
 def phase_slice(torch, dev, lm):
@@ -2109,7 +2139,9 @@ def phase_slice(torch, dev, lm):
 
     cfg, params, prompt = lm.cfg, lm.params, lm.prompt
     (bsz, l_prompt), n_new = prompt.shape, 24
-    eng = GenerationEngine(params, cfg, max_seqs=bsz, max_len=1024)
+    tag = lm.tag("slice")
+    eng = GenerationEngine(params, cfg, max_seqs=bsz, max_len=1024,
+                           page_size=lm.page_size)
 
     zero_counters()
     torch.cuda.synchronize()
@@ -2118,7 +2150,7 @@ def phase_slice(torch, dev, lm):
     t_first = time.perf_counter() - t0
     launches = read_counters()
     want = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1))
-    print(f"  slice launches {launches} (expected {want}; the first decode "
+    print(f"  {tag} launches {launches} (expected {want}; the first decode "
           f"step eager, then {n_new - 2} replays of its CUDA graph)")
     _require(launches == want, "the main path missed a kernel")
     _require(out.shape == (bsz, n_new) and out.dtype == np.int32
@@ -2151,11 +2183,12 @@ def phase_slice(torch, dev, lm):
 
     with mock.patch.object(generate_module, "paged_decode_attention",
                            hide_newest):
-        bad = GenerationEngine(params, cfg, max_seqs=bsz,
-                               max_len=1024).generate(prompt, n_new)
+        bad = GenerationEngine(params, cfg, max_seqs=bsz, max_len=1024,
+                               page_size=lm.page_size).generate(prompt,
+                                                                n_new)
     bad_agree, _, bad_gap = compare_with_full_forward(
         torch, params, cfg, prompt, bad)
-    print(f"  slice init {lm.t_init:.2f} s, first generate {t_first:.3f} s, "
+    print(f"  {tag} init {lm.t_init:.2f} s, first generate {t_first:.3f} s, "
           f"second {dt:.4f} s: {tok_s:.1f} tokens/s with the decode steps "
           f"replayed as a CUDA graph, {bsz * n_new / dt_eager:.1f} tokens/s "
           f"with them eager ({dt_eager:.4f} s; B={bsz}, prompt {l_prompt}, "
@@ -2173,7 +2206,7 @@ def phase_slice(torch, dev, lm):
              "a decode token differs from the full forward's beyond a tie")
     _require(ran and bad_gap >= LOGIT_GAP,
              "the full-forward check cannot tell a wrong decode path")
-    print("phase slice: ok")
+    print(f"phase {tag}: ok")
     return launches, {"tokens_s": tok_s, "eager_tokens_s":
                       bsz * n_new / dt_eager}
 
@@ -2207,7 +2240,9 @@ def phase_multiturn(torch, dev, lm):
 
     cfg, params, prompt = lm.cfg, lm.params, lm.prompt
     bsz, n_new, l_turn = prompt.shape[0], 24, 256
-    eng = GenerationEngine(params, cfg, max_seqs=bsz, max_len=1024)
+    tag = lm.tag("multiturn")
+    eng = GenerationEngine(params, cfg, max_seqs=bsz, max_len=1024,
+                           page_size=lm.page_size)
     zero_counters()
     out1 = eng.generate(prompt, max_new_tokens=n_new, hold=True)
     turn1 = read_counters()
@@ -2220,7 +2255,7 @@ def phase_multiturn(torch, dev, lm):
     turn2 = read_counters()
     want1 = launches_only(h1=cfg.n_layers, h6=cfg.n_layers * (n_new - 1))
     want2 = launches_only(h6=cfg.n_layers * (n_new - 1), h6e=cfg.n_layers)
-    print(f"  multiturn launches turn 1 {turn1} (expected {want1}), "
+    print(f"  {tag} launches turn 1 {turn1} (expected {want1}), "
           f"turn 2 {turn2} (expected {want2})")
     _require(turn1 == want1 and turn2 == want2,
              "the multi-turn path missed a kernel")
@@ -2283,12 +2318,12 @@ def phase_multiturn(torch, dev, lm):
         torch, params, cfg, prefix, short_out)
     diag_agree, _, diag_gap = compare_with_full_forward(
         torch, params, cfg, prefix, diag_out)
-    print(f"  multiturn cache after turn 2 ({n} tokens, {cfg.n_layers} "
+    print(f"  {tag} cache after turn 2 ({n} tokens, {cfg.n_layers} "
           f"layers): max|dK|,|dV| vs forward_collect_kv over the stream "
           f"{e_kv:.3e} (tol {CACHE_KV_TOL:g}), control (turn without its "
           f"first token) {e_bad:.3e}; pages free after release {free}/"
           f"{eng.allocator.n_pages}")
-    print(f"  multiturn turn 2 second call {dt:.4f} s: {tok_s:.1f} tokens/s "
+    print(f"  {tag} turn 2 second call {dt:.4f} s: {tok_s:.1f} tokens/s "
           f"(B={bsz}, turn {l_turn}, {n_new} new, incl. the extend); repeat "
           f"identical: {bool(np.array_equal(out2, again))}; full-forward "
           f"agreement {agree}/{steps}, largest gap of a disagreement "
@@ -2306,7 +2341,7 @@ def phase_multiturn(torch, dev, lm):
              "a turn-2 token differs from the full forward's beyond a tie")
     _require(bad_gap >= LOGIT_GAP,
              "the full-forward check cannot tell a turn one token short")
-    print("phase multiturn: ok")
+    print(f"phase {tag}: ok")
     return turn2, tok_s
 
 
@@ -4503,11 +4538,416 @@ def phase_tiles(torch, dev):
     return out
 
 
+# The heads phase: the serving kernels H1, H2, H6-decode and H6-extend at
+# head geometries the JAX model takes beyond the flagship's: any d that is a
+# multiple of 16 from 16 to 256 (ops.attention.kernel_head_dim), any GQA
+# group, pages that are a multiple of 128 below 2^15.  H1 at d 16, 80, 96
+# and 256 (its instances D 32, 128, 128, 256) on a GQA group of 16, ragged
+# and cross, under each mask with the LSE and over KV spans; H2 on those
+# spans at d 80 and 256
+HEADS_H1_DIMS = (16, 80, 96, 256)
+HEADS_H1_SHAPE = (2, 16, 1, 1000, 1100)        # B, Hq, Hkv, Lq, Lkv
+HEADS_WINDOW = 100
+HEADS_SPAN = 256
+HEADS_H2_DIMS = (80, 256)
+HEADS_TIMED = (80, 256)        # each kernel timed at these head dims
+# the paged kernels' cases, (d, Hq, Hkv, page size): every d of 16, 80 and
+# 256, every group of 1, 16 and 32 and every page size of 128, 512 and 1024
+# appears; B=8 contexts 257..1100, and for H6-extend a 64-token chunk after
+# them
+HEADS_PAGED = [(16, 32, 1, 1024), (80, 16, 1, 512), (256, 8, 8, 128),
+               (256, 32, 2, 512)]
+HEADS_PAGED_LENS = (257, 1100)
+HEADS_CHUNK = 64
+# the two models served end to end: the flagship's widths (vocab 32768, 4
+# layers, d_model 1024, d_ff 4096, bf16, random weights from seed 0) with
+# only the attention geometry changed
+HEADS_MODELS = {
+    # Gemma's head dim (and GPT-J's), one KV head, 512-token pages
+    "heads256": {"n_heads": 4, "n_kv_heads": 1, "d_head": 256,
+                 "page_size": 512},
+    # Phi-2's head dim in a group of 16 (Llama-3.1-405B's group size)
+    "heads80g16": {"n_heads": 16, "n_kv_heads": 1, "d_head": 80,
+                   "page_size": 128},
+}
+# heads80g16's scheduler run: requests of these prompt and new-token
+# lengths, 8 slots, 4 up front and 2 more every 8 steps
+HEADS_SCHED_PROMPTS = (256, 512, 1024)
+HEADS_SCHED_NEW = (16, 32, 48)
+HEADS_SCHED_REQUESTS = 12
+HEADS_SCHED_SLOTS = 8
+
+
+def heads_h1(torch, dev, d, out):
+    """H1 at head dim ``d``: the three masks with the LSE and the span
+    mode, each one counted launch against the plain version and the f64
+    oracle beside the v1 phase's controls; H2 on the span partials at
+    HEADS_H2_DIMS; both timed at HEADS_TIMED."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_plain,
+        prefill_attention,
+        splitkv_combine,
+        splitkv_combine_plain,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    b, hq, hkv, lq, lkv = HEADS_H1_SHAPE
+    q, k, v = v1_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed=d)
+    scale = 1.0 / math.sqrt(d)
+    geo = f"B={b} Hq={hq} Hkv={hkv} Lq={lq} Lkv={lkv} d={d}"
+    errs = {}
+    for mode in ("none", "causal", "window"):
+        causal = mode != "none"
+        window = HEADS_WINDOW if mode == "window" else None
+        o, lse = counted_call(torch, lambda: prefill_attention(
+            q, k, v, scale, lkv - lq, causal, window,
+            out_dtype=torch.float32), launches_only(h1=1))
+        r = v1_readings(torch, q, k, v, o, lse, causal, window, 1, 2)
+        tol = V1_O_TOL if window is None else V1_WINDOW_O_TOL
+        print(f"  heads H1 {geo} {mode}: max|dO| vs plain {r['plain']:.3e}, "
+              f"vs f64 oracle on [:1, :2] {r['oracle']:.3e} (tol {tol:g}); "
+              f"max|dLSE| vs plain {r['lse_plain']:.3e}, vs f64 oracle "
+              f"{r['lse_oracle']:.3e} (tol {H1_LSE_TOL:g}); controls: scale "
+              f"off by 10% {r['scale']:.3e}, last 64-key tile dropped "
+              f"{r['drop']:.3e}; one H1 launch")
+        v1_check(r, tol, f"heads H1 d={d} {mode}")
+        _require(max(r["lse_plain"], r["lse_oracle"]) < H1_LSE_TOL,
+                 f"heads H1 d={d} {mode}: LSE outside tolerance")
+        errs[mode] = r["plain"]
+        del o, lse
+
+    # the span mode (B8's partials), non-causal, and H2 merging them
+    o, lse = counted_call(torch, lambda: prefill_attention(
+        q, k, v, scale, 0, False, kv_span=HEADS_SPAN,
+        out_dtype=torch.float32), launches_only(h1=1))
+    ref_o, ref_lse = attention_plain_spans(torch, q, k, v, scale, False,
+                                           HEADS_SPAN)
+    e_o = (o - ref_o).abs().max().item()
+    e_lse = (lse - ref_lse).abs().max().item()
+    bad = {"scale off by 10%": attention_plain_spans(
+        torch, q, k, v, 1.1 * scale, False, HEADS_SPAN)[0],
+        "last 64-key tile dropped": attention_plain_spans(
+            torch, q, k[:, :, :-64], v[:, :, :-64], scale, False,
+            HEADS_SPAN)[0]}
+    ctl = {n: (o - x).abs().max().item() for n, x in bad.items()}
+    nkb = o.shape[2]
+    print(f"  heads H1 {geo} over {nkb} spans of {HEADS_SPAN} keys: max|dO| "
+          f"vs plain {e_o:.3e} (tol {V1_O_TOL:g}), max|dLSE| {e_lse:.3e} "
+          f"(tol {H1_LSE_TOL:g}); controls "
+          + ", ".join(f"{n} {x:.3e}" for n, x in ctl.items()))
+    _require(e_o < V1_O_TOL and e_lse < H1_LSE_TOL,
+             f"heads H1 d={d} spans outside tolerance")
+    _require(min(ctl.values()) > V1_O_TOL,
+             f"the span check cannot tell a wrong path (d={d})")
+    errs["spans"] = e_o
+    del ref_o, ref_lse, bad
+    res = {"max_abs_err": errs}
+    if d in HEADS_H2_DIMS:
+        got = counted_call(torch, lambda: splitkv_combine(
+            o, lse, out_dtype=torch.float32), launches_only(h2=1))
+        e_h2 = (got - splitkv_combine_plain(o, lse)).abs().max().item()
+        # control: every row's last span left out of the merge
+        c_h2 = (got - splitkv_combine_plain(o[:, :, :-1], lse[:, :, :-1])
+                ).abs().max().item()
+        rows = b * hq * lq
+        h2 = {"max_abs_err": e_h2, "library_ms": None}
+        if d in HEADS_TIMED:
+            h2["ms"] = time_cuda(lambda: splitkv_combine(
+                o, lse, out_dtype=torch.bfloat16))
+            h2["plain_ms"] = time_cuda(lambda: splitkv_combine_plain(o, lse))
+            h2["bound_ms"], h2["bound_by"] = merge_bound(nkb, rows, d)
+        print(f"  heads H2 d={d}, {nkb} partials of {rows} rows: vs plain "
+              f"{e_h2:.3e} (tol {H2_O_TOL:g}); control (each row's last "
+              f"span left out) {c_h2:.3e}; one H2 launch"
+              + ("" if "ms" not in h2 else
+                 f"; {h2['ms']:.4f} ms (bf16 O) vs plain {h2['plain_ms']:.4f}"
+                 f" ms, bound {h2['bound_ms']:.4f} ms ({h2['bound_by']})"))
+        _require(e_h2 < H2_O_TOL, f"heads H2 d={d} outside tolerance")
+        _require(c_h2 > H2_O_TOL, f"the H2 check cannot tell a wrong "
+                 f"merge (d={d})")
+        out["h2"][d] = h2
+    del o, lse
+    if d in HEADS_TIMED:
+        flop = 4 * b * hq * lq * lkv * d
+        res.update(kernel_times(
+            lambda: prefill_attention(q, k, v, scale, 0, False,
+                                      with_lse=False),
+            lambda: attention_plain(q, k, v, scale, False),
+            lambda: sdpa(q, k, v, enable_gqa=True),
+            [(flop, H100_BF16_FLOPS)],
+            2 * d * 2 * (b * hq * lq + b * hkv * lkv)))
+        pad = {16: 32, 80: 128, 96: 128}.get(d, d)
+        res["padded_work"] = 1 - d / pad
+        print(f"  heads H1 {geo} times (no mask, bf16 O): {res['ms']:.4f} ms "
+              f"= {flop / res['ms'] / 1e9:.1f} TFLOP/s of the true d's work "
+              f"(the instance D={pad} pads {res['padded_work']:.1%} of it); "
+              f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}); plain "
+              f"{res['plain_ms']:.4f} ms; scaled_dot_product_attention "
+              f"{res['library_ms']:.4f} ms")
+    out["h1"][d] = res
+
+
+def heads_paged(torch, dev, d, hq, hkv, ps, out):
+    """H6-decode and H6-extend at one (d, group, page size): each one
+    counted launch against the plain version and the f64 oracle over each
+    band, beside the decode and extend phases' controls (the newest token
+    hidden; every chunk row's own key hidden), the decode's fused merge
+    against the plain merge of its own partials, the tickets zero; both
+    timed at HEADS_TIMED, the d=256 case at its group of 16."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.ops import splitkv_combine_plain
+    from exploring_flash_attention_tpu_torch.serving import (
+        decode_chunks,
+        decode_split,
+        paged_decode_attention,
+        paged_decode_partials,
+        paged_decode_plain,
+        paged_extend_attention,
+        paged_extend_plain,
+        ticket_buffer,
+    )
+
+    b, g = 8, hq // hkv
+    max_len = HEADS_PAGED_LENS[1] + HEADS_CHUNK
+    timed = d in HEADS_TIMED and g == 16
+    scale = 1.0 / math.sqrt(d)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cache, q, slots, ctx = make_paged_case(torch, dev, b, hq, hkv, d, ps,
+                                           HEADS_PAGED_LENS, max_len, seed=d)
+    call = lambda: paged_decode_attention(q, cache, slots)  # noqa: E731
+    o = counted_call(torch, call, launches_only(h6=1))
+    ref = paged_decode_plain(q, cache, slots, scale)
+    oracle = np.stack([band_oracle(q[s:s + 1], cache, s, [int(n) - 1],
+                                   None)[0] for s, n in enumerate(ctx)])
+    with newest_token_hidden(cache, slots):
+        controls = {"newest token hidden": paged_decode_plain(
+            q, cache, slots, scale)}
+    chunks = decode_chunks(g, d)
+    split = decode_split(cache, b, None, n_sms, chunks)
+    geo = f"B={b} Hq={hq} Hkv={hkv} d={d} ps={ps}"
+    err = paged_check(f"heads decode {geo} ctx {ctx.min()}..{ctx.max()}, "
+                      f"{chunks} group chunk(s), {split[0]} runs of "
+                      f"{split[1]} pages", o, ref,
+                      (o.float().cpu().numpy(), oracle), controls,
+                      DECODE_O_TOL)
+    o_part, lse = paged_decode_partials(q, cache, slots, scale)
+    merged = splitkv_combine_plain(o_part, lse)[:, :, 0]
+    top = merged.abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    e_merge = (o.float() - merged).abs().max().item()
+    tickets = ticket_buffer(dev)
+    print(f"  heads decode {geo}: fused O vs the plain merge of the "
+          f"kernel's own partials {e_merge:.3e} (one bf16 ulp of max|O|: "
+          f"{ulp:.3e}); tickets zero")
+    _require(e_merge <= ulp, f"heads decode {geo}: the fused merge differs")
+    _require(tickets is not None and not tickets.any().item(),
+             f"heads decode {geo}: tickets not zero")
+    res = {"max_abs_err": err, "merge_err": e_merge, "chunks": chunks,
+           "split": list(split)}
+    if timed:
+        k, v, mask = gathered_kv(torch, cache, slots, ctx[:, None] - 1, None)
+        qs = q[:, :, None]
+        res.update(kernel_times(call, lambda: paged_decode_plain(
+            q, cache, slots, scale), lambda: sdpa(
+            qs, k, v, attn_mask=mask, enable_gqa=hq != hkv),
+            *paged_work(hq, hkv, d, int(ctx.sum()), int(ctx.sum()), b)))
+        print(f"  heads decode {geo} times: paged_decode_attention "
+              f"{res['ms']:.4f} ms (bound {res['bound_ms']:.4f} ms, "
+              f"{res['bound_by']}); plain {res['plain_ms']:.4f} ms; "
+              f"scaled_dot_product_attention over the gathered, dequantized "
+              f"K/V {res['library_ms']:.4f} ms")
+        del k, v, mask
+    out["h6"][f"d={d} G={g} ps={ps}"] = res
+    del cache, q, o, ref, oracle, controls, o_part, lse, merged
+
+    c = HEADS_CHUNK
+    cache, q, slots, hist = make_paged_case(torch, dev, b, hq, hkv, d, ps,
+                                            HEADS_PAGED_LENS, max_len,
+                                            seed=d + 1, chunk=c)
+    call = lambda: paged_extend_attention(q, cache, slots)  # noqa: E731
+    o = counted_call(torch, call, launches_only(h6e=1))
+    ref = paged_extend_plain(q, cache, slots, scale)
+    rows = [0, c // 2, c - 1]
+    oracle = np.stack([band_oracle(q[s, rows], cache, s,
+                                   [int(n) + i for i in rows], None)
+                       for s, n in enumerate(hist)])
+    with newest_token_hidden(cache, slots):
+        controls = {"every row's own key hidden": paged_extend_plain(
+            q, cache, slots, scale)}
+    err = paged_check(f"heads extend {geo} C={c} history {hist.min()}.."
+                      f"{hist.max()}", o, ref,
+                      (o[:, rows].float().cpu().numpy(), oracle), controls,
+                      EXTEND_O_TOL)
+    res = {"max_abs_err": err}
+    if timed:
+        pos = hist[:, None] + np.arange(c)[None]
+        pairs = int((pos + 1).sum())
+        k, v, mask = gathered_kv(torch, cache, slots, pos, None)
+        qs = q.transpose(1, 2)
+        res.update(kernel_times(call, lambda: paged_extend_plain(
+            q, cache, slots, scale), lambda: sdpa(
+            qs, k, v, attn_mask=mask, enable_gqa=hq != hkv),
+            *paged_work(hq, hkv, d, pairs, int((hist + c).sum()), b * c)))
+        print(f"  heads extend {geo} times: H6-extend {res['ms']:.4f} ms "
+              f"(bound {res['bound_ms']:.4f} ms, {res['bound_by']}); plain "
+              f"{res['plain_ms']:.4f} ms; scaled_dot_product_attention over "
+              f"the gathered, dequantized K/V {res['library_ms']:.4f} ms")
+        del k, v, mask
+    out["h6e"][f"d={d} G={g} ps={ps}"] = res
+
+
+def heads_scheduler(torch, dev, cfg, ps):
+    """The continuous-batching scheduler at a model's attention geometry:
+    its one-step gate (SCHED_TOL of the f64 oracle over the dequantized
+    cache, the newest token hidden beyond it), then HEADS_SCHED_REQUESTS
+    requests run twice, the step's CUDA graph replayed (counters: one
+    H6-decode launch a step) and the fused step eager, every step's output
+    bitwise equal, the completion map right and every page back."""
+    from exploring_flash_attention_tpu_torch.oracle import naive_attention
+    from exploring_flash_attention_tpu_torch.serving import (
+        ContinuousBatchingScheduler,
+        Request,
+        gather_kv,
+    )
+    from exploring_flash_attention_tpu_torch.serving.scheduler import (
+        _fused_step,
+    )
+
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=gen, device=dev,  # noqa: E731
+                                dtype=torch.bfloat16)
+    step = (mk(hq, d), mk(hkv, d), mk(hkv, d))
+    gs = ContinuousBatchingScheduler(hq, hkv, d, n_pages=8, page_size=ps,
+                                     max_seqs=2, device=dev)
+    gs.submit(Request(0, mk(256, hkv, d), mk(256, hkv, d), 2,
+                      lambda i: step))
+    (rid, out0), = gs.step()
+    kd, vd = gather_kv(gs.cache, 0)                 # [Hkv, L, d]
+    q3 = step[0].float().view(hkv, hq // hkv, d).cpu()
+    err = float(np.abs(out0 - naive_attention(q3, kd, vd).reshape(
+        hq, d)).max())
+    err_bad = float(np.abs(out0 - naive_attention(
+        q3, kd[:, :-1], vd[:, :-1]).reshape(hq, d)).max())
+    print(f"  heads scheduler Hq={hq} Hkv={hkv} d={d} ps={ps} gate: one step "
+          f"over a 256-token prompt, max|dO| vs the f64 oracle {err:.3e} "
+          f"(limit {SCHED_TOL:g}); control (newest token hidden) "
+          f"{err_bad:.3e}")
+    _require(rid == 0 and err < SCHED_TOL, "heads scheduler fails its gate")
+    _require(err_bad > SCHED_TOL, "the heads gate cannot tell a wrong step")
+    del gs
+
+    reqs = []
+    for r in range(HEADS_SCHED_REQUESTS):
+        pl = HEADS_SCHED_PROMPTS[r % len(HEADS_SCHED_PROMPTS)]
+        st = (mk(hq, d), mk(hkv, d), mk(hkv, d))
+        reqs.append(Request(r, mk(pl, hkv, d), mk(pl, hkv, d),
+                            HEADS_SCHED_NEW[r % len(HEADS_SCHED_NEW)],
+                            lambda i, st=st: st))
+    longest = max(HEADS_SCHED_PROMPTS) + max(HEADS_SCHED_NEW)
+    per_seq = -(-longest // ps)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        sched = ContinuousBatchingScheduler(
+            hq, hkv, d, n_pages=HEADS_SCHED_SLOTS * per_seq, page_size=ps,
+            max_seqs=HEADS_SCHED_SLOTS, max_pages_per_seq=per_seq,
+            device=dev)
+        if mode == "eager":
+            def eager(sched=sched):
+                b = sched._bufs
+                return _fused_step(sched.cache, b.q, b.k, b.v,
+                                   b.append_ids, b.decode_slots)
+            sched._run_fused_step = eager
+        zero_counters()
+        for r in reqs[:4]:
+            sched.submit(r)
+        arrival, steps, tokens, outs = 4, 0, 0, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while sched.pending or sched.active or arrival < len(reqs):
+            if steps % 8 == 0 and steps and arrival < len(reqs):
+                for r in reqs[arrival:arrival + 2]:
+                    sched.submit(r)
+                arrival = min(arrival + 2, len(reqs))
+            rids, o = sched.step(sync=False)
+            if o is not None:
+                outs.append(o)
+                tokens += len(rids)
+            steps += 1
+            _require(steps < 2000, "the heads scheduler did not converge")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        _require(launches == launches_only(h6=steps),
+                 f"heads scheduler {mode} launches {launches}, expected "
+                 f"H6-decode {steps}")
+        _require(sched.completed == {r.rid: r.max_new_tokens for r in reqs},
+                 f"heads scheduler {mode}: completion map {sched.completed}")
+        _require(sched.allocator.free_pages == sched.allocator.n_pages,
+                 f"heads scheduler {mode}: pages not returned")
+        runs[mode] = {"steps": steps, "tokens": tokens,
+                      "tokens_s": tokens / wall, "launches": launches,
+                      "outs": outs}
+        print(f"  heads scheduler {mode} step: {tokens} tokens in {steps} "
+              f"steps, {tokens / wall:.1f} tokens/s (the first step builds "
+              f"and captures included); launches {launches}")
+        del sched
+    same = [torch.equal(a, b) for a, b in zip(runs["graphed"].pop("outs"),
+                                              runs["eager"].pop("outs"))]
+    print(f"  heads scheduler: graphed vs eager step outputs bitwise equal in "
+          f"{sum(same)}/{len(same)} steps")
+    _require(same and all(same) and runs["graphed"]["steps"]
+             == runs["eager"]["steps"], "a replayed heads step differs from "
+             "the eager step")
+    return runs
+
+
+def phase_heads(torch, dev):
+    """The serving kernels at the head geometries the JAX model takes
+    beyond the flagship's (HEADS_*): H1 (every mask with the LSE, KV
+    spans), H2, H6-decode and H6-extend against their plain versions and
+    the f64 oracle beside known-wrong controls, timed at d 80 and 256; then
+    two models at the flagship's widths with another attention geometry
+    (HEADS_MODELS) served end to end as the slice and multiturn phases
+    serve the flagship (generate on [8, 256] prompts, a 256-token second
+    turn; counters, the graphed tokens bitwise the eager loop's, tokens
+    against the full forward, the cache against the stream), and
+    heads80g16 through the continuous-batching scheduler."""
+    out = {"h1": {}, "h2": {}, "h6": {}, "h6e": {}, "models": {}}
+    for d in HEADS_H1_DIMS:
+        heads_h1(torch, dev, d, out)
+    for d, hq, hkv, ps in HEADS_PAGED:
+        heads_paged(torch, dev, d, hq, hkv, ps, out)
+    for name, geo in HEADS_MODELS.items():
+        geo = dict(geo)
+        ps = geo.pop("page_size")
+        lm = make_flagship(torch, dev, name, ps, **geo)
+        print(f"  {name}: the flagship's widths with n_heads "
+              f"{lm.cfg.n_heads}, n_kv_heads {lm.cfg.n_kv_heads}, d_head "
+              f"{lm.cfg.d_head}, page size {ps}")
+        launches, gen = phase_slice(torch, dev, lm)
+        turn2, tok2 = phase_multiturn(torch, dev, lm)
+        out["models"][name] = {"generate_launches": launches,
+                               "turn_2_launches": turn2,
+                               "tokens_s": gen["tokens_s"],
+                               "eager_tokens_s": gen["eager_tokens_s"],
+                               "turn_2_tokens_s": tok2}
+        if name == "heads80g16":
+            out["models"][name]["scheduler"] = heads_scheduler(
+                torch, dev, lm.cfg, ps)
+        del lm
+    print("phase heads: ok")
+    return out
+
+
 # the phases `--only` takes (a quicker call while a phase is worked on; the
 # full run, with no arguments, runs every phase and prints the kernels line)
 PHASES = ("h1", "v1", "tiles", "v2", "quant", "dtiled", "decode", "extend",
-          "scheduler", "bwd", "slice", "multiturn", "speculative", "train",
-          "encoder", "seq2seq", "parallel", "window_train",
+          "scheduler", "bwd", "slice", "multiturn", "speculative", "heads",
+          "train", "encoder", "seq2seq", "parallel", "window_train",
           "window_generate", "time_kernels")
 
 
@@ -4524,6 +4964,19 @@ def run_only(torch, dev, names):
             fn(torch, dev, lm)
         else:
             fn(torch, dev)
+
+
+def heads_launches(heads, kern):
+    """A kernel's launches on the heads phase's paths: each model's
+    generate and second turn, and heads80g16's scheduler step."""
+    out = {}
+    for name, m in heads["models"].items():
+        out[f"{name}_generate"] = m["generate_launches"][kern]
+        out[f"{name}_turn_2"] = m["turn_2_launches"][kern]
+        if "scheduler" in m:
+            g = m["scheduler"]["graphed"]
+            out[f"{name}_scheduler_step"] = g["launches"][kern] / g["steps"]
+    return out
 
 
 def main(argv) -> int:
@@ -4572,6 +5025,7 @@ def main(argv) -> int:
     turn2, _ = phase_multiturn(torch, dev, lm)
     spec = phase_speculative(torch, dev, lm)
     del lm
+    heads = phase_heads(torch, dev)
     train, _ = phase_train(torch, dev)
     encoder, _ = phase_encoder(torch, dev)
     s2s = phase_seq2seq(torch, dev)
@@ -4590,7 +5044,8 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [
         # H1's numbers are the v1 phase's: its main call at bench.py's
         # canonical shape, and its times there
-        {"name": "H1 attention forward (none, causal, window; d 32/64/128)",
+        {"name": "H1 attention forward (none, causal, window; d a multiple "
+                 "of 16 from 16 to 256)",
          "route": "cuda", "source": H1_SRC, "replaces": f"{V1_PY}:1139",
          "also_replaces": [f"{V1_PY}:{n}" for n in (387, 213, 489, 901,
                                                      1261, 1357)]
@@ -4614,7 +5069,9 @@ def main(argv) -> int:
                               "sharded_train_step":
                                   par["sharded"]["launches"]["h1"],
                               "ring_forward_per_rank": ring_launches(
-                                  par, "forward_per_rank", "h1")},
+                                  par, "forward_per_rank", "h1"),
+                              **heads_launches(heads, "h1")},
+         "by_head_dim": heads["h1"],
          "device_offsets": device_offset_readings(par, "h1"),
          "seq2seq_cross_shape": t["seq2seq_cross"]["h1"],
          "window_train_shape": {m: t["window_train_shape"][m]["h1"]
@@ -4677,7 +5134,9 @@ def main(argv) -> int:
                               "slice": launches["h2"],
                               "multiturn_turn_2": turn2["h2"],
                               "window_generate_turn_1": wturn1["h2"],
-                              "window_generate_turn_2": wturn2["h2"]},
+                              "window_generate_turn_2": wturn2["h2"],
+                              **heads_launches(heads, "h2")},
+         "by_head_dim": heads["h2"],
          "decode_merge_ms": {n: x["merge_ms"] for n, x in h6.items()},
          "decode_merge_bound_ms": {n: x["merge_bound_ms"]
                                    for n, x in h6.items()},
@@ -4686,8 +5145,10 @@ def main(argv) -> int:
          "decode_h2_ms": {n: x["h2_ms"] for n, x in h6.items()}},
         # H6's numbers are the slice's and the multi-turn's cases; by_case
         # holds every case of the decode and extend phases
-        {"name": "H6-decode paged INT8 decode attention (window; split "
-                 "across the SMs, the runs merged in its last block)",
+        {"name": "H6-decode paged INT8 decode attention (window; d a "
+                 "multiple of 16 from 16 to 256, any group, pages a multiple "
+                 "of 128; split across the SMs, the runs merged in its last "
+                 "block)",
          "route": "cuda", "source": H6_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:74",
          "launches": launches["h6"],
@@ -4711,8 +5172,15 @@ def main(argv) -> int:
                               "window_generate_turn_1": wturn1["h6"],
                               "window_generate_turn_2": wturn2["h6"],
                               "spec_generate": spec_rand["launches"]["h6"],
-                              "distill_draft": distill["h6"]}},
-        {"name": "H6-extend paged INT8 chunked-prefill attention (window)",
+                              "distill_draft": distill["h6"],
+                              **heads_launches(heads, "h6")},
+         "by_head_dim": heads["h6"],
+         "heads_models": {n: {k: x[k] for k in ("tokens_s", "eager_tokens_s",
+                                                "turn_2_tokens_s")}
+                          for n, x in heads["models"].items()}},
+        {"name": "H6-extend paged INT8 chunked-prefill attention (window; d "
+                 "a multiple of 16 from 16 to 256, any group, pages a "
+                 "multiple of 128)",
          "route": "cuda", "source": H6E_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:257",
          "also_replaces": "exploring_flash_attention_tpu/serving/decode.py:455",
@@ -4723,7 +5191,9 @@ def main(argv) -> int:
                               "spec_generate": spec_rand["launches"]["h6e"],
                               "spec_generate_self": spec_self["h6e"],
                               "spec_generate_distilled":
-                                  spec_dist["launches"]["h6e"]},
+                                  spec_dist["launches"]["h6e"],
+                              **heads_launches(heads, "h6e")},
+         "by_head_dim": heads["h6e"],
          "speculative": spec},
         # H3's numbers are the training shape's, causal as the train step
         # runs it; "none" holds them without a mask, as the encoder step

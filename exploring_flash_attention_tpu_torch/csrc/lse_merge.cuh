@@ -9,9 +9,13 @@
 //   w_k = exp(lse_k - m) / sum_j exp(lse_j - m)   (a zero sum taken as 1)
 //   O = sum_k w_k O_k          in f32, rounded once by the caller.
 //
-// Layout.  A row of D = 4L columns is owned by a group of L lanes of one
-// warp (L = 8, 16 or 32: 4, 2 or 1 rows a warp), lane j holding columns
-// 4j .. 4j + 3, read as one 16-byte load per partial.  The row's LSEs are
+// Layout.  A row of d columns (a multiple of 4) is owned by a group of L
+// lanes of one warp (L a power of two up to 32: 32 / L rows a warp), lane j
+// holding NV chunks of 4 columns, chunk v at columns 4 (j + L v) .. + 3,
+// each read as one 16-byte load per partial; a chunk at or past d is idle
+// (no load, no store; it adds nothing).  At d = 4L (d = 32, 64, 128) that
+// is one chunk a lane, none idle; at d = 80 one chunk on 32 lanes, 20 of
+// them busy; at d = 256 two chunks on 32 lanes.  The row's LSEs are
 // read once, lse_k by lane k % L of the group; the max and the sum reduce
 // by shuffles within the group, and each weight, computed once by the lane
 // that read its LSE, reaches the other lanes by __shfl_sync.  No LSE is
@@ -19,10 +23,10 @@
 // 16-byte loads are in flight before the first FMA; the first four are
 // issued beside the LSE load, ahead of the reductions.
 //
-// More than L partials are taken L at a time (a chunk); the running max
-// rescales the sum and O of the earlier chunks as in an online softmax,
-// and the last chunk folds 1 / sum into its weights.  With nkb <= L (one
-// chunk) this is exactly w_k = exp(lse_k - m) * inv as above.
+// More than L partials are taken L at a time (a round); the running max
+// rescales the sum and O of the earlier rounds as in an online softmax,
+// and the last round folds 1 / sum into its weights.  With nkb <= L (one
+// round) this is exactly w_k = exp(lse_k - m) * inv as above.
 
 #pragma once
 
@@ -75,72 +79,100 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// Partials u < cnt (cnt <= U) of this lane's 4 columns, from row `r` on
-// in steps of `stride` rows of D floats; zeros past cnt.
-template <int L, int U, bool kL2>
-__device__ __forceinline__ void merge_load_group(float4 (&v)[U],
-                                                 const float* col, size_t r,
-                                                 size_t stride, int cnt) {
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-    v[u] = u < cnt ? merge_load4<kL2>(col + (r + u * stride) * (4 * L))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+// Whether this lane's chunk v of a row of d columns holds columns.
+template <int L>
+__device__ __forceinline__ bool merge_chunk(int v, int d) {
+  return 4 * (int(threadIdx.x % L) + L * v) < d;
 }
 
-// The merged f32 O of one row, this lane's 4 columns.  Partial k of the row
-// is row `first + k * stride` of o_part [.., D] and of lse.  Every lane of
-// the warp calls it with the same nkb (the shuffles take the whole warp);
-// a lane whose row does not exist passes a row that does and drops the
-// result.
-template <int L, int U, bool kL2>
-__device__ __forceinline__ float4 lse_merge_row(const float* __restrict__ o_part,
-                                                const float* __restrict__ lse,
-                                                size_t first, size_t stride,
-                                                int nkb) {
+// Partials u < cnt (cnt <= U) of this lane's chunks, from row `r` on in
+// steps of `stride` rows of d floats; zeros past cnt and in idle chunks.
+template <int L, int NV, int U, bool kL2>
+__device__ __forceinline__ void merge_load_group(float4 (&v)[U][NV],
+                                                 const float* col, size_t r,
+                                                 size_t stride, int cnt,
+                                                 int d) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      v[u][c] = u < cnt && merge_chunk<L>(c, d)
+                    ? merge_load4<kL2>(col + (r + u * stride) * d + 4 * L * c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The merged f32 O of one row, this lane's NV chunks (zero where idle).
+// Partial k of the row is row `first + k * stride` of o_part [.., d] and
+// of lse.  Every lane of the warp calls it with the same nkb (the shuffles
+// take the whole warp); a lane whose row does not exist passes a row that
+// does and drops the result.
+template <int L, int NV, int U, bool kL2>
+__device__ __forceinline__ void lse_merge_row(float4 (&acc)[NV],
+                                              const float* __restrict__ o_part,
+                                              const float* __restrict__ lse,
+                                              size_t first, size_t stride,
+                                              int nkb, int d) {
   const int j = threadIdx.x % L;        // this lane's place in its group
   const float* col = o_part + 4 * j;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int c = 0; c < NV; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   float m = -CUDART_INF_F, den = 0.f;
   for (int c0 = 0; c0 < nkb; c0 += L) {
-    const int n = min(L, nkb - c0);     // partials in this chunk
+    const int n = min(L, nkb - c0);     // partials in this round
     const size_t r0 = first + size_t(c0) * stride;
     const float x = j < n ? merge_load<kL2>(lse + r0 + size_t(j) * stride)
                           : -CUDART_INF_F;
-    float4 v[U];
-    merge_load_group<L, U, kL2>(v, col, r0, stride, min(n, U));
+    float4 v[U][NV];
+    merge_load_group<L, NV, U, kL2>(v, col, r0, stride, min(n, U), d);
     const float m_new = fmaxf(m, group_max<L>(x));
     const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
     float w = expf(x - m_use);          // 0 where lse_k is -inf
     float alpha = expf(m - m_use);      // 0 before the first finite lse
     den = den * alpha + group_sum<L>(w);
     m = m_new;
-    if (c0 + L >= nkb) {                // the last chunk: fold in 1 / sum
+    if (c0 + L >= nkb) {                // the last round: fold in 1 / sum
       const float inv = 1.f / (den == 0.f ? 1.f : den);
       w *= inv;
       alpha *= inv;
     }
-    acc.x *= alpha;
-    acc.y *= alpha;
-    acc.z *= alpha;
-    acc.w *= alpha;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      acc[c].x *= alpha;
+      acc[c].y *= alpha;
+      acc[c].z *= alpha;
+      acc[c].w *= alpha;
+    }
     for (int i = 0;;) {
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float wu = __shfl_sync(0xffffffffu, w, min(i + u, n - 1), L);
         const float wk = i + u < n ? wu : 0.f;
-        acc.x = fmaf(wk, v[u].x, acc.x);
-        acc.y = fmaf(wk, v[u].y, acc.y);
-        acc.z = fmaf(wk, v[u].z, acc.z);
-        acc.w = fmaf(wk, v[u].w, acc.w);
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          acc[c].x = fmaf(wk, v[u][c].x, acc[c].x);
+          acc[c].y = fmaf(wk, v[u][c].y, acc[c].y);
+          acc[c].z = fmaf(wk, v[u][c].z, acc[c].z);
+          acc[c].w = fmaf(wk, v[u][c].w, acc[c].w);
+        }
       }
       i += U;
       if (i >= n) break;
-      merge_load_group<L, U, kL2>(v, col, r0 + size_t(i) * stride, stride,
-                                  min(n - i, U));
+      merge_load_group<L, NV, U, kL2>(v, col, r0 + size_t(i) * stride,
+                                      stride, min(n - i, U), d);
     }
   }
-  return acc;
 }
+
+// The lanes per row and 16-byte chunks per lane of a row of D columns: the
+// smallest power of two of lanes (at most 32) that hold D / 4 chunks.
+template <int D>
+struct MergeRow {
+  static constexpr int CHUNKS = D / 4;
+  static constexpr int L = CHUNKS > 16 ? 32 : CHUNKS > 8 ? 16
+                         : CHUNKS > 4 ? 8 : 4;
+  static constexpr int NV = (CHUNKS + L - 1) / L;
+  static_assert(D % 16 == 0 && D <= 256, "d is a multiple of 16 up to 256");
+};
 
 // Four f32 values rounded to bf16 and written as one 8-byte store.
 __device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 v) {

@@ -24,10 +24,11 @@
 // pallas_call and so is this).  With n_split == 1 the block writes its
 // normalized bf16 O [B, Hq, d] directly: no partial, no ticket.  Otherwise
 // every block, whatever its run saw, writes its partial, then arrives on
-// the ticket of its (batch row, KV head): after a barrier, thread 0
-// fences (release) and adds 1 to tickets[b * Hkv + kh].  The block that
-// draws n_split - 1 is the last: it fences (acquire), reads the n_split
-// partials of its G rows through L2 (L1 is not coherent across SMs),
+// the ticket of its (batch row, KV head, group chunk): after a barrier,
+// thread 0 fences (release) and adds 1 to tickets[b * grid.y +
+// blockIdx.y].  The block that draws n_split - 1 is the last: it fences
+// (acquire), reads the n_split partials of its G rows through L2 (L1 is
+// not coherent across SMs),
 // merges them with lse_merge.cuh (H2's arithmetic) into bf16 O, and
 // stores 0 back to the ticket, so the buffer is zero for the next launch
 // with no host work and no memset (a CUDA graph replays it as it is).  A
@@ -42,9 +43,9 @@
 // V row of d bytes and two f32 scales per KV head: 138 MB at the JAX
 // suite's decode entry (B=32, Hkv=8, d=128, 2048 tokens), 0.041 ms at
 // 3.35 TB/s, against 4 flops per (q head, token, d).  The block holds its
-// G <= 8 q heads' rows in registers and stages the pages with 1-D TMA:
-//   - the run is cut into tiles of 128 tokens (a page of 128 or 256 is one
-//     or two), each tile being four contiguous slabs: K and V codes
+// G <= GMAX q heads' rows in registers and stages the pages with 1-D TMA:
+//   - the run is cut into tiles of 128 tokens (a page of ps tokens is
+//     ps / 128 of them), each tile being four contiguous slabs: K and V codes
 //     (128 * d bytes each) and their scales (512 bytes each), which
 //     thread 0 brings into a ring of three stages with cp.async.bulk on
 //     an mbarrier, so the next two tiles are in flight while one is
@@ -62,6 +63,19 @@
 //     owning d / 32 columns of every q row (one 4-byte shared load of V
 //     per token), O rescaled by alpha per tile; the four warps' sums meet
 //     in shared memory at the end.
+//
+// Head dims and groups.  d is any multiple of 16 from 16 to 256, on
+// instances D = 32, 64, 128 and 256 (the smallest D >= d): a token's row is
+// d bytes in the pages and in the ring, S takes D / 16 lanes a token of
+// which the first d / 16 hold q (the rest hold zeros and add zeros to the
+// shuffle tree: 5 of 8 busy at d=80), and P V's lane owns D / 32 columns,
+// those past d computed on whatever finite codes follow and never stored.
+// Neither loop tests d.
+// A GQA group larger than the instance's GMAX (8; 4 at D=256, whose O
+// columns take twice the registers) is cut into chunks of GMAX q heads,
+// one block each (grid.y = Hkv * chunks): each chunk streams the run's
+// bytes again, mostly from L2, and draws its own ticket.  Any page size
+// that is a multiple of 128 holds whole tiles.
 //
 // Layout, per serving/kv_cache.py of the port: pages int8
 // [n_pages, 2, Hkv, ps, d] (0 = K, 1 = V), scales f32 [n_pages, 2, Hkv, 1, ps].
@@ -85,10 +99,14 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int MERGE_UNROLL = 8;  // 16-byte loads in flight a lane, merging
 
+// the q heads of a block at instance D: a larger group is cut into chunks
+template <int D>
+constexpr int group_cap() { return D == 256 ? 4 : 8; }
+
 // Shared memory of one block: the ring (K codes, V codes, K scales, V
-// scales per stage), S [GMAX][TILE], P * v_scale [TILE][GMAX], alpha, m,
-// l of each q row, the ticket drawn, the barriers.  The four warps' O sums
-// reuse the ring.
+// scales per stage; the codes [TILE][d], d <= D), S [GMAX][TILE], P *
+// v_scale [TILE][GMAX], alpha, m, l of each q row, the ticket drawn, the
+// barriers.  The four warps' O sums reuse the ring.
 template <int D, int GMAX>
 struct Smem {
   static constexpr uint32_t CODES = TILE * D;
@@ -117,20 +135,24 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D, int GMAX, bool FUSED>
+// EXACT: d = D and the group is one chunk, so the instance's d and its
+// block's q heads compile as constants, as an instance of that d alone
+// would have them; the other instances read d and the chunk at run time.
+template <int D, int GMAX, bool FUSED, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
-                    const int8_t* __restrict__ pages,      // [n_pages, 2, Hkv, ps, D]
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, d]
+                    const int8_t* __restrict__ pages,      // [n_pages, 2, Hkv, ps, d]
                     const float* __restrict__ scales,      // [n_pages, 2, Hkv, 1, ps]
                     const int* __restrict__ page_table,    // [max_seqs, max_pages]
                     const int* __restrict__ seq_lens,      // [max_seqs]
                     const int* __restrict__ slots,         // [B]
-                    float* __restrict__ o_part,            // [B, Hq, n_split, 1, D]
+                    float* __restrict__ o_part,            // [B, Hq, n_split, 1, d]
                     float* __restrict__ lse,               // [B, Hq, n_split, 1]
-                    __nv_bfloat16* __restrict__ o,         // [B, Hq, D] (FUSED)
-                    int* __restrict__ tickets,             // [B * Hkv] (FUSED)
-                    int hq, int hkv, int ps, int max_pages, int max_seqs,
-                    int window, int pages_per_split, float scale_log2) {
+                    __nv_bfloat16* __restrict__ o,         // [B, Hq, d] (FUSED)
+                    int* __restrict__ tickets,             // [B * grid.y] (FUSED)
+                    int hq, int hkv, int d_arg, int ps, int max_pages,
+                    int max_seqs, int window, int pages_per_split,
+                    float scale_log2) {
   using S = Smem<D, GMAX>;
   constexpr int LPT = D / 16;          // lanes per token in S = q K^T
   constexpr int TPI = THREADS / LPT;   // tokens per pass of the block
@@ -143,10 +165,18 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
   float* s_l = s_m + GMAX;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::bars);
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
   const int n_split = gridDim.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int group = hq / hkv;
+  const int d = EXACT ? D : d_arg;
+  // the chunk of the GQA group (GMAX q heads each) and its KV head
+  const int chunks = EXACT ? 1 : gridDim.y / hkv;
+  const int kh = EXACT ? int(blockIdx.y) : blockIdx.y / chunks;
+  const int g0 = EXACT ? 0 : (blockIdx.y % chunks) * GMAX;
+  const int gn = EXACT ? group : min(GMAX, group - g0);  // its q heads
+  const size_t row0 = size_t(b) * hq + size_t(kh) * group + g0;  // q row
+  const uint32_t codes = uint32_t(TILE) * d;     // bytes of a code tile
 
   // this block's run: tokens [tok_begin, tok_end) of the sequence
   const int slot = slots[b];
@@ -170,9 +200,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
     uint64_t* bar = &full[i % STAGES];
     const size_t k_slab = (page * 2 * hkv + kh) * ps + off;   // K rows
     const size_t v_slab = k_slab + size_t(hkv) * ps;          // V rows
-    mbar_arrive_expect_tx(bar, S::STAGE);
-    bulk_load(st, pages + k_slab * D, S::CODES, bar);
-    bulk_load(st + S::CODES, pages + v_slab * D, S::CODES, bar);
+    mbar_arrive_expect_tx(bar, 2 * codes + 2 * TILE * 4);
+    bulk_load(st, pages + k_slab * d, codes, bar);
+    bulk_load(st + S::CODES, pages + v_slab * d, codes, bar);
     bulk_load(st + 2 * S::CODES, scales + k_slab, TILE * 4, bar);
     bulk_load(st + 2 * S::CODES + TILE * 4, scales + v_slab, TILE * 4, bar);
   };
@@ -183,16 +213,18 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
     for (int i = 0; i < STAGES && i < n_tiles; ++i) issue(i);
   }
 
-  // this lane's 16 columns of every q row of the group, in f32
+  // this lane's 16 columns of every q row of the chunk, in f32.  A lane
+  // past d holds zeros: the codes it reads (finite, from the tile's next
+  // rows) add exact zeros to S, and its P V columns are never stored, so
+  // neither loop tests d
   const int chunk = lane % LPT;
   float qr[GMAX][16];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) {
 #pragma unroll
     for (int e = 0; e < 16; ++e) qr[g][e] = 0.f;
-    if (g < group) {
-      const __nv_bfloat16* src =
-          q + (size_t(b) * hq + size_t(kh) * group + g) * D + chunk * 16;
+    if (g < gn && chunk * 16 < d) {
+      const __nv_bfloat16* src = q + (row0 + g) * d + chunk * 16;
       const uint4 raw[2] = {reinterpret_cast<const uint4*>(src)[0],
                             reinterpret_cast<const uint4*>(src)[1]};
       const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(raw);
@@ -221,7 +253,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
 
     // S = q K^T * k_scale * scale * log2(e), -inf outside the run's band
     for (int t = tid / LPT; t < TILE; t += TPI) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(k_s + t * D +
+      const uint4 raw = *reinterpret_cast<const uint4*>(k_s + t * d +
                                                         chunk * 16);
       const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
       float kf[16];
@@ -249,7 +281,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
         const float kc = ks_s[t] * scale_log2;
 #pragma unroll
         for (int g = 0; g < GMAX; ++g)
-          if (g < group) s_s[g * TILE + t] = vis ? dot[g] * kc : -CUDART_INF_F;
+          if (g < gn) s_s[g * TILE + t] = vis ? dot[g] * kc : -CUDART_INF_F;
       }
     }
     __syncthreads();
@@ -258,7 +290,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int g = warp + WARPS * r;
-      if (g >= group) continue;
+      if (g >= gn) continue;
       float x[TILE / 32];
       float mx = -CUDART_INF_F;
 #pragma unroll
@@ -287,22 +319,30 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
     // O = alpha O + P V over this warp's 32 tokens
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
-      const float a = g < group ? s_alpha[g] : 0.f;
+      const float a = g < gn ? s_alpha[g] : 0.f;
 #pragma unroll
       for (int c = 0; c < CPL; ++c) acc[g][c] *= a;
     }
     for (int t = warp * 32; t < warp * 32 + 32; ++t) {
       float vf[CPL];
-      if constexpr (CPL == 4) {
+      const int8_t* vrow = v_s + t * d + CPL * lane;
+      if constexpr (CPL == 8) {
+        const uint2 w = *reinterpret_cast<const uint2*>(vrow);
         float f[4];
-        s8x4_to_f32(*reinterpret_cast<const uint32_t*>(v_s + t * D + 4 * lane),
-                    f);
+        s8x4_to_f32(w.x, f);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) vf[c] = f[c];
+        s8x4_to_f32(w.y, f);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) vf[4 + c] = f[c];
+      } else if constexpr (CPL == 4) {
+        float f[4];
+        s8x4_to_f32(*reinterpret_cast<const uint32_t*>(vrow), f);
 #pragma unroll
         for (int c = 0; c < 4; ++c) vf[c] = f[c];
       } else {
-        const int8_t* v2 = v_s + t * D + 2 * lane;
-        vf[0] = float(v2[0]);
-        vf[1] = float(v2[1]);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) vf[c] = float(vrow[c]);
       }
       float pg[GMAX];
       if constexpr (GMAX >= 4) {
@@ -339,28 +379,28 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int g = warp + WARPS * r;
-      if (g < group) {
+      if (g < gn) {
         s_m[g] = m_row[r];
         s_l[g] = l_row[r];
       }
     }
   }
   __syncthreads();
-  const size_t row0 = size_t(b) * hq + size_t(kh) * group;  // first q head
   const bool direct = FUSED && n_split == 1;   // normalized bf16 O at once
-  for (int x = tid; x < group * D; x += THREADS) {
-    const int g = x / D, col = x % D;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += red[(w * GMAX + g) * D + col];
+  for (int g = 0; g < gn; ++g) {
     const float l = s_l[g];
-    const float val = sum / (l == 0.f ? 1.f : l);
-    if (direct)
-      o[(row0 + g) * D + col] = __float2bfloat16(val);
-    else
-      o_part[((row0 + g) * n_split + split) * D + col] = val;
+    for (int col = tid; col < d; col += THREADS) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) sum += red[(w * GMAX + g) * D + col];
+      const float val = sum / (l == 0.f ? 1.f : l);
+      if (direct)
+        o[(row0 + g) * d + col] = __float2bfloat16(val);
+      else
+        o_part[((row0 + g) * n_split + split) * d + col] = val;
+    }
   }
-  if (!direct && tid < group) {
+  if (!direct && tid < gn) {
     const float l = s_l[tid];
     lse[(row0 + tid) * n_split + split] =
         l == 0.f ? -CUDART_INF_F
@@ -369,7 +409,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
   if constexpr (FUSED) {
     if (direct) return;
     // arrive on the ticket once every thread's partial is written
-    int* ticket = tickets + size_t(b) * hkv + kh;
+    int* ticket = tickets + size_t(b) * gridDim.y + blockIdx.y;
     int* s_ticket = reinterpret_cast<int*>(smem + S::ticket);
     __syncthreads();
     if (tid == 0) {
@@ -381,19 +421,25 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
     }
     __syncthreads();
     if (*s_ticket != n_split - 1) return;
-    // the last block: merge the n_split partials of the group's rows, a
-    // row per D / 4 lanes, each lane 4 columns (lse_merge.cuh)
-    constexpr int L = D / 4;
+    // the last block: merge the n_split partials of the chunk's rows, a
+    // row per L lanes (lse_merge.cuh)
+    constexpr int L = eft::MergeRow<D>::L;
+    constexpr int NV = eft::MergeRow<D>::NV;
     constexpr int RPW = 32 / L;        // rows per warp
 #pragma unroll
-    for (int g0 = 0; g0 < GMAX; g0 += WARPS * RPW) {
-      const int gw = g0 + warp * RPW;  // this warp's first row
-      if (gw >= group) continue;       // the whole warp: its shuffles agree
+    for (int gb = 0; gb < GMAX; gb += WARPS * RPW) {
+      const int gw = gb + warp * RPW;  // this warp's first row
+      if (gw >= gn) continue;          // the whole warp: its shuffles agree
       const int g = gw + lane / L;
-      const size_t r = row0 + min(g, group - 1);
-      const float4 acc = eft::lse_merge_row<L, MERGE_UNROLL, true>(
-          o_part, lse, r * n_split, 1, n_split);
-      if (g < group) eft::store_bf16x4(o + r * D + 4 * (lane % L), acc);
+      const size_t r = row0 + min(g, gn - 1);
+      float4 merged[NV];
+      eft::lse_merge_row<L, NV, MERGE_UNROLL, true>(
+          merged, o_part, lse, r * n_split, 1, n_split, d);
+      if (g >= gn) continue;
+#pragma unroll
+      for (int c = 0; c < NV; ++c)
+        if (eft::merge_chunk<L>(c, d))
+          eft::store_bf16x4(o + r * d + 4 * (lane % L + L * c), merged[c]);
     }
     if (tid == 0) *ticket = 0;         // zero again for the next launch
   }
@@ -403,38 +449,57 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, D]
 struct Args {
   const void *q, *pages, *scales, *page_table, *seq_lens, *slots;
   void *o_part, *lse, *o, *tickets;
-  int batch, hq, hkv, ps, max_pages, max_seqs, window, n_split,
+  int batch, hq, hkv, d, ps, max_pages, max_seqs, window, n_split,
       pages_per_split;
   float scale;
 };
 
-template <int D, int GMAX, bool FUSED>
+template <int D, int GMAX, bool FUSED, bool EXACT>
 int launch(const Args& a, cudaStream_t stream) {
   using S = Smem<D, GMAX>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_kernel<D, GMAX, FUSED>,
+      paged_decode_kernel<D, GMAX, FUSED, EXACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::bytes));
   if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(a.n_split, a.hkv, a.batch);
-  paged_decode_kernel<D, GMAX, FUSED><<<grid, THREADS, S::bytes, stream>>>(
+  const int chunks = (a.hq / a.hkv + GMAX - 1) / GMAX;
+  const dim3 grid(a.n_split, a.hkv * chunks, a.batch);
+  paged_decode_kernel<D, GMAX, FUSED, EXACT>
+      <<<grid, THREADS, S::bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const int8_t*>(a.pages), static_cast<const float*>(a.scales),
       static_cast<const int*>(a.page_table),
       static_cast<const int*>(a.seq_lens), static_cast<const int*>(a.slots),
       static_cast<float*>(a.o_part), static_cast<float*>(a.lse),
       static_cast<__nv_bfloat16*>(a.o), static_cast<int*>(a.tickets), a.hq,
-      a.hkv, a.ps, a.max_pages, a.max_seqs, a.window, a.pages_per_split,
+      a.hkv, a.d, a.ps, a.max_pages, a.max_seqs, a.window, a.pages_per_split,
       a.scale * 1.4426950408889634f);
   return int(cudaGetLastError());
 }
 
+template <int D, int GMAX, bool FUSED>
+int launch_exact(const Args& a, cudaStream_t stream) {
+  if (a.d == D && a.hq / a.hkv <= GMAX)
+    return launch<D, GMAX, FUSED, true>(a, stream);
+  return launch<D, GMAX, FUSED, false>(a, stream);
+}
+
+// GMAX: the group rounded up to 1, 2, 4 or 8, at most group_cap<D>()
 template <int D, bool FUSED>
 int launch_group(const Args& a, cudaStream_t stream) {
   const int group = a.hq / a.hkv;
-  if (group == 1) return launch<D, 1, FUSED>(a, stream);
-  if (group == 2) return launch<D, 2, FUSED>(a, stream);
-  if (group <= 4) return launch<D, 4, FUSED>(a, stream);
-  return launch<D, 8, FUSED>(a, stream);
+  if (group == 1) return launch_exact<D, 1, FUSED>(a, stream);
+  if (group == 2) return launch_exact<D, 2, FUSED>(a, stream);
+  if (group <= 4 || group_cap<D>() == 4)
+    return launch_exact<D, 4, FUSED>(a, stream);
+  if constexpr (group_cap<D>() == 8)
+    return launch_exact<D, 8, FUSED>(a, stream);
+  return int(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch_fused(const Args& a, int fused, cudaStream_t stream) {
+  return fused ? launch_group<D, true>(a, stream)
+               : launch_group<D, false>(a, stream);
 }
 
 }  // namespace
@@ -442,9 +507,11 @@ int launch_group(const Args& a, cudaStream_t stream) {
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // serving/decode.py has already checked shapes, dtypes, contiguity and
 // alignment and planned the split; the checks here only refuse what would
-// index out of bounds.  window: 0 for none.  fused: 1 merges the runs into
-// bf16 o [B, Hq, d] (o_part and lse are then the workspace, tickets B * Hkv
-// zeroed ints); 0 writes the partials only (o and tickets unused).
+// index out of bounds.  d: a multiple of 16 from 16 to 256; page_size: a
+// multiple of 128.  window: 0 for none.  fused: 1 merges the runs into
+// bf16 o [B, Hq, d] (o_part and lse are then the workspace, tickets
+// B * Hkv * chunks zeroed ints, chunks = cdiv(group, 8), or cdiv(group, 4)
+// at d > 128); 0 writes the partials only (o and tickets unused).
 extern "C" int eft_paged_decode(const void* q, const void* pages,
                                 const void* scales, const void* page_table,
                                 const void* seq_lens, const void* slots,
@@ -455,8 +522,10 @@ extern "C" int eft_paged_decode(const void* q, const void* pages,
                                 int pages_per_split, int fused, float scale,
                                 int device, void* stream) {
   const int group = hkv > 0 ? hq / hkv : 0;
-  if (batch <= 0 || batch > 65535 || hkv <= 0 || hkv > 65535 ||
-      hq % hkv != 0 || group > 8 || page_size % TILE != 0 || page_size <= 0 ||
+  const int cap = d > 128 ? 4 : 8;
+  if (batch <= 0 || batch > 65535 || hkv <= 0 || hq % hkv != 0 ||
+      int64_t(hkv) * ((group + cap - 1) / cap) > 65535 || d < 16 ||
+      d > 256 || d % 16 != 0 || page_size % TILE != 0 || page_size <= 0 ||
       max_pages <= 0 || int64_t(max_pages) * page_size > INT32_MAX ||
       window < 0 || n_split <= 0 || n_split > INT32_MAX / 65535 ||
       pages_per_split <= 0 ||
@@ -469,12 +538,10 @@ extern "C" int eft_paged_decode(const void* q, const void* pages,
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, pages, scales, page_table, seq_lens, slots, o_part, lse, o,
-               tickets, batch, hq, hkv, page_size, max_pages, max_seqs,
+               tickets, batch, hq, hkv, d, page_size, max_pages, max_seqs,
                window, n_split, pages_per_split, scale};
-  if (d == 64)
-    return fused ? launch_group<64, true>(a, s) : launch_group<64, false>(a, s);
-  if (d == 128)
-    return fused ? launch_group<128, true>(a, s)
-                 : launch_group<128, false>(a, s);
-  return int(cudaErrorInvalidValue);
+  if (d <= 32) return launch_fused<32>(a, fused, s);
+  if (d <= 64) return launch_fused<64>(a, fused, s);
+  if (d <= 128) return launch_fused<128>(a, fused, s);
+  return launch_fused<256>(a, fused, s);
 }

@@ -56,12 +56,28 @@
 //
 // Budget at d=128, as H4-kvq's: Q 32 KB, two converted stages of K and V
 // 128 KB, three code slots 48 KB, scales 2 KB.
+//
+// Head dims, groups and pages.  d is any multiple of 16 from 16 to 256, on
+// instances D = 64, 128 and 256 (the smallest D >= d): the code tiles are
+// loaded by TMA as boxes of D columns from the pages described with their
+// true d, so the columns past d arrive as zero codes, convert to zero K and
+// V, add nothing to S and give O columns that the epilogue does not store;
+// the consumers stage d columns of Q and zeros past them.  The padded work
+// is (D - d) / D of the products (37.5% at d=80).  At D=256 O takes 128
+// registers a consumer thread, so the K/V tile is 64 keys (S 32 + P 16 +
+// O 128 within the 224), and Q 64 KB + two converted stages 128 KB leave
+// room for two code slots (32 KB): 226 KB.  Any group: the chunk rows are
+// GQA-flattened (C * G rows), nothing else reads G.  Any page size that is
+// a multiple of 128: a tile of 128 (or 64) keys never straddles a page,
+// and the box is one tile of one page whatever the page's length.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "wgmma_tile.cuh"
 
@@ -70,9 +86,7 @@ namespace {
 using namespace eft::hopper;
 
 constexpr int BQ = 128;          // flattened chunk rows per block
-constexpr int BKV = 128;         // keys per K/V tile
 constexpr int STAGES = 2;        // converted K/V stages
-constexpr int SLOTS = 3;         // code slots, K and V tiles in turn
 constexpr int CONSUMERS = 2;     // warpgroups of 64 rows
 constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
 constexpr int CONVERTERS = 128;  // the whole producer warpgroup
@@ -85,11 +99,14 @@ constexpr int PRODUCER_REGS = 56;
 constexpr int CONSUMER_REGS = 224;
 
 // Shared memory of one block.  Q and the converted K and V are boxes of 64
-// bf16 columns (128-byte rows, the swizzle width) by 128 rows, box after
-// box; a code slot is a plain [128][D] tile of codes.  Each stage's scales:
-// k_scale * scale * log2e per key, then v_scale per key.
+// bf16 columns (128-byte rows, the swizzle width) by their rows, box after
+// box; a code slot is a plain [BKV][D] tile of codes.  Each stage's scales:
+// k_scale * scale * log2e per key, then v_scale per key.  K/V tiles of BKV
+// keys (128; 64 at D=256), SLOTS code slots (3; 2 at D=256).
 template <int D>
 struct Tiles {
+  static constexpr int BKV = D == 256 ? 64 : 128;
+  static constexpr int SLOTS = D == 256 ? 2 : 3;
   static constexpr int NBOX = D / 64;
   static constexpr uint32_t Q_BYTES = BQ * D * 2;
   static constexpr uint32_t CONV_BYTES = BKV * D * 2;
@@ -102,12 +119,20 @@ struct Tiles {
   static constexpr size_t scales = codes + size_t(SLOTS) * CODE_BYTES;
   static constexpr size_t bars = scales + size_t(STAGES) * SCALES * 4;
   static constexpr size_t bytes = bars + 8 * (SLOTS + 3 * STAGES) + 1024;
+  static_assert(bytes <= 232448, "the block's shared memory");
 };
 
+// O += P V of 16 keys; v_k is their rows of the converted V tile
+// (MN-major boxes of BKV rows)
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (D == 128)
+                                         const unsigned char* v_k) {
+  constexpr int BKV = Tiles<D>::BKV;
+  const uint64_t db = gmma_desc(v_k, BKV * 128, 1024, 128);
+  if constexpr (D == 256)
+    wgmma_rs_bf16_n256(o, a, db,
+                       gmma_desc(v_k + 2 * BKV * 128, BKV * 128, 1024, 128));
+  else if constexpr (D == 128)
     wgmma_rs_bf16_n128(o, a[0], a[1], a[2], a[3], db, 1);
   else
     wgmma_rs_bf16_n64(o, a[0], a[1], a[2], a[3], db, 1);
@@ -115,35 +140,41 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
 
 // S = Q K^T of one converted K tile (issued, not waited for)
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&acc_s)[BKV / 2],
+__device__ __forceinline__ void issue_qk(float (&acc_s)[Tiles<D>::BKV / 2],
                                          const unsigned char* q_wg,
                                          const unsigned char* k_s) {
+  constexpr int BKV = Tiles<D>::BKV;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int box = kk / 4, off = (kk % 4) * 32;
     const uint64_t da = gmma_desc(q_wg + box * BQ * 128 + off, 16, 1024, 128);
     const uint64_t db = gmma_desc(k_s + box * BKV * 128 + off, 16, 1024, 128);
-    if (kk == 0) wgmma_ss_bf16_n128_first(acc_s, da, db);
-    else wgmma_ss_bf16_n128(acc_s, da, db, 1);
+    if constexpr (BKV == 128) {
+      if (kk == 0) wgmma_ss_bf16_n128_first(acc_s, da, db);
+      else wgmma_ss_bf16_n128(acc_s, da, db, 1);
+    } else {
+      if (kk == 0) wgmma_ss_bf16_n64_first(acc_s, da, db);
+      else wgmma_ss_bf16_n64(acc_s, da, db, 1);
+    }
   }
 }
 
 // O += P V of one converted V tile, 16 keys a step (issued, not waited for)
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc_o)[D / 2],
-                                         const uint32_t (&pa)[BKV / 4],
+                                         const uint32_t (&pa)[Tiles<D>::BKV / 4],
                                          const unsigned char* v_s) {
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk)
-    wgmma_pv<D>(acc_o, &pa[4 * kk],
-                gmma_desc(v_s + kk * 16 * 128, BKV * 128, 1024, 128));
+  for (int kk = 0; kk < Tiles<D>::BKV / 16; ++kk)
+    wgmma_pv<D>(acc_o, &pa[4 * kk], v_s + kk * 16 * 128);
 }
 
 // The online softmax of one S tile, in registers: s * kc[col] (kc =
 // k_scale * scale * log2e of this thread's columns), the columns outside
 // each row's [lo, hi] masked unless the tile is whole, the new row max
 // (quad shuffles), p = exp2(s - m_use) in f32; alpha = exp2(m_old - m_use)
-__device__ __forceinline__ void softmax_exp(float (&acc_s)[BKV / 2],
+template <int N>
+__device__ __forceinline__ void softmax_exp(float (&acc_s)[N],
                                             float (&m)[2], float (&alpha)[2],
                                             bool whole, int col_base,
                                             const int (&lo)[2],
@@ -152,13 +183,13 @@ __device__ __forceinline__ void softmax_exp(float (&acc_s)[BKV / 2],
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
   if (whole) {
 #pragma unroll
-    for (int e = 0; e < BKV / 2; ++e) {
+    for (int e = 0; e < N; ++e) {
       acc_s[e] = acc_s[e] * kc[acc_col(e)];
       mx[acc_row8(e) / 8] = fmaxf(mx[acc_row8(e) / 8], acc_s[e]);
     }
   } else {
 #pragma unroll
-    for (int e = 0; e < BKV / 2; ++e) {
+    for (int e = 0; e < N; ++e) {
       const int r = acc_row8(e) / 8;
       const int col = col_base + acc_col(e);
       acc_s[e] = col >= lo[r] && col <= hi[r] ? acc_s[e] * kc[acc_col(e)]
@@ -175,25 +206,74 @@ __device__ __forceinline__ void softmax_exp(float (&acc_s)[BKV / 2],
     m[r] = m_new;
   }
 #pragma unroll
-  for (int e = 0; e < BKV / 2; ++e)
+  for (int e = 0; e < N; ++e)
     acc_s[e] = exp2_approx(acc_s[e] - m_use[acc_row8(e) / 8]);
 }
 
 // l = l * alpha + the f32 p (unscaled, as B21 sums it); P * v_scale packed
 // as the bf16 A fragment of P V (vs: this thread's columns' v_scale)
-__device__ __forceinline__ void pack_p(const float (&p)[BKV / 2],
-                                       uint32_t (&pa)[BKV / 4], float (&l)[2],
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&p)[N],
+                                       uint32_t (&pa)[N / 2], float (&l)[2],
                                        const float (&alpha)[2],
                                        const float* vs) {
   float psum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < BKV / 4; ++j) {
+  for (int j = 0; j < N / 2; ++j) {
     const int col = acc_col(2 * j);
     psum[j & 1] += p[2 * j] + p[2 * j + 1];
     pa[j] = pack_bf16x2(p[2 * j] * vs[col], p[2 * j + 1] * vs[col + 1]);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+}
+
+// A consumer warpgroup's 64 Q rows from flattened chunk row t0 + 64 wg on,
+// zero past the chunk's rows and past d, swizzled as TMA would: flattened
+// row t is chunk position t / group and q head t % group of q_b, the
+// sequence's [C, Hq, d] from its KV head's first q head on
+template <int D>
+__device__ __forceinline__ void stage_q_rows(unsigned char* sq,
+                                             const __nv_bfloat16* q_b,
+                                             int wg, int ct, int t0,
+                                             int rows, int group, int hq,
+                                             int d) {
+  for (int x = ct; x < 64 * (D / 8); x += 128) {
+    const int r = wg * 64 + x / (D / 8), ch = x % (D / 8);
+    const int t = t0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (t < rows && ch * 8 < d)
+      val = *reinterpret_cast<const uint4*>(
+          q_b + (size_t(t / group) * hq + t % group) * d + ch * 8);
+    *reinterpret_cast<uint4*>(sq + (ch / 8) * BQ * 128 +
+                              swz128(r, (ch % 8) * 16)) = val;
+  }
+}
+
+// O / l of this thread's two flattened rows t and t + 8, bf16, their first
+// d columns at their addresses in o_b (laid out as q_b above); a row with
+// l = 0 (it saw no key) stores 0
+template <int D>
+__device__ __forceinline__ void store_chunk_rows(const float (&acc_o)[D / 2],
+                                                 const float (&l)[2],
+                                                 __nv_bfloat16* o_b, int t,
+                                                 int rows, int group, int hq,
+                                                 int d) {
+  const int col0 = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_row = quad_sum(l[r]);
+    const int tr = t + 8 * r;
+    if (tr >= rows) continue;
+    const float denom = l_row == 0.f ? 1.f : l_row;
+    __nv_bfloat16* orow = o_b + (size_t(tr / group) * hq + tr % group) * d;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      if (8 * j < d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
+            __floats2bfloat162_rn(acc_o[4 * j + 2 * r] / denom,
+                                  acc_o[4 * j + 2 * r + 1] / denom);
+  }
 }
 
 // One consumer warpgroup's 64 rows of the block (this thread owns two):
@@ -207,26 +287,24 @@ __device__ __forceinline__ void consume(
     unsigned char* sq, const unsigned char* sk, const unsigned char* sv,
     const float* sscale, uint64_t* k_full, uint64_t* v_full, uint64_t* empty,
     const __nv_bfloat16* q, __nv_bfloat16* o, int b, int kh, int c, int hq,
-    int group, int t0, int q_start, int window, int kv_begin, int n_tiles) {
+    int group, int d, int t0, int q_start, int window, int kv_begin,
+    int n_tiles) {
   using T = Tiles<D>;
+  constexpr int BKV = T::BKV;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wg = warp / 4;
   const int ct = threadIdx.x % 128;
   const int rows = c * group;
 
-  // this warpgroup's Q rows, zero past the chunk, swizzled as TMA would
-  for (int x = ct; x < 64 * (D / 8); x += 128) {
-    const int r = wg * 64 + x / (D / 8), ch = x % (D / 8);
-    const int t = t0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < rows)
-      val = *reinterpret_cast<const uint4*>(
-          q + ((size_t(b) * c + t / group) * hq + size_t(kh) * group +
-               t % group) * D + ch * 8);
-    *reinterpret_cast<uint4*>(sq + (ch / 8) * BQ * 128 +
-                              swz128(r, (ch % 8) * 16)) = val;
-  }
+  // this warpgroup's Q rows, swizzled as TMA would; at d = D inlined
+  // apart, with constant strides
+  const __nv_bfloat16* q_b =
+      q + size_t(b) * c * hq * d + size_t(kh) * group * d;
+  if (d == D)
+    stage_q_rows<D>(sq, q_b, wg, ct, t0, rows, group, hq, D);
+  else
+    stage_q_rows<D>(sq, q_b, wg, ct, t0, rows, group, hq, d);
   fence_proxy_async();
   named_bar_sync(Q_BAR + wg, 128);
 
@@ -319,37 +397,28 @@ __device__ __forceinline__ void consume(
     mbar_arrive(&empty[last]);
   }
 
-  // O / l of the two owned rows, bf16, at their [B, C, Hq, D] addresses; a
-  // row with l = 0 (it saw no key) stores 0
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l_row = quad_sum(l[r]);
-    const int t = t0 + r0 + 8 * r;
-    if (t >= rows) continue;
-    const float denom = l_row == 0.f ? 1.f : l_row;
-    __nv_bfloat16* orow =
-        o + ((size_t(b) * c + t / group) * hq + size_t(kh) * group +
-             t % group) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
-          __floats2bfloat162_rn(acc_o[4 * j + 2 * r] / denom,
-                                acc_o[4 * j + 2 * r + 1] / denom);
-  }
+  // O / l of the two owned rows; at d = D inlined apart, with constant
+  // strides
+  __nv_bfloat16* o_b = o + size_t(b) * c * hq * d + size_t(kh) * group * d;
+  if (d == D)
+    store_chunk_rows<D>(acc_o, l, o_b, t0 + r0, rows, group, hq, D);
+  else
+    store_chunk_rows<D>(acc_o, l, o_b, t0 + r0, rows, group, hq, d);
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-paged_extend_kernel(const __grid_constant__ CUtensorMap tkv,  // [P*2*Hkv, ps, D] int8
-                    const __nv_bfloat16* __restrict__ q,   // [B, C, Hq, D]
+paged_extend_kernel(const __grid_constant__ CUtensorMap tkv,  // [P*2*Hkv, ps, d] int8
+                    const __nv_bfloat16* __restrict__ q,   // [B, C, Hq, d]
                     const float* __restrict__ scales,      // [n_pages, 2, Hkv, 1, ps]
                     const int* __restrict__ page_table,    // [max_seqs, max_pages]
                     const int* __restrict__ seq_lens,      // [max_seqs]
                     const int* __restrict__ slots,         // [B]
-                    __nv_bfloat16* __restrict__ o,         // [B, C, Hq, D]
-                    int c, int hq, int hkv, int ps, int max_pages,
+                    __nv_bfloat16* __restrict__ o,         // [B, C, Hq, d]
+                    int c, int hq, int hkv, int d, int ps, int max_pages,
                     int max_seqs, int window, float scale_log2) {
   using T = Tiles<D>;
+  constexpr int BKV = T::BKV, SLOTS = T::SLOTS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sq = smem + T::q;
@@ -440,19 +509,21 @@ paged_extend_kernel(const __grid_constant__ CUtensorMap tkv,  // [P*2*Hkv, ps, D
 
   setmaxnreg_inc<CONSUMER_REGS>();
   consume<D>(sq, sk, sv, sscale, k_full, v_full, empty, q, o, b, kh, c, hq,
-             group, t0, q_start, window, kv_begin, n_tiles);
+             group, d, t0, q_start, window, kv_begin, n_tiles);
 }
 
 template <int D>
 int launch(const void* q, const void* pages, const void* scales,
            const void* page_table, const void* seq_lens, const void* slots,
-           void* o, int batch, int c, int hq, int hkv, int ps, int max_pages,
-           int max_seqs, int n_pages, int window, float scale,
+           void* o, int batch, int c, int hq, int hkv, int d, int ps,
+           int max_pages, int max_seqs, int n_pages, int window, float scale,
            cudaStream_t stream) {
   using T = Tiles<D>;
+  // boxes of D columns over rows of the true d: the columns past d are
+  // zero codes
   CUtensorMap tkv;
-  const int err = make_tmap(&tkv, pages, 1, D, ps, n_pages * 2 * hkv, D, BKV,
-                            0);
+  const int err = make_tmap(&tkv, pages, 1, d, ps, n_pages * 2 * hkv, D,
+                            T::BKV, 0);
   if (err) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
       paged_extend_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -464,8 +535,8 @@ int launch(const void* q, const void* pages, const void* scales,
       tkv, static_cast<const __nv_bfloat16*>(q),
       static_cast<const float*>(scales), static_cast<const int*>(page_table),
       static_cast<const int*>(seq_lens), static_cast<const int*>(slots),
-      static_cast<__nv_bfloat16*>(o), c, hq, hkv, ps, max_pages, max_seqs,
-      window, scale * 1.4426950408889634f);
+      static_cast<__nv_bfloat16*>(o), c, hq, hkv, d, ps, max_pages,
+      max_seqs, window, scale * 1.4426950408889634f);
   return int(cudaGetLastError());
 }
 
@@ -474,6 +545,7 @@ int launch(const void* q, const void* pages, const void* scales,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // serving/decode.py has already checked shapes, dtypes, contiguity and
 // alignment; the checks here only refuse what would index out of bounds.
+// d: a multiple of 16 from 16 to 256; page_size: a multiple of 128.
 // window: 0 for none.
 extern "C" int eft_paged_extend(const void* q, const void* pages,
                                 const void* scales, const void* page_table,
@@ -483,8 +555,8 @@ extern "C" int eft_paged_extend(const void* q, const void* pages,
                                 int max_seqs, int n_pages, int window,
                                 float scale, int device, void* stream) {
   if (batch <= 0 || batch > 65535 || c <= 0 || hkv <= 0 || hkv > 65535 ||
-      hq % hkv != 0 || page_size <= 0 || page_size % BKV != 0 ||
-      page_size > 256 || max_pages <= 0 || n_pages <= 0 ||
+      hq % hkv != 0 || page_size <= 0 || page_size % 128 != 0 ||
+      d < 16 || d > 256 || d % 16 != 0 || max_pages <= 0 || n_pages <= 0 ||
       int64_t(max_pages) * page_size > INT32_MAX ||
       int64_t(n_pages) * 2 * hkv > INT32_MAX ||
       int64_t(c) * (hq / hkv) > INT32_MAX - BQ || window < 0)
@@ -493,16 +565,12 @@ extern "C" int eft_paged_extend(const void* q, const void* pages,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return launch<64>(q, pages, scales, page_table, seq_lens, slots, o,
-                        batch, c, hq, hkv, page_size, max_pages, max_seqs,
-                        n_pages, window, scale, s);
-    case 128:
-      return launch<128>(q, pages, scales, page_table, seq_lens, slots, o,
-                         batch, c, hq, hkv, page_size, max_pages, max_seqs,
-                         n_pages, window, scale, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  auto go = [&](auto dc) {
+    return launch<decltype(dc)::value>(
+        q, pages, scales, page_table, seq_lens, slots, o, batch, c, hq, hkv,
+        d, page_size, max_pages, max_seqs, n_pages, window, scale, s);
+  };
+  if (d <= 64) return go(std::integral_constant<int, 64>{});
+  if (d <= 128) return go(std::integral_constant<int, 128>{});
+  return go(std::integral_constant<int, 256>{});
 }

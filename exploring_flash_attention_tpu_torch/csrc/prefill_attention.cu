@@ -1,6 +1,11 @@
 // H1: the attention forward on Hopper (sm_90a). bf16 in, f32 accumulate,
-// one kernel for three masks (none, causal, sliding window) and head dims
-// 32, 64 and 128.
+// one kernel for three masks (none, causal, sliding window) and every head
+// dim d that is a multiple of 16 from 16 to 256, on instances D = 32, 64,
+// 128 and 256: a d below its instance's D (16 on 32, 48 on 64, 80-112 on
+// 128, 144-240 on 256) is described to TMA with its true d, so the tiles'
+// columns past d land as zeros (wgmma_tile.cuh) and the epilogue stores
+// the first d columns of O.  The padded columns cost (D - d) / D of the
+// tensor-core work: 37.5% at d=80, none at d = D.
 //
 // Replaces the TPU kernels of the JAX package's dense forward, which
 // compute one function and differ from each other only by a VMEM rule
@@ -102,6 +107,14 @@
 // 384).  So one block per SM: ops/attention_v1.py's RESIDENT_BLOCKS =
 // 132.  The two warpgroups take no turns: ping-pong scheduling between
 // them gained nothing at the canonical shape.
+//
+// D=256 (FlashAttention-3 runs d=256 on narrower K/V tiles too): O is 128
+// f32 registers a consumer thread, so S and P shrink to a 64-key tile (S
+// 32 + P 16 + O 128 within the 240), and Q (64 KB at 128 rows) leaves room
+// for two 64 KB stages of K and V: 192 KB.  Each row tile is four
+// 64-column boxes (the 128-byte swizzle's width) and P V two m64n128k16
+// products, one per half of V.  A KV span stays whole 128-key tiles, two
+// 64-key steps each, and the bound statistic stays per 128-key tile.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -117,8 +130,9 @@ namespace {
 
 using namespace eft::hopper;
 
-constexpr int BKV = 128;         // keys per K/V tile; a KV span is whole tiles
-constexpr int STAGES = 3;        // K/V ring depth
+// a KV span is whole tiles of SPAN_TILE keys, which the bound statistic's
+// prefix maxima (ops/attention.py bound_kmax) also take
+constexpr int SPAN_TILE = 128;
 // the row statistic's group: a row's bound reads the K/V tile that the last
 // row of its 128-row group sees, whatever the Q tile
 constexpr int BOUND_ROWS = 128;
@@ -141,10 +155,13 @@ struct Block {
 enum Mask : int { MASK_NONE = 0, MASK_CAUSAL = 1, MASK_WINDOW = 2 };
 
 // Shared memory of one block.  Every tile is TMA boxes of BOX columns
-// (rows of BOX * 2 bytes, the swizzle width) by 128 rows, box after box.
+// (rows of BOX * 2 bytes, the swizzle width) by its rows, box after box.
+// K/V tiles of BKV keys (128; 64 at D=256) in a ring of STAGES (3; 2).
 template <int D, int NC>
 struct Tiles {
   static constexpr int BQ = Block<NC>::BQ;
+  static constexpr int BKV = D == 256 ? 64 : 128;
+  static constexpr int STAGES = D == 256 ? 2 : 3;
   static constexpr int BOX = D >= 64 ? 64 : 32;
   static constexpr int ROW = BOX * 2;                 // bytes; = swizzle
   static constexpr int NBOX = D / BOX;
@@ -155,6 +172,8 @@ struct Tiles {
   static constexpr size_t v = k + size_t(STAGES) * KV_BYTES;
   static constexpr size_t bars = v + size_t(STAGES) * KV_BYTES;
   static constexpr size_t bytes = bars + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(SPAN_TILE % BKV == 0, "a span is whole K/V tiles");
+  static_assert(bytes <= 232448, "the block's shared memory");
 };
 
 __device__ __forceinline__ long long clamp64(long long x, long long lo,
@@ -162,10 +181,18 @@ __device__ __forceinline__ long long clamp64(long long x, long long lo,
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// O += P V of 16 keys; v_k is their rows of the V tile (MN-major boxes of
+// BKV rows)
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (D == 128)
+                                         const unsigned char* v_k) {
+  using T = Tiles<D, 1>;                 // V's layout: the same for any NC
+  const uint64_t db = gmma_desc(v_k, T::BKV * T::ROW, 8 * T::ROW, T::ROW);
+  if constexpr (D == 256)
+    wgmma_rs_bf16_n256(o, a, db,
+                       gmma_desc(v_k + 2 * T::BKV * T::ROW, T::BKV * T::ROW,
+                                 8 * T::ROW, T::ROW));
+  else if constexpr (D == 128)
     wgmma_rs_bf16_n128(o, a[0], a[1], a[2], a[3], db, 1);
   else if constexpr (D == 64)
     wgmma_rs_bf16_n64(o, a[0], a[1], a[2], a[3], db, 1);
@@ -175,42 +202,45 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
 
 // S = Q K^T of one K tile (issued, not waited for)
 template <int D, int NC>
-__device__ __forceinline__ void issue_qk(float (&acc_s)[BKV / 2],
-                                         const unsigned char* q_wg,
-                                         const unsigned char* k_s) {
+__device__ __forceinline__ void issue_qk(
+    float (&acc_s)[Tiles<D, NC>::BKV / 2], const unsigned char* q_wg,
+    const unsigned char* k_s) {
   using T = Tiles<D, NC>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int box = kk * 16 / T::BOX, off = (kk * 16 % T::BOX) * 2;
     const uint64_t da = gmma_desc(q_wg + box * T::BQ * T::ROW + off, 16,
                                   8 * T::ROW, T::ROW);
-    const uint64_t db = gmma_desc(k_s + box * BKV * T::ROW + off, 16,
+    const uint64_t db = gmma_desc(k_s + box * T::BKV * T::ROW + off, 16,
                                   8 * T::ROW, T::ROW);
-    if (kk == 0) wgmma_ss_bf16_n128_first(acc_s, da, db);
-    else wgmma_ss_bf16_n128(acc_s, da, db, 1);
+    if constexpr (T::BKV == 128) {
+      if (kk == 0) wgmma_ss_bf16_n128_first(acc_s, da, db);
+      else wgmma_ss_bf16_n128(acc_s, da, db, 1);
+    } else {
+      if (kk == 0) wgmma_ss_bf16_n64_first(acc_s, da, db);
+      else wgmma_ss_bf16_n64(acc_s, da, db, 1);
+    }
   }
 }
 
 // O += P V of one V tile, 16 keys a step (issued, not waited for)
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc_o)[D / 2],
-                                         const uint32_t (&pa)[BKV / 4],
-                                         const unsigned char* v_s) {
-  using T = Tiles<D, 1>;                 // V's layout: the same for any NC
+__device__ __forceinline__ void issue_pv(
+    float (&acc_o)[D / 2], const uint32_t (&pa)[Tiles<D, 1>::BKV / 4],
+    const unsigned char* v_s) {
+  using T = Tiles<D, 1>;
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk)
-    wgmma_pv<D>(acc_o, &pa[4 * kk],
-                gmma_desc(v_s + kk * 16 * T::ROW, BKV * T::ROW, 8 * T::ROW,
-                          T::ROW));
+  for (int kk = 0; kk < T::BKV / 16; ++kk)
+    wgmma_pv<D>(acc_o, &pa[4 * kk], v_s + kk * 16 * T::ROW);
 }
 
 // The online softmax of one S tile, in registers: the mask (unless the
 // tile is whole) and the scale, the new row max (quad shuffles), p =
 // exp2(s - m_use) in f32; alpha = exp2(m_old - m_use) for O and l.  The
 // bound form takes the row's fixed shift m: p = exp2(s - m), alpha = 1.
-template <bool BOUND>
+template <bool BOUND, int N>
 __device__ __forceinline__ void softmax_exp(
-    float (&acc_s)[BKV / 2],
+    float (&acc_s)[N],
     float (&m)[2], float (&alpha)[2], bool whole, int col_base,
     const int (&lo)[2], const int (&hi)[2], float scale_log2) {
   if constexpr (BOUND) {
@@ -218,12 +248,12 @@ __device__ __forceinline__ void softmax_exp(
     const float neg_m[2] = {-m[0], -m[1]};
     if (whole) {
 #pragma unroll
-      for (int e = 0; e < BKV / 2; ++e)
+      for (int e = 0; e < N; ++e)
         acc_s[e] = exp2_approx(
             fmaf(acc_s[e], scale_log2, neg_m[acc_row8(e) / 8]));
     } else {
 #pragma unroll
-      for (int e = 0; e < BKV / 2; ++e) {
+      for (int e = 0; e < N; ++e) {
         const int r = acc_row8(e) / 8;
         const int col = col_base + acc_col(e);
         acc_s[e] = col >= lo[r] && col <= hi[r]
@@ -237,13 +267,13 @@ __device__ __forceinline__ void softmax_exp(
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
   if (whole) {
 #pragma unroll
-    for (int e = 0; e < BKV / 2; ++e) {
+    for (int e = 0; e < N; ++e) {
       acc_s[e] = acc_s[e] * scale_log2;
       mx[acc_row8(e) / 8] = fmaxf(mx[acc_row8(e) / 8], acc_s[e]);
     }
   } else {
 #pragma unroll
-    for (int e = 0; e < BKV / 2; ++e) {
+    for (int e = 0; e < N; ++e) {
       const int r = acc_row8(e) / 8;
       const int col = col_base + acc_col(e);
       acc_s[e] = col >= lo[r] && col <= hi[r] ? acc_s[e] * scale_log2
@@ -260,17 +290,18 @@ __device__ __forceinline__ void softmax_exp(
     m[r] = m_new;
   }
 #pragma unroll
-  for (int e = 0; e < BKV / 2; ++e)
+  for (int e = 0; e < N; ++e)
     acc_s[e] = exp2_approx(acc_s[e] - m_use[acc_row8(e) / 8]);
 }
 
 // P packed as the bf16 A fragment of P V; l = l * alpha + the rounded P
-__device__ __forceinline__ void pack_p(const float (&p)[BKV / 2],
-                                       uint32_t (&pa)[BKV / 4], float (&l)[2],
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&p)[N],
+                                       uint32_t (&pa)[N / 2], float (&l)[2],
                                        const float (&alpha)[2]) {
   float psum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < BKV / 4; ++j)
+  for (int j = 0; j < N / 2; ++j)
     pa[j] = pack_bf16x2(p[2 * j], p[2 * j + 1], psum[j & 1]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
@@ -292,8 +323,9 @@ __device__ __forceinline__ void consume(
     uint64_t* full, uint64_t* empty, uint64_t* q_full, void* o, int out_f32,
     float* lse, int lq, int lkv, int mask, int diag_off, int window,
     float scale_log2, int q0, int bh, int span, int kv_begin, int n_tiles,
-    float kmax2) {
+    float kmax2, int d) {
   using T = Tiles<D, NC>;
+  constexpr int BKV = T::BKV, STAGES = T::STAGES;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wg = warp / 4;
@@ -420,9 +452,14 @@ __device__ __forceinline__ void consume(
     mbar_arrive(&empty[last]);
   }
 
-  // normalize and store once from f32, with the LSE when asked
-  store_o_rows<D>(acc_o, l, m, row0, lq, (size_t(bh) * gridDim.z + span) * lq,
-                  o, out_f32, lse);
+  // normalize and store once from f32, with the LSE when asked: the first
+  // d columns, at rows of d.  At d = D the store is inlined apart, with
+  // constant strides: the runtime ones cost 5% at the canonical shape
+  const size_t base = (size_t(bh) * gridDim.z + span) * lq;
+  if (d == D)
+    store_o_rows<D>(acc_o, l, m, row0, lq, base, o, out_f32, lse);
+  else
+    store_o_rows<D>(acc_o, l, m, row0, lq, base, o, out_f32, lse, d, 0, d);
 }
 
 template <int D, int NC, bool BOUND>
@@ -439,9 +476,10 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, 
                          int kv_span, float scale_log2,
                          // [B*Hkv, cdiv(Lkv, 128)] prefix maxima of |k|^2
                          // (the bound form) or null
-                         const float* __restrict__ kmax) {
+                         const float* __restrict__ kmax,
+                         int d) {                      // the true head dim
   using T = Tiles<D, NC>;
-  constexpr int BQ = T::BQ;
+  constexpr int BQ = T::BQ, BKV = T::BKV, STAGES = T::STAGES;
   constexpr int CONSUMERS = NC;
   // traced offsets: the diagonal comes from device memory, not the host
   if (offs != nullptr) diag_off = offs[0] - offs[1];
@@ -520,48 +558,50 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, 
     // tile without a mask), from diag_off as this block has it
     float kmax2 = 0.f;
     if constexpr (BOUND) {
-      const int n_kv = (lkv + BKV - 1) / BKV;
+      const int n_kv = (lkv + SPAN_TILE - 1) / SPAN_TILE;
       int idx = n_kv - 1;
       if (mask != MASK_NONE) {
         const long long g_last =
             min(q0 / BOUND_ROWS * BOUND_ROWS + BOUND_ROWS, lq) - 1;
         const long long x = g_last + diag_off;
-        idx = x < 0 ? 0 : int(clamp64(x / BKV, 0, n_kv - 1));
+        idx = x < 0 ? 0 : int(clamp64(x / SPAN_TILE, 0, n_kv - 1));
       }
       kmax2 = kmax[size_t(bhk) * n_kv + idx];
     }
     consume<D, NC, BOUND>(sq, sk, sv, full, empty, q_full, o, out_f32, lse,
                           lq, lkv, mask, diag_off, window, scale_log2, q0, bh,
-                          span, kv_begin, n_tiles, kmax2);
+                          span, kv_begin, n_tiles, kmax2, d);
   }
 }
 
 template <int D, int NC, bool BOUND>
 int launch(const void* q, const void* k, const void* v, void* o,
            int out_f32, void* lse, int batch, int hq, int hkv, int lq,
-           int lkv, int mask, int diag_off, int window, const int* offs,
-           int kv_span, float scale, const float* kmax,
+           int lkv, int d, int mask, int diag_off, int window,
+           const int* offs, int kv_span, float scale, const float* kmax,
            cudaStream_t stream) {
   using T = Tiles<D, NC>;
-  constexpr int BQ = T::BQ;
+  constexpr int BQ = T::BQ, BKV = T::BKV;
+  // the true d: TMA zero-fills the boxes' columns past it
   CUtensorMap tq, tk, tv;
-  int err = make_tmap(&tq, q, 2, D, lq, batch * hq, T::BOX, BQ, T::ROW);
-  if (!err) err = make_tmap(&tk, k, 2, D, lkv, batch * hkv, T::BOX, BKV, T::ROW);
-  if (!err) err = make_tmap(&tv, v, 2, D, lkv, batch * hkv, T::BOX, BKV, T::ROW);
+  int err = make_tmap(&tq, q, 2, d, lq, batch * hq, T::BOX, BQ, T::ROW);
+  if (!err) err = make_tmap(&tk, k, 2, d, lkv, batch * hkv, T::BOX, BKV, T::ROW);
+  if (!err) err = make_tmap(&tv, v, 2, d, lkv, batch * hkv, T::BOX, BKV, T::ROW);
   if (err) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
       prefill_attention_kernel<D, NC, BOUND>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
   if (attr != cudaSuccess) return int(attr);
   // no span: one span of whole tiles covering the KV
-  const int span = kv_span ? kv_span : (lkv + BKV - 1) / BKV * BKV;
+  const int span =
+      kv_span ? kv_span : (lkv + SPAN_TILE - 1) / SPAN_TILE * SPAN_TILE;
   const dim3 grid(batch * hq * ((lq + BQ - 1) / BQ), 1,
                   (lkv + span - 1) / span);
   prefill_attention_kernel<D, NC, BOUND>
       <<<grid, Block<NC>::THREADS, T::bytes, stream>>>(
           tq, tk, tv, o, out_f32, static_cast<float*>(lse), hq, hq / hkv, lq,
           lkv, mask, diag_off, window, offs, span,
-          scale * 1.4426950408889634f, kmax);
+          scale * 1.4426950408889634f, kmax, d);
   return int(cudaGetLastError());
 }
 
@@ -576,7 +616,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // kv_span: 0 for one span over the whole KV, else a multiple of 128 keys,
 // and o / lse hold cdiv(lkv, kv_span) partials per row.  q_rows: the Q
 // tile, 64 or 128.  kmax: null (the exact statistic) or the bound form's
-// f32 [batch * hkv, cdiv(lkv, 128)] prefix maxima of |k|^2.
+// f32 [batch * hkv, cdiv(lkv, 128)] prefix maxima of |k|^2.  d: a multiple
+// of 16 from 16 to 256, run on the smallest instance D >= d.
 extern "C" int eft_prefill_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int batch, int hq, int hkv, int lq,
@@ -588,8 +629,8 @@ extern "C" int eft_prefill_attention(const void* q, const void* k,
   if (batch <= 0 || hkv <= 0 || hq % hkv != 0 || lq <= 0 || lkv <= 0 ||
       mask < MASK_NONE || mask > MASK_WINDOW ||
       (mask == MASK_WINDOW && window < 1) || kv_span < 0 ||
-      kv_span % BKV != 0 || (q_rows != 64 && q_rows != 128) ||
-      (d != 32 && d != 64 && d != 128))
+      kv_span % SPAN_TILE != 0 || (q_rows != 64 && q_rows != 128) ||
+      d < 16 || d > 256 || d % 16 != 0)
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -597,12 +638,12 @@ extern "C" int eft_prefill_attention(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* o_offs = static_cast<const int*>(offs);
   const float* km = static_cast<const float*>(kmax);
-  // one instance per (d, Q tile, statistic)
+  // one instance per (D, Q tile, statistic)
   auto go = [&](auto dc, auto nc, auto bound) {
     return launch<decltype(dc)::value, decltype(nc)::value,
                   decltype(bound)::value>(
-        q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv, mask, diag_off,
-        window, o_offs, kv_span, scale, km, s);
+        q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv, d, mask,
+        diag_off, window, o_offs, kv_span, scale, km, s);
   };
   auto by_tile = [&](auto dc) {
     using T = std::true_type;
@@ -612,9 +653,10 @@ extern "C" int eft_prefill_attention(const void* q, const void* k,
     if (q_rows == 64) return km ? go(dc, N1{}, T{}) : go(dc, N1{}, F{});
     return km ? go(dc, N2{}, T{}) : go(dc, N2{}, F{});
   };
-  if (d == 32) return by_tile(std::integral_constant<int, 32>{});
-  if (d == 64) return by_tile(std::integral_constant<int, 64>{});
-  return by_tile(std::integral_constant<int, 128>{});
+  if (d <= 32) return by_tile(std::integral_constant<int, 32>{});
+  if (d <= 64) return by_tile(std::integral_constant<int, 64>{});
+  if (d <= 128) return by_tile(std::integral_constant<int, 128>{});
+  return by_tile(std::integral_constant<int, 256>{});
 }
 
 extern "C" const char* eft_error_string(int err) {

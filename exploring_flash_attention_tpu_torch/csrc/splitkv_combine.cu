@@ -18,6 +18,11 @@
 //     d=32: 1, 2 or 4 rows a warp), each lane owning 4 consecutive
 //     columns, read with one 16-byte load per partial through the
 //     read-only path without allocating in L1 (each byte is read once);
+//     at a d that is no power of two the row takes the next power of two
+//     of lanes, those past d idle (d=80: 32 lanes, 20 busy), and past d
+//     = 128 each lane two 16-byte chunks (eft::MergeRow).  One instance
+//     per d (every multiple of 16 up to 256), so nothing is padded in
+//     memory and d 32 / 64 / 128 compile as before;
 //   - the row's LSEs are read once, one per lane, beside its first four
 //     16-byte loads, and reduced by shuffles within the row's lanes; each
 //     weight reaches the lanes by __shfl_sync (lse_merge.cuh);
@@ -45,7 +50,8 @@ splitkv_combine_kernel(const float* __restrict__ o_part,  // [BH, nkb, Lq, D]
                        const float* __restrict__ lse,     // [BH, nkb, Lq]
                        void* __restrict__ o,              // [BH, Lq, D]
                        int out_f32, int n_rows, int nkb, int lq) {
-  constexpr int L = D / 4;             // lanes per row
+  constexpr int L = eft::MergeRow<D>::L;    // lanes per row
+  constexpr int NV = eft::MergeRow<D>::NV;  // 16-byte chunks per lane
   constexpr int RPW = 32 / L;          // rows per warp
   constexpr int ROWS = WARPS * RPW;    // rows per block
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -55,21 +61,26 @@ splitkv_combine_kernel(const float* __restrict__ o_part,  // [BH, nkb, Lq, D]
   const int r = min(row, n_rows - 1);  // a row past the end merges the last
   const int bh = r / lq, qi = r % lq;
   // partial k of this row sits at (bh * nkb + k) * lq + qi
-  const float4 acc = eft::lse_merge_row<L, MERGE_UNROLL, false>(
-      o_part, lse, size_t(bh) * nkb * lq + qi, size_t(lq), nkb);
+  float4 acc[NV];
+  eft::lse_merge_row<L, NV, MERGE_UNROLL, false>(
+      acc, o_part, lse, size_t(bh) * nkb * lq + qi, size_t(lq), nkb, D);
   if (row >= n_rows) return;
-  const size_t out = size_t(row) * D + 4 * (lane % L);
-  if (out_f32) {
-    *reinterpret_cast<float4*>(static_cast<float*>(o) + out) = acc;
-  } else {
-    eft::store_bf16x4(static_cast<__nv_bfloat16*>(o) + out, acc);
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    if (!eft::merge_chunk<L>(c, D)) continue;
+    const size_t out = size_t(row) * D + 4 * (lane % L + L * c);
+    if (out_f32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(o) + out) = acc[c];
+    } else {
+      eft::store_bf16x4(static_cast<__nv_bfloat16*>(o) + out, acc[c]);
+    }
   }
 }
 
 template <int D>
 int launch(const void* o_part, const void* lse, void* o, int out_f32,
            int n_rows, int nkb, int lq, cudaStream_t stream) {
-  constexpr int ROWS = WARPS * (128 / D);
+  constexpr int ROWS = WARPS * (32 / eft::MergeRow<D>::L);
   const dim3 grid((n_rows + ROWS - 1) / ROWS);
   splitkv_combine_kernel<D><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(lse), o,
@@ -77,12 +88,24 @@ int launch(const void* o_part, const void* lse, void* o, int out_f32,
   return int(cudaGetLastError());
 }
 
+// the instance of head dim d, the multiples of 16 from D up to 256
+template <int D>
+int launch_d(int d, const void* o_part, const void* lse, void* o,
+             int out_f32, int n_rows, int nkb, int lq, cudaStream_t stream) {
+  if (d == D) return launch<D>(o_part, lse, o, out_f32, n_rows, nkb, lq,
+                               stream);
+  if constexpr (D < 256)
+    return launch_d<D + 16>(d, o_part, lse, o, out_f32, n_rows, nkb, lq,
+                            stream);
+  return int(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // ops/attention_v2_splitkv.py has already checked shapes, dtypes,
-// contiguity and 16-byte alignment.  n_bh = batch * heads; d in
-// {32, 64, 128}.
+// contiguity and 16-byte alignment.  n_bh = batch * heads; d a multiple
+// of 16 from 16 to 256.
 extern "C" int eft_splitkv_combine(const void* o_part, const void* lse,
                                    void* o, int n_bh, int nkb, int lq, int d,
                                    int out_f32, int device, void* stream) {
@@ -94,15 +117,5 @@ extern "C" int eft_splitkv_combine(const void* o_part, const void* lse,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_rows = n_bh * lq;
-  switch (d) {
-    case 32:
-      return launch<32>(o_part, lse, o, out_f32, n_rows, nkb, lq, s);
-    case 64:
-      return launch<64>(o_part, lse, o, out_f32, n_rows, nkb, lq, s);
-    case 128:
-      return launch<128>(o_part, lse, o, out_f32, n_rows, nkb, lq, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  return launch_d<16>(d, o_part, lse, o, out_f32, n_bh * lq, nkb, lq, s);
 }

@@ -12,7 +12,11 @@
 //   64 bytes and carries the swizzle of its width, which the wgmma
 //   descriptors below then name: bf16 d=128 is two 64-column boxes, bf16
 //   d=64 and int8 d=128 one 128-byte box, bf16 d=32 and int8 d=64 one
-//   64-byte box.
+//   64-byte box.  A tensor whose d is below its kernel instance's D (a
+//   multiple of 16, so every global row stride stays a multiple of 16
+//   bytes) is described with its true d: the box columns past d, or a
+//   whole box past it, are zero-filled, so they add nothing to Q K^T and
+//   give O columns that the epilogue does not store.
 // - The ring of K/V stages between the producer warpgroup and the consumer
 //   warpgroups: mbarriers "full" (the producer's expect_tx, completed by
 //   the TMA bytes) and "empty" (one arrival per consumer thread).
@@ -372,6 +376,20 @@ __device__ __forceinline__ void wgmma_rs_bf16_n128(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], bf16 -> f32, A in registers, B
+// in shared memory MN-major: two m64n128k16 products, one per 128-column
+// half of B (descriptors db_lo, db_hi).  The halves of D are the registers
+// 0..63 and 64..127, the m64n256 accumulator's own layout.
+__device__ __forceinline__ void wgmma_rs_bf16_n256(float (&d)[128],
+                                                 const uint32_t* a,
+                                                 uint64_t db_lo,
+                                                 uint64_t db_hi) {
+  wgmma_rs_bf16_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a[0], a[1],
+                     a[2], a[3], db_lo, 1);
+  wgmma_rs_bf16_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a[0], a[1],
+                     a[2], a[3], db_hi, 1);
+}
+
 // As wgmma_rs_bf16_n64 in fp16: D[64 x 64] (+)= A[64 x 16] B[16 x 64],
 // A the fp16 A fragment in registers, B fp16 in shared memory MN-major.
 __device__ __forceinline__ void wgmma_rs_f16_n64(float (&d)[32], uint32_t a0,
@@ -694,15 +712,19 @@ __device__ __forceinline__ uint32_t pack_f16x2(float lo, float hi) {
 // thread owns (rows row0 and row0 + 8, each l summed over the quad), as
 // bf16 or f32, at o + (base + row) * ld + col for the rows below lq (ld
 // and col set where D is a slice of a wider row); a row with l = 0 (it
-// saw no key) stores O = 0.  With lse, its natural-log LSE too, m ln 2 +
-// ln l (m in the exp2 basis), -inf where l = 0.
+// saw no key) stores O = 0.  Only the first ncols columns (a multiple of
+// 8) are stored: a head dim d below the instance's D runs on zero-filled
+// columns past d, whose O columns are dropped here.  With lse, its
+// natural-log LSE too, m ln 2 + ln l (m in the exp2 basis), -inf where
+// l = 0.
 template <int D>
 __device__ __forceinline__ void store_o_rows(const float (&acc_o)[D / 2],
                                              const float (&l)[2],
                                              const float (&m)[2], int row0,
                                              int lq, size_t base, void* o,
                                              int out_f32, float* lse,
-                                             int ld = D, int col = 0) {
+                                             int ld = D, int col = 0,
+                                             int ncols = D) {
   const int col0 = 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -715,16 +737,18 @@ __device__ __forceinline__ void store_o_rows(const float (&acc_o)[D / 2],
       float* orow = static_cast<float*>(o) + row * ld + col;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(orow + 8 * j + col0) =
-            make_float2(acc_o[4 * j + 2 * r] / denom,
-                        acc_o[4 * j + 2 * r + 1] / denom);
+        if (8 * j < ncols)
+          *reinterpret_cast<float2*>(orow + 8 * j + col0) =
+              make_float2(acc_o[4 * j + 2 * r] / denom,
+                          acc_o[4 * j + 2 * r + 1] / denom);
     } else {
       __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(o) + row * ld + col;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
-            __floats2bfloat162_rn(acc_o[4 * j + 2 * r] / denom,
-                                  acc_o[4 * j + 2 * r + 1] / denom);
+        if (8 * j < ncols)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
+              __floats2bfloat162_rn(acc_o[4 * j + 2 * r] / denom,
+                                    acc_o[4 * j + 2 * r + 1] / denom);
     }
     if (lse != nullptr && col0 == 0)
       lse[row] = l_row == 0.f ? -CUDART_INF_F

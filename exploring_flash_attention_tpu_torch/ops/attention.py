@@ -203,7 +203,20 @@ def diagonal(diag_off: DiagOff):
     return diag_off
 
 
-H1_HEAD_DIMS = (32, 64, 128)
+# The head dims of the serving kernels H1, H2, H6-decode and H6-extend: a
+# multiple of 16 keeps every TMA row stride (2d bytes bf16, d bytes int8)
+# a multiple of 16 bytes and H6-decode's 16-byte code loads whole
+HEAD_DIM_RULE = "d a multiple of 16 from 16 to 256"
+
+
+def kernel_head_dim(d: int) -> bool:
+    """Whether H1, H2, H6-decode and H6-extend take head dim ``d``
+    (:data:`HEAD_DIM_RULE`).  H1 and the paged pair run a d below their
+    next instance's (a power of two up to 256) on zero-filled columns; H2
+    has one instance per d."""
+    return 16 <= d <= 256 and d % 16 == 0
+
+
 H1_KV_TILE = 128                # keys per K/V tile; a KV span is whole tiles
 H1_Q_ROWS = (64, 128)           # Q rows per block: H1's two Q tiles
 
@@ -267,8 +280,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`attention_plain`.  CUDA tensors launch kernel
     H1 (``csrc/prefill_attention.cu``), once per call, or raise: it takes
-    contiguous bf16 q/k/v with d in {32, 64, 128} and writes bf16 or f32
-    O.  ``prefill_attention.launches`` counts kernel launches; the bound
+    contiguous bf16 q/k/v with :data:`HEAD_DIM_RULE` and writes bf16 or
+    f32 O.  ``prefill_attention.launches`` counts kernel launches; the bound
     form's statistic adds :func:`bound_kmax`'s torch ops before it."""
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
@@ -302,10 +315,10 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o.to(out_dtype), lse if with_lse else None
     _check_cuda_inputs("H1 attention", q, k, v)
     if (k.shape != (b, hkv, lkv, d) or v.shape != k.shape
-            or hq % hkv or d not in H1_HEAD_DIMS or lq == 0 or lkv == 0):
+            or hq % hkv or not kernel_head_dim(d) or lq == 0 or lkv == 0):
         raise ValueError(
             f"H1 takes q [B,Hq,Lq,d], k/v [B,Hkv,Lkv,d] with Hq % Hkv == 0 "
-            f"and d in {H1_HEAD_DIMS}; got {tuple(q.shape)}, "
+            f"and {HEAD_DIM_RULE}; got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"H1 writes bf16 or f32 O, not {out_dtype}")

@@ -37,10 +37,24 @@ import torch
 
 from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import cdiv
-from exploring_flash_attention_tpu_torch.serving.kv_cache import PagedKVCache
+from exploring_flash_attention_tpu_torch.ops.attention import (
+    HEAD_DIM_RULE,
+    kernel_head_dim,
+)
+from exploring_flash_attention_tpu_torch.serving.kv_cache import (
+    PagedKVCache,
+    check_page_size,
+)
 
-PAGE_SIZES = (128, 256)         # what H6-decode and H6-extend take
 DECODE_BLOCKS_PER_SM = 2        # H6-decode blocks an SM holds at once
+
+
+def decode_chunks(group: int, d: int) -> int:
+    """H6-decode's blocks per (sequence, KV head, run): its GQA group cut
+    into chunks of at most 8 q heads (4 at d > 128, whose O columns take
+    twice the registers), each chunk a block with its own ticket
+    (``csrc/paged_decode.cu``)."""
+    return cdiv(group, 4 if d > 128 else 8)
 
 
 def _check_window(window: Optional[int]) -> None:
@@ -122,21 +136,23 @@ def paged_decode_plain(q: torch.Tensor, cache: PagedKVCache,
 
 
 def decode_split(cache: PagedKVCache, batch: int, window: Optional[int],
-                 n_sms: int) -> Tuple[int, int]:
+                 n_sms: int, chunks: int = 1) -> Tuple[int, int]:
     """H6-decode's split over the SMs: ``(n_split, pages_per_split)``.
 
     A sequence's visible pages are at most ``cache.max_pages_per_seq``, or
     ``cdiv(window, page_size) + 1`` under a window (the band's first page
     may be partly before it).  They are cut into ``n_split`` runs of
     ``pages_per_split`` pages from the first in-band page on, with
-    ``n_split`` as large as lets the ``batch * Hkv * n_split`` blocks stay
-    resident together (``DECODE_BLOCKS_PER_SM`` per SM), and at least 1.
-    Nothing here reads ``seq_lens``, so the plan costs no host sync."""
+    ``n_split`` as large as lets the ``batch * Hkv * chunks * n_split``
+    blocks (``chunks`` of :func:`decode_chunks` per KV head) stay resident
+    together (``DECODE_BLOCKS_PER_SM`` per SM), and at least 1.  Nothing
+    here reads ``seq_lens``, so the plan costs no host sync."""
     span = cache.max_pages_per_seq
     if window is not None:
         span = min(span, cdiv(window, cache.page_size) + 1)
     span = max(span, 1)
-    fit = (DECODE_BLOCKS_PER_SM * n_sms) // max(batch * cache.num_kv_heads, 1)
+    fit = (DECODE_BLOCKS_PER_SM * n_sms) // max(
+        batch * cache.num_kv_heads * chunks, 1)
     per = cdiv(span, max(1, min(span, fit)))
     return cdiv(span, per), per
 
@@ -177,10 +193,10 @@ def paged_decode_partials_plain(q: torch.Tensor, cache: PagedKVCache,
 def _check_paged_inputs(name: str, q: torch.Tensor, cache: PagedKVCache,
                         seq_slots: torch.Tensor,
                         window: Optional[int]) -> None:
-    """What both paged kernels take: bf16 q with d in {64, 128} and at most
-    8 q heads per KV head, page sizes in ``PAGE_SIZES``, the cache's
-    dtypes, one CUDA device, contiguous 16-byte aligned tensors.  Raises
-    otherwise."""
+    """What both paged kernels take: bf16 q with ``HEAD_DIM_RULE`` (the
+    cache's d), any GQA group, a page size that is a multiple of 128 below
+    2^15 (``kv_cache.check_page_size``), the cache's dtypes, one CUDA
+    device, contiguous 16-byte aligned tensors.  Raises otherwise."""
     tensors = (q, cache.kv_pages, cache.kv_scales, cache.page_table,
                cache.seq_lens, seq_slots)
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
@@ -196,14 +212,17 @@ def _check_paged_inputs(name: str, q: torch.Tensor, cache: PagedKVCache,
         raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
                          "aligned")
     d, hq, hkv = q.shape[-1], q.shape[-2], cache.num_kv_heads
-    if (d not in (64, 128) or cache.head_dim != d or hq % hkv
-            or hq // hkv > 8 or cache.page_size not in PAGE_SIZES
+    if (not kernel_head_dim(d) or cache.head_dim != d or hq % hkv
             or seq_slots.shape != (q.shape[0],)):
-        raise ValueError(f"{name} takes d in (64, 128), at most 8 q heads "
-                         f"per KV head and page sizes {PAGE_SIZES}; got q "
-                         f"{tuple(q.shape)}, cache d={cache.head_dim}, "
-                         f"Hkv={hkv}, page_size={cache.page_size}, slots "
+        raise ValueError(f"{name} takes {HEAD_DIM_RULE}, the cache's d, and "
+                         f"Hq % Hkv == 0; got q {tuple(q.shape)}, cache "
+                         f"d={cache.head_dim}, Hkv={hkv}, slots "
                          f"{tuple(seq_slots.shape)}")
+    try:
+        check_page_size(cache.page_size)
+    except ValueError as exc:
+        raise ValueError(f"{name} takes page sizes that are a multiple of "
+                         f"128 below 2^15: {exc}") from None
     _check_window(window)
 
 
@@ -216,9 +235,10 @@ _TICKETS = {}                   # device index -> zeroed int32 tickets
 
 
 def ticket_buffer(device: torch.device) -> Optional[torch.Tensor]:
-    """The fused H6-decode's tickets on ``device`` (one int32 per batch row
-    and KV head, zero between launches), or None before its first launch
-    or :func:`reserve_tickets` there."""
+    """The fused H6-decode's tickets on ``device`` (one int32 per batch
+    row, KV head and group chunk, :func:`decode_chunks`; zero between
+    launches), or None before its first launch or :func:`reserve_tickets`
+    there."""
     return _TICKETS.get(device.index)
 
 
@@ -254,7 +274,9 @@ def _launch_decode(q: torch.Tensor, cache: PagedKVCache,
     _check_paged_inputs("H6-decode", q, cache, seq_slots, window)
     b, hq, d = q.shape
     hkv = cache.num_kv_heads
-    n_split, per = decode_split(cache, b, window, _sm_count(q.device.index))
+    chunks = decode_chunks(hq // hkv, d)
+    n_split, per = decode_split(cache, b, window, _sm_count(q.device.index),
+                                chunks)
     o_part = lse = o = tickets = None
     if not fused or n_split > 1:
         o_part = torch.empty((b, hq, n_split, 1, d), dtype=torch.float32,
@@ -263,7 +285,7 @@ def _launch_decode(q: torch.Tensor, cache: PagedKVCache,
                           device=q.device)
     if fused:
         o = torch.empty_like(q)
-        tickets = reserve_tickets(q.device, b * hkv)
+        tickets = reserve_tickets(q.device, b * hkv * chunks)
     ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731
     err = kernels.library().eft_paged_decode(
         q.data_ptr(), cache.kv_pages.data_ptr(), cache.kv_scales.data_ptr(),
@@ -302,7 +324,8 @@ def paged_decode_partials(
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
-        split = decode_split(cache, b, window, 132)
+        split = decode_split(cache, b, window, 132,
+                             decode_chunks(hq // cache.num_kv_heads, d))
         return paged_decode_partials_plain(q, cache, seq_slots, scale,
                                            window, *split)
     o_part, lse, _ = _launch_decode(q, cache, seq_slots, scale, window,
@@ -327,8 +350,9 @@ def paged_decode_attention(
 
     CPU tensors take :func:`paged_decode_plain`.  CUDA tensors launch
     kernel H6-decode once, with its merge (counted in
-    ``paged_decode_partials.launches``), or raise: it takes bf16 q with d
-    in {64, 128}, at most 8 q heads per KV head and page sizes 128 and 256.
+    ``paged_decode_partials.launches``), or raise: it takes bf16 q with
+    ``ops.attention.HEAD_DIM_RULE``, any GQA group and page sizes that
+    are a multiple of 128 below 2^15.
     The f32 partials' workspace and O are allocated per call; the tickets
     (:func:`ticket_buffer`) are kept per device, zero between launches, and
     belong to one stream: the port launches on the current stream only, and
@@ -359,9 +383,9 @@ def paged_extend_attention(
     window.  Returns [B, C, Hq, d] in q.dtype.
 
     CPU tensors take :func:`paged_extend_plain`.  CUDA tensors launch kernel
-    H6-extend (``csrc/paged_extend.cu``), which takes bf16 q with d in
-    {64, 128}, at most 8 q heads per KV head and page sizes 128 and 256,
-    or raise.  ``paged_extend_attention.launches`` counts kernel
+    H6-extend (``csrc/paged_extend.cu``), which takes bf16 q with
+    ``ops.attention.HEAD_DIM_RULE``, any GQA group and page sizes that
+    are a multiple of 128 below 2^15, or raise.  ``paged_extend_attention.launches`` counts kernel
     launches."""
     b, c, hq, d = q.shape
     hkv = cache.num_kv_heads

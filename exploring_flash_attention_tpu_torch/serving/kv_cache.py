@@ -32,6 +32,12 @@ import torch
 from exploring_flash_attention_tpu_torch.configs import cdiv
 
 INT8_MAX = 127.0
+# page sizes the JAX package takes: a multiple of its 128 lanes
+# (serving/kv_cache.py:101-102) below the 15-bit token count of its decode
+# kernel's metadata (serving/decode.py:772); H6-decode and H6-extend take
+# every one of them
+PAGE_LANES = 128
+MAX_PAGE_SIZE = 2 ** 15 - PAGE_LANES
 
 
 @dataclasses.dataclass
@@ -64,8 +70,7 @@ def make_cache(
     max_pages_per_seq: Optional[int] = None,
     device: torch.device | str = "cuda",
 ) -> PagedKVCache:
-    if page_size <= 0:
-        raise ValueError(f"page_size must be positive, got {page_size}")
+    check_page_size(page_size)
     max_pages_per_seq = max_pages_per_seq or n_pages
     return PagedKVCache(
         kv_pages=torch.zeros(
@@ -79,6 +84,17 @@ def make_cache(
         seq_lens=torch.zeros((max_seqs,), dtype=torch.int32, device=device),
         page_size=page_size,
     )
+
+
+def check_page_size(page_size: int) -> None:
+    """Raise ``ValueError`` unless ``page_size`` is one the JAX package's
+    cache and decode take: a positive multiple of 128 below 2^15."""
+    if page_size <= 0 or page_size % PAGE_LANES:
+        raise ValueError(f"page_size must be a multiple of {PAGE_LANES} "
+                         f"(lane width), got {page_size}")
+    if page_size > MAX_PAGE_SIZE:
+        raise ValueError(f"page_size must fit the 15-bit ntok meta field "
+                         f"(below 2^15), got {page_size}")
 
 
 class PageAllocator:

@@ -1,7 +1,7 @@
 """Time the quantized and d-tiled forwards, the backward pair, or the
 split-KV merges, on the card, for A/B runs.
 
-    python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT] [--bwd | --merge]
+    python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT] [--bwd | --merge | --serve]
 
 ROOT (default: this checkout) is the root of a checkout of the port, for
 example a ``git archive`` of another commit unpacked under ``build/``; its
@@ -20,8 +20,9 @@ harness), each with L2 flushed (``time_cuda``) and warm, then of
 ``paged_decode_attention`` and the kernel without its merge
 (``paged_decode_partials``; a root without the fused kernel runs its H2
 after it) at the slice's shape (B=8, Hq=8, Hkv=4, contexts 257..280) and
-at B=1 over 8100 tokens (64 runs).  Alternate two roots in one call
-(parent, change, change, parent) to compare them on one card.
+at B=1 over 8100 tokens (64 runs); with ``--serve``, of the serving
+kernels at the flagship's shapes (``time_serve``).  Alternate two roots in
+one call (parent, change, change, parent) to compare them on one card.
 """
 
 from __future__ import annotations
@@ -61,21 +62,23 @@ def time_bwd(root: Path) -> str:
     return f"{root.name or root}: " + " | ".join(out)
 
 
-def _paged_case(b, hq, hkv, lens, max_len, seed=1):
+def _paged_case(b, hq, hkv, lens, max_len, seed=1, ps=128, chunk=0):
     """A cache of ``max_len`` tokens a slot with a permuted page table
-    (page size 128, d=128), sequences of ``lens`` tokens of random K/V,
-    and one bf16 q [B, Hq, d]."""
+    (page size ``ps``, d=128), sequences of ``lens`` tokens of random K/V,
+    and one bf16 q [B, Hq, d]; with ``chunk`` = C, C more tokens a
+    sequence appended after them and q [B, C, Hq, d]."""
     import numpy as np
     import torch
 
     from exploring_flash_attention_tpu_torch.serving import (
+        append_chunks,
         append_prompts,
         make_cache,
     )
 
     gen = torch.Generator().manual_seed(seed)
-    pages = -(-max_len // 128)
-    cache = make_cache(hkv, 128, b * pages, page_size=128, max_seqs=b,
+    pages = -(-max_len // ps)
+    cache = make_cache(hkv, 128, b * pages, page_size=ps, max_seqs=b,
                        max_pages_per_seq=pages, device="cuda")
     cache.page_table.copy_(torch.randperm(b * pages, generator=gen)
                            .view(b, pages).to(torch.int32))
@@ -84,17 +87,30 @@ def _paged_case(b, hq, hkv, lens, max_len, seed=1):
         k, v = (torch.randn(1, int(n), hkv, 128, generator=gen).to("cuda")
                 for _ in range(2))
         append_prompts(cache, slots[s:s + 1], k, v)
-    q = torch.randn(b, hq, 128, generator=gen).to("cuda", torch.bfloat16)
+    if chunk:
+        k, v = (torch.randn(b, chunk, hkv, 128, generator=gen).to("cuda")
+                for _ in range(2))
+        append_chunks(cache, slots, k, v)
+    shape = (b, chunk, hq, 128) if chunk else (b, hq, 128)
+    q = torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
     return q, cache, slots
+
+
+def _harness_time_cuda():
+    """``time_cuda`` of this file's checkout (``benchmark.py`` beside it),
+    so that both roots of an A/B are timed alike."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_eft_benchmark", Path(__file__).with_name("benchmark.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    return bench.time_cuda
 
 
 def time_merge(root: Path) -> str:
     """H2 by shape, flushed and warm; the decode call and the kernel
-    without its merge.  The timing harness is this file's checkout's
-    (``benchmark.py`` beside it), so that both roots of an A/B are timed
-    alike."""
-    import importlib.util
-
+    without its merge.  The timing harness is this file's checkout's."""
     import torch
 
     from exploring_flash_attention_tpu_torch.ops import splitkv_combine
@@ -103,12 +119,7 @@ def time_merge(root: Path) -> str:
         paged_decode_partials,
     )
 
-    spec = importlib.util.spec_from_file_location(
-        "_eft_benchmark", Path(__file__).with_name("benchmark.py"))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-    time_cuda = bench.time_cuda
-
+    time_cuda = _harness_time_cuda()
     gen = torch.Generator().manual_seed(0)
     out = []
     for name, shape in (("v1 split", (1, 8, 2, 1024, 128)),
@@ -131,12 +142,58 @@ def time_merge(root: Path) -> str:
     return f"{root.name or root}: " + " | ".join(out)
 
 
+def time_serve(root: Path) -> str:
+    """The serving kernels at the flagship's shapes, L2 flushed, with this
+    file's timing harness: H1 through ``flash_attention_v1`` at bench.py's
+    canonical shape (B=32, H=8, L=1024, d=128, no mask) and causal at the
+    generation prefill (B=8, Hq=8, Hkv=4, L=256);
+    ``paged_decode_attention`` at the slice (B=8, Hq=8, Hkv=4, contexts
+    257..280), at the JAX suite's decode entry (B=32, Hq=Hkv=8, page size
+    256, 2048 tokens) and at B=1 over 8100 tokens;
+    ``paged_extend_attention`` at the multi-turn turn (C=256 after
+    257..280)."""
+    import torch
+
+    from exploring_flash_attention_tpu_torch.oracle import make_qkv
+    from exploring_flash_attention_tpu_torch.ops import flash_attention_v1
+    from exploring_flash_attention_tpu_torch.serving import (
+        paged_decode_attention,
+        paged_extend_attention,
+    )
+
+    time_cuda = _harness_time_cuda()
+    out = []
+    for name, b, hq, hkv, l, causal in (("canonical", 32, 8, 8, 1024, False),
+                                        ("prefill", 8, 8, 4, 256, True)):
+        q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+                   for x in make_qkv(b, hq, l, 128, seed=1, heads_kv=hkv))
+        ms = time_cuda(lambda: flash_attention_v1(q, k, v, causal=causal),
+                       n_iter=30)
+        out.append(f"H1 {name} {ms:.4f} ms")
+        del q, k, v
+    for name, b, hq, hkv, lens, max_len, ps in (
+            ("slice", 8, 8, 4, (257, 280), 1024, 128),
+            ("suite", 32, 8, 8, (2048, 2048), 2048, 256),
+            ("B=1 8100", 1, 8, 4, (8100, 8100), 8192, 128)):
+        q, cache, slots = _paged_case(b, hq, hkv, lens, max_len, ps=ps)
+        ms = time_cuda(lambda: paged_decode_attention(q, cache, slots),
+                       n_iter=100)
+        out.append(f"decode {name} {ms:.4f} ms")
+    q, cache, slots = _paged_case(8, 8, 4, (257, 280), 1024, chunk=256)
+    ms = time_cuda(lambda: paged_extend_attention(q, cache, slots),
+                   n_iter=50)
+    out.append(f"extend multi-turn {ms:.4f} ms")
+    return f"{root.name or root}: " + " | ".join(out)
+
+
 def main(root: Path, mode: str = "") -> str:
     sys.path.insert(0, str(root))
     if mode == "--bwd":
         return time_bwd(root)
     if mode == "--merge":
         return time_merge(root)
+    if mode == "--serve":
+        return time_serve(root)
     import torch
 
     from exploring_flash_attention_tpu_torch.oracle import make_qkv

@@ -107,13 +107,13 @@ def test_engine_refuses_over_capacity_and_hold():
     """Slots are held only between ``generate(hold=True)`` and
     ``release()``: a second ``generate`` then raises, ``continue_generation``
     raises without them, and a wrong batch or an overflowing turn raises
-    while leaving them held.  A slot holds 2 pages of 16 tokens."""
+    while leaving them held.  A slot holds 2 pages of 128 tokens."""
     eng = GenerationEngine(init_params(CFG, seed=0, device="cpu"), CFG,
-                           max_seqs=1, max_len=32, page_size=16)
+                           max_seqs=1, max_len=256, page_size=128)
     with pytest.raises(ValueError, match="max_seqs"):
         eng.generate(np.zeros((2, 4), np.int32), 2)
     with pytest.raises(ValueError, match="max_len"):
-        eng.generate(np.zeros((1, 30), np.int32), 4)
+        eng.generate(np.zeros((1, 254), np.int32), 4)
     with pytest.raises(RuntimeError, match="no held slots"):
         eng.continue_generation(np.zeros((1, 4), np.int32), 2)
     assert eng.allocator.free_pages == eng.allocator.n_pages
@@ -126,9 +126,9 @@ def test_engine_refuses_over_capacity_and_hold():
     with pytest.raises(ValueError, match="held slots"):
         eng.continue_generation(np.zeros((2, 4), np.int32), 2)
     with pytest.raises(ValueError, match="max_len"):
-        eng.continue_generation(np.zeros((1, 27), np.int32), 2)
+        eng.continue_generation(np.zeros((1, 251), np.int32), 2)
     assert eng.allocator.free_pages == held
-    eng.continue_generation(np.zeros((1, 25), np.int32), 2)     # 31 cached
+    eng.continue_generation(np.zeros((1, 249), np.int32), 2)    # 255 cached
     eng.release()
     eng.release()                                   # a second one is a no-op
     assert eng.allocator.free_pages == eng.allocator.n_pages

@@ -198,7 +198,14 @@ def test_prefill_kernel_counts_launches_and_refuses_f32(cuda_device):
     assert prefill_attention.launches == before + 1
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+# head dims of the rule (ops.attention.kernel_head_dim) on every instance of
+# H1 (32, 64, 128, 256): the instances' own, and d below them on
+# zero-filled columns (16, 48, 80, 96, 144; 144 leaves a whole 64-column
+# box of the D=256 instance past d)
+HEAD_DIMS = [16, 32, 48, 64, 80, 96, 128, 144, 256]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("mode", ["none", "causal", "window"])
 def test_h1_modes_match_plain_and_oracle(cuda_device, mode, d):
     """Each mask at each head dim, ragged and cross (Lq=200, Lkv=330), GQA
@@ -229,7 +236,7 @@ def _bound_plain(q, k, v, scale, causal, diag_off, window=None):
     return attention_plain(q, k, v, scale, causal, diag_off, window, shift)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("mode", ["none", "causal", "window"])
 @pytest.mark.parametrize("block_q", [64, 128])
 def test_h1_bound_matches_plain_and_oracle(cuda_device, mode, d, block_q):
@@ -293,6 +300,8 @@ def test_h1_bound_traced_positions_equal_static(cuda_device, causal,
     (2, 8, 4, 200, 330, 64, False, None),
     (2, 4, 2, 333, 333, 32, True, 100),
     (1, 8, 4, 1024, 8192, 128, False, None),
+    (1, 16, 1, 333, 600, 256, True, 100),
+    (1, 16, 1, 333, 600, 80, False, None),
 ])
 def test_h1_q_tile_64_is_bitwise_the_128_tile(cuda_device, b, hq, hkv, lq,
                                               lkv, d, causal, window):
@@ -357,9 +366,9 @@ def test_partial_returns_f32_o_written_by_h1(cuda_device):
 
 
 def test_h1_refuses_what_it_cannot_take(cuda_device):
-    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 96)
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 72)
     before = prefill_attention.launches
-    with pytest.raises(ValueError, match="32, 64, 128"):
+    with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
         flash_attention_v1(q, k, v)
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 64)
     with pytest.raises(TypeError, match="bf16"):
@@ -371,26 +380,33 @@ def test_h1_refuses_what_it_cannot_take(cuda_device):
     assert prefill_attention.launches == before
 
 
-@pytest.mark.parametrize("causal,lq,lkv,span", [
-    (False, 200, 1000, 256),      # 4 spans, the last ragged (232 keys)
-    (True, 512, 512, 128),        # spans past a row's diagonal: (0, -inf)
-    (False, 200, 1000, 384),      # spans of three 128-key tiles
-    (True, 1000, 1000, 384),      # causal, the last span 232 keys
+@pytest.mark.parametrize("causal,lq,lkv,span,d", [
+    (False, 200, 1000, 256, 128),  # 4 spans, the last ragged (232 keys)
+    (True, 512, 512, 128, 128),    # spans past a row's diagonal: (0, -inf)
+    (False, 200, 1000, 384, 128),  # spans of three 128-key tiles
+    (True, 1000, 1000, 384, 128),  # causal, the last span 232 keys
+    # the D=256 instance's 64-key tiles, two a span tile; d=80 on D=128
+    (True, 1000, 1000, 384, 256),
+    (False, 200, 1000, 256, 256),
+    (True, 1000, 1000, 384, 80),
+    (False, 200, 1000, 256, 16),
 ])
-def test_h1_span_partials_match_plain(cuda_device, causal, lq, lkv, span):
+def test_h1_span_partials_match_plain(cuda_device, causal, lq, lkv, span,
+                                      d):
     """H1's span mode: one launch writes every span's f32 O and LSE, as
     the plain version over each span computes them."""
-    q, k, v = _qkv(cuda_device, 1, 4, 2, lq, lkv, 128, seed=11)
+    q, k, v = _qkv(cuda_device, 1, 4, 2, lq, lkv, d, seed=11)
+    scale = 1.0 / math.sqrt(d)
     before = prefill_attention.launches
-    o, lse = prefill_attention(q, k, v, 0.125, lkv - lq, causal,
+    o, lse = prefill_attention(q, k, v, scale, lkv - lq, causal,
                                out_dtype=torch.float32, kv_span=span)
     torch.cuda.synchronize()
     assert prefill_attention.launches == before + 1
-    o_ref, lse_ref = prefill_attention(q.cpu(), k.cpu(), v.cpu(), 0.125,
+    o_ref, lse_ref = prefill_attention(q.cpu(), k.cpu(), v.cpu(), scale,
                                        lkv - lq, causal,
                                        out_dtype=torch.float32, kv_span=span)
     nkb = -(-lkv // span)
-    assert o.shape == (1, 4, nkb, lq, 128) and lse.shape == (1, 4, nkb, lq)
+    assert o.shape == (1, 4, nkb, lq, d) and lse.shape == (1, 4, nkb, lq)
     assert (o.cpu() - o_ref).abs().max().item() < O_TOL
     fin = torch.isfinite(lse_ref)
     assert torch.equal(torch.isfinite(lse.cpu()), fin)
@@ -400,7 +416,7 @@ def test_h1_span_partials_match_plain(cuda_device, causal, lq, lkv, span):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("lq,lkv", [
     (127, 127), (128, 128), (129, 129), (257, 257), (127, 257), (257, 129),
 ])
@@ -474,10 +490,12 @@ def test_h2_combine_matches_plain_and_counts(cuda_device):
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nkb", [1, 2, 3, 33])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 144, 256])
 def test_h2_row_layouts_match_plain(cuda_device, d, nkb, out_dtype):
-    """H2 at each row layout (a row is d / 4 lanes: 4, 2 or 1 rows a warp)
-    and partial count (one; a few; 33, more than a row's lanes at every d),
+    """H2 at each row layout (a row is d / 4 lanes: 4, 2 or 1 rows a warp;
+    at d 16, 48 and 80 the next power of two of lanes, some idle; at d
+    144 and 256 two 16-byte chunks a lane) and partial count (one; a few;
+    33, more than a row's lanes at every d),
     f32 and bf16 O, over 2 x 3 x 37 = 222 rows, no multiple of a block's
     16, 8 or 4 rows, against its plain version: a span that saw nothing
     weighs 0, a row whose partials are all (0, -inf) gives 0."""
@@ -679,6 +697,78 @@ def test_decode_kernel_refuses_what_it_cannot_take(cuda_device):
         paged_decode_attention(q64, odd, s64)
 
 
+@pytest.mark.parametrize("d", [8, 72, 272])
+def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
+    """H1, H2, H6-decode and H6-extend raise ``ValueError`` naming the rule
+    for a head dim that is not a multiple of 16 from 16 to 256, on CUDA
+    tensors, and launch nothing."""
+    counted = (prefill_attention, splitkv_combine, paged_decode_partials,
+               paged_extend_attention)
+    before = [fn.launches for fn in counted]
+    rule = "multiple of 16 from 16 to 256"
+    q, k, v = _qkv(cuda_device, 1, 4, 2, 64, 64, d)
+    with pytest.raises(ValueError, match=rule):
+        prefill_attention(q, k, v, 0.125, 0)
+    with pytest.raises(ValueError, match=rule):
+        splitkv_combine(torch.zeros(1, 2, 2, 8, d, device=cuda_device),
+                        torch.zeros(1, 2, 2, 8, device=cuda_device))
+    cache = make_cache(2, d, 4, max_seqs=1, device=cuda_device)
+    slots = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match=rule):
+        paged_decode_attention(q[:, :, 0].contiguous(), cache, slots)
+    with pytest.raises(ValueError, match=rule):
+        paged_extend_attention(q.transpose(1, 2).contiguous(), cache, slots)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == before
+
+
+# (hq, hkv, d, page size) of the paged kernels at the rule's new points:
+# every d of 16, 80 and 256, every group of 1, 16 and 32 (chunked over
+# blocks of at most 8 q heads, 4 at d=256) and every page size of 128, 512
+# and 1024 appear
+PAGED_HEADS = [(16, 1, 80, 512), (32, 1, 16, 1024), (4, 4, 256, 128),
+               (32, 2, 256, 512), (16, 1, 16, 128), (2, 2, 80, 1024)]
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("hq,hkv,d,ps", PAGED_HEADS)
+def test_decode_kernel_head_dims_groups_pages(cuda_device, hq, hkv, d, ps,
+                                              window):
+    """H6-decode, fused, at the rule's new head dims, GQA groups past 8
+    (blocks of a group chunk, a ticket each) and pages past 256, over
+    ragged lengths to 2300 (runs of several pages): O against the plain
+    version and the f64 oracle over each band; zeros for an empty
+    sequence and a slot of -1; the fused O within one bf16 ulp of the
+    plain merge of the kernel's own partials; every ticket zero after."""
+    lens = [0, 1, 127, 513, 1100, 2300]
+    cache, q, slots = _paged_case(cuda_device, hq, hkv, d, ps, lens, seed=60)
+    scale = 1.0 / math.sqrt(d)
+    before = paged_decode_partials.launches
+    o = paged_decode_attention(q, cache, slots, window=window)
+    torch.cuda.synchronize()
+    assert paged_decode_partials.launches == before + 1
+    assert not ticket_buffer(cuda_device).any()
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert _paged_close(o, paged_decode_plain(q, cache, slots, scale, window))
+    assert (o[0] == 0).all()
+    g = hq // hkv
+    for s, n in enumerate(lens[1:], 1):
+        kf, vf = gather_kv(cache, s)
+        lo = max(0, n - window) if window else 0
+        oracle = naive_attention(q[s].view(hkv, g, d), kf[:, lo:],
+                                 vf[:, lo:])
+        assert _paged_close(o[s].float().view(hkv, g, d).cpu(),
+                            torch.from_numpy(oracle)), s
+    o_part, lse = paged_decode_partials(q, cache, slots, scale, window)
+    merged = splitkv_combine_plain(o_part, lse)[:, :, 0]
+    top = merged.abs().max().item()
+    assert (o.float() - merged).abs().max().item() <= _bf16_ulp(top)
+    bad = slots.clone()
+    bad[2] = -1
+    o_bad = paged_decode_attention(q, cache, bad, window=window)
+    assert (o_bad[2] == 0).all() and torch.equal(o_bad[3:], o[3:])
+
+
 def _bf16_ulp(x: float) -> float:
     """One bf16 ulp at magnitude x (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(x)) - 7)
@@ -735,6 +825,11 @@ EXTEND_CASES = [
     # the speculative verify's C = gamma + 1 = 5 (10 rows of a 64-row
     # tile), chunks across page boundaries 128, 256 and 384
     (8, 4, 128, 128, [125, 252, 381, 126, 0, 3], 5),
+    # the rule's new head dims, groups and pages (PAGED_HEADS)
+    (16, 1, 80, 512, [0, 300, 900], 129),
+    (32, 1, 16, 1024, [1000, 5], 40),
+    (4, 4, 256, 128, [257, 0, 130], 200),
+    (32, 2, 256, 512, [600, 17], 9),
 ]
 
 
@@ -830,6 +925,25 @@ def test_extend_kernel_counts_launches_and_refuses_f32(cuda_device):
 def _rel(got, ref):
     return ((got.float() - ref.float()).abs().max()
             / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("d", [80, 256])
+@pytest.mark.parametrize("pos,causal", [((256, 256), True), ((0, 300), True),
+                                        ((300, 0), True), ((0, 0), False)])
+def test_h1_traced_offsets_at_new_head_dims(cuda_device, d, pos, causal):
+    """H1 at traced positions (the device int32 pair) is bitwise its static
+    launch at d 80 (D=128 instance) and 256 (64-key tiles), over one span
+    and over 128-key spans; a hop in the future gives (0, -inf)."""
+    q, k, v = _qkv(cuda_device, 2, 16, 1, 300, 300, d, seed=70)
+    offs = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    diag = pos[0] - pos[1]
+    for span in (None, 128):
+        fwd = [prefill_attention(q, k, v, d ** -0.5, x if causal else 0,
+                                 causal, out_dtype=torch.float32,
+                                 kv_span=span) for x in (offs, diag)]
+        assert all(torch.equal(a, b) for a, b in zip(*fwd))
+        if pos == (0, 300):
+            assert (fwd[0][0] == 0).all() and torch.isneginf(fwd[0][1]).all()
 
 
 def _bwd_case(dev, b, hq, hkv, lq, lkv, d, diag_off, seed=4, causal=True,
@@ -1366,6 +1480,40 @@ def test_generate_replays_a_graph_equal_to_the_eager_loop(cuda_device,
     assert eng.allocator.free_pages == eng.allocator.n_pages
 
 
+@pytest.mark.parametrize("n_heads,n_kv_heads,d_head,page_size", [
+    (16, 1, 80, 128), (4, 1, 256, 512)])
+def test_generate_serves_new_head_geometries(cuda_device, n_heads,
+                                             n_kv_heads, d_head, page_size):
+    """A small LM at the rule's new head geometries (d_head 80 in a group
+    of 16; d_head 256 with one KV head on 512-token pages): ``generate``
+    replays its decode graph bitwise the eager loop, with H1 and H6-decode
+    counted per replay, and ``continue_generation`` runs H6-extend once a
+    layer."""
+    cfg = ModelConfig(vocab_size=512, n_layers=2, n_heads=n_heads,
+                      n_kv_heads=n_kv_heads, d_model=256, d_head=d_head,
+                      d_ff=512, dtype=torch.bfloat16)
+    eng = GenerationEngine(init_params(cfg, seed=0, device=cuda_device), cfg,
+                           max_seqs=4, max_len=1024, page_size=page_size)
+    prompt = np.random.default_rng(0).integers(0, 512, (3, 150)).astype(
+        np.int32)
+    ref = eager_generate(eng, prompt, 12)
+    for _ in range(2):
+        before = (prefill_attention.launches, paged_decode_partials.launches)
+        out = eng.generate(prompt, 12)
+        assert (prefill_attention.launches - before[0],
+                paged_decode_partials.launches - before[1]) == (2, 2 * 11)
+        assert np.array_equal(out, ref)
+    eng.generate(prompt, 8, hold=True)
+    turn = np.random.default_rng(1).integers(0, 512, (3, 140))
+    before = (paged_extend_attention.launches, paged_decode_partials.launches)
+    out = eng.continue_generation(turn, 6)
+    assert (paged_extend_attention.launches - before[0],
+            paged_decode_partials.launches - before[1]) == (2, 2 * 5)
+    assert ((out >= 0) & (out < 512)).all()
+    eng.release()
+    assert eng.allocator.free_pages == eng.allocator.n_pages
+
+
 def _spec_state(eng, loop):
     state = [loop.pending, loop.count, loop.out, loop.rounds, loop.accepted,
              *[t for kv in loop.bufs for t in kv]]
@@ -1452,6 +1600,34 @@ def test_spec_generate_graphed_equals_eager(cuda_device, mode):
     assert np.array_equal(hot[0], hot[1]) and not np.array_equal(hot[0],
                                                                  hot[2])
     assert sorted(k[2] for k in eng._loops) == [0.0, 0.9]
+    assert eng.t_alloc.free_pages == eng.t_alloc.n_pages
+
+
+def test_spec_generate_serves_a_new_head_geometry(cuda_device):
+    """``SpeculativeEngine`` with a target and a paged draft of d_head 80 in
+    a GQA group of 16: the verify runs H6-extend at that geometry, the
+    draft steps H6-decode; graphed rounds bitwise the eager ones, launches
+    counted per replay."""
+    cfg = ModelConfig(vocab_size=512, n_layers=2, n_heads=16, n_kv_heads=1,
+                      d_model=256, d_head=80, d_ff=512, dtype=torch.bfloat16)
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    eng = SpeculativeEngine(init_params(cfg, seed=0, device=cuda_device), cfg,
+                            init_params(dcfg, seed=3, device=cuda_device),
+                            dcfg, max_seqs=4, max_len=512, draft_mode="paged")
+    prompt = np.random.default_rng(9).integers(0, 512, (3, 140)).astype(
+        np.int32)
+    eng.graphed = False
+    ref, ref_stats = eng.generate(prompt, 20, gamma=3)
+    eng.graphed = True
+    before = (prefill_attention.launches, paged_decode_partials.launches,
+              paged_extend_attention.launches)
+    out, stats = eng.generate(prompt, 20, gamma=3)
+    rounds = int(stats["rounds"])
+    assert (prefill_attention.launches - before[0],
+            paged_decode_partials.launches - before[1],
+            paged_extend_attention.launches - before[2]) == (
+        3, 4 * rounds, 2 * rounds)
+    assert np.array_equal(out, ref) and stats == ref_stats
     assert eng.t_alloc.free_pages == eng.t_alloc.n_pages
 
 

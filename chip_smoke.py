@@ -17,9 +17,9 @@ Phases, one line each; any failure exits non-zero before the last line:
    csrc/ and its -Xptxas -v report (registers, shared memory) is printed;
    the SASS of the kernel functions of H1, H3, H4-int8, H4-kvq, H5 and
    H6-extend (cuobjdump) must hold wgmma instructions: HGMMA in every H1
-   (D 32, 64, 128, 256),
-   H3-dkv, H3-dq, H4-kvq, H5 and H6-extend function and in H4-int8's
-   pv_mode bf16 ones,
+   (D 32, 64, 128, 256), H3-dkv and H3-dq (D 32, 64, 128, 256; 64 and
+   128 also with d a constant),
+   H4-kvq, H5 and H6-extend function and in H4-int8's pv_mode bf16 ones,
    IGMMA in every H4-int8 function, and no HMMA or IMMA (the mma.sync and
    WMMA forms they replaced); every H2 function must load with 128-bit
    global loads (LDG.E.128);
@@ -97,9 +97,11 @@ Phases, one line each; any failure exits non-zero before the last line:
    plain forward, at the training shape (B=8, Hq=8, Hkv=4, L=1024,
    d=128), a ragged cross case (Lq=200, Lkv=216), L=3072, B=1 (where
    the JAX package takes B12/B13) and the seq2seq cross attention's Lq=256
-   against Lkv=1024, each under no mask, causal and a window of 100 keys; the controls: the last 64-key tile dropped, the
-   diagonal key hidden, the window one key narrower; two runs must be
-   bitwise equal;
+   against Lkv=1024, then at d 16, 32, 80, 96, 144 and 256 (every instance
+   off the flagship's d, a GQA group of 16 over one KV head, ragged cross
+   shapes), each under no mask, causal and a window of 100 keys; the
+   controls: the last 64-key tile dropped, the diagonal key hidden, the
+   window one key narrower; two runs must be bitwise equal;
 12. slice:  the full-width flagship LM (vocab 32768, 4 layers, d_model 1024,
    GQA 8/4, d_head 128, d_ff 4096, bf16, random weights from seed 0) runs
    GenerationEngine.generate on [8, 256] prompts for 24 tokens.  Every
@@ -247,6 +249,21 @@ Phases, one line each; any failure exits non-zero before the last line:
    heads80g16 through the continuous-batching scheduler (its gate, 12
    requests graphed and eager, bitwise equal, one H6-decode launch a
    step).
+23. heads_train (after train): the heads phase's two models trained as
+   the flagship is, so H3 runs at d 256 (its column-split instance) and
+   80 (D=128 on zero-filled columns) inside a model: make_train_step on
+   tokens [8, 1025] (the step-0 loss and every gradient against the
+   plain attention beside the diagonal-hidden controls, H1, H3-dkv and
+   H3-dq 4 launches a step, the loss falling strictly over 5 AdamW steps,
+   training tokens/s beside the train phase's flagship), the sharded step
+   at MeshConfig(1, 1, 1) against mesh=None, and heads256's encoder
+   (make_mlm_train_step, bidirectional) as the encoder phase runs it, its
+   gradients held against the plain backward in H3's place (the whole
+   path against the plain attention is shown: there H1's bf16 O moves a
+   bidirectional leaf by up to 6e-2 of its norm, the backward not at all);
+   then H3 timed at each model's shape (B=8, L=1024, causal and without a
+   mask) beside its plain version, SDPA's backward and the bound, and H3
+   at traced offsets at d 80 and 256 bitwise its static launch.
 
 ``python3 chip_smoke.py --only PHASE,...`` runs the build and the named
 phases alone (no kernels line), for a quicker call while a phase is
@@ -402,10 +419,17 @@ SPLITKV_PY = "exploring_flash_attention_tpu/ops/attention_v2_splitkv.py"
 # (B, Hq, Hkv, Lq, Lkv, d) of the bwd phase: the training shape first (its
 # error goes into the kernels line), a ragged cross case, and a length
 # where the JAX package takes B12/B13
+BWD_CROSS = (8, 8, 4, 256, 1024, 128)   # the seq2seq cross attention
 BWD_SHAPES = [(8, 8, 4, 1024, 1024, 128), (8, 8, 4, 200, 216, 128),
-              (1, 8, 4, 3072, 3072, 128),
-              # the seq2seq cross attention: Lq = 256 against Lkv = 1024
-              (8, 8, 4, 256, 1024, 128)]
+              (1, 8, 4, 3072, 3072, 128), BWD_CROSS,
+              # every H3 instance off the flagship's d: 16 and 32 on D=32,
+              # 80 and 96 on D=128's zero-filled columns, 144 and 256 on
+              # the column-split D=256; a group of 16 over one KV head and
+              # ragged cross shapes (Lq 1000, Lkv 1100: neither a multiple
+              # of 64)
+              (2, 16, 1, 1000, 1100, 16), (2, 8, 4, 1024, 1024, 32),
+              (2, 16, 1, 1000, 1100, 80), (2, 8, 2, 600, 700, 96),
+              (2, 8, 2, 1000, 1100, 144), (2, 16, 1, 1000, 1100, 256)]
 # the masks H3 takes, as (causal, window): the bwd phase runs every shape
 # under each; the window crosses the 64-key tiles and is narrower than
 # every shape's Lkv
@@ -565,13 +589,14 @@ def phase_build(kernels):
 # the wgmma kernels' functions in the SASS: H1 (D 32, 64, 128, 256 x Q
 # tiles of 64 and 128 rows x the exact and bound statistics), H4-int8
 # (d 64, 128 x pv_mode), H4-kvq (d 64, 128 x int8, e4m3), H5 (d 128,
-# 256, 384, 512 x bf16, int8, e4m3), H3-dkv and H3-dq (d 64, 128),
+# 256, 384, 512 x bf16, int8, e4m3), H3-dkv and H3-dq (D 32, 64, 128,
+# 256, and the exact forms of 64 and 128, whose d is a constant),
 # H6-extend (D 64, 128, 256)
 WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 4,
                    "kvquant_attention_kernel": 4,
                    "dtiled_attention_kernel": 12,
-                   "attention_bwd_dkv_kernel": 2,
-                   "attention_bwd_dq_kernel": 2,
+                   "attention_bwd_dkv_kernel": 6,
+                   "attention_bwd_dq_kernel": 6,
                    "paged_extend_kernel": 3}
 H2_FUNCTIONS = 16              # one instance per d, 16 to 256 by 16
 
@@ -1990,6 +2015,7 @@ def phase_bwd(torch, dev):
 
     gen = torch.Generator().manual_seed(3)
     errs = {}                   # max |d| vs plain at the first shape, by mask
+    by_d = {}                   # max|d|/max|ref| vs plain and f64, by d
     for b, hq, hkv, lq, lkv, d in BWD_SHAPES:
         q = _bf16(torch, dev, gen, b, hq, lq, d)
         k = _bf16(torch, dev, gen, b, hkv, lkv, d)
@@ -2032,11 +2058,20 @@ def phase_bwd(torch, dev):
             err = [(g.float() - r.float()).abs().max().item()
                    for g, r in zip(grads, plain)]
             errs.setdefault(mask, err)
-            if (b, hq, hkv, lq, lkv, d) == BWD_SHAPES[-1] and mask == "none":
+            if (b, hq, hkv, lq, lkv, d) == BWD_CROSS and mask == "none":
                 errs["cross"] = err         # the seq2seq cross attention's
+            if d != 128:
+                by_d.setdefault(d, {"shape": f"B={b} Hq={hq} Hkv={hkv} "
+                                             f"Lq={lq} Lkv={lkv}"})[mask] = {
+                    "rel_err_vs_plain": {"h3dq": e_plain[0],
+                                         "h3dkv": max(e_plain[1:])},
+                    "rel_err_vs_f64": {"h3dq": e_f64[0],
+                                       "h3dkv": max(e_f64[1:])},
+                    "control": {"h3dq": e_bad[0], "h3dkv": min(e_bad[1:])}}
             del out, lse, grads, again, plain, f64, bad
     print("phase bwd: ok")
-    return {m: {"h3dq": e[0], "h3dkv": max(e[1:])} for m, e in errs.items()}
+    return ({m: {"h3dq": e[0], "h3dkv": max(e[1:])} for m, e in errs.items()},
+            by_d)
 
 
 def compare_with_full_forward(torch, params, cfg, prompt, out):
@@ -2419,6 +2454,15 @@ def hide_diagonal_bwd(q, k, v, out, do, lse, scale, causal, diag_off,
                                diag_off - 1, window)
 
 
+def plain_bwd(q, k, v, out, do, lse, scale, causal, diag_off, window):
+    """The plain backward in H3's place, under the call's own mask."""
+    from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+        attention_bwd_plain,
+    )
+    return attention_bwd_plain(q, k, v, out, do, lse, scale, causal,
+                               diag_off, window)
+
+
 def causal_bwd(q, k, v, out, do, lse, scale, causal, diag_off, window):
     """A known-wrong backward of a bidirectional forward: the plain one
     under the causal mask."""
@@ -2436,7 +2480,13 @@ def leaf_err(named_leaves, grads, ref):
     return errs[worst], named_leaves[worst]
 
 
-def phase_train(torch, dev):
+def phase_train(torch, dev, name="train", **heads):
+    """make_train_step on the flagship LM, or with its attention geometry
+    changed by ``heads`` (n_heads, n_kv_heads, d_head; the heads_train
+    phase's models): the step-0 loss and every gradient against the plain
+    attention beside the diagonal-hidden controls, the launches of each
+    step, the loss over 5 AdamW steps and training tokens/s.  Returns
+    (launches of a step, tokens/s, the checks' readings)."""
     from unittest import mock
 
     from exploring_flash_attention_tpu_torch.models import (
@@ -2454,7 +2504,7 @@ def phase_train(torch, dev):
         attention_bwd as attention_bwd_module,
     )
 
-    cfg = flagship_config()
+    cfg = dataclasses.replace(flagship_config(), **heads)
     bsz, seq, n_steps, n_timed = 8, 1024, 5, 5
     params = make_trainable(init_params(cfg, seed=0, device=dev))
     names, leaves = zip(*named_param_leaves(params))
@@ -2480,7 +2530,7 @@ def phase_train(torch, dev):
     e_grad, leaf = leaf_err(names, grads_k, grads_p)
     e_bad, leaf_bad = leaf_err(names, grads_bad, grads_p)
     del grads_k, grads_p, grads_bad
-    print(f"  train step-0 loss {loss_k:.6f}, with the plain attention "
+    print(f"  {name} step-0 loss {loss_k:.6f}, with the plain attention "
           f"{loss_p:.6f}: |d| {abs(loss_k - loss_p):.3e} (tol "
           f"{TRAIN_LOSS_TOL:g}), control (diagonal key hidden in the "
           f"forward) {abs(loss_bad - loss_p):.3e}; largest per-leaf "
@@ -2505,7 +2555,7 @@ def phase_train(torch, dev):
         zero_counters()
         losses.append(step(params, opt, tokens).item())
         counts.append(read_counters())
-    print(f"  train launches per step {counts[0]} (expected {want}); AdamW "
+    print(f"  {name} launches per step {counts[0]} (expected {want}); AdamW "
           f"losses over {n_steps} steps {[round(x, 6) for x in losses]}")
     _require(all(c == want for c in counts), "a train step missed a kernel")
     _require(all(math.isfinite(x) for x in losses), "a loss is not finite")
@@ -2522,23 +2572,36 @@ def phase_train(torch, dev):
         times.append(time.perf_counter() - t0)
     med = float(np.median(times))
     flop = train_step_flop(cfg, bsz, seq)
-    print(f"  train step {flop / 1e12:.3f} TFLOP (matmuls, causal attention "
-          f"incl. its recompute): {flop / med / 1e12:.1f} TFLOP/s at the "
-          f"median step; peak memory "
+    print(f"  {name} step {flop / 1e12:.3f} TFLOP (matmuls, causal "
+          f"attention incl. its recompute): {flop / med / 1e12:.1f} TFLOP/s "
+          f"at the median step; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     tok_s = bsz * seq / med
-    print(f"  train step times s {[round(t, 5) for t in sorted(times)]}: "
+    print(f"  {name} step times s {[round(t, 5) for t in sorted(times)]}: "
           f"median {med:.5f} s, {tok_s:.1f} training tokens/s (B={bsz}, "
           f"L={seq}, forward + backward + AdamW)")
-    print("phase train: ok")
-    return counts[0], tok_s
+    if not heads:
+        print("phase train: ok")
+    return counts[0], tok_s, {
+        "loss_err": abs(loss_k - loss_p),
+        "loss_control": abs(loss_bad - loss_p), "grad_err": e_grad,
+        "grad_control": e_bad, "losses": losses, "step_s": med,
+        "tflop_s": flop / med / 1e12}
 
 
-def phase_encoder(torch, dev):
+def phase_encoder(torch, dev, name="encoder", bwd_ref=False, **heads):
     """The JAX suite's encoder entry (bench/suite.py:1057-1102) on the
-    port: the flagship geometry trained with make_mlm_train_step (AdamW,
-    lr 1e-3) on tokens [8, 1024] from np.random.default_rng(0), under one
-    fixed mask in every step, as the suite holds its rng fixed."""
+    port: the flagship geometry (or its attention changed by ``heads``, as
+    the heads_train phase runs heads256) trained with make_mlm_train_step
+    (AdamW, lr 1e-3) on tokens [8, 1024] from np.random.default_rng(0),
+    under one fixed mask in every step, as the suite holds its rng fixed.
+
+    With ``bwd_ref`` the gradients are held against the same forward with
+    the plain backward in H3's place (plain_bwd), and the whole path's
+    distance from the plain attention is shown beside them: in the heads
+    models' bidirectional layers H1's bf16 O alone moves a leaf by up to
+    6e-2 of its norm (the kernels' forward with the plain backward reads
+    the same as with H3; the flagship's reads 4.0e-2)."""
     from unittest import mock
 
     from exploring_flash_attention_tpu_torch.models import (
@@ -2557,7 +2620,7 @@ def phase_encoder(torch, dev):
         attention_bwd as attention_bwd_module,
     )
 
-    cfg = flagship_config()
+    cfg = dataclasses.replace(flagship_config(), **heads)
     bsz, seq, n_steps, n_timed = 8, 1024, 5, 5
     mtok = cfg.vocab_size - 1
     params = make_trainable(init_params(cfg, seed=0, device=dev))
@@ -2582,15 +2645,26 @@ def phase_encoder(torch, dev):
     with mock.patch.object(attention_bwd_module, "masked_attention_bwd",
                            causal_bwd):
         grads_bad = loss_and_grads()[1]
-    e_grad, leaf = leaf_err(names, grads_k, grads_p)
-    e_bad, leaf_bad = leaf_err(names, grads_bad, grads_p)
-    del grads_k, grads_p, grads_bad
-    print(f"  encoder step-0 MLM loss {loss_k:.6f} over "
+    ref, what = grads_p, "the plain path"
+    if bwd_ref:
+        e_path, leaf_path = leaf_err(names, grads_k, grads_p)
+        with mock.patch.object(attention_bwd_module, "masked_attention_bwd",
+                               plain_bwd):
+            ref = loss_and_grads()[1]
+        what = "the plain backward in H3's place"
+        print(f"  {name}: largest per-leaf ||dg||/||g|| of the whole path "
+              f"vs the plain attention {e_path:.3e} at {leaf_path} "
+              f"(shown: H1's bf16 O), of the kernels' forward with the "
+              f"plain backward {leaf_err(names, ref, grads_p)[0]:.3e}")
+    e_grad, leaf = leaf_err(names, grads_k, ref)
+    e_bad, leaf_bad = leaf_err(names, grads_bad, ref)
+    del grads_k, grads_p, grads_bad, ref
+    print(f"  {name} step-0 MLM loss {loss_k:.6f} over "
           f"{int(mask.sum())} masked tokens, with the plain attention "
           f"{loss_p:.6f}: |d| {abs(loss_k - loss_p):.3e} (tol "
           f"{ENCODER_LOSS_TOL:g}), control (causal forward) "
           f"{abs(loss_bad - loss_p):.3e}; largest per-leaf ||dg||/||g|| "
-          f"over {len(leaves)} leaves vs the plain path {e_grad:.3e} at "
+          f"over {len(leaves)} leaves vs {what} {e_grad:.3e} at "
           f"{leaf} (tol {GRAD_REL_TOL:g}), control (causal backward) "
           f"{e_bad:.3e} at {leaf_bad}")
     _require(math.isfinite(loss_k), "encoder step-0 loss not finite")
@@ -2612,7 +2686,7 @@ def phase_encoder(torch, dev):
         zero_counters()
         losses.append(step(params, opt, tokens, None, mask).item())
         counts.append(read_counters())
-    print(f"  encoder launches per step {counts[0]} (expected {want}); "
+    print(f"  {name} launches per step {counts[0]} (expected {want}); "
           f"AdamW MLM losses over {n_steps} steps "
           f"{[round(x, 6) for x in losses]}")
     _require(all(c == want for c in counts),
@@ -2630,10 +2704,11 @@ def phase_encoder(torch, dev):
         times.append(time.perf_counter() - t0)
     med = float(np.median(times))
     tok_s = bsz * seq / med
-    print(f"  encoder step times s {[round(t, 5) for t in sorted(times)]}: "
+    print(f"  {name} step times s {[round(t, 5) for t in sorted(times)]}: "
           f"median {med:.5f} s, {tok_s:.1f} encoder training tokens/s "
           f"(B={bsz}, L={seq}, MLM forward + backward + AdamW, fixed mask)")
-    print("phase encoder: ok")
+    if not heads:
+        print("phase encoder: ok")
     return counts[0], tok_s
 
 
@@ -3352,21 +3427,95 @@ def phase_seq2seq(torch, dev):
     return out
 
 
-def time_kernels(torch, dev):
-    """CUDA-event medians (L2 flushed before each call) of H3 beside its
-    plain version, its bounds from these inputs and the backward of
-    scaled_dot_product_attention; and H1 at the generation and training shapes and at the v1 phase's causal
-    cross case beside scaled_dot_product_attention (is_causal where Lq ==
-    Lkv, a bottom-right boolean mask at Lq=512, Lkv=1024); the v1 phase
-    times H1 at the canonical shape."""
+def h3_instance(d):
+    """H3's instance for head dim d: the smallest of 32, 64, 128, 256 at or
+    above it."""
+    return next(x for x in (32, 64, 128, 256) if d <= x)
+
+
+def h3_times(torch, q, k, v, do, causal):
+    """H3 at q, k, v and do's shape (the static diagonal 0), causal or
+    without a mask: CUDA-event medians (L2 flushed before each call) of
+    each kernel alone, the delta reduction alone and the pair through
+    flash_attention_bwd, against the whole plain backward and the autograd
+    backward of scaled_dot_product_attention under the same mask (K and V
+    repeated over the group, its forward recorded once, outside the timed
+    calls); each kernel's bound at the true d (8 d flops a visible pair
+    for H3-dkv, 6 d for H3-dq, or each input read and output written
+    once), and the tensor-core work its instance runs for the same pairs
+    (the padded columns, (D - d) / D, and at D=256 the S and dP products
+    that both warpgroups compute) over the true d's."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from exploring_flash_attention_tpu_torch.ops import (
         attention_bwd_dkv,
         attention_bwd_dq,
         attention_bwd_plain,
-        attention_plain,
         flash_attention_bwd,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    b, hq, l, d = q.shape
+    hkv = k.shape[1]
+    s = 1.0 / math.sqrt(d)
+    o, lse = prefill_attention(q, k, v, s, 0, causal)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    leaves = [x.detach().clone().requires_grad_() for x in (
+        q, k.repeat_interleave(hq // hkv, 1),
+        v.repeat_interleave(hq // hkv, 1))]
+    o_lib = sdpa(*leaves, is_causal=causal)
+    lib = time_cuda(lambda: torch.autograd.grad(
+        o_lib, leaves, do, retain_graph=True), n_iter=20)
+    plain = time_cuda(lambda: attention_bwd_plain(
+        q, k, v, o, do, lse, s, causal, 0), n_iter=20)
+    pairs = visible_pairs(l, l, causal, None) * b * hq
+    q_bytes, kv_bytes = b * hq * l * d * 2, b * hkv * l * d * 2
+    row_bytes = b * hq * l * 4
+    big = h3_instance(d)
+    t = {"h3dkv": {"ms": time_cuda(lambda: attention_bwd_dkv(
+             q, k, v, do, lse, delta, s, causal, 0), n_iter=20),
+             "plain_ms": plain, "library_ms": lib,
+             "instance_work_ratio": big / d * (1.5 if big == 256 else 1)},
+         "h3dq": {"ms": time_cuda(lambda: attention_bwd_dq(
+             q, k, v, do, lse, delta, s, causal, 0), n_iter=20),
+             "plain_ms": plain, "library_ms": lib,
+             "instance_work_ratio": big / d * (5 / 3 if big == 256 else 1)}}
+    t["h3dkv"]["bound_ms"], t["h3dkv"]["bound_by"] = roofline(
+        8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)
+    t["h3dq"]["bound_ms"], t["h3dq"]["bound_by"] = roofline(
+        6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)
+    for x in t.values():
+        x["bound_share"] = x["bound_ms"] / x["ms"]
+    delta_ms = time_cuda(lambda: (do.float() * o.float()).sum(dim=-1),
+                         n_iter=20)
+    pair = time_cuda(lambda: flash_attention_bwd(
+        q, k, v, o, do, lse, scale=s, causal=causal), n_iter=20)
+    print(f"  times at B={b} Hq={hq} Hkv={hkv} L={l} d={d} (instance D="
+          f"{big}), mask {'causal' if causal else 'none'}: H3-dkv "
+          f"{t['h3dkv']['ms']:.4f} ms (bound {t['h3dkv']['bound_ms']:.4f} "
+          f"ms, {t['h3dkv']['bound_share']:.1%}), H3-dq "
+          f"{t['h3dq']['ms']:.4f} ms (bound {t['h3dq']['bound_ms']:.4f} "
+          f"ms, {t['h3dq']['bound_share']:.1%}), the delta reduction "
+          f"{delta_ms:.4f} ms, flash_attention_bwd (delta + both) "
+          f"{pair:.4f} ms vs attention_bwd_plain {plain:.4f} ms and the "
+          f"backward of scaled_dot_product_attention (is_causal={causal}) "
+          f"{lib:.4f} ms")
+    del leaves, o_lib
+    return {**t, "delta_ms": delta_ms, "pair_ms": pair}
+
+
+def time_kernels(torch, dev):
+    """CUDA-event medians (L2 flushed before each call) of H3 at the
+    training shape (h3_times); and H1 at the generation and training
+    shapes and at the v1 phase's causal cross case beside
+    scaled_dot_product_attention (is_causal where Lq == Lkv, a
+    bottom-right boolean mask at Lq=512, Lkv=1024); the v1 phase times H1
+    at the canonical shape."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_plain,
         prefill_attention,
     )
     from exploring_flash_attention_tpu_torch.utils import time_cuda
@@ -3391,55 +3540,13 @@ def time_kernels(torch, dev):
 
     hq, hkv, d = 8, 4, 128
     # H3 at the training shape, causal (the train step) and without a mask
-    # (the encoder step): each kernel alone, the delta reduction alone, the
-    # pair through flash_attention_bwd, against the whole plain backward
-    # and the autograd backward through scaled_dot_product_attention under
-    # the same mask (its forward recorded once, outside the timed calls)
+    # (the encoder step)
     b, l = 8, 1024
     q, do = (_bf16(torch, dev, gen, b, hq, l, d) for _ in range(2))
     k, v = (_bf16(torch, dev, gen, b, hkv, l, d) for _ in range(2))
-    q_bytes, kv_bytes, row_bytes = b * hq * l * d * 2, b * hkv * l * d * 2, \
-        b * hq * l * 4
     for causal in (True, False):
-        o, lse = prefill_attention(q, k, v, s, 0, causal)
-        delta = (do.float() * o.float()).sum(dim=-1)
-        leaves = [x.detach().clone().requires_grad_() for x in (
-            q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1))]
-        o_lib = sdpa(*leaves, is_causal=causal)
-        lib = time_cuda(lambda: torch.autograd.grad(
-            o_lib, leaves, do, retain_graph=True), n_iter=20)
-        plain = time_cuda(lambda: attention_bwd_plain(
-            q, k, v, o, do, lse, s, causal, 0), n_iter=20)
-        pairs = visible_pairs(l, l, causal, None) * b * hq
-        t = {"h3dkv": {"ms": time_cuda(lambda: attention_bwd_dkv(
-                 q, k, v, do, lse, delta, s, causal, 0), n_iter=20),
-                 "plain_ms": plain, "library_ms": lib},
-             "h3dq": {"ms": time_cuda(lambda: attention_bwd_dq(
-                 q, k, v, do, lse, delta, s, causal, 0), n_iter=20),
-                 "plain_ms": plain, "library_ms": lib}}
-        t["h3dkv"]["bound_ms"], t["h3dkv"]["bound_by"] = roofline(
-            8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)
-        t["h3dq"]["bound_ms"], t["h3dq"]["bound_by"] = roofline(
-            6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)
-        for x in t.values():
-            x["bound_share"] = x["bound_ms"] / x["ms"]
-        delta_ms = time_cuda(lambda: (do.float() * o.float()).sum(dim=-1),
-                             n_iter=20)
-        pair = time_cuda(lambda: flash_attention_bwd(
-            q, k, v, o, do, lse, scale=s, causal=causal), n_iter=20)
-        name = "causal" if causal else "none"
-        out[f"h3_{name}"] = {**t, "delta_ms": delta_ms, "pair_ms": pair}
-        print(f"  times at B=8 Hq=8 Hkv=4 L=1024 d=128, mask {name}: "
-              f"H3-dkv {t['h3dkv']['ms']:.4f} ms (bound "
-              f"{t['h3dkv']['bound_ms']:.4f} ms, "
-              f"{t['h3dkv']['bound_share']:.1%}), H3-dq "
-              f"{t['h3dq']['ms']:.4f} ms (bound {t['h3dq']['bound_ms']:.4f} "
-              f"ms, {t['h3dq']['bound_share']:.1%}), the delta reduction "
-              f"{delta_ms:.4f} ms, flash_attention_bwd (delta + both) "
-              f"{pair:.4f} ms vs attention_bwd_plain {plain:.4f} ms and the "
-              f"backward of scaled_dot_product_attention "
-              f"(is_causal={causal}) {lib:.4f} ms")
-        del leaves, o_lib
+        out["h3_causal" if causal else "h3_none"] = h3_times(
+            torch, q, k, v, do, causal)
     h1_long = time_cuda(lambda: prefill_attention(q, k, v, s, 0), n_iter=20)
     out["h1_causal_library"]["L=1024"] = time_cuda(lambda: sdpa(
         q, k, v, is_causal=True, enable_gqa=True), n_iter=20)
@@ -4011,11 +4118,13 @@ def hop_graph_check(torch, dev):
     return len(pairs)
 
 
-def sharded_train_check(torch, dev):
+def sharded_train_check(torch, dev, name="flagship", **heads):
     """make_train_step(mesh=) on a one-rank NCCL group (MeshConfig(1, 1,
     1): the ring's single hop at the traced pair (0, 0), the tp and data
-    all-reduces over one rank) at the flagship's widths on tokens
-    [8, 1025], against make_train_step(mesh=None) on the same weights (SGD
+    all-reduces over one rank) at the flagship's widths (its attention
+    geometry changed by ``heads`` for the heads_train phase's models) on
+    tokens [8, 1025], against make_train_step(mesh=None) on the same
+    weights (SGD
     at 0.1): the loss, every leaf's gradient (the mesh step's after its
     all-reduces) and the updated parameters, with the ring's diagonal key
     hidden (its offsets one key off) as the control; the launches of the
@@ -4038,7 +4147,7 @@ def sharded_train_check(torch, dev):
         make_mesh,
     )
 
-    cfg = flagship_config()
+    cfg = dataclasses.replace(flagship_config(), **heads)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (8, 1025)).astype(np.int32)).to(dev)
     sgd = lambda leaves: torch.optim.SGD(leaves, lr=0.1)   # noqa: E731
@@ -4047,8 +4156,8 @@ def sharded_train_check(torch, dev):
         try:
             mesh = make_mesh(MeshConfig(1, 1, 1), "cuda")
             runs = {}
-            for name, m in (("one_device", None), ("mesh", mesh),
-                            ("control", mesh)):
+            for run, m in (("one_device", None), ("mesh", mesh),
+                           ("control", mesh)):
                 params = init_params(cfg, seed=0, device=dev)
                 step, opt_init = make_train_step(cfg, mesh=m, optimizer=sgd)
                 opt = opt_init(params)
@@ -4056,7 +4165,7 @@ def sharded_train_check(torch, dev):
                 hide = (lambda *a: orig(*a) + torch.tensor(     # noqa: E731
                     [0, 1], dtype=torch.int32, device=dev))
                 with (mock.patch.object(ring_mod, "ring_offsets", hide)
-                      if name == "control" else contextlib.nullcontext()):
+                      if run == "control" else contextlib.nullcontext()):
                     zero_counters()
                     loss = step(params, opt, tokens).item()
                     torch.cuda.synchronize()
@@ -4065,14 +4174,14 @@ def sharded_train_check(torch, dev):
                 grads = [x.grad.clone() for x in leaves]
                 new = [x.detach().clone() for x in leaves]
                 times = []
-                if name != "control":
+                if run != "control":
                     for _ in range(4):
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
                         step(params, opt, tokens)
                         torch.cuda.synchronize()
                         times.append(time.perf_counter() - t0)
-                runs[name] = {"loss": loss, "grads": grads, "new": new,
+                runs[run] = {"loss": loss, "grads": grads, "new": new,
                               "counts": counts,
                               "step_s": float(np.median(times[1:]))
                               if times else None}
@@ -4083,16 +4192,16 @@ def sharded_train_check(torch, dev):
     want = launches_only(h1=cfg.n_layers, h3dkv=cfg.n_layers,
                          h3dq=cfg.n_layers)
     res = {}
-    for name in ("mesh", "control"):
-        r = runs[name]
+    for run in ("mesh", "control"):
+        r = runs[run]
         e_grad, leaf = leaf_err(names, r["grads"], ref["grads"])
-        res[name] = {"loss_err": abs(r["loss"] - ref["loss"]),
+        res[run] = {"loss_err": abs(r["loss"] - ref["loss"]),
                      "grad_err": e_grad, "leaf": leaf,
                      "params_bitwise": all(torch.equal(x, y) for x, y in zip(
                          r["new"], ref["new"]))}
     m, c = res["mesh"], res["control"]
-    print(f"  sharded step (MeshConfig(1, 1, 1), NCCL, one rank) at the "
-          f"flagship's widths, tokens [8, 1025], SGD 0.1: loss "
+    print(f"  sharded step (MeshConfig(1, 1, 1), NCCL, one rank) of the "
+          f"{name}, tokens [8, 1025], SGD 0.1: loss "
           f"{runs['mesh']['loss']:.6f} vs mesh=None {ref['loss']:.6f}, |d| "
           f"{m['loss_err']:.3e} (tol {TRAIN_LOSS_TOL:g}); largest per-leaf "
           f"||dg|| / ||g|| {m['grad_err']:.3e} at {m['leaf']} (tol "
@@ -4943,12 +5052,106 @@ def phase_heads(torch, dev):
     return out
 
 
+# The heads_train phase: the heads phase's two models trained on the card,
+# H3 at their head dims (256 on the column-split instance, 80 on D=128's
+# zero-filled columns) timed at their shapes, and H3 at traced offsets at
+# those d.  HEADS_TRACED: (q_pos0, kv_pos0, window) of a ring's diagonal
+# hop, a past hop and a band off the diagonal, B=2 Hq=16 Hkv=1 L=300
+HEADS_TRACED = ((256, 256, None), (300, 0, None), (100, 37, 100))
+
+
+def h3_traced_check(torch, dev):
+    """H3 through flash_attention_bwd at traced positions (0-d int32
+    tensors, the offsets every block reads from device memory) bitwise
+    its static launch at d 80 and 256, one launch each of H3-dkv and H3-dq
+    a call; the static launch one key off the diagonal must differ."""
+    from exploring_flash_attention_tpu_torch.ops import (
+        flash_attention_bwd,
+        prefill_attention,
+    )
+
+    gen = torch.Generator().manual_seed(16)
+    out = {}
+    for d in (80, 256):
+        q, do = (_bf16(torch, dev, gen, 2, 16, 300, d) for _ in range(2))
+        k, v = (_bf16(torch, dev, gen, 2, 1, 300, d) for _ in range(2))
+        scale = 1.0 / math.sqrt(d)
+        for q_pos, kv_pos, window in HEADS_TRACED:
+            diag = q_pos - kv_pos
+            o, lse = prefill_attention(q, k, v, scale, diag, True, window)
+            offs = torch.tensor((q_pos, kv_pos), dtype=torch.int32,
+                                device=dev)
+            kw = dict(scale=scale, causal=True, window=window)
+            zero_counters()
+            traced = flash_attention_bwd(q, k, v, o, do, lse, **kw,
+                                         positions=(offs[0], offs[1]))
+            torch.cuda.synchronize()
+            counts = read_counters()
+            static = flash_attention_bwd(q, k, v, o, do, lse, **kw,
+                                         static_positions=(q_pos, kv_pos))
+            off = flash_attention_bwd(q, k, v, o, do, lse, **kw,
+                                      static_positions=(q_pos - 1, kv_pos))
+            same = all(torch.equal(a, b) for a, b in zip(traced, static))
+            moved = not all(torch.equal(a, b) for a, b in zip(traced, off))
+            key = f"d={d} ({q_pos}, {kv_pos})" + (f" window {window}"
+                                                  if window else "")
+            print(f"  H3 at traced offsets, {key}, B=2 Hq=16 Hkv=1 L=300: "
+                  f"bitwise the static launch: {same}; launches {counts}; "
+                  f"control (static, one key off the diagonal) differs: "
+                  f"{moved}")
+            _require(same, f"H3 at traced offsets differs from static ({key})")
+            _require(counts == launches_only(h3dkv=1, h3dq=1),
+                     f"H3 at traced offsets missed a kernel ({key})")
+            # a past hop sees every key either way: no control there
+            _require(moved or diag >= 300,
+                     f"the traced check cannot tell a wrong diagonal ({key})")
+            out[key] = same
+    return out
+
+
+def phase_heads_train(torch, dev):
+    """The heads phase's models (HEADS_MODELS: the flagship's widths with
+    only the attention geometry changed) trained as the flagship is:
+    make_train_step as the train phase runs it (the step-0 loss and every
+    gradient against the plain attention beside the diagonal-hidden
+    controls, H1, H3-dkv and H3-dq 4 launches a step, the loss falling
+    over 5 AdamW steps, training tokens/s), the sharded step at
+    MeshConfig(1, 1, 1) as the parallel phase runs it, and heads256's
+    encoder (make_mlm_train_step, bidirectional: H3 without a mask at
+    D=256) as the encoder phase runs it, its gradients against the plain
+    backward in H3's place (phase_encoder's bwd_ref); then H3 timed at
+    each model's shape (B=8, L=1024; causal and without a mask) and at
+    traced offsets at d 80 and 256."""
+    out = {"models": {}, "times": {}}
+    gen = torch.Generator().manual_seed(17)
+    for name, geo in HEADS_MODELS.items():
+        geo = {k: x for k, x in geo.items() if k != "page_size"}
+        counts, tok_s, checks = phase_train(torch, dev, name, **geo)
+        m = {"train_launches": counts, "tokens_s": tok_s, **checks,
+             "sharded": sharded_train_check(torch, dev, name, **geo)}
+        if name == "heads256":
+            m["encoder_launches"], m["encoder_tokens_s"] = phase_encoder(
+                torch, dev, f"{name} encoder", bwd_ref=True, **geo)
+        out["models"][name] = m
+        hq, hkv, d = geo["n_heads"], geo["n_kv_heads"], geo["d_head"]
+        q, do = (_bf16(torch, dev, gen, 8, hq, 1024, d) for _ in range(2))
+        k, v = (_bf16(torch, dev, gen, 8, hkv, 1024, d) for _ in range(2))
+        out["times"][d] = {
+            "shape": f"B=8 Hq={hq} Hkv={hkv} L=1024 ({name})",
+            **{("causal" if c else "none"): h3_times(torch, q, k, v, do, c)
+               for c in (True, False)}}
+        del q, k, v, do
+    out["traced"] = h3_traced_check(torch, dev)
+    print("phase heads_train: ok")
+    return out
+
+
 # the phases `--only` takes (a quicker call while a phase is worked on; the
 # full run, with no arguments, runs every phase and prints the kernels line)
 PHASES = ("h1", "v1", "tiles", "v2", "quant", "dtiled", "decode", "extend",
           "scheduler", "bwd", "slice", "multiturn", "speculative", "heads",
-          "train", "encoder", "seq2seq", "parallel", "window_train",
-          "window_generate", "time_kernels")
+          "train", "heads_train", "encoder", "seq2seq", "parallel",
+          "window_train", "window_generate", "time_kernels")
 
 
 def run_only(torch, dev, names):
@@ -4976,6 +5179,45 @@ def heads_launches(heads, kern):
         if "scheduler" in m:
             g = m["scheduler"]["graphed"]
             out[f"{name}_scheduler_step"] = g["launches"][kern] / g["steps"]
+    return out
+
+
+def heads_train_launches(htrain, kern):
+    """A kernel's launches on the heads_train phase's paths: each model's
+    train step and sharded step, heads256's encoder step."""
+    out = {}
+    for name, m in htrain["models"].items():
+        out[f"{name}_train_step"] = m["train_launches"][kern]
+        out[f"{name}_sharded_train_step"] = m["sharded"]["launches"][kern]
+        if "encoder_launches" in m:
+            out[f"{name}_encoder_step"] = m["encoder_launches"][kern]
+    return out
+
+
+def h3_by_head_dim(by_d, htrain, kern):
+    """The kernels line's H3 readings by head dim: the bwd phase's errors
+    (each mask, vs the plain version and f64 autograd, beside its control)
+    and the heads_train phase's times at the heads models' shapes, with
+    the instance each d runs on."""
+    out = {}
+    for d in sorted(set(by_d) | set(htrain["times"])):
+        row = {"instance_d": h3_instance(d)}
+        if d in by_d:
+            row["checks"] = {
+                k: (x if k == "shape" else {
+                    r: x[r][kern] for r in ("rel_err_vs_plain",
+                                            "rel_err_vs_f64", "control")})
+                for k, x in by_d[d].items()}
+        if d in htrain["times"]:
+            t = htrain["times"][d]
+            row["times"] = {"shape": t["shape"],
+                            **{m: t[m][kern] for m in ("causal", "none")}}
+        out[str(d)] = row
+    out["traced_offsets_bitwise_static"] = htrain["traced"]
+    out["heads_models"] = {
+        name: {k: m[k] for k in ("tokens_s", "loss_err", "loss_control",
+                                 "grad_err", "grad_control", "losses")}
+        for name, m in htrain["models"].items()}
     return out
 
 
@@ -5019,14 +5261,15 @@ def main(argv) -> int:
     h6 = phase_decode(torch, dev)
     h6e = phase_extend(torch, dev)
     sched = phase_scheduler(torch, dev)
-    h3_err = phase_bwd(torch, dev)
+    h3_err, h3_by_d = phase_bwd(torch, dev)
     lm = make_flagship(torch, dev)
     launches, gen = phase_slice(torch, dev, lm)
     turn2, _ = phase_multiturn(torch, dev, lm)
     spec = phase_speculative(torch, dev, lm)
     del lm
     heads = phase_heads(torch, dev)
-    train, _ = phase_train(torch, dev)
+    train, _, _ = phase_train(torch, dev)
+    htrain = phase_heads_train(torch, dev)
     encoder, _ = phase_encoder(torch, dev)
     s2s = phase_seq2seq(torch, dev)
     par = phase_parallel(torch, dev)
@@ -5070,7 +5313,8 @@ def main(argv) -> int:
                                   par["sharded"]["launches"]["h1"],
                               "ring_forward_per_rank": ring_launches(
                                   par, "forward_per_rank", "h1"),
-                              **heads_launches(heads, "h1")},
+                              **heads_launches(heads, "h1"),
+                              **heads_train_launches(htrain, "h1")},
          "by_head_dim": heads["h1"],
          "device_offsets": device_offset_readings(par, "h1"),
          "seq2seq_cross_shape": t["seq2seq_cross"]["h1"],
@@ -5200,7 +5444,7 @@ def main(argv) -> int:
         # runs it.  plain_ms is the whole plain backward, and library_ms
         # the whole backward of scaled_dot_product_attention
         *({"name": f"H3-{n} attention backward, {what} (none, causal, "
-                   "window; d 64/128)",
+                   "window; d a multiple of 16 from 16 to 256)",
            "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
            "also_replaces": [f"{BWD_PY}:{x}" for x in (281, 377, 112, 205)],
            "launches": train[f"h3{n}"],
@@ -5214,8 +5458,10 @@ def main(argv) -> int:
                                 "sharded_train_step":
                                     par["sharded"]["launches"][f"h3{n}"],
                                 "ring_backward_per_rank": ring_launches(
-                                    par, "backward_per_rank", f"h3{n}")},
+                                    par, "backward_per_rank", f"h3{n}"),
+                                **heads_train_launches(htrain, f"h3{n}")},
            "device_offsets": device_offset_readings(par, f"h3{n}"),
+           "by_head_dim": h3_by_head_dim(h3_by_d, htrain, f"h3{n}"),
            "seq2seq_cross_shape": t["seq2seq_cross"][f"h3{n}"],
            "window_library_bwd": t["window_train_shape"][
                "window_library_bwd"],

@@ -1,6 +1,14 @@
 // H3-dkv and H3-dq: the flash-attention backward on Hopper (sm_90a), one
 // pair of kernels for three masks (none, causal, sliding window).  bf16 in,
-// f32 accumulate, bf16 out; head dims 64 and 128.
+// f32 accumulate, bf16 out; every head dim d that is a multiple of 16 from
+// 16 to 256 (ops.attention.HEAD_DIM_RULE), on instances D = 32, 64, 128
+// and 256.  A d below its instance's D (16 on 32, 48 on 64, 80-112 on 128,
+// 144-240 on 256) is described to TMA with its true d, so the columns of
+// Q, K, V and dO past d land as zeros, which leave S and dP exact, and the
+// epilogues store the first d columns of dQ, dK and dV.  The padded
+// columns cost (D - d) / D of the products: 50% at d=16, 37.5% at d=80.
+// At d = D = 64 and 128, the tuned instances, d is a template constant
+// (EXACT): the code is the one they had before the d rule.
 //
 // Replace five TPU kernels of the JAX package that compute one gradient
 // and differ only by which of them fits the TPU core's VMEM
@@ -41,7 +49,7 @@
 // two kernels with opposite loop orders and no atomics, so a result is
 // bitwise reproducible.  A block is 384 threads: two consumer warpgroups
 // and one producer warpgroup that hands its registers over (setmaxnreg 24
-// / 240) and feeds a four-stage TMA + mbarrier ring.
+// / 240) and feeds a TMA + mbarrier ring.
 // - H3-dkv: one block per (batch * KV head, 128 KV rows), the first KV
 //   tiles (the longest under a causal mask) first.  K and V are resident;
 //   the producer streams stages of (Q tile, dO tile) of 64 rows over the
@@ -68,16 +76,34 @@
 // TMA zero-fills rows past L in the 3-D descriptors, and the masks hide
 // them.  Results leave the f32 registers as bf16 pairs.
 //
-// Budget at d=128.  H3-dkv: K and V 64 KB, four stages of Q and dO 128 KB,
+// Budget at D=128.  H3-dkv: K and V 64 KB, four stages of Q and dO 128 KB,
 // stats 2 KB; registers dK 64 + dV 64 + S^T 32 + dP^T 32 per consumer
 // thread.  H3-dq: Q and dO 64 KB, four stages of K and V 128 KB; registers
-// dQ 64 + S 32 + dP 32.  One block per SM.
+// dQ 64 + S 32 + dP 32.  One block per SM.  D=64 and D=32 keep the layout
+// in less memory; D=32's tiles are 32-column boxes (64-byte rows and
+// swizzle) and its products m64n32k16, as H1's D=32 instance.
+//
+// D=256 splits columns, not rows (FlashAttention-3 runs d=256 on narrower
+// tiles too).  The D=128 layout would need dK 128 + dV 128 registers a
+// thread, past the 240 of setmaxnreg, and 128 KB of K and V beside four
+// 64 KB stages, past the 227 KB of shared memory.  So a block holds 64
+// rows (KV rows for H3-dkv, Q rows for H3-dq), and both consumer
+// warpgroups work on all 64: warpgroup w owns columns [128 w, 128 w + 128)
+// of dK and dV (of dQ), 64 + 64 (64) registers, as at D=128.  Each
+// warpgroup computes S and dP of its 64 rows over the whole depth itself,
+// so the pair of them is computed twice: 6 products of depth d a visible
+// pair in H3-dkv instead of 4, 5 in H3-dq instead of 3, in exchange for no
+// shared-memory handover of P and dS and no barrier between the
+// warpgroups.  Shared memory, two stages: H3-dkv K and V 64 KB + Q and dO
+// 2 x 64 KB; H3-dq Q and dO 64 KB + K and V 2 x 64 KB (192 KB each).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "wgmma_tile.cuh"
 
@@ -87,48 +113,64 @@ using namespace eft::hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int DKV_ROWS = 128;    // KV rows per H3-dkv block
 constexpr int DKV_QT = 64;       // Q rows per H3-dkv stage
-constexpr int DQ_ROWS = 128;     // Q rows per H3-dq block
 constexpr int DQ_KT = 64;        // keys per H3-dq stage
-constexpr int STAGES = 4;        // ring depth of both kernels
-constexpr int CONSUMERS = 2;     // warpgroups of 64 rows
+constexpr int CONSUMERS = 2;     // consumer warpgroups
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 // 128 * 24 + 256 * 240 = 384 * 168, what the launch allocates
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
-constexpr int ROW = 128;         // bytes of a TMA box row = the swizzle
-constexpr int BOX = 64;          // bf16 columns of a box
 
 // the mask argument of the C entries (as eft_prefill_attention's)
 enum Mask : int { MASK_NONE = 0, MASK_CAUSAL = 1, MASK_WINDOW = 2 };
 
-// Shared memory of an H3-dkv block.  A tile of R rows is D / 64 TMA boxes
-// of [R][64] bf16 (128-byte swizzled rows), box after box.
+// The layout of instance D.  A tile of R rows is NBOX TMA boxes of [R][BOX]
+// bf16 (rows of ROW bytes, swizzled at that width), box after box.  ROWS:
+// the KV rows of an H3-dkv block and the Q rows of an H3-dq block.  SPLIT
+// (D=256): both consumer warpgroups take the block's 64 rows and each owns
+// N of the accumulators' D columns; else each owns 64 rows and all D.
+template <int D>
+struct Geo {
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int ROWS = SPLIT ? 64 : 128;
+  static constexpr int STAGES = SPLIT ? 2 : 4;     // ring depth
+  static constexpr int N = SPLIT ? D / CONSUMERS : D;
+  static constexpr int BOX = D >= 64 ? 64 : 32;    // bf16 columns of a box
+  static constexpr int ROW = BOX * 2;              // bytes; = the swizzle
+  static constexpr int NBOX = D / BOX;
+  static_assert(N % BOX == 0, "a warpgroup's columns are whole boxes");
+};
+
+// Shared memory of an H3-dkv block
 template <int D>
 struct DkvTiles {
-  static constexpr uint32_t KV_BYTES = DKV_ROWS * D * 2;
+  using G = Geo<D>;
+  static constexpr uint32_t KV_BYTES = G::ROWS * D * 2;
   static constexpr uint32_t QT_BYTES = DKV_QT * D * 2;
   static constexpr size_t k = 0;
   static constexpr size_t v = k + KV_BYTES;
   static constexpr size_t q = v + KV_BYTES;                    // per stage
-  static constexpr size_t dout = q + size_t(STAGES) * QT_BYTES;
-  static constexpr size_t nlse = dout + size_t(STAGES) * QT_BYTES;
-  static constexpr size_t delta = nlse + size_t(STAGES) * DKV_QT * 4;
-  static constexpr size_t bars = delta + size_t(STAGES) * DKV_QT * 4;
-  static constexpr size_t bytes = bars + 8 * (2 * STAGES + 1) + 1024;
+  static constexpr size_t dout = q + size_t(G::STAGES) * QT_BYTES;
+  static constexpr size_t nlse = dout + size_t(G::STAGES) * QT_BYTES;
+  static constexpr size_t delta = nlse + size_t(G::STAGES) * DKV_QT * 4;
+  static constexpr size_t bars = delta + size_t(G::STAGES) * DKV_QT * 4;
+  static constexpr size_t bytes = bars + 8 * (2 * G::STAGES + 1) + 1024;
+  static_assert(bytes <= 232448, "the block's shared memory");
 };
 
+// Shared memory of an H3-dq block
 template <int D>
 struct DqTiles {
-  static constexpr uint32_t Q_BYTES = DQ_ROWS * D * 2;
+  using G = Geo<D>;
+  static constexpr uint32_t Q_BYTES = G::ROWS * D * 2;
   static constexpr uint32_t KV_BYTES = DQ_KT * D * 2;
   static constexpr size_t q = 0;
   static constexpr size_t dout = q + Q_BYTES;
   static constexpr size_t k = dout + Q_BYTES;                  // per stage
-  static constexpr size_t v = k + size_t(STAGES) * KV_BYTES;
-  static constexpr size_t bars = v + size_t(STAGES) * KV_BYTES;
-  static constexpr size_t bytes = bars + 8 * (2 * STAGES + 1) + 1024;
+  static constexpr size_t v = k + size_t(G::STAGES) * KV_BYTES;
+  static constexpr size_t bars = v + size_t(G::STAGES) * KV_BYTES;
+  static constexpr size_t bytes = bars + 8 * (2 * G::STAGES + 1) + 1024;
+  static_assert(bytes <= 232448, "the block's shared memory");
 };
 
 __device__ __forceinline__ long long clamp64(long long x, long long lo,
@@ -143,21 +185,23 @@ __device__ __forceinline__ float neg_lse2(float lse) {
 }
 
 // the descriptor of k-step kk of a K-major operand: rows [row0, row0 + 64)
-// of an R-row tile
-template <int R>
+// of an R-row tile of instance D
+template <int D, int R>
 __device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile,
                                                 int row0, int kk) {
-  const int box = kk * 16 / BOX, off = (kk * 16 % BOX) * 2;
-  return gmma_desc(tile + box * R * ROW + row0 * ROW + off, 16, 8 * ROW,
-                   ROW);
+  using G = Geo<D>;
+  const int box = kk * 16 / G::BOX, off = (kk * 16 % G::BOX) * 2;
+  return gmma_desc(tile + box * R * G::ROW + row0 * G::ROW + off, 16,
+                   8 * G::ROW, G::ROW);
 }
 
 // the descriptor of k-step kk (rows 16 kk .. 16 kk + 15) of an R-row tile
-// read MN-major: its D columns are the product's N, box after box
-template <int R>
+// read MN-major: its columns are the product's N, box after box
+template <int D, int R>
 __device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile,
                                                  int kk) {
-  return gmma_desc(tile + kk * 16 * ROW, R * ROW, 8 * ROW, ROW);
+  using G = Geo<D>;
+  return gmma_desc(tile + kk * 16 * G::ROW, R * G::ROW, 8 * G::ROW, G::ROW);
 }
 
 // acc[64 x 64] = A B^T over k = D: A rows [a_row0, a_row0 + 64) of an
@@ -169,28 +213,32 @@ __device__ __forceinline__ void issue_abt(float (&acc)[32],
                                           const unsigned char* b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t da = kmajor_desc<RA>(a, a_row0, kk);
-    const uint64_t db = kmajor_desc<RB>(b, 0, kk);
+    const uint64_t da = kmajor_desc<D, RA>(a, a_row0, kk);
+    const uint64_t db = kmajor_desc<D, RB>(b, 0, kk);
     if (kk == 0) wgmma_ss_bf16_n64_first(acc, da, db);
     else wgmma_ss_bf16_n64(acc, da, db, 1);
   }
 }
 
-// acc[64 x D] += A[64 x 64] B[64 x D]: A the bf16 fragment of a packed
-// 64 x 64 accumulator (16 registers), B a 64-row tile read MN-major
-// (issued, not waited for)
+// acc[64 x N] += A[64 x 64] B[64 x N]: A the bf16 fragment of a packed
+// 64 x 64 accumulator (16 registers), B the N columns at b of a 64-row tile
+// read MN-major (issued, not waited for)
 template <int D>
-__device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
+__device__ __forceinline__ void issue_acc(float (&acc)[Geo<D>::N / 2],
                                           const uint32_t (&a)[16],
                                           const unsigned char* b) {
+  constexpr int N = Geo<D>::N;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = mnmajor_desc<64>(b, kk);
-    if constexpr (D == 128)
+    const uint64_t db = mnmajor_desc<D, 64>(b, kk);
+    if constexpr (N == 128)
       wgmma_rs_bf16_n128(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
                          a[4 * kk + 3], db, 1);
-    else
+    else if constexpr (N == 64)
       wgmma_rs_bf16_n64(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                        a[4 * kk + 3], db, 1);
+    else
+      wgmma_rs_bf16_n32(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
                         a[4 * kk + 3], db, 1);
   }
 }
@@ -202,22 +250,39 @@ __device__ __forceinline__ void pack_a(const float (&x)[32],
   for (int j = 0; j < 16; ++j) a[j] = pack_bf16x2(x[2 * j], x[2 * j + 1]);
 }
 
-// The two rows this thread owns of an m64nD f32 accumulator (row0 and
-// row0 + 8) as bf16 rows of dst [n_rows, D], those below n_rows
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
-                                           int row0, int n_rows, bf16* dst) {
+// The two rows this thread owns of an m64nN f32 accumulator (row0 and
+// row0 + 8) as bf16 at dst + row * ld + col, those below n_rows; only the
+// first ncols columns (a multiple of 8)
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N / 2],
+                                           int row0, int n_rows, bf16* dst,
+                                           int ld, int col, int ncols) {
   const int col0 = 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= n_rows) continue;
-    bf16* out = dst + size_t(row) * D;
+    bf16* out = dst + size_t(row) * ld + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + col0) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    for (int j = 0; j < N / 8; ++j)
+      if (8 * j < ncols)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + col0) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
+}
+
+// A warpgroup's share of a [rows, d] result: its N columns from col (0, or
+// N times the warpgroup under SPLIT), the first d of each row.  At d = D
+// the store is inlined apart with constant strides, as H1's epilogue
+template <int D>
+__device__ __forceinline__ void store_result(const float (&acc)[Geo<D>::N / 2],
+                                             int row0, int n_rows, bf16* dst,
+                                             int d, int col) {
+  constexpr int N = Geo<D>::N;
+  if (d == D)
+    store_rows<N>(acc, row0, n_rows, dst, D, col, N);
+  else
+    store_rows<N>(acc, row0, n_rows, dst, d, col, min(N, d - col));
 }
 
 // ---------------------------------------------------------------- H3-dkv
@@ -259,13 +324,18 @@ __device__ __forceinline__ void consume_dkv(
     const unsigned char* sk, const unsigned char* sv, const unsigned char* sq,
     const unsigned char* sdo, const float* snl, const float* sdl,
     uint64_t* full, uint64_t* empty, uint64_t* kv_full, bf16* dk, bf16* dv,
-    int lq, int lkv, int mask, int diag_off, int window, float scale,
+    int lq, int lkv, int d, int mask, int diag_off, int window, float scale,
     int kv0, int q_begin, int n_qt, int n_stages) {
+  using G = Geo<D>;
   using T = DkvTiles<D>;
+  constexpr int STAGES = G::STAGES;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wg = warp / 4;
-  const int kv_wg0 = kv0 + wg * 64;
+  // this warpgroup's 64 KV rows in the block, and its first column
+  const int wg_row = G::SPLIT ? 0 : wg * 64;
+  const int col = G::SPLIT ? wg * G::N : 0;
+  const int kv_wg0 = kv0 + wg_row;
   const int row0 = kv_wg0 + (warp % 4) * 16 + lane / 4;
   const float scale_log2 = scale * LOG2E;
   // the q rows [lo, hi] that see each owned key row
@@ -299,9 +369,11 @@ __device__ __forceinline__ void consume_dkv(
     return whole;
   };
 
-  float acc_dk[D / 2], acc_dv[D / 2];
+  // the warpgroup's columns of a Q / dO stage (whole boxes of 64 rows)
+  const int col_bytes = col / G::BOX * DKV_QT * G::ROW;
+  float acc_dk[G::N / 2], acc_dv[G::N / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  for (int i = 0; i < G::N / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
   if (n_stages > 0) {
     mbar_wait(kv_full, 0);
@@ -314,8 +386,8 @@ __device__ __forceinline__ void consume_dkv(
       uint32_t pa[16], dsa[16];
       mbar_wait(&full[s], (i / STAGES) & 1);
       wgmma_fence();
-      issue_abt<D, DKV_ROWS, DKV_QT>(acc_s, sk, wg * 64, q_s);   // S^T
-      issue_abt<D, DKV_ROWS, DKV_QT>(acc_dp, sv, wg * 64, do_s); // dP^T
+      issue_abt<D, G::ROWS, DKV_QT>(acc_s, sk, wg_row, q_s);     // S^T
+      issue_abt<D, G::ROWS, DKV_QT>(acc_dp, sv, wg_row, do_s);   // dP^T
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc_s);
@@ -329,8 +401,8 @@ __device__ __forceinline__ void consume_dkv(
       fence_regs(acc_dv);
       fence_regs(acc_dk);
       wgmma_fence();
-      issue_acc<D>(acc_dv, pa, do_s);                            // P^T dO
-      issue_acc<D>(acc_dk, dsa, q_s);                            // dS^T Q
+      issue_acc<D>(acc_dv, pa, do_s + col_bytes);                // P^T dO
+      issue_acc<D>(acc_dk, dsa, q_s + col_bytes);                // dS^T Q
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc_dv);
@@ -340,25 +412,28 @@ __device__ __forceinline__ void consume_dkv(
       mbar_arrive(&empty[s]);
     }
   }
-  store_rows<D>(acc_dk, row0, lkv, dk);
-  store_rows<D>(acc_dv, row0, lkv, dv);
+  store_result<D>(acc_dk, row0, lkv, dk, d, col);
+  store_result<D>(acc_dv, row0, lkv, dv, d, col);
 }
 
-template <int D>
+template <int D, bool EXACT>
 __global__ void __launch_bounds__(THREADS, 1)
-attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq, D]
-                         const __grid_constant__ CUtensorMap tdo,  // [B*Hq, Lq, D]
-                         const __grid_constant__ CUtensorMap tk,   // [B*Hkv, Lkv, D]
-                         const __grid_constant__ CUtensorMap tv,   // [B*Hkv, Lkv, D]
+attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq, d]
+                         const __grid_constant__ CUtensorMap tdo,  // [B*Hq, Lq, d]
+                         const __grid_constant__ CUtensorMap tk,   // [B*Hkv, Lkv, d]
+                         const __grid_constant__ CUtensorMap tv,   // [B*Hkv, Lkv, d]
                          const float* __restrict__ lse,    // [B, Hq, Lq]
                          const float* __restrict__ delta,  // [B, Hq, Lq]
-                         bf16* __restrict__ dk,            // [B, Hkv, Lkv, D]
-                         bf16* __restrict__ dv,            // [B, Hkv, Lkv, D]
-                         int hq, int hkv, int lq, int lkv, int mask,
+                         bf16* __restrict__ dk,            // [B, Hkv, Lkv, d]
+                         bf16* __restrict__ dv,            // [B, Hkv, Lkv, d]
+                         int hq, int hkv, int lq, int lkv, int d, int mask,
                          int diag_off, int window,
                          const int* __restrict__ offs,  // (q_pos0, kv_pos0) or null
                          float scale) {
+  using G = Geo<D>;
   using T = DkvTiles<D>;
+  constexpr int STAGES = G::STAGES, ROWS = G::ROWS;
+  if constexpr (EXACT) d = D;           // a constant, as before the d rule
   if (offs != nullptr) diag_off = offs[0] - offs[1];
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -373,7 +448,7 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq,
   uint64_t* kv_full = empty + STAGES;
 
   const int bhk = blockIdx.x;                   // b * hkv + KV head
-  const int kv0 = blockIdx.y * DKV_ROWS;        // the first tiles first
+  const int kv0 = blockIdx.y * ROWS;            // the first tiles first
   const int b = bhk / hkv;
   const int group = hq / hkv;
   const int h0 = (bhk % hkv) * group;           // first q head of the group
@@ -385,7 +460,7 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq,
   long long q_first = 0, q_end = lq;
   if (mask != MASK_NONE) q_first = clamp64((long long)kv0 - diag_off, 0, lq);
   if (mask == MASK_WINDOW) {
-    const long long kv_last = min(kv0 + DKV_ROWS, lkv) - 1;
+    const long long kv_last = min(kv0 + ROWS, lkv) - 1;
     q_end = clamp64(kv_last - diag_off + window, 0, lq);
   }
   const int q_begin = int(q_first) / DKV_QT * DKV_QT;
@@ -409,9 +484,11 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq,
       // K and V once, then (Q, dO) stage by stage: head g of the group,
       // Q tile q0
       mbar_arrive_expect_tx(kv_full, 2 * T::KV_BYTES);
-      for (int x = 0; x < D / BOX; ++x) {
-        tma_load_3d(sk + x * DKV_ROWS * ROW, &tk, kv_full, x * BOX, kv0, bhk);
-        tma_load_3d(sv + x * DKV_ROWS * ROW, &tv, kv_full, x * BOX, kv0, bhk);
+      for (int x = 0; x < G::NBOX; ++x) {
+        tma_load_3d(sk + x * ROWS * G::ROW, &tk, kv_full, x * G::BOX, kv0,
+                    bhk);
+        tma_load_3d(sv + x * ROWS * G::ROW, &tv, kv_full, x * G::BOX, kv0,
+                    bhk);
       }
       for (int i = 0; i < n_stages; ++i) {
         const int s = i % STAGES;
@@ -419,11 +496,11 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq,
         const int q0 = q_begin + (i % n_qt) * DKV_QT;
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * T::QT_BYTES);
-        for (int x = 0; x < D / BOX; ++x) {
-          tma_load_3d(sq + s * T::QT_BYTES + x * DKV_QT * ROW, &tq, &full[s],
-                      x * BOX, q0, bh);
-          tma_load_3d(sdo + s * T::QT_BYTES + x * DKV_QT * ROW, &tdo,
-                      &full[s], x * BOX, q0, bh);
+        for (int x = 0; x < G::NBOX; ++x) {
+          tma_load_3d(sq + s * T::QT_BYTES + x * DKV_QT * G::ROW, &tq,
+                      &full[s], x * G::BOX, q0, bh);
+          tma_load_3d(sdo + s * T::QT_BYTES + x * DKV_QT * G::ROW, &tdo,
+                      &full[s], x * G::BOX, q0, bh);
         }
       }
     } else if (warp == CONSUMERS * 4 + 1 && n_stages > 0) {
@@ -444,9 +521,9 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq,
     }
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
-    const size_t out = size_t(bhk) * lkv * D;
+    const size_t out = size_t(bhk) * lkv * d;
     consume_dkv<D>(sk, sv, sq, sdo, snl, sdl, full, empty, kv_full,
-                   dk + out, dv + out, lq, lkv, mask, diag_off, window,
+                   dk + out, dv + out, lq, lkv, d, mask, diag_off, window,
                    scale, kv0, q_begin, n_qt, n_stages);
   }
 }
@@ -481,13 +558,18 @@ __device__ __forceinline__ void consume_dq(
     const unsigned char* sq, const unsigned char* sdo, const unsigned char* sk,
     const unsigned char* sv, uint64_t* full, uint64_t* empty,
     uint64_t* q_full, const float* lse, const float* delta, bf16* dq,
-    int lq, int lkv, int mask, int diag_off, int window, float scale,
+    int lq, int lkv, int d, int mask, int diag_off, int window, float scale,
     int q0, int kv_begin, int n_tiles) {
+  using G = Geo<D>;
   using T = DqTiles<D>;
+  constexpr int STAGES = G::STAGES;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wg = warp / 4;
-  const int q_wg0 = q0 + wg * 64;
+  // this warpgroup's 64 Q rows in the block, and its first column
+  const int wg_row = G::SPLIT ? 0 : wg * 64;
+  const int col = G::SPLIT ? wg * G::N : 0;
+  const int q_wg0 = q0 + wg_row;
   const int row0 = q_wg0 + (warp % 4) * 16 + lane / 4;
   const float scale_log2 = scale * LOG2E;
   // each owned row's -lse * log2e and delta (-inf and 0 past Lq) and the
@@ -520,9 +602,11 @@ __device__ __forceinline__ void consume_dq(
     return whole;
   };
 
-  float acc_dq[D / 2];
+  // the warpgroup's columns of a K stage (whole boxes of 64 keys)
+  const int col_bytes = col / G::BOX * DQ_KT * G::ROW;
+  float acc_dq[G::N / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
+  for (int i = 0; i < G::N / 2; ++i) acc_dq[i] = 0.f;
 
   if (n_tiles > 0) {
     mbar_wait(q_full, 0);
@@ -535,8 +619,8 @@ __device__ __forceinline__ void consume_dq(
       uint32_t dsa[16];
       mbar_wait(&full[s], (i / STAGES) & 1);
       wgmma_fence();
-      issue_abt<D, DQ_ROWS, DQ_KT>(acc_s, sq, wg * 64, k_s);     // S
-      issue_abt<D, DQ_ROWS, DQ_KT>(acc_dp, sdo, wg * 64, v_s);   // dP
+      issue_abt<D, G::ROWS, DQ_KT>(acc_s, sq, wg_row, k_s);      // S
+      issue_abt<D, G::ROWS, DQ_KT>(acc_dp, sdo, wg_row, v_s);    // dP
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc_s);
@@ -547,7 +631,7 @@ __device__ __forceinline__ void consume_dq(
       fence_regs(dsa);
       fence_regs(acc_dq);
       wgmma_fence();
-      issue_acc<D>(acc_dq, dsa, k_s);                            // dS K
+      issue_acc<D>(acc_dq, dsa, k_s + col_bytes);                // dS K
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc_dq);
@@ -555,23 +639,26 @@ __device__ __forceinline__ void consume_dq(
       mbar_arrive(&empty[s]);
     }
   }
-  store_rows<D>(acc_dq, row0, lq, dq);
+  store_result<D>(acc_dq, row0, lq, dq, d, col);
 }
 
-template <int D>
+template <int D, bool EXACT>
 __global__ void __launch_bounds__(THREADS, 1)
-attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq, D]
-                        const __grid_constant__ CUtensorMap tdo,   // [B*Hq, Lq, D]
-                        const __grid_constant__ CUtensorMap tk,    // [B*Hkv, Lkv, D]
-                        const __grid_constant__ CUtensorMap tv,    // [B*Hkv, Lkv, D]
+attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq, d]
+                        const __grid_constant__ CUtensorMap tdo,   // [B*Hq, Lq, d]
+                        const __grid_constant__ CUtensorMap tk,    // [B*Hkv, Lkv, d]
+                        const __grid_constant__ CUtensorMap tv,    // [B*Hkv, Lkv, d]
                         const float* __restrict__ lse,     // [B, Hq, Lq]
                         const float* __restrict__ delta,   // [B, Hq, Lq]
-                        bf16* __restrict__ dq,             // [B, Hq, Lq, D]
-                        int hq, int group, int lq, int lkv, int mask,
+                        bf16* __restrict__ dq,             // [B, Hq, Lq, d]
+                        int hq, int group, int lq, int lkv, int d, int mask,
                         int diag_off, int window,
                         const int* __restrict__ offs,  // (q_pos0, kv_pos0) or null
                         float scale) {
+  using G = Geo<D>;
   using T = DqTiles<D>;
+  constexpr int STAGES = G::STAGES, ROWS = G::ROWS;
+  if constexpr (EXACT) d = D;           // a constant, as before the d rule
   if (offs != nullptr) diag_off = offs[0] - offs[1];
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -586,7 +673,7 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq,
   const int bh = blockIdx.x;
   const int b = bh / hq;
   const int bhk = b * (hq / group) + (bh % hq) / group;   // GQA KV head
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_ROWS;  // longest first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;     // longest first
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -595,7 +682,7 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq,
   // them (rounded down to a tile)
   int kv_begin = 0, kv_end = lkv;
   if (mask != MASK_NONE) {
-    const long long q_last = min(q0 + DQ_ROWS, lq) - 1;
+    const long long q_last = min(q0 + ROWS, lq) - 1;
     kv_end = int(clamp64(q_last + diag_off + 1, 0, lkv));
   }
   if (mask == MASK_WINDOW)
@@ -618,20 +705,21 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq,
     setmaxnreg_dec<PRODUCER_REGS>();
     if (warp == CONSUMERS * 4 && lane == 0 && n_tiles > 0) {
       mbar_arrive_expect_tx(q_full, 2 * T::Q_BYTES);
-      for (int x = 0; x < D / BOX; ++x) {
-        tma_load_3d(sq + x * DQ_ROWS * ROW, &tq, q_full, x * BOX, q0, bh);
-        tma_load_3d(sdo + x * DQ_ROWS * ROW, &tdo, q_full, x * BOX, q0, bh);
+      for (int x = 0; x < G::NBOX; ++x) {
+        tma_load_3d(sq + x * ROWS * G::ROW, &tq, q_full, x * G::BOX, q0, bh);
+        tma_load_3d(sdo + x * ROWS * G::ROW, &tdo, q_full, x * G::BOX, q0,
+                    bh);
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES;
         const int kv0 = kv_begin + i * DQ_KT;
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * T::KV_BYTES);
-        for (int x = 0; x < D / BOX; ++x) {
-          tma_load_3d(sk + s * T::KV_BYTES + x * DQ_KT * ROW, &tk, &full[s],
-                      x * BOX, kv0, bhk);
-          tma_load_3d(sv + s * T::KV_BYTES + x * DQ_KT * ROW, &tv, &full[s],
-                      x * BOX, kv0, bhk);
+        for (int x = 0; x < G::NBOX; ++x) {
+          tma_load_3d(sk + s * T::KV_BYTES + x * DQ_KT * G::ROW, &tk,
+                      &full[s], x * G::BOX, kv0, bhk);
+          tma_load_3d(sv + s * T::KV_BYTES + x * DQ_KT * G::ROW, &tv,
+                      &full[s], x * G::BOX, kv0, bhk);
         }
       }
     }
@@ -639,77 +727,101 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq,
     setmaxnreg_inc<CONSUMER_REGS>();
     const size_t rows = size_t(bh) * lq;
     consume_dq<D>(sq, sdo, sk, sv, full, empty, q_full, lse + rows,
-                  delta + rows, dq + rows * D, lq, lkv, mask, diag_off,
+                  delta + rows, dq + rows * d, lq, lkv, d, mask, diag_off,
                   window, scale, q0, kv_begin, n_tiles);
   }
 }
 
 // the four TMA descriptors of a launch: Q and dO boxes of q_rows rows, K
-// and V boxes of kv_rows rows, all 64 columns wide with the 128-byte swizzle
+// and V boxes of kv_rows rows, of instance D's box width and swizzle, over
+// the true d (TMA zero-fills the columns past it)
 template <int D>
 int make_maps(CUtensorMap (&m)[4], const void* q, const void* dout,
               const void* k, const void* v, int batch, int hq, int hkv,
-              int lq, int lkv, int q_rows, int kv_rows) {
-  int err = make_tmap(&m[0], q, 2, D, lq, batch * hq, BOX, q_rows, ROW);
-  if (!err) err = make_tmap(&m[1], dout, 2, D, lq, batch * hq, BOX, q_rows, ROW);
-  if (!err) err = make_tmap(&m[2], k, 2, D, lkv, batch * hkv, BOX, kv_rows, ROW);
-  if (!err) err = make_tmap(&m[3], v, 2, D, lkv, batch * hkv, BOX, kv_rows, ROW);
+              int lq, int lkv, int d, int q_rows, int kv_rows) {
+  using G = Geo<D>;
+  int err = make_tmap(&m[0], q, 2, d, lq, batch * hq, G::BOX, q_rows, G::ROW);
+  if (!err)
+    err = make_tmap(&m[1], dout, 2, d, lq, batch * hq, G::BOX, q_rows, G::ROW);
+  if (!err)
+    err = make_tmap(&m[2], k, 2, d, lkv, batch * hkv, G::BOX, kv_rows, G::ROW);
+  if (!err)
+    err = make_tmap(&m[3], v, 2, d, lkv, batch * hkv, G::BOX, kv_rows, G::ROW);
   return err;
 }
 
-template <int D>
+template <int D, bool EXACT>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
-               int batch, int hq, int hkv, int lq, int lkv, int mask,
+               int batch, int hq, int hkv, int lq, int lkv, int d, int mask,
                int diag_off, int window, const int* offs, float scale,
                cudaStream_t stream) {
   using T = DkvTiles<D>;
+  constexpr int ROWS = Geo<D>::ROWS;
+  if ((lkv + ROWS - 1) / ROWS > 65535) return int(cudaErrorInvalidValue);
   CUtensorMap m[4];
-  const int err = make_maps<D>(m, q, dout, k, v, batch, hq, hkv, lq, lkv,
-                               DKV_QT, DKV_ROWS);
+  const int err = make_maps<D>(m, q, dout, k, v, batch, hq, hkv, lq, lkv, d,
+                               DKV_QT, ROWS);
   if (err) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
-      attention_bwd_dkv_kernel<D>,
+      attention_bwd_dkv_kernel<D, EXACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
   if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(batch * hkv, (lkv + DKV_ROWS - 1) / DKV_ROWS);
-  attention_bwd_dkv_kernel<D><<<grid, THREADS, T::bytes, stream>>>(
+  const dim3 grid(batch * hkv, (lkv + ROWS - 1) / ROWS);
+  attention_bwd_dkv_kernel<D, EXACT><<<grid, THREADS, T::bytes, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), hq, hkv, lq, lkv, mask, diag_off, window, offs,
-      scale);
+      static_cast<bf16*>(dv), hq, hkv, lq, lkv, d, mask, diag_off, window,
+      offs, scale);
   return int(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool EXACT>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int batch,
-              int hq, int hkv, int lq, int lkv, int mask, int diag_off,
-              int window, const int* offs, float scale, cudaStream_t stream) {
+              int hq, int hkv, int lq, int lkv, int d, int mask,
+              int diag_off, int window, const int* offs, float scale,
+              cudaStream_t stream) {
   using T = DqTiles<D>;
+  constexpr int ROWS = Geo<D>::ROWS;
+  if ((lq + ROWS - 1) / ROWS > 65535) return int(cudaErrorInvalidValue);
   CUtensorMap m[4];
-  const int err = make_maps<D>(m, q, dout, k, v, batch, hq, hkv, lq, lkv,
-                               DQ_ROWS, DQ_KT);
+  const int err = make_maps<D>(m, q, dout, k, v, batch, hq, hkv, lq, lkv, d,
+                               ROWS, DQ_KT);
   if (err) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
-      attention_bwd_dq_kernel<D>,
+      attention_bwd_dq_kernel<D, EXACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
   if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(batch * hq, (lq + DQ_ROWS - 1) / DQ_ROWS);
-  attention_bwd_dq_kernel<D><<<grid, THREADS, T::bytes, stream>>>(
+  const dim3 grid(batch * hq, (lq + ROWS - 1) / ROWS);
+  attention_bwd_dq_kernel<D, EXACT><<<grid, THREADS, T::bytes, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), hq, hq / hkv,
-      lq, lkv, mask, diag_off, window, offs, scale);
+      lq, lkv, d, mask, diag_off, window, offs, scale);
   return int(cudaGetLastError());
 }
 
-bool bad_args(int batch, int hq, int hkv, int lq, int lkv, int mask,
+bool bad_args(int batch, int hq, int hkv, int lq, int lkv, int d, int mask,
               int window) {
   return batch <= 0 || hkv <= 0 || hq % hkv != 0 || lq <= 0 || lkv <= 0 ||
-         mask < MASK_NONE || mask > MASK_WINDOW ||
-         (mask == MASK_WINDOW && window < 1) ||
-         (lkv + DKV_ROWS - 1) / DKV_ROWS > 65535 ||
-         (lq + DQ_ROWS - 1) / DQ_ROWS > 65535;
+         d < 16 || d > 256 || d % 16 != 0 || mask < MASK_NONE ||
+         mask > MASK_WINDOW || (mask == MASK_WINDOW && window < 1);
+}
+
+// go(integral_constant<int, D>, integral_constant<bool, EXACT>) on the
+// smallest instance D >= d.  The tuned instances, D = d = 64 and 128, run
+// with d a compile-time constant (EXACT), the code they had before the d
+// rule: with d at run time H3-dq read 1-5% slower there on an H100 (PERF.md)
+template <typename F>
+int by_instance(int d, F&& go) {
+  using Exact = std::true_type;
+  using Any = std::false_type;
+  if (d <= 32) return go(std::integral_constant<int, 32>{}, Any{});
+  if (d == 64) return go(std::integral_constant<int, 64>{}, Exact{});
+  if (d <= 64) return go(std::integral_constant<int, 64>{}, Any{});
+  if (d == 128) return go(std::integral_constant<int, 128>{}, Exact{});
+  if (d <= 128) return go(std::integral_constant<int, 128>{}, Any{});
+  return go(std::integral_constant<int, 256>{}, Any{});
 }
 
 }  // namespace
@@ -717,7 +829,8 @@ bool bad_args(int batch, int hq, int hkv, int lq, int lkv, int mask,
 // Both return the cudaError_t of the launch (0 on success).  The wrappers
 // in ops/attention_bwd.py have already checked shapes, dtypes, contiguity
 // and alignment; the checks here only refuse what would index out of
-// bounds or exceed a grid dimension.  mask: 0 none, 1 causal, 2 window
+// bounds or exceed a grid dimension.  d: a multiple of 16 from 16 to 256,
+// run on the smallest instance D >= d.  mask: 0 none, 1 causal, 2 window
 // (window >= 1) and offs (null, or the device int32 pair (q_pos0, kv_pos0)
 // that replaces diag_off), as eft_prefill_attention takes them.
 extern "C" int eft_attention_bwd_dkv(const void* q, const void* k,
@@ -728,23 +841,18 @@ extern "C" int eft_attention_bwd_dkv(const void* q, const void* k,
                                      int mask, int diag_off, int window,
                                      const void* offs, float scale,
                                      int device, void* stream) {
-  if (bad_args(batch, hq, hkv, lq, lkv, mask, window))
+  if (bad_args(batch, hq, hkv, lq, lkv, d, mask, window))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* po = static_cast<const int*>(offs);
-  switch (d) {
-    case 64:
-      return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, hq,
-                            hkv, lq, lkv, mask, diag_off, window, po, scale, s);
-    case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, hq,
-                             hkv, lq, lkv, mask, diag_off, window, po, scale, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  return by_instance(d, [&](auto dc, auto exact) {
+    return launch_dkv<decltype(dc)::value, decltype(exact)::value>(
+        q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, lq, lkv, d, mask,
+        diag_off, window, po, scale, s);
+  });
 }
 
 extern "C" int eft_attention_bwd_dq(const void* q, const void* k,
@@ -755,20 +863,15 @@ extern "C" int eft_attention_bwd_dq(const void* q, const void* k,
                                     int diag_off, int window,
                                     const void* offs, float scale,
                                     int device, void* stream) {
-  if (bad_args(batch, hq, hkv, lq, lkv, mask, window))
+  if (bad_args(batch, hq, hkv, lq, lkv, d, mask, window))
     return int(cudaErrorInvalidValue);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* po = static_cast<const int*>(offs);
-  switch (d) {
-    case 64:
-      return launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, hq, hkv, lq,
-                           lkv, mask, diag_off, window, po, scale, s);
-    case 128:
-      return launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, hq, hkv,
-                            lq, lkv, mask, diag_off, window, po, scale, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  return by_instance(d, [&](auto dc, auto exact) {
+    return launch_dq<decltype(dc)::value, decltype(exact)::value>(
+        q, k, v, dout, lse, delta, dq, batch, hq, hkv, lq, lkv, d, mask,
+        diag_off, window, po, scale, s);
+  });
 }

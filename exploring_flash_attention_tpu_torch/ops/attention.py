@@ -210,10 +210,10 @@ HEAD_DIM_RULE = "d a multiple of 16 from 16 to 256"
 
 
 def kernel_head_dim(d: int) -> bool:
-    """Whether H1, H2, H6-decode and H6-extend take head dim ``d``
-    (:data:`HEAD_DIM_RULE`).  H1 and the paged pair run a d below their
-    next instance's (a power of two up to 256) on zero-filled columns; H2
-    has one instance per d."""
+    """Whether H1, H2, H3-dkv, H3-dq, H6-decode and H6-extend take head dim
+    ``d`` (:data:`HEAD_DIM_RULE`).  H1, H3 and the paged pair run a d below
+    their next instance's (a power of two up to 256) on zero-filled
+    columns; H2 has one instance per d."""
     return 16 <= d <= 256 and d % 16 == 0
 
 

@@ -27,11 +27,13 @@ import torch
 from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
+    HEAD_DIM_RULE,
     LOG2E,
     DiagOff,
     _check_cuda_inputs,
     checked_window,
     hidden_keys,
+    kernel_head_dim,
     mask_args,
     mask_diagonal,
 )
@@ -87,11 +89,11 @@ def _check_bwd_inputs(name: str, q, k, v, do, lse, delta) -> None:
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     if (k.shape != (b, hkv, lkv, d) or v.shape != k.shape
-            or do.shape != q.shape or hq % hkv or d not in (64, 128)
+            or do.shape != q.shape or hq % hkv or not kernel_head_dim(d)
             or lq == 0 or lkv == 0):
         raise ValueError(
             f"{name} takes q/do [B,Hq,Lq,d], k/v [B,Hkv,Lkv,d] with Hq % Hkv "
-            f"== 0 and d in (64, 128); got q {tuple(q.shape)}, k "
+            f"== 0 and {HEAD_DIM_RULE}; got q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}, do {tuple(do.shape)}")
     for stat in (lse, delta):
         if (stat.device != q.device or stat.dtype != torch.float32
@@ -116,9 +118,10 @@ def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel H3-dkv on CUDA tensors: (dk, dv) bf16 [B, Hkv, Lkv, d],
     each summed over its GQA group in f32 inside the kernel, under the mask
-    of :func:`attention_bwd_plain`.  Takes contiguous bf16 q/k/v/do and f32
-    lse/delta [B, Hq, Lq], or raises.  ``attention_bwd_dkv.launches``
-    counts launches."""
+    of :func:`attention_bwd_plain`.  Takes contiguous bf16 q/k/v/do with
+    ``ops.attention.HEAD_DIM_RULE`` (a d below its instance, 32, 64, 128
+    or 256, runs on zero-filled columns) and f32 lse/delta [B, Hq, Lq], or
+    raises.  ``attention_bwd_dkv.launches`` counts launches."""
     _check_bwd_inputs("H3-dkv", q, k, v, do, lse, delta)
     args = _launch_args(q, k, scale, causal, diag_off, window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -140,7 +143,8 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      diag_off: DiagOff = 0, window: Optional[int] = None
                      ) -> torch.Tensor:
     """Launch kernel H3-dq on CUDA tensors: dq bf16 [B, Hq, Lq, d].  Takes
-    what :func:`attention_bwd_dkv` takes, or raises.
+    what :func:`attention_bwd_dkv` takes (the same head dims on the same
+    instances), or raises.
     ``attention_bwd_dq.launches`` counts launches."""
     _check_bwd_inputs("H3-dq", q, k, v, do, lse, delta)
     args = _launch_args(q, k, scale, causal, diag_off, window)
@@ -183,10 +187,11 @@ def flash_attention_bwd(
     ``ValueError``.
 
     CPU tensors take :func:`attention_bwd_plain`.  CUDA tensors take H1's
-    contract (contiguous bf16, d in {64, 128}, Hq % Hkv == 0, any Lq and
-    Lkv): delta is reduced by torch, then kernels H3-dkv and H3-dq launch,
-    or the call raises.  ``config`` is taken at the JAX package's place and
-    not read: H3 fixes its own tiles."""
+    contract (contiguous bf16, ``ops.attention.HEAD_DIM_RULE``, any GQA
+    group, any Lq and Lkv): delta is reduced by torch, then kernels H3-dkv
+    and H3-dq launch, or the call raises (``ValueError`` naming the rule
+    for another d, before any launch).  ``config`` is taken at the JAX
+    package's place and not read: H3 fixes its own tiles."""
     lq, lkv = q.shape[2], k.shape[2]
     window = checked_window(causal, window, lkv)
     diag_off = mask_diagonal(lq, lkv, causal, positions, q.device,

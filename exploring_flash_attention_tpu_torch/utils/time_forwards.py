@@ -12,17 +12,18 @@ d=128, int8 and e4m3 K/V, block 512) and of ``flash_attention_v1_dtiled``
 at d=512 (B=4, H=8, L=1024; int8, e4m3 and bf16 K/V), inputs from
 ``make_qkv(seed=1)`` rounded to bf16; with ``--bwd``, of H3-dkv and H3-dq
 alone at the training shape (B=8, Hq=8, Hkv=4, L=1024, d=128), causal and
-without a mask; with ``--merge``, of H2 (``splitkv_combine``, bf16 O) on
-random f32 partials at the v1 split case (8192 rows of 2 partials,
-d=128), at the slice's decode merge (64 rows of 8), at one long sequence's
-(8 rows of 64) and on 8 rows of 2 (what any launch costs in this
-harness), each with L2 flushed (``time_cuda``) and warm, then of
-``paged_decode_attention`` and the kernel without its merge
+without a mask, at d=64 causal, and at the ring hops of 256 and 8192 rows
+(diagonal and past; ``BWD_CASES``); with ``--merge``, of H2
+(``splitkv_combine``, bf16 O) on random f32 partials at the v1 split case
+(8192 rows of 2 partials, d=128), at the slice's decode merge (64 rows of
+8), at one long sequence's (8 rows of 64) and on 8 rows of 2 (what any
+launch costs in this harness), each with L2 flushed (``time_cuda``) and
+warm, then of ``paged_decode_attention`` and the kernel without its merge
 (``paged_decode_partials``; a root without the fused kernel runs its H2
-after it) at the slice's shape (B=8, Hq=8, Hkv=4, contexts 257..280) and
-at B=1 over 8100 tokens (64 runs); with ``--serve``, of the serving
-kernels at the flagship's shapes (``time_serve``).  Alternate two roots in
-one call (parent, change, change, parent) to compare them on one card.
+after it) at the slice's shape (B=8, Hq=8, Hkv=4, contexts 257..280) and at
+B=1 over 8100 tokens (64 runs); with ``--serve``, of the serving kernels at
+the flagship's shapes (``time_serve``). Alternate two roots in one call
+(parent, change, change, parent) to compare them on one card.
 """
 
 from __future__ import annotations
@@ -31,8 +32,22 @@ import sys
 from pathlib import Path
 
 
+# H3's A/B cases at the tuned instances (D = d = 64 and 128): (label, B,
+# Hq, Hkv, L, d, causal, diag_off).  The training shape, causal and
+# without a mask, the same at d=64, and the ring hops of 256 and 8192 rows
+# a rank (a 4-rank ring at B=8 L=1024 and B=1 L=32768): the diagonal hop
+# and a past hop, every key visible
+BWD_CASES = (("train causal", 8, 8, 4, 1024, 128, True, 0),
+             ("train none", 8, 8, 4, 1024, 128, False, 0),
+             ("train d=64 causal", 8, 8, 4, 1024, 64, True, 0),
+             ("hop 256 diagonal", 8, 8, 4, 256, 128, True, 0),
+             ("hop 256 past", 8, 8, 4, 256, 128, True, 256),
+             ("hop 8192 diagonal", 1, 8, 4, 8192, 128, True, 0),
+             ("hop 8192 past", 1, 8, 4, 8192, 128, True, 8192))
+
+
 def time_bwd(root: Path) -> str:
-    """H3-dkv and H3-dq alone, causal and without a mask."""
+    """H3-dkv and H3-dq alone at each of BWD_CASES (static offsets)."""
     import math
 
     import torch
@@ -45,20 +60,20 @@ def time_bwd(root: Path) -> str:
     )
     from exploring_flash_attention_tpu_torch.utils import time_cuda
 
-    q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
-               for x in make_qkv(8, 8, 1024, 128, seed=1, heads_kv=4))
-    do = torch.from_numpy(make_qkv(8, 8, 1024, 128, seed=2)[0]).to(
-        "cuda", torch.bfloat16)
-    scale = 1.0 / math.sqrt(128)
     out = []
-    for causal in (True, False):
-        o, lse = prefill_attention(q, k, v, scale, 0, causal)
+    for label, b, hq, hkv, l, d, causal, diag in BWD_CASES:
+        q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+                   for x in make_qkv(b, hq, l, d, seed=1, heads_kv=hkv))
+        do = torch.from_numpy(make_qkv(b, hq, l, d, seed=2)[0]).to(
+            "cuda", torch.bfloat16)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = prefill_attention(q, k, v, scale, diag, causal)
         delta = (do.float() * o.float()).sum(dim=-1)
         for name, fn in (("H3-dkv", attention_bwd_dkv),
                          ("H3-dq", attention_bwd_dq)):
             ms = time_cuda(lambda: fn(q, k, v, do, lse, delta, scale, causal,
-                                      0), n_iter=30)
-            out.append(f"{name} {'causal' if causal else 'none'} {ms:.4f} ms")
+                                      diag), n_iter=30)
+            out.append(f"{name} {label} {ms:.4f} ms")
     return f"{root.name or root}: " + " | ".join(out)
 
 

@@ -281,8 +281,16 @@ def _control(mask, q, k, v, out, do, lse, scale, diag_off, window):
 
 
 MASKS = {"causal": (True, None), "none": (False, None), "window": (True, 100)}
+# the flagship's d and d=64, then the new instances' depths: d=16 on the
+# D=32 instance, 80 on D=128's zero-filled columns, 256 on the column-split
+# instance (the emulation is the same arithmetic at any d).  d=16 takes
+# the longer shape: at Lq 77 over Lkv 130 most rows' bands start at key 0,
+# where a window one key narrower changes nothing, and its control reads
+# only 1.8x the limit on dQ (7x or more at 200 over 216)
 EMULATION_CASES = [(lq, lkv, d, mask) for mask in MASKS
-                   for lq, lkv, d in ((200, 216, 128), (77, 130, 64))]
+                   for lq, lkv, d in ((200, 216, 128), (77, 130, 64),
+                                      (200, 216, 16), (200, 216, 80),
+                                      (77, 130, 256))]
 
 
 @pytest.mark.parametrize(

@@ -977,6 +977,18 @@ BWD_MASKS = {"none": (False, None), "causal": (True, None),
     (1, 4, 4, 100, 100, 64, -24, "causal"),    # negative static offset, d=64
     (1, 4, 2, 300, 300, 128, -40, "window"),   # a band off the diagonal
     (1, 8, 4, 3072, 3072, 128, 0, "causal"),   # where JAX takes B12/B13
+    # every instance off the flagship's d (D 32: 16, 32; D 64: 48; D 128:
+    # 80, 96; D 256, whose warpgroups split the columns: 144, 256), in a
+    # group of 16 over one KV head, ragged and square
+    *[(1, 16, 1, lq, lkv, d, lkv - lq, mask)
+      for mask in BWD_MASKS for d in (16, 32, 48, 80, 96, 144, 256)
+      for lq, lkv in ((129, 129), (200, 330))],
+    *[(2, 8, 4, 1000, 1100, d, 100, mask)
+      for mask in BWD_MASKS for d in (32, 80, 256)],
+    (1, 4, 2, 96, 80, 256, -16, "causal"),     # Lq > Lkv at D=256
+    (1, 4, 1, 300, 300, 80, -40, "window"),    # a band off the diagonal
+    (2, 4, 1, 1024, 1024, 256, 0, "causal"),   # heads256's attention
+    (2, 16, 1, 1024, 1024, 80, 0, "causal"),   # heads80g16's attention
 ])
 def test_bwd_kernels_match_plain(cuda_device, b, hq, hkv, lq, lkv, d,
                                   diag_off, mask):
@@ -1004,28 +1016,30 @@ def test_bwd_kernels_match_plain(cuda_device, b, hq, hkv, lq, lkv, d,
         assert (dv[:, :, lq + diag_off:] == 0).all()
 
 
+@pytest.mark.parametrize("d", [128, 80, 256])
 @pytest.mark.parametrize("pos,mask", [
     ((256, 256), "causal"),        # a ring's diagonal hop
     ((0, 300), "causal"),          # a hop wholly in the future: no key
     ((300, 0), "causal"),          # a past hop: every key
     ((100, 37), "window"),         # a band off the diagonal
 ])
-def test_traced_offsets_equal_the_static_launch(cuda_device, pos, mask):
+def test_traced_offsets_equal_the_static_launch(cuda_device, pos, mask, d):
     """H1, H3-dkv and H3-dq at traced positions (the int32 pair in device
     memory that every block reads, B9's and B11-B15's traced form) are
     bitwise the same kernels at the static diagonal, through the public
-    calls too; a hop that sees no key gives (0, -inf) and zero
-    gradients."""
+    calls too, at d 128, 80 (the D=128 instance on zero-filled columns)
+    and 256 (the column-split instance); a hop that sees no key gives
+    (0, -inf) and zero gradients."""
     causal, window = BWD_MASKS[mask]
     diag = pos[0] - pos[1]
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 2, 8, 4, 300, 300,
-                                             128, diag, causal=causal,
+                                             d, diag, causal=causal,
                                              window=window)
     lse = torch.where(torch.isneginf(lse), 5.0, lse)   # a ring's global LSE
     offs = torch.tensor(pos, dtype=torch.int32, device=q.device)
     traced = (offs[0], offs[1])
-    fwd = [prefill_attention(q, k, v, scale, d, causal, window,
-                             out_dtype=torch.float32) for d in (offs, diag)]
+    fwd = [prefill_attention(q, k, v, scale, x, causal, window,
+                             out_dtype=torch.float32) for x in (offs, diag)]
     assert all(torch.equal(a, b) for a, b in zip(*fwd))
     bwd = [flash_attention_bwd(q, k, v, out, do, lse, scale=scale,
                                causal=causal,
@@ -1041,10 +1055,11 @@ def test_traced_offsets_equal_the_static_launch(cuda_device, pos, mask):
         assert all((g == 0).all() for g in bwd[0])
 
 
+@pytest.mark.parametrize("d", [128, 80, 256])
 @pytest.mark.parametrize("mask", BWD_MASKS)
-def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask):
+def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask, d):
     causal, window = BWD_MASKS[mask]
-    args = _bwd_case(cuda_device, 2, 8, 4, 520, 520, 128, 0, causal=causal,
+    args = _bwd_case(cuda_device, 2, 8, 4, 520, 520, d, 0, causal=causal,
                      window=window)
     first = flash_attention_bwd(*args, causal=causal, window=window)
     for _ in range(3):
@@ -1054,7 +1069,8 @@ def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask):
 
 
 def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
-    """... and d=32, which H1 takes and H3 does not."""
+    """... and d=72, outside ``ops.attention.HEAD_DIM_RULE`` (which H1
+    refuses too, so its residuals are made by hand), with no launch."""
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 1, 2, 2, 64, 64,
                                              64, 0)
     before = (attention_bwd_dkv.launches, attention_bwd_dq.launches)
@@ -1064,11 +1080,10 @@ def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
     with pytest.raises(TypeError, match="bf16"):
         flash_attention_bwd(q.float(), k.float(), v.float(), out.float(),
                             do.float(), lse, scale=scale, causal=True)
-    q32, k32, v32, out32, do32, lse32, scale32 = _bwd_case(
-        cuda_device, 1, 2, 2, 64, 64, 32, 0)
-    with pytest.raises(ValueError, match="d in"):
-        flash_attention_bwd(q32, k32, v32, out32, do32, lse32,
-                            scale=scale32)
+    q72, k72, v72 = _qkv(cuda_device, 1, 2, 2, 64, 64, 72, seed=4)
+    lse72 = torch.zeros(1, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
+        flash_attention_bwd(q72, k72, v72, q72, q72, lse72, causal=True)
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
         before[0] + 1, before[1] + 1)
 

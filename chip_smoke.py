@@ -264,6 +264,32 @@ Phases, one line each; any failure exits non-zero before the last line:
    then H3 timed at each model's shape (B=8, L=1024, causal and without a
    mask) beside its plain version, SDPA's backward and the bound, and H3
    at traced offsets at d 80 and 256 bitwise its static launch.
+24. f32 (after heads): the serving kernels and the flagship at f32, the
+   JAX package's default dtype (models/transformer.py:59), whose kernels
+   compute f32 at f32 accuracy (HIGHEST).  H1 with f32 q/k/v (its f32
+   kernel, bf16x6 on wgmma in csrc/f32_attention.cuh) at
+   bench/suite.py:105-133's referee
+   row (B=2, H=4, L=256, d=128; none, causal, window 64) within 1e-5 of
+   an f64 plain run on the card, the LSE too; at tests/
+   test_attention_v1.py:24-27's shape and at d 16, 80, 128 and 256 on a
+   GQA group of 16 (each mask, the LSE and KV spans) within 2e-5; the
+   bound form and the 64-row tile; flash_attention_v2 (H1 spans + H2)
+   within 1e-4; H6-decode and H6-extend (bf16x3 on wgmma) with f32 q at
+   HEADS_PAGED and at the flagship's geometry (d=128, Hq 8, Hkv 4, pages
+   of 128) within 1e-5 of their plain f32 versions (and the f64 oracle
+   over the bands),
+   the tickets zero.  Every check's known-wrong control is the same inputs
+   rounded to bf16 through the bf16 kernel, which must read beyond its
+   limit.  Each kernel is timed at f32 at the flagship's shapes (H1 at
+   bench.py's canonical shape too) beside its plain version, SDPA at f32
+   with TF32 off and its bound (the piece products at 989 TFLOP/s bf16
+   for H1 and H6-extend, printed beside what f32 FMA at 67 TFLOP/s would
+   take; f32 bytes at 3.35 TB/s).  Then the flagship at dtype=torch.float32 through the
+   slice and multiturn phases (H1 4, H6-decode 92 launches a generate;
+   H6-extend 4, H6-decode 92 a second turn; graphed bitwise eager; tokens
+   against the full forward), and its full forward's logits within 1e-4
+   of max|logits| of an all-plain f32 forward on the card, beside the
+   forward with attention's q, k, v rounded to bf16.
 
 ``python3 chip_smoke.py --only PHASE,...`` runs the build and the named
 phases alone (no kernels line), for a quicker call while a phase is
@@ -555,16 +581,21 @@ def _require(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_device(torch):
     _require(torch.cuda.is_available(), "no CUDA device is visible")
     _require(torch.cuda.device_count() >= 1, "no CUDA device")
     cap = torch.cuda.get_device_capability(0)
     _require(cap == (9, 0), f"compute capability {cap}, need (9, 0)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"phase device: ok {smi}, capability {cap}, "
           f"torch {torch.__version__}, cuda {torch.version.cuda}")
     return smi
@@ -597,7 +628,11 @@ WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 4,
                    "dtiled_attention_kernel": 12,
                    "attention_bwd_dkv_kernel": 6,
                    "attention_bwd_dq_kernel": 6,
-                   "paged_extend_kernel": 3}
+                   "paged_extend_kernel": 3,
+                   # the f32 core (bf16x6 / bf16x3): D 64/128/256, H1's
+                   # exact and bound statistics
+                   "prefill_attention_f32_kernel": 6,
+                   "paged_extend_f32_kernel": 3}
 H2_FUNCTIONS = 16              # one instance per d, 16 to 256 by 16
 
 
@@ -5148,9 +5183,492 @@ def phase_heads_train(torch, dev):
 
 # the phases `--only` takes (a quicker call while a phase is worked on; the
 # full run, with no arguments, runs every phase and prints the kernels line)
+# The f32 phase.  Limits: the JAX package's own f32 tiers (bench/suite.py's
+# referee row holds f32 v1 to 1e-5 and V2 to 1e-4; test_v1_f32_small to
+# 2e-5), each against an f64 run of the plain version on the card, the
+# paged pair against their plain f32 versions; a bf16 kernel on the same
+# inputs rounded to bf16 must read beyond each (1e-3 and more)
+F32_REFEREE = (2, 4, 256, 128)                 # B, H, L, d
+F32_REFEREE_WINDOW = 64
+F32_REFEREE_TOL = 1e-5
+F32_SMALL_TOL = 2e-5
+F32_V2_TOL = 1e-4
+F32_PAGED_TOL = 1e-5
+F32_H1_DIMS = (16, 80, 128, 256)
+# the paged pair at f32 q: HEADS_PAGED and the f32 flagship's own geometry
+# (d, Hq, Hkv, page size), which its slice and second turn run
+F32_PAGED = HEADS_PAGED + [(128, 8, 4, 128)]
+# the f32 core's piece products per f32 product (f32_attention.cuh): H1's
+# bf16x6, H6-extend's bf16x3 (q and P against the exact int8 codes)
+H1_F32_TERMS = 6
+H6E_F32_TERMS = 3
+# the f32 flagship's full-forward logits vs an all-plain f32 forward on the
+# card, of max|logits|: H1's f32 error (1e-6 of O) through 4 layers; the
+# forward with attention on bf16-rounded q, k, v reads ~1e-3 and more
+F32_LOGIT_TOL = 1e-4
+
+
+def f32_core_bound(flops, terms):
+    """The f32 core's operations for ``flops`` f32 operations: ``terms``
+    bf16 piece products each, at the bf16 tensor-core peak."""
+    return [(terms * flops, H100_BF16_FLOPS)]
+
+
+def f32_fma_ms(flops):
+    """What the same f32 operations would take as f32 FMA on the CUDA
+    cores at their peak (printed beside the f32 core's bound)."""
+    return flops / H100_F32_FLOPS * 1e3
+
+
+def f32_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed):
+    """Standard-normal f32 q, k, v from np.random.default_rng(seed)."""
+    from exploring_flash_attention_tpu_torch.oracle import make_qkv
+
+    return [torch.from_numpy(x).to(dev) for x in make_qkv(
+        b, hq, lq, d, dtype=np.float32, seed=seed, seq_len_kv=lkv,
+        heads_kv=hkv)]
+
+
+def f32_check(what, err, ctl, tol, extra=""):
+    """One f32 check: err within tol, the bf16-rounded control beyond."""
+    print(f"  f32 {what}: max|dO| {err:.3e} (limit {tol:g}); control "
+          f"(inputs rounded to bf16, the bf16 kernel) {ctl:.3e}{extra}")
+    _require(err <= tol, f"f32 {what} outside tolerance")
+    _require(ctl > tol, f"the f32 check cannot tell bf16 ({what})")
+
+
+def f32_h1(torch, dev, out):
+    """H1 at f32: the referee row's three masks, test_v1_f32_small's
+    shape, each d of F32_H1_DIMS under each mask and over KV spans, the
+    bound form and the 64-row tile, V2; each one counted launch (V2: H1 1,
+    H2 1) against an f64 plain run on the card."""
+    from exploring_flash_attention_tpu_torch import SplitKVConfig, TileConfig
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_plain,
+        flash_attention_v1,
+        flash_attention_v2,
+        prefill_attention,
+    )
+
+    def oracle(q, k, v, scale, causal, diag, window, span=None):
+        if span is None:
+            return attention_plain(q.double(), k.double(), v.double(), scale,
+                                   causal, diag, window)
+        parts = [attention_plain(q.double(), k[:, :, s:s + span].double(),
+                                 v[:, :, s:s + span].double(), scale, causal,
+                                 diag - s, window)
+                 for s in range(0, k.shape[2], span)]
+        return (torch.stack([p[0] for p in parts], dim=2),
+                torch.stack([p[1] for p in parts], dim=2))
+
+    def err(o, ref):
+        return (o.double() - ref).abs().max().item()
+
+    def lse_err(lse, ref):
+        fin = torch.isfinite(ref)
+        _require(torch.equal(torch.isfinite(lse), fin), "LSE -inf rows moved")
+        return (lse.double()[fin] - ref[fin]).abs().max().item()
+
+    def h1_case(what, q, k, v, causal, window, tol, span=None):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        diag = k.shape[2] - q.shape[2]
+        call = lambda: prefill_attention(               # noqa: E731
+            q, k, v, scale, diag, causal, window, kv_span=span)
+        o, lse = counted_call(torch, call, launches_only(h1=1))
+        _require(o.dtype == torch.float32, f"f32 {what}: O is {o.dtype}")
+        ref, lse_ref = oracle(q, k, v, scale, causal, diag, window, span)
+        bad, _ = prefill_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                   scale, diag, causal, window, kv_span=span,
+                                   out_dtype=torch.float32)
+        e, e_lse = err(o, ref), lse_err(lse, lse_ref)
+        f32_check(what, e, err(bad, ref), tol, f"; max|dLSE| {e_lse:.3e}")
+        _require(e_lse <= tol, f"f32 {what}: LSE outside tolerance")
+        return {"max_abs_err": e, "lse_err": e_lse,
+                "control": err(bad, ref)}
+
+    masks = {"none": (False, None), "causal": (True, None),
+             "window": (True, F32_REFEREE_WINDOW)}
+    b, h, l, d = F32_REFEREE
+    q, k, v = f32_inputs(torch, dev, b, h, h, l, l, d, seed=0)
+    for m, (causal, window) in masks.items():
+        out["referee"][m] = h1_case(
+            f"H1 referee B={b} H={h} L={l} d={d} {m}", q, k, v, causal,
+            window, F32_REFEREE_TOL)
+    # the bound form and the 64-row Q tile, through flash_attention_v1
+    for what, cfg in (("bound", TileConfig(softmax="bound")),
+                      ("64-row tile", TileConfig(block_q=64))):
+        call = lambda: flash_attention_v1(q, k, v, cfg,  # noqa: E731
+                                          causal=True)
+        o = counted_call(torch, call, launches_only(h1=1))
+        ref, _ = oracle(q, k, v, 1.0 / math.sqrt(d), True, 0, None)
+        bad = flash_attention_v1(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 cfg, causal=True, out_dtype=torch.float32)
+        f32_check(f"H1 referee causal, {what}", err(o, ref), err(bad, ref),
+                  F32_REFEREE_TOL)
+        out["referee"][what] = err(o, ref)
+    q, k, v = f32_inputs(torch, dev, 1, 2, 2, 256, 256, 128, seed=0)
+    o = counted_call(torch, lambda: flash_attention_v1(q, k, v),
+                     launches_only(h1=1))
+    ref, _ = oracle(q, k, v, 1.0 / math.sqrt(128), False, 0, None)
+    bad = flash_attention_v1(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                             out_dtype=torch.float32)
+    f32_check("v1 (1, 2, 256, 128), test_v1_f32_small's shape", err(o, ref),
+              err(bad, ref), F32_SMALL_TOL)
+    out["small"] = err(o, ref)
+
+    b, hq, hkv, lq, lkv = HEADS_H1_SHAPE
+    for d in F32_H1_DIMS:
+        q, k, v = f32_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed=d)
+        row = {}
+        for m, (causal, window) in masks.items():
+            window = window and HEADS_WINDOW
+            row[m] = h1_case(f"H1 d={d} B={b} Hq={hq} Hkv={hkv} Lq={lq} "
+                             f"Lkv={lkv} {m}", q, k, v, causal, window,
+                             F32_SMALL_TOL)
+        row["spans"] = h1_case(f"H1 d={d} spans of {HEADS_SPAN}", q, k, v,
+                               False, None, F32_SMALL_TOL, span=HEADS_SPAN)
+        out["by_head_dim"][d] = row
+
+    # V2: H1 over the spans, then H2
+    b, h, l, d = V2_SHAPE
+    q, k, v = f32_inputs(torch, dev, b, h, h, l, l, d, seed=1)
+    cfg = SplitKVConfig(**V2_CONFIG)
+    call = lambda: flash_attention_v2(q, k, v, config=cfg)  # noqa: E731
+    o = counted_call(torch, call, launches_only(h1=1, h2=1))
+    _require(o.dtype == torch.float32, f"f32 V2: O is {o.dtype}")
+    ref, _ = oracle(q[:4], k[:4], v[:4], 1.0 / math.sqrt(d), False, 0, None)
+    bad = flash_attention_v2(q[:4].bfloat16(), k[:4].bfloat16(),
+                             v[:4].bfloat16(), config=cfg,
+                             out_dtype=torch.float32)
+    f32_check(f"V2 B={b} H={h} L={l} d={d} spans of "
+              f"{V2_CONFIG['block_kv']} (batch rows 0-3)", err(o[:4], ref),
+              err(bad, ref), F32_V2_TOL)
+    out["v2"] = err(o[:4], ref)
+
+
+def f32_paged(torch, dev, out):
+    """H6-decode and H6-extend with f32 q at each of F32_PAGED: one
+    counted launch each, against the plain f32 version (the whole tensor)
+    and the f64 oracle over the bands (within F32_PAGED_TOL), O f32, the
+    tickets zero; the control is the same q rounded to bf16 through the
+    bf16 kernel."""
+    from exploring_flash_attention_tpu_torch.serving import (
+        paged_decode_attention,
+        paged_decode_plain,
+        paged_extend_attention,
+        paged_extend_plain,
+        ticket_buffer,
+    )
+
+    b = 8
+    for d, hq, hkv, ps in F32_PAGED:
+        geo = f"B={b} Hq={hq} Hkv={hkv} d={d} ps={ps}"
+        scale = 1.0 / math.sqrt(d)
+        max_len = HEADS_PAGED_LENS[1] + HEADS_CHUNK
+        gen = torch.Generator().manual_seed(d)
+        for kind, chunk in (("decode", 0), ("extend", HEADS_CHUNK)):
+            cache, qb, slots, lens = make_paged_case(
+                torch, dev, b, hq, hkv, d, ps, HEADS_PAGED_LENS, max_len,
+                seed=d + (chunk > 0), chunk=chunk)
+            q = torch.randn(qb.shape, generator=gen).to(dev)
+            if chunk:
+                fn, plain, kern = (paged_extend_attention,
+                                   paged_extend_plain, "h6e")
+                rows = [0, chunk // 2, chunk - 1]
+                pos = [[int(n) + i for i in rows] for n in lens]
+                q_or = [q[s, rows] for s in range(b)]
+            else:
+                fn, plain, kern = (paged_decode_attention,
+                                   paged_decode_plain, "h6")
+                pos = [[int(n) - 1] for n in lens]
+                q_or = [q[s:s + 1] for s in range(b)]
+            o = counted_call(torch, lambda: fn(q, cache, slots),
+                             launches_only(**{kern: 1}))
+            _require(o.dtype == torch.float32, f"f32 {kind}: O {o.dtype}")
+            ref = plain(q, cache, slots, scale)
+            o64 = np.stack([band_oracle(q_or[s], cache, s, pos[s], None)
+                            for s in range(b)])
+            got = np.stack([(o[s, rows] if chunk else o[s:s + 1]).cpu()
+                            .numpy() for s in range(b)])
+            e = (o - ref).abs().max().item()
+            e64 = float(np.abs(got - o64).max())
+            bad = fn(q.bfloat16(), cache, slots).float()
+            ctl = (bad - ref).abs().max().item()
+            f32_check(f"{kind} {geo}", e, ctl, F32_PAGED_TOL,
+                      f"; vs the f64 oracle over the bands {e64:.3e}")
+            _require(e64 <= F32_PAGED_TOL, f"f32 {kind} {geo} vs the oracle")
+            if not chunk:
+                tickets = ticket_buffer(dev)
+                _require(tickets is not None and not tickets.any().item(),
+                         f"f32 decode {geo}: tickets not zero")
+            out[kern][f"d={d} G={hq // hkv} ps={ps}"] = {
+                "max_abs_err": e, "oracle_err": e64, "control": ctl}
+
+
+def f32_times(torch, dev, out):
+    """H1 at bench.py's canonical shape and the generation prefill, the
+    paged pair at the flagship's shapes (the decode slice, B=8 Hq=8 Hkv=4
+    contexts 257..280; the second turn, C=256 after them), all at f32:
+    the kernel, its plain version, SDPA at f32 (TF32 off; over the
+    gathered, dequantized cache for the paged pair) and the bound: the
+    piece products at 989 TFLOP/s bf16 for H1 (bf16x6) and H6-extend
+    (bf16x3), with what f32 FMA at 67 TFLOP/s would take beside it; the
+    bytes for H6-decode."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch import SplitKVConfig
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_plain,
+        flash_attention_splitkv_partial,
+        flash_attention_v1,
+        flash_attention_v2,
+        prefill_attention,
+        splitkv_combine,
+        splitkv_combine_plain,
+    )
+    from exploring_flash_attention_tpu_torch.ops.attention_v1 import (
+        split_kv_span,
+    )
+    from exploring_flash_attention_tpu_torch.serving import (
+        paged_decode_attention,
+        paged_decode_plain,
+        paged_extend_attention,
+        paged_extend_plain,
+    )
+
+    for name, (b, hq, hkv, l, causal) in (
+            ("canonical", (32, 8, 8, 1024, False)),
+            ("prefill", (8, 8, 4, 256, True))):
+        d = 128
+        q, k, v = f32_inputs(torch, dev, b, hq, hkv, l, l, d, seed=1)
+        scale = 1.0 / math.sqrt(d)
+        pairs = visible_pairs(l, l, causal, None)
+        flops = 4 * d * b * hq * pairs
+        t = kernel_times(
+            lambda: prefill_attention(q, k, v, scale, 0, causal, None,
+                                      with_lse=False),
+            lambda: attention_plain(q, k, v, scale, causal, 0),
+            lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=hq != hkv),
+            f32_core_bound(flops, H1_F32_TERMS),
+            4 * (2 * b * hq * l * d + 2 * b * hkv * l * d))
+        t["fma_bound_ms"] = f32_fma_ms(flops)
+        t["shape"] = f"B={b} Hq={hq} Hkv={hkv} L={l} d={d} " + (
+            "causal" if causal else "no mask")
+        print(f"  f32 H1 {name} ({t['shape']}): {t['ms']:.4f} ms (bound "
+              f"{t['bound_ms']:.4f} ms, {t['bound_by']}: bf16x6 at 989 "
+              f"TFLOP/s; f32 FMA would take {t['fma_bound_ms']:.4f} ms); "
+              f"plain {t['plain_ms']:.4f} ms; scaled_dot_product_attention "
+              f"f32 {t['library_ms']:.4f} ms")
+        out["h1_times"][name] = t
+        del q, k, v
+
+    # every v1 route at f32 (V1_CASES): one call each, its launches as the
+    # bf16 call's, O within the small tier of the f64 plain run on the
+    # first heads, timed beside the plain version and SDPA at f32
+    for name, b, hq, hkv, lq, lkv, d, causal, window, _ in V1_CASES:
+        q, k, v = f32_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed=2)
+        split = not causal and split_kv_span(b, hq, lq, lkv) is not None
+        want = launches_only(h1=1, h2=int(split))
+        call = lambda: flash_attention_v1(              # noqa: E731
+            q, k, v, causal=causal, window=window)
+        o = counted_call(torch, call, want)
+        scale = 1.0 / math.sqrt(d)
+        g = hq // hkv                  # the first KV head's q heads
+        ref, _ = attention_plain(q[:1, :g].double(), k[:1, :1].double(),
+                                 v[:1, :1].double(), scale, causal,
+                                 lkv - lq, window)
+        err = (o[:1, :g].double() - ref).abs().max().item()
+        _require(err <= F32_SMALL_TOL, f"f32 v1 {name}: {err:.3e}")
+        mask = None
+        if causal:
+            i, j = torch.arange(lq, device=dev), torch.arange(lkv, device=dev)
+            mask = j[None, :] <= i[:, None] + lkv - lq
+            if window is not None:
+                mask &= j[None, :] > i[:, None] + lkv - lq - window
+        pairs = visible_pairs(lq, lkv, causal, window)
+        t = kernel_times(
+            call, lambda: attention_plain(q, k, v, scale, causal, lkv - lq,
+                                          window),
+            lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=hq != hkv),
+            f32_core_bound(4 * d * b * hq * pairs, H1_F32_TERMS),
+            4 * d * (2 * b * hq * lq + 2 * b * hkv * lkv), n_iter=10)
+        t["fma_bound_ms"] = f32_fma_ms(4 * d * b * hq * pairs)
+        t.update(shape=f"B={b} Hq={hq} Hkv={hkv} Lq={lq} Lkv={lkv} d={d}"
+                 + (f" window {window}" if window else " causal" if causal
+                    else ""), max_abs_err=err, launches=want)
+        print(f"  f32 v1 {name} ({t['shape']}): max|dO| vs the f64 plain run "
+              f"{err:.3e} (limit {F32_SMALL_TOL:g}); {t['ms']:.4f} ms "
+              f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']}); plain "
+              f"{t['plain_ms']:.4f} ms; SDPA f32 {t['library_ms']:.4f} ms")
+        out["h1_times"][name] = t
+        del q, k, v, o, mask
+
+    # V2 at bench_splitkv's shape: the call, and H2 alone on its f32
+    # partials into f32 O
+    b, h, l, d = V2_SHAPE
+    q, k, v = f32_inputs(torch, dev, b, h, h, l, l, d, seed=1)
+    cfg = SplitKVConfig(**V2_CONFIG)
+    scale = 1.0 / math.sqrt(d)
+    t = kernel_times(lambda: flash_attention_v2(q, k, v, config=cfg),
+                     lambda: attention_plain(q, k, v, scale, False, 0),
+                     lambda: sdpa(q, k, v),
+                     f32_core_bound(4 * d * b * h * l * l, H1_F32_TERMS),
+                     4 * 4 * b * h * l * d, n_iter=10)
+    t["fma_bound_ms"] = f32_fma_ms(4 * d * b * h * l * l)
+    o_p, lse = flash_attention_splitkv_partial(q, k, v, config=cfg)
+    nkb = o_p.shape[2]
+    rows = b * h * l
+    h2 = kernel_times(
+        lambda: splitkv_combine(o_p, lse, out_dtype=torch.float32),
+        lambda: splitkv_combine_plain(o_p, lse), None,
+        [(nkb * rows * (2 * d + 1), H100_F32_FLOPS)],
+        nkb * rows * (d + 1) * 4 + rows * d * 4)
+    t["h2"] = h2
+    print(f"  f32 V2 B={b} H={h} L={l} d={d} ({nkb} spans): the call "
+          f"{t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, bf16x6; f32 FMA "
+          f"would take {t['fma_bound_ms']:.4f} ms); plain "
+          f"{t['plain_ms']:.4f} ms; SDPA f32 {t['library_ms']:.4f} ms; H2 "
+          f"alone into f32 O {h2['ms']:.4f} ms (bound {h2['bound_ms']:.4f} "
+          f"ms, {h2['bound_by']}), plain {h2['plain_ms']:.4f} ms")
+    out["v2_times"] = t
+    del q, k, v, o_p, lse
+
+    b, hq, hkv, d = 8, 8, 4, 128
+    scale = 1.0 / math.sqrt(d)
+    gen = torch.Generator().manual_seed(11)
+    cache, qb, slots, ctx = make_paged_case(torch, dev, b, hq, hkv, d)
+    q = torch.randn(qb.shape, generator=gen).to(dev)
+    k, v, mask = gathered_kv(torch, cache, slots, ctx[:, None] - 1, None)
+    qs = q[:, :, None]
+    t = kernel_times(lambda: paged_decode_attention(q, cache, slots),
+                     lambda: paged_decode_plain(q, cache, slots, scale),
+                     lambda: sdpa(qs, k.float(), v.float(), attn_mask=mask,
+                                  enable_gqa=True),
+                     [(4 * d * hq * int(ctx.sum()), H100_F32_FLOPS)],
+                     int(ctx.sum()) * hkv * (2 * d + 8) + 2 * b * hq * d * 4)
+    t["shape"] = f"B={b} Hq={hq} Hkv={hkv} d={d} ctx {ctx.min()}..{ctx.max()}"
+    print(f"  f32 H6-decode ({t['shape']}): {t['ms']:.4f} ms (bound "
+          f"{t['bound_ms']:.4f} ms, {t['bound_by']}); plain "
+          f"{t['plain_ms']:.4f} ms; SDPA f32 over the gathered, dequantized "
+          f"K/V {t['library_ms']:.4f} ms")
+    out["h6_times"] = t
+    c = 256
+    cache, qb, slots, hist = make_paged_case(torch, dev, b, hq, hkv, d,
+                                             chunk=c, seed=12)
+    q = torch.randn(qb.shape, generator=gen).to(dev)
+    pos = hist[:, None] + np.arange(c)[None]
+    pairs = int((pos + 1).sum())
+    k, v, mask = gathered_kv(torch, cache, slots, pos, None)
+    qs = q.transpose(1, 2)
+    t = kernel_times(lambda: paged_extend_attention(q, cache, slots),
+                     lambda: paged_extend_plain(q, cache, slots, scale),
+                     lambda: sdpa(qs, k.float(), v.float(), attn_mask=mask,
+                                  enable_gqa=True),
+                     f32_core_bound(4 * d * hq * pairs, H6E_F32_TERMS),
+                     int((hist + c).sum()) * hkv * (2 * d + 8)
+                     + 2 * b * c * hq * d * 4)
+    t["fma_bound_ms"] = f32_fma_ms(4 * d * hq * pairs)
+    t["shape"] = (f"B={b} Hq={hq} Hkv={hkv} d={d} C={c} history "
+                  f"{hist.min()}..{hist.max()}")
+    print(f"  f32 H6-extend ({t['shape']}): {t['ms']:.4f} ms (bound "
+          f"{t['bound_ms']:.4f} ms, {t['bound_by']}: bf16x3 at 989 TFLOP/s; "
+          f"f32 FMA would take {t['fma_bound_ms']:.4f} ms); plain "
+          f"{t['plain_ms']:.4f} ms; SDPA f32 over the gathered, dequantized "
+          f"K/V {t['library_ms']:.4f} ms")
+    out["h6e_times"] = t
+
+
+def f32_logits(torch, dev, lm):
+    """The f32 flagship's full forward over its prompts (H1 4 launches)
+    against an all-plain f32 forward on the card, of max|logits|, beside
+    the forward with attention's q, k, v rounded to bf16."""
+    from unittest import mock
+
+    from exploring_flash_attention_tpu_torch.models import forward
+    from exploring_flash_attention_tpu_torch.models import (
+        transformer as transformer_module,
+    )
+
+    def rounded(q, k, v, **kw):
+        q, k, v = (x.bfloat16().float() for x in (q, k, v))
+        return plain_flash_attention(q, k, v, **kw)
+
+    toks = torch.from_numpy(lm.prompt).to(dev)
+    got = counted_call(torch, lambda: forward(lm.params, toks, lm.cfg),
+                       launches_only(h1=lm.cfg.n_layers))
+    with mock.patch.object(transformer_module, "flash_attention",
+                           plain_flash_attention):
+        ref = forward(lm.params, toks, lm.cfg)
+    with mock.patch.object(transformer_module, "flash_attention", rounded):
+        bad = forward(lm.params, toks, lm.cfg)
+    top = ref.abs().max().item()
+    e = (got - ref).abs().max().item() / top
+    ctl = (bad - ref).abs().max().item() / top
+    print(f"  f32 flagship full forward [8, 256]: logits vs the all-plain "
+          f"f32 forward {e:.3e} of max|logits| {top:.3f} (limit "
+          f"{F32_LOGIT_TOL:g}); control (attention on bf16-rounded q, k, v) "
+          f"{ctl:.3e}")
+    _require(e <= F32_LOGIT_TOL < ctl, "f32 flagship logits")
+    return {"logit_err": e, "logit_control": ctl}
+
+
+def phase_f32(torch, dev, bf16=None):
+    """The serving kernels and the flagship at f32 (module comment above);
+    ``bf16``: the bf16 flagship's slice readings of this run (launches,
+    tokens/s), which the f32 flagship's are set beside."""
+    t0 = time.perf_counter()
+    out = {"referee": {}, "by_head_dim": {}, "h6": {}, "h6e": {},
+           "h1_times": {}}
+    f32_h1(torch, dev, out)
+    f32_paged(torch, dev, out)
+    f32_times(torch, dev, out)
+    lm = make_flagship(torch, dev, "f32", dtype=torch.float32)
+    print(f"  f32 flagship: dtype {lm.cfg.dtype}, widths as the flagship's")
+    launches, gen = phase_slice(torch, dev, lm)
+    turn2, tok2 = phase_multiturn(torch, dev, lm)
+    out["model"] = {"generate_launches": launches, "turn_2_launches": turn2,
+                    **gen, "turn_2_tokens_s": tok2,
+                    **f32_logits(torch, dev, lm)}
+    del lm
+    beside = ""
+    if bf16 is not None:
+        _require(launches == bf16["launches"] and turn2 == bf16["turn2"],
+                 f"the f32 flagship's launches {launches}, {turn2} differ "
+                 f"from the bf16 flagship's")
+        out["model"]["bf16_tokens_s"] = bf16["tokens_s"]
+        beside = (f"; the bf16 flagship in this run {bf16['tokens_s']:.1f} "
+                  f"graphed ({gen['tokens_s'] / bf16['tokens_s']:.3f}x)")
+    print(f"  f32 flagship generate {gen['tokens_s']:.1f} tokens/s graphed, "
+          f"{gen['eager_tokens_s']:.1f} eager, turn 2 {tok2:.1f}{beside}; "
+          f"launches a generate H1 {launches['h1']}, H6-decode "
+          f"{launches['h6']}, a second turn H6-extend {turn2['h6e']}, "
+          f"H6-decode {turn2['h6']}; on {card_line()}")
+    print(f"phase f32: ok in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def f32_readings(f32, kern):
+    """The kernels line's f32 readings of one kernel (h1, h6, h6e)."""
+    model = f32["model"]
+    if kern == "h1":
+        return {"times": f32["h1_times"], "v2_times": f32["v2_times"],
+                "referee": f32["referee"],
+                "small_shape": f32["small"], "v2": f32["v2"],
+                "by_head_dim": f32["by_head_dim"],
+                "launches": {"generate": model["generate_launches"]["h1"]},
+                "flagship": {k: model[k] for k in (
+                    "tokens_s", "eager_tokens_s", "turn_2_tokens_s",
+                    "logit_err", "logit_control")}}
+    times = f32[f"{kern}_times"]
+    path = ({"generate": model["generate_launches"]["h6"],
+             "turn_2": model["turn_2_launches"]["h6"]} if kern == "h6"
+            else {"turn_2": model["turn_2_launches"]["h6e"]})
+    return {**times, "by_case": f32[kern], "launches": path}
+
+
 PHASES = ("h1", "v1", "tiles", "v2", "quant", "dtiled", "decode", "extend",
           "scheduler", "bwd", "slice", "multiturn", "speculative", "heads",
-          "train", "heads_train", "encoder", "seq2seq", "parallel",
+          "f32", "train", "heads_train", "encoder", "seq2seq", "parallel",
           "window_train", "window_generate", "time_kernels")
 
 
@@ -5224,6 +5742,7 @@ def h3_by_head_dim(by_d, htrain, kern):
 def main(argv) -> int:
     import torch
 
+    t_start = time.perf_counter()
     only = None
     if argv:
         _require(len(argv) == 2 and argv[0] == "--only"
@@ -5247,6 +5766,8 @@ def main(argv) -> int:
     if only is not None:
         run_only(torch, dev, only)
         _require("jax" not in sys.modules, "JAX was imported")
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the "
+              f"build included")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5268,6 +5789,8 @@ def main(argv) -> int:
     spec = phase_speculative(torch, dev, lm)
     del lm
     heads = phase_heads(torch, dev)
+    f32 = phase_f32(torch, dev, {"launches": launches, "turn2": turn2,
+                                 "tokens_s": gen["tokens_s"]})
     train, _, _ = phase_train(torch, dev)
     htrain = phase_heads_train(torch, dev)
     encoder, _ = phase_encoder(torch, dev)
@@ -5316,6 +5839,7 @@ def main(argv) -> int:
                               **heads_launches(heads, "h1"),
                               **heads_train_launches(htrain, "h1")},
          "by_head_dim": heads["h1"],
+         "by_dtype": {"f32": f32_readings(f32, "h1")},
          "device_offsets": device_offset_readings(par, "h1"),
          "seq2seq_cross_shape": t["seq2seq_cross"]["h1"],
          "window_train_shape": {m: t["window_train_shape"][m]["h1"]
@@ -5419,6 +5943,7 @@ def main(argv) -> int:
                               "distill_draft": distill["h6"],
                               **heads_launches(heads, "h6")},
          "by_head_dim": heads["h6"],
+         "by_dtype": {"f32": f32_readings(f32, "h6")},
          "heads_models": {n: {k: x[k] for k in ("tokens_s", "eager_tokens_s",
                                                 "turn_2_tokens_s")}
                           for n, x in heads["models"].items()}},
@@ -5438,6 +5963,7 @@ def main(argv) -> int:
                                   spec_dist["launches"]["h6e"],
                               **heads_launches(heads, "h6e")},
          "by_head_dim": heads["h6e"],
+         "by_dtype": {"f32": f32_readings(f32, "h6e")},
          "speculative": spec},
         # H3's numbers are the training shape's, causal as the train step
         # runs it; "none" holds them without a mask, as the encoder step
@@ -5508,6 +6034,8 @@ def main(argv) -> int:
          "by_kind": {n: x for n, x in h5["t"].items() if n != "bf16"},
          "gates": dtiled_gates},
     ]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
+          f"included")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

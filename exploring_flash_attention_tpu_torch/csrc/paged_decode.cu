@@ -57,7 +57,8 @@
 //     seq_len) is -inf;
 //   - the online softmax, one warp per q row: the tile's max by shuffles,
 //     p = exp2(s - m), l summing the unscaled p, P * v_scale rounded to
-//     bf16 (as B20 rounds it to the q dtype); a hidden column's P * v_scale
+//     bf16 (as B20 rounds it to the q dtype; f32 q keeps it f32, and the
+//     q rows and O are f32); a hidden column's P * v_scale
 //     is 0 whatever its (possibly reused) page holds;
 //   - O += P V: warp w walks the tile's tokens 32w .. 32w + 31, each lane
 //     owning d / 32 columns of every q row (one 4-byte shared load of V
@@ -85,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "lse_merge.cuh"
 #include "wgmma_tile.cuh"
@@ -138,9 +141,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 // EXACT: d = D and the group is one chunk, so the instance's d and its
 // block's q heads compile as constants, as an instance of that d alone
 // would have them; the other instances read d and the chunk at run time.
-template <int D, int GMAX, bool FUSED, bool EXACT>
+// F32: q and O are f32 (B20 computes in q's dtype, serving/decode.py:700):
+// q is read as f32, P * v_scale is not rounded, O is stored f32; the bf16
+// instances compile as before.
+template <int D, int GMAX, bool FUSED, bool EXACT, bool F32>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, d]
+paged_decode_kernel(const std::conditional_t<F32, float, __nv_bfloat16>*
+                        __restrict__ q,                    // [B, Hq, d]
                     const int8_t* __restrict__ pages,      // [n_pages, 2, Hkv, ps, d]
                     const float* __restrict__ scales,      // [n_pages, 2, Hkv, 1, ps]
                     const int* __restrict__ page_table,    // [max_seqs, max_pages]
@@ -148,7 +155,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, d]
                     const int* __restrict__ slots,         // [B]
                     float* __restrict__ o_part,            // [B, Hq, n_split, 1, d]
                     float* __restrict__ lse,               // [B, Hq, n_split, 1]
-                    __nv_bfloat16* __restrict__ o,         // [B, Hq, d] (FUSED)
+                    std::conditional_t<F32, float, __nv_bfloat16>*
+                        __restrict__ o,                    // [B, Hq, d] (FUSED)
                     int* __restrict__ tickets,             // [B * grid.y] (FUSED)
                     int hq, int hkv, int d_arg, int ps, int max_pages,
                     int max_seqs, int window, int pages_per_split,
@@ -224,12 +232,25 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, d]
 #pragma unroll
     for (int e = 0; e < 16; ++e) qr[g][e] = 0.f;
     if (g < gn && chunk * 16 < d) {
-      const __nv_bfloat16* src = q + (row0 + g) * d + chunk * 16;
-      const uint4 raw[2] = {reinterpret_cast<const uint4*>(src)[0],
-                            reinterpret_cast<const uint4*>(src)[1]};
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(raw);
+      if constexpr (F32) {
+        const float4* src =
+            reinterpret_cast<const float4*>(q + (row0 + g) * d + chunk * 16);
 #pragma unroll
-      for (int e = 0; e < 16; ++e) qr[g][e] = __bfloat162float(h[e]);
+        for (int x = 0; x < 4; ++x) {
+          const float4 f = src[x];
+          qr[g][4 * x] = f.x;
+          qr[g][4 * x + 1] = f.y;
+          qr[g][4 * x + 2] = f.z;
+          qr[g][4 * x + 3] = f.w;
+        }
+      } else {
+        const __nv_bfloat16* src = q + (row0 + g) * d + chunk * 16;
+        const uint4 raw[2] = {reinterpret_cast<const uint4*>(src)[0],
+                              reinterpret_cast<const uint4*>(src)[1]};
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(raw);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) qr[g][e] = __bfloat162float(h[e]);
+      }
     }
   }
   // the softmax state of rows warp and warp + 4 (this warp's)
@@ -306,8 +327,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, d]
         const int t = lane + 32 * j;
         const float p = exp2f(x[j] - m_use);                 // 0 where hidden
         psum += p;
-        s_p[t * GMAX + g] = x[j] == -CUDART_INF_F
-            ? 0.f : __bfloat162float(__float2bfloat16(p * vs_s[t]));
+        if constexpr (F32)
+          s_p[t * GMAX + g] = x[j] == -CUDART_INF_F ? 0.f : p * vs_s[t];
+        else
+          s_p[t * GMAX + g] = x[j] == -CUDART_INF_F
+              ? 0.f : __bfloat162float(__float2bfloat16(p * vs_s[t]));
       }
       const float alpha = exp2f(m_row[r] - m_use);
       l_row[r] = l_row[r] * alpha + warp_sum(psum);
@@ -394,8 +418,12 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, d]
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) sum += red[(w * GMAX + g) * D + col];
       const float val = sum / (l == 0.f ? 1.f : l);
-      if (direct)
-        o[(row0 + g) * d + col] = __float2bfloat16(val);
+      if (direct) {
+        if constexpr (F32)
+          o[(row0 + g) * d + col] = val;
+        else
+          o[(row0 + g) * d + col] = __float2bfloat16(val);
+      }
       else
         o_part[((row0 + g) * n_split + split) * d + col] = val;
     }
@@ -438,8 +466,13 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hq, d]
       if (g >= gn) continue;
 #pragma unroll
       for (int c = 0; c < NV; ++c)
-        if (eft::merge_chunk<L>(c, d))
-          eft::store_bf16x4(o + r * d + 4 * (lane % L + L * c), merged[c]);
+        if (eft::merge_chunk<L>(c, d)) {
+          if constexpr (F32)
+            *reinterpret_cast<float4*>(o + r * d + 4 * (lane % L + L * c)) =
+                merged[c];
+          else
+            eft::store_bf16x4(o + r * d + 4 * (lane % L + L * c), merged[c]);
+        }
     }
     if (tid == 0) *ticket = 0;         // zero again for the next launch
   }
@@ -452,25 +485,27 @@ struct Args {
   int batch, hq, hkv, d, ps, max_pages, max_seqs, window, n_split,
       pages_per_split;
   float scale;
+  int q_f32;
 };
 
-template <int D, int GMAX, bool FUSED, bool EXACT>
+template <int D, int GMAX, bool FUSED, bool EXACT, bool F32>
 int launch(const Args& a, cudaStream_t stream) {
   using S = Smem<D, GMAX>;
+  using TQ = std::conditional_t<F32, float, __nv_bfloat16>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_kernel<D, GMAX, FUSED, EXACT>,
+      paged_decode_kernel<D, GMAX, FUSED, EXACT, F32>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::bytes));
   if (attr != cudaSuccess) return int(attr);
   const int chunks = (a.hq / a.hkv + GMAX - 1) / GMAX;
   const dim3 grid(a.n_split, a.hkv * chunks, a.batch);
-  paged_decode_kernel<D, GMAX, FUSED, EXACT>
+  paged_decode_kernel<D, GMAX, FUSED, EXACT, F32>
       <<<grid, THREADS, S::bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const TQ*>(a.q),
       static_cast<const int8_t*>(a.pages), static_cast<const float*>(a.scales),
       static_cast<const int*>(a.page_table),
       static_cast<const int*>(a.seq_lens), static_cast<const int*>(a.slots),
       static_cast<float*>(a.o_part), static_cast<float*>(a.lse),
-      static_cast<__nv_bfloat16*>(a.o), static_cast<int*>(a.tickets), a.hq,
+      static_cast<TQ*>(a.o), static_cast<int*>(a.tickets), a.hq,
       a.hkv, a.d, a.ps, a.max_pages, a.max_seqs, a.window, a.pages_per_split,
       a.scale * 1.4426950408889634f);
   return int(cudaGetLastError());
@@ -478,9 +513,12 @@ int launch(const Args& a, cudaStream_t stream) {
 
 template <int D, int GMAX, bool FUSED>
 int launch_exact(const Args& a, cudaStream_t stream) {
+  // f32 q takes the general instances alone: the tuned EXACT form is the
+  // bf16 path's
+  if (a.q_f32) return launch<D, GMAX, FUSED, false, true>(a, stream);
   if (a.d == D && a.hq / a.hkv <= GMAX)
-    return launch<D, GMAX, FUSED, true>(a, stream);
-  return launch<D, GMAX, FUSED, false>(a, stream);
+    return launch<D, GMAX, FUSED, true, false>(a, stream);
+  return launch<D, GMAX, FUSED, false, false>(a, stream);
 }
 
 // GMAX: the group rounded up to 1, 2, 4 or 8, at most group_cap<D>()
@@ -511,7 +549,8 @@ int launch_fused(const Args& a, int fused, cudaStream_t stream) {
 // multiple of 128.  window: 0 for none.  fused: 1 merges the runs into
 // bf16 o [B, Hq, d] (o_part and lse are then the workspace, tickets
 // B * Hkv * chunks zeroed ints, chunks = cdiv(group, 8), or cdiv(group, 4)
-// at d > 128); 0 writes the partials only (o and tickets unused).
+// at d > 128); 0 writes the partials only (o and tickets unused).  q_f32: 0
+// for bf16 q and o, 1 for f32.
 extern "C" int eft_paged_decode(const void* q, const void* pages,
                                 const void* scales, const void* page_table,
                                 const void* seq_lens, const void* slots,
@@ -520,7 +559,7 @@ extern "C" int eft_paged_decode(const void* q, const void* pages,
                                 int d, int page_size, int max_pages,
                                 int max_seqs, int window, int n_split,
                                 int pages_per_split, int fused, float scale,
-                                int device, void* stream) {
+                                int q_f32, int device, void* stream) {
   const int group = hkv > 0 ? hq / hkv : 0;
   const int cap = d > 128 ? 4 : 8;
   if (batch <= 0 || batch > 65535 || hkv <= 0 || hq % hkv != 0 ||
@@ -531,7 +570,8 @@ extern "C" int eft_paged_decode(const void* q, const void* pages,
       pages_per_split <= 0 ||
       (window == 0 && int64_t(n_split) * pages_per_split < max_pages) ||
       (fused && (o == nullptr || tickets == nullptr)) ||
-      ((!fused || n_split > 1) && (o_part == nullptr || lse == nullptr)))
+      ((!fused || n_split > 1) && (o_part == nullptr || lse == nullptr)) ||
+      (q_f32 != 0 && q_f32 != 1))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -539,7 +579,7 @@ extern "C" int eft_paged_decode(const void* q, const void* pages,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, pages, scales, page_table, seq_lens, slots, o_part, lse, o,
                tickets, batch, hq, hkv, d, page_size, max_pages, max_seqs,
-               window, n_split, pages_per_split, scale};
+               window, n_split, pages_per_split, scale, q_f32};
   if (d <= 32) return launch_fused<32>(a, fused, s);
   if (d <= 64) return launch_fused<64>(a, fused, s);
   if (d <= 128) return launch_fused<128>(a, fused, s);

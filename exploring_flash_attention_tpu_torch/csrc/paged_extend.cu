@@ -1,5 +1,7 @@
 // H6-extend: chunked-prefill attention over the paged INT8 KV cache on
-// Hopper (sm_90a).  bf16 q, int8 pages, f32 accumulate, bf16 O.
+// Hopper (sm_90a).  bf16 q, int8 pages, f32 accumulate, bf16 O; f32 q
+// takes paged_extend_f32_kernel below (f32_attention.cuh's f32 core on
+// wgmma, bf16x3 on q and P * v_scale), O f32.
 //
 // Replaces two TPU kernels of the JAX package that compute the same
 // function and differ only by a VMEM rule (serving/decode.py:645-646):
@@ -79,6 +81,7 @@
 
 #include <type_traits>
 
+#include "f32_attention.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -540,26 +543,190 @@ int launch(const void* q, const void* pages, const void* scales,
   return int(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ f32 q
+// H6-extend at f32 q (f32_attention.cuh: bf16x3 on wgmma), O f32, as B21
+// and B22 compute in q's dtype (serving/decode.py:700).  The int8 codes
+// are exact in bf16, so K and V are one piece each and S = Q K^T and P V
+// are three products (q's pieces, P * v_scale's pieces, against the
+// codes): exact f32 products.  One block per (BQ GQA-flattened chunk rows,
+// KV head, sequence), the last row tile first; 32-key tiles (never
+// straddling a page).  The producer reads each tile's codes from its page,
+// converts them exactly to bf16 and writes per key kc = k_scale * scale *
+// log2(e) and vs = v_scale, both zero past seq_lens; P * v_scale stays f32
+// until it is split, and l sums the unscaled p, as the bf16 kernel.
+template <int D>
+__global__ void __launch_bounds__(eft::f32::Tiles<D, 1>::THREADS, 1)
+paged_extend_f32_kernel(const float* __restrict__ q,         // [B, C, Hq, d]
+                        const int8_t* __restrict__ pages,    // [n_pages, 2, Hkv, ps, d]
+                        const float* __restrict__ scales,    // [n_pages, 2, Hkv, 1, ps]
+                        const int* __restrict__ page_table,  // [max_seqs, max_pages]
+                        const int* __restrict__ seq_lens,    // [max_seqs]
+                        const int* __restrict__ slots,       // [B]
+                        float* __restrict__ o,               // [B, C, Hq, d]
+                        int c, int hq, int hkv, int d, int ps, int max_pages,
+                        int max_seqs, int window, float scale_log2) {
+  namespace F = eft::f32;
+  using T = F::Tiles<D, 1>;
+  constexpr int BQ = T::BQ, BKV = T::BKV;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bars);
+  uint64_t* empty = full + T::STAGES;
+  const int group = hq / hkv;
+  const int rows = c * group;
+  const int t0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int kh = blockIdx.y, b = blockIdx.z;
+  const int slot = slots[b];
+  const bool valid = slot >= 0 && slot < max_seqs;
+  const int n = valid ? min(seq_lens[slot], max_pages * ps) : 0;
+  const int q_start = n - c;
+  const int kv_end = max(q_start + (min(t0 + BQ, rows) - 1) / group + 1, 0);
+  const int kv_begin =
+      window > 0 ? max(q_start + t0 / group - window + 1, 0) / BKV * BKV : 0;
+  const int n_tiles = kv_end > kv_begin
+                          ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
+  const int* pt = page_table + size_t(valid ? slot : 0) * max_pages;
+  F::init_bars<D, 1>(full);
+  const int warp = threadIdx.x / 32;
+
+  if (warp >= T::NC * 4) {
+    // the producer: each thread CH 16-code pieces of K and of V a tile
+    constexpr int CH = BKV * (D / 16) / 128;
+    struct Regs { uint4 k[CH], v[CH]; size_t k_rows; int kv0; };
+    const int ct = threadIdx.x - T::NC * 128;
+    auto fetch = [&](int i, Regs& x) {
+      x.kv0 = kv_begin + i * BKV;
+      const size_t page = size_t(pt[x.kv0 / ps]);
+      x.k_rows = (page * 2 * hkv + kh) * ps + x.kv0 % ps;
+      const size_t v_rows = x.k_rows + size_t(hkv) * ps;
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        const int e = ct + 128 * j, r = e / (D / 16), ch = e % (D / 16);
+        x.k[j] = x.v[j] = make_uint4(0u, 0u, 0u, 0u);
+        if (16 * ch < d) {
+          x.k[j] = *reinterpret_cast<const uint4*>(
+              pages + (x.k_rows + r) * d + 16 * ch);
+          x.v[j] = *reinterpret_cast<const uint4*>(
+              pages + (v_rows + r) * d + 16 * ch);
+        }
+      }
+    };
+    auto put = [&](const Regs& x, unsigned char* sk, unsigned char* sv,
+                   float* kc, float* vs) {
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        const int e = ct + 128 * j, r = e / (D / 16), ch = e % (D / 16);
+        unsigned char* dst[2] = {sk, sv};
+        const uint4 in[2] = {x.k[j], x.v[j]};
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          uint32_t w[8];
+          codes16_convert<KV_INT8, false>(in[kv], w);
+          unsigned char* box = dst[kv] + (ch / 4) * BKV * 128;
+          const int byte = (ch % 4) * 32;
+          *reinterpret_cast<uint4*>(box + swz128(r, byte)) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+          *reinterpret_cast<uint4*>(box + swz128(r, byte + 16)) =
+              make_uint4(w[4], w[5], w[6], w[7]);
+        }
+      }
+      if (ct < BKV) {
+        const bool in = x.kv0 + ct < n;
+        kc[ct] = in ? scales[x.k_rows + ct] * scale_log2 : 0.f;
+        vs[ct] = in ? scales[x.k_rows + size_t(hkv) * ps + ct] : 0.f;
+      }
+    };
+    F::produce<D, 1, Regs>(smem, full, empty, n_tiles, fetch, put);
+    return;
+  }
+
+  // a consumer warpgroup: flattened rows t0 + 64 wg .. + 63, this thread
+  // two of them; row t is chunk position t / group, q head kh * group + t %
+  // group, and sees keys [lo, hi]
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t0 + r0 + 8 * r;
+    const int pos = q_start + t / group;
+    hi[r] = t < rows ? pos : -1;
+    lo[r] = window > 0 ? max(pos - window + 1, 0) : 0;
+  }
+  const size_t q_b = (size_t(b) * c * hq + size_t(kh) * group) * d;
+  F::stage_q<D, 1>(smem + T::q, wg, [&](int r) {
+    const int t = t0 + wg * 64 + r;
+    return t < rows ? q + q_b + (size_t(t / group) * hq + t % group) * d
+                    : nullptr;
+  }, d);
+  float acc_o[D / 2], m[2], l[2];
+  F::attend<D, 1, false, true>(smem, wg, full, empty, kv_begin, n_tiles, lo,
+                               hi, acc_o, m, l);
+
+  // O / l of the two owned rows; a row that saw nothing stores 0
+  const int col0 = 2 * (lane % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_row = quad_sum(l[r]);
+    const int t = t0 + r0 + 8 * r;
+    if (t >= rows) continue;
+    const float denom = l_row == 0.f ? 1.f : l_row;
+    float* orow = o + q_b + (size_t(t / group) * hq + t % group) * d;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      if (8 * j < d)
+        *reinterpret_cast<float2*>(orow + 8 * j + col0) =
+            make_float2(acc_o[4 * j + 2 * r] / denom,
+                        acc_o[4 * j + 2 * r + 1] / denom);
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* pages, const void* scales,
+               const void* page_table, const void* seq_lens,
+               const void* slots, void* o, int batch, int c, int hq, int hkv,
+               int d, int ps, int max_pages, int max_seqs, float scale,
+               int window, cudaStream_t stream) {
+  using T = eft::f32::Tiles<D, 1>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      paged_extend_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(T::bytes));
+  if (attr != cudaSuccess) return int(attr);
+  const int rows = c * (hq / hkv);
+  const dim3 grid((rows + T::BQ - 1) / T::BQ, hkv, batch);
+  paged_extend_f32_kernel<D><<<grid, T::THREADS, T::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(pages),
+      static_cast<const float*>(scales), static_cast<const int*>(page_table),
+      static_cast<const int*>(seq_lens), static_cast<const int*>(slots),
+      static_cast<float*>(o), c, hq, hkv, d, ps, max_pages, max_seqs, window,
+      scale * 1.4426950408889634f);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // serving/decode.py has already checked shapes, dtypes, contiguity and
 // alignment; the checks here only refuse what would index out of bounds.
 // d: a multiple of 16 from 16 to 256; page_size: a multiple of 128.
-// window: 0 for none.
+// window: 0 for none.  q_f32: 0 for bf16 q and O, 1 for f32 (the f32
+// core, bf16x3).
 extern "C" int eft_paged_extend(const void* q, const void* pages,
                                 const void* scales, const void* page_table,
                                 const void* seq_lens, const void* slots,
                                 void* o, int batch, int c, int hq, int hkv,
                                 int d, int page_size, int max_pages,
                                 int max_seqs, int n_pages, int window,
-                                float scale, int device, void* stream) {
+                                float scale, int q_f32, int device,
+                                void* stream) {
   if (batch <= 0 || batch > 65535 || c <= 0 || hkv <= 0 || hkv > 65535 ||
       hq % hkv != 0 || page_size <= 0 || page_size % 128 != 0 ||
       d < 16 || d > 256 || d % 16 != 0 || max_pages <= 0 || n_pages <= 0 ||
       int64_t(max_pages) * page_size > INT32_MAX ||
       int64_t(n_pages) * 2 * hkv > INT32_MAX ||
-      int64_t(c) * (hq / hkv) > INT32_MAX - BQ || window < 0)
+      int64_t(c) * (hq / hkv) > INT32_MAX - BQ || window < 0 ||
+      (q_f32 != 0 && q_f32 != 1))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -570,6 +737,16 @@ extern "C" int eft_paged_extend(const void* q, const void* pages,
         q, pages, scales, page_table, seq_lens, slots, o, batch, c, hq, hkv,
         d, page_size, max_pages, max_seqs, n_pages, window, scale, s);
   };
+  if (q_f32) {
+    auto go_f32 = [&](auto dc) {
+      return launch_f32<decltype(dc)::value>(
+          q, pages, scales, page_table, seq_lens, slots, o, batch, c, hq,
+          hkv, d, page_size, max_pages, max_seqs, scale, window, s);
+    };
+    if (d <= 64) return go_f32(std::integral_constant<int, 64>{});
+    if (d <= 128) return go_f32(std::integral_constant<int, 128>{});
+    return go_f32(std::integral_constant<int, 256>{});
+  }
   if (d <= 64) return go(std::integral_constant<int, 64>{});
   if (d <= 128) return go(std::integral_constant<int, 128>{});
   return go(std::integral_constant<int, 256>{});

@@ -33,20 +33,23 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, batch, hq, hkv, lq, lkv, d, mask, diag_off, window,
-    # offs, kv_span, out_f32, scale, q_rows, kmax, device, stream (offs:
-    # null, or the device int32 pair (q_pos0, kv_pos0) that replaces
-    # diag_off; kmax: null, or the bound statistic's prefix maxima)
+    # offs, kv_span, out_f32, scale, q_rows, kmax, in_f32, device, stream
+    # (offs: null, or the device int32 pair (q_pos0, kv_pos0) that replaces
+    # diag_off; kmax: null, or the bound statistic's prefix maxima; in_f32:
+    # f32 q/k/v, else bf16)
     "eft_prefill_attention": [_P] * 5 + [_I] * 9 + [_P] + [_I] * 2
-                             + [_F, _I, _P, _I, _P],
+                             + [_F, _I, _P, _I, _I, _P],
     # o_part, lse, o, n_bh, nkb, lq, d, out_f32, device, stream
     "eft_splitkv_combine": [_P] * 3 + [_I] * 6 + [_P],
     # q, pages, scales, page_table, seq_lens, slots, o_part, lse, o,
     # tickets, batch, hq, hkv, d, page_size, max_pages, max_seqs, window,
-    # n_split, pages_per_split, fused, scale, device, stream
-    "eft_paged_decode": [_P] * 10 + [_I] * 11 + [_F, _I, _P],
+    # n_split, pages_per_split, fused, scale, q_f32, device, stream (q_f32:
+    # f32 q and o, else bf16)
+    "eft_paged_decode": [_P] * 10 + [_I] * 11 + [_F, _I, _I, _P],
     # q, pages, scales, page_table, seq_lens, slots, o, batch, c, hq, hkv, d,
-    # page_size, max_pages, max_seqs, n_pages, window, scale, device, stream
-    "eft_paged_extend": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
+    # page_size, max_pages, max_seqs, n_pages, window, scale, q_f32, device,
+    # stream
+    "eft_paged_extend": [_P] * 7 + [_I] * 10 + [_F, _I, _I, _P],
     # q, k, v, do, lse, delta, dk, dv, batch, hq, hkv, lq, lkv, d, mask,
     # diag_off, window, offs, scale, device, stream
     "eft_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_P, _F, _I, _P],

@@ -280,9 +280,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`attention_plain`.  CUDA tensors launch kernel
     H1 (``csrc/prefill_attention.cu``), once per call, or raise: it takes
-    contiguous bf16 q/k/v with :data:`HEAD_DIM_RULE` and writes bf16 or
-    f32 O.  ``prefill_attention.launches`` counts kernel launches; the bound
-    form's statistic adds :func:`bound_kmax`'s torch ops before it."""
+    contiguous q/k/v of one dtype, bf16 or f32 (bf16x6 on wgmma, at f32
+    accuracy: :data:`KERNEL_DTYPES`), with :data:`HEAD_DIM_RULE` and
+    writes bf16 or f32 O.  ``prefill_attention.launches`` counts kernel
+    launches; the bound form's statistic adds :func:`bound_kmax`'s torch
+    ops before it."""
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     out_dtype = out_dtype or q.dtype
@@ -313,7 +315,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             o = torch.stack([p[0] for p in parts], dim=2)
             lse = torch.stack([p[1] for p in parts], dim=2)
         return o.to(out_dtype), lse if with_lse else None
-    _check_cuda_inputs("H1 attention", q, k, v)
+    in_dtype = _check_cuda_inputs("H1", "H1 attention", q, k, v)
     if (k.shape != (b, hkv, lkv, d) or v.shape != k.shape
             or hq % hkv or not kernel_head_dim(d) or lq == 0 or lkv == 0):
         raise ValueError(
@@ -340,7 +342,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr() if with_lse else None, b, hq, hkv, lq, lkv, d, *mask,
         int(kv_span or 0),
         int(out_dtype == torch.float32), scale, q_rows,
-        None if kmax is None else kmax.data_ptr(), q.device.index,
+        None if kmax is None else kmax.data_ptr(),
+        int(in_dtype == torch.float32), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(err, "H1 attention")
     prefill_attention.launches += 1
@@ -350,17 +353,67 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 prefill_attention.launches = 0
 
 
-def _check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
+# The input dtypes each kernel takes on the card: q/k/v for H1, H3 and H5,
+# q for H4-kvq and the paged pair (their K/V are codes).  f32 is the JAX
+# package's default dtype (models/transformer.py:59) and its kernels compute
+# f32 at f32 accuracy (HIGHEST); no kernel takes f16 or f64.
+KERNEL_DTYPES = {
+    "H1": (torch.bfloat16, torch.float32),
+    "H3-dkv": (torch.bfloat16,),
+    "H3-dq": (torch.bfloat16,),
+    "H4-kvq": (torch.bfloat16,),
+    "H5": (torch.bfloat16,),
+    "H6-decode": (torch.bfloat16, torch.float32),
+    "H6-extend": (torch.bfloat16, torch.float32),
+}
+_DTYPE_WORD = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# the ROADMAP.md item that ports f32 to a kernel that refuses it
+F32_ROADMAP_ITEM = {
+    "H3-dkv": "ROADMAP.md B2b (H3 at f32: training)",
+    "H3-dq": "ROADMAP.md B2b (H3 at f32: training)",
+    "H4-kvq": "ROADMAP.md B2c (H4-kvq's f32 q, H5 at f32)",
+    "H5": "ROADMAP.md B2c (H4-kvq's f32 q, H5 at f32)",
+}
+
+
+def kernel_dtype(kernel: str, *tensors: torch.Tensor) -> torch.dtype:
+    """The dtype ``kernel`` (a key of :data:`KERNEL_DTYPES`) runs
+    ``tensors`` at: their one dtype, where the kernel takes it.  Raises
+    ``TypeError`` otherwise, naming what the kernel takes and, for f32 that
+    it does not take yet, the ROADMAP item that ports it.  Device-free: the
+    rule is the same on the CPU, where the plain versions take any float."""
+    dtypes = {t.dtype for t in tensors}
+    takes = KERNEL_DTYPES[kernel]
+    names = " or ".join(_DTYPE_WORD[dt] for dt in takes)
+    if len(dtypes) != 1:
+        raise TypeError(f"{kernel} takes inputs of one dtype ({names}), got "
+                        f"{sorted(str(dt) for dt in dtypes)}")
+    (dtype,) = dtypes
+    if dtype not in takes:
+        pending = (f"; f32 is still to port: {F32_ROADMAP_ITEM[kernel]}"
+                   if dtype == torch.float32 and kernel in F32_ROADMAP_ITEM
+                   else "")
+        raise TypeError(f"{kernel} takes {names}, got {dtype}{pending}")
+    return dtype
+
+
+def _check_cuda_inputs(kernel: str, name: str,
+                       *tensors: torch.Tensor) -> torch.dtype:
+    """The checks of ``kernel`` (a key of :data:`KERNEL_DTYPES`), whose
+    errors say ``name``: one CUDA device, the kernel's dtypes
+    (:func:`kernel_dtype`, whose dtype it returns), contiguous 16-byte
+    aligned tensors."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: tensors must share one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bf16, got {t.dtype}")
+    dtype = kernel_dtype(kernel, *tensors)
+    for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be contiguous and "
                              "16-byte aligned")
+    return dtype
 
 
 def static_diagonal(lq: int, lkv: int,

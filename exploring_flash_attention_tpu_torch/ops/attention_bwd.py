@@ -85,7 +85,7 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_bwd_inputs(name: str, q, k, v, do, lse, delta) -> None:
-    _check_cuda_inputs(name, q, k, v, do)
+    _check_cuda_inputs(name, name, q, k, v, do)
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     if (k.shape != (b, hkv, lkv, d) or v.shape != k.shape

@@ -75,7 +75,7 @@ def flash_attention_kvquant(
     out_dtype = out_dtype or q.dtype
     if q.device.type == "cpu":
         return attention_kvquant_plain(q, k_q, v_q, scale).to(out_dtype)
-    _check_cuda_inputs("H4-kvq attention", q)
+    _check_cuda_inputs("H4-kvq", "H4-kvq attention", q)
     check_cuda_quantized("H4-kvq attention", q.device,
                          (torch.int8, FP8_DTYPE), k_q, v_q)
     if d not in H4_HEAD_DIMS or lq == 0 or lkv == 0:

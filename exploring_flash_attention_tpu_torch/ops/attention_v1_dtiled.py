@@ -92,12 +92,12 @@ def flash_attention_v1_dtiled(
     if q.device.type == "cpu":
         return attention_dtiled_plain(q, k, v, scale).to(out_dtype)
     if quantized:
-        _check_cuda_inputs("H5 attention", q)
+        _check_cuda_inputs("H5", "H5 attention", q)
         check_cuda_quantized("H5 attention", q.device,
                              (torch.int8, FP8_DTYPE), k, v)
         ks, vs, n_blocks = k.scales, v.scales, k.scales.shape[2]
     else:
-        _check_cuda_inputs("H5 attention", q, k, v)
+        _check_cuda_inputs("H5", "H5 attention", q, k, v)
         ks = vs = None
         n_blocks = 0
     if d % H5_D_CHUNK or d > H5_MAX_D or lq == 0 or lkv == 0:

@@ -39,6 +39,7 @@ from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import cdiv
 from exploring_flash_attention_tpu_torch.ops.attention import (
     HEAD_DIM_RULE,
+    kernel_dtype,
     kernel_head_dim,
 )
 from exploring_flash_attention_tpu_torch.serving.kv_cache import (
@@ -193,20 +194,22 @@ def paged_decode_partials_plain(q: torch.Tensor, cache: PagedKVCache,
 def _check_paged_inputs(name: str, q: torch.Tensor, cache: PagedKVCache,
                         seq_slots: torch.Tensor,
                         window: Optional[int]) -> None:
-    """What both paged kernels take: bf16 q with ``HEAD_DIM_RULE`` (the
-    cache's d), any GQA group, a page size that is a multiple of 128 below
-    2^15 (``kv_cache.check_page_size``), the cache's dtypes, one CUDA
-    device, contiguous 16-byte aligned tensors.  Raises otherwise."""
+    """What both paged kernels take: bf16 or f32 q
+    (``ops.attention.kernel_dtype``) with ``HEAD_DIM_RULE`` (the cache's
+    d), any GQA group, a page size that is a multiple of 128 below 2^15
+    (``kv_cache.check_page_size``), the cache's dtypes, one CUDA device,
+    contiguous 16-byte aligned tensors.  Raises otherwise."""
     tensors = (q, cache.kv_pages, cache.kv_scales, cache.page_table,
                cache.seq_lens, seq_slots)
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError(f"{name}: q, the cache and the slots must share one "
                          "CUDA device")
-    if (q.dtype != torch.bfloat16 or cache.kv_pages.dtype != torch.int8
+    kernel_dtype(name, q)
+    if (cache.kv_pages.dtype != torch.int8
             or cache.kv_scales.dtype != torch.float32
             or any(t.dtype != torch.int32 for t in tensors[3:])):
-        raise TypeError(f"{name} takes bf16 q, int8 pages, f32 scales and "
-                        "int32 page table, lengths and slots")
+        raise TypeError(f"{name} takes int8 pages, f32 scales and int32 "
+                        "page table, lengths and slots")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
@@ -269,8 +272,8 @@ def _launch_decode(q: torch.Tensor, cache: PagedKVCache,
                    window: Optional[int], fused: bool):
     """One launch of H6-decode on q's device: the f32 partials (o [B, Hq,
     n_split, 1, d], lse [B, Hq, n_split, 1]; None when ``fused`` with one
-    run, which writes O directly) and, with ``fused``, the merged bf16 o
-    [B, Hq, d] (else None)."""
+    run, which writes O directly) and, with ``fused``, the merged o [B, Hq,
+    d] in q's dtype (else None)."""
     _check_paged_inputs("H6-decode", q, cache, seq_slots, window)
     b, hq, d = q.shape
     hkv = cache.num_kv_heads
@@ -293,7 +296,7 @@ def _launch_decode(q: torch.Tensor, cache: PagedKVCache,
         seq_slots.data_ptr(), ptr(o_part), ptr(lse), ptr(o), ptr(tickets),
         b, hq, hkv, d, cache.page_size, cache.max_pages_per_seq,
         cache.page_table.shape[0], window or 0, n_split, per, int(fused),
-        scale, q.device.index,
+        scale, int(q.dtype == torch.float32), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(err, "H6-decode")
     paged_decode_partials.launches += 1
@@ -350,7 +353,8 @@ def paged_decode_attention(
 
     CPU tensors take :func:`paged_decode_plain`.  CUDA tensors launch
     kernel H6-decode once, with its merge (counted in
-    ``paged_decode_partials.launches``), or raise: it takes bf16 q with
+    ``paged_decode_partials.launches``), or raise: it takes bf16 or f32 q
+    (f32 O, f32 arithmetic throughout) with
     ``ops.attention.HEAD_DIM_RULE``, any GQA group and page sizes that
     are a multiple of 128 below 2^15.
     The f32 partials' workspace and O are allocated per call; the tickets
@@ -383,7 +387,8 @@ def paged_extend_attention(
     window.  Returns [B, C, Hq, d] in q.dtype.
 
     CPU tensors take :func:`paged_extend_plain`.  CUDA tensors launch kernel
-    H6-extend (``csrc/paged_extend.cu``), which takes bf16 q with
+    H6-extend (``csrc/paged_extend.cu``), which takes bf16 q or f32 q
+    (bf16x3 on wgmma against the exact codes, f32 O) with
     ``ops.attention.HEAD_DIM_RULE``, any GQA group and page sizes that
     are a multiple of 128 below 2^15, or raise.  ``paged_extend_attention.launches`` counts kernel
     launches."""
@@ -406,7 +411,8 @@ def paged_extend_attention(
         cache.page_table.data_ptr(), cache.seq_lens.data_ptr(),
         seq_slots.data_ptr(), o.data_ptr(), b, c, hq, hkv, d,
         cache.page_size, cache.max_pages_per_seq, cache.page_table.shape[0],
-        cache.kv_pages.shape[0], window or 0, scale, q.device.index,
+        cache.kv_pages.shape[0], window or 0, scale,
+        int(q.dtype == torch.float32), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(err, "H6-extend")
     paged_extend_attention.launches += 1

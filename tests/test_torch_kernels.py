@@ -43,6 +43,14 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
   rounding); vs the oracle 1.5e-3 (``pv_mode`` bf16) and 3e-2 (int8, at
   the JAX test's shape), and never further than the plain version plus
   1e-3.
+- f32 inputs (H1's f32 kernel, bf16x6 on wgmma; H6-extend's, bf16x3
+  against the exact codes; H6-decode's f32 instances, f32 FMA): H1 within 1e-5 of an f64
+  run of the plain version at bench/suite.py's referee row (B=2, H=4,
+  L=256, d=128) and 2e-5 at d 16-256 on a group of 16 (the JAX package's
+  f32 tiers, ``tests/test_attention_v1.py:24-27``), V2 within 1e-4, the
+  paged pair within 1e-5 of their plain f32 versions.  Each beside the
+  same inputs rounded to bf16 through the bf16 kernel, which must read
+  beyond the limit (``tests/test_torch_f32.py`` rehearses both on the CPU).
 - H5 vs plain and the oracle: 4e-3 abs on f32 O (p * v_scale rounded to
   bf16 per 64-key tile, as B19 does; a CPU emulation reads <= 9.5e-4 on a
   head or two, ``tests/test_torch_dtiled.py``, an H100 1.32e-3 over 32
@@ -188,14 +196,20 @@ def test_prefill_kernel_matches_plain_and_oracle(cuda_device, b, hq, hkv,
     assert np.abs(o.float().cpu().numpy() - oracle).max() < O_TOL
 
 
-def test_prefill_kernel_counts_launches_and_refuses_f32(cuda_device):
+def test_prefill_kernel_counts_launches_and_refuses_f16(cuda_device):
+    """bf16 and f32 each run one launch (f32 on the f32 kernel, O f32);
+    f16 and f64 raise before any launch."""
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 64)
     before = prefill_attention.launches
     prefill_attention(q, k, v, 0.125, 0)
     assert prefill_attention.launches == before + 1
-    with pytest.raises(TypeError, match="bf16"):
-        prefill_attention(q.float(), k.float(), v.float(), 0.125, 0)
-    assert prefill_attention.launches == before + 1
+    o, _ = prefill_attention(q.float(), k.float(), v.float(), 0.125, 0)
+    assert o.dtype == torch.float32
+    assert prefill_attention.launches == before + 2
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bf16 or f32"):
+            prefill_attention(q.to(dt), k.to(dt), v.to(dt), 0.125, 0)
+    assert prefill_attention.launches == before + 2
 
 
 # head dims of the rule (ops.attention.kernel_head_dim) on every instance of
@@ -685,7 +699,7 @@ def test_decode_kernel_partials_and_reruns(cuda_device, window):
 
 def test_decode_kernel_refuses_what_it_cannot_take(cuda_device):
     cache, q, slots = _paged_case(cuda_device, 8, 4, 128, 128, [5, 9])
-    for bad in (dict(window=0), dict(q=q.float())):
+    for bad in (dict(window=0), dict(q=q.half())):
         before = paged_decode_partials.launches
         with pytest.raises((ValueError, TypeError)):
             paged_decode_attention(bad.get("q", q), cache, slots,
@@ -912,14 +926,20 @@ def test_extend_kernel_matches_plain_and_oracle(cuda_device, hq, hkv, d,
                     <= EXTEND_O_TOL + 2 ** -7 * np.abs(oracle)).all(), (s, i)
 
 
-def test_extend_kernel_counts_launches_and_refuses_f32(cuda_device):
+def test_extend_kernel_counts_launches_and_refuses_f16(cuda_device):
+    """bf16 and f32 q each run one launch (O in q's dtype); f16 and f64
+    raise before any launch."""
     cache, q, slots = _extend_case(cuda_device, 4, 2, 64, [5, 140], 9)
     before = paged_extend_attention.launches
     paged_extend_attention(q, cache, slots)
     assert paged_extend_attention.launches == before + 1
-    with pytest.raises(TypeError, match="bf16"):
-        paged_extend_attention(q.float(), cache, slots)
-    assert paged_extend_attention.launches == before + 1
+    assert paged_extend_attention(q.float(), cache,
+                                  slots).dtype == torch.float32
+    assert paged_extend_attention.launches == before + 2
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bf16 or f32"):
+            paged_extend_attention(q.to(dt), cache, slots)
+    assert paged_extend_attention.launches == before + 2
 
 
 def _rel(got, ref):
@@ -1683,3 +1703,194 @@ def test_seq2seq_step_runs_h1_and_h3_across_lengths(cuda_device):
     before = [fn.launches for fn in counted]
     step(params, opt, src, tgt)
     assert [fn.launches - n for fn, n in zip(counted, before)] == [5, 5, 5]
+
+
+# ---------------------------------------------------------------- f32
+
+F32_REFEREE_TOL = 1e-5
+F32_TOL = 2e-5
+F32_V2_TOL = 1e-4
+F32_PAGED_TOL = 1e-5
+
+
+def _f32_qkv(dev, b, hq, hkv, lq, lkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    return mk(b, hq, lq, d), mk(b, hkv, lkv, d), mk(b, hkv, lkv, d)
+
+
+def _f64_plain(q, k, v, scale, causal, diag_off, window=None):
+    return attention_plain(q.double(), k.double(), v.double(), scale, causal,
+                           diag_off, window)
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lkv,d,tol", [
+    (2, 4, 4, 256, 256, 128, F32_REFEREE_TOL),   # the referee row
+    (1, 16, 1, 200, 330, 16, F32_TOL),
+    (1, 16, 1, 200, 330, 80, F32_TOL),
+    (1, 16, 1, 200, 330, 256, F32_TOL),
+    (2, 4, 2, 17, 17, 64, F32_TOL),              # below one tile
+    (1, 4, 4, 80, 48, 32, F32_TOL),              # rows that see no key
+])
+@pytest.mark.parametrize("mode", ["none", "causal", "window"])
+def test_h1_f32_matches_the_f64_plain_run(cuda_device, mode, b, hq, hkv, lq,
+                                          lkv, d, tol):
+    """H1 at f32 q/k/v: one launch, f32 O and LSE within the JAX package's
+    f32 tier of the plain version run in f64 (the oracle) and in f32 (TF32
+    off); the bf16 kernel on the same inputs rounded to bf16 reads beyond
+    it."""
+    causal, window = mode != "none", 64 if mode == "window" else None
+    q, k, v = _f32_qkv(cuda_device, b, hq, hkv, lq, lkv, d, seed=d)
+    scale = 1.0 / math.sqrt(d)
+    before = prefill_attention.launches
+    o, lse = prefill_attention(q, k, v, scale, lkv - lq, causal, window)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 1
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    ref, lse_ref = _f64_plain(q, k, v, scale, causal, lkv - lq, window)
+    assert (o.double() - ref).abs().max().item() <= tol
+    plain, _ = attention_plain(q, k, v, scale, causal, lkv - lq, window)
+    assert (o - plain).abs().max().item() <= tol
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse.double()[fin] - lse_ref[fin]).abs().max().item() <= tol
+    bad, _ = prefill_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                               scale, lkv - lq, causal, window,
+                               out_dtype=torch.float32)
+    assert (bad.double() - ref).abs().max().item() > tol
+
+
+@pytest.mark.parametrize("d", [32, 80, 128, 256])
+def test_h1_f32_forms_spans_and_offsets(cuda_device, d):
+    """H1 at f32 over KV spans (each span's partial and LSE), in the bound
+    form and the 64-row Q tile (each within 2e-5 of the f64 run; the bf16
+    O of an f32 call within bf16's rounding), and at traced offsets
+    bitwise its static launch."""
+    q, k, v = _f32_qkv(cuda_device, 2, 4, 2, 200, 700, d, seed=3)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = prefill_attention(q, k, v, scale, 500, False, kv_span=256)
+    for i, s in enumerate(range(0, 700, 256)):
+        ref, lse_ref = _f64_plain(q, k[:, :, s:s + 256], v[:, :, s:s + 256],
+                                  scale, False, 500 - s)
+        assert (o[:, :, i].double() - ref).abs().max().item() <= F32_TOL
+        assert (lse[:, :, i].double() - lse_ref).abs().max().item() <= F32_TOL
+    ref, _ = _f64_plain(q, k, v, scale, True, 500)
+    for cfg in (TileConfig(softmax="bound"), TileConfig(block_q=64)):
+        o = flash_attention_v1(q, k, v, cfg, causal=True)
+        assert o.dtype == torch.float32
+        assert (o.double() - ref).abs().max().item() <= F32_TOL
+    o16 = flash_attention_v1(q, k, v, causal=True, out_dtype=torch.bfloat16)
+    assert ((o16.double() - ref).abs() <= 2 ** -8 * ref.abs() + 1e-6).all()
+    pair = torch.tensor([500, 0], dtype=torch.int32, device=cuda_device)
+    static = prefill_attention(q, k, v, scale, 500, True)
+    traced = prefill_attention(q, k, v, scale, pair, True)
+    assert torch.equal(static[0], traced[0])
+    assert torch.equal(static[1], traced[1])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_v2_f32_runs_h1_spans_then_h2(cuda_device, causal):
+    """flash_attention_v2 at f32: H1 1 (f32 spans) and H2 1, O f32 within
+    1e-4 of the f64 run."""
+    q, k, v = _f32_qkv(cuda_device, 2, 4, 4, 1024, 1024, 128, seed=5)
+    before = (prefill_attention.launches, splitkv_combine.launches)
+    o = flash_attention_v2(q, k, v, config=SplitKVConfig(
+        block_q=1024, block_kv=512, kv_tiles_per_block=1), causal=causal)
+    torch.cuda.synchronize()
+    assert (prefill_attention.launches - before[0],
+            splitkv_combine.launches - before[1]) == (1, 1)
+    assert o.dtype == torch.float32
+    ref, _ = _f64_plain(q, k, v, 1.0 / math.sqrt(128), causal, 0)
+    assert (o.double() - ref).abs().max().item() <= F32_V2_TOL
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("hq,hkv,d,ps", [(8, 4, 128, 128)] + PAGED_HEADS)
+def test_decode_f32_matches_plain(cuda_device, hq, hkv, d, ps, window):
+    """H6-decode at f32 q (fused, its runs merged in its last block): one
+    launch, f32 O within 1e-5 of the plain f32 version and of the f64
+    oracle over each sequence's dequantized cache (its band), the tickets
+    zero after; the bf16 instance on q rounded to bf16 reads beyond it."""
+    cache, q, slots = _paged_case(cuda_device, hq, hkv, d, ps, DECODE_LENS)
+    q = q.float() + torch.randn(q.shape, device=cuda_device) * 1e-3
+    before = paged_decode_partials.launches
+    o = paged_decode_attention(q, cache, slots, window=window)
+    torch.cuda.synchronize()
+    assert paged_decode_partials.launches == before + 1
+    assert o.dtype == torch.float32
+    ref = paged_decode_plain(q, cache, slots, 1.0 / math.sqrt(d), window)
+    assert (o - ref).abs().max().item() <= F32_PAGED_TOL
+    assert not ticket_buffer(cuda_device).any()
+    for s, n in enumerate(DECODE_LENS):
+        if n == 0:                     # an empty sequence gives zeros
+            assert not o[s].any()
+            continue
+        kf, vf = gather_kv(cache, s)
+        lo = 0 if window is None else max(0, n - window)
+        oracle = naive_attention(q[s].view(hkv, hq // hkv, d), kf[:, lo:n],
+                                 vf[:, lo:n])
+        got = o[s].view(hkv, hq // hkv, d).cpu().numpy()
+        assert np.abs(got - oracle).max() <= F32_PAGED_TOL, s
+    bad = paged_decode_attention(q.bfloat16(), cache, slots, window=window)
+    assert (bad.float() - ref).abs().max().item() > F32_PAGED_TOL
+
+
+@pytest.mark.parametrize("window", [None, 1, 77])
+@pytest.mark.parametrize("hq,hkv,d,ps,hist,c", EXTEND_CASES[:3] + [
+    (16, 1, 80, 512, [257, 600], 64), (8, 2, 256, 128, [130, 3], 40),
+    (32, 1, 16, 1024, [5, 1100], 33)])
+def test_extend_f32_matches_plain(cuda_device, hq, hkv, d, ps, hist, c,
+                                  window):
+    """H6-extend at f32 q: one launch, f32 O within 1e-5 of the plain f32
+    version and of the f64 oracle over the dequantized cache (the first,
+    middle and last chunk rows); the bf16 kernel on q rounded to bf16
+    reads beyond it."""
+    cache, q, slots = _paged_case(cuda_device, hq, hkv, d, ps, hist, c=c)
+    q = q.float() + torch.randn(q.shape, device=cuda_device) * 1e-3
+    before = paged_extend_attention.launches
+    o = paged_extend_attention(q, cache, slots, window=window)
+    torch.cuda.synchronize()
+    assert paged_extend_attention.launches == before + 1
+    assert o.dtype == torch.float32
+    ref = paged_extend_plain(q, cache, slots, 1.0 / math.sqrt(d), window)
+    assert (o - ref).abs().max().item() <= F32_PAGED_TOL
+    g = hq // hkv
+    for s, n in enumerate(hist):
+        kf, vf = gather_kv(cache, s)
+        for i in (0, c // 2, c - 1):
+            pos = n + i
+            lo = 0 if window is None else max(0, pos - window + 1)
+            oracle = naive_attention(q[s, i].view(hkv, g, d),
+                                     kf[:, lo:pos + 1], vf[:, lo:pos + 1])
+            got = o[s, i].view(hkv, g, d).cpu().numpy()
+            assert np.abs(got - oracle).max() <= F32_PAGED_TOL, (s, i)
+    bad = paged_extend_attention(q.bfloat16(), cache, slots, window=window)
+    assert (bad.float() - ref).abs().max().item() > F32_PAGED_TOL
+
+
+def test_generate_serves_an_f32_model(cuda_device):
+    """A small LM at f32, the JAX package's default dtype: ``generate``
+    replays its decode graph bitwise the eager loop, H1 and H6-decode
+    counted per replay, and ``continue_generation`` runs H6-extend once a
+    layer."""
+    cfg = dataclasses.replace(_small_lm(cuda_device)[0], dtype=torch.float32)
+    eng = GenerationEngine(init_params(cfg, seed=0, device=cuda_device), cfg,
+                           max_seqs=4, max_len=512)
+    prompt = np.random.default_rng(0).integers(0, 512, (3, 150)).astype(
+        np.int32)
+    ref = eager_generate(eng, prompt, 12)
+    for _ in range(2):
+        before = (prefill_attention.launches, paged_decode_partials.launches)
+        out = eng.generate(prompt, 12)
+        assert (prefill_attention.launches - before[0],
+                paged_decode_partials.launches - before[1]) == (2, 2 * 11)
+        assert np.array_equal(out, ref)
+    eng.generate(prompt, 8, hold=True)
+    turn = np.random.default_rng(1).integers(0, 512, (3, 40))
+    before = (paged_extend_attention.launches, paged_decode_partials.launches)
+    out = eng.continue_generation(turn, 6)
+    assert (paged_extend_attention.launches - before[0],
+            paged_decode_partials.launches - before[1]) == (2, 2 * 5)
+    assert ((out >= 0) & (out < 512)).all()
+    eng.release()

@@ -290,6 +290,34 @@ Phases, one line each; any failure exits non-zero before the last line:
    against the full forward), and its full forward's logits within 1e-4
    of max|logits| of an all-plain f32 forward on the card, beside the
    forward with attention's q, k, v rounded to bf16.
+25. f32_train (after train): training at f32.  H3-dkv and H3-dq with f32
+   q, k, v and dO (their f32 kernels, bf16x6 on wgmma, P and dS kept f32)
+   through flash_attention_bwd, each call one counted launch of each,
+   with H1 f32's residuals, against f64 autograd of the plain forward on
+   the card: max|g - g64| <= 1e-4 max|g64| per gradient (the rtol of
+   tests/test_attention_bwd.py:180) at the f32 flagship's train shape
+   (B=8, Hq=8, Hkv=4, L=1024, d=128; causal and no mask), BWD_SHAPES'
+   ragged shape and BWD_CROSS, d 16, 64 and 80 (under no mask, causal and
+   a window of 100), the windowed model's shape (B=1, L=32768, window
+   4096; the f64 reference block by block over the bands) and traced
+   offsets at d 80 and 128 (bitwise their static launch).  Two known-wrong
+   controls must read beyond the limit in every case: the bf16 kernels on
+   the inputs rounded to bf16, and the plain f32 backward with P and dS
+   rounded to bf16.  H3 f32 timed at the train shape (causal, no mask)
+   beside the plain f32 backward, SDPA's f32 backward (TF32 off) and the
+   bound (six bf16 piece products a product at 989 TFLOP/s), and at the
+   windowed shape.  Then the flagship at dtype=torch.float32 trained as
+   the train phase trains it (H1, H3-dkv and H3-dq 4 launches a step, the
+   loss falling over 5 AdamW steps, the step-0 loss within 2e-5 and every
+   leaf's gradient within 1e-4 of its norm of the all-plain f32 step;
+   controls: the diagonal key hidden in the forward, H3's bf16 kernels on
+   bf16-rounded inputs in the backward), its training tokens/s beside the
+   bf16 flagship's of this run; the encoder step (make_mlm_train_step,
+   H3 without a mask; its gradients against its own forward with the
+   plain backward in H3's place, the whole path shown beside, as
+   heads_train holds heads256's encoder) and the sharded step at
+   MeshConfig(1, 1, 1) (the ring's hop at traced offsets) at f32, each
+   at the same limits.
 
 ``python3 chip_smoke.py --only PHASE,...`` runs the build and the named
 phases alone (no kernels line), for a quicker call while a phase is
@@ -632,7 +660,10 @@ WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 4,
                    # the f32 core (bf16x6 / bf16x3): D 64/128/256, H1's
                    # exact and bound statistics
                    "prefill_attention_f32_kernel": 6,
-                   "paged_extend_f32_kernel": 3}
+                   "paged_extend_f32_kernel": 3,
+                   # H3 at f32 (bf16x6): D 64 and 128
+                   "attention_bwd_dkv_f32_kernel": 2,
+                   "attention_bwd_dq_f32_kernel": 2}
 H2_FUNCTIONS = 16              # one instance per d, 16 to 256 by 16
 
 
@@ -2515,13 +2546,17 @@ def leaf_err(named_leaves, grads, ref):
     return errs[worst], named_leaves[worst]
 
 
-def phase_train(torch, dev, name="train", **heads):
-    """make_train_step on the flagship LM, or with its attention geometry
-    changed by ``heads`` (n_heads, n_kv_heads, d_head; the heads_train
-    phase's models): the step-0 loss and every gradient against the plain
-    attention beside the diagonal-hidden controls, the launches of each
-    step, the loss over 5 AdamW steps and training tokens/s.  Returns
-    (launches of a step, tokens/s, the checks' readings)."""
+def phase_train(torch, dev, name="train", loss_tol=TRAIN_LOSS_TOL,
+                grad_tol=GRAD_REL_TOL, bwd_control=None, **heads):
+    """make_train_step on the flagship LM, or with its config changed by
+    ``heads`` (n_heads, n_kv_heads, d_head: the heads_train phase's
+    models; dtype: the f32_train phase's): the step-0 loss and every
+    gradient against the plain attention within ``loss_tol`` and
+    ``grad_tol``, beside the diagonal-hidden forward and ``bwd_control``
+    ((backward, what it is) in H3's place; by default the diagonal key
+    hidden), the launches of each step, the loss over 5 AdamW steps and
+    training tokens/s.  Returns (launches of a step, tokens/s, the checks'
+    readings)."""
     from unittest import mock
 
     from exploring_flash_attention_tpu_torch.models import (
@@ -2559,26 +2594,28 @@ def phase_train(torch, dev, name="train", **heads):
                            functools.partial(plain_flash_attention,
                                              hidden=1)):
         loss_bad = loss_and_grads()[0]
+    bad_bwd, bad_what = bwd_control or (
+        hide_diagonal_bwd, "diagonal key hidden in the backward")
     with mock.patch.object(attention_bwd_module, "masked_attention_bwd",
-                           hide_diagonal_bwd):
+                           bad_bwd):
         grads_bad = loss_and_grads()[1]
     e_grad, leaf = leaf_err(names, grads_k, grads_p)
     e_bad, leaf_bad = leaf_err(names, grads_bad, grads_p)
     del grads_k, grads_p, grads_bad
     print(f"  {name} step-0 loss {loss_k:.6f}, with the plain attention "
           f"{loss_p:.6f}: |d| {abs(loss_k - loss_p):.3e} (tol "
-          f"{TRAIN_LOSS_TOL:g}), control (diagonal key hidden in the "
+          f"{loss_tol:g}), control (diagonal key hidden in the "
           f"forward) {abs(loss_bad - loss_p):.3e}; largest per-leaf "
           f"||dg||/||g|| over {len(leaves)} leaves vs the plain path "
-          f"{e_grad:.3e} at {leaf} (tol {GRAD_REL_TOL:g}), control "
-          f"(diagonal key hidden in the backward) {e_bad:.3e} at {leaf_bad}")
+          f"{e_grad:.3e} at {leaf} (tol {grad_tol:g}), control "
+          f"({bad_what}) {e_bad:.3e} at {leaf_bad}")
     _require(math.isfinite(loss_k), "step-0 loss not finite")
-    _require(abs(loss_k - loss_p) < TRAIN_LOSS_TOL,
+    _require(abs(loss_k - loss_p) < loss_tol,
              "the step-0 loss differs from the plain path's")
-    _require(abs(loss_bad - loss_p) > TRAIN_LOSS_TOL,
+    _require(abs(loss_bad - loss_p) > loss_tol,
              "the loss check cannot tell a wrong mask")
-    _require(e_grad < GRAD_REL_TOL, "gradients differ from the plain path's")
-    _require(e_bad > GRAD_REL_TOL,
+    _require(e_grad < grad_tol, "gradients differ from the plain path's")
+    _require(e_bad > grad_tol,
              "the gradient check cannot tell a wrong backward")
 
     step, opt_init = make_train_step(cfg)
@@ -2624,12 +2661,15 @@ def phase_train(torch, dev, name="train", **heads):
         "tflop_s": flop / med / 1e12}
 
 
-def phase_encoder(torch, dev, name="encoder", bwd_ref=False, **heads):
+def phase_encoder(torch, dev, name="encoder", bwd_ref=False,
+                  loss_tol=ENCODER_LOSS_TOL, grad_tol=GRAD_REL_TOL, **heads):
     """The JAX suite's encoder entry (bench/suite.py:1057-1102) on the
-    port: the flagship geometry (or its attention changed by ``heads``, as
-    the heads_train phase runs heads256) trained with make_mlm_train_step
-    (AdamW, lr 1e-3) on tokens [8, 1024] from np.random.default_rng(0),
-    under one fixed mask in every step, as the suite holds its rng fixed.
+    port: the flagship geometry (or its config changed by ``heads``, as
+    the heads_train phase runs heads256 and the f32_train phase the
+    flagship at f32; the limits ``loss_tol`` and ``grad_tol``) trained
+    with make_mlm_train_step (AdamW, lr 1e-3) on tokens [8, 1024] from
+    np.random.default_rng(0), under one fixed mask in every step, as the
+    suite holds its rng fixed.
 
     With ``bwd_ref`` the gradients are held against the same forward with
     the plain backward in H3's place (plain_bwd), and the whole path's
@@ -2689,7 +2729,7 @@ def phase_encoder(torch, dev, name="encoder", bwd_ref=False, **heads):
         what = "the plain backward in H3's place"
         print(f"  {name}: largest per-leaf ||dg||/||g|| of the whole path "
               f"vs the plain attention {e_path:.3e} at {leaf_path} "
-              f"(shown: H1's bf16 O), of the kernels' forward with the "
+              f"(shown: H1's O), of the kernels' forward with the "
               f"plain backward {leaf_err(names, ref, grads_p)[0]:.3e}")
     e_grad, leaf = leaf_err(names, grads_k, ref)
     e_bad, leaf_bad = leaf_err(names, grads_bad, ref)
@@ -2697,19 +2737,19 @@ def phase_encoder(torch, dev, name="encoder", bwd_ref=False, **heads):
     print(f"  {name} step-0 MLM loss {loss_k:.6f} over "
           f"{int(mask.sum())} masked tokens, with the plain attention "
           f"{loss_p:.6f}: |d| {abs(loss_k - loss_p):.3e} (tol "
-          f"{ENCODER_LOSS_TOL:g}), control (causal forward) "
+          f"{loss_tol:g}), control (causal forward) "
           f"{abs(loss_bad - loss_p):.3e}; largest per-leaf ||dg||/||g|| "
           f"over {len(leaves)} leaves vs {what} {e_grad:.3e} at "
-          f"{leaf} (tol {GRAD_REL_TOL:g}), control (causal backward) "
+          f"{leaf} (tol {grad_tol:g}), control (causal backward) "
           f"{e_bad:.3e} at {leaf_bad}")
     _require(math.isfinite(loss_k), "encoder step-0 loss not finite")
-    _require(abs(loss_k - loss_p) < ENCODER_LOSS_TOL,
+    _require(abs(loss_k - loss_p) < loss_tol,
              "the encoder's step-0 loss differs from the plain path's")
-    _require(abs(loss_bad - loss_p) > ENCODER_LOSS_TOL,
+    _require(abs(loss_bad - loss_p) > loss_tol,
              "the encoder's loss check cannot tell a causal forward")
-    _require(e_grad < GRAD_REL_TOL,
+    _require(e_grad < grad_tol,
              "encoder gradients differ from the plain path's")
-    _require(e_bad > GRAD_REL_TOL,
+    _require(e_bad > grad_tol,
              "the encoder's gradient check cannot tell a causal backward")
 
     step, opt_init = make_mlm_train_step(cfg)
@@ -3462,10 +3502,11 @@ def phase_seq2seq(torch, dev):
     return out
 
 
-def h3_instance(d):
+def h3_instance(d, f32=False):
     """H3's instance for head dim d: the smallest of 32, 64, 128, 256 at or
-    above it."""
-    return next(x for x in (32, 64, 128, 256) if d <= x)
+    above it; at f32 of 64 and 128."""
+    return next(x for x in ((64, 128) if f32 else (32, 64, 128, 256))
+                if d <= x)
 
 
 def h3_times(torch, q, k, v, do, causal):
@@ -3479,7 +3520,9 @@ def h3_times(torch, q, k, v, do, causal):
     for H3-dkv, 6 d for H3-dq, or each input read and output written
     once), and the tensor-core work its instance runs for the same pairs
     (the padded columns, (D - d) / D, and at D=256 the S and dP products
-    that both warpgroups compute) over the true d's."""
+    that both warpgroups compute) over the true d's.  At f32 inputs the
+    bound counts the f32 kernels' six bf16 piece products a product, the
+    bytes four a value, and SDPA's backward runs at f32 (TF32 off)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from exploring_flash_attention_tpu_torch.ops import (
@@ -3505,9 +3548,12 @@ def h3_times(torch, q, k, v, do, causal):
     plain = time_cuda(lambda: attention_bwd_plain(
         q, k, v, o, do, lse, s, causal, 0), n_iter=20)
     pairs = visible_pairs(l, l, causal, None) * b * hq
-    q_bytes, kv_bytes = b * hq * l * d * 2, b * hkv * l * d * 2
+    f32 = q.dtype == torch.float32
+    terms = H3_F32_TERMS if f32 else 1
+    es = q.element_size()
+    q_bytes, kv_bytes = b * hq * l * d * es, b * hkv * l * d * es
     row_bytes = b * hq * l * 4
-    big = h3_instance(d)
+    big = h3_instance(d, f32)
     t = {"h3dkv": {"ms": time_cuda(lambda: attention_bwd_dkv(
              q, k, v, do, lse, delta, s, causal, 0), n_iter=20),
              "plain_ms": plain, "library_ms": lib,
@@ -3517,9 +3563,9 @@ def h3_times(torch, q, k, v, do, causal):
              "plain_ms": plain, "library_ms": lib,
              "instance_work_ratio": big / d * (5 / 3 if big == 256 else 1)}}
     t["h3dkv"]["bound_ms"], t["h3dkv"]["bound_by"] = roofline(
-        8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)
+        terms * 8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)
     t["h3dq"]["bound_ms"], t["h3dq"]["bound_by"] = roofline(
-        6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)
+        terms * 6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)
     for x in t.values():
         x["bound_share"] = x["bound_ms"] / x["ms"]
     delta_ms = time_cuda(lambda: (do.float() * o.float()).sum(dim=-1),
@@ -4153,11 +4199,14 @@ def hop_graph_check(torch, dev):
     return len(pairs)
 
 
-def sharded_train_check(torch, dev, name="flagship", **heads):
+def sharded_train_check(torch, dev, name="flagship", loss_tol=TRAIN_LOSS_TOL,
+                        grad_tol=GRAD_REL_TOL, **heads):
     """make_train_step(mesh=) on a one-rank NCCL group (MeshConfig(1, 1,
     1): the ring's single hop at the traced pair (0, 0), the tp and data
-    all-reduces over one rank) at the flagship's widths (its attention
-    geometry changed by ``heads`` for the heads_train phase's models) on
+    all-reduces over one rank) at the flagship's widths (its config
+    changed by ``heads``: the heads_train phase's attention geometries,
+    the f32_train phase's dtype; the limits ``loss_tol`` and
+    ``grad_tol``) on
     tokens [8, 1025], against make_train_step(mesh=None) on the same
     weights (SGD
     at 0.1): the loss, every leaf's gradient (the mesh step's after its
@@ -4238,17 +4287,17 @@ def sharded_train_check(torch, dev, name="flagship", **heads):
     print(f"  sharded step (MeshConfig(1, 1, 1), NCCL, one rank) of the "
           f"{name}, tokens [8, 1025], SGD 0.1: loss "
           f"{runs['mesh']['loss']:.6f} vs mesh=None {ref['loss']:.6f}, |d| "
-          f"{m['loss_err']:.3e} (tol {TRAIN_LOSS_TOL:g}); largest per-leaf "
+          f"{m['loss_err']:.3e} (tol {loss_tol:g}); largest per-leaf "
           f"||dg|| / ||g|| {m['grad_err']:.3e} at {m['leaf']} (tol "
-          f"{GRAD_REL_TOL:g}); updated params bitwise: "
+          f"{grad_tol:g}); updated params bitwise: "
           f"{m['params_bitwise']}; control (the ring's diagonal key hidden) "
           f"loss {c['loss_err']:.3e}, grads {c['grad_err']:.3e} at "
           f"{c['leaf']}; launches {runs['mesh']['counts']} (expected "
           f"{want}); step times s: mesh {runs['mesh']['step_s']:.5f}, "
           f"mesh=None {ref['step_s']:.5f}")
-    _require(m["loss_err"] < TRAIN_LOSS_TOL and m["grad_err"] < GRAD_REL_TOL,
+    _require(m["loss_err"] < loss_tol and m["grad_err"] < grad_tol,
              "the sharded step differs from the one-device step")
-    _require(c["loss_err"] > TRAIN_LOSS_TOL and c["grad_err"] > GRAD_REL_TOL,
+    _require(c["loss_err"] > loss_tol and c["grad_err"] > grad_tol,
              "the sharded-step check cannot tell a wrong ring")
     _require(runs["mesh"]["counts"] == want,
              "the sharded step missed a kernel")
@@ -5666,15 +5715,324 @@ def f32_readings(f32, kern):
     return {**times, "by_case": f32[kern], "launches": path}
 
 
+# The f32_train phase.  H3 at f32 against f64 autograd of the plain
+# forward on the card, max|g - g64| / max|g64| per gradient: 1e-4, the rtol
+# of the JAX package's f32 GQA backward test (tests/test_attention_bwd.py:
+# 180).  A CPU emulation of the f32 kernels' arithmetic reads <= 5.8e-7,
+# the controls (the bf16 kernels on the inputs rounded to bf16; P and dS
+# rounded to bf16) 1.0e-3 and more (tests/test_torch_bwd_f32.py)
+F32_H3_TOL = 1e-4
+# the f32 flagship's step 0 against the all-plain f32 step, far under the
+# bf16 limits (TRAIN_LOSS_TOL, GRAD_REL_TOL): the loss (a mean over 8,192
+# tokens, or the encoder's ~1,270 masked ones; the diagonal key hidden in
+# the forward moves it by 1.8e-4 at bf16) and each leaf's ||dg|| / ||g||
+# (H3's bf16 kernels on bf16-rounded inputs as the control)
+F32_TRAIN_LOSS_TOL = 2e-5
+F32_GRAD_REL_TOL = 1e-4
+H3_F32_TERMS = 6               # bf16 piece products an f32 product (bf16x6)
+# (B, Hq, Hkv, Lq, Lkv, d, masks) of the H3 f32 checks: the f32 flagship's
+# train step (causal) and encoder step (no mask), BWD_SHAPES' ragged case,
+# the seq2seq cross attention, and d 16, 64 (D = d) and 80 (D=128 on
+# zero-filled columns)
+F32_BWD_CASES = [(8, 8, 4, 1024, 1024, 128, ("causal", "none")),
+                 (*BWD_SHAPES[1], tuple(BWD_MASKS)),
+                 (*BWD_CROSS, tuple(BWD_MASKS)),
+                 (2, 16, 1, 1000, 1100, 16, tuple(BWD_MASKS)),
+                 (2, 8, 4, 1024, 1024, 64, tuple(BWD_MASKS)),
+                 (2, 16, 1, 1000, 1100, 80, tuple(BWD_MASKS))]
+F32_TRACED_DIMS = (80, 128)    # H3 f32 at HEADS_TRACED's offsets
+
+
+def _rel64(got, ref) -> float:
+    """max|got - ref| / max|ref| in f64 (ref: the f64 gradient)."""
+    return ((got.double() - ref).abs().max() / ref.abs().max()).item()
+
+
+def banded_grads(torch, fn, q, k, v, do, diag_off, window, *rows):
+    """fn(q, k, v, do, diag_off, *rows) -> (dq, dk, dv) over the whole
+    shape or, past 4096 rows under a window, block by block of 2048 rows
+    against the keys of their bands (the score matrix of L = 32768 would
+    take 34 GB in f32), dK and dV summed over the blocks.  ``rows``: per-row
+    tensors ([B, H, Lq, ...]) cut with q."""
+    lq, lkv = q.shape[2], k.shape[2]
+    if lq <= 4096 or window is None:
+        return fn(q, k, v, do, diag_off, *rows)
+    dqs, dk, dv = [], None, None
+    for r0 in range(0, lq, 2048):
+        r1 = min(r0 + 2048, lq)
+        c0 = max(0, r0 + diag_off - window + 1)
+        c1 = min(lkv, r1 + diag_off)
+        g = fn(q[:, :, r0:r1], k[:, :, c0:c1], v[:, :, c0:c1],
+               do[:, :, r0:r1], r0 + diag_off - c0,
+               *(x[:, :, r0:r1] for x in rows))
+        if dk is None:
+            dk = torch.zeros(k.shape, dtype=g[1].dtype, device=k.device)
+            dv = torch.zeros(v.shape, dtype=g[2].dtype, device=v.device)
+        dqs.append(g[0])
+        dk[:, :, c0:c1] += g[1]
+        dv[:, :, c0:c1] += g[2]
+    return torch.cat(dqs, dim=2), dk, dv
+
+
+def rounded_pds_bwd(torch, q, k, v, out, do, lse, scale, causal, diag_off,
+                    window):
+    """A known-wrong f32 backward: the plain one with P and dS rounded to
+    bf16 before their products, as the bf16 kernels round them."""
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        LOG2E,
+        hidden_keys,
+    )
+    b, hq, lq, d = q.shape
+    hkv, lkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    kf, vf = (x.repeat_interleave(g, dim=1) for x in (k, v))
+    hidden = torch.isneginf(lse)[..., None]
+    band = hidden_keys(lq, lkv, causal, diag_off, window, q.device)
+    if band is not None:
+        hidden = hidden | band
+    s = q @ kf.transpose(-1, -2)
+    p = torch.exp2((s * (scale * LOG2E) - lse[..., None] * LOG2E)
+                   .masked_fill(hidden, float("-inf")))
+    delta = (do * out).sum(dim=-1, keepdim=True)
+    ds = (p * (do @ vf.transpose(-1, -2) - delta) * scale).masked_fill(
+        hidden, 0.0)
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+
+    def fold(x):
+        return x.view(b, hkv, g, lkv, d).sum(dim=2)
+
+    return (ds @ kf, fold(ds.transpose(-1, -2) @ q),
+            fold(p.transpose(-1, -2) @ do))
+
+
+def bf16_h3_bwd(q, k, v, out, do, lse, scale, causal, diag_off, window):
+    """A known-wrong f32 backward in masked_attention_bwd's place: H3's
+    bf16 kernels on q, k, v and dO rounded to bf16, the gradients cast
+    back to f32."""
+    from exploring_flash_attention_tpu_torch.ops.attention_bwd import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+    )
+    q, k, v, do = (x.bfloat16().contiguous() for x in (q, k, v, do))
+    delta = (do.float() * out.float()).sum(dim=-1)
+    mask = (scale, causal, diag_off, window)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, delta, *mask)
+    dq = attention_bwd_dq(q, k, v, do, lse, delta, *mask)
+    return dq.float(), dk.float(), dv.float()
+
+
+def f32_h3_case(torch, what, q, k, v, do, causal, window, traced=None):
+    """H3 at f32 through flash_attention_bwd (one counted launch of each
+    kernel) on H1 f32's residuals, against f64 autograd of the plain
+    forward, beside both controls; ``traced``: (q_pos0, kv_pos0) passed as
+    device tensors, the call also bitwise its static launch."""
+    from exploring_flash_attention_tpu_torch.ops import (
+        flash_attention_bwd,
+        prefill_attention,
+    )
+
+    lq, lkv, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    diag = lkv - lq if traced is None else traced[0] - traced[1]
+    out, lse = prefill_attention(q, k, v, scale, diag, causal, window)
+    kw = dict(scale=scale, causal=causal, window=window)
+    static = functools.partial(flash_attention_bwd, q, k, v, out, do, lse,
+                               static_positions=(diag, 0), **kw)
+    call = static
+    if traced is not None:
+        offs = torch.tensor(traced, dtype=torch.int32, device=q.device)
+        call = functools.partial(flash_attention_bwd, q, k, v, out, do, lse,
+                                 positions=(offs[0], offs[1]), **kw)
+    grads = counted_call(torch, call, launches_only(h3dkv=1, h3dq=1))
+    _require(all(g.dtype == torch.float32 and torch.isfinite(g).all().item()
+                 for g in grads), f"f32 H3 {what}: gradients not finite f32")
+    same = None
+    if traced is not None:
+        same = all(torch.equal(a, b) for a, b in zip(grads, static()))
+        _require(same, f"f32 H3 {what}: traced differs from static")
+    ref = banded_grads(torch, lambda q_, k_, v_, do_, off: f64_attention_grads(
+        torch, q_, k_, v_, do_, scale, causal, off, window),
+        q, k, v, do, diag, window)
+    bad16 = bf16_h3_bwd(q, k, v, out, do, lse, scale, causal, diag, window)
+    bad_pds = banded_grads(
+        torch, lambda q_, k_, v_, do_, off, o_, l_: rounded_pds_bwd(
+            torch, q_, k_, v_, o_, do_, l_, scale, causal, off, window),
+        q, k, v, do, diag, window, out, lse)
+    e = [_rel64(g, r) for g, r in zip(grads, ref)]
+    c16 = [_rel64(g, r) for g, r in zip(bad16, ref)]
+    cpds = [_rel64(g, r) for g, r in zip(bad_pds, ref)]
+    fmt = lambda x: " ".join(                           # noqa: E731
+        f"{n} {y:.3e}" for n, y in zip(("dq", "dk", "dv"), x))
+    print(f"  f32 H3 {what}: max|d|/max|g64| {fmt(e)} (limit "
+          f"{F32_H3_TOL:g}); controls: the bf16 kernels on bf16-rounded "
+          f"inputs {fmt(c16)}, P and dS rounded to bf16 {fmt(cpds)}"
+          + ("" if same is None else f"; bitwise its static launch: {same}"))
+    _require(max(e) <= F32_H3_TOL, f"f32 H3 {what} outside tolerance")
+    _require(min(c16 + cpds) > F32_H3_TOL,
+             f"the f32 H3 check cannot tell a bf16 backward ({what})")
+    return {"rel_err": {"h3dq": e[0], "h3dkv": max(e[1:])},
+            "control_bf16_kernels": {"h3dq": c16[0], "h3dkv": min(c16[1:])},
+            "control_pds_rounded": {"h3dq": cpds[0],
+                                    "h3dkv": min(cpds[1:])}}
+
+
+def f32_inputs_do(torch, dev, b, hq, hkv, lq, lkv, d, seed):
+    """f32_inputs' q, k, v and a dO of q's shape, all standard normal."""
+    q, k, v = f32_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed)
+    do = f32_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed + 1)[0]
+    return q, k, v, do
+
+
+def f32_h3_checks(torch, dev):
+    """Every H3 f32 check of the phase (module comment above): by case
+    name, each mask's readings."""
+    out = {}
+    for b, hq, hkv, lq, lkv, d, masks in F32_BWD_CASES:
+        q, k, v, do = f32_inputs_do(torch, dev, b, hq, hkv, lq, lkv, d,
+                                    seed=d + lq)
+        geo = f"B={b} Hq={hq} Hkv={hkv} Lq={lq} Lkv={lkv} d={d}"
+        for m in masks:
+            causal, window = BWD_MASKS[m]
+            out[f"{geo} {m}"] = f32_h3_case(torch, f"{geo} {m}", q, k, v, do,
+                                            causal, window)
+        del q, k, v, do
+    b, l = WINDOW_TRAIN
+    q, k, v, do = f32_inputs_do(torch, dev, b, 8, 4, l, l, 128, seed=40)
+    geo = f"B={b} Hq=8 Hkv=4 L={l} d=128 window {WINDOW}"
+    out[geo] = f32_h3_case(torch, f"{geo} (the windowed model's shape)", q,
+                           k, v, do, True, WINDOW)
+    del q, k, v, do
+    for d in F32_TRACED_DIMS:
+        q, k, v, do = f32_inputs_do(torch, dev, 2, 16, 1, 300, 300, d,
+                                    seed=d)
+        for q_pos, kv_pos, window in HEADS_TRACED:
+            key = f"d={d} traced ({q_pos}, {kv_pos})" + (
+                f" window {window}" if window else "")
+            out[key] = f32_h3_case(torch, f"{key}, B=2 Hq=16 Hkv=1 L=300",
+                                   q, k, v, do, True, window,
+                                   traced=(q_pos, kv_pos))
+        del q, k, v, do
+    return out
+
+
+def f32_h3_window_times(torch, dev):
+    """H3 f32 alone at the windowed model's shape (B=1, L=32768, window
+    4096): CUDA-event medians of each kernel beside its bound."""
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    b, l = WINDOW_TRAIN
+    hq, hkv, d = 8, 4, 128
+    q, k, v, do = f32_inputs_do(torch, dev, b, hq, hkv, l, l, d, seed=41)
+    s = 1.0 / math.sqrt(d)
+    o, lse = prefill_attention(q, k, v, s, 0, True, WINDOW)
+    delta = (do * o).sum(dim=-1)
+    pairs = visible_pairs(l, l, True, WINDOW) * b * hq
+    q_bytes, kv_bytes = b * hq * l * d * 4, b * hkv * l * d * 4
+    row_bytes = b * hq * l * 4
+    t = {}
+    for kern, fn, flop, nbytes in (
+            ("h3dkv", lambda: attention_bwd_dkv(q, k, v, do, lse, delta, s,
+                                                True, 0, WINDOW),
+             8, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+            ("h3dq", lambda: attention_bwd_dq(q, k, v, do, lse, delta, s,
+                                              True, 0, WINDOW),
+             6, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)):
+        t[kern] = {"ms": time_cuda(fn, n_iter=5)}
+        t[kern]["bound_ms"], t[kern]["bound_by"] = roofline(
+            H3_F32_TERMS * flop * d * pairs, nbytes)
+    print(f"  f32 H3 at B={b} Hq={hq} Hkv={hkv} L={l} d={d} window "
+          f"{WINDOW}: H3-dkv {t['h3dkv']['ms']:.4f} ms (bound "
+          f"{t['h3dkv']['bound_ms']:.4f}), H3-dq {t['h3dq']['ms']:.4f} ms "
+          f"(bound {t['h3dq']['bound_ms']:.4f})")
+    return t
+
+
+def phase_f32_train(torch, dev, bf16_train=None):
+    """Training at f32 (module comment above); ``bf16_train``: the train
+    phase's return of this run (launches, tokens/s, readings), beside
+    which the f32 flagship's are set."""
+    t0 = time.perf_counter()
+    out = {"checks": f32_h3_checks(torch, dev)}
+    gen = torch.Generator().manual_seed(18)
+    q, k, v, do = (torch.randn(*s, generator=gen).to(dev) for s in (
+        (8, 8, 1024, 128), (8, 4, 1024, 128), (8, 4, 1024, 128),
+        (8, 8, 1024, 128)))
+    out["times"] = {"shape": "B=8 Hq=8 Hkv=4 L=1024 d=128",
+                    **{("causal" if c else "none"): h3_times(torch, q, k, v,
+                                                             do, c)
+                       for c in (True, False)},
+                    "window_train_shape": f32_h3_window_times(torch, dev)}
+    del q, k, v, do
+    f32 = dict(dtype=torch.float32)
+    tols = dict(loss_tol=F32_TRAIN_LOSS_TOL, grad_tol=F32_GRAD_REL_TOL)
+    counts, tok_s, checks = phase_train(
+        torch, dev, "f32 train", bwd_control=(
+            bf16_h3_bwd, "H3's bf16 kernels on bf16-rounded q, k, v, dO"),
+        **tols, **f32)
+    out["model"] = {"train_launches": counts, "tokens_s": tok_s, **checks}
+    # the encoder's gradients against its own forward with the plain
+    # backward in H3's place (bwd_ref), the whole path shown: in the
+    # bidirectional layers H1 f32's O moves the attention projections'
+    # small gradients by up to 8.9e-5 of their norm against an f64 model,
+    # the plain f32 attention by 8.2e-6, H3 by 3.4e-6
+    # (tools/probe_f32_grads.py)
+    out["model"]["encoder_launches"], out["model"]["encoder_tokens_s"] = (
+        phase_encoder(torch, dev, "f32 encoder", bwd_ref=True, **tols,
+                      **f32))
+    out["model"]["sharded"] = sharded_train_check(torch, dev, "f32 flagship",
+                                                  **tols, **f32)
+    beside = ""
+    if bf16_train is not None:
+        bf16_counts, bf16_tok_s, _ = bf16_train
+        _require(counts == bf16_counts, "the f32 flagship's train launches "
+                 f"{counts} differ from the bf16 flagship's {bf16_counts}")
+        out["model"]["bf16_tokens_s"] = bf16_tok_s
+        beside = (f"; the bf16 flagship in this run {bf16_tok_s:.1f} "
+                  f"({tok_s / bf16_tok_s:.3f}x)")
+    print(f"  f32 flagship training {tok_s:.1f} tokens/s{beside}; launches "
+          f"a step H1 {counts['h1']}, H3-dkv {counts['h3dkv']}, H3-dq "
+          f"{counts['h3dq']}; on {card_line()}")
+    print(f"phase f32_train: ok in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def f32_train_readings(f32t, kern):
+    """The kernels line's f32 readings of H3-dkv or H3-dq (kern h3dkv,
+    h3dq)."""
+    t, model = f32t["times"], f32t["model"]
+    return {**t["causal"][kern], "shape": t["shape"] + " causal",
+            "none": t["none"][kern],
+            "window_train_shape": t["window_train_shape"][kern],
+            "max_abs_err_rel": {n: c["rel_err"][kern]
+                                for n, c in f32t["checks"].items()},
+            "controls": {n: {"bf16_kernels": c["control_bf16_kernels"][kern],
+                             "pds_rounded": c["control_pds_rounded"][kern]}
+                         for n, c in f32t["checks"].items()},
+            "launches": {"f32_train_step": model["train_launches"][kern],
+                         "f32_encoder_step": model["encoder_launches"][kern],
+                         "f32_sharded_train_step":
+                             model["sharded"]["launches"][kern]},
+            "flagship": {k: model[k] for k in (
+                "tokens_s", "loss_err", "loss_control", "grad_err",
+                "grad_control", "losses") + (
+                ("bf16_tokens_s",) if "bf16_tokens_s" in model else ())}}
+
+
 PHASES = ("h1", "v1", "tiles", "v2", "quant", "dtiled", "decode", "extend",
           "scheduler", "bwd", "slice", "multiturn", "speculative", "heads",
-          "f32", "train", "heads_train", "encoder", "seq2seq", "parallel",
-          "window_train", "window_generate", "time_kernels")
+          "f32", "train", "f32_train", "heads_train", "encoder", "seq2seq",
+          "parallel", "window_train", "window_generate", "time_kernels")
 
 
 def run_only(torch, dev, names):
-    """Run the named phases alone, in PHASES order."""
-    lm = None
+    """Run the named phases alone, in PHASES order (f32_train beside the
+    train phase's readings where both run)."""
+    lm, done = None, {}
     for name in PHASES:
         if name not in names:
             continue
@@ -5683,8 +6041,10 @@ def run_only(torch, dev, names):
         if name in ("slice", "multiturn", "speculative"):
             lm = lm or make_flagship(torch, dev)
             fn(torch, dev, lm)
+        elif name == "f32_train":
+            fn(torch, dev, done.get("train"))
         else:
-            fn(torch, dev)
+            done[name] = fn(torch, dev)
 
 
 def heads_launches(heads, kern):
@@ -5791,7 +6151,8 @@ def main(argv) -> int:
     heads = phase_heads(torch, dev)
     f32 = phase_f32(torch, dev, {"launches": launches, "turn2": turn2,
                                  "tokens_s": gen["tokens_s"]})
-    train, _, _ = phase_train(torch, dev)
+    train, train_tok_s, train_checks = phase_train(torch, dev)
+    f32t = phase_f32_train(torch, dev, (train, train_tok_s, train_checks))
     htrain = phase_heads_train(torch, dev)
     encoder, _ = phase_encoder(torch, dev)
     s2s = phase_seq2seq(torch, dev)
@@ -5824,6 +6185,8 @@ def main(argv) -> int:
                               "v2_causal": v2_launches["causal"]["h1"],
                               "slice": launches["h1"],
                               "train_step": train["h1"],
+                              "f32_train_step":
+                                  f32t["model"]["train_launches"]["h1"],
                               "encoder_step": encoder["h1"],
                               "window_train_step": wtrain["h1"],
                               "window_generate_turn_1": wturn1["h1"],
@@ -5970,7 +6333,8 @@ def main(argv) -> int:
         # runs it.  plain_ms is the whole plain backward, and library_ms
         # the whole backward of scaled_dot_product_attention
         *({"name": f"H3-{n} attention backward, {what} (none, causal, "
-                   "window; d a multiple of 16 from 16 to 256)",
+                   "window; d a multiple of 16 from 16 to 256; f32 to "
+                   "d=128)",
            "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
            "also_replaces": [f"{BWD_PY}:{x}" for x in (281, 377, 112, 205)],
            "launches": train[f"h3{n}"],
@@ -6002,7 +6366,8 @@ def main(argv) -> int:
            "delta_ms": {m: t[f"h3_{m}"]["delta_ms"]
                         for m in ("causal", "none")},
            "pair_ms": {m: t[f"h3_{m}"]["pair_ms"]
-                       for m in ("causal", "none")}}
+                       for m in ("causal", "none")},
+           "by_dtype": {"f32": f32_train_readings(f32t, f"h3{n}")}}
           for n, what in (("dkv", "dK and dV"), ("dq", "dQ"))),
         # the quant and dtiled phases: each call of the phase is one
         # launch; the numbers are those of the canonical int8 (H4-kvq),

@@ -2,7 +2,9 @@
 // pair of kernels for three masks (none, causal, sliding window).  bf16 in,
 // f32 accumulate, bf16 out; every head dim d that is a multiple of 16 from
 // 16 to 256 (ops.attention.HEAD_DIM_RULE), on instances D = 32, 64, 128
-// and 256.  A d below its instance's D (16 on 32, 48 on 64, 80-112 on 128,
+// and 256.  f32 in and out take a second pair of kernels on the f32 core's
+// arithmetic (bf16x6 on wgmma, "f32 inputs" below), d 16 to 128.  A d
+// below its instance's D (16 on 32, 48 on 64, 80-112 on 128,
 // 144-240 on 256) is described to TMA with its true d, so the columns of
 // Q, K, V and dO past d land as zeros, which leave S and dP exact, and the
 // epilogues store the first d columns of dQ, dK and dV.  The padded
@@ -34,16 +36,20 @@
 // diag_off of the key axis; none shows it every key, causal the keys j <=
 // i + diag_off, a window further needs j >= i + diag_off - window + 1.
 // delta = rowsum(dO o O) in f32 comes from the wrapper
-// (ops/attention_bwd.py), as in the JAX package.  P and dS are rounded to
-// bf16 before their products, as the TPU kernels do (attention_bwd.py:174,
-// :192); S, dP and every sum stay f32.
+// (ops/attention_bwd.py), as in the JAX package.  At bf16, P and dS are
+// rounded to bf16 before their products, as the TPU kernels do in q's
+// dtype (attention_bwd.py:174, :192); S, dP and every sum stay f32.  At
+// f32 nothing is rounded to bf16: P and dS stay f32 (the TPU kernels keep
+// them in q's dtype, f32) and are split into bf16 pieces, as every f32
+// operand is.
 //
 // What bounds it: per visible (row, key) pair H3-dkv runs four products of
 // depth d (S, dP, dV, dK) and H3-dq three (S, dP, dQ), 14 d flops, against
 // reading Q, K, V, dO once and writing dQ, dK, dV once.  At the flagship's
 // training shape (B=8, Hq=8, Hkv=4, L=1024, d=128, causal) that is 60
 // GFLOP against 84 MB: the tensor cores bound it, which only wgmma
-// reaches.
+// reaches.  At f32 each product is six bf16 piece products (bf16x6), so
+// the bound is six times the bf16 one at 989 TFLOP/s, against 168 MB.
 //
 // Design (wgmma_tile.cuh, the block of H1): FlashAttention-2's split into
 // two kernels with opposite loop orders and no atomics, so a result is
@@ -105,6 +111,7 @@
 
 #include <type_traits>
 
+#include "f32_attention.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -801,11 +808,633 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return int(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ f32 inputs
+// H3-dkv and H3-dq at f32 q, k, v and dO: the same gradients, masks, GQA
+// sums and traced offsets as the kernels above, f32 dK, dV and dQ, on the
+// arithmetic of the f32 core (f32_attention.cuh): Mosaic's HIGHEST, which
+// the TPU kernels ask for on every f32 product (ops/attention_v1.py:202-210
+// dot_precision, used at ops/attention_bwd.py:70, 178, 184, 196, 264,
+// 273).  Every f32 operand is split exactly into three bf16 pieces (hi,
+// mid, lo) and each product is the sum of the six piece products, smallest
+// first, in one f32 wgmma accumulator (bf16x6): S^T = K Q^T, dP^T = V dO^T,
+// dV += P^T dO and dK += dS^T Q in H3-dkv; S, dP and dQ += dS K in H3-dq.
+// P and dS stay f32 (the TPU kernels keep them in q's dtype): each is split
+// into three A fragments in registers (RS wgmma), as the f32 core splits
+// P for P V.  P = exp2f(s * scale * log2e - lse * log2e), not the
+// special-function unit's approximation.
+//
+// Budget: three pieces triple every tile, so the bf16 layout (128 resident
+// rows beside four 64-row stages, 192 KB of K and V pieces alone at
+// D=128) does not fit.  A block is one consumer warpgroup over 64 resident
+// rows (K and V in H3-dkv, Q and dO in H3-dq: their pieces, 96 KB at
+// D=128) and one producer warpgroup, 256 threads, two stages of 32
+// streamed rows (Q and dO; K and V: 48 KB a stage at D=128): 192 KB, the
+// f32 core's.  The consumer splits its resident rows itself before its
+// loop; the producer reads each stage's f32 rows into registers, waits for
+// the stage to be free and stores their pieces in the swizzled layout a
+// TMA load of a bf16 tile would give (put_split8), with H3-dkv's per-row
+// -lse * log2e and delta.  Each stage's share of dK, dV (dQ) is summed in a
+// fresh wgmma accumulator and added to the running sums in f32
+// (issue_part_f32).  Registers of a consumer thread at D=128: dK 64 + dV 64
+// + a stage's share 64, S^T 16 + dP^T 16, the pieces of P^T, then of dS^T,
+// 24 (no setmaxnreg: 256 threads may hold 255 each).  Instances D = 64
+// (d 16-64) and 128 (d 80-128).  D = 256 does not fit: the pieces of its
+// 64 resident rows take 192 KB, and the smallest stage (16 rows of Q and
+// dO pieces) 48 KB more, past the 227 KB of shared memory (ROADMAP.md
+// B2b-256).
+
+namespace F = eft::f32;
+
+constexpr int F32_ROWS = 64;      // resident rows: one consumer warpgroup
+constexpr int F32_STREAM = 32;    // rows of a streamed tile (Q/dO or K/V)
+constexpr int F32_STAGES = 2;
+constexpr int F32_THREADS = 256;  // a consumer and a producer warpgroup
+constexpr int F32_BAR = 1;        // the consumer warpgroup's named barrier
+
+// Shared memory of an f32 block of instance D: the three pieces of each of
+// the two resident 64-row tiles, then F32_STAGES stages of the three pieces
+// of each of the two streamed 32-row tiles, the stages' per-row statistics
+// (H3-dkv's -lse * log2e and delta), the barriers.  A piece is D / 64
+// boxes of [rows][64] bf16, 128-byte rows and swizzle (Geo<D>'s layout).
+template <int D>
+struct F32Tiles {
+  static_assert(D == 64 || D == 128, "an f32 instance of H3");
+  static constexpr uint32_t RES_PIECE = F32_ROWS * D * 2;
+  static constexpr uint32_t STR_PIECE = F32_STREAM * D * 2;
+  static constexpr uint32_t STAGE = 6 * STR_PIECE;
+  static constexpr size_t res = 0;
+  static constexpr size_t str = res + 6 * size_t(RES_PIECE);
+  static constexpr size_t stats = str + F32_STAGES * size_t(STAGE);
+  static constexpr size_t bars = stats + F32_STAGES * 2 * F32_STREAM * 4;
+  static constexpr size_t bytes = bars + 8 * 2 * F32_STAGES + 1024;
+  static_assert(bytes <= 232448, "the block's shared memory");
+};
+
+// Rows [row0, row0 + R) of an f32 [*, d] matrix (zero past n_rows and d)
+// as three pieces at tile, stored by the 128 threads of a warpgroup (t: a
+// thread's index in it)
+template <int D, int R>
+__device__ __forceinline__ void put_f32_rows(unsigned char* tile,
+                                             const float* src, int row0,
+                                             int n_rows, int d, int t) {
+  for (int x = t; x < R * (D / 8); x += 128) {
+    const int r = x / (D / 8), ch = x % (D / 8);
+    float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
+    if (row0 + r < n_rows && 8 * ch < d) {
+      const float* at = src + size_t(row0 + r) * d + 8 * ch;
+      x0 = *reinterpret_cast<const float4*>(at);
+      x1 = *reinterpret_cast<const float4*>(at + 4);
+    }
+    F::put_split8(tile, R * D * 2, R, r, ch, x0, x1);
+  }
+}
+
+// A producer thread's share of one stage: 8-float chunks of two streamed
+// 32-row tiles
+template <int D>
+struct F32Stream {
+  static constexpr int CH = F32_STREAM * (D / 8) / 128;
+  float4 a[CH][2], b[CH][2];
+};
+
+// rows [row0, row0 + 32) of a and b ([*, d] each, zero past n_rows and d)
+// into producer thread t's registers
+template <int D>
+__device__ __forceinline__ void fetch_stream(F32Stream<D>& x, const float* a,
+                                             const float* b, int row0,
+                                             int n_rows, int d, int t) {
+#pragma unroll
+  for (int c = 0; c < F32Stream<D>::CH; ++c) {
+    const int e = t + 128 * c, r = e / (D / 8), ch = e % (D / 8);
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    x.a[c][0] = x.a[c][1] = x.b[c][0] = x.b[c][1] = z;
+    if (row0 + r < n_rows && 8 * ch < d) {
+      const size_t at = size_t(row0 + r) * d + 8 * ch;
+      x.a[c][0] = *reinterpret_cast<const float4*>(a + at);
+      x.a[c][1] = *reinterpret_cast<const float4*>(a + at + 4);
+      x.b[c][0] = *reinterpret_cast<const float4*>(b + at);
+      x.b[c][1] = *reinterpret_cast<const float4*>(b + at + 4);
+    }
+  }
+}
+
+// ... and their pieces into a stage's tiles sa and sb
+template <int D>
+__device__ __forceinline__ void put_stream(const F32Stream<D>& x,
+                                           unsigned char* sa,
+                                           unsigned char* sb, int t) {
+  constexpr uint32_t PIECE = F32Tiles<D>::STR_PIECE;
+#pragma unroll
+  for (int c = 0; c < F32Stream<D>::CH; ++c) {
+    const int e = t + 128 * c, r = e / (D / 8), ch = e % (D / 8);
+    F::put_split8(sa, PIECE, F32_STREAM, r, ch, x.a[c][0], x.a[c][1]);
+    F::put_split8(sb, PIECE, F32_STREAM, r, ch, x.b[c][0], x.b[c][1]);
+  }
+}
+
+// acc[64 x 32] += A B^T over k = D: the six piece products of A (a
+// resident tile's pieces) and B (a stage tile's), both K-major, smallest
+// first (issued, not waited for)
+template <int D>
+__device__ __forceinline__ void issue_abt_f32(float (&acc)[16],
+                                              const unsigned char* a,
+                                              const unsigned char* b) {
+  using T = F32Tiles<D>;
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    const unsigned char* ap = a + F::piece_a<6>(t) * T::RES_PIECE;
+    const unsigned char* bp = b + F::piece_b<6>(t) * T::STR_PIECE;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      F::wgmma_ss_bf16_n32(acc, kmajor_desc<D, F32_ROWS>(ap, 0, kk),
+                           kmajor_desc<D, F32_STREAM>(bp, 0, kk));
+  }
+}
+
+// part[64 x D] = A[64 x 32] B[32 x D]: A the three pieces (8 registers
+// each) of a 64 x 32 accumulator's bf16 A fragments, B a stage tile's
+// pieces read MN-major; the six piece products, smallest first, into a
+// fresh accumulator (the first with scale-d 0; issued, not waited for).
+// The caller adds part to its running sum with f32 adds: the tensor core
+// drops the bits of each added product below the accumulator's last, so a
+// sum over hundreds of stages inside one wgmma accumulator drifts (an H100
+// read 8.9e-5 of max|dV| over the 16,000 rows of a group of 16 that way)
+template <int D>
+__device__ __forceinline__ void issue_part_f32(float (&part)[D / 2],
+                                               const uint32_t (&a)[24],
+                                               const unsigned char* b) {
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    const uint32_t* ap = a + 8 * F::piece_a<6>(t);
+    const unsigned char* bp = b + F::piece_b<6>(t) * F32Tiles<D>::STR_PIECE;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint64_t db = mnmajor_desc<D, F32_STREAM>(bp, kk);
+      const int acc = t > 0 || kk > 0;
+      if constexpr (D == 128)
+        wgmma_rs_bf16_n128(part, ap[4 * kk], ap[4 * kk + 1], ap[4 * kk + 2],
+                           ap[4 * kk + 3], db, acc);
+      else
+        wgmma_rs_bf16_n64(part, ap[4 * kk], ap[4 * kk + 1], ap[4 * kk + 2],
+                          ap[4 * kk + 3], db, acc);
+    }
+  }
+}
+
+// sum += part (this stage's share, f32 adds) once part's products are in
+template <int N>
+__device__ __forceinline__ void add_part(float (&sum)[N],
+                                         float (&part)[N]) {
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(part);
+#pragma unroll
+  for (int i = 0; i < N; ++i) sum[i] += part[i];
+}
+
+// a 64 x 32 f32 accumulator as the three bf16 pieces of its A fragments
+// (piece p at a[8 p])
+__device__ __forceinline__ void split_a(const float (&x)[16],
+                                        uint32_t (&a)[24]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t w[3];
+    F::split3x2(x[2 * j], x[2 * j + 1], w);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) a[8 * p + j] = w[p];
+  }
+}
+
+// The two rows this thread owns of an m64nN f32 accumulator (row0 and
+// row0 + 8) at dst + row * d, those below n_rows, their first d columns
+template <int N>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[N / 2],
+                                               int row0, int n_rows,
+                                               float* dst, int d) {
+  const int col0 = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n_rows) continue;
+    float* out = dst + size_t(row) * d;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      if (8 * j < d)
+        *reinterpret_cast<float2*>(out + 8 * j + col0) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// P^T and dS^T of one f32 stage in place of S^T and dP^T, as dkv_p_ds on a
+// 32-row stage
+__device__ __forceinline__ void dkv_p_ds_f32(float (&s)[16], float (&dp)[16],
+                                             const float* nlse,
+                                             const float* delta, bool whole,
+                                             int q0, const int (&lo)[2],
+                                             const int (&hi)[2],
+                                             float scale_log2, float scale) {
+  const int col0 = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = 8 * j + col0;
+    const float2 nl = *reinterpret_cast<const float2*>(nlse + c);
+    const float2 dl = *reinterpret_cast<const float2*>(delta + c);
+#pragma unroll
+    for (int e = 4 * j; e < 4 * j + 4; ++e) {
+      const int r = acc_row8(e) / 8;
+      const float n = (e & 1) ? nl.y : nl.x;
+      const float dd = (e & 1) ? dl.y : dl.x;
+      float p = exp2f(fmaf(s[e], scale_log2, n));
+      if (!whole) {
+        const int i = q0 + c + (e & 1);
+        p = i >= lo[r] && i <= hi[r] ? p : 0.f;
+      }
+      s[e] = p;
+      dp[e] = p * (dp[e] - dd) * scale;
+    }
+  }
+}
+
+// dS of one f32 K/V tile in place of dP (S becomes P), as dq_p_ds on a
+// 32-key tile
+__device__ __forceinline__ void dq_p_ds_f32(float (&s)[16], float (&dp)[16],
+                                            const float (&nl)[2],
+                                            const float (&dl)[2], bool whole,
+                                            int kv0, const int (&lo)[2],
+                                            const int (&hi)[2],
+                                            float scale_log2, float scale) {
+  const int col0 = kv0 + 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int r = acc_row8(e) / 8;
+    float p = exp2f(fmaf(s[e], scale_log2, nl[r]));
+    if (!whole) {
+      const int j = col0 + acc_col(e);
+      p = j >= lo[r] && j <= hi[r] ? p : 0.f;
+    }
+    s[e] = p;
+    dp[e] = p * (dp[e] - dl[r]) * scale;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
+                             const float* __restrict__ dout,  // [B*Hq, Lq, d]
+                             const float* __restrict__ k,    // [B*Hkv, Lkv, d]
+                             const float* __restrict__ v,    // [B*Hkv, Lkv, d]
+                             const float* __restrict__ lse,   // [B, Hq, Lq]
+                             const float* __restrict__ delta, // [B, Hq, Lq]
+                             float* __restrict__ dk,   // [B, Hkv, Lkv, d]
+                             float* __restrict__ dv,   // [B, Hkv, Lkv, d]
+                             int hq, int hkv, int lq, int lkv, int d,
+                             int mask, int diag_off, int window,
+                             const int* __restrict__ offs, float scale) {
+  using T = F32Tiles<D>;
+  constexpr int QT = F32_STREAM;
+  if (offs != nullptr) diag_off = offs[0] - offs[1];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sk = smem + T::res;
+  unsigned char* sv = sk + 3 * T::RES_PIECE;
+  float* stats = reinterpret_cast<float*>(smem + T::stats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bars);
+  uint64_t* empty = full + F32_STAGES;
+
+  const int bhk = blockIdx.x;                   // b * hkv + KV head
+  const int kv0 = blockIdx.y * F32_ROWS;        // the first tiles first
+  const int b = bhk / hkv;
+  const int group = hq / hkv;
+  const int h0 = (bhk % hkv) * group;           // first q head of the group
+  const int warp = threadIdx.x / 32;
+  const int t = threadIdx.x % 128;
+
+  // the Q tiles [q_begin, q_end) some row of which sees a key of this
+  // block, as attention_bwd_dkv_kernel finds them
+  long long q_first = 0, q_end = lq;
+  if (mask != MASK_NONE) q_first = clamp64((long long)kv0 - diag_off, 0, lq);
+  if (mask == MASK_WINDOW) {
+    const long long kv_last = min(kv0 + F32_ROWS, lkv) - 1;
+    q_end = clamp64(kv_last - diag_off + window, 0, lq);
+  }
+  const int q_begin = int(q_first) / QT * QT;
+  const int n_qt = q_end > q_begin ? (int(q_end) - q_begin + QT - 1) / QT
+                                   : 0;
+  const int n_stages = n_qt * group;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F32_STAGES; ++s) {
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {
+    // the producer: stage i holds Q and dO rows [q0, q0 + 32) of q head
+    // h0 + i / n_qt, with their -lse * log2e and delta (-inf, 0 past Lq)
+    for (int i = 0; i < n_stages; ++i) {
+      const int s = i % F32_STAGES;
+      const size_t bh = size_t(b) * hq + h0 + i / n_qt;
+      const int q0 = q_begin + (i % n_qt) * QT;
+      F32Stream<D> x;
+      fetch_stream<D>(x, q + bh * lq * d, dout + bh * lq * d, q0, lq, d, t);
+      const bool in = t < QT && q0 + t < lq;
+      const float nl = in ? neg_lse2(lse[bh * lq + q0 + t]) : -CUDART_INF_F;
+      const float dl = in ? delta[bh * lq + q0 + t] : 0.f;
+      mbar_wait(&empty[s], ((i / F32_STAGES) & 1) ^ 1);
+      unsigned char* st = smem + T::str + s * T::STAGE;
+      put_stream<D>(x, st, st + 3 * T::STR_PIECE, t);
+      if (t < QT) {
+        stats[s * 2 * QT + t] = nl;
+        stats[s * 2 * QT + QT + t] = dl;
+      }
+      fence_proxy_async();
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: KV rows kv0 .. kv0 + 63, this thread two
+  const int lane = threadIdx.x % 32;
+  const int row0 = kv0 + warp * 16 + lane / 4;
+  const float scale_log2 = scale * LOG2E;
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long j = row0 + 8 * r;
+    lo[r] = 0;
+    hi[r] = lq - 1;
+    if (j >= lkv) {
+      lo[r] = 1;
+      hi[r] = 0;
+    } else if (mask != MASK_NONE) {
+      lo[r] = int(clamp64(j - diag_off, 0, lq));
+      if (mask == MASK_WINDOW)
+        hi[r] = int(clamp64(j - diag_off + window - 1, -1, lq - 1));
+    }
+  }
+  const long long first_key = kv0, last_key = kv0 + F32_ROWS - 1;
+  auto is_whole = [&](int q0) {
+    bool whole = q0 + QT <= lq && kv0 + F32_ROWS <= lkv;
+    if (mask != MASK_NONE)
+      whole = whole && last_key <= (long long)q0 + diag_off;
+    if (mask == MASK_WINDOW)
+      whole = whole && first_key >= (long long)q0 + QT - 1 + diag_off
+                                        - window + 1;
+    return whole;
+  };
+
+  const size_t kv_at = size_t(bhk) * lkv * d;
+  put_f32_rows<D, F32_ROWS>(sk, k + kv_at, kv0, lkv, d, t);
+  put_f32_rows<D, F32_ROWS>(sv, v + kv_at, kv0, lkv, d, t);
+  fence_proxy_async();
+  named_bar_sync(F32_BAR, 128);
+
+  // dK and dV summed in f32 adds over the stages, each stage's share a
+  // fresh wgmma accumulator (issue_part_f32)
+  float acc_dk[D / 2], acc_dv[D / 2], part[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = part[i] = 0.f;
+  for (int i = 0; i < n_stages; ++i) {
+    const int s = i % F32_STAGES;
+    const int q0 = q_begin + (i % n_qt) * QT;
+    const unsigned char* q_s = smem + T::str + s * T::STAGE;
+    const unsigned char* do_s = q_s + 3 * T::STR_PIECE;
+    const float* st = stats + s * 2 * QT;
+    float acc_s[16], acc_dp[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc_s[e] = acc_dp[e] = 0.f;
+    uint32_t pieces[24];
+    mbar_wait(&full[s], (i / F32_STAGES) & 1);
+    wgmma_fence();
+    issue_abt_f32<D>(acc_s, sk, q_s);                  // S^T
+    issue_abt_f32<D>(acc_dp, sv, do_s);                // dP^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_s);
+    fence_regs(acc_dp);
+    dkv_p_ds_f32(acc_s, acc_dp, st, st + QT, is_whole(q0), q0, lo, hi,
+                 scale_log2, scale);
+    split_a(acc_s, pieces);
+    fence_regs(pieces);
+    fence_regs(part);
+    wgmma_fence();
+    issue_part_f32<D>(part, pieces, do_s);             // P^T dO
+    add_part(acc_dv, part);
+    fence_regs(pieces);
+    split_a(acc_dp, pieces);
+    fence_regs(pieces);
+    wgmma_fence();
+    issue_part_f32<D>(part, pieces, q_s);              // dS^T Q
+    add_part(acc_dk, part);
+    fence_regs(pieces);
+    mbar_arrive(&empty[s]);
+  }
+  store_rows_f32<D>(acc_dk, row0, lkv, dk + kv_at, d);
+  store_rows_f32<D>(acc_dv, row0, lkv, dv + kv_at, d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+attention_bwd_dq_f32_kernel(const float* __restrict__ q,      // [B*Hq, Lq, d]
+                            const float* __restrict__ dout,   // [B*Hq, Lq, d]
+                            const float* __restrict__ k,     // [B*Hkv, Lkv, d]
+                            const float* __restrict__ v,     // [B*Hkv, Lkv, d]
+                            const float* __restrict__ lse,    // [B, Hq, Lq]
+                            const float* __restrict__ delta,  // [B, Hq, Lq]
+                            float* __restrict__ dq,           // [B, Hq, Lq, d]
+                            int hq, int group, int lq, int lkv, int d,
+                            int mask, int diag_off, int window,
+                            const int* __restrict__ offs, float scale) {
+  using T = F32Tiles<D>;
+  constexpr int KT = F32_STREAM;
+  if (offs != nullptr) diag_off = offs[0] - offs[1];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sq = smem + T::res;
+  unsigned char* sdo = sq + 3 * T::RES_PIECE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bars);
+  uint64_t* empty = full + F32_STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / hq;
+  const int bhk = b * (hq / group) + (bh % hq) / group;   // GQA KV head
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F32_ROWS; // longest first
+  const int warp = threadIdx.x / 32;
+  const int t = threadIdx.x % 128;
+
+  // the K/V tiles [kv_begin, kv_end) some row of this block sees, as
+  // attention_bwd_dq_kernel finds them
+  int kv_begin = 0, kv_end = lkv;
+  if (mask != MASK_NONE) {
+    const long long q_last = min(q0 + F32_ROWS, lq) - 1;
+    kv_end = int(clamp64(q_last + diag_off + 1, 0, lkv));
+  }
+  if (mask == MASK_WINDOW)
+    kv_begin = int(clamp64((long long)q0 + diag_off - window + 1, 0, lkv))
+               / KT * KT;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT
+                                        : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F32_STAGES; ++s) {
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {
+    // the producer: tile i holds K and V rows [kv0, kv0 + 32)
+    const size_t kv_at = size_t(bhk) * lkv * d;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % F32_STAGES;
+      F32Stream<D> x;
+      fetch_stream<D>(x, k + kv_at, v + kv_at, kv_begin + i * KT, lkv, d, t);
+      mbar_wait(&empty[s], ((i / F32_STAGES) & 1) ^ 1);
+      unsigned char* st = smem + T::str + s * T::STAGE;
+      put_stream<D>(x, st, st + 3 * T::STR_PIECE, t);
+      fence_proxy_async();
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: Q rows q0 .. q0 + 63, this thread two, with
+  // their -lse * log2e and delta (-inf and 0 past Lq) and the keys [lo,
+  // hi] each sees
+  const int lane = threadIdx.x % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const float scale_log2 = scale * LOG2E;
+  const size_t rows = size_t(bh) * lq;
+  float nl[2], dl[2];
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + 8 * r;
+    nl[r] = i < lq ? neg_lse2(lse[rows + i]) : -CUDART_INF_F;
+    dl[r] = i < lq ? delta[rows + i] : 0.f;
+    lo[r] = 0;
+    hi[r] = lkv - 1;
+    if (mask != MASK_NONE) {
+      const long long last = (long long)i + diag_off;
+      hi[r] = int(clamp64(last, -1, lkv - 1));
+      if (mask == MASK_WINDOW)
+        lo[r] = int(clamp64(last - window + 1, 0, lkv));
+    }
+  }
+  const long long wg_first = (long long)q0 + diag_off;
+  const long long wg_last = wg_first + F32_ROWS - 1;
+  auto is_whole = [&](int kv0) {
+    bool whole = kv0 + KT <= lkv;
+    if (mask != MASK_NONE) whole = whole && kv0 + KT - 1 <= wg_first;
+    if (mask == MASK_WINDOW) whole = whole && kv0 >= wg_last - window + 1;
+    return whole;
+  };
+
+  put_f32_rows<D, F32_ROWS>(sq, q + rows * d, q0, lq, d, t);
+  put_f32_rows<D, F32_ROWS>(sdo, dout + rows * d, q0, lq, d, t);
+  fence_proxy_async();
+  named_bar_sync(F32_BAR, 128);
+
+  // dQ summed in f32 adds over the tiles, each tile's share a fresh wgmma
+  // accumulator (issue_part_f32)
+  float acc_dq[D / 2], part[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dq[i] = part[i] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % F32_STAGES;
+    const int kv0 = kv_begin + i * KT;
+    const unsigned char* k_s = smem + T::str + s * T::STAGE;
+    const unsigned char* v_s = k_s + 3 * T::STR_PIECE;
+    float acc_s[16], acc_dp[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc_s[e] = acc_dp[e] = 0.f;
+    uint32_t dsa[24];
+    mbar_wait(&full[s], (i / F32_STAGES) & 1);
+    wgmma_fence();
+    issue_abt_f32<D>(acc_s, sq, k_s);                  // S
+    issue_abt_f32<D>(acc_dp, sdo, v_s);                // dP
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_s);
+    fence_regs(acc_dp);
+    dq_p_ds_f32(acc_s, acc_dp, nl, dl, is_whole(kv0), kv0, lo, hi,
+                scale_log2, scale);
+    split_a(acc_dp, dsa);
+    fence_regs(dsa);
+    fence_regs(part);
+    wgmma_fence();
+    issue_part_f32<D>(part, dsa, k_s);                 // dS K
+    add_part(acc_dq, part);
+    fence_regs(dsa);
+    mbar_arrive(&empty[s]);
+  }
+  store_rows_f32<D>(acc_dq, row0, lq, dq + rows * d, d);
+}
+
+template <int D>
+int launch_dkv_f32(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int batch, int hq, int hkv, int lq,
+                   int lkv, int d, int mask, int diag_off, int window,
+                   const int* offs, float scale, cudaStream_t stream) {
+  using T = F32Tiles<D>;
+  if ((lkv + F32_ROWS - 1) / F32_ROWS > 65535)
+    return int(cudaErrorInvalidValue);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_dkv_f32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid(batch * hkv, (lkv + F32_ROWS - 1) / F32_ROWS);
+  attention_bwd_dkv_f32_kernel<D><<<grid, F32_THREADS, T::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(dout),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), hq, hkv, lq, lkv, d,
+      mask, diag_off, window, offs, scale);
+  return int(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_f32(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int batch, int hq, int hkv, int lq, int lkv,
+                  int d, int mask, int diag_off, int window, const int* offs,
+                  float scale, cudaStream_t stream) {
+  using T = F32Tiles<D>;
+  if ((lq + F32_ROWS - 1) / F32_ROWS > 65535)
+    return int(cudaErrorInvalidValue);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_dq_f32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid(batch * hq, (lq + F32_ROWS - 1) / F32_ROWS);
+  attention_bwd_dq_f32_kernel<D><<<grid, F32_THREADS, T::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(dout),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), hq, hq / hkv, lq, lkv, d, mask, diag_off,
+      window, offs, scale);
+  return int(cudaGetLastError());
+}
+
+// go(integral_constant<int, D>) on the f32 instance for d (16 to 128)
+template <typename Go>
+int by_f32_instance(int d, Go&& go) {
+  if (d <= 64) return go(std::integral_constant<int, 64>{});
+  return go(std::integral_constant<int, 128>{});
+}
+
 bool bad_args(int batch, int hq, int hkv, int lq, int lkv, int d, int mask,
-              int window) {
+              int window, int in_f32) {
   return batch <= 0 || hkv <= 0 || hq % hkv != 0 || lq <= 0 || lkv <= 0 ||
          d < 16 || d > 256 || d % 16 != 0 || mask < MASK_NONE ||
-         mask > MASK_WINDOW || (mask == MASK_WINDOW && window < 1);
+         mask > MASK_WINDOW || (mask == MASK_WINDOW && window < 1) ||
+         (in_f32 != 0 && in_f32 != 1) || (in_f32 && d > 128);
 }
 
 // go(integral_constant<int, D>, integral_constant<bool, EXACT>) on the
@@ -832,7 +1461,9 @@ int by_instance(int d, F&& go) {
 // bounds or exceed a grid dimension.  d: a multiple of 16 from 16 to 256,
 // run on the smallest instance D >= d.  mask: 0 none, 1 causal, 2 window
 // (window >= 1) and offs (null, or the device int32 pair (q_pos0, kv_pos0)
-// that replaces diag_off), as eft_prefill_attention takes them.
+// that replaces diag_off), as eft_prefill_attention takes them.  in_f32: 0
+// for bf16 q, k, v, dO and gradients, 1 for f32 (bf16x6, d up to 128, on
+// the f32 instances D = 64 and 128).
 extern "C" int eft_attention_bwd_dkv(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
@@ -840,14 +1471,20 @@ extern "C" int eft_attention_bwd_dkv(const void* q, const void* k,
                                      int hkv, int lq, int lkv, int d,
                                      int mask, int diag_off, int window,
                                      const void* offs, float scale,
-                                     int device, void* stream) {
-  if (bad_args(batch, hq, hkv, lq, lkv, d, mask, window))
+                                     int in_f32, int device, void* stream) {
+  if (bad_args(batch, hq, hkv, lq, lkv, d, mask, window, in_f32))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* po = static_cast<const int*>(offs);
+  if (in_f32)
+    return by_f32_instance(d, [&](auto dc) {
+      return launch_dkv_f32<decltype(dc)::value>(
+          q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, lq, lkv, d,
+          mask, diag_off, window, po, scale, s);
+    });
   return by_instance(d, [&](auto dc, auto exact) {
     return launch_dkv<decltype(dc)::value, decltype(exact)::value>(
         q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, lq, lkv, d, mask,
@@ -862,13 +1499,19 @@ extern "C" int eft_attention_bwd_dq(const void* q, const void* k,
                                     int lq, int lkv, int d, int mask,
                                     int diag_off, int window,
                                     const void* offs, float scale,
-                                    int device, void* stream) {
-  if (bad_args(batch, hq, hkv, lq, lkv, d, mask, window))
+                                    int in_f32, int device, void* stream) {
+  if (bad_args(batch, hq, hkv, lq, lkv, d, mask, window, in_f32))
     return int(cudaErrorInvalidValue);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* po = static_cast<const int*>(offs);
+  if (in_f32)
+    return by_f32_instance(d, [&](auto dc) {
+      return launch_dq_f32<decltype(dc)::value>(
+          q, k, v, dout, lse, delta, dq, batch, hq, hkv, lq, lkv, d, mask,
+          diag_off, window, po, scale, s);
+    });
   return by_instance(d, [&](auto dc, auto exact) {
     return launch_dq<decltype(dc)::value, decltype(exact)::value>(
         q, k, v, dout, lse, delta, dq, batch, hq, hkv, lq, lkv, d, mask,

@@ -51,11 +51,12 @@ _SIGNATURES = {
     # stream
     "eft_paged_extend": [_P] * 7 + [_I] * 10 + [_F, _I, _I, _P],
     # q, k, v, do, lse, delta, dk, dv, batch, hq, hkv, lq, lkv, d, mask,
-    # diag_off, window, offs, scale, device, stream
-    "eft_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_P, _F, _I, _P],
+    # diag_off, window, offs, scale, in_f32, device, stream (in_f32: f32
+    # q, k, v, do and gradients, else bf16)
+    "eft_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_P, _F, _I, _I, _P],
     # q, k, v, do, lse, delta, dq, batch, hq, hkv, lq, lkv, d, mask,
-    # diag_off, window, offs, scale, device, stream
-    "eft_attention_bwd_dq": [_P] * 7 + [_I] * 9 + [_P, _F, _I, _P],
+    # diag_off, window, offs, scale, in_f32, device, stream
+    "eft_attention_bwd_dq": [_P] * 7 + [_I] * 9 + [_P, _F, _I, _I, _P],
     # q, k, v, ks, vs, o, batch, heads, lq, lkv, d, block, n_blocks,
     # kv_kind, out_f32, scale_log2, device, stream
     "eft_kvquant_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _P],

@@ -353,14 +353,15 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 prefill_attention.launches = 0
 
 
-# The input dtypes each kernel takes on the card: q/k/v for H1, H3 and H5,
-# q for H4-kvq and the paged pair (their K/V are codes).  f32 is the JAX
-# package's default dtype (models/transformer.py:59) and its kernels compute
-# f32 at f32 accuracy (HIGHEST); no kernel takes f16 or f64.
+# The input dtypes each kernel takes on the card: q/k/v for H1, H3 and H5
+# (and dO for H3), q for H4-kvq and the paged pair (their K/V are codes).
+# f32 is the JAX package's default dtype (models/transformer.py:59) and its
+# kernels compute f32 at f32 accuracy (HIGHEST); no kernel takes f16 or
+# f64.  H3 takes f32 at d up to 128 (ops.attention_bwd.F32_MAX_D).
 KERNEL_DTYPES = {
     "H1": (torch.bfloat16, torch.float32),
-    "H3-dkv": (torch.bfloat16,),
-    "H3-dq": (torch.bfloat16,),
+    "H3-dkv": (torch.bfloat16, torch.float32),
+    "H3-dq": (torch.bfloat16, torch.float32),
     "H4-kvq": (torch.bfloat16,),
     "H5": (torch.bfloat16,),
     "H6-decode": (torch.bfloat16, torch.float32),
@@ -369,8 +370,6 @@ KERNEL_DTYPES = {
 _DTYPE_WORD = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # the ROADMAP.md item that ports f32 to a kernel that refuses it
 F32_ROADMAP_ITEM = {
-    "H3-dkv": "ROADMAP.md B2b (H3 at f32: training)",
-    "H3-dq": "ROADMAP.md B2b (H3 at f32: training)",
     "H4-kvq": "ROADMAP.md B2c (H4-kvq's f32 q, H5 at f32)",
     "H5": "ROADMAP.md B2c (H4-kvq's f32 q, H5 at f32)",
 }

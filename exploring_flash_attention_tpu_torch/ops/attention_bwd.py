@@ -40,6 +40,12 @@ from exploring_flash_attention_tpu_torch.ops.attention import (
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
+# H3's f32 instances (bf16x6 on wgmma) end at D=128: at D=256 three bf16
+# pieces of the 64 resident rows fill 192 KB of shared memory before any
+# stage (csrc/attention_bwd.cu)
+F32_MAX_D = 128
+F32_PAST_MAX_D_ITEM = "ROADMAP.md B2b-256 (H3 at f32 past d=128)"
+
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, do: torch.Tensor,
@@ -56,8 +62,9 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     recomputed from ``lse`` as ``_recompute_p`` does in the JAX package
     (``ops/attention_bwd.py:52-100``), and a row whose LSE is -inf (it sees
     no key) gets P = 0 and dS = 0 (``:98``, ``:189``).  delta comes from the
-    given ``out``.  P and dS stay f32 here; the kernels round both to bf16
-    before their products."""
+    given ``out``.  P and dS stay f32 here.  On the card the bf16 kernels
+    round both to bf16 before their products, as the TPU kernels do in q's
+    dtype; the f32 kernels keep them f32 (bf16x6 pieces, f32-accurate)."""
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -85,7 +92,7 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_bwd_inputs(name: str, q, k, v, do, lse, delta) -> None:
-    _check_cuda_inputs(name, name, q, k, v, do)
+    dtype = _check_cuda_inputs(name, name, q, k, v, do)
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     if (k.shape != (b, hkv, lkv, d) or v.shape != k.shape
@@ -95,6 +102,10 @@ def _check_bwd_inputs(name: str, q, k, v, do, lse, delta) -> None:
             f"{name} takes q/do [B,Hq,Lq,d], k/v [B,Hkv,Lkv,d] with Hq % Hkv "
             f"== 0 and {HEAD_DIM_RULE}; got q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}, do {tuple(do.shape)}")
+    if dtype == torch.float32 and d > F32_MAX_D:
+        raise TypeError(f"{name} takes f32 at d up to {F32_MAX_D}, got d={d}; "
+                        f"f32 past it is still to port: "
+                        f"{F32_PAST_MAX_D_ITEM}")
     for stat in (lse, delta):
         if (stat.device != q.device or stat.dtype != torch.float32
                 or stat.shape != (b, hq, lq) or not stat.is_contiguous()):
@@ -108,7 +119,8 @@ def _launch_args(q, k, scale, causal, diag_off, window):
     b, hq, lq, d = q.shape
     return (b, hq, k.shape[1], lq, k.shape[2], d,
             *mask_args(causal, diag_off, window, q.device), scale,
-            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+            int(q.dtype == torch.float32), q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -116,12 +128,14 @@ def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       delta: torch.Tensor, scale: float, causal: bool = True,
                       diag_off: DiagOff = 0, window: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel H3-dkv on CUDA tensors: (dk, dv) bf16 [B, Hkv, Lkv, d],
-    each summed over its GQA group in f32 inside the kernel, under the mask
-    of :func:`attention_bwd_plain`.  Takes contiguous bf16 q/k/v/do with
-    ``ops.attention.HEAD_DIM_RULE`` (a d below its instance, 32, 64, 128
-    or 256, runs on zero-filled columns) and f32 lse/delta [B, Hq, Lq], or
-    raises.  ``attention_bwd_dkv.launches`` counts launches."""
+    """Launch kernel H3-dkv on CUDA tensors: (dk, dv) [B, Hkv, Lkv, d] in
+    the inputs' dtype, each summed over its GQA group in f32 inside the
+    kernel, under the mask of :func:`attention_bwd_plain`.  Takes
+    contiguous bf16 q/k/v/do with ``ops.attention.HEAD_DIM_RULE`` (a d
+    below its instance, 32, 64, 128 or 256, runs on zero-filled columns),
+    or f32 ones at d up to :data:`F32_MAX_D` (bf16x6 on the f32 instances,
+    64 and 128), and f32 lse/delta [B, Hq, Lq], or raises.
+    ``attention_bwd_dkv.launches`` counts launches."""
     _check_bwd_inputs("H3-dkv", q, k, v, do, lse, delta)
     args = _launch_args(q, k, scale, causal, diag_off, window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -142,9 +156,9 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      delta: torch.Tensor, scale: float, causal: bool = True,
                      diag_off: DiagOff = 0, window: Optional[int] = None
                      ) -> torch.Tensor:
-    """Launch kernel H3-dq on CUDA tensors: dq bf16 [B, Hq, Lq, d].  Takes
-    what :func:`attention_bwd_dkv` takes (the same head dims on the same
-    instances), or raises.
+    """Launch kernel H3-dq on CUDA tensors: dq [B, Hq, Lq, d] in the
+    inputs' dtype.  Takes what :func:`attention_bwd_dkv` takes (the same
+    dtypes and head dims on the same instances), or raises.
     ``attention_bwd_dq.launches`` counts launches."""
     _check_bwd_inputs("H3-dq", q, k, v, do, lse, delta)
     args = _launch_args(q, k, scale, causal, diag_off, window)
@@ -188,9 +202,11 @@ def flash_attention_bwd(
 
     CPU tensors take :func:`attention_bwd_plain`.  CUDA tensors take H1's
     contract (contiguous bf16, ``ops.attention.HEAD_DIM_RULE``, any GQA
-    group, any Lq and Lkv): delta is reduced by torch, then kernels H3-dkv
-    and H3-dq launch, or the call raises (``ValueError`` naming the rule
-    for another d, before any launch).  ``config`` is taken at the JAX
+    group, any Lq and Lkv; or f32 at d up to :data:`F32_MAX_D`, f32
+    gradients at f32 accuracy): delta is reduced by torch, then kernels
+    H3-dkv and H3-dq launch, or the call raises (``ValueError`` naming the
+    rule for another d, ``TypeError`` for another dtype or f32 past
+    :data:`F32_MAX_D`, before any launch).  ``config`` is taken at the JAX
     package's place and not read: H3 fixes its own tiles."""
     lq, lkv = q.shape[2], k.shape[2]
     window = checked_window(causal, window, lkv)

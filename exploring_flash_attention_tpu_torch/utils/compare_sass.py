@@ -29,6 +29,7 @@ from pathlib import Path
 FAMILIES = ("prefill_attention_f32_kernel", "prefill_attention_kernel",
             "splitkv_combine_kernel", "paged_decode_kernel",
             "paged_extend_f32_kernel", "paged_extend_kernel",
+            "attention_bwd_dkv_f32_kernel", "attention_bwd_dq_f32_kernel",
             "attention_bwd_dkv_kernel", "attention_bwd_dq_kernel",
             "kvquant_attention_kernel", "int8_attention_kernel",
             "dtiled_attention_kernel")

@@ -78,6 +78,7 @@ from exploring_flash_attention_tpu_torch.serving import (
     paged_extend_attention,
     paged_extend_plain,
 )
+from f32_pieces import BF16X3, BF16X6, piece_products
 
 F32_CORE_TILE = 32               # keys per K/V tile of csrc/f32_attention.cuh
 H1_F32_TILE_D256 = 16            # H1's tile at d > 128 (three pieces of K, V)
@@ -86,30 +87,6 @@ REFEREE_TOL = 1e-5
 SMALL_TOL = 2e-5
 PLAIN_TOL = 1e-6
 JAX_TOL = 1e-5
-
-
-# the f32 core's piece products (A piece, B piece), 0 hi, 1 mid, 2 lo, the
-# smallest first: bf16x6, and bf16x3 where B is exact in bf16 (one piece)
-BF16X6 = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
-BF16X3 = ((2, 0), (1, 0), (0, 0))
-
-
-def split3(x):
-    """x (f32) as three bf16 pieces held in f32, hi + mid + lo = x: each
-    difference is exact in f32."""
-    hi = x.bfloat16().float()
-    mid = (x - hi).bfloat16().float()
-    return hi, mid, (x - hi - mid).bfloat16().float()
-
-
-def piece_products(acc, a, b, terms):
-    """acc plus a @ b as the f32 core computes it: the piece products of
-    ``terms`` added to acc one by one (b whole for bf16x3)."""
-    pa = split3(a)
-    pb = split3(b) if terms is BF16X6 else (b,)
-    for i, j in terms:
-        acc = acc + pa[i] @ pb[j]
-    return acc
 
 
 def _online(s2, v, pv_scale=None, tile=F32_CORE_TILE, terms=None):
@@ -471,10 +448,10 @@ DTYPES = [torch.bfloat16, torch.float32, torch.float16, torch.float64]
 @pytest.mark.parametrize("kernel", sorted(KERNEL_DTYPES))
 def test_kernel_dtype_rule(kernel, dtype):
     """Which dtypes each kernel takes on the card: bf16 everywhere, f32 on
-    H1 and the paged pair; f16 and f64 nowhere; an f32 refusal names the
-    ROADMAP item that ports it."""
+    H1, H3 and the paged pair; f16 and f64 nowhere; an f32 refusal (H4-kvq
+    and H5) names the ROADMAP item that ports it, B2c."""
     x = torch.zeros(2, dtype=dtype)
-    takes_f32 = kernel in ("H1", "H6-decode", "H6-extend")
+    takes_f32 = kernel in ("H1", "H3-dkv", "H3-dq", "H6-decode", "H6-extend")
     if dtype == torch.bfloat16 or (dtype == torch.float32 and takes_f32):
         assert kernel_dtype(kernel, x, x) == dtype
         return
@@ -482,7 +459,7 @@ def test_kernel_dtype_rule(kernel, dtype):
         kernel_dtype(kernel, x, x)
     if dtype == torch.float32:
         assert F32_ROADMAP_ITEM[kernel] in str(err.value)
-        assert "ROADMAP.md B2" in str(err.value)
+        assert "ROADMAP.md B2c" in str(err.value)
     else:
         assert "still to port" not in str(err.value)
 

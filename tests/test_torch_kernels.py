@@ -48,9 +48,12 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
   run of the plain version at bench/suite.py's referee row (B=2, H=4,
   L=256, d=128) and 2e-5 at d 16-256 on a group of 16 (the JAX package's
   f32 tiers, ``tests/test_attention_v1.py:24-27``), V2 within 1e-4, the
-  paged pair within 1e-5 of their plain f32 versions.  Each beside the
-  same inputs rounded to bf16 through the bf16 kernel, which must read
-  beyond the limit (``tests/test_torch_f32.py`` rehearses both on the CPU).
+  paged pair within 1e-5 of their plain f32 versions; H3-dkv and H3-dq
+  (bf16x6 on wgmma, d up to 128) within 1e-4 of max|ref| per gradient of
+  the plain f32 backward.  Each beside the same inputs rounded to bf16
+  through the bf16 kernel, which must read beyond the limit
+  (``tests/test_torch_f32.py`` and ``tests/test_torch_bwd_f32.py``
+  rehearse both on the CPU).
 - H5 vs plain and the oracle: 4e-3 abs on f32 O (p * v_scale rounded to
   bf16 per 64-key tile, as B19 does; a CPU emulation reads <= 9.5e-4 on a
   head or two, ``tests/test_torch_dtiled.py``, an H100 1.32e-3 over 32
@@ -76,6 +79,8 @@ from exploring_flash_attention_tpu_torch.models import (
     init_seq2seq_params,
     make_mlm_train_step,
     make_seq2seq_train_step,
+    make_train_step,
+    make_trainable,
     mask_tokens,
     seq2seq_loss,
     tree_leaves,
@@ -1089,8 +1094,10 @@ def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask, d):
 
 
 def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
-    """... and d=72, outside ``ops.attention.HEAD_DIM_RULE`` (which H1
-    refuses too, so its residuals are made by hand), with no launch."""
+    """One launch of each kernel a call; f16, and f32 past d=128 (ROADMAP
+    B2b-256: H3's f32 instances end at D=128), refused with no launch, as
+    is d=72, outside ``ops.attention.HEAD_DIM_RULE`` (which H1 refuses
+    too, so its residuals are made by hand)."""
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 1, 2, 2, 64, 64,
                                              64, 0)
     before = (attention_bwd_dkv.launches, attention_bwd_dq.launches)
@@ -1098,8 +1105,14 @@ def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
         before[0] + 1, before[1] + 1)
     with pytest.raises(TypeError, match="bf16"):
-        flash_attention_bwd(q.float(), k.float(), v.float(), out.float(),
-                            do.float(), lse, scale=scale, causal=True)
+        flash_attention_bwd(q.half(), k.half(), v.half(), out.half(),
+                            do.half(), lse, scale=scale, causal=True)
+    q144, k144, v144 = (x.float() for x in _qkv(cuda_device, 1, 2, 2, 64,
+                                                 64, 144, seed=4))
+    lse144 = torch.zeros(1, 2, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="B2b-256"):
+        flash_attention_bwd(q144, k144, v144, q144, q144, lse144,
+                            causal=True)
     q72, k72, v72 = _qkv(cuda_device, 1, 2, 2, 64, 64, 72, seed=4)
     lse72 = torch.zeros(1, 2, 64, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
@@ -1894,3 +1907,103 @@ def test_generate_serves_an_f32_model(cuda_device):
             paged_decode_partials.launches - before[1]) == (2, 2 * 5)
     assert ((out >= 0) & (out < 512)).all()
     eng.release()
+
+
+# H3 at f32 q, k, v and dO (bf16x6 on wgmma, P and dS kept f32): within
+# 1e-4 of max|ref| per gradient of the plain f32 backward (TF32 off), the
+# rtol of the JAX package's f32 GQA backward test
+# (tests/test_attention_bwd.py:180); a CPU emulation of the kernels'
+# arithmetic reads <= 5.8e-7 of f64 autograd and the bf16 kernels on the
+# inputs rounded to bf16 2.8e-3 and more (tests/test_torch_bwd_f32.py)
+F32_BWD_REL_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lkv,d,diag_off", [
+    (8, 8, 4, 1024, 1024, 128, 0),    # the f32 flagship's training slice
+    (2, 8, 4, 200, 216, 128, 16),     # ragged, Lq != Lkv
+    (1, 16, 1, 129, 200, 80, 71),     # a group of 16, D=128's zero columns
+    (1, 4, 2, 300, 300, 16, -40),     # d=16 on D=64, rows that see no key
+    (2, 4, 4, 100, 100, 64, 0),       # d = D = 64
+    (1, 4, 2, 77, 130, 32, 53),       # d=32 on D=64, ragged, G=2
+])
+@pytest.mark.parametrize("mask", list(BWD_MASKS))
+def test_bwd_f32_matches_the_plain_f32_backward(cuda_device, mask, b, hq,
+                                                hkv, lq, lkv, d, diag_off):
+    """H3-dkv and H3-dq at f32: one launch each, f32 gradients within
+    F32_BWD_REL_TOL of the plain f32 backward; the bf16 kernels on the
+    inputs rounded to bf16 read beyond it; rows that see no key get zero
+    dQ, keys no row sees zero dK and dV."""
+    causal, window = BWD_MASKS[mask]
+    q, k, v = _f32_qkv(cuda_device, b, hq, hkv, lq, lkv, d, seed=d)
+    do = _f32_qkv(cuda_device, b, hq, hkv, lq, lkv, d, seed=d + 1)[0]
+    scale = 1.0 / math.sqrt(d)
+    out, lse = prefill_attention(q, k, v, scale, diag_off, causal, window)
+    kw = dict(scale=scale, causal=causal, static_positions=(diag_off, 0),
+              window=window)
+    before = (attention_bwd_dkv.launches, attention_bwd_dq.launches)
+    grads = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = attention_bwd_plain(q, k, v, out, do, lse, scale, causal,
+                              diag_off, window)
+    bad = flash_attention_bwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), out,
+                              do.bfloat16(), lse, **kw)
+    for name, got, want, wrong in zip(("dq", "dk", "dv"), grads, ref, bad):
+        assert got.dtype == torch.float32, name
+        assert torch.isfinite(got).all(), name
+        assert _rel(got, want) <= F32_BWD_REL_TOL, name
+        assert _rel(wrong, want) > F32_BWD_REL_TOL, name
+    dq, dk, dv = grads
+    if causal and diag_off < 0:       # rows that see no key: zero dQ
+        assert (dq[:, :, :-diag_off] == 0).all()
+    if causal and lkv > lq + diag_off:    # keys no row sees: zero dK, dV
+        assert (dk[:, :, lq + diag_off:] == 0).all()
+        assert (dv[:, :, lq + diag_off:] == 0).all()
+
+
+def test_train_step_trains_an_f32_model(cuda_device):
+    """``make_train_step`` on a small LM at f32: H1, H3-dkv and H3-dq once
+    a layer a step, f32 gradients, the loss falling over 3 AdamW steps;
+    the step-0 gradients within 1e-4 of each leaf's norm of the same
+    model with the plain attention."""
+    from unittest import mock
+
+    from exploring_flash_attention_tpu_torch.models import (
+        loss_fn,
+        named_param_leaves,
+    )
+    from exploring_flash_attention_tpu_torch.models import (
+        transformer as transformer_module,
+    )
+
+    cfg = dataclasses.replace(_small_lm(cuda_device)[0], dtype=torch.float32)
+    params = make_trainable(init_params(cfg, seed=0, device=cuda_device))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 257)).astype(np.int32)).to(cuda_device)
+    _, leaves = zip(*named_param_leaves(params))
+
+    def grads():
+        loss = loss_fn(params, tokens[:, :-1], tokens[:, 1:], cfg)
+        return torch.autograd.grad(loss, leaves)
+
+    def plain(q, k, v, config=None, causal=True, window=None):
+        o, _ = attention_plain(q, k, v, 1.0 / math.sqrt(q.shape[3]), causal,
+                               k.shape[2] - q.shape[2], window)
+        return o
+
+    got = grads()
+    with mock.patch.object(transformer_module, "flash_attention", plain):
+        ref = grads()
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32
+        assert ((g - r).norm() / r.norm()).item() < 1e-4
+    step, opt_init = make_train_step(cfg)
+    opt = opt_init(params)
+    counted = (prefill_attention, attention_bwd_dkv, attention_bwd_dq)
+    losses = []
+    for _ in range(3):
+        before = [fn.launches for fn in counted]
+        losses.append(step(params, opt, tokens).item())
+        assert [fn.launches - n for fn, n in zip(counted, before)] == [2] * 3
+    assert losses[2] < losses[1] < losses[0]

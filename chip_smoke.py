@@ -654,6 +654,10 @@ def phase_build(kernels):
 WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 4,
                    "kvquant_attention_kernel": 4,
                    "dtiled_attention_kernel": 12,
+                   # at f32: H4-kvq d 64, 128 x int8, e4m3; H5 d
+                   # 128, 256, 384, 512 x f32, int8, e4m3 K/V
+                   "kvquant_attention_f32_kernel": 4,
+                   "dtiled_attention_f32_kernel": 12,
                    "attention_bwd_dkv_kernel": 6,
                    "attention_bwd_dq_kernel": 6,
                    "paged_extend_kernel": 3,
@@ -6023,10 +6027,199 @@ def f32_train_readings(f32t, kern):
                 ("bf16_tokens_s",) if "bf16_tokens_s" in model else ())}}
 
 
-PHASES = ("h1", "v1", "tiles", "v2", "quant", "dtiled", "decode", "extend",
-          "scheduler", "bwd", "slice", "multiturn", "speculative", "heads",
-          "f32", "train", "f32_train", "heads_train", "encoder", "seq2seq",
-          "parallel", "window_train", "window_generate", "time_kernels")
+# The f32_ops phase: H4-kvq with f32 q and H5 with f32 inputs (f32 q over
+# int8 or e4m3 K/V) through their entry points, each case one counted
+# launch held within the JAX tests' f32 tier (tests/test_quant.py:68,
+# tests/test_attention_dtiled.py:32) of the plain f32 version (the whole
+# tensor) and of the f64 oracle over the dequantized K/V (a slice), beside
+# two known-wrong controls that must read beyond it: the bf16 kernel on
+# the inputs rounded to bf16, and the plain version with P rounded to
+# bf16.  A CPU emulation of each kernel's arithmetic reads <= 2.6e-7 of
+# the oracle on inputs made the same way, the controls >= 1.3e-4
+# (tests/test_torch_f32_ops.py).
+F32_OPS_TOL = 2e-5
+# H5's cases beyond DTILED_CASES (the same fields; "bf16" K/V are f32 in
+# this phase): d 128 and 384, and 4096 keys at d=512, where one O
+# accumulator sums 128 key tiles
+F32_DTILED_EXTRA = [
+    ("d=128 ragged int8", 2, 8, 1000, 1100, 128, "int8", 128, 6, 2),
+    ("d=384 ragged", 2, 8, 1000, 1100, 384, "bf16", None, 7, 2),
+    ("d=512 Lkv=4096", 1, 8, 1024, 4096, 512, "bf16", None, 8, 1),
+]
+H4KVQ_F32_TERMS = 3            # bf16x3: q's pieces against the codes
+H5_F32_TERMS = {"bf16": 6, "int8": 3, "fp8": 3}
+
+
+def rounded_p_plain(torch, q, k, v, scale):
+    """A known-wrong f32 attention: the plain one with P rounded to bf16
+    before P V (k, v already dequantized)."""
+    s = (q @ k.transpose(-1, -2)) * scale
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return (p.bfloat16().float() @ v) / p.sum(-1, keepdim=True)
+
+
+def f32_ops_case(torch, what, call, plain_fn, bf16_call, q, k, v, nh):
+    """One f32_ops check: the entry point's call (one counted launch of
+    the kernel ``call`` names) against the plain f32 version and the f64
+    oracle on [:1, :nh], beside both controls on that slice."""
+    from exploring_flash_attention_tpu_torch.ops import (
+        QuantizedTensor,
+        dequantize,
+    )
+
+    kern, fn = call
+    o = counted_call(torch, fn, launches_only(**{kern: 1}))
+    _require(o.dtype == torch.float32, f"{what}: O is {o.dtype}")
+    scale = 1.0 / math.sqrt(q.shape[3])
+    quantized = isinstance(k, QuantizedTensor)
+    qs = q[:1, :nh]
+    ks, vs = ((heads(k, 0, 1, nh), heads(v, 0, 1, nh)) if quantized
+              else (k[:1, :nh], v[:1, :nh]))
+    kd, vd = (dequantize(ks), dequantize(vs)) if quantized else (ks, vs)
+    o64 = plain_fn(qs.double(), ks if quantized else ks.double(),
+                   vs if quantized else vs.double(), scale)
+    kb, vb = (ks, vs) if quantized else (ks.bfloat16(), vs.bfloat16())
+    bad = {"the bf16 kernel on bf16-rounded inputs":
+               bf16_call(qs.bfloat16().contiguous(), kb, vb),
+           "P rounded to bf16": rounded_p_plain(torch, qs, kd, vd, scale)}
+    err = held(torch, what, o, plain_fn(q, k, v, scale), o64.cpu().numpy(),
+               {n: x.cpu().numpy() for n, x in bad.items()}, F32_OPS_TOL,
+               F32_OPS_TOL, 1, nh, f"; one {kern} launch")
+    return {"max_abs_err": err,
+            "oracle_err": float((o[:1, :nh].double() - o64).abs().max()),
+            "controls_vs_oracle": {
+                n: float((x.double() - o64).abs().max())
+                for n, x in bad.items()}}
+
+
+def phase_f32_ops(torch, dev):
+    """flash_attention_kvquant (H4-kvq) with f32 q at every KVQ_CASES case
+    and flash_attention_v1_dtiled (H5) with f32 inputs at every
+    DTILED_CASES case and F32_DTILED_EXTRA's, each against the plain f32
+    version and the f64 oracle beside both controls (module comment
+    above), and the times at the canonical and d=512 shapes beside the
+    plain version, SDPA at f32 (TF32 off; over the dequantized K/V for the
+    quantized cases) and the bound: the piece products at 989 TFLOP/s."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_dtiled_plain,
+        attention_kvquant_plain,
+        dequantize,
+        flash_attention_kvquant,
+        flash_attention_v1_dtiled,
+        quantize_fp8,
+        quantize_int8,
+    )
+
+    t0 = time.perf_counter()
+    quant = {"int8": quantize_int8, "fp8": quantize_fp8}
+    f32 = torch.float32
+    out = {"h4kvq": {"cases": {}, "t": {}}, "h5": {"cases": {}, "t": {}}}
+    for case, b, h, lq, lkv, d, kind, block, seed, nh in KVQ_CASES:
+        q, k, v = f32_inputs(torch, dev, b, h, h, lq, lkv, d, seed)
+        kq, vq = quant[kind](k, block), quant[kind](v, block)
+        del k, v
+        what = (f"f32_ops kvquant {case}: B={b} H={h} Lq={lq} Lkv={lkv} "
+                f"d={d} {kind} block {block}")
+        out["h4kvq"]["cases"][case] = f32_ops_case(
+            torch, what, ("h4kvq", lambda: flash_attention_kvquant(q, kq, vq)),
+            attention_kvquant_plain,
+            lambda qb, kb, vb: flash_attention_kvquant(qb, kb, vb,
+                                                       out_dtype=f32),
+            q, kq, vq, nh)
+        if case.startswith("canonical"):
+            scale = 1.0 / math.sqrt(d)
+            kd, vd = dequantize(kq, f32), dequantize(vq, f32)
+            flop = 4 * b * h * lq * lkv * d
+            t = kernel_times(
+                lambda: flash_attention_kvquant(q, kq, vq),
+                lambda: attention_kvquant_plain(q, kq, vq, scale),
+                lambda: sdpa(q, kd, vd),
+                f32_core_bound(flop, H4KVQ_F32_TERMS),
+                2 * b * h * lq * d * 4 + 2 * b * h * lkv * d
+                + 2 * kq.scales.numel() * 4)
+            t["fma_bound_ms"] = f32_fma_ms(flop)
+            print(f"  f32_ops kvquant {kind} times at B={b} H={h} L={lq} "
+                  f"d={d}: H4-kvq f32 {t['ms']:.4f} ms (bound "
+                  f"{t['bound_ms']:.4f} ms, {t['bound_by']}: bf16x3 at 989 "
+                  f"TFLOP/s; f32 FMA would take {t['fma_bound_ms']:.4f} ms), "
+                  f"plain {t['plain_ms']:.4f} ms, SDPA f32 over the "
+                  f"dequantized K/V {t['library_ms']:.4f} ms")
+            out["h4kvq"]["t"][kind] = t
+            del kd, vd
+        del q, kq, vq
+
+    for case, b, h, lq, lkv, d, kind, block, seed, nh in (DTILED_CASES
+                                                          + F32_DTILED_EXTRA):
+        q, k, v = f32_inputs(torch, dev, b, h, h, lq, lkv, d, seed)
+        if kind != "bf16":
+            k, v = quant[kind](k, block), quant[kind](v, block)
+        label = case.replace("bf16", "f32")
+        what = (f"f32_ops dtiled {label}: B={b} H={h} Lq={lq} Lkv={lkv} "
+                f"d={d} {'f32' if kind == 'bf16' else kind} K/V block {block}")
+        out["h5"]["cases"][label] = f32_ops_case(
+            torch, what, ("h5", lambda: flash_attention_v1_dtiled(q, k, v)),
+            attention_dtiled_plain,
+            lambda qb, kb, vb: flash_attention_v1_dtiled(qb, kb, vb,
+                                                         out_dtype=f32),
+            q, k, v, nh)
+        if case in [c[0] for c in DTILED_CASES[:3]]:
+            scale = 1.0 / math.sqrt(d)
+            flop = 4 * b * h * lq * lkv * d
+            kv_bytes = (2 * b * h * lkv * d * 4 if kind == "bf16" else
+                        2 * b * h * lkv * d + 8 * k.scales.numel())
+            kd, vd = ((k, v) if kind == "bf16"
+                      else (dequantize(k, f32), dequantize(v, f32)))
+            t = kernel_times(
+                lambda: flash_attention_v1_dtiled(q, k, v),
+                lambda: attention_dtiled_plain(q, k, v, scale),
+                lambda: sdpa(q, kd, vd),
+                f32_core_bound(flop, H5_F32_TERMS[kind]),
+                2 * b * h * lq * d * 4 + kv_bytes)
+            t["fma_bound_ms"] = f32_fma_ms(flop)
+            backends = ""
+            if kind == "bf16":
+                t["library_backends_ms"], _ = sdpa_backends(torch, q, k, v)
+                backends = " (backends that take f32 d=512: " + ", ".join(
+                    f"{n} {x:.4f} ms"
+                    for n, x in t["library_backends_ms"].items()) + ")"
+            terms = "bf16x6" if kind == "bf16" else "bf16x3"
+            print(f"  f32_ops dtiled {label} times at B={b} H={h} L={lq}: "
+                  f"H5 f32 {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
+                  f"{t['bound_by']}: {terms} at 989 TFLOP/s; f32 FMA would "
+                  f"take {t['fma_bound_ms']:.4f} ms), plain "
+                  f"{t['plain_ms']:.4f} ms, SDPA f32"
+                  f"{'' if kind == 'bf16' else ' over the dequantized K/V'} "
+                  f"{t['library_ms']:.4f} ms{backends}")
+            out["h5"]["t"][label.split()[-1]] = t
+            del kd, vd
+        del q, k, v
+    print(f"  f32_ops on {card_line()}")
+    print(f"phase f32_ops: ok in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def f32_ops_entry(f32ops, kern, name, source, replaces, also):
+    """The kernels line's entry of an f32 form (kern h4kvq or h5): its
+    numbers at the canonical int8 (H4-kvq) or dense d=512 (H5) call, every
+    case's readings beside it."""
+    r = f32ops[kern]
+    main = "int8" if kern == "h4kvq" else "f32"
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "also_replaces": also, "launches": 1,
+            "max_abs_err": max(c["max_abs_err"] for c in r["cases"].values()),
+            **r["t"][main], "design": "wgmma",
+            "bound_share": r["t"][main]["bound_ms"] / r["t"][main]["ms"],
+            "by_kind": {n: x for n, x in r["t"].items() if n != main},
+            "by_case": r["cases"]}
+
+
+PHASES = ("h1", "v1", "tiles", "v2", "quant", "dtiled", "f32_ops", "decode",
+          "extend", "scheduler", "bwd", "slice", "multiturn", "speculative",
+          "heads", "f32", "train", "f32_train", "heads_train", "encoder",
+          "seq2seq", "parallel", "window_train", "window_generate",
+          "time_kernels")
 
 
 def run_only(torch, dev, names):
@@ -6139,6 +6332,7 @@ def main(argv) -> int:
     v2_launches, v2_t = phase_v2(torch, dev)
     quant_gates, kvq, int8 = phase_quant(torch, dev)
     dtiled_gates, h5 = phase_dtiled(torch, dev)
+    f32ops = phase_f32_ops(torch, dev)
     h6 = phase_decode(torch, dev)
     h6e = phase_extend(torch, dev)
     sched = phase_scheduler(torch, dev)
@@ -6398,6 +6592,16 @@ def main(argv) -> int:
          "bound_share": h5["t"]["bf16"]["bound_ms"] / h5["t"]["bf16"]["ms"],
          "by_kind": {n: x for n, x in h5["t"].items() if n != "bf16"},
          "gates": dtiled_gates},
+        # the f32_ops phase: the f32 forms, each call one launch; the
+        # numbers of the canonical int8 (H4-kvq) and dense d=512 (H5)
+        # calls, library_ms SDPA at f32 (over the dequantized K/V for
+        # H4-kvq), max_abs_err the largest over the phase's cases
+        f32_ops_entry(f32ops, "h4kvq", "H4-kvq f32 q over int8 / e4m3 K "
+                      "and V (bf16x3 on wgmma)", H4KVQ_SRC, f"{KVQ_PY}:47",
+                      f"{KVQ_PY}:114"),
+        f32_ops_entry(f32ops, "h5", "H5 d-tiled forward at f32 (f32 or "
+                      "int8 / e4m3 K/V; bf16x6 / bf16x3 on wgmma, Q streamed "
+                      "by d-chunk)", H5_SRC, f"{DTILED_PY}:75", None),
     ]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           f"included")

@@ -1,7 +1,8 @@
 // H5: the d-tiled attention forward on Hopper (sm_90a), for head dims 128
 // to 512 (multiples of 128).  bf16 Q; K and V bf16, or int8 or e4m3 codes
 // with one f32 scale per `block` keys; non-causal, f32 accumulate, bf16
-// or f32 O.
+// or f32 O.  f32 Q (with f32 K and V, or codes) takes
+// dtiled_attention_f32_kernel, in the second half of this file.
 //
 // Replaces the TPU kernel
 //   B19 _dtiled_kernel   exploring_flash_attention_tpu/ops/attention_v1_dtiled.py:75
@@ -59,6 +60,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "f32_attention.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -71,7 +73,8 @@ constexpr int DC = 128;          // d-chunk: the columns of one warpgroup's O
 constexpr int MAX_NC = 4;        // d up to 512
 constexpr int CONVERTERS = 128;  // quantized: the whole producer warpgroup
 constexpr int L_BAR = 1;         // named barrier: l handed over
-constexpr int SLOT_BAR = 2;      // named barrier: a code slot read
+constexpr int SLOT_BAR = 2;      // named barrier: a code slot (f32: a
+                                 // staging buffer) read
 
 template <int NC, int KIND>
 struct Cfg {
@@ -506,11 +509,529 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   return int(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ f32
+// H5 at f32, as B19 computes for f32 q (attention_v1_dtiled.py): every
+// chunk product at HIGHEST (:133, :173), S summed over the 128-column
+// d-chunks of Q and K (:121-143), the K scale folded into the exp2
+// constant (:103-112), p * v_scale kept in an f32 p_scratch (:159-161,
+// :296), O accumulated per chunk at full width (:165-176).  HIGHEST is
+// bf16x6 on wgmma, as in the f32 core (f32_attention.cuh, whose split,
+// piece order and products this kernel uses): f32 K and V are three
+// pieces each (bf16x6 on both products); quantized K and V are codes,
+// exact in bf16, one piece each (bf16x3: JAX's k_c.astype(q_c.dtype)).
+//
+// The problem is shared memory.  At d=512 the three pieces of a 64-row Q
+// tile take 192 KB, so Q cannot stay resident as it does in the bf16
+// kernel (64 KB).  Q is streamed instead, 64 columns at a time beside K's
+// same columns, once per 32-key tile, as the reference CUDA d-tiled
+// kernel streams Q's chunks (tiled_d flash_attention_v1.h:154-174, cited
+// at attention_v1_dtiled.py:123-125).  What that costs: Q is re-read from
+// L2 and re-split once per key tile, at B=4 H=8 L=1024 d=512 about 2 GB
+// of L2 reads, and as many bytes of shared memory written again.
+//
+// One block per (batch*head, 64-row Q tile), the Q tiles of a head next to
+// each other in the grid, NC = d / 128 consumer warpgroups and a producer
+// warpgroup (split in two).  Every load is a TMA copy of f32 (or codes)
+// into a staging buffer, zero-filled past Lq and Lkv, which the producer's
+// threads split (or convert) from shared memory; a thread that read
+// global memory itself would wait on L2 for each 32 bytes:
+//   - producer warps 0-2 (96 threads), per tile and 64-column half h of
+//     d: Q's and K's columns of h, staged (two buffers of 24 KB), split or
+//     converted into one of two S slots (Q pieces 24 KB, K pieces 12 KB
+//     or codes 4 KB); with h = 0 the tile's factors (scale * log2e *
+//     k_scale and v_scale per key, 0 at or past Lkv);
+//   - producer warp 3 (32 threads), per tile, chunk c and half: V's 64
+//     columns, staged (two buffers of 8 KB), split or converted into one
+//     of two V slots (24 KB or 8 KB a chunk), for warpgroup c;
+//   - consumer warpgroup 0, per tile: S_c = Q_c K_c^T in a fresh
+//     accumulator per 128-column chunk (its two halves' m64n32k16
+//     products, 6 or 3 piece products over 4 k-steps each), S += S_c in
+//     f32 in chunk order, the mask, s * kc, the online softmax in f32
+//     (exp2f), l summing the f32 p; P * vs split into three bf16 pieces,
+//     written side by side as one tile of shared memory (two swizzled
+//     boxes), with each row's alpha;
+//   - every consumer warpgroup c, warpgroup 0 included: O_c = alpha O_c +
+//     P V_c on m64n128k16 wgmma, both operands from shared memory (P from
+//     registers would cost warpgroup 0 24 registers it does not have);
+//   - the epilogue divides by l (handed over in shared memory) and each
+//     warpgroup stores its 128 columns.
+// O is one wgmma accumulator per warpgroup over every key tile, as the
+// f32 core's (a fresh accumulator a tile would not fit the registers
+// below).
+//
+// Budget at d=512 (dense): two S slots 72 KB, their staging 48 KB, two V
+// slots 48 KB, their staging 16 KB, two P tiles 32 KB, factors, alpha, l,
+// barriers: 217 KB of 227.  Registers (setmaxnreg; the block keeps what
+// the launch allocates): at NC = 4, 640 x 96 = 48 (the producer, which
+// splits from shared memory) + 144 (warpgroup 0: O 64, S 16, S_c 16) +
+// 3 x 96 (O 64); at NC = 3, 512 x 128 = 48 + 208 + 2 x 128; at NC = 2,
+// 384 x 168 >= 48 + 2 x 224; at NC = 1 none moved.  (72 + 144 + 3 x 88
+// at NC = 4 spilled, and ptxas serialized the wgmma: C7512.)  The same
+// kernel runs d 128 and 256: one launch a call, one design.
+
+constexpr int FKV = 32;                      // keys per tile
+constexpr int FH = 64;                       // columns of a staged half
+constexpr uint32_t FQ_PIECE = BQ * FH * 2;   // a Q half's bf16 piece, 8 KB
+constexpr uint32_t FK_PIECE = FKV * FH * 2;  // a K half's piece, 4 KB
+constexpr uint32_t FV_PIECE = FKV * DC * 2;  // a V chunk's piece, 8 KB
+constexpr int S_THREADS = 96;                // producer warps 0-2
+
+template <int NC>
+struct FBars {
+  uint64_t stage_full[2], vstage_full[2];   // TMA copies landed
+  uint64_t sk_full[2], sk_empty[2];         // the S slots
+  uint64_t v_full[NC], v_empty[2];          // V: full per warpgroup
+  uint64_t fac_empty[2];                    // a tile's factors read
+  uint64_t p_full[2], p_empty[2];           // P and alpha
+};
+
+// KIND: the K/V kind of the C entry, KV_BF16 (0, not quantized) standing
+// for f32 K and V here
+template <int NC, int KIND>
+struct FCfg {
+  static constexpr int D = NC * DC;
+  static constexpr int NS = 2 * NC;                     // S halves a tile
+  static constexpr int THREADS = (NC + 1) * 128;
+  static constexpr bool QUANT = KIND != KV_BF16;
+  static constexpr int KP = QUANT ? 1 : 3;              // pieces of K, V
+  static constexpr int TERMS = QUANT ? 3 : 6;
+  static constexpr int KV_ELEM = QUANT ? 1 : 4;         // staged K/V bytes
+  // V slots: at most one per warpgroup, so that warpgroup c's V of tile
+  // i + 1 cannot land before it has taken tile i's (v_full's parity)
+  static constexpr int V_SLOTS = NC > 1 ? 2 : 1;
+  // registers per thread: what the launch gives (65536 over the block's
+  // threads, in steps of 8), and after setmaxnreg, the same total
+  static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int PRODUCER_REGS = 48;
+  static constexpr int WG0_REGS = NC == 4 ? 144 : NC == 3 ? 208 : 224;
+  static constexpr int OTHER_REGS = NC == 2 ? 224 : LAUNCH_REGS;
+  static_assert(NC == 1 || PRODUCER_REGS + WG0_REGS + (NC - 1) * OTHER_REGS
+                               <= (NC + 1) * LAUNCH_REGS,
+                "the block's registers");
+  static constexpr uint32_t SK_BYTES = 3 * FQ_PIECE + KP * FK_PIECE;
+  static constexpr uint32_t V_BYTES = KP * FV_PIECE;
+  static constexpr uint32_t P_BYTES = 2 * BQ * 128;   // boxes [hi | mid], [lo]
+  static constexpr uint32_t STAGE_Q = BQ * FH * 4;    // f32 [64][64]
+  static constexpr uint32_t STAGE_KV = FKV * FH * KV_ELEM;
+  static constexpr uint32_t STAGE_BYTES = STAGE_Q + STAGE_KV;
+  static constexpr size_t sk = 0;
+  static constexpr size_t v = sk + 2 * size_t(SK_BYTES);
+  static constexpr size_t p = v + V_SLOTS * size_t(V_BYTES);
+  static constexpr size_t stage = p + 2 * size_t(P_BYTES);
+  static constexpr size_t vstage = stage + 2 * size_t(STAGE_BYTES);
+  static constexpr size_t alpha = vstage + 2 * size_t(STAGE_KV);  // [2][64]
+  static constexpr size_t lsum = alpha + 2 * BQ * 4;              // [64]
+  static constexpr size_t fac = lsum + BQ * 4;                    // [2][2][32]
+  static constexpr size_t bars = fac + 2 * 2 * FKV * 4;
+  static constexpr size_t bytes = bars + sizeof(FBars<NC>) + 1024;
+  static_assert(bytes <= 232448, "the block's shared memory");
+};
+
+// Staged rows (row-major, 64 f32 or codes a row, zero past the tensor's
+// end) into their bf16 pieces in a tile of `rows` rows: f32 (KIND
+// KV_BF16, the kind that is not quantized) split into three pieces of
+// `piece` bytes, codes converted whole; the 64 columns land at col0 (0 or
+// 64: a box of 64 columns).  Threads t, t + n, ...
 template <int KIND>
-int launch_d(int d, const void* q, const void* k, const void* v,
+__device__ __forceinline__ void split_staged(unsigned char* tile,
+                                             uint32_t piece, int rows,
+                                             int col0,
+                                             const unsigned char* src,
+                                             int t, int n) {
+  if constexpr (KIND == KV_BF16) {
+    const float* x = reinterpret_cast<const float*>(src);
+#pragma unroll 1
+    for (int e = t; e < rows * (FH / 8); e += n) {
+      const int r = e / (FH / 8), ch = e % (FH / 8);
+      const float4* at = reinterpret_cast<const float4*>(x + r * FH + 8 * ch);
+      eft::f32::put_split8(tile, piece, rows, r, col0 / 8 + ch, at[0],
+                           at[1]);
+    }
+  } else {
+    convert_codes_tile<KIND, false, FH>(src, tile + (col0 / 64) * rows * 128,
+                                        rows, t, n);
+  }
+}
+
+// column col (0..95) of the P tile, pieces side by side: piece p's 32
+// columns at 32 p, boxes of 64 columns (128-byte rows, 128-byte swizzle)
+__device__ __forceinline__ uint32_t p_offset(int row, int col) {
+  return (col / 64) * BQ * 128 + swz128(row, (col % 64) * 2);
+}
+
+template <int NC, int KIND>
+__device__ __forceinline__ void produce_f32(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const float* ks, const float* vs, unsigned char* smem, FBars<NC>* bars,
+    int bh, int q0, int lkv, int block, int n_blocks, int n_tiles,
+    float scale_log2) {
+  using C = FCfg<NC, KIND>;
+  const int pt = threadIdx.x - NC * 128;
+  if (pt < S_THREADS) {
+    // S halves: item j is tile j / NS, columns 64 (j % NS) .. + 63
+    float* fac = reinterpret_cast<float*>(smem + C::fac);
+    const float* ksb = ks + size_t(bh) * n_blocks;
+    const float* vsb = vs + size_t(bh) * n_blocks;
+    const int n_items = n_tiles * C::NS;
+    auto load = [&](int j) {
+      unsigned char* st = smem + C::stage + (j % 2) * C::STAGE_BYTES;
+      const int col = (j % C::NS) * FH;
+      mbar_arrive_expect_tx(&bars->stage_full[j % 2], C::STAGE_BYTES);
+      tma_load_3d(st, tq, &bars->stage_full[j % 2], col, q0, bh);
+      tma_load_3d(st + C::STAGE_Q, tk, &bars->stage_full[j % 2], col,
+                  j / C::NS * FKV, bh);
+    };
+    if (pt == 0)
+      for (int j = 0; j < 2 && j < n_items; ++j) load(j);
+    for (int j = 0; j < n_items; ++j) {
+      const int i = j / C::NS, h = j % C::NS, s = j % 2;
+      const unsigned char* st = smem + C::stage + s * C::STAGE_BYTES;
+      unsigned char* slot = smem + C::sk + s * C::SK_BYTES;
+      mbar_wait(&bars->sk_empty[s], ((j / 2) & 1) ^ 1);
+      mbar_wait(&bars->stage_full[s], (j / 2) & 1);
+      split_staged<KV_BF16>(slot, FQ_PIECE, BQ, 0, st, pt, S_THREADS);
+      split_staged<KIND>(slot + 3 * FQ_PIECE, FK_PIECE, FKV, 0,
+                         st + C::STAGE_Q, pt, S_THREADS);
+      if (h == 0) {
+        const int f = i % 2;
+        mbar_wait(&bars->fac_empty[f], ((i / 2) & 1) ^ 1);
+        for (int t = pt; t < FKV; t += S_THREADS) {
+          const int key = i * FKV + t;
+          const bool in = key < lkv;
+          fac[f * 2 * FKV + t] =
+              in ? (C::QUANT ? ksb[key / block] : 1.f) * scale_log2 : 0.f;
+          fac[f * 2 * FKV + FKV + t] =
+              in ? (C::QUANT ? vsb[key / block] : 1.f) : 0.f;
+        }
+      }
+      fence_proxy_async();
+      mbar_arrive(&bars->sk_full[s]);
+      named_bar_sync(SLOT_BAR, S_THREADS);       // staging s read
+      if (pt == 0 && j + 2 < n_items) load(j + 2);
+    }
+  } else {
+    // V halves: item j is tile j / (2 NC), chunk j / 2 % NC, columns
+    // 64 (j % 2) .. + 63 of the chunk
+    const int lane = pt - S_THREADS;
+    const int n_items = n_tiles * NC * 2;
+    auto load = [&](int j) {
+      mbar_arrive_expect_tx(&bars->vstage_full[j % 2], C::STAGE_KV);
+      tma_load_3d(smem + C::vstage + (j % 2) * C::STAGE_KV, tv,
+                  &bars->vstage_full[j % 2], j / 2 % NC * DC + j % 2 * FH,
+                  j / (2 * NC) * FKV, bh);
+    };
+    if (lane == 0)
+      for (int j = 0; j < 2 && j < n_items; ++j) load(j);
+    for (int j = 0; j < n_items; ++j) {
+      const int jc = j / 2, c = jc % NC, s = jc % C::V_SLOTS;
+      if (j % 2 == 0)
+        mbar_wait(&bars->v_empty[s], ((jc / C::V_SLOTS) & 1) ^ 1);
+      mbar_wait(&bars->vstage_full[j % 2], (j / 2) & 1);
+      split_staged<KIND>(smem + C::v + s * C::V_BYTES, FV_PIECE, FKV,
+                         (j % 2) * FH,
+                         smem + C::vstage + (j % 2) * C::STAGE_KV, lane, 32);
+      if (j % 2 == 1) {
+        fence_proxy_async();
+        mbar_arrive(&bars->v_full[c]);
+      }
+      __syncwarp();                               // staging read
+      if (lane == 0 && j + 2 < n_items) load(j + 2);
+    }
+  }
+}
+
+// S_c's products of one S slot (a 64-column half) added into acc (issued,
+// not waited for)
+template <int NC, int KIND>
+__device__ __forceinline__ void issue_s_half(float (&acc)[FKV / 2],
+                                             const unsigned char* slot) {
+  using C = FCfg<NC, KIND>;
+  namespace F = eft::f32;
+#pragma unroll
+  for (int t = 0; t < C::TERMS; ++t) {
+    const unsigned char* a = slot + F::piece_a<C::TERMS>(t) * FQ_PIECE;
+    const unsigned char* b =
+        slot + 3 * FQ_PIECE + F::piece_b<C::TERMS>(t) * FK_PIECE;
+#pragma unroll
+    for (int kk = 0; kk < FH / 16; ++kk)
+      F::wgmma_ss_bf16_n32(acc, gmma_desc(a + kk * 32, 16, 1024, 128),
+                           gmma_desc(b + kk * 32, 16, 1024, 128));
+  }
+}
+
+// Warpgroup 0's part of tile i: S over the d-chunks, the mask, s * kc,
+// the online softmax (m, l updated), P * vs as three bf16 tiles at sp,
+// alpha at sa
+template <int NC, int KIND>
+__device__ __forceinline__ void softmax_tile_f32(
+    unsigned char* smem, FBars<NC>* bars, int i, int lkv, float (&m)[2],
+    float (&l)[2], unsigned char* sp, float* sa) {
+  using C = FCfg<NC, KIND>;
+  namespace F = eft::f32;
+  const int lane = threadIdx.x % 32;
+  const int rl = threadIdx.x / 32 * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const int kv0 = i * FKV;
+  // S = the sum over the d-chunks of S_c, each in a fresh accumulator
+  // over its two 64-column halves
+  float acc_s[FKV / 2];
+#pragma unroll
+  for (int e = 0; e < FKV / 2; ++e) acc_s[e] = 0.f;
+  for (int c = 0; c < NC; ++c) {
+    float part[FKV / 2];
+#pragma unroll
+    for (int e = 0; e < FKV / 2; ++e) part[e] = 0.f;
+    for (int h = 2 * c; h < 2 * c + 2; ++h) {
+      const int j = i * C::NS + h, s = j % 2;
+      mbar_wait(&bars->sk_full[s], (j / 2) & 1);
+      wgmma_fence();
+      issue_s_half<NC, KIND>(part, smem + C::sk + s * C::SK_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+      mbar_arrive(&bars->sk_empty[s]);
+    }
+#pragma unroll
+    for (int e = 0; e < FKV / 2; ++e) acc_s[e] += part[e];
+  }
+
+  // the mask, s * kc, the online softmax in the exp2 basis
+  const float* kc = reinterpret_cast<const float*>(smem + C::fac) +
+                    (i % 2) * 2 * FKV;
+  const float* vsc = kc + FKV;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int e = 0; e < FKV / 2; ++e) {
+    const int r = acc_row8(e) / 8, col = col0 + acc_col(e);
+    acc_s[e] = kv0 + col < lkv ? acc_s[e] * kc[col] : -CUDART_INF_F;
+    mx[r] = fmaxf(mx[r], acc_s[e]);
+  }
+  float alpha[2], m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    m_use[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+    alpha[r] = exp2f(m[r] - m_use[r]);
+    m[r] = m_new;
+  }
+  // p, l, and P * vs split into three bf16 pieces, piece p in columns
+  // 32 p .. 32 p + 31 of the tile
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < FKV / 4; ++j) {
+    const int r = acc_row8(2 * j) / 8, col = col0 + acc_col(2 * j);
+    const float p0 = exp2f(acc_s[2 * j] - m_use[r]);        // 0 where masked
+    const float p1 = exp2f(acc_s[2 * j + 1] - m_use[r]);
+    psum[r] += p0 + p1;
+    uint32_t w[3];
+    F::split3x2(p0 * vsc[col], p1 * vsc[col + 1], w);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      *reinterpret_cast<uint32_t*>(sp + p_offset(rl + 8 * r, 32 * p + col)) =
+          w[p];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+  if (col0 == 0) {
+    sa[rl] = alpha[0];
+    sa[rl + 8] = alpha[1];
+  }
+  mbar_arrive(&bars->fac_empty[i % 2]);
+}
+
+// A consumer warpgroup (wg < NC; FIRST: warpgroup 0, a code path of its
+// own, so that each keeps the registers setmaxnreg gives it): per tile,
+// warpgroup 0 computes S, the softmax and P (softmax_tile_f32); then
+// every warpgroup c rescales its O chunk by alpha and adds P V_c, P's
+// three pieces from the shared tile (SS wgmma); the epilogue divides by l
+// and stores the chunk's columns
+template <int NC, int KIND, bool FIRST>
+__device__ __forceinline__ void consume_f32(unsigned char* smem,
+                                            FBars<NC>* bars, void* o,
+                                            int out_f32, int lq, int lkv,
+                                            int q0, int bh, int n_tiles) {
+  using C = FCfg<NC, KIND>;
+  namespace F = eft::f32;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int rl = threadIdx.x / 32 % 4 * 16 + lane / 4;
+  float* salpha = reinterpret_cast<float*>(smem + C::alpha);
+
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  float acc_o[DC / 2];
+#pragma unroll
+  for (int e = 0; e < DC / 2; ++e) acc_o[e] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int b = i % 2;
+    unsigned char* sp = smem + C::p + b * C::P_BYTES;
+    if constexpr (FIRST) {
+      mbar_wait(&bars->p_empty[b], ((i / 2) & 1) ^ 1);
+      softmax_tile_f32<NC, KIND>(smem, bars, i, lkv, m, l, sp,
+                                 salpha + b * BQ);
+      fence_proxy_async();
+      mbar_arrive(&bars->p_full[b]);
+    }
+    mbar_wait(&bars->p_full[b], (i / 2) & 1);
+    const float a[2] = {salpha[b * BQ + rl], salpha[b * BQ + rl + 8]};
+    rescale(acc_o, a);
+    const int sv = (i * NC + wg) % C::V_SLOTS;
+    mbar_wait(&bars->v_full[wg], i & 1);
+    const unsigned char* v_s = smem + C::v + sv * C::V_BYTES;
+    fence_regs(acc_o);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < C::TERMS; ++t) {
+      const int pp = F::piece_a<C::TERMS>(t);
+      const unsigned char* vp = v_s + F::piece_b<C::TERMS>(t) * FV_PIECE;
+#pragma unroll
+      for (int kk = 0; kk < FKV / 16; ++kk) {
+        const int col = 32 * pp + 16 * kk;
+        wgmma_ss_bf16_n128_tb(
+            acc_o,
+            gmma_desc(sp + (col / 64) * BQ * 128 + (col % 64) * 2, 16, 1024,
+                      128),
+            gmma_desc(vp + kk * 16 * 128, FKV * 128, 1024, 128), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_o);
+    mbar_arrive(&bars->v_empty[sv]);
+    mbar_arrive(&bars->p_empty[b]);
+  }
+
+  // warpgroup 0 hands l over to the others
+  float* sl = reinterpret_cast<float*>(smem + C::lsum);
+  if constexpr (NC > 1) {
+    if constexpr (FIRST) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float l_row = quad_sum(l[r]);
+        if (lane % 4 == 0) sl[rl + 8 * r] = l_row;
+      }
+    }
+    named_bar_sync(L_BAR, NC * 128);
+    if constexpr (!FIRST) {
+      // the row sums, placed so that store_o_rows' quad sum returns them
+      l[0] = lane % 4 == 0 ? sl[rl] : 0.f;
+      l[1] = lane % 4 == 0 ? sl[rl + 8] : 0.f;
+    }
+  }
+  store_o_rows<DC>(acc_o, l, m, q0 + rl, lq, size_t(bh) * lq, o, out_f32,
+                   nullptr, C::D, wg * DC);
+}
+
+// setmaxnreg from the launch's registers per thread to N (a no-op when
+// they are equal)
+template <int N, int LAUNCH>
+__device__ __forceinline__ void set_regs() {
+  if constexpr (N > LAUNCH) setmaxnreg_inc<N>();
+  else if constexpr (N < LAUNCH) setmaxnreg_dec<N>();
+}
+
+template <int NC, int KIND>
+__global__ void __launch_bounds__(FCfg<NC, KIND>::THREADS, 1)
+dtiled_attention_f32_kernel(
+    const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d] f32
+    const __grid_constant__ CUtensorMap tk,  // [BH, Lkv, d] f32 or codes
+    const __grid_constant__ CUtensorMap tv,  // [BH, Lkv, d] f32 or codes
+    const float* __restrict__ ks,            // [BH, n_blocks] or null
+    const float* __restrict__ vs,            // [BH, n_blocks] or null
+    void* __restrict__ o,                    // [BH, Lq, d]
+    int out_f32, int lq, int lkv, int block, int n_blocks,
+    float scale_log2) {
+  using C = FCfg<NC, KIND>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  auto* bars = reinterpret_cast<FBars<NC>*>(smem + C::bars);
+
+  const int n_qt = (lq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * BQ;
+  const int n_tiles = (lkv + FKV - 1) / FKV;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bars->stage_full[s], 1);
+      mbar_init(&bars->vstage_full[s], 1);
+      mbar_init(&bars->sk_full[s], S_THREADS);
+      mbar_init(&bars->sk_empty[s], 128);
+      mbar_init(&bars->v_empty[s], 128);
+      mbar_init(&bars->fac_empty[s], 128);
+      mbar_init(&bars->p_full[s], 128);
+      mbar_init(&bars->p_empty[s], NC * 128);
+    }
+    for (int c = 0; c < NC; ++c) mbar_init(&bars->v_full[c], 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    if constexpr (NC > 1) set_regs<C::PRODUCER_REGS, C::LAUNCH_REGS>();
+    produce_f32<NC, KIND>(&tq, &tk, &tv, ks, vs, smem, bars, bh, q0, lkv,
+                          block, n_blocks, n_tiles, scale_log2);
+    return;
+  }
+  if (wg == 0) {
+    if constexpr (NC > 1) set_regs<C::WG0_REGS, C::LAUNCH_REGS>();
+    consume_f32<NC, KIND, true>(smem, bars, o, out_f32, lq, lkv, q0, bh,
+                                n_tiles);
+  } else if constexpr (NC > 1) {
+    set_regs<C::OTHER_REGS, C::LAUNCH_REGS>();
+    consume_f32<NC, KIND, false>(smem, bars, o, out_f32, lq, lkv, q0, bh,
+                                 n_tiles);
+  }
+}
+
+template <int NC, int KIND>
+int launch_f32(const void* q, const void* k, const void* v, const void* ks,
+               const void* vs, void* o, int out_f32, int bh, int lq, int lkv,
+               int block, int n_blocks, float scale_log2,
+               cudaStream_t stream) {
+  using C = FCfg<NC, KIND>;
+  CUtensorMap tq, tk, tv;
+  int err = make_tmap(&tq, q, 4, C::D, lq, bh, FH, BQ, 0);
+  if (!err) err = make_tmap(&tk, k, C::KV_ELEM, C::D, lkv, bh, FH, FKV, 0);
+  if (!err) err = make_tmap(&tv, v, C::KV_ELEM, C::D, lkv, bh, FH, FKV, 0);
+  if (err) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      dtiled_attention_f32_kernel<NC, KIND>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::bytes));
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid(bh * ((lq + BQ - 1) / BQ));
+  dtiled_attention_f32_kernel<NC, KIND><<<grid, C::THREADS, C::bytes,
+                                          stream>>>(
+      tq, tk, tv, static_cast<const float*>(ks),
+      static_cast<const float*>(vs), o, out_f32, lq, lkv, block, n_blocks,
+      scale_log2);
+  return int(cudaGetLastError());
+}
+
+template <int KIND>
+int launch_d(int d, int in_f32, const void* q, const void* k, const void* v,
              const void* ks, const void* vs, void* o, int out_f32, int bh,
              int lq, int lkv, int block, int n_blocks, float scale_log2,
              cudaStream_t stream) {
+  if (in_f32) {
+    switch (d / DC) {
+      case 1:
+        return launch_f32<1, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
+                                   block, n_blocks, scale_log2, stream);
+      case 2:
+        return launch_f32<2, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
+                                   block, n_blocks, scale_log2, stream);
+      case 3:
+        return launch_f32<3, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
+                                   block, n_blocks, scale_log2, stream);
+      case 4:
+        return launch_f32<4, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
+                                   block, n_blocks, scale_log2, stream);
+      default:
+        return int(cudaErrorInvalidValue);
+    }
+  }
   switch (d / DC) {
     case 1:
       return launch<1, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, block,
@@ -534,17 +1055,18 @@ int launch_d(int d, const void* q, const void* k, const void* v,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // ops/attention_v1_dtiled.py has already checked shapes, dtypes,
 // contiguity and alignment; the checks here only refuse what would index
-// out of bounds.  kv_kind: 0 bf16 (ks, vs unused), 1 int8, 2 e4m3; d a
-// multiple of 128 up to 512; scale_log2 = softmax scale * log2(e).
+// out of bounds.  kv_kind: 0 bf16 (f32 with in_f32; ks, vs unused), 1
+// int8, 2 e4m3; d a multiple of 128 up to 512; scale_log2 = softmax scale
+// * log2(e); in_f32: 0 for bf16 q (and K/V), 1 for f32 (the f32 kernel).
 extern "C" int eft_dtiled_attention(const void* q, const void* k,
                                     const void* v, const void* ks,
                                     const void* vs, void* o, int batch,
                                     int heads, int lq, int lkv, int d,
                                     int block, int n_blocks, int kv_kind,
                                     int out_f32, float scale_log2,
-                                    int device, void* stream) {
+                                    int in_f32, int device, void* stream) {
   if (batch <= 0 || heads <= 0 || lq <= 0 || lkv <= 0 ||
-      d % DC != 0 || d > MAX_NC * DC ||
+      d % DC != 0 || d > MAX_NC * DC || (in_f32 != 0 && in_f32 != 1) ||
       (kv_kind != KV_BF16 &&
        (block <= 0 || n_blocks != (lkv + block - 1) / block)))
     return int(cudaErrorInvalidValue);
@@ -554,14 +1076,14 @@ extern "C" int eft_dtiled_attention(const void* q, const void* k,
   const int bh = batch * heads;
   switch (kv_kind) {
     case KV_BF16:
-      return launch_d<KV_BF16>(d, q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
-                               block, n_blocks, scale_log2, s);
+      return launch_d<KV_BF16>(d, in_f32, q, k, v, ks, vs, o, out_f32, bh,
+                               lq, lkv, block, n_blocks, scale_log2, s);
     case KV_INT8:
-      return launch_d<KV_INT8>(d, q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
-                               block, n_blocks, scale_log2, s);
+      return launch_d<KV_INT8>(d, in_f32, q, k, v, ks, vs, o, out_f32, bh,
+                               lq, lkv, block, n_blocks, scale_log2, s);
     case KV_FP8:
-      return launch_d<KV_FP8>(d, q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
-                              block, n_blocks, scale_log2, s);
+      return launch_d<KV_FP8>(d, in_f32, q, k, v, ks, vs, o, out_f32, bh,
+                              lq, lkv, block, n_blocks, scale_log2, s);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -1,6 +1,7 @@
 // H4-kvq: the attention forward over a quantized K/V on Hopper (sm_90a).
-// bf16 Q, int8 or e4m3 K and V with one f32 scale per `block` keys,
-// non-causal, f32 accumulate, bf16 or f32 O.
+// bf16 or f32 Q, int8 or e4m3 K and V with one f32 scale per `block` keys,
+// non-causal, f32 accumulate, bf16 or f32 O.  f32 q takes
+// kvquant_attention_f32_kernel below (the f32 core of f32_attention.cuh).
 //
 // Replaces two TPU kernels of the JAX package that compute one function
 // and differ only by a VMEM rule (one pass when the quantized KV fits,
@@ -62,6 +63,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "f32_attention.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -417,11 +419,146 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   return int(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ f32 q
+// H4-kvq at f32 q, as B16 and B17 compute for it (compute_dtype f32,
+// ops/attention_kvquant.py:196): the codes cast exactly to f32, S = q k in
+// f32 scaled by scale * k_scale, p in f32, P V in f32 times v_scale.  On
+// the f32 core (f32_attention.cuh) with one piece of K and V: the codes are
+// exact in bf16, so S = Q K^T and P V are three bf16 products each (the
+// pieces of q, and of P * v_scale, against the codes; bf16x3), exact f32
+// products.  One block per (batch*head, BQ-row Q tile), the Q tiles of a
+// head next to each other in the grid; 32-key tiles.  The producer reads
+// each tile's codes from global memory, converts them exactly to bf16 and
+// writes per key kc = k_scale[key / block] * scale * log2(e) and vs =
+// v_scale[key / block], both zero at or past Lkv, where the keys are
+// zero-filled and masked to -inf.  P * v_scale stays f32 until it is split
+// (B16 multiplies the f32 P V by v_scale per block, :99-106; per key the
+// same product up to f32 rounding), and l sums the unscaled p.  Shared
+// memory at D=128: Q pieces 96 KB, two stages of 32 keys 16 KB, 128 KB.
+template <int D, int KIND>
+__global__ void __launch_bounds__(eft::f32::Tiles<D, 1>::THREADS, 1)
+kvquant_attention_f32_kernel(const float* __restrict__ q,     // [BH, Lq, D]
+                             const uint8_t* __restrict__ k,   // [BH, Lkv, D]
+                             const uint8_t* __restrict__ v,   // [BH, Lkv, D]
+                             const float* __restrict__ ks,    // [BH, nb]
+                             const float* __restrict__ vs,    // [BH, nb]
+                             void* __restrict__ o,            // [BH, Lq, D]
+                             int out_f32, int lq, int lkv, int block,
+                             int n_blocks, float scale_log2) {
+  namespace F = eft::f32;
+  using T = F::Tiles<D, 1>;
+  constexpr int BKV = T::BKV;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bars);
+  uint64_t* empty = full + T::STAGES;
+  const int n_qt = (lq + T::BQ - 1) / T::BQ;
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * T::BQ;
+  const int n_tiles = (lkv + BKV - 1) / BKV;
+  F::init_bars<D, 1>(full);
+  const int warp = threadIdx.x / 32;
+
+  if (warp >= T::NC * 4) {
+    // the producer: each thread CH 16-code pieces of K and of V a tile
+    constexpr int CH = BKV * (D / 16) / 128;
+    struct Regs { uint4 k[CH], v[CH]; int kv0; };
+    const int ct = threadIdx.x - T::NC * 128;
+    const size_t head = size_t(bh) * lkv;
+    const float* ksb = ks + size_t(bh) * n_blocks;
+    const float* vsb = vs + size_t(bh) * n_blocks;
+    auto fetch = [&](int i, Regs& x) {
+      x.kv0 = i * BKV;
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        const int e = ct + 128 * j, r = e / (D / 16), ch = e % (D / 16);
+        x.k[j] = x.v[j] = make_uint4(0u, 0u, 0u, 0u);
+        if (x.kv0 + r < lkv) {
+          const size_t at = (head + x.kv0 + r) * D + 16 * ch;
+          x.k[j] = *reinterpret_cast<const uint4*>(k + at);
+          x.v[j] = *reinterpret_cast<const uint4*>(v + at);
+        }
+      }
+    };
+    auto put = [&](const Regs& x, unsigned char* sk, unsigned char* sv,
+                   float* kc, float* vsc) {
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        const int e = ct + 128 * j, r = e / (D / 16), ch = e % (D / 16);
+        unsigned char* dst[2] = {sk, sv};
+        const uint4 in[2] = {x.k[j], x.v[j]};
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          uint32_t w[8];
+          codes16_convert<KIND, false>(in[kv], w);
+          unsigned char* box = dst[kv] + (ch / 4) * BKV * 128;
+          const int byte = (ch % 4) * 32;
+          *reinterpret_cast<uint4*>(box + swz128(r, byte)) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+          *reinterpret_cast<uint4*>(box + swz128(r, byte + 16)) =
+              make_uint4(w[4], w[5], w[6], w[7]);
+        }
+      }
+      if (ct < BKV) {
+        const int key = x.kv0 + ct;
+        const bool in = key < lkv;
+        kc[ct] = in ? ksb[key / block] * scale_log2 : 0.f;
+        vsc[ct] = in ? vsb[key / block] : 0.f;
+      }
+    };
+    F::produce<D, 1, Regs>(smem, full, empty, n_tiles, fetch, put);
+    return;
+  }
+
+  // a consumer warpgroup: rows q0 + 64 wg .. + 63, this thread two of
+  // them, each seeing keys [0, Lkv)
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int row0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int lo[2] = {0, 0};
+  const int hi[2] = {row0 < lq ? lkv - 1 : -1, row0 + 8 < lq ? lkv - 1 : -1};
+  F::stage_q<D, 1>(smem + T::q, wg, [&](int r) {
+    const int row = q0 + wg * 64 + r;
+    return row < lq ? q + (size_t(bh) * lq + row) * D : nullptr;
+  }, D);
+  float acc_o[D / 2], m[2], l[2];
+  F::attend<D, 1, false, true>(smem, wg, full, empty, 0, n_tiles, lo, hi,
+                               acc_o, m, l);
+  store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
+                  nullptr);
+}
+
+template <int D, int KIND>
+int launch_f32(const void* q, const void* k, const void* v, const void* ks,
+               const void* vs, void* o, int out_f32, int bh, int lq, int lkv,
+               int block, int n_blocks, float scale_log2,
+               cudaStream_t stream) {
+  using T = eft::f32::Tiles<D, 1>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kvquant_attention_f32_kernel<D, KIND>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid(bh * ((lq + T::BQ - 1) / T::BQ));
+  kvquant_attention_f32_kernel<D, KIND><<<grid, T::THREADS, T::bytes,
+                                          stream>>>(
+      static_cast<const float*>(q), static_cast<const uint8_t*>(k),
+      static_cast<const uint8_t*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), o, out_f32, lq, lkv, block, n_blocks,
+      scale_log2);
+  return int(cudaGetLastError());
+}
+
 template <int D>
-int launch_kind(int kv_kind, const void* q, const void* k, const void* v,
-                const void* ks, const void* vs, void* o, int out_f32, int bh,
-                int lq, int lkv, int block, int n_blocks, float scale_log2,
-                cudaStream_t stream) {
+int launch_kind(int kv_kind, int q_f32, const void* q, const void* k,
+                const void* v, const void* ks, const void* vs, void* o,
+                int out_f32, int bh, int lq, int lkv, int block, int n_blocks,
+                float scale_log2, cudaStream_t stream) {
+  if (q_f32 && kv_kind == KV_INT8)
+    return launch_f32<D, KV_INT8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
+                                  block, n_blocks, scale_log2, stream);
+  if (q_f32)
+    return launch_f32<D, KV_FP8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
+                                 block, n_blocks, scale_log2, stream);
   if (kv_kind == KV_INT8)
     return launch<D, KV_INT8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, block,
                               n_blocks, scale_log2, stream);
@@ -434,28 +571,30 @@ int launch_kind(int kv_kind, const void* q, const void* k, const void* v,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // ops/attention_kvquant.py has already checked shapes, dtypes, contiguity
 // and alignment; the checks here only refuse what would index out of
-// bounds.  kv_kind: 1 int8, 2 e4m3; scale_log2 = softmax scale * log2(e).
+// bounds.  kv_kind: 1 int8, 2 e4m3; scale_log2 = softmax scale * log2(e);
+// q_f32: 0 for bf16 q, 1 for f32 (the f32 core, bf16x3).
 extern "C" int eft_kvquant_attention(const void* q, const void* k,
                                      const void* v, const void* ks,
                                      const void* vs, void* o, int batch,
                                      int heads, int lq, int lkv, int d,
                                      int block, int n_blocks, int kv_kind,
                                      int out_f32, float scale_log2,
-                                     int device, void* stream) {
+                                     int q_f32, int device, void* stream) {
   if (batch <= 0 || heads <= 0 || lq <= 0 || lkv <= 0 || block <= 0 ||
       n_blocks != (lkv + block - 1) / block ||
-      (kv_kind != KV_INT8 && kv_kind != KV_FP8))
+      (kv_kind != KV_INT8 && kv_kind != KV_FP8) ||
+      (q_f32 != 0 && q_f32 != 1))
     return int(cudaErrorInvalidValue);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch_kind<64>(kv_kind, q, k, v, ks, vs, o, out_f32,
+      return launch_kind<64>(kv_kind, q_f32, q, k, v, ks, vs, o, out_f32,
                              batch * heads, lq, lkv, block, n_blocks,
                              scale_log2, s);
     case 128:
-      return launch_kind<128>(kv_kind, q, k, v, ks, vs, o, out_f32,
+      return launch_kind<128>(kv_kind, q_f32, q, k, v, ks, vs, o, out_f32,
                               batch * heads, lq, lkv, block, n_blocks,
                               scale_log2, s);
     default:

@@ -80,7 +80,8 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // The descriptor of a contiguous [bh, rows, cols] tensor of elem_bytes-wide
-// elements, loaded as boxes of box_cols x box_rows.  swizzle_bytes is 128,
+// elements (f32, bf16 or one-byte codes), loaded as boxes of box_cols x
+// box_rows.  swizzle_bytes is 128,
 // 64 or 0 (none); a swizzled box row must be exactly that wide.  Returns a
 // cudaError_t (0 on success).
 inline int make_tmap(CUtensorMap* map, const void* base, int elem_bytes,
@@ -99,8 +100,9 @@ inline int make_tmap(CUtensorMap* map, const void* base, int elem_bytes,
       : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                             : CU_TENSOR_MAP_SWIZZLE_NONE;
   const CUresult res = fn(
-      map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                           : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      map, elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+           : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_UINT8,
       3, const_cast<void*>(base), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

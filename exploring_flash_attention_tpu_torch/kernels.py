@@ -58,14 +58,16 @@ _SIGNATURES = {
     # diag_off, window, offs, scale, in_f32, device, stream
     "eft_attention_bwd_dq": [_P] * 7 + [_I] * 9 + [_P, _F, _I, _I, _P],
     # q, k, v, ks, vs, o, batch, heads, lq, lkv, d, block, n_blocks,
-    # kv_kind, out_f32, scale_log2, device, stream
-    "eft_kvquant_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _P],
+    # kv_kind, out_f32, scale_log2, q_f32, device, stream (q_f32: f32 q,
+    # else bf16)
+    "eft_kvquant_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
     # q, k, v, qs, ks, vs, o, batch, heads, lq, lkv, d, q_block, n_qb,
     # kv_block, n_kvb, pv_int8, out_f32, scale_log2, device, stream
     "eft_int8_attention": [_P] * 7 + [_I] * 11 + [_F, _I, _P],
     # q, k, v, ks, vs, o, batch, heads, lq, lkv, d, block, n_blocks,
-    # kv_kind, out_f32, scale_log2, device, stream
-    "eft_dtiled_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _P],
+    # kv_kind, out_f32, scale_log2, in_f32, device, stream (in_f32: f32 q,
+    # and f32 k and v where they are not codes; else bf16)
+    "eft_dtiled_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
 }
 
 

@@ -354,33 +354,29 @@ prefill_attention.launches = 0
 
 
 # The input dtypes each kernel takes on the card: q/k/v for H1, H3 and H5
-# (and dO for H3), q for H4-kvq and the paged pair (their K/V are codes).
-# f32 is the JAX package's default dtype (models/transformer.py:59) and its
-# kernels compute f32 at f32 accuracy (HIGHEST); no kernel takes f16 or
-# f64.  H3 takes f32 at d up to 128 (ops.attention_bwd.F32_MAX_D).
+# (and dO for H3), q for H4-kvq and the paged pair (their K/V are codes;
+# H5's K/V too where they are quantized).  f32 is the JAX package's default
+# dtype (models/transformer.py:59) and its kernels compute f32 at f32
+# accuracy (HIGHEST); no kernel takes f16 or f64.  H3 takes f32 at d up
+# to 128 (ops.attention_bwd.F32_MAX_D).
 KERNEL_DTYPES = {
     "H1": (torch.bfloat16, torch.float32),
     "H3-dkv": (torch.bfloat16, torch.float32),
     "H3-dq": (torch.bfloat16, torch.float32),
-    "H4-kvq": (torch.bfloat16,),
-    "H5": (torch.bfloat16,),
+    "H4-kvq": (torch.bfloat16, torch.float32),
+    "H5": (torch.bfloat16, torch.float32),
     "H6-decode": (torch.bfloat16, torch.float32),
     "H6-extend": (torch.bfloat16, torch.float32),
 }
 _DTYPE_WORD = {torch.bfloat16: "bf16", torch.float32: "f32"}
-# the ROADMAP.md item that ports f32 to a kernel that refuses it
-F32_ROADMAP_ITEM = {
-    "H4-kvq": "ROADMAP.md B2c (H4-kvq's f32 q, H5 at f32)",
-    "H5": "ROADMAP.md B2c (H4-kvq's f32 q, H5 at f32)",
-}
 
 
 def kernel_dtype(kernel: str, *tensors: torch.Tensor) -> torch.dtype:
     """The dtype ``kernel`` (a key of :data:`KERNEL_DTYPES`) runs
     ``tensors`` at: their one dtype, where the kernel takes it.  Raises
-    ``TypeError`` otherwise, naming what the kernel takes and, for f32 that
-    it does not take yet, the ROADMAP item that ports it.  Device-free: the
-    rule is the same on the CPU, where the plain versions take any float."""
+    ``TypeError`` otherwise, naming what the kernel takes.  Device-free:
+    the rule is the same on the CPU, where the plain versions take any
+    float."""
     dtypes = {t.dtype for t in tensors}
     takes = KERNEL_DTYPES[kernel]
     names = " or ".join(_DTYPE_WORD[dt] for dt in takes)
@@ -389,10 +385,7 @@ def kernel_dtype(kernel: str, *tensors: torch.Tensor) -> torch.dtype:
                         f"{sorted(str(dt) for dt in dtypes)}")
     (dtype,) = dtypes
     if dtype not in takes:
-        pending = (f"; f32 is still to port: {F32_ROADMAP_ITEM[kernel]}"
-                   if dtype == torch.float32 and kernel in F32_ROADMAP_ITEM
-                   else "")
-        raise TypeError(f"{kernel} takes {names}, got {dtype}{pending}")
+        raise TypeError(f"{kernel} takes {names}, got {dtype}")
     return dtype
 
 

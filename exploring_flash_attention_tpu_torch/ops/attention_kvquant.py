@@ -3,9 +3,11 @@
 Counterpart of ``flash_attention_kvquant`` (``ops/attention_kvquant.py:176``)
 in the JAX package, which picks between two TPU kernels (B16 streaming, B17
 one pass) by a VMEM rule.  Here a call is one launch of H4-kvq
-(``csrc/kvquant_attention.cu``).  Q is bf16 (any float dtype on the CPU);
-K and V are int8 or e4m3 :class:`~.quant.QuantizedTensor`s with one scale
-per ``block`` keys.  Layout [B, H, L, d], non-causal, no GQA.
+(``csrc/kvquant_attention.cu``).  Q is bf16 or f32 (any float dtype on
+the CPU); K and V are int8 or e4m3 :class:`~.quant.QuantizedTensor`s with
+one scale per ``block`` keys.  Layout [B, H, L, d], non-causal, no GQA.
+f32 q runs on the kernel's f32 form, as B16 and B17 compute in q's dtype:
+the codes exact, q and P * v_scale each three bf16 pieces (bf16x3).
 """
 
 from __future__ import annotations
@@ -60,8 +62,9 @@ def flash_attention_kvquant(
     the JAX package's place and not read: H4-kvq fixes its own tiles.
 
     CPU tensors take :func:`attention_kvquant_plain`.  CUDA tensors launch
-    H4-kvq once per call, or raise: it takes contiguous bf16 q with d in
-    {64, 128}, K and V both int8 or both e4m3, and writes bf16 or f32 O.
+    H4-kvq once per call, or raise: it takes contiguous bf16 or f32 q
+    (``ops.attention.KERNEL_DTYPES``) with d in {64, 128}, K and V both
+    int8 or both e4m3, and writes bf16 or f32 O.
     ``flash_attention_kvquant.launches`` counts kernel launches."""
     b, h, lq, d = q.shape
     lkv = k_q.values.shape[2]
@@ -75,7 +78,7 @@ def flash_attention_kvquant(
     out_dtype = out_dtype or q.dtype
     if q.device.type == "cpu":
         return attention_kvquant_plain(q, k_q, v_q, scale).to(out_dtype)
-    _check_cuda_inputs("H4-kvq", "H4-kvq attention", q)
+    q_dtype = _check_cuda_inputs("H4-kvq", "H4-kvq attention", q)
     check_cuda_quantized("H4-kvq attention", q.device,
                          (torch.int8, FP8_DTYPE), k_q, v_q)
     if d not in H4_HEAD_DIMS or lq == 0 or lkv == 0:
@@ -88,7 +91,8 @@ def flash_attention_kvquant(
         q.data_ptr(), k_q.values.data_ptr(), v_q.values.data_ptr(),
         k_q.scales.data_ptr(), v_q.scales.data_ptr(), o.data_ptr(), b, h, lq,
         lkv, d, block, k_q.scales.shape[2], KV_KIND[k_q.dtype],
-        int(out_dtype == torch.float32), scale * LOG2E, q.device.index,
+        int(out_dtype == torch.float32), scale * LOG2E,
+        int(q_dtype == torch.float32), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(err, "H4-kvq attention")
     flash_attention_kvquant.launches += 1

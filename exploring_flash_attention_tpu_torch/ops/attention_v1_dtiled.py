@@ -8,6 +8,10 @@ chunk into a full-width f32 O.  Here a call is one launch of H5
 columns.  K and V are bf16, or both int8 or e4m3
 :class:`~.quant.QuantizedTensor`s, whose K scale folds into the softmax
 constant and whose V scale rides P.  Layout [B, H, L, d], non-causal.
+f32 q (with f32 K and V, or quantized ones) runs on the kernel's f32
+form, as B19 computes at HIGHEST: f32 operands split into three bf16
+pieces, bf16x6 on both products (bf16x3 against exact codes), Q streamed
+a d-chunk at a time beside K.
 """
 
 from __future__ import annotations
@@ -69,13 +73,13 @@ def flash_attention_v1_dtiled(
     the kernel masks ragged L and reads the scales per key,
     ``scales[key // block]``.  ``config`` is taken at the JAX package's
     place, with its default, and not read: H5 fixes its tiles (64 Q rows,
-    64-key tiles, 128-column d chunks) from d.
+    64-key tiles, 32 at f32, 128-column d chunks) from d.
 
     CPU tensors take :func:`attention_dtiled_plain`.  CUDA tensors launch
-    H5 once per call, or raise: it takes contiguous bf16 q (and bf16 K/V
-    unless quantized) with d a multiple of 128 up to 512, and writes bf16
-    or f32 O.  ``flash_attention_v1_dtiled.launches`` counts kernel
-    launches."""
+    H5 once per call, or raise: it takes contiguous bf16 or f32 q (and K/V
+    of q's dtype unless quantized; ``ops.attention.KERNEL_DTYPES``) with d
+    a multiple of 128 up to 512, and writes bf16 or f32 O.
+    ``flash_attention_v1_dtiled.launches`` counts kernel launches."""
     quantized = isinstance(k, QuantizedTensor)
     if quantized != isinstance(v, QuantizedTensor):
         raise ValueError("quantize both k and v or neither")
@@ -92,12 +96,12 @@ def flash_attention_v1_dtiled(
     if q.device.type == "cpu":
         return attention_dtiled_plain(q, k, v, scale).to(out_dtype)
     if quantized:
-        _check_cuda_inputs("H5", "H5 attention", q)
+        q_dtype = _check_cuda_inputs("H5", "H5 attention", q)
         check_cuda_quantized("H5 attention", q.device,
                              (torch.int8, FP8_DTYPE), k, v)
         ks, vs, n_blocks = k.scales, v.scales, k.scales.shape[2]
     else:
-        _check_cuda_inputs("H5", "H5 attention", q, k, v)
+        q_dtype = _check_cuda_inputs("H5", "H5 attention", q, k, v)
         ks = vs = None
         n_blocks = 0
     if d % H5_D_CHUNK or d > H5_MAX_D or lq == 0 or lkv == 0:
@@ -111,8 +115,9 @@ def flash_attention_v1_dtiled(
         q.data_ptr(), kv.data_ptr(), vv.data_ptr(),
         ks.data_ptr() if quantized else None,
         vs.data_ptr() if quantized else None, o.data_ptr(), b, h, lq, lkv, d,
-        block, n_blocks, KV_KIND[kv.dtype], int(out_dtype == torch.float32),
-        scale * LOG2E, q.device.index,
+        block, n_blocks, KV_KIND[kv.dtype] if quantized else 0,
+        int(out_dtype == torch.float32), scale * LOG2E,
+        int(q_dtype == torch.float32), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(err, "H5 attention")
     flash_attention_v1_dtiled.launches += 1

@@ -232,8 +232,8 @@ def autotune_dtiled(
     """A TileConfig for ``flash_attention_v1_dtiled`` (k/v may be
     QuantizedTensor), cached as the other tuners' winners are.
 
-    H5 fixes its own tiles from d (64 Q rows, 64-key tiles, 128-column d
-    chunks) and reads no field of the config, so every candidate runs the
+    H5 fixes its own tiles from d (64 Q rows, 64-key tiles, 32 at f32,
+    128-column d chunks) and reads no field of the config, so every candidate runs the
     same kernel and timing them would rank noise: this returns the first
     candidate that runs (``iters`` is taken for the JAX signature and not
     read).  The key keeps quantized K/V apart from bf16, as JAX's does."""

@@ -31,7 +31,8 @@ FAMILIES = ("prefill_attention_f32_kernel", "prefill_attention_kernel",
             "paged_extend_f32_kernel", "paged_extend_kernel",
             "attention_bwd_dkv_f32_kernel", "attention_bwd_dq_f32_kernel",
             "attention_bwd_dkv_kernel", "attention_bwd_dq_kernel",
-            "kvquant_attention_kernel", "int8_attention_kernel",
+            "kvquant_attention_f32_kernel", "kvquant_attention_kernel",
+            "int8_attention_kernel", "dtiled_attention_f32_kernel",
             "dtiled_attention_kernel")
 _DUMP = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
          "from exploring_flash_attention_tpu_torch import kernels; "
@@ -46,12 +47,15 @@ def sass(root: Path) -> dict:
 
 
 def instructions(text: str) -> list:
-    """A function's SASS lines without their addresses, up to the dots that
-    end it (cuobjdump prints the next section's header after the last
-    function of an object), and without the NOPs that pad its end."""
+    """A function's SASS lines without their addresses and with their
+    spaces collapsed (cuobjdump pads each line to the widest instruction of
+    its object, which a new function in the same file can widen), up to
+    the dots that end it (cuobjdump prints the next section's header after
+    the last function of an object), and without the NOPs that pad its
+    end."""
     lines = []
     for ln in text.splitlines():
-        ln = re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).strip()
+        ln = " ".join(re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).split())
         if ln.startswith(".."):
             break
         if ln:

@@ -53,7 +53,6 @@ from exploring_flash_attention_tpu_torch.models import (
     params_from_jax,
 )
 from exploring_flash_attention_tpu_torch.ops.attention import (
-    F32_ROADMAP_ITEM,
     KERNEL_DTYPES,
     LOG2E,
     flash_attention,
@@ -447,21 +446,17 @@ DTYPES = [torch.bfloat16, torch.float32, torch.float16, torch.float64]
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("kernel", sorted(KERNEL_DTYPES))
 def test_kernel_dtype_rule(kernel, dtype):
-    """Which dtypes each kernel takes on the card: bf16 everywhere, f32 on
-    H1, H3 and the paged pair; f16 and f64 nowhere; an f32 refusal (H4-kvq
-    and H5) names the ROADMAP item that ports it, B2c."""
+    """Which dtypes each kernel takes on the card: bf16 and f32 everywhere
+    (H4-kvq and H5 since ROADMAP B2c; H3 past d=128 refuses f32 in its own
+    wrapper, ROADMAP B2b-256); f16 and f64 nowhere, with a refusal that
+    names what the kernel takes."""
     x = torch.zeros(2, dtype=dtype)
-    takes_f32 = kernel in ("H1", "H3-dkv", "H3-dq", "H6-decode", "H6-extend")
-    if dtype == torch.bfloat16 or (dtype == torch.float32 and takes_f32):
+    if dtype in (torch.bfloat16, torch.float32):
         assert kernel_dtype(kernel, x, x) == dtype
         return
-    with pytest.raises(TypeError, match="bf16") as err:
+    with pytest.raises(TypeError, match="bf16 or f32") as err:
         kernel_dtype(kernel, x, x)
-    if dtype == torch.float32:
-        assert F32_ROADMAP_ITEM[kernel] in str(err.value)
-        assert "ROADMAP.md B2c" in str(err.value)
-    else:
-        assert "still to port" not in str(err.value)
+    assert str(dtype) in str(err.value)
 
 
 def test_kernel_dtype_rule_takes_one_dtype():

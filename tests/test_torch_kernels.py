@@ -53,7 +53,10 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
   the plain f32 backward.  Each beside the same inputs rounded to bf16
   through the bf16 kernel, which must read beyond the limit
   (``tests/test_torch_f32.py`` and ``tests/test_torch_bwd_f32.py``
-  rehearse both on the CPU).
+  rehearse both on the CPU).  H4-kvq with f32 q and H5 with f32 inputs
+  (bf16x3 against the codes, bf16x6 on f32 K/V) within 2e-5 of an f64 run
+  of the plain version and of the plain f32 version, the JAX tests' tier
+  (``tests/test_torch_f32_ops.py`` rehearses both).
 - H5 vs plain and the oracle: 4e-3 abs on f32 O (p * v_scale rounded to
   bf16 per 64-key tile, as B19 does; a CPU emulation reads <= 9.5e-4 on a
   head or two, ``tests/test_torch_dtiled.py``, an H100 1.32e-3 over 32
@@ -1208,8 +1211,8 @@ def test_kvquant_kernel_refuses_what_it_cannot_take(cuda_device):
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 64)
     kq, vq = quantize_int8(k, 64), quantize_int8(v, 64)
     before = flash_attention_kvquant.launches
-    with pytest.raises(TypeError, match="bf16"):
-        flash_attention_kvquant(q.float(), kq, vq)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        flash_attention_kvquant(q.half(), kq, vq)
     with pytest.raises(TypeError, match="dtype"):
         flash_attention_kvquant(q, kq, quantize_fp8(v, 64))
     cpu = QuantizedTensor(kq.values.cpu(), kq.scales.cpu(), kq.block)
@@ -1321,8 +1324,10 @@ def test_dtiled_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="multiple of 128"):
         flash_attention_v1_dtiled(q, k, v)
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 256)
-    with pytest.raises(TypeError, match="bf16"):
-        flash_attention_v1_dtiled(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        flash_attention_v1_dtiled(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention_v1_dtiled(q.float(), k, v)
     assert flash_attention_v1_dtiled.launches == before
 
 
@@ -2007,3 +2012,56 @@ def test_train_step_trains_an_f32_model(cuda_device):
         losses.append(step(params, opt, tokens).item())
         assert [fn.launches - n for fn, n in zip(counted, before)] == [2] * 3
     assert losses[2] < losses[1] < losses[0]
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("lq,lkv,d,block", [
+    (256, 256, 128, 128),         # tests/test_quant.py:54's shape
+    (200, 1100, 128, 100),        # ragged Q and KV, a ragged last block
+    (130, 300, 64, 48),           # d=64, blocks that split the 32-key tiles
+])
+def test_kvquant_f32_matches_plain(cuda_device, kind, lq, lkv, d, block):
+    """H4-kvq with f32 q: one launch of its f32 form, f32 O within 2e-5
+    of the plain f32 version and of its f64 run."""
+    q, k, v = _f32_qkv(cuda_device, 2, 4, 4, lq, lkv, d, seed=24)
+    kq, vq = QUANT[kind](k, block), QUANT[kind](v, block)
+    before = flash_attention_kvquant.launches
+    o = flash_attention_kvquant(q, kq, vq)
+    torch.cuda.synchronize()
+    assert flash_attention_kvquant.launches == before + 1
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    scale = 1.0 / math.sqrt(d)
+    assert _max_err(o, attention_kvquant_plain(q, kq, vq, scale)) <= F32_TOL
+    assert _max_err(o, attention_kvquant_plain(q.double(), kq, vq,
+                                               scale)) <= F32_TOL
+    assert flash_attention_kvquant(
+        q, kq, vq, out_dtype=torch.bfloat16).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8", "fp8"])
+@pytest.mark.parametrize("lq,lkv,d,block", [
+    (256, 256, 512, 128),
+    # Lq and Lkv off the 64-row and 32-key tiles, at every warpgroup count
+    (100, 130, 128, 64),
+    (65, 191, 256, 48),
+    (70, 150, 384, 64),
+    (130, 200, 512, 100),
+])
+def test_dtiled_f32_matches_plain(cuda_device, kind, lq, lkv, d, block):
+    """H5 with f32 q (and f32 K/V, or int8 or e4m3 ones): one launch of
+    its f32 form, f32 O within 2e-5 of the plain f32 version and of its
+    f64 run."""
+    q, k, v = _f32_qkv(cuda_device, 1, 2, 2, lq, lkv, d, seed=25)
+    if kind != "f32":
+        k, v = QUANT[kind](k, block), QUANT[kind](v, block)
+    before = flash_attention_v1_dtiled.launches
+    o = flash_attention_v1_dtiled(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_v1_dtiled.launches == before + 1
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    scale = 1.0 / math.sqrt(d)
+    q64 = q.double()
+    k64, v64 = (k.double(), v.double()) if kind == "f32" else (k, v)
+    assert _max_err(o, attention_dtiled_plain(q, k, v, scale)) <= F32_TOL
+    assert _max_err(o, attention_dtiled_plain(q64, k64, v64,
+                                              scale)) <= F32_TOL

@@ -290,23 +290,31 @@ Phases, one line each; any failure exits non-zero before the last line:
    against the full forward), and its full forward's logits within 1e-4
    of max|logits| of an all-plain f32 forward on the card, beside the
    forward with attention's q, k, v rounded to bf16.
-25. f32_train (after train): training at f32.  H3-dkv and H3-dq with f32
-   q, k, v and dO (their f32 kernels, bf16x6 on wgmma, P and dS kept f32)
-   through flash_attention_bwd, each call one counted launch of each,
+25. f32_train (after train and heads_train): training at f32.  H3-dkv
+   and H3-dq with f32 q, k, v and dO (their f32 kernels, bf16x6 on wgmma,
+   P and dS kept f32; at d 144-256 the D=256 instance, a cluster of two
+   blocks that split the columns and add their partials of S and dP
+   through distributed shared memory; the most clusters active at once
+   printed) through flash_attention_bwd, each call one counted launch of
+   each,
    with H1 f32's residuals, against f64 autograd of the plain forward on
    the card: max|g - g64| <= 1e-4 max|g64| per gradient (the rtol of
    tests/test_attention_bwd.py:180) at the f32 flagship's train shape
    (B=8, Hq=8, Hkv=4, L=1024, d=128; causal and no mask), BWD_SHAPES'
-   ragged shape and BWD_CROSS, d 16, 64 and 80 (under no mask, causal and
-   a window of 100), the windowed model's shape (B=1, L=32768, window
-   4096; the f64 reference block by block over the bands) and traced
-   offsets at d 80 and 128 (bitwise their static launch).  Two known-wrong
+   ragged shape and BWD_CROSS, d 16, 64, 80 and 144 (under no mask,
+   causal and a window of 100), heads256's train shape (B=8, Hq=4, Hkv=1,
+   L=1024, d=256; causal and no mask), the windowed model's shape (B=1,
+   L=32768, window 4096; the f64 reference block by block over the bands)
+   and traced offsets at d 80, 128 and 256 (bitwise their static
+   launch).  Two known-wrong
    controls must read beyond the limit in every case: the bf16 kernels on
    the inputs rounded to bf16, and the plain f32 backward with P and dS
    rounded to bf16.  H3 f32 timed at the train shape (causal, no mask)
    beside the plain f32 backward, SDPA's f32 backward (TF32 off) and the
-   bound (six bf16 piece products a product at 989 TFLOP/s), and at the
-   windowed shape.  Then the flagship at dtype=torch.float32 trained as
+   bound (six bf16 piece products a product at 989 TFLOP/s), at heads256's
+   train shape (the same, with the SDPA backends that take its f32
+   backward and the kernels of the default's), and at the windowed
+   shape.  Then the flagship at dtype=torch.float32 trained as
    the train phase trains it (H1, H3-dkv and H3-dq 4 launches a step, the
    loss falling over 5 AdamW steps, the step-0 loss within 2e-5 and every
    leaf's gradient within 1e-4 of its norm of the all-plain f32 step;
@@ -317,7 +325,10 @@ Phases, one line each; any failure exits non-zero before the last line:
    plain backward in H3's place, the whole path shown beside, as
    heads_train holds heads256's encoder) and the sharded step at
    MeshConfig(1, 1, 1) (the ring's hop at traced offsets) at f32, each
-   at the same limits.
+   at the same limits.  Then heads256 at dtype=torch.float32 through the
+   same train step, encoder step and sharded step at the same limits, its
+   training tokens/s beside heads256's bf16 reading of the heads_train
+   phase.
 
 ``python3 chip_smoke.py --only PHASE,...`` runs the build and the named
 phases alone (no kernels line), for a quicker call while a phase is
@@ -665,9 +676,10 @@ WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 4,
                    # exact and bound statistics
                    "prefill_attention_f32_kernel": 6,
                    "paged_extend_f32_kernel": 3,
-                   # H3 at f32 (bf16x6): D 64 and 128
-                   "attention_bwd_dkv_f32_kernel": 2,
-                   "attention_bwd_dq_f32_kernel": 2}
+                   # H3 at f32 (bf16x6): D 64, 128 and 256 (a cluster
+                   # of two blocks)
+                   "attention_bwd_dkv_f32_kernel": 3,
+                   "attention_bwd_dq_f32_kernel": 3}
 H2_FUNCTIONS = 16              # one instance per d, 16 to 256 by 16
 
 
@@ -3508,8 +3520,8 @@ def phase_seq2seq(torch, dev):
 
 def h3_instance(d, f32=False):
     """H3's instance for head dim d: the smallest of 32, 64, 128, 256 at or
-    above it; at f32 of 64 and 128."""
-    return next(x for x in ((64, 128) if f32 else (32, 64, 128, 256))
+    above it; at f32 of 64, 128 and 256."""
+    return next(x for x in ((64, 128, 256) if f32 else (32, 64, 128, 256))
                 if d <= x)
 
 
@@ -3523,10 +3535,12 @@ def h3_times(torch, q, k, v, do, causal):
     calls); each kernel's bound at the true d (8 d flops a visible pair
     for H3-dkv, 6 d for H3-dq, or each input read and output written
     once), and the tensor-core work its instance runs for the same pairs
-    (the padded columns, (D - d) / D, and at D=256 the S and dP products
-    that both warpgroups compute) over the true d's.  At f32 inputs the
-    bound counts the f32 kernels' six bf16 piece products a product, the
-    bytes four a value, and SDPA's backward runs at f32 (TF32 off)."""
+    (the padded columns, (D - d) / D, and at bf16's D=256 the S and dP
+    products that both warpgroups compute) over the true d's.  At f32
+    inputs the bound counts the f32 kernels' six bf16 piece products a
+    product, the bytes four a value, and SDPA's backward runs at f32 (TF32
+    off); the f32 D=256 instance, a cluster of two blocks that split the
+    columns, computes no product twice."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from exploring_flash_attention_tpu_torch.ops import (
@@ -3558,14 +3572,15 @@ def h3_times(torch, q, k, v, do, causal):
     q_bytes, kv_bytes = b * hq * l * d * es, b * hkv * l * d * es
     row_bytes = b * hq * l * 4
     big = h3_instance(d, f32)
+    twice = big == 256 and not f32     # S and dP in both warpgroups
     t = {"h3dkv": {"ms": time_cuda(lambda: attention_bwd_dkv(
              q, k, v, do, lse, delta, s, causal, 0), n_iter=20),
              "plain_ms": plain, "library_ms": lib,
-             "instance_work_ratio": big / d * (1.5 if big == 256 else 1)},
+             "instance_work_ratio": big / d * (1.5 if twice else 1)},
          "h3dq": {"ms": time_cuda(lambda: attention_bwd_dq(
              q, k, v, do, lse, delta, s, causal, 0), n_iter=20),
              "plain_ms": plain, "library_ms": lib,
-             "instance_work_ratio": big / d * (5 / 3 if big == 256 else 1)}}
+             "instance_work_ratio": big / d * (5 / 3 if twice else 1)}}
     t["h3dkv"]["bound_ms"], t["h3dkv"]["bound_by"] = roofline(
         terms * 8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)
     t["h3dq"]["bound_ms"], t["h3dq"]["bound_by"] = roofline(
@@ -5736,15 +5751,19 @@ F32_GRAD_REL_TOL = 1e-4
 H3_F32_TERMS = 6               # bf16 piece products an f32 product (bf16x6)
 # (B, Hq, Hkv, Lq, Lkv, d, masks) of the H3 f32 checks: the f32 flagship's
 # train step (causal) and encoder step (no mask), BWD_SHAPES' ragged case,
-# the seq2seq cross attention, and d 16, 64 (D = d) and 80 (D=128 on
-# zero-filled columns)
+# the seq2seq cross attention, d 16, 64 (D = d) and 80 (D=128 on
+# zero-filled columns), d 144 (the D=256 cluster's second block on 16
+# real columns) and heads256's train and encoder steps (d = D = 256; its
+# resident KV rows sum over 4 x 1024 q rows)
 F32_BWD_CASES = [(8, 8, 4, 1024, 1024, 128, ("causal", "none")),
                  (*BWD_SHAPES[1], tuple(BWD_MASKS)),
                  (*BWD_CROSS, tuple(BWD_MASKS)),
                  (2, 16, 1, 1000, 1100, 16, tuple(BWD_MASKS)),
                  (2, 8, 4, 1024, 1024, 64, tuple(BWD_MASKS)),
-                 (2, 16, 1, 1000, 1100, 80, tuple(BWD_MASKS))]
-F32_TRACED_DIMS = (80, 128)    # H3 f32 at HEADS_TRACED's offsets
+                 (2, 16, 1, 1000, 1100, 80, tuple(BWD_MASKS)),
+                 (2, 16, 1, 1000, 1100, 144, tuple(BWD_MASKS)),
+                 (8, 4, 1, 1024, 1024, 256, ("causal", "none"))]
+F32_TRACED_DIMS = (80, 128, 256)   # H3 f32 at HEADS_TRACED's offsets
 
 
 def _rel64(got, ref) -> float:
@@ -5956,12 +5975,139 @@ def f32_h3_window_times(torch, dev):
     return t
 
 
-def phase_f32_train(torch, dev, bf16_train=None):
+def f32_h3_clusters(torch, dev):
+    """The most clusters of H3's f32 D=256 instance (two blocks of 225.5
+    KB each, one block an SM) active at once on the card, per kernel."""
+    from exploring_flash_attention_tpu_torch import kernels
+
+    lib = kernels.library()
+    out = {k: lib.eft_attention_bwd_f32_clusters(i, dev.index)
+           for i, k in enumerate(("h3dkv", "h3dq"))}
+    print(f"  f32 H3 D=256 (clusters of two blocks): at most "
+          f"{out['h3dkv']} H3-dkv and {out['h3dq']} H3-dq clusters active "
+          f"at once (cudaOccupancyMaxActiveClusters) on "
+          f"{torch.cuda.get_device_properties(dev).multi_processor_count} "
+          f"SMs")
+    _require(min(out.values()) > 0, "the cluster instance cannot run")
+    return out
+
+
+def f32_h3_same_work(torch, dev):
+    """H3 f32's D=128 instance on the work each block of the D=256
+    cluster does at heads256's shape, without the exchange: at B=8 Hq=8
+    Hkv=2 L=1024 d=128 H3-dkv runs 256 blocks of 64 KV rows over 4 q
+    heads and H3-dq 1024 blocks of 64 Q rows, each over 128 columns, as
+    the clusters' blocks do.  CUDA-event medians, causal and no mask."""
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    q, k, v, do = f32_inputs_do(torch, dev, 8, 8, 2, 1024, 1024, 128,
+                                seed=20)
+    s = 1.0 / math.sqrt(128)
+    out = {}
+    for causal in (True, False):
+        o, lse = prefill_attention(q, k, v, s, 0, causal)
+        delta = (do * o).sum(dim=-1)
+        out["causal" if causal else "none"] = {
+            "h3dkv": time_cuda(lambda: attention_bwd_dkv(
+                q, k, v, do, lse, delta, s, causal, 0), n_iter=20),
+            "h3dq": time_cuda(lambda: attention_bwd_dq(
+                q, k, v, do, lse, delta, s, causal, 0), n_iter=20)}
+    print("  f32 H3 D=128 on the per-block work of heads256's D=256 "
+          "clusters, without the exchange (B=8 Hq=8 Hkv=2 L=1024 d=128): "
+          + "; ".join(f"{m} H3-dkv {t['h3dkv']:.4f} ms, H3-dq "
+                      f"{t['h3dq']:.4f} ms" for m, t in out.items()))
+    return out
+
+
+def sdpa_f32_backend(torch, q, k, v, do, causal):
+    """SDPA's f32 backward at q's shape (TF32 off): which backends take it,
+    each tried alone under sdpa_kernel, and the kernels the dispatcher's
+    own pick launches (torch.profiler), the longest first."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from torch.profiler import ProfilerActivity, profile
+
+    g = q.shape[1] // k.shape[1]
+    leaves = [x.detach().clone().requires_grad_() for x in (
+        q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1))]
+
+    def run():
+        o = sdpa(*leaves, is_causal=causal)
+        torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+
+    takes = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                run()
+            takes.append(backend.name)
+        except RuntimeError:
+            pass
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    kern = sorted((e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"
+                   and not e.is_user_annotation),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    top = [e.key[:90] for e in kern[:3]]
+    print(f"  SDPA's f32 backward at B={q.shape[0]} Hq={q.shape[1]} "
+          f"L={q.shape[2]} d={q.shape[3]} (is_causal={causal}): backends "
+          f"that take it alone {takes}; the default's longest kernels {top}")
+    return {"takes": takes, "default_kernels": top}
+
+
+def f32_heads256_train(torch, dev, bf16_heads=None):
+    """heads256 (HEADS_MODELS) at dtype=torch.float32, trained as the f32
+    flagship is: make_train_step (H1 f32 and H3's f32 D=256 instance, 4
+    launches each a step; the step-0 loss and gradients against the
+    all-plain f32 step beside the controls; the loss falling over 5 AdamW
+    steps; tokens/s beside ``bf16_heads``, the heads_train phase's heads256
+    reading of this run), its encoder step (the gradients against the
+    plain backward in H3's place) and its sharded step at
+    MeshConfig(1, 1, 1)."""
+    f32 = dict(dtype=torch.float32)
+    tols = dict(loss_tol=F32_TRAIN_LOSS_TOL, grad_tol=F32_GRAD_REL_TOL)
+    geo = {k: x for k, x in HEADS_MODELS["heads256"].items()
+           if k != "page_size"}
+    counts, tok_s, checks = phase_train(
+        torch, dev, "heads256 f32 train", bwd_control=(
+            bf16_h3_bwd, "H3's bf16 kernels on bf16-rounded q, k, v, dO"),
+        **tols, **f32, **geo)
+    m = {"train_launches": counts, "tokens_s": tok_s, **checks}
+    m["encoder_launches"], m["encoder_tokens_s"] = phase_encoder(
+        torch, dev, "heads256 f32 encoder", bwd_ref=True, **tols, **f32,
+        **geo)
+    m["sharded"] = sharded_train_check(torch, dev, "heads256 f32", **tols,
+                                       **f32, **geo)
+    beside = ""
+    if bf16_heads is not None:
+        m["bf16_tokens_s"] = bf16_heads
+        beside = (f"; heads256 at bf16 in this run {bf16_heads:.1f} "
+                  f"({tok_s / bf16_heads:.3f}x)")
+    print(f"  heads256 f32 training {tok_s:.1f} tokens/s{beside}; launches "
+          f"a step H1 {counts['h1']}, H3-dkv {counts['h3dkv']}, H3-dq "
+          f"{counts['h3dq']}; on {card_line()}")
+    return m
+
+
+def phase_f32_train(torch, dev, bf16_train=None, bf16_heads=None):
     """Training at f32 (module comment above); ``bf16_train``: the train
     phase's return of this run (launches, tokens/s, readings), beside
-    which the f32 flagship's are set."""
+    which the f32 flagship's are set; ``bf16_heads``: heads256's training
+    tokens/s in the heads_train phase of this run."""
     t0 = time.perf_counter()
-    out = {"checks": f32_h3_checks(torch, dev)}
+    out = {"checks": f32_h3_checks(torch, dev),
+           "clusters": f32_h3_clusters(torch, dev)}
     gen = torch.Generator().manual_seed(18)
     q, k, v, do = (torch.randn(*s, generator=gen).to(dev) for s in (
         (8, 8, 1024, 128), (8, 4, 1024, 128), (8, 4, 1024, 128),
@@ -5971,7 +6117,17 @@ def phase_f32_train(torch, dev, bf16_train=None):
                                                              do, c)
                        for c in (True, False)},
                     "window_train_shape": f32_h3_window_times(torch, dev)}
+    q, k, v, do = (torch.randn(*s, generator=gen).to(dev) for s in (
+        (8, 4, 1024, 256), (8, 1, 1024, 256), (8, 1, 1024, 256),
+        (8, 4, 1024, 256)))
+    out["times_heads256"] = {
+        "shape": "B=8 Hq=4 Hkv=1 L=1024 d=256 (heads256)",
+        **{("causal" if c else "none"): h3_times(torch, q, k, v, do, c)
+           for c in (True, False)},
+        "sdpa_backend": {("causal" if c else "none"): sdpa_f32_backend(
+            torch, q, k, v, do, c) for c in (True, False)}}
     del q, k, v, do
+    out["times_heads256"]["same_work_d128"] = f32_h3_same_work(torch, dev)
     f32 = dict(dtype=torch.float32)
     tols = dict(loss_tol=F32_TRAIN_LOSS_TOL, grad_tol=F32_GRAD_REL_TOL)
     counts, tok_s, checks = phase_train(
@@ -6001,6 +6157,7 @@ def phase_f32_train(torch, dev, bf16_train=None):
     print(f"  f32 flagship training {tok_s:.1f} tokens/s{beside}; launches "
           f"a step H1 {counts['h1']}, H3-dkv {counts['h3dkv']}, H3-dq "
           f"{counts['h3dq']}; on {card_line()}")
+    out["heads256"] = f32_heads256_train(torch, dev, bf16_heads)
     print(f"phase f32_train: ok in {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -6009,9 +6166,17 @@ def f32_train_readings(f32t, kern):
     """The kernels line's f32 readings of H3-dkv or H3-dq (kern h3dkv,
     h3dq)."""
     t, model = f32t["times"], f32t["model"]
+    t256, m256 = f32t["times_heads256"], f32t["heads256"]
     return {**t["causal"][kern], "shape": t["shape"] + " causal",
             "none": t["none"][kern],
             "window_train_shape": t["window_train_shape"][kern],
+            "heads256_shape": {
+                "shape": t256["shape"], "causal": t256["causal"][kern],
+                "none": t256["none"][kern],
+                "sdpa_backend": t256["sdpa_backend"],
+                "same_work_d128_ms": {
+                    m: x[kern] for m, x in t256["same_work_d128"].items()},
+                "max_active_clusters": f32t["clusters"][kern]},
             "max_abs_err_rel": {n: c["rel_err"][kern]
                                 for n, c in f32t["checks"].items()},
             "controls": {n: {"bf16_kernels": c["control_bf16_kernels"][kern],
@@ -6020,11 +6185,21 @@ def f32_train_readings(f32t, kern):
             "launches": {"f32_train_step": model["train_launches"][kern],
                          "f32_encoder_step": model["encoder_launches"][kern],
                          "f32_sharded_train_step":
-                             model["sharded"]["launches"][kern]},
+                             model["sharded"]["launches"][kern],
+                         "f32_heads256_train_step":
+                             m256["train_launches"][kern],
+                         "f32_heads256_encoder_step":
+                             m256["encoder_launches"][kern],
+                         "f32_heads256_sharded_train_step":
+                             m256["sharded"]["launches"][kern]},
             "flagship": {k: model[k] for k in (
                 "tokens_s", "loss_err", "loss_control", "grad_err",
                 "grad_control", "losses") + (
-                ("bf16_tokens_s",) if "bf16_tokens_s" in model else ())}}
+                ("bf16_tokens_s",) if "bf16_tokens_s" in model else ())},
+            "heads256": {k: m256[k] for k in (
+                "tokens_s", "encoder_tokens_s", "loss_err", "loss_control",
+                "grad_err", "grad_control", "losses") + (
+                ("bf16_tokens_s",) if "bf16_tokens_s" in m256 else ())}}
 
 
 # The f32_ops phase: H4-kvq with f32 q and H5 with f32 inputs (f32 q over
@@ -6217,14 +6392,14 @@ def f32_ops_entry(f32ops, kern, name, source, replaces, also):
 
 PHASES = ("h1", "v1", "tiles", "v2", "quant", "dtiled", "f32_ops", "decode",
           "extend", "scheduler", "bwd", "slice", "multiturn", "speculative",
-          "heads", "f32", "train", "f32_train", "heads_train", "encoder",
+          "heads", "f32", "train", "heads_train", "f32_train", "encoder",
           "seq2seq", "parallel", "window_train", "window_generate",
           "time_kernels")
 
 
 def run_only(torch, dev, names):
     """Run the named phases alone, in PHASES order (f32_train beside the
-    train phase's readings where both run)."""
+    train and heads_train phases' readings where they run)."""
     lm, done = None, {}
     for name in PHASES:
         if name not in names:
@@ -6235,9 +6410,17 @@ def run_only(torch, dev, names):
             lm = lm or make_flagship(torch, dev)
             fn(torch, dev, lm)
         elif name == "f32_train":
-            fn(torch, dev, done.get("train"))
+            fn(torch, dev, done.get("train"), heads256_tokens_s(
+                done.get("heads_train")))
         else:
             done[name] = fn(torch, dev)
+
+
+def heads256_tokens_s(htrain):
+    """heads256's training tokens/s in a heads_train phase's return (None
+    where the phase did not run)."""
+    return None if htrain is None else (
+        htrain["models"]["heads256"]["tokens_s"])
 
 
 def heads_launches(heads, kern):
@@ -6346,8 +6529,9 @@ def main(argv) -> int:
     f32 = phase_f32(torch, dev, {"launches": launches, "turn2": turn2,
                                  "tokens_s": gen["tokens_s"]})
     train, train_tok_s, train_checks = phase_train(torch, dev)
-    f32t = phase_f32_train(torch, dev, (train, train_tok_s, train_checks))
     htrain = phase_heads_train(torch, dev)
+    f32t = phase_f32_train(torch, dev, (train, train_tok_s, train_checks),
+                           heads256_tokens_s(htrain))
     encoder, _ = phase_encoder(torch, dev)
     s2s = phase_seq2seq(torch, dev)
     par = phase_parallel(torch, dev)
@@ -6527,8 +6711,8 @@ def main(argv) -> int:
         # runs it.  plain_ms is the whole plain backward, and library_ms
         # the whole backward of scaled_dot_product_attention
         *({"name": f"H3-{n} attention backward, {what} (none, causal, "
-                   "window; d a multiple of 16 from 16 to 256; f32 to "
-                   "d=128)",
+                   "window; d a multiple of 16 from 16 to 256, bf16 and "
+                   "f32; f32 d 144-256 on a cluster of two blocks)",
            "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
            "also_replaces": [f"{BWD_PY}:{x}" for x in (281, 377, 112, 205)],
            "launches": train[f"h3{n}"],

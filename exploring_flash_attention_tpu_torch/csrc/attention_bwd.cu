@@ -3,7 +3,8 @@
 // f32 accumulate, bf16 out; every head dim d that is a multiple of 16 from
 // 16 to 256 (ops.attention.HEAD_DIM_RULE), on instances D = 32, 64, 128
 // and 256.  f32 in and out take a second pair of kernels on the f32 core's
-// arithmetic (bf16x6 on wgmma, "f32 inputs" below), d 16 to 128.  A d
+// arithmetic (bf16x6 on wgmma, "f32 inputs" below), d 16 to 256 on
+// instances D = 64, 128 and 256 (a cluster of two blocks).  A d
 // below its instance's D (16 on 32, 48 on 64, 80-112 on 128,
 // 144-240 on 256) is described to TMA with its true d, so the columns of
 // Q, K, V and dO past d land as zeros, which leave S and dP exact, and the
@@ -838,10 +839,30 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // (issue_part_f32).  Registers of a consumer thread at D=128: dK 64 + dV 64
 // + a stage's share 64, S^T 16 + dP^T 16, the pieces of P^T, then of dS^T,
 // 24 (no setmaxnreg: 256 threads may hold 255 each).  Instances D = 64
-// (d 16-64) and 128 (d 80-128).  D = 256 does not fit: the pieces of its
-// 64 resident rows take 192 KB, and the smallest stage (16 rows of Q and
-// dO pieces) 48 KB more, past the 227 KB of shared memory (ROADMAP.md
-// B2b-256).
+// (d 16-64) and 128 (d 80-128).
+//
+// D = 256 (d 144-256) is a cluster of two such blocks that split the
+// columns (wgmma_tile.cuh's cluster helpers).  One block would not fit:
+// the pieces of its 64 resident rows take 192 KB, the smallest stage (16
+// rows of Q and dO pieces) 48 KB more, past the 227 KB of shared memory,
+// and dK and dV over 256 columns 128 + 128 registers a thread.  Block c of
+// a cluster holds columns [128 c, 128 c + 128) of every tile, resident and
+// streamed, and runs the D=128 block's layout and loop on them: both walk
+// the same stages.  S^T and dP^T (S and dP) are sums over the depth, so
+// each block computes its 128 columns' partial (bf16x6, a fresh
+// accumulator) and the two are added in f32 through distributed shared
+// memory: each thread stores its 16 + 16 values into the peer's exchange
+// buffer, arrives on the peer's barrier, waits for the peer's arrivals on
+// its own and adds.  f32 addition of two terms is commutative, so both
+// blocks hold bitwise the same S and dP, and so the same P and dS; then
+// each runs the loop body on its own columns of dV, dK (dQ) and stores
+// them.  No product is computed twice.  Shared memory per block: resident
+// pieces 96 KB, two stages 96 KB, two exchange buffers of 16 KB (the peer
+// writes stage i's partials into buffer i % 2, so a thread's wait of stage
+// i + 1 already follows the peer's reads of stage i - 1's buffer, and one
+// arrival a stage hands a buffer over both ways): 225.5 KB with the
+// statistics and barriers.  The grid is (2 B Hkv, KV tiles) for H3-dkv
+// and (2 B Hq, Q tiles) for H3-dq, a cluster two neighbouring blocks of x.
 
 namespace F = eft::f32;
 
@@ -854,34 +875,42 @@ constexpr int F32_BAR = 1;        // the consumer warpgroup's named barrier
 // Shared memory of an f32 block of instance D: the three pieces of each of
 // the two resident 64-row tiles, then F32_STAGES stages of the three pieces
 // of each of the two streamed 32-row tiles, the stages' per-row statistics
-// (H3-dkv's -lse * log2e and delta), the barriers.  A piece is D / 64
-// boxes of [rows][64] bf16, 128-byte rows and swizzle (Geo<D>'s layout).
+// (H3-dkv's -lse * log2e and delta), at D=256 the two exchange buffers of
+// the peer's S^T and dP^T partials (S and dP), the barriers.  A block
+// holds W of the D columns; a piece is W / 64 boxes of [rows][64] bf16,
+// 128-byte rows and swizzle (Geo<W>'s layout).
 template <int D>
 struct F32Tiles {
-  static_assert(D == 64 || D == 128, "an f32 instance of H3");
-  static constexpr uint32_t RES_PIECE = F32_ROWS * D * 2;
-  static constexpr uint32_t STR_PIECE = F32_STREAM * D * 2;
+  static_assert(D == 64 || D == 128 || D == 256, "an f32 instance of H3");
+  static constexpr int CLUSTER = D == 256 ? 2 : 1;    // blocks of a cluster
+  static constexpr int W = D / CLUSTER;               // columns of a block
+  static constexpr int XBUFS = CLUSTER > 1 ? 2 : 0;   // exchange buffers
+  static constexpr uint32_t RES_PIECE = F32_ROWS * W * 2;
+  static constexpr uint32_t STR_PIECE = F32_STREAM * W * 2;
   static constexpr uint32_t STAGE = 6 * STR_PIECE;
+  static constexpr uint32_t XBUF = 2 * F32_ROWS * F32_STREAM * 4;
   static constexpr size_t res = 0;
   static constexpr size_t str = res + 6 * size_t(RES_PIECE);
   static constexpr size_t stats = str + F32_STAGES * size_t(STAGE);
-  static constexpr size_t bars = stats + F32_STAGES * 2 * F32_STREAM * 4;
-  static constexpr size_t bytes = bars + 8 * 2 * F32_STAGES + 1024;
+  static constexpr size_t xchg = stats + F32_STAGES * 2 * F32_STREAM * 4;
+  static constexpr size_t bars = xchg + XBUFS * size_t(XBUF);
+  static constexpr size_t bytes = bars + 8 * (2 * F32_STAGES + XBUFS) + 1024;
   static_assert(bytes <= 232448, "the block's shared memory");
 };
 
-// Rows [row0, row0 + R) of an f32 [*, d] matrix (zero past n_rows and d)
-// as three pieces at tile, stored by the 128 threads of a warpgroup (t: a
-// thread's index in it)
+// Rows [row0, row0 + R) of an f32 [*, d] matrix, its columns [c0, c0 + D)
+// (zero past n_rows and d), as three pieces at tile, stored by the 128
+// threads of a warpgroup (t: a thread's index in it)
 template <int D, int R>
 __device__ __forceinline__ void put_f32_rows(unsigned char* tile,
                                              const float* src, int row0,
-                                             int n_rows, int d, int t) {
+                                             int n_rows, int d, int c0,
+                                             int t) {
   for (int x = t; x < R * (D / 8); x += 128) {
     const int r = x / (D / 8), ch = x % (D / 8);
     float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
-    if (row0 + r < n_rows && 8 * ch < d) {
-      const float* at = src + size_t(row0 + r) * d + 8 * ch;
+    if (row0 + r < n_rows && c0 + 8 * ch < d) {
+      const float* at = src + size_t(row0 + r) * d + c0 + 8 * ch;
       x0 = *reinterpret_cast<const float4*>(at);
       x1 = *reinterpret_cast<const float4*>(at + 4);
     }
@@ -897,19 +926,20 @@ struct F32Stream {
   float4 a[CH][2], b[CH][2];
 };
 
-// rows [row0, row0 + 32) of a and b ([*, d] each, zero past n_rows and d)
-// into producer thread t's registers
+// rows [row0, row0 + 32), columns [c0, c0 + D) of a and b ([*, d] each,
+// zero past n_rows and d) into producer thread t's registers
 template <int D>
 __device__ __forceinline__ void fetch_stream(F32Stream<D>& x, const float* a,
                                              const float* b, int row0,
-                                             int n_rows, int d, int t) {
+                                             int n_rows, int d, int c0,
+                                             int t) {
 #pragma unroll
   for (int c = 0; c < F32Stream<D>::CH; ++c) {
     const int e = t + 128 * c, r = e / (D / 8), ch = e % (D / 8);
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
     x.a[c][0] = x.a[c][1] = x.b[c][0] = x.b[c][1] = z;
-    if (row0 + r < n_rows && 8 * ch < d) {
-      const size_t at = size_t(row0 + r) * d + 8 * ch;
+    if (row0 + r < n_rows && c0 + 8 * ch < d) {
+      const size_t at = size_t(row0 + r) * d + c0 + 8 * ch;
       x.a[c][0] = *reinterpret_cast<const float4*>(a + at);
       x.a[c][1] = *reinterpret_cast<const float4*>(a + at + 4);
       x.b[c][0] = *reinterpret_cast<const float4*>(b + at);
@@ -1006,22 +1036,65 @@ __device__ __forceinline__ void split_a(const float (&x)[16],
 }
 
 // The two rows this thread owns of an m64nN f32 accumulator (row0 and
-// row0 + 8) at dst + row * d, those below n_rows, their first d columns
+// row0 + 8) as columns [c0, c0 + N) of dst's rows of d, those below n_rows,
+// the columns below d
 template <int N>
 __device__ __forceinline__ void store_rows_f32(const float (&acc)[N / 2],
                                                int row0, int n_rows,
-                                               float* dst, int d) {
+                                               float* dst, int d, int c0) {
   const int col0 = 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= n_rows) continue;
-    float* out = dst + size_t(row) * d;
+    float* out = dst + size_t(row) * d + c0;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
-      if (8 * j < d)
+      if (c0 + 8 * j < d)
         *reinterpret_cast<float2*>(out + 8 * j + col0) =
             make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// S and dP of stage i in a cluster of two (F32Tiles<256>): this block's
+// partials over its columns plus its peer's, the same f32 sums in both.
+// Each thread stores its 16 + 16 values into the peer's exchange buffer i
+// % 2 (16-byte chunk c of thread t at (128 c + t) * 16 bytes: consecutive
+// threads, consecutive chunks), arrives on the peer's barrier of that
+// buffer, waits for the peer's 128 arrivals on its own and adds what the
+// peer stored.  A thread writes a buffer again two stages later, after its
+// wait of the stage between, which the peer's same thread reached after
+// reading it.
+__device__ __forceinline__ void exchange_f32(float (&s)[16], float (&dp)[16],
+                                             unsigned char* xchg,
+                                             uint64_t* xbar, int i) {
+  using T = F32Tiles<256>;
+  const int t = threadIdx.x % 128;
+  const uint32_t peer = cluster_rank() ^ 1;
+  float4* mine = reinterpret_cast<float4*>(xchg + (i % 2) * T::XBUF);
+  const uint32_t theirs = peer_smem(mine, peer);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    st_peer_v4(theirs + (128 * c + t) * 16,
+               make_float4(s[4 * c], s[4 * c + 1], s[4 * c + 2],
+                           s[4 * c + 3]));
+    st_peer_v4(theirs + (128 * (4 + c) + t) * 16,
+               make_float4(dp[4 * c], dp[4 * c + 1], dp[4 * c + 2],
+                           dp[4 * c + 3]));
+  }
+  mbar_arrive_peer(peer_smem(&xbar[i % 2], peer));
+  mbar_wait_cluster(&xbar[i % 2], (i / 2) & 1);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float4 a = mine[128 * c + t], b = mine[128 * (4 + c) + t];
+    s[4 * c] += a.x;
+    s[4 * c + 1] += a.y;
+    s[4 * c + 2] += a.z;
+    s[4 * c + 3] += a.w;
+    dp[4 * c] += b.x;
+    dp[4 * c + 1] += b.y;
+    dp[4 * c + 2] += b.z;
+    dp[4 * c + 3] += b.w;
   }
 }
 
@@ -1091,6 +1164,7 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
                              int mask, int diag_off, int window,
                              const int* __restrict__ offs, float scale) {
   using T = F32Tiles<D>;
+  constexpr int W = T::W;
   constexpr int QT = F32_STREAM;
   if (offs != nullptr) diag_off = offs[0] - offs[1];
   extern __shared__ unsigned char smem_raw[];
@@ -1100,14 +1174,16 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
   float* stats = reinterpret_cast<float*>(smem + T::stats);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bars);
   uint64_t* empty = full + F32_STAGES;
+  uint64_t* xbar = empty + F32_STAGES;          // D=256: the exchange's
 
-  const int bhk = blockIdx.x;                   // b * hkv + KV head
+  const int bhk = blockIdx.x / T::CLUSTER;      // b * hkv + KV head
   const int kv0 = blockIdx.y * F32_ROWS;        // the first tiles first
   const int b = bhk / hkv;
   const int group = hq / hkv;
   const int h0 = (bhk % hkv) * group;           // first q head of the group
   const int warp = threadIdx.x / 32;
   const int t = threadIdx.x % 128;
+  const int c0 = T::CLUSTER > 1 ? W * int(cluster_rank()) : 0;  // columns
 
   // the Q tiles [q_begin, q_end) some row of which sees a key of this
   // block, as attention_bwd_dkv_kernel finds them
@@ -1127,9 +1203,11 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
       mbar_init(&full[s], 128);
       mbar_init(&empty[s], 128);
     }
+    for (int x = 0; x < T::XBUFS; ++x) mbar_init(&xbar[x], 128);
     mbar_init_fence();
   }
-  __syncthreads();
+  if constexpr (T::CLUSTER > 1) cluster_sync();
+  else __syncthreads();
 
   if (warp >= 4) {
     // the producer: stage i holds Q and dO rows [q0, q0 + 32) of q head
@@ -1138,14 +1216,15 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
       const int s = i % F32_STAGES;
       const size_t bh = size_t(b) * hq + h0 + i / n_qt;
       const int q0 = q_begin + (i % n_qt) * QT;
-      F32Stream<D> x;
-      fetch_stream<D>(x, q + bh * lq * d, dout + bh * lq * d, q0, lq, d, t);
+      F32Stream<W> x;
+      fetch_stream<W>(x, q + bh * lq * d, dout + bh * lq * d, q0, lq, d, c0,
+                      t);
       const bool in = t < QT && q0 + t < lq;
       const float nl = in ? neg_lse2(lse[bh * lq + q0 + t]) : -CUDART_INF_F;
       const float dl = in ? delta[bh * lq + q0 + t] : 0.f;
       mbar_wait(&empty[s], ((i / F32_STAGES) & 1) ^ 1);
       unsigned char* st = smem + T::str + s * T::STAGE;
-      put_stream<D>(x, st, st + 3 * T::STR_PIECE, t);
+      put_stream<W>(x, st, st + 3 * T::STR_PIECE, t);
       if (t < QT) {
         stats[s * 2 * QT + t] = nl;
         stats[s * 2 * QT + QT + t] = dl;
@@ -1153,6 +1232,7 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
       fence_proxy_async();
       mbar_arrive(&full[s]);
     }
+    if constexpr (T::CLUSTER > 1) cluster_sync();
     return;
   }
 
@@ -1187,16 +1267,16 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
   };
 
   const size_t kv_at = size_t(bhk) * lkv * d;
-  put_f32_rows<D, F32_ROWS>(sk, k + kv_at, kv0, lkv, d, t);
-  put_f32_rows<D, F32_ROWS>(sv, v + kv_at, kv0, lkv, d, t);
+  put_f32_rows<W, F32_ROWS>(sk, k + kv_at, kv0, lkv, d, c0, t);
+  put_f32_rows<W, F32_ROWS>(sv, v + kv_at, kv0, lkv, d, c0, t);
   fence_proxy_async();
   named_bar_sync(F32_BAR, 128);
 
   // dK and dV summed in f32 adds over the stages, each stage's share a
   // fresh wgmma accumulator (issue_part_f32)
-  float acc_dk[D / 2], acc_dv[D / 2], part[D / 2];
+  float acc_dk[W / 2], acc_dv[W / 2], part[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = part[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc_dk[i] = acc_dv[i] = part[i] = 0.f;
   for (int i = 0; i < n_stages; ++i) {
     const int s = i % F32_STAGES;
     const int q0 = q_begin + (i % n_qt) * QT;
@@ -1209,31 +1289,34 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
     uint32_t pieces[24];
     mbar_wait(&full[s], (i / F32_STAGES) & 1);
     wgmma_fence();
-    issue_abt_f32<D>(acc_s, sk, q_s);                  // S^T
-    issue_abt_f32<D>(acc_dp, sv, do_s);                // dP^T
+    issue_abt_f32<W>(acc_s, sk, q_s);                  // S^T
+    issue_abt_f32<W>(acc_dp, sv, do_s);                // dP^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_s);
     fence_regs(acc_dp);
+    if constexpr (T::CLUSTER > 1)
+      exchange_f32(acc_s, acc_dp, smem + T::xchg, xbar, i);
     dkv_p_ds_f32(acc_s, acc_dp, st, st + QT, is_whole(q0), q0, lo, hi,
                  scale_log2, scale);
     split_a(acc_s, pieces);
     fence_regs(pieces);
     fence_regs(part);
     wgmma_fence();
-    issue_part_f32<D>(part, pieces, do_s);             // P^T dO
+    issue_part_f32<W>(part, pieces, do_s);             // P^T dO
     add_part(acc_dv, part);
     fence_regs(pieces);
     split_a(acc_dp, pieces);
     fence_regs(pieces);
     wgmma_fence();
-    issue_part_f32<D>(part, pieces, q_s);              // dS^T Q
+    issue_part_f32<W>(part, pieces, q_s);              // dS^T Q
     add_part(acc_dk, part);
     fence_regs(pieces);
     mbar_arrive(&empty[s]);
   }
-  store_rows_f32<D>(acc_dk, row0, lkv, dk + kv_at, d);
-  store_rows_f32<D>(acc_dv, row0, lkv, dv + kv_at, d);
+  store_rows_f32<W>(acc_dk, row0, lkv, dk + kv_at, d, c0);
+  store_rows_f32<W>(acc_dv, row0, lkv, dv + kv_at, d, c0);
+  if constexpr (T::CLUSTER > 1) cluster_sync();
 }
 
 template <int D>
@@ -1249,6 +1332,7 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q,      // [B*Hq, Lq, d]
                             int mask, int diag_off, int window,
                             const int* __restrict__ offs, float scale) {
   using T = F32Tiles<D>;
+  constexpr int W = T::W;
   constexpr int KT = F32_STREAM;
   if (offs != nullptr) diag_off = offs[0] - offs[1];
   extern __shared__ unsigned char smem_raw[];
@@ -1257,13 +1341,15 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q,      // [B*Hq, Lq, d]
   unsigned char* sdo = sq + 3 * T::RES_PIECE;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bars);
   uint64_t* empty = full + F32_STAGES;
+  uint64_t* xbar = empty + F32_STAGES;          // D=256: the exchange's
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x / T::CLUSTER;
   const int b = bh / hq;
   const int bhk = b * (hq / group) + (bh % hq) / group;   // GQA KV head
   const int q0 = (gridDim.y - 1 - blockIdx.y) * F32_ROWS; // longest first
   const int warp = threadIdx.x / 32;
   const int t = threadIdx.x % 128;
+  const int c0 = T::CLUSTER > 1 ? W * int(cluster_rank()) : 0;  // columns
 
   // the K/V tiles [kv_begin, kv_end) some row of this block sees, as
   // attention_bwd_dq_kernel finds them
@@ -1283,23 +1369,27 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q,      // [B*Hq, Lq, d]
       mbar_init(&full[s], 128);
       mbar_init(&empty[s], 128);
     }
+    for (int x = 0; x < T::XBUFS; ++x) mbar_init(&xbar[x], 128);
     mbar_init_fence();
   }
-  __syncthreads();
+  if constexpr (T::CLUSTER > 1) cluster_sync();
+  else __syncthreads();
 
   if (warp >= 4) {
     // the producer: tile i holds K and V rows [kv0, kv0 + 32)
     const size_t kv_at = size_t(bhk) * lkv * d;
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % F32_STAGES;
-      F32Stream<D> x;
-      fetch_stream<D>(x, k + kv_at, v + kv_at, kv_begin + i * KT, lkv, d, t);
+      F32Stream<W> x;
+      fetch_stream<W>(x, k + kv_at, v + kv_at, kv_begin + i * KT, lkv, d,
+                      c0, t);
       mbar_wait(&empty[s], ((i / F32_STAGES) & 1) ^ 1);
       unsigned char* st = smem + T::str + s * T::STAGE;
-      put_stream<D>(x, st, st + 3 * T::STR_PIECE, t);
+      put_stream<W>(x, st, st + 3 * T::STR_PIECE, t);
       fence_proxy_async();
       mbar_arrive(&full[s]);
     }
+    if constexpr (T::CLUSTER > 1) cluster_sync();
     return;
   }
 
@@ -1335,16 +1425,16 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q,      // [B*Hq, Lq, d]
     return whole;
   };
 
-  put_f32_rows<D, F32_ROWS>(sq, q + rows * d, q0, lq, d, t);
-  put_f32_rows<D, F32_ROWS>(sdo, dout + rows * d, q0, lq, d, t);
+  put_f32_rows<W, F32_ROWS>(sq, q + rows * d, q0, lq, d, c0, t);
+  put_f32_rows<W, F32_ROWS>(sdo, dout + rows * d, q0, lq, d, c0, t);
   fence_proxy_async();
   named_bar_sync(F32_BAR, 128);
 
   // dQ summed in f32 adds over the tiles, each tile's share a fresh wgmma
   // accumulator (issue_part_f32)
-  float acc_dq[D / 2], part[D / 2];
+  float acc_dq[W / 2], part[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dq[i] = part[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc_dq[i] = part[i] = 0.f;
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % F32_STAGES;
     const int kv0 = kv_begin + i * KT;
@@ -1356,24 +1446,67 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q,      // [B*Hq, Lq, d]
     uint32_t dsa[24];
     mbar_wait(&full[s], (i / F32_STAGES) & 1);
     wgmma_fence();
-    issue_abt_f32<D>(acc_s, sq, k_s);                  // S
-    issue_abt_f32<D>(acc_dp, sdo, v_s);                // dP
+    issue_abt_f32<W>(acc_s, sq, k_s);                  // S
+    issue_abt_f32<W>(acc_dp, sdo, v_s);                // dP
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_s);
     fence_regs(acc_dp);
+    if constexpr (T::CLUSTER > 1)
+      exchange_f32(acc_s, acc_dp, smem + T::xchg, xbar, i);
     dq_p_ds_f32(acc_s, acc_dp, nl, dl, is_whole(kv0), kv0, lo, hi,
                 scale_log2, scale);
     split_a(acc_dp, dsa);
     fence_regs(dsa);
     fence_regs(part);
     wgmma_fence();
-    issue_part_f32<D>(part, dsa, k_s);                 // dS K
+    issue_part_f32<W>(part, dsa, k_s);                 // dS K
     add_part(acc_dq, part);
     fence_regs(dsa);
     mbar_arrive(&empty[s]);
   }
-  store_rows_f32<D>(acc_dq, row0, lq, dq + rows * d, d);
+  store_rows_f32<W>(acc_dq, row0, lq, dq + rows * d, d, c0);
+  if constexpr (T::CLUSTER > 1) cluster_sync();
+}
+
+// The launch of the cluster instance (D=256) over (x heads, y tiles): x *
+// CLUSTER blocks along x, CLUSTER neighbouring ones a cluster.  Used in
+// place (cfg points at cluster).
+struct ClusterLaunch {
+  using T = F32Tiles<256>;
+  cudaLaunchAttribute cluster[1];
+  cudaLaunchConfig_t cfg = {};
+  ClusterLaunch(int x, int y, cudaStream_t stream) {
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = T::CLUSTER;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(x * T::CLUSTER, y);
+    cfg.blockDim = dim3(F32_THREADS);
+    cfg.dynamicSmemBytes = T::bytes;
+    cfg.stream = stream;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The launch of an f32 kernel of instance D over (x heads, y tiles)
+template <int D, class Kernel, class... Args>
+int launch_f32(Kernel kernel, int x, int y, cudaStream_t stream,
+               Args... args) {
+  using T = F32Tiles<D>;
+  if (y > 65535) return int(cudaErrorInvalidValue);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
+  if (attr != cudaSuccess) return int(attr);
+  if constexpr (T::CLUSTER > 1) {
+    ClusterLaunch l(x, y, stream);
+    const cudaError_t err = cudaLaunchKernelEx(&l.cfg, kernel, args...);
+    if (err != cudaSuccess) return int(err);
+  } else {
+    kernel<<<dim3(x, y), F32_THREADS, T::bytes, stream>>>(args...);
+  }
+  return int(cudaGetLastError());
 }
 
 template <int D>
@@ -1382,21 +1515,14 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
                    void* dk, void* dv, int batch, int hq, int hkv, int lq,
                    int lkv, int d, int mask, int diag_off, int window,
                    const int* offs, float scale, cudaStream_t stream) {
-  using T = F32Tiles<D>;
-  if ((lkv + F32_ROWS - 1) / F32_ROWS > 65535)
-    return int(cudaErrorInvalidValue);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      attention_bwd_dkv_f32_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
-  if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(batch * hkv, (lkv + F32_ROWS - 1) / F32_ROWS);
-  attention_bwd_dkv_f32_kernel<D><<<grid, F32_THREADS, T::bytes, stream>>>(
+  return launch_f32<D>(
+      attention_bwd_dkv_f32_kernel<D>, batch * hkv,
+      (lkv + F32_ROWS - 1) / F32_ROWS, stream,
       static_cast<const float*>(q), static_cast<const float*>(dout),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), hq, hkv, lq, lkv, d,
       mask, diag_off, window, offs, scale);
-  return int(cudaGetLastError());
 }
 
 template <int D>
@@ -1405,28 +1531,22 @@ int launch_dq_f32(const void* q, const void* k, const void* v,
                   void* dq, int batch, int hq, int hkv, int lq, int lkv,
                   int d, int mask, int diag_off, int window, const int* offs,
                   float scale, cudaStream_t stream) {
-  using T = F32Tiles<D>;
-  if ((lq + F32_ROWS - 1) / F32_ROWS > 65535)
-    return int(cudaErrorInvalidValue);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      attention_bwd_dq_f32_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
-  if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(batch * hq, (lq + F32_ROWS - 1) / F32_ROWS);
-  attention_bwd_dq_f32_kernel<D><<<grid, F32_THREADS, T::bytes, stream>>>(
+  return launch_f32<D>(
+      attention_bwd_dq_f32_kernel<D>, batch * hq,
+      (lq + F32_ROWS - 1) / F32_ROWS, stream,
       static_cast<const float*>(q), static_cast<const float*>(dout),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq), hq, hq / hkv, lq, lkv, d, mask, diag_off,
       window, offs, scale);
-  return int(cudaGetLastError());
 }
 
-// go(integral_constant<int, D>) on the f32 instance for d (16 to 128)
+// go(integral_constant<int, D>) on the f32 instance for d (16 to 256)
 template <typename Go>
 int by_f32_instance(int d, Go&& go) {
   if (d <= 64) return go(std::integral_constant<int, 64>{});
-  return go(std::integral_constant<int, 128>{});
+  if (d <= 128) return go(std::integral_constant<int, 128>{});
+  return go(std::integral_constant<int, 256>{});
 }
 
 bool bad_args(int batch, int hq, int hkv, int lq, int lkv, int d, int mask,
@@ -1434,7 +1554,7 @@ bool bad_args(int batch, int hq, int hkv, int lq, int lkv, int d, int mask,
   return batch <= 0 || hkv <= 0 || hq % hkv != 0 || lq <= 0 || lkv <= 0 ||
          d < 16 || d > 256 || d % 16 != 0 || mask < MASK_NONE ||
          mask > MASK_WINDOW || (mask == MASK_WINDOW && window < 1) ||
-         (in_f32 != 0 && in_f32 != 1) || (in_f32 && d > 128);
+         (in_f32 != 0 && in_f32 != 1);
 }
 
 // go(integral_constant<int, D>, integral_constant<bool, EXACT>) on the
@@ -1462,8 +1582,8 @@ int by_instance(int d, F&& go) {
 // run on the smallest instance D >= d.  mask: 0 none, 1 causal, 2 window
 // (window >= 1) and offs (null, or the device int32 pair (q_pos0, kv_pos0)
 // that replaces diag_off), as eft_prefill_attention takes them.  in_f32: 0
-// for bf16 q, k, v, dO and gradients, 1 for f32 (bf16x6, d up to 128, on
-// the f32 instances D = 64 and 128).
+// for bf16 q, k, v, dO and gradients, 1 for f32 (bf16x6 on the f32
+// instances D = 64, 128 and 256, the last a cluster of two blocks).
 extern "C" int eft_attention_bwd_dkv(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
@@ -1517,4 +1637,24 @@ extern "C" int eft_attention_bwd_dq(const void* q, const void* k,
         q, k, v, dout, lse, delta, dq, batch, hq, hkv, lq, lkv, d, mask,
         diag_off, window, po, scale, s);
   });
+}
+
+// The most clusters of H3's f32 D=256 instance (kernel 0 H3-dkv, 1 H3-dq)
+// that can be active on `device` at once (cudaOccupancyMaxActiveClusters),
+// or minus a cudaError_t
+extern "C" int eft_attention_bwd_f32_clusters(int kernel, int device) {
+  using T = F32Tiles<256>;
+  if (kernel != 0 && kernel != 1) return -int(cudaErrorInvalidValue);
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return -int(dev_err);
+  const void* fn = kernel == 0
+      ? reinterpret_cast<const void*>(attention_bwd_dkv_f32_kernel<256>)
+      : reinterpret_cast<const void*>(attention_bwd_dq_f32_kernel<256>);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
+  if (err != cudaSuccess) return -int(err);
+  const ClusterLaunch l(1, 1, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, fn, &l.cfg);
+  return err == cudaSuccess ? n : -int(err);
 }

@@ -37,6 +37,9 @@
 //   memory, in the swizzled layout a TMA load of the 16-bit tile would
 //   give (convert_codes_tile): wgmma has no bf16 x int8 or bf16 x e4m3
 //   form, so the quantized forwards convert K and V where they land.
+// - The cluster helpers (distributed shared memory: mapa, stores into a
+//   peer block's shared memory, arrivals on its mbarriers, the cluster
+//   barrier) of H3's f32 D=256 instance.
 
 #pragma once
 
@@ -204,6 +207,72 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // a named barrier over `threads` threads (id 0 is __syncthreads)
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------- clusters
+// The blocks of a thread block cluster (launched with the cluster
+// dimension attribute) run at once on neighbouring SMs and may write each
+// other's shared memory and arrive on each other's mbarriers (distributed
+// shared memory).  mapa turns an address of this block's shared memory
+// into the same offset in a peer's, as st.shared::cluster and
+// mbarrier.arrive.shared::cluster take it.  A write into a peer's shared
+// memory is handed over by the arrival after it (release at cluster
+// scope) and read after the peer's wait on that barrier (acquire at
+// cluster scope).  H3's f32 instance at D=256 (attention_bwd.cu) is the
+// port's cluster kernel.
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// p (this block's shared memory) at the same offset in block `rank`'s
+__device__ __forceinline__ uint32_t peer_smem(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// 16 bytes into a peer's shared memory (an address from peer_smem)
+__device__ __forceinline__ void st_peer_v4(uint32_t addr, float4 x) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
+               : "memory");
+}
+
+// arrive on a peer's mbarrier (an address from peer_smem), releasing this
+// thread's earlier writes, those into the peer's shared memory among them
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+      :: "r"(bar) : "memory");
+}
+
+// mbar_wait acquiring at cluster scope: what the arriving peers released
+// is visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// every thread of every block of the cluster arrives, then waits for the
+// others (release / acquire): after the barriers' init, before a block's
+// shared memory is written by a peer, and before a block exits while a
+// peer may still reach into it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n"
+               ::: "memory");
 }
 
 // ---------------------------------------------------------------- wgmma

@@ -55,8 +55,13 @@ _SIGNATURES = {
     # q, k, v, do and gradients, else bf16)
     "eft_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_P, _F, _I, _I, _P],
     # q, k, v, do, lse, delta, dq, batch, hq, hkv, lq, lkv, d, mask,
-    # diag_off, window, offs, scale, in_f32, device, stream
+    # diag_off, window, offs, scale, in_f32, device, stream (f32 at d 144
+    # to 256 on both: a cluster of two blocks that split the columns)
     "eft_attention_bwd_dq": [_P] * 7 + [_I] * 9 + [_P, _F, _I, _I, _P],
+    # kernel (0 H3-dkv, 1 H3-dq), device: the most clusters of H3's f32
+    # D=256 instance active at once (cudaOccupancyMaxActiveClusters), or
+    # minus a CUDA error
+    "eft_attention_bwd_f32_clusters": [_I, _I],
     # q, k, v, ks, vs, o, batch, heads, lq, lkv, d, block, n_blocks,
     # kv_kind, out_f32, scale_log2, q_f32, device, stream (q_f32: f32 q,
     # else bf16)

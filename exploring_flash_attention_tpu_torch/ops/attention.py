@@ -357,8 +357,8 @@ prefill_attention.launches = 0
 # (and dO for H3), q for H4-kvq and the paged pair (their K/V are codes;
 # H5's K/V too where they are quantized).  f32 is the JAX package's default
 # dtype (models/transformer.py:59) and its kernels compute f32 at f32
-# accuracy (HIGHEST); no kernel takes f16 or f64.  H3 takes f32 at d up
-# to 128 (ops.attention_bwd.F32_MAX_D).
+# accuracy (HIGHEST); no kernel takes f16 or f64.  Each takes f32 at
+# every head dim it takes bf16 at.
 KERNEL_DTYPES = {
     "H1": (torch.bfloat16, torch.float32),
     "H3-dkv": (torch.bfloat16, torch.float32),

@@ -40,13 +40,6 @@ from exploring_flash_attention_tpu_torch.ops.attention import (
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-# H3's f32 instances (bf16x6 on wgmma) end at D=128: at D=256 three bf16
-# pieces of the 64 resident rows fill 192 KB of shared memory before any
-# stage (csrc/attention_bwd.cu)
-F32_MAX_D = 128
-F32_PAST_MAX_D_ITEM = "ROADMAP.md B2b-256 (H3 at f32 past d=128)"
-
-
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, do: torch.Tensor,
                         lse: torch.Tensor, scale: float, causal: bool = True,
@@ -102,10 +95,6 @@ def _check_bwd_inputs(name: str, q, k, v, do, lse, delta) -> None:
             f"{name} takes q/do [B,Hq,Lq,d], k/v [B,Hkv,Lkv,d] with Hq % Hkv "
             f"== 0 and {HEAD_DIM_RULE}; got q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}, do {tuple(do.shape)}")
-    if dtype == torch.float32 and d > F32_MAX_D:
-        raise TypeError(f"{name} takes f32 at d up to {F32_MAX_D}, got d={d}; "
-                        f"f32 past it is still to port: "
-                        f"{F32_PAST_MAX_D_ITEM}")
     for stat in (lse, delta):
         if (stat.device != q.device or stat.dtype != torch.float32
                 or stat.shape != (b, hq, lq) or not stat.is_contiguous()):
@@ -131,10 +120,11 @@ def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch kernel H3-dkv on CUDA tensors: (dk, dv) [B, Hkv, Lkv, d] in
     the inputs' dtype, each summed over its GQA group in f32 inside the
     kernel, under the mask of :func:`attention_bwd_plain`.  Takes
-    contiguous bf16 q/k/v/do with ``ops.attention.HEAD_DIM_RULE`` (a d
-    below its instance, 32, 64, 128 or 256, runs on zero-filled columns),
-    or f32 ones at d up to :data:`F32_MAX_D` (bf16x6 on the f32 instances,
-    64 and 128), and f32 lse/delta [B, Hq, Lq], or raises.
+    contiguous bf16 or f32 q/k/v/do with ``ops.attention.HEAD_DIM_RULE``
+    (a d below its instance runs on zero-filled columns: bf16 on 32, 64,
+    128 and 256; f32 bf16x6 on 64, 128 and 256, the last a cluster of two
+    blocks that split the columns), and f32 lse/delta [B, Hq, Lq], or
+    raises.
     ``attention_bwd_dkv.launches`` counts launches."""
     _check_bwd_inputs("H3-dkv", q, k, v, do, lse, delta)
     args = _launch_args(q, k, scale, causal, diag_off, window)
@@ -201,12 +191,11 @@ def flash_attention_bwd(
     ``ValueError``.
 
     CPU tensors take :func:`attention_bwd_plain`.  CUDA tensors take H1's
-    contract (contiguous bf16, ``ops.attention.HEAD_DIM_RULE``, any GQA
-    group, any Lq and Lkv; or f32 at d up to :data:`F32_MAX_D`, f32
-    gradients at f32 accuracy): delta is reduced by torch, then kernels
-    H3-dkv and H3-dq launch, or the call raises (``ValueError`` naming the
-    rule for another d, ``TypeError`` for another dtype or f32 past
-    :data:`F32_MAX_D`, before any launch).  ``config`` is taken at the JAX
+    contract (contiguous bf16 or f32, ``ops.attention.HEAD_DIM_RULE``, any
+    GQA group, any Lq and Lkv; f32 gradients at f32 accuracy): delta is
+    reduced by torch, then kernels H3-dkv and H3-dq launch, or the call
+    raises (``ValueError`` naming the rule for another d, ``TypeError``
+    for another dtype, before any launch).  ``config`` is taken at the JAX
     package's place and not read: H3 fixes its own tiles."""
     lq, lkv = q.shape[2], k.shape[2]
     window = checked_window(causal, window, lkv)

@@ -77,7 +77,12 @@ from exploring_flash_attention_tpu_torch.serving import (
     paged_extend_attention,
     paged_extend_plain,
 )
-from f32_pieces import BF16X3, BF16X6, piece_products
+from f32_pieces import (  # noqa: F401 (one_torch_thread: autouse)
+    BF16X3,
+    BF16X6,
+    one_torch_thread,
+    piece_products,
+)
 
 F32_CORE_TILE = 32               # keys per K/V tile of csrc/f32_attention.cuh
 H1_F32_TILE_D256 = 16            # H1's tile at d > 128 (three pieces of K, V)
@@ -447,9 +452,9 @@ DTYPES = [torch.bfloat16, torch.float32, torch.float16, torch.float64]
 @pytest.mark.parametrize("kernel", sorted(KERNEL_DTYPES))
 def test_kernel_dtype_rule(kernel, dtype):
     """Which dtypes each kernel takes on the card: bf16 and f32 everywhere
-    (H4-kvq and H5 since ROADMAP B2c; H3 past d=128 refuses f32 in its own
-    wrapper, ROADMAP B2b-256); f16 and f64 nowhere, with a refusal that
-    names what the kernel takes."""
+    (H4-kvq and H5 since ROADMAP B2c, H3 at every head dim since B2b-256);
+    f16 and f64 nowhere, with a refusal that names what the kernel
+    takes."""
     x = torch.zeros(2, dtype=dtype)
     if dtype in (torch.bfloat16, torch.float32):
         assert kernel_dtype(kernel, x, x) == dtype

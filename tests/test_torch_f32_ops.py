@@ -54,7 +54,12 @@ from exploring_flash_attention_tpu_torch.ops import (
 from exploring_flash_attention_tpu_torch.ops.attention import LOG2E
 from exploring_flash_attention_tpu_torch.ops.quant import _expand
 from exploring_flash_attention_tpu_torch.oracle import make_qkv, naive_attention
-from f32_pieces import BF16X3, BF16X6, piece_products
+from f32_pieces import (  # noqa: F401 (one_torch_thread: autouse)
+    BF16X3,
+    BF16X6,
+    one_torch_thread,
+    piece_products,
+)
 from test_torch_dtiled import h5_emulation
 from test_torch_quant import h4kvq_emulation
 
@@ -63,18 +68,6 @@ F32_TILE = 32           # keys per tile of both f32 kernels
 D_CHUNK = 128           # H5's d-chunk
 JAX_QUANT = {"int8": jax_quant.quantize_int8, "fp8": jax_quant.quantize_fp8}
 QUANT = {"int8": quantize_int8, "fp8": quantize_fp8}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The emulations run thousands of small torch ops: one intra-op
-    thread each.  Beside the suite's other workers, a pool of one thread
-    per core in every worker oversubscribes the cores, and each small op
-    then waits on its pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def f32_emulation(q, k, v, scale, chunk):

@@ -1097,8 +1097,8 @@ def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask, d):
 
 
 def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
-    """One launch of each kernel a call; f16, and f32 past d=128 (ROADMAP
-    B2b-256: H3's f32 instances end at D=128), refused with no launch, as
+    """One launch of each kernel a call, f32 at d=144 (the f32 D=256
+    instance, a cluster of two blocks) too; f16 refused with no launch, as
     is d=72, outside ``ops.attention.HEAD_DIM_RULE`` (which H1 refuses
     too, so its residuals are made by hand)."""
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 1, 2, 2, 64, 64,
@@ -1113,15 +1113,17 @@ def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
     q144, k144, v144 = (x.float() for x in _qkv(cuda_device, 1, 2, 2, 64,
                                                  64, 144, seed=4))
     lse144 = torch.zeros(1, 2, 64, device=cuda_device)
-    with pytest.raises(TypeError, match="B2b-256"):
-        flash_attention_bwd(q144, k144, v144, q144, q144, lse144,
-                            causal=True)
+    grads = flash_attention_bwd(q144, k144, v144, q144, q144, lse144,
+                                causal=True)
+    assert all(g.dtype == torch.float32 for g in grads)
+    assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
+        before[0] + 2, before[1] + 2)
     q72, k72, v72 = _qkv(cuda_device, 1, 2, 2, 64, 64, 72, seed=4)
     lse72 = torch.zeros(1, 2, 64, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
         flash_attention_bwd(q72, k72, v72, q72, q72, lse72, causal=True)
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 2, before[1] + 2)
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
@@ -1930,6 +1932,9 @@ F32_BWD_REL_TOL = 1e-4
     (1, 4, 2, 300, 300, 16, -40),     # d=16 on D=64, rows that see no key
     (2, 4, 4, 100, 100, 64, 0),       # d = D = 64
     (1, 4, 2, 77, 130, 32, 53),       # d=32 on D=64, ragged, G=2
+    (2, 4, 1, 136, 150, 144, 14),     # d=144: the cluster's zero columns
+    (1, 4, 1, 300, 260, 256, -40),    # d = D = 256, rows that see no key
+    (1, 4, 2, 129, 200, 256, 71),     # d=256, ragged, G=2
 ])
 @pytest.mark.parametrize("mask", list(BWD_MASKS))
 def test_bwd_f32_matches_the_plain_f32_backward(cuda_device, mask, b, hq,
@@ -1965,6 +1970,55 @@ def test_bwd_f32_matches_the_plain_f32_backward(cuda_device, mask, b, hq,
     if causal and lkv > lq + diag_off:    # keys no row sees: zero dK, dV
         assert (dk[:, :, lq + diag_off:] == 0).all()
         assert (dv[:, :, lq + diag_off:] == 0).all()
+
+
+@pytest.mark.parametrize("d", [144, 256])
+@pytest.mark.parametrize("pos,mask", [
+    ((256, 256), "causal"),        # a ring's diagonal hop
+    ((0, 300), "causal"),          # a hop wholly in the future: no key
+    ((300, 0), "causal"),          # a past hop: every key
+    ((100, 37), "window"),         # a band off the diagonal
+])
+def test_bwd_f32_traced_offsets_equal_the_static_launch(cuda_device, pos,
+                                                        mask, d):
+    """H3 at f32 on the D=256 instance (a cluster of two blocks) at traced
+    positions is bitwise its static launch; a hop that sees no key gives
+    zero gradients."""
+    causal, window = BWD_MASKS[mask]
+    diag = pos[0] - pos[1]
+    q, k, v = _f32_qkv(cuda_device, 2, 8, 4, 300, 300, d, seed=d)
+    do = _f32_qkv(cuda_device, 2, 8, 4, 300, 300, d, seed=d + 1)[0]
+    scale = 1.0 / math.sqrt(d)
+    out, lse = prefill_attention(q, k, v, scale, diag, causal, window)
+    lse = torch.where(torch.isneginf(lse), 5.0, lse)   # a ring's global LSE
+    offs = torch.tensor(pos, dtype=torch.int32, device=q.device)
+    bwd = [flash_attention_bwd(q, k, v, out, do, lse, scale=scale,
+                               causal=causal, window=window, **kw)
+           for kw in ({"positions": (offs[0], offs[1])},
+                      {"static_positions": pos})]
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+    if pos == (0, 300):
+        assert all((g == 0).all() for g in bwd[0])
+
+
+@pytest.mark.parametrize("d", [144, 256])
+@pytest.mark.parametrize("mask", BWD_MASKS)
+def test_bwd_f32_is_bitwise_reproducible(cuda_device, mask, d):
+    """Repeated calls of H3 at f32 on the cluster instance are bitwise
+    equal: both blocks of a cluster add the same two partials of S and
+    dP, and no sum is ordered by the schedule."""
+    causal, window = BWD_MASKS[mask]
+    q, k, v = _f32_qkv(cuda_device, 2, 8, 4, 520, 520, d, seed=3)
+    do = _f32_qkv(cuda_device, 2, 8, 4, 520, 520, d, seed=4)[0]
+    scale = 1.0 / math.sqrt(d)
+    out, lse = prefill_attention(q, k, v, scale, 0, causal, window)
+    first = flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                window=window)
+    for _ in range(3):
+        for a, b in zip(first, flash_attention_bwd(q, k, v, out, do, lse,
+                                                   causal=causal,
+                                                   window=window)):
+            assert torch.equal(a, b)
 
 
 def test_train_step_trains_an_f32_model(cuda_device):

@@ -272,7 +272,9 @@ Phases, one line each; any failure exits non-zero before the last line:
    row (B=2, H=4, L=256, d=128; none, causal, window 64) within 1e-5 of
    an f64 plain run on the card, the LSE too; at tests/
    test_attention_v1.py:24-27's shape and at d 16, 80, 128 and 256 on a
-   GQA group of 16 (each mask, the LSE and KV spans) within 2e-5; the
+   GQA group of 16 (each mask, the LSE and KV spans) within 2e-5, and
+   over long key counts (F32_LONG_KEYS: 8200 keys at d 128 and 256,
+   32768 keys without a mask and under a window of 4096) within 2e-5; the
    bound form and the 64-row tile; flash_attention_v2 (H1 spans + H2)
    within 1e-4; H6-decode and H6-extend (bf16x3 on wgmma) with f32 q at
    HEADS_PAGED and at the flagship's geometry (d=128, Hq 8, Hkv 4, pages
@@ -321,9 +323,8 @@ Phases, one line each; any failure exits non-zero before the last line:
    controls: the diagonal key hidden in the forward, H3's bf16 kernels on
    bf16-rounded inputs in the backward), its training tokens/s beside the
    bf16 flagship's of this run; the encoder step (make_mlm_train_step,
-   H3 without a mask; its gradients against its own forward with the
-   plain backward in H3's place, the whole path shown beside, as
-   heads_train holds heads256's encoder) and the sharded step at
+   H1 and H3 without a mask, against the all-plain f32 step; controls: a
+   causal forward, a causal backward) and the sharded step at
    MeshConfig(1, 1, 1) (the ring's hop at traced offsets) at f32, each
    at the same limits.  Then heads256 at dtype=torch.float32 through the
    same train step, encoder step and sharded step at the same limits, its
@@ -654,6 +655,7 @@ def phase_build(kernels):
         print(f"  ptxas: {ln}")
     print(f"phase build: ok {lib.relative_to(ROOT)} in {dt:.1f} s")
     check_sass(kernels)
+    check_f32_core_registers(kernels)
 
 
 # the wgmma kernels' functions in the SASS: H1 (D 32, 64, 128, 256 x Q
@@ -715,6 +717,37 @@ def check_sass(kernels):
                  f"{name}: mma.sync / WMMA instructions in its SASS")
     _require(found == WGMMA_FUNCTIONS, f"kernel functions in the SASS: {found}")
     print("phase sass: ok")
+
+
+# the f32 core's kernels (csrc/f32_attention.cuh) and their instances: H1
+# D 64/128/256 x the exact and bound statistics, H6-extend D 64/128/256,
+# H4-kvq d 64/128 x int8, e4m3
+F32_CORE_FUNCTIONS = {"prefill_attention_f32_kernel": 6,
+                      "paged_extend_f32_kernel": 3,
+                      "kvquant_attention_f32_kernel": 4}
+
+
+def check_f32_core_registers(kernels):
+    """Every instance of the f32 core holds O, its fresh P V accumulator
+    and P's fragments in registers: no spill (cuobjdump -res-usage: 0
+    STACK and LOCAL bytes, where spills land) and no wgmma serialized by
+    ptxas (its C75xx notes name no such function)."""
+    serial = [ln for ln in kernels.ptxas_report().splitlines()
+              if "(C75" in ln and any(f in ln for f in F32_CORE_FUNCTIONS)]
+    found = dict.fromkeys(F32_CORE_FUNCTIONS, 0)
+    for name, u in sorted(kernels.res_usage().items()):
+        kind = next((f for f in F32_CORE_FUNCTIONS if f in name), None)
+        if kind is None:
+            continue
+        found[kind] += 1
+        print(f"  res-usage: {kind} {name.split(kind)[1][:16]}: REG "
+              f"{u.get('REG')} STACK {u.get('STACK')} LOCAL {u.get('LOCAL')}")
+        _require(u.get("STACK") == 0 and u.get("LOCAL") == 0,
+                 f"{name} spills")
+    _require(found == F32_CORE_FUNCTIONS,
+             f"f32 core functions in the build: {found}")
+    _require(not serial, f"ptxas serializes the f32 core's wgmma: {serial}")
+    print("phase f32 core registers: ok")
 
 
 def _bf16(torch, dev, gen, *shape):
@@ -5263,6 +5296,19 @@ F32_SMALL_TOL = 2e-5
 F32_V2_TOL = 1e-4
 F32_PAGED_TOL = 1e-5
 F32_H1_DIMS = (16, 80, 128, 256)
+# H1 f32 over long key counts, where O sums hundreds of key tiles (one
+# fresh P V accumulator a tile, added in f32; ROADMAP B2d), within
+# F32_SMALL_TOL of the f64 plain run: TPU kernel B3's route (V1_CASES),
+# the same at d=256 (the D=256 instance, 513 tiles of 16 keys) and the
+# windowed model's 32768 keys without a mask and under its window:
+# (case, B, Hq, Hkv, Lq, Lkv, d, causal, window), inputs from
+# make_qkv(seed=Lkv + d)
+F32_LONG_KEYS = [
+    ("B3's route", 2, 8, 8, 1024, 8200, 128, False, None),
+    ("B3's route at d=256", 2, 8, 8, 1024, 8200, 256, False, None),
+    ("32768 keys", 1, 8, 1, 256, 32768, 128, False, None),
+    ("32768 keys, window 4096", 1, 8, 1, 256, 32768, 128, True, WINDOW),
+]
 # the paged pair at f32 q: HEADS_PAGED and the f32 flagship's own geometry
 # (d, Hq, Hkv, page size), which its slice and second turn run
 F32_PAGED = HEADS_PAGED + [(128, 8, 4, 128)]
@@ -5396,6 +5442,14 @@ def f32_h1(torch, dev, out):
         row["spans"] = h1_case(f"H1 d={d} spans of {HEADS_SPAN}", q, k, v,
                                False, None, F32_SMALL_TOL, span=HEADS_SPAN)
         out["by_head_dim"][d] = row
+
+    for case, b, hq, hkv, lq, lkv, d, causal, window in F32_LONG_KEYS:
+        q, k, v = f32_inputs(torch, dev, b, hq, hkv, lq, lkv, d,
+                             seed=lkv + d)
+        out["long_keys"][case] = h1_case(
+            f"H1 over long keys, {case}: B={b} Hq={hq} Hkv={hkv} Lq={lq} "
+            f"Lkv={lkv} d={d}", q, k, v, causal, window, F32_SMALL_TOL)
+        del q, k, v
 
     # V2: H1 over the spans, then H2
     b, h, l, d = V2_SHAPE
@@ -5685,8 +5739,8 @@ def phase_f32(torch, dev, bf16=None):
     ``bf16``: the bf16 flagship's slice readings of this run (launches,
     tokens/s), which the f32 flagship's are set beside."""
     t0 = time.perf_counter()
-    out = {"referee": {}, "by_head_dim": {}, "h6": {}, "h6e": {},
-           "h1_times": {}}
+    out = {"referee": {}, "by_head_dim": {}, "long_keys": {}, "h6": {},
+           "h6e": {}, "h1_times": {}}
     f32_h1(torch, dev, out)
     f32_paged(torch, dev, out)
     f32_times(torch, dev, out)
@@ -5723,6 +5777,7 @@ def f32_readings(f32, kern):
                 "referee": f32["referee"],
                 "small_shape": f32["small"], "v2": f32["v2"],
                 "by_head_dim": f32["by_head_dim"],
+                "long_keys": f32["long_keys"],
                 "launches": {"generate": model["generate_launches"]["h1"]},
                 "flagship": {k: model[k] for k in (
                     "tokens_s", "eager_tokens_s", "turn_2_tokens_s",
@@ -6072,9 +6127,8 @@ def f32_heads256_train(torch, dev, bf16_heads=None):
     launches each a step; the step-0 loss and gradients against the
     all-plain f32 step beside the controls; the loss falling over 5 AdamW
     steps; tokens/s beside ``bf16_heads``, the heads_train phase's heads256
-    reading of this run), its encoder step (the gradients against the
-    plain backward in H3's place) and its sharded step at
-    MeshConfig(1, 1, 1)."""
+    reading of this run), its encoder step and its sharded step at
+    MeshConfig(1, 1, 1), each against the all-plain f32 path."""
     f32 = dict(dtype=torch.float32)
     tols = dict(loss_tol=F32_TRAIN_LOSS_TOL, grad_tol=F32_GRAD_REL_TOL)
     geo = {k: x for k, x in HEADS_MODELS["heads256"].items()
@@ -6085,8 +6139,7 @@ def f32_heads256_train(torch, dev, bf16_heads=None):
         **tols, **f32, **geo)
     m = {"train_launches": counts, "tokens_s": tok_s, **checks}
     m["encoder_launches"], m["encoder_tokens_s"] = phase_encoder(
-        torch, dev, "heads256 f32 encoder", bwd_ref=True, **tols, **f32,
-        **geo)
+        torch, dev, "heads256 f32 encoder", **tols, **f32, **geo)
     m["sharded"] = sharded_train_check(torch, dev, "heads256 f32", **tols,
                                        **f32, **geo)
     beside = ""
@@ -6135,15 +6188,8 @@ def phase_f32_train(torch, dev, bf16_train=None, bf16_heads=None):
             bf16_h3_bwd, "H3's bf16 kernels on bf16-rounded q, k, v, dO"),
         **tols, **f32)
     out["model"] = {"train_launches": counts, "tokens_s": tok_s, **checks}
-    # the encoder's gradients against its own forward with the plain
-    # backward in H3's place (bwd_ref), the whole path shown: in the
-    # bidirectional layers H1 f32's O moves the attention projections'
-    # small gradients by up to 8.9e-5 of their norm against an f64 model,
-    # the plain f32 attention by 8.2e-6, H3 by 3.4e-6
-    # (tools/probe_f32_grads.py)
     out["model"]["encoder_launches"], out["model"]["encoder_tokens_s"] = (
-        phase_encoder(torch, dev, "f32 encoder", bwd_ref=True, **tols,
-                      **f32))
+        phase_encoder(torch, dev, "f32 encoder", **tols, **f32))
     out["model"]["sharded"] = sharded_train_check(torch, dev, "f32 flagship",
                                                   **tols, **f32)
     beside = ""

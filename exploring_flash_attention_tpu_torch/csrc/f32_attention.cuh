@@ -1,5 +1,6 @@
-// The f32 attention core of H1 (prefill_attention.cu) and H6-extend
-// (paged_extend.cu): f32 inputs at f32 accuracy, on bf16 wgmma.
+// The f32 attention core of H1 (prefill_attention.cu), H6-extend
+// (paged_extend.cu) and H4-kvq (kvquant_attention.cu): f32 inputs at f32
+// accuracy, on bf16 wgmma.
 //
 // What f32 means in the JAX package: its kernels ask Mosaic for HIGHEST
 // whenever an operand is f32 (ops/attention_v1.py:202-210, dot_precision),
@@ -9,13 +10,25 @@
 // exactly into three bf16 pieces, hi = bf16(x), mid = bf16(x - hi), lo =
 // bf16(x - hi - mid) (hi + mid + lo = x to f32's 24 bits), and a product
 // is the sum of the six piece products hi.hi, hi.mid, mid.hi, hi.lo,
-// lo.hi and mid.mid, smallest first, in one f32 wgmma accumulator.  Each
-// piece product is exact in f32; what Hopper's tensor cores do with the
-// sums was measured by tools/probe_bf16x6.py against the JAX f32 tiers
-// before this core was written (both bf16x6 and bf16x3 within them).
-// An operand that bf16 holds exactly needs one piece: H6-extend's int8
-// K/V codes, so there S = Q K^T and P V are three products each (bf16x3
-// on q and P * v_scale, the codes whole), exact f32 products.
+// lo.hi and mid.mid, smallest first, in one f32 wgmma accumulator that
+// starts from zero.  Each piece product is exact in f32; what Hopper's
+// tensor cores do with the sums was measured by tools/probe_bf16x6.py
+// against the JAX f32 tiers before this core was written (both bf16x6 and
+// bf16x3 within them).  An operand that bf16 holds exactly needs one
+// piece: H6-extend's and H4-kvq's int8 or e4m3 K/V codes, so there S = Q
+// K^T and P V are three products each (bf16x3 on q and P * v_scale, the
+// codes whole), exact f32 products.
+//
+// O across key tiles: the tensor core drops the bits of an added product
+// below its accumulator's last, so O kept in one wgmma accumulator over
+// every key tile drifts with the number of tiles (H3 read 8.9e-5 of
+// max|dV| that way, PERF.md section 6).  Each tile's P V is therefore its
+// own product, in a fresh accumulator (the first wgmma with scale-d 0),
+// and O = alpha O + part is an f32 FMA in registers: the rescale by alpha
+// that O needs every tile anyway, so the fresh accumulator costs no f32
+// operation in the exact statistic and one add a value a tile in the bound
+// one (alpha = 1).  Hence per tile and not per few tiles: a part summed
+// over several tiles would need the same rescale itself.
 //
 // Block (Tiles below): NC consumer warpgroups of 64 Q rows (2; 1 at
 // D=256) and one producer warpgroup, 128 (NC + 1) threads, one block per
@@ -31,8 +44,18 @@
 //   - each consumer warpgroup, per tile: S on wgmma (SS, both K-major, the
 //     pieces' products over d / 16 k-steps each), the mask from each
 //     row's [lo, hi], s * kc, the online softmax in f32 (exp2f, l summing
-//     the f32 p), O = alpha O, then P * vs split into three A fragments
-//     in registers and O += P V on wgmma (RS, V MN-major).
+//     the f32 p), P * vs split into three A fragments in registers, P V
+//     on wgmma (RS, V MN-major) into a fresh accumulator, then O = alpha O
+//     + P V in f32.
+// Registers: a consumer thread holds O (D / 2), the fresh P V accumulator
+// and P's A fragments at once.  At D=128 that passes the 168 a thread of
+// 384 gets, so the producer hands registers over with setmaxnreg (104 /
+// 200 with three pieces, whose producer holds a tile's 64 f32 values; 56 /
+// 224 with one, as the bf16 H4-kvq and H6-extend).  At D=256 (256
+// threads, 255 at most) O alone is 128: P V is two products of 128
+// columns, each in a fresh 64-register accumulator added before the next
+// is issued (fewer changes than two consumer warpgroups over 128 columns
+// each, which would need Q's pieces and the softmax in both).
 // Shared memory: Q 3 x BQ x D x 2 bytes, each stage 2 x KP x BKV x D x 2
 // (KP pieces of K, then of V): 192 KB for H1 at D=128 (BKV 32) and D=256
 // (BKV 16, one consumer), 128 KB and 160 KB for H6-extend (BKV 32).
@@ -70,6 +93,15 @@ struct Tiles {
   static constexpr size_t bars = fac + STAGES * 2 * BKV * 4;
   static constexpr size_t bytes = bars + 8 * 2 * STAGES + 1024;
   static_assert(bytes <= 232448, "the block's shared memory");
+  // registers a thread after setmaxnreg (0: none); 128 * P + 256 * C stays
+  // within 384 * 168, what the launch allocates
+  static constexpr int PRODUCER_REGS = D == 128 ? (KP == 3 ? 104 : 56) : 0;
+  static constexpr int CONSUMER_REGS = D == 128 ? (KP == 3 ? 200 : 224) : 0;
+  static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 384 * 168,
+                "the block's registers");
+  // P V as NPV products of D / NPV columns, each in a fresh accumulator
+  static constexpr int NPV = D == 256 ? 2 : 1;
+  static constexpr int PV_N = D / NPV;
 };
 
 constexpr int Q_BAR = 1;         // named barriers 1, 2: a warpgroup's Q rows
@@ -169,11 +201,15 @@ __device__ __forceinline__ void issue_s(
   }
 }
 
-// O += the piece products of P (pa: piece p's A fragments at p * BKV / 4)
-// and the V pieces of one stage (issued, not waited for)
+// part = the piece products of P (pa: piece p's A fragments at p * BKV /
+// 4) and PV_N columns of the V pieces of one stage from v_s (the first
+// column box of this product), in a fresh accumulator: the first wgmma
+// with scale-d 0, as issue_part_f32 in attention_bwd.cu (issued, not
+// waited for)
 template <int D, int KP>
 __device__ __forceinline__ void issue_pv(
-    float (&o)[D / 2], const uint32_t (&pa)[3 * Tiles<D, KP>::BKV / 4],
+    float (&part)[Tiles<D, KP>::PV_N / 2],
+    const uint32_t (&pa)[3 * Tiles<D, KP>::BKV / 4],
     const unsigned char* v_s) {
   using T = Tiles<D, KP>;
   constexpr int NA = T::BKV / 4;
@@ -183,18 +219,15 @@ __device__ __forceinline__ void issue_pv(
     const unsigned char* b = v_s + piece_b<T::TERMS>(t) * T::KV_PIECE;
 #pragma unroll
     for (int kk = 0; kk < T::BKV / 16; ++kk) {
-      const unsigned char* v_k = b + kk * 16 * 128;
-      const uint64_t db = gmma_desc(v_k, T::BKV * 128, 1024, 128);
-      if constexpr (D == 256)
-        wgmma_rs_bf16_n256(o, a + 4 * kk, db,
-                           gmma_desc(v_k + 2 * T::BKV * 128, T::BKV * 128,
-                                     1024, 128));
-      else if constexpr (D == 128)
-        wgmma_rs_bf16_n128(o, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
-                           a[4 * kk + 3], db, 1);
+      const uint64_t db = gmma_desc(b + kk * 16 * 128, T::BKV * 128, 1024,
+                                    128);
+      const int acc = t > 0 || kk > 0;
+      if constexpr (T::PV_N == 128)
+        wgmma_rs_bf16_n128(part, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                           a[4 * kk + 3], db, acc);
       else
-        wgmma_rs_bf16_n64(o, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
-                          a[4 * kk + 3], db, 1);
+        wgmma_rs_bf16_n64(part, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                          a[4 * kk + 3], db, acc);
     }
   }
 }
@@ -227,6 +260,7 @@ __device__ __forceinline__ void stage_q(unsigned char* sq, int wg, RowPtr row,
 // unnormalized, m each row's shift (exp2 basis) and l this thread's share
 // of its sum of p (the quad adds).  VSCALE: P is multiplied by vs before P
 // V; else vs is not read.  BOUND: m holds each row's fixed shift on entry.
+// The consumers' setmaxnreg comes first.
 template <int D, int KP, bool BOUND, bool VSCALE>
 __device__ __forceinline__ void attend(const unsigned char* smem, int wg,
                                        uint64_t* full, uint64_t* empty,
@@ -239,6 +273,7 @@ __device__ __forceinline__ void attend(const unsigned char* smem, int wg,
   const unsigned char* q_wg = smem + T::q + wg * 64 * 128;
   const float* fac = reinterpret_cast<const float*>(smem + T::fac);
   const int col0 = 2 * (threadIdx.x % 4);
+  if constexpr (T::CONSUMER_REGS > 0) setmaxnreg_inc<T::CONSUMER_REGS>();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] = 0.f;
@@ -303,17 +338,25 @@ __device__ __forceinline__ void attend(const unsigned char* smem, int wg,
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
-    if constexpr (!BOUND) {
+    // P V in a fresh accumulator per PV_N columns, O = alpha O + part in
+    // f32 (O += part with the bound statistic)
+    const unsigned char* v_s = k_s + KP * T::KV_PIECE;
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) acc_o[e] *= alpha[acc_row8(e) / 8];
+    for (int h = 0; h < T::NPV; ++h) {
+      float part[T::PV_N / 2];
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv<D, KP>(part, pa, v_s + h * (T::PV_N / 64) * BKV * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int e = 0; e < T::PV_N / 2; ++e) {
+        float& o = acc_o[h * (T::PV_N / 2) + e];
+        if constexpr (BOUND) o += part[e];
+        else o = fmaf(o, alpha[acc_row8(e) / 8], part[e]);
+      }
     }
-    fence_regs(acc_o);
-    fence_regs(pa);
-    wgmma_fence();
-    issue_pv<D, KP>(acc_o, pa, k_s + KP * T::KV_PIECE);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc_o);
     fence_regs(pa);
     mbar_arrive(&empty[s]);
   }
@@ -322,12 +365,13 @@ __device__ __forceinline__ void attend(const unsigned char* smem, int wg,
 // The producer warpgroup's loop: per tile i, fetch(i, regs) reads its data
 // from global memory into registers, then, once the stage is free,
 // put(regs, k_pieces, v_pieces, kc, vs) stores it (every producer thread
-// its share), and the stage is handed over.
+// its share), and the stage is handed over.  Its setmaxnreg comes first.
 template <int D, int KP, class Regs, class Fetch, class Put>
 __device__ __forceinline__ void produce(unsigned char* smem, uint64_t* full,
                                         uint64_t* empty, int n_tiles,
                                         Fetch fetch, Put put) {
   using T = Tiles<D, KP>;
+  if constexpr (T::PRODUCER_REGS > 0) setmaxnreg_dec<T::PRODUCER_REGS>();
   float* fac = reinterpret_cast<float*>(smem + T::fac);
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % T::STAGES;

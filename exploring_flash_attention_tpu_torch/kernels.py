@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -155,6 +156,26 @@ def sass_by_function() -> dict:
         elif name is not None:
             out[name].append(line)
     return {n: "\n".join(lines) for n, lines in out.items()}
+
+
+def res_usage() -> dict:
+    """``cuobjdump -res-usage`` of the current build: per kernel function
+    (mangled name), its resources as ints (``REG`` registers a thread,
+    ``STACK`` and ``LOCAL`` bytes a thread, where spills land, ``SHARED``
+    static bytes ...)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-res-usage", str(build())],
+                         capture_output=True, text=True, check=True)
+    out, name = {}, None
+    for line in res.stdout.splitlines():
+        head = re.match(r"\s*Function (\S+):", line)
+        if head:
+            name = head.group(1)
+        elif name is not None and "REG:" in line:
+            out[name] = {k: int(x) for k, x in
+                         re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line)}
+            name = None
+    return out
 
 
 @functools.lru_cache(maxsize=None)

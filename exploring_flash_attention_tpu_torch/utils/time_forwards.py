@@ -1,7 +1,7 @@
 """Time the quantized and d-tiled forwards, the backward pair, or the
 split-KV merges, on the card, for A/B runs.
 
-    python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT] [--bwd | --merge | --serve]
+    python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT] [--bwd | --merge | --serve | --f32]
 
 ROOT (default: this checkout) is the root of a checkout of the port, for
 example a ``git archive`` of another commit unpacked under ``build/``; its
@@ -22,8 +22,10 @@ warm, then of ``paged_decode_attention`` and the kernel without its merge
 (``paged_decode_partials``; a root without the fused kernel runs its H2
 after it) at the slice's shape (B=8, Hq=8, Hkv=4, contexts 257..280) and at
 B=1 over 8100 tokens (64 runs); with ``--serve``, of the serving kernels at
-the flagship's shapes (``time_serve``). Alternate two roots in one call
-(parent, change, change, parent) to compare them on one card.
+the flagship's shapes (``time_serve``); with ``--f32``, of the f32 core's
+kernels and their accuracy over long key counts (``time_f32``).
+Alternate two roots in one call (parent, change, change, parent) to
+compare them on one card.
 """
 
 from __future__ import annotations
@@ -201,6 +203,104 @@ def time_serve(root: Path) -> str:
     return f"{root.name or root}: " + " | ".join(out)
 
 
+# H1 at f32 over long key counts, as chip_smoke.py's F32_LONG_KEYS: (label,
+# B, Hq, Hkv, Lq, Lkv, d, causal, window); inputs from make_qkv(seed=Lkv +
+# d) in f32
+F32_LONG_KEYS = (("B3 route", 2, 8, 8, 1024, 8200, 128, False, None),
+                 ("B3 route d=256", 2, 8, 8, 1024, 8200, 256, False, None),
+                 ("32768 keys", 1, 8, 1, 256, 32768, 128, False, None),
+                 ("32768 keys window 4096", 1, 8, 1, 256, 32768, 128, True,
+                  4096))
+# H1 f32 timed through flash_attention_v1: (label, B, Hq, Hkv, Lq, Lkv,
+# d, causal, window), bench.py's canonical shape, the v1 routes of TPU
+# kernels B2, B4 and B5 (chip_smoke.py's V1_CASES) and B3's at d=256 (the
+# D=256 instance)
+F32_TIMED = (("canonical", 32, 8, 8, 1024, 1024, 128, False, None),
+             ("B2", 8, 8, 2, 1000, 1100, 128, False, None),
+             ("B4", 8, 8, 4, 512, 1024, 128, True, None),
+             ("B5", 4, 8, 4, 4096, 4096, 128, True, 512),
+             ("B3 route d=256", 2, 8, 8, 1024, 8200, 256, False, None))
+
+
+def time_f32(root: Path) -> str:
+    """The f32 core's kernels (``csrc/f32_attention.cuh``), L2 flushed,
+    with this file's timing harness: H1 f32 at ``F32_TIMED``,
+    ``paged_extend_attention`` with f32 q at the multi-turn turn (C=256
+    after 257..280) and ``flash_attention_kvquant`` with f32 q at the
+    canonical shape (int8 and e4m3, block 512); then max|O - oracle| of H1
+    f32 at ``F32_LONG_KEYS`` against the plain attention in f64 on the
+    card, and of H4-kvq f32 over 8192 keys (B16's route, int8, block 128,
+    chip_smoke.py's KVQ_CASES) against the plain f32 version and the f64
+    one over the dequantized K/V; then the card's name and power limit."""
+    import math
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from exploring_flash_attention_tpu_torch.oracle import make_qkv
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_kvquant_plain,
+        attention_plain,
+        flash_attention_kvquant,
+        flash_attention_v1,
+        prefill_attention,
+        quantize_fp8,
+        quantize_int8,
+    )
+    from exploring_flash_attention_tpu_torch.serving import (
+        paged_extend_attention,
+    )
+
+    def f32(b, hq, hkv, lq, lkv, d, seed):
+        return [torch.from_numpy(x).to("cuda") for x in make_qkv(
+            b, hq, lq, d, dtype=np.float32, seed=seed, seq_len_kv=lkv,
+            heads_kv=hkv)]
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    time_cuda = _harness_time_cuda()
+    out = []
+    for name, b, hq, hkv, lq, lkv, d, causal, window in F32_TIMED:
+        q, k, v = f32(b, hq, hkv, lq, lkv, d, 1)
+        ms = time_cuda(lambda: flash_attention_v1(q, k, v, causal=causal,
+                                                  window=window), n_iter=20)
+        out.append(f"H1 f32 {name} {ms:.4f} ms")
+        del q, k, v
+    q, cache, slots = _paged_case(8, 8, 4, (257, 280), 1024, chunk=256)
+    q = q.float()
+    ms = time_cuda(lambda: paged_extend_attention(q, cache, slots), n_iter=50)
+    out.append(f"H6-extend f32 multi-turn {ms:.4f} ms")
+    q, k, v = f32(32, 8, 8, 1024, 1024, 128, 1)
+    for kind, quant in (("int8", quantize_int8), ("fp8", quantize_fp8)):
+        kq, vq = quant(k, 512), quant(v, 512)
+        ms = time_cuda(lambda: flash_attention_kvquant(q, kq, vq), n_iter=20)
+        out.append(f"H4-kvq f32 {kind} {ms:.4f} ms")
+    del q, k, v, kq, vq
+    for name, b, hq, hkv, lq, lkv, d, causal, window in F32_LONG_KEYS:
+        q, k, v = f32(b, hq, hkv, lq, lkv, d, lkv + d)
+        scale, diag = 1.0 / math.sqrt(d), lkv - lq
+        o, _ = prefill_attention(q, k, v, scale, diag, causal, window)
+        ref, _ = attention_plain(q.double(), k.double(), v.double(), scale,
+                                 causal, diag, window)
+        out.append(f"H1 f32 {name} max|O - oracle| "
+                   f"{(o.double() - ref).abs().max().item():.3e}")
+        del q, k, v, o, ref
+    q, k, v = f32(2, 8, 8, 1024, 8192, 128, 2)
+    kq, vq = quantize_int8(k, 128), quantize_int8(v, 128)
+    scale = 1.0 / math.sqrt(128)
+    o = flash_attention_kvquant(q, kq, vq)
+    plain = attention_kvquant_plain(q, kq, vq, scale)
+    o64 = attention_kvquant_plain(q.double(), kq, vq, scale)
+    out.append(f"H4-kvq f32 8192 keys max|O - plain| "
+               f"{(o - plain).abs().max().item():.3e}, max|O - oracle| "
+               f"{(o.double() - o64).abs().max().item():.3e}")
+    out.append(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=False).stdout.strip())
+    return f"{root.name or root}: " + " | ".join(out)
+
+
 def main(root: Path, mode: str = "") -> str:
     sys.path.insert(0, str(root))
     if mode == "--bwd":
@@ -209,6 +309,8 @@ def main(root: Path, mode: str = "") -> str:
         return time_merge(root)
     if mode == "--serve":
         return time_serve(root)
+    if mode == "--f32":
+        return time_f32(root)
     import torch
 
     from exploring_flash_attention_tpu_torch.oracle import make_qkv

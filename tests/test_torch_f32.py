@@ -16,8 +16,9 @@ The emulations below repeat that arithmetic in f32 torch ops, tile by tile
 as the kernels walk the keys (32-key tiles for the f32 core, 16 for H1 at
 d > 128; 128-token tiles in runs merged by their LSEs for H6-decode): the
 piece products, the running max in the exp2 basis, p = exp2(s - m), l
-summing the unscaled p, O = alpha O + (p * v_scale) V.  The limits are the
-JAX package's own:
+summing the unscaled p, O = alpha O + (p * v_scale) V, where the f32 core
+computes each tile's P V from zero (a fresh accumulator) before the f32
+add.  The limits are the JAX package's own:
 
 - H1 against the f64 oracle: 1e-5 at ``bench/suite.py``'s referee shape
   (B=2, H=4, L=256, d=128) under no mask, causal and a window of 64
@@ -82,6 +83,7 @@ from f32_pieces import (  # noqa: F401 (one_torch_thread: autouse)
     BF16X6,
     one_torch_thread,
     piece_products,
+    tc_piece_products,
 )
 
 F32_CORE_TILE = 32               # keys per K/V tile of csrc/f32_attention.cuh
@@ -96,9 +98,10 @@ JAX_TOL = 1e-5
 def _online(s2, v, pv_scale=None, tile=F32_CORE_TILE, terms=None):
     """The kernels' loop over key tiles in f32: s2 [..., R, N] scores in
     the exp2 basis (-inf where hidden), v [..., N, d], pv_scale [..., N]
-    (H6's v_scale, by which P is multiplied before P V); ``terms``: P V
-    as the f32 core's piece products, else one f32 product (H6-decode).
-    Returns O unnormalized, each row's max m (exp2 basis) and its sum l."""
+    (H6's v_scale, by which P is multiplied before P V); ``terms``: each
+    tile's P V as the f32 core's piece products from zero, then added to
+    alpha O in f32, else one f32 product (H6-decode).  Returns O
+    unnormalized, each row's max m (exp2 basis) and its sum l."""
     shape = s2.shape[:-1]
     m = torch.full(shape, float("-inf"))
     l_row = torch.zeros(shape)
@@ -116,7 +119,7 @@ def _online(s2, v, pv_scale=None, tile=F32_CORE_TILE, terms=None):
         if terms is None:
             o = o * alpha[..., None] + p @ vt
         else:
-            o = piece_products(o * alpha[..., None], p, vt, terms)
+            o = o * alpha[..., None] + piece_products(0.0, p, vt, terms)
         m = m_new
     return o, m, l_row
 
@@ -201,6 +204,64 @@ def test_h1_f32_emulation_at_new_head_dims(d, mode):
     err, ctl = _h1_errors(*_f32_inputs(1, 16, 1, 200, 330, d, seed=d),
                           causal, window)
     assert err < SMALL_TOL < ctl, (err, ctl)
+
+
+def _tensor_core_errors(lkv, window, rows=64, d=128, seed=0):
+    """max|O - oracle| of H1 f32's P V in both orders under the tensor
+    core model (``f32_pieces.tc_add``), on one head: the last ``rows``
+    query rows (one consumer warpgroup) over ``lkv`` keys, d=128, causal
+    under ``window``, else no mask.  S (also under the model) and the
+    online softmax as :func:`emulate_h1_f32`, over the tiles the kernel
+    visits (from the first that a row's window reaches).  Returns {one
+    accumulator: error, fresh: error}: every tile's P V piece products
+    added into O's one accumulator after O *= alpha (the kernel before),
+    or each tile's P V in a fresh accumulator, then O = alpha O + part in
+    f32 (the kernel now)."""
+    q, k, v = _f32_inputs(1, 1, 1, rows, lkv, d, seed)
+    oracle = _oracle(q, k, v, window is not None, window)[0, 0]
+    diag = lkv - rows
+    lo = max(diag - window + 1, 0) // F32_CORE_TILE * F32_CORE_TILE \
+        if window else 0
+    qt, kt, vt = (torch.from_numpy(x[0, 0]) for x in (q, k, v))
+    kt, vt = kt[lo:], vt[lo:]
+    s = tc_piece_products(None, qt, kt.T.contiguous(), BF16X6)
+    s2 = s * torch.tensor(LOG2E / math.sqrt(d), dtype=torch.float32)
+    hidden = hidden_keys(rows, lkv, window is not None, diag, window,
+                         qt.device)
+    if hidden is not None:
+        s2 = s2.masked_fill(hidden[..., lo:], float("-inf"))
+    errs = {}
+    for order in ("one accumulator", "fresh"):
+        m = torch.full((rows,), float("-inf"))
+        l_row, o = torch.zeros(rows), torch.zeros(rows, d)
+        for j in range(0, s2.shape[-1], F32_CORE_TILE):
+            st = s2[:, j:j + F32_CORE_TILE]
+            m_new = torch.maximum(m, st.amax(dim=-1))
+            m_use = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            alpha = torch.exp2(m - m_use)[:, None]
+            p = torch.exp2(st - m_use[:, None])
+            l_row = l_row * alpha[:, 0] + p.sum(dim=-1)
+            vj = vt[j:j + F32_CORE_TILE]
+            if order == "fresh":
+                part = tc_piece_products(None, p, vj, BF16X6)
+                o = (o.double() * alpha.double() + part.double()).float()
+            else:
+                o = tc_piece_products(o * alpha, p, vj, BF16X6)
+            m = m_new
+        errs[order] = np.abs((o / l_row[:, None]).numpy() - oracle).max()
+    return errs
+
+
+@pytest.mark.parametrize("lkv,window", [(8192, None), (32768, 4096)])
+def test_fresh_pv_accumulator_reads_nearer_the_oracle(lkv, window):
+    """Under the tensor core model, O summed in one wgmma accumulator over
+    every key tile reads further from the f64 oracle than each tile's P V
+    in a fresh accumulator added in f32 (over twice as far), and the fresh
+    order stays within the small tier: 8192 keys, and the windowed
+    model's 32768 keys under its window of 4096."""
+    errs = _tensor_core_errors(lkv, window)
+    assert errs["fresh"] < SMALL_TOL, errs
+    assert errs["one accumulator"] > 2 * errs["fresh"], errs
 
 
 @pytest.mark.parametrize("mode", ["none", "causal", "window"])

@@ -11,11 +11,12 @@ three bf16 pieces (``tests/f32_pieces.py``):
 - H4-kvq f32 (``csrc/kvquant_attention.cu``, the f32 core): 32-key tiles,
   S = the three piece products of q against the exact codes (bf16x3),
   s * k_scale * scale * log2e, P * v_scale split and multiplied with the
-  V codes (bf16x3), l summing the unscaled p;
+  V codes (bf16x3) from zero, each tile's P V added to alpha O in f32, l
+  summing the unscaled p;
 - H5 f32 (``csrc/dtiled_attention.cu``): 32-key tiles, S the sum in f32,
   in chunk order, of each 128-column d-chunk's product in its own
   accumulator: bf16x6 for f32 K and V, bf16x3 against codes; P V as for
-  H4-kvq (bf16x6 for f32 V).
+  H4-kvq (bf16x6 for f32 V), but added into O's one accumulator.
 
 The emulations below repeat that arithmetic in f32 torch ops.  The limit
 is the JAX tests' own, 2e-5 of the f64 oracle over the dequantized K/V
@@ -70,12 +71,14 @@ JAX_QUANT = {"int8": jax_quant.quantize_int8, "fp8": jax_quant.quantize_fp8}
 QUANT = {"int8": quantize_int8, "fp8": quantize_fp8}
 
 
-def f32_emulation(q, k, v, scale, chunk):
+def f32_emulation(q, k, v, scale, chunk, fresh_pv):
     """The f32 kernels' arithmetic: 32-key tiles; S the sum over d-chunks
     of ``chunk`` columns of each chunk's piece products (bf16x6 for f32
     K, bf16x3 against codes), each from zero; s * (k_scale * f32(scale *
     log2e)) per key; the online softmax in the exp2 basis, l summing the
-    f32 p; O = alpha O + the piece products of P * v_scale and V."""
+    f32 p; O = alpha O + the piece products of P * v_scale and V, those
+    summed from zero and then added in f32 with ``fresh_pv`` (H4-kvq),
+    else added onto alpha O one by one (H5's one accumulator)."""
     if isinstance(k, QuantizedTensor):
         ks = _expand(k.scales, k.shape, k.block)[..., 0]
         vs = _expand(v.scales, v.shape, v.block)[..., 0]
@@ -99,20 +102,25 @@ def f32_emulation(q, k, v, scale, chunk):
         p = torch.exp2(s - m_new[..., None])
         alpha = torch.exp2(m - m_new)
         l_row = l_row * alpha + p.sum(-1)
-        o = piece_products(o * alpha[..., None], p * vs[..., None, t],
-                           v[..., t, :], terms)
+        pv = (p * vs[..., None, t], v[..., t, :], terms)
+        if fresh_pv:
+            o = o * alpha[..., None] + piece_products(0.0, *pv)
+        else:
+            o = piece_products(o * alpha[..., None], *pv)
         m = m_new
     return o / l_row[..., None]
 
 
 def h4kvq_f32(q, k_q, v_q, scale):
-    """H4-kvq at f32 q: one product over the whole head dim."""
-    return f32_emulation(q, k_q, v_q, scale, q.shape[-1])
+    """H4-kvq at f32 q: one product over the whole head dim, each tile's
+    P V in a fresh accumulator."""
+    return f32_emulation(q, k_q, v_q, scale, q.shape[-1], True)
 
 
 def h5_f32(q, k, v, scale):
-    """H5 at f32: S summed over 128-column d-chunks."""
-    return f32_emulation(q, k, v, scale, D_CHUNK)
+    """H5 at f32: S summed over 128-column d-chunks, P V into O's one
+    accumulator."""
+    return f32_emulation(q, k, v, scale, D_CHUNK, False)
 
 
 def _port(qt_jax) -> QuantizedTensor:

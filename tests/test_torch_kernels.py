@@ -1809,6 +1809,59 @@ def test_h1_f32_forms_spans_and_offsets(cuda_device, d):
     assert torch.equal(static[1], traced[1])
 
 
+# the f32 core over long key counts: O sums hundreds of key tiles, each
+# tile's P V in a fresh accumulator added to O in f32, so O stays within
+# the small tier (a sum in one wgmma accumulator drifts with the tiles)
+@pytest.mark.parametrize("b,hq,hkv,lq,lkv,d,causal,window,softmax", [
+    (2, 8, 8, 1024, 8200, 128, False, None, "exact"),   # TPU kernel B3's route
+    (2, 8, 8, 1024, 8200, 128, False, None, "bound"),
+    (2, 8, 8, 1024, 8200, 256, False, None, "exact"),   # 513 tiles of 16 keys
+    (1, 8, 1, 256, 32768, 128, False, None, "exact"),   # the windowed model's
+    (1, 8, 1, 256, 32768, 128, True, 4096, "exact"),    # keys and window
+])
+def test_h1_f32_over_long_key_counts(cuda_device, b, hq, hkv, lq, lkv, d,
+                                     causal, window, softmax):
+    """H1 at f32 over thousands of keys: one launch, O within 2e-5 of the
+    f64 plain run and of the plain f32 version."""
+    q, k, v = _f32_qkv(cuda_device, b, hq, hkv, lq, lkv, d, seed=lkv + d)
+    scale = 1.0 / math.sqrt(d)
+    before = prefill_attention.launches
+    o, _ = prefill_attention(q, k, v, scale, lkv - lq, causal, window,
+                             softmax=softmax)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 1
+    ref, _ = _f64_plain(q, k, v, scale, causal, lkv - lq, window)
+    assert (o.double() - ref).abs().max().item() <= F32_TOL
+    plain, _ = attention_plain(q, k, v, scale, causal, lkv - lq, window)
+    assert (o - plain).abs().max().item() <= F32_TOL
+
+
+def test_extend_f32_over_long_histories(cuda_device):
+    """H6-extend at f32 q after 8,000 and 4,609 tokens, without and with
+    the windowed model's window: within 1e-5 of the plain f32 version."""
+    cache, q, slots = _paged_case(cuda_device, 8, 4, 128, 128, [8000, 4609],
+                                  c=256)
+    q = q.float() + torch.randn(q.shape, device=cuda_device) * 1e-3
+    for window in (None, 4096):
+        o = paged_extend_attention(q, cache, slots, window=window)
+        ref = paged_extend_plain(q, cache, slots, 1.0 / math.sqrt(128),
+                                 window)
+        assert (o - ref).abs().max().item() <= F32_PAGED_TOL
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_kvquant_f32_over_8192_keys(cuda_device, kind):
+    """H4-kvq with f32 q over 8192 keys (TPU kernel B16's route, blocks of
+    128): within 2e-5 of the plain f32 version and of its f64 run."""
+    q, k, v = _f32_qkv(cuda_device, 1, 4, 4, 1024, 8192, 128, seed=26)
+    kq, vq = QUANT[kind](k, 128), QUANT[kind](v, 128)
+    o = flash_attention_kvquant(q, kq, vq)
+    scale = 1.0 / math.sqrt(128)
+    assert _max_err(o, attention_kvquant_plain(q, kq, vq, scale)) <= F32_TOL
+    assert _max_err(o, attention_kvquant_plain(q.double(), kq, vq,
+                                               scale)) <= F32_TOL
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_v2_f32_runs_h1_spans_then_h2(cuda_device, causal):
     """flash_attention_v2 at f32: H1 1 (f32 spans) and H2 1, O f32 within

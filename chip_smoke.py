@@ -22,7 +22,9 @@ Phases, one line each; any failure exits non-zero before the last line:
    H4-kvq, H5 and H6-extend function and in H4-int8's pv_mode bf16 ones,
    IGMMA in every H4-int8 function, and no HMMA or IMMA (the mma.sync and
    WMMA forms they replaced); every H2 function must load with 128-bit
-   global loads (LDG.E.128);
+   global loads (LDG.E.128); no instance of the f32 core or of H5 spills
+   or has its wgmma serialized, and every H5 cluster instance has
+   clusters that the card can hold (cudaOccupancyMaxActiveClusters);
 3. h1:     kernel H1 (the attention forward) vs its plain PyTorch
    version and the f64 oracle, causal, at the slice's shapes and one
    ragged case;
@@ -59,9 +61,11 @@ Phases, one line each; any failure exits non-zero before the last line:
    scaled_dot_product_attention over the dequantized bf16 tensors, and
    the int8 calls also with the per-call quantize_int8 of Q;
 7. dtiled: flash_attention_v1_dtiled (kernel H5) at d=512, B=4, H=8,
-   L=1024 with bf16, e4m3 and int8 K/V (bench/suite.py:279, :309) and a
-   ragged d=256 case, the suite's gate first; the last d-chunk left out
-   of S is a further control;
+   L=1024 with bf16, e4m3 and int8 K/V (bench/suite.py:279, :309), the
+   same at d 1024 and 2048 (clusters of 2 and 4 blocks that split d's
+   chunks) and ragged cases at d 64, 96, 144, 256 and 640, the suite's
+   gate first; the last d-chunk left out of S and, in a cluster, one
+   rank's partial only are further controls; times at d 512, 1024, 2048;
 8. decode: kernel H6-decode (paged INT8 decode, split across the SMs,
    the runs merged by the last block of each sequence and KV head),
    through paged_decode_attention, one launch per call, vs the plain
@@ -459,8 +463,10 @@ DTILED_GATE_TOL = 2e-3  # bench/suite.py:299, :334
 DTILED_O_TOL = 4e-3    # H5 vs the plain version over the whole tensor (32
                        # heads) and the oracle slice: p * v_scale rounded to
                        # bf16, as B19 does; the emulation reads <= 9.5e-4 on
-                       # one or two heads, an H100 1.32e-3 over 32 (fp8),
-                       # the controls 0.12 and up
+                       # one or two heads (<= 5.8e-4 at d 64 to 2048 in its
+                       # clusters' rank order), an H100 1.32e-3 over 32
+                       # (fp8), the controls 0.075 and up (the scale off
+                       # by 10% at d=96)
 
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, SXM data sheet
 H100_INT8_OPS = 1979e12       # dense int8 tensor-core peak, same source
@@ -549,13 +555,49 @@ INT8_CASES = [
      ("bf16", "int8"), 0, 1, {"bf16": INT8_RAGGED_TOL, "int8": INT8_PV8_TOL}),
 ]
 # the dtiled phase (bench/suite.py:279, :309): (case, B, H, Lq, Lkv, d,
-# kind, block, seed, heads refereed by the f64 oracle)
+# kind, block, seed, heads refereed by the f64 oracle).  Past the suite's:
+# d 1024 and 2048 at its shape (clusters of 2 and 4 blocks; f32 4 and 8),
+# and head dims off the 128-column chunks at the ragged shape (d 640 a
+# cluster of 2, f32 4).  The d=512, 1024 and 2048 cases are timed
 DTILED_CASES = [
     ("d=512 bf16", 4, 8, 1024, 1024, 512, "bf16", None, 1, 2),
     ("d=512 fp8", 4, 8, 1024, 1024, 512, "fp8", 512, 1, 2),
     ("d=512 int8", 4, 8, 1024, 1024, 512, "int8", 512, 1, 2),
     ("d=256 ragged bf16", 2, 8, 1000, 1100, 256, "bf16", None, 5, 2),
+    ("d=1024 bf16", 4, 8, 1024, 1024, 1024, "bf16", None, 1, 2),
+    ("d=1024 fp8", 4, 8, 1024, 1024, 1024, "fp8", 512, 1, 2),
+    ("d=1024 int8", 4, 8, 1024, 1024, 1024, "int8", 512, 1, 2),
+    ("d=2048 bf16", 4, 8, 1024, 1024, 2048, "bf16", None, 1, 2),
+    ("d=2048 fp8", 4, 8, 1024, 1024, 2048, "fp8", 512, 1, 2),
+    ("d=2048 int8", 4, 8, 1024, 1024, 2048, "int8", 512, 1, 2),
+    ("d=64 ragged bf16", 2, 8, 1000, 1100, 64, "bf16", None, 5, 2),
+    ("d=96 ragged bf16", 2, 8, 1000, 1100, 96, "bf16", None, 5, 2),
+    ("d=144 ragged bf16", 2, 8, 1000, 1100, 144, "bf16", None, 5, 2),
+    ("d=640 ragged bf16", 2, 8, 1000, 1100, 640, "bf16", None, 5, 2),
 ]
+DTILED_TIMED = ("d=512 ", "d=1024 ", "d=2048 ")
+
+
+def dtiled_controls(torch, qs, kd, vd, scale, f32):
+    """The controls of an H5 case that every form shares, the plain
+    version run wrongly on the refereed slice (K/V dequantized): the last
+    128-column d-chunk left out of S and, where h5_plan makes a cluster,
+    one rank's partial only (S over rank 0's columns)."""
+    from exploring_flash_attention_tpu_torch.ops import attention_plain
+    from exploring_flash_attention_tpu_torch.ops.attention_v1_dtiled import (
+        h5_plan,
+    )
+
+    d = qs.shape[3]
+    cut = 128 * ((d - 1) // 128)
+    bad = {"last d-chunk out of S": attention_plain(
+        qs[..., :cut], kd[..., :cut], vd, scale, False)[0]}
+    c, nc = h5_plan(d, f32)
+    if c > 1:
+        w = 128 * nc
+        bad["one rank's partial only"] = attention_plain(
+            qs[..., :w], kd[..., :w], vd, scale, False)[0]
+    return bad
 
 # the windowed model (A8): the JAX suite's long-context configuration
 # (bench/suite.py:1019-1024), its window; window_train's (B, L) (the
@@ -655,22 +697,25 @@ def phase_build(kernels):
         print(f"  ptxas: {ln}")
     print(f"phase build: ok {lib.relative_to(ROOT)} in {dt:.1f} s")
     check_sass(kernels)
-    check_f32_core_registers(kernels)
+    check_registers(kernels)
+    return h5_clusters(kernels)
 
 
 # the wgmma kernels' functions in the SASS: H1 (D 32, 64, 128, 256 x Q
 # tiles of 64 and 128 rows x the exact and bound statistics), H4-int8
 # (d 64, 128 x pv_mode), H4-kvq (d 64, 128 x int8, e4m3), H5 (d 128,
-# 256, 384, 512 x bf16, int8, e4m3), H3-dkv and H3-dq (D 32, 64, 128,
-# 256, and the exact forms of 64 and 128, whose d is a constant),
-# H6-extend (D 64, 128, 256)
+# 256, 384, 512 x bf16, int8, e4m3; its cluster instances, 1 to 4 chunks
+# a block x the same kinds), H3-dkv and H3-dq (D 32, 64, 128, 256, and the
+# exact forms of 64 and 128, whose d is a constant), H6-extend (D 64, 128,
+# 256)
 WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 4,
                    "kvquant_attention_kernel": 4,
                    "dtiled_attention_kernel": 12,
-                   # at f32: H4-kvq d 64, 128 x int8, e4m3; H5 d
-                   # 128, 256, 384, 512 x f32, int8, e4m3 K/V
+                   "dtiled_attention_cluster_kernel": 12,
+                   # at f32: H4-kvq d 64, 128 x int8, e4m3; H5 one and
+                   # two chunks a block x f32, int8, e4m3 K/V
                    "kvquant_attention_f32_kernel": 4,
-                   "dtiled_attention_f32_kernel": 12,
+                   "dtiled_attention_f32_kernel": 6,
                    "attention_bwd_dkv_kernel": 6,
                    "attention_bwd_dq_kernel": 6,
                    "paged_extend_kernel": 3,
@@ -719,24 +764,29 @@ def check_sass(kernels):
     print("phase sass: ok")
 
 
-# the f32 core's kernels (csrc/f32_attention.cuh) and their instances: H1
-# D 64/128/256 x the exact and bound statistics, H6-extend D 64/128/256,
-# H4-kvq d 64/128 x int8, e4m3
-F32_CORE_FUNCTIONS = {"prefill_attention_f32_kernel": 6,
+# the kernels whose every instance must hold its accumulators in
+# registers: the f32 core's (csrc/f32_attention.cuh: H1 D 64/128/256 x the
+# exact and bound statistics, H6-extend D 64/128/256, H4-kvq d 64/128 x
+# int8, e4m3) and H5's three families (WGMMA_FUNCTIONS)
+NO_SPILL_FUNCTIONS = {"prefill_attention_f32_kernel": 6,
                       "paged_extend_f32_kernel": 3,
-                      "kvquant_attention_f32_kernel": 4}
+                      "kvquant_attention_f32_kernel": 4,
+                      "dtiled_attention_kernel": 12,
+                      "dtiled_attention_cluster_kernel": 12,
+                      "dtiled_attention_f32_kernel": 6}
 
 
-def check_f32_core_registers(kernels):
+def check_registers(kernels):
     """Every instance of the f32 core holds O, its fresh P V accumulator
-    and P's fragments in registers: no spill (cuobjdump -res-usage: 0
-    STACK and LOCAL bytes, where spills land) and no wgmma serialized by
-    ptxas (its C75xx notes name no such function)."""
+    and P's fragments in registers, and every H5 instance its O chunks,
+    S and (f32) fresh P V: no spill (cuobjdump -res-usage: 0 STACK and
+    LOCAL bytes, where spills land) and no wgmma serialized by ptxas (its
+    C75xx notes name no such function)."""
     serial = [ln for ln in kernels.ptxas_report().splitlines()
-              if "(C75" in ln and any(f in ln for f in F32_CORE_FUNCTIONS)]
-    found = dict.fromkeys(F32_CORE_FUNCTIONS, 0)
+              if "(C75" in ln and any(f in ln for f in NO_SPILL_FUNCTIONS)]
+    found = dict.fromkeys(NO_SPILL_FUNCTIONS, 0)
     for name, u in sorted(kernels.res_usage().items()):
-        kind = next((f for f in F32_CORE_FUNCTIONS if f in name), None)
+        kind = next((f for f in NO_SPILL_FUNCTIONS if f in name), None)
         if kind is None:
             continue
         found[kind] += 1
@@ -744,10 +794,40 @@ def check_f32_core_registers(kernels):
               f"{u.get('REG')} STACK {u.get('STACK')} LOCAL {u.get('LOCAL')}")
         _require(u.get("STACK") == 0 and u.get("LOCAL") == 0,
                  f"{name} spills")
-    _require(found == F32_CORE_FUNCTIONS,
-             f"f32 core functions in the build: {found}")
-    _require(not serial, f"ptxas serializes the f32 core's wgmma: {serial}")
-    print("phase f32 core registers: ok")
+    _require(found == NO_SPILL_FUNCTIONS,
+             f"f32 core and H5 functions in the build: {found}")
+    _require(not serial, f"ptxas serializes wgmma: {serial}")
+    print("phase registers: ok")
+
+
+# a head dim of each cluster size of H5's plan (h5_plan): bf16 and
+# quantized C = 2 (d 640, 1024) and 4 (1152, 2048); f32 C = 2 (384, 512),
+# 4 (640, 1024) and 8 (1152, 2048)
+H5_CLUSTER_DIMS = {False: (640, 1024, 1152, 2048),
+                   True: (384, 512, 640, 1024, 1152, 2048)}
+
+
+def h5_clusters(kernels):
+    """cudaOccupancyMaxActiveClusters of every cluster instance of H5 a
+    head dim of H5_CLUSTER_DIMS launches, by K/V kind: each must be
+    positive (a launch the card refuses raises in the wrapper)."""
+    from exploring_flash_attention_tpu_torch.ops.attention_v1_dtiled import (
+        h5_plan,
+    )
+
+    lib, out = kernels.library(), {}
+    for f32, dims in H5_CLUSTER_DIMS.items():
+        for d in dims:
+            c, nc = h5_plan(d, f32)
+            n = [lib.eft_dtiled_clusters(d, int(f32), kind, 0)
+                 for kind in (0, 1, 2)]
+            key = f"{'f32 ' if f32 else ''}d={d} C={c} NC={nc}"
+            print(f"  H5 clusters active at once, {key} (bf16 or f32, "
+                  f"int8, e4m3 K/V): {n}")
+            _require(all(x > 0 for x in n), f"H5 {key}: clusters {n}")
+            out[key] = n
+    print("phase H5 clusters: ok")
+    return out
 
 
 def _bf16(torch, dev, gen, *shape):
@@ -1466,15 +1546,15 @@ def sdpa_backends(torch, q, k, v):
 def phase_dtiled(torch, dev):
     """flash_attention_v1_dtiled (H5) through its entry point: the suite's
     gates at d=512, one launch per call at the suite's shape with bf16,
-    fp8 and int8 K/V and a ragged d=256 case, each against the plain
-    version and the f64 oracle beside its controls, and the times of the
-    d=512 calls."""
+    fp8 and int8 K/V at d 512, 1024 and 2048 and ragged cases at d 64,
+    96, 144, 256 and 640, each against the plain version and the f64
+    oracle beside its controls, and the times of the d=512, 1024 and 2048
+    calls."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from exploring_flash_attention_tpu_torch.oracle import naive_attention
     from exploring_flash_attention_tpu_torch.ops import (
         attention_dtiled_plain,
-        attention_plain,
         dequantize,
         flash_attention_v1_dtiled,
         quantize_fp8,
@@ -1518,8 +1598,7 @@ def phase_dtiled(torch, dev):
         qs = q[:1, :nh]
         bad = {"scale x1.1": attention_dtiled_plain(qs, ks, vs, 1.1 * scale),
                "last tile dropped": attention_dtiled_plain(qs, *short, scale),
-               "last d-chunk out of S": attention_plain(
-                   qs[..., :-128], kd[..., :-128], vd, scale, False)[0]}
+               **dtiled_controls(torch, qs, kd, vd, scale, False)}
         if bad_rolled is not None:
             bad["scales rolled"] = bad_rolled
         err = held(torch, f"dtiled {case}: B={b} H={h} Lq={lq} Lkv={lkv} "
@@ -1530,7 +1609,7 @@ def phase_dtiled(torch, dev):
                    DTILED_O_TOL, DTILED_O_TOL, 1, nh, "; one H5 launch")
         out.setdefault("err", err)
         del o
-        if not case.startswith("d=512"):
+        if not case.startswith(DTILED_TIMED):
             continue
         flop = 4 * b * h * lq * lkv * d
         kv_bytes = (2 * b * h * lkv * d * 2 if kind == "bf16" else
@@ -1559,8 +1638,9 @@ def phase_dtiled(torch, dev):
               f"{t['ms']:.4f} ms = {flop / t['ms'] / 1e9:.1f} TFLOP/s, plain "
               f"{t['plain_ms']:.4f} ms, {lib_note}, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
-        out.setdefault("t", {})[kind] = t
+        out.setdefault("t", {})[case] = t
         del q, k, v
+    print(f"  dtiled on {card_line()}")
     print("phase dtiled: ok")
     return gates, out
 
@@ -6255,17 +6335,20 @@ def f32_train_readings(f32t, kern):
 # tensor) and of the f64 oracle over the dequantized K/V (a slice), beside
 # two known-wrong controls that must read beyond it: the bf16 kernel on
 # the inputs rounded to bf16, and the plain version with P rounded to
-# bf16.  A CPU emulation of each kernel's arithmetic reads <= 2.6e-7 of
-# the oracle on inputs made the same way, the controls >= 1.3e-4
+# bf16 (H5 also: its last d-chunk left out of S and, in a cluster, one
+# rank's partial only).  A CPU emulation of each kernel's arithmetic
+# reads <= 2.6e-7 of the oracle on inputs made the same way (H5 in its
+# clusters' rank order, d 640 to 2048: <= 2.0e-7), the controls >= 1.3e-4
 # (tests/test_torch_f32_ops.py).
 F32_OPS_TOL = 2e-5
 # H5's cases beyond DTILED_CASES (the same fields; "bf16" K/V are f32 in
-# this phase): d 128 and 384, and 4096 keys at d=512, where one O
-# accumulator sums 128 key tiles
+# this phase): d 128 and 384, and 4096 and 32768 keys at d=512, where O
+# sums 128 and 1024 key tiles' P V (each from a fresh accumulator)
 F32_DTILED_EXTRA = [
     ("d=128 ragged int8", 2, 8, 1000, 1100, 128, "int8", 128, 6, 2),
     ("d=384 ragged", 2, 8, 1000, 1100, 384, "bf16", None, 7, 2),
     ("d=512 Lkv=4096", 1, 8, 1024, 4096, 512, "bf16", None, 8, 1),
+    ("d=512 Lkv=32768", 1, 8, 1024, 32768, 512, "bf16", None, 9, 1),
 ]
 H4KVQ_F32_TERMS = 3            # bf16x3: q's pieces against the codes
 H5_F32_TERMS = {"bf16": 6, "int8": 3, "fp8": 3}
@@ -6282,7 +6365,8 @@ def rounded_p_plain(torch, q, k, v, scale):
 def f32_ops_case(torch, what, call, plain_fn, bf16_call, q, k, v, nh):
     """One f32_ops check: the entry point's call (one counted launch of
     the kernel ``call`` names) against the plain f32 version and the f64
-    oracle on [:1, :nh], beside both controls on that slice."""
+    oracle on [:1, :nh], beside both controls on that slice, and H5's
+    (dtiled_controls)."""
     from exploring_flash_attention_tpu_torch.ops import (
         QuantizedTensor,
         dequantize,
@@ -6303,6 +6387,8 @@ def f32_ops_case(torch, what, call, plain_fn, bf16_call, q, k, v, nh):
     bad = {"the bf16 kernel on bf16-rounded inputs":
                bf16_call(qs.bfloat16().contiguous(), kb, vb),
            "P rounded to bf16": rounded_p_plain(torch, qs, kd, vd, scale)}
+    if kern == "h5":
+        bad.update(dtiled_controls(torch, qs, kd, vd, scale, True))
     err = held(torch, what, o, plain_fn(q, k, v, scale), o64.cpu().numpy(),
                {n: x.cpu().numpy() for n, x in bad.items()}, F32_OPS_TOL,
                F32_OPS_TOL, 1, nh, f"; one {kern} launch")
@@ -6385,7 +6471,7 @@ def phase_f32_ops(torch, dev):
             lambda qb, kb, vb: flash_attention_v1_dtiled(qb, kb, vb,
                                                          out_dtype=f32),
             q, k, v, nh)
-        if case in [c[0] for c in DTILED_CASES[:3]]:
+        if case.startswith(DTILED_TIMED) and "Lkv" not in case:
             scale = 1.0 / math.sqrt(d)
             flop = 4 * b * h * lq * lkv * d
             kv_bytes = (2 * b * h * lkv * d * 4 if kind == "bf16" else
@@ -6402,7 +6488,7 @@ def phase_f32_ops(torch, dev):
             backends = ""
             if kind == "bf16":
                 t["library_backends_ms"], _ = sdpa_backends(torch, q, k, v)
-                backends = " (backends that take f32 d=512: " + ", ".join(
+                backends = f" (backends that take f32 d={d}: " + ", ".join(
                     f"{n} {x:.4f} ms"
                     for n, x in t["library_backends_ms"].items()) + ")"
             terms = "bf16x6" if kind == "bf16" else "bf16x3"
@@ -6413,7 +6499,7 @@ def phase_f32_ops(torch, dev):
                   f"{t['plain_ms']:.4f} ms, SDPA f32"
                   f"{'' if kind == 'bf16' else ' over the dequantized K/V'} "
                   f"{t['library_ms']:.4f} ms{backends}")
-            out["h5"]["t"][label.split()[-1]] = t
+            out["h5"]["t"][label] = t
             del kd, vd
         del q, k, v
     print(f"  f32_ops on {card_line()}")
@@ -6426,7 +6512,7 @@ def f32_ops_entry(f32ops, kern, name, source, replaces, also):
     numbers at the canonical int8 (H4-kvq) or dense d=512 (H5) call, every
     case's readings beside it."""
     r = f32ops[kern]
-    main = "int8" if kern == "h4kvq" else "f32"
+    main = "int8" if kern == "h4kvq" else "d=512 f32"
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "also_replaces": also, "launches": 1,
             "max_abs_err": max(c["max_abs_err"] for c in r["cases"].values()),
@@ -6544,7 +6630,7 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    phase_build(kernels)
+    h5_occupancy = phase_build(kernels)
     if only is not None:
         run_only(torch, dev, only)
         _require("jax" not in sys.modules, "JAX was imported")
@@ -6815,13 +6901,15 @@ def main(argv) -> int:
                      if n != "canonical bf16"},
          "gates": {n: x for n, x in quant_gates.items()
                    if n.startswith("int8")}},
-        {"name": "H5 d-tiled attention forward (bf16, int8, e4m3 K/V)",
+        {"name": "H5 d-tiled attention forward (bf16, int8, e4m3 K/V; d a "
+                 "multiple of 16 from 16 to 2048, clusters past 512)",
          "route": "cuda", "source": H5_SRC, "replaces": f"{DTILED_PY}:75",
          "launches": h5["launches"], "max_abs_err": h5["err"],
-         **h5["t"]["bf16"], "design": "wgmma",
-         "bound_share": h5["t"]["bf16"]["bound_ms"] / h5["t"]["bf16"]["ms"],
-         "by_kind": {n: x for n, x in h5["t"].items() if n != "bf16"},
-         "gates": dtiled_gates},
+         **h5["t"]["d=512 bf16"], "design": "wgmma",
+         "bound_share": (h5["t"]["d=512 bf16"]["bound_ms"]
+                         / h5["t"]["d=512 bf16"]["ms"]),
+         "by_case": {n: x for n, x in h5["t"].items() if n != "d=512 bf16"},
+         "clusters_active": h5_occupancy, "gates": dtiled_gates},
         # the f32_ops phase: the f32 forms, each call one launch; the
         # numbers of the canonical int8 (H4-kvq) and dense d=512 (H5)
         # calls, library_ms SDPA at f32 (over the dequantized K/V for

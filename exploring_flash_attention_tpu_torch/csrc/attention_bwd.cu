@@ -1469,27 +1469,6 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q,      // [B*Hq, Lq, d]
   if constexpr (T::CLUSTER > 1) cluster_sync();
 }
 
-// The launch of the cluster instance (D=256) over (x heads, y tiles): x *
-// CLUSTER blocks along x, CLUSTER neighbouring ones a cluster.  Used in
-// place (cfg points at cluster).
-struct ClusterLaunch {
-  using T = F32Tiles<256>;
-  cudaLaunchAttribute cluster[1];
-  cudaLaunchConfig_t cfg = {};
-  ClusterLaunch(int x, int y, cudaStream_t stream) {
-    cluster[0].id = cudaLaunchAttributeClusterDimension;
-    cluster[0].val.clusterDim.x = T::CLUSTER;
-    cluster[0].val.clusterDim.y = 1;
-    cluster[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(x * T::CLUSTER, y);
-    cfg.blockDim = dim3(F32_THREADS);
-    cfg.dynamicSmemBytes = T::bytes;
-    cfg.stream = stream;
-    cfg.attrs = cluster;
-    cfg.numAttrs = 1;
-  }
-};
-
 // The launch of an f32 kernel of instance D over (x heads, y tiles)
 template <int D, class Kernel, class... Args>
 int launch_f32(Kernel kernel, int x, int y, cudaStream_t stream,
@@ -1500,7 +1479,9 @@ int launch_f32(Kernel kernel, int x, int y, cudaStream_t stream,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
   if (attr != cudaSuccess) return int(attr);
   if constexpr (T::CLUSTER > 1) {
-    ClusterLaunch l(x, y, stream);
+    // x * CLUSTER blocks along x, CLUSTER neighbouring ones a cluster
+    const ClusterLaunch l(dim3(x * T::CLUSTER, y), T::CLUSTER, F32_THREADS,
+                          T::bytes, stream);
     const cudaError_t err = cudaLaunchKernelEx(&l.cfg, kernel, args...);
     if (err != cudaSuccess) return int(err);
   } else {
@@ -1653,7 +1634,8 @@ extern "C" int eft_attention_bwd_f32_clusters(int kernel, int device) {
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
   if (err != cudaSuccess) return -int(err);
-  const ClusterLaunch l(1, 1, nullptr);
+  const ClusterLaunch l(dim3(T::CLUSTER), T::CLUSTER, F32_THREADS, T::bytes,
+                        nullptr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, fn, &l.cfg);
   return err == cudaSuccess ? n : -int(err);

@@ -1,7 +1,7 @@
-// H5: the d-tiled attention forward on Hopper (sm_90a), for head dims 128
-// to 512 (multiples of 128).  bf16 Q; K and V bf16, or int8 or e4m3 codes
-// with one f32 scale per `block` keys; non-causal, f32 accumulate, bf16
-// or f32 O.  f32 Q (with f32 K and V, or codes) takes
+// H5: the d-tiled attention forward on Hopper (sm_90a), for head dims d a
+// multiple of 16 from 16 to 2048.  bf16 Q; K and V bf16, or int8 or e4m3
+// codes with one f32 scale per `block` keys; non-causal, f32 accumulate,
+// bf16 or f32 O.  f32 Q (with f32 K and V, or codes) takes
 // dtiled_attention_f32_kernel, in the second half of this file.
 //
 // Replaces the TPU kernel
@@ -17,48 +17,80 @@
 // bf16, against 134 MB of bf16 Q, K, V and O (0.040 ms at 3.35 TB/s):
 // bound by the tensor cores, which only wgmma reaches.
 //
+// The plan (ops/attention_v1_dtiled.py h5_plan, checked again by the C
+// entry): d is cut into 128-column chunks, ceil(d / 128) of them, and a
+// call is one launch of clusters of C blocks, block r of a cluster holding
+// chunks [r NC, r NC + NC): C = 1 up to 4 chunks (d 512), 2 up to 8, 4 up
+// to 16, NC = ceil(chunks / C) (f32: NC <= 2, C = 1, 2, 4, 8).  Columns at
+// or past d, in a block's last chunks, are zero-filled by TMA on the load
+// (Q, K and V are described with their true d, a multiple of 16, so every
+// row stride is a multiple of 16 bytes) and clipped by the store.  A d
+// that is 128 NC with C = 1 (128, 256, 384, 512) runs on
+// dtiled_attention_kernel, the single-block design below; every other d
+// on dtiled_attention_cluster_kernel, the same block with the cluster's
+// exchange of S (a cluster of one where C = 1: a d that is not a multiple
+// of 128 up to 512), whose epilogue takes the row stride d at run time.
+//
 // Design (wgmma_tile.cuh).  At d=512 a 64-row O accumulator is 256 f32
 // registers per thread of a warpgroup (over the 255 limit) and a 128-row
 // bf16 Q tile 128 KB, so O is split by its 128-wide d-chunks across
-// warpgroups.  One block per (batch*head, 64-row Q tile), the Q tiles of a
-// head next to each other in the grid, has d / 128 consumer warpgroups and
+// warpgroups.  One block per (batch*head, 64-row Q tile) (per cluster
+// rank: the C blocks of a cluster neighbours in the grid), the Q tiles of
+// a head next to each other in the grid, has NC consumer warpgroups and
 // one producer warpgroup:
 //   - the producer warpgroup writes each 64-key tile's scale factors
 //     (k_scale * scale * log2e, v_scale; 0 past Lkv) into one of two
-//     buffers, and its first thread loads the Q tile once and then streams
-//     the tile's K chunks and V chunks (64 keys x 128 columns each) by TMA:
-//     bf16 straight into a ring of eight 16 KB chunk slots; codes into a
-//     ring of four 8 KB code slots, from which all its 128 threads convert
-//     them into six chunk slots (bf16, exact; wgmma_tile.cuh);
-//   - consumer warpgroup 0 computes all of S = Q K^T over the d-chunks on
+//     buffers, and its first thread loads the Q tile (the block's
+//     columns) once and then streams the tile's K chunks and V chunks (64
+//     keys x 128 columns each) by TMA: bf16 straight into a ring of eight
+//     16 KB chunk slots; codes into a ring of four 8 KB code slots, from
+//     which all its 128 threads convert them into six chunk slots (bf16,
+//     exact; wgmma_tile.cuh);
+//   - consumer warpgroup 0 computes S = Q K^T over the block's d-chunks on
 //     bf16 wgmma (m64n64k16, K-major operands), in one fixed order, so the
-//     sum is the same bit for bit from run to run; then the online softmax
-//     in registers (columns at or past Lkv masked, MUFU.EX2), P = bf16(p *
-//     v_scale) as its A fragment in registers, and with d > 128 it also
-//     writes P into one of two swizzled shared tiles and each row's alpha
-//     beside it;
-//   - consumer warpgroup c owns O[:, 128 c : 128 c + 128] in 64 f32
-//     registers per thread: O_c = alpha O_c + P V_c on m64n128k16 wgmma,
-//     V's chunk MN-major from its slot, P from registers (c = 0) or from
-//     the shared tile (c > 0).  No product is repeated;
+//     sum is the same bit for bit from run to run; in a cluster of C > 1
+//     that is the block's partial, and S is the sum of the C partials
+//     (exchange_s below); then the online softmax in registers (columns
+//     at or past Lkv masked, MUFU.EX2), P = bf16(p * v_scale) as its A
+//     fragment in registers, and with NC > 1 it also writes P into one of
+//     two swizzled shared tiles and each row's alpha beside it;
+//   - consumer warpgroup c owns the block's O columns [128 c, 128 c + 128)
+//     in 64 f32 registers per thread: O_c = alpha O_c + P V_c on
+//     m64n128k16 wgmma, V's chunk MN-major from its slot, P from registers
+//     (c = 0) or from the shared tile (c > 0).  No product is repeated;
 //   - the epilogue divides by l, which warpgroup 0 hands over in shared
 //     memory, and each warpgroup stores its 128 columns.
 // Warpgroup 0 carries the S products (half the operations) and the
 // softmax: the others' P V of tile i overlaps its S of tile i + 1.
 //
-// Budget at d=512: shared memory Q 64 KB, eight 16 KB chunk slots (bf16;
-// quantized: six, plus four 8 KB code slots), two P tiles 16 KB: ~210 KB.
-// Registers (setmaxnreg): at d=512 640 threads share 96 each at launch;
-// the producer gives up 56, which warpgroup 0 takes (152: S 32 + O 64 +
-// P 16), the other three keep 96 (O 64); at d=384 warpgroup 0 takes 216.
-// At d=256 the producer's 128 registers go to both consumer warpgroups
-// (232 each); at d=128 a block of 256 threads needs no transfer.
+// The exchange (cluster instances, C > 1): each block's warpgroup 0 writes
+// its partial S of a tile (64 x 64 f32, 16 KB; f32 form 64 x 32, 8 KB)
+// into its own exchange buffer, arrives on every rank's "written" barrier,
+// waits on its own for all C ranks, reads the C partials through
+// distributed shared memory in rank order 0..C-1 and adds them from zero,
+// then arrives on every rank's "read" barrier, which a block waits on
+// before it writes its next partial.  Every block of a cluster so holds
+// the same S bit for bit, and with it the same m, l and P: each computes
+// the softmax itself and stores its own columns of O.  The blocks of a
+// cluster share (batch*head, Q tile), so they walk the same key tiles.
+//
+// Budget at NC = 4: shared memory Q 64 KB, eight 16 KB chunk slots (bf16;
+// quantized: six, plus four 8 KB code slots), two P tiles 16 KB: ~210 KB,
+// and in the cluster instance the 16 KB exchange buffer: 232,416 of the
+// 232,448 bytes a block may take.  Registers (setmaxnreg): at NC = 4 640
+// threads share 96 each at launch; the producer gives up 56, which
+// warpgroup 0 takes (152: S 32 + O 64 + P 16), the other three keep 96 (O
+// 64); at NC = 3 warpgroup 0 takes 216.  At NC = 2 the producer's 128
+// registers go to both consumer warpgroups (232 each); at NC = 1 a block
+// of 256 threads needs no transfer.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "f32_attention.cuh"
 #include "wgmma_tile.cuh"
@@ -70,13 +102,17 @@ using namespace eft::hopper;
 constexpr int BQ = 64;           // Q rows per block
 constexpr int BKV = 64;          // keys per K/V tile
 constexpr int DC = 128;          // d-chunk: the columns of one warpgroup's O
-constexpr int MAX_NC = 4;        // d up to 512
+constexpr int MAX_NC = 4;        // chunks a block
+constexpr int F32_MAX_NC = 2;    // chunks a block of the f32 kernel
+constexpr int MAX_CLUSTER = 8;   // blocks a cluster, the portable limit
+constexpr int MIN_D = 16, MAX_D = 2048;
 constexpr int CONVERTERS = 128;  // quantized: the whole producer warpgroup
 constexpr int L_BAR = 1;         // named barrier: l handed over
 constexpr int SLOT_BAR = 2;      // named barrier: a code slot (f32: a
                                  // staging buffer) read
 
-template <int NC, int KIND>
+// CL: the cluster instance, with the exchange buffer and its barriers
+template <int NC, int KIND, bool CL = false>
 struct Cfg {
   static constexpr int D = NC * DC;
   static constexpr int THREADS = (NC + 1) * 128;
@@ -101,9 +137,13 @@ struct Cfg {
   static constexpr size_t alpha = p + 2 * size_t(P_BYTES);  // [2][64]
   static constexpr size_t lsum = alpha + 2 * BQ * 4;         // [64]
   static constexpr size_t scales = lsum + BQ * 4;            // [2][2][64]
-  static constexpr size_t bars = scales + 4 * BKV * 4;
-  static constexpr int N_BARS = 2 * SLOTS + CODE_SLOTS + 1 + 9;
+  static constexpr size_t xchg = scales + 4 * BKV * 4;       // [8][128] x 16
+  static constexpr uint32_t X_BYTES = CL ? BQ * BKV * 4 : 0;
+  static constexpr size_t bars = xchg + X_BYTES;
+  static constexpr int N_BARS = 2 * SLOTS + CODE_SLOTS + 1 + 9 + (CL ? 2 : 0);
+  static constexpr size_t xbars = bars + 8 * (N_BARS - 2);   // CL: [2]
   static constexpr size_t bytes = bars + 8 * N_BARS + 1024;
+  static_assert(bytes <= 232448, "the block's shared memory");
 };
 
 // The barriers of one block, in shared memory
@@ -124,6 +164,58 @@ __device__ __forceinline__ void rescale(float (&acc)[DC / 2],
   for (int e = 0; e < DC / 2; ++e) acc[e] *= a[acc_row8(e) / 8];
 }
 
+// S of one key tile in a cluster of `ranks` blocks (the file's comment):
+// this thread's N values of the block's partial s into the exchange buffer
+// x (16-byte chunk c of thread t at 128 c + t), then s = the sum from zero
+// of every rank's partial, read through distributed shared memory in rank
+// order, 16 values (4 loads in flight) at a time: at NC = 4 warpgroup 0
+// holds O and S beside them in its 152 registers.  xbar[0]: "written",
+// xbar[1]: "read", each completing once a tile on the arrivals of 128
+// threads of every rank.
+template <int N>
+__device__ __forceinline__ void exchange_s(float (&s)[N], float4* x,
+                                           uint64_t* xbar, int i,
+                                           uint32_t ranks) {
+  const int t = threadIdx.x % 128;
+  mbar_wait_cluster(&xbar[1], (i & 1) ^ 1);   // every rank read tile i - 1's
+#pragma unroll
+  for (int c = 0; c < N / 4; ++c) {
+    x[128 * c + t] = make_float4(s[4 * c], s[4 * c + 1], s[4 * c + 2],
+                                 s[4 * c + 3]);
+    s[4 * c] = s[4 * c + 1] = s[4 * c + 2] = s[4 * c + 3] = 0.f;
+  }
+  for (uint32_t r = 0; r < ranks; ++r)
+    mbar_arrive_peer(peer_smem(&xbar[0], r));
+  mbar_wait_cluster(&xbar[0], i & 1);
+#pragma unroll
+  for (int g = 0; g < N / 16; ++g) {
+    for (uint32_t r = 0; r < ranks; ++r) {
+      const uint32_t at = peer_smem(x + 128 * 4 * g + t, r);
+      float4 a[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a[c] = ld_peer_v4(at + 128 * 16 * c);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float* v = s + 16 * g + 4 * c;
+        v[0] += a[c].x;
+        v[1] += a[c].y;
+        v[2] += a[c].z;
+        v[3] += a[c].w;
+      }
+    }
+  }
+  for (uint32_t r = 0; r < ranks; ++r)
+    mbar_arrive_peer(peer_smem(&xbar[1], r));
+}
+
+// the block's first column of d in its cluster (rank r holds [r D, r D +
+// D)), read where it is needed rather than held in a register across the
+// key loop (the NC = 4 warpgroups have none to spare)
+template <int D>
+__device__ __forceinline__ int first_col() {
+  return int(cluster_rank()) * D;
+}
+
 // the MN-major descriptor of k-step kk (16 keys) of a V chunk slot
 __device__ __forceinline__ uint64_t v_desc(const unsigned char* slot,
                                            int kk) {
@@ -141,14 +233,15 @@ __device__ __forceinline__ int item(int i, int u) {
 // slots.  Quantized: its first thread loads Q and the code chunks, each
 // once its code slot's last chunk is converted, and all 128 threads write
 // the scale factors and convert each code chunk into its chunk slot,
-// agreeing (a named barrier) that a code slot is read before its next load
-template <int NC, int KIND>
+// agreeing (a named barrier) that a code slot is read before its next load.
+// CL: the loads start at the block's first column of d
+template <int NC, int KIND, bool CL>
 __device__ __forceinline__ void produce(
     const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
     unsigned char* smem, Bars<NC, KIND>* bars, const float* ks,
     const float* vs, int bh, int q0, int lkv, int block, int n_blocks,
     int n_tiles, float scale_log2) {
-  using C = Cfg<NC, KIND>;
+  using C = Cfg<NC, KIND, CL>;
   const int pt = threadIdx.x - NC * 128;
   unsigned char* chunks = smem + C::chunks;
   float* sscale = reinterpret_cast<float*>(smem + C::scales);
@@ -173,8 +266,8 @@ __device__ __forceinline__ void produce(
   if (pt == 0) {
     mbar_arrive_expect_tx(&bars->q_full, C::Q_BYTES);
     for (int x = 0; x < 2 * NC; ++x)
-      tma_load_3d(smem + C::q + x * BQ * 128, tq, &bars->q_full, x * 64, q0,
-                  bh);
+      tma_load_3d(smem + C::q + x * BQ * 128, tq, &bars->q_full,
+                  (CL ? first_col<C::D>() : 0) + x * 64, q0, bh);
   }
   if constexpr (C::QUANT) {
     unsigned char* codes = smem + C::codes;
@@ -183,7 +276,9 @@ __device__ __forceinline__ void produce(
       const int cs = j % C::CODE_SLOTS, u = j % (2 * NC);
       mbar_arrive_expect_tx(&bars->code_full[cs], C::CODE_BYTES);
       tma_load_3d(codes + cs * C::CODE_BYTES, u < NC ? tk : tv,
-                  &bars->code_full[cs], (u % NC) * DC, j / (2 * NC) * BKV, bh);
+                  &bars->code_full[cs],
+                  (CL ? first_col<C::D>() : 0) + (u % NC) * DC,
+                  j / (2 * NC) * BKV, bh);
     };
     if (pt == 0)
       for (int j = 0; j < C::CODE_SLOTS && j < total; ++j) load_codes(j);
@@ -213,7 +308,8 @@ __device__ __forceinline__ void produce(
       if (pt == 0) {
         for (int u = 0; u < 2 * NC; ++u) {
           const int j = item<NC>(i, u);
-          const int s = j % C::SLOTS, col = (u % NC) * DC;
+          const int s = j % C::SLOTS;
+          const int col = (CL ? first_col<C::D>() : 0) + (u % NC) * DC;
           const CUtensorMap* map = u < NC ? tk : tv;
           mbar_wait(&bars->chunk_empty[s], ((j / C::SLOTS) & 1) ^ 1);
           mbar_arrive_expect_tx(&bars->chunk_full[s], C::CHUNK_BYTES);
@@ -228,13 +324,15 @@ __device__ __forceinline__ void produce(
   }
 }
 
-// Consumer warpgroup 0: S over every d-chunk, the softmax, P (registers,
-// and for the other warpgroups a shared tile), its own O chunk
-template <int NC, int KIND>
+// Consumer warpgroup 0: S over every d-chunk (the block's, then with CL
+// the cluster's sum of the ranks' partials), the softmax, P (registers,
+// and for the other warpgroups a shared tile), its own O chunk.  CL: the
+// row stride of O is d, and the block's columns start at first_col
+template <int NC, int KIND, bool CL>
 __device__ __forceinline__ void consume_first(
     unsigned char* smem, Bars<NC, KIND>* bars, void* o, int out_f32, int lq,
-    int lkv, int q0, int bh, int n_tiles) {
-  using C = Cfg<NC, KIND>;
+    int lkv, int q0, int bh, int n_tiles, int d = 0) {
+  using C = Cfg<NC, KIND, CL>;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int rl = warp * 16 + lane / 4;       // first owned row of the tile
@@ -282,6 +380,12 @@ __device__ __forceinline__ void consume_first(
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       mbar_arrive(&bars->chunk_empty[item<NC>(i, c) % C::SLOTS]);
+    if constexpr (CL) {
+      if (cluster_size() > 1)
+        exchange_s(acc_s, reinterpret_cast<float4*>(smem + C::xchg),
+                   reinterpret_cast<uint64_t*>(smem + C::xbars), i,
+                   cluster_size());
+    }
 
     // the online softmax: s * (k_scale * scale * log2e) per column, the
     // columns past Lkv masked unless the tile is whole
@@ -376,17 +480,22 @@ __device__ __forceinline__ void consume_first(
     }
     named_bar_sync(L_BAR, NC * 128);
   }
-  store_o_rows<DC>(acc_o, l, m, q0 + rl, lq, size_t(bh) * lq, o, out_f32,
-                   nullptr, C::D, 0);
+  if constexpr (CL) {
+    const int c0 = first_col<C::D>();
+    store_o_rows<DC>(acc_o, l, m, q0 + rl, lq, size_t(bh) * lq, o, out_f32,
+                     nullptr, d, c0, d - c0);
+  } else
+    store_o_rows<DC>(acc_o, l, m, q0 + rl, lq, size_t(bh) * lq, o, out_f32,
+                     nullptr, C::D, 0);
 }
 
 // Consumer warpgroup c > 0: O_c = alpha O_c + P V_c, P from the shared
 // tile warpgroup 0 wrote
-template <int NC, int KIND>
+template <int NC, int KIND, bool CL>
 __device__ __forceinline__ void consume_chunk(
     unsigned char* smem, Bars<NC, KIND>* bars, void* o, int out_f32, int lq,
-    int q0, int bh, int n_tiles) {
-  using C = Cfg<NC, KIND>;
+    int q0, int bh, int n_tiles, int d = 0) {
+  using C = Cfg<NC, KIND, CL>;
   const int wg = threadIdx.x / 128;
   const int warp = threadIdx.x / 32 % 4;
   const int lane = threadIdx.x % 32;
@@ -426,8 +535,13 @@ __device__ __forceinline__ void consume_chunk(
   const float l[2] = {lane % 4 == 0 ? sl[rl] : 0.f,
                       lane % 4 == 0 ? sl[rl + 8] : 0.f};
   const float m[2] = {0.f, 0.f};
-  store_o_rows<DC>(acc_o, l, m, q0 + rl, lq, size_t(bh) * lq, o, out_f32,
-                   nullptr, C::D, wg * DC);
+  if constexpr (CL) {
+    const int col = first_col<C::D>() + wg * DC;
+    store_o_rows<DC>(acc_o, l, m, q0 + rl, lq, size_t(bh) * lq, o, out_f32,
+                     nullptr, d, col, d - col);
+  } else
+    store_o_rows<DC>(acc_o, l, m, q0 + rl, lq, size_t(bh) * lq, o, out_f32,
+                     nullptr, C::D, wg * DC);
 }
 
 template <int NC, int KIND>
@@ -470,16 +584,125 @@ dtiled_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
 
   if (wg == NC) {
     if constexpr (C::PRODUCER_REGS > 0) setmaxnreg_dec<C::PRODUCER_REGS>();
-    produce<NC, KIND>(&tq, &tk, &tv, smem, bars, ks, vs, bh, q0, lkv, block,
-                      n_blocks, n_tiles, scale_log2);
+    produce<NC, KIND, false>(&tq, &tk, &tv, smem, bars, ks, vs, bh, q0, lkv,
+                             block, n_blocks, n_tiles, scale_log2);
   } else if (wg == 0) {
     if constexpr (C::WG0_REGS > 0) setmaxnreg_inc<C::WG0_REGS>();
-    consume_first<NC, KIND>(smem, bars, o, out_f32, lq, lkv, q0, bh,
-                            n_tiles);
+    consume_first<NC, KIND, false>(smem, bars, o, out_f32, lq, lkv, q0, bh,
+                                   n_tiles);
   } else if constexpr (NC > 1) {
     if constexpr (C::OTHER_REGS > 0) setmaxnreg_inc<C::OTHER_REGS>();
-    consume_chunk<NC, KIND>(smem, bars, o, out_f32, lq, q0, bh, n_tiles);
+    consume_chunk<NC, KIND, false>(smem, bars, o, out_f32, lq, q0, bh,
+                                   n_tiles);
   }
+}
+
+// The same block in a cluster of C = %cluster_nctarank blocks along x
+// (the launch's cluster dimension; 1 for a d that is not a multiple of
+// 128 up to 512), rank r holding d's columns [r D, r D + D) with D = 128
+// NC, cut at d (a multiple of 16, the row stride of q, k, v and o)
+template <int NC, int KIND>
+__global__ void __launch_bounds__(Cfg<NC, KIND, true>::THREADS, 1)
+dtiled_attention_cluster_kernel(
+    const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
+    const __grid_constant__ CUtensorMap tk,  // [BH, Lkv, d]
+    const __grid_constant__ CUtensorMap tv,  // [BH, Lkv, d]
+    const float* __restrict__ ks,            // [BH, n_blocks] or null
+    const float* __restrict__ vs,            // [BH, n_blocks] or null
+    void* __restrict__ o,                    // [BH, Lq, d]
+    int out_f32, int lq, int lkv, int d, int block, int n_blocks,
+    float scale_log2) {
+  using C = Cfg<NC, KIND, true>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  auto* bars = reinterpret_cast<Bars<NC, KIND>*>(smem + C::bars);
+  auto* xbar = reinterpret_cast<uint64_t*>(smem + C::xbars);
+
+  const uint32_t ranks = cluster_size();
+  const int n_qt = (lq + BQ - 1) / BQ;
+  const int tile = blockIdx.x / ranks;
+  const int bh = tile / n_qt;
+  const int q0 = (tile % n_qt) * BQ;
+  const int n_tiles = (lkv + BKV - 1) / BKV;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::SLOTS; ++s) {
+      mbar_init(&bars->chunk_full[s], C::QUANT ? CONVERTERS : 1);
+      mbar_init(&bars->chunk_empty[s], 128);
+    }
+    for (int s = 0; s < C::CODE_SLOTS; ++s) mbar_init(&bars->code_full[s], 1);
+    for (int t = 0; t < 2; ++t) {
+      mbar_init(&bars->sc_full[t], C::QUANT ? CONVERTERS : 32);
+      mbar_init(&bars->sc_empty[t], 128);
+      mbar_init(&bars->p_full[t], 128);
+      mbar_init(&bars->p_empty[t], NC > 1 ? (NC - 1) * 128 : 1);
+      mbar_init(&xbar[t], 128 * ranks);
+    }
+    mbar_init(&bars->q_full, 1);
+    mbar_init_fence();
+  }
+  cluster_sync();             // every rank's barriers ready
+
+  if (wg == NC) {
+    if constexpr (C::PRODUCER_REGS > 0) setmaxnreg_dec<C::PRODUCER_REGS>();
+    produce<NC, KIND, true>(&tq, &tk, &tv, smem, bars, ks, vs, bh, q0, lkv,
+                            block, n_blocks, n_tiles, scale_log2);
+  } else if (wg == 0) {
+    if constexpr (C::WG0_REGS > 0) setmaxnreg_inc<C::WG0_REGS>();
+    consume_first<NC, KIND, true>(smem, bars, o, out_f32, lq, lkv, q0, bh,
+                                  n_tiles, d);
+  } else if constexpr (NC > 1) {
+    if constexpr (C::OTHER_REGS > 0) setmaxnreg_inc<C::OTHER_REGS>();
+    consume_chunk<NC, KIND, true>(smem, bars, o, out_f32, lq, q0, bh, n_tiles,
+                                  d);
+  }
+  cluster_sync();             // no rank still reads this block's buffer
+}
+
+// one launch of `kernel` over `tiles` (batch*head, Q tile) pairs, a cluster
+// of `ranks` blocks each
+template <class Kernel, class... Args>
+int launch_clusters(Kernel kernel, int threads, size_t bytes, int tiles,
+                    int ranks, cudaStream_t stream, Args... args) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (attr != cudaSuccess) return int(attr);
+  const ClusterLaunch l(dim3(tiles * ranks), ranks, threads, bytes, stream);
+  const cudaError_t err = cudaLaunchKernelEx(&l.cfg, kernel, args...);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// The most clusters of `ranks` blocks of `kernel` active at once on the
+// current device (cudaOccupancyMaxActiveClusters), or minus a cudaError_t
+template <class Kernel>
+int max_clusters(Kernel kernel, int threads, size_t bytes, int ranks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return -int(err);
+  const ClusterLaunch l(dim3(ranks), ranks, threads, bytes, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &n, reinterpret_cast<const void*>(kernel), &l.cfg);
+  return err == cudaSuccess ? n : -int(err);
+}
+
+// The TMA descriptors of the bf16 and quantized blocks: Q and bf16 K / V in
+// 64-column boxes, codes in 128-column ones, described with their true d
+template <int KIND>
+int make_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
+              const void* q, const void* k, const void* v, int d, int bh,
+              int lq, int lkv) {
+  int err = make_tmap(tq, q, 2, d, lq, bh, 64, BQ, 128);
+  if (KIND != KV_BF16) {
+    if (!err) err = make_tmap(tk, k, 1, d, lkv, bh, DC, BKV, 0);
+    if (!err) err = make_tmap(tv, v, 1, d, lkv, bh, DC, BKV, 0);
+  } else {
+    if (!err) err = make_tmap(tk, k, 2, d, lkv, bh, 64, BKV, 128);
+    if (!err) err = make_tmap(tv, v, 2, d, lkv, bh, 64, BKV, 128);
+  }
+  return err;
 }
 
 template <int NC, int KIND>
@@ -488,14 +711,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            int block, int n_blocks, float scale_log2, cudaStream_t stream) {
   using C = Cfg<NC, KIND>;
   CUtensorMap tq, tk, tv;
-  int err = make_tmap(&tq, q, 2, C::D, lq, bh, 64, BQ, 128);
-  if (C::QUANT) {
-    if (!err) err = make_tmap(&tk, k, 1, C::D, lkv, bh, DC, BKV, 0);
-    if (!err) err = make_tmap(&tv, v, 1, C::D, lkv, bh, DC, BKV, 0);
-  } else {
-    if (!err) err = make_tmap(&tk, k, 2, C::D, lkv, bh, 64, BKV, 128);
-    if (!err) err = make_tmap(&tv, v, 2, C::D, lkv, bh, 64, BKV, 128);
-  }
+  const int err = make_maps<KIND>(&tq, &tk, &tv, q, k, v, C::D, bh, lq, lkv);
   if (err) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
       dtiled_attention_kernel<NC, KIND>,
@@ -507,6 +723,23 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
       static_cast<const float*>(vs), o, out_f32, lq, lkv, block, n_blocks,
       scale_log2);
   return int(cudaGetLastError());
+}
+
+template <int NC, int KIND>
+int launch_cluster(const void* q, const void* k, const void* v,
+                   const void* ks, const void* vs, void* o, int out_f32,
+                   int bh, int lq, int lkv, int d, int block, int n_blocks,
+                   float scale_log2, int ranks, cudaStream_t stream) {
+  using C = Cfg<NC, KIND, true>;
+  CUtensorMap tq, tk, tv;
+  const int err = make_maps<KIND>(&tq, &tk, &tv, q, k, v, d, bh, lq, lkv);
+  if (err) return err;
+  return launch_clusters(dtiled_attention_cluster_kernel<NC, KIND>,
+                         C::THREADS, C::bytes, bh * ((lq + BQ - 1) / BQ),
+                         ranks, stream, tq, tk, tv,
+                         static_cast<const float*>(ks),
+                         static_cast<const float*>(vs), o, out_f32, lq, lkv,
+                         d, block, n_blocks, scale_log2);
 }
 
 // ------------------------------------------------------------ f32
@@ -529,45 +762,50 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 // L2 and re-split once per key tile, at B=4 H=8 L=1024 d=512 about 2 GB
 // of L2 reads, and as many bytes of shared memory written again.
 //
-// One block per (batch*head, 64-row Q tile), the Q tiles of a head next to
-// each other in the grid, NC = d / 128 consumer warpgroups and a producer
-// warpgroup (split in two).  Every load is a TMA copy of f32 (or codes)
+// One block per (batch*head, 64-row Q tile) and cluster rank (the plan of
+// the file's comment: C = 1 up to d 256, 2 up to 512, 4 up to 1024, 8 up
+// to 2048, NC = 1 or 2 chunks a block), the Q tiles of a head next to each
+// other in the grid, NC consumer warpgroups and a producer warpgroup
+// (split in two).  Every load is a TMA copy of f32 (or codes)
 // into a staging buffer, zero-filled past Lq and Lkv, which the producer's
 // threads split (or convert) from shared memory; a thread that read
 // global memory itself would wait on L2 for each 32 bytes:
 //   - producer warps 0-2 (96 threads), per tile and 64-column half h of
-//     d: Q's and K's columns of h, staged (two buffers of 24 KB), split or
-//     converted into one of two S slots (Q pieces 24 KB, K pieces 12 KB
-//     or codes 4 KB); with h = 0 the tile's factors (scale * log2e *
-//     k_scale and v_scale per key, 0 at or past Lkv);
+//     the block's columns: Q's and K's columns of h, staged (two buffers
+//     of 24 KB), split or converted into one of two S slots (Q pieces 24
+//     KB, K pieces 12 KB or codes 4 KB); with h = 0 the tile's factors
+//     (scale * log2e * k_scale and v_scale per key, 0 at or past Lkv);
 //   - producer warp 3 (32 threads), per tile, chunk c and half: V's 64
 //     columns, staged (two buffers of 8 KB), split or converted into one
 //     of two V slots (24 KB or 8 KB a chunk), for warpgroup c;
 //   - consumer warpgroup 0, per tile: S_c = Q_c K_c^T in a fresh
 //     accumulator per 128-column chunk (its two halves' m64n32k16
 //     products, 6 or 3 piece products over 4 k-steps each), S += S_c in
-//     f32 in chunk order, the mask, s * kc, the online softmax in f32
+//     f32 in chunk order (with C > 1 the block's partial: S is the sum of
+//     the C partials in rank order, exchange_s), the mask, s * kc, the
+//     online softmax in f32
 //     (exp2f), l summing the f32 p; P * vs split into three bf16 pieces,
 //     written side by side as one tile of shared memory (two swizzled
 //     boxes), with each row's alpha;
-//   - every consumer warpgroup c, warpgroup 0 included: O_c = alpha O_c +
-//     P V_c on m64n128k16 wgmma, both operands from shared memory (P from
-//     registers would cost warpgroup 0 24 registers it does not have);
+//   - every consumer warpgroup c, warpgroup 0 included: P V_c on
+//     m64n128k16 wgmma, both operands from shared memory (P from
+//     registers would cost warpgroup 0 24 registers), in a fresh
+//     accumulator a tile (the first wgmma with scale-d 0), then O_c =
+//     alpha O_c + P V_c in f32, as the f32 core's attend: the tensor core
+//     drops an added product's bits below its accumulator's last, so one
+//     accumulator over every tile would drift with the number of keys;
 //   - the epilogue divides by l (handed over in shared memory) and each
-//     warpgroup stores its 128 columns.
-// O is one wgmma accumulator per warpgroup over every key tile, as the
-// f32 core's (a fresh accumulator a tile would not fit the registers
-// below).
+//     warpgroup stores its 128 columns, cut at d.
 //
-// Budget at d=512 (dense): two S slots 72 KB, their staging 48 KB, two V
-// slots 48 KB, their staging 16 KB, two P tiles 32 KB, factors, alpha, l,
-// barriers: 217 KB of 227.  Registers (setmaxnreg; the block keeps what
-// the launch allocates): at NC = 4, 640 x 96 = 48 (the producer, which
-// splits from shared memory) + 144 (warpgroup 0: O 64, S 16, S_c 16) +
-// 3 x 96 (O 64); at NC = 3, 512 x 128 = 48 + 208 + 2 x 128; at NC = 2,
-// 384 x 168 >= 48 + 2 x 224; at NC = 1 none moved.  (72 + 144 + 3 x 88
-// at NC = 4 spilled, and ptxas serialized the wgmma: C7512.)  The same
-// kernel runs d 128 and 256: one launch a call, one design.
+// Budget at NC = 2 (dense): two S slots 72 KB, their staging 48 KB, two V
+// slots 48 KB, their staging 16 KB, two P tiles 32 KB, the 8 KB exchange
+// buffer, factors, alpha, l, barriers: 226.4 KB of 227.  Registers
+// (setmaxnreg; the block keeps what the launch allocates): 384 x 168 >=
+// 48 (the producer, which splits from shared memory) + 2 x 224
+// (warpgroup 0: O 64, the fresh P V 64, S 16, S_c 16; warpgroup 1: O 64,
+// P V 64); at NC = 1 (256 threads) none moved.  A block of more chunks
+// would not hold the fresh accumulator beside O (at NC = 4, 640 x 96:
+// 48 + 144 + 3 x 96 without it), so d past 256 takes clusters.
 
 constexpr int FKV = 32;                      // keys per tile
 constexpr int FH = 64;                       // columns of a staged half
@@ -583,12 +821,14 @@ struct FBars {
   uint64_t v_full[NC], v_empty[2];          // V: full per warpgroup
   uint64_t fac_empty[2];                    // a tile's factors read
   uint64_t p_full[2], p_empty[2];           // P and alpha
+  uint64_t xbar[2];                         // the exchange: written, read
 };
 
 // KIND: the K/V kind of the C entry, KV_BF16 (0, not quantized) standing
 // for f32 K and V here
 template <int NC, int KIND>
 struct FCfg {
+  static_assert(NC == 1 || NC == 2, "an f32 block holds one or two chunks");
   static constexpr int D = NC * DC;
   static constexpr int NS = 2 * NC;                     // S halves a tile
   static constexpr int THREADS = (NC + 1) * 128;
@@ -603,8 +843,8 @@ struct FCfg {
   // threads, in steps of 8), and after setmaxnreg, the same total
   static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
   static constexpr int PRODUCER_REGS = 48;
-  static constexpr int WG0_REGS = NC == 4 ? 144 : NC == 3 ? 208 : 224;
-  static constexpr int OTHER_REGS = NC == 2 ? 224 : LAUNCH_REGS;
+  static constexpr int WG0_REGS = 224;
+  static constexpr int OTHER_REGS = 224;
   static_assert(NC == 1 || PRODUCER_REGS + WG0_REGS + (NC - 1) * OTHER_REGS
                                <= (NC + 1) * LAUNCH_REGS,
                 "the block's registers");
@@ -622,7 +862,8 @@ struct FCfg {
   static constexpr size_t alpha = vstage + 2 * size_t(STAGE_KV);  // [2][64]
   static constexpr size_t lsum = alpha + 2 * BQ * 4;              // [64]
   static constexpr size_t fac = lsum + BQ * 4;                    // [2][2][32]
-  static constexpr size_t bars = fac + 2 * 2 * FKV * 4;
+  static constexpr size_t xchg = fac + 2 * 2 * FKV * 4;           // [4][128]
+  static constexpr size_t bars = xchg + BQ * FKV * 4;
   static constexpr size_t bytes = bars + sizeof(FBars<NC>) + 1024;
   static_assert(bytes <= 232448, "the block's shared memory");
 };
@@ -664,18 +905,19 @@ __device__ __forceinline__ void produce_f32(
     const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
     const float* ks, const float* vs, unsigned char* smem, FBars<NC>* bars,
     int bh, int q0, int lkv, int block, int n_blocks, int n_tiles,
-    float scale_log2) {
+    float scale_log2, int c0) {
   using C = FCfg<NC, KIND>;
   const int pt = threadIdx.x - NC * 128;
   if (pt < S_THREADS) {
-    // S halves: item j is tile j / NS, columns 64 (j % NS) .. + 63
+    // S halves: item j is tile j / NS, the block's columns 64 (j % NS) ..
+    // + 63
     float* fac = reinterpret_cast<float*>(smem + C::fac);
     const float* ksb = ks + size_t(bh) * n_blocks;
     const float* vsb = vs + size_t(bh) * n_blocks;
     const int n_items = n_tiles * C::NS;
     auto load = [&](int j) {
       unsigned char* st = smem + C::stage + (j % 2) * C::STAGE_BYTES;
-      const int col = (j % C::NS) * FH;
+      const int col = c0 + (j % C::NS) * FH;
       mbar_arrive_expect_tx(&bars->stage_full[j % 2], C::STAGE_BYTES);
       tma_load_3d(st, tq, &bars->stage_full[j % 2], col, q0, bh);
       tma_load_3d(st + C::STAGE_Q, tk, &bars->stage_full[j % 2], col,
@@ -710,14 +952,14 @@ __device__ __forceinline__ void produce_f32(
       if (pt == 0 && j + 2 < n_items) load(j + 2);
     }
   } else {
-    // V halves: item j is tile j / (2 NC), chunk j / 2 % NC, columns
-    // 64 (j % 2) .. + 63 of the chunk
+    // V halves: item j is tile j / (2 NC), the block's chunk j / 2 % NC,
+    // columns 64 (j % 2) .. + 63 of the chunk
     const int lane = pt - S_THREADS;
     const int n_items = n_tiles * NC * 2;
     auto load = [&](int j) {
       mbar_arrive_expect_tx(&bars->vstage_full[j % 2], C::STAGE_KV);
       tma_load_3d(smem + C::vstage + (j % 2) * C::STAGE_KV, tv,
-                  &bars->vstage_full[j % 2], j / 2 % NC * DC + j % 2 * FH,
+                  &bars->vstage_full[j % 2], c0 + j / 2 % NC * DC + j % 2 * FH,
                   j / (2 * NC) * FKV, bh);
     };
     if (lane == 0)
@@ -759,13 +1001,13 @@ __device__ __forceinline__ void issue_s_half(float (&acc)[FKV / 2],
   }
 }
 
-// Warpgroup 0's part of tile i: S over the d-chunks, the mask, s * kc,
-// the online softmax (m, l updated), P * vs as three bf16 tiles at sp,
-// alpha at sa
+// Warpgroup 0's part of tile i: S over the d-chunks (with ranks > 1 the
+// block's partial, then the cluster's sum), the mask, s * kc, the online
+// softmax (m, l updated), P * vs as three bf16 tiles at sp, alpha at sa
 template <int NC, int KIND>
 __device__ __forceinline__ void softmax_tile_f32(
     unsigned char* smem, FBars<NC>* bars, int i, int lkv, float (&m)[2],
-    float (&l)[2], unsigned char* sp, float* sa) {
+    float (&l)[2], unsigned char* sp, float* sa, uint32_t ranks) {
   using C = FCfg<NC, KIND>;
   namespace F = eft::f32;
   const int lane = threadIdx.x % 32;
@@ -794,6 +1036,9 @@ __device__ __forceinline__ void softmax_tile_f32(
 #pragma unroll
     for (int e = 0; e < FKV / 2; ++e) acc_s[e] += part[e];
   }
+  if (ranks > 1)
+    exchange_s(acc_s, reinterpret_cast<float4*>(smem + C::xchg), bars->xbar,
+               i, ranks);
 
   // the mask, s * kc, the online softmax in the exp2 basis
   const float* kc = reinterpret_cast<const float*>(smem + C::fac) +
@@ -842,14 +1087,16 @@ __device__ __forceinline__ void softmax_tile_f32(
 // A consumer warpgroup (wg < NC; FIRST: warpgroup 0, a code path of its
 // own, so that each keeps the registers setmaxnreg gives it): per tile,
 // warpgroup 0 computes S, the softmax and P (softmax_tile_f32); then
-// every warpgroup c rescales its O chunk by alpha and adds P V_c, P's
-// three pieces from the shared tile (SS wgmma); the epilogue divides by l
-// and stores the chunk's columns
+// every warpgroup c computes P V_c in a fresh accumulator, P's three
+// pieces from the shared tile (SS wgmma), and adds it to its O chunk
+// rescaled by alpha; the epilogue divides by l and stores the chunk's
+// columns (the block's first column c0, cut at d, the row stride)
 template <int NC, int KIND, bool FIRST>
 __device__ __forceinline__ void consume_f32(unsigned char* smem,
                                             FBars<NC>* bars, void* o,
                                             int out_f32, int lq, int lkv,
-                                            int q0, int bh, int n_tiles) {
+                                            int q0, int bh, int n_tiles,
+                                            int d, int c0, uint32_t ranks) {
   using C = FCfg<NC, KIND>;
   namespace F = eft::f32;
   const int wg = threadIdx.x / 128;
@@ -868,17 +1115,16 @@ __device__ __forceinline__ void consume_f32(unsigned char* smem,
     if constexpr (FIRST) {
       mbar_wait(&bars->p_empty[b], ((i / 2) & 1) ^ 1);
       softmax_tile_f32<NC, KIND>(smem, bars, i, lkv, m, l, sp,
-                                 salpha + b * BQ);
+                                 salpha + b * BQ, ranks);
       fence_proxy_async();
       mbar_arrive(&bars->p_full[b]);
     }
     mbar_wait(&bars->p_full[b], (i / 2) & 1);
     const float a[2] = {salpha[b * BQ + rl], salpha[b * BQ + rl + 8]};
-    rescale(acc_o, a);
     const int sv = (i * NC + wg) % C::V_SLOTS;
     mbar_wait(&bars->v_full[wg], i & 1);
     const unsigned char* v_s = smem + C::v + sv * C::V_BYTES;
-    fence_regs(acc_o);
+    float part[DC / 2];
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < C::TERMS; ++t) {
@@ -888,17 +1134,21 @@ __device__ __forceinline__ void consume_f32(unsigned char* smem,
       for (int kk = 0; kk < FKV / 16; ++kk) {
         const int col = 32 * pp + 16 * kk;
         wgmma_ss_bf16_n128_tb(
-            acc_o,
+            part,
             gmma_desc(sp + (col / 64) * BQ * 128 + (col % 64) * 2, 16, 1024,
                       128),
-            gmma_desc(vp + kk * 16 * 128, FKV * 128, 1024, 128), 1);
+            gmma_desc(vp + kk * 16 * 128, FKV * 128, 1024, 128),
+            t > 0 || kk > 0);
       }
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(acc_o);
+    fence_regs(part);
     mbar_arrive(&bars->v_empty[sv]);
     mbar_arrive(&bars->p_empty[b]);
+#pragma unroll
+    for (int e = 0; e < DC / 2; ++e)
+      acc_o[e] = fmaf(acc_o[e], a[acc_row8(e) / 8], part[e]);
   }
 
   // warpgroup 0 hands l over to the others
@@ -919,7 +1169,7 @@ __device__ __forceinline__ void consume_f32(unsigned char* smem,
     }
   }
   store_o_rows<DC>(acc_o, l, m, q0 + rl, lq, size_t(bh) * lq, o, out_f32,
-                   nullptr, C::D, wg * DC);
+                   nullptr, d, c0 + wg * DC, d - c0 - wg * DC);
 }
 
 // setmaxnreg from the launch's registers per thread to N (a no-op when
@@ -930,6 +1180,9 @@ __device__ __forceinline__ void set_regs() {
   else if constexpr (N < LAUNCH) setmaxnreg_dec<N>();
 }
 
+// In clusters of C = %cluster_nctarank blocks along x (the launch's
+// cluster dimension, 1 up to d 256), rank r holding d's columns [r D,
+// r D + D) with D = 128 NC, cut at d (a multiple of 16, the row stride)
 template <int NC, int KIND>
 __global__ void __launch_bounds__(FCfg<NC, KIND>::THREADS, 1)
 dtiled_attention_f32_kernel(
@@ -939,16 +1192,19 @@ dtiled_attention_f32_kernel(
     const float* __restrict__ ks,            // [BH, n_blocks] or null
     const float* __restrict__ vs,            // [BH, n_blocks] or null
     void* __restrict__ o,                    // [BH, Lq, d]
-    int out_f32, int lq, int lkv, int block, int n_blocks,
+    int out_f32, int lq, int lkv, int d, int block, int n_blocks,
     float scale_log2) {
   using C = FCfg<NC, KIND>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   auto* bars = reinterpret_cast<FBars<NC>*>(smem + C::bars);
 
+  const uint32_t ranks = cluster_size();
+  const int c0 = int(cluster_rank()) * C::D;
   const int n_qt = (lq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * BQ;
+  const int tile = blockIdx.x / ranks;
+  const int bh = tile / n_qt;
+  const int q0 = (tile % n_qt) * BQ;
   const int n_tiles = (lkv + FKV - 1) / FKV;
   const int wg = threadIdx.x / 128;
 
@@ -962,92 +1218,91 @@ dtiled_attention_f32_kernel(
       mbar_init(&bars->fac_empty[s], 128);
       mbar_init(&bars->p_full[s], 128);
       mbar_init(&bars->p_empty[s], NC * 128);
+      mbar_init(&bars->xbar[s], 128 * ranks);
     }
     for (int c = 0; c < NC; ++c) mbar_init(&bars->v_full[c], 32);
     mbar_init_fence();
   }
-  __syncthreads();
+  cluster_sync();             // every rank's barriers ready
 
   if (wg == NC) {
     if constexpr (NC > 1) set_regs<C::PRODUCER_REGS, C::LAUNCH_REGS>();
     produce_f32<NC, KIND>(&tq, &tk, &tv, ks, vs, smem, bars, bh, q0, lkv,
-                          block, n_blocks, n_tiles, scale_log2);
-    return;
-  }
-  if (wg == 0) {
+                          block, n_blocks, n_tiles, scale_log2, c0);
+  } else if (wg == 0) {
     if constexpr (NC > 1) set_regs<C::WG0_REGS, C::LAUNCH_REGS>();
     consume_f32<NC, KIND, true>(smem, bars, o, out_f32, lq, lkv, q0, bh,
-                                n_tiles);
+                                n_tiles, d, c0, ranks);
   } else if constexpr (NC > 1) {
     set_regs<C::OTHER_REGS, C::LAUNCH_REGS>();
     consume_f32<NC, KIND, false>(smem, bars, o, out_f32, lq, lkv, q0, bh,
-                                 n_tiles);
+                                 n_tiles, d, c0, ranks);
   }
+  cluster_sync();             // no rank still reads this block's buffer
 }
 
 template <int NC, int KIND>
 int launch_f32(const void* q, const void* k, const void* v, const void* ks,
                const void* vs, void* o, int out_f32, int bh, int lq, int lkv,
-               int block, int n_blocks, float scale_log2,
+               int d, int block, int n_blocks, float scale_log2, int ranks,
                cudaStream_t stream) {
   using C = FCfg<NC, KIND>;
   CUtensorMap tq, tk, tv;
-  int err = make_tmap(&tq, q, 4, C::D, lq, bh, FH, BQ, 0);
-  if (!err) err = make_tmap(&tk, k, C::KV_ELEM, C::D, lkv, bh, FH, FKV, 0);
-  if (!err) err = make_tmap(&tv, v, C::KV_ELEM, C::D, lkv, bh, FH, FKV, 0);
+  int err = make_tmap(&tq, q, 4, d, lq, bh, FH, BQ, 0);
+  if (!err) err = make_tmap(&tk, k, C::KV_ELEM, d, lkv, bh, FH, FKV, 0);
+  if (!err) err = make_tmap(&tv, v, C::KV_ELEM, d, lkv, bh, FH, FKV, 0);
   if (err) return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      dtiled_attention_f32_kernel<NC, KIND>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::bytes));
-  if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(bh * ((lq + BQ - 1) / BQ));
-  dtiled_attention_f32_kernel<NC, KIND><<<grid, C::THREADS, C::bytes,
-                                          stream>>>(
-      tq, tk, tv, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), o, out_f32, lq, lkv, block, n_blocks,
-      scale_log2);
-  return int(cudaGetLastError());
+  return launch_clusters(dtiled_attention_f32_kernel<NC, KIND>, C::THREADS,
+                         C::bytes, bh * ((lq + BQ - 1) / BQ), ranks, stream,
+                         tq, tk, tv, static_cast<const float*>(ks),
+                         static_cast<const float*>(vs), o, out_f32, lq, lkv,
+                         d, block, n_blocks, scale_log2);
 }
 
-template <int KIND>
-int launch_d(int d, int in_f32, const void* q, const void* k, const void* v,
-             const void* ks, const void* vs, void* o, int out_f32, int bh,
-             int lq, int lkv, int block, int n_blocks, float scale_log2,
-             cudaStream_t stream) {
-  if (in_f32) {
-    switch (d / DC) {
-      case 1:
-        return launch_f32<1, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
-                                   block, n_blocks, scale_log2, stream);
-      case 2:
-        return launch_f32<2, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
-                                   block, n_blocks, scale_log2, stream);
-      case 3:
-        return launch_f32<3, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
-                                   block, n_blocks, scale_log2, stream);
-      case 4:
-        return launch_f32<4, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
-                                   block, n_blocks, scale_log2, stream);
-      default:
-        return int(cudaErrorInvalidValue);
-    }
-  }
-  switch (d / DC) {
+// H5's plan for head dim d (ops/attention_v1_dtiled.py h5_plan): false
+// outside the rule, else the cluster size and the chunks a block
+bool h5_plan(int d, int in_f32, int* ranks, int* nc) {
+  if (d < MIN_D || d > MAX_D || d % 16 != 0) return false;
+  const int chunks = (d + DC - 1) / DC;
+  const int per_block = in_f32 ? F32_MAX_NC : MAX_NC;
+  int c = 1;
+  while (c * per_block < chunks) c *= 2;
+  *ranks = c;
+  *nc = (chunks + c - 1) / c;
+  return c <= MAX_CLUSTER;
+}
+
+// go(integral_constant<int, NC>) for nc in 1..MAX
+template <int MAX, class Go>
+int with_nc(int nc, Go go) {
+  switch (nc) {
     case 1:
-      return launch<1, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, block,
-                             n_blocks, scale_log2, stream);
+      return go(std::integral_constant<int, 1>{});
     case 2:
-      return launch<2, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, block,
-                             n_blocks, scale_log2, stream);
+      if constexpr (MAX >= 2) return go(std::integral_constant<int, 2>{});
+      break;
     case 3:
-      return launch<3, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, block,
-                             n_blocks, scale_log2, stream);
+      if constexpr (MAX >= 3) return go(std::integral_constant<int, 3>{});
+      break;
     case 4:
-      return launch<4, KIND>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, block,
-                             n_blocks, scale_log2, stream);
-    default:
-      return int(cudaErrorInvalidValue);
+      if constexpr (MAX >= 4) return go(std::integral_constant<int, 4>{});
+      break;
   }
+  return int(cudaErrorInvalidValue);
+}
+
+// go(integral_constant<int, KIND>) for the C entry's kv_kind
+template <class Go>
+int with_kind(int kv_kind, Go go) {
+  switch (kv_kind) {
+    case KV_BF16:
+      return go(std::integral_constant<int, KV_BF16>{});
+    case KV_INT8:
+      return go(std::integral_constant<int, KV_INT8>{});
+    case KV_FP8:
+      return go(std::integral_constant<int, KV_FP8>{});
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1056,17 +1311,22 @@ int launch_d(int d, int in_f32, const void* q, const void* k, const void* v,
 // ops/attention_v1_dtiled.py has already checked shapes, dtypes,
 // contiguity and alignment; the checks here only refuse what would index
 // out of bounds.  kv_kind: 0 bf16 (f32 with in_f32; ks, vs unused), 1
-// int8, 2 e4m3; d a multiple of 128 up to 512; scale_log2 = softmax scale
-// * log2(e); in_f32: 0 for bf16 q (and K/V), 1 for f32 (the f32 kernel).
+// int8, 2 e4m3; d a multiple of 16 from 16 to 2048; scale_log2 = softmax
+// scale * log2(e); in_f32: 0 for bf16 q (and K/V), 1 for f32 (the f32
+// kernel); cluster, nc: the plan the wrapper computed for d, which must be
+// this file's (h5_plan).
 extern "C" int eft_dtiled_attention(const void* q, const void* k,
                                     const void* v, const void* ks,
                                     const void* vs, void* o, int batch,
                                     int heads, int lq, int lkv, int d,
                                     int block, int n_blocks, int kv_kind,
                                     int out_f32, float scale_log2,
-                                    int in_f32, int device, void* stream) {
+                                    int in_f32, int cluster, int nc,
+                                    int device, void* stream) {
+  int want_c = 0, want_nc = 0;
   if (batch <= 0 || heads <= 0 || lq <= 0 || lkv <= 0 ||
-      d % DC != 0 || d > MAX_NC * DC || (in_f32 != 0 && in_f32 != 1) ||
+      (in_f32 != 0 && in_f32 != 1) || !h5_plan(d, in_f32, &want_c, &want_nc) ||
+      cluster != want_c || nc != want_nc ||
       (kv_kind != KV_BF16 &&
        (block <= 0 || n_blocks != (lkv + block - 1) / block)))
     return int(cudaErrorInvalidValue);
@@ -1074,17 +1334,54 @@ extern "C" int eft_dtiled_attention(const void* q, const void* k,
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
-  switch (kv_kind) {
-    case KV_BF16:
-      return launch_d<KV_BF16>(d, in_f32, q, k, v, ks, vs, o, out_f32, bh,
-                               lq, lkv, block, n_blocks, scale_log2, s);
-    case KV_INT8:
-      return launch_d<KV_INT8>(d, in_f32, q, k, v, ks, vs, o, out_f32, bh,
-                               lq, lkv, block, n_blocks, scale_log2, s);
-    case KV_FP8:
-      return launch_d<KV_FP8>(d, in_f32, q, k, v, ks, vs, o, out_f32, bh,
-                              lq, lkv, block, n_blocks, scale_log2, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  if (long(bh) * ((lq + BQ - 1) / BQ) * cluster > 0x7fffffffL)
+    return int(cudaErrorInvalidValue);
+  return with_kind(kv_kind, [&](auto kind) {
+    constexpr int KIND = decltype(kind)::value;
+    if (in_f32)
+      return with_nc<F32_MAX_NC>(nc, [&](auto n) {
+        return launch_f32<decltype(n)::value, KIND>(
+            q, k, v, ks, vs, o, out_f32, bh, lq, lkv, d, block, n_blocks,
+            scale_log2, cluster, s);
+      });
+    if (cluster == 1 && d == nc * DC)       // the single-block instances
+      return with_nc<MAX_NC>(nc, [&](auto n) {
+        return launch<decltype(n)::value, KIND>(
+            q, k, v, ks, vs, o, out_f32, bh, lq, lkv, block, n_blocks,
+            scale_log2, s);
+      });
+    return with_nc<MAX_NC>(nc, [&](auto n) {
+      return launch_cluster<decltype(n)::value, KIND>(
+          q, k, v, ks, vs, o, out_f32, bh, lq, lkv, d, block, n_blocks,
+          scale_log2, cluster, s);
+    });
+  });
+}
+
+// The most clusters of the instance a call at head dim d launches (the
+// cluster instance of bf16 and quantized K/V, whose single-block instances
+// are not clusters) that can be active on `device` at once
+// (cudaOccupancyMaxActiveClusters), or minus a cudaError_t
+extern "C" int eft_dtiled_clusters(int d, int in_f32, int kv_kind,
+                                   int device) {
+  int ranks = 0, nc = 0;
+  if (!h5_plan(d, in_f32, &ranks, &nc)) return -int(cudaErrorInvalidValue);
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return -int(dev_err);
+  return with_kind(kv_kind, [&](auto kind) {
+    constexpr int KIND = decltype(kind)::value;
+    if (in_f32)
+      return with_nc<F32_MAX_NC>(nc, [&](auto n) {
+        constexpr int NC = decltype(n)::value;
+        using C = FCfg<NC, KIND>;
+        return max_clusters(dtiled_attention_f32_kernel<NC, KIND>,
+                            C::THREADS, C::bytes, ranks);
+      });
+    return with_nc<MAX_NC>(nc, [&](auto n) {
+      constexpr int NC = decltype(n)::value;
+      using C = Cfg<NC, KIND, true>;
+      return max_clusters(dtiled_attention_cluster_kernel<NC, KIND>,
+                          C::THREADS, C::bytes, ranks);
+    });
+  });
 }

@@ -37,9 +37,9 @@
 //   memory, in the swizzled layout a TMA load of the 16-bit tile would
 //   give (convert_codes_tile): wgmma has no bf16 x int8 or bf16 x e4m3
 //   form, so the quantized forwards convert K and V where they land.
-// - The cluster helpers (distributed shared memory: mapa, stores into a
-//   peer block's shared memory, arrivals on its mbarriers, the cluster
-//   barrier) of H3's f32 D=256 instance.
+// - The cluster helpers (distributed shared memory: mapa, loads from and
+//   stores into a peer block's shared memory, arrivals on its mbarriers,
+//   the cluster barrier) of H3's f32 D=256 instance and H5's clusters.
 
 #pragma once
 
@@ -111,6 +111,28 @@ inline int make_tmap(CUtensorMap* map, const void* base, int elem_bytes,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }
+
+// The launch configuration of a grid in clusters of `cluster_x` blocks
+// along x, for cudaLaunchKernelEx and cudaOccupancyMaxActiveClusters.  Used
+// in place (cfg points at attr).
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  ClusterLaunch(const ClusterLaunch&) = delete;
+  ClusterLaunch(dim3 grid, int cluster_x, int threads, size_t bytes,
+                cudaStream_t stream) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster_x;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
 
 // -------------------------------------------------- shared memory, barriers
 
@@ -218,14 +240,21 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
 // mbarrier.arrive.shared::cluster take it.  A write into a peer's shared
 // memory is handed over by the arrival after it (release at cluster
 // scope) and read after the peer's wait on that barrier (acquire at
-// cluster scope).  H3's f32 instance at D=256 (attention_bwd.cu) is the
-// port's cluster kernel.
+// cluster scope).  H3's f32 instance at D=256 (attention_bwd.cu) and H5's
+// cluster instances (dtiled_attention.cu) are the port's cluster kernels.
 
 // this block's rank in its cluster
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
+}
+
+// the number of blocks in this block's cluster
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
 }
 
 // p (this block's shared memory) at the same offset in block `rank`'s
@@ -241,6 +270,16 @@ __device__ __forceinline__ void st_peer_v4(uint32_t addr, float4 x) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
                :: "r"(addr), "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
                : "memory");
+}
+
+// 16 bytes from a peer's shared memory (an address from peer_smem)
+__device__ __forceinline__ float4 ld_peer_v4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
 }
 
 // arrive on a peer's mbarrier (an address from peer_smem), releasing this

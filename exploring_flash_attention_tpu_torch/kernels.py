@@ -71,9 +71,15 @@ _SIGNATURES = {
     # kv_block, n_kvb, pv_int8, out_f32, scale_log2, device, stream
     "eft_int8_attention": [_P] * 7 + [_I] * 11 + [_F, _I, _P],
     # q, k, v, ks, vs, o, batch, heads, lq, lkv, d, block, n_blocks,
-    # kv_kind, out_f32, scale_log2, in_f32, device, stream (in_f32: f32 q,
-    # and f32 k and v where they are not codes; else bf16)
-    "eft_dtiled_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _I, _P],
+    # kv_kind, out_f32, scale_log2, in_f32, cluster, nc, device, stream
+    # (in_f32: f32 q, and f32 k and v where they are not codes; else bf16;
+    # cluster, nc: ops.attention_v1_dtiled.h5_plan's blocks a cluster and
+    # d-chunks a block)
+    "eft_dtiled_attention": [_P] * 6 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
+    # d, in_f32, kv_kind, device: the most clusters of the H5 instance a
+    # call at head dim d launches active at once
+    # (cudaOccupancyMaxActiveClusters), or minus a CUDA error
+    "eft_dtiled_clusters": [_I] * 4,
 }
 
 

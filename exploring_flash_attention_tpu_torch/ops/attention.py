@@ -207,6 +207,10 @@ def diagonal(diag_off: DiagOff):
 # multiple of 16 keeps every TMA row stride (2d bytes bf16, d bytes int8)
 # a multiple of 16 bytes and H6-decode's 16-byte code loads whole
 HEAD_DIM_RULE = "d a multiple of 16 from 16 to 256"
+# The head dims of H5 (ops.attention_v1_dtiled.h5_plan), d cut into
+# 128-column chunks across the blocks of a cluster, for the same reason a
+# multiple of 16
+H5_HEAD_DIM_RULE = "d a multiple of 16 from 16 to 2048"
 
 
 def kernel_head_dim(d: int) -> bool:

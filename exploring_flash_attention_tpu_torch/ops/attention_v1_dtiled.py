@@ -5,9 +5,10 @@ in the JAX package, whose TPU kernel B19 accumulates S over d-chunks of Q
 and K, runs the online softmax on the f32 S and accumulates P V chunk by
 chunk into a full-width f32 O.  Here a call is one launch of H5
 (``csrc/dtiled_attention.cu``), whose warpgroups each hold 128 of O's
-columns.  K and V are bf16, or both int8 or e4m3
-:class:`~.quant.QuantizedTensor`s, whose K scale folds into the softmax
-constant and whose V scale rides P.  Layout [B, H, L, d], non-causal.
+columns, in clusters of blocks that split d's 128-column chunks past
+d=512 (f32: past 256; :func:`h5_plan`).  K and V are bf16, or both int8
+or e4m3 :class:`~.quant.QuantizedTensor`s, whose K scale folds into the
+softmax constant and whose V scale rides P.  Layout [B, H, L, d], non-causal.
 f32 q (with f32 K and V, or quantized ones) runs on the kernel's f32
 form, as B19 computes at HIGHEST: f32 operands split into three bf16
 pieces, bf16x6 on both products (bf16x3 against exact codes), Q streamed
@@ -17,13 +18,14 @@ a d-chunk at a time beside K.
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
+    H5_HEAD_DIM_RULE,
     LOG2E,
     _check_cuda_inputs,
     attention_plain,
@@ -40,9 +42,26 @@ from exploring_flash_attention_tpu_torch.ops.quant import (
 )
 
 H5_D_CHUNK = 128         # one consumer warpgroup's O columns
-H5_MAX_D = 512           # four consumer warpgroups and a producer
+H5_BLOCK_CHUNKS = {False: 4, True: 2}   # d-chunks a block holds, by f32
 
 KV = Union[torch.Tensor, QuantizedTensor]
+
+
+def h5_plan(d: int, f32: bool) -> Tuple[int, int]:
+    """H5's launch for head dim ``d``: (C, NC), clusters of C blocks that
+    each hold NC of d's 128-column chunks, the last chunks zero past d.
+    C is the least power of two whose blocks of at most 4 chunks (2 at
+    f32: a fresh P V accumulator beside O) cover d, NC as few as then
+    cover it: C = 1 up to d 512 (f32: 256), 2 up to 1024 (512), 4 up to
+    2048 (1024), 8 at f32 up to 2048.  ``ValueError`` outside
+    :data:`~.attention.H5_HEAD_DIM_RULE`."""
+    if not (16 <= d <= 2048 and d % 16 == 0):
+        raise ValueError(f"H5 takes {H5_HEAD_DIM_RULE}; got d={d}")
+    chunks = -(-d // H5_D_CHUNK)
+    c = 1
+    while c * H5_BLOCK_CHUNKS[f32] < chunks:
+        c *= 2
+    return c, -(-chunks // c)
 
 
 def attention_dtiled_plain(q: torch.Tensor, k: KV, v: KV,
@@ -73,12 +92,13 @@ def flash_attention_v1_dtiled(
     the kernel masks ragged L and reads the scales per key,
     ``scales[key // block]``.  ``config`` is taken at the JAX package's
     place, with its default, and not read: H5 fixes its tiles (64 Q rows,
-    64-key tiles, 32 at f32, 128-column d chunks) from d.
+    64-key tiles, 32 at f32, 128-column d chunks, :func:`h5_plan`'s
+    clusters) from d.
 
     CPU tensors take :func:`attention_dtiled_plain`.  CUDA tensors launch
     H5 once per call, or raise: it takes contiguous bf16 or f32 q (and K/V
-    of q's dtype unless quantized; ``ops.attention.KERNEL_DTYPES``) with d
-    a multiple of 128 up to 512, and writes bf16 or f32 O.
+    of q's dtype unless quantized; ``ops.attention.KERNEL_DTYPES``) with
+    :data:`~.attention.H5_HEAD_DIM_RULE`, and writes bf16 or f32 O.
     ``flash_attention_v1_dtiled.launches`` counts kernel launches."""
     quantized = isinstance(k, QuantizedTensor)
     if quantized != isinstance(v, QuantizedTensor):
@@ -104,9 +124,9 @@ def flash_attention_v1_dtiled(
         q_dtype = _check_cuda_inputs("H5", "H5 attention", q, k, v)
         ks = vs = None
         n_blocks = 0
-    if d % H5_D_CHUNK or d > H5_MAX_D or lq == 0 or lkv == 0:
-        raise ValueError(f"H5 takes d a multiple of {H5_D_CHUNK} up to "
-                         f"{H5_MAX_D} and nonempty sequences; got q "
+    cluster, nc = h5_plan(d, q_dtype == torch.float32)
+    if lq == 0 or lkv == 0:
+        raise ValueError(f"H5 takes nonempty sequences; got q "
                          f"{tuple(q.shape)}, Lkv {lkv}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"H5 writes bf16 or f32 O, not {out_dtype}")
@@ -117,7 +137,7 @@ def flash_attention_v1_dtiled(
         vs.data_ptr() if quantized else None, o.data_ptr(), b, h, lq, lkv, d,
         block, n_blocks, KV_KIND[kv.dtype] if quantized else 0,
         int(out_dtype == torch.float32), scale * LOG2E,
-        int(q_dtype == torch.float32), q.device.index,
+        int(q_dtype == torch.float32), cluster, nc, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(err, "H5 attention")
     flash_attention_v1_dtiled.launches += 1

@@ -33,7 +33,7 @@ FAMILIES = ("prefill_attention_f32_kernel", "prefill_attention_kernel",
             "attention_bwd_dkv_kernel", "attention_bwd_dq_kernel",
             "kvquant_attention_f32_kernel", "kvquant_attention_kernel",
             "int8_attention_kernel", "dtiled_attention_f32_kernel",
-            "dtiled_attention_kernel")
+            "dtiled_attention_cluster_kernel", "dtiled_attention_kernel")
 _DUMP = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
          "from exploring_flash_attention_tpu_torch import kernels; "
          "print(json.dumps(kernels.sass_by_function()))")

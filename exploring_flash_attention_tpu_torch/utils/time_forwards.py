@@ -1,7 +1,8 @@
 """Time the quantized and d-tiled forwards, the backward pair, or the
 split-KV merges, on the card, for A/B runs.
 
-    python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT] [--bwd | --merge | --serve | --f32]
+    python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT]
+        [--bwd | --merge | --serve | --f32 | --clusters]
 
 ROOT (default: this checkout) is the root of a checkout of the port, for
 example a ``git archive`` of another commit unpacked under ``build/``; its
@@ -23,7 +24,9 @@ warm, then of ``paged_decode_attention`` and the kernel without its merge
 after it) at the slice's shape (B=8, Hq=8, Hkv=4, contexts 257..280) and at
 B=1 over 8100 tokens (64 runs); with ``--serve``, of the serving kernels at
 the flagship's shapes (``time_serve``); with ``--f32``, of the f32 core's
-kernels and their accuracy over long key counts (``time_f32``).
+kernels and H5 at f32, and their accuracy over long key counts
+(``time_f32``); with ``--clusters``, of H5's cluster launches beside its
+single-block launches on the same work a block (``time_clusters``).
 Alternate two roots in one call (parent, change, change, parent) to
 compare them on one card.
 """
@@ -211,6 +214,9 @@ F32_LONG_KEYS = (("B3 route", 2, 8, 8, 1024, 8200, 128, False, None),
                  ("32768 keys", 1, 8, 1, 256, 32768, 128, False, None),
                  ("32768 keys window 4096", 1, 8, 1, 256, 32768, 128, True,
                   4096))
+# H5 at f32 over long key counts, d=512: (B, H, Lq, Lkv); inputs from
+# make_qkv(seed=Lkv) in f32
+H5_F32_LONG_KEYS = ((1, 8, 1024, 1024), (1, 8, 1024, 32768))
 # H1 f32 timed through flash_attention_v1: (label, B, Hq, Hkv, Lq, Lkv,
 # d, causal, window), bench.py's canonical shape, the v1 routes of TPU
 # kernels B2, B4 and B5 (chip_smoke.py's V1_CASES) and B3's at d=256 (the
@@ -231,7 +237,10 @@ def time_f32(root: Path) -> str:
     f32 at ``F32_LONG_KEYS`` against the plain attention in f64 on the
     card, and of H4-kvq f32 over 8192 keys (B16's route, int8, block 128,
     chip_smoke.py's KVQ_CASES) against the plain f32 version and the f64
-    one over the dequantized K/V; then the card's name and power limit."""
+    one over the dequantized K/V; ``flash_attention_v1_dtiled`` (H5) at
+    f32 is timed at d=512 (B=4, H=8, L=1024, f32 K/V) and read against
+    the f64 plain version at ``H5_F32_LONG_KEYS``; then the card's name
+    and power limit."""
     import math
     import subprocess
 
@@ -240,10 +249,12 @@ def time_f32(root: Path) -> str:
 
     from exploring_flash_attention_tpu_torch.oracle import make_qkv
     from exploring_flash_attention_tpu_torch.ops import (
+        attention_dtiled_plain,
         attention_kvquant_plain,
         attention_plain,
         flash_attention_kvquant,
         flash_attention_v1,
+        flash_attention_v1_dtiled,
         prefill_attention,
         quantize_fp8,
         quantize_int8,
@@ -276,6 +287,10 @@ def time_f32(root: Path) -> str:
         ms = time_cuda(lambda: flash_attention_kvquant(q, kq, vq), n_iter=20)
         out.append(f"H4-kvq f32 {kind} {ms:.4f} ms")
     del q, k, v, kq, vq
+    q, k, v = f32(4, 8, 8, 1024, 1024, 512, 1)
+    ms = time_cuda(lambda: flash_attention_v1_dtiled(q, k, v), n_iter=20)
+    out.append(f"H5 f32 d=512 {ms:.4f} ms")
+    del q, k, v
     for name, b, hq, hkv, lq, lkv, d, causal, window in F32_LONG_KEYS:
         q, k, v = f32(b, hq, hkv, lq, lkv, d, lkv + d)
         scale, diag = 1.0 / math.sqrt(d), lkv - lq
@@ -283,6 +298,14 @@ def time_f32(root: Path) -> str:
         ref, _ = attention_plain(q.double(), k.double(), v.double(), scale,
                                  causal, diag, window)
         out.append(f"H1 f32 {name} max|O - oracle| "
+                   f"{(o.double() - ref).abs().max().item():.3e}")
+        del q, k, v, o, ref
+    for b, h, lq, lkv in H5_F32_LONG_KEYS:
+        q, k, v = f32(b, h, h, lq, lkv, 512, lkv)
+        o = flash_attention_v1_dtiled(q, k, v)
+        ref = attention_dtiled_plain(q.double(), k.double(), v.double(),
+                                     1.0 / math.sqrt(512))
+        out.append(f"H5 f32 d=512 {lkv} keys max|O - oracle| "
                    f"{(o.double() - ref).abs().max().item():.3e}")
         del q, k, v, o, ref
     q, k, v = f32(2, 8, 8, 1024, 8192, 128, 2)
@@ -301,6 +324,46 @@ def time_f32(root: Path) -> str:
     return f"{root.name or root}: " + " | ".join(out)
 
 
+# H5's cluster launches beside launches of the same blocks without the
+# exchange: (label, d, f32, H) of the cluster call at B=4, L=1024, H=8 and
+# of the call whose H heads give as many blocks of as many chunks each
+H5_SAME_WORK = (("bf16 d=1024 C=2", 1024, False, 512, 16),
+                ("bf16 d=2048 C=4", 2048, False, 512, 32),
+                ("f32 d=512 C=2", 512, True, 256, 16),
+                ("f32 d=1024 C=4", 1024, True, 256, 32),
+                ("f32 d=2048 C=8", 2048, True, 256, 64))
+
+
+def time_clusters(root: Path) -> str:
+    """H5 (``flash_attention_v1_dtiled``, L2 flushed) at each cluster of
+    ``H5_SAME_WORK`` beside the same number of blocks, each of the same
+    d-chunks, of one block a Q tile (d 512 bf16, 256 f32) at more heads:
+    the difference is the cost of the cluster's exchange of S.  Inputs
+    from make_qkv(seed=1), bf16 (rounded) or f32."""
+    import numpy as np
+    import torch
+
+    from exploring_flash_attention_tpu_torch.oracle import make_qkv
+    from exploring_flash_attention_tpu_torch.ops import (
+        flash_attention_v1_dtiled,
+    )
+
+    time_cuda = _harness_time_cuda()
+    out = []
+    for label, d, f32, d1, h1 in H5_SAME_WORK:
+        ms = []
+        for dd, h in ((d, 8), (d1, h1)):
+            q, k, v = (torch.from_numpy(x).to(
+                "cuda", torch.float32 if f32 else torch.bfloat16)
+                for x in make_qkv(4, h, 1024, dd, dtype=np.float32, seed=1))
+            ms.append(time_cuda(lambda: flash_attention_v1_dtiled(q, k, v),
+                                n_iter=20))
+            del q, k, v
+        out.append(f"H5 {label} {ms[0]:.4f} ms, d={d1} H={h1} (the same "
+                   f"blocks, one a Q tile) {ms[1]:.4f} ms")
+    return f"{root.name or root}: " + " | ".join(out)
+
+
 def main(root: Path, mode: str = "") -> str:
     sys.path.insert(0, str(root))
     if mode == "--bwd":
@@ -311,6 +374,8 @@ def main(root: Path, mode: str = "") -> str:
         return time_serve(root)
     if mode == "--f32":
         return time_f32(root)
+    if mode == "--clusters":
+        return time_clusters(root)
     import torch
 
     from exploring_flash_attention_tpu_torch.oracle import make_qkv

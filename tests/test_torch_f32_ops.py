@@ -15,8 +15,11 @@ three bf16 pieces (``tests/f32_pieces.py``):
   summing the unscaled p;
 - H5 f32 (``csrc/dtiled_attention.cu``): 32-key tiles, S the sum in f32,
   in chunk order, of each 128-column d-chunk's product in its own
-  accumulator: bf16x6 for f32 K and V, bf16x3 against codes; P V as for
-  H4-kvq (bf16x6 for f32 V), but added into O's one accumulator.
+  accumulator: bf16x6 for f32 K and V, bf16x3 against codes; past d 256
+  the chunks of each rank of a cluster (``h5_plan``) summed so, and S the
+  sum of the ranks' partials from zero in rank order; P V as for H4-kvq
+  (bf16x6 for f32 V), each tile's in a fresh accumulator added to alpha
+  O in f32.
 
 The emulations below repeat that arithmetic in f32 torch ops.  The limit
 is the JAX tests' own, 2e-5 of the f64 oracle over the dequantized K/V
@@ -53,6 +56,9 @@ from exploring_flash_attention_tpu_torch.ops import (
     quantized_from_numpy,
 )
 from exploring_flash_attention_tpu_torch.ops.attention import LOG2E
+from exploring_flash_attention_tpu_torch.ops.attention_v1_dtiled import (
+    h5_plan,
+)
 from exploring_flash_attention_tpu_torch.ops.quant import _expand
 from exploring_flash_attention_tpu_torch.oracle import make_qkv, naive_attention
 from f32_pieces import (  # noqa: F401 (one_torch_thread: autouse)
@@ -61,7 +67,7 @@ from f32_pieces import (  # noqa: F401 (one_torch_thread: autouse)
     one_torch_thread,
     piece_products,
 )
-from test_torch_dtiled import h5_emulation
+from test_torch_dtiled import f64_attention, h5_emulation
 from test_torch_quant import h4kvq_emulation
 
 F32_TOL = 2e-5          # the JAX tests' f32 tier, and chip_smoke.py's
@@ -71,14 +77,15 @@ JAX_QUANT = {"int8": jax_quant.quantize_int8, "fp8": jax_quant.quantize_fp8}
 QUANT = {"int8": quantize_int8, "fp8": quantize_fp8}
 
 
-def f32_emulation(q, k, v, scale, chunk, fresh_pv):
+def f32_emulation(q, k, v, scale, chunk, per_rank=None):
     """The f32 kernels' arithmetic: 32-key tiles; S the sum over d-chunks
     of ``chunk`` columns of each chunk's piece products (bf16x6 for f32
-    K, bf16x3 against codes), each from zero; s * (k_scale * f32(scale *
-    log2e)) per key; the online softmax in the exp2 basis, l summing the
-    f32 p; O = alpha O + the piece products of P * v_scale and V, those
-    summed from zero and then added in f32 with ``fresh_pv`` (H4-kvq),
-    else added onto alpha O one by one (H5's one accumulator)."""
+    K, bf16x3 against codes), each from zero, in chunk order; with
+    ``per_rank`` chunks a rank of a cluster, each rank's chunks summed so
+    and S the sum from zero of the ranks' partials in rank order;
+    s * (k_scale * f32(scale * log2e)) per key; the online softmax in the
+    exp2 basis, l summing the f32 p; O = alpha O + the piece products of
+    P * v_scale and V, those summed from zero and then added in f32."""
     if isinstance(k, QuantizedTensor):
         ks = _expand(k.scales, k.shape, k.block)[..., 0]
         vs = _expand(v.scales, v.shape, v.block)[..., 0]
@@ -90,23 +97,25 @@ def f32_emulation(q, k, v, scale, chunk, fresh_pv):
     m = torch.full(q.shape[:-1], float("-inf"))
     l_row = torch.zeros(q.shape[:-1])
     o = torch.zeros(q.shape)
+    width = chunk * (per_rank or -(-q.shape[-1] // chunk))
     for j in range(0, k.shape[2], F32_TILE):
         t = slice(j, j + F32_TILE)
         s = torch.zeros(*q.shape[:-1], k[..., t, :].shape[2])
-        for c in range(0, q.shape[-1], chunk):
-            cs = slice(c, c + chunk)
-            s = s + piece_products(torch.zeros(s.shape), q[..., cs],
-                                   k[..., t, cs].transpose(-1, -2), terms)
+        for r in range(0, q.shape[-1], width):
+            part = torch.zeros(s.shape)
+            for c in range(r, min(r + width, q.shape[-1]), chunk):
+                cs = slice(c, c + chunk)
+                part = part + piece_products(
+                    torch.zeros(s.shape), q[..., cs],
+                    k[..., t, cs].transpose(-1, -2), terms)
+            s = s + part
         s = s * kc[..., None, t]
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp2(s - m_new[..., None])
         alpha = torch.exp2(m - m_new)
         l_row = l_row * alpha + p.sum(-1)
-        pv = (p * vs[..., None, t], v[..., t, :], terms)
-        if fresh_pv:
-            o = o * alpha[..., None] + piece_products(0.0, *pv)
-        else:
-            o = piece_products(o * alpha[..., None], *pv)
+        o = o * alpha[..., None] + piece_products(
+            0.0, p * vs[..., None, t], v[..., t, :], terms)
         m = m_new
     return o / l_row[..., None]
 
@@ -114,13 +123,14 @@ def f32_emulation(q, k, v, scale, chunk, fresh_pv):
 def h4kvq_f32(q, k_q, v_q, scale):
     """H4-kvq at f32 q: one product over the whole head dim, each tile's
     P V in a fresh accumulator."""
-    return f32_emulation(q, k_q, v_q, scale, q.shape[-1], True)
+    return f32_emulation(q, k_q, v_q, scale, q.shape[-1])
 
 
 def h5_f32(q, k, v, scale):
-    """H5 at f32: S summed over 128-column d-chunks, P V into O's one
-    accumulator."""
-    return f32_emulation(q, k, v, scale, D_CHUNK, False)
+    """H5 at f32: S summed over 128-column d-chunks, by rank of the
+    cluster of ``h5_plan``, each tile's P V in a fresh accumulator."""
+    return f32_emulation(q, k, v, scale, D_CHUNK,
+                         h5_plan(q.shape[-1], True)[1])
 
 
 def _port(qt_jax) -> QuantizedTensor:
@@ -162,12 +172,13 @@ def test_h4kvq_f32_emulation_matches_jax(lq, lkv, d, block, kind, one_pass):
 
 
 @pytest.mark.parametrize("d,kind", [(256, "f32"), (512, "f32"),
-                                    (256, "int8"), (256, "fp8")])
+                                    (256, "int8"), (256, "fp8"),
+                                    (640, "int8"), (1024, "f32")])
 def test_h5_f32_emulation_matches_jax(d, kind):
     """H5's f32 arithmetic against B19 in interpret mode at
     tests/test_attention_dtiled.py's shape: f32 q, k, v (bf16x6), or f32
     q over int8 or e4m3 K/V in blocks of 128 (bf16x3): 2e-5 of JAX and of
-    the f64 oracle."""
+    the f64 oracle; d 512, 640 and 1024 in clusters of 2 and 4 blocks."""
     q, k, v = jax_make_qkv(1, 2, 256, d, seed=0)
     cfg = TileConfig(block_q=128, block_kv=128, d_tile_qk=128,
                      d_tile_v=128)
@@ -196,7 +207,9 @@ def rounded_p_plain(q, k, v, scale):
 
 # (kernel, B, H, Lq, Lkv, d, kind, block, seed): chip_smoke.py's KVQ_CASES
 # and DTILED_CASES with the f32_ops phase's additions (d 128 and 384, H5
-# at 4096 keys), one head of each: f32 inputs from make_qkv
+# at 4096 keys), one head of each: f32 inputs from make_qkv; the ragged
+# head dims and the clusters of 2, 4 and 8 blocks (h5_plan) of d 640,
+# 1024 and 2048
 CARD_CASES = [
     ("h4kvq", 1, 1, 1024, 1024, 128, "int8", 512, 1),
     ("h4kvq", 1, 1, 1024, 1024, 128, "fp8", 512, 1),
@@ -209,6 +222,14 @@ CARD_CASES = [
     ("h5", 1, 1, 1000, 1100, 128, "int8", 128, 6),
     ("h5", 1, 1, 1000, 1100, 384, "f32", None, 7),
     ("h5", 1, 1, 1024, 4096, 512, "f32", None, 8),
+    ("h5", 1, 1, 1000, 1100, 64, "f32", None, 5),
+    ("h5", 1, 1, 1000, 1100, 96, "f32", None, 5),
+    ("h5", 1, 1, 1000, 1100, 144, "f32", None, 5),
+    ("h5", 1, 1, 1000, 1100, 640, "f32", None, 5),
+    ("h5", 1, 1, 1024, 1024, 1024, "f32", None, 1),
+    ("h5", 1, 1, 1024, 1024, 1024, "int8", 512, 1),
+    ("h5", 1, 1, 1024, 1024, 2048, "f32", None, 1),
+    ("h5", 1, 1, 1024, 1024, 2048, "fp8", 512, 1),
 ]
 
 
@@ -216,10 +237,11 @@ CARD_CASES = [
 def test_card_limits_hold_f32_ops(kernel, b, h, lq, lkv, d, kind, block,
                                   seed):
     """The emulation reads within half the smoke's limit against the plain
-    f32 version and the f64 oracle, while both of its known-wrong controls
-    read beyond twice the limit against the oracle: the bf16 kernel on
-    the inputs rounded to bf16 (its emulation) and the plain version with
-    P rounded to bf16."""
+    f32 version and the f64 oracle, while each known-wrong control reads
+    beyond twice the limit against the oracle: the bf16 kernel on the
+    inputs rounded to bf16 (its emulation), the plain version with P
+    rounded to bf16 and, in a cluster, one rank's partial only (S over
+    rank 0's columns)."""
     q, k, v = (torch.from_numpy(x) for x in make_qkv(
         b, h, lq, d, seed=seed, seq_len_kv=lkv))
     scale = 1.0 / np.sqrt(d)
@@ -239,8 +261,13 @@ def test_card_limits_hold_f32_ops(kernel, b, h, lq, lkv, d, kind, block,
         emu = h5_f32(q, k, v, scale)
         plain = attention_dtiled_plain(q, k, v, scale)
         bf16 = h5_emulation(qb, kb, vb, scale)
-    oracle = naive_attention(q, kd, vd)
+    oracle = f64_attention(q, kd, vd, scale)
     assert np.abs(emu.numpy() - oracle).max() < F32_TOL / 2
     assert np.abs(emu.numpy() - plain.numpy()).max() < F32_TOL / 2
-    for bad in (bf16.numpy(), rounded_p_plain(q, kd, vd, scale).numpy()):
-        assert np.abs(bad - oracle).max() > 2 * F32_TOL
+    bad = [bf16.numpy(), rounded_p_plain(q, kd, vd, scale).numpy()]
+    c, nc = h5_plan(d, True) if kernel == "h5" else (1, 1)
+    if c > 1:
+        w = nc * D_CHUNK
+        bad.append(f64_attention(q[..., :w], kd[..., :w], vd, scale))
+    for x in bad:
+        assert np.abs(x - oracle).max() > 2 * F32_TOL

@@ -60,8 +60,10 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
 - H5 vs plain and the oracle: 4e-3 abs on f32 O (p * v_scale rounded to
   bf16 per 64-key tile, as B19 does; a CPU emulation reads <= 9.5e-4 on a
   head or two, ``tests/test_torch_dtiled.py``, an H100 1.32e-3 over 32
-  heads).  Two H5 runs are bitwise equal: one warpgroup sums S over the
-  d-chunks in a fixed order.
+  heads), at d 16 to 2048 (past 512, f32 past 256, a cluster of blocks
+  that split d's chunks).  Two H5 runs are bitwise equal: one warpgroup
+  sums S over the block's d-chunks in a fixed order, and a cluster adds
+  its ranks' partials in rank order.
 """
 
 import dataclasses
@@ -92,6 +94,7 @@ from exploring_flash_attention_tpu_torch.models import (
 from exploring_flash_attention_tpu_torch.models import seq2seq as s2s
 from exploring_flash_attention_tpu_torch.oracle import naive_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
+    H5_HEAD_DIM_RULE,
     attention_partial_local,
     attention_plain,
     flash_attention,
@@ -1287,6 +1290,12 @@ def test_int8_kernel_refuses_what_it_cannot_take(cuda_device):
     (65, 191, 256, 48),
     (70, 150, 384, 64),
     (130, 200, 512, 100),
+    # head dims off the 128-column chunks, and clusters of 2 and 4 blocks
+    (100, 130, 64, 64),
+    (65, 191, 144, 48),
+    (130, 200, 640, 100),
+    (70, 150, 1024, 64),
+    (65, 191, 2048, 48),
 ])
 def test_dtiled_kernel_matches_plain_and_oracle(cuda_device, kind, lq, lkv,
                                                 d, block):
@@ -1304,11 +1313,13 @@ def test_dtiled_kernel_matches_plain_and_oracle(cuda_device, kind, lq, lkv,
     assert _max_err(o, naive_attention(q, kd, vd)) < DTILED_O_TOL
 
 
+@pytest.mark.parametrize("d", [512, 1024, 2048])
 @pytest.mark.parametrize("kind", ["bf16", "fp8"])
-def test_dtiled_kernel_is_bitwise_reproducible(cuda_device, kind):
-    """One warpgroup sums S over the d-chunks in a fixed order: two runs
-    give the same bits."""
-    q, k, v = _qkv(cuda_device, 2, 4, 4, 300, 330, 512, seed=23)
+def test_dtiled_kernel_is_bitwise_reproducible(cuda_device, kind, d):
+    """One warpgroup sums S over the block's d-chunks in a fixed order,
+    and at d 1024 and 2048 a cluster of 2 and 4 blocks adds the ranks'
+    partials in rank order: two runs give the same bits."""
+    q, k, v = _qkv(cuda_device, 2, 4, 4, 300, 330, d, seed=23)
     if kind != "bf16":
         k, v = QUANT[kind](k, 64), QUANT[kind](v, 64)
     first = flash_attention_v1_dtiled(q, k, v, out_dtype=torch.float32)
@@ -1319,12 +1330,12 @@ def test_dtiled_kernel_is_bitwise_reproducible(cuda_device, kind):
 
 def test_dtiled_kernel_refuses_what_it_cannot_take(cuda_device):
     before = flash_attention_v1_dtiled.launches
-    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 640)
-    with pytest.raises(ValueError, match="512"):
-        flash_attention_v1_dtiled(q, k, v)
-    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 192)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        flash_attention_v1_dtiled(q, k, v)
+    for d in (8, 100, 2064):
+        q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, d)
+        with pytest.raises(ValueError, match=H5_HEAD_DIM_RULE):
+            flash_attention_v1_dtiled(q, k, v)
+        with pytest.raises(ValueError, match=H5_HEAD_DIM_RULE):
+            flash_attention_v1_dtiled(q.float(), k.float(), v.float())
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 256)
     with pytest.raises(TypeError, match="bf16 or f32"):
         flash_attention_v1_dtiled(q.half(), k.half(), v.half())
@@ -2153,6 +2164,12 @@ def test_kvquant_f32_matches_plain(cuda_device, kind, lq, lkv, d, block):
     (65, 191, 256, 48),
     (70, 150, 384, 64),
     (130, 200, 512, 100),
+    # head dims off the 128-column chunks, clusters of 2, 4 and 8 blocks
+    (100, 130, 64, 64),
+    (65, 191, 144, 48),
+    (130, 200, 640, 100),
+    (70, 150, 1024, 64),
+    (65, 191, 2048, 48),
 ])
 def test_dtiled_f32_matches_plain(cuda_device, kind, lq, lkv, d, block):
     """H5 with f32 q (and f32 K/V, or int8 or e4m3 ones): one launch of
@@ -2172,3 +2189,32 @@ def test_dtiled_f32_matches_plain(cuda_device, kind, lq, lkv, d, block):
     assert _max_err(o, attention_dtiled_plain(q, k, v, scale)) <= F32_TOL
     assert _max_err(o, attention_dtiled_plain(q64, k64, v64,
                                               scale)) <= F32_TOL
+
+
+@pytest.mark.parametrize("d", [384, 1024, 2048])
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_dtiled_f32_is_bitwise_reproducible(cuda_device, kind, d):
+    """H5 f32 in clusters of 2, 4 and 8 blocks: the ranks' partials of S
+    added in rank order, so two runs give the same bits."""
+    q, k, v = _f32_qkv(cuda_device, 2, 4, 4, 300, 330, d, seed=27)
+    if kind != "f32":
+        k, v = QUANT[kind](k, 64), QUANT[kind](v, 64)
+    first = flash_attention_v1_dtiled(q, k, v)
+    second = flash_attention_v1_dtiled(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("lkv", [1024, 32768])
+def test_dtiled_f32_over_long_key_counts(cuda_device, lkv):
+    """H5 f32 at d=512 (a cluster of two blocks) over up to 32768 keys:
+    each 32-key tile's P V from a fresh accumulator, so O stays within
+    2e-5 of the f64 plain run."""
+    q, k, v = _f32_qkv(cuda_device, 1, 8, 8, 1024, lkv, 512, seed=lkv)
+    before = flash_attention_v1_dtiled.launches
+    o = flash_attention_v1_dtiled(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_v1_dtiled.launches == before + 1
+    scale = 1.0 / math.sqrt(512)
+    assert _max_err(o, attention_dtiled_plain(q.double(), k.double(),
+                                              v.double(), scale)) <= F32_TOL

@@ -59,7 +59,13 @@ Phases, one line each; any failure exits non-zero before the last line:
    and the f64 oracle over the dequantized tensors, with the neighbouring
    block's scales as a further control; times beside
    scaled_dot_product_attention over the dequantized bf16 tensors, and
-   the int8 calls also with the per-call quantize_int8 of Q;
+   the int8 calls also with the per-call quantize_int8 of Q; then both
+   at d 16, 80, 144 and 256 (H4's instances D 64, 128, 256; bf16 and f32
+   q for kvquant, both pv_modes for int8) and kvquant at d 384 and 1024
+   (one launch of H5's quantized form), each against the plain version
+   and the oracle beside its controls, and the times at d 80 and 256
+   (B=32 H=8 L=1024) beside SDPA (each backend), the bound and, at 256,
+   H5's quantized form on the same inputs;
 7. dtiled: flash_attention_v1_dtiled (kernel H5) at d=512, B=4, H=8,
    L=1024 with bf16, e4m3 and int8 K/V (bench/suite.py:279, :309), the
    same at d 1024 and 2048 (clusters of 2 and 4 blocks that split d's
@@ -554,6 +560,24 @@ INT8_CASES = [
     ("ragged KV (tests/test_attention_int8.py:56)", 1, 1, 128, 200, 64, 128,
      ("bf16", "int8"), 0, 1, {"bf16": INT8_RAGGED_TOL, "int8": INT8_PV8_TOL}),
 ]
+# the quant phase's head dims: H4-kvq (bf16 and f32 q, int8 and e4m3 K/V)
+# and H4-int8 (both pv_modes) at d 16, 80, 144, 256 (instances D 64, 128,
+# 256, 256: a d below D on zero-filled columns), flash_attention_kvquant
+# past 256 (H5's quantized form) at 384 and 1024; a shape (B, H, Lq, Lkv)
+# ragged at the 64- and 128-key tiles; H4-kvq's K/V in blocks of 100 (a
+# tile's vmax over two blocks), H4-int8's Q in blocks of 64 and K/V of 48
+# (runs of 16 keys, shorter than an int8 step).  Each case is one launch
+# of the kernel its route names, against the plain version and the f64
+# oracle on [:1, :2] beside the controls (tests/test_torch_quant_heads.py
+# rehearses the limits).  Timed at the JAX suite's shape (B, H, L, block:
+# bench/suite.py:363) at d 80 and 256, with H5's quantized form beside
+# H4-kvq at d=256 on the same inputs
+QUANT_HEADS_DIMS = (16, 80, 144, 256)
+QUANT_H5_DIMS = (384, 1024)
+QUANT_HEADS_SHAPE = (2, 4, 1000, 1100)
+QUANT_HEADS_BLOCKS = {"kvq": 100, "q": 64, "int8": 48}
+QUANT_TIMED = (32, 8, 1024, 512)
+QUANT_TIMED_DIMS = (80, 256)
 # the dtiled phase (bench/suite.py:279, :309): (case, B, H, Lq, Lkv, d,
 # kind, block, seed, heads refereed by the f64 oracle).  Past the suite's:
 # d 1024 and 2048 at its shape (clusters of 2 and 4 blocks; f32 4 and 8),
@@ -703,18 +727,18 @@ def phase_build(kernels):
 
 # the wgmma kernels' functions in the SASS: H1 (D 32, 64, 128, 256 x Q
 # tiles of 64 and 128 rows x the exact and bound statistics), H4-int8
-# (d 64, 128 x pv_mode), H4-kvq (d 64, 128 x int8, e4m3), H5 (d 128,
+# (D 64, 128, 256 x pv_mode), H4-kvq (D 64, 128, 256 x int8, e4m3), H5 (d 128,
 # 256, 384, 512 x bf16, int8, e4m3; its cluster instances, 1 to 4 chunks
 # a block x the same kinds), H3-dkv and H3-dq (D 32, 64, 128, 256, and the
 # exact forms of 64 and 128, whose d is a constant), H6-extend (D 64, 128,
 # 256)
-WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 4,
-                   "kvquant_attention_kernel": 4,
+WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 6,
+                   "kvquant_attention_kernel": 6,
                    "dtiled_attention_kernel": 12,
                    "dtiled_attention_cluster_kernel": 12,
-                   # at f32: H4-kvq d 64, 128 x int8, e4m3; H5 one and
-                   # two chunks a block x f32, int8, e4m3 K/V
-                   "kvquant_attention_f32_kernel": 4,
+                   # at f32: H4-kvq D 64, 128, 256 x int8, e4m3; H5 one
+                   # and two chunks a block x f32, int8, e4m3 K/V
+                   "kvquant_attention_f32_kernel": 6,
                    "dtiled_attention_f32_kernel": 6,
                    "attention_bwd_dkv_kernel": 6,
                    "attention_bwd_dq_kernel": 6,
@@ -766,11 +790,15 @@ def check_sass(kernels):
 
 # the kernels whose every instance must hold its accumulators in
 # registers: the f32 core's (csrc/f32_attention.cuh: H1 D 64/128/256 x the
-# exact and bound statistics, H6-extend D 64/128/256, H4-kvq d 64/128 x
-# int8, e4m3) and H5's three families (WGMMA_FUNCTIONS)
+# exact and bound statistics, H6-extend D 64/128/256, H4-kvq D 64/128/256
+# x int8, e4m3), H5's three families (WGMMA_FUNCTIONS), and H4-kvq's and
+# H4-int8's bf16 / int8 instances (D 64/128/256 x int8, e4m3 or x
+# pv_mode; O 128 registers a consumer thread at D=256)
 NO_SPILL_FUNCTIONS = {"prefill_attention_f32_kernel": 6,
                       "paged_extend_f32_kernel": 3,
-                      "kvquant_attention_f32_kernel": 4,
+                      "kvquant_attention_f32_kernel": 6,
+                      "kvquant_attention_kernel": 6,
+                      "int8_attention_kernel": 6,
                       "dtiled_attention_kernel": 12,
                       "dtiled_attention_cluster_kernel": 12,
                       "dtiled_attention_f32_kernel": 6}
@@ -778,8 +806,9 @@ NO_SPILL_FUNCTIONS = {"prefill_attention_f32_kernel": 6,
 
 def check_registers(kernels):
     """Every instance of the f32 core holds O, its fresh P V accumulator
-    and P's fragments in registers, and every H5 instance its O chunks,
-    S and (f32) fresh P V: no spill (cuobjdump -res-usage: 0 STACK and
+    and P's fragments in registers, every H5 instance its O chunks, S and
+    (f32) fresh P V, and every H4-kvq and H4-int8 instance O, S or its
+    run's part and P: no spill (cuobjdump -res-usage: 0 STACK and
     LOCAL bytes, where spills land) and no wgmma serialized by ptxas (its
     C75xx notes name no such function)."""
     serial = [ln for ln in kernels.ptxas_report().splitlines()
@@ -795,7 +824,7 @@ def check_registers(kernels):
         _require(u.get("STACK") == 0 and u.get("LOCAL") == 0,
                  f"{name} spills")
     _require(found == NO_SPILL_FUNCTIONS,
-             f"f32 core and H5 functions in the build: {found}")
+             f"f32 core, H4 and H5 functions in the build: {found}")
     _require(not serial, f"ptxas serializes wgmma: {serial}")
     print("phase registers: ok")
 
@@ -1370,7 +1399,9 @@ def phase_quant(torch, dev):
     through their entry points: the suite's gates at its gate inputs, one
     launch per call at the suite's shapes and the further JAX routes,
     each against the plain version and the f64 oracle beside its
-    controls, and the times of the canonical calls."""
+    controls, and the times of the canonical calls; then the head dims of
+    both kernels' rule, and past it H5's quantized form
+    (:func:`quant_head_dims`)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from exploring_flash_attention_tpu_torch.oracle import naive_attention
@@ -1513,8 +1544,197 @@ def phase_quant(torch, dev):
             int8.setdefault("t", {})[f"{case} {mode}"] = t
             del qd, kd, vd
         del q, qq, kq, vq
+    kvq["by_head_dim"], int8["by_head_dim"] = quant_head_dims(torch, dev)
+    print(f"  quant on {card_line()}")
     print("phase quant: ok")
     return gates, kvq, int8
+
+
+def quant_head_dims(torch, dev):
+    """The quant phase's head-dim cases and times (QUANT_HEADS_DIMS and
+    the constants beside it): ({"checks": ..., "times": ...} of
+    flash_attention_kvquant, the same of flash_attention_int8), each check
+    its max|dO| vs the plain version, vs the oracle and its controls'."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.oracle import naive_attention
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_int8_plain,
+        attention_kvquant_plain,
+        dequantize,
+        flash_attention_int8,
+        flash_attention_kvquant,
+        flash_attention_v1_dtiled,
+        quantize_fp8,
+        quantize_int8,
+    )
+    from exploring_flash_attention_tpu_torch.ops.attention import h4_instance
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    t0 = time.perf_counter()
+    quant = {"int8": quantize_int8, "fp8": quantize_fp8}
+    f32 = torch.float32
+    b, h, lq, lkv = QUANT_HEADS_SHAPE
+    blk = QUANT_HEADS_BLOCKS
+    kvq = {"checks": {}, "times": {}}
+    int8 = {"checks": {}, "times": {}}
+
+    def readings(what, o, plain, qs, kd, vd, bad, tol, note):
+        o64 = naive_attention(qs, kd, vd)
+        err = held(torch, what, o, plain, o64,
+                   {n: x.cpu().numpy() for n, x in bad.items()}, tol, tol,
+                   1, 2, note)
+        return {"max_abs_err": err,
+                "oracle_err": float(np.abs(o[:1, :2].cpu().numpy()
+                                           - o64).max()),
+                "controls_vs_oracle": {
+                    n: float(np.abs(x.cpu().numpy() - o64).max())
+                    for n, x in bad.items()}}
+
+    for d in QUANT_HEADS_DIMS + QUANT_H5_DIMS:
+        scale = 1.0 / math.sqrt(d)
+        kern = "h4kvq" if d <= 256 else "h5"
+        inst = f"D={h4_instance(d)}" if d <= 256 else "H5"
+        for qdt in ("bf16", "f32"):
+            make = v1_inputs if qdt == "bf16" else f32_inputs
+            q, k, v = make(torch, dev, b, h, h, lq, lkv, d, d)
+            for kind in ("int8", "fp8"):
+                kq, vq = (quant[kind](x, blk["kvq"]) for x in (k, v))
+                o = counted_call(torch, lambda: flash_attention_kvquant(
+                    q, kq, vq, out_dtype=f32), launches_only(**{kern: 1}))
+                qs, ks, vs = q[:1, :2], heads(kq, 0, 1, 2), heads(vq, 0, 1, 2)
+                kd, vd = dequantize(ks), dequantize(vs)
+                bad = {"scale x1.1": attention_kvquant_plain(
+                           qs, ks, vs, 1.1 * scale),
+                       "last tile dropped": attention_kvquant_plain(
+                           qs, dropped_tile(ks), dropped_tile(vs), scale),
+                       "scales rolled": attention_kvquant_plain(
+                           qs, rolled(ks), rolled(vs), scale)}
+                if qdt == "f32":
+                    bad["P rounded to bf16"] = rounded_p_plain(
+                        torch, qs, kd, vd, scale)
+                tol = (F32_OPS_TOL if qdt == "f32" else
+                       KVQ_O_TOL if d <= 256 else DTILED_O_TOL)
+                kvq["checks"][f"d={d} {qdt} q {kind}"] = {
+                    "kernel": kern, "instance": inst, **readings(
+                        f"quant kvquant d={d} ({inst}) {qdt} q {kind} "
+                        f"block {blk['kvq']}: B={b} H={h} Lq={lq} "
+                        f"Lkv={lkv}", o,
+                        attention_kvquant_plain(q, kq, vq, scale),
+                        qs, kd, vd, bad, tol, f"; one {kern} launch")}
+                del o, kq, vq
+            del q, k, v
+        if d > 256:
+            continue
+        q, k, v = v1_inputs(torch, dev, b, h, h, lq, lkv, d, d + 1)
+        qq = quantize_int8(q, blk["q"])
+        kq, vq = (quantize_int8(x, blk["int8"]) for x in (k, v))
+        qs, ks, vs = (heads(x, 0, 1, 2) for x in (qq, kq, vq))
+        for mode in ("bf16", "int8"):
+            o = counted_call(torch, lambda: flash_attention_int8(
+                qq, kq, vq, out_dtype=f32, pv_mode=mode),
+                launches_only(h4int8=1))
+            plain = attention_int8_plain(qq, kq, vq, scale, mode)
+            bad = {"scale x1.1": attention_int8_plain(qs, ks, vs, 1.1 * scale,
+                                                      mode),
+                   "last tile dropped": attention_int8_plain(
+                       qs, dropped_tile(ks), dropped_tile(vs), scale, mode),
+                   "scales rolled": attention_int8_plain(
+                       qs, rolled(ks), rolled(vs), scale, mode)}
+            what = (f"quant int8 d={d} (D={h4_instance(d)}) pv_mode {mode} "
+                    f"q block {blk['q']} kv block {blk['int8']}: B={b} "
+                    f"H={h} Lq={lq} Lkv={lkv}")
+            o64 = naive_attention(*(dequantize(x) for x in (qs, ks, vs)))
+            # pv_mode int8 against the oracle: B18's requantized P is the
+            # function's own error, which the plain version reads up to
+            # 3.1e-2 here (d=16), past the JAX test's tier; the kernel may
+            # read no further than the plain version plus its own limit
+            plain_oracle = float(np.abs(plain[:1, :2].cpu().numpy()
+                                        - o64).max())
+            tol_oracle = (INT8_GATE_TOL if mode == "bf16"
+                          else plain_oracle + INT8_PLAIN_TOL)
+            err = held(torch, what, o, plain, o64,
+                       {n: x.cpu().numpy() for n, x in bad.items()},
+                       INT8_PLAIN_TOL, tol_oracle, 1, 2,
+                       "; one H4-int8 launch")
+            int8["checks"][f"d={d} {mode}"] = {
+                "instance": f"D={h4_instance(d)}", "max_abs_err": err,
+                "oracle_err": float(np.abs(o[:1, :2].cpu().numpy()
+                                           - o64).max()),
+                "plain_oracle_err": plain_oracle}
+            del o, plain
+        del q, k, v, qq, kq, vq
+
+    b, h, l, block = QUANT_TIMED
+    for d in QUANT_TIMED_DIMS:
+        scale = 1.0 / math.sqrt(d)
+        flop = 4 * b * h * l * l * d
+        for qdt in ("bf16", "f32"):
+            make = v1_inputs if qdt == "bf16" else f32_inputs
+            q, k, v = make(torch, dev, b, h, h, l, l, d, 1)
+            kq, vq = quantize_int8(k, block), quantize_int8(v, block)
+            del k, v
+            kd, vd = dequantize(kq, q.dtype), dequantize(vq, q.dtype)
+            nbytes = (2 * b * h * l * d * q.element_size()
+                      + 2 * b * h * l * d + 2 * kq.scales.numel() * 4)
+            peak = ([(flop, H100_BF16_FLOPS)] if qdt == "bf16"
+                    else f32_core_bound(flop, H4KVQ_F32_TERMS))
+            t = kernel_times(lambda: flash_attention_kvquant(q, kq, vq),
+                             lambda: attention_kvquant_plain(q, kq, vq, scale),
+                             None, peak, nbytes)
+            backends, t["library_ms"] = sdpa_backends(torch, q, kd, vd)
+            t["library_backends_ms"] = backends
+            t["tflops"] = flop / t["ms"] / 1e9
+            t["padded_share"] = 1 - d / h4_instance(d)
+            note = ""
+            if d == 256 and qdt == "bf16":
+                # H5's quantized form on the same inputs: where the route
+                # turns from H4-kvq to H5
+                t["h5_ms"] = time_cuda(lambda: flash_attention_v1_dtiled(
+                    q, kq, vq), n_iter=20)
+                note = f"; H5's quantized form {t['h5_ms']:.4f} ms"
+            print(f"  quant kvquant {qdt} q int8 K/V times at B={b} H={h} "
+                  f"L={l} d={d} (D={h4_instance(d)}, "
+                  f"{100 * t['padded_share']:.1f}% of the products on "
+                  f"zero-filled columns): H4-kvq {t['ms']:.4f} ms "
+                  f"({t['tflops']:.1f} TFLOP/s), plain {t['plain_ms']:.4f} "
+                  f"ms, scaled_dot_product_attention over the dequantized "
+                  f"K/V {t['library_ms']:.4f} ms (backends: "
+                  + ", ".join(f"{n} {x:.4f} ms" for n, x in backends.items())
+                  + f"), bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+                  + note)
+            kvq["times"][f"d={d} {qdt} q"] = t
+            del q, kq, vq, kd, vd
+        q, k, v = v1_inputs(torch, dev, b, h, h, l, l, d, 1)
+        qq, kq, vq = (quantize_int8(x, block) for x in (q, k, v))
+        del q, k, v
+        qd, kd, vd = (dequantize(x, torch.bfloat16) for x in (qq, kq, vq))
+        ops = 2 * b * h * l * l * d
+        for mode in ("bf16", "int8"):
+            pv_peak = H100_INT8_OPS if mode == "int8" else H100_BF16_FLOPS
+            t = kernel_times(
+                lambda: flash_attention_int8(qq, kq, vq, pv_mode=mode),
+                lambda: [attention_int8_plain(
+                    *(heads(x, i, i + 1) for x in (qq, kq, vq)), scale, mode)
+                    for i in range(b)],
+                None, [(ops, H100_INT8_OPS), (ops, pv_peak)],
+                3 * b * h * l * d + b * h * l * d * 2
+                + 4 * (qq.scales.numel() + 2 * kq.scales.numel()))
+            backends, t["library_ms"] = sdpa_backends(torch, qd, kd, vd)
+            t["library_backends_ms"] = backends
+            t["tops"] = 2 * ops / t["ms"] / 1e9
+            t["padded_share"] = 1 - d / h4_instance(d)
+            print(f"  quant int8 pv_mode {mode} times at B={b} H={h} L={l} "
+                  f"d={d} (D={h4_instance(d)}): H4-int8 {t['ms']:.4f} ms "
+                  f"({t['tops']:.1f} TOP/s), plain {t['plain_ms']:.4f} ms, "
+                  f"scaled_dot_product_attention over the dequantized bf16 "
+                  f"Q/K/V {t['library_ms']:.4f} ms (backends: "
+                  + ", ".join(f"{n} {x:.4f} ms" for n, x in backends.items())
+                  + f"), bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            int8["times"][f"d={d} {mode}"] = t
+        del qq, kq, vq, qd, kd, vd
+    print(f"  quant head dims in {time.perf_counter() - t0:.1f} s")
+    return kvq, int8
 
 
 def sdpa_backends(torch, q, k, v):
@@ -6883,15 +7103,21 @@ def main(argv) -> int:
         # launch; the numbers are those of the canonical int8 (H4-kvq),
         # pv_mode bf16 (H4-int8) and bf16 d=512 (H5) calls, and library_ms
         # of the quantized calls is SDPA over the dequantized bf16 tensors
-        {"name": "H4-kvq attention over int8 / e4m3 K and V",
+        # by_head_dim: the quant phase's head-dim cases (quant_head_dims;
+        # flash_attention_kvquant's past 256 ran on H5) and its times at
+        # d 80 and 256
+        {"name": "H4-kvq attention over int8 / e4m3 K and V (d a multiple "
+                 "of 16 from 16 to 256; H5's quantized form past it)",
          "route": "cuda", "source": H4KVQ_SRC, "replaces": f"{KVQ_PY}:47",
          "also_replaces": f"{KVQ_PY}:114", "launches": kvq["launches"],
          "max_abs_err": kvq["err"], **kvq["t"]["int8"], "design": "wgmma",
          "bound_share": (kvq["t"]["int8"]["bound_ms"]
                          / kvq["t"]["int8"]["ms"]),
-         "fp8": kvq["t"]["fp8"], "gates": {
-             n: x for n, x in quant_gates.items() if n.startswith("kvquant")}},
-        {"name": "H4-int8 attention, int8 Q, K and V (pv_mode bf16 / int8)",
+         "fp8": kvq["t"]["fp8"], "by_head_dim": kvq["by_head_dim"],
+         "gates": {n: x for n, x in quant_gates.items()
+                   if n.startswith("kvquant")}},
+        {"name": "H4-int8 attention, int8 Q, K and V (pv_mode bf16 / int8; "
+                 "d a multiple of 16 from 16 to 256)",
          "route": "cuda", "source": H4INT8_SRC, "replaces": f"{INT8_PY}:50",
          "launches": int8["launches"], "max_abs_err": int8["err"],
          **int8["t"]["canonical bf16"], "design": "wgmma",
@@ -6899,6 +7125,7 @@ def main(argv) -> int:
                          / int8["t"]["canonical bf16"]["ms"]),
          "by_case": {n: x for n, x in int8["t"].items()
                      if n != "canonical bf16"},
+         "by_head_dim": int8["by_head_dim"],
          "gates": {n: x for n, x in quant_gates.items()
                    if n.startswith("int8")}},
         {"name": "H5 d-tiled attention forward (bf16, int8, e4m3 K/V; d a "

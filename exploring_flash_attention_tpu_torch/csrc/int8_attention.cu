@@ -66,12 +66,38 @@
 // accumulator 64 + P 32 (bf16 fragment) or 16 (packed int8 codes) per
 // consumer thread, within 232 (a 288-thread block, with a single producer
 // warp, is capped at 168 and spilled).
+//
+// Head dims.  d is any multiple of 16 from 16 to 256, on instances D = 64,
+// 128 and 256 (the smallest D >= d): Q, K and V are described to TMA with
+// their true d (int8 rows of d bytes, a multiple of 16) and loaded as boxes
+// of D columns, so the columns past d arrive as zero codes, add nothing to
+// S and give O columns that the epilogue does not store.  The padded share
+// of the products is (D - d) / D (37.5% at d=80).  The softmax scale is the
+// caller's, 1/sqrt(d) of the true d.  At D=256 (d 144 to 256):
+//   - Q and K rows are 256 bytes, two 128-byte boxes each (the swizzle is
+//     at most 128 bytes wide), S's k-steps walking the boxes in turn;
+//   - O alone is 128 registers a consumer thread, so the K/V tile is 64
+//     keys (S 32 registers; three stages of K, V and the converted V in
+//     226 KB at pv_mode bf16) and each run's P V is four products of 64 of
+//     O's columns, each in a fresh 32-register accumulator that is scaled
+//     by the run's v_scale and added into O before the next is issued: O
+//     128 + the part 32 + P 16 + the run's masked copy 16 within 232 (the
+//     part starts from its first wgmma's scale-d 0, descriptors are made
+//     where they are issued, and the epilogue finds its rows again: with
+//     any of these kept in registers over the loops, ptxas spilled; the
+//     smaller instances keep the tuned code, Tiles::TIGHT).  The
+//     function is B18's as at D=128: m over every key (pass 1), l the f32
+//     p, each kv block's P V scaled by its v_scale after the product.
+//   - In pv_mode int8, V^T and each warpgroup's P tile have rows of 64
+//     keys, 64 bytes, and take the 64-byte swizzle.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "wgmma_tile.cuh"
 
@@ -80,7 +106,6 @@ namespace {
 using namespace eft::hopper;
 
 constexpr int BQ = 128;          // Q rows per block
-constexpr int BKV = 128;         // keys per K/V tile
 constexpr int STAGES = 3;        // K/V ring depth
 constexpr int CONSUMERS = 2;     // warpgroups of 64 Q rows
 constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
@@ -92,13 +117,25 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr int P_BAR = 1;         // + wg: each warpgroup's P tile
 
-// Shared memory of one block.  Q and K are int8 rows of D bytes (the
-// swizzle width); the V stage is plain [128][D] codes; the converted V is
-// bf16 [D / 64][128][64] (128-byte swizzle, MN-major) or int8 V^T
-// [D][128] (128-byte swizzle, K-major); P is int8 [64][128] per
-// warpgroup.
+// Shared memory of one block.  Q and K are boxes of QK_BOX int8 columns
+// (the swizzle width; D up to 128, two boxes of 128 at D=256) by their
+// rows, box after box; the V stage is plain [BKV][D] codes; the converted
+// V is bf16 [D / 64][BKV][64] (128-byte swizzle, MN-major) or int8 V^T
+// [D][BKV] (BKV-byte swizzle, K-major); P is int8 [64][BKV] per warpgroup
+// (BKV-byte swizzle).  K/V tiles of BKV keys (128; 64 at D=256); P V in
+// parts of PV_N of O's columns (D; 64 at D=256), each in a fresh
+// accumulator.
 template <int D, bool PV_INT8>
 struct Tiles {
+  static constexpr int BKV = D == 256 ? 64 : 128;
+  static constexpr int QK_BOX = D < 128 ? D : 128;
+  static constexpr int NQK = D / QK_BOX;
+  static constexpr int PV_N = D == 256 ? 64 : D;
+  // registers tight (O 128 a consumer thread): the part starts from its
+  // first wgmma's scale-d 0, descriptors are made where they are issued
+  // (opaque), the epilogue finds its rows again; the smaller instances
+  // keep the tuned code
+  static constexpr bool TIGHT = D == 256;
   static constexpr uint32_t Q_BYTES = BQ * D;
   static constexpr uint32_t KV_BYTES = BKV * D;
   static constexpr uint32_t CONV_BYTES = PV_INT8 ? BKV * D : BKV * D * 2;
@@ -111,19 +148,31 @@ struct Tiles {
   static constexpr size_t kscale = p + size_t(CONSUMERS) * P_BYTES;
   static constexpr size_t bars = kscale + size_t(STAGES) * BKV * 4;
   static constexpr size_t bytes = bars + 8 * (4 * STAGES + 1) + 1024;
+  static_assert(bytes <= 232448, "the block's shared memory");
 };
 
+// S = Q K^T of one K tile on s8 wgmma, waited for; q_wg is the
+// warpgroup's first row in Q's first box
 template <int D>
-__device__ __forceinline__ void wgmma_qk(int (&s)[BKV / 2],
+__device__ __forceinline__ void wgmma_qk(int (&s)[Tiles<D, false>::BKV / 2],
                                          const unsigned char* q_wg,
                                          const unsigned char* k_s) {
+  using T = Tiles<D, false>;
+  constexpr int W = T::QK_BOX;
+  if constexpr (T::TIGHT) q_wg = opaque(q_wg);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 32; ++kk) {
-    const uint64_t da = gmma_desc(q_wg + kk * 32, 16, 8 * D, D);
-    const uint64_t db = gmma_desc(k_s + kk * 32, 16, 8 * D, D);
-    if (kk == 0) wgmma_ss_s8_n128_first(s, da, db);
-    else wgmma_ss_s8_n128(s, da, db, 1);
+    const int box = kk / (W / 32), off = (kk % (W / 32)) * 32;
+    const uint64_t da = gmma_desc(q_wg + box * BQ * W + off, 16, 8 * W, W);
+    const uint64_t db = gmma_desc(k_s + box * T::BKV * W + off, 16, 8 * W, W);
+    if constexpr (T::BKV == 128) {
+      if (kk == 0) wgmma_ss_s8_n128_first(s, da, db);
+      else wgmma_ss_s8_n128(s, da, db, 1);
+    } else {
+      if (kk == 0) wgmma_ss_s8_n64_first(s, da, db);
+      else wgmma_ss_s8_n64(s, da, db, 1);
+    }
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -132,16 +181,17 @@ __device__ __forceinline__ void wgmma_qk(int (&s)[BKV / 2],
 
 template <int D, bool PV_INT8>
 __global__ void __launch_bounds__(THREADS, 1)
-int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D]
-                      const __grid_constant__ CUtensorMap tk,  // [BH, Lkv, D]
-                      const __grid_constant__ CUtensorMap tv,  // [BH, Lkv, D]
+int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
+                      const __grid_constant__ CUtensorMap tk,  // [BH, Lkv, d]
+                      const __grid_constant__ CUtensorMap tv,  // [BH, Lkv, d]
                       const float* __restrict__ qs,    // [BH, n_qb]
                       const float* __restrict__ ks,    // [BH, n_kvb]
                       const float* __restrict__ vs,    // [BH, n_kvb]
-                      void* __restrict__ o,            // [BH, Lq, D]
-                      int out_f32, int lq, int lkv, int q_block, int n_qb,
-                      int kv_block, int n_kvb, float scale_log2) {
+                      void* __restrict__ o,            // [BH, Lq, d]
+                      int out_f32, int lq, int lkv, int d, int q_block,
+                      int n_qb, int kv_block, int n_kvb, float scale_log2) {
   using T = Tiles<D, PV_INT8>;
+  constexpr int BKV = T::BKV, W = T::QK_BOX, PV_N = T::PV_N;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sq = smem + T::q;
@@ -185,7 +235,8 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D]
       const float* ksb = ks + size_t(bh) * n_kvb;
       if (lane == 0) {
         mbar_arrive_expect_tx(q_full, T::Q_BYTES);
-        tma_load_3d(sq, &tq, q_full, 0, q0, bh);
+        for (int x = 0; x < T::NQK; ++x)
+          tma_load_3d(sq + x * BQ * W, &tq, q_full, x * W, q0, bh);
       }
       for (int i = 0; i < 2 * n_tiles; ++i) {
         const int s = i % STAGES;
@@ -196,7 +247,9 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D]
           skey[s * BKV + c] = kv0 + c < lkv ? ksb[(kv0 + c) / kv_block] : 0.f;
         if (lane == 0) {
           mbar_arrive_expect_tx(&full[s], T::KV_BYTES);
-          tma_load_3d(sk + s * T::KV_BYTES, &tk, &full[s], 0, kv0, bh);
+          for (int x = 0; x < T::NQK; ++x)
+            tma_load_3d(sk + s * T::KV_BYTES + x * BKV * W, &tk, &full[s],
+                        x * W, kv0, bh);
           if (pass2) {
             mbar_arrive_expect_tx(&v_full[s], T::KV_BYTES);
             tma_load_3d(sv + s * T::KV_BYTES, &tv, &v_full[s], 0, kv0, bh);
@@ -217,22 +270,22 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D]
         const unsigned char* v_s = sv + s * T::KV_BYTES;
         unsigned char* conv = smem + T::conv + s * T::CONV_BYTES;
         if constexpr (PV_INT8) {
-          // V^T [D][128 keys]: 16 keys of one column per 16-byte chunk
+          // V^T [D][BKV keys]: 16 keys of one column per 16-byte chunk
           for (int x = ct; x < D * (BKV / 16); x += CONVERTERS) {
-            const int d = x % D, c = x / D;
+            const int col = x % D, c = x / D;
             uint32_t w[4];
 #pragma unroll
             for (int b = 0; b < 4; ++b) {
-              const unsigned char* src = v_s + (c * 16 + 4 * b) * D + d;
+              const unsigned char* src = v_s + (c * 16 + 4 * b) * D + col;
               w[b] = uint32_t(src[0]) | (uint32_t(src[D]) << 8)
                      | (uint32_t(src[2 * D]) << 16)
                      | (uint32_t(src[3 * D]) << 24);
             }
-            *reinterpret_cast<uint4*>(conv + swz128(d, c * 16)) =
+            *reinterpret_cast<uint4*>(conv + swz<BKV>(col, c * 16)) =
                 make_uint4(w[0], w[1], w[2], w[3]);
           }
         } else {
-          // bf16 [D / 64][128 keys][64]
+          // bf16 [D / 64][BKV keys][64]
           convert_codes_tile<KV_INT8, false, D>(v_s, conv, BKV, ct,
                                                 CONVERTERS);
         }
@@ -248,7 +301,7 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D]
   const int wg = warp / 4;
   const int row0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
   const int col0 = 2 * (lane % 4);
-  const unsigned char* q_wg = sq + wg * 64 * D;
+  const unsigned char* q_wg = sq + wg * 64 * W;
   float q_scale[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -340,21 +393,17 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D]
     mbar_wait(&conv_full[s], (t / STAGES) & 1);
     const unsigned char* conv = smem + T::conv + s * T::CONV_BYTES;
 
-    // one run per kv block in the tile: [r0, r1) of its 128 keys
+    // one run per kv block in the tile: [r0, r1) of its BKV keys
     const int tile_end = min(kv0 + BKV, lkv);
     for (int b = kv0 / kv_block; b * kv_block < tile_end; ++b) {
       const int r0 = max(kv0, b * kv_block) - kv0;
       const int r1 = min(tile_end, (b + 1) * kv_block) - kv0;
-      float acc[D / 2];
-#pragma unroll
-      for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
-      float v_scale = vsb[b];
+      const float v_scale = PV_INT8 ? vsb[b] * (1.f / 127.f) : vsb[b];
+      const unsigned char* cv = T::TIGHT ? opaque(conv) : conv;
       if constexpr (PV_INT8) {
-        int acc_i[D / 2];
-#pragma unroll
-        for (int e = 0; e < D / 2; ++e) acc_i[e] = 0;
         // this warpgroup's P codes of the run, zero outside it
         unsigned char* sp = smem + T::p + wg * T::P_BYTES;
+        if constexpr (T::TIGHT) sp = opaque(sp);
         named_bar_sync(P_BAR + wg, 128);         // the last run's reads done
 #pragma unroll
         for (int j = 0; j < BKV / 4; ++j) {
@@ -364,25 +413,39 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D]
           const uint32_t keep = (col >= r0 && col < r1 ? 0xff : 0)
                                 | (col + 1 >= r0 && col + 1 < r1 ? 0xff00 : 0);
           *reinterpret_cast<uint16_t*>(
-              sp + swz128((warp % 4) * 16 + lane / 4 + 8 * r, col)) =
+              sp + swz<BKV>((warp % 4) * 16 + lane / 4 + 8 * r, col)) =
               uint16_t(c & keep);
         }
         fence_proxy_async();
         named_bar_sync(P_BAR + wg, 128);
-        wgmma_fence();
+        // P V in parts of PV_N of O's columns (rows of V^T), each from a
+        // fresh accumulator, times v_scale / 127 into O
 #pragma unroll
-        for (int kk = 0; kk < BKV / 32; ++kk) {
-          const uint64_t dp = gmma_desc(sp + kk * 32, 16, 1024, 128);
-          const uint64_t dv = gmma_desc(conv + kk * 32, 16, 1024, 128);
-          if constexpr (D == 128) wgmma_ss_s8_n128(acc_i, dp, dv, 1);
-          else wgmma_ss_s8_n64(acc_i, dp, dv, 1);
+        for (int h = 0; h < D / PV_N; ++h) {
+          // the part from its first step's scale-d 0 (a zeroed
+          // accumulator made ptxas fence the products, C7519)
+          int acc_i[PV_N / 2];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BKV / 32; ++kk) {
+            const uint64_t dp = gmma_desc(sp + kk * 32, 16, 8 * BKV, BKV);
+            const uint64_t dv = gmma_desc(cv + h * PV_N * BKV + kk * 32,
+                                          16, 8 * BKV, BKV);
+            if constexpr (PV_N == 128) {
+              if (kk == 0) wgmma_ss_s8_n128_first(acc_i, dp, dv);
+              else wgmma_ss_s8_n128(acc_i, dp, dv, 1);
+            } else {
+              if (kk == 0) wgmma_ss_s8_n64_first(acc_i, dp, dv);
+              else wgmma_ss_s8_n64(acc_i, dp, dv, 1);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc_i);
+#pragma unroll
+          for (int e = 0; e < PV_N / 2; ++e)
+            acc_o[h * (PV_N / 2) + e] += float(acc_i[e]) * v_scale;
         }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc_i);
-#pragma unroll
-        for (int e = 0; e < D / 2; ++e) acc[e] = float(acc_i[e]);
-        v_scale *= 1.f / 127.f;
       } else {
         // every step is issued (a branch around a wgmma serializes them
         // all); the steps outside the run multiply zeros.  The run's
@@ -392,42 +455,72 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D]
 #pragma unroll
         for (int j = 0; j < BKV / 4; ++j)
           pr[j] = (j / 4) * 16 >= r0 && (j / 4) * 16 < r1 ? pa[j] : 0u;
-        wgmma_fence();
+        // P V in parts of PV_N of O's columns (V's 64-column boxes), each
+        // from a fresh accumulator, times v_scale into O
 #pragma unroll
-        for (int kk = 0; kk < BKV / 16; ++kk) {
-          const uint64_t dv = gmma_desc(conv + kk * 16 * 128, BKV * 128,
-                                        1024, 128);
-          if constexpr (D == 128)
-            wgmma_rs_bf16_n128(acc, pr[4 * kk], pr[4 * kk + 1],
-                               pr[4 * kk + 2], pr[4 * kk + 3], dv, 1);
-          else
-            wgmma_rs_bf16_n64(acc, pr[4 * kk], pr[4 * kk + 1],
-                              pr[4 * kk + 2], pr[4 * kk + 3], dv, 1);
+        for (int h = 0; h < D / PV_N; ++h) {
+          float acc[PV_N / 2];
+          if constexpr (!T::TIGHT) {
+#pragma unroll
+            for (int e = 0; e < PV_N / 2; ++e) acc[e] = 0.f;
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BKV / 16; ++kk) {
+            const uint64_t dv = gmma_desc(
+                cv + h * (PV_N / 64) * BKV * 128 + kk * 16 * 128,
+                BKV * 128, 1024, 128);
+            if constexpr (PV_N == 128)
+              wgmma_rs_bf16_n128(acc, pr[4 * kk], pr[4 * kk + 1],
+                                 pr[4 * kk + 2], pr[4 * kk + 3], dv, 1);
+            else
+              wgmma_rs_bf16_n64(acc, pr[4 * kk], pr[4 * kk + 1],
+                                pr[4 * kk + 2], pr[4 * kk + 3], dv,
+                                !T::TIGHT || kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+#pragma unroll
+          for (int e = 0; e < PV_N / 2; ++e)
+            acc_o[h * (PV_N / 2) + e] += acc[e] * v_scale;
         }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc);
       }
-#pragma unroll
-      for (int e = 0; e < D / 2; ++e) acc_o[e] += acc[e] * v_scale;
     }
     mbar_arrive(&empty[s]);            // K, the key scales, V and its copy
   }
 
-  store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
-                  nullptr);
+  // the first d columns of the two owned rows; at d = D inlined apart,
+  // with constant strides.  At D=256 the rows are found from the block's
+  // and thread's indices again (kept live over the loops, they spilled)
+  int row = row0, head = bh;
+  if constexpr (T::TIGHT) {
+    const int cta = ctaid_x_again(), tid = tid_x_again();
+    row = (cta % n_qt) * BQ + tid / 128 * 64 + tid / 32 % 4 * 16
+          + tid % 32 / 4;
+    head = cta / n_qt;
+  }
+  if (d == D)
+    store_o_rows<D>(acc_o, l, m, row, lq, size_t(head) * lq, o, out_f32,
+                    nullptr);
+  else
+    store_o_rows<D>(acc_o, l, m, row, lq, size_t(head) * lq, o, out_f32,
+                    nullptr, d, 0, d);
 }
 
 template <int D, bool PV_INT8>
 int launch(const void* q, const void* k, const void* v, const void* qs,
            const void* ks, const void* vs, void* o, int out_f32, int bh,
-           int lq, int lkv, int q_block, int n_qb, int kv_block, int n_kvb,
-           float scale_log2, cudaStream_t stream) {
+           int lq, int lkv, int d, int q_block, int n_qb, int kv_block,
+           int n_kvb, float scale_log2, cudaStream_t stream) {
   using T = Tiles<D, PV_INT8>;
+  // boxes of D columns (Q and K: NQK boxes of QK_BOX) over rows of the
+  // true d: the columns past d arrive as zero codes
   CUtensorMap tq, tk, tv;
-  int err = make_tmap(&tq, q, 1, D, lq, bh, D, BQ, D);
-  if (!err) err = make_tmap(&tk, k, 1, D, lkv, bh, D, BKV, D);
-  if (!err) err = make_tmap(&tv, v, 1, D, lkv, bh, D, BKV, 0);
+  int err = make_tmap(&tq, q, 1, d, lq, bh, T::QK_BOX, BQ, T::QK_BOX);
+  if (!err) err = make_tmap(&tk, k, 1, d, lkv, bh, T::QK_BOX, T::BKV,
+                            T::QK_BOX);
+  if (!err) err = make_tmap(&tv, v, 1, d, lkv, bh, D, T::BKV, 0);
   if (err) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
       int8_attention_kernel<D, PV_INT8>,
@@ -437,20 +530,20 @@ int launch(const void* q, const void* k, const void* v, const void* qs,
   int8_attention_kernel<D, PV_INT8><<<grid, THREADS, T::bytes, stream>>>(
       tq, tk, tv, static_cast<const float*>(qs),
       static_cast<const float*>(ks), static_cast<const float*>(vs), o,
-      out_f32, lq, lkv, q_block, n_qb, kv_block, n_kvb, scale_log2);
+      out_f32, lq, lkv, d, q_block, n_qb, kv_block, n_kvb, scale_log2);
   return int(cudaGetLastError());
 }
 
 template <int D>
 int launch_mode(int pv_int8, const void* q, const void* k, const void* v,
                 const void* qs, const void* ks, const void* vs, void* o,
-                int out_f32, int bh, int lq, int lkv, int q_block, int n_qb,
-                int kv_block, int n_kvb, float scale_log2,
+                int out_f32, int bh, int lq, int lkv, int d, int q_block,
+                int n_qb, int kv_block, int n_kvb, float scale_log2,
                 cudaStream_t stream) {
   if (pv_int8)
-    return launch<D, true>(q, k, v, qs, ks, vs, o, out_f32, bh, lq, lkv,
+    return launch<D, true>(q, k, v, qs, ks, vs, o, out_f32, bh, lq, lkv, d,
                            q_block, n_qb, kv_block, n_kvb, scale_log2, stream);
-  return launch<D, false>(q, k, v, qs, ks, vs, o, out_f32, bh, lq, lkv,
+  return launch<D, false>(q, k, v, qs, ks, vs, o, out_f32, bh, lq, lkv, d,
                           q_block, n_qb, kv_block, n_kvb, scale_log2, stream);
 }
 
@@ -459,7 +552,9 @@ int launch_mode(int pv_int8, const void* q, const void* k, const void* v,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // ops/attention_int8.py has already checked shapes, dtypes, contiguity and
 // alignment; the checks here only refuse what would index out of bounds.
-// kv_block must be a multiple of 16; scale_log2 = softmax scale * log2(e).
+// d: a multiple of 16 from 16 to 256, on the instance D = 64, 128 or 256
+// (the smallest D >= d); kv_block must be a multiple of 16; scale_log2 =
+// softmax scale * log2(e) (the scale of the true d).
 extern "C" int eft_int8_attention(const void* q, const void* k, const void* v,
                                   const void* qs, const void* ks,
                                   const void* vs, void* o, int batch,
@@ -469,21 +564,18 @@ extern "C" int eft_int8_attention(const void* q, const void* k, const void* v,
                                   float scale_log2, int device, void* stream) {
   if (batch <= 0 || heads <= 0 || lq <= 0 || lkv <= 0 || q_block <= 0 ||
       n_qb != (lq + q_block - 1) / q_block || kv_block <= 0 ||
-      kv_block % 16 != 0 || n_kvb != (lkv + kv_block - 1) / kv_block)
+      kv_block % 16 != 0 || n_kvb != (lkv + kv_block - 1) / kv_block ||
+      d < 16 || d > 256 || d % 16 != 0)
     return int(cudaErrorInvalidValue);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return launch_mode<64>(pv_int8, q, k, v, qs, ks, vs, o, out_f32,
-                             batch * heads, lq, lkv, q_block, n_qb, kv_block,
-                             n_kvb, scale_log2, s);
-    case 128:
-      return launch_mode<128>(pv_int8, q, k, v, qs, ks, vs, o, out_f32,
-                              batch * heads, lq, lkv, q_block, n_qb, kv_block,
-                              n_kvb, scale_log2, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  auto go = [&](auto dc) {
+    return launch_mode<decltype(dc)::value>(
+        pv_int8, q, k, v, qs, ks, vs, o, out_f32, batch * heads, lq, lkv, d,
+        q_block, n_qb, kv_block, n_kvb, scale_log2, s);
+  };
+  if (d <= 64) return go(std::integral_constant<int, 64>{});
+  if (d <= 128) return go(std::integral_constant<int, 128>{});
+  return go(std::integral_constant<int, 256>{});
 }

@@ -43,7 +43,7 @@
 // p * (v_scale / vmax), which is p itself wherever a tile lies in one scale
 // block (2^-11 relative per weight; B16 and B17 round P to bf16, 2^-8; the
 // ratio keeps P in [0, 1], so fp16's range holds for any scale), and each
-// tile's product is multiplied by its vmax, now per 128-key tile.  vmax
+// tile's product is multiplied by its vmax, per K/V tile.  vmax
 // folds into the row rescale: O is held divided by the last tile's vmax,
 // so before P V of tile i it is multiplied by alpha_i * vmax_{i-1} /
 // vmax_i, and the epilogue multiplies by the last vmax.  Any block works,
@@ -56,12 +56,27 @@
 // Registers: S 64 + O 64 + P 32 per consumer thread, within 224; the
 // producer keeps 56 for the conversion (on an H100, 40 / 232 ran about
 // 3% slower).
+//
+// Head dims.  d is any multiple of 16 from 16 to 256, on instances D = 64,
+// 128 and 256 (the smallest D >= d), as H6-extend's (paged_extend.cu): Q
+// and the code tiles are loaded by TMA as boxes of D columns from tensors
+// described with their true d, so the columns past d arrive as zeros (zero
+// K and V codes), add nothing to S and give O columns that the epilogue
+// does not store.  The padded share of the products is (D - d) / D (37.5%
+// at d=80).  The softmax scale is the caller's, 1/sqrt(d) of the true d.
+// At D=256 O takes 128 registers a consumer thread, so the K/V tile is 64
+// keys (S 32 + P 16 + O 128 within the 224, vmax per 64-key tile), and Q
+// 64 KB + two converted stages 128 KB leave room for two code slots (32
+// KB): 226 KB.  The f32 kernel below takes the same d on the f32 core's
+// instances (f32_attention.cuh).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "f32_attention.cuh"
 #include "wgmma_tile.cuh"
@@ -71,9 +86,7 @@ namespace {
 using namespace eft::hopper;
 
 constexpr int BQ = 128;          // Q rows per block
-constexpr int BKV = 128;         // keys per K/V tile
 constexpr int STAGES = 2;        // converted K/V stages
-constexpr int SLOTS = 3;         // code slots, K and V tiles in turn
 constexpr int CONSUMERS = 2;     // warpgroups of 64 Q rows
 constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
 constexpr int CONVERTERS = 128;  // the whole producer warpgroup
@@ -85,11 +98,15 @@ constexpr int PRODUCER_REGS = 56;
 constexpr int CONSUMER_REGS = 224;
 
 // Shared memory of one block.  Q and the converted K and V are boxes of 64
-// 16-bit columns (128-byte rows, the swizzle width) by 128 rows, box after
-// box; a code slot is a plain [128][D] tile of one-byte codes.  Each stage's
-// scales: k_scale * scale * log2e per key, v_scale / vmax per key, vmax.
+// 16-bit columns (128-byte rows, the swizzle width) by their rows, box
+// after box; a code slot is a plain [BKV][D] tile of one-byte codes.  Each
+// stage's scales: k_scale * scale * log2e per key, v_scale / vmax per key,
+// vmax.  K/V tiles of BKV keys (128; 64 at D=256), SLOTS code slots (3; 2
+// at D=256).
 template <int D>
 struct Tiles {
+  static constexpr int BKV = D == 256 ? 64 : 128;
+  static constexpr int SLOTS = D == 256 ? 2 : 3;
   static constexpr int NBOX = D / 64;
   static constexpr uint32_t Q_BYTES = BQ * D * 2;
   static constexpr uint32_t CONV_BYTES = BKV * D * 2;
@@ -103,12 +120,20 @@ struct Tiles {
   static constexpr size_t bars = scales + size_t(STAGES) * SCALES * 4;
   static constexpr size_t bytes =
       bars + 8 * (SLOTS + 3 * STAGES + 1) + 1024;
+  static_assert(bytes <= 232448, "the block's shared memory");
 };
 
+// O += P V of 16 keys; v_k is their rows of the converted V tile
+// (MN-major boxes of BKV rows)
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (D == 128)
+                                         const unsigned char* v_k) {
+  constexpr int BKV = Tiles<D>::BKV;
+  const uint64_t db = gmma_desc(v_k, BKV * 128, 1024, 128);
+  if constexpr (D == 256)
+    wgmma_rs_f16_n256(o, a, db,
+                      gmma_desc(v_k + 2 * BKV * 128, BKV * 128, 1024, 128));
+  else if constexpr (D == 128)
     wgmma_rs_f16_n128(o, a[0], a[1], a[2], a[3], db, 1);
   else
     wgmma_rs_f16_n64(o, a[0], a[1], a[2], a[3], db, 1);
@@ -116,48 +141,54 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
 
 // S = Q K^T of one converted K tile (issued, not waited for)
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&acc_s)[BKV / 2],
+__device__ __forceinline__ void issue_qk(float (&acc_s)[Tiles<D>::BKV / 2],
                                          const unsigned char* q_wg,
                                          const unsigned char* k_s) {
+  constexpr int BKV = Tiles<D>::BKV;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int box = kk / 4, off = (kk % 4) * 32;
     const uint64_t da = gmma_desc(q_wg + box * BQ * 128 + off, 16, 1024, 128);
     const uint64_t db = gmma_desc(k_s + box * BKV * 128 + off, 16, 1024, 128);
-    if (kk == 0) wgmma_ss_bf16_n128_first(acc_s, da, db);
-    else wgmma_ss_bf16_n128(acc_s, da, db, 1);
+    if constexpr (BKV == 128) {
+      if (kk == 0) wgmma_ss_bf16_n128_first(acc_s, da, db);
+      else wgmma_ss_bf16_n128(acc_s, da, db, 1);
+    } else {
+      if (kk == 0) wgmma_ss_bf16_n64_first(acc_s, da, db);
+      else wgmma_ss_bf16_n64(acc_s, da, db, 1);
+    }
   }
 }
 
 // O += P V of one converted V tile, 16 keys a step (issued, not waited for)
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc_o)[D / 2],
-                                         const uint32_t (&pa)[BKV / 4],
+                                         const uint32_t (&pa)[Tiles<D>::BKV / 4],
                                          const unsigned char* v_s) {
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk)
-    wgmma_pv<D>(acc_o, &pa[4 * kk],
-                gmma_desc(v_s + kk * 16 * 128, BKV * 128, 1024, 128));
+  for (int kk = 0; kk < Tiles<D>::BKV / 16; ++kk)
+    wgmma_pv<D>(acc_o, &pa[4 * kk], v_s + kk * 16 * 128);
 }
 
 // The online softmax of one S tile, in registers: s * kc[col] (kc =
 // k_scale * scale * log2e of this thread's columns), the columns at or
 // past lkv masked unless the tile is whole, the new row max (quad
 // shuffles), p = exp2(s - m_use) in f32; alpha = exp2(m_old - m_use)
-__device__ __forceinline__ void softmax_exp(float (&acc_s)[BKV / 2],
+template <int N>
+__device__ __forceinline__ void softmax_exp(float (&acc_s)[N],
                                             float (&m)[2], float (&alpha)[2],
                                             bool whole, int col_base, int lkv,
                                             const float* kc) {
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
   if (whole) {
 #pragma unroll
-    for (int e = 0; e < BKV / 2; ++e) {
+    for (int e = 0; e < N; ++e) {
       acc_s[e] = acc_s[e] * kc[acc_col(e)];
       mx[acc_row8(e) / 8] = fmaxf(mx[acc_row8(e) / 8], acc_s[e]);
     }
   } else {
 #pragma unroll
-    for (int e = 0; e < BKV / 2; ++e) {
+    for (int e = 0; e < N; ++e) {
       const int r = acc_row8(e) / 8;
       acc_s[e] = col_base + acc_col(e) < lkv ? acc_s[e] * kc[acc_col(e)]
                                              : -CUDART_INF_F;
@@ -173,20 +204,21 @@ __device__ __forceinline__ void softmax_exp(float (&acc_s)[BKV / 2],
     m[r] = m_new;
   }
 #pragma unroll
-  for (int e = 0; e < BKV / 2; ++e)
+  for (int e = 0; e < N; ++e)
     acc_s[e] = exp2_approx(acc_s[e] - m_use[acc_row8(e) / 8]);
 }
 
 // l = l * alpha + the f32 p; P * (v_scale / vmax) packed as the fp16 A
 // fragment of P V (vr: this thread's columns' ratios); then alpha takes
 // O's vmax correction, vmax_prev / vmax (1 on the first tile)
-__device__ __forceinline__ void pack_p(const float (&p)[BKV / 2],
-                                       uint32_t (&pa)[BKV / 4], float (&l)[2],
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&p)[N],
+                                       uint32_t (&pa)[N / 2], float (&l)[2],
                                        float (&alpha)[2], const float* vr,
                                        float& vmax_prev, float vmax) {
   float psum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < BKV / 4; ++j) {
+  for (int j = 0; j < N / 2; ++j) {
     const int col = acc_col(2 * j);
     psum[j & 1] += p[2 * j] + p[2 * j + 1];
     pa[j] = pack_f16x2(p[2 * j] * vr[col], p[2 * j + 1] * vr[col + 1]);
@@ -210,8 +242,9 @@ __device__ __forceinline__ void consume(
     const unsigned char* sq, const unsigned char* sk, const unsigned char* sv,
     const float* sscale, uint64_t* k_full, uint64_t* v_full,
     uint64_t* empty, uint64_t* q_full, void* o,
-    int out_f32, int lq, int lkv, int q0, int bh, int n_tiles) {
+    int out_f32, int lq, int lkv, int d, int q0, int bh, int n_tiles) {
   using T = Tiles<D>;
+  constexpr int BKV = T::BKV;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wg = warp / 4;
@@ -287,21 +320,28 @@ __device__ __forceinline__ void consume(
 
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) acc_o[e] *= vmax_prev;
-  store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
-                  nullptr);
+  // the first d columns of the two owned rows (d <= D); at d = D inlined
+  // apart, with constant strides
+  if (d == D)
+    store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
+                    nullptr);
+  else
+    store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
+                    nullptr, d, 0, d);
 }
 
 template <int D, int KIND>
 __global__ void __launch_bounds__(THREADS, 1)
-kvquant_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D] bf16
-                         const __grid_constant__ CUtensorMap tk,  // [BH, Lkv, D] codes
-                         const __grid_constant__ CUtensorMap tv,  // [BH, Lkv, D] codes
+kvquant_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d] bf16
+                         const __grid_constant__ CUtensorMap tk,  // [BH, Lkv, d] codes
+                         const __grid_constant__ CUtensorMap tv,  // [BH, Lkv, d] codes
                          const float* __restrict__ ks,    // [BH, n_blocks]
                          const float* __restrict__ vs,    // [BH, n_blocks]
-                         void* __restrict__ o,            // [BH, Lq, D]
-                         int out_f32, int lq, int lkv, int block,
+                         void* __restrict__ o,            // [BH, Lq, d]
+                         int out_f32, int lq, int lkv, int d, int block,
                          int n_blocks, float scale_log2) {
   using T = Tiles<D>;
+  constexpr int BKV = T::BKV, SLOTS = T::SLOTS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sq = smem + T::q;
@@ -394,18 +434,21 @@ kvquant_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, D]
 
   setmaxnreg_inc<CONSUMER_REGS>();
   consume<D>(sq, sk, sv, sscale, k_full, v_full, empty, q_full, o, out_f32,
-             lq, lkv, q0, bh, n_tiles);
+             lq, lkv, d, q0, bh, n_tiles);
 }
 
 template <int D, int KIND>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, void* o, int out_f32, int bh, int lq, int lkv,
-           int block, int n_blocks, float scale_log2, cudaStream_t stream) {
+           int d, int block, int n_blocks, float scale_log2,
+           cudaStream_t stream) {
   using T = Tiles<D>;
+  // boxes of D columns (Q: D / 64 boxes of 64) over rows of the true d:
+  // the columns past d arrive as zeros
   CUtensorMap tq, tk, tv;
-  int err = make_tmap(&tq, q, 2, D, lq, bh, 64, BQ, 128);
-  if (!err) err = make_tmap(&tk, k, 1, D, lkv, bh, D, BKV, 0);
-  if (!err) err = make_tmap(&tv, v, 1, D, lkv, bh, D, BKV, 0);
+  int err = make_tmap(&tq, q, 2, d, lq, bh, 64, BQ, 128);
+  if (!err) err = make_tmap(&tk, k, 1, d, lkv, bh, D, T::BKV, 0);
+  if (!err) err = make_tmap(&tv, v, 1, d, lkv, bh, D, T::BKV, 0);
   if (err) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
       kvquant_attention_kernel<D, KIND>,
@@ -414,7 +457,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   const dim3 grid(bh * ((lq + BQ - 1) / BQ));
   kvquant_attention_kernel<D, KIND><<<grid, THREADS, T::bytes, stream>>>(
       tq, tk, tv, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), o, out_f32, lq, lkv, block, n_blocks,
+      static_cast<const float*>(vs), o, out_f32, lq, lkv, d, block, n_blocks,
       scale_log2);
   return int(cudaGetLastError());
 }
@@ -434,16 +477,18 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 // zero-filled and masked to -inf.  P * v_scale stays f32 until it is split
 // (B16 multiplies the f32 P V by v_scale per block, :99-106; per key the
 // same product up to f32 rounding), and l sums the unscaled p.  Shared
-// memory at D=128: Q pieces 96 KB, two stages of 32 keys 16 KB, 128 KB.
+// memory at D=128: Q pieces 96 KB, two stages of 32 keys 16 KB, 128 KB; at
+// D=256 one consumer warpgroup of 64 rows (f32_attention.cuh), Q pieces 96
+// KB, 160 KB.  A d below D is read as zeros past its columns.
 template <int D, int KIND>
 __global__ void __launch_bounds__(eft::f32::Tiles<D, 1>::THREADS, 1)
-kvquant_attention_f32_kernel(const float* __restrict__ q,     // [BH, Lq, D]
-                             const uint8_t* __restrict__ k,   // [BH, Lkv, D]
-                             const uint8_t* __restrict__ v,   // [BH, Lkv, D]
+kvquant_attention_f32_kernel(const float* __restrict__ q,     // [BH, Lq, d]
+                             const uint8_t* __restrict__ k,   // [BH, Lkv, d]
+                             const uint8_t* __restrict__ v,   // [BH, Lkv, d]
                              const float* __restrict__ ks,    // [BH, nb]
                              const float* __restrict__ vs,    // [BH, nb]
-                             void* __restrict__ o,            // [BH, Lq, D]
-                             int out_f32, int lq, int lkv, int block,
+                             void* __restrict__ o,            // [BH, Lq, d]
+                             int out_f32, int lq, int lkv, int d, int block,
                              int n_blocks, float scale_log2) {
   namespace F = eft::f32;
   using T = F::Tiles<D, 1>;
@@ -473,8 +518,8 @@ kvquant_attention_f32_kernel(const float* __restrict__ q,     // [BH, Lq, D]
       for (int j = 0; j < CH; ++j) {
         const int e = ct + 128 * j, r = e / (D / 16), ch = e % (D / 16);
         x.k[j] = x.v[j] = make_uint4(0u, 0u, 0u, 0u);
-        if (x.kv0 + r < lkv) {
-          const size_t at = (head + x.kv0 + r) * D + 16 * ch;
+        if (x.kv0 + r < lkv && 16 * ch < d) {
+          const size_t at = (head + x.kv0 + r) * d + 16 * ch;
           x.k[j] = *reinterpret_cast<const uint4*>(k + at);
           x.v[j] = *reinterpret_cast<const uint4*>(v + at);
         }
@@ -519,19 +564,19 @@ kvquant_attention_f32_kernel(const float* __restrict__ q,     // [BH, Lq, D]
   const int hi[2] = {row0 < lq ? lkv - 1 : -1, row0 + 8 < lq ? lkv - 1 : -1};
   F::stage_q<D, 1>(smem + T::q, wg, [&](int r) {
     const int row = q0 + wg * 64 + r;
-    return row < lq ? q + (size_t(bh) * lq + row) * D : nullptr;
-  }, D);
+    return row < lq ? q + (size_t(bh) * lq + row) * d : nullptr;
+  }, d);
   float acc_o[D / 2], m[2], l[2];
   F::attend<D, 1, false, true>(smem, wg, full, empty, 0, n_tiles, lo, hi,
                                acc_o, m, l);
   store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
-                  nullptr);
+                  nullptr, d, 0, d);
 }
 
 template <int D, int KIND>
 int launch_f32(const void* q, const void* k, const void* v, const void* ks,
                const void* vs, void* o, int out_f32, int bh, int lq, int lkv,
-               int block, int n_blocks, float scale_log2,
+               int d, int block, int n_blocks, float scale_log2,
                cudaStream_t stream) {
   using T = eft::f32::Tiles<D, 1>;
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -543,27 +588,27 @@ int launch_f32(const void* q, const void* k, const void* v, const void* ks,
                                           stream>>>(
       static_cast<const float*>(q), static_cast<const uint8_t*>(k),
       static_cast<const uint8_t*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), o, out_f32, lq, lkv, block, n_blocks,
-      scale_log2);
+      static_cast<const float*>(vs), o, out_f32, lq, lkv, d, block,
+      n_blocks, scale_log2);
   return int(cudaGetLastError());
 }
 
 template <int D>
 int launch_kind(int kv_kind, int q_f32, const void* q, const void* k,
                 const void* v, const void* ks, const void* vs, void* o,
-                int out_f32, int bh, int lq, int lkv, int block, int n_blocks,
-                float scale_log2, cudaStream_t stream) {
+                int out_f32, int bh, int lq, int lkv, int d, int block,
+                int n_blocks, float scale_log2, cudaStream_t stream) {
   if (q_f32 && kv_kind == KV_INT8)
     return launch_f32<D, KV_INT8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
-                                  block, n_blocks, scale_log2, stream);
+                                  d, block, n_blocks, scale_log2, stream);
   if (q_f32)
     return launch_f32<D, KV_FP8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
-                                 block, n_blocks, scale_log2, stream);
+                                 d, block, n_blocks, scale_log2, stream);
   if (kv_kind == KV_INT8)
-    return launch<D, KV_INT8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, block,
-                              n_blocks, scale_log2, stream);
-  return launch<D, KV_FP8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, block,
-                           n_blocks, scale_log2, stream);
+    return launch<D, KV_INT8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, d,
+                              block, n_blocks, scale_log2, stream);
+  return launch<D, KV_FP8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, d,
+                           block, n_blocks, scale_log2, stream);
 }
 
 }  // namespace
@@ -571,8 +616,10 @@ int launch_kind(int kv_kind, int q_f32, const void* q, const void* k,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // ops/attention_kvquant.py has already checked shapes, dtypes, contiguity
 // and alignment; the checks here only refuse what would index out of
-// bounds.  kv_kind: 1 int8, 2 e4m3; scale_log2 = softmax scale * log2(e);
-// q_f32: 0 for bf16 q, 1 for f32 (the f32 core, bf16x3).
+// bounds.  d: a multiple of 16 from 16 to 256, on the instance D = 64, 128
+// or 256 (the smallest D >= d); kv_kind: 1 int8, 2 e4m3; scale_log2 =
+// softmax scale * log2(e) (the scale of the true d); q_f32: 0 for bf16 q, 1
+// for f32 (the f32 core, bf16x3).
 extern "C" int eft_kvquant_attention(const void* q, const void* k,
                                      const void* v, const void* ks,
                                      const void* vs, void* o, int batch,
@@ -583,21 +630,17 @@ extern "C" int eft_kvquant_attention(const void* q, const void* k,
   if (batch <= 0 || heads <= 0 || lq <= 0 || lkv <= 0 || block <= 0 ||
       n_blocks != (lkv + block - 1) / block ||
       (kv_kind != KV_INT8 && kv_kind != KV_FP8) ||
-      (q_f32 != 0 && q_f32 != 1))
+      (q_f32 != 0 && q_f32 != 1) || d < 16 || d > 256 || d % 16 != 0)
     return int(cudaErrorInvalidValue);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return launch_kind<64>(kv_kind, q_f32, q, k, v, ks, vs, o, out_f32,
-                             batch * heads, lq, lkv, block, n_blocks,
-                             scale_log2, s);
-    case 128:
-      return launch_kind<128>(kv_kind, q_f32, q, k, v, ks, vs, o, out_f32,
-                              batch * heads, lq, lkv, block, n_blocks,
-                              scale_log2, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  auto go = [&](auto dc) {
+    return launch_kind<decltype(dc)::value>(
+        kv_kind, q_f32, q, k, v, ks, vs, o, out_f32, batch * heads, lq, lkv,
+        d, block, n_blocks, scale_log2, s);
+  };
+  if (d <= 64) return go(std::integral_constant<int, 64>{});
+  if (d <= 128) return go(std::integral_constant<int, 128>{});
+  return go(std::integral_constant<int, 256>{});
 }

@@ -11,8 +11,8 @@
 //   head's end and never reads the next head's rows.  A box row is 128 or
 //   64 bytes and carries the swizzle of its width, which the wgmma
 //   descriptors below then name: bf16 d=128 is two 64-column boxes, bf16
-//   d=64 and int8 d=128 one 128-byte box, bf16 d=32 and int8 d=64 one
-//   64-byte box.  A tensor whose d is below its kernel instance's D (a
+//   d=64 and int8 d=128 one 128-byte box, int8 d=256 two of them, bf16
+//   d=32 and int8 d=64 one 64-byte box.  A tensor whose d is below its kernel instance's D (a
 //   multiple of 16, so every global row stride stays a multiple of 16
 //   bytes) is described with its true d: the box columns past d, or a
 //   whole box past it, are zero-filled, so they add nothing to Q K^T and
@@ -224,6 +224,30 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// p itself, but opaque to the compiler: what is computed from it after this
+// point (wgmma descriptors, swizzled addresses) is computed there, not
+// hoisted out of the loop around it, where its registers would stay live
+// over the whole loop (and spill, in H4-int8's D=256 instance)
+template <class T>
+__device__ __forceinline__ T* opaque(T* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// blockIdx.x and threadIdx.x read again from their special registers:
+// values computed from them here are not ones kept live since the kernel's
+// start
+__device__ __forceinline__ int ctaid_x_again() {
+  uint32_t x;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(x));
+  return int(x);
+}
+__device__ __forceinline__ int tid_x_again() {
+  uint32_t x;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(x));
+  return int(x);
 }
 
 // a named barrier over `threads` threads (id 0 is __syncthreads)
@@ -562,6 +586,18 @@ __device__ __forceinline__ void wgmma_rs_f16_n128(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 
+// As wgmma_rs_bf16_n256 in fp16: D[64 x 256] (+)= A[64 x 16] B[16 x 256]
+// as two m64n128k16 products, one per 128-column half of B.
+__device__ __forceinline__ void wgmma_rs_f16_n256(float (&d)[128],
+                                                const uint32_t* a,
+                                                uint64_t db_lo,
+                                                uint64_t db_hi) {
+  wgmma_rs_f16_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a[0], a[1], a[2],
+                    a[3], db_lo, 1);
+  wgmma_rs_f16_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a[0], a[1], a[2],
+                    a[3], db_hi, 1);
+}
+
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 -> f32, A and B in shared
 // memory (descriptors), both K-major.
 __device__ __forceinline__ void wgmma_ss_bf16_n64(float (&d)[32], uint64_t da,
@@ -737,6 +773,29 @@ __device__ __forceinline__ void wgmma_ss_bf16_n128_first(float (&d)[64], uint64_
       : "l"(da), "l"(db), "r"(0));
 }
 
+// As wgmma_ss_s8_n64 with scale-d false: D = A B, whatever D held (the
+// first k-step of a fresh product; D is written only).
+__device__ __forceinline__ void wgmma_ss_s8_n64_first(int (&d)[32], uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // As wgmma_ss_s8_n128 with scale-d false: D = A B, whatever D held (the
 // first k-step of a fresh product; D is written only).
 __device__ __forceinline__ void wgmma_ss_s8_n128_first(int (&d)[64], uint64_t da,
@@ -882,6 +941,22 @@ __device__ __forceinline__ uint32_t swz128(int row, int byte) {
   return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
 }
 
+// the same in a 64-byte-swizzled tile of 64-byte rows: 16-byte chunk c of
+// row r sits at chunk c ^ ((r / 2) % 4) (the pattern repeats every 512
+// bytes, where the tile must start)
+__device__ __forceinline__ uint32_t swz64(int row, int byte) {
+  return row * 64 + ((((byte >> 4) ^ (row >> 1)) & 3) << 4) + (byte & 15);
+}
+
+// (row, byte) in a tile of ROW-byte rows under the ROW-byte swizzle (ROW
+// 64 or 128)
+template <int ROW>
+__device__ __forceinline__ uint32_t swz(int row, int byte) {
+  static_assert(ROW == 64 || ROW == 128, "a swizzle width");
+  if constexpr (ROW == 128) return swz128(row, byte);
+  else return swz64(row, byte);
+}
+
 // 4 int8 codes -> 4 f32, exact: each byte with its sign bit flipped, u =
 // code + 128, is the low byte of the f32 2^23 + u, from which 2^23 + 128
 // is taken
@@ -952,8 +1027,8 @@ __device__ __forceinline__ void codes16_convert(const uint4& in,
   }
 }
 
-// A [rows][COLS] tile of codes (row-major, COLS bytes a row, COLS 64 or
-// 128) -> 16-bit values in the layout a TMA load of the 16-bit tile gives:
+// A [rows][COLS] tile of codes (row-major, COLS bytes a row, COLS 64, 128
+// or 256) -> 16-bit values in the layout a TMA load of the 16-bit tile gives:
 // COLS / 64 boxes of [rows][64], 128-byte rows, 128-byte swizzle, box after
 // box (rows a multiple of 8).  Thread t of n converts the 16-byte pieces
 // t, t + n, ...; the caller fences (fence_proxy_async) before wgmma reads.

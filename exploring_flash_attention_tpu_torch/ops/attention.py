@@ -221,6 +221,19 @@ def kernel_head_dim(d: int) -> bool:
     return 16 <= d <= 256 and d % 16 == 0
 
 
+H4_INSTANCES = (64, 128, 256)   # the head dims H4-kvq and H4-int8 build
+
+
+def h4_instance(d: int) -> int:
+    """The instance of H4-kvq and H4-int8 that head dim ``d`` runs on: the
+    smallest of :data:`H4_INSTANCES` at or above it (a d below it runs on
+    zero-filled columns).  ``ValueError`` outside :data:`HEAD_DIM_RULE`."""
+    if not kernel_head_dim(d):
+        raise ValueError(f"H4-kvq and H4-int8 take {HEAD_DIM_RULE}; got "
+                         f"d={d}")
+    return next(x for x in H4_INSTANCES if x >= d)
+
+
 H1_KV_TILE = 128                # keys per K/V tile; a KV span is whole tiles
 H1_Q_ROWS = (64, 128)           # Q rows per block: H1's two Q tiles
 

@@ -2,12 +2,17 @@
 
 Counterpart of ``flash_attention_kvquant`` (``ops/attention_kvquant.py:176``)
 in the JAX package, which picks between two TPU kernels (B16 streaming, B17
-one pass) by a VMEM rule.  Here a call is one launch of H4-kvq
-(``csrc/kvquant_attention.cu``).  Q is bf16 or f32 (any float dtype on
-the CPU); K and V are int8 or e4m3 :class:`~.quant.QuantizedTensor`s with
-one scale per ``block`` keys.  Layout [B, H, L, d], non-causal, no GQA.
-f32 q runs on the kernel's f32 form, as B16 and B17 compute in q's dtype:
-the codes exact, q and P * v_scale each three bf16 pieces (bf16x3).
+one pass) by a VMEM rule.  Here a call is one launch: of H4-kvq
+(``csrc/kvquant_attention.cu``) at the head dims of
+:data:`~.attention.HEAD_DIM_RULE` (instances D 64, 128 and 256,
+:func:`~.attention.h4_instance`), of H5's quantized form
+(``csrc/dtiled_attention.cu``, through
+:func:`~.attention_v1_dtiled.flash_attention_v1_dtiled`) past 256 up to
+2048 (:func:`kvquant_kernel`).  Q is bf16 or f32 (any float dtype on the
+CPU); K and V are int8 or e4m3 :class:`~.quant.QuantizedTensor`s with one
+scale per ``block`` keys.  Layout [B, H, L, d], non-causal, no GQA.  f32 q
+runs on the kernel's f32 form, as B16 and B17 compute in q's dtype: the
+codes exact, q and P * v_scale each three bf16 pieces (bf16x3).
 """
 
 from __future__ import annotations
@@ -20,9 +25,12 @@ import torch
 from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
+    H5_HEAD_DIM_RULE,
+    HEAD_DIM_RULE,
     LOG2E,
     _check_cuda_inputs,
     attention_plain,
+    kernel_head_dim,
 )
 from exploring_flash_attention_tpu_torch.ops.quant import (
     FP8_DTYPE,
@@ -33,7 +41,19 @@ from exploring_flash_attention_tpu_torch.ops.quant import (
     dequantize,
 )
 
-H4_HEAD_DIMS = (64, 128)
+
+def kvquant_kernel(d: int) -> str:
+    """The kernel a CUDA call of :func:`flash_attention_kvquant` at head dim
+    ``d`` launches: "H4-kvq" for :data:`~.attention.HEAD_DIM_RULE`, "H5"
+    (its quantized form) past 256 within
+    :data:`~.attention.H5_HEAD_DIM_RULE`.  ``ValueError`` for any other d,
+    naming both rules."""
+    if kernel_head_dim(d):
+        return "H4-kvq"
+    if 256 < d <= 2048 and d % 16 == 0:
+        return "H5"
+    raise ValueError(f"H4-kvq takes {HEAD_DIM_RULE}, and H5 past it "
+                     f"{H5_HEAD_DIM_RULE}; got d={d}")
 
 
 def attention_kvquant_plain(q: torch.Tensor, k_q: QuantizedTensor,
@@ -62,10 +82,12 @@ def flash_attention_kvquant(
     the JAX package's place and not read: H4-kvq fixes its own tiles.
 
     CPU tensors take :func:`attention_kvquant_plain`.  CUDA tensors launch
-    H4-kvq once per call, or raise: it takes contiguous bf16 or f32 q
-    (``ops.attention.KERNEL_DTYPES``) with d in {64, 128}, K and V both
-    int8 or both e4m3, and writes bf16 or f32 O.
-    ``flash_attention_kvquant.launches`` counts kernel launches."""
+    one kernel per call, or raise: contiguous bf16 or f32 q
+    (``ops.attention.KERNEL_DTYPES``), K and V both int8 or both e4m3, bf16
+    or f32 O, and d by :func:`kvquant_kernel`: H4-kvq up to 256, counted by
+    ``flash_attention_kvquant.launches``; H5 past it, counted by
+    ``flash_attention_v1_dtiled.launches``.  The scale is the caller's or
+    1/sqrt of the true d, whatever instance runs it."""
     b, h, lq, d = q.shape
     lkv = k_q.values.shape[2]
     if k_q.values.shape != (b, h, lkv, d) or v_q.values.shape != \
@@ -81,9 +103,14 @@ def flash_attention_kvquant(
     q_dtype = _check_cuda_inputs("H4-kvq", "H4-kvq attention", q)
     check_cuda_quantized("H4-kvq attention", q.device,
                          (torch.int8, FP8_DTYPE), k_q, v_q)
-    if d not in H4_HEAD_DIMS or lq == 0 or lkv == 0:
-        raise ValueError(f"H4-kvq takes d in {H4_HEAD_DIMS} and nonempty "
-                         f"sequences; got q {tuple(q.shape)}, Lkv {lkv}")
+    if kvquant_kernel(d) == "H5":
+        from exploring_flash_attention_tpu_torch.ops.attention_v1_dtiled \
+            import flash_attention_v1_dtiled
+        return flash_attention_v1_dtiled(q, k_q, v_q, scale=scale,
+                                         out_dtype=out_dtype)
+    if lq == 0 or lkv == 0:
+        raise ValueError(f"H4-kvq takes nonempty sequences; got q "
+                         f"{tuple(q.shape)}, Lkv {lkv}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"H4-kvq writes bf16 or f32 O, not {out_dtype}")
     o = torch.empty((b, h, lq, d), dtype=out_dtype, device=q.device)

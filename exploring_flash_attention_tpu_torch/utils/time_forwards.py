@@ -9,8 +9,10 @@ example a ``git archive`` of another commit unpacked under ``build/``; its
 package and kernels are the ones timed.  Prints one line: the CUDA-event
 median milliseconds (L2 flushed before each call) of
 ``flash_attention_kvquant`` at the canonical shape (B=32, H=8, L=1024,
-d=128, int8 and e4m3 K/V, block 512) and of ``flash_attention_v1_dtiled``
-at d=512 (B=4, H=8, L=1024; int8, e4m3 and bf16 K/V), inputs from
+d=128, int8 and e4m3 K/V, block 512) and at d=64 (int8), of
+``flash_attention_int8`` at the canonical shape (Q, K and V in blocks of
+512, both ``pv_mode``s) and of ``flash_attention_v1_dtiled`` at d=512
+(B=4, H=8, L=1024; int8, e4m3 and bf16 K/V), inputs from
 ``make_qkv(seed=1)`` rounded to bf16; with ``--bwd``, of H3-dkv and H3-dq
 alone at the training shape (B=8, Hq=8, Hkv=4, L=1024, d=128), causal and
 without a mask, at d=64 causal, and at the ring hops of 256 and 8192 rows
@@ -380,6 +382,7 @@ def main(root: Path, mode: str = "") -> str:
 
     from exploring_flash_attention_tpu_torch.oracle import make_qkv
     from exploring_flash_attention_tpu_torch.ops import (
+        flash_attention_int8,
         flash_attention_kvquant,
         flash_attention_v1_dtiled,
         quantize_fp8,
@@ -389,7 +392,15 @@ def main(root: Path, mode: str = "") -> str:
 
     quant = {"int8": quantize_int8, "fp8": quantize_fp8}
     out = []
+    q, k, v = (quantize_int8(torch.from_numpy(x).to("cuda", torch.bfloat16),
+                             512) for x in make_qkv(32, 8, 1024, 128, seed=1))
+    for mode in ("bf16", "int8"):
+        ms = time_cuda(lambda: flash_attention_int8(q, k, v, pv_mode=mode),
+                       n_iter=30)
+        out.append(f"int8 d=128 pv_mode {mode} {ms:.4f} ms")
+    del q, k, v
     for b, d, fn, kinds in ((32, 128, flash_attention_kvquant, ("int8", "fp8")),
+                            (32, 64, flash_attention_kvquant, ("int8",)),
                             (4, 512, flash_attention_v1_dtiled,
                              ("int8", "fp8", "bf16"))):
         q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)

@@ -95,6 +95,7 @@ from exploring_flash_attention_tpu_torch.models import seq2seq as s2s
 from exploring_flash_attention_tpu_torch.oracle import naive_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H5_HEAD_DIM_RULE,
+    HEAD_DIM_RULE,
     attention_partial_local,
     attention_plain,
     flash_attention,
@@ -1195,7 +1196,11 @@ def _max_err(got, ref):
     # and longer than a tile (the V scales' vmax per tile)
     (200, lkv, 128, block) for lkv in (127, 129, 1100)
     for block in (16, 64, 128, 512)
-])
+] + [
+    # head dims of the rule on each instance (D 64, 128, 256; a d below D
+    # on zero-filled columns), the D=256 instance's 64-key tiles ragged
+    (200, 1100, d, 100) for d in (16, 48, 80, 144, 192, 256)
+] + [(130, 129, 256, 48)])
 def test_kvquant_kernel_matches_plain_and_oracle(cuda_device, kind, lq, lkv,
                                                  d, block):
     q, k, v = _qkv(cuda_device, 2, 4, 4, lq, lkv, d, seed=20)
@@ -1238,7 +1243,11 @@ def test_kvquant_kernel_refuses_what_it_cannot_take(cuda_device):
     (200, 300, 128, 64, 32),
     (200, 300, 128, 64, 48),
     (200, 300, 128, 64, 64),
-])
+] + [
+    # head dims of the rule on each instance (D 64, 128, 256: at D=256
+    # 64-key tiles, Q and K in two 128-byte boxes, P V in four parts)
+    (200, 1100, d, 64, 48) for d in (16, 80, 144, 256)
+] + [(256, 300, 256, 128, 16), (128, 257, 256, 128, 512)])
 def test_int8_kernel_matches_plain_and_oracle(cuda_device, pv_mode, lq, lkv,
                                               d, q_block, kv_block):
     q, k, v = _qkv(cuda_device, 2, 4, 4, lq, lkv, d, seed=21)
@@ -1277,7 +1286,38 @@ def test_int8_kernel_refuses_what_it_cannot_take(cuda_device):
         flash_attention_int8(qq, quantize_int8(k, 40), quantize_int8(v, 40))
     with pytest.raises(TypeError, match="bf16 or f32"):
         flash_attention_int8(qq, kq, vq, out_dtype=torch.float16)
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 264)
+    with pytest.raises(ValueError, match=HEAD_DIM_RULE):
+        flash_attention_int8(*(quantize_int8(x, 64) for x in (q, k, v)))
     assert flash_attention_int8.launches == before
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("q_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("d", [272, 384, 1024])
+def test_kvquant_past_256_runs_h5(cuda_device, d, q_dtype, kind):
+    """flash_attention_kvquant past d=256 is one launch of H5's quantized
+    form (counted as H5's, none as H4-kvq's), within H5's limits of the
+    plain version: 4e-3 at bf16 q, 2e-5 at f32; d=2064 raises naming both
+    rules."""
+    if q_dtype == "bf16":
+        q, k, v = _qkv(cuda_device, 2, 2, 2, 200, 330, d, seed=25)
+        tol = DTILED_O_TOL
+    else:
+        q, k, v = _f32_qkv(cuda_device, 2, 2, 2, 200, 330, d, seed=25)
+        tol = F32_TOL
+    kq, vq = QUANT[kind](k, 100), QUANT[kind](v, 100)
+    before = (flash_attention_kvquant.launches,
+              flash_attention_v1_dtiled.launches)
+    o = flash_attention_kvquant(q, kq, vq, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (flash_attention_kvquant.launches,
+            flash_attention_v1_dtiled.launches) == (before[0], before[1] + 1)
+    scale = 1.0 / math.sqrt(d)
+    assert _max_err(o, attention_kvquant_plain(q, kq, vq, scale)) < tol
+    q, k, v = _qkv(cuda_device, 1, 1, 1, 64, 64, 2064)
+    with pytest.raises(ValueError, match=H5_HEAD_DIM_RULE):
+        flash_attention_kvquant(q, quantize_int8(k, 64), quantize_int8(v, 64))
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
@@ -2137,7 +2177,7 @@ def test_train_step_trains_an_f32_model(cuda_device):
     (256, 256, 128, 128),         # tests/test_quant.py:54's shape
     (200, 1100, 128, 100),        # ragged Q and KV, a ragged last block
     (130, 300, 64, 48),           # d=64, blocks that split the 32-key tiles
-])
+] + [(200, 1100, d, 100) for d in (16, 80, 144, 256)])
 def test_kvquant_f32_matches_plain(cuda_device, kind, lq, lkv, d, block):
     """H4-kvq with f32 q: one launch of its f32 form, f32 O within 2e-5
     of the plain f32 version and of its f64 run."""

@@ -318,13 +318,13 @@ CARD_INT8_PLAIN_TOL = 1e-3    # either mode vs the plain version, which
                               # order and a rare rounding flip of P differ
 
 
-def h4kvq_emulation(q, k_q, v_q, scale):
-    """H4-kvq's arithmetic on the CPU: 128-key tiles (the kernel's K/V
-    tile), S = q . codes in f32 times k_scale * f32(scale * log2e) per
-    key, an online softmax in the exp2 basis whose l sums the f32 p; P
-    times each key's share of the tile's largest V scale, p * (v_scale /
-    vmax), rounded to fp16 before P V with the V codes, and the tile's
-    product times vmax."""
+def h4kvq_emulation(q, k_q, v_q, scale, tile=128):
+    """H4-kvq's arithmetic on the CPU: ``tile``-key tiles (the kernel's K/V
+    tile: 128, 64 on its D=256 instance), S = q . codes in f32 times
+    k_scale * f32(scale * log2e) per key, an online softmax in the exp2
+    basis whose l sums the f32 p; P times each key's share of the tile's
+    largest V scale, p * (v_scale / vmax), rounded to fp16 before P V with
+    the V codes, and the tile's product times vmax."""
     lkv = k_q.shape[2]
     kc, vc = k_q.values.float(), v_q.values.float()
     ks = _expand(k_q.scales, k_q.shape, k_q.block)[..., 0]
@@ -333,8 +333,8 @@ def h4kvq_emulation(q, k_q, v_q, scale):
     m = torch.full(q.shape[:-1], float("-inf"))
     l = torch.zeros(q.shape[:-1])
     o = torch.zeros(q.shape)
-    for kv0 in range(0, lkv, 128):
-        t = slice(kv0, kv0 + 128)
+    for kv0 in range(0, lkv, tile):
+        t = slice(kv0, kv0 + tile)
         s = (q.float() @ kc[..., t, :].transpose(-1, -2)) \
             * (ks[..., None, t] * c)
         m_new = torch.maximum(m, s.amax(-1))
@@ -348,12 +348,13 @@ def h4kvq_emulation(q, k_q, v_q, scale):
     return o / l[..., None]
 
 
-def h4int8_emulation(q_q, k_q, v_q, scale, pv_mode):
+def h4int8_emulation(q_q, k_q, v_q, scale, pv_mode, tile=128):
     """H4-int8's arithmetic on the CPU: B18's one-pass softmax (m over
     every key, l summing the f32 p, P rounded to bf16 or to round(p *
-    127)), with P V taken as the kernel takes it: per 128-key tile, one
-    run per kv block the tile holds, each run's product times its
-    v_scale (times f32(1/127) in int8 mode) added into O in f32."""
+    127)), with P V taken as the kernel takes it: per ``tile``-key tile
+    (128, 64 on its D=256 instance), one run per kv block the tile holds,
+    each run's product times its v_scale (times f32(1/127) in int8 mode)
+    added into O in f32."""
     lkv = k_q.shape[2]
     qs = _expand(q_q.scales, q_q.shape, q_q.block)
     ks = _expand(k_q.scales, k_q.shape, k_q.block)[..., 0]
@@ -369,8 +370,8 @@ def h4int8_emulation(q_q, k_q, v_q, scale, pv_mode):
     v = v_q.values.float()
     o = torch.zeros(p.shape[:-1] + (v.shape[-1],))
     block = v_q.block
-    for kv0 in range(0, lkv, 128):
-        end = min(kv0 + 128, lkv)
+    for kv0 in range(0, lkv, tile):
+        end = min(kv0 + tile, lkv)
         for b in range(kv0 // block, -(-end // block)):
             r = slice(max(kv0, b * block), min(end, (b + 1) * block))
             o += (p_lp[..., r] @ v[:, :, r]) * (v_q.scales[:, :, b, None,

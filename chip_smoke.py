@@ -719,7 +719,8 @@ def phase_build(kernels):
               or "(C75" in ln]
     for ln in report:
         print(f"  ptxas: {ln}")
-    print(f"phase build: ok {lib.relative_to(ROOT)} in {dt:.1f} s")
+    print(f"phase build: ok {lib.relative_to(ROOT)} in {dt:.1f} s; nvcc "
+          f"seconds by source (all at once): {kernels.nvcc_seconds()}")
     check_sass(kernels)
     check_registers(kernels)
     return h5_clusters(kernels)
@@ -731,7 +732,7 @@ def phase_build(kernels):
 # 256, 384, 512 x bf16, int8, e4m3; its cluster instances, 1 to 4 chunks
 # a block x the same kinds), H3-dkv and H3-dq (D 32, 64, 128, 256, and the
 # exact forms of 64 and 128, whose d is a constant), H6-extend (D 64, 128,
-# 256)
+# 256 x codes by TMA, or by bulk copy where d % 16 != 0)
 WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 6,
                    "kvquant_attention_kernel": 6,
                    "dtiled_attention_kernel": 12,
@@ -742,7 +743,7 @@ WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 6,
                    "dtiled_attention_f32_kernel": 6,
                    "attention_bwd_dkv_kernel": 6,
                    "attention_bwd_dq_kernel": 6,
-                   "paged_extend_kernel": 3,
+                   "paged_extend_kernel": 6,
                    # the f32 core (bf16x6 / bf16x3): D 64/128/256, H1's
                    # exact and bound statistics
                    "prefill_attention_f32_kernel": 6,
@@ -751,7 +752,10 @@ WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 6,
                    # of two blocks)
                    "attention_bwd_dkv_f32_kernel": 3,
                    "attention_bwd_dq_f32_kernel": 3}
-H2_FUNCTIONS = 16              # one instance per d, 16 to 256 by 16
+# H2: one instance per d, 16 to 256 by 16, and d off the multiples of 16
+# read at run time on the instances of 16, 32, 64, 128 and 256 lanes' rows,
+# 16-byte loads where d % 4 == 0 and a float at a time else (``Lb1ELb1E``)
+H2_FUNCTIONS = 16 + 5 + 5
 
 
 def check_sass(kernels):
@@ -760,14 +764,16 @@ def check_sass(kernels):
     H4-int8 ones (template argument false, ``Lb0E``), IGMMA in every
     H4-int8 function, no HMMA or IMMA in any of them.  H2 (every d of the
     rule) reads its partials with 128-bit global loads (``LDG.E.128``,
-    with any cache modifiers) in every function."""
+    with any cache modifiers) in every function but those of rows that are
+    no multiple of 16 bytes."""
     sass = kernels.sass_by_function()
     h2 = {n: len(re.findall(r"\bLDG\.E(?:\.\w+)*?\.128\b", t))
           for n, t in sass.items() if "splitkv_combine_kernel" in n}
     print(f"  sass: splitkv_combine_kernel 128-bit loads: "
-          + ", ".join(f"{n.split('splitkv_combine_kernel')[1][:8]} {c}"
+          + ", ".join(f"{n.split('splitkv_combine_kernel')[1][:16]} {c}"
                       for n, c in h2.items()))
-    _require(len(h2) == H2_FUNCTIONS and all(h2.values()),
+    _require(len(h2) == H2_FUNCTIONS
+             and all(c for n, c in h2.items() if "Lb1ELb1E" not in n),
              f"H2's functions lack 128-bit global loads: {h2}")
     found = dict.fromkeys(WGMMA_FUNCTIONS, 0)
     for name, text in sass.items():
@@ -788,13 +794,29 @@ def check_sass(kernels):
     print("phase sass: ok")
 
 
+# H6-decode's fused instances, what paged_decode_attention runs: D 32, 64,
+# 128 (groups of 1, 2, 4, 8) and 256 (1, 2, 4) x the tuned bf16 form of d =
+# D, the general bf16 and f32 forms, and the general forms of d off the
+# multiples of 16 (ODD).  Its instances without the merge
+# (paged_decode_partials, for the tests and the two-launch timing) are
+# reported and not held: ptxas leaves 8-16 bytes of stack in a few of
+# them, whatever their code
+PAGED_DECODE_FUNCTIONS = (3 * 4 + 3) * 5
+NOT_HELD = re.compile(r"paged_decode_kernelILi\d+ELi\d+ELb0E")
 # the kernels whose every instance must hold its accumulators in
-# registers: the f32 core's (csrc/f32_attention.cuh: H1 D 64/128/256 x the
+# registers: the serving kernels H1 (bf16: D 32/64/128/256 x Q tiles x
+# statistics, whose producer runs the staged loads of rows TMA cannot
+# describe on 24 registers a thread), H2, H6-decode and H6-extend (bf16), the
+# f32 core's (csrc/f32_attention.cuh: H1 D 64/128/256 x the
 # exact and bound statistics, H6-extend D 64/128/256, H4-kvq D 64/128/256
 # x int8, e4m3), H5's three families (WGMMA_FUNCTIONS), and H4-kvq's and
 # H4-int8's bf16 / int8 instances (D 64/128/256 x int8, e4m3 or x
 # pv_mode; O 128 registers a consumer thread at D=256)
-NO_SPILL_FUNCTIONS = {"prefill_attention_f32_kernel": 6,
+NO_SPILL_FUNCTIONS = {"prefill_attention_kernel": 16,
+                      "paged_extend_kernel": 6,
+                      "splitkv_combine_kernel": H2_FUNCTIONS,
+                      "paged_decode_kernel": PAGED_DECODE_FUNCTIONS,
+                      "prefill_attention_f32_kernel": 6,
                       "paged_extend_f32_kernel": 3,
                       "kvquant_attention_f32_kernel": 6,
                       "kvquant_attention_kernel": 6,
@@ -805,7 +827,9 @@ NO_SPILL_FUNCTIONS = {"prefill_attention_f32_kernel": 6,
 
 
 def check_registers(kernels):
-    """Every instance of the f32 core holds O, its fresh P V accumulator
+    """Every instance of the serving kernels (H1, H2, H6-decode and
+    H6-extend) holds its state in registers; every instance of the f32
+    core holds O, its fresh P V accumulator
     and P's fragments in registers, every H5 instance its O chunks, S and
     (f32) fresh P V, and every H4-kvq and H4-int8 instance O, S or its
     run's part and P: no spill (cuobjdump -res-usage: 0 STACK and
@@ -816,6 +840,11 @@ def check_registers(kernels):
     found = dict.fromkeys(NO_SPILL_FUNCTIONS, 0)
     for name, u in sorted(kernels.res_usage().items()):
         kind = next((f for f in NO_SPILL_FUNCTIONS if f in name), None)
+        if NOT_HELD.search(name):
+            print(f"  res-usage (not held): {name.split('kernel')[1][:24]}: "
+                  f"REG {u.get('REG')} STACK {u.get('STACK')} LOCAL "
+                  f"{u.get('LOCAL')}")
+            continue
         if kind is None:
             continue
         found[kind] += 1
@@ -824,7 +853,7 @@ def check_registers(kernels):
         _require(u.get("STACK") == 0 and u.get("LOCAL") == 0,
                  f"{name} spills")
     _require(found == NO_SPILL_FUNCTIONS,
-             f"f32 core, H4 and H5 functions in the build: {found}")
+             f"serving, f32 core, H4 and H5 functions in the build: {found}")
     _require(not serial, f"ptxas serializes wgmma: {serial}")
     print("phase registers: ok")
 
@@ -5084,24 +5113,42 @@ def phase_tiles(torch, dev):
 
 
 # The heads phase: the serving kernels H1, H2, H6-decode and H6-extend at
-# head geometries the JAX model takes beyond the flagship's: any d that is a
-# multiple of 16 from 16 to 256 (ops.attention.kernel_head_dim), any GQA
-# group, pages that are a multiple of 128 below 2^15.  H1 at d 16, 80, 96
-# and 256 (its instances D 32, 128, 128, 256) on a GQA group of 16, ragged
-# and cross, under each mask with the LSE and over KV spans; H2 on those
-# spans at d 80 and 256
-HEADS_H1_DIMS = (16, 80, 96, 256)
+# head geometries the JAX model takes beyond the flagship's: any d from 1
+# to 256 (ops.attention.kernel_head_dim), any GQA group, pages that are a
+# multiple of 128 below 2^15.  H1 at d 16, 80, 96 and 256 (its instances D
+# 32, 128, 128, 256) and at d off the multiples of 16 (HEADS_ODD) on a GQA
+# group of 16, ragged and cross, under each mask with the LSE and over KV
+# spans; H2 on those spans at d 80, 256, 72 and 33
+HEADS_H1_DIMS = (16, 80, 96, 256, 1, 8, 33, 36, 40, 72, 100, 250)
+# d whose rows are no multiple of 16 bytes somewhere: bf16 q/k/v rows by
+# TMA at d % 8 == 0 (8, 40, 72), by H1's staged producer otherwise (1, 33
+# odd; 36, 100, 250 even); codes at 1, 2, 4 or 8-byte alignment.  Each of
+# their checks also holds two known-wrong controls: the rows read one
+# element late (the tensor shifted by one element), and each row's last
+# column dropped
+HEADS_ODD = (1, 8, 33, 36, 40, 72, 100, 250)
 HEADS_H1_SHAPE = (2, 16, 1, 1000, 1100)        # B, Hq, Hkv, Lq, Lkv
 HEADS_WINDOW = 100
 HEADS_SPAN = 256
-HEADS_H2_DIMS = (80, 256)
+HEADS_H2_DIMS = (80, 256, 72, 33)
 HEADS_TIMED = (80, 256)        # each kernel timed at these head dims
 # the paged kernels' cases, (d, Hq, Hkv, page size): every d of 16, 80 and
 # 256, every group of 1, 16 and 32 and every page size of 128, 512 and 1024
-# appears; B=8 contexts 257..1100, and for H6-extend a 64-token chunk after
-# them
+# appears; then heads72's geometry and d off the multiples of 16 (code rows
+# 8, 4, 2 and 1-byte aligned); B=8 contexts 257..1100, and for H6-extend a
+# 64-token chunk after them
 HEADS_PAGED = [(16, 32, 1, 1024), (80, 16, 1, 512), (256, 8, 8, 128),
-               (256, 32, 2, 512)]
+               (256, 32, 2, 512), (72, 16, 16, 128), (40, 8, 1, 256),
+               (36, 32, 2, 512), (250, 8, 4, 128), (33, 16, 1, 1024)]
+# the paged cases timed: d 80 and 256 in a group of 16, heads72's geometry
+HEADS_PAGED_TIMED = ((80, 16, 1, 512), (256, 32, 2, 512), (72, 16, 16, 128))
+# H1 timed at d off the multiples of 16: (label, B, H, L, d, causal), MHA.
+# SigLIP-so400m's encoder at 384 px (27 x 27 patches of 14, 16 heads of 72,
+# no mask), and causal at d 72 and 40 (Stable Diffusion 1.x's first level:
+# 8 heads of 40)
+HEADS_ODD_TIMED = (("SigLIP-so400m encoder", 32, 16, 729, 72, False),
+                   ("causal d=72", 8, 16, 2048, 72, True),
+                   ("causal d=40", 8, 8, 2048, 40, True))
 HEADS_PAGED_LENS = (257, 1100)
 HEADS_CHUNK = 64
 # the two models served end to end: the flagship's widths (vocab 32768, 4
@@ -5114,6 +5161,10 @@ HEADS_MODELS = {
     # Phi-2's head dim in a group of 16 (Llama-3.1-405B's group size)
     "heads80g16": {"n_heads": 16, "n_kv_heads": 1, "d_head": 80,
                    "page_size": 128},
+    # SigLIP-so400m's and DiT-XL/2's attention: 16 heads of 72 (hidden
+    # 1152), one KV head each; rows of 144 bytes, codes of 72
+    "heads72": {"n_heads": 16, "n_kv_heads": 16, "d_head": 72,
+                "page_size": 128},
 }
 # heads80g16's scheduler run: requests of these prompt and new-token
 # lengths, 8 slots, 4 up front and 2 more every 8 steps
@@ -5121,6 +5172,49 @@ HEADS_SCHED_PROMPTS = (256, 512, 1024)
 HEADS_SCHED_NEW = (16, 32, 48)
 HEADS_SCHED_REQUESTS = 12
 HEADS_SCHED_SLOTS = 8
+
+
+def misread_rows(torch, x):
+    """A known-wrong load of rows that are no multiple of 16 bytes: each
+    element read one element late (x's memory shifted by one), and each
+    row's last column dropped."""
+    late = x.flatten().roll(-1).view(x.shape)
+    drop = x.clone()
+    drop[..., -1] = 0
+    return {"rows read one element late": late, "last column dropped": drop}
+
+
+def odd_row_controls(torch, q, k, v, o, scale, diag, causal, window,
+                     span=None):
+    """max|O - plain| of the kernel's O against the plain version on K
+    and V misread as misread_rows does (over spans of ``span`` keys, as
+    attention_plain_spans)."""
+    from exploring_flash_attention_tpu_torch.ops import attention_plain
+
+    bad_k, bad_v = misread_rows(torch, k), misread_rows(torch, v)
+    out = {}
+    for name in bad_k:
+        if span is None:
+            bad, _ = attention_plain(q, bad_k[name], bad_v[name], scale,
+                                     causal, diag, window)
+        else:
+            bad, _ = attention_plain_spans(torch, q, bad_k[name],
+                                           bad_v[name], scale, causal, span)
+        out[name] = (o - bad).abs().max().item()
+    return out
+
+
+@contextlib.contextmanager
+def codes_misread(torch, cache, name):
+    """The paged controls of rows no multiple of 16 bytes: the cache's
+    codes as misread_rows misreads them (``name`` one of its keys), put
+    back after."""
+    saved = cache.kv_pages.clone()
+    cache.kv_pages.copy_(misread_rows(torch, saved)[name])
+    try:
+        yield
+    finally:
+        cache.kv_pages.copy_(saved)
 
 
 def heads_h1(torch, dev, d, out):
@@ -5161,6 +5255,14 @@ def heads_h1(torch, dev, d, out):
         _require(max(r["lse_plain"], r["lse_oracle"]) < H1_LSE_TOL,
                  f"heads H1 d={d} {mode}: LSE outside tolerance")
         errs[mode] = r["plain"]
+        if d in HEADS_ODD:
+            ctl = odd_row_controls(torch, q, k, v, o, scale, lkv - lq, causal,
+                                   window)
+            print(f"  heads H1 d={d} {mode} controls (vs plain): "
+                  + ", ".join(f"{n} {x:.3e}" for n, x in ctl.items()))
+            _require(min(ctl.values()) > tol, f"the check cannot tell a "
+                     f"misread row (d={d} {mode})")
+            errs[f"{mode}_controls"] = ctl
         del o, lse
 
     # the span mode (B8's partials), non-causal, and H2 merging them
@@ -5177,6 +5279,9 @@ def heads_h1(torch, dev, d, out):
             torch, q, k[:, :, :-64], v[:, :, :-64], scale, False,
             HEADS_SPAN)[0]}
     ctl = {n: (o - x).abs().max().item() for n, x in bad.items()}
+    if d in HEADS_ODD:
+        ctl.update(odd_row_controls(torch, q, k, v, o, scale, 0, False, None,
+                                    span=HEADS_SPAN))
     nkb = o.shape[2]
     print(f"  heads H1 {geo} over {nkb} spans of {HEADS_SPAN} keys: max|dO| "
           f"vs plain {e_o:.3e} (tol {V1_O_TOL:g}), max|dLSE| {e_lse:.3e} "
@@ -5223,7 +5328,7 @@ def heads_h1(torch, dev, d, out):
             lambda: sdpa(q, k, v, enable_gqa=True),
             [(flop, H100_BF16_FLOPS)],
             2 * d * 2 * (b * hq * lq + b * hkv * lkv)))
-        pad = {16: 32, 80: 128, 96: 128}.get(d, d)
+        pad = next(x for x in (32, 64, 128, 256) if x >= d)
         res["padded_work"] = 1 - d / pad
         print(f"  heads H1 {geo} times (no mask, bf16 O): {res['ms']:.4f} ms "
               f"= {flop / res['ms'] / 1e9:.1f} TFLOP/s of the true d's work "
@@ -5232,6 +5337,42 @@ def heads_h1(torch, dev, d, out):
               f"{res['plain_ms']:.4f} ms; scaled_dot_product_attention "
               f"{res['library_ms']:.4f} ms")
     out["h1"][d] = res
+
+
+def heads_odd_times(torch, dev):
+    """H1 at HEADS_ODD_TIMED (bf16, no LSE, bf16 O), beside its plain
+    version, scaled_dot_product_attention and the bound; each call one
+    counted H1 launch first."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_plain,
+        prefill_attention,
+    )
+
+    out = {}
+    for name, b, h, l, d, causal in HEADS_ODD_TIMED:
+        q, k, v = v1_inputs(torch, dev, b, h, h, l, l, d, seed=d)
+        scale = 1.0 / math.sqrt(d)
+        call = lambda: prefill_attention(                # noqa: E731
+            q, k, v, scale, 0, causal, with_lse=False)
+        counted_call(torch, call, launches_only(h1=1))
+        pairs = l * (l + 1) // 2 if causal else l * l
+        flop = 4 * b * h * pairs * d
+        t = kernel_times(call, lambda: attention_plain(q, k, v, scale,
+                                                       causal),
+                         lambda: sdpa(q, k, v, is_causal=causal),
+                         [(flop, H100_BF16_FLOPS)], 4 * b * h * l * d * 2)
+        t["shape"] = f"B={b} H={h} L={l} d={d}" + (" causal" if causal
+                                                   else "")
+        t["tflops"] = flop / t["ms"] / 1e9
+        print(f"  heads H1 {name} ({t['shape']}): {t['ms']:.4f} ms = "
+              f"{t['tflops']:.1f} TFLOP/s; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); plain {t['plain_ms']:.4f} ms; "
+              f"scaled_dot_product_attention {t['library_ms']:.4f} ms")
+        out[name] = t
+        del q, k, v
+    return out
 
 
 def heads_paged(torch, dev, d, hq, hkv, ps, out):
@@ -5257,7 +5398,7 @@ def heads_paged(torch, dev, d, hq, hkv, ps, out):
 
     b, g = 8, hq // hkv
     max_len = HEADS_PAGED_LENS[1] + HEADS_CHUNK
-    timed = d in HEADS_TIMED and g == 16
+    timed = (d, hq, hkv, ps) in HEADS_PAGED_TIMED
     scale = 1.0 / math.sqrt(d)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cache, q, slots, ctx = make_paged_case(torch, dev, b, hq, hkv, d, ps,
@@ -5270,6 +5411,10 @@ def heads_paged(torch, dev, d, hq, hkv, ps, out):
     with newest_token_hidden(cache, slots):
         controls = {"newest token hidden": paged_decode_plain(
             q, cache, slots, scale)}
+    if d in HEADS_ODD:
+        for name in ("rows read one element late", "last column dropped"):
+            with codes_misread(torch, cache, name):
+                controls[name] = paged_decode_plain(q, cache, slots, scale)
     chunks = decode_chunks(g, d)
     split = decode_split(cache, b, None, n_sms, chunks)
     geo = f"B={b} Hq={hq} Hkv={hkv} d={d} ps={ps}"
@@ -5322,6 +5467,10 @@ def heads_paged(torch, dev, d, hq, hkv, ps, out):
     with newest_token_hidden(cache, slots):
         controls = {"every row's own key hidden": paged_extend_plain(
             q, cache, slots, scale)}
+    if d in HEADS_ODD:
+        for name in ("rows read one element late", "last column dropped"):
+            with codes_misread(torch, cache, name):
+                controls[name] = paged_extend_plain(q, cache, slots, scale)
     err = paged_check(f"heads extend {geo} C={c} history {hist.min()}.."
                       f"{hist.max()}", o, ref,
                       (o[:, rows].float().cpu().numpy(), oracle), controls,
@@ -5454,8 +5603,11 @@ def phase_heads(torch, dev):
     """The serving kernels at the head geometries the JAX model takes
     beyond the flagship's (HEADS_*): H1 (every mask with the LSE, KV
     spans), H2, H6-decode and H6-extend against their plain versions and
-    the f64 oracle beside known-wrong controls, timed at d 80 and 256; then
-    two models at the flagship's widths with another attention geometry
+    the f64 oracle beside known-wrong controls (at d off the multiples of
+    16, HEADS_ODD, rows misread by one element and the last column
+    dropped too), timed at d 80 and 256, H1 also at HEADS_ODD_TIMED and
+    the paged pair at heads72's geometry; then
+    three models at the flagship's widths with another attention geometry
     (HEADS_MODELS) served end to end as the slice and multiturn phases
     serve the flagship (generate on [8, 256] prompts, a 256-token second
     turn; counters, the graphed tokens bitwise the eager loop's, tokens
@@ -5464,6 +5616,7 @@ def phase_heads(torch, dev):
     out = {"h1": {}, "h2": {}, "h6": {}, "h6e": {}, "models": {}}
     for d in HEADS_H1_DIMS:
         heads_h1(torch, dev, d, out)
+    out["h1_odd_times"] = heads_odd_times(torch, dev)
     for d, hq, hkv, ps in HEADS_PAGED:
         heads_paged(torch, dev, d, hq, hkv, ps, out)
     for name, geo in HEADS_MODELS.items():
@@ -5545,6 +5698,35 @@ def h3_traced_check(torch, dev):
     return out
 
 
+def h3_refuses(torch, dev, name, gen, n_heads, n_kv_heads, d_head):
+    """The backward at a head dim H3 does not take (d off the multiples of
+    16): flash_attention's forward runs H1, its backward raises
+    ``ValueError`` naming ``HEAD_DIM_RULE`` before any H3 launch."""
+    from exploring_flash_attention_tpu_torch.ops import flash_attention
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        HEAD_DIM_RULE,
+    )
+
+    q = _bf16(torch, dev, gen, 2, n_heads, 256, d_head).requires_grad_()
+    k, v = (_bf16(torch, dev, gen, 2, n_kv_heads, 256, d_head)
+            .requires_grad_() for _ in range(2))
+    zero_counters()
+    o = flash_attention(q, k, v, causal=True)
+    try:
+        o.float().sum().backward()
+        err = None
+    except ValueError as exc:
+        err = str(exc)
+    torch.cuda.synchronize()
+    got = read_counters()
+    print(f"  {name}: the backward at d={d_head} raises {err!r}; launches "
+          f"{got}")
+    _require(err is not None and HEAD_DIM_RULE in err,
+             f"{name}: the backward at d={d_head} did not refuse")
+    _require(got == launches_only(h1=1), f"{name}: launches {got}")
+    return err
+
+
 def phase_heads_train(torch, dev):
     """The heads phase's models (HEADS_MODELS: the flagship's widths with
     only the attention geometry changed) trained as the flagship is:
@@ -5557,11 +5739,20 @@ def phase_heads_train(torch, dev):
     D=256) as the encoder phase runs it, its gradients against the plain
     backward in H3's place (phase_encoder's bwd_ref); then H3 timed at
     each model's shape (B=8, L=1024; causal and without a mask) and at
-    traced offsets at d 80 and 256."""
+    traced offsets at d 80 and 256.  A model whose d H3 does not take
+    (heads72) is served and not trained: its backward must raise naming
+    H3's rule, with no H3 launch (h3_refuses)."""
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        sixteen_head_dim,
+    )
+
     out = {"models": {}, "times": {}}
     gen = torch.Generator().manual_seed(17)
     for name, geo in HEADS_MODELS.items():
         geo = {k: x for k, x in geo.items() if k != "page_size"}
+        if not sixteen_head_dim(geo["d_head"]):
+            out["h3_refuses"] = h3_refuses(torch, dev, name, gen, **geo)
+            continue
         counts, tok_s, checks = phase_train(torch, dev, name, **geo)
         m = {"train_launches": counts, "tokens_s": tok_s, **checks,
              "sharded": sharded_train_check(torch, dev, name, **geo)}
@@ -5595,7 +5786,7 @@ F32_REFEREE_TOL = 1e-5
 F32_SMALL_TOL = 2e-5
 F32_V2_TOL = 1e-4
 F32_PAGED_TOL = 1e-5
-F32_H1_DIMS = (16, 80, 128, 256)
+F32_H1_DIMS = (16, 80, 128, 256, 33, 72)
 # H1 f32 over long key counts, where O sums hundreds of key tiles (one
 # fresh P V accumulator a tile, added in f32; ROADMAP B2d), within
 # F32_SMALL_TOL of the f64 plain run: TPU kernel B3's route (V1_CASES),
@@ -6901,8 +7092,8 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [
         # H1's numbers are the v1 phase's: its main call at bench.py's
         # canonical shape, and its times there
-        {"name": "H1 attention forward (none, causal, window; d a multiple "
-                 "of 16 from 16 to 256)",
+        {"name": "H1 attention forward (none, causal, window; d from 1 to "
+                 "256)",
          "route": "cuda", "source": H1_SRC, "replaces": f"{V1_PY}:1139",
          "also_replaces": [f"{V1_PY}:{n}" for n in (387, 213, 489, 901,
                                                      1261, 1357)]
@@ -6932,6 +7123,7 @@ def main(argv) -> int:
                               **heads_launches(heads, "h1"),
                               **heads_train_launches(htrain, "h1")},
          "by_head_dim": heads["h1"],
+         "odd_head_dim_times": heads["h1_odd_times"],
          "by_dtype": {"f32": f32_readings(f32, "h1")},
          "device_offsets": device_offset_readings(par, "h1"),
          "seq2seq_cross_shape": t["seq2seq_cross"]["h1"],
@@ -7006,10 +7198,9 @@ def main(argv) -> int:
          "decode_h2_ms": {n: x["h2_ms"] for n, x in h6.items()}},
         # H6's numbers are the slice's and the multi-turn's cases; by_case
         # holds every case of the decode and extend phases
-        {"name": "H6-decode paged INT8 decode attention (window; d a "
-                 "multiple of 16 from 16 to 256, any group, pages a multiple "
-                 "of 128; split across the SMs, the runs merged in its last "
-                 "block)",
+        {"name": "H6-decode paged INT8 decode attention (window; d from 1 "
+                 "to 256, any group, pages a multiple of 128; split across "
+                 "the SMs, the runs merged in its last block)",
          "route": "cuda", "source": H6_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:74",
          "launches": launches["h6"],
@@ -7041,8 +7232,7 @@ def main(argv) -> int:
                                                 "turn_2_tokens_s")}
                           for n, x in heads["models"].items()}},
         {"name": "H6-extend paged INT8 chunked-prefill attention (window; d "
-                 "a multiple of 16 from 16 to 256, any group, pages a "
-                 "multiple of 128)",
+                 "from 1 to 256, any group, pages a multiple of 128)",
          "route": "cuda", "source": H6E_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:257",
          "also_replaces": "exploring_flash_attention_tpu/serving/decode.py:455",
@@ -7082,6 +7272,7 @@ def main(argv) -> int:
                                 **heads_train_launches(htrain, f"h3{n}")},
            "device_offsets": device_offset_readings(par, f"h3{n}"),
            "by_head_dim": h3_by_head_dim(h3_by_d, htrain, f"h3{n}"),
+           "refused_off_sixteen": htrain.get("h3_refuses"),
            "seq2seq_cross_shape": t["seq2seq_cross"][f"h3{n}"],
            "window_library_bwd": t["window_train_shape"][
                "window_library_bwd"],

@@ -234,7 +234,8 @@ __device__ __forceinline__ void issue_pv(
 
 // A consumer warpgroup's 64 Q rows (row(r) gives the address of its row
 // r's d floats, or null: a zero row), zero past d, as three pieces; then
-// the warpgroup's barrier.  d is a multiple of 16, rows 16-byte aligned.
+// the warpgroup's barrier.  Rows of a d that is a multiple of 4 are read
+// 16 bytes at a time, others a float at a time.
 template <int D, int KP, class RowPtr>
 __device__ __forceinline__ void stage_q(unsigned char* sq, int wg, RowPtr row,
                                         int d) {
@@ -244,10 +245,8 @@ __device__ __forceinline__ void stage_q(unsigned char* sq, int wg, RowPtr row,
     const int r = x / (D / 8), ch = x % (D / 8);
     const float* src = row(r);
     float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
-    if (src != nullptr && 8 * ch < d) {
-      x0 = *reinterpret_cast<const float4*>(src + 8 * ch);
-      x1 = *reinterpret_cast<const float4*>(src + 8 * ch + 4);
-    }
+    if (src != nullptr && 8 * ch < d)
+      load8_f32(src + 8 * ch, d - 8 * ch, d % 4 == 0, x0, x1);
     put_split8(sq, T::Q_PIECE, T::BQ, wg * 64 + r, ch, x0, x1);
   }
   fence_proxy_async();

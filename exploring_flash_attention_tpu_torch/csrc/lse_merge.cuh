@@ -9,7 +9,8 @@
 //   w_k = exp(lse_k - m) / sum_j exp(lse_j - m)   (a zero sum taken as 1)
 //   O = sum_k w_k O_k          in f32, rounded once by the caller.
 //
-// Layout.  A row of d columns (a multiple of 4) is owned by a group of L
+// Layout.  A row of d columns (a multiple of 4, or any d read a float at
+// a time: ANY) is owned by a group of L
 // lanes of one warp (L a power of two up to 32: 32 / L rows a warp), lane j
 // holding NV chunks of 4 columns, chunk v at columns 4 (j + L v) .. + 3,
 // each read as one 16-byte load per partial; a chunk at or past d is idle
@@ -34,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace eft {
 
@@ -85,9 +88,20 @@ __device__ __forceinline__ bool merge_chunk(int v, int d) {
   return 4 * (int(threadIdx.x % L) + L * v) < d;
 }
 
+// Four f32 of a row from p, a float at a time: those of columns below n
+// (rows of a d that is not a multiple of 4 are not 16-byte aligned)
+template <bool kL2>
+__device__ __forceinline__ float4 merge_load4_any(const float* p, int n) {
+  float x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = i < n ? merge_load<kL2>(p + i) : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
 // Partials u < cnt (cnt <= U) of this lane's chunks, from row `r` on in
-// steps of `stride` rows of d floats; zeros past cnt and in idle chunks.
-template <int L, int NV, int U, bool kL2>
+// steps of `stride` rows of d floats; zeros past cnt, in idle chunks and
+// (ANY: a float at a time) past d.
+template <int L, int NV, int U, bool kL2, bool ANY = false>
 __device__ __forceinline__ void merge_load_group(float4 (&v)[U][NV],
                                                  const float* col, size_t r,
                                                  size_t stride, int cnt,
@@ -95,18 +109,24 @@ __device__ __forceinline__ void merge_load_group(float4 (&v)[U][NV],
 #pragma unroll
   for (int u = 0; u < U; ++u)
 #pragma unroll
-    for (int c = 0; c < NV; ++c)
-      v[u][c] = u < cnt && merge_chunk<L>(c, d)
-                    ? merge_load4<kL2>(col + (r + u * stride) * d + 4 * L * c)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < NV; ++c) {
+      const float* p = col + (r + u * stride) * d + 4 * L * c;
+      if (!(u < cnt && merge_chunk<L>(c, d)))
+        v[u][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      else if constexpr (ANY)
+        v[u][c] = merge_load4_any<kL2>(
+            p, d - 4 * (int(threadIdx.x % L) + L * c));
+      else
+        v[u][c] = merge_load4<kL2>(p);
+    }
 }
 
 // The merged f32 O of one row, this lane's NV chunks (zero where idle).
 // Partial k of the row is row `first + k * stride` of o_part [.., d] and
 // of lse.  Every lane of the warp calls it with the same nkb (the shuffles
 // take the whole warp); a lane whose row does not exist passes a row that
-// does and drops the result.
-template <int L, int NV, int U, bool kL2>
+// does and drops the result.  ANY: d need not be a multiple of 4.
+template <int L, int NV, int U, bool kL2, bool ANY = false>
 __device__ __forceinline__ void lse_merge_row(float4 (&acc)[NV],
                                               const float* __restrict__ o_part,
                                               const float* __restrict__ lse,
@@ -123,7 +143,7 @@ __device__ __forceinline__ void lse_merge_row(float4 (&acc)[NV],
     const float x = j < n ? merge_load<kL2>(lse + r0 + size_t(j) * stride)
                           : -CUDART_INF_F;
     float4 v[U][NV];
-    merge_load_group<L, NV, U, kL2>(v, col, r0, stride, min(n, U), d);
+    merge_load_group<L, NV, U, kL2, ANY>(v, col, r0, stride, min(n, U), d);
     const float m_new = fmaxf(m, group_max<L>(x));
     const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
     float w = expf(x - m_use);          // 0 where lse_k is -inf
@@ -157,8 +177,8 @@ __device__ __forceinline__ void lse_merge_row(float4 (&acc)[NV],
       }
       i += U;
       if (i >= n) break;
-      merge_load_group<L, NV, U, kL2>(v, col, r0 + size_t(i) * stride,
-                                      stride, min(n - i, U), d);
+      merge_load_group<L, NV, U, kL2, ANY>(v, col, r0 + size_t(i) * stride,
+                                           stride, min(n - i, U), d);
     }
   }
 }
@@ -173,6 +193,19 @@ struct MergeRow {
   static constexpr int NV = (CHUNKS + L - 1) / L;
   static_assert(D % 16 == 0 && D <= 256, "d is a multiple of 16 up to 256");
 };
+
+// Four f32 values as this lane writes them to a row of O at dst: those
+// of columns below n, one at a time (a row of any d)
+template <class T>
+__device__ __forceinline__ void store4_any(T* dst, float4 v, int n) {
+  const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) {
+      if constexpr (std::is_same_v<T, float>) dst[i] = x[i];
+      else dst[i] = __float2bfloat16(x[i]);
+    }
+}
 
 // Four f32 values rounded to bf16 and written as one 8-byte store.
 __device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 v) {

@@ -59,7 +59,7 @@
 // Budget at d=128, as H4-kvq's: Q 32 KB, two converted stages of K and V
 // 128 KB, three code slots 48 KB, scales 2 KB.
 //
-// Head dims, groups and pages.  d is any multiple of 16 from 16 to 256, on
+// Head dims, groups and pages.  d is any from 1 to 256, on
 // instances D = 64, 128 and 256 (the smallest D >= d): the code tiles are
 // loaded by TMA as boxes of D columns from the pages described with their
 // true d, so the columns past d arrive as zero codes, convert to zero K and
@@ -72,6 +72,15 @@
 // GQA-flattened (C * G rows), nothing else reads G.  Any page size that is
 // a multiple of 128: a tile of 128 (or 64) keys never straddles a page,
 // and the box is one tile of one page whatever the page's length.
+//
+// Rows of codes that are not a multiple of 16 bytes (d % 16 != 0) cannot
+// be described to TMA.  There the producer's first thread brings each
+// tile as H6-decode does, one 1-D bulk copy of its BKV d contiguous bytes
+// (16-byte aligned: a tile starts a multiple of 64 rows into its page)
+// into the code slot, and the converters read it at the rows' alignment,
+// zero past d (convert_code_rows); q is staged and O stored a value at a
+// time where its rows are not 16-byte aligned (d % 8 != 0).  The f32
+// kernel's producer reads the codes at the rows' alignment too.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -234,8 +243,10 @@ __device__ __forceinline__ void pack_p(const float (&p)[N],
 // A consumer warpgroup's 64 Q rows from flattened chunk row t0 + 64 wg on,
 // zero past the chunk's rows and past d, swizzled as TMA would: flattened
 // row t is chunk position t / group and q head t % group of q_b, the
-// sequence's [C, Hq, d] from its KV head's first q head on
-template <int D>
+// sequence's [C, Hq, d] from its KV head's first q head on.  PACKED (d %
+// 16 != 0): rows that are no multiple of 16 bytes (d % 8 != 0) are read a
+// value at a time
+template <int D, bool PACKED>
 __device__ __forceinline__ void stage_q_rows(unsigned char* sq,
                                              const __nv_bfloat16* q_b,
                                              int wg, int ct, int t0,
@@ -245,9 +256,20 @@ __device__ __forceinline__ void stage_q_rows(unsigned char* sq,
     const int r = wg * 64 + x / (D / 8), ch = x % (D / 8);
     const int t = t0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < rows && ch * 8 < d)
-      val = *reinterpret_cast<const uint4*>(
-          q_b + (size_t(t / group) * hq + t % group) * d + ch * 8);
+    if (t < rows && ch * 8 < d) {
+      const __nv_bfloat16* src =
+          q_b + (size_t(t / group) * hq + t % group) * d + ch * 8;
+      if (!PACKED || d % 8 == 0) {
+        val = *reinterpret_cast<const uint4*>(src);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (ch * 8 + j < d) w[j / 2] |= uint32_t(h[j]) << (16 * (j % 2));
+        val = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
     *reinterpret_cast<uint4*>(sq + (ch / 8) * BQ * 128 +
                               swz128(r, (ch % 8) * 16)) = val;
   }
@@ -255,8 +277,9 @@ __device__ __forceinline__ void stage_q_rows(unsigned char* sq,
 
 // O / l of this thread's two flattened rows t and t + 8, bf16, their first
 // d columns at their addresses in o_b (laid out as q_b above); a row with
-// l = 0 (it saw no key) stores 0
-template <int D>
+// l = 0 (it saw no key) stores 0.  PACKED: a value at a time where d % 8
+// != 0
+template <int D, bool PACKED>
 __device__ __forceinline__ void store_chunk_rows(const float (&acc_o)[D / 2],
                                                  const float (&l)[2],
                                                  __nv_bfloat16* o_b, int t,
@@ -271,11 +294,44 @@ __device__ __forceinline__ void store_chunk_rows(const float (&acc_o)[D / 2],
     const float denom = l_row == 0.f ? 1.f : l_row;
     __nv_bfloat16* orow = o_b + (size_t(tr / group) * hq + tr % group) * d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      if (8 * j < d)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
-            __floats2bfloat162_rn(acc_o[4 * j + 2 * r] / denom,
-                                  acc_o[4 * j + 2 * r + 1] / denom);
+    for (int j = 0; j < D / 8; ++j) {
+      if (8 * j >= d) continue;
+      const float x0 = acc_o[4 * j + 2 * r] / denom;
+      const float x1 = acc_o[4 * j + 2 * r + 1] / denom;
+      const int col = 8 * j + col0;
+      if (!PACKED || d % 8 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16(x0);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+// A [rows][d] tile of int8 codes packed at src (rows of d bytes, at the
+// alignment of d) -> bf16 in the layout convert_codes_tile gives, zeros
+// past d (D columns); thread t of n
+template <int D>
+__device__ __forceinline__ void convert_code_rows(const unsigned char* src,
+                                                  unsigned char* dst,
+                                                  int rows, int d, int t,
+                                                  int n) {
+  constexpr int PIECES = D / 16;
+  const int al = row_align(d);
+  for (int x = t; x < rows * PIECES; x += n) {
+    const int row = x / PIECES, c = (x % PIECES) * 16;
+    uint32_t out[8];
+    codes16_convert<KV_INT8, false>(
+        c < d ? load16_al(src + size_t(row) * d + c, al, d - c)
+              : make_uint4(0u, 0u, 0u, 0u), out);
+    unsigned char* box = dst + (c / 64) * rows * 128;
+    const int byte = (c % 64) * 2;
+    *reinterpret_cast<uint4*>(box + swz128(row, byte)) =
+        make_uint4(out[0], out[1], out[2], out[3]);
+    *reinterpret_cast<uint4*>(box + swz128(row, byte + 16)) =
+        make_uint4(out[4], out[5], out[6], out[7]);
   }
 }
 
@@ -285,7 +341,7 @@ __device__ __forceinline__ void store_chunk_rows(const float (&acc_o)[D / 2],
 // i is issued; O is rescaled by tile i - 1's alpha while it runs; P V of
 // tile i - 1 is issued behind it; the softmax of tile i runs while P V is
 // in flight; after P V has landed, P of tile i is packed.
-template <int D>
+template <int D, bool PACKED>
 __device__ __forceinline__ void consume(
     unsigned char* sq, const unsigned char* sk, const unsigned char* sv,
     const float* sscale, uint64_t* k_full, uint64_t* v_full, uint64_t* empty,
@@ -304,10 +360,10 @@ __device__ __forceinline__ void consume(
   // apart, with constant strides
   const __nv_bfloat16* q_b =
       q + size_t(b) * c * hq * d + size_t(kh) * group * d;
-  if (d == D)
-    stage_q_rows<D>(sq, q_b, wg, ct, t0, rows, group, hq, D);
+  if (!PACKED && d == D)
+    stage_q_rows<D, false>(sq, q_b, wg, ct, t0, rows, group, hq, D);
   else
-    stage_q_rows<D>(sq, q_b, wg, ct, t0, rows, group, hq, d);
+    stage_q_rows<D, PACKED>(sq, q_b, wg, ct, t0, rows, group, hq, d);
   fence_proxy_async();
   named_bar_sync(Q_BAR + wg, 128);
 
@@ -403,15 +459,18 @@ __device__ __forceinline__ void consume(
   // O / l of the two owned rows; at d = D inlined apart, with constant
   // strides
   __nv_bfloat16* o_b = o + size_t(b) * c * hq * d + size_t(kh) * group * d;
-  if (d == D)
-    store_chunk_rows<D>(acc_o, l, o_b, t0 + r0, rows, group, hq, D);
+  if (!PACKED && d == D)
+    store_chunk_rows<D, false>(acc_o, l, o_b, t0 + r0, rows, group, hq, D);
   else
-    store_chunk_rows<D>(acc_o, l, o_b, t0 + r0, rows, group, hq, d);
+    store_chunk_rows<D, PACKED>(acc_o, l, o_b, t0 + r0, rows, group, hq, d);
 }
 
-template <int D>
+// PACKED: d % 16 != 0, the code tiles by bulk copy from the pages (tkv
+// unused); the instances of the multiples of 16 compile without it
+template <int D, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 1)
 paged_extend_kernel(const __grid_constant__ CUtensorMap tkv,  // [P*2*Hkv, ps, d] int8
+                    const int8_t* __restrict__ pages,      // [n_pages, 2, Hkv, ps, d]
                     const __nv_bfloat16* __restrict__ q,   // [B, C, Hq, d]
                     const float* __restrict__ scales,      // [n_pages, 2, Hkv, 1, ps]
                     const int* __restrict__ page_table,    // [max_seqs, max_pages]
@@ -475,9 +534,26 @@ paged_extend_kernel(const __grid_constant__ CUtensorMap tkv,  // [P*2*Hkv, ps, d
     auto load_codes = [&](int j) {
       const int slot_j = j % SLOTS, kv0 = kv_begin + (j / 2) * BKV;
       const int page = pt[kv0 / ps];
-      mbar_arrive_expect_tx(&code_full[slot_j], T::CODE_BYTES);
-      tma_load_3d(scodes + slot_j * T::CODE_BYTES, &tkv, &code_full[slot_j],
-                  0, kv0 % ps, (page * 2 + (j & 1)) * hkv + kh);
+      const int head = (page * 2 + (j & 1)) * hkv + kh;
+      if constexpr (PACKED) {
+        // a [BKV][d] block of the page's rows, packed: one bulk copy
+        const uint32_t bytes = uint32_t(BKV) * d;
+        mbar_arrive_expect_tx(&code_full[slot_j], bytes);
+        bulk_load(scodes + slot_j * T::CODE_BYTES,
+                  pages + (size_t(head) * ps + kv0 % ps) * d, bytes,
+                  &code_full[slot_j]);
+      } else {
+        mbar_arrive_expect_tx(&code_full[slot_j], T::CODE_BYTES);
+        tma_load_3d(scodes + slot_j * T::CODE_BYTES, &tkv,
+                    &code_full[slot_j], 0, kv0 % ps, head);
+      }
+    };
+    // the code tiles' layout in their slot: [BKV][D] boxes, or packed rows
+    auto convert = [&](const unsigned char* src, unsigned char* dst) {
+      if constexpr (PACKED)
+        convert_code_rows<D>(src, dst, BKV, d, ct, CONVERTERS);
+      else
+        convert_codes_tile<KV_INT8, false, D>(src, dst, BKV, ct, CONVERTERS);
     };
     if (ct == 0)
       for (int j = 0; j < SLOTS && j < 2 * n_tiles; ++j) load_codes(j);
@@ -492,13 +568,11 @@ paged_extend_kernel(const __grid_constant__ CUtensorMap tkv,  // [P*2*Hkv, ps, d
       if ((j & 1) == 0) mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
       mbar_wait(&code_full[slot_j], (j / SLOTS) & 1);
       if ((j & 1) == 0) {
-        convert_codes_tile<KV_INT8, false, D>(src, sk + s * T::CONV_BYTES,
-                                              BKV, ct, CONVERTERS);
+        convert(src, sk + s * T::CONV_BYTES);
         for (int t = ct; t < BKV; t += CONVERTERS)
           sc[t] = kv0 + t < n ? gsc[t] * scale_log2 : 0.f;
       } else {
-        convert_codes_tile<KV_INT8, false, D>(src, sv + s * T::CONV_BYTES,
-                                              BKV, ct, CONVERTERS);
+        convert(src, sv + s * T::CONV_BYTES);
         for (int t = ct; t < BKV; t += CONVERTERS)
           sc[BKV + t] = kv0 + t < n ? gsc[t] : 0.f;
       }
@@ -511,11 +585,11 @@ paged_extend_kernel(const __grid_constant__ CUtensorMap tkv,  // [P*2*Hkv, ps, d
   }
 
   setmaxnreg_inc<CONSUMER_REGS>();
-  consume<D>(sq, sk, sv, sscale, k_full, v_full, empty, q, o, b, kh, c, hq,
-             group, d, t0, q_start, window, kv_begin, n_tiles);
+  consume<D, PACKED>(sq, sk, sv, sscale, k_full, v_full, empty, q, o, b, kh,
+                     c, hq, group, d, t0, q_start, window, kv_begin, n_tiles);
 }
 
-template <int D>
+template <int D, bool PACKED>
 int launch(const void* q, const void* pages, const void* scales,
            const void* page_table, const void* seq_lens, const void* slots,
            void* o, int batch, int c, int hq, int hkv, int d, int ps,
@@ -523,19 +597,23 @@ int launch(const void* q, const void* pages, const void* scales,
            cudaStream_t stream) {
   using T = Tiles<D>;
   // boxes of D columns over rows of the true d: the columns past d are
-  // zero codes
-  CUtensorMap tkv;
-  const int err = make_tmap(&tkv, pages, 1, d, ps, n_pages * 2 * hkv, D,
-                            T::BKV, 0);
-  if (err) return err;
+  // zero codes.  Rows that are not a multiple of 16 bytes: bulk copies
+  CUtensorMap tkv = {};
+  if constexpr (!PACKED) {
+    const int err = make_tmap(&tkv, pages, 1, d, ps, n_pages * 2 * hkv, D,
+                              T::BKV, 0);
+    if (err) return err;
+  }
   const cudaError_t attr = cudaFuncSetAttribute(
-      paged_extend_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_extend_kernel<D, PACKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(T::bytes));
   if (attr != cudaSuccess) return int(attr);
   const int rows = c * (hq / hkv);
   const dim3 grid((rows + BQ - 1) / BQ, hkv, batch);
-  paged_extend_kernel<D><<<grid, THREADS, T::bytes, stream>>>(
-      tkv, static_cast<const __nv_bfloat16*>(q),
+  paged_extend_kernel<D, PACKED><<<grid, THREADS, T::bytes, stream>>>(
+      tkv, static_cast<const int8_t*>(pages),
+      static_cast<const __nv_bfloat16*>(q),
       static_cast<const float*>(scales), static_cast<const int*>(page_table),
       static_cast<const int*>(seq_lens), static_cast<const int*>(slots),
       static_cast<__nv_bfloat16*>(o), c, hq, hkv, d, ps, max_pages,
@@ -594,6 +672,7 @@ paged_extend_f32_kernel(const float* __restrict__ q,         // [B, C, Hq, d]
     constexpr int CH = BKV * (D / 16) / 128;
     struct Regs { uint4 k[CH], v[CH]; size_t k_rows; int kv0; };
     const int ct = threadIdx.x - T::NC * 128;
+    const int al = row_align(d);
     auto fetch = [&](int i, Regs& x) {
       x.kv0 = kv_begin + i * BKV;
       const size_t page = size_t(pt[x.kv0 / ps]);
@@ -604,10 +683,11 @@ paged_extend_f32_kernel(const float* __restrict__ q,         // [B, C, Hq, d]
         const int e = ct + 128 * j, r = e / (D / 16), ch = e % (D / 16);
         x.k[j] = x.v[j] = make_uint4(0u, 0u, 0u, 0u);
         if (16 * ch < d) {
-          x.k[j] = *reinterpret_cast<const uint4*>(
-              pages + (x.k_rows + r) * d + 16 * ch);
-          x.v[j] = *reinterpret_cast<const uint4*>(
-              pages + (v_rows + r) * d + 16 * ch);
+          // rows of d bytes: 16-byte loads at d % 16 == 0 (al = 16)
+          x.k[j] = load16_al(pages + (x.k_rows + r) * d + 16 * ch, al,
+                             d - 16 * ch);
+          x.v[j] = load16_al(pages + (v_rows + r) * d + 16 * ch, al,
+                             d - 16 * ch);
         }
       }
     };
@@ -674,11 +754,19 @@ paged_extend_f32_kernel(const float* __restrict__ q,         // [B, C, Hq, d]
     const float denom = l_row == 0.f ? 1.f : l_row;
     float* orow = o + q_b + (size_t(t / group) * hq + t % group) * d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      if (8 * j < d)
-        *reinterpret_cast<float2*>(orow + 8 * j + col0) =
-            make_float2(acc_o[4 * j + 2 * r] / denom,
-                        acc_o[4 * j + 2 * r + 1] / denom);
+    for (int j = 0; j < D / 8; ++j) {
+      if (8 * j >= d) continue;
+      const float x0 = acc_o[4 * j + 2 * r] / denom;
+      const float x1 = acc_o[4 * j + 2 * r + 1] / denom;
+      const int col = 8 * j + col0;
+      if (d % 8 == 0) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
+      } else {
+        // a value at a time, those below d
+        if (col < d) orow[col] = x0;
+        if (col + 1 < d) orow[col + 1] = x1;
+      }
+    }
   }
 }
 
@@ -709,7 +797,7 @@ int launch_f32(const void* q, const void* pages, const void* scales,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // serving/decode.py has already checked shapes, dtypes, contiguity and
 // alignment; the checks here only refuse what would index out of bounds.
-// d: a multiple of 16 from 16 to 256; page_size: a multiple of 128.
+// d: 1 to 256; page_size: a multiple of 128.
 // window: 0 for none.  q_f32: 0 for bf16 q and O, 1 for f32 (the f32
 // core, bf16x3).
 extern "C" int eft_paged_extend(const void* q, const void* pages,
@@ -722,7 +810,7 @@ extern "C" int eft_paged_extend(const void* q, const void* pages,
                                 void* stream) {
   if (batch <= 0 || batch > 65535 || c <= 0 || hkv <= 0 || hkv > 65535 ||
       hq % hkv != 0 || page_size <= 0 || page_size % 128 != 0 ||
-      d < 16 || d > 256 || d % 16 != 0 || max_pages <= 0 || n_pages <= 0 ||
+      d < 1 || d > 256 || max_pages <= 0 || n_pages <= 0 ||
       int64_t(max_pages) * page_size > INT32_MAX ||
       int64_t(n_pages) * 2 * hkv > INT32_MAX ||
       int64_t(c) * (hq / hkv) > INT32_MAX - BQ || window < 0 ||
@@ -733,9 +821,14 @@ extern "C" int eft_paged_extend(const void* q, const void* pages,
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto go = [&](auto dc) {
-    return launch<decltype(dc)::value>(
-        q, pages, scales, page_table, seq_lens, slots, o, batch, c, hq, hkv,
-        d, page_size, max_pages, max_seqs, n_pages, window, scale, s);
+    constexpr int D = decltype(dc)::value;
+    return d % 16 != 0
+        ? launch<D, true>(q, pages, scales, page_table, seq_lens, slots, o,
+                          batch, c, hq, hkv, d, page_size, max_pages,
+                          max_seqs, n_pages, window, scale, s)
+        : launch<D, false>(q, pages, scales, page_table, seq_lens, slots, o,
+                           batch, c, hq, hkv, d, page_size, max_pages,
+                           max_seqs, n_pages, window, scale, s);
   };
   if (q_f32) {
     auto go_f32 = [&](auto dc) {

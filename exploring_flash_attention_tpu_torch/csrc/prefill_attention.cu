@@ -1,14 +1,16 @@
 // H1: the attention forward on Hopper (sm_90a). bf16 in, f32 accumulate,
 // one kernel for three masks (none, causal, sliding window) and every head
-// dim d that is a multiple of 16 from 16 to 256, on instances D = 32, 64,
-// 128 and 256: a d below its instance's D (16 on 32, 48 on 64, 80-112 on
-// 128, 144-240 on 256) is described to TMA with its true d, so the tiles'
-// columns past d land as zeros (wgmma_tile.cuh) and the epilogue stores
-// the first d columns of O.  The padded columns cost (D - d) / D of the
-// tensor-core work: 37.5% at d=80, none at d = D.  f32 q/k/v take a second
-// kernel, prefill_attention_f32_kernel below, on the f32 core of
-// f32_attention.cuh (bf16x6 on wgmma, f32-accurate as the JAX package's
-// HIGHEST), with the same masks, spans, offsets and bound form.
+// dim d from 1 to 256, on instances D = 32, 64, 128 and 256: a d below its
+// instance's D (1-31 on 32, 33-63 on 64, 65-127 on 128, 129-255 on 256) is
+// described to TMA with its true d, so the tiles' columns past d land as
+// zeros (wgmma_tile.cuh), and the epilogue stores the first d columns of
+// O; a d that is not a multiple of 8, whose rows no tensor map takes, is
+// loaded by the staged producer below into the same tiles.  The padded
+// columns cost (D - d) / D of the tensor-core work: 37.5% at d=80, none at
+// d = D.  f32 q/k/v take a second kernel, prefill_attention_f32_kernel
+// (prefill_attention_f32.cu, compiled beside this file), on the f32 core
+// of f32_attention.cuh (bf16x6 on wgmma, f32-accurate as the JAX
+// package's HIGHEST), with the same masks, spans, offsets and bound form.
 //
 // Replaces the TPU kernels of the JAX package's dense forward, which
 // compute one function and differ from each other only by a VMEM rule
@@ -127,36 +129,28 @@
 
 #include <type_traits>
 
-#include "f32_attention.cuh"
+#include "prefill_attention.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
 
 using namespace eft::hopper;
-
-// a KV span is whole tiles of SPAN_TILE keys, which the bound statistic's
-// prefix maxima (ops/attention.py bound_kmax) also take
-constexpr int SPAN_TILE = 128;
-// the row statistic's group: a row's bound reads the K/V tile that the last
-// row of its 128-row group sees, whatever the Q tile
-constexpr int BOUND_ROWS = 128;
-constexpr float BOUND_SHIFT = 64.f;
+using namespace eft::prefill;
 
 // NC consumer warpgroups of 64 Q rows (1 or 2) and the producer warpgroup.
-// Registers per thread after setmaxnreg: 128 * 24 + 256 * 240 = 384 * 168
-// and 128 * 24 + 128 * 232 = 256 * 128, what the launch allocates (more,
-// and the consumers' setmaxnreg.inc waits forever)
+// Registers per thread after setmaxnreg: 128 * 40 + 256 * 232 = 384 * 168
+// and 128 * 40 + 128 * 216 = 256 * 128, what the launch allocates (more,
+// and the consumers' setmaxnreg.inc waits forever).  The producer's staged
+// loads (below) spilled at 24 and 32 registers, and fit 40; the consumers
+// hold their state in 216 without a spill
 template <int NC>
 struct Block {
   static constexpr int BQ = 64 * NC;                 // Q rows per block
   static constexpr int THREADS = (NC + 1) * 128;
   static constexpr int MIN_BLOCKS = NC == 1 ? 2 : 1;  // caps at 128 / 168
-  static constexpr int PRODUCER_REGS = 24;
-  static constexpr int CONSUMER_REGS = NC == 1 ? 232 : 240;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = NC == 1 ? 216 : 232;
 };
-
-// the mask argument of eft_prefill_attention
-enum Mask : int { MASK_NONE = 0, MASK_CAUSAL = 1, MASK_WINDOW = 2 };
 
 // Shared memory of one block.  Every tile is TMA boxes of BOX columns
 // (rows of BOX * 2 bytes, the swizzle width) by its rows, box after box.
@@ -180,9 +174,142 @@ struct Tiles {
   static_assert(bytes <= 232448, "the block's shared memory");
 };
 
-__device__ __forceinline__ long long clamp64(long long x, long long lo,
-                                             long long hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
+// ---------------------------------------------- rows TMA cannot describe
+// At a bf16 d that is not a multiple of 8 a row of q, k or v is 2d bytes,
+// not a multiple of 16, and no tensor map takes that stride.  Then the
+// whole producer warpgroup loads each tile into the layout its TMA boxes
+// would give (the staged form, a run-time choice: the consumers read the
+// same tiles on the same barriers either way), a row a thread (the
+// producer runs on 40 registers a thread):
+//   - the columns from the last whole 8-column chunk before d up to D are
+//     zeroed once, in Q and in every stage;
+//   - d even: the row as pieces of its alignment (8 or 4 bytes, 2 d's
+//     largest power-of-two divisor), one cp.async each into the swizzled
+//     place, zero-filled past the rows (a tile's rows past Lq or Lkv);
+//   - d odd (rows 2-byte aligned): the row's 8-column chunks read a bf16
+//     at a time and stored as one 16-byte word, zeros past d or past the
+//     rows;
+//   - a tile's copies are a cp.async group; each thread hands its share
+//     over (its copies landed, fence, arrive on the stage's full barrier,
+//     counting the 128 producer threads).
+
+// zero columns [8 floor(d / 8), D) of row r of a tile of `rows` rows in
+// boxes of BOX columns at the shared-window address tile
+template <int D, int BOX>
+__device__ __forceinline__ void zero_tail(uint32_t tile, int rows, int r,
+                                          int d) {
+  constexpr int ROW = BOX * 2;
+#pragma unroll 1
+  for (int c = d / 8 * 8; c < D; c += 8)
+    st_shared_v4(tile + (c / BOX) * rows * ROW + swz<ROW>(r, (c % BOX) * 2),
+                 make_uint4(0u, 0u, 0u, 0u));
+}
+
+// row r of a tile of `rows` rows in boxes of BOX columns (at the
+// shared-window address tile), its columns below d, from src (a row of
+// the bf16 matrix; in: the row exists, else zeros and src is not read)
+template <int BOX>
+__device__ __forceinline__ void stage_row(uint32_t tile, int rows, int r,
+                                          const __nv_bfloat16* src, bool in,
+                                          int d) {
+  constexpr int ROW = BOX * 2;
+  const int al = row_align(2 * d);              // 8, 4 or 2 bytes
+  if (al >= 4) {
+    const int e = al / 2;                       // columns a piece
+#pragma unroll 1
+    for (int c = 0; c < d; c += e) {
+      const uint32_t dst =
+          tile + (c / BOX) * rows * ROW + swz<ROW>(r, (c % BOX) * 2);
+      if (al == 8) cp_async_zfill<8>(dst, src + c, in ? 8 : 0);
+      else cp_async_zfill<4>(dst, src + c, in ? 4 : 0);
+    }
+    return;
+  }
+  // a chunk's 8 values at immediate offsets from one pointer: with an
+  // address a value, ptxas held eight 64-bit addresses and spilled
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll 1
+  for (int c = 0; c < d; c += 8, h += 8) {
+    uint32_t x[4] = {0u, 0u, 0u, 0u};
+    const int n = d - c;
+    if (in) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < n) x[j / 2] |= uint32_t(__ldg(h + j)) << (16 * (j % 2));
+    }
+    st_shared_v4(tile + (c / BOX) * rows * ROW + swz<ROW>(r, (c % BOX) * 2),
+                 make_uint4(x[0], x[1], x[2], x[3]));
+  }
+}
+
+// this thread's share of the tile behind the barrier at bar landed: hand
+// it over
+__device__ __forceinline__ void hand_over(uint32_t bar, bool all) {
+  if (all) cp_async_wait<0>();
+  else cp_async_wait<1>();
+  fence_proxy_async();
+  mbar_arrive(bar);
+}
+
+// The staged producer (thread t of 128): Q, then the K and V tiles of the
+// ring, as the TMA producer brings them; every address in shared memory a
+// shared-window one (32 bits) and each row's source computed afresh, the
+// producer's registers being few.  A thread copies one row of every tile:
+// row t of K and of V (128-key tiles), or row t of K (t < 64) or t - 64 of
+// V (64-key tiles).  With three stages a thread hands tile i - 1 over once
+// tile i is in flight; with two (D=256) each tile as it lands, since
+// waiting for a free stage with a tile unhanded would wait on itself.
+template <int D, int NC>
+__device__ __forceinline__ void produce_staged(
+    uint32_t smem, const __nv_bfloat16* q, const __nv_bfloat16* k,
+    const __nv_bfloat16* v, int bh, int bhk, int q0, int lq, int lkv, int d,
+    int kv_begin, int n_tiles) {
+  using T = Tiles<D, NC>;
+  constexpr int BKV = T::BKV, STAGES = T::STAGES, BOX = T::BOX;
+  constexpr bool SPLIT = BKV < 128;       // K and V rows on apart threads
+  constexpr bool LAG = STAGES > 2;
+  const uint32_t full = smem + T::bars, empty = full + 8 * STAGES;
+  const int t = threadIdx.x % 128;
+  if (t < T::BQ) zero_tail<D, BOX>(smem + T::q, T::BQ, t, d);
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+    if constexpr (SPLIT) {
+      zero_tail<D, BOX>(smem + (t < BKV ? T::k : T::v) + s * T::KV_BYTES,
+                        BKV, t % BKV, d);
+    } else {
+      zero_tail<D, BOX>(smem + T::k + s * T::KV_BYTES, BKV, t, d);
+      zero_tail<D, BOX>(smem + T::v + s * T::KV_BYTES, BKV, t, d);
+    }
+  }
+  named_bar_sync(1, 128);             // the zeros before any copy lands
+  if (t < T::BQ)
+    stage_row<BOX>(smem + T::q, T::BQ, t, q + (size_t(bh) * lq + q0 + t) * d,
+                   q0 + t < lq, d);
+  cp_async_commit();
+  if constexpr (!LAG) hand_over(empty + 8 * STAGES, true);     // q_full
+#pragma unroll 1
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
+    const int r = t % BKV, kv = kv_begin + i * BKV + r;
+    const size_t at = (size_t(bhk) * lkv + kv) * d;
+    if constexpr (SPLIT) {
+      stage_row<BOX>(smem + (t < BKV ? T::k : T::v) + s * T::KV_BYTES, BKV,
+                     r, (t < BKV ? k : v) + at, kv < lkv, d);
+    } else {
+      stage_row<BOX>(smem + T::k + s * T::KV_BYTES, BKV, r, k + at,
+                     kv < lkv, d);
+      stage_row<BOX>(smem + T::v + s * T::KV_BYTES, BKV, r, v + at,
+                     kv < lkv, d);
+    }
+    cp_async_commit();
+    if constexpr (LAG)
+      hand_over(i == 0 ? empty + 8 * STAGES : full + 8 * ((i - 1) % STAGES),
+                false);
+    else
+      hand_over(full + 8 * s, true);
+  }
+  if constexpr (LAG) hand_over(full + 8 * ((n_tiles - 1) % STAGES), true);
 }
 
 // O += P V of 16 keys; v_k is their rows of the V tile (MN-major boxes of
@@ -462,8 +589,11 @@ __device__ __forceinline__ void consume(
   const size_t base = (size_t(bh) * gridDim.z + span) * lq;
   if (d == D)
     store_o_rows<D>(acc_o, l, m, row0, lq, base, o, out_f32, lse);
-  else
+  else if (d % 8 == 0)
     store_o_rows<D>(acc_o, l, m, row0, lq, base, o, out_f32, lse, d, 0, d);
+  else
+    store_o_rows<D, true>(acc_o, l, m, row0, lq, base, o, out_f32, lse, d,
+                          0, d);
 }
 
 template <int D, int NC, bool BOUND>
@@ -481,7 +611,11 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, 
                          // [B*Hkv, cdiv(Lkv, 128)] prefix maxima of |k|^2
                          // (the bound form) or null
                          const float* __restrict__ kmax,
-                         int d) {                      // the true head dim
+                         int d,                        // the true head dim
+                         // the staged form (d % 8 != 0): q, k, v themselves
+                         const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v) {
   using T = Tiles<D, NC>;
   constexpr int BQ = T::BQ, BKV = T::BKV, STAGES = T::STAGES;
   constexpr int CONSUMERS = NC;
@@ -524,12 +658,14 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, 
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV
                                         : 0;
 
+  // full barriers: one TMA arrival, or the 128 producer threads' staged
+  const bool staged = q != nullptr;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], staged ? 128 : 1);
       mbar_init(&empty[s], CONSUMERS * 128);
     }
-    mbar_init(q_full, 1);
+    mbar_init(q_full, staged ? 128 : 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -537,8 +673,13 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [B*Hq, Lq, 
   if (warp >= CONSUMERS * 4) {
     // the producer warpgroup gives its registers to the consumers; its
     // first lane loads Q once, then K and V tile by tile through the ring
+    // (the staged form: every producer thread)
     setmaxnreg_dec<Block<NC>::PRODUCER_REGS>();
-    if (warp == CONSUMERS * 4 && lane == 0 && n_tiles > 0) {
+    if (staged) {
+      if (n_tiles > 0)
+        produce_staged<D, NC>(smem_u32(smem), q, k, v, bh, bhk, q0, lq, lkv,
+                              d, kv_begin, n_tiles);
+    } else if (warp == CONSUMERS * 4 && lane == 0 && n_tiles > 0) {
       mbar_arrive_expect_tx(q_full, T::Q_BYTES);
       for (int x = 0; x < T::NBOX; ++x)
         tma_load_3d(sq + x * BQ * T::ROW, &tq, q_full, x * T::BOX, q0, bh);
@@ -586,12 +727,18 @@ int launch(const void* q, const void* k, const void* v, void* o,
            cudaStream_t stream) {
   using T = Tiles<D, NC>;
   constexpr int BQ = T::BQ, BKV = T::BKV;
-  // the true d: TMA zero-fills the boxes' columns past it
-  CUtensorMap tq, tk, tv;
-  int err = make_tmap(&tq, q, 2, d, lq, batch * hq, T::BOX, BQ, T::ROW);
-  if (!err) err = make_tmap(&tk, k, 2, d, lkv, batch * hkv, T::BOX, BKV, T::ROW);
-  if (!err) err = make_tmap(&tv, v, 2, d, lkv, batch * hkv, T::BOX, BKV, T::ROW);
-  if (err) return err;
+  // the true d: TMA zero-fills the boxes' columns past it.  Rows of a d
+  // that is not a multiple of 8 (2d bytes) take the staged form instead
+  const bool staged = d % 8 != 0;
+  CUtensorMap tq = {}, tk = {}, tv = {};
+  if (!staged) {
+    int err = make_tmap(&tq, q, 2, d, lq, batch * hq, T::BOX, BQ, T::ROW);
+    if (!err)
+      err = make_tmap(&tk, k, 2, d, lkv, batch * hkv, T::BOX, BKV, T::ROW);
+    if (!err)
+      err = make_tmap(&tv, v, 2, d, lkv, batch * hkv, T::BOX, BKV, T::ROW);
+    if (err) return err;
+  }
   const cudaError_t attr = cudaFuncSetAttribute(
       prefill_attention_kernel<D, NC, BOUND>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
@@ -605,177 +752,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
       <<<grid, Block<NC>::THREADS, T::bytes, stream>>>(
           tq, tk, tv, o, out_f32, static_cast<float*>(lse), hq, hq / hkv, lq,
           lkv, mask, diag_off, window, offs, span,
-          scale * 1.4426950408889634f, kmax, d);
-  return int(cudaGetLastError());
-}
-
-// ------------------------------------------------------------ f32 inputs
-// H1 at f32 q/k/v (f32_attention.cuh: bf16x6 on wgmma): the same function,
-// masks, spans, traced offsets and bound statistic as the kernel above.
-// One block per (batch*q-head, Q tile of BQ rows, KV span), the Q tiles of
-// a head next to each other, the last first; BKV-key tiles of K and V,
-// each f32 value split into three bf16 pieces by the producer.  O is
-// written f32 or bf16 (rounded once), the LSE f32.  The Q tile argument
-// (64 or 128 rows) leaves the bf16 kernel's result unchanged and is not
-// read here: each row meets the same tiles in the same order either way.
-template <int D, bool BOUND>
-__global__ void __launch_bounds__(eft::f32::Tiles<D, 3>::THREADS, 1)
-prefill_attention_f32_kernel(const float* __restrict__ q,  // [B*Hq, Lq, d]
-                             const float* __restrict__ k,  // [B*Hkv, Lkv, d]
-                             const float* __restrict__ v,  // [B*Hkv, Lkv, d]
-                             void* __restrict__ o, int out_f32,
-                             float* __restrict__ lse, int hq, int group,
-                             int lq, int lkv, int mask, int diag_off,
-                             int window, const int* __restrict__ offs,
-                             int kv_span, float scale_log2,
-                             const float* __restrict__ kmax, int d) {
-  namespace F = eft::f32;
-  using T = F::Tiles<D, 3>;
-  constexpr int BQ = T::BQ, BKV = T::BKV;
-  if (offs != nullptr) diag_off = offs[0] - offs[1];
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align_1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bars);
-  uint64_t* empty = full + T::STAGES;
-  const int n_qt = (lq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / n_qt;
-  const int bhk = (bh / hq) * (hq / group) + (bh % hq) / group;   // GQA
-  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * BQ;
-  const int span = blockIdx.z;
-  const int span0 = span * kv_span;
-  int kv_begin = span0, kv_end = min(lkv, span0 + kv_span);
-  if (mask != MASK_NONE) {
-    const long long q_last = min(q0 + BQ, lq) - 1;
-    kv_end = min(kv_end, int(clamp64(q_last + diag_off + 1, 0, lkv)));
-  }
-  if (mask == MASK_WINDOW) {
-    const long long first = (long long)q0 + diag_off - window + 1;
-    kv_begin = max(kv_begin, int(clamp64(first, 0, lkv)) / BKV * BKV);
-  }
-  const int n_tiles = kv_end > kv_begin
-                          ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
-  F::init_bars<D, 3>(full);
-  const int warp = threadIdx.x / 32;
-  const float* k_h = k + size_t(bhk) * lkv * d;
-  const float* v_h = v + size_t(bhk) * lkv * d;
-
-  if (warp >= T::NC * 4) {
-    // the producer: each thread CH 8-float pieces of K and of V a tile
-    constexpr int CH = BKV * (D / 8) / 128;
-    struct Regs { float4 k[CH][2], v[CH][2]; };
-    const int ct = threadIdx.x - T::NC * 128;
-    auto fetch = [&](int i, Regs& x) {
-      const int kv0 = kv_begin + i * BKV;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const int e = ct + 128 * c, r = e / (D / 8), ch = e % (D / 8);
-        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        x.k[c][0] = x.k[c][1] = x.v[c][0] = x.v[c][1] = z;
-        if (kv0 + r < lkv && 8 * ch < d) {
-          const size_t at = size_t(kv0 + r) * d + 8 * ch;
-          x.k[c][0] = *reinterpret_cast<const float4*>(k_h + at);
-          x.k[c][1] = *reinterpret_cast<const float4*>(k_h + at + 4);
-          x.v[c][0] = *reinterpret_cast<const float4*>(v_h + at);
-          x.v[c][1] = *reinterpret_cast<const float4*>(v_h + at + 4);
-        }
-      }
-    };
-    auto put = [&](const Regs& x, unsigned char* sk, unsigned char* sv,
-                   float* kc, float*) {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const int e = ct + 128 * c, r = e / (D / 8), ch = e % (D / 8);
-        F::put_split8(sk, T::KV_PIECE, BKV, r, ch, x.k[c][0], x.k[c][1]);
-        F::put_split8(sv, T::KV_PIECE, BKV, r, ch, x.v[c][0], x.v[c][1]);
-      }
-      if (ct < BKV) kc[ct] = scale_log2;
-    };
-    F::produce<D, 3, Regs>(smem, full, empty, n_tiles, fetch, put);
-    return;
-  }
-
-  // a consumer warpgroup: rows q0 + 64 wg .. + 63, this thread two of them
-  const int lane = threadIdx.x % 32;
-  const int wg = warp / 4;
-  const int row0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
-  int lo[2], hi[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lo[r] = 0;
-    hi[r] = lkv - 1;
-    if (mask != MASK_NONE) {
-      const long long last = (long long)row0 + 8 * r + diag_off;
-      hi[r] = int(clamp64(last, -1, lkv - 1));
-      if (mask == MASK_WINDOW)
-        lo[r] = int(clamp64(last - window + 1, 0, lkv));
-    }
-  }
-  const float* q_h = q + size_t(bh) * lq * d;
-  F::stage_q<D, 3>(smem + T::q, wg, [&](int r) {
-    const int qi = q0 + wg * 64 + r;
-    return qi < lq ? q_h + size_t(qi) * d : nullptr;
-  }, d);
-  float m[2];
-  if constexpr (BOUND) {
-    // the prefix maximum of |k|^2 at the last tile that the last row of
-    // this block's 128-row group sees, as the bf16 kernel reads it; |q|^2
-    // of each owned row in f32, its quad's lanes a quarter of it each
-    const int n_kv = (lkv + SPAN_TILE - 1) / SPAN_TILE;
-    int idx = n_kv - 1;
-    if (mask != MASK_NONE) {
-      const long long g_last =
-          min(q0 / BOUND_ROWS * BOUND_ROWS + BOUND_ROWS, lq) - 1;
-      const long long x = g_last + diag_off;
-      idx = x < 0 ? 0 : int(clamp64(x / SPAN_TILE, 0, n_kv - 1));
-    }
-    const float kmax2 = kmax[size_t(bhk) * n_kv + idx];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float sum = 0.f;
-      if (row0 + 8 * r < lq) {
-        const float* qr = q_h + size_t(row0 + 8 * r) * d;
-        for (int c = lane % 4; 4 * c < d; c += 4) {
-          const float4 x = *reinterpret_cast<const float4*>(qr + 4 * c);
-          sum = fmaf(x.x, x.x, sum);
-          sum = fmaf(x.y, x.y, sum);
-          sum = fmaf(x.z, x.z, sum);
-          sum = fmaf(x.w, x.w, sum);
-        }
-      }
-      m[r] = sqrtf(quad_sum(sum) * kmax2) * scale_log2 - BOUND_SHIFT;
-    }
-  }
-  float acc_o[D / 2], l[2];
-  F::attend<D, 3, BOUND, false>(smem, wg, full, empty, kv_begin, n_tiles, lo,
-                                hi, acc_o, m, l);
-  const size_t base = (size_t(bh) * gridDim.z + span) * lq;
-  if (d == D)
-    store_o_rows<D>(acc_o, l, m, row0, lq, base, o, out_f32, lse);
-  else
-    store_o_rows<D>(acc_o, l, m, row0, lq, base, o, out_f32, lse, d, 0, d);
-}
-
-template <int D, bool BOUND>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               int out_f32, void* lse, int batch, int hq, int hkv, int lq,
-               int lkv, int d, int mask, int diag_off, int window,
-               const int* offs, int kv_span, float scale, const float* kmax,
-               cudaStream_t stream) {
-  using T = eft::f32::Tiles<D, 3>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_attention_f32_kernel<D, BOUND>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
-  if (attr != cudaSuccess) return int(attr);
-  const int span =
-      kv_span ? kv_span : (lkv + SPAN_TILE - 1) / SPAN_TILE * SPAN_TILE;
-  const dim3 grid(batch * hq * ((lq + T::BQ - 1) / T::BQ), 1,
-                  (lkv + span - 1) / span);
-  prefill_attention_f32_kernel<D, BOUND>
-      <<<grid, T::THREADS, T::bytes, stream>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), o, out_f32, static_cast<float*>(lse),
-          hq, hq / hkv, lq, lkv, mask, diag_off, window, offs, span,
-          scale * 1.4426950408889634f, kmax, d);
+          scale * 1.4426950408889634f, kmax, d,
+          staged ? static_cast<const __nv_bfloat16*>(q) : nullptr,
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v));
   return int(cudaGetLastError());
 }
 
@@ -790,9 +770,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // kv_span: 0 for one span over the whole KV, else a multiple of 128 keys,
 // and o / lse hold cdiv(lkv, kv_span) partials per row.  q_rows: the Q
 // tile, 64 or 128.  kmax: null (the exact statistic) or the bound form's
-// f32 [batch * hkv, cdiv(lkv, 128)] prefix maxima of |k|^2.  d: a multiple
-// of 16 from 16 to 256, run on the smallest instance D >= d.  in_f32: 0 for
-// bf16 q/k/v, 1 for f32 (the f32 core, bf16x6; instances D = 64, 128, 256).
+// f32 [batch * hkv, cdiv(lkv, 128)] prefix maxima of |k|^2.  d: 1 to 256,
+// run on the smallest instance D >= d (bf16 d % 8 != 0 in the staged form).
+// in_f32: 0 for bf16 q/k/v, 1 for f32 (the f32 core, bf16x6; instances D =
+// 64, 128, 256; rows of d % 4 != 0 read a float at a time).
 extern "C" int eft_prefill_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int batch, int hq, int hkv, int lq,
@@ -805,7 +786,7 @@ extern "C" int eft_prefill_attention(const void* q, const void* k,
       mask < MASK_NONE || mask > MASK_WINDOW ||
       (mask == MASK_WINDOW && window < 1) || kv_span < 0 ||
       kv_span % SPAN_TILE != 0 || (q_rows != 64 && q_rows != 128) ||
-      d < 16 || d > 256 || d % 16 != 0 || (in_f32 != 0 && in_f32 != 1))
+      d < 1 || d > 256 || (in_f32 != 0 && in_f32 != 1))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -820,22 +801,12 @@ extern "C" int eft_prefill_attention(const void* q, const void* k,
         q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv, d, mask,
         diag_off, window, o_offs, kv_span, scale, km, s);
   };
-  auto go_f32 = [&](auto dc, auto bound) {
-    return launch_f32<decltype(dc)::value, decltype(bound)::value>(
-        q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv, d, mask,
-        diag_off, window, o_offs, kv_span, scale, km, s);
-  };
+  if (in_f32)
+    return eft::prefill::launch_f32(q, k, v, o, out_f32, lse, batch, hq, hkv,
+                                    lq, lkv, d, mask, diag_off, window,
+                                    o_offs, kv_span, scale, km, s);
   using T = std::true_type;
   using F = std::false_type;
-  if (in_f32) {
-    // the f32 core's instances: D = 64, 128, 256
-    auto by_bound = [&](auto dc) {
-      return km ? go_f32(dc, T{}) : go_f32(dc, F{});
-    };
-    if (d <= 64) return by_bound(std::integral_constant<int, 64>{});
-    if (d <= 128) return by_bound(std::integral_constant<int, 128>{});
-    return by_bound(std::integral_constant<int, 256>{});
-  }
   auto by_tile = [&](auto dc) {
     using N1 = std::integral_constant<int, 1>;
     using N2 = std::integral_constant<int, 2>;

@@ -27,6 +27,12 @@
 //     16-byte loads, and reduced by shuffles within the row's lanes; each
 //     weight reaches the lanes by __shfl_sync (lse_merge.cuh);
 //   - O is written as one 8-byte store of 4 bf16, or one float4, per lane;
+//   - a d that is not a multiple of 16 runs on the instance of its row's
+//     lanes (D 16, 32, 64, 128 or 256: the lanes and chunks of a row
+//     depend only on which of these d reaches) with d read at run time,
+//     the loads and stores past d masked: 16-byte loads where the rows
+//     are (d % 4 == 0), else a float at a time (ANY).  The multiples of
+//     16 keep their instances of constant d;
 //   - a block is 4 warps (40 registers a thread, 12 blocks an SM): at the
 //     v1 split case 2048 blocks of 4 rows fill the 132 SMs, 1584 at once.
 //     Held to 32 registers (16 blocks an SM, one wave) it spilled and read
@@ -44,12 +50,14 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int MERGE_UNROLL = 4;         // 16-byte loads in flight a lane
 
-template <int D>
+// RUNTIME: d (at most D) is d_arg, not D; ANY: d % 4 != 0
+template <int D, bool RUNTIME, bool ANY>
 __global__ void __launch_bounds__(THREADS)
-splitkv_combine_kernel(const float* __restrict__ o_part,  // [BH, nkb, Lq, D]
+splitkv_combine_kernel(const float* __restrict__ o_part,  // [BH, nkb, Lq, d]
                        const float* __restrict__ lse,     // [BH, nkb, Lq]
-                       void* __restrict__ o,              // [BH, Lq, D]
-                       int out_f32, int n_rows, int nkb, int lq) {
+                       void* __restrict__ o,              // [BH, Lq, d]
+                       int out_f32, int n_rows, int nkb, int lq, int d_arg) {
+  const int d = RUNTIME ? d_arg : D;
   constexpr int L = eft::MergeRow<D>::L;    // lanes per row
   constexpr int NV = eft::MergeRow<D>::NV;  // 16-byte chunks per lane
   constexpr int RPW = 32 / L;          // rows per warp
@@ -62,14 +70,21 @@ splitkv_combine_kernel(const float* __restrict__ o_part,  // [BH, nkb, Lq, D]
   const int bh = r / lq, qi = r % lq;
   // partial k of this row sits at (bh * nkb + k) * lq + qi
   float4 acc[NV];
-  eft::lse_merge_row<L, NV, MERGE_UNROLL, false>(
-      acc, o_part, lse, size_t(bh) * nkb * lq + qi, size_t(lq), nkb, D);
+  eft::lse_merge_row<L, NV, MERGE_UNROLL, false, ANY>(
+      acc, o_part, lse, size_t(bh) * nkb * lq + qi, size_t(lq), nkb, d);
   if (row >= n_rows) return;
 #pragma unroll
   for (int c = 0; c < NV; ++c) {
-    if (!eft::merge_chunk<L>(c, D)) continue;
-    const size_t out = size_t(row) * D + 4 * (lane % L + L * c);
-    if (out_f32) {
+    if (!eft::merge_chunk<L>(c, d)) continue;
+    const int col = 4 * (lane % L + L * c);
+    const size_t out = size_t(row) * d + col;
+    if constexpr (ANY) {
+      if (out_f32)
+        eft::store4_any(static_cast<float*>(o) + out, acc[c], d - col);
+      else
+        eft::store4_any(static_cast<__nv_bfloat16*>(o) + out, acc[c],
+                        d - col);
+    } else if (out_f32) {
       *reinterpret_cast<float4*>(static_cast<float*>(o) + out) = acc[c];
     } else {
       eft::store_bf16x4(static_cast<__nv_bfloat16*>(o) + out, acc[c]);
@@ -77,23 +92,35 @@ splitkv_combine_kernel(const float* __restrict__ o_part,  // [BH, nkb, Lq, D]
   }
 }
 
-template <int D>
+template <int D, bool RUNTIME, bool ANY>
 int launch(const void* o_part, const void* lse, void* o, int out_f32,
-           int n_rows, int nkb, int lq, cudaStream_t stream) {
+           int n_rows, int nkb, int lq, int d, cudaStream_t stream) {
   constexpr int ROWS = WARPS * (32 / eft::MergeRow<D>::L);
   const dim3 grid((n_rows + ROWS - 1) / ROWS);
-  splitkv_combine_kernel<D><<<grid, THREADS, 0, stream>>>(
+  splitkv_combine_kernel<D, RUNTIME, ANY><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(lse), o,
-      out_f32, n_rows, nkb, lq);
+      out_f32, n_rows, nkb, lq, d);
   return int(cudaGetLastError());
 }
 
-// the instance of head dim d, the multiples of 16 from D up to 256
+// the instance of head dim d: the multiples of 16 from D up to 256 have
+// their own; any other d runs on the instance of its lanes (16, 32, 64,
+// 128 or 256) with d read at run time
 template <int D>
 int launch_d(int d, const void* o_part, const void* lse, void* o,
              int out_f32, int n_rows, int nkb, int lq, cudaStream_t stream) {
-  if (d == D) return launch<D>(o_part, lse, o, out_f32, n_rows, nkb, lq,
-                               stream);
+  if (d == D)
+    return launch<D, false, false>(o_part, lse, o, out_f32, n_rows, nkb, lq,
+                                   d, stream);
+  if constexpr ((D & (D - 1)) == 0) {
+    if (d < D && d % 16 != 0) {
+      if (d % 4 == 0)
+        return launch<D, true, false>(o_part, lse, o, out_f32, n_rows, nkb,
+                                      lq, d, stream);
+      return launch<D, true, true>(o_part, lse, o, out_f32, n_rows, nkb, lq,
+                                   d, stream);
+    }
+  }
   if constexpr (D < 256)
     return launch_d<D + 16>(d, o_part, lse, o, out_f32, n_rows, nkb, lq,
                             stream);
@@ -104,8 +131,8 @@ int launch_d(int d, const void* o_part, const void* lse, void* o,
 
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // ops/attention_v2_splitkv.py has already checked shapes, dtypes,
-// contiguity and 16-byte alignment.  n_bh = batch * heads; d a multiple
-// of 16 from 16 to 256.
+// contiguity and 16-byte alignment.  n_bh = batch * heads; d from 1 to
+// 256.
 extern "C" int eft_splitkv_combine(const void* o_part, const void* lse,
                                    void* o, int n_bh, int nkb, int lq, int d,
                                    int out_f32, int device, void* stream) {

@@ -157,9 +157,13 @@ __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+// (each barrier helper also takes the barrier's shared-window address)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
+               :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  mbar_arrive(smem_u32(bar));
 }
 
 // arrive, and expect `bytes` more of TMA traffic before the phase completes
@@ -170,15 +174,18 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
 }
 
 // wait until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
 }
 
 // rows [c1, c1 + box_rows), columns [c0, c0 + box_cols) of head c2 into
@@ -253,6 +260,99 @@ __device__ __forceinline__ int tid_x_again() {
 // a named barrier over `threads` threads (id 0 is __syncthreads)
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------- rows of any alignment
+// Where a row of a tensor is not a multiple of 16 bytes (bf16 d % 8 != 0,
+// f32 d % 4 != 0, int8 codes d % 16 != 0) a TMA descriptor cannot name its
+// stride, and a 16-byte load of a piece of it is misaligned.  Such rows
+// are read by these, at the widest width the row's start allows.
+
+// the alignment in bytes (1 to 16) of every row start of rows of `bytes`
+// bytes after a 16-byte aligned base
+__device__ __forceinline__ int row_align(int bytes) {
+  return min(bytes & -bytes, 16);
+}
+
+// cp.async (the per-thread asynchronous copy): BYTES (4, 8 or 16) from
+// global src into shared dst, both BYTES-aligned; of them the first
+// src_bytes are read and the rest zero-filled (0: zeros, src not read).
+// cp_async_commit closes a group of them, cp_async_wait<N> waits until at
+// most N groups of this thread are in flight; the copies are then this
+// thread's generic-proxy writes (fence_proxy_async before wgmma reads).
+// (dst: a shared-window address; src need not be valid where src_bytes
+// is 0)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src,
+                                               int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(dst), "l"(src), "n"(BYTES), "r"(src_bytes)
+               : "memory");
+}
+
+// 16 bytes to shared memory at the shared-window address dst
+__device__ __forceinline__ void st_shared_v4(uint32_t dst, uint4 x) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(dst), "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 16 bytes at p (global or shared), read in pieces of `al` bytes (1, 2,
+// 4, 8 or 16; p is al-aligned), the bytes from n on zero (n >= 16: none)
+__device__ __forceinline__ uint4 load16_al(const void* p, int al, int n) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  const unsigned char* b = static_cast<const unsigned char*>(p);
+  if (al >= 16 && n >= 16) {
+    const uint4 x = *reinterpret_cast<const uint4*>(b);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+  } else if (al >= 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * i < n) w[i] = *reinterpret_cast<const uint32_t*>(b + 4 * i);
+  } else if (al == 2) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (2 * i < n)
+        w[i / 2] |= uint32_t(*reinterpret_cast<const uint16_t*>(b + 2 * i))
+                    << (16 * (i % 2));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i < n) w[i / 4] |= uint32_t(b[i]) << (8 * (i % 4));
+  }
+  // a piece read whole past n (a 4-byte word, n not a multiple of 4)
+  // keeps only its first n bytes
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int keep = n - 4 * i;
+    if (keep < 4) w[i] = keep <= 0 ? 0u : w[i] & ((1u << (8 * keep)) - 1u);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 8 f32 of a row at p (n of them before the row's end: 8 or more, all),
+// 16-byte loads where the row's stride allows (vec4: d % 4 == 0), else one
+// f32 at a time; zeros from n on
+__device__ __forceinline__ void load8_f32(const float* p, int n, bool vec4,
+                                          float4& x0, float4& x1) {
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (vec4) {
+    x0 = n >= 4 ? *reinterpret_cast<const float4*>(p) : z;
+    x1 = n >= 8 ? *reinterpret_cast<const float4*>(p + 4) : z;
+    return;
+  }
+  float x[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = i < n ? p[i] : 0.f;
+  x0 = make_float4(x[0], x[1], x[2], x[3]);
+  x1 = make_float4(x[4], x[5], x[6], x[7]);
 }
 
 // ------------------------------------------------------------- clusters
@@ -881,12 +981,13 @@ __device__ __forceinline__ uint32_t pack_f16x2(float lo, float hi) {
 // thread owns (rows row0 and row0 + 8, each l summed over the quad), as
 // bf16 or f32, at o + (base + row) * ld + col for the rows below lq (ld
 // and col set where D is a slice of a wider row); a row with l = 0 (it
-// saw no key) stores O = 0.  Only the first ncols columns (a multiple of
-// 8) are stored: a head dim d below the instance's D runs on zero-filled
-// columns past d, whose O columns are dropped here.  With lse, its
+// saw no key) stores O = 0.  Only the first ncols columns are stored: a
+// head dim d below the instance's D runs on zero-filled columns past d,
+// whose O columns are dropped here.  ncols is a multiple of 8 unless ANY,
+// which stores one column at a time (any ld and ncols).  With lse, its
 // natural-log LSE too, m ln 2 + ln l (m in the exp2 basis), -inf where
 // l = 0.
-template <int D>
+template <int D, bool ANY = false>
 __device__ __forceinline__ void store_o_rows(const float (&acc_o)[D / 2],
                                              const float (&l)[2],
                                              const float (&m)[2], int row0,
@@ -905,19 +1006,34 @@ __device__ __forceinline__ void store_o_rows(const float (&acc_o)[D / 2],
     if (out_f32) {
       float* orow = static_cast<float*>(o) + row * ld + col;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        if (8 * j < ncols)
-          *reinterpret_cast<float2*>(orow + 8 * j + col0) =
-              make_float2(acc_o[4 * j + 2 * r] / denom,
-                          acc_o[4 * j + 2 * r + 1] / denom);
+      for (int j = 0; j < D / 8; ++j) {
+        if (8 * j >= ncols) continue;
+        const float x0 = acc_o[4 * j + 2 * r] / denom;
+        const float x1 = acc_o[4 * j + 2 * r + 1] / denom;
+        const int c = 8 * j + col0;
+        if constexpr (ANY) {
+          if (c < ncols) orow[c] = x0;
+          if (c + 1 < ncols) orow[c + 1] = x1;
+        } else {
+          *reinterpret_cast<float2*>(orow + c) = make_float2(x0, x1);
+        }
+      }
     } else {
       __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(o) + row * ld + col;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        if (8 * j < ncols)
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
-              __floats2bfloat162_rn(acc_o[4 * j + 2 * r] / denom,
-                                    acc_o[4 * j + 2 * r + 1] / denom);
+      for (int j = 0; j < D / 8; ++j) {
+        if (8 * j >= ncols) continue;
+        const float x0 = acc_o[4 * j + 2 * r] / denom;
+        const float x1 = acc_o[4 * j + 2 * r + 1] / denom;
+        const int c = 8 * j + col0;
+        if constexpr (ANY) {
+          if (c < ncols) orow[c] = __float2bfloat16(x0);
+          if (c + 1 < ncols) orow[c + 1] = __float2bfloat16(x1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(x0, x1);
+        }
+      }
     }
     if (lse != nullptr && col0 == 0)
       lse[row] = l_row == 0.f ? -CUDART_INF_F

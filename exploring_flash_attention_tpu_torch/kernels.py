@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -108,7 +109,8 @@ def build_dir() -> Path:
 def build() -> Path:
     """Compile the kernels unless this source hash is already built; return
     the library's path.  ``ptxas.log`` beside it holds nvcc's ``-Xptxas -v``
-    report (registers, shared memory and spills per kernel)."""
+    report (registers, shared memory and spills per kernel), and
+    ``nvcc_seconds.txt`` each source's compile time (:func:`nvcc_seconds`)."""
     out = build_dir()
     lib = out / LIB_NAME
     if lib.exists():
@@ -116,6 +118,7 @@ def build() -> Path:
     out.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()               # concurrent builds write apart
     jobs = []
+    t0 = time.perf_counter()
     for src in _sources():
         obj = out / f"{src.stem}.{tag}.o"
         log = out / f"{src.stem}.{tag}.log"
@@ -124,7 +127,13 @@ def build() -> Path:
                 [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                 stdout=subprocess.DEVNULL, stderr=err)
         jobs.append((proc, obj, log))
-    codes = [proc.wait() for proc, _, _ in jobs]     # every job ends first
+    ends = {}                       # every job ends first
+    while len(ends) < len(jobs):
+        for i, (proc, _, _) in enumerate(jobs):
+            if i not in ends and proc.poll() is not None:
+                ends[i] = time.perf_counter() - t0
+        time.sleep(0.05)
+    codes = [proc.returncode for proc, _, _ in jobs]
     reports = [log.read_text() for _, _, log in jobs]
     for code, report in zip(codes, reports):
         if code != 0:
@@ -137,8 +146,18 @@ def build() -> Path:
         raise RuntimeError(
             f"nvcc link failed with code {res.returncode}:\n{res.stderr}")
     (out / "ptxas.log").write_text("".join(reports))
+    (out / "nvcc_seconds.txt").write_text("".join(
+        f"{src.name} {ends[i]:.1f}\n" for i, src in enumerate(_sources())))
     os.replace(tmp, lib)            # atomic: concurrent builders agree
     return lib
+
+
+def nvcc_seconds() -> dict:
+    """Each source's compile time in seconds (wall clock, the sources
+    compiled at once) in the build of the current sources."""
+    text = (build().parent / "nvcc_seconds.txt").read_text()
+    return {name: float(x) for name, x in
+            (line.split() for line in text.splitlines())}
 
 
 def ptxas_report() -> str:

@@ -203,9 +203,15 @@ def diagonal(diag_off: DiagOff):
     return diag_off
 
 
-# The head dims of the serving kernels H1, H2, H6-decode and H6-extend: a
-# multiple of 16 keeps every TMA row stride (2d bytes bf16, d bytes int8)
-# a multiple of 16 bytes and H6-decode's 16-byte code loads whole
+# The head dims of the serving kernels H1, H2, H6-decode and H6-extend:
+# every d up to their largest instance.  A d below its instance's D runs on
+# zero-filled columns; where a row of q, k, v or the codes is not a
+# multiple of 16 bytes (bf16 d % 8, f32 d % 4, codes d % 16) the kernels
+# load it at the alignment it has instead of by TMA boxes or 16-byte loads
+SERVING_HEAD_DIM_RULE = "d from 1 to 256"
+# The head dims of H3-dkv, H3-dq, H4-kvq and H4-int8: a multiple of 16
+# keeps every TMA row stride (2d bytes bf16, d bytes int8) a multiple of
+# 16 bytes
 HEAD_DIM_RULE = "d a multiple of 16 from 16 to 256"
 # The head dims of H5 (ops.attention_v1_dtiled.h5_plan), d cut into
 # 128-column chunks across the blocks of a cluster, for the same reason a
@@ -214,10 +220,17 @@ H5_HEAD_DIM_RULE = "d a multiple of 16 from 16 to 2048"
 
 
 def kernel_head_dim(d: int) -> bool:
-    """Whether H1, H2, H3-dkv, H3-dq, H6-decode and H6-extend take head dim
-    ``d`` (:data:`HEAD_DIM_RULE`).  H1, H3 and the paged pair run a d below
-    their next instance's (a power of two up to 256) on zero-filled
-    columns; H2 has one instance per d."""
+    """Whether the serving kernels H1, H2, H6-decode and H6-extend take
+    head dim ``d`` (:data:`SERVING_HEAD_DIM_RULE`).  H1 and the paged pair
+    run a d below their next instance's (32, 64, 128 or 256) on
+    zero-filled columns; H2 has one instance per multiple of 16 and runs
+    any other d on the instance of its lanes with d read at run time."""
+    return 1 <= d <= 256
+
+
+def sixteen_head_dim(d: int) -> bool:
+    """Whether H3-dkv, H3-dq, H4-kvq and H4-int8 take head dim ``d``
+    (:data:`HEAD_DIM_RULE`)."""
     return 16 <= d <= 256 and d % 16 == 0
 
 
@@ -228,7 +241,7 @@ def h4_instance(d: int) -> int:
     """The instance of H4-kvq and H4-int8 that head dim ``d`` runs on: the
     smallest of :data:`H4_INSTANCES` at or above it (a d below it runs on
     zero-filled columns).  ``ValueError`` outside :data:`HEAD_DIM_RULE`."""
-    if not kernel_head_dim(d):
+    if not sixteen_head_dim(d):
         raise ValueError(f"H4-kvq and H4-int8 take {HEAD_DIM_RULE}; got "
                          f"d={d}")
     return next(x for x in H4_INSTANCES if x >= d)
@@ -298,8 +311,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take :func:`attention_plain`.  CUDA tensors launch kernel
     H1 (``csrc/prefill_attention.cu``), once per call, or raise: it takes
     contiguous q/k/v of one dtype, bf16 or f32 (bf16x6 on wgmma, at f32
-    accuracy: :data:`KERNEL_DTYPES`), with :data:`HEAD_DIM_RULE` and
-    writes bf16 or f32 O.  ``prefill_attention.launches`` counts kernel
+    accuracy: :data:`KERNEL_DTYPES`), with :data:`SERVING_HEAD_DIM_RULE`
+    and writes bf16 or f32 O.  ``prefill_attention.launches`` counts kernel
     launches; the bound form's statistic adds :func:`bound_kmax`'s torch
     ops before it."""
     b, hq, lq, d = q.shape
@@ -337,7 +350,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or hq % hkv or not kernel_head_dim(d) or lq == 0 or lkv == 0):
         raise ValueError(
             f"H1 takes q [B,Hq,Lq,d], k/v [B,Hkv,Lkv,d] with Hq % Hkv == 0 "
-            f"and {HEAD_DIM_RULE}; got {tuple(q.shape)}, "
+            f"and {SERVING_HEAD_DIM_RULE}; got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"H1 writes bf16 or f32 O, not {out_dtype}")

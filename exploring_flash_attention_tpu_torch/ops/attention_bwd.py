@@ -33,9 +33,9 @@ from exploring_flash_attention_tpu_torch.ops.attention import (
     _check_cuda_inputs,
     checked_window,
     hidden_keys,
-    kernel_head_dim,
     mask_args,
     mask_diagonal,
+    sixteen_head_dim,
 )
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -89,7 +89,7 @@ def _check_bwd_inputs(name: str, q, k, v, do, lse, delta) -> None:
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     if (k.shape != (b, hkv, lkv, d) or v.shape != k.shape
-            or do.shape != q.shape or hq % hkv or not kernel_head_dim(d)
+            or do.shape != q.shape or hq % hkv or not sixteen_head_dim(d)
             or lq == 0 or lkv == 0):
         raise ValueError(
             f"{name} takes q/do [B,Hq,Lq,d], k/v [B,Hkv,Lkv,d] with Hq % Hkv "

@@ -24,7 +24,7 @@ from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
     HEAD_DIM_RULE,
     LOG2E,
-    kernel_head_dim,
+    sixteen_head_dim,
 )
 from exploring_flash_attention_tpu_torch.ops.quant import (
     QuantizedTensor,
@@ -122,7 +122,7 @@ def flash_attention_int8(
                                     ).to(out_dtype)
     check_cuda_quantized("H4-int8 attention", dev, (torch.int8,),
                          q_q, k_q, v_q)
-    if not kernel_head_dim(d) or block % 16 or lq == 0 or lkv == 0:
+    if not sixteen_head_dim(d) or block % 16 or lq == 0 or lkv == 0:
         raise ValueError(f"H4-int8 takes {HEAD_DIM_RULE}, a kv block that "
                          f"is a multiple of 16 and nonempty sequences; got q "
                          f"{tuple(q_q.shape)}, Lkv {lkv}, block {block}")

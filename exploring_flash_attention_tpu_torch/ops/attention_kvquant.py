@@ -30,7 +30,7 @@ from exploring_flash_attention_tpu_torch.ops.attention import (
     LOG2E,
     _check_cuda_inputs,
     attention_plain,
-    kernel_head_dim,
+    sixteen_head_dim,
 )
 from exploring_flash_attention_tpu_torch.ops.quant import (
     FP8_DTYPE,
@@ -48,7 +48,7 @@ def kvquant_kernel(d: int) -> str:
     (its quantized form) past 256 within
     :data:`~.attention.H5_HEAD_DIM_RULE`.  ``ValueError`` for any other d,
     naming both rules."""
-    if kernel_head_dim(d):
+    if sixteen_head_dim(d):
         return "H4-kvq"
     if 256 < d <= 2048 and d % 16 == 0:
         return "H5"

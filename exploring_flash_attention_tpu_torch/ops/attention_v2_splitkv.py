@@ -20,7 +20,7 @@ from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import SplitKVConfig, cdiv
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H1_KV_TILE,
-    HEAD_DIM_RULE,
+    SERVING_HEAD_DIM_RULE,
     h1_q_rows,
     kernel_head_dim,
     mask_diagonal,
@@ -57,8 +57,8 @@ def splitkv_combine(
     CPU tensors take :func:`splitkv_combine_plain`.  CUDA tensors launch
     kernel H2 (``csrc/splitkv_combine.cu``), once per call, or raise: it
     takes contiguous f32 partials (O 16-byte aligned) with
-    ``ops.attention.HEAD_DIM_RULE`` and writes bf16 or f32.  ``splitkv_combine.launches`` counts kernel
-    launches."""
+    ``ops.attention.SERVING_HEAD_DIM_RULE`` and writes bf16 or f32.
+    ``splitkv_combine.launches`` counts kernel launches."""
     out_dtype = out_dtype or o_partials.dtype
     b, h, nkb, lq, d = o_partials.shape
     if lses.shape != (b, h, nkb, lq):
@@ -76,8 +76,8 @@ def splitkv_combine(
     if o_partials.data_ptr() % 16:
         raise ValueError("H2 combine: the partials must be 16-byte aligned")
     if not kernel_head_dim(d) or b * h * lq >= 2 ** 31:
-        raise ValueError(f"H2 takes {HEAD_DIM_RULE} and fewer than 2^31 "
-                         f"rows; got {tuple(o_partials.shape)}")
+        raise ValueError(f"H2 takes {SERVING_HEAD_DIM_RULE} and fewer than "
+                         f"2^31 rows; got {tuple(o_partials.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"H2 writes bf16 or f32 O, not {out_dtype}")
     o = torch.empty((b, h, lq, d), dtype=out_dtype, device=o_partials.device)
@@ -119,8 +119,8 @@ def flash_attention_splitkv_partial(
 
     CPU tensors take H1's plain version over each span.  CUDA tensors
     launch H1 once over every span (``prefill_attention``), or raise: H1
-    takes bf16 or f32 q/k/v with ``ops.attention.HEAD_DIM_RULE``, writes
-    bf16 or f32 partials
+    takes bf16 or f32 q/k/v with ``ops.attention.SERVING_HEAD_DIM_RULE``,
+    writes bf16 or f32 partials
     and takes spans of whole 128-key tiles.  H1 reads ``block_q`` (its Q
     tile) and ``kv_tiles_per_block`` (the span) of ``config``.  A single span covering the
     whole KV is handed to H1 rounded up to whole tiles (the same result)."""

@@ -38,7 +38,7 @@ import torch
 from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import cdiv
 from exploring_flash_attention_tpu_torch.ops.attention import (
-    HEAD_DIM_RULE,
+    SERVING_HEAD_DIM_RULE,
     kernel_dtype,
     kernel_head_dim,
 )
@@ -195,8 +195,8 @@ def _check_paged_inputs(name: str, q: torch.Tensor, cache: PagedKVCache,
                         seq_slots: torch.Tensor,
                         window: Optional[int]) -> None:
     """What both paged kernels take: bf16 or f32 q
-    (``ops.attention.kernel_dtype``) with ``HEAD_DIM_RULE`` (the cache's
-    d), any GQA group, a page size that is a multiple of 128 below 2^15
+    (``ops.attention.kernel_dtype``) with ``SERVING_HEAD_DIM_RULE`` (the
+    cache's d), any GQA group, a page size that is a multiple of 128 below 2^15
     (``kv_cache.check_page_size``), the cache's dtypes, one CUDA device,
     contiguous 16-byte aligned tensors.  Raises otherwise."""
     tensors = (q, cache.kv_pages, cache.kv_scales, cache.page_table,
@@ -217,9 +217,10 @@ def _check_paged_inputs(name: str, q: torch.Tensor, cache: PagedKVCache,
     d, hq, hkv = q.shape[-1], q.shape[-2], cache.num_kv_heads
     if (not kernel_head_dim(d) or cache.head_dim != d or hq % hkv
             or seq_slots.shape != (q.shape[0],)):
-        raise ValueError(f"{name} takes {HEAD_DIM_RULE}, the cache's d, and "
-                         f"Hq % Hkv == 0; got q {tuple(q.shape)}, cache "
-                         f"d={cache.head_dim}, Hkv={hkv}, slots "
+        raise ValueError(f"{name} takes {SERVING_HEAD_DIM_RULE}, the "
+                         f"cache's d, and Hq % Hkv == 0; got q "
+                         f"{tuple(q.shape)}, cache d={cache.head_dim}, "
+                         f"Hkv={hkv}, slots "
                          f"{tuple(seq_slots.shape)}")
     try:
         check_page_size(cache.page_size)
@@ -355,7 +356,7 @@ def paged_decode_attention(
     kernel H6-decode once, with its merge (counted in
     ``paged_decode_partials.launches``), or raise: it takes bf16 or f32 q
     (f32 O, f32 arithmetic throughout) with
-    ``ops.attention.HEAD_DIM_RULE``, any GQA group and page sizes that
+    ``ops.attention.SERVING_HEAD_DIM_RULE``, any GQA group and page sizes that
     are a multiple of 128 below 2^15.
     The f32 partials' workspace and O are allocated per call; the tickets
     (:func:`ticket_buffer`) are kept per device, zero between launches, and
@@ -389,7 +390,7 @@ def paged_extend_attention(
     CPU tensors take :func:`paged_extend_plain`.  CUDA tensors launch kernel
     H6-extend (``csrc/paged_extend.cu``), which takes bf16 q or f32 q
     (bf16x3 on wgmma against the exact codes, f32 O) with
-    ``ops.attention.HEAD_DIM_RULE``, any GQA group and page sizes that
+    ``ops.attention.SERVING_HEAD_DIM_RULE``, any GQA group and page sizes that
     are a multiple of 128 below 2^15, or raise.  ``paged_extend_attention.launches`` counts kernel
     launches."""
     b, c, hq, d = q.shape

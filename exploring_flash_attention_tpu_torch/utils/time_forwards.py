@@ -2,7 +2,7 @@
 split-KV merges, on the card, for A/B runs.
 
     python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT]
-        [--bwd | --merge | --serve | --f32 | --clusters]
+        [--bwd | --merge | --serve | --f32 | --clusters | --heads]
 
 ROOT (default: this checkout) is the root of a checkout of the port, for
 example a ``git archive`` of another commit unpacked under ``build/``; its
@@ -28,7 +28,9 @@ B=1 over 8100 tokens (64 runs); with ``--serve``, of the serving kernels at
 the flagship's shapes (``time_serve``); with ``--f32``, of the f32 core's
 kernels and H5 at f32, and their accuracy over long key counts
 (``time_f32``); with ``--clusters``, of H5's cluster launches beside its
-single-block launches on the same work a block (``time_clusters``).
+single-block launches on the same work a block (``time_clusters``); with
+``--heads``, of H1, H6-decode and H6-extend at d 80 and 128
+(``time_heads``).
 Alternate two roots in one call (parent, change, change, parent) to
 compare them on one card.
 """
@@ -84,11 +86,11 @@ def time_bwd(root: Path) -> str:
     return f"{root.name or root}: " + " | ".join(out)
 
 
-def _paged_case(b, hq, hkv, lens, max_len, seed=1, ps=128, chunk=0):
+def _paged_case(b, hq, hkv, lens, max_len, seed=1, ps=128, chunk=0, d=128):
     """A cache of ``max_len`` tokens a slot with a permuted page table
-    (page size ``ps``, d=128), sequences of ``lens`` tokens of random K/V,
-    and one bf16 q [B, Hq, d]; with ``chunk`` = C, C more tokens a
-    sequence appended after them and q [B, C, Hq, d]."""
+    (page size ``ps``, head dim ``d``), sequences of ``lens`` tokens of
+    random K/V, and one bf16 q [B, Hq, d]; with ``chunk`` = C, C more
+    tokens a sequence appended after them and q [B, C, Hq, d]."""
     import numpy as np
     import torch
 
@@ -100,20 +102,20 @@ def _paged_case(b, hq, hkv, lens, max_len, seed=1, ps=128, chunk=0):
 
     gen = torch.Generator().manual_seed(seed)
     pages = -(-max_len // ps)
-    cache = make_cache(hkv, 128, b * pages, page_size=ps, max_seqs=b,
+    cache = make_cache(hkv, d, b * pages, page_size=ps, max_seqs=b,
                        max_pages_per_seq=pages, device="cuda")
     cache.page_table.copy_(torch.randperm(b * pages, generator=gen)
                            .view(b, pages).to(torch.int32))
     slots = torch.arange(b, dtype=torch.int32, device="cuda")
     for s, n in enumerate(np.linspace(*lens, b).round().astype(int)):
-        k, v = (torch.randn(1, int(n), hkv, 128, generator=gen).to("cuda")
+        k, v = (torch.randn(1, int(n), hkv, d, generator=gen).to("cuda")
                 for _ in range(2))
         append_prompts(cache, slots[s:s + 1], k, v)
     if chunk:
-        k, v = (torch.randn(b, chunk, hkv, 128, generator=gen).to("cuda")
+        k, v = (torch.randn(b, chunk, hkv, d, generator=gen).to("cuda")
                 for _ in range(2))
         append_chunks(cache, slots, k, v)
-    shape = (b, chunk, hq, 128) if chunk else (b, hq, 128)
+    shape = (b, chunk, hq, d) if chunk else (b, hq, d)
     q = torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
     return q, cache, slots
 
@@ -205,6 +207,55 @@ def time_serve(root: Path) -> str:
     ms = time_cuda(lambda: paged_extend_attention(q, cache, slots),
                    n_iter=50)
     out.append(f"extend multi-turn {ms:.4f} ms")
+    return f"{root.name or root}: " + " | ".join(out)
+
+
+# the serving kernels at head dims both sides of an A/B take (d 80, the
+# D=128 instance's zero-filled columns, and the flagship's 128): H1 (label,
+# B, Hq, Hkv, L, d, causal), and the paged pair (label, B, Hq, Hkv, d, page
+# size), contexts 257..1100, a 64-token chunk after them for H6-extend
+HEADS_H1 = (("H1 d=80", 32, 16, 16, 1024, 80, False),
+            ("H1 d=80 causal", 32, 16, 16, 1024, 80, True),
+            ("H1 d=128", 32, 16, 16, 1024, 128, False),
+            ("H1 d=128 causal", 32, 16, 16, 1024, 128, True))
+HEADS_PAGED = (("d=80 G=16", 8, 16, 1, 80, 128),
+               ("d=128 G=2", 8, 8, 4, 128, 128))
+
+
+def time_heads(root: Path) -> str:
+    """The serving kernels at d 80 and 128 (HEADS_H1, HEADS_PAGED), L2
+    flushed, with this file's timing harness: H1 alone
+    (``prefill_attention``, bf16 O, no LSE), ``paged_decode_attention``
+    and ``paged_extend_attention``."""
+    import torch
+
+    from exploring_flash_attention_tpu_torch.oracle import make_qkv
+    from exploring_flash_attention_tpu_torch.ops import prefill_attention
+    from exploring_flash_attention_tpu_torch.serving import (
+        paged_decode_attention,
+        paged_extend_attention,
+    )
+
+    time_cuda = _harness_time_cuda()
+    out = []
+    for name, b, hq, hkv, l, d, causal in HEADS_H1:
+        q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+                   for x in make_qkv(b, hq, l, d, seed=1, heads_kv=hkv))
+        ms = time_cuda(lambda: prefill_attention(
+            q, k, v, d ** -0.5, 0, causal, with_lse=False), n_iter=30)
+        out.append(f"{name} {ms:.4f} ms")
+        del q, k, v
+    for name, b, hq, hkv, d, ps in HEADS_PAGED:
+        q, cache, slots = _paged_case(b, hq, hkv, (257, 1100), 1200, ps=ps,
+                                      d=d)
+        ms = time_cuda(lambda: paged_decode_attention(q, cache, slots),
+                       n_iter=100)
+        out.append(f"decode {name} {ms:.4f} ms")
+        q, cache, slots = _paged_case(b, hq, hkv, (257, 1100), 1200, ps=ps,
+                                      chunk=64, d=d)
+        ms = time_cuda(lambda: paged_extend_attention(q, cache, slots),
+                       n_iter=50)
+        out.append(f"extend {name} {ms:.4f} ms")
     return f"{root.name or root}: " + " | ".join(out)
 
 
@@ -378,6 +429,8 @@ def main(root: Path, mode: str = "") -> str:
         return time_f32(root)
     if mode == "--clusters":
         return time_clusters(root)
+    if mode == "--heads":
+        return time_heads(root)
     import torch
 
     from exploring_flash_attention_tpu_torch.oracle import make_qkv

@@ -68,6 +68,7 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
 
 import dataclasses
 import math
+import re
 
 import numpy as np
 import pytest
@@ -96,6 +97,7 @@ from exploring_flash_attention_tpu_torch.oracle import naive_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H5_HEAD_DIM_RULE,
     HEAD_DIM_RULE,
+    SERVING_HEAD_DIM_RULE,
     attention_partial_local,
     attention_plain,
     flash_attention,
@@ -227,8 +229,14 @@ def test_prefill_kernel_counts_launches_and_refuses_f16(cuda_device):
 # head dims of the rule (ops.attention.kernel_head_dim) on every instance of
 # H1 (32, 64, 128, 256): the instances' own, and d below them on
 # zero-filled columns (16, 48, 80, 96, 144; 144 leaves a whole 64-column
-# box of the D=256 instance past d)
-HEAD_DIMS = [16, 32, 48, 64, 80, 96, 128, 144, 256]
+# box of the D=256 instance past d); then d whose rows are no multiple of
+# 16 bytes: by TMA at 8, 40, 72 and 104 (rows a multiple of 8 columns),
+# by the staged producer at 1 (scale 1, 31 zero columns on D=32), 33 and
+# 255 (rows 2-byte aligned), 36 and 100 (8-byte), 250 (4-byte)
+HEAD_DIMS = [16, 32, 48, 64, 80, 96, 128, 144, 256,
+             1, 8, 33, 36, 40, 72, 100, 104, 250, 255]
+# the same beyond the multiples of 16, for the forms each d runs through
+ODD_DIMS = [1, 33, 36, 72, 250]
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
@@ -262,7 +270,7 @@ def _bound_plain(q, k, v, scale, causal, diag_off, window=None):
     return attention_plain(q, k, v, scale, causal, diag_off, window, shift)
 
 
-@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256] + ODD_DIMS)
 @pytest.mark.parametrize("mode", ["none", "causal", "window"])
 @pytest.mark.parametrize("block_q", [64, 128])
 def test_h1_bound_matches_plain_and_oracle(cuda_device, mode, d, block_q):
@@ -392,9 +400,9 @@ def test_partial_returns_f32_o_written_by_h1(cuda_device):
 
 
 def test_h1_refuses_what_it_cannot_take(cuda_device):
-    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 72)
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 272)
     before = prefill_attention.launches
-    with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
+    with pytest.raises(ValueError, match=re.escape(SERVING_HEAD_DIM_RULE)):
         flash_attention_v1(q, k, v)
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 64)
     with pytest.raises(TypeError, match="bf16"):
@@ -416,6 +424,10 @@ def test_h1_refuses_what_it_cannot_take(cuda_device):
     (False, 200, 1000, 256, 256),
     (True, 1000, 1000, 384, 80),
     (False, 200, 1000, 256, 16),
+    # rows by TMA at d=72, by the staged producer at 33 and 250
+    (True, 1000, 1000, 384, 72),
+    (False, 200, 1000, 256, 33),
+    (True, 1000, 1000, 256, 250),
 ])
 def test_h1_span_partials_match_plain(cuda_device, causal, lq, lkv, span,
                                       d):
@@ -516,11 +528,14 @@ def test_h2_combine_matches_plain_and_counts(cuda_device):
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nkb", [1, 2, 3, 33])
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 144, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 144, 256, 1, 8, 33,
+                               36, 40, 72, 100, 250])
 def test_h2_row_layouts_match_plain(cuda_device, d, nkb, out_dtype):
     """H2 at each row layout (a row is d / 4 lanes: 4, 2 or 1 rows a warp;
     at d 16, 48 and 80 the next power of two of lanes, some idle; at d
-    144 and 256 two 16-byte chunks a lane) and partial count (one; a few;
+    144 and 256 two 16-byte chunks a lane; a d off the multiples of 16 on
+    its lanes' instance with d read at run time, 16-byte loads at d % 4 ==
+    0, else a float at a time) and partial count (one; a few;
     33, more than a row's lanes at every d),
     f32 and bf16 O, over 2 x 3 x 37 = 222 rows, no multiple of a block's
     16, 8 or 4 rows, against its plain version: a span that saw nothing
@@ -723,16 +738,32 @@ def test_decode_kernel_refuses_what_it_cannot_take(cuda_device):
         paged_decode_attention(q64, odd, s64)
 
 
-@pytest.mark.parametrize("d", [8, 72, 272])
+@pytest.mark.parametrize("d", [0, 72, 272])
 def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
-    """H1, H2, H6-decode and H6-extend raise ``ValueError`` naming the rule
-    for a head dim that is not a multiple of 16 from 16 to 256, on CUDA
-    tensors, and launch nothing."""
+    """H1, H2, H6-decode and H6-extend raise ``ValueError`` naming their
+    rule (``SERVING_HEAD_DIM_RULE``, d from 1 to 256) for d 0 and 272, on
+    CUDA tensors, and launch nothing; at d=72, which they take, H3-dkv,
+    H3-dq, H4-kvq and H4-int8 raise naming theirs (``HEAD_DIM_RULE``, a
+    multiple of 16) and launch nothing."""
     counted = (prefill_attention, splitkv_combine, paged_decode_partials,
-               paged_extend_attention)
+               paged_extend_attention, attention_bwd_dkv, attention_bwd_dq,
+               flash_attention_kvquant, flash_attention_int8)
     before = [fn.launches for fn in counted]
-    rule = "multiple of 16 from 16 to 256"
     q, k, v = _qkv(cuda_device, 1, 4, 2, 64, 64, d)
+    if d == 72:
+        lse = torch.zeros(1, 4, 64, device=cuda_device)
+        with pytest.raises(ValueError, match=re.escape(HEAD_DIM_RULE)):
+            flash_attention_bwd(q, k, v, q, q, lse, causal=True)
+        q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, d)     # H4: no GQA
+        kq, vq = quantize_int8(k, 64), quantize_int8(v, 64)
+        with pytest.raises(ValueError, match=re.escape(HEAD_DIM_RULE)):
+            flash_attention_kvquant(q, kq, vq)
+        with pytest.raises(ValueError, match=re.escape(HEAD_DIM_RULE)):
+            flash_attention_int8(quantize_int8(q, 64), kq, vq)
+        torch.cuda.synchronize()
+        assert [fn.launches for fn in counted] == before
+        return
+    rule = re.escape(SERVING_HEAD_DIM_RULE)
     with pytest.raises(ValueError, match=rule):
         prefill_attention(q, k, v, 0.125, 0)
     with pytest.raises(ValueError, match=rule):
@@ -740,10 +771,12 @@ def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
                         torch.zeros(1, 2, 2, 8, device=cuda_device))
     cache = make_cache(2, d, 4, max_seqs=1, device=cuda_device)
     slots = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    # the scale given: the default 1 / sqrt(d) has no value at d=0
     with pytest.raises(ValueError, match=rule):
-        paged_decode_attention(q[:, :, 0].contiguous(), cache, slots)
+        paged_decode_attention(q[:, :, 0].contiguous(), cache, slots, 1.0)
     with pytest.raises(ValueError, match=rule):
-        paged_extend_attention(q.transpose(1, 2).contiguous(), cache, slots)
+        paged_extend_attention(q.transpose(1, 2).contiguous(), cache, slots,
+                               1.0)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counted] == before
 
@@ -753,7 +786,11 @@ def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
 # blocks of at most 8 q heads, 4 at d=256) and every page size of 128, 512
 # and 1024 appear
 PAGED_HEADS = [(16, 1, 80, 512), (32, 1, 16, 1024), (4, 4, 256, 128),
-               (32, 2, 256, 512), (16, 1, 16, 128), (2, 2, 80, 1024)]
+               (32, 2, 256, 512), (16, 1, 16, 128), (2, 2, 80, 1024),
+               # d off the multiples of 16: code rows 8-byte aligned (72,
+               # 40), 4-byte (36), 2-byte (250), 1-byte (33)
+               (16, 16, 72, 128), (8, 1, 40, 256), (32, 2, 36, 512),
+               (16, 1, 33, 1024), (8, 4, 250, 128)]
 
 
 @pytest.mark.parametrize("window", [None, 100])
@@ -856,6 +893,12 @@ EXTEND_CASES = [
     (32, 1, 16, 1024, [1000, 5], 40),
     (4, 4, 256, 128, [257, 0, 130], 200),
     (32, 2, 256, 512, [600, 17], 9),
+    # d off the multiples of 16 (PAGED_HEADS): the codes by bulk copy
+    (16, 16, 72, 128, [0, 300, 257], 100),
+    (8, 1, 40, 256, [1000, 5], 40),
+    (32, 2, 36, 512, [600, 17], 9),
+    (16, 1, 33, 1024, [1100, 0], 64),
+    (8, 4, 250, 128, [130, 3], 77),
 ]
 
 
@@ -959,7 +1002,7 @@ def _rel(got, ref):
             / ref.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("d", [80, 256])
+@pytest.mark.parametrize("d", [80, 256, 72, 33])
 @pytest.mark.parametrize("pos,causal", [((256, 256), True), ((0, 300), True),
                                         ((300, 0), True), ((0, 0), False)])
 def test_h1_traced_offsets_at_new_head_dims(cuda_device, d, pos, causal):
@@ -1103,8 +1146,8 @@ def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask, d):
 def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
     """One launch of each kernel a call, f32 at d=144 (the f32 D=256
     instance, a cluster of two blocks) too; f16 refused with no launch, as
-    is d=72, outside ``ops.attention.HEAD_DIM_RULE`` (which H1 refuses
-    too, so its residuals are made by hand)."""
+    is d=72, outside ``ops.attention.HEAD_DIM_RULE`` (its residuals are
+    made by hand)."""
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 1, 2, 2, 64, 64,
                                              64, 0)
     before = (attention_bwd_dkv.launches, attention_bwd_dq.launches)
@@ -1587,11 +1630,13 @@ def test_generate_replays_a_graph_equal_to_the_eager_loop(cuda_device,
 
 
 @pytest.mark.parametrize("n_heads,n_kv_heads,d_head,page_size", [
-    (16, 1, 80, 128), (4, 1, 256, 512)])
+    (16, 1, 80, 128), (4, 1, 256, 512), (16, 16, 72, 128), (8, 2, 36, 256)])
 def test_generate_serves_new_head_geometries(cuda_device, n_heads,
                                              n_kv_heads, d_head, page_size):
     """A small LM at the rule's new head geometries (d_head 80 in a group
-    of 16; d_head 256 with one KV head on 512-token pages): ``generate``
+    of 16; d_head 256 with one KV head on 512-token pages; d_head 72, the
+    heads72 model's geometry, and 36, rows no multiple of 16 bytes):
+    ``generate``
     replays its decode graph bitwise the eager loop, with H1 and H6-decode
     counted per replay, and ``continue_generation`` runs H6-extend once a
     layer."""
@@ -1803,6 +1848,11 @@ def _f64_plain(q, k, v, scale, causal, diag_off, window=None):
     (1, 16, 1, 200, 330, 256, F32_TOL),
     (2, 4, 2, 17, 17, 64, F32_TOL),              # below one tile
     (1, 4, 4, 80, 48, 32, F32_TOL),              # rows that see no key
+    # rows of 16-byte loads at d=72 and 36, a float at a time at 33, 250
+    (1, 16, 1, 200, 330, 72, F32_TOL),
+    (1, 16, 1, 200, 330, 33, F32_TOL),
+    (2, 4, 2, 100, 150, 36, F32_TOL),
+    (1, 8, 4, 200, 330, 250, F32_TOL),
 ])
 @pytest.mark.parametrize("mode", ["none", "causal", "window"])
 def test_h1_f32_matches_the_f64_plain_run(cuda_device, mode, b, hq, hkv, lq,
@@ -1832,7 +1882,7 @@ def test_h1_f32_matches_the_f64_plain_run(cuda_device, mode, b, hq, hkv, lq,
     assert (bad.double() - ref).abs().max().item() > tol
 
 
-@pytest.mark.parametrize("d", [32, 80, 128, 256])
+@pytest.mark.parametrize("d", [32, 80, 128, 256, 1, 33, 72, 250])
 def test_h1_f32_forms_spans_and_offsets(cuda_device, d):
     """H1 at f32 over KV spans (each span's partial and LSE), in the bound
     form and the 64-row Q tile (each within 2e-5 of the f64 run; the bf16
@@ -1963,7 +2013,7 @@ def test_decode_f32_matches_plain(cuda_device, hq, hkv, d, ps, window):
 @pytest.mark.parametrize("window", [None, 1, 77])
 @pytest.mark.parametrize("hq,hkv,d,ps,hist,c", EXTEND_CASES[:3] + [
     (16, 1, 80, 512, [257, 600], 64), (8, 2, 256, 128, [130, 3], 40),
-    (32, 1, 16, 1024, [5, 1100], 33)])
+    (32, 1, 16, 1024, [5, 1100], 33)] + EXTEND_CASES[-5:])
 def test_extend_f32_matches_plain(cuda_device, hq, hkv, d, ps, hist, c,
                                   window):
     """H6-extend at f32 q: one launch, f32 O within 1e-5 of the plain f32

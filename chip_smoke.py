@@ -259,21 +259,31 @@ Phases, one line each; any failure exits non-zero before the last line:
    heads80g16 through the continuous-batching scheduler (its gate, 12
    requests graphed and eager, bitwise equal, one H6-decode launch a
    step).
-23. heads_train (after train): the heads phase's two models trained as
-   the flagship is, so H3 runs at d 256 (its column-split instance) and
-   80 (D=128 on zero-filled columns) inside a model: make_train_step on
+23. heads_train (after train): the heads phase's three models trained as
+   the flagship is, so H3 runs at d 256 (its column-split instance), 80
+   and 72 (D=128 on zero-filled columns; 72's rows of 144 bytes by TMA)
+   inside a model: make_train_step on
    tokens [8, 1025] (the step-0 loss and every gradient against the
    plain attention beside the diagonal-hidden controls, H1, H3-dkv and
    H3-dq 4 launches a step, the loss falling strictly over 5 AdamW steps,
    training tokens/s beside the train phase's flagship), the sharded step
-   at MeshConfig(1, 1, 1) against mesh=None, and heads256's encoder
-   (make_mlm_train_step, bidirectional) as the encoder phase runs it, its
-   gradients held against the plain backward in H3's place (the whole
-   path against the plain attention is shown: there H1's bf16 O moves a
-   bidirectional leaf by up to 6e-2 of its norm, the backward not at all);
-   then H3 timed at each model's shape (B=8, L=1024, causal and without a
-   mask) beside its plain version, SDPA's backward and the bound, and H3
-   at traced offsets at d 80 and 256 bitwise its static launch.
+   at MeshConfig(1, 1, 1) against mesh=None, and heads256's and heads72's
+   encoders (make_mlm_train_step, bidirectional; heads72's is
+   SigLIP-so400m's case) as the encoder phase runs it, their gradients
+   held against the plain backward in H3's place (the whole path against
+   the plain attention is shown: there H1's bf16 O moves a bidirectional
+   leaf by up to 6e-2 of its norm, the backward not at all); then H3
+   timed at each model's shape (B=8, L=1024, causal and without a mask),
+   at SigLIP-so400m's encoder shape (B=32, H=16, L=729, d=72, no mask)
+   and causal at d 100 and 36 (the staged producer) on the flagship's
+   train shape, beside its plain version, SDPA's backward and the bound;
+   H3 at HEADS_ODD (d 1, 8, 33, 36, 40, 72, 100, 250) in bf16 and f32 on
+   the group of 16 (B=2, Lq 1000, Lkv 1100) under each mask, one counted
+   launch of each kernel within the bwd phase's limit (the f32_train
+   phase's at f32) of the plain backward and f64 autograd, beside the
+   plain backward on rows read one element late and on each row's last
+   column dropped; and H3 at traced offsets at d 80, 256, 72 and 33
+   bitwise its static launch.
 24. f32 (after heads): the serving kernels and the flagship at f32, the
    JAX package's default dtype (models/transformer.py:59), whose kernels
    compute f32 at f32 accuracy (HIGHEST).  H1 with f32 q/k/v (its f32
@@ -336,10 +346,10 @@ Phases, one line each; any failure exits non-zero before the last line:
    H1 and H3 without a mask, against the all-plain f32 step; controls: a
    causal forward, a causal backward) and the sharded step at
    MeshConfig(1, 1, 1) (the ring's hop at traced offsets) at f32, each
-   at the same limits.  Then heads256 at dtype=torch.float32 through the
-   same train step, encoder step and sharded step at the same limits, its
-   training tokens/s beside heads256's bf16 reading of the heads_train
-   phase.
+   at the same limits.  Then heads256 and heads72 at dtype=torch.float32
+   through the same train step, encoder step and sharded step at the same
+   limits, their training tokens/s beside their bf16 readings of the
+   heads_train phase, and H3 f32 timed at heads72's train shape.
 
 ``python3 chip_smoke.py --only PHASE,...`` runs the build and the named
 phases alone (no kernels line), for a quicker call while a phase is
@@ -415,6 +425,13 @@ TRAIN_LOSS_TOL = 7e-5  # step-0 loss (10.6) vs the plain attention: a mean
                        # (random weights), moved only where H1's bf16 O
                        # differs by an ulp; sound runs 2.4e-5, the
                        # diagonal-hidden forward 1.8e-4
+HEADS72_LOSS_TOL = 2e-4  # heads72's step-0 loss vs the plain attention:
+                       # there the loss moves by up to 1.6e-4 with bf16
+                       # rounding choices alone (the plain forward against
+                       # itself with P rounded to bf16 as H1 rounds it,
+                       # tools/probe_loss_rounding.py; the flagship's
+                       # 8.7e-5), past TRAIN_LOSS_TOL; sound runs 8.3e-5,
+                       # the diagonal-hidden forward 5.2e-4
 ENCODER_LOSS_TOL = 1e-3  # the encoder's step-0 MLM loss vs the plain
                        # attention, a mean over the ~1,270 masked tokens
                        # only: sound runs 1.4e-4, the causal forward 1.1e-2
@@ -731,8 +748,10 @@ def phase_build(kernels):
 # (D 64, 128, 256 x pv_mode), H4-kvq (D 64, 128, 256 x int8, e4m3), H5 (d 128,
 # 256, 384, 512 x bf16, int8, e4m3; its cluster instances, 1 to 4 chunks
 # a block x the same kinds), H3-dkv and H3-dq (D 32, 64, 128, 256, and the
-# exact forms of 64 and 128, whose d is a constant), H6-extend (D 64, 128,
-# 256 x codes by TMA, or by bulk copy where d % 16 != 0)
+# exact forms of 64 and 128, whose d is a constant; their staged forms of
+# D 32, 64, 128, 256 for rows TMA cannot describe, bf16 d % 8 != 0),
+# H6-extend (D 64, 128, 256 x codes by TMA, or by bulk copy where d % 16
+# != 0)
 WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 6,
                    "kvquant_attention_kernel": 6,
                    "dtiled_attention_kernel": 12,
@@ -741,8 +760,8 @@ WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 6,
                    # and two chunks a block x f32, int8, e4m3 K/V
                    "kvquant_attention_f32_kernel": 6,
                    "dtiled_attention_f32_kernel": 6,
-                   "attention_bwd_dkv_kernel": 6,
-                   "attention_bwd_dq_kernel": 6,
+                   "attention_bwd_dkv_kernel": 10,
+                   "attention_bwd_dq_kernel": 10,
                    "paged_extend_kernel": 6,
                    # the f32 core (bf16x6 / bf16x3): D 64/128/256, H1's
                    # exact and bound statistics
@@ -811,8 +830,14 @@ NOT_HELD = re.compile(r"paged_decode_kernelILi\d+ELi\d+ELb0E")
 # exact and bound statistics, H6-extend D 64/128/256, H4-kvq D 64/128/256
 # x int8, e4m3), H5's three families (WGMMA_FUNCTIONS), and H4-kvq's and
 # H4-int8's bf16 / int8 instances (D 64/128/256 x int8, e4m3 or x
-# pv_mode; O 128 registers a consumer thread at D=256)
+# pv_mode; O 128 registers a consumer thread at D=256), and H3-dkv's and
+# H3-dq's (WGMMA_FUNCTIONS: dK + dV 128 registers a consumer thread, the
+# staged producers on 24 and, H3-dkv's, 40; at f32 the 255 of a thread)
 NO_SPILL_FUNCTIONS = {"prefill_attention_kernel": 16,
+                      "attention_bwd_dkv_kernel": 10,
+                      "attention_bwd_dq_kernel": 10,
+                      "attention_bwd_dkv_f32_kernel": 3,
+                      "attention_bwd_dq_f32_kernel": 3,
                       "paged_extend_kernel": 6,
                       "splitkv_combine_kernel": H2_FUNCTIONS,
                       "paged_decode_kernel": PAGED_DECODE_FUNCTIONS,
@@ -826,17 +851,25 @@ NO_SPILL_FUNCTIONS = {"prefill_attention_kernel": 16,
                       "dtiled_attention_f32_kernel": 6}
 
 
+# ptxas serializes some wgmma of H3's f32 instances (its C7517 / C7519
+# notes, in the parent tree's build too): they are held for spills only
+SERIAL_NOT_HELD = ("attention_bwd_dkv_f32_kernel",
+                   "attention_bwd_dq_f32_kernel")
+
+
 def check_registers(kernels):
     """Every instance of the serving kernels (H1, H2, H6-decode and
     H6-extend) holds its state in registers; every instance of the f32
     core holds O, its fresh P V accumulator
     and P's fragments in registers, every H5 instance its O chunks, S and
-    (f32) fresh P V, and every H4-kvq and H4-int8 instance O, S or its
-    run's part and P: no spill (cuobjdump -res-usage: 0 STACK and
+    (f32) fresh P V, every H4-kvq and H4-int8 instance O, S or its
+    run's part and P, and every H3-dkv and H3-dq instance (bf16 and f32)
+    dK and dV (dQ), S and dP: no spill (cuobjdump -res-usage: 0 STACK and
     LOCAL bytes, where spills land) and no wgmma serialized by ptxas (its
-    C75xx notes name no such function)."""
+    C75xx notes name no such function, SERIAL_NOT_HELD apart)."""
     serial = [ln for ln in kernels.ptxas_report().splitlines()
-              if "(C75" in ln and any(f in ln for f in NO_SPILL_FUNCTIONS)]
+              if "(C75" in ln and any(f in ln for f in NO_SPILL_FUNCTIONS)
+              and not any(f in ln for f in SERIAL_NOT_HELD)]
     found = dict.fromkeys(NO_SPILL_FUNCTIONS, 0)
     for name, u in sorted(kernels.res_usage().items()):
         kind = next((f for f in NO_SPILL_FUNCTIONS if f in name), None)
@@ -853,7 +886,8 @@ def check_registers(kernels):
         _require(u.get("STACK") == 0 and u.get("LOCAL") == 0,
                  f"{name} spills")
     _require(found == NO_SPILL_FUNCTIONS,
-             f"serving, f32 core, H4 and H5 functions in the build: {found}")
+             f"serving, f32 core, H3, H4 and H5 functions in the build: "
+             f"{found}")
     _require(not serial, f"ptxas serializes wgmma: {serial}")
     print("phase registers: ok")
 
@@ -5641,19 +5675,32 @@ def phase_heads(torch, dev):
     return out
 
 
-# The heads_train phase: the heads phase's two models trained on the card,
-# H3 at their head dims (256 on the column-split instance, 80 on D=128's
-# zero-filled columns) timed at their shapes, and H3 at traced offsets at
-# those d.  HEADS_TRACED: (q_pos0, kv_pos0, window) of a ring's diagonal
-# hop, a past hop and a band off the diagonal, B=2 Hq=16 Hkv=1 L=300
+# The heads_train phase: the heads phase's three models trained on the
+# card, H3 at their head dims (256 on the column-split instance, 80 and 72
+# on D=128's zero-filled columns, 72's rows by TMA) timed at their shapes,
+# H3 at HEADS_ODD in bf16 and f32 (rows by TMA at bf16 d % 8 == 0, by the
+# staged producer else; f32 rows a float at a time at d % 4 != 0) on
+# HEADS_H1_SHAPE beside the misread-row controls, and H3 at traced offsets
+# at d 80, 256, 72 and 33.  HEADS_TRACED: (q_pos0, kv_pos0, window) of a
+# ring's diagonal hop, a past hop and a band off the diagonal, B=2 Hq=16
+# Hkv=1 L=300
 HEADS_TRACED = ((256, 256, None), (300, 0, None), (100, 37, 100))
+HEADS_TRACED_DIMS = (80, 256, 72, 33)
+# H3 timed at d off the multiples of 16, bf16: (label, B, Hq, Hkv, L, d,
+# causal).  SigLIP-so400m's encoder training step (32 images of 27 x 27
+# patches, 16 heads of 72, no mask) and the staged producer (rows of 200
+# and 72 bytes) causal at the flagship's training shape otherwise
+H3_ODD_TIMED = (("SigLIP-so400m encoder", 32, 16, 16, 729, 72, False),
+                ("staged causal d=100", 8, 8, 4, 1024, 100, True),
+                ("staged causal d=36", 8, 8, 4, 1024, 36, True))
 
 
 def h3_traced_check(torch, dev):
     """H3 through flash_attention_bwd at traced positions (0-d int32
     tensors, the offsets every block reads from device memory) bitwise
-    its static launch at d 80 and 256, one launch each of H3-dkv and H3-dq
-    a call; the static launch one key off the diagonal must differ."""
+    its static launch at HEADS_TRACED_DIMS (72 by TMA, 33 by the staged
+    producer), one launch each of H3-dkv and H3-dq a call; the static
+    launch one key off the diagonal must differ."""
     from exploring_flash_attention_tpu_torch.ops import (
         flash_attention_bwd,
         prefill_attention,
@@ -5661,7 +5708,7 @@ def h3_traced_check(torch, dev):
 
     gen = torch.Generator().manual_seed(16)
     out = {}
-    for d in (80, 256):
+    for d in HEADS_TRACED_DIMS:
         q, do = (_bf16(torch, dev, gen, 2, 16, 300, d) for _ in range(2))
         k, v = (_bf16(torch, dev, gen, 2, 1, 300, d) for _ in range(2))
         scale = 1.0 / math.sqrt(d)
@@ -5698,33 +5745,90 @@ def h3_traced_check(torch, dev):
     return out
 
 
-def h3_refuses(torch, dev, name, gen, n_heads, n_kv_heads, d_head):
-    """The backward at a head dim H3 does not take (d off the multiples of
-    16): flash_attention's forward runs H1, its backward raises
-    ``ValueError`` naming ``HEAD_DIM_RULE`` before any H3 launch."""
-    from exploring_flash_attention_tpu_torch.ops import flash_attention
-    from exploring_flash_attention_tpu_torch.ops.attention import (
-        HEAD_DIM_RULE,
+def h3_odd_case(torch, dev, d, f32):
+    """H3 at head dim ``d`` (HEADS_ODD) on HEADS_H1_SHAPE (a group of 16
+    over one KV head, ragged and cross), bf16 or f32 inputs on H1's
+    residuals, under each mask: one counted launch of each kernel, every
+    gradient within H3_REL_TOL (F32_H3_TOL at f32) of max|ref| against the
+    plain backward and f64 autograd, beside the plain backward on q, k, v
+    and dO misread as misread_rows misreads them, which must read beyond
+    it."""
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd_plain,
+        flash_attention_bwd,
+        prefill_attention,
     )
 
-    q = _bf16(torch, dev, gen, 2, n_heads, 256, d_head).requires_grad_()
-    k, v = (_bf16(torch, dev, gen, 2, n_kv_heads, 256, d_head)
-            .requires_grad_() for _ in range(2))
-    zero_counters()
-    o = flash_attention(q, k, v, causal=True)
-    try:
-        o.float().sum().backward()
-        err = None
-    except ValueError as exc:
-        err = str(exc)
-    torch.cuda.synchronize()
-    got = read_counters()
-    print(f"  {name}: the backward at d={d_head} raises {err!r}; launches "
-          f"{got}")
-    _require(err is not None and HEAD_DIM_RULE in err,
-             f"{name}: the backward at d={d_head} did not refuse")
-    _require(got == launches_only(h1=1), f"{name}: launches {got}")
-    return err
+    b, hq, hkv, lq, lkv = HEADS_H1_SHAPE
+    if f32:
+        q, k, v, do = f32_inputs_do(torch, dev, b, hq, hkv, lq, lkv, d,
+                                    seed=d + 7)
+    else:
+        gen = torch.Generator().manual_seed(d)
+        q, do = (_bf16(torch, dev, gen, b, hq, lq, d) for _ in range(2))
+        k, v = (_bf16(torch, dev, gen, b, hkv, lkv, d) for _ in range(2))
+    scale, off = 1.0 / math.sqrt(d), lkv - lq
+    tol = F32_H3_TOL if f32 else H3_REL_TOL
+    what = (f"{'f32' if f32 else 'bf16'} B={b} Hq={hq} Hkv={hkv} Lq={lq} "
+            f"Lkv={lkv} d={d}")
+    misread = [misread_rows(torch, x) for x in (q, k, v, do)]
+    fmt = lambda e: " ".join(                           # noqa: E731
+        f"{n} {x:.3e}" for n, x in zip(("dq", "dk", "dv"), e))
+    res = {}
+    for mask, (causal, window) in BWD_MASKS.items():
+        o, lse = prefill_attention(q, k, v, scale, off, causal, window)
+        grads = counted_call(torch, lambda: flash_attention_bwd(
+            q, k, v, o, do, lse, scale=scale, causal=causal, window=window),
+            launches_only(h3dkv=1, h3dq=1))
+        _require(all(g.dtype == q.dtype and torch.isfinite(g).all().item()
+                     for g in grads), f"H3 {what} {mask}: gradients")
+        plain = attention_bwd_plain(q, k, v, o, do, lse, scale, causal, off,
+                                    window)
+        f64 = f64_attention_grads(torch, q, k, v, do, scale, causal, off,
+                                  window)
+        e_plain = [_rel(g, r) for g, r in zip(grads, plain)]
+        e_f64 = [_rel(g, r) for g, r in zip(grads, f64)]
+        # each control's distance from the kernel over max|plain| (at d=1
+        # the last column dropped leaves every gradient zero)
+        ctl = {}
+        for name in misread[0]:
+            bq, bk, bv, bdo = (x[name] for x in misread)
+            bad = attention_bwd_plain(bq, bk, bv, o, bdo, lse, scale, causal,
+                                      off, window)
+            ctl[name] = [((g.float() - x.float()).abs().max()
+                          / r.float().abs().max()).item()
+                         for g, x, r in zip(grads, bad, plain)]
+        print(f"  heads H3 {what} {mask}: max|d|/max|ref| vs plain "
+              f"{fmt(e_plain)}; vs f64 autograd {fmt(e_f64)} (tol {tol:g}); "
+              + "; ".join(f"control ({n}) {fmt(c)}" for n, c in ctl.items())
+              + "; one launch of each kernel")
+        _require(max(e_plain + e_f64) <= tol,
+                 f"H3 {what} {mask} outside tolerance")
+        _require(min(min(c) for c in ctl.values()) > tol,
+                 f"the H3 check cannot tell a misread row ({what} {mask})")
+        res[mask] = {"rel_err_vs_plain": {"h3dq": e_plain[0],
+                                          "h3dkv": max(e_plain[1:])},
+                     "rel_err_vs_f64": {"h3dq": e_f64[0],
+                                        "h3dkv": max(e_f64[1:])},
+                     "controls": {n: {"h3dq": c[0], "h3dkv": min(c[1:])}
+                                  for n, c in ctl.items()}}
+        del o, lse, grads, plain, f64
+    return res
+
+
+def h3_odd_times(torch, dev):
+    """H3 at H3_ODD_TIMED (h3_times: each kernel alone beside the plain
+    backward, SDPA's backward and the bound at the true d), bf16."""
+    gen = torch.Generator().manual_seed(19)
+    out = {}
+    for label, b, hq, hkv, l, d, causal in H3_ODD_TIMED:
+        q, do = (_bf16(torch, dev, gen, b, hq, l, d) for _ in range(2))
+        k, v = (_bf16(torch, dev, gen, b, hkv, l, d) for _ in range(2))
+        out[label] = {"shape": f"B={b} Hq={hq} Hkv={hkv} L={l} d={d} "
+                               f"{'causal' if causal else 'none'}",
+                      **h3_times(torch, q, k, v, do, causal)}
+        del q, k, v, do
+    return out
 
 
 def phase_heads_train(torch, dev):
@@ -5734,29 +5838,24 @@ def phase_heads_train(torch, dev):
     gradient against the plain attention beside the diagonal-hidden
     controls, H1, H3-dkv and H3-dq 4 launches a step, the loss falling
     over 5 AdamW steps, training tokens/s), the sharded step at
-    MeshConfig(1, 1, 1) as the parallel phase runs it, and heads256's
-    encoder (make_mlm_train_step, bidirectional: H3 without a mask at
-    D=256) as the encoder phase runs it, its gradients against the plain
-    backward in H3's place (phase_encoder's bwd_ref); then H3 timed at
-    each model's shape (B=8, L=1024; causal and without a mask) and at
-    traced offsets at d 80 and 256.  A model whose d H3 does not take
-    (heads72) is served and not trained: its backward must raise naming
-    H3's rule, with no H3 launch (h3_refuses)."""
-    from exploring_flash_attention_tpu_torch.ops.attention import (
-        sixteen_head_dim,
-    )
-
-    out = {"models": {}, "times": {}}
+    MeshConfig(1, 1, 1) as the parallel phase runs it, and heads256's and
+    heads72's encoders (make_mlm_train_step, bidirectional: H3 without a
+    mask at D=256, and at d=72 as SigLIP-so400m's tower trains) as the
+    encoder phase runs it, their gradients against the plain backward in
+    H3's place (phase_encoder's bwd_ref); then H3 timed at each model's
+    shape (B=8, L=1024; causal and without a mask) and at H3_ODD_TIMED,
+    H3 at HEADS_ODD in both dtypes (h3_odd_case) and at traced offsets
+    (h3_traced_check)."""
+    out = {"models": {}, "times": {}, "odd": {"bf16": {}, "f32": {}}}
     gen = torch.Generator().manual_seed(17)
     for name, geo in HEADS_MODELS.items():
         geo = {k: x for k, x in geo.items() if k != "page_size"}
-        if not sixteen_head_dim(geo["d_head"]):
-            out["h3_refuses"] = h3_refuses(torch, dev, name, gen, **geo)
-            continue
-        counts, tok_s, checks = phase_train(torch, dev, name, **geo)
+        tol = HEADS72_LOSS_TOL if name == "heads72" else TRAIN_LOSS_TOL
+        counts, tok_s, checks = phase_train(torch, dev, name, loss_tol=tol,
+                                            **geo)
         m = {"train_launches": counts, "tokens_s": tok_s, **checks,
              "sharded": sharded_train_check(torch, dev, name, **geo)}
-        if name == "heads256":
+        if name in ("heads256", "heads72"):
             m["encoder_launches"], m["encoder_tokens_s"] = phase_encoder(
                 torch, dev, f"{name} encoder", bwd_ref=True, **geo)
         out["models"][name] = m
@@ -5768,6 +5867,10 @@ def phase_heads_train(torch, dev):
             **{("causal" if c else "none"): h3_times(torch, q, k, v, do, c)
                for c in (True, False)}}
         del q, k, v, do
+    out["odd_times"] = h3_odd_times(torch, dev)
+    for d in HEADS_ODD:
+        for kind in ("bf16", "f32"):
+            out["odd"][kind][d] = h3_odd_case(torch, dev, d, kind == "f32")
     out["traced"] = h3_traced_check(torch, dev)
     print("phase heads_train: ok")
     return out
@@ -6612,33 +6715,33 @@ def sdpa_f32_backend(torch, q, k, v, do, causal):
     return {"takes": takes, "default_kernels": top}
 
 
-def f32_heads256_train(torch, dev, bf16_heads=None):
-    """heads256 (HEADS_MODELS) at dtype=torch.float32, trained as the f32
-    flagship is: make_train_step (H1 f32 and H3's f32 D=256 instance, 4
-    launches each a step; the step-0 loss and gradients against the
-    all-plain f32 step beside the controls; the loss falling over 5 AdamW
-    steps; tokens/s beside ``bf16_heads``, the heads_train phase's heads256
-    reading of this run), its encoder step and its sharded step at
-    MeshConfig(1, 1, 1), each against the all-plain f32 path."""
+def f32_heads_train(torch, dev, name, bf16_tok_s=None):
+    """A heads model (HEADS_MODELS: heads256, heads72) at
+    dtype=torch.float32, trained as the f32 flagship is: make_train_step
+    (H1 f32 and H3's f32 instances, 4 launches each a step; the step-0
+    loss and gradients against the all-plain f32 step beside the controls;
+    the loss falling over 5 AdamW steps; tokens/s beside ``bf16_tok_s``,
+    the heads_train phase's reading of the same model in this run), its
+    encoder step and its sharded step at MeshConfig(1, 1, 1), each against
+    the all-plain f32 path."""
     f32 = dict(dtype=torch.float32)
     tols = dict(loss_tol=F32_TRAIN_LOSS_TOL, grad_tol=F32_GRAD_REL_TOL)
-    geo = {k: x for k, x in HEADS_MODELS["heads256"].items()
-           if k != "page_size"}
+    geo = {k: x for k, x in HEADS_MODELS[name].items() if k != "page_size"}
     counts, tok_s, checks = phase_train(
-        torch, dev, "heads256 f32 train", bwd_control=(
+        torch, dev, f"{name} f32 train", bwd_control=(
             bf16_h3_bwd, "H3's bf16 kernels on bf16-rounded q, k, v, dO"),
         **tols, **f32, **geo)
     m = {"train_launches": counts, "tokens_s": tok_s, **checks}
     m["encoder_launches"], m["encoder_tokens_s"] = phase_encoder(
-        torch, dev, "heads256 f32 encoder", **tols, **f32, **geo)
-    m["sharded"] = sharded_train_check(torch, dev, "heads256 f32", **tols,
+        torch, dev, f"{name} f32 encoder", **tols, **f32, **geo)
+    m["sharded"] = sharded_train_check(torch, dev, f"{name} f32", **tols,
                                        **f32, **geo)
     beside = ""
-    if bf16_heads is not None:
-        m["bf16_tokens_s"] = bf16_heads
-        beside = (f"; heads256 at bf16 in this run {bf16_heads:.1f} "
-                  f"({tok_s / bf16_heads:.3f}x)")
-    print(f"  heads256 f32 training {tok_s:.1f} tokens/s{beside}; launches "
+    if bf16_tok_s is not None:
+        m["bf16_tokens_s"] = bf16_tok_s
+        beside = (f"; {name} at bf16 in this run {bf16_tok_s:.1f} "
+                  f"({tok_s / bf16_tok_s:.3f}x)")
+    print(f"  {name} f32 training {tok_s:.1f} tokens/s{beside}; launches "
           f"a step H1 {counts['h1']}, H3-dkv {counts['h3dkv']}, H3-dq "
           f"{counts['h3dq']}; on {card_line()}")
     return m
@@ -6647,8 +6750,8 @@ def f32_heads256_train(torch, dev, bf16_heads=None):
 def phase_f32_train(torch, dev, bf16_train=None, bf16_heads=None):
     """Training at f32 (module comment above); ``bf16_train``: the train
     phase's return of this run (launches, tokens/s, readings), beside
-    which the f32 flagship's are set; ``bf16_heads``: heads256's training
-    tokens/s in the heads_train phase of this run."""
+    which the f32 flagship's are set; ``bf16_heads``: the heads models'
+    training tokens/s in the heads_train phase of this run, by name."""
     t0 = time.perf_counter()
     out = {"checks": f32_h3_checks(torch, dev),
            "clusters": f32_h3_clusters(torch, dev)}
@@ -6672,6 +6775,14 @@ def phase_f32_train(torch, dev, bf16_train=None, bf16_heads=None):
             torch, q, k, v, do, c) for c in (True, False)}}
     del q, k, v, do
     out["times_heads256"]["same_work_d128"] = f32_h3_same_work(torch, dev)
+    q, k, v, do = (torch.randn(*s, generator=gen).to(dev) for s in (
+        (8, 16, 1024, 72), (8, 16, 1024, 72), (8, 16, 1024, 72),
+        (8, 16, 1024, 72)))
+    out["times_heads72"] = {
+        "shape": "B=8 Hq=16 Hkv=16 L=1024 d=72 (heads72)",
+        **{("causal" if c else "none"): h3_times(torch, q, k, v, do, c)
+           for c in (True, False)}}
+    del q, k, v, do
     f32 = dict(dtype=torch.float32)
     tols = dict(loss_tol=F32_TRAIN_LOSS_TOL, grad_tol=F32_GRAD_REL_TOL)
     counts, tok_s, checks = phase_train(
@@ -6694,7 +6805,9 @@ def phase_f32_train(torch, dev, bf16_train=None, bf16_heads=None):
     print(f"  f32 flagship training {tok_s:.1f} tokens/s{beside}; launches "
           f"a step H1 {counts['h1']}, H3-dkv {counts['h3dkv']}, H3-dq "
           f"{counts['h3dq']}; on {card_line()}")
-    out["heads256"] = f32_heads256_train(torch, dev, bf16_heads)
+    for name in ("heads256", "heads72"):
+        out[name] = f32_heads_train(torch, dev, name,
+                                    (bf16_heads or {}).get(name))
     print(f"phase f32_train: ok in {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -6704,7 +6817,11 @@ def f32_train_readings(f32t, kern):
     h3dq)."""
     t, model = f32t["times"], f32t["model"]
     t256, m256 = f32t["times_heads256"], f32t["heads256"]
+    t72, m72 = f32t["times_heads72"], f32t["heads72"]
     return {**t["causal"][kern], "shape": t["shape"] + " causal",
+            "heads72_shape": {"shape": t72["shape"],
+                              "causal": t72["causal"][kern],
+                              "none": t72["none"][kern]},
             "none": t["none"][kern],
             "window_train_shape": t["window_train_shape"][kern],
             "heads256_shape": {
@@ -6728,15 +6845,22 @@ def f32_train_readings(f32t, kern):
                          "f32_heads256_encoder_step":
                              m256["encoder_launches"][kern],
                          "f32_heads256_sharded_train_step":
-                             m256["sharded"]["launches"][kern]},
+                             m256["sharded"]["launches"][kern],
+                         "f32_heads72_train_step":
+                             m72["train_launches"][kern],
+                         "f32_heads72_encoder_step":
+                             m72["encoder_launches"][kern],
+                         "f32_heads72_sharded_train_step":
+                             m72["sharded"]["launches"][kern]},
             "flagship": {k: model[k] for k in (
                 "tokens_s", "loss_err", "loss_control", "grad_err",
                 "grad_control", "losses") + (
                 ("bf16_tokens_s",) if "bf16_tokens_s" in model else ())},
-            "heads256": {k: m256[k] for k in (
+            **{name: {k: m[k] for k in (
                 "tokens_s", "encoder_tokens_s", "loss_err", "loss_control",
                 "grad_err", "grad_control", "losses") + (
-                ("bf16_tokens_s",) if "bf16_tokens_s" in m256 else ())}}
+                ("bf16_tokens_s",) if "bf16_tokens_s" in m else ())}
+               for name, m in (("heads256", m256), ("heads72", m72))}}
 
 
 # The f32_ops phase: H4-kvq with f32 q and H5 with f32 inputs (f32 q over
@@ -6953,17 +7077,17 @@ def run_only(torch, dev, names):
             lm = lm or make_flagship(torch, dev)
             fn(torch, dev, lm)
         elif name == "f32_train":
-            fn(torch, dev, done.get("train"), heads256_tokens_s(
+            fn(torch, dev, done.get("train"), heads_tokens_s(
                 done.get("heads_train")))
         else:
             done[name] = fn(torch, dev)
 
 
-def heads256_tokens_s(htrain):
-    """heads256's training tokens/s in a heads_train phase's return (None
-    where the phase did not run)."""
-    return None if htrain is None else (
-        htrain["models"]["heads256"]["tokens_s"])
+def heads_tokens_s(htrain):
+    """The heads models' training tokens/s in a heads_train phase's
+    return, by name (None where the phase did not run)."""
+    return None if htrain is None else {
+        name: m["tokens_s"] for name, m in htrain["models"].items()}
 
 
 def heads_launches(heads, kern):
@@ -6993,11 +7117,13 @@ def heads_train_launches(htrain, kern):
 
 def h3_by_head_dim(by_d, htrain, kern):
     """The kernels line's H3 readings by head dim: the bwd phase's errors
-    (each mask, vs the plain version and f64 autograd, beside its control)
-    and the heads_train phase's times at the heads models' shapes, with
-    the instance each d runs on."""
+    (each mask, vs the plain version and f64 autograd, beside its control),
+    the heads_train phase's at HEADS_ODD (bf16 and f32, beside the
+    misread-row controls) and its times at the heads models' shapes and at
+    H3_ODD_TIMED, with the instance each d runs on."""
     out = {}
-    for d in sorted(set(by_d) | set(htrain["times"])):
+    odd = htrain["odd"]
+    for d in sorted(set(by_d) | set(htrain["times"]) | set(odd["bf16"])):
         row = {"instance_d": h3_instance(d)}
         if d in by_d:
             row["checks"] = {
@@ -7005,11 +7131,25 @@ def h3_by_head_dim(by_d, htrain, kern):
                     r: x[r][kern] for r in ("rel_err_vs_plain",
                                             "rel_err_vs_f64", "control")})
                 for k, x in by_d[d].items()}
+        if d in odd["bf16"]:
+            row["checks_odd"] = {
+                "shape": "B={} Hq={} Hkv={} Lq={} Lkv={}".format(
+                    *HEADS_H1_SHAPE),
+                **{kind: {m: {"rel_err_vs_plain": x["rel_err_vs_plain"][kern],
+                              "rel_err_vs_f64": x["rel_err_vs_f64"][kern],
+                              "controls": {n: c[kern] for n, c in
+                                           x["controls"].items()}}
+                          for m, x in odd[kind][d].items()}
+                   for kind in ("bf16", "f32")}}
         if d in htrain["times"]:
             t = htrain["times"][d]
             row["times"] = {"shape": t["shape"],
                             **{m: t[m][kern] for m in ("causal", "none")}}
         out[str(d)] = row
+    out["odd_times"] = {label: {"shape": t["shape"], **t[kern],
+                                "delta_ms": t["delta_ms"],
+                                "pair_ms": t["pair_ms"]}
+                        for label, t in htrain["odd_times"].items()}
     out["traced_offsets_bitwise_static"] = htrain["traced"]
     out["heads_models"] = {
         name: {k: m[k] for k in ("tokens_s", "loss_err", "loss_control",
@@ -7074,7 +7214,7 @@ def main(argv) -> int:
     train, train_tok_s, train_checks = phase_train(torch, dev)
     htrain = phase_heads_train(torch, dev)
     f32t = phase_f32_train(torch, dev, (train, train_tok_s, train_checks),
-                           heads256_tokens_s(htrain))
+                           heads_tokens_s(htrain))
     encoder, _ = phase_encoder(torch, dev)
     s2s = phase_seq2seq(torch, dev)
     par = phase_parallel(torch, dev)
@@ -7253,8 +7393,8 @@ def main(argv) -> int:
         # runs it.  plain_ms is the whole plain backward, and library_ms
         # the whole backward of scaled_dot_product_attention
         *({"name": f"H3-{n} attention backward, {what} (none, causal, "
-                   "window; d a multiple of 16 from 16 to 256, bf16 and "
-                   "f32; f32 d 144-256 on a cluster of two blocks)",
+                   "window; d from 1 to 256, bf16 and f32; f32 d 129-256 "
+                   "on a cluster of two blocks)",
            "route": "cuda", "source": H3_SRC, "replaces": f"{BWD_PY}:458",
            "also_replaces": [f"{BWD_PY}:{x}" for x in (281, 377, 112, 205)],
            "launches": train[f"h3{n}"],
@@ -7272,7 +7412,6 @@ def main(argv) -> int:
                                 **heads_train_launches(htrain, f"h3{n}")},
            "device_offsets": device_offset_readings(par, f"h3{n}"),
            "by_head_dim": h3_by_head_dim(h3_by_d, htrain, f"h3{n}"),
-           "refused_off_sixteen": htrain.get("h3_refuses"),
            "seq2seq_cross_shape": t["seq2seq_cross"][f"h3{n}"],
            "window_library_bwd": t["window_train_shape"][
                "window_library_bwd"],

@@ -1,17 +1,20 @@
 // H3-dkv and H3-dq: the flash-attention backward on Hopper (sm_90a), one
 // pair of kernels for three masks (none, causal, sliding window).  bf16 in,
-// f32 accumulate, bf16 out; every head dim d that is a multiple of 16 from
-// 16 to 256 (ops.attention.HEAD_DIM_RULE), on instances D = 32, 64, 128
-// and 256.  f32 in and out take a second pair of kernels on the f32 core's
-// arithmetic (bf16x6 on wgmma, "f32 inputs" below), d 16 to 256 on
-// instances D = 64, 128 and 256 (a cluster of two blocks).  A d
-// below its instance's D (16 on 32, 48 on 64, 80-112 on 128,
-// 144-240 on 256) is described to TMA with its true d, so the columns of
-// Q, K, V and dO past d land as zeros, which leave S and dP exact, and the
-// epilogues store the first d columns of dQ, dK and dV.  The padded
-// columns cost (D - d) / D of the products: 50% at d=16, 37.5% at d=80.
-// At d = D = 64 and 128, the tuned instances, d is a template constant
-// (EXACT): the code is the one they had before the d rule.
+// f32 accumulate, bf16 out; every head dim d from 1 to 256
+// (ops.attention.SERVING_HEAD_DIM_RULE, the serving kernels' too), on
+// instances D = 32, 64, 128 and 256.  f32 in and out take a second pair of
+// kernels on the f32 core's arithmetic (bf16x6 on wgmma, "f32 inputs"
+// below), d 1 to 256 on instances D = 64, 128 and 256 (a cluster of two
+// blocks).  A d below its instance's D (1-31 on 32, 33-63 on 64, 65-127 on
+// 128, 129-255 on 256) runs on tiles whose columns of Q, K, V and dO past
+// d are zeros, which leave S and dP exact, and the epilogues store the
+// first d columns of dQ, dK and dV.  bf16 rows of a multiple of 16 bytes
+// (d % 8 == 0) are described to TMA with their true d, which zero-fills
+// the columns past it; other rows no tensor map takes, and the producer
+// warpgroup loads them itself (the staged form below, as H1's).  The
+// padded columns cost (D - d) / D of the products: 50% at d=16, 43.75% at
+// d=72.  At d = D = 64 and 128, the tuned instances, d is a template
+// constant (EXACT): the code is the one they had before the d rule.
 //
 // Replace five TPU kernels of the JAX package that compute one gradient
 // and differ only by which of them fits the TPU core's VMEM
@@ -81,7 +84,8 @@
 // compares; edge tiles apply it by selects on the accumulator registers
 // (a wgmma under a branch would serialize every wgmma of the function).
 // TMA zero-fills rows past L in the 3-D descriptors, and the masks hide
-// them.  Results leave the f32 registers as bf16 pairs.
+// them.  Results leave the f32 registers as bf16 pairs (a value at a time
+// where d is odd).
 //
 // Budget at D=128.  H3-dkv: K and V 64 KB, four stages of Q and dO 128 KB,
 // stats 2 KB; registers dK 64 + dV 64 + S^T 32 + dP^T 32 per consumer
@@ -125,9 +129,14 @@ constexpr int DKV_QT = 64;       // Q rows per H3-dkv stage
 constexpr int DQ_KT = 64;        // keys per H3-dq stage
 constexpr int CONSUMERS = 2;     // consumer warpgroups
 constexpr int THREADS = (CONSUMERS + 1) * 128;
-// 128 * 24 + 256 * 240 = 384 * 168, what the launch allocates
+// 128 * 24 + 256 * 240 = 384 * 168, what the launch allocates.  H3-dkv's
+// staged form (its STAGED instances, below) copies rows on 40 registers a
+// producer thread, 128 * 40 + 256 * 232 = 384 * 168: at 24 its loop
+// spilled, and its consumers hold their state in 232 without a spill
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
+constexpr int STAGED_PRODUCER_REGS = 40;
+constexpr int STAGED_CONSUMER_REGS = 232;
 
 // the mask argument of the C entries (as eft_prefill_attention's)
 enum Mask : int { MASK_NONE = 0, MASK_CAUSAL = 1, MASK_WINDOW = 2 };
@@ -260,8 +269,10 @@ __device__ __forceinline__ void pack_a(const float (&x)[32],
 
 // The two rows this thread owns of an m64nN f32 accumulator (row0 and
 // row0 + 8) as bf16 at dst + row * ld + col, those below n_rows; only the
-// first ncols columns (a multiple of 8)
-template <int N>
+// first ncols columns, a multiple of 8 unless ANY.  ANY: a pair of columns
+// as one 4-byte store where ld and col are even (so is ncols), else a
+// value at a time
+template <int N, bool ANY = false>
 __device__ __forceinline__ void store_rows(const float (&acc)[N / 2],
                                            int row0, int n_rows, bf16* dst,
                                            int ld, int col, int ncols) {
@@ -272,25 +283,94 @@ __device__ __forceinline__ void store_rows(const float (&acc)[N / 2],
     if (row >= n_rows) continue;
     bf16* out = dst + size_t(row) * ld + col;
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j)
-      if (8 * j < ncols)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + col0) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    for (int j = 0; j < N / 8; ++j) {
+      const float x0 = acc[4 * j + 2 * r], x1 = acc[4 * j + 2 * r + 1];
+      const int c = 8 * j + col0;
+      if constexpr (ANY) {
+        if (ld % 2 == 0) {
+          if (c < ncols)
+            *reinterpret_cast<__nv_bfloat162*>(out + c) =
+                __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (c < ncols) out[c] = __float2bfloat16(x0);
+          if (c + 1 < ncols) out[c + 1] = __float2bfloat16(x1);
+        }
+      } else if (8 * j < ncols) {
+        *reinterpret_cast<__nv_bfloat162*>(out + c) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
   }
 }
 
 // A warpgroup's share of a [rows, d] result: its N columns from col (0, or
 // N times the warpgroup under SPLIT), the first d of each row.  At d = D
-// the store is inlined apart with constant strides, as H1's epilogue
-template <int D>
+// the store is inlined apart with constant strides, as H1's epilogue; the
+// STAGED instances' rows (d % 8 != 0) are stored at their alignment
+template <int D, bool STAGED>
 __device__ __forceinline__ void store_result(const float (&acc)[Geo<D>::N / 2],
                                              int row0, int n_rows, bf16* dst,
                                              int d, int col) {
   constexpr int N = Geo<D>::N;
-  if (d == D)
+  if constexpr (STAGED)
+    store_rows<N, true>(acc, row0, n_rows, dst, d, col, min(N, d - col));
+  else if (d == D)
     store_rows<N>(acc, row0, n_rows, dst, D, col, N);
   else
     store_rows<N>(acc, row0, n_rows, dst, d, col, min(N, d - col));
+}
+
+// ------------------------------------------------- the staged form
+// At a bf16 d that is not a multiple of 8 a row of q, k, v or dO is 2d
+// bytes, which no tensor map takes as a stride.  Then the whole producer
+// warpgroup loads the tiles the TMA thread would into the same swizzled
+// layout, in STAGED instances of D = 32, 64, 128, 256 (so the TMA
+// instances keep their code; H3-dkv's producer runs on
+// STAGED_PRODUCER_REGS, H3-dq's on PRODUCER_REGS), with wgmma_tile.cuh's
+// staged rows: a thread zeroes the tails of its rows of every tile, copies
+// them tile by tile as cp.async groups and hands a tile over once the next
+// is in flight (cp_async_wait of all but the newest group), arriving on
+// the barrier the consumers already wait on, which then counts the 128
+// producer threads.  A thread copies row t of both resident tiles (128
+// rows) or row t of the first (t < 64) or t - 64 of the second (64 rows);
+// of each streamed stage, in H3-dq row t of the first tile (K) or t - 64 of
+// the second (V), in H3-dkv the 96 threads beside the stats warp the 128
+// rows of Q and dO while the stats warp writes the stage's statistics as
+// in the TMA form.  Every shared address is a shared-window one (32 bits).
+
+// Thread t's first work: the tails of its row of each of the STAGES
+// streamed 64-row tile pairs at a and b (stage s at + s * bytes), then its
+// resident rows of the pair ra and rb (Geo<D>::ROWS rows each) from rows
+// [row0, n_rows) of ga and gb (rows of d), as a cp.async group
+template <int D>
+__device__ __forceinline__ void stage_first(uint32_t a, uint32_t b,
+                                            uint32_t bytes, uint32_t ra,
+                                            uint32_t rb, int t,
+                                            const bf16* ga, const bf16* gb,
+                                            int row0, int n_rows, int d) {
+  using G = Geo<D>;
+  constexpr int ROWS = G::ROWS, BOX = G::BOX;
+#pragma unroll 1
+  for (int s = 0; s < G::STAGES; ++s)
+    zero_tail<D, BOX>((t < 64 ? a : b) + s * bytes, 64, t % 64, d);
+  const int r = t % ROWS;
+  if constexpr (ROWS == 128) {
+    zero_tail<D, BOX>(ra, ROWS, r, d);
+    zero_tail<D, BOX>(rb, ROWS, r, d);
+  } else {
+    zero_tail<D, BOX>(t < ROWS ? ra : rb, ROWS, r, d);
+  }
+  named_bar_sync(1, 128);             // the zeros before any copy lands
+  const bool in = row0 + r < n_rows;
+  const size_t at = size_t(row0 + r) * d;
+  if constexpr (ROWS == 128) {
+    stage_row<BOX>(ra, ROWS, r, ga + at, in, d);
+    stage_row<BOX>(rb, ROWS, r, gb + at, in, d);
+  } else {
+    stage_row<BOX>(t < ROWS ? ra : rb, ROWS, r, (t < ROWS ? ga : gb) + at,
+                   in, d);
+  }
+  cp_async_commit();
 }
 
 // ---------------------------------------------------------------- H3-dkv
@@ -327,7 +407,7 @@ __device__ __forceinline__ void dkv_p_ds(float (&s)[32], float (&dp)[32],
   }
 }
 
-template <int D>
+template <int D, bool STAGED>
 __device__ __forceinline__ void consume_dkv(
     const unsigned char* sk, const unsigned char* sv, const unsigned char* sq,
     const unsigned char* sdo, const float* snl, const float* sdl,
@@ -420,11 +500,88 @@ __device__ __forceinline__ void consume_dkv(
       mbar_arrive(&empty[s]);
     }
   }
-  store_result<D>(acc_dk, row0, lkv, dk, d, col);
-  store_result<D>(acc_dv, row0, lkv, dv, d, col);
+  store_result<D, STAGED>(acc_dk, row0, lkv, dk, d, col);
+  store_result<D, STAGED>(acc_dv, row0, lkv, dv, d, col);
 }
 
-template <int D, bool EXACT>
+// H3-dkv's staged producer (thread t of 128, the staged form above): K and
+// V rows [kv0, kv0 + ROWS) of KV head bhk, then stage i: Q and dO rows
+// [q0, q0 + 64) of q head h0 + i / n_qt (bh0 = b * hq + h0), as the TMA
+// thread brings them.  The stats warp (t 32-63) hands its resident rows
+// over and returns to write each stage's statistics as in the TMA form;
+// the other 96 threads copy the stage's 128 rows (Q's, then dO's), row u
+// and, for u < 32, row u + 96.  The head and the Q tile are counted
+// along, not divided out of i
+template <int D>
+__device__ __forceinline__ void produce_dkv_staged(
+    unsigned char* smem, const bf16* q, const bf16* dout, const bf16* k,
+    const bf16* v, int bh0, int bhk, int lq, int lkv, int d, int kv0,
+    int q_begin, int n_qt, int n_stages) {
+  using T = DkvTiles<D>;
+  constexpr int STAGES = Geo<D>::STAGES, BOX = Geo<D>::BOX;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + T::bars, kv_full = full + 16 * STAGES;
+  const int t = threadIdx.x % 128;
+  const size_t kv_rows = size_t(bhk) * lkv;
+  stage_first<D>(base + T::q, base + T::dout, T::QT_BYTES, base + T::k,
+                 base + T::v, t, k + kv_rows * d, v + kv_rows * d, kv0, lkv,
+                 d);
+  if (t / 32 == 1) {                          // the stats warp
+    hand_over(kv_full, true);
+    return;
+  }
+  const int u = t < 32 ? t : t - 32;          // 0 .. 95
+  int bh = bh0, q0 = q_begin, j = 0;          // q head, Q tile
+#pragma unroll 1
+  for (int i = 0; i < n_stages; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full + 8 * STAGES + 8 * s, ((i / STAGES) & 1) ^ 1);  // empty
+#pragma unroll 1
+    for (int x = u; x < 2 * DKV_QT; x += 96) {
+      const int r = x % DKV_QT, row = q0 + r;
+      stage_row<BOX>(base + (x < DKV_QT ? T::q : T::dout) + s * T::QT_BYTES,
+                     DKV_QT, r,
+                     (x < DKV_QT ? q : dout) + (size_t(bh) * lq + row) * d,
+                     row < lq, d);
+    }
+    cp_async_commit();
+    hand_over(i == 0 ? kv_full : full + 8 * ((i - 1) % STAGES), false);
+    q0 += DKV_QT;
+    if (++j == n_qt) {
+      j = 0;
+      q0 = q_begin;
+      ++bh;
+    }
+  }
+  hand_over(full + 8 * ((n_stages - 1) % STAGES), true);
+}
+
+// the stats warp of H3-dkv: -lse * log2e and delta of each stage's q rows
+// (-inf and 0 past Lq), arriving on the stage's full barrier
+template <int STAGES>
+__device__ __forceinline__ void write_stats(float* snl, float* sdl,
+                                            uint64_t* full, uint64_t* empty,
+                                            const float* lse,
+                                            const float* delta, int b,
+                                            int hq, int h0, int lq,
+                                            int q_begin, int n_qt,
+                                            int n_stages, int lane) {
+  for (int i = 0; i < n_stages; ++i) {
+    const int s = i % STAGES;
+    const size_t bh = size_t(b) * hq + h0 + i / n_qt;
+    const int q0 = q_begin + (i % n_qt) * DKV_QT;
+    mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+    for (int c = lane; c < DKV_QT; c += 32) {
+      const bool in = q0 + c < lq;
+      const size_t at = bh * lq + q0 + c;
+      snl[s * DKV_QT + c] = in ? neg_lse2(lse[at]) : -CUDART_INF_F;
+      sdl[s * DKV_QT + c] = in ? delta[at] : 0.f;
+    }
+    mbar_arrive(&full[s]);
+  }
+}
+
+template <int D, bool EXACT, bool STAGED>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq, d]
                          const __grid_constant__ CUtensorMap tdo,  // [B*Hq, Lq, d]
@@ -437,7 +594,13 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq,
                          int hq, int hkv, int lq, int lkv, int d, int mask,
                          int diag_off, int window,
                          const int* __restrict__ offs,  // (q_pos0, kv_pos0) or null
-                         float scale) {
+                         float scale,
+                         // STAGED (d % 8 != 0): q, dO, k, v themselves
+                         const bf16* __restrict__ q,
+                         const bf16* __restrict__ dout,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v) {
+  static_assert(!(EXACT && STAGED), "d = D takes TMA");
   using G = Geo<D>;
   using T = DkvTiles<D>;
   constexpr int STAGES = G::STAGES, ROWS = G::ROWS;
@@ -476,19 +639,28 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq,
                        ? (int(q_end) - q_begin + DKV_QT - 1) / DKV_QT : 0;
   const int n_stages = n_qt * group;
 
+  // full barriers: the TMA thread and the stats warp, or the 96 row
+  // copies and the stats warp of the staged form (kv_full: all 128)
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1 + 32);      // the TMA thread, the stats warp
+      mbar_init(&full[s], STAGED ? 128 : 1 + 32);
       mbar_init(&empty[s], CONSUMERS * 128);
     }
-    mbar_init(kv_full, 1);
+    mbar_init(kv_full, STAGED ? 128 : 1);
     mbar_init_fence();
   }
   __syncthreads();
 
   if (warp >= CONSUMERS * 4) {
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (warp == CONSUMERS * 4 && lane == 0 && n_stages > 0) {
+    setmaxnreg_dec<STAGED ? STAGED_PRODUCER_REGS : PRODUCER_REGS>();
+    if constexpr (STAGED) {
+      if (n_stages > 0)
+        produce_dkv_staged<D>(smem, q, dout, k, v, b * hq + h0, bhk, lq,
+                              lkv, d, kv0, q_begin, n_qt, n_stages);
+      if (warp == CONSUMERS * 4 + 1 && n_stages > 0)
+        write_stats<STAGES>(snl, sdl, full, empty, lse, delta, b, hq, h0,
+                            lq, q_begin, n_qt, n_stages, lane);
+    } else if (warp == CONSUMERS * 4 && lane == 0 && n_stages > 0) {
       // K and V once, then (Q, dO) stage by stage: head g of the group,
       // Q tile q0
       mbar_arrive_expect_tx(kv_full, 2 * T::KV_BYTES);
@@ -512,25 +684,13 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,   // [B*Hq, Lq,
         }
       }
     } else if (warp == CONSUMERS * 4 + 1 && n_stages > 0) {
-      // the stats warp: -lse * log2e and delta of each stage's q rows
-      for (int i = 0; i < n_stages; ++i) {
-        const int s = i % STAGES;
-        const size_t bh = size_t(b) * hq + h0 + i / n_qt;
-        const int q0 = q_begin + (i % n_qt) * DKV_QT;
-        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
-        for (int c = lane; c < DKV_QT; c += 32) {
-          const bool in = q0 + c < lq;
-          const size_t at = bh * lq + q0 + c;
-          snl[s * DKV_QT + c] = in ? neg_lse2(lse[at]) : -CUDART_INF_F;
-          sdl[s * DKV_QT + c] = in ? delta[at] : 0.f;
-        }
-        mbar_arrive(&full[s]);
-      }
+      write_stats<STAGES>(snl, sdl, full, empty, lse, delta, b, hq, h0,
+                          lq, q_begin, n_qt, n_stages, lane);
     }
   } else {
-    setmaxnreg_inc<CONSUMER_REGS>();
+    setmaxnreg_inc<STAGED ? STAGED_CONSUMER_REGS : CONSUMER_REGS>();
     const size_t out = size_t(bhk) * lkv * d;
-    consume_dkv<D>(sk, sv, sq, sdo, snl, sdl, full, empty, kv_full,
+    consume_dkv<D, STAGED>(sk, sv, sq, sdo, snl, sdl, full, empty, kv_full,
                    dk + out, dv + out, lq, lkv, d, mask, diag_off, window,
                    scale, kv0, q_begin, n_qt, n_stages);
   }
@@ -561,7 +721,7 @@ __device__ __forceinline__ void dq_p_ds(float (&s)[32], float (&dp)[32],
   }
 }
 
-template <int D>
+template <int D, bool STAGED>
 __device__ __forceinline__ void consume_dq(
     const unsigned char* sq, const unsigned char* sdo, const unsigned char* sk,
     const unsigned char* sv, uint64_t* full, uint64_t* empty,
@@ -647,10 +807,42 @@ __device__ __forceinline__ void consume_dq(
       mbar_arrive(&empty[s]);
     }
   }
-  store_result<D>(acc_dq, row0, lq, dq, d, col);
+  store_result<D, STAGED>(acc_dq, row0, lq, dq, d, col);
 }
 
-template <int D, bool EXACT>
+// H3-dq's staged producer (thread t of 128, the staged form above): Q and
+// dO rows [q0, q0 + ROWS) of q head bh, then tile i: K and V rows [kv0,
+// kv0 + 64) of KV head bhk, as the TMA thread brings them
+template <int D>
+__device__ __forceinline__ void produce_dq_staged(
+    unsigned char* smem, const bf16* q, const bf16* dout, const bf16* k,
+    const bf16* v, int bh, int bhk, int lq, int lkv, int d, int q0,
+    int kv_begin, int n_tiles) {
+  using T = DqTiles<D>;
+  constexpr int STAGES = Geo<D>::STAGES, BOX = Geo<D>::BOX;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + T::bars, q_full = full + 16 * STAGES;
+  const int t = threadIdx.x % 128, r = t % DQ_KT;
+  const bool first = t < DQ_KT;               // K's row, else V's
+  const size_t q_rows = size_t(bh) * lq;
+  stage_first<D>(base + T::k, base + T::v, T::KV_BYTES, base + T::q,
+                 base + T::dout, t, q + q_rows * d, dout + q_rows * d, q0, lq,
+                 d);
+#pragma unroll 1
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const int row = kv_begin + i * DQ_KT + r;
+    mbar_wait(full + 8 * STAGES + 8 * s, ((i / STAGES) & 1) ^ 1);  // empty
+    stage_row<BOX>(base + (first ? T::k : T::v) + s * T::KV_BYTES, DQ_KT, r,
+                   (first ? k : v) + (size_t(bhk) * lkv + row) * d,
+                   row < lkv, d);
+    cp_async_commit();
+    hand_over(i == 0 ? q_full : full + 8 * ((i - 1) % STAGES), false);
+  }
+  hand_over(full + 8 * ((n_tiles - 1) % STAGES), true);
+}
+
+template <int D, bool EXACT, bool STAGED>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq, d]
                         const __grid_constant__ CUtensorMap tdo,   // [B*Hq, Lq, d]
@@ -662,7 +854,13 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq,
                         int hq, int group, int lq, int lkv, int d, int mask,
                         int diag_off, int window,
                         const int* __restrict__ offs,  // (q_pos0, kv_pos0) or null
-                        float scale) {
+                        float scale,
+                        // STAGED (d % 8 != 0): q, dO, k, v themselves
+                        const bf16* __restrict__ q,
+                        const bf16* __restrict__ dout,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v) {
+  static_assert(!(EXACT && STAGED), "d = D takes TMA");
   using G = Geo<D>;
   using T = DqTiles<D>;
   constexpr int STAGES = G::STAGES, ROWS = G::ROWS;
@@ -699,19 +897,25 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq,
   const int n_tiles = kv_end > kv_begin
                           ? (kv_end - kv_begin + DQ_KT - 1) / DQ_KT : 0;
 
+  // full barriers: the TMA thread, or the 128 producer threads of the
+  // staged form
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], STAGED ? 128 : 1);
       mbar_init(&empty[s], CONSUMERS * 128);
     }
-    mbar_init(q_full, 1);
+    mbar_init(q_full, STAGED ? 128 : 1);
     mbar_init_fence();
   }
   __syncthreads();
 
   if (warp >= CONSUMERS * 4) {
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (warp == CONSUMERS * 4 && lane == 0 && n_tiles > 0) {
+    if constexpr (STAGED) {
+      if (n_tiles > 0)
+        produce_dq_staged<D>(smem, q, dout, k, v, bh, bhk, lq, lkv, d, q0,
+                             kv_begin, n_tiles);
+    } else if (warp == CONSUMERS * 4 && lane == 0 && n_tiles > 0) {
       mbar_arrive_expect_tx(q_full, 2 * T::Q_BYTES);
       for (int x = 0; x < G::NBOX; ++x) {
         tma_load_3d(sq + x * ROWS * G::ROW, &tq, q_full, x * G::BOX, q0, bh);
@@ -734,7 +938,7 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,    // [B*Hq, Lq,
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
     const size_t rows = size_t(bh) * lq;
-    consume_dq<D>(sq, sdo, sk, sv, full, empty, q_full, lse + rows,
+    consume_dq<D, STAGED>(sq, sdo, sk, sv, full, empty, q_full, lse + rows,
                   delta + rows, dq + rows * d, lq, lkv, d, mask, diag_off,
                   window, scale, q0, kv_begin, n_tiles);
   }
@@ -758,55 +962,103 @@ int make_maps(CUtensorMap (&m)[4], const void* q, const void* dout,
   return err;
 }
 
+template <int D, bool EXACT, bool STAGED>
+int launch_dkv_form(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int batch, int hq, int hkv, int lq,
+                    int lkv, int d, int mask, int diag_off, int window,
+                    const int* offs, float scale, cudaStream_t stream) {
+  using T = DkvTiles<D>;
+  constexpr int ROWS = Geo<D>::ROWS;
+  if ((lkv + ROWS - 1) / ROWS > 65535) return int(cudaErrorInvalidValue);
+  CUtensorMap m[4] = {};
+  if (!STAGED) {
+    const int err = make_maps<D>(m, q, dout, k, v, batch, hq, hkv, lq, lkv,
+                                 d, DKV_QT, ROWS);
+    if (err) return err;
+  }
+  const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_dkv_kernel<D, EXACT, STAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid(batch * hkv, (lkv + ROWS - 1) / ROWS);
+  attention_bwd_dkv_kernel<D, EXACT, STAGED>
+      <<<grid, THREADS, T::bytes, stream>>>(
+          m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), hq, hkv, lq, lkv, d, mask, diag_off,
+          window, offs, scale, static_cast<const bf16*>(q),
+          static_cast<const bf16*>(dout), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v));
+  return int(cudaGetLastError());
+}
+
+// H3-dkv on instance D: rows of d % 8 != 0 (2d bytes) take its STAGED
+// instance instead of TMA
 template <int D, bool EXACT>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int batch, int hq, int hkv, int lq, int lkv, int d, int mask,
                int diag_off, int window, const int* offs, float scale,
                cudaStream_t stream) {
-  using T = DkvTiles<D>;
+  if constexpr (!EXACT) {
+    if (d % 8 != 0)
+      return launch_dkv_form<D, false, true>(
+          q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, lq, lkv, d, mask,
+          diag_off, window, offs, scale, stream);
+  }
+  return launch_dkv_form<D, EXACT, false>(
+      q, k, v, dout, lse, delta, dk, dv, batch, hq, hkv, lq, lkv, d, mask,
+      diag_off, window, offs, scale, stream);
+}
+
+template <int D, bool EXACT, bool STAGED>
+int launch_dq_form(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, int batch, int hq, int hkv, int lq, int lkv,
+                   int d, int mask, int diag_off, int window,
+                   const int* offs, float scale, cudaStream_t stream) {
+  using T = DqTiles<D>;
   constexpr int ROWS = Geo<D>::ROWS;
-  if ((lkv + ROWS - 1) / ROWS > 65535) return int(cudaErrorInvalidValue);
-  CUtensorMap m[4];
-  const int err = make_maps<D>(m, q, dout, k, v, batch, hq, hkv, lq, lkv, d,
-                               DKV_QT, ROWS);
-  if (err) return err;
+  if ((lq + ROWS - 1) / ROWS > 65535) return int(cudaErrorInvalidValue);
+  CUtensorMap m[4] = {};
+  if (!STAGED) {
+    const int err = make_maps<D>(m, q, dout, k, v, batch, hq, hkv, lq, lkv,
+                                 d, ROWS, DQ_KT);
+    if (err) return err;
+  }
   const cudaError_t attr = cudaFuncSetAttribute(
-      attention_bwd_dkv_kernel<D, EXACT>,
+      attention_bwd_dq_kernel<D, EXACT, STAGED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
   if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(batch * hkv, (lkv + ROWS - 1) / ROWS);
-  attention_bwd_dkv_kernel<D, EXACT><<<grid, THREADS, T::bytes, stream>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), hq, hkv, lq, lkv, d, mask, diag_off, window,
-      offs, scale);
+  const dim3 grid(batch * hq, (lq + ROWS - 1) / ROWS);
+  attention_bwd_dq_kernel<D, EXACT, STAGED>
+      <<<grid, THREADS, T::bytes, stream>>>(
+          m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<bf16*>(dq), hq,
+          hq / hkv, lq, lkv, d, mask, diag_off, window, offs, scale,
+          static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
+          static_cast<const bf16*>(k), static_cast<const bf16*>(v));
   return int(cudaGetLastError());
 }
 
+// H3-dq on instance D: rows of d % 8 != 0 (2d bytes) take its STAGED
+// instance instead of TMA
 template <int D, bool EXACT>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int batch,
               int hq, int hkv, int lq, int lkv, int d, int mask,
               int diag_off, int window, const int* offs, float scale,
               cudaStream_t stream) {
-  using T = DqTiles<D>;
-  constexpr int ROWS = Geo<D>::ROWS;
-  if ((lq + ROWS - 1) / ROWS > 65535) return int(cudaErrorInvalidValue);
-  CUtensorMap m[4];
-  const int err = make_maps<D>(m, q, dout, k, v, batch, hq, hkv, lq, lkv, d,
-                               ROWS, DQ_KT);
-  if (err) return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      attention_bwd_dq_kernel<D, EXACT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
-  if (attr != cudaSuccess) return int(attr);
-  const dim3 grid(batch * hq, (lq + ROWS - 1) / ROWS);
-  attention_bwd_dq_kernel<D, EXACT><<<grid, THREADS, T::bytes, stream>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), hq, hq / hkv,
-      lq, lkv, d, mask, diag_off, window, offs, scale);
-  return int(cudaGetLastError());
+  if constexpr (!EXACT) {
+    if (d % 8 != 0)
+      return launch_dq_form<D, false, true>(
+          q, k, v, dout, lse, delta, dq, batch, hq, hkv, lq, lkv, d, mask,
+          diag_off, window, offs, scale, stream);
+  }
+  return launch_dq_form<D, EXACT, false>(
+      q, k, v, dout, lse, delta, dq, batch, hq, hkv, lq, lkv, d, mask,
+      diag_off, window, offs, scale, stream);
 }
 
 // ------------------------------------------------------------ f32 inputs
@@ -839,9 +1091,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // (issue_part_f32).  Registers of a consumer thread at D=128: dK 64 + dV 64
 // + a stage's share 64, S^T 16 + dP^T 16, the pieces of P^T, then of dS^T,
 // 24 (no setmaxnreg: 256 threads may hold 255 each).  Instances D = 64
-// (d 16-64) and 128 (d 80-128).
+// (d 1-64) and 128 (d 65-128).  The f32 rows are read at their alignment
+// (16-byte loads at d % 4 == 0, else a float at a time), zeros past d,
+// whose pieces add nothing to any product.
 //
-// D = 256 (d 144-256) is a cluster of two such blocks that split the
+// D = 256 (d 129-256) is a cluster of two such blocks that split the
 // columns (wgmma_tile.cuh's cluster helpers).  One block would not fit:
 // the pieces of its 64 resident rows take 192 KB, the smallest stage (16
 // rows of Q and dO pieces) 48 KB more, past the 227 KB of shared memory,
@@ -875,7 +1129,8 @@ constexpr int F32_BAR = 1;        // the consumer warpgroup's named barrier
 // Shared memory of an f32 block of instance D: the three pieces of each of
 // the two resident 64-row tiles, then F32_STAGES stages of the three pieces
 // of each of the two streamed 32-row tiles, the stages' per-row statistics
-// (H3-dkv's -lse * log2e and delta), at D=256 the two exchange buffers of
+// (H3-dkv's -lse * log2e and delta) and whole-stage flags (an int a stage,
+// H3-dkv's), at D=256 the two exchange buffers of
 // the peer's S^T and dP^T partials (S and dP), the barriers.  A block
 // holds W of the D columns; a piece is W / 64 boxes of [rows][64] bf16,
 // 128-byte rows and swizzle (Geo<W>'s layout).
@@ -892,7 +1147,8 @@ struct F32Tiles {
   static constexpr size_t res = 0;
   static constexpr size_t str = res + 6 * size_t(RES_PIECE);
   static constexpr size_t stats = str + F32_STAGES * size_t(STAGE);
-  static constexpr size_t xchg = stats + F32_STAGES * 2 * F32_STREAM * 4;
+  static constexpr size_t whole = stats + F32_STAGES * 2 * F32_STREAM * 4;
+  static constexpr size_t xchg = whole + 16;
   static constexpr size_t bars = xchg + XBUFS * size_t(XBUF);
   static constexpr size_t bytes = bars + 8 * (2 * F32_STAGES + XBUFS) + 1024;
   static_assert(bytes <= 232448, "the block's shared memory");
@@ -900,7 +1156,9 @@ struct F32Tiles {
 
 // Rows [row0, row0 + R) of an f32 [*, d] matrix, its columns [c0, c0 + D)
 // (zero past n_rows and d), as three pieces at tile, stored by the 128
-// threads of a warpgroup (t: a thread's index in it)
+// threads of a warpgroup (t: a thread's index in it).  A row's 8-column
+// chunks are read at its alignment (load8_f32: 16-byte loads at d % 4 ==
+// 0, else a float at a time), zeros past d
 template <int D, int R>
 __device__ __forceinline__ void put_f32_rows(unsigned char* tile,
                                              const float* src, int row0,
@@ -909,11 +1167,9 @@ __device__ __forceinline__ void put_f32_rows(unsigned char* tile,
   for (int x = t; x < R * (D / 8); x += 128) {
     const int r = x / (D / 8), ch = x % (D / 8);
     float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
-    if (row0 + r < n_rows && c0 + 8 * ch < d) {
-      const float* at = src + size_t(row0 + r) * d + c0 + 8 * ch;
-      x0 = *reinterpret_cast<const float4*>(at);
-      x1 = *reinterpret_cast<const float4*>(at + 4);
-    }
+    const int c = c0 + 8 * ch;
+    if (row0 + r < n_rows && c < d)
+      load8_f32(src + size_t(row0 + r) * d + c, d - c, d % 4 == 0, x0, x1);
     F::put_split8(tile, R * D * 2, R, r, ch, x0, x1);
   }
 }
@@ -927,23 +1183,24 @@ struct F32Stream {
 };
 
 // rows [row0, row0 + 32), columns [c0, c0 + D) of a and b ([*, d] each,
-// zero past n_rows and d) into producer thread t's registers
+// zero past n_rows and d, read at the rows' alignment as put_f32_rows
+// reads them) into producer thread t's registers
 template <int D>
 __device__ __forceinline__ void fetch_stream(F32Stream<D>& x, const float* a,
                                              const float* b, int row0,
                                              int n_rows, int d, int c0,
                                              int t) {
+  const bool vec4 = d % 4 == 0;
 #pragma unroll
   for (int c = 0; c < F32Stream<D>::CH; ++c) {
     const int e = t + 128 * c, r = e / (D / 8), ch = e % (D / 8);
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
     x.a[c][0] = x.a[c][1] = x.b[c][0] = x.b[c][1] = z;
-    if (row0 + r < n_rows && c0 + 8 * ch < d) {
-      const size_t at = size_t(row0 + r) * d + c0 + 8 * ch;
-      x.a[c][0] = *reinterpret_cast<const float4*>(a + at);
-      x.a[c][1] = *reinterpret_cast<const float4*>(a + at + 4);
-      x.b[c][0] = *reinterpret_cast<const float4*>(b + at);
-      x.b[c][1] = *reinterpret_cast<const float4*>(b + at + 4);
+    const int col = c0 + 8 * ch;
+    if (row0 + r < n_rows && col < d) {
+      const size_t at = size_t(row0 + r) * d + col;
+      load8_f32(a + at, d - col, vec4, x.a[c][0], x.a[c][1]);
+      load8_f32(b + at, d - col, vec4, x.b[c][0], x.b[c][1]);
     }
   }
 }
@@ -1037,7 +1294,8 @@ __device__ __forceinline__ void split_a(const float (&x)[16],
 
 // The two rows this thread owns of an m64nN f32 accumulator (row0 and
 // row0 + 8) as columns [c0, c0 + N) of dst's rows of d, those below n_rows,
-// the columns below d
+// the columns below d: a pair of columns as one 8-byte store at an even d,
+// else a value at a time
 template <int N>
 __device__ __forceinline__ void store_rows_f32(const float (&acc)[N / 2],
                                                int row0, int n_rows,
@@ -1047,12 +1305,18 @@ __device__ __forceinline__ void store_rows_f32(const float (&acc)[N / 2],
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= n_rows) continue;
-    float* out = dst + size_t(row) * d + c0;
+    float* out = dst + size_t(row) * d;
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j)
-      if (c0 + 8 * j < d)
-        *reinterpret_cast<float2*>(out + 8 * j + col0) =
-            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    for (int j = 0; j < N / 8; ++j) {
+      const float x0 = acc[4 * j + 2 * r], x1 = acc[4 * j + 2 * r + 1];
+      const int c = c0 + 8 * j + col0;
+      if (d % 2 == 0) {
+        if (c < d) *reinterpret_cast<float2*>(out + c) = make_float2(x0, x1);
+      } else {
+        if (c < d) out[c] = x0;
+        if (c + 1 < d) out[c + 1] = x1;
+      }
+    }
   }
 }
 
@@ -1172,6 +1436,7 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
   unsigned char* sk = smem + T::res;
   unsigned char* sv = sk + 3 * T::RES_PIECE;
   float* stats = reinterpret_cast<float*>(smem + T::stats);
+  int* whole = reinterpret_cast<int*>(smem + T::whole);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bars);
   uint64_t* empty = full + F32_STAGES;
   uint64_t* xbar = empty + F32_STAGES;          // D=256: the exchange's
@@ -1210,6 +1475,19 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
   else __syncthreads();
 
   if (warp >= 4) {
+    // a stage is whole (every q row of it sees every key row of the
+    // block) when it ends inside Lq, the keys inside Lkv, and q0 lies in
+    // [q_lo, q_hi]: under a mask the last key at or left of the first
+    // row's diagonal, under a window the first key inside the last row's
+    // window.  The producer decides it and leaves a flag beside the
+    // stage's statistics: held over the consumer's loop, the bounds
+    // spilled its 255 registers
+    const bool keys_in = kv0 + F32_ROWS <= lkv;
+    int q_lo = 0, q_hi = lq;
+    if (mask != MASK_NONE)
+      q_lo = int(clamp64((long long)kv0 + F32_ROWS - 1 - diag_off, 0, lq));
+    if (mask == MASK_WINDOW)
+      q_hi = int(clamp64((long long)kv0 - QT - diag_off + window, -1, lq));
     // the producer: stage i holds Q and dO rows [q0, q0 + 32) of q head
     // h0 + i / n_qt, with their -lse * log2e and delta (-inf, 0 past Lq)
     for (int i = 0; i < n_stages; ++i) {
@@ -1229,6 +1507,8 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
         stats[s * 2 * QT + t] = nl;
         stats[s * 2 * QT + QT + t] = dl;
       }
+      if (t == 0)
+        whole[s] = keys_in && q0 + QT <= lq && q0 >= q_lo && q0 <= q_hi;
       fence_proxy_async();
       mbar_arrive(&full[s]);
     }
@@ -1255,16 +1535,6 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
         hi[r] = int(clamp64(j - diag_off + window - 1, -1, lq - 1));
     }
   }
-  const long long first_key = kv0, last_key = kv0 + F32_ROWS - 1;
-  auto is_whole = [&](int q0) {
-    bool whole = q0 + QT <= lq && kv0 + F32_ROWS <= lkv;
-    if (mask != MASK_NONE)
-      whole = whole && last_key <= (long long)q0 + diag_off;
-    if (mask == MASK_WINDOW)
-      whole = whole && first_key >= (long long)q0 + QT - 1 + diag_off
-                                        - window + 1;
-    return whole;
-  };
 
   const size_t kv_at = size_t(bhk) * lkv * d;
   put_f32_rows<W, F32_ROWS>(sk, k + kv_at, kv0, lkv, d, c0, t);
@@ -1297,7 +1567,7 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q,     // [B*Hq, Lq, d]
     fence_regs(acc_dp);
     if constexpr (T::CLUSTER > 1)
       exchange_f32(acc_s, acc_dp, smem + T::xchg, xbar, i);
-    dkv_p_ds_f32(acc_s, acc_dp, st, st + QT, is_whole(q0), q0, lo, hi,
+    dkv_p_ds_f32(acc_s, acc_dp, st, st + QT, whole[s] != 0, q0, lo, hi,
                  scale_log2, scale);
     split_a(acc_s, pieces);
     fence_regs(pieces);
@@ -1522,7 +1792,7 @@ int launch_dq_f32(const void* q, const void* k, const void* v,
       window, offs, scale);
 }
 
-// go(integral_constant<int, D>) on the f32 instance for d (16 to 256)
+// go(integral_constant<int, D>) on the f32 instance for d (1 to 256)
 template <typename Go>
 int by_f32_instance(int d, Go&& go) {
   if (d <= 64) return go(std::integral_constant<int, 64>{});
@@ -1533,7 +1803,7 @@ int by_f32_instance(int d, Go&& go) {
 bool bad_args(int batch, int hq, int hkv, int lq, int lkv, int d, int mask,
               int window, int in_f32) {
   return batch <= 0 || hkv <= 0 || hq % hkv != 0 || lq <= 0 || lkv <= 0 ||
-         d < 16 || d > 256 || d % 16 != 0 || mask < MASK_NONE ||
+         d < 1 || d > 256 || mask < MASK_NONE ||
          mask > MASK_WINDOW || (mask == MASK_WINDOW && window < 1) ||
          (in_f32 != 0 && in_f32 != 1);
 }
@@ -1559,8 +1829,9 @@ int by_instance(int d, F&& go) {
 // Both return the cudaError_t of the launch (0 on success).  The wrappers
 // in ops/attention_bwd.py have already checked shapes, dtypes, contiguity
 // and alignment; the checks here only refuse what would index out of
-// bounds or exceed a grid dimension.  d: a multiple of 16 from 16 to 256,
-// run on the smallest instance D >= d.  mask: 0 none, 1 causal, 2 window
+// bounds or exceed a grid dimension.  d: 1 to 256, run on the smallest
+// instance D >= d (bf16 d % 8 != 0 in the staged form; f32 rows of d % 4
+// != 0 read a float at a time).  mask: 0 none, 1 causal, 2 window
 // (window >= 1) and offs (null, or the device int32 pair (q_pos0, kv_pos0)
 // that replaces diag_off), as eft_prefill_attention takes them.  in_f32: 0
 // for bf16 q, k, v, dO and gradients, 1 for f32 (bf16x6 on the f32

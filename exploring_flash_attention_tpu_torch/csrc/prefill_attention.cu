@@ -179,77 +179,9 @@ struct Tiles {
 // not a multiple of 16, and no tensor map takes that stride.  Then the
 // whole producer warpgroup loads each tile into the layout its TMA boxes
 // would give (the staged form, a run-time choice: the consumers read the
-// same tiles on the same barriers either way), a row a thread (the
-// producer runs on 40 registers a thread):
-//   - the columns from the last whole 8-column chunk before d up to D are
-//     zeroed once, in Q and in every stage;
-//   - d even: the row as pieces of its alignment (8 or 4 bytes, 2 d's
-//     largest power-of-two divisor), one cp.async each into the swizzled
-//     place, zero-filled past the rows (a tile's rows past Lq or Lkv);
-//   - d odd (rows 2-byte aligned): the row's 8-column chunks read a bf16
-//     at a time and stored as one 16-byte word, zeros past d or past the
-//     rows;
-//   - a tile's copies are a cp.async group; each thread hands its share
-//     over (its copies landed, fence, arrive on the stage's full barrier,
-//     counting the 128 producer threads).
-
-// zero columns [8 floor(d / 8), D) of row r of a tile of `rows` rows in
-// boxes of BOX columns at the shared-window address tile
-template <int D, int BOX>
-__device__ __forceinline__ void zero_tail(uint32_t tile, int rows, int r,
-                                          int d) {
-  constexpr int ROW = BOX * 2;
-#pragma unroll 1
-  for (int c = d / 8 * 8; c < D; c += 8)
-    st_shared_v4(tile + (c / BOX) * rows * ROW + swz<ROW>(r, (c % BOX) * 2),
-                 make_uint4(0u, 0u, 0u, 0u));
-}
-
-// row r of a tile of `rows` rows in boxes of BOX columns (at the
-// shared-window address tile), its columns below d, from src (a row of
-// the bf16 matrix; in: the row exists, else zeros and src is not read)
-template <int BOX>
-__device__ __forceinline__ void stage_row(uint32_t tile, int rows, int r,
-                                          const __nv_bfloat16* src, bool in,
-                                          int d) {
-  constexpr int ROW = BOX * 2;
-  const int al = row_align(2 * d);              // 8, 4 or 2 bytes
-  if (al >= 4) {
-    const int e = al / 2;                       // columns a piece
-#pragma unroll 1
-    for (int c = 0; c < d; c += e) {
-      const uint32_t dst =
-          tile + (c / BOX) * rows * ROW + swz<ROW>(r, (c % BOX) * 2);
-      if (al == 8) cp_async_zfill<8>(dst, src + c, in ? 8 : 0);
-      else cp_async_zfill<4>(dst, src + c, in ? 4 : 0);
-    }
-    return;
-  }
-  // a chunk's 8 values at immediate offsets from one pointer: with an
-  // address a value, ptxas held eight 64-bit addresses and spilled
-  const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
-#pragma unroll 1
-  for (int c = 0; c < d; c += 8, h += 8) {
-    uint32_t x[4] = {0u, 0u, 0u, 0u};
-    const int n = d - c;
-    if (in) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (j < n) x[j / 2] |= uint32_t(__ldg(h + j)) << (16 * (j % 2));
-    }
-    st_shared_v4(tile + (c / BOX) * rows * ROW + swz<ROW>(r, (c % BOX) * 2),
-                 make_uint4(x[0], x[1], x[2], x[3]));
-  }
-}
-
-// this thread's share of the tile behind the barrier at bar landed: hand
-// it over
-__device__ __forceinline__ void hand_over(uint32_t bar, bool all) {
-  if (all) cp_async_wait<0>();
-  else cp_async_wait<1>();
-  fence_proxy_async();
-  mbar_arrive(bar);
-}
+// same tiles on the same barriers either way), a row a thread, with
+// wgmma_tile.cuh's staged rows (zero_tail, stage_row, hand_over; the
+// producer runs on 40 registers a thread).
 
 // The staged producer (thread t of 128): Q, then the K and V tiles of the
 // ring, as the TMA producer brings them; every address in shared memory a

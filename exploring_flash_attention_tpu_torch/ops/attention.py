@@ -203,15 +203,15 @@ def diagonal(diag_off: DiagOff):
     return diag_off
 
 
-# The head dims of the serving kernels H1, H2, H6-decode and H6-extend:
-# every d up to their largest instance.  A d below its instance's D runs on
-# zero-filled columns; where a row of q, k, v or the codes is not a
-# multiple of 16 bytes (bf16 d % 8, f32 d % 4, codes d % 16) the kernels
-# load it at the alignment it has instead of by TMA boxes or 16-byte loads
+# The head dims of the serving kernels H1, H2, H6-decode and H6-extend and
+# of the backward pair H3-dkv and H3-dq: every d up to their largest
+# instance.  A d below its instance's D runs on zero-filled columns; where
+# a row of q, k, v, dO or the codes is not a multiple of 16 bytes (bf16 d %
+# 8, f32 d % 4, codes d % 16) the kernels load it at the alignment it has
+# instead of by TMA boxes or 16-byte loads
 SERVING_HEAD_DIM_RULE = "d from 1 to 256"
-# The head dims of H3-dkv, H3-dq, H4-kvq and H4-int8: a multiple of 16
-# keeps every TMA row stride (2d bytes bf16, d bytes int8) a multiple of
-# 16 bytes
+# The head dims of H4-kvq and H4-int8: a multiple of 16 keeps every TMA row
+# stride (2d bytes bf16, d bytes int8) a multiple of 16 bytes
 HEAD_DIM_RULE = "d a multiple of 16 from 16 to 256"
 # The head dims of H5 (ops.attention_v1_dtiled.h5_plan), d cut into
 # 128-column chunks across the blocks of a cluster, for the same reason a
@@ -220,16 +220,17 @@ H5_HEAD_DIM_RULE = "d a multiple of 16 from 16 to 2048"
 
 
 def kernel_head_dim(d: int) -> bool:
-    """Whether the serving kernels H1, H2, H6-decode and H6-extend take
-    head dim ``d`` (:data:`SERVING_HEAD_DIM_RULE`).  H1 and the paged pair
-    run a d below their next instance's (32, 64, 128 or 256) on
-    zero-filled columns; H2 has one instance per multiple of 16 and runs
-    any other d on the instance of its lanes with d read at run time."""
+    """Whether the serving kernels H1, H2, H6-decode and H6-extend and the
+    backward pair H3-dkv and H3-dq take head dim ``d``
+    (:data:`SERVING_HEAD_DIM_RULE`).  H1, H3 and the paged pair run a d
+    below their next instance's (32, 64, 128 or 256) on zero-filled
+    columns; H2 has one instance per multiple of 16 and runs any other d on
+    the instance of its lanes with d read at run time."""
     return 1 <= d <= 256
 
 
 def sixteen_head_dim(d: int) -> bool:
-    """Whether H3-dkv, H3-dq, H4-kvq and H4-int8 take head dim ``d``
+    """Whether H4-kvq and H4-int8 take head dim ``d``
     (:data:`HEAD_DIM_RULE`)."""
     return 16 <= d <= 256 and d % 16 == 0
 

@@ -2,7 +2,8 @@
 split-KV merges, on the card, for A/B runs.
 
     python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT]
-        [--bwd | --merge | --serve | --f32 | --clusters | --heads]
+        [--bwd | --bwd-heads | --merge | --serve | --f32 | --clusters |
+         --heads]
 
 ROOT (default: this checkout) is the root of a checkout of the port, for
 example a ``git archive`` of another commit unpacked under ``build/``; its
@@ -16,7 +17,9 @@ d=128, int8 and e4m3 K/V, block 512) and at d=64 (int8), of
 ``make_qkv(seed=1)`` rounded to bf16; with ``--bwd``, of H3-dkv and H3-dq
 alone at the training shape (B=8, Hq=8, Hkv=4, L=1024, d=128), causal and
 without a mask, at d=64 causal, and at the ring hops of 256 and 8192 rows
-(diagonal and past; ``BWD_CASES``); with ``--merge``, of H2
+(diagonal and past; ``BWD_CASES``); with ``--bwd-heads``, of H3-dkv
+and H3-dq alone, causal, at d 80, 128 and 256 in bf16 and f32 at the
+models' training shapes (``BWD_HEADS_CASES``); with ``--merge``, of H2
 (``splitkv_combine``, bf16 O) on random f32 partials at the v1 split case
 (8192 rows of 2 partials, d=128), at the slice's decode merge (64 rows of
 8), at one long sequence's (8 rows of 64) and on 8 rows of 2 (what any
@@ -83,6 +86,52 @@ def time_bwd(root: Path) -> str:
             ms = time_cuda(lambda: fn(q, k, v, do, lse, delta, scale, causal,
                                       diag), n_iter=30)
             out.append(f"{name} {label} {ms:.4f} ms")
+    return f"{root.name or root}: " + " | ".join(out)
+
+
+# H3 at the multiples of 16 the models train at, each dtype: (label, B,
+# Hq, Hkv, L, d), causal, the heads models' and the flagship's training
+# shapes (heads80g16, the flagship, heads256)
+BWD_HEADS_CASES = (("d=80 heads80g16", 8, 16, 1, 1024, 80),
+                   ("d=128 flagship", 8, 8, 4, 1024, 128),
+                   ("d=256 heads256", 8, 4, 1, 1024, 256))
+
+
+def time_bwd_heads(root: Path) -> str:
+    """H3-dkv and H3-dq alone, causal, at each of BWD_HEADS_CASES in bf16
+    and f32 (static offsets; inputs from make_qkv, dO from the next
+    seed)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from exploring_flash_attention_tpu_torch.oracle import make_qkv
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_bwd_dkv,
+        attention_bwd_dq,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, hq, hkv, l, d in BWD_HEADS_CASES:
+            q, k, v = (torch.from_numpy(x).to("cuda", dtype) for x in
+                       make_qkv(b, hq, l, d, dtype=np.float32, seed=1,
+                                heads_kv=hkv))
+            do = torch.from_numpy(make_qkv(b, hq, l, d, dtype=np.float32,
+                                           seed=2)[0]).to("cuda", dtype)
+            scale = 1.0 / math.sqrt(d)
+            o, lse = prefill_attention(q, k, v, scale, 0, True)
+            delta = (do.float() * o.float()).sum(dim=-1)
+            for name, fn in (("H3-dkv", attention_bwd_dkv),
+                             ("H3-dq", attention_bwd_dq)):
+                ms = time_cuda(lambda: fn(q, k, v, do, lse, delta, scale,
+                                          True, 0), n_iter=30)
+                kind = "bf16" if dtype == torch.bfloat16 else "f32"
+                out.append(f"{name} {kind} {label} {ms:.4f} ms")
+            del q, k, v, do, o, lse, delta
     return f"{root.name or root}: " + " | ".join(out)
 
 
@@ -421,6 +470,8 @@ def main(root: Path, mode: str = "") -> str:
     sys.path.insert(0, str(root))
     if mode == "--bwd":
         return time_bwd(root)
+    if mode == "--bwd-heads":
+        return time_bwd_heads(root)
     if mode == "--merge":
         return time_merge(root)
     if mode == "--serve":

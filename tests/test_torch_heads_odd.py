@@ -14,8 +14,8 @@ reads d at run time, the paged pair reads the codes at their rows'
 alignment (``tests/test_torch_kernels.py`` holds them against these plain
 versions there).
 
-Also here: the head-dim rules, the serving kernels' (``d from 1 to 256``)
-and H3's and H4's, which still refuse these d.
+Also here: the head-dim rules, the serving kernels' and H3's (``d from 1
+to 256``) and H4's, which still refuses these d.
 """
 
 import re
@@ -89,9 +89,10 @@ PAGED_ODD = [(72, 16, 16, 128), (40, 8, 1, 256), (36, 32, 2, 512),
 
 
 def test_h3_h4_rule_stays_the_multiples_of_16():
-    """H3's and H4's rule stays the multiples of 16 from 16 to 256, apart
-    from the serving kernels' (``kernel_head_dim``, which names itself
-    ``SERVING_HEAD_DIM_RULE``)."""
+    """H4's rule (``sixteen_head_dim``, ``HEAD_DIM_RULE``) stays the
+    multiples of 16 from 16 to 256, apart from the rule of the serving
+    kernels and of H3-dkv and H3-dq (``kernel_head_dim``, which names
+    itself ``SERVING_HEAD_DIM_RULE``): every d from 1 to 256."""
     assert SERVING_HEAD_DIM_RULE == "d from 1 to 256"
     assert HEAD_DIM_RULE == "d a multiple of 16 from 16 to 256"
     assert [d for d in range(300) if sixteen_head_dim(d)] == list(
@@ -102,10 +103,11 @@ def test_h3_h4_rule_stays_the_multiples_of_16():
 
 @pytest.mark.parametrize("d", [72, 8, 40, 250])
 def test_h3_and_h4_still_refuse_d_off_sixteen(d, monkeypatch):
-    """At a d the serving kernels now take, H3-dkv and H3-dq (their shared
-    check, with the device check passed on CPU tensors) and H4-kvq and
-    H4-int8 (their instance, ``h4_instance``; ``kvquant_kernel``) raise
-    ``ValueError`` naming ``HEAD_DIM_RULE``."""
+    """At a d off the multiples of 16, H4-kvq and H4-int8 (their instance,
+    ``h4_instance``; ``kvquant_kernel``) raise ``ValueError`` naming
+    ``HEAD_DIM_RULE``, while H3-dkv's and H3-dq's shared check (the device
+    check passed on CPU tensors) takes it, as the serving kernels do, and
+    refuses d 0 and 257 naming ``SERVING_HEAD_DIM_RULE``."""
     rule = re.escape(HEAD_DIM_RULE)
     with pytest.raises(ValueError, match=rule):
         h4_instance(d)
@@ -113,11 +115,15 @@ def test_h3_and_h4_still_refuse_d_off_sixteen(d, monkeypatch):
         kvquant_kernel(d)
     monkeypatch.setattr(attention_bwd, "_check_cuda_inputs",
                         lambda *a: torch.float32)
-    q = torch.zeros(1, 2, 8, d)
     lse = torch.zeros(1, 2, 8)
     for name in ("H3-dkv", "H3-dq"):
-        with pytest.raises(ValueError, match=rule):
-            attention_bwd._check_bwd_inputs(name, q, q, q, q, lse, lse)
+        q = torch.zeros(1, 2, 8, d)
+        attention_bwd._check_bwd_inputs(name, q, q, q, q, lse, lse)
+        for bad in (0, 257):
+            q = torch.zeros(1, 2, 8, bad)
+            with pytest.raises(ValueError,
+                               match=re.escape(SERVING_HEAD_DIM_RULE)):
+                attention_bwd._check_bwd_inputs(name, q, q, q, q, lse, lse)
 
 
 @pytest.mark.parametrize("mode", ["none", "causal", "window"])

@@ -740,20 +740,18 @@ def test_decode_kernel_refuses_what_it_cannot_take(cuda_device):
 
 @pytest.mark.parametrize("d", [0, 72, 272])
 def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
-    """H1, H2, H6-decode and H6-extend raise ``ValueError`` naming their
-    rule (``SERVING_HEAD_DIM_RULE``, d from 1 to 256) for d 0 and 272, on
-    CUDA tensors, and launch nothing; at d=72, which they take, H3-dkv,
-    H3-dq, H4-kvq and H4-int8 raise naming theirs (``HEAD_DIM_RULE``, a
-    multiple of 16) and launch nothing."""
+    """H1, H2, H6-decode, H6-extend, H3-dkv and H3-dq raise ``ValueError``
+    naming their rule (``SERVING_HEAD_DIM_RULE``, d from 1 to 256) for d 0
+    and 272, on CUDA tensors, and launch nothing; at d=72, which they take,
+    H4-kvq and H4-int8 raise naming theirs (``HEAD_DIM_RULE``, a multiple
+    of 16) and launch nothing."""
     counted = (prefill_attention, splitkv_combine, paged_decode_partials,
                paged_extend_attention, attention_bwd_dkv, attention_bwd_dq,
                flash_attention_kvquant, flash_attention_int8)
     before = [fn.launches for fn in counted]
     q, k, v = _qkv(cuda_device, 1, 4, 2, 64, 64, d)
+    lse = torch.zeros(1, 4, 64, device=cuda_device)
     if d == 72:
-        lse = torch.zeros(1, 4, 64, device=cuda_device)
-        with pytest.raises(ValueError, match=re.escape(HEAD_DIM_RULE)):
-            flash_attention_bwd(q, k, v, q, q, lse, causal=True)
         q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, d)     # H4: no GQA
         kq, vq = quantize_int8(k, 64), quantize_int8(v, 64)
         with pytest.raises(ValueError, match=re.escape(HEAD_DIM_RULE)):
@@ -777,6 +775,8 @@ def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
     with pytest.raises(ValueError, match=rule):
         paged_extend_attention(q.transpose(1, 2).contiguous(), cache, slots,
                                1.0)
+    with pytest.raises(ValueError, match=rule):
+        flash_attention_bwd(q, k, v, q, q, lse, scale=1.0, causal=True)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counted] == before
 
@@ -1064,6 +1064,14 @@ BWD_MASKS = {"none": (False, None), "causal": (True, None),
     (1, 4, 1, 300, 300, 80, -40, "window"),    # a band off the diagonal
     (2, 4, 1, 1024, 1024, 256, 0, "causal"),   # heads256's attention
     (2, 16, 1, 1024, 1024, 80, 0, "causal"),   # heads80g16's attention
+    # d off the multiples of 16 (ODD_BWD_DIMS), GQA 8/2, ragged and cross:
+    # bf16 rows by TMA at d % 8 == 0 (40, 72), by the staged producer else
+    # (odd 1, 33; rows 8-byte aligned 36, 100; 4-byte 250)
+    *[(2, 8, 2, 200, 330, d, 130, mask)
+      for mask in BWD_MASKS for d in (1, 33, 36, 40, 72, 100, 250)],
+    (2, 16, 16, 1024, 1024, 72, 0, "causal"),  # heads72's attention
+    (1, 4, 2, 96, 80, 36, -16, "causal"),      # Lq > Lkv, staged
+    (1, 4, 2, 300, 300, 33, -40, "window"),    # a band off the diagonal
 ])
 def test_bwd_kernels_match_plain(cuda_device, b, hq, hkv, lq, lkv, d,
                                   diag_off, mask):
@@ -1091,7 +1099,7 @@ def test_bwd_kernels_match_plain(cuda_device, b, hq, hkv, lq, lkv, d,
         assert (dv[:, :, lq + diag_off:] == 0).all()
 
 
-@pytest.mark.parametrize("d", [128, 80, 256])
+@pytest.mark.parametrize("d", [128, 80, 256, 72, 33, 250])
 @pytest.mark.parametrize("pos,mask", [
     ((256, 256), "causal"),        # a ring's diagonal hop
     ((0, 300), "causal"),          # a hop wholly in the future: no key
@@ -1102,9 +1110,10 @@ def test_traced_offsets_equal_the_static_launch(cuda_device, pos, mask, d):
     """H1, H3-dkv and H3-dq at traced positions (the int32 pair in device
     memory that every block reads, B9's and B11-B15's traced form) are
     bitwise the same kernels at the static diagonal, through the public
-    calls too, at d 128, 80 (the D=128 instance on zero-filled columns)
-    and 256 (the column-split instance); a hop that sees no key gives
-    (0, -inf) and zero gradients."""
+    calls too, at d 128, 80 (the D=128 instance on zero-filled columns),
+    256 (the column-split instance), 72 (rows by TMA) and 33 and 250 (rows
+    by the staged producers); a hop that sees no key gives (0, -inf) and
+    zero gradients."""
     causal, window = BWD_MASKS[mask]
     diag = pos[0] - pos[1]
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 2, 8, 4, 300, 300,
@@ -1130,7 +1139,7 @@ def test_traced_offsets_equal_the_static_launch(cuda_device, pos, mask, d):
         assert all((g == 0).all() for g in bwd[0])
 
 
-@pytest.mark.parametrize("d", [128, 80, 256])
+@pytest.mark.parametrize("d", [128, 80, 256, 1, 33, 36, 40, 72, 100, 250])
 @pytest.mark.parametrize("mask", BWD_MASKS)
 def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask, d):
     causal, window = BWD_MASKS[mask]
@@ -1146,8 +1155,8 @@ def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask, d):
 def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
     """One launch of each kernel a call, f32 at d=144 (the f32 D=256
     instance, a cluster of two blocks) too; f16 refused with no launch, as
-    is d=72, outside ``ops.attention.HEAD_DIM_RULE`` (its residuals are
-    made by hand)."""
+    is d=272, outside ``ops.attention.SERVING_HEAD_DIM_RULE`` (its
+    residuals are made by hand)."""
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 1, 2, 2, 64, 64,
                                              64, 0)
     before = (attention_bwd_dkv.launches, attention_bwd_dq.launches)
@@ -1165,10 +1174,11 @@ def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
     assert all(g.dtype == torch.float32 for g in grads)
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
         before[0] + 2, before[1] + 2)
-    q72, k72, v72 = _qkv(cuda_device, 1, 2, 2, 64, 64, 72, seed=4)
-    lse72 = torch.zeros(1, 2, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="multiple of 16 from 16 to 256"):
-        flash_attention_bwd(q72, k72, v72, q72, q72, lse72, causal=True)
+    q272, k272, v272 = _qkv(cuda_device, 1, 2, 2, 64, 64, 272, seed=4)
+    lse272 = torch.zeros(1, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="d from 1 to 256"):
+        flash_attention_bwd(q272, k272, v272, q272, q272, lse272,
+                            causal=True)
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
         before[0] + 2, before[1] + 2)
 
@@ -2089,6 +2099,12 @@ F32_BWD_REL_TOL = 1e-4
     (2, 4, 1, 136, 150, 144, 14),     # d=144: the cluster's zero columns
     (1, 4, 1, 300, 260, 256, -40),    # d = D = 256, rows that see no key
     (1, 4, 2, 129, 200, 256, 71),     # d=256, ragged, G=2
+    # d off the multiples of 16, GQA 8/2, ragged and cross: rows read a
+    # float at a time at d % 4 != 0 (1, 33, 250), by 16-byte loads else;
+    # 136, 200 and 250 leave the cluster's second block 8, 72 and 122
+    # columns
+    *[(2, 8, 2, 200, 330, d, 130)
+      for d in (1, 33, 36, 40, 72, 100, 136, 200, 250)],
 ])
 @pytest.mark.parametrize("mask", list(BWD_MASKS))
 def test_bwd_f32_matches_the_plain_f32_backward(cuda_device, mask, b, hq,
@@ -2126,7 +2142,7 @@ def test_bwd_f32_matches_the_plain_f32_backward(cuda_device, mask, b, hq,
         assert (dv[:, :, lq + diag_off:] == 0).all()
 
 
-@pytest.mark.parametrize("d", [144, 256])
+@pytest.mark.parametrize("d", [144, 256, 72, 33, 250])
 @pytest.mark.parametrize("pos,mask", [
     ((256, 256), "causal"),        # a ring's diagonal hop
     ((0, 300), "causal"),          # a hop wholly in the future: no key
@@ -2135,9 +2151,10 @@ def test_bwd_f32_matches_the_plain_f32_backward(cuda_device, mask, b, hq,
 ])
 def test_bwd_f32_traced_offsets_equal_the_static_launch(cuda_device, pos,
                                                         mask, d):
-    """H3 at f32 on the D=256 instance (a cluster of two blocks) at traced
-    positions is bitwise its static launch; a hop that sees no key gives
-    zero gradients."""
+    """H3 at f32 at traced positions is bitwise its static launch, on the
+    D=256 instance (a cluster of two blocks) and at d off the multiples of
+    16 (72; 33 and 250, rows read a float at a time); a hop that sees no
+    key gives zero gradients."""
     causal, window = BWD_MASKS[mask]
     diag = pos[0] - pos[1]
     q, k, v = _f32_qkv(cuda_device, 2, 8, 4, 300, 300, d, seed=d)

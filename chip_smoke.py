@@ -350,6 +350,19 @@ Phases, one line each; any failure exits non-zero before the last line:
    through the same train step, encoder step and sharded step at the same
    limits, their training tokens/s beside their bf16 readings of the
    heads_train phase, and H3 f32 timed at heads72's train shape.
+26. quant_odd (after f32_ops): H4-kvq, H4-int8 and H5 at head dims off
+   the multiples of 16 (HEADS_ODD: their PACKED and STAGED instances,
+   whose producers copy rows that no tensor map takes), bf16 and f32 q,
+   int8 and e4m3 K/V (H5 also K/V of q's dtype), and H5's quantized
+   form through flash_attention_kvquant at d 264, 520, 1000 and 2040;
+   each one counted launch against the plain version and the f64 oracle
+   on [:1, :2] beside the quant phase's controls and rows misread (each
+   element one late, each row's last column dropped: K's or V's, and Q's
+   for H4-int8).  Timed beside SDPA over the dequantized tensors and the
+   bound of the true d: the kvquant and int8 ops at SigLIP-so400m's
+   attention (B=32, H=16, L=729, d=72), H4-kvq at Stable Diffusion 1.5's
+   first UNet self-attention (B=2, H=8, L=4096, d=40), H5 beside H1 at
+   SigLIP-so400m's shape.
 
 ``python3 chip_smoke.py --only PHASE,...`` runs the build and the named
 phases alone (no kernels line), for a quicker call while a phase is
@@ -503,7 +516,7 @@ H6E_SRC = "exploring_flash_attention_tpu_torch/csrc/paged_extend.cu"
 H3_SRC = "exploring_flash_attention_tpu_torch/csrc/attention_bwd.cu"
 H4KVQ_SRC = "exploring_flash_attention_tpu_torch/csrc/kvquant_attention.cu"
 H4INT8_SRC = "exploring_flash_attention_tpu_torch/csrc/int8_attention.cu"
-H5_SRC = "exploring_flash_attention_tpu_torch/csrc/dtiled_attention.cu"
+H5_SRC = "exploring_flash_attention_tpu_torch/csrc/dtiled_attention.cuh"
 KVQ_PY = "exploring_flash_attention_tpu/ops/attention_kvquant.py"
 INT8_PY = "exploring_flash_attention_tpu/ops/attention_int8.py"
 DTILED_PY = "exploring_flash_attention_tpu/ops/attention_v1_dtiled.py"
@@ -745,21 +758,25 @@ def phase_build(kernels):
 
 # the wgmma kernels' functions in the SASS: H1 (D 32, 64, 128, 256 x Q
 # tiles of 64 and 128 rows x the exact and bound statistics), H4-int8
-# (D 64, 128, 256 x pv_mode), H4-kvq (D 64, 128, 256 x int8, e4m3), H5 (d 128,
+# (D 64, 128, 256 x pv_mode x rows by TMA, or copied at d % 16 != 0,
+# PACKED), H4-kvq (D 64, 128, 256 x int8, e4m3 x the same), H5 (d 128,
 # 256, 384, 512 x bf16, int8, e4m3; its cluster instances, 1 to 4 chunks
-# a block x the same kinds), H3-dkv and H3-dq (D 32, 64, 128, 256, and the
+# a block x the same kinds x rows by TMA, or copied where TMA cannot
+# describe them, STAGED), H3-dkv and H3-dq (D 32, 64, 128, 256, and the
 # exact forms of 64 and 128, whose d is a constant; their staged forms of
 # D 32, 64, 128, 256 for rows TMA cannot describe, bf16 d % 8 != 0),
 # H6-extend (D 64, 128, 256 x codes by TMA, or by bulk copy where d % 16
 # != 0)
-WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 6,
-                   "kvquant_attention_kernel": 6,
+WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16,
+                   "int8_attention_kernel": 12,
+                   "kvquant_attention_kernel": 12,
                    "dtiled_attention_kernel": 12,
-                   "dtiled_attention_cluster_kernel": 12,
+                   "dtiled_attention_cluster_kernel": 24,
                    # at f32: H4-kvq D 64, 128, 256 x int8, e4m3; H5 one
-                   # and two chunks a block x f32, int8, e4m3 K/V
+                   # and two chunks a block x f32, int8, e4m3 K/V x rows
+                   # by TMA or STAGED
                    "kvquant_attention_f32_kernel": 6,
-                   "dtiled_attention_f32_kernel": 6,
+                   "dtiled_attention_f32_kernel": 12,
                    "attention_bwd_dkv_kernel": 10,
                    "attention_bwd_dq_kernel": 10,
                    "paged_extend_kernel": 6,
@@ -777,10 +794,14 @@ WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16, "int8_attention_kernel": 6,
 H2_FUNCTIONS = 16 + 5 + 5
 
 
+MMA_OPS = re.compile(r"\b(HGMMA|IGMMA|HMMA|IMMA)\b")
+
+
 def check_sass(kernels):
     """H1, H3, H4-int8, H4-kvq, H5 and H6-extend run on wgmma: HGMMA in
     every H1, H3, H4-kvq, H5 and H6-extend function and in the pv_mode bf16
-    H4-int8 ones (template argument false, ``Lb0E``), IGMMA in every
+    H4-int8 ones (second template argument false, ``ILi64ELb0E``), IGMMA
+    in every
     H4-int8 function, no HMMA or IMMA in any of them.  H2 (every d of the
     rule) reads its partials with 128-bit global loads (``LDG.E.128``,
     with any cache modifiers) in every function but those of rows that are
@@ -800,10 +821,12 @@ def check_sass(kernels):
         if kind is None:
             continue
         found[kind] += 1
-        counts = {op: len(re.findall(rf"\b{op}\b", text))
-                  for op in ("HGMMA", "IGMMA", "HMMA", "IMMA")}
+        counts = dict.fromkeys(("HGMMA", "IGMMA", "HMMA", "IMMA"), 0)
+        for op in MMA_OPS.findall(text):
+            counts[op] += 1
         print(f"  sass: {kind} {name.split(kind)[1][:12]}: {counts}")
-        need = (["IGMMA"] + (["HGMMA"] if "Lb0E" in name else [])
+        bf16_pv = re.search(r"int8_attention_kernelILi\d+ELb0E", name)
+        need = (["IGMMA"] + (["HGMMA"] if bf16_pv else [])
                 if kind.startswith("int8") else ["HGMMA"])
         _require(all(counts[op] > 0 for op in need),
                  f"{name}: no {need} in its SASS")
@@ -830,7 +853,8 @@ NOT_HELD = re.compile(r"paged_decode_kernelILi\d+ELi\d+ELb0E")
 # exact and bound statistics, H6-extend D 64/128/256, H4-kvq D 64/128/256
 # x int8, e4m3), H5's three families (WGMMA_FUNCTIONS), and H4-kvq's and
 # H4-int8's bf16 / int8 instances (D 64/128/256 x int8, e4m3 or x
-# pv_mode; O 128 registers a consumer thread at D=256), and H3-dkv's and
+# pv_mode x rows by TMA or PACKED; O 128 registers a consumer thread at
+# D=256), and H3-dkv's and
 # H3-dq's (WGMMA_FUNCTIONS: dK + dV 128 registers a consumer thread, the
 # staged producers on 24 and, H3-dkv's, 40; at f32 the 255 of a thread)
 NO_SPILL_FUNCTIONS = {"prefill_attention_kernel": 16,
@@ -844,11 +868,11 @@ NO_SPILL_FUNCTIONS = {"prefill_attention_kernel": 16,
                       "prefill_attention_f32_kernel": 6,
                       "paged_extend_f32_kernel": 3,
                       "kvquant_attention_f32_kernel": 6,
-                      "kvquant_attention_kernel": 6,
-                      "int8_attention_kernel": 6,
+                      "kvquant_attention_kernel": 12,
+                      "int8_attention_kernel": 12,
                       "dtiled_attention_kernel": 12,
-                      "dtiled_attention_cluster_kernel": 12,
-                      "dtiled_attention_f32_kernel": 6}
+                      "dtiled_attention_cluster_kernel": 24,
+                      "dtiled_attention_f32_kernel": 12}
 
 
 # ptxas serializes some wgmma of H3's f32 instances (its C7517 / C7519
@@ -988,13 +1012,35 @@ def visible_pairs(lq: int, lkv: int, causal: bool, window) -> int:
                .clip(min=0).sum())
 
 
+# make_qkv's f32 arrays by their arguments, newest last, kept while they
+# fit QKV_CACHE_BYTES: the phases draw the same inputs again (the
+# canonical shape in five phases, the dtiled cases in two), and numpy
+# draws about 100 M values a second on the host
+QKV_CACHE: dict = {}
+QKV_CACHE_BYTES = 8 << 30
+
+
+def cached_qkv(b, hq, hkv, lq, lkv, d, seed):
+    """make_qkv(b, hq, lq, d, seed=seed, seq_len_kv=lkv, heads_kv=hkv),
+    drawn once while it stays in QKV_CACHE (the arrays are read only)."""
+    from exploring_flash_attention_tpu_torch.oracle import make_qkv
+
+    key = (b, hq, hkv, lq, lkv, d, seed)
+    out = QKV_CACHE.pop(key, None)
+    if out is None:
+        out = make_qkv(b, hq, lq, d, seed=seed, seq_len_kv=lkv, heads_kv=hkv)
+    QKV_CACHE[key] = out
+    while sum(x.nbytes for t in QKV_CACHE.values() for x in t) > \
+            QKV_CACHE_BYTES and len(QKV_CACHE) > 1:
+        del QKV_CACHE[next(iter(QKV_CACHE))]
+    return out
+
+
 def v1_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed):
     """Standard-normal q, k, v from np.random.default_rng(seed), rounded to
     bf16 on the card, as bench.py makes its inputs."""
-    from exploring_flash_attention_tpu_torch.oracle import make_qkv
-
-    return [torch.from_numpy(x).to(dev, torch.bfloat16) for x in make_qkv(
-        b, hq, lq, d, seed=seed, seq_len_kv=lkv, heads_kv=hkv)]
+    return [torch.from_numpy(x).to(dev, torch.bfloat16)
+            for x in cached_qkv(b, hq, hkv, lq, lkv, d, seed)]
 
 
 def v1_readings(torch, q, k, v, o, lse, causal, window, nb, nh):
@@ -3959,8 +4005,10 @@ def h3_times(torch, q, k, v, do, causal):
     o_lib = sdpa(*leaves, is_causal=causal)
     lib = time_cuda(lambda: torch.autograd.grad(
         o_lib, leaves, do, retain_graph=True), n_iter=20)
+    # the plain backward (tens of ms) over 3 calls, as kernel_times times
+    # the plain versions
     plain = time_cuda(lambda: attention_bwd_plain(
-        q, k, v, o, do, lse, s, causal, 0), n_iter=20)
+        q, k, v, o, do, lse, s, causal, 0), n_iter=3, n_warmup=1)
     pairs = visible_pairs(l, l, causal, None) * b * hq
     f32 = q.dtype == torch.float32
     terms = H3_F32_TERMS if f32 else 1
@@ -5930,11 +5978,8 @@ def f32_fma_ms(flops):
 
 def f32_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed):
     """Standard-normal f32 q, k, v from np.random.default_rng(seed)."""
-    from exploring_flash_attention_tpu_torch.oracle import make_qkv
-
-    return [torch.from_numpy(x).to(dev) for x in make_qkv(
-        b, hq, lq, d, dtype=np.float32, seed=seed, seq_len_kv=lkv,
-        heads_kv=hkv)]
+    return [torch.from_numpy(x).to(dev)
+            for x in cached_qkv(b, hq, hkv, lq, lkv, d, seed)]
 
 
 def f32_check(what, err, ctl, tol, extra=""):
@@ -7057,7 +7102,249 @@ def f32_ops_entry(f32ops, kern, name, source, replaces, also):
             "by_case": r["cases"]}
 
 
-PHASES = ("h1", "v1", "tiles", "v2", "quant", "dtiled", "f32_ops", "decode",
+# The quant_odd phase: H4-kvq, H4-int8 and H5 at head dims off the
+# multiples of 16 (HEADS_ODD), whose rows no tensor map takes (codes d % 16
+# != 0, bf16 d % 8, f32 d % 4): the PACKED and STAGED instances, whose
+# producers copy the rows themselves.  Each case is one counted launch at
+# QUANT_HEADS_SHAPE against the plain version and the f64 oracle on
+# [:1, :2], beside the quant phase's controls and rows misread as a wrong
+# copy would read them (misread_rows on K's or V's rows, and Q's for
+# H4-int8); H5's quantized form past 256 through flash_attention_kvquant
+# at QUANT_ODD_H5_DIMS (the last rank's last chunk cut at d, clusters of
+# 1 to 4 blocks).  tests/test_torch_quant_heads_odd.py and
+# tests/test_torch_dtiled_heads_odd.py rehearse the limits
+QUANT_ODD_H5_DIMS = (264, 520, 1000, 2040)
+# timed (name, B, H, L, d): SigLIP-so400m's attention (its 27 x 27 patch
+# grid, 16 heads of 72: the kvquant and int8 ops, H5 beside H1) and Stable
+# Diffusion 1.5's first UNet self-attention (64 x 64 latents, 8 heads of
+# 40, a classifier-free-guidance batch of 2: H4-kvq)
+QUANT_ODD_TIMED = (("SigLIP-so400m", 32, 16, 729, 72),
+                   ("Stable Diffusion 1.5", 2, 8, 4096, 40))
+QUANT_ODD_BLOCK = 512
+
+
+def misread_quantized(torch, qt):
+    """misread_rows of a quantized tensor's codes (their bytes: torch rolls
+    no e4m3 tensor on the card), its scales kept."""
+    from exploring_flash_attention_tpu_torch.ops import QuantizedTensor
+
+    return {n: QuantizedTensor(x.view(qt.values.dtype), qt.scales, qt.block)
+            for n, x in misread_rows(
+                torch, qt.values.view(torch.uint8)).items()}
+
+
+def misread_controls(torch, plain, q, k, v, with_q=False):
+    """The plain version (``plain(q, k, v)``) on K's rows or V's rows (and
+    Q's, with_q) misread as misread_rows misreads them, one at a time (at
+    d=1 K and V read late together would keep their pairs)."""
+    from exploring_flash_attention_tpu_torch.ops import QuantizedTensor
+
+    wrong = (lambda x: misread_quantized(torch, x)     # noqa: E731
+             if isinstance(x, QuantizedTensor) else misread_rows(torch, x))
+    out = {}
+    for who in ("QKV" if with_q else "KV"):
+        for name, bad in wrong({"Q": q, "K": k, "V": v}[who]).items():
+            args = {"Q": q, "K": k, "V": v, who: bad}
+            out[f"{who}: {name}"] = plain(args["Q"], args["K"], args["V"])
+    return out
+
+
+def phase_quant_odd(torch, dev):
+    """flash_attention_kvquant (H4-kvq up to 256, H5's quantized form past
+    it), flash_attention_int8 (H4-int8) and flash_attention_v1_dtiled (H5)
+    at HEADS_ODD, bf16 and f32 q, int8 and e4m3 K/V (H5 also bf16 or f32
+    K/V), and the quantized-KV op at QUANT_ODD_H5_DIMS: each one counted
+    launch against the plain version and the f64 oracle beside its
+    controls (misread rows among them); then the ops timed at
+    QUANT_ODD_TIMED beside SDPA over the dequantized tensors and the
+    bound, H5 beside H1 at SigLIP-so400m's shape."""
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_dtiled_plain,
+        attention_int8_plain,
+        attention_kvquant_plain,
+        dequantize,
+        flash_attention_int8,
+        flash_attention_kvquant,
+        flash_attention_v1,
+        flash_attention_v1_dtiled,
+        quantize_fp8,
+        quantize_int8,
+    )
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        attention_plain,
+        h4_instance,
+    )
+
+    t0 = time.perf_counter()
+    quant = {"int8": quantize_int8, "fp8": quantize_fp8}
+    f32 = torch.float32
+    b, h, lq, lkv = QUANT_HEADS_SHAPE
+    blk = QUANT_HEADS_BLOCKS
+    out = {"h4kvq": {}, "h4int8": {}, "h5": {}, "times": {}}
+
+    def oracle64(q, k, v):
+        """f64 attention on the card over the (dequantized) slice, as a
+        numpy array: the oracle's sums (numpy's f64 on the host took most
+        of this phase's time)."""
+        x64 = [(x if torch.is_tensor(x) else dequantize(x)).double()
+               for x in (q, k, v)]
+        return attention_plain(*x64, 1.0 / math.sqrt(q.shape[-1]),
+                               False)[0].cpu().numpy()
+
+    def case(kern, what, call, plain, sl, whole, tol, f32_q, tol_oracle=None):
+        """One check: ``call`` one launch of ``kern``; ``plain(q, k, v,
+        scale)`` the plain version, run on ``whole`` (the call's inputs)
+        and, wrongly, on the slice ``sl`` ([:1, :2])."""
+        o = counted_call(torch, call, launches_only(**{kern: 1}))
+        q_, k_, v_ = sl
+        scale = 1.0 / math.sqrt(q_.shape[-1])
+        deq = lambda x: x if torch.is_tensor(x) else dequantize(x)  # noqa
+        o64 = oracle64(q_, k_, v_)
+        bad = {"scale x1.1": plain(q_, k_, v_, 1.1 * scale),
+               "last tile dropped": plain(
+                   q_, *(x[:, :, :-64] if torch.is_tensor(x)
+                         else dropped_tile(x) for x in (k_, v_)), scale)}
+        if not torch.is_tensor(k_):
+            bad["scales rolled"] = plain(q_, rolled(k_), rolled(v_), scale)
+        if f32_q:
+            bad["P rounded to bf16"] = rounded_p_plain(
+                torch, q_, deq(k_), deq(v_), scale)
+        bad.update(misread_controls(
+            torch, lambda a, b_, c: plain(a, b_, c, scale), q_, k_, v_,
+            kern == "h4int8"))
+        err = held(torch, what, o, plain(*whole, scale), o64,
+                   {n: x.cpu().numpy() for n, x in bad.items()}, tol,
+                   tol_oracle or tol, 1, 2, f"; one {kern} launch")
+        return {"max_abs_err": err,
+                "oracle_err": float(np.abs(o[:1, :2].cpu().numpy()
+                                           - o64).max())}
+
+    for d in HEADS_ODD + QUANT_ODD_H5_DIMS:
+        kern = "h4kvq" if d <= 256 else "h5"
+        inst = f"D={h4_instance(d)}" if d <= 256 else "H5"
+        for qdt in ("bf16", "f32"):
+            make = v1_inputs if qdt == "bf16" else f32_inputs
+            q, k, v = make(torch, dev, b, h, h, lq, lkv, d, d)
+            for kind in ("int8", "fp8"):
+                kq, vq = (quant[kind](x, blk["kvq"]) for x in (k, v))
+                tol = (F32_OPS_TOL if qdt == "f32" else
+                       KVQ_O_TOL if d <= 256 else DTILED_O_TOL)
+                out["h4kvq" if d <= 256 else "h5"][
+                    f"d={d} {qdt} q {kind} (kvquant op)"] = case(
+                    kern, f"quant_odd kvquant d={d} ({inst}) {qdt} q {kind}",
+                    lambda: flash_attention_kvquant(q, kq, vq, out_dtype=f32),
+                    attention_kvquant_plain,
+                    (q[:1, :2], heads(kq, 0, 1, 2), heads(vq, 0, 1, 2)),
+                    (q, kq, vq), tol, qdt == "f32")
+                del kq, vq
+            if d <= 256:
+                # H5 itself: K/V of q's dtype, or codes
+                for kind in ("dense", "int8", "fp8"):
+                    if kind == "dense":
+                        kx, vx, ks, vs = k, v, k[:1, :2], v[:1, :2]
+                    else:
+                        kx, vx = (quant[kind](x, blk["kvq"]) for x in (k, v))
+                        ks, vs = heads(kx, 0, 1, 2), heads(vx, 0, 1, 2)
+                    tol = F32_OPS_TOL if qdt == "f32" else DTILED_O_TOL
+                    out["h5"][f"d={d} {qdt} q {kind}"] = case(
+                        "h5", f"quant_odd dtiled d={d} {qdt} q {kind} K/V",
+                        lambda: flash_attention_v1_dtiled(q, kx, vx,
+                                                          out_dtype=f32),
+                        attention_dtiled_plain, (q[:1, :2], ks, vs),
+                        (q, kx, vx), tol, qdt == "f32")
+                    del kx, vx
+            del q, k, v
+        if d > 256:
+            continue
+        q, k, v = v1_inputs(torch, dev, b, h, h, lq, lkv, d, d + 1)
+        qq = quantize_int8(q, blk["q"])
+        kq, vq = (quantize_int8(x, blk["int8"]) for x in (k, v))
+        del q, k, v
+        for mode in ("bf16", "int8"):
+            plain = (lambda a, b_, c, s, m=mode:            # noqa: E731
+                     attention_int8_plain(a, b_, c, s, m))
+            # pv_mode int8 against the oracle: B18's requantized P is the
+            # function's own error (the quant phase's head-dim cases)
+            o64 = oracle64(*(heads(x, 0, 1, 2) for x in (qq, kq, vq)))
+            p_err = float(np.abs(plain(
+                *(heads(x, 0, 1, 2) for x in (qq, kq, vq)),
+                1.0 / math.sqrt(d)).cpu().numpy() - o64).max())
+            r = case("h4int8", f"quant_odd int8 d={d} (D={h4_instance(d)}) "
+                     f"pv_mode {mode}",
+                     lambda: flash_attention_int8(qq, kq, vq, out_dtype=f32,
+                                                  pv_mode=mode),
+                     plain, tuple(heads(x, 0, 1, 2) for x in (qq, kq, vq)),
+                     (qq, kq, vq), INT8_PLAIN_TOL, False,
+                     INT8_GATE_TOL if mode == "bf16"
+                     else p_err + INT8_PLAIN_TOL)
+            out["h4int8"][f"d={d} {mode}"] = {**r, "plain_oracle_err": p_err}
+        del qq, kq, vq
+    print(f"  quant_odd checks in {time.perf_counter() - t0:.1f} s")
+
+    # times at QUANT_ODD_TIMED, each beside SDPA over the dequantized bf16
+    # tensors (the dequant not counted) and the bound of the true d
+    blk_t = QUANT_ODD_BLOCK
+    for name, b, h, l, d in QUANT_ODD_TIMED:
+        scale = 1.0 / math.sqrt(d)
+        flop = 4 * b * h * l * l * d
+        q, k, v = v1_inputs(torch, dev, b, h, h, l, l, d, 1)
+        kq, vq = quantize_int8(k, blk_t), quantize_int8(v, blk_t)
+        kd, vd = dequantize(kq, q.dtype), dequantize(vq, q.dtype)
+        row = {"shape": f"B={b} H={h} L={l} d={d}",
+               "instance": f"D={h4_instance(d)}",
+               "padded_share": 1 - d / h4_instance(d)}
+        t = kernel_times(lambda: flash_attention_kvquant(q, kq, vq),
+                         lambda: attention_kvquant_plain(q, kq, vq, scale),
+                         None, [(flop, H100_BF16_FLOPS)],
+                         2 * b * h * l * d * 2 + 2 * b * h * l * d
+                         + 8 * kq.scales.numel())
+        _, t["library_ms"] = sdpa_backends(torch, q, kd, vd)
+        row["h4kvq"] = t
+        if name == "SigLIP-so400m":
+            qq = quantize_int8(q, blk_t)
+            qd = dequantize(qq, torch.bfloat16)
+            ops = 2 * b * h * l * l * d
+            for mode in ("bf16", "int8"):
+                pv_peak = H100_INT8_OPS if mode == "int8" else H100_BF16_FLOPS
+                t = kernel_times(
+                    lambda: flash_attention_int8(qq, kq, vq, pv_mode=mode),
+                    lambda: [attention_int8_plain(
+                        *(heads(x, i, i + 1) for x in (qq, kq, vq)), scale,
+                        mode) for i in range(b)],
+                    None, [(ops, H100_INT8_OPS), (ops, pv_peak)],
+                    3 * b * h * l * d + b * h * l * d * 2
+                    + 4 * (qq.scales.numel() + 2 * kq.scales.numel()))
+                _, t["library_ms"] = sdpa_backends(torch, qd, kd, vd)
+                row[f"h4int8 {mode}"] = t
+            del qq, qd
+            # H5 at d=72 beside H1 at d=72 on the same bf16 inputs
+            nbytes = 4 * b * h * l * d * 2
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = lambda: sdpa(q, k, v)                     # noqa: E731
+            row["h5"] = kernel_times(
+                lambda: flash_attention_v1_dtiled(q, k, v),
+                lambda: attention_dtiled_plain(q, k, v, scale), lib,
+                [(flop, H100_BF16_FLOPS)], nbytes)
+            row["h1"] = kernel_times(
+                lambda: flash_attention_v1(q, k, v),
+                lambda: attention_plain(q, k, v, scale, False)[0], lib,
+                [(flop, H100_BF16_FLOPS)], nbytes)
+        print(f"  quant_odd times at {name}'s shape {row['shape']} "
+              f"({row['instance']}, {100 * row['padded_share']:.2f}% of the "
+              f"products on zero-filled columns): " + "; ".join(
+                  f"{n} {x['ms']:.4f} ms (plain {x['plain_ms']:.4f}, SDPA "
+                  f"{x['library_ms']:.4f}, bound {x['bound_ms']:.4f} ms "
+                  f"{x['bound_by']})" for n, x in row.items()
+                  if isinstance(x, dict)))
+        out["times"][name] = row
+        del q, k, v, kq, vq, kd, vd
+    print(f"  quant_odd on {card_line()}")
+    print(f"phase quant_odd: ok in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+PHASES = ("h1", "v1", "tiles", "v2", "quant", "dtiled", "f32_ops",
+          "quant_odd", "decode",
           "extend", "scheduler", "bwd", "slice", "multiturn", "speculative",
           "heads", "f32", "train", "heads_train", "f32_train", "encoder",
           "seq2seq", "parallel", "window_train", "window_generate",
@@ -7199,6 +7486,7 @@ def main(argv) -> int:
     quant_gates, kvq, int8 = phase_quant(torch, dev)
     dtiled_gates, h5 = phase_dtiled(torch, dev)
     f32ops = phase_f32_ops(torch, dev)
+    qodd = phase_quant_odd(torch, dev)
     h6 = phase_decode(torch, dev)
     h6e = phase_extend(torch, dev)
     sched = phase_scheduler(torch, dev)
@@ -7436,18 +7724,22 @@ def main(argv) -> int:
         # by_head_dim: the quant phase's head-dim cases (quant_head_dims;
         # flash_attention_kvquant's past 256 ran on H5) and its times at
         # d 80 and 256
-        {"name": "H4-kvq attention over int8 / e4m3 K and V (d a multiple "
-                 "of 16 from 16 to 256; H5's quantized form past it)",
+        # odd_head_dims: the quant_odd phase's cases at d off the
+        # multiples of 16 (the PACKED / STAGED instances) and its times
+        {"name": "H4-kvq attention over int8 / e4m3 K and V (d from 1 to "
+                 "256; H5's quantized form past it)",
          "route": "cuda", "source": H4KVQ_SRC, "replaces": f"{KVQ_PY}:47",
          "also_replaces": f"{KVQ_PY}:114", "launches": kvq["launches"],
          "max_abs_err": kvq["err"], **kvq["t"]["int8"], "design": "wgmma",
          "bound_share": (kvq["t"]["int8"]["bound_ms"]
                          / kvq["t"]["int8"]["ms"]),
          "fp8": kvq["t"]["fp8"], "by_head_dim": kvq["by_head_dim"],
+         "odd_head_dims": {"checks": qodd["h4kvq"], "times": {
+             n: r["h4kvq"] for n, r in qodd["times"].items()}},
          "gates": {n: x for n, x in quant_gates.items()
                    if n.startswith("kvquant")}},
         {"name": "H4-int8 attention, int8 Q, K and V (pv_mode bf16 / int8; "
-                 "d a multiple of 16 from 16 to 256)",
+                 "d from 1 to 256)",
          "route": "cuda", "source": H4INT8_SRC, "replaces": f"{INT8_PY}:50",
          "launches": int8["launches"], "max_abs_err": int8["err"],
          **int8["t"]["canonical bf16"], "design": "wgmma",
@@ -7456,17 +7748,23 @@ def main(argv) -> int:
          "by_case": {n: x for n, x in int8["t"].items()
                      if n != "canonical bf16"},
          "by_head_dim": int8["by_head_dim"],
+         "odd_head_dims": {"checks": qodd["h4int8"], "times": {
+             f"SigLIP-so400m {m}": qodd["times"]["SigLIP-so400m"][
+                 f"h4int8 {m}"] for m in ("bf16", "int8")}},
          "gates": {n: x for n, x in quant_gates.items()
                    if n.startswith("int8")}},
-        {"name": "H5 d-tiled attention forward (bf16, int8, e4m3 K/V; d a "
-                 "multiple of 16 from 16 to 2048, clusters past 512)",
+        {"name": "H5 d-tiled attention forward (bf16, int8, e4m3 K/V; d "
+                 "from 1 to 2048, clusters past 512)",
          "route": "cuda", "source": H5_SRC, "replaces": f"{DTILED_PY}:75",
          "launches": h5["launches"], "max_abs_err": h5["err"],
          **h5["t"]["d=512 bf16"], "design": "wgmma",
          "bound_share": (h5["t"]["d=512 bf16"]["bound_ms"]
                          / h5["t"]["d=512 bf16"]["ms"]),
          "by_case": {n: x for n, x in h5["t"].items() if n != "d=512 bf16"},
-         "clusters_active": h5_occupancy, "gates": dtiled_gates},
+         "clusters_active": h5_occupancy, "gates": dtiled_gates,
+         "odd_head_dims": {"checks": qodd["h5"], "times": {
+             f"SigLIP-so400m {n}": qodd["times"]["SigLIP-so400m"][n]
+             for n in ("h5", "h1")}}},
         # the f32_ops phase: the f32 forms, each call one launch; the
         # numbers of the canonical int8 (H4-kvq) and dense d=512 (H5)
         # calls, library_ms SDPA at f32 (over the dequantized K/V for

@@ -67,11 +67,18 @@
 // consumer thread, within 232 (a 288-thread block, with a single producer
 // warp, is capped at 168 and spilled).
 //
-// Head dims.  d is any multiple of 16 from 16 to 256, on instances D = 64,
-// 128 and 256 (the smallest D >= d): Q, K and V are described to TMA with
-// their true d (int8 rows of d bytes, a multiple of 16) and loaded as boxes
-// of D columns, so the columns past d arrive as zero codes, add nothing to
-// S and give O columns that the epilogue does not store.  The padded share
+// Head dims.  d is any d from 1 to 256, on instances D = 64, 128 and 256
+// (the smallest D >= d): at d a multiple of 16, Q, K and V are described
+// to TMA with their true d (int8 rows of d bytes) and loaded as boxes of D
+// columns, so the columns past d arrive as zero codes, add nothing to S
+// and give O columns that the epilogue does not store.  At any other d no
+// tensor map takes a row stride of d bytes: the PACKED instances copy the
+// rows themselves into the same swizzled boxes (Q and K) and plain tiles
+// (V), zeros past d and past L, with cp.async pieces of the rows'
+// alignment (a code at a time below 4 bytes; wgmma_tile.cuh stage16): the
+// whole producer warpgroup Q's rows once, the loading warp each K and V
+// tile, a tile's copies one group, handed over (its lanes arrive on the
+// stage's barriers) once the next tile's are issued.  The padded share
 // of the products is (D - d) / D (37.5% at d=80).  The softmax scale is the
 // caller's, 1/sqrt(d) of the true d.  At D=256 (d 144 to 256):
 //   - Q and K rows are 256 bytes, two 128-byte boxes each (the swizzle is
@@ -179,7 +186,10 @@ __device__ __forceinline__ void wgmma_qk(int (&s)[Tiles<D, false>::BKV / 2],
   fence_regs(s);
 }
 
-template <int D, bool PV_INT8>
+// PACKED: d % 16 != 0, Q, K and V copied by the producer's threads from
+// qg, kg and vg (tq, tk and tv unused; the instances of the multiples of 16
+// compile without it)
+template <int D, bool PV_INT8, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 1)
 int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
                       const __grid_constant__ CUtensorMap tk,  // [BH, Lkv, d]
@@ -189,7 +199,10 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
                       const float* __restrict__ vs,    // [BH, n_kvb]
                       void* __restrict__ o,            // [BH, Lq, d]
                       int out_f32, int lq, int lkv, int d, int q_block,
-                      int n_qb, int kv_block, int n_kvb, float scale_log2) {
+                      int n_qb, int kv_block, int n_kvb, float scale_log2,
+                      const int8_t* __restrict__ qg,   // [BH, Lq, d]
+                      const int8_t* __restrict__ kg,   // [BH, Lkv, d]
+                      const int8_t* __restrict__ vg) { // [BH, Lkv, d]
   using T = Tiles<D, PV_INT8>;
   constexpr int BKV = T::BKV, W = T::QK_BOX, PV_N = T::PV_N;
   extern __shared__ unsigned char smem_raw[];
@@ -218,10 +231,10 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 32);           // the loading warp's lanes
       mbar_init(&empty[s], CONSUMERS * 128);
-      mbar_init(&v_full[s], 1);
+      mbar_init(&v_full[s], PACKED ? 32 : 1);
       mbar_init(&conv_full[s], CONVERTERS);
     }
-    mbar_init(q_full, 1);
+    mbar_init(q_full, PACKED ? 128 : 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -229,11 +242,41 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
   if (warp >= CONSUMERS * 4) {
     // the producer warpgroup hands registers to the consumers
     setmaxnreg_dec<PRODUCER_REGS>();
+    const int al = row_align(d);
+    if constexpr (PACKED) {
+      // Q's rows, a row a thread, handed over at once
+      const int r = threadIdx.x - CONSUMERS * 128;
+      const int8_t* src = qg + (size_t(bh) * lq + q0 + r) * d;
+#pragma unroll 1
+      for (int c = 0; c < D; c += 16)
+        stage16(smem_u32(sq + (c / W) * BQ * W) + swz<W>(r, c % W), src + c,
+                al, q0 + r < lq ? d - c : 0);
+      cp_async_commit();
+      hand_over(smem_u32(q_full), true);
+    }
+    // PACKED: this lane's pieces of rows [kv0, kv0 + BKV) of K (into the
+    // stage's swizzled boxes) or V (its plain tile): the 16 bytes at
+    // column col of every (32 / (D / 16))-th row from its first (a lane's
+    // column is the same in every row, so the loop holds few registers:
+    // with the piece's row and column recomputed, the loading warp spilled
+    // at D=256 on its 40)
+    constexpr int PER_ROW = D / 16;
+    const int col = (lane % PER_ROW) * 16;
+    auto stage_tile = [&](const int8_t* g, unsigned char* dst, bool boxes,
+                          int kv0) {
+      const int8_t* src = g + (size_t(bh) * lkv + kv0) * d + col;
+      const uint32_t base = smem_u32(dst) + (boxes ? (col / W) * BKV * W
+                                                   : col);
+#pragma unroll 1
+      for (int r = lane / PER_ROW; r < BKV; r += 32 / PER_ROW)
+        stage16(base + (boxes ? swz<W>(r, col % W) : r * D),
+                src + size_t(r) * d, al, kv0 + r < lkv ? d - col : 0);
+    };
     if (warp == CONSUMERS * 4) {
       // the loading warp: Q once; then K tiles (pass 1), K and V tiles
       // (pass 2), each with its keys' k_scale
       const float* ksb = ks + size_t(bh) * n_kvb;
-      if (lane == 0) {
+      if (!PACKED && lane == 0) {
         mbar_arrive_expect_tx(q_full, T::Q_BYTES);
         for (int x = 0; x < T::NQK; ++x)
           tma_load_3d(sq + x * BQ * W, &tq, q_full, x * W, q0, bh);
@@ -245,7 +288,21 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
         for (int c = lane; c < BKV; c += 32)
           skey[s * BKV + c] = kv0 + c < lkv ? ksb[(kv0 + c) / kv_block] : 0.f;
-        if (lane == 0) {
+        if constexpr (PACKED) {
+          // this tile's copies, one group; then tile i - 1's handed over
+          stage_tile(kg, sk + s * T::KV_BYTES, true, kv0);
+          if (pass2) stage_tile(vg, sv + s * T::KV_BYTES, false, kv0);
+          cp_async_commit();
+          if (i > 0) {
+            const int p = (i - 1) % STAGES;
+            hand_over(smem_u32(&full[p]), false);
+            if (i - 1 >= n_tiles) mbar_arrive(&v_full[p]);
+          }
+          if (i == 2 * n_tiles - 1) {
+            hand_over(smem_u32(&full[s]), true);
+            mbar_arrive(&v_full[s]);
+          }
+        } else if (lane == 0) {
           mbar_arrive_expect_tx(&full[s], T::KV_BYTES);
           for (int x = 0; x < T::NQK; ++x)
             tma_load_3d(sk + s * T::KV_BYTES + x * BKV * W, &tk, &full[s],
@@ -500,37 +557,49 @@ int8_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
           + tid % 32 / 4;
     head = cta / n_qt;
   }
-  if (d == D)
+  if constexpr (PACKED) {
+    // a value at a time (d % 8 != 0 takes it; one epilogue, which at D=256
+    // keeps the consumers within their registers)
+    store_o_rows<D, true>(acc_o, l, m, row, lq, size_t(head) * lq, o,
+                          out_f32, nullptr, d, 0, d);
+  } else if (d == D) {
     store_o_rows<D>(acc_o, l, m, row, lq, size_t(head) * lq, o, out_f32,
                     nullptr);
-  else
+  } else {
     store_o_rows<D>(acc_o, l, m, row, lq, size_t(head) * lq, o, out_f32,
                     nullptr, d, 0, d);
+  }
 }
 
-template <int D, bool PV_INT8>
+template <int D, bool PV_INT8, bool PACKED>
 int launch(const void* q, const void* k, const void* v, const void* qs,
            const void* ks, const void* vs, void* o, int out_f32, int bh,
            int lq, int lkv, int d, int q_block, int n_qb, int kv_block,
            int n_kvb, float scale_log2, cudaStream_t stream) {
   using T = Tiles<D, PV_INT8>;
   // boxes of D columns (Q and K: NQK boxes of QK_BOX) over rows of the
-  // true d: the columns past d arrive as zero codes
-  CUtensorMap tq, tk, tv;
-  int err = make_tmap(&tq, q, 1, d, lq, bh, T::QK_BOX, BQ, T::QK_BOX);
-  if (!err) err = make_tmap(&tk, k, 1, d, lkv, bh, T::QK_BOX, T::BKV,
-                            T::QK_BOX);
-  if (!err) err = make_tmap(&tv, v, 1, d, lkv, bh, D, T::BKV, 0);
-  if (err) return err;
+  // true d: the columns past d arrive as zero codes.  PACKED: no tensor
+  // map takes the rows; the kernel copies them
+  CUtensorMap tq = {}, tk = {}, tv = {};
+  if constexpr (!PACKED) {
+    int err = make_tmap(&tq, q, 1, d, lq, bh, T::QK_BOX, BQ, T::QK_BOX);
+    if (!err) err = make_tmap(&tk, k, 1, d, lkv, bh, T::QK_BOX, T::BKV,
+                              T::QK_BOX);
+    if (!err) err = make_tmap(&tv, v, 1, d, lkv, bh, D, T::BKV, 0);
+    if (err) return err;
+  }
   const cudaError_t attr = cudaFuncSetAttribute(
-      int8_attention_kernel<D, PV_INT8>,
+      int8_attention_kernel<D, PV_INT8, PACKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
   if (attr != cudaSuccess) return int(attr);
   const dim3 grid(bh * ((lq + BQ - 1) / BQ));
-  int8_attention_kernel<D, PV_INT8><<<grid, THREADS, T::bytes, stream>>>(
-      tq, tk, tv, static_cast<const float*>(qs),
-      static_cast<const float*>(ks), static_cast<const float*>(vs), o,
-      out_f32, lq, lkv, d, q_block, n_qb, kv_block, n_kvb, scale_log2);
+  int8_attention_kernel<D, PV_INT8, PACKED>
+      <<<grid, THREADS, T::bytes, stream>>>(
+          tq, tk, tv, static_cast<const float*>(qs),
+          static_cast<const float*>(ks), static_cast<const float*>(vs), o,
+          out_f32, lq, lkv, d, q_block, n_qb, kv_block, n_kvb, scale_log2,
+          static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
+          static_cast<const int8_t*>(v));
   return int(cudaGetLastError());
 }
 
@@ -540,11 +609,16 @@ int launch_mode(int pv_int8, const void* q, const void* k, const void* v,
                 int out_f32, int bh, int lq, int lkv, int d, int q_block,
                 int n_qb, int kv_block, int n_kvb, float scale_log2,
                 cudaStream_t stream) {
-  if (pv_int8)
-    return launch<D, true>(q, k, v, qs, ks, vs, o, out_f32, bh, lq, lkv, d,
-                           q_block, n_qb, kv_block, n_kvb, scale_log2, stream);
-  return launch<D, false>(q, k, v, qs, ks, vs, o, out_f32, bh, lq, lkv, d,
-                          q_block, n_qb, kv_block, n_kvb, scale_log2, stream);
+  auto go = [&](auto mode, auto packed) {
+    return launch<D, decltype(mode)::value, decltype(packed)::value>(
+        q, k, v, qs, ks, vs, o, out_f32, bh, lq, lkv, d, q_block, n_qb,
+        kv_block, n_kvb, scale_log2, stream);
+  };
+  if (d % 16 != 0)
+    return pv_int8 ? go(std::true_type{}, std::true_type{})
+                   : go(std::false_type{}, std::true_type{});
+  return pv_int8 ? go(std::true_type{}, std::false_type{})
+                 : go(std::false_type{}, std::false_type{});
 }
 
 }  // namespace
@@ -552,8 +626,8 @@ int launch_mode(int pv_int8, const void* q, const void* k, const void* v,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // ops/attention_int8.py has already checked shapes, dtypes, contiguity and
 // alignment; the checks here only refuse what would index out of bounds.
-// d: a multiple of 16 from 16 to 256, on the instance D = 64, 128 or 256
-// (the smallest D >= d); kv_block must be a multiple of 16; scale_log2 =
+// d: from 1 to 256, on the instance D = 64, 128 or 256 (the smallest D >=
+// d; the PACKED one at d % 16 != 0); kv_block must be a multiple of 16; scale_log2 =
 // softmax scale * log2(e) (the scale of the true d).
 extern "C" int eft_int8_attention(const void* q, const void* k, const void* v,
                                   const void* qs, const void* ks,
@@ -565,7 +639,7 @@ extern "C" int eft_int8_attention(const void* q, const void* k, const void* v,
   if (batch <= 0 || heads <= 0 || lq <= 0 || lkv <= 0 || q_block <= 0 ||
       n_qb != (lq + q_block - 1) / q_block || kv_block <= 0 ||
       kv_block % 16 != 0 || n_kvb != (lkv + kv_block - 1) / kv_block ||
-      d < 16 || d > 256 || d % 16 != 0)
+      d < 1 || d > 256)
     return int(cudaErrorInvalidValue);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);

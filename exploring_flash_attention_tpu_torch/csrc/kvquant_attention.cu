@@ -57,13 +57,22 @@
 // producer keeps 56 for the conversion (on an H100, 40 / 232 ran about
 // 3% slower).
 //
-// Head dims.  d is any multiple of 16 from 16 to 256, on instances D = 64,
-// 128 and 256 (the smallest D >= d), as H6-extend's (paged_extend.cu): Q
-// and the code tiles are loaded by TMA as boxes of D columns from tensors
-// described with their true d, so the columns past d arrive as zeros (zero
-// K and V codes), add nothing to S and give O columns that the epilogue
-// does not store.  The padded share of the products is (D - d) / D (37.5%
-// at d=80).  The softmax scale is the caller's, 1/sqrt(d) of the true d.
+// Head dims.  d is any d from 1 to 256, on instances D = 64, 128 and 256
+// (the smallest D >= d), as H6-extend's (paged_extend.cu): at d a multiple
+// of 16, Q and the code tiles are loaded by TMA as boxes of D columns from
+// tensors described with their true d, so the columns past d arrive as
+// zeros (zero K and V codes), add nothing to S and give O columns that the
+// epilogue does not store.  At any other d a code row of d bytes is no
+// stride a tensor map takes, and a tile of BKV rows starts at byte (bh Lkv
+// + kv0) d, 16-byte aligned only where Lkv d is: the PACKED instances load
+// the tiles themselves, all 128 producer threads with cp.async pieces of
+// the rows' alignment (a code at a time where it is below 4 bytes) into
+// the same [BKV][D] code slots, zeros past d and past Lkv, each tile's
+// copies a group issued SLOTS tiles ahead (wgmma_tile.cuh stage16); and
+// copy Q's bf16 rows the same way, a row a thread, and store O a value at
+// a time where d % 8 != 0.  The padded share of the products is (D - d) /
+// D (37.5% at d=80).  The softmax scale is the caller's, 1/sqrt(d) of the
+// true d.  The f32 kernel reads code rows at their alignment too.
 // At D=256 O takes 128 registers a consumer thread, so the K/V tile is 64
 // keys (S 32 + P 16 + O 128 within the 224, vmax per 64-key tile), and Q
 // 64 KB + two converted stages 128 KB leave room for two code slots (32
@@ -236,8 +245,9 @@ __device__ __forceinline__ void pack_p(const float (&p)[N],
 // over every K/V tile, then the epilogue.  H1's overlap: per tile i, S of
 // tile i is issued; O is rescaled by tile i - 1's alpha while it runs; P V
 // of tile i - 1 is issued behind it; the softmax of tile i runs while P V
-// is in flight; after P V has landed, P of tile i is packed.
-template <int D>
+// is in flight; after P V has landed, P of tile i is packed.  PACKED: d %
+// 16 != 0, O stored a value at a time where d % 8 != 0
+template <int D, bool PACKED>
 __device__ __forceinline__ void consume(
     const unsigned char* sq, const unsigned char* sk, const unsigned char* sv,
     const float* sscale, uint64_t* k_full, uint64_t* v_full,
@@ -322,15 +332,26 @@ __device__ __forceinline__ void consume(
   for (int e = 0; e < D / 2; ++e) acc_o[e] *= vmax_prev;
   // the first d columns of the two owned rows (d <= D); at d = D inlined
   // apart, with constant strides
-  if (d == D)
+  if constexpr (PACKED) {
+    if (d % 8 != 0)
+      store_o_rows<D, true>(acc_o, l, m, row0, lq, size_t(bh) * lq, o,
+                            out_f32, nullptr, d, 0, d);
+    else
+      store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
+                      nullptr, d, 0, d);
+  } else if (d == D) {
     store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
                     nullptr);
-  else
+  } else {
     store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
                     nullptr, d, 0, d);
+  }
 }
 
-template <int D, int KIND>
+// PACKED: d % 16 != 0, Q and the code tiles copied by the producer's
+// threads from qg, kg and vg (tq, tk and tv unused; the instances of the
+// multiples of 16 compile without it)
+template <int D, int KIND, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 1)
 kvquant_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d] bf16
                          const __grid_constant__ CUtensorMap tk,  // [BH, Lkv, d] codes
@@ -339,7 +360,10 @@ kvquant_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
                          const float* __restrict__ vs,    // [BH, n_blocks]
                          void* __restrict__ o,            // [BH, Lq, d]
                          int out_f32, int lq, int lkv, int d, int block,
-                         int n_blocks, float scale_log2) {
+                         int n_blocks, float scale_log2,
+                         const __nv_bfloat16* __restrict__ qg,  // [BH, Lq, d]
+                         const uint8_t* __restrict__ kg,        // [BH, Lkv, d]
+                         const uint8_t* __restrict__ vg) {      // [BH, Lkv, d]
   using T = Tiles<D>;
   constexpr int BKV = T::BKV, SLOTS = T::SLOTS;
   extern __shared__ unsigned char smem_raw[];
@@ -370,15 +394,15 @@ kvquant_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
       mbar_init(&v_full[s], CONVERTERS);
       mbar_init(&empty[s], CONSUMERS * 128);
     }
-    mbar_init(q_full, 1);
+    mbar_init(q_full, PACKED ? CONVERTERS : 1);
     mbar_init_fence();
   }
   __syncthreads();
 
   if (warp >= CONSUMERS * 4) {
     // the producer warpgroup: its first thread issues the TMA loads (Q,
-    // then the code tiles K_0, V_0, K_1, ... through the slots); all 128
-    // threads convert each code tile, K to bf16 with its keys' K factors,
+    // then the code tiles K_0, V_0, K_1, ... through the slots; PACKED:
+    // all 128 threads copy them); all 128 threads convert each code tile, K to bf16 with its keys' K factors,
     // V to fp16 with its V ratios and vmax, and agree (a named barrier)
     // that the slot is read before its next load is issued
     setmaxnreg_dec<PRODUCER_REGS>();
@@ -391,7 +415,37 @@ kvquant_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
       tma_load_3d(scodes + slot * T::CODE_BYTES, (j & 1) ? &tv : &tk,
                   &code_full[slot], 0, (j / 2) * BKV, bh);
     };
-    if (ct == 0) {
+    // PACKED: this thread's pieces of code tile j (K_i or V_i), one
+    // cp.async group, zeros past d and past Lkv
+    auto stage_codes = [&](int j) {
+      const int kv0 = (j / 2) * BKV;
+      const uint8_t* src = ((j & 1) ? vg : kg) + (size_t(bh) * lkv + kv0) * d;
+      const uint32_t dst = smem_u32(scodes + (j % SLOTS) * T::CODE_BYTES);
+      const int al = row_align(d);
+      for (int e = ct; e < BKV * (D / 16); e += CONVERTERS) {
+        const int r = e / (D / 16), c = (e % (D / 16)) * 16;
+        stage16(dst + r * D + c, src + size_t(r) * d + c, al,
+                kv0 + r < lkv ? d - c : 0);
+      }
+      cp_async_commit();
+    };
+    if constexpr (PACKED) {
+      // Q's rows, a row a thread (BQ = CONVERTERS), 8 columns a piece
+      // into its 64-column boxes, handed over at once; then the first
+      // SLOTS code tiles, a group each (empty past the last)
+      const __nv_bfloat16* q_row = qg + (size_t(bh) * lq + q0 + ct) * d;
+      const int q_al = row_align(2 * d);
+#pragma unroll 1
+      for (int c = 0; c < D; c += 8)
+        stage16(smem_u32(sq) + (c / 64) * BQ * 128 + swz128(ct, (c % 64) * 2),
+                q_row + c, q_al, q0 + ct < lq ? 2 * (d - c) : 0);
+      cp_async_commit();
+      hand_over(smem_u32(q_full), true);
+      for (int j = 0; j < SLOTS; ++j) {
+        if (j < 2 * n_tiles) stage_codes(j);
+        else cp_async_commit();
+      }
+    } else if (ct == 0) {
       mbar_arrive_expect_tx(q_full, T::Q_BYTES);
       for (int x = 0; x < T::NBOX; ++x)
         tma_load_3d(sq + x * BQ * 128, &tq, q_full, x * 64, q0, bh);
@@ -403,7 +457,12 @@ kvquant_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
       float* sc = sscale + s * T::SCALES;
       const unsigned char* src = scodes + slot * T::CODE_BYTES;
       if ((j & 1) == 0) mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
-      mbar_wait(&code_full[slot], (j / SLOTS) & 1);
+      if constexpr (PACKED) {
+        cp_async_wait<SLOTS - 1>();            // this thread's copies of tile j
+        named_bar_sync(SLOT_BAR, CONVERTERS);  // and every thread's
+      } else {
+        mbar_wait(&code_full[slot], (j / SLOTS) & 1);
+      }
       if ((j & 1) == 0) {
         convert_codes_tile<KIND, false, D>(src, sk + s * T::CONV_BYTES, BKV,
                                            ct, CONVERTERS);
@@ -427,38 +486,48 @@ kvquant_attention_kernel(const __grid_constant__ CUtensorMap tq,  // [BH, Lq, d]
       fence_proxy_async();
       mbar_arrive((j & 1) ? &v_full[s] : &k_full[s]);
       named_bar_sync(SLOT_BAR, CONVERTERS);
-      if (ct == 0 && j + SLOTS < 2 * n_tiles) load_codes(j + SLOTS);
+      if constexpr (PACKED) {
+        if (j + SLOTS < 2 * n_tiles) stage_codes(j + SLOTS);
+        else cp_async_commit();
+      } else if (ct == 0 && j + SLOTS < 2 * n_tiles) {
+        load_codes(j + SLOTS);
+      }
     }
     return;
   }
 
   setmaxnreg_inc<CONSUMER_REGS>();
-  consume<D>(sq, sk, sv, sscale, k_full, v_full, empty, q_full, o, out_f32,
-             lq, lkv, d, q0, bh, n_tiles);
+  consume<D, PACKED>(sq, sk, sv, sscale, k_full, v_full, empty, q_full, o,
+                     out_f32, lq, lkv, d, q0, bh, n_tiles);
 }
 
-template <int D, int KIND>
+template <int D, int KIND, bool PACKED>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, void* o, int out_f32, int bh, int lq, int lkv,
            int d, int block, int n_blocks, float scale_log2,
            cudaStream_t stream) {
   using T = Tiles<D>;
   // boxes of D columns (Q: D / 64 boxes of 64) over rows of the true d:
-  // the columns past d arrive as zeros
-  CUtensorMap tq, tk, tv;
-  int err = make_tmap(&tq, q, 2, d, lq, bh, 64, BQ, 128);
-  if (!err) err = make_tmap(&tk, k, 1, d, lkv, bh, D, T::BKV, 0);
-  if (!err) err = make_tmap(&tv, v, 1, d, lkv, bh, D, T::BKV, 0);
-  if (err) return err;
+  // the columns past d arrive as zeros.  PACKED: no tensor map takes the
+  // rows; the kernel copies them
+  CUtensorMap tq = {}, tk = {}, tv = {};
+  if constexpr (!PACKED) {
+    int err = make_tmap(&tq, q, 2, d, lq, bh, 64, BQ, 128);
+    if (!err) err = make_tmap(&tk, k, 1, d, lkv, bh, D, T::BKV, 0);
+    if (!err) err = make_tmap(&tv, v, 1, d, lkv, bh, D, T::BKV, 0);
+    if (err) return err;
+  }
   const cudaError_t attr = cudaFuncSetAttribute(
-      kvquant_attention_kernel<D, KIND>,
+      kvquant_attention_kernel<D, KIND, PACKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::bytes));
   if (attr != cudaSuccess) return int(attr);
   const dim3 grid(bh * ((lq + BQ - 1) / BQ));
-  kvquant_attention_kernel<D, KIND><<<grid, THREADS, T::bytes, stream>>>(
-      tq, tk, tv, static_cast<const float*>(ks),
-      static_cast<const float*>(vs), o, out_f32, lq, lkv, d, block, n_blocks,
-      scale_log2);
+  kvquant_attention_kernel<D, KIND, PACKED>
+      <<<grid, THREADS, T::bytes, stream>>>(
+          tq, tk, tv, static_cast<const float*>(ks),
+          static_cast<const float*>(vs), o, out_f32, lq, lkv, d, block,
+          n_blocks, scale_log2, static_cast<const __nv_bfloat16*>(q),
+          static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v));
   return int(cudaGetLastError());
 }
 
@@ -512,6 +581,7 @@ kvquant_attention_f32_kernel(const float* __restrict__ q,     // [BH, Lq, d]
     const size_t head = size_t(bh) * lkv;
     const float* ksb = ks + size_t(bh) * n_blocks;
     const float* vsb = vs + size_t(bh) * n_blocks;
+    const int al = row_align(d);
     auto fetch = [&](int i, Regs& x) {
       x.kv0 = i * BKV;
 #pragma unroll
@@ -519,9 +589,10 @@ kvquant_attention_f32_kernel(const float* __restrict__ q,     // [BH, Lq, d]
         const int e = ct + 128 * j, r = e / (D / 16), ch = e % (D / 16);
         x.k[j] = x.v[j] = make_uint4(0u, 0u, 0u, 0u);
         if (x.kv0 + r < lkv && 16 * ch < d) {
+          // rows of d bytes: 16-byte loads at d % 16 == 0 (al = 16)
           const size_t at = (head + x.kv0 + r) * d + 16 * ch;
-          x.k[j] = *reinterpret_cast<const uint4*>(k + at);
-          x.v[j] = *reinterpret_cast<const uint4*>(v + at);
+          x.k[j] = load16_al(k + at, al, d - 16 * ch);
+          x.v[j] = load16_al(v + at, al, d - 16 * ch);
         }
       }
     };
@@ -569,8 +640,13 @@ kvquant_attention_f32_kernel(const float* __restrict__ q,     // [BH, Lq, d]
   float acc_o[D / 2], m[2], l[2];
   F::attend<D, 1, false, true>(smem, wg, full, empty, 0, n_tiles, lo, hi,
                                acc_o, m, l);
-  store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
-                  nullptr, d, 0, d);
+  // a value at a time where d % 8 != 0
+  if (d % 8 != 0)
+    store_o_rows<D, true>(acc_o, l, m, row0, lq, size_t(bh) * lq, o,
+                          out_f32, nullptr, d, 0, d);
+  else
+    store_o_rows<D>(acc_o, l, m, row0, lq, size_t(bh) * lq, o, out_f32,
+                    nullptr, d, 0, d);
 }
 
 template <int D, int KIND>
@@ -604,11 +680,18 @@ int launch_kind(int kv_kind, int q_f32, const void* q, const void* k,
   if (q_f32)
     return launch_f32<D, KV_FP8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv,
                                  d, block, n_blocks, scale_log2, stream);
-  if (kv_kind == KV_INT8)
-    return launch<D, KV_INT8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, d,
-                              block, n_blocks, scale_log2, stream);
-  return launch<D, KV_FP8>(q, k, v, ks, vs, o, out_f32, bh, lq, lkv, d,
-                           block, n_blocks, scale_log2, stream);
+  auto go = [&](auto kind, auto packed) {
+    return launch<D, decltype(kind)::value, decltype(packed)::value>(
+        q, k, v, ks, vs, o, out_f32, bh, lq, lkv, d, block, n_blocks,
+        scale_log2, stream);
+  };
+  using Int8 = std::integral_constant<int, KV_INT8>;
+  using Fp8 = std::integral_constant<int, KV_FP8>;
+  if (d % 16 != 0)
+    return kv_kind == KV_INT8 ? go(Int8{}, std::true_type{})
+                              : go(Fp8{}, std::true_type{});
+  return kv_kind == KV_INT8 ? go(Int8{}, std::false_type{})
+                            : go(Fp8{}, std::false_type{});
 }
 
 }  // namespace
@@ -616,8 +699,8 @@ int launch_kind(int kv_kind, int q_f32, const void* q, const void* k,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // ops/attention_kvquant.py has already checked shapes, dtypes, contiguity
 // and alignment; the checks here only refuse what would index out of
-// bounds.  d: a multiple of 16 from 16 to 256, on the instance D = 64, 128
-// or 256 (the smallest D >= d); kv_kind: 1 int8, 2 e4m3; scale_log2 =
+// bounds.  d: from 1 to 256, on the instance D = 64, 128 or 256 (the
+// smallest D >= d; the PACKED one at d % 16 != 0); kv_kind: 1 int8, 2 e4m3; scale_log2 =
 // softmax scale * log2(e) (the scale of the true d); q_f32: 0 for bf16 q, 1
 // for f32 (the f32 core, bf16x3).
 extern "C" int eft_kvquant_attention(const void* q, const void* k,
@@ -630,7 +713,7 @@ extern "C" int eft_kvquant_attention(const void* q, const void* k,
   if (batch <= 0 || heads <= 0 || lq <= 0 || lkv <= 0 || block <= 0 ||
       n_blocks != (lkv + block - 1) / block ||
       (kv_kind != KV_INT8 && kv_kind != KV_FP8) ||
-      (q_f32 != 0 && q_f32 != 1) || d < 16 || d > 256 || d % 16 != 0)
+      (q_f32 != 0 && q_f32 != 1) || d < 1 || d > 256)
     return int(cudaErrorInvalidValue);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);

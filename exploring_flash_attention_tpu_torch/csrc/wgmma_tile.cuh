@@ -337,6 +337,44 @@ __device__ __forceinline__ uint4 load16_al(const void* p, int al, int n) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// 16 bytes of a row at src (al-aligned: al = row_align of the row's bytes),
+// of which the first n exist (n >= 16: all; n <= 0: none, src not read),
+// into shared memory at the shared-window address dst, zeros past n.  The
+// row's bytes are a multiple of al, so a piece of al bytes lies wholly
+// before n or wholly past it: cp.async pieces of al bytes where al >= 4
+// (the caller commits the group and waits for it), else read here and
+// stored (the rows of H4's and H5's staged forms)
+__device__ __forceinline__ void stage16(uint32_t dst, const void* src,
+                                        int al, int n) {
+  const unsigned char* b = static_cast<const unsigned char*>(src);
+  if (al >= 16) {
+    cp_async_zfill<16>(dst, b, n > 0 ? 16 : 0);
+  } else if (al == 8) {
+    cp_async_zfill<8>(dst, b, n > 0 ? 8 : 0);
+    cp_async_zfill<8>(dst + 8, b + 8, n > 8 ? 8 : 0);
+  } else if (al == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      cp_async_zfill<4>(dst + 4 * i, b + 4 * i, n > 4 * i ? 4 : 0);
+  } else {
+    // al is 2 or 1: word i from its 2 or 4 pieces
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (al == 2) {
+        const uint16_t* h = reinterpret_cast<const uint16_t*>(b + 4 * i);
+        if (4 * i < n) w[i] = h[0];
+        if (4 * i + 2 < n) w[i] |= uint32_t(h[1]) << 16;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (4 * i + j < n) w[i] |= uint32_t(b[4 * i + j]) << (8 * j);
+      }
+    }
+    st_shared_v4(dst, make_uint4(w[0], w[1], w[2], w[3]));
+  }
+}
+
 // 8 f32 of a row at p (n of them before the row's end: 8 or more, all),
 // 16-byte loads where the row's stride allows (vec4: d % 4 == 0), else one
 // f32 at a time; zeros from n on

@@ -19,7 +19,9 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -169,17 +171,27 @@ def sass_by_function() -> dict:
     """The SASS of every kernel function in the current build, by its
     (mangled) name, from ``cuobjdump --dump-sass``: what the card runs, to
     check which tensor-core instructions a kernel issues (``HGMMA`` and
-    ``IGMMA`` for wgmma, ``HMMA`` and ``IMMA`` for mma.sync and WMMA)."""
+    ``IGMMA`` for wgmma, ``HMMA`` and ``IMMA`` for mma.sync and WMMA).  The
+    library's cubins (one a source) are extracted and disassembled at
+    once, a cuobjdump each, as the sources compile."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    res = subprocess.run([tool, "--dump-sass", str(build())],
-                         capture_output=True, text=True, check=True)
+    lib = build()
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        subprocess.run([tool, "-xelf", "all", str(lib)], cwd=tmp,
+                       capture_output=True, check=True)
+        cubins = sorted(Path(tmp).glob("*.cubin")) or [lib]
+        with ThreadPoolExecutor(len(cubins)) as pool:
+            dumps = list(pool.map(lambda c: subprocess.run(
+                [tool, "--dump-sass", str(c)], capture_output=True,
+                text=True, check=True).stdout, cubins))
     out, name = {}, None
-    for line in res.stdout.splitlines():
-        if "Function : " in line:
-            name = line.split("Function : ", 1)[1].strip()
-            out[name] = []
-        elif name is not None:
-            out[name].append(line)
+    for text in dumps:
+        for line in text.splitlines():
+            if "Function : " in line:
+                name = line.split("Function : ", 1)[1].strip()
+                out[name] = []
+            elif name is not None:
+                out[name].append(line)
     return {n: "\n".join(lines) for n, lines in out.items()}
 
 

@@ -203,36 +203,29 @@ def diagonal(diag_off: DiagOff):
     return diag_off
 
 
-# The head dims of the serving kernels H1, H2, H6-decode and H6-extend and
-# of the backward pair H3-dkv and H3-dq: every d up to their largest
-# instance.  A d below its instance's D runs on zero-filled columns; where
-# a row of q, k, v, dO or the codes is not a multiple of 16 bytes (bf16 d %
-# 8, f32 d % 4, codes d % 16) the kernels load it at the alignment it has
-# instead of by TMA boxes or 16-byte loads
+# The head dims of the serving kernels H1, H2, H6-decode and H6-extend, of
+# the backward pair H3-dkv and H3-dq and of the quantized pair H4-kvq and
+# H4-int8: every d up to their largest instance.  A d below its instance's
+# D runs on zero-filled columns; where a row of q, k, v, dO or the codes is
+# not a multiple of 16 bytes (bf16 d % 8, f32 d % 4, codes d % 16) the
+# kernels load it at the alignment it has instead of by TMA boxes or
+# 16-byte loads
 SERVING_HEAD_DIM_RULE = "d from 1 to 256"
-# The head dims of H4-kvq and H4-int8: a multiple of 16 keeps every TMA row
-# stride (2d bytes bf16, d bytes int8) a multiple of 16 bytes
-HEAD_DIM_RULE = "d a multiple of 16 from 16 to 256"
 # The head dims of H5 (ops.attention_v1_dtiled.h5_plan), d cut into
-# 128-column chunks across the blocks of a cluster, for the same reason a
-# multiple of 16
-H5_HEAD_DIM_RULE = "d a multiple of 16 from 16 to 2048"
+# 128-column chunks across the blocks of a cluster, rows loaded as the
+# serving kernels load them
+H5_HEAD_DIM_RULE = "d from 1 to 2048"
 
 
 def kernel_head_dim(d: int) -> bool:
-    """Whether the serving kernels H1, H2, H6-decode and H6-extend and the
-    backward pair H3-dkv and H3-dq take head dim ``d``
-    (:data:`SERVING_HEAD_DIM_RULE`).  H1, H3 and the paged pair run a d
-    below their next instance's (32, 64, 128 or 256) on zero-filled
-    columns; H2 has one instance per multiple of 16 and runs any other d on
-    the instance of its lanes with d read at run time."""
+    """Whether the serving kernels H1, H2, H6-decode and H6-extend, the
+    backward pair H3-dkv and H3-dq and the quantized pair H4-kvq and
+    H4-int8 take head dim ``d`` (:data:`SERVING_HEAD_DIM_RULE`).  H1, H3,
+    H4 and the paged pair run a d below their next instance's (32, 64, 128
+    or 256) on zero-filled columns; H2 has one instance per multiple of 16
+    and runs any other d on the instance of its lanes with d read at run
+    time."""
     return 1 <= d <= 256
-
-
-def sixteen_head_dim(d: int) -> bool:
-    """Whether H4-kvq and H4-int8 take head dim ``d``
-    (:data:`HEAD_DIM_RULE`)."""
-    return 16 <= d <= 256 and d % 16 == 0
 
 
 H4_INSTANCES = (64, 128, 256)   # the head dims H4-kvq and H4-int8 build
@@ -241,10 +234,11 @@ H4_INSTANCES = (64, 128, 256)   # the head dims H4-kvq and H4-int8 build
 def h4_instance(d: int) -> int:
     """The instance of H4-kvq and H4-int8 that head dim ``d`` runs on: the
     smallest of :data:`H4_INSTANCES` at or above it (a d below it runs on
-    zero-filled columns).  ``ValueError`` outside :data:`HEAD_DIM_RULE`."""
-    if not sixteen_head_dim(d):
-        raise ValueError(f"H4-kvq and H4-int8 take {HEAD_DIM_RULE}; got "
-                         f"d={d}")
+    zero-filled columns).  ``ValueError`` outside
+    :data:`SERVING_HEAD_DIM_RULE`."""
+    if not kernel_head_dim(d):
+        raise ValueError(f"H4-kvq and H4-int8 take {SERVING_HEAD_DIM_RULE}; "
+                         f"got d={d}")
     return next(x for x in H4_INSTANCES if x >= d)
 
 

@@ -4,9 +4,9 @@ Counterpart of ``flash_attention_kvquant`` (``ops/attention_kvquant.py:176``)
 in the JAX package, which picks between two TPU kernels (B16 streaming, B17
 one pass) by a VMEM rule.  Here a call is one launch: of H4-kvq
 (``csrc/kvquant_attention.cu``) at the head dims of
-:data:`~.attention.HEAD_DIM_RULE` (instances D 64, 128 and 256,
+:data:`~.attention.SERVING_HEAD_DIM_RULE` (instances D 64, 128 and 256,
 :func:`~.attention.h4_instance`), of H5's quantized form
-(``csrc/dtiled_attention.cu``, through
+(``csrc/dtiled_attention.cuh``, through
 :func:`~.attention_v1_dtiled.flash_attention_v1_dtiled`) past 256 up to
 2048 (:func:`kvquant_kernel`).  Q is bf16 or f32 (any float dtype on the
 CPU); K and V are int8 or e4m3 :class:`~.quant.QuantizedTensor`s with one
@@ -26,11 +26,11 @@ from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H5_HEAD_DIM_RULE,
-    HEAD_DIM_RULE,
     LOG2E,
+    SERVING_HEAD_DIM_RULE,
     _check_cuda_inputs,
     attention_plain,
-    sixteen_head_dim,
+    kernel_head_dim,
 )
 from exploring_flash_attention_tpu_torch.ops.quant import (
     FP8_DTYPE,
@@ -44,15 +44,15 @@ from exploring_flash_attention_tpu_torch.ops.quant import (
 
 def kvquant_kernel(d: int) -> str:
     """The kernel a CUDA call of :func:`flash_attention_kvquant` at head dim
-    ``d`` launches: "H4-kvq" for :data:`~.attention.HEAD_DIM_RULE`, "H5"
-    (its quantized form) past 256 within
+    ``d`` launches: "H4-kvq" for :data:`~.attention.SERVING_HEAD_DIM_RULE`,
+    "H5" (its quantized form) past 256 within
     :data:`~.attention.H5_HEAD_DIM_RULE`.  ``ValueError`` for any other d,
     naming both rules."""
-    if sixteen_head_dim(d):
+    if kernel_head_dim(d):
         return "H4-kvq"
-    if 256 < d <= 2048 and d % 16 == 0:
+    if 256 < d <= 2048:
         return "H5"
-    raise ValueError(f"H4-kvq takes {HEAD_DIM_RULE}, and H5 past it "
+    raise ValueError(f"H4-kvq takes {SERVING_HEAD_DIM_RULE}, and H5 past it "
                      f"{H5_HEAD_DIM_RULE}; got d={d}")
 
 

@@ -4,7 +4,7 @@ Counterpart of ``flash_attention_v1_dtiled`` (``ops/attention_v1_dtiled.py:191``
 in the JAX package, whose TPU kernel B19 accumulates S over d-chunks of Q
 and K, runs the online softmax on the f32 S and accumulates P V chunk by
 chunk into a full-width f32 O.  Here a call is one launch of H5
-(``csrc/dtiled_attention.cu``), whose warpgroups each hold 128 of O's
+(``csrc/dtiled_attention.cuh``), whose warpgroups each hold 128 of O's
 columns, in clusters of blocks that split d's 128-column chunks past
 d=512 (f32: past 256; :func:`h5_plan`).  K and V are bf16, or both int8
 or e4m3 :class:`~.quant.QuantizedTensor`s, whose K scale folds into the
@@ -55,7 +55,7 @@ def h5_plan(d: int, f32: bool) -> Tuple[int, int]:
     cover it: C = 1 up to d 512 (f32: 256), 2 up to 1024 (512), 4 up to
     2048 (1024), 8 at f32 up to 2048.  ``ValueError`` outside
     :data:`~.attention.H5_HEAD_DIM_RULE`."""
-    if not (16 <= d <= 2048 and d % 16 == 0):
+    if not 1 <= d <= 2048:
         raise ValueError(f"H5 takes {H5_HEAD_DIM_RULE}; got d={d}")
     chunks = -(-d // H5_D_CHUNK)
     c = 1

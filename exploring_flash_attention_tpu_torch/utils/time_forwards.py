@@ -3,7 +3,7 @@ split-KV merges, on the card, for A/B runs.
 
     python exploring_flash_attention_tpu_torch/utils/time_forwards.py [ROOT]
         [--bwd | --bwd-heads | --merge | --serve | --f32 | --clusters |
-         --heads]
+         --heads | --quant-heads]
 
 ROOT (default: this checkout) is the root of a checkout of the port, for
 example a ``git archive`` of another commit unpacked under ``build/``; its
@@ -33,7 +33,8 @@ kernels and H5 at f32, and their accuracy over long key counts
 (``time_f32``); with ``--clusters``, of H5's cluster launches beside its
 single-block launches on the same work a block (``time_clusters``); with
 ``--heads``, of H1, H6-decode and H6-extend at d 80 and 128
-(``time_heads``).
+(``time_heads``); with ``--quant-heads``, of H4-kvq, H4-int8 and H5 at d
+80, 128 and 256 (``time_quant_heads``).
 Alternate two roots in one call (parent, change, change, parent) to
 compare them on one card.
 """
@@ -466,6 +467,45 @@ def time_clusters(root: Path) -> str:
     return f"{root.name or root}: " + " | ".join(out)
 
 
+def time_quant_heads(root: Path) -> str:
+    """flash_attention_kvquant (H4-kvq: int8 and e4m3 K/V),
+    flash_attention_int8 (H4-int8: both pv_modes) and
+    flash_attention_v1_dtiled (H5: bf16 and int8 K/V) at d 80, 128 and
+    256, B=32 H=8 L=1024, blocks of 512, inputs from make_qkv(seed=1)
+    rounded to bf16: the instances whose rows TMA describes."""
+    import torch
+
+    from exploring_flash_attention_tpu_torch.oracle import make_qkv
+    from exploring_flash_attention_tpu_torch.ops import (
+        flash_attention_int8,
+        flash_attention_kvquant,
+        flash_attention_v1_dtiled,
+        quantize_fp8,
+        quantize_int8,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    out = []
+    for d in (80, 128, 256):
+        q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+                   for x in make_qkv(32, 8, 1024, d, seed=1))
+        calls = {}
+        for kind, quant in (("int8", quantize_int8), ("fp8", quantize_fp8)):
+            kq, vq = quant(k, 512), quant(v, 512)
+            calls[f"H4-kvq {kind}"] = (flash_attention_kvquant, q, kq, vq)
+        qq, kq, vq = (quantize_int8(x, 512) for x in (q, k, v))
+        calls["H4-int8 bf16"] = (flash_attention_int8, qq, kq, vq)
+        calls["H4-int8 int8"] = (lambda *a: flash_attention_int8(
+            *a, pv_mode="int8"), qq, kq, vq)
+        calls["H5 bf16"] = (flash_attention_v1_dtiled, q, k, v)
+        calls["H5 int8"] = (flash_attention_v1_dtiled, q, kq, vq)
+        for name, (fn, *args) in calls.items():
+            ms = time_cuda(lambda: fn(*args), n_iter=30)
+            out.append(f"{name} d={d} {ms:.4f} ms")
+        del q, k, v, qq, kq, vq, calls
+    return f"{root.name or root}: " + " | ".join(out)
+
+
 def main(root: Path, mode: str = "") -> str:
     sys.path.insert(0, str(root))
     if mode == "--bwd":
@@ -482,6 +522,8 @@ def main(root: Path, mode: str = "") -> str:
         return time_clusters(root)
     if mode == "--heads":
         return time_heads(root)
+    if mode == "--quant-heads":
+        return time_quant_heads(root)
     import torch
 
     from exploring_flash_attention_tpu_torch.oracle import make_qkv

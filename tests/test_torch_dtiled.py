@@ -177,13 +177,13 @@ def test_dtiled_int8_matches_jax_at_new_head_dims(d):
 
 @pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
 def test_h5_plan_covers_every_head_dim_of_the_rule(f32):
-    """Every d a multiple of 16 up to 2048: C blocks of NC 128-column
+    """Every d up to 2048: C blocks of NC 128-column
     chunks cover d, NC <= 4 (2 at f32, where a fresh P V accumulator sits
     beside O), C a power of two up to 8, the portable cluster limit, and
     no smaller cluster would do; C = 1 exactly up to d 512 (f32: 256), so
     that every head dim H5 took before keeps one block."""
     per_block = 2 if f32 else 4
-    for d in range(16, 2049, 16):
+    for d in range(1, 2049):
         c, nc = h5_plan(d, f32)
         assert c * nc * 128 >= d, d
         assert nc <= per_block and c in (1, 2, 4, 8), (d, c, nc)
@@ -194,9 +194,15 @@ def test_h5_plan_covers_every_head_dim_of_the_rule(f32):
 
 @pytest.mark.parametrize("d", [8, 100, 2064])
 def test_h5_plan_refuses_head_dims_outside_the_rule(d):
+    """d 8 and 100, which H5 refused before the rule took every d, plan
+    one block of one chunk; d 0, 2049 and 2064 raise naming the rule."""
     for f32 in (False, True):
-        with pytest.raises(ValueError, match=re.escape(H5_HEAD_DIM_RULE)):
-            h5_plan(d, f32)
+        if d <= 2048:
+            assert h5_plan(d, f32) == (1, 1)
+        for bad in {0, 2049, d} - {8, 100}:
+            with pytest.raises(ValueError,
+                               match=re.escape(H5_HEAD_DIM_RULE)):
+                h5_plan(bad, f32)
 
 
 def test_dtiled_refusals_match_jax():

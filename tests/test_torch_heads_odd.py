@@ -14,8 +14,8 @@ reads d at run time, the paged pair reads the codes at their rows'
 alignment (``tests/test_torch_kernels.py`` holds them against these plain
 versions there).
 
-Also here: the head-dim rules, the serving kernels' and H3's (``d from 1
-to 256``) and H4's, which still refuses these d.
+Also here: the head-dim rule, which the serving kernels, H3 and H4 share
+(``d from 1 to 256``), and H5's (``d from 1 to 2048``).
 """
 
 import re
@@ -50,12 +50,12 @@ from exploring_flash_attention_tpu_torch.models import (
 )
 from exploring_flash_attention_tpu_torch.ops import attention_bwd
 from exploring_flash_attention_tpu_torch.ops import flash_attention_v1
+from exploring_flash_attention_tpu_torch.ops import attention as ops_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
-    HEAD_DIM_RULE,
+    H5_HEAD_DIM_RULE,
     SERVING_HEAD_DIM_RULE,
     h4_instance,
     kernel_head_dim,
-    sixteen_head_dim,
 )
 from exploring_flash_attention_tpu_torch.ops.attention_kvquant import (
     kvquant_kernel,
@@ -89,30 +89,38 @@ PAGED_ODD = [(72, 16, 16, 128), (40, 8, 1, 256), (36, 32, 2, 512),
 
 
 def test_h3_h4_rule_stays_the_multiples_of_16():
-    """H4's rule (``sixteen_head_dim``, ``HEAD_DIM_RULE``) stays the
-    multiples of 16 from 16 to 256, apart from the rule of the serving
-    kernels and of H3-dkv and H3-dq (``kernel_head_dim``, which names
-    itself ``SERVING_HEAD_DIM_RULE``): every d from 1 to 256."""
+    """H4's rule of the multiples of 16 is retired (no ``HEAD_DIM_RULE``,
+    no ``sixteen_head_dim``): H4-kvq and H4-int8 take the rule of the
+    serving kernels and of H3-dkv and H3-dq (``kernel_head_dim``, which
+    names itself ``SERVING_HEAD_DIM_RULE``), every d from 1 to 256, and H5
+    every d from 1 to 2048."""
     assert SERVING_HEAD_DIM_RULE == "d from 1 to 256"
-    assert HEAD_DIM_RULE == "d a multiple of 16 from 16 to 256"
-    assert [d for d in range(300) if sixteen_head_dim(d)] == list(
-        range(16, 257, 16))
+    assert H5_HEAD_DIM_RULE == "d from 1 to 2048"
+    assert not hasattr(ops_attention, "HEAD_DIM_RULE")
+    assert not hasattr(ops_attention, "sixteen_head_dim")
     assert [d for d in range(300) if kernel_head_dim(d)] == list(
         range(1, 257))
+    assert [h4_instance(d) for d in (1, 64, 65, 128, 129, 256)] == [
+        64, 64, 128, 128, 256, 256]
 
 
 @pytest.mark.parametrize("d", [72, 8, 40, 250])
 def test_h3_and_h4_still_refuse_d_off_sixteen(d, monkeypatch):
     """At a d off the multiples of 16, H4-kvq and H4-int8 (their instance,
-    ``h4_instance``; ``kvquant_kernel``) raise ``ValueError`` naming
-    ``HEAD_DIM_RULE``, while H3-dkv's and H3-dq's shared check (the device
-    check passed on CPU tensors) takes it, as the serving kernels do, and
-    refuses d 0 and 257 naming ``SERVING_HEAD_DIM_RULE``."""
-    rule = re.escape(HEAD_DIM_RULE)
-    with pytest.raises(ValueError, match=rule):
-        h4_instance(d)
-    with pytest.raises(ValueError, match=rule):
-        kvquant_kernel(d)
+    ``h4_instance``; ``kvquant_kernel``) now take it, on the smallest
+    instance at or above it, as H3-dkv's and H3-dq's shared check (the
+    device check passed on CPU tensors) does; all of them still refuse d 0
+    and 257 (the quantized-KV op 257 only past 2048, on H5) naming
+    ``SERVING_HEAD_DIM_RULE``."""
+    rule = re.escape(SERVING_HEAD_DIM_RULE)
+    assert h4_instance(d) == next(x for x in (64, 128, 256) if x >= d)
+    assert kvquant_kernel(d) == "H4-kvq"
+    for bad in (0, 257):
+        with pytest.raises(ValueError, match=rule):
+            h4_instance(bad)
+    for bad in (0, 2049):
+        with pytest.raises(ValueError, match=rule):
+            kvquant_kernel(bad)
     monkeypatch.setattr(attention_bwd, "_check_cuda_inputs",
                         lambda *a: torch.float32)
     lse = torch.zeros(1, 2, 8)

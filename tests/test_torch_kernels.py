@@ -96,7 +96,6 @@ from exploring_flash_attention_tpu_torch.models import seq2seq as s2s
 from exploring_flash_attention_tpu_torch.oracle import naive_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H5_HEAD_DIM_RULE,
-    HEAD_DIM_RULE,
     SERVING_HEAD_DIM_RULE,
     attention_partial_local,
     attention_plain,
@@ -743,8 +742,9 @@ def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
     """H1, H2, H6-decode, H6-extend, H3-dkv and H3-dq raise ``ValueError``
     naming their rule (``SERVING_HEAD_DIM_RULE``, d from 1 to 256) for d 0
     and 272, on CUDA tensors, and launch nothing; at d=72, which they take,
-    H4-kvq and H4-int8 raise naming theirs (``HEAD_DIM_RULE``, a multiple
-    of 16) and launch nothing."""
+    so do H4-kvq and H4-int8, which launch once each there (their PACKED
+    instances), while H4-int8 refuses d 0 and 257 and the quantized-KV op
+    d 0 and 2049, naming the same rule and launching nothing."""
     counted = (prefill_attention, splitkv_combine, paged_decode_partials,
                paged_extend_attention, attention_bwd_dkv, attention_bwd_dq,
                flash_attention_kvquant, flash_attention_int8)
@@ -754,12 +754,28 @@ def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
     if d == 72:
         q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, d)     # H4: no GQA
         kq, vq = quantize_int8(k, 64), quantize_int8(v, 64)
-        with pytest.raises(ValueError, match=re.escape(HEAD_DIM_RULE)):
-            flash_attention_kvquant(q, kq, vq)
-        with pytest.raises(ValueError, match=re.escape(HEAD_DIM_RULE)):
-            flash_attention_int8(quantize_int8(q, 64), kq, vq)
+        flash_attention_kvquant(q, kq, vq)
+        flash_attention_int8(quantize_int8(q, 64), kq, vq)
         torch.cuda.synchronize()
-        assert [fn.launches for fn in counted] == before
+        assert [fn.launches for fn in counted] == before[:6] + [
+            before[6] + 1, before[7] + 1]
+        rule = re.escape(SERVING_HEAD_DIM_RULE)
+        for bad in (0, 257, 2049):
+            q, k, v = _qkv(cuda_device, 1, 1, 1, 64, 64, bad)
+            # (no quantizer takes a row of no values: d=0 built by hand)
+            quant = (lambda x: QuantizedTensor(  # noqa: E731
+                x.to(torch.int8), torch.ones(1, 1, 1, device=cuda_device),
+                64)) if bad == 0 else (lambda x: quantize_int8(x, 64))
+            qq, kq, vq = quant(q), quant(k), quant(v)
+            if bad != 257:          # 257 runs on H5's quantized form
+                with pytest.raises(ValueError, match=rule):
+                    flash_attention_kvquant(q, kq, vq, scale=1.0)
+            if bad != 2049:
+                with pytest.raises(ValueError, match=rule):
+                    flash_attention_int8(qq, kq, vq, scale=1.0)
+        torch.cuda.synchronize()
+        assert [fn.launches for fn in counted] == before[:6] + [
+            before[6] + 1, before[7] + 1]
         return
     rule = re.escape(SERVING_HEAD_DIM_RULE)
     with pytest.raises(ValueError, match=rule):
@@ -1253,7 +1269,11 @@ def _max_err(got, ref):
     # head dims of the rule on each instance (D 64, 128, 256; a d below D
     # on zero-filled columns), the D=256 instance's 64-key tiles ragged
     (200, 1100, d, 100) for d in (16, 48, 80, 144, 192, 256)
-] + [(130, 129, 256, 48)])
+] + [(130, 129, 256, 48)] + [
+    # d off the multiples of 16 (the PACKED instances): code rows of 1-,
+    # 2-, 4- and 8-byte alignment, bf16 Q rows staged where d % 8 != 0
+    (200, 1100, d, 100) for d in (1, 8, 33, 36, 40, 72, 100, 250)
+])
 def test_kvquant_kernel_matches_plain_and_oracle(cuda_device, kind, lq, lkv,
                                                  d, block):
     q, k, v = _qkv(cuda_device, 2, 4, 4, lq, lkv, d, seed=20)
@@ -1300,7 +1320,10 @@ def test_kvquant_kernel_refuses_what_it_cannot_take(cuda_device):
     # head dims of the rule on each instance (D 64, 128, 256: at D=256
     # 64-key tiles, Q and K in two 128-byte boxes, P V in four parts)
     (200, 1100, d, 64, 48) for d in (16, 80, 144, 256)
-] + [(256, 300, 256, 128, 16), (128, 257, 256, 128, 512)])
+] + [(256, 300, 256, 128, 16), (128, 257, 256, 128, 512)] + [
+    # d off the multiples of 16 (the PACKED instances)
+    (200, 1100, d, 64, 48) for d in (1, 8, 33, 36, 40, 72, 100, 250)
+])
 def test_int8_kernel_matches_plain_and_oracle(cuda_device, pv_mode, lq, lkv,
                                               d, q_block, kv_block):
     q, k, v = _qkv(cuda_device, 2, 4, 4, lq, lkv, d, seed=21)
@@ -1340,14 +1363,14 @@ def test_int8_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(TypeError, match="bf16 or f32"):
         flash_attention_int8(qq, kq, vq, out_dtype=torch.float16)
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 264)
-    with pytest.raises(ValueError, match=HEAD_DIM_RULE):
+    with pytest.raises(ValueError, match=SERVING_HEAD_DIM_RULE):
         flash_attention_int8(*(quantize_int8(x, 64) for x in (q, k, v)))
     assert flash_attention_int8.launches == before
 
 
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("q_dtype", ["bf16", "f32"])
-@pytest.mark.parametrize("d", [272, 384, 1024])
+@pytest.mark.parametrize("d", [272, 384, 1024, 264, 520, 1000, 2040])
 def test_kvquant_past_256_runs_h5(cuda_device, d, q_dtype, kind):
     """flash_attention_kvquant past d=256 is one launch of H5's quantized
     form (counted as H5's, none as H4-kvq's), within H5's limits of the
@@ -1389,7 +1412,12 @@ def test_kvquant_past_256_runs_h5(cuda_device, d, q_dtype, kind):
     (130, 200, 640, 100),
     (70, 150, 1024, 64),
     (65, 191, 2048, 48),
-])
+] + [
+    # d off the multiples of 16: bf16 rows staged where d % 8 != 0, codes
+    # where d % 16 != 0 (the STAGED instances), on the last rank's last
+    # chunk past 512
+    (100, 130, d, 64) for d in (1, 8, 33, 36, 40, 72, 100, 250)
+] + [(65, 191, 520, 48), (70, 150, 1000, 64), (65, 191, 2040, 100)])
 def test_dtiled_kernel_matches_plain_and_oracle(cuda_device, kind, lq, lkv,
                                                 d, block):
     q, k, v = _qkv(cuda_device, 1, 2, 2, lq, lkv, d, seed=22)
@@ -1423,12 +1451,13 @@ def test_dtiled_kernel_is_bitwise_reproducible(cuda_device, kind, d):
 
 def test_dtiled_kernel_refuses_what_it_cannot_take(cuda_device):
     before = flash_attention_v1_dtiled.launches
-    for d in (8, 100, 2064):
+    for d in (0, 2049, 2064):
         q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, d)
         with pytest.raises(ValueError, match=H5_HEAD_DIM_RULE):
-            flash_attention_v1_dtiled(q, k, v)
+            flash_attention_v1_dtiled(q, k, v, scale=1.0)
         with pytest.raises(ValueError, match=H5_HEAD_DIM_RULE):
-            flash_attention_v1_dtiled(q.float(), k.float(), v.float())
+            flash_attention_v1_dtiled(q.float(), k.float(), v.float(),
+                                      scale=1.0)
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 256)
     with pytest.raises(TypeError, match="bf16 or f32"):
         flash_attention_v1_dtiled(q.half(), k.half(), v.half())
@@ -2244,7 +2273,10 @@ def test_train_step_trains_an_f32_model(cuda_device):
     (256, 256, 128, 128),         # tests/test_quant.py:54's shape
     (200, 1100, 128, 100),        # ragged Q and KV, a ragged last block
     (130, 300, 64, 48),           # d=64, blocks that split the 32-key tiles
-] + [(200, 1100, d, 100) for d in (16, 80, 144, 256)])
+] + [(200, 1100, d, 100) for d in (16, 80, 144, 256)] + [
+    # d off the multiples of 16: code rows read at their alignment
+    (200, 1100, d, 100) for d in (1, 8, 33, 40, 72, 100, 250)
+])
 def test_kvquant_f32_matches_plain(cuda_device, kind, lq, lkv, d, block):
     """H4-kvq with f32 q: one launch of its f32 form, f32 O within 2e-5
     of the plain f32 version and of its f64 run."""
@@ -2277,7 +2309,12 @@ def test_kvquant_f32_matches_plain(cuda_device, kind, lq, lkv, d, block):
     (130, 200, 640, 100),
     (70, 150, 1024, 64),
     (65, 191, 2048, 48),
-])
+] + [
+    # d off the multiples of 16: f32 rows staged where d % 4 != 0, codes
+    # where d % 16 != 0 (the STAGED instances); O stored a value at a time
+    # where d % 8 != 0
+    (100, 130, d, 64) for d in (1, 8, 33, 36, 40, 72, 100, 250)
+] + [(65, 191, 520, 48), (70, 150, 1000, 64), (65, 191, 2040, 100)])
 def test_dtiled_f32_matches_plain(cuda_device, kind, lq, lkv, d, block):
     """H5 with f32 q (and f32 K/V, or int8 or e4m3 ones): one launch of
     its f32 form, f32 O within 2e-5 of the plain f32 version and of its

@@ -1,10 +1,12 @@
 """The quantized forwards at every head dim the port's kernels take, vs the
 JAX package.
 
-``flash_attention_kvquant`` runs H4-kvq at ``ops.attention.HEAD_DIM_RULE``
-(d a multiple of 16 from 16 to 256, on instances D 64, 128 and 256, a d
-below D on zero-filled columns) and H5's quantized form past 256 up to
-2048; ``flash_attention_int8`` runs H4-int8 at ``HEAD_DIM_RULE``.  The JAX
+``flash_attention_kvquant`` runs H4-kvq at
+``ops.attention.SERVING_HEAD_DIM_RULE`` (d from 1 to 256, on instances D
+64, 128 and 256, a d below D on zero-filled columns) and H5's quantized
+form past 256 up to 2048; ``flash_attention_int8`` runs H4-int8 at
+``SERVING_HEAD_DIM_RULE``.  Here the multiples of 16; the other d are
+``tests/test_torch_quant_heads_odd.py``'s.  The JAX
 functions (TPU kernels B16, B17 and B18) take any d.  Here the same NumPy
 inputs go through the JAX functions (Pallas in interpret mode) and the
 port's CPU path (the kernels' plain versions) at head dims off and on the
@@ -49,7 +51,7 @@ from exploring_flash_attention_tpu_torch.ops import (
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H4_INSTANCES,
     H5_HEAD_DIM_RULE,
-    HEAD_DIM_RULE,
+    SERVING_HEAD_DIM_RULE,
     h4_instance,
 )
 from exploring_flash_attention_tpu_torch.ops.attention_kvquant import (
@@ -146,13 +148,13 @@ def test_int8_matches_jax_at_head_dims(d, pv_mode):
 
 def test_head_dim_routes():
     """Every d of the rules: H4-kvq (and H4-int8) on the smallest instance
-    at or above d up to 256, H5's quantized form from 272 to 2048."""
-    for d in range(16, 257, 16):
+    at or above d up to 256, H5's quantized form from 257 to 2048."""
+    for d in range(1, 257):
         assert kvquant_kernel(d) == "H4-kvq"
         inst = h4_instance(d)
         assert inst in H4_INSTANCES and inst >= d
         assert inst == 64 or inst // 2 < d
-    for d in range(272, 2049, 16):
+    for d in range(257, 2049):
         assert kvquant_kernel(d) == "H5"
     # the share of an instance's products spent on zero-filled columns
     assert (h4_instance(80) - 80) / h4_instance(80) == 0.375
@@ -163,17 +165,28 @@ def test_head_dim_routes():
     ("int8", 8), ("int8", 40), ("int8", 264),
 ])
 def test_head_dims_the_kernels_refuse(op, d):
-    """A d off the rules raises ``ValueError`` naming the rule: for the
-    quantized-KV op both of its rules (H4-kvq's up to 256, H5's past it),
-    for the int8 op H4-int8's.  The CPU path, the plain version, takes any
-    d as the JAX functions do; the card's wrappers route through these."""
+    """The d these kernels refused before (8 and 40 off the multiples of
+    16) they now take; a d off the rules raises ``ValueError`` naming the
+    rule: for the quantized-KV op both of its rules (H4-kvq's up to 256,
+    H5's past it) at d 0 and past 2048, for the int8 op H4-int8's at d 0
+    and past 256.  The CPU path, the plain version, takes any d as the JAX
+    functions do; the card's wrappers route through these."""
+    rule = re.escape(SERVING_HEAD_DIM_RULE)
     if op == "kvquant":
-        with pytest.raises(ValueError, match=re.escape(HEAD_DIM_RULE)) as e:
-            kvquant_kernel(d)
-        assert H5_HEAD_DIM_RULE in str(e.value)
+        for bad in (0, 2049, d):
+            if bad == d and d <= 2048:
+                assert kvquant_kernel(d) == "H4-kvq"
+                continue
+            with pytest.raises(ValueError, match=rule) as e:
+                kvquant_kernel(bad)
+            assert H5_HEAD_DIM_RULE in str(e.value)
     else:
-        with pytest.raises(ValueError, match=re.escape(HEAD_DIM_RULE)):
-            h4_instance(d)
+        for bad in (0, 257, d):
+            if bad == d and d <= 256:
+                assert h4_instance(d) >= d
+                continue
+            with pytest.raises(ValueError, match=rule):
+                h4_instance(bad)
 
 
 # chip_smoke.py's head-dim cases of the quant phase (QUANT_HEADS_SHAPE and

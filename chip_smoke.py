@@ -258,8 +258,15 @@ Phases, one line each; any failure exits non-zero before the last line:
    against the full forward, the cache against the stream, tokens/s), and
    heads80g16 through the continuous-batching scheduler (its gate, 12
    requests graphed and eager, bitwise equal, one H6-decode launch a
-   step).
-23. heads_train (after train): the heads phase's three models trained as
+   step).  Past d 256 (bf16): H1 at d 257, 264, 300, 385
+   and 512 on H5's block of d-chunks as above, H2 at 257, 300 and 512,
+   the paged pair at HEADS_WIDE_PAGED (heads512's geometry, a group of 16
+   in chunks of 2, code rows of 16, 4, 1 and 8-byte alignment), the d
+   off 16-byte rows beside the misread-row controls; H1 at d=512 timed
+   beside H5 and SDPA (HEADS_WIDE_TIMED); heads512 (2 q heads over one
+   KV head of 512, page size 256) served end to end.
+23. heads_train (after train): the heads phase's models but heads512
+   (H3 takes d up to 256) trained as
    the flagship is, so H3 runs at d 256 (its column-split instance), 80
    and 72 (D=128 on zero-filled columns; 72's rows of 144 bytes by TMA)
    inside a model: make_train_step on
@@ -766,8 +773,12 @@ def phase_build(kernels):
 # exact forms of 64 and 128, whose d is a constant; their staged forms of
 # D 32, 64, 128, 256 for rows TMA cannot describe, bf16 d % 8 != 0),
 # H6-extend (D 64, 128, 256 x codes by TMA, or by bulk copy where d % 16
-# != 0)
+# != 0); past d 256 H1 on H5's block (3 or 4 chunks x the exact and bound
+# statistics x rows by TMA or STAGED) and H6-extend (3 or 4 chunks x codes
+# by TMA or PACKED)
 WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16,
+                   "prefill_attention_wide_kernel": 8,
+                   "paged_extend_wide_kernel": 4,
                    "int8_attention_kernel": 12,
                    "kvquant_attention_kernel": 12,
                    "dtiled_attention_kernel": 12,
@@ -788,10 +799,11 @@ WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16,
                    # of two blocks)
                    "attention_bwd_dkv_f32_kernel": 3,
                    "attention_bwd_dq_f32_kernel": 3}
-# H2: one instance per d, 16 to 256 by 16, and d off the multiples of 16
-# read at run time on the instances of 16, 32, 64, 128 and 256 lanes' rows,
-# 16-byte loads where d % 4 == 0 and a float at a time else (``Lb1ELb1E``)
-H2_FUNCTIONS = 16 + 5 + 5
+# H2: one instance per d, 16 to 512 by 16, and d off the multiples of 16
+# read at run time on the instances of 16, 32, 64, 128, 256 and 512 lanes'
+# rows, 16-byte loads where d % 4 == 0 and a float at a time else
+# (``Lb1ELb1E``)
+H2_FUNCTIONS = 32 + 6 + 6
 
 
 MMA_OPS = re.compile(r"\b(HGMMA|IGMMA|HMMA|IMMA)\b")
@@ -839,11 +851,12 @@ def check_sass(kernels):
 # H6-decode's fused instances, what paged_decode_attention runs: D 32, 64,
 # 128 (groups of 1, 2, 4, 8) and 256 (1, 2, 4) x the tuned bf16 form of d =
 # D, the general bf16 and f32 forms, and the general forms of d off the
-# multiples of 16 (ODD).  Its instances without the merge
+# multiples of 16 (ODD); D=512 (groups of 1, 2) x the bf16 forms alone
+# (tuned, general, ODD).  Its instances without the merge
 # (paged_decode_partials, for the tests and the two-launch timing) are
 # reported and not held: ptxas leaves 8-16 bytes of stack in a few of
 # them, whatever their code
-PAGED_DECODE_FUNCTIONS = (3 * 4 + 3) * 5
+PAGED_DECODE_FUNCTIONS = (3 * 4 + 3) * 5 + 2 * 3
 NOT_HELD = re.compile(r"paged_decode_kernelILi\d+ELi\d+ELb0E")
 # the kernels whose every instance must hold its accumulators in
 # registers: the serving kernels H1 (bf16: D 32/64/128/256 x Q tiles x
@@ -858,6 +871,8 @@ NOT_HELD = re.compile(r"paged_decode_kernelILi\d+ELi\d+ELb0E")
 # H3-dq's (WGMMA_FUNCTIONS: dK + dV 128 registers a consumer thread, the
 # staged producers on 24 and, H3-dkv's, 40; at f32 the 255 of a thread)
 NO_SPILL_FUNCTIONS = {"prefill_attention_kernel": 16,
+                      "prefill_attention_wide_kernel": 8,
+                      "paged_extend_wide_kernel": 4,
                       "attention_bwd_dkv_kernel": 10,
                       "attention_bwd_dq_kernel": 10,
                       "attention_bwd_dkv_f32_kernel": 3,
@@ -5201,7 +5216,8 @@ def phase_tiles(torch, dev):
 # 32, 128, 128, 256) and at d off the multiples of 16 (HEADS_ODD) on a GQA
 # group of 16, ragged and cross, under each mask with the LSE and over KV
 # spans; H2 on those spans at d 80, 256, 72 and 33
-HEADS_H1_DIMS = (16, 80, 96, 256, 1, 8, 33, 36, 40, 72, 100, 250)
+HEADS_H1_DIMS = (16, 80, 96, 256, 1, 8, 33, 36, 40, 72, 100, 250, 257, 264,
+                 300, 385, 512)
 # d whose rows are no multiple of 16 bytes somewhere: bf16 q/k/v rows by
 # TMA at d % 8 == 0 (8, 40, 72), by H1's staged producer otherwise (1, 33
 # odd; 36, 100, 250 even); codes at 1, 2, 4 or 8-byte alignment.  Each of
@@ -5209,11 +5225,19 @@ HEADS_H1_DIMS = (16, 80, 96, 256, 1, 8, 33, 36, 40, 72, 100, 250)
 # element late (the tensor shifted by one element), and each row's last
 # column dropped
 HEADS_ODD = (1, 8, 33, 36, 40, 72, 100, 250)
+# past 256 (bf16): H1 and H6-extend on H5's block of d-chunks (3 at d
+# 257-384, 4 at 385-512), H2's instances to 512, H6-decode's D=512
+# instance.  bf16 rows of 514 (257), 600 (300) and 770 (385) bytes by the
+# staged producer, of 528 (264) and 1024 (512) by TMA; codes of 1 (257,
+# 385), 8 (264), 4 (300) and 16-byte (512) alignment.  The d here (not 512)
+# hold the misread-row controls too; they stay out of HEADS_ODD, which H3
+# and H4 also run (NARROW_HEAD_DIM_RULE)
+HEADS_WIDE_ODD = (257, 264, 300, 385)
 HEADS_H1_SHAPE = (2, 16, 1, 1000, 1100)        # B, Hq, Hkv, Lq, Lkv
 HEADS_WINDOW = 100
 HEADS_SPAN = 256
-HEADS_H2_DIMS = (80, 256, 72, 33)
-HEADS_TIMED = (80, 256)        # each kernel timed at these head dims
+HEADS_H2_DIMS = (80, 256, 72, 33, 257, 300, 512)
+HEADS_TIMED = (80, 256, 512)   # each kernel timed at these head dims
 # the paged kernels' cases, (d, Hq, Hkv, page size): every d of 16, 80 and
 # 256, every group of 1, 16 and 32 and every page size of 128, 512 and 1024
 # appears; then heads72's geometry and d off the multiples of 16 (code rows
@@ -5222,8 +5246,15 @@ HEADS_TIMED = (80, 256)        # each kernel timed at these head dims
 HEADS_PAGED = [(16, 32, 1, 1024), (80, 16, 1, 512), (256, 8, 8, 128),
                (256, 32, 2, 512), (72, 16, 16, 128), (40, 8, 1, 256),
                (36, 32, 2, 512), (250, 8, 4, 128), (33, 16, 1, 1024)]
-# the paged cases timed: d 80 and 256 in a group of 16, heads72's geometry
-HEADS_PAGED_TIMED = ((80, 16, 1, 512), (256, 32, 2, 512), (72, 16, 16, 128))
+# past 256 (bf16 only: the f32 phase runs HEADS_PAGED): heads512's
+# geometry, a group of 16 (8 chunks of 2 q heads), and code rows of 4, 1
+# and 8-byte alignment over pages of 512, 128 and 1024
+HEADS_WIDE_PAGED = [(512, 2, 1, 256), (512, 16, 1, 128), (300, 8, 2, 512),
+                    (257, 4, 4, 128), (264, 8, 1, 1024)]
+# the paged cases timed: d 80 and 256 in a group of 16, heads72's and
+# heads512's geometries
+HEADS_PAGED_TIMED = ((80, 16, 1, 512), (256, 32, 2, 512), (72, 16, 16, 128),
+                     (512, 2, 1, 256))
 # H1 timed at d off the multiples of 16: (label, B, H, L, d, causal), MHA.
 # SigLIP-so400m's encoder at 384 px (27 x 27 patches of 14, 16 heads of 72,
 # no mask), and causal at d 72 and 40 (Stable Diffusion 1.x's first level:
@@ -5247,7 +5278,16 @@ HEADS_MODELS = {
     # 1152), one KV head each; rows of 144 bytes, codes of 72
     "heads72": {"n_heads": 16, "n_kv_heads": 16, "d_head": 72,
                 "page_size": 128},
+    # the flagship's attention regrouped as 2 heads of 512 over one KV
+    # head (no public model uses it; the JAX ModelConfig takes it): H1 and
+    # H6-extend on H5's block, H6-decode's D=512 instance.  Served only:
+    # H3 takes NARROW_HEAD_DIM_RULE, so heads_train leaves it out
+    "heads512": {"n_heads": 2, "n_kv_heads": 1, "d_head": 512,
+                 "page_size": 256},
 }
+# H1 past 256 timed beside H5 (the same block without masks, LSE or GQA)
+# and SDPA: (B, H, L, d), no mask and causal, bf16 O without the LSE
+HEADS_WIDE_TIMED = (4, 8, 1024, 512)
 # heads80g16's scheduler run: requests of these prompt and new-token
 # lengths, 8 slots, 4 up front and 2 more every 8 steps
 HEADS_SCHED_PROMPTS = (256, 512, 1024)
@@ -5337,7 +5377,7 @@ def heads_h1(torch, dev, d, out):
         _require(max(r["lse_plain"], r["lse_oracle"]) < H1_LSE_TOL,
                  f"heads H1 d={d} {mode}: LSE outside tolerance")
         errs[mode] = r["plain"]
-        if d in HEADS_ODD:
+        if d in HEADS_ODD + HEADS_WIDE_ODD:
             ctl = odd_row_controls(torch, q, k, v, o, scale, lkv - lq, causal,
                                    window)
             print(f"  heads H1 d={d} {mode} controls (vs plain): "
@@ -5361,7 +5401,7 @@ def heads_h1(torch, dev, d, out):
             torch, q, k[:, :, :-64], v[:, :, :-64], scale, False,
             HEADS_SPAN)[0]}
     ctl = {n: (o - x).abs().max().item() for n, x in bad.items()}
-    if d in HEADS_ODD:
+    if d in HEADS_ODD + HEADS_WIDE_ODD:
         ctl.update(odd_row_controls(torch, q, k, v, o, scale, 0, False, None,
                                     span=HEADS_SPAN))
     nkb = o.shape[2]
@@ -5410,7 +5450,8 @@ def heads_h1(torch, dev, d, out):
             lambda: sdpa(q, k, v, enable_gqa=True),
             [(flop, H100_BF16_FLOPS)],
             2 * d * 2 * (b * hq * lq + b * hkv * lkv)))
-        pad = next(x for x in (32, 64, 128, 256) if x >= d)
+        # the instance: D 32-256, or past 256 H5's block of 3 or 4 chunks
+        pad = next(x for x in (32, 64, 128, 256, 384, 512) if x >= d)
         res["padded_work"] = 1 - d / pad
         print(f"  heads H1 {geo} times (no mask, bf16 O): {res['ms']:.4f} ms "
               f"= {flop / res['ms'] / 1e9:.1f} TFLOP/s of the true d's work "
@@ -5457,6 +5498,51 @@ def heads_odd_times(torch, dev):
     return out
 
 
+def heads_wide_times(torch, dev):
+    """H1 past 256 at HEADS_WIDE_TIMED (bf16, no LSE, bf16 O; no mask and
+    causal), each call one counted H1 launch first, beside H5 (its d-tiled
+    forward on the same block, no mask), the plain version,
+    scaled_dot_product_attention and the bound."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from exploring_flash_attention_tpu_torch.ops import (
+        attention_plain,
+        flash_attention_v1_dtiled,
+        prefill_attention,
+    )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
+
+    b, h, l, d = HEADS_WIDE_TIMED
+    q, k, v = v1_inputs(torch, dev, b, h, h, l, l, d, seed=d)
+    scale = 1.0 / math.sqrt(d)
+    out = {}
+    for causal in (False, True):
+        call = lambda: prefill_attention(                # noqa: E731
+            q, k, v, scale, 0, causal, with_lse=False)
+        counted_call(torch, call, launches_only(h1=1))
+        pairs = l * (l + 1) // 2 if causal else l * l
+        flop = 4 * b * h * pairs * d
+        t = kernel_times(call, lambda: attention_plain(q, k, v, scale,
+                                                       causal),
+                         lambda: sdpa(q, k, v, is_causal=causal),
+                         [(flop, H100_BF16_FLOPS)], 4 * b * h * l * d * 2)
+        t["shape"] = f"B={b} H={h} L={l} d={d}" + (" causal" if causal
+                                                   else "")
+        t["tflops"] = flop / t["ms"] / 1e9
+        if not causal:
+            t["h5_ms"] = time_cuda(lambda: flash_attention_v1_dtiled(q, k, v),
+                                   n_iter=20)
+        print(f"  heads H1 past 256 ({t['shape']}): {t['ms']:.4f} ms = "
+              f"{t['tflops']:.1f} TFLOP/s; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); plain {t['plain_ms']:.4f} ms; "
+              f"scaled_dot_product_attention {t['library_ms']:.4f} ms"
+              + ("" if causal else f"; H5 on the same inputs "
+                 f"{t['h5_ms']:.4f} ms"))
+        out["causal" if causal else "none"] = t
+    del q, k, v
+    return out
+
+
 def heads_paged(torch, dev, d, hq, hkv, ps, out):
     """H6-decode and H6-extend at one (d, group, page size): each one
     counted launch against the plain version and the f64 oracle over each
@@ -5493,7 +5579,7 @@ def heads_paged(torch, dev, d, hq, hkv, ps, out):
     with newest_token_hidden(cache, slots):
         controls = {"newest token hidden": paged_decode_plain(
             q, cache, slots, scale)}
-    if d in HEADS_ODD:
+    if d in HEADS_ODD + HEADS_WIDE_ODD:
         for name in ("rows read one element late", "last column dropped"):
             with codes_misread(torch, cache, name):
                 controls[name] = paged_decode_plain(q, cache, slots, scale)
@@ -5549,7 +5635,7 @@ def heads_paged(torch, dev, d, hq, hkv, ps, out):
     with newest_token_hidden(cache, slots):
         controls = {"every row's own key hidden": paged_extend_plain(
             q, cache, slots, scale)}
-    if d in HEADS_ODD:
+    if d in HEADS_ODD + HEADS_WIDE_ODD:
         for name in ("rows read one element late", "last column dropped"):
             with codes_misread(torch, cache, name):
                 controls[name] = paged_extend_plain(q, cache, slots, scale)
@@ -5699,7 +5785,8 @@ def phase_heads(torch, dev):
     for d in HEADS_H1_DIMS:
         heads_h1(torch, dev, d, out)
     out["h1_odd_times"] = heads_odd_times(torch, dev)
-    for d, hq, hkv, ps in HEADS_PAGED:
+    out["h1_wide_times"] = heads_wide_times(torch, dev)
+    for d, hq, hkv, ps in HEADS_PAGED + HEADS_WIDE_PAGED:
         heads_paged(torch, dev, d, hq, hkv, ps, out)
     for name, geo in HEADS_MODELS.items():
         geo = dict(geo)
@@ -5895,9 +5982,15 @@ def phase_heads_train(torch, dev):
     H3 at HEADS_ODD in both dtypes (h3_odd_case) and at traced offsets
     (h3_traced_check)."""
     out = {"models": {}, "times": {}, "odd": {"bf16": {}, "f32": {}}}
+    from exploring_flash_attention_tpu_torch.ops.attention import (
+        narrow_head_dim,
+    )
+
     gen = torch.Generator().manual_seed(17)
     for name, geo in HEADS_MODELS.items():
         geo = {k: x for k, x in geo.items() if k != "page_size"}
+        if not narrow_head_dim(geo["d_head"]):
+            continue            # heads512: H3 takes d up to 256 (B4d-train)
         tol = HEADS72_LOSS_TOL if name == "heads72" else TRAIN_LOSS_TOL
         counts, tok_s, checks = phase_train(torch, dev, name, loss_tol=tol,
                                             **geo)
@@ -7521,7 +7614,8 @@ def main(argv) -> int:
         # H1's numbers are the v1 phase's: its main call at bench.py's
         # canonical shape, and its times there
         {"name": "H1 attention forward (none, causal, window; d from 1 to "
-                 "256)",
+                 "512, f32 to 256; past 256 on H5's block of d-chunks, "
+                 "csrc/prefill_attention_wide.cu)",
          "route": "cuda", "source": H1_SRC, "replaces": f"{V1_PY}:1139",
          "also_replaces": [f"{V1_PY}:{n}" for n in (387, 213, 489, 901,
                                                      1261, 1357)]
@@ -7552,6 +7646,7 @@ def main(argv) -> int:
                               **heads_train_launches(htrain, "h1")},
          "by_head_dim": heads["h1"],
          "odd_head_dim_times": heads["h1_odd_times"],
+         "wide_head_dim_times": heads["h1_wide_times"],
          "by_dtype": {"f32": f32_readings(f32, "h1")},
          "device_offsets": device_offset_readings(par, "h1"),
          "seq2seq_cross_shape": t["seq2seq_cross"]["h1"],
@@ -7627,8 +7722,8 @@ def main(argv) -> int:
         # H6's numbers are the slice's and the multi-turn's cases; by_case
         # holds every case of the decode and extend phases
         {"name": "H6-decode paged INT8 decode attention (window; d from 1 "
-                 "to 256, any group, pages a multiple of 128; split across "
-                 "the SMs, the runs merged in its last block)",
+                 "to 512, f32 q to 256, any group, pages a multiple of 128; "
+                 "split across the SMs, the runs merged in its last block)",
          "route": "cuda", "source": H6_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:74",
          "launches": launches["h6"],
@@ -7660,7 +7755,9 @@ def main(argv) -> int:
                                                 "turn_2_tokens_s")}
                           for n, x in heads["models"].items()}},
         {"name": "H6-extend paged INT8 chunked-prefill attention (window; d "
-                 "from 1 to 256, any group, pages a multiple of 128)",
+                 "from 1 to 512, f32 q to 256, any group, pages a multiple "
+                 "of 128; past 256 on H5's block, "
+                 "csrc/paged_extend_wide.cu)",
          "route": "cuda", "source": H6E_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:257",
          "also_replaces": "exploring_flash_attention_tpu/serving/decode.py:455",

@@ -600,21 +600,16 @@ __device__ __forceinline__ void consume_first(
                      nullptr, C::D, 0);
 }
 
-// Consumer warpgroup c > 0: O_c = alpha O_c + P V_c, P from the shared
-// tile warpgroup 0 wrote
-template <int NC, int KIND, bool CL, bool STAGED = false>
-__device__ __forceinline__ void consume_chunk(
-    unsigned char* smem, Bars<NC, KIND>* bars, void* o, int out_f32, int lq,
-    int q0, int bh, int n_tiles, int d = 0) {
+// The key loop of consumer warpgroup c > 0 (wg): O_c = alpha O_c + P V_c
+// over n_tiles tiles, P from the shared tile warpgroup 0 wrote
+template <int NC, int KIND, bool CL>
+__device__ __forceinline__ void chunk_loop(unsigned char* smem,
+                                           Bars<NC, KIND>* bars, int wg,
+                                           int rl, int n_tiles,
+                                           float (&acc_o)[DC / 2]) {
   using C = Cfg<NC, KIND, CL>;
-  const int wg = threadIdx.x / 128;
-  const int warp = threadIdx.x / 32 % 4;
-  const int lane = threadIdx.x % 32;
-  const int rl = warp * 16 + lane / 4;
   const unsigned char* chunks = smem + C::chunks;
   const float* salpha = reinterpret_cast<const float*>(smem + C::alpha);
-
-  float acc_o[DC / 2];
 #pragma unroll
   for (int e = 0; e < DC / 2; ++e) acc_o[e] = 0.f;
   for (int i = 0; i < n_tiles; ++i) {
@@ -639,6 +634,20 @@ __device__ __forceinline__ void consume_chunk(
     mbar_arrive(&bars->chunk_empty[sv]);
     mbar_arrive(&bars->p_empty[b]);
   }
+}
+
+// Consumer warpgroup c > 0: its key loop (chunk_loop), then O_c / l
+template <int NC, int KIND, bool CL, bool STAGED = false>
+__device__ __forceinline__ void consume_chunk(
+    unsigned char* smem, Bars<NC, KIND>* bars, void* o, int out_f32, int lq,
+    int q0, int bh, int n_tiles, int d = 0) {
+  using C = Cfg<NC, KIND, CL>;
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int rl = warp * 16 + lane / 4;
+  float acc_o[DC / 2];
+  chunk_loop<NC, KIND, CL>(smem, bars, wg, rl, n_tiles, acc_o);
 
   named_bar_sync(L_BAR, NC * 128);
   const float* sl = reinterpret_cast<const float*>(smem + C::lsum);

@@ -16,7 +16,8 @@
 // each read as one 16-byte load per partial; a chunk at or past d is idle
 // (no load, no store; it adds nothing).  At d = 4L (d = 32, 64, 128) that
 // is one chunk a lane, none idle; at d = 80 one chunk on 32 lanes, 20 of
-// them busy; at d = 256 two chunks on 32 lanes.  The row's LSEs are
+// them busy; at d = 256 two chunks on 32 lanes, at d = 512 four (one warp
+// a row up to d 512, so the max and the sum stay shuffles).  The row's LSEs are
 // read once, lse_k by lane k % L of the group; the max and the sum reduce
 // by shuffles within the group, and each weight, computed once by the lane
 // that read its LSE, reaches the other lanes by __shfl_sync.  No LSE is
@@ -191,7 +192,7 @@ struct MergeRow {
   static constexpr int L = CHUNKS > 16 ? 32 : CHUNKS > 8 ? 16
                          : CHUNKS > 4 ? 8 : 4;
   static constexpr int NV = (CHUNKS + L - 1) / L;
-  static_assert(D % 16 == 0 && D <= 256, "d is a multiple of 16 up to 256");
+  static_assert(D % 16 == 0 && D <= 512, "d is a multiple of 16 up to 512");
 };
 
 // Four f32 values as this lane writes them to a row of O at dst: those

@@ -7,12 +7,12 @@
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // serving/decode.py has already checked shapes, dtypes, contiguity and
 // alignment and planned the split; the checks here only refuse what would
-// index out of bounds.  d: 1 to 256; page_size: a multiple of 128.
-// window: 0 for none.  fused: 1 merges the runs into
+// index out of bounds.  d: 1 to 512 (f32 q: to 256); page_size: a multiple
+// of 128.  window: 0 for none.  fused: 1 merges the runs into
 // bf16 o [B, Hq, d] (o_part and lse are then the workspace, tickets
-// B * Hkv * chunks zeroed ints, chunks = cdiv(group, 8), or cdiv(group, 4)
-// at d > 128); 0 writes the partials only (o and tickets unused).  q_f32: 0
-// for bf16 q and o, 1 for f32.
+// B * Hkv * chunks zeroed ints, chunks = cdiv(group, 8), cdiv(group, 4)
+// at d > 128, cdiv(group, 2) at d > 256); 0 writes the partials only (o
+// and tickets unused).  q_f32: 0 for bf16 q and o, 1 for f32.
 extern "C" int eft_paged_decode(const void* q, const void* pages,
                                 const void* scales, const void* page_table,
                                 const void* seq_lens, const void* slots,
@@ -23,10 +23,11 @@ extern "C" int eft_paged_decode(const void* q, const void* pages,
                                 int pages_per_split, int fused, float scale,
                                 int q_f32, int device, void* stream) {
   const int group = hkv > 0 ? hq / hkv : 0;
-  const int cap = d > 128 ? 4 : 8;
+  const int cap = d > 256 ? 2 : d > 128 ? 4 : 8;
   if (batch <= 0 || batch > 65535 || hkv <= 0 || hq % hkv != 0 ||
       int64_t(hkv) * ((group + cap - 1) / cap) > 65535 || d < 1 ||
-      d > 256 || page_size % TILE != 0 || page_size <= 0 ||
+      d > (q_f32 ? 256 : 512) || page_size % PAGE_TILE != 0 ||
+      page_size <= 0 ||
       max_pages <= 0 || int64_t(max_pages) * page_size > INT32_MAX ||
       window < 0 || n_split <= 0 || n_split > INT32_MAX / 65535 ||
       pages_per_split <= 0 ||

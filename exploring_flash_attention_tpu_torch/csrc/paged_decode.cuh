@@ -65,8 +65,9 @@
 //     per token), O rescaled by alpha per tile; the four warps' sums meet
 //     in shared memory at the end.
 //
-// Head dims and groups.  d is any from 1 to 256, on
-// instances D = 32, 64, 128 and 256 (the smallest D >= d): a token's row is
+// Head dims and groups.  d is any from 1 to 512 (f32 q: 256), on
+// instances D = 32, 64, 128, 256 and 512 (the smallest D >= d; at D=512 a
+// stage is 64 tokens, 66 KB, the ring 198 KB): a token's row is
 // d bytes in the pages and in the ring, S takes D / 16 lanes a token of
 // which the first d / 16 hold q (the rest hold zeros and add zeros to the
 // shuffle tree: 5 of 8 busy at d=80), and P V's lane owns D / 32 columns,
@@ -79,12 +80,13 @@
 // ring at the rows' alignment (eft::hopper::load16_al; those past d are
 // the next row's, finite, times q's zeros); the merge reads and writes a
 // float at a time.  The ring itself needs no change: a tile's K or V
-// codes are 128 d contiguous bytes from a 16-byte aligned start.
-// A GQA group larger than the instance's GMAX (8; 4 at D=256, whose O
-// columns take twice the registers) is cut into chunks of GMAX q heads,
+// codes are TILE d contiguous bytes from a 16-byte aligned start.
+// A GQA group larger than the instance's GMAX (8; 4 at D=256 and 2 at
+// D=512, whose O columns and q rows take twice and four times the
+// registers) is cut into chunks of GMAX q heads,
 // one block each (grid.y = Hkv * chunks): each chunk streams the run's
 // bytes again, mostly from L2, and draws its own ticket.  Any page size
-// that is a multiple of 128 holds whole tiles.
+// that is a multiple of 128 holds whole tiles of 128 or 64.
 //
 // Layout, per serving/kv_cache.py of the port: pages int8
 // [n_pages, 2, Hkv, ps, d] (0 = K, 1 = V), scales f32 [n_pages, 2, Hkv, 1, ps].
@@ -127,7 +129,7 @@ namespace {
 using namespace eft::hopper;
 using eft::decode::Args;
 
-constexpr int TILE = 128;        // tokens per stage
+constexpr int PAGE_TILE = 128;   // a page is a multiple of it
 constexpr int STAGES = 3;        // tiles in the ring
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
@@ -135,14 +137,16 @@ constexpr int MERGE_UNROLL = 8;  // 16-byte loads in flight a lane, merging
 
 // the q heads of a block at instance D: a larger group is cut into chunks
 template <int D>
-constexpr int group_cap() { return D == 256 ? 4 : 8; }
+constexpr int group_cap() { return D == 512 ? 2 : D == 256 ? 4 : 8; }
 
 // Shared memory of one block: the ring (K codes, V codes, K scales, V
 // scales per stage; the codes [TILE][d], d <= D), S [GMAX][TILE], P *
 // v_scale [TILE][GMAX], alpha, m, l of each q row, the ticket drawn, the
-// barriers.  The four warps' O sums reuse the ring.
+// barriers.  The four warps' O sums reuse the ring.  TILE tokens a stage:
+// 128, and 64 at D=512, where three stages of 128 would take 396 KB
 template <int D, int GMAX>
 struct Smem {
+  static constexpr int TILE = D == 512 ? 64 : PAGE_TILE;
   static constexpr uint32_t CODES = TILE * D;
   static constexpr uint32_t STAGE = 2 * CODES + 2 * TILE * 4;
   static constexpr size_t ring = 0;
@@ -193,6 +197,7 @@ paged_decode_kernel(const std::conditional_t<F32, float, __nv_bfloat16>*
                     int max_seqs, int window, int pages_per_split,
                     float scale_log2) {
   using S = Smem<D, GMAX>;
+  constexpr int TILE = S::TILE;
   constexpr int LPT = D / 16;          // lanes per token in S = q K^T
   constexpr int TPI = THREADS / LPT;   // tokens per pass of the block
   constexpr int CPL = D / 32;          // O columns per lane in P V
@@ -381,14 +386,15 @@ paged_decode_kernel(const std::conditional_t<F32, float, __nv_bfloat16>*
     }
     __syncthreads();
 
-    // O = alpha O + P V over this warp's 32 tokens
+    // O = alpha O + P V over this warp's TILE / 4 tokens
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       const float a = g < gn ? s_alpha[g] : 0.f;
 #pragma unroll
       for (int c = 0; c < CPL; ++c) acc[g][c] *= a;
     }
-    for (int t = warp * 32; t < warp * 32 + 32; ++t) {
+    for (int t = warp * (TILE / WARPS); t < (warp + 1) * (TILE / WARPS);
+         ++t) {
       float vf[CPL];
       const int8_t* vrow = v_s + t * d + CPL * lane;
       if constexpr (ODD && CPL >= 4) {
@@ -398,10 +404,28 @@ paged_decode_kernel(const std::conditional_t<F32, float, __nv_bfloat16>*
         s8x4_to_f32(w.x, f);
 #pragma unroll
         for (int c = 0; c < 4; ++c) vf[c] = f[c];
-        if constexpr (CPL == 8) {
+        if constexpr (CPL >= 8) {
           s8x4_to_f32(w.y, f);
 #pragma unroll
           for (int c = 0; c < 4; ++c) vf[4 + c] = f[c];
+        }
+        if constexpr (CPL == 16) {
+          s8x4_to_f32(w.z, f);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) vf[8 + c] = f[c];
+          s8x4_to_f32(w.w, f);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) vf[12 + c] = f[c];
+        }
+      } else if constexpr (CPL == 16) {
+        const uint4 w = *reinterpret_cast<const uint4*>(vrow);
+        const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float f[4];
+          s8x4_to_f32(ws[x], f);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) vf[4 * x + c] = f[c];
         }
       } else if constexpr (CPL == 8) {
         const uint2 w = *reinterpret_cast<const uint2*>(vrow);
@@ -503,9 +527,12 @@ paged_decode_kernel(const std::conditional_t<F32, float, __nv_bfloat16>*
     __syncthreads();
     if (*s_ticket != n_split - 1) return;
     // the last block: merge the n_split partials of the chunk's rows, a
-    // row per L lanes (lse_merge.cuh)
+    // row per L lanes (lse_merge.cuh); at D=512 four 16-byte loads in
+    // flight a lane, each of its four chunks (eight would hold 128
+    // registers of loads)
     constexpr int L = eft::MergeRow<D>::L;
     constexpr int NV = eft::MergeRow<D>::NV;
+    constexpr int UNROLL = D == 512 ? 4 : MERGE_UNROLL;
     constexpr int RPW = 32 / L;        // rows per warp
 #pragma unroll
     for (int gb = 0; gb < GMAX; gb += WARPS * RPW) {
@@ -514,7 +541,7 @@ paged_decode_kernel(const std::conditional_t<F32, float, __nv_bfloat16>*
       const int g = gw + lane / L;
       const size_t r = row0 + min(g, gn - 1);
       float4 merged[NV];
-      eft::lse_merge_row<L, NV, MERGE_UNROLL, true, ODD>(
+      eft::lse_merge_row<L, NV, UNROLL, true, ODD>(
           merged, o_part, lse, r * n_split, 1, n_split, d);
       if (g >= gn) continue;
 #pragma unroll
@@ -563,13 +590,22 @@ int launch(const Args& a, cudaStream_t stream) {
 // one)
 template <bool ODD, int D, int GMAX, bool FUSED>
 int launch_exact(const Args& a, cudaStream_t stream) {
+  // f32 q up to D=256 (the C entry refuses it past)
+  if constexpr (D > 256) {
+    if (a.q_f32) return int(cudaErrorInvalidValue);
+  }
   if constexpr (ODD) {
-    return a.q_f32 ? launch<D, GMAX, FUSED, false, true, true>(a, stream)
-                   : launch<D, GMAX, FUSED, false, false, true>(a, stream);
+    if constexpr (D <= 256) {
+      if (a.q_f32) return launch<D, GMAX, FUSED, false, true, true>(a, stream);
+    }
+    return launch<D, GMAX, FUSED, false, false, true>(a, stream);
   } else {
     // f32 q takes the general instances alone: the tuned EXACT form is
     // the bf16 path's
-    if (a.q_f32) return launch<D, GMAX, FUSED, false, true, false>(a, stream);
+    if constexpr (D <= 256) {
+      if (a.q_f32)
+        return launch<D, GMAX, FUSED, false, true, false>(a, stream);
+    }
     if (a.d == D && a.hq / a.hkv <= GMAX)
       return launch<D, GMAX, FUSED, true, false, false>(a, stream);
     return launch<D, GMAX, FUSED, false, false, false>(a, stream);
@@ -581,12 +617,16 @@ template <bool ODD, int D, bool FUSED>
 int launch_group(const Args& a, cudaStream_t stream) {
   const int group = a.hq / a.hkv;
   if (group == 1) return launch_exact<ODD, D, 1, FUSED>(a, stream);
-  if (group == 2) return launch_exact<ODD, D, 2, FUSED>(a, stream);
-  if (group <= 4 || group_cap<D>() == 4)
-    return launch_exact<ODD, D, 4, FUSED>(a, stream);
-  if constexpr (group_cap<D>() == 8)
-    return launch_exact<ODD, D, 8, FUSED>(a, stream);
-  return int(cudaErrorInvalidValue);
+  if constexpr (group_cap<D>() == 2) {
+    return launch_exact<ODD, D, 2, FUSED>(a, stream);
+  } else {
+    if (group == 2) return launch_exact<ODD, D, 2, FUSED>(a, stream);
+    if (group <= 4 || group_cap<D>() == 4)
+      return launch_exact<ODD, D, 4, FUSED>(a, stream);
+    if constexpr (group_cap<D>() == 8)
+      return launch_exact<ODD, D, 8, FUSED>(a, stream);
+    return int(cudaErrorInvalidValue);
+  }
 }
 
 template <bool ODD, int D>
@@ -601,7 +641,8 @@ int launch_d(const Args& a, cudaStream_t stream) {
   if (a.d <= 32) return launch_fused<ODD, 32>(a, stream);
   if (a.d <= 64) return launch_fused<ODD, 64>(a, stream);
   if (a.d <= 128) return launch_fused<ODD, 128>(a, stream);
-  return launch_fused<ODD, 256>(a, stream);
+  if (a.d <= 256) return launch_fused<ODD, 256>(a, stream);
+  return launch_fused<ODD, 512>(a, stream);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // H1: the attention forward on Hopper (sm_90a). bf16 in, f32 accumulate,
 // one kernel for three masks (none, causal, sliding window) and every head
-// dim d from 1 to 256, on instances D = 32, 64, 128 and 256: a d below its
+// dim d from 1 to 256 (bf16 257 to 512: prefill_attention_wide.cu, on
+// H5's block), on instances D = 32, 64, 128 and 256: a d below its
 // instance's D (1-31 on 32, 33-63 on 64, 65-127 on 128, 129-255 on 256) is
 // described to TMA with its true d, so the tiles' columns past d land as
 // zeros (wgmma_tile.cuh), and the epilogue stores the first d columns of
@@ -703,9 +704,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // and o / lse hold cdiv(lkv, kv_span) partials per row.  q_rows: the Q
 // tile, 64 or 128.  kmax: null (the exact statistic) or the bound form's
 // f32 [batch * hkv, cdiv(lkv, 128)] prefix maxima of |k|^2.  d: 1 to 256,
-// run on the smallest instance D >= d (bf16 d % 8 != 0 in the staged form).
-// in_f32: 0 for bf16 q/k/v, 1 for f32 (the f32 core, bf16x6; instances D =
-// 64, 128, 256; rows of d % 4 != 0 read a float at a time).
+// run on the smallest instance D >= d (bf16 d % 8 != 0 in the staged form),
+// and at bf16 257 to 512 on the wide block (launch_wide).  in_f32: 0 for
+// bf16 q/k/v, 1 for f32 (the f32 core, bf16x6; instances D = 64, 128, 256;
+// rows of d % 4 != 0 read a float at a time; d up to 256).
 extern "C" int eft_prefill_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int batch, int hq, int hkv, int lq,
@@ -718,7 +720,7 @@ extern "C" int eft_prefill_attention(const void* q, const void* k,
       mask < MASK_NONE || mask > MASK_WINDOW ||
       (mask == MASK_WINDOW && window < 1) || kv_span < 0 ||
       kv_span % SPAN_TILE != 0 || (q_rows != 64 && q_rows != 128) ||
-      d < 1 || d > 256 || (in_f32 != 0 && in_f32 != 1))
+      d < 1 || d > (in_f32 ? 256 : 512) || (in_f32 != 0 && in_f32 != 1))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -737,6 +739,10 @@ extern "C" int eft_prefill_attention(const void* q, const void* k,
     return eft::prefill::launch_f32(q, k, v, o, out_f32, lse, batch, hq, hkv,
                                     lq, lkv, d, mask, diag_off, window,
                                     o_offs, kv_span, scale, km, s);
+  if (d > 256)
+    return eft::prefill::launch_wide(q, k, v, o, out_f32, lse, batch, hq,
+                                     hkv, lq, lkv, d, mask, diag_off, window,
+                                     o_offs, kv_span, scale, km, s);
   using T = std::true_type;
   using F = std::false_type;
   auto by_tile = [&](auto dc) {

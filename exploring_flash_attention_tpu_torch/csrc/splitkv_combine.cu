@@ -20,15 +20,16 @@
 //     read-only path without allocating in L1 (each byte is read once);
 //     at a d that is no power of two the row takes the next power of two
 //     of lanes, those past d idle (d=80: 32 lanes, 20 busy), and past d
-//     = 128 each lane two 16-byte chunks (eft::MergeRow).  One instance
-//     per d (every multiple of 16 up to 256), so nothing is padded in
-//     memory and d 32 / 64 / 128 compile as before;
+//     = 128 each lane two 16-byte chunks, past 256 three or four, a row
+//     still one warp's (eft::MergeRow).  One instance per d (every
+//     multiple of 16 up to 512), so nothing is padded in memory and d 32 /
+//     64 / 128 compile as before;
 //   - the row's LSEs are read once, one per lane, beside its first four
 //     16-byte loads, and reduced by shuffles within the row's lanes; each
 //     weight reaches the lanes by __shfl_sync (lse_merge.cuh);
 //   - O is written as one 8-byte store of 4 bf16, or one float4, per lane;
 //   - a d that is not a multiple of 16 runs on the instance of its row's
-//     lanes (D 16, 32, 64, 128 or 256: the lanes and chunks of a row
+//     lanes (D 16, 32, 64, 128, 256 or 512: the lanes and chunks of a row
 //     depend only on which of these d reaches) with d read at run time,
 //     the loads and stores past d masked: 16-byte loads where the rows
 //     are (d % 4 == 0), else a float at a time (ANY).  The multiples of
@@ -103,9 +104,9 @@ int launch(const void* o_part, const void* lse, void* o, int out_f32,
   return int(cudaGetLastError());
 }
 
-// the instance of head dim d: the multiples of 16 from D up to 256 have
+// the instance of head dim d: the multiples of 16 from D up to 512 have
 // their own; any other d runs on the instance of its lanes (16, 32, 64,
-// 128 or 256) with d read at run time
+// 128, 256 or 512) with d read at run time
 template <int D>
 int launch_d(int d, const void* o_part, const void* lse, void* o,
              int out_f32, int n_rows, int nkb, int lq, cudaStream_t stream) {
@@ -121,7 +122,7 @@ int launch_d(int d, const void* o_part, const void* lse, void* o,
                                    d, stream);
     }
   }
-  if constexpr (D < 256)
+  if constexpr (D < 512)
     return launch_d<D + 16>(d, o_part, lse, o, out_f32, n_rows, nkb, lq,
                             stream);
   return int(cudaErrorInvalidValue);
@@ -132,7 +133,7 @@ int launch_d(int d, const void* o_part, const void* lse, void* o,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // ops/attention_v2_splitkv.py has already checked shapes, dtypes,
 // contiguity and 16-byte alignment.  n_bh = batch * heads; d from 1 to
-// 256.
+// 512.
 extern "C" int eft_splitkv_combine(const void* o_part, const void* lse,
                                    void* o, int n_bh, int nkb, int lq, int d,
                                    int out_f32, int device, void* stream) {

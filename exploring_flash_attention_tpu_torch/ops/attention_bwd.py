@@ -28,14 +28,14 @@ from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
     LOG2E,
-    SERVING_HEAD_DIM_RULE,
+    NARROW_HEAD_DIM_RULE,
     DiagOff,
     _check_cuda_inputs,
     checked_window,
     hidden_keys,
-    kernel_head_dim,
     mask_args,
     mask_diagonal,
+    narrow_head_dim,
 )
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -89,11 +89,11 @@ def _check_bwd_inputs(name: str, q, k, v, do, lse, delta) -> None:
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     if (k.shape != (b, hkv, lkv, d) or v.shape != k.shape
-            or do.shape != q.shape or hq % hkv or not kernel_head_dim(d)
+            or do.shape != q.shape or hq % hkv or not narrow_head_dim(d)
             or lq == 0 or lkv == 0):
         raise ValueError(
             f"{name} takes q/do [B,Hq,Lq,d], k/v [B,Hkv,Lkv,d] with Hq % Hkv "
-            f"== 0 and {SERVING_HEAD_DIM_RULE}; got q {tuple(q.shape)}, k "
+            f"== 0 and {NARROW_HEAD_DIM_RULE}; got q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}, do {tuple(do.shape)}")
     for stat in (lse, delta):
         if (stat.device != q.device or stat.dtype != torch.float32
@@ -121,7 +121,7 @@ def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the inputs' dtype, each summed over its GQA group in f32 inside the
     kernel, under the mask of :func:`attention_bwd_plain`.  Takes
     contiguous bf16 or f32 q/k/v/do at any d of
-    ``ops.attention.SERVING_HEAD_DIM_RULE`` (a d below its instance runs on
+    ``ops.attention.NARROW_HEAD_DIM_RULE`` (a d below its instance runs on
     zero-filled columns: bf16 on 32, 64, 128 and 256, rows of d % 8 != 0
     loaded by the producer warpgroup instead of TMA; f32 bf16x6 on 64, 128
     and 256, the last a cluster of two blocks that split the columns), and
@@ -193,7 +193,7 @@ def flash_attention_bwd(
 
     CPU tensors take :func:`attention_bwd_plain`.  CUDA tensors take H1's
     contract (contiguous bf16 or f32, any d of
-    ``ops.attention.SERVING_HEAD_DIM_RULE``, any
+    ``ops.attention.NARROW_HEAD_DIM_RULE``, any
     GQA group, any Lq and Lkv; f32 gradients at f32 accuracy): delta is
     reduced by torch, then kernels H3-dkv and H3-dq launch, or the call
     raises (``ValueError`` naming the rule for another d, ``TypeError``

@@ -7,7 +7,7 @@ softmax (m over every key, l from the f32 p), and P V in bf16
 (``pv_mode="bf16"``) or in int8 with ``p_i8 = round(p * 127)``
 (``pv_mode="int8"``).  Here a call is one launch of H4-int8
 (``csrc/int8_attention.cu``) at the head dims of
-:data:`~.attention.SERVING_HEAD_DIM_RULE` (instances D 64, 128 and 256,
+:data:`~.attention.NARROW_HEAD_DIM_RULE` (instances D 64, 128 and 256,
 :func:`~.attention.h4_instance`).  Layout [B, H, L, d], non-causal, no
 GQA.
 """
@@ -23,8 +23,8 @@ from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import TileConfig
 from exploring_flash_attention_tpu_torch.ops.attention import (
     LOG2E,
-    SERVING_HEAD_DIM_RULE,
-    kernel_head_dim,
+    NARROW_HEAD_DIM_RULE,
+    narrow_head_dim,
 )
 from exploring_flash_attention_tpu_torch.ops.quant import (
     QuantizedTensor,
@@ -100,7 +100,7 @@ def flash_attention_int8(
 
     CPU tensors take :func:`attention_int8_plain`.  CUDA tensors launch
     H4-int8 once per call, or raise: it takes contiguous int8 values with
-    :data:`~.attention.SERVING_HEAD_DIM_RULE` and a kv block that is a
+    :data:`~.attention.NARROW_HEAD_DIM_RULE` and a kv block that is a
     multiple of 16, and writes bf16 or f32 O; the scale is the caller's or
     1/sqrt of the true d, whatever instance runs it.
     ``flash_attention_int8.launches`` counts kernel launches."""
@@ -122,8 +122,8 @@ def flash_attention_int8(
                                     ).to(out_dtype)
     check_cuda_quantized("H4-int8 attention", dev, (torch.int8,),
                          q_q, k_q, v_q)
-    if not kernel_head_dim(d) or block % 16 or lq == 0 or lkv == 0:
-        raise ValueError(f"H4-int8 takes {SERVING_HEAD_DIM_RULE}, a kv "
+    if not narrow_head_dim(d) or block % 16 or lq == 0 or lkv == 0:
+        raise ValueError(f"H4-int8 takes {NARROW_HEAD_DIM_RULE}, a kv "
                          f"block that is a multiple of 16 and nonempty "
                          f"sequences; got q "
                          f"{tuple(q_q.shape)}, Lkv {lkv}, block {block}")

@@ -39,6 +39,7 @@ from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import cdiv
 from exploring_flash_attention_tpu_torch.ops.attention import (
     SERVING_HEAD_DIM_RULE,
+    check_f32_head_dim,
     kernel_dtype,
     kernel_head_dim,
 )
@@ -52,10 +53,10 @@ DECODE_BLOCKS_PER_SM = 2        # H6-decode blocks an SM holds at once
 
 def decode_chunks(group: int, d: int) -> int:
     """H6-decode's blocks per (sequence, KV head, run): its GQA group cut
-    into chunks of at most 8 q heads (4 at d > 128, whose O columns take
-    twice the registers), each chunk a block with its own ticket
-    (``csrc/paged_decode.cu``)."""
-    return cdiv(group, 4 if d > 128 else 8)
+    into chunks of at most 8 q heads (4 at d > 128 and 2 at d > 256, whose
+    O columns take twice and four times the registers), each chunk a block
+    with its own ticket (``csrc/paged_decode.cu``)."""
+    return cdiv(group, 2 if d > 256 else 4 if d > 128 else 8)
 
 
 def _check_window(window: Optional[int]) -> None:
@@ -196,7 +197,8 @@ def _check_paged_inputs(name: str, q: torch.Tensor, cache: PagedKVCache,
                         window: Optional[int]) -> None:
     """What both paged kernels take: bf16 or f32 q
     (``ops.attention.kernel_dtype``) with ``SERVING_HEAD_DIM_RULE`` (the
-    cache's d), any GQA group, a page size that is a multiple of 128 below 2^15
+    cache's d; at f32 ``NARROW_HEAD_DIM_RULE``), any GQA group, a page size
+    that is a multiple of 128 below 2^15
     (``kv_cache.check_page_size``), the cache's dtypes, one CUDA device,
     contiguous 16-byte aligned tensors.  Raises otherwise."""
     tensors = (q, cache.kv_pages, cache.kv_scales, cache.page_table,
@@ -204,7 +206,7 @@ def _check_paged_inputs(name: str, q: torch.Tensor, cache: PagedKVCache,
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError(f"{name}: q, the cache and the slots must share one "
                          "CUDA device")
-    kernel_dtype(name, q)
+    check_f32_head_dim(name, kernel_dtype(name, q), q.shape[-1])
     if (cache.kv_pages.dtype != torch.int8
             or cache.kv_scales.dtype != torch.float32
             or any(t.dtype != torch.int32 for t in tensors[3:])):
@@ -356,8 +358,9 @@ def paged_decode_attention(
     kernel H6-decode once, with its merge (counted in
     ``paged_decode_partials.launches``), or raise: it takes bf16 or f32 q
     (f32 O, f32 arithmetic throughout) with
-    ``ops.attention.SERVING_HEAD_DIM_RULE``, any GQA group and page sizes that
-    are a multiple of 128 below 2^15.
+    ``ops.attention.SERVING_HEAD_DIM_RULE`` (f32 q:
+    ``NARROW_HEAD_DIM_RULE``), any GQA group and page sizes that are a
+    multiple of 128 below 2^15.
     The f32 partials' workspace and O are allocated per call; the tickets
     (:func:`ticket_buffer`) are kept per device, zero between launches, and
     belong to one stream: the port launches on the current stream only, and
@@ -390,9 +393,10 @@ def paged_extend_attention(
     CPU tensors take :func:`paged_extend_plain`.  CUDA tensors launch kernel
     H6-extend (``csrc/paged_extend.cu``), which takes bf16 q or f32 q
     (bf16x3 on wgmma against the exact codes, f32 O) with
-    ``ops.attention.SERVING_HEAD_DIM_RULE``, any GQA group and page sizes that
-    are a multiple of 128 below 2^15, or raise.  ``paged_extend_attention.launches`` counts kernel
-    launches."""
+    ``ops.attention.SERVING_HEAD_DIM_RULE`` (f32 q:
+    ``NARROW_HEAD_DIM_RULE``; past d 256 on ``csrc/paged_extend_wide.cu``),
+    any GQA group and page sizes that are a multiple of 128 below 2^15, or
+    raise.  ``paged_extend_attention.launches`` counts kernel launches."""
     b, c, hq, d = q.shape
     hkv = cache.num_kv_heads
     if hq % hkv:

@@ -32,7 +32,7 @@ the flagship's shapes (``time_serve``); with ``--f32``, of the f32 core's
 kernels and H5 at f32, and their accuracy over long key counts
 (``time_f32``); with ``--clusters``, of H5's cluster launches beside its
 single-block launches on the same work a block (``time_clusters``); with
-``--heads``, of H1, H6-decode and H6-extend at d 80 and 128
+``--heads``, of H1, H2, H6-decode and H6-extend at d 80, 128 and 256
 (``time_heads``); with ``--quant-heads``, of H4-kvq, H4-int8 and H5 at d
 80, 128 and 256 (``time_quant_heads``).
 Alternate two roots in one call (parent, change, change, parent) to
@@ -261,26 +261,36 @@ def time_serve(root: Path) -> str:
 
 
 # the serving kernels at head dims both sides of an A/B take (d 80, the
-# D=128 instance's zero-filled columns, and the flagship's 128): H1 (label,
-# B, Hq, Hkv, L, d, causal), and the paged pair (label, B, Hq, Hkv, d, page
-# size), contexts 257..1100, a 64-token chunk after them for H6-extend
+# D=128 instance's zero-filled columns, the flagship's 128 and Gemma's
+# 256): H1 (label, B, Hq, Hkv, L, d, causal), H2 (its partials: B, H,
+# spans, Lq, at each of HEADS_H2_DIMS) and the paged pair (label, B, Hq,
+# Hkv, d, page size), contexts 257..1100, a 64-token chunk after them for
+# H6-extend
 HEADS_H1 = (("H1 d=80", 32, 16, 16, 1024, 80, False),
             ("H1 d=80 causal", 32, 16, 16, 1024, 80, True),
             ("H1 d=128", 32, 16, 16, 1024, 128, False),
-            ("H1 d=128 causal", 32, 16, 16, 1024, 128, True))
+            ("H1 d=128 causal", 32, 16, 16, 1024, 128, True),
+            ("H1 d=256", 8, 16, 16, 1024, 256, False),
+            ("H1 d=256 causal", 8, 16, 16, 1024, 256, True))
+HEADS_H2 = (2, 16, 4, 1024)
+HEADS_H2_DIMS = (80, 128, 256)
 HEADS_PAGED = (("d=80 G=16", 8, 16, 1, 80, 128),
-               ("d=128 G=2", 8, 8, 4, 128, 128))
+               ("d=128 G=2", 8, 8, 4, 128, 128),
+               ("d=256 G=4", 8, 16, 4, 256, 512))
 
 
 def time_heads(root: Path) -> str:
-    """The serving kernels at d 80 and 128 (HEADS_H1, HEADS_PAGED), L2
-    flushed, with this file's timing harness: H1 alone
-    (``prefill_attention``, bf16 O, no LSE), ``paged_decode_attention``
-    and ``paged_extend_attention``."""
+    """The serving kernels at d 80, 128 and 256 (HEADS_H1, HEADS_H2,
+    HEADS_PAGED), L2 flushed, with this file's timing harness: H1 alone
+    (``prefill_attention``, bf16 O, no LSE), H2 (``splitkv_combine``, bf16
+    O), ``paged_decode_attention`` and ``paged_extend_attention``."""
     import torch
 
     from exploring_flash_attention_tpu_torch.oracle import make_qkv
-    from exploring_flash_attention_tpu_torch.ops import prefill_attention
+    from exploring_flash_attention_tpu_torch.ops import (
+        prefill_attention,
+        splitkv_combine,
+    )
     from exploring_flash_attention_tpu_torch.serving import (
         paged_decode_attention,
         paged_extend_attention,
@@ -295,6 +305,14 @@ def time_heads(root: Path) -> str:
             q, k, v, d ** -0.5, 0, causal, with_lse=False), n_iter=30)
         out.append(f"{name} {ms:.4f} ms")
         del q, k, v
+    gen = torch.Generator().manual_seed(0)
+    for d in HEADS_H2_DIMS:
+        o_p = torch.randn(*HEADS_H2, d, generator=gen).to("cuda")
+        lse = (3 * torch.randn(*HEADS_H2, generator=gen)).to("cuda")
+        ms = time_cuda(lambda: splitkv_combine(o_p, lse,
+                                               out_dtype=torch.bfloat16),
+                       n_iter=100)
+        out.append(f"H2 d={d} {ms:.4f} ms")
     for name, b, hq, hkv, d, ps in HEADS_PAGED:
         q, cache, slots = _paged_case(b, hq, hkv, (257, 1100), 1200, ps=ps,
                                       d=d)

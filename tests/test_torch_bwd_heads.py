@@ -5,7 +5,7 @@ The same NumPy f32 inputs go through the JAX function (Pallas in interpret
 mode with small tiles, as ``tests/test_torch_bwd.py`` runs it) and through
 the port's CPU path (``attention_bwd_plain``, autograd through the plain
 forward), which H3-dkv and H3-dq stand for on the card at every d of
-``ops.attention.SERVING_HEAD_DIM_RULE`` (d off the multiples of 16:
+``ops.attention.NARROW_HEAD_DIM_RULE`` (d off the multiples of 16:
 ``tests/test_torch_bwd_heads_odd.py``).  The inputs and the f64 references are
 ``tests/test_torch_bwd.py``'s.
 

@@ -7,7 +7,7 @@ The same NumPy f32 inputs go through the JAX function (Pallas in interpret
 mode with small tiles, as ``tests/test_torch_bwd.py`` runs it) and through
 the port's CPU path (``attention_bwd_plain``, autograd through the plain
 forward), which H3-dkv and H3-dq stand for on the card at every d of
-``ops.attention.SERVING_HEAD_DIM_RULE``: rows of a multiple of 16 bytes
+``ops.attention.NARROW_HEAD_DIM_RULE``: rows of a multiple of 16 bytes
 by TMA, others by the producer warpgroup's staged loads (bf16 d % 8 != 0)
 or a float at a time (f32 d % 4 != 0), the columns past d zero.
 

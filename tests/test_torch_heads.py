@@ -72,11 +72,11 @@ PAGES = (256, 512)
 
 
 def test_head_dim_rule_of_the_serving_kernels():
-    """H1, H2, H6-decode and H6-extend take every d from 1 to 256 (those
-    off the multiples of 16 too: ``tests/test_torch_heads_odd.py``) and
-    nothing else."""
-    assert all(kernel_head_dim(d) for d in range(1, 257))
-    assert not any(kernel_head_dim(d) for d in (0, 257, 272))
+    """H1, H2, H6-decode and H6-extend take every d from 1 to 512 (those
+    off the multiples of 16 too: ``tests/test_torch_heads_odd.py``; past
+    256 ``tests/test_torch_heads_wide.py``) and nothing else."""
+    assert all(kernel_head_dim(d) for d in range(1, 513))
+    assert not any(kernel_head_dim(d) for d in (0, 513, 528))
 
 
 @pytest.mark.parametrize("mode", ["none", "causal", "window"])

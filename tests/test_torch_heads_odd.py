@@ -14,8 +14,9 @@ reads d at run time, the paged pair reads the codes at their rows'
 alignment (``tests/test_torch_kernels.py`` holds them against these plain
 versions there).
 
-Also here: the head-dim rule, which the serving kernels, H3 and H4 share
-(``d from 1 to 256``), and H5's (``d from 1 to 2048``).
+Also here: the head-dim rules, the serving kernels' (``d from 1 to
+512``), the one H3, H4 and the serving kernels at f32 share (``d from 1 to
+256``), and H5's (``d from 1 to 2048``).
 """
 
 import re
@@ -53,9 +54,11 @@ from exploring_flash_attention_tpu_torch.ops import flash_attention_v1
 from exploring_flash_attention_tpu_torch.ops import attention as ops_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H5_HEAD_DIM_RULE,
+    NARROW_HEAD_DIM_RULE,
     SERVING_HEAD_DIM_RULE,
     h4_instance,
     kernel_head_dim,
+    narrow_head_dim,
 )
 from exploring_flash_attention_tpu_torch.ops.attention_kvquant import (
     kvquant_kernel,
@@ -90,16 +93,20 @@ PAGED_ODD = [(72, 16, 16, 128), (40, 8, 1, 256), (36, 32, 2, 512),
 
 def test_h3_h4_rule_stays_the_multiples_of_16():
     """H4's rule of the multiples of 16 is retired (no ``HEAD_DIM_RULE``,
-    no ``sixteen_head_dim``): H4-kvq and H4-int8 take the rule of the
-    serving kernels and of H3-dkv and H3-dq (``kernel_head_dim``, which
-    names itself ``SERVING_HEAD_DIM_RULE``), every d from 1 to 256, and H5
-    every d from 1 to 2048."""
-    assert SERVING_HEAD_DIM_RULE == "d from 1 to 256"
+    no ``sixteen_head_dim``): H4-kvq and H4-int8 take the rule of H3-dkv
+    and H3-dq (``narrow_head_dim``, which names itself
+    ``NARROW_HEAD_DIM_RULE``), every d from 1 to 256; the serving kernels
+    every d from 1 to 512 (``kernel_head_dim``, ``SERVING_HEAD_DIM_RULE``)
+    and H5 every d from 1 to 2048."""
+    assert NARROW_HEAD_DIM_RULE == "d from 1 to 256"
+    assert SERVING_HEAD_DIM_RULE == "d from 1 to 512"
     assert H5_HEAD_DIM_RULE == "d from 1 to 2048"
     assert not hasattr(ops_attention, "HEAD_DIM_RULE")
     assert not hasattr(ops_attention, "sixteen_head_dim")
-    assert [d for d in range(300) if kernel_head_dim(d)] == list(
+    assert [d for d in range(300) if narrow_head_dim(d)] == list(
         range(1, 257))
+    assert [d for d in range(600) if kernel_head_dim(d)] == list(
+        range(1, 513))
     assert [h4_instance(d) for d in (1, 64, 65, 128, 129, 256)] == [
         64, 64, 128, 128, 256, 256]
 
@@ -110,11 +117,13 @@ def test_h3_and_h4_still_refuse_d_off_sixteen(d, monkeypatch):
     ``h4_instance``; ``kvquant_kernel``) now take it, on the smallest
     instance at or above it, as H3-dkv's and H3-dq's shared check (the
     device check passed on CPU tensors) does; all of them still refuse d 0
-    and 257 (the quantized-KV op 257 only past 2048, on H5) naming
-    ``SERVING_HEAD_DIM_RULE``."""
-    rule = re.escape(SERVING_HEAD_DIM_RULE)
+    and 257 (the quantized-KV op sends 257 to H5 and refuses only past
+    2048) naming ``NARROW_HEAD_DIM_RULE``, which the serving kernels'
+    wider rule leaves as it was."""
+    rule = re.escape(NARROW_HEAD_DIM_RULE)
     assert h4_instance(d) == next(x for x in (64, 128, 256) if x >= d)
     assert kvquant_kernel(d) == "H4-kvq"
+    assert kvquant_kernel(257) == "H5"
     for bad in (0, 257):
         with pytest.raises(ValueError, match=rule):
             h4_instance(bad)
@@ -129,8 +138,7 @@ def test_h3_and_h4_still_refuse_d_off_sixteen(d, monkeypatch):
         attention_bwd._check_bwd_inputs(name, q, q, q, q, lse, lse)
         for bad in (0, 257):
             q = torch.zeros(1, 2, 8, bad)
-            with pytest.raises(ValueError,
-                               match=re.escape(SERVING_HEAD_DIM_RULE)):
+            with pytest.raises(ValueError, match=rule):
                 attention_bwd._check_bwd_inputs(name, q, q, q, q, lse, lse)
 
 

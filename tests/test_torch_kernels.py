@@ -96,6 +96,7 @@ from exploring_flash_attention_tpu_torch.models import seq2seq as s2s
 from exploring_flash_attention_tpu_torch.oracle import naive_attention
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H5_HEAD_DIM_RULE,
+    NARROW_HEAD_DIM_RULE,
     SERVING_HEAD_DIM_RULE,
     attention_partial_local,
     attention_plain,
@@ -260,6 +261,77 @@ def test_h1_modes_match_plain_and_oracle(cuda_device, mode, d):
     assert np.abs(o.float().cpu().numpy() - oracle).max() < O_TOL
 
 
+# past 256 (bf16): H1 on H5's block of d-chunks (3 at d 257-384, 4 at
+# 385-512), rows by TMA (264, 384, 512) or by the staged producer (257 and
+# 385 2-byte aligned, 300 8-byte)
+WIDE_DIMS = [257, 264, 300, 384, 385, 512]
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("mode", ["none", "causal", "window"])
+def test_h1_wide_head_dims_match_plain_and_oracle(cuda_device, mode, d):
+    """H1 past 256 under each mask, ragged and cross (Lq=200, Lkv=330),
+    GQA 4/2, a window band crossing its 64-key tiles: through
+    ``flash_attention_v1`` (one launch, bf16 O) against the plain version
+    and the f64 oracle (O_TOL), and with the LSE and f32 O (LSE_TOL)."""
+    b, hq, hkv, lq, lkv = 2, 4, 2, 200, 330
+    causal, window = mode != "none", 100 if mode == "window" else None
+    q, k, v = _qkv(cuda_device, b, hq, hkv, lq, lkv, d, seed=9)
+    scale = 1.0 / math.sqrt(d)
+    before = prefill_attention.launches
+    o = flash_attention_v1(q, k, v, causal=causal, window=window)
+    o32, lse = prefill_attention(q, k, v, scale, lkv - lq, causal, window,
+                                 out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 2
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    o_ref, lse_ref = attention_plain(q, k, v, scale, causal, lkv - lq,
+                                     window)
+    assert (o.float() - o_ref).abs().max().item() < O_TOL
+    assert (o32 - o_ref).abs().max().item() < O_TOL
+    assert torch.equal(o32.bfloat16(), o)     # one rounding of one sum
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse[fin] - lse_ref[fin]).abs().max().item() < LSE_TOL
+    oracle = naive_attention(q, k.repeat_interleave(2, 1),
+                             v.repeat_interleave(2, 1), causal=causal,
+                             window=window)
+    assert np.abs(o32.cpu().numpy() - oracle).max() < O_TOL
+
+
+@pytest.mark.parametrize("d", [264, 300, 512])
+@pytest.mark.parametrize("mode", ["none", "causal", "window"])
+def test_h1_wide_forms_match_plain(cuda_device, mode, d):
+    """H1's forms past 256: the bound statistic against its plain version
+    (O_TOL on f32 O), the 64-row and 128-row Q tiles bitwise equal (both
+    run 64-row tiles there), and the KV-span mode (spans of 256 keys, the
+    last ragged) against the plain version over each span, one launch
+    each."""
+    b, hq, hkv, lq, lkv = 1, 4, 2, 200, 700
+    causal, window = mode != "none", 100 if mode == "window" else None
+    q, k, v = _qkv(cuda_device, b, hq, hkv, lq, lkv, d, seed=10)
+    scale = 1.0 / math.sqrt(d)
+    before = prefill_attention.launches
+    ob, _ = prefill_attention(q, k, v, scale, lkv - lq, causal, window,
+                              out_dtype=torch.float32, softmax="bound")
+    o64 = prefill_attention(q, k, v, scale, lkv - lq, causal, window,
+                            q_rows=64)
+    o128 = prefill_attention(q, k, v, scale, lkv - lq, causal, window)
+    os_, lses = prefill_attention(q, k, v, scale, lkv - lq, causal,
+                                  out_dtype=torch.float32, kv_span=256)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 4
+    ref, _ = _bound_plain(q, k, v, scale, causal, lkv - lq, window)
+    assert (ob - ref).abs().max().item() < O_TOL
+    assert all(torch.equal(a, c) for a, c in zip(o64, o128))
+    ro, rl = prefill_attention(q.cpu(), k.cpu(), v.cpu(), scale, lkv - lq,
+                               causal, out_dtype=torch.float32, kv_span=256)
+    assert (os_.cpu() - ro).abs().max().item() < O_TOL
+    fin = torch.isfinite(rl)
+    assert torch.equal(torch.isfinite(lses.cpu()), fin)
+    assert (lses.cpu()[fin] - rl[fin]).abs().max().item() < LSE_TOL
+
+
 def _bound_plain(q, k, v, scale, causal, diag_off, window=None):
     from exploring_flash_attention_tpu_torch.ops.attention import (
         bound_kmax,
@@ -399,9 +471,13 @@ def test_partial_returns_f32_o_written_by_h1(cuda_device):
 
 
 def test_h1_refuses_what_it_cannot_take(cuda_device):
-    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 272)
+    q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 513)
     before = prefill_attention.launches
     with pytest.raises(ValueError, match=re.escape(SERVING_HEAD_DIM_RULE)):
+        flash_attention_v1(q, k, v)
+    # past 256 at bf16 only: the f32 instances take NARROW_HEAD_DIM_RULE
+    q, k, v = (x.float() for x in _qkv(cuda_device, 1, 2, 2, 64, 64, 300))
+    with pytest.raises(ValueError, match=re.escape(NARROW_HEAD_DIM_RULE)):
         flash_attention_v1(q, k, v)
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 64)
     with pytest.raises(TypeError, match="bf16"):
@@ -528,11 +604,13 @@ def test_h2_combine_matches_plain_and_counts(cuda_device):
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nkb", [1, 2, 3, 33])
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128, 144, 256, 1, 8, 33,
-                               36, 40, 72, 100, 250])
+                               36, 40, 72, 100, 250, 257, 264, 300, 384,
+                               385, 512])
 def test_h2_row_layouts_match_plain(cuda_device, d, nkb, out_dtype):
     """H2 at each row layout (a row is d / 4 lanes: 4, 2 or 1 rows a warp;
     at d 16, 48 and 80 the next power of two of lanes, some idle; at d
-    144 and 256 two 16-byte chunks a lane; a d off the multiples of 16 on
+    144 and 256 two 16-byte chunks a lane, past 256 three or four; a d
+    off the multiples of 16 on
     its lanes' instance with d read at run time, 16-byte loads at d % 4 ==
     0, else a float at a time) and partial count (one; a few;
     33, more than a row's lanes at every d),
@@ -737,14 +815,15 @@ def test_decode_kernel_refuses_what_it_cannot_take(cuda_device):
         paged_decode_attention(q64, odd, s64)
 
 
-@pytest.mark.parametrize("d", [0, 72, 272])
+@pytest.mark.parametrize("d", [0, 72, 513])
 def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
-    """H1, H2, H6-decode, H6-extend, H3-dkv and H3-dq raise ``ValueError``
-    naming their rule (``SERVING_HEAD_DIM_RULE``, d from 1 to 256) for d 0
-    and 272, on CUDA tensors, and launch nothing; at d=72, which they take,
+    """H1, H2, H6-decode and H6-extend raise ``ValueError`` naming their
+    rule (``SERVING_HEAD_DIM_RULE``, d from 1 to 512) for d 0 and 513, and
+    H3-dkv and H3-dq naming theirs (``NARROW_HEAD_DIM_RULE``, d from 1 to
+    256), on CUDA tensors, and launch nothing; at d=72, which they take,
     so do H4-kvq and H4-int8, which launch once each there (their PACKED
     instances), while H4-int8 refuses d 0 and 257 and the quantized-KV op
-    d 0 and 2049, naming the same rule and launching nothing."""
+    d 0 and 2049, naming ``NARROW_HEAD_DIM_RULE`` and launching nothing."""
     counted = (prefill_attention, splitkv_combine, paged_decode_partials,
                paged_extend_attention, attention_bwd_dkv, attention_bwd_dq,
                flash_attention_kvquant, flash_attention_int8)
@@ -759,7 +838,7 @@ def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
         torch.cuda.synchronize()
         assert [fn.launches for fn in counted] == before[:6] + [
             before[6] + 1, before[7] + 1]
-        rule = re.escape(SERVING_HEAD_DIM_RULE)
+        rule = re.escape(NARROW_HEAD_DIM_RULE)
         for bad in (0, 257, 2049):
             q, k, v = _qkv(cuda_device, 1, 1, 1, 64, 64, bad)
             # (no quantizer takes a row of no values: d=0 built by hand)
@@ -791,10 +870,43 @@ def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
     with pytest.raises(ValueError, match=rule):
         paged_extend_attention(q.transpose(1, 2).contiguous(), cache, slots,
                                1.0)
-    with pytest.raises(ValueError, match=rule):
+    with pytest.raises(ValueError, match=re.escape(NARROW_HEAD_DIM_RULE)):
         flash_attention_bwd(q, k, v, q, q, lse, scale=1.0, causal=True)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counted] == before
+
+
+def test_wide_head_dims_split_the_rules(cuda_device):
+    """At d=300 the serving kernels take bf16 (one launch each of H1, H2,
+    H6-decode and H6-extend), while H3-dkv and H3-dq, and the serving
+    kernels at f32, refuse it naming ``NARROW_HEAD_DIM_RULE`` and launch
+    nothing."""
+    counted = (prefill_attention, splitkv_combine, paged_decode_partials,
+               paged_extend_attention, attention_bwd_dkv, attention_bwd_dq)
+    before = [fn.launches for fn in counted]
+    q, k, v = _qkv(cuda_device, 1, 4, 2, 64, 300, 300)
+    o, lse = prefill_attention(q, k, v, 0.05, 0, False, kv_span=128)
+    splitkv_combine(o.float(), lse)
+    cache, qd, slots = _paged_case(cuda_device, 4, 2, 300, 128, [200, 7])
+    paged_decode_attention(qd, cache, slots)
+    paged_extend_attention(qd[:, None].contiguous(), cache, slots)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == [
+        x + 1 for x in before[:4]] + before[4:]
+    narrow = re.escape(NARROW_HEAD_DIM_RULE)
+    lse = torch.zeros(1, 4, 64, device=cuda_device)
+    with pytest.raises(ValueError, match=narrow):
+        flash_attention_bwd(q, k, v, q, q, lse, scale=1.0, causal=True)
+    with pytest.raises(ValueError, match=narrow):
+        prefill_attention(q.float(), k.float(), v.float(), 0.05, 0)
+    with pytest.raises(ValueError, match=narrow):
+        paged_decode_attention(qd.float(), cache, slots)
+    with pytest.raises(ValueError, match=narrow):
+        paged_extend_attention(qd[:, None].float().contiguous(), cache,
+                               slots)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == [
+        x + 1 for x in before[:4]] + before[4:]
 
 
 # (hq, hkv, d, page size) of the paged kernels at the rule's new points:
@@ -807,10 +919,16 @@ PAGED_HEADS = [(16, 1, 80, 512), (32, 1, 16, 1024), (4, 4, 256, 128),
                # 40), 4-byte (36), 2-byte (250), 1-byte (33)
                (16, 16, 72, 128), (8, 1, 40, 256), (32, 2, 36, 512),
                (16, 1, 33, 1024), (8, 4, 250, 128)]
+# past 256 (bf16; the f32 tests take PAGED_HEADS): heads512's geometry, a
+# group of 16 in chunks of 2 q heads, code rows of 16 (384, 512), 8 (264),
+# 4 (300) and 1-byte (257, 385) alignment
+PAGED_WIDE = [(2, 1, 512, 256), (16, 1, 512, 128), (4, 4, 264, 512),
+              (8, 2, 300, 128), (4, 1, 257, 1024), (8, 8, 385, 128),
+              (2, 2, 384, 256)]
 
 
 @pytest.mark.parametrize("window", [None, 100])
-@pytest.mark.parametrize("hq,hkv,d,ps", PAGED_HEADS)
+@pytest.mark.parametrize("hq,hkv,d,ps", PAGED_HEADS + PAGED_WIDE)
 def test_decode_kernel_head_dims_groups_pages(cuda_device, hq, hkv, d, ps,
                                               window):
     """H6-decode, fused, at the rule's new head dims, GQA groups past 8
@@ -916,10 +1034,21 @@ EXTEND_CASES = [
     (16, 1, 33, 1024, [1100, 0], 64),
     (8, 4, 250, 128, [130, 3], 77),
 ]
+# past 256 (PAGED_WIDE; bf16 only): H5's block with the codes by TMA (264,
+# 384, 512) or copied at their rows' alignment (257, 300, 385)
+EXTEND_WIDE = [
+    (2, 1, 512, 256, [257 + 3 * i for i in range(8)], 256),  # heads512 turn 2
+    (16, 1, 512, 128, [0, 300, 900], 129),
+    (4, 4, 264, 512, [600, 17], 9),
+    (8, 2, 300, 128, [130, 0, 200, 77], 40),
+    (4, 1, 257, 1024, [1100, 0], 64),
+    (8, 8, 385, 128, [257, 0, 130], 200),
+    (2, 2, 384, 256, [700, 3], 1),
+]
 
 
 @pytest.mark.parametrize("window", [None, 1, 77, 300])
-@pytest.mark.parametrize("hq,hkv,d,ps,hist,c", EXTEND_CASES)
+@pytest.mark.parametrize("hq,hkv,d,ps,hist,c", EXTEND_CASES + EXTEND_WIDE)
 def test_extend_kernel_masks_pages_groups(cuda_device, hq, hkv, d, ps, hist,
                                           c, window):
     """H6-extend against the plain version and the f64 oracle over each
@@ -1018,13 +1147,14 @@ def _rel(got, ref):
             / ref.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("d", [80, 256, 72, 33])
+@pytest.mark.parametrize("d", [80, 256, 72, 33, 300, 512])
 @pytest.mark.parametrize("pos,causal", [((256, 256), True), ((0, 300), True),
                                         ((300, 0), True), ((0, 0), False)])
 def test_h1_traced_offsets_at_new_head_dims(cuda_device, d, pos, causal):
     """H1 at traced positions (the device int32 pair) is bitwise its static
-    launch at d 80 (D=128 instance) and 256 (64-key tiles), over one span
-    and over 128-key spans; a hop in the future gives (0, -inf)."""
+    launch at d 80 (D=128 instance), 256 (64-key tiles) and past 256 (H5's
+    block: 300 staged, 512 by TMA), over one span and over 128-key spans;
+    a hop in the future gives (0, -inf)."""
     q, k, v = _qkv(cuda_device, 2, 16, 1, 300, 300, d, seed=70)
     offs = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
     diag = pos[0] - pos[1]
@@ -1171,7 +1301,7 @@ def test_bwd_kernels_are_bitwise_reproducible(cuda_device, mask, d):
 def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
     """One launch of each kernel a call, f32 at d=144 (the f32 D=256
     instance, a cluster of two blocks) too; f16 refused with no launch, as
-    is d=272, outside ``ops.attention.SERVING_HEAD_DIM_RULE`` (its
+    is d=272, outside ``ops.attention.NARROW_HEAD_DIM_RULE`` (its
     residuals are made by hand)."""
     q, k, v, out, do, lse, scale = _bwd_case(cuda_device, 1, 2, 2, 64, 64,
                                              64, 0)
@@ -1192,7 +1322,7 @@ def test_bwd_kernels_count_launches_and_refuse_f32(cuda_device):
         before[0] + 2, before[1] + 2)
     q272, k272, v272 = _qkv(cuda_device, 1, 2, 2, 64, 64, 272, seed=4)
     lse272 = torch.zeros(1, 2, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="d from 1 to 256"):
+    with pytest.raises(ValueError, match=NARROW_HEAD_DIM_RULE):
         flash_attention_bwd(q272, k272, v272, q272, q272, lse272,
                             causal=True)
     assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == (
@@ -1363,7 +1493,7 @@ def test_int8_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(TypeError, match="bf16 or f32"):
         flash_attention_int8(qq, kq, vq, out_dtype=torch.float16)
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 264)
-    with pytest.raises(ValueError, match=SERVING_HEAD_DIM_RULE):
+    with pytest.raises(ValueError, match=NARROW_HEAD_DIM_RULE):
         flash_attention_int8(*(quantize_int8(x, 64) for x in (q, k, v)))
     assert flash_attention_int8.launches == before
 

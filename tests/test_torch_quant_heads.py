@@ -2,10 +2,10 @@
 JAX package.
 
 ``flash_attention_kvquant`` runs H4-kvq at
-``ops.attention.SERVING_HEAD_DIM_RULE`` (d from 1 to 256, on instances D
+``ops.attention.NARROW_HEAD_DIM_RULE`` (d from 1 to 256, on instances D
 64, 128 and 256, a d below D on zero-filled columns) and H5's quantized
 form past 256 up to 2048; ``flash_attention_int8`` runs H4-int8 at
-``SERVING_HEAD_DIM_RULE``.  Here the multiples of 16; the other d are
+``NARROW_HEAD_DIM_RULE``.  Here the multiples of 16; the other d are
 ``tests/test_torch_quant_heads_odd.py``'s.  The JAX
 functions (TPU kernels B16, B17 and B18) take any d.  Here the same NumPy
 inputs go through the JAX functions (Pallas in interpret mode) and the
@@ -51,7 +51,7 @@ from exploring_flash_attention_tpu_torch.ops import (
 from exploring_flash_attention_tpu_torch.ops.attention import (
     H4_INSTANCES,
     H5_HEAD_DIM_RULE,
-    SERVING_HEAD_DIM_RULE,
+    NARROW_HEAD_DIM_RULE,
     h4_instance,
 )
 from exploring_flash_attention_tpu_torch.ops.attention_kvquant import (
@@ -171,7 +171,7 @@ def test_head_dims_the_kernels_refuse(op, d):
     H5's past it) at d 0 and past 2048, for the int8 op H4-int8's at d 0
     and past 256.  The CPU path, the plain version, takes any d as the JAX
     functions do; the card's wrappers route through these."""
-    rule = re.escape(SERVING_HEAD_DIM_RULE)
+    rule = re.escape(NARROW_HEAD_DIM_RULE)
     if op == "kvquant":
         for bad in (0, 2049, d):
             if bad == d and d <= 2048:

@@ -2,7 +2,7 @@
 JAX package.
 
 ``flash_attention_kvquant`` runs H4-kvq at every d from 1 to 256
-(``ops.attention.SERVING_HEAD_DIM_RULE``) and H5's quantized form past 256
+(``ops.attention.NARROW_HEAD_DIM_RULE``) and H5's quantized form past 256
 up to 2048; ``flash_attention_int8`` runs H4-int8 at every d from 1 to 256.
 On the card a d off the multiples of 16 runs on their PACKED instances,
 whose producers copy rows of d bytes themselves (no tensor map takes

@@ -775,10 +775,14 @@ def phase_build(kernels):
 # H6-extend (D 64, 128, 256 x codes by TMA, or by bulk copy where d % 16
 # != 0); past d 256 H1 on H5's block (3 or 4 chunks x the exact and bound
 # statistics x rows by TMA or STAGED) and H6-extend (3 or 4 chunks x codes
+# by TMA or PACKED), and at f32 on H5's f32 block in clusters of two (H1:
+# the exact and bound statistics x rows by TMA or STAGED; H6-extend: codes
 # by TMA or PACKED)
 WGMMA_FUNCTIONS = {"prefill_attention_kernel": 16,
                    "prefill_attention_wide_kernel": 8,
                    "paged_extend_wide_kernel": 4,
+                   "prefill_attention_wide_f32_kernel": 4,
+                   "paged_extend_wide_f32_kernel": 2,
                    "int8_attention_kernel": 12,
                    "kvquant_attention_kernel": 12,
                    "dtiled_attention_kernel": 12,
@@ -849,14 +853,14 @@ def check_sass(kernels):
 
 
 # H6-decode's fused instances, what paged_decode_attention runs: D 32, 64,
-# 128 (groups of 1, 2, 4, 8) and 256 (1, 2, 4) x the tuned bf16 form of d =
-# D, the general bf16 and f32 forms, and the general forms of d off the
-# multiples of 16 (ODD); D=512 (groups of 1, 2) x the bf16 forms alone
-# (tuned, general, ODD).  Its instances without the merge
+# 128 (groups of 1, 2, 4, 8), 256 (1, 2, 4) and 512 (1, 2) x the tuned bf16
+# form of d = D, the general bf16 and f32 forms, and the general bf16 and
+# f32 forms of d off the multiples of 16 (ODD).  Its instances without the
+# merge
 # (paged_decode_partials, for the tests and the two-launch timing) are
 # reported and not held: ptxas leaves 8-16 bytes of stack in a few of
 # them, whatever their code
-PAGED_DECODE_FUNCTIONS = (3 * 4 + 3) * 5 + 2 * 3
+PAGED_DECODE_FUNCTIONS = (3 * 4 + 3 + 2) * 5
 NOT_HELD = re.compile(r"paged_decode_kernelILi\d+ELi\d+ELb0E")
 # the kernels whose every instance must hold its accumulators in
 # registers: the serving kernels H1 (bf16: D 32/64/128/256 x Q tiles x
@@ -873,6 +877,8 @@ NOT_HELD = re.compile(r"paged_decode_kernelILi\d+ELi\d+ELb0E")
 NO_SPILL_FUNCTIONS = {"prefill_attention_kernel": 16,
                       "prefill_attention_wide_kernel": 8,
                       "paged_extend_wide_kernel": 4,
+                      "prefill_attention_wide_f32_kernel": 4,
+                      "paged_extend_wide_f32_kernel": 2,
                       "attention_bwd_dkv_kernel": 10,
                       "attention_bwd_dq_kernel": 10,
                       "attention_bwd_dkv_f32_kernel": 3,
@@ -5280,8 +5286,10 @@ HEADS_MODELS = {
                 "page_size": 128},
     # the flagship's attention regrouped as 2 heads of 512 over one KV
     # head (no public model uses it; the JAX ModelConfig takes it): H1 and
-    # H6-extend on H5's block, H6-decode's D=512 instance.  Served only:
-    # H3 takes NARROW_HEAD_DIM_RULE, so heads_train leaves it out
+    # H6-extend on H5's block, H6-decode's D=512 instance; the f32 phase
+    # serves it at f32 too (H5's f32 block, the f32 D=512 instances).
+    # Served only: H3 takes NARROW_HEAD_DIM_RULE at both dtypes, so
+    # heads_train and the f32 training phases leave it out
     "heads512": {"n_heads": 2, "n_kv_heads": 1, "d_head": 512,
                  "page_size": 256},
 }
@@ -5990,7 +5998,8 @@ def phase_heads_train(torch, dev):
     for name, geo in HEADS_MODELS.items():
         geo = {k: x for k, x in geo.items() if k != "page_size"}
         if not narrow_head_dim(geo["d_head"]):
-            continue            # heads512: H3 takes d up to 256 (B4d-train)
+            continue            # heads512: H3 takes d up to 256 at bf16
+            #                       and f32 (ROADMAP B4d-train)
         tol = HEADS72_LOSS_TOL if name == "heads72" else TRAIN_LOSS_TOL
         counts, tok_s, checks = phase_train(torch, dev, name, loss_tol=tol,
                                             **geo)
@@ -6030,7 +6039,11 @@ F32_REFEREE_TOL = 1e-5
 F32_SMALL_TOL = 2e-5
 F32_V2_TOL = 1e-4
 F32_PAGED_TOL = 1e-5
-F32_H1_DIMS = (16, 80, 128, 256, 33, 72)
+F32_H1_DIMS = (16, 80, 128, 256, 33, 72, 257, 300, 385, 512)
+# past 256 (H1 on H5's f32 block in clusters of two): the rows that no
+# tensor map takes (f32 d % 4 != 0: 257, 385, by the STAGED producer) hold
+# the misread-row controls (misread_rows) beside each check
+F32_WIDE_ODD = (257, 385)
 # H1 f32 over long key counts, where O sums hundreds of key tiles (one
 # fresh P V accumulator a tile, added in f32; ROADMAP B2d), within
 # F32_SMALL_TOL of the f64 plain run: TPU kernel B3's route (V1_CASES),
@@ -6043,10 +6056,18 @@ F32_LONG_KEYS = [
     ("B3's route at d=256", 2, 8, 8, 1024, 8200, 256, False, None),
     ("32768 keys", 1, 8, 1, 256, 32768, 128, False, None),
     ("32768 keys, window 4096", 1, 8, 1, 256, 32768, 128, True, WINDOW),
+    ("B3's route at d=512", 1, 4, 2, 512, 8200, 512, False, None),
 ]
-# the paged pair at f32 q: HEADS_PAGED and the f32 flagship's own geometry
-# (d, Hq, Hkv, page size), which its slice and second turn run
-F32_PAGED = HEADS_PAGED + [(128, 8, 4, 128)]
+# the paged pair at f32 q: HEADS_PAGED, the f32 flagship's own geometry
+# (d, Hq, Hkv, page size), which its slice and second turn run, and past
+# 256 HEADS_WIDE_PAGED (heads512's geometry first)
+F32_PAGED = HEADS_PAGED + [(128, 8, 4, 128)] + HEADS_WIDE_PAGED
+# the paged pair timed at f32 at the served models' geometries: (name, Hq,
+# Hkv, d, page size), the slice's contexts 257..280, a 256-token turn
+F32_PAGED_TIMED = (("flagship", 8, 4, 128, 128), ("heads512", 2, 1, 512, 256))
+# V2 at f32 past 256: H1's f32 spans on H5's f32 block, then H2 on f32
+# partials into f32 O (B, H, L, d), V2_CONFIG's spans
+F32_V2_WIDE = (2, 4, 1024, 512)
 # the f32 core's piece products per f32 product (f32_attention.cuh): H1's
 # bf16x6, H6-extend's bf16x3 (q and P against the exact int8 codes)
 H1_F32_TERMS = 6
@@ -6085,9 +6106,11 @@ def f32_check(what, err, ctl, tol, extra=""):
 
 def f32_h1(torch, dev, out):
     """H1 at f32: the referee row's three masks, test_v1_f32_small's
-    shape, each d of F32_H1_DIMS under each mask and over KV spans, the
-    bound form and the 64-row tile, V2; each one counted launch (V2: H1 1,
-    H2 1) against an f64 plain run on the card."""
+    shape, each d of F32_H1_DIMS under each mask and over KV spans (past
+    256 the bound form too, and at F32_WIDE_ODD the misread-row controls),
+    the bound form and the 64-row tile, V2 (also past 256, F32_V2_WIDE);
+    each one counted launch (V2: H1 1, H2 1) against an f64 plain run on
+    the card."""
     from exploring_flash_attention_tpu_torch import SplitKVConfig, TileConfig
     from exploring_flash_attention_tpu_torch.ops import (
         attention_plain,
@@ -6115,7 +6138,7 @@ def f32_h1(torch, dev, out):
         _require(torch.equal(torch.isfinite(lse), fin), "LSE -inf rows moved")
         return (lse.double()[fin] - ref[fin]).abs().max().item()
 
-    def h1_case(what, q, k, v, causal, window, tol, span=None):
+    def h1_case(what, q, k, v, causal, window, tol, span=None, odd=False):
         scale = 1.0 / math.sqrt(q.shape[-1])
         diag = k.shape[2] - q.shape[2]
         call = lambda: prefill_attention(               # noqa: E731
@@ -6129,8 +6152,17 @@ def f32_h1(torch, dev, out):
         e, e_lse = err(o, ref), lse_err(lse, lse_ref)
         f32_check(what, e, err(bad, ref), tol, f"; max|dLSE| {e_lse:.3e}")
         _require(e_lse <= tol, f"f32 {what}: LSE outside tolerance")
-        return {"max_abs_err": e, "lse_err": e_lse,
-                "control": err(bad, ref)}
+        res = {"max_abs_err": e, "lse_err": e_lse, "control": err(bad, ref)}
+        if odd:
+            # the rows misread (one element late, the last column dropped)
+            ctl = odd_row_controls(torch, q, k, v, o, scale, diag, causal,
+                                   window, span=span)
+            print(f"  f32 {what} controls (vs plain): "
+                  + ", ".join(f"{n} {x:.3e}" for n, x in ctl.items()))
+            _require(min(ctl.values()) > tol, f"the f32 check cannot tell "
+                     f"a misread row ({what})")
+            res["controls"] = ctl
+        return res
 
     masks = {"none": (False, None), "causal": (True, None),
              "window": (True, F32_REFEREE_WINDOW)}
@@ -6166,13 +6198,30 @@ def f32_h1(torch, dev, out):
     for d in F32_H1_DIMS:
         q, k, v = f32_inputs(torch, dev, b, hq, hkv, lq, lkv, d, seed=d)
         row = {}
+        odd = d in F32_WIDE_ODD
         for m, (causal, window) in masks.items():
             window = window and HEADS_WINDOW
             row[m] = h1_case(f"H1 d={d} B={b} Hq={hq} Hkv={hkv} Lq={lq} "
                              f"Lkv={lkv} {m}", q, k, v, causal, window,
-                             F32_SMALL_TOL)
+                             F32_SMALL_TOL, odd=odd)
         row["spans"] = h1_case(f"H1 d={d} spans of {HEADS_SPAN}", q, k, v,
-                               False, None, F32_SMALL_TOL, span=HEADS_SPAN)
+                               False, None, F32_SMALL_TOL, span=HEADS_SPAN,
+                               odd=odd)
+        if d > 256:
+            # the bound statistic past 256, causal, through
+            # flash_attention_v1
+            cfg = TileConfig(softmax="bound")
+            o = counted_call(torch, lambda: flash_attention_v1(
+                q, k, v, cfg, causal=True), launches_only(h1=1))
+            ref, _ = oracle(q, k, v, 1.0 / math.sqrt(d), True, lkv - lq,
+                            None)
+            bad = flash_attention_v1(q.bfloat16(), k.bfloat16(),
+                                     v.bfloat16(), cfg, causal=True,
+                                     out_dtype=torch.float32)
+            f32_check(f"H1 d={d} causal, bound", err(o, ref), err(bad, ref),
+                      F32_SMALL_TOL)
+            row["bound"] = err(o, ref)
+            del o, ref, bad
         out["by_head_dim"][d] = row
 
     for case, b, hq, hkv, lq, lkv, d, causal, window in F32_LONG_KEYS:
@@ -6198,6 +6247,20 @@ def f32_h1(torch, dev, out):
               f"{V2_CONFIG['block_kv']} (batch rows 0-3)", err(o[:4], ref),
               err(bad, ref), F32_V2_TOL)
     out["v2"] = err(o[:4], ref)
+    del q, k, v, o, ref, bad
+    # past 256: H1's f32 spans on H5's f32 block, H2 on f32 partials
+    b, h, l, d = F32_V2_WIDE
+    q, k, v = f32_inputs(torch, dev, b, h, h, l, l, d, seed=1)
+    o = counted_call(torch, lambda: flash_attention_v2(q, k, v, config=cfg),
+                     launches_only(h1=1, h2=1))
+    _require(o.dtype == torch.float32, f"f32 V2 d={d}: O is {o.dtype}")
+    ref, _ = oracle(q, k, v, 1.0 / math.sqrt(d), False, 0, None)
+    bad = flash_attention_v2(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                             config=cfg, out_dtype=torch.float32)
+    f32_check(f"V2 B={b} H={h} L={l} d={d} spans of "
+              f"{V2_CONFIG['block_kv']}", err(o, ref), err(bad, ref),
+              F32_V2_TOL)
+    out["v2_wide"] = err(o, ref)
 
 
 def f32_paged(torch, dev, out):
@@ -6260,9 +6323,10 @@ def f32_paged(torch, dev, out):
 
 
 def f32_times(torch, dev, out):
-    """H1 at bench.py's canonical shape and the generation prefill, the
-    paged pair at the flagship's shapes (the decode slice, B=8 Hq=8 Hkv=4
-    contexts 257..280; the second turn, C=256 after them), all at f32:
+    """H1 at bench.py's canonical shape, the generation prefill and past
+    256 (HEADS_WIDE_TIMED, beside H5 f32), the paged pair at the served
+    models' shapes (F32_PAGED_TIMED: the decode slice, B=8, contexts
+    257..280; the second turn, C=256 after them), all at f32:
     the kernel, its plain version, SDPA at f32 (TF32 off; over the
     gathered, dequantized cache for the paged pair) and the bound: the
     piece products at 989 TFLOP/s bf16 for H1 (bf16x6) and H6-extend
@@ -6275,6 +6339,7 @@ def f32_times(torch, dev, out):
         attention_plain,
         flash_attention_splitkv_partial,
         flash_attention_v1,
+        flash_attention_v1_dtiled,
         flash_attention_v2,
         prefill_attention,
         splitkv_combine,
@@ -6283,6 +6348,7 @@ def f32_times(torch, dev, out):
     from exploring_flash_attention_tpu_torch.ops.attention_v1 import (
         split_kv_span,
     )
+    from exploring_flash_attention_tpu_torch.utils import time_cuda
     from exploring_flash_attention_tpu_torch.serving import (
         paged_decode_attention,
         paged_decode_plain,
@@ -6387,53 +6453,95 @@ def f32_times(torch, dev, out):
     out["v2_times"] = t
     del q, k, v, o_p, lse
 
-    b, hq, hkv, d = 8, 8, 4, 128
+    # H1 past 256 at HEADS_WIDE_TIMED, no mask and causal, beside H5's f32
+    # d-tiled forward on the same inputs (no mask) and SDPA at f32
+    b, h, l, d = HEADS_WIDE_TIMED
+    q, k, v = f32_inputs(torch, dev, b, h, h, l, l, d, seed=d)
     scale = 1.0 / math.sqrt(d)
+    for causal in (False, True):
+        call = lambda: prefill_attention(              # noqa: E731
+            q, k, v, scale, 0, causal, None, with_lse=False)
+        counted_call(torch, call, launches_only(h1=1))
+        pairs = visible_pairs(l, l, causal, None)
+        flops = 4 * d * b * h * pairs
+        t = kernel_times(
+            call, lambda: attention_plain(q, k, v, scale, causal, 0),
+            lambda: sdpa(q, k, v, is_causal=causal),
+            f32_core_bound(flops, H1_F32_TERMS), 4 * 4 * b * h * l * d,
+            n_iter=10)
+        t["fma_bound_ms"] = f32_fma_ms(flops)
+        t["shape"] = f"B={b} H={h} L={l} d={d} " + (
+            "causal" if causal else "no mask")
+        if not causal:
+            t["h5_ms"] = time_cuda(
+                lambda: flash_attention_v1_dtiled(q, k, v), n_iter=10)
+        print(f"  f32 H1 past 256 ({t['shape']}): {t['ms']:.4f} ms (bound "
+              f"{t['bound_ms']:.4f} ms, {t['bound_by']}: bf16x6 at 989 "
+              f"TFLOP/s; f32 FMA would take {t['fma_bound_ms']:.4f} ms); "
+              f"plain {t['plain_ms']:.4f} ms; SDPA f32 "
+              f"{t['library_ms']:.4f} ms"
+              + ("" if causal else f"; H5 f32 on the same inputs "
+                 f"{t['h5_ms']:.4f} ms"))
+        out["h1_times"][f"d={d} " + ("causal" if causal else "no mask")] = t
+    del q, k, v
+
+    # the paged pair at the served models' geometries (F32_PAGED_TIMED):
+    # the decode slice's contexts and a 256-token second turn
     gen = torch.Generator().manual_seed(11)
-    cache, qb, slots, ctx = make_paged_case(torch, dev, b, hq, hkv, d)
-    q = torch.randn(qb.shape, generator=gen).to(dev)
-    k, v, mask = gathered_kv(torch, cache, slots, ctx[:, None] - 1, None)
-    qs = q[:, :, None]
-    t = kernel_times(lambda: paged_decode_attention(q, cache, slots),
-                     lambda: paged_decode_plain(q, cache, slots, scale),
-                     lambda: sdpa(qs, k.float(), v.float(), attn_mask=mask,
-                                  enable_gqa=True),
-                     [(4 * d * hq * int(ctx.sum()), H100_F32_FLOPS)],
-                     int(ctx.sum()) * hkv * (2 * d + 8) + 2 * b * hq * d * 4)
-    t["shape"] = f"B={b} Hq={hq} Hkv={hkv} d={d} ctx {ctx.min()}..{ctx.max()}"
-    print(f"  f32 H6-decode ({t['shape']}): {t['ms']:.4f} ms (bound "
-          f"{t['bound_ms']:.4f} ms, {t['bound_by']}); plain "
-          f"{t['plain_ms']:.4f} ms; SDPA f32 over the gathered, dequantized "
-          f"K/V {t['library_ms']:.4f} ms")
-    out["h6_times"] = t
-    c = 256
-    cache, qb, slots, hist = make_paged_case(torch, dev, b, hq, hkv, d,
-                                             chunk=c, seed=12)
-    q = torch.randn(qb.shape, generator=gen).to(dev)
-    pos = hist[:, None] + np.arange(c)[None]
-    pairs = int((pos + 1).sum())
-    k, v, mask = gathered_kv(torch, cache, slots, pos, None)
-    qs = q.transpose(1, 2)
-    t = kernel_times(lambda: paged_extend_attention(q, cache, slots),
-                     lambda: paged_extend_plain(q, cache, slots, scale),
-                     lambda: sdpa(qs, k.float(), v.float(), attn_mask=mask,
-                                  enable_gqa=True),
-                     f32_core_bound(4 * d * hq * pairs, H6E_F32_TERMS),
-                     int((hist + c).sum()) * hkv * (2 * d + 8)
-                     + 2 * b * c * hq * d * 4)
-    t["fma_bound_ms"] = f32_fma_ms(4 * d * hq * pairs)
-    t["shape"] = (f"B={b} Hq={hq} Hkv={hkv} d={d} C={c} history "
-                  f"{hist.min()}..{hist.max()}")
-    print(f"  f32 H6-extend ({t['shape']}): {t['ms']:.4f} ms (bound "
-          f"{t['bound_ms']:.4f} ms, {t['bound_by']}: bf16x3 at 989 TFLOP/s; "
-          f"f32 FMA would take {t['fma_bound_ms']:.4f} ms); plain "
-          f"{t['plain_ms']:.4f} ms; SDPA f32 over the gathered, dequantized "
-          f"K/V {t['library_ms']:.4f} ms")
-    out["h6e_times"] = t
+    b, c = 8, 256
+    for name, hq, hkv, d, ps in F32_PAGED_TIMED:
+        scale = 1.0 / math.sqrt(d)
+        cache, qb, slots, ctx = make_paged_case(torch, dev, b, hq, hkv, d,
+                                                ps)
+        q = torch.randn(qb.shape, generator=gen).to(dev)
+        k, v, mask = gathered_kv(torch, cache, slots, ctx[:, None] - 1, None)
+        qs = q[:, :, None]
+        call = lambda: paged_decode_attention(q, cache, slots)  # noqa: E731
+        counted_call(torch, call, launches_only(h6=1))
+        t = kernel_times(call,
+                         lambda: paged_decode_plain(q, cache, slots, scale),
+                         lambda: sdpa(qs, k.float(), v.float(),
+                                      attn_mask=mask, enable_gqa=hq != hkv),
+                         [(4 * d * hq * int(ctx.sum()), H100_F32_FLOPS)],
+                         int(ctx.sum()) * hkv * (2 * d + 8)
+                         + 2 * b * hq * d * 4)
+        t["shape"] = (f"B={b} Hq={hq} Hkv={hkv} d={d} ps={ps} ctx "
+                      f"{ctx.min()}..{ctx.max()}")
+        print(f"  f32 H6-decode, {name} ({t['shape']}): {t['ms']:.4f} ms "
+              f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']}); plain "
+              f"{t['plain_ms']:.4f} ms; SDPA f32 over the gathered, "
+              f"dequantized K/V {t['library_ms']:.4f} ms")
+        out["h6_times" if name == "flagship" else f"h6_times_{name}"] = t
+        cache, qb, slots, hist = make_paged_case(torch, dev, b, hq, hkv, d,
+                                                 ps, chunk=c, seed=12)
+        q = torch.randn(qb.shape, generator=gen).to(dev)
+        pos = hist[:, None] + np.arange(c)[None]
+        pairs = int((pos + 1).sum())
+        k, v, mask = gathered_kv(torch, cache, slots, pos, None)
+        qs = q.transpose(1, 2)
+        call = lambda: paged_extend_attention(q, cache, slots)  # noqa: E731
+        counted_call(torch, call, launches_only(h6e=1))
+        t = kernel_times(call,
+                         lambda: paged_extend_plain(q, cache, slots, scale),
+                         lambda: sdpa(qs, k.float(), v.float(),
+                                      attn_mask=mask, enable_gqa=hq != hkv),
+                         f32_core_bound(4 * d * hq * pairs, H6E_F32_TERMS),
+                         int((hist + c).sum()) * hkv * (2 * d + 8)
+                         + 2 * b * c * hq * d * 4)
+        t["fma_bound_ms"] = f32_fma_ms(4 * d * hq * pairs)
+        t["shape"] = (f"B={b} Hq={hq} Hkv={hkv} d={d} ps={ps} C={c} "
+                      f"history {hist.min()}..{hist.max()}")
+        print(f"  f32 H6-extend, {name} ({t['shape']}): {t['ms']:.4f} ms "
+              f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']}: bf16x3 at "
+              f"989 TFLOP/s; f32 FMA would take {t['fma_bound_ms']:.4f} "
+              f"ms); plain {t['plain_ms']:.4f} ms; SDPA f32 over the "
+              f"gathered, dequantized K/V {t['library_ms']:.4f} ms")
+        out["h6e_times" if name == "flagship" else f"h6e_times_{name}"] = t
+        del cache, q, k, v, mask
 
 
 def f32_logits(torch, dev, lm):
-    """The f32 flagship's full forward over its prompts (H1 4 launches)
+    """An f32 model's full forward over its prompts (H1 a launch a layer)
     against an all-plain f32 forward on the card, of max|logits|, beside
     the forward with attention's q, k, v rounded to bf16."""
     from unittest import mock
@@ -6458,67 +6566,95 @@ def f32_logits(torch, dev, lm):
     top = ref.abs().max().item()
     e = (got - ref).abs().max().item() / top
     ctl = (bad - ref).abs().max().item() / top
-    print(f"  f32 flagship full forward [8, 256]: logits vs the all-plain "
+    print(f"  {lm.tag('full forward')} [8, 256]: logits vs the all-plain "
           f"f32 forward {e:.3e} of max|logits| {top:.3f} (limit "
           f"{F32_LOGIT_TOL:g}); control (attention on bf16-rounded q, k, v) "
           f"{ctl:.3e}")
-    _require(e <= F32_LOGIT_TOL < ctl, "f32 flagship logits")
+    _require(e <= F32_LOGIT_TOL < ctl, f"{lm.name} logits")
     return {"logit_err": e, "logit_control": ctl}
 
 
-def phase_f32(torch, dev, bf16=None):
-    """The serving kernels and the flagship at f32 (module comment above);
-    ``bf16``: the bf16 flagship's slice readings of this run (launches,
-    tokens/s), which the f32 flagship's are set beside."""
+def f32_model(torch, dev, name, page_size, bf16=None, **heads):
+    """One model served at f32 as the slice and multiturn phases serve the
+    flagship, its full-forward logits held against the all-plain f32
+    forward; ``bf16``: the same model's bf16 readings of this run
+    (launches, tokens/s), which must match its launches and are set beside
+    its tokens/s."""
+    lm = make_flagship(torch, dev, name, page_size, dtype=torch.float32,
+                       **heads)
+    print(f"  {name}: dtype {lm.cfg.dtype}, n_heads {lm.cfg.n_heads}, "
+          f"n_kv_heads {lm.cfg.n_kv_heads}, d_head {lm.cfg.d_head}, page "
+          f"size {page_size}, the flagship's widths otherwise")
+    launches, gen = phase_slice(torch, dev, lm)
+    turn2, tok2 = phase_multiturn(torch, dev, lm)
+    out = {"generate_launches": launches, "turn_2_launches": turn2, **gen,
+           "turn_2_tokens_s": tok2, **f32_logits(torch, dev, lm)}
+    del lm
+    beside = ""
+    if bf16 is not None:
+        _require(launches == bf16["launches"] and turn2 == bf16["turn2"],
+                 f"{name}'s launches {launches}, {turn2} differ from the "
+                 f"bf16 model's")
+        out["bf16_tokens_s"] = bf16["tokens_s"]
+        beside = (f"; bf16 in this run {bf16['tokens_s']:.1f} graphed "
+                  f"({gen['tokens_s'] / bf16['tokens_s']:.3f}x)")
+    print(f"  {name} generate {gen['tokens_s']:.1f} tokens/s graphed, "
+          f"{gen['eager_tokens_s']:.1f} eager, turn 2 {tok2:.1f}{beside}; "
+          f"launches a generate H1 {launches['h1']}, H6-decode "
+          f"{launches['h6']}, a second turn H6-extend {turn2['h6e']}, "
+          f"H6-decode {turn2['h6']}; on {card_line()}")
+    return out
+
+
+def phase_f32(torch, dev, bf16=None, bf16_heads512=None):
+    """The serving kernels and two models at f32 (module comment above):
+    the flagship, and heads512 past head dim 256 (HEADS_MODELS; H1 and
+    H6-extend on H5's f32 block, H6-decode's f32 D=512 instances);
+    ``bf16`` and ``bf16_heads512``: the bf16 models' slice readings of
+    this run (launches, tokens/s), which the f32 models' are set beside."""
     t0 = time.perf_counter()
     out = {"referee": {}, "by_head_dim": {}, "long_keys": {}, "h6": {},
            "h6e": {}, "h1_times": {}}
     f32_h1(torch, dev, out)
     f32_paged(torch, dev, out)
     f32_times(torch, dev, out)
-    lm = make_flagship(torch, dev, "f32", dtype=torch.float32)
-    print(f"  f32 flagship: dtype {lm.cfg.dtype}, widths as the flagship's")
-    launches, gen = phase_slice(torch, dev, lm)
-    turn2, tok2 = phase_multiturn(torch, dev, lm)
-    out["model"] = {"generate_launches": launches, "turn_2_launches": turn2,
-                    **gen, "turn_2_tokens_s": tok2,
-                    **f32_logits(torch, dev, lm)}
-    del lm
-    beside = ""
-    if bf16 is not None:
-        _require(launches == bf16["launches"] and turn2 == bf16["turn2"],
-                 f"the f32 flagship's launches {launches}, {turn2} differ "
-                 f"from the bf16 flagship's")
-        out["model"]["bf16_tokens_s"] = bf16["tokens_s"]
-        beside = (f"; the bf16 flagship in this run {bf16['tokens_s']:.1f} "
-                  f"graphed ({gen['tokens_s'] / bf16['tokens_s']:.3f}x)")
-    print(f"  f32 flagship generate {gen['tokens_s']:.1f} tokens/s graphed, "
-          f"{gen['eager_tokens_s']:.1f} eager, turn 2 {tok2:.1f}{beside}; "
-          f"launches a generate H1 {launches['h1']}, H6-decode "
-          f"{launches['h6']}, a second turn H6-extend {turn2['h6e']}, "
-          f"H6-decode {turn2['h6']}; on {card_line()}")
+    out["model"] = f32_model(torch, dev, "f32", 128, bf16)
+    geo = dict(HEADS_MODELS["heads512"])
+    out["heads512"] = f32_model(torch, dev, "heads512 f32",
+                                geo.pop("page_size"), bf16_heads512, **geo)
     print(f"phase f32: ok in {time.perf_counter() - t0:.1f} s")
     return out
 
 
 def f32_readings(f32, kern):
     """The kernels line's f32 readings of one kernel (h1, h6, h6e)."""
-    model = f32["model"]
+    model, wide = f32["model"], f32["heads512"]
+    served = {name: {k: m[k] for k in (
+        "tokens_s", "eager_tokens_s", "turn_2_tokens_s", "logit_err",
+        "logit_control") + (("bf16_tokens_s",) if "bf16_tokens_s" in m
+                            else ())}
+        for name, m in (("flagship", model), ("heads512", wide))}
     if kern == "h1":
         return {"times": f32["h1_times"], "v2_times": f32["v2_times"],
                 "referee": f32["referee"],
                 "small_shape": f32["small"], "v2": f32["v2"],
+                "v2_d512": f32["v2_wide"],
                 "by_head_dim": f32["by_head_dim"],
                 "long_keys": f32["long_keys"],
-                "launches": {"generate": model["generate_launches"]["h1"]},
-                "flagship": {k: model[k] for k in (
-                    "tokens_s", "eager_tokens_s", "turn_2_tokens_s",
-                    "logit_err", "logit_control")}}
+                "launches": {"generate": model["generate_launches"]["h1"],
+                             "heads512_generate":
+                                 wide["generate_launches"]["h1"]},
+                "models": served}
     times = f32[f"{kern}_times"]
     path = ({"generate": model["generate_launches"]["h6"],
-             "turn_2": model["turn_2_launches"]["h6"]} if kern == "h6"
-            else {"turn_2": model["turn_2_launches"]["h6e"]})
-    return {**times, "by_case": f32[kern], "launches": path}
+             "turn_2": model["turn_2_launches"]["h6"],
+             "heads512_generate": wide["generate_launches"]["h6"],
+             "heads512_turn_2": wide["turn_2_launches"]["h6"]}
+            if kern == "h6"
+            else {"turn_2": model["turn_2_launches"]["h6e"],
+                  "heads512_turn_2": wide["turn_2_launches"]["h6e"]})
+    return {**times, "heads512_times": f32[f"{kern}_times_heads512"],
+            "by_case": f32[kern], "launches": path, "models": served}
 
 
 # The f32_train phase.  H3 at f32 against f64 autograd of the plain
@@ -7590,8 +7726,12 @@ def main(argv) -> int:
     spec = phase_speculative(torch, dev, lm)
     del lm
     heads = phase_heads(torch, dev)
+    h512 = heads["models"]["heads512"]
     f32 = phase_f32(torch, dev, {"launches": launches, "turn2": turn2,
-                                 "tokens_s": gen["tokens_s"]})
+                                 "tokens_s": gen["tokens_s"]},
+                    {"launches": h512["generate_launches"],
+                     "turn2": h512["turn_2_launches"],
+                     "tokens_s": h512["tokens_s"]})
     train, train_tok_s, train_checks = phase_train(torch, dev)
     htrain = phase_heads_train(torch, dev)
     f32t = phase_f32_train(torch, dev, (train, train_tok_s, train_checks),
@@ -7614,8 +7754,9 @@ def main(argv) -> int:
         # H1's numbers are the v1 phase's: its main call at bench.py's
         # canonical shape, and its times there
         {"name": "H1 attention forward (none, causal, window; d from 1 to "
-                 "512, f32 to 256; past 256 on H5's block of d-chunks, "
-                 "csrc/prefill_attention_wide.cu)",
+                 "512, bf16 and f32; past 256 on H5's blocks of d-chunks, "
+                 "csrc/prefill_attention_wide.cu, at f32 "
+                 "csrc/prefill_attention_wide_f32.cu)",
          "route": "cuda", "source": H1_SRC, "replaces": f"{V1_PY}:1139",
          "also_replaces": [f"{V1_PY}:{n}" for n in (387, 213, 489, 901,
                                                      1261, 1357)]
@@ -7722,8 +7863,9 @@ def main(argv) -> int:
         # H6's numbers are the slice's and the multi-turn's cases; by_case
         # holds every case of the decode and extend phases
         {"name": "H6-decode paged INT8 decode attention (window; d from 1 "
-                 "to 512, f32 q to 256, any group, pages a multiple of 128; "
-                 "split across the SMs, the runs merged in its last block)",
+                 "to 512, bf16 and f32 q, any group, pages a multiple of "
+                 "128; split across the SMs, the runs merged in its last "
+                 "block)",
          "route": "cuda", "source": H6_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:74",
          "launches": launches["h6"],
@@ -7755,9 +7897,10 @@ def main(argv) -> int:
                                                 "turn_2_tokens_s")}
                           for n, x in heads["models"].items()}},
         {"name": "H6-extend paged INT8 chunked-prefill attention (window; d "
-                 "from 1 to 512, f32 q to 256, any group, pages a multiple "
-                 "of 128; past 256 on H5's block, "
-                 "csrc/paged_extend_wide.cu)",
+                 "from 1 to 512, bf16 and f32 q, any group, pages a "
+                 "multiple of 128; past 256 on H5's blocks, "
+                 "csrc/paged_extend_wide.cu, at f32 q "
+                 "csrc/paged_extend_wide_f32.cu)",
          "route": "cuda", "source": H6E_SRC,
          "replaces": "exploring_flash_attention_tpu/serving/decode.py:257",
          "also_replaces": "exploring_flash_attention_tpu/serving/decode.py:455",

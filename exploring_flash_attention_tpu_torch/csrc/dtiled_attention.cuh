@@ -942,6 +942,12 @@ int launch_cluster(const void* q, const void* k, const void* v,
 // P V 64); at NC = 1 (256 threads) none moved.  A block of more chunks
 // would not hold the fresh accumulator beside O (at NC = 4, 640 x 96:
 // 48 + 144 + 3 x 96 without it), so d past 256 takes clusters.
+//
+// H1 and H6-extend at f32 past d 256 run this block in clusters of two
+// (prefill_attention_wide_f32.cu, paged_extend_wide_f32.cu): produce_f32
+// takes the K/V head and the first key of their loops, key_loop_f32 the
+// keys each row sees and the bound statistic, share_l_f32 and
+// init_f32_bars as they are.
 
 constexpr int FKV = 32;                      // keys per tile
 constexpr int FH = 64;                       // columns of a staged half
@@ -1063,22 +1069,24 @@ __device__ __forceinline__ uint32_t p_offset(int row, int col) {
 
 // STAGED (rows no tensor map takes: f32 d % 4 != 0, codes d % 16 != 0):
 // the staging buffers are filled by the threads that split them, from qg,
-// kg and vg, two items ahead, a cp.async group an item
+// kg and vg, two items ahead, a cp.async group an item.  Q rows [q0, q0 +
+// 64) of head bh; the keys [kv_begin, kv_begin + FKV n_tiles) of K/V head
+// bhk (H5: bh and 0; H1's wide f32 block: its GQA head and its span)
 template <int NC, int KIND, bool STAGED>
 __device__ __forceinline__ void produce_f32(
     const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
     const float* ks, const float* vs, unsigned char* smem, FBars<NC>* bars,
     int bh, int q0, int lkv, int block, int n_blocks, int n_tiles,
     float scale_log2, int c0, const void* qg, const void* kg,
-    const void* vg, int lq, int d) {
+    const void* vg, int lq, int d, int bhk, int kv_begin) {
   using C = FCfg<NC, KIND>;
   const int pt = threadIdx.x - NC * 128;
   if (pt < S_THREADS) {
     // S halves: item j is tile j / NS, the block's columns 64 (j % NS) ..
     // + 63
     float* fac = reinterpret_cast<float*>(smem + C::fac);
-    const float* ksb = ks + size_t(bh) * n_blocks;
-    const float* vsb = vs + size_t(bh) * n_blocks;
+    const float* ksb = ks + size_t(bhk) * n_blocks;
+    const float* vsb = vs + size_t(bhk) * n_blocks;
     const int n_items = n_tiles * C::NS;
     auto load = [&](int j) {
       unsigned char* st = smem + C::stage + (j % 2) * C::STAGE_BYTES;
@@ -1086,16 +1094,16 @@ __device__ __forceinline__ void produce_f32(
       mbar_arrive_expect_tx(&bars->stage_full[j % 2], C::STAGE_BYTES);
       tma_load_3d(st, tq, &bars->stage_full[j % 2], col, q0, bh);
       tma_load_3d(st + C::STAGE_Q, tk, &bars->stage_full[j % 2], col,
-                  j / C::NS * FKV, bh);
+                  kv_begin + j / C::NS * FKV, bhk);
     };
     auto stage = [&](int j) {
       const uint32_t st = smem_u32(smem + C::stage + (j % 2) * C::STAGE_BYTES);
       const int col = c0 + (j % C::NS) * FH;
       stage_half<4>(st, qg, size_t(bh) * lq, q0, BQ, lq, d, col, pt,
                     S_THREADS);
-      stage_half<C::KV_ELEM>(st + C::STAGE_Q, kg, size_t(bh) * lkv,
-                             j / C::NS * FKV, FKV, lkv, d, col, pt,
-                             S_THREADS);
+      stage_half<C::KV_ELEM>(st + C::STAGE_Q, kg, size_t(bhk) * lkv,
+                             kv_begin + j / C::NS * FKV, FKV, lkv, d, col,
+                             pt, S_THREADS);
       cp_async_commit();
     };
     if constexpr (STAGED) {
@@ -1124,7 +1132,7 @@ __device__ __forceinline__ void produce_f32(
         const int f = i % 2;
         mbar_wait(&bars->fac_empty[f], ((i / 2) & 1) ^ 1);
         for (int t = pt; t < FKV; t += S_THREADS) {
-          const int key = i * FKV + t;
+          const int key = kv_begin + i * FKV + t;
           const bool in = key < lkv;
           fac[f * 2 * FKV + t] =
               in ? (C::QUANT ? ksb[key / block] : 1.f) * scale_log2 : 0.f;
@@ -1151,12 +1159,12 @@ __device__ __forceinline__ void produce_f32(
       mbar_arrive_expect_tx(&bars->vstage_full[j % 2], C::STAGE_KV);
       tma_load_3d(smem + C::vstage + (j % 2) * C::STAGE_KV, tv,
                   &bars->vstage_full[j % 2], c0 + j / 2 % NC * DC + j % 2 * FH,
-                  j / (2 * NC) * FKV, bh);
+                  kv_begin + j / (2 * NC) * FKV, bhk);
     };
     auto stage = [&](int j) {
       stage_half<C::KV_ELEM>(
           smem_u32(smem + C::vstage + (j % 2) * C::STAGE_KV), vg,
-          size_t(bh) * lkv, j / (2 * NC) * FKV, FKV, lkv, d,
+          size_t(bhk) * lkv, kv_begin + j / (2 * NC) * FKV, FKV, lkv, d,
           c0 + j / 2 % NC * DC + j % 2 * FH, lane, 32);
       cp_async_commit();
     };
@@ -1215,19 +1223,22 @@ __device__ __forceinline__ void issue_s_half(float (&acc)[FKV / 2],
   }
 }
 
-// Warpgroup 0's part of tile i: S over the d-chunks (with ranks > 1 the
-// block's partial, then the cluster's sum), the mask, s * kc, the online
-// softmax (m, l updated), P * vs as three bf16 tiles at sp, alpha at sa
-template <int NC, int KIND>
+// Warpgroup 0's part of tile i, keys kv0 .. kv0 + FKV - 1: S over the
+// d-chunks (with ranks > 1 the block's partial, then the cluster's sum),
+// the mask (visible(r, key): whether owned row r sees the key), s * kc,
+// the online softmax (m, l updated), P * vs as three bf16 tiles at sp,
+// alpha at sa.  BOUND (H1's bound statistic): m holds each row's fixed
+// shift, alpha = 1
+template <int NC, int KIND, bool BOUND, class Visible>
 __device__ __forceinline__ void softmax_tile_f32(
-    unsigned char* smem, FBars<NC>* bars, int i, int lkv, float (&m)[2],
-    float (&l)[2], unsigned char* sp, float* sa, uint32_t ranks) {
+    unsigned char* smem, FBars<NC>* bars, int i, int kv0, Visible visible,
+    float (&m)[2], float (&l)[2], unsigned char* sp, float* sa,
+    uint32_t ranks) {
   using C = FCfg<NC, KIND>;
   namespace F = eft::f32;
   const int lane = threadIdx.x % 32;
   const int rl = threadIdx.x / 32 * 16 + lane / 4;
   const int col0 = 2 * (lane % 4);
-  const int kv0 = i * FKV;
   // S = the sum over the d-chunks of S_c, each in a fresh accumulator
   // over its two 64-column halves
   float acc_s[FKV / 2];
@@ -1262,16 +1273,21 @@ __device__ __forceinline__ void softmax_tile_f32(
 #pragma unroll
   for (int e = 0; e < FKV / 2; ++e) {
     const int r = acc_row8(e) / 8, col = col0 + acc_col(e);
-    acc_s[e] = kv0 + col < lkv ? acc_s[e] * kc[col] : -CUDART_INF_F;
+    acc_s[e] = visible(r, kv0 + col) ? acc_s[e] * kc[col] : -CUDART_INF_F;
     mx[r] = fmaxf(mx[r], acc_s[e]);
   }
   float alpha[2], m_use[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float m_new = fmaxf(m[r], quad_max(mx[r]));
-    m_use[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
-    alpha[r] = exp2f(m[r] - m_use[r]);
-    m[r] = m_new;
+    if constexpr (BOUND) {
+      m_use[r] = m[r];
+      alpha[r] = 1.f;
+    } else {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      m_use[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[r] = exp2f(m[r] - m_use[r]);
+      m[r] = m_new;
+    }
   }
   // p, l, and P * vs split into three bf16 pieces, piece p in columns
   // 32 p .. 32 p + 31 of the tile
@@ -1298,19 +1314,22 @@ __device__ __forceinline__ void softmax_tile_f32(
   mbar_arrive(&bars->fac_empty[i % 2]);
 }
 
-// A consumer warpgroup (wg < NC; FIRST: warpgroup 0, a code path of its
-// own, so that each keeps the registers setmaxnreg gives it): per tile,
-// warpgroup 0 computes S, the softmax and P (softmax_tile_f32); then
-// every warpgroup c computes P V_c in a fresh accumulator, P's three
-// pieces from the shared tile (SS wgmma), and adds it to its O chunk
-// rescaled by alpha; the epilogue divides by l and stores the chunk's
-// columns (the block's first column c0, cut at d, the row stride)
-template <int NC, int KIND, bool FIRST>
-__device__ __forceinline__ void consume_f32(unsigned char* smem,
-                                            FBars<NC>* bars, void* o,
-                                            int out_f32, int lq, int lkv,
-                                            int q0, int bh, int n_tiles,
-                                            int d, int c0, uint32_t ranks) {
+// A consumer warpgroup's key loop (wg < NC; FIRST: warpgroup 0, a code
+// path of its own, so that each keeps the registers setmaxnreg gives it),
+// over the n_tiles tiles from key kv_begin: per tile, warpgroup 0 computes
+// S, the softmax and P (softmax_tile_f32, the keys `visible` says each
+// row sees); then every warpgroup c computes P V_c in a fresh accumulator,
+// P's three pieces from the shared tile (SS wgmma), and adds it to its O
+// chunk rescaled by alpha.  On return acc_o is O_c unnormalized and, in
+// warpgroup 0, m each row's shift and l its share of the row's sum; m and
+// l start as the caller set them
+template <int NC, int KIND, bool FIRST, bool BOUND = false, class Visible>
+__device__ __forceinline__ void key_loop_f32(unsigned char* smem,
+                                             FBars<NC>* bars, int kv_begin,
+                                             int n_tiles, Visible visible,
+                                             float (&acc_o)[DC / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             uint32_t ranks) {
   using C = FCfg<NC, KIND>;
   namespace F = eft::f32;
   const int wg = threadIdx.x / 128;
@@ -1318,9 +1337,6 @@ __device__ __forceinline__ void consume_f32(unsigned char* smem,
   const int rl = threadIdx.x / 32 % 4 * 16 + lane / 4;
   float* salpha = reinterpret_cast<float*>(smem + C::alpha);
 
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l[2] = {0.f, 0.f};
-  float acc_o[DC / 2];
 #pragma unroll
   for (int e = 0; e < DC / 2; ++e) acc_o[e] = 0.f;
   for (int i = 0; i < n_tiles; ++i) {
@@ -1328,8 +1344,9 @@ __device__ __forceinline__ void consume_f32(unsigned char* smem,
     unsigned char* sp = smem + C::p + b * C::P_BYTES;
     if constexpr (FIRST) {
       mbar_wait(&bars->p_empty[b], ((i / 2) & 1) ^ 1);
-      softmax_tile_f32<NC, KIND>(smem, bars, i, lkv, m, l, sp,
-                                 salpha + b * BQ, ranks);
+      softmax_tile_f32<NC, KIND, BOUND>(smem, bars, i, kv_begin + i * FKV,
+                                        visible, m, l, sp, salpha + b * BQ,
+                                        ranks);
       fence_proxy_async();
       mbar_arrive(&bars->p_full[b]);
     }
@@ -1364,10 +1381,18 @@ __device__ __forceinline__ void consume_f32(unsigned char* smem,
     for (int e = 0; e < DC / 2; ++e)
       acc_o[e] = fmaf(acc_o[e], a[acc_row8(e) / 8], part[e]);
   }
+}
 
-  // warpgroup 0 hands l over to the others
-  float* sl = reinterpret_cast<float*>(smem + C::lsum);
+// After the key loop: warpgroup 0 hands l over to the others, whose l is
+// then placed so that store_o_rows' quad sum returns each row's sum
+template <int NC, int KIND, bool FIRST>
+__device__ __forceinline__ void share_l_f32(unsigned char* smem,
+                                            float (&l)[2]) {
+  using C = FCfg<NC, KIND>;
   if constexpr (NC > 1) {
+    const int lane = threadIdx.x % 32;
+    const int rl = threadIdx.x / 32 % 4 * 16 + lane / 4;
+    float* sl = reinterpret_cast<float*>(smem + C::lsum);
     if constexpr (FIRST) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -1377,11 +1402,30 @@ __device__ __forceinline__ void consume_f32(unsigned char* smem,
     }
     named_bar_sync(L_BAR, NC * 128);
     if constexpr (!FIRST) {
-      // the row sums, placed so that store_o_rows' quad sum returns them
       l[0] = lane % 4 == 0 ? sl[rl] : 0.f;
       l[1] = lane % 4 == 0 ? sl[rl + 8] : 0.f;
     }
   }
+}
+
+// A consumer warpgroup of H5's f32 block: its key loop over every key
+// (those past Lkv masked), then O_c / l stored in the chunk's columns (the
+// block's first column c0, cut at d, the row stride)
+template <int NC, int KIND, bool FIRST>
+__device__ __forceinline__ void consume_f32(unsigned char* smem,
+                                            FBars<NC>* bars, void* o,
+                                            int out_f32, int lq, int lkv,
+                                            int q0, int bh, int n_tiles,
+                                            int d, int c0, uint32_t ranks) {
+  const int wg = threadIdx.x / 128;
+  const int rl = threadIdx.x / 32 % 4 * 16 + threadIdx.x % 32 / 4;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  float acc_o[DC / 2];
+  key_loop_f32<NC, KIND, FIRST>(
+      smem, bars, 0, n_tiles, [lkv](int, int key) { return key < lkv; },
+      acc_o, m, l, ranks);
+  share_l_f32<NC, KIND, FIRST>(smem, l);
   // a value at a time where d % 8 != 0
   if (d % 8 != 0)
     store_o_rows<DC, true>(acc_o, l, m, q0 + rl, lq, size_t(bh) * lq, o,
@@ -1390,6 +1434,28 @@ __device__ __forceinline__ void consume_f32(unsigned char* smem,
   else
     store_o_rows<DC>(acc_o, l, m, q0 + rl, lq, size_t(bh) * lq, o, out_f32,
                      nullptr, d, c0 + wg * DC, d - c0 - wg * DC);
+}
+
+// The f32 block's barriers (thread 0), in a cluster of `ranks` blocks;
+// the caller's cluster_sync makes them ready for every rank
+template <int NC>
+__device__ __forceinline__ void init_f32_bars(FBars<NC>* bars,
+                                              uint32_t ranks) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bars->stage_full[s], 1);
+      mbar_init(&bars->vstage_full[s], 1);
+      mbar_init(&bars->sk_full[s], S_THREADS);
+      mbar_init(&bars->sk_empty[s], 128);
+      mbar_init(&bars->v_empty[s], 128);
+      mbar_init(&bars->fac_empty[s], 128);
+      mbar_init(&bars->p_full[s], 128);
+      mbar_init(&bars->p_empty[s], NC * 128);
+      mbar_init(&bars->xbar[s], 128 * ranks);
+    }
+    for (int c = 0; c < NC; ++c) mbar_init(&bars->v_full[c], 32);
+    mbar_init_fence();
+  }
 }
 
 // setmaxnreg from the launch's registers per thread to N (a no-op when
@@ -1431,21 +1497,7 @@ dtiled_attention_f32_kernel(
   const int n_tiles = (lkv + FKV - 1) / FKV;
   const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(&bars->stage_full[s], 1);
-      mbar_init(&bars->vstage_full[s], 1);
-      mbar_init(&bars->sk_full[s], S_THREADS);
-      mbar_init(&bars->sk_empty[s], 128);
-      mbar_init(&bars->v_empty[s], 128);
-      mbar_init(&bars->fac_empty[s], 128);
-      mbar_init(&bars->p_full[s], 128);
-      mbar_init(&bars->p_empty[s], NC * 128);
-      mbar_init(&bars->xbar[s], 128 * ranks);
-    }
-    for (int c = 0; c < NC; ++c) mbar_init(&bars->v_full[c], 32);
-    mbar_init_fence();
-  }
+  init_f32_bars(bars, ranks);
   cluster_sync();             // every rank's barriers ready
 
   if (wg == NC) {
@@ -1454,7 +1506,7 @@ dtiled_attention_f32_kernel(
                C::LAUNCH_REGS>();
     produce_f32<NC, KIND, STAGED>(&tq, &tk, &tv, ks, vs, smem, bars, bh, q0,
                                   lkv, block, n_blocks, n_tiles, scale_log2,
-                                  c0, qg, kg, vg, lq, d);
+                                  c0, qg, kg, vg, lq, d, bh, 0);
   } else if (wg == 0) {
     if constexpr (NC > 1) set_regs<C::WG0_REGS, C::LAUNCH_REGS>();
     consume_f32<NC, KIND, true>(smem, bars, o, out_f32, lq, lkv, q0, bh,

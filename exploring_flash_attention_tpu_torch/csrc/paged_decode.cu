@@ -7,9 +7,9 @@
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // serving/decode.py has already checked shapes, dtypes, contiguity and
 // alignment and planned the split; the checks here only refuse what would
-// index out of bounds.  d: 1 to 512 (f32 q: to 256); page_size: a multiple
+// index out of bounds.  d: 1 to 512, bf16 or f32 q; page_size: a multiple
 // of 128.  window: 0 for none.  fused: 1 merges the runs into
-// bf16 o [B, Hq, d] (o_part and lse are then the workspace, tickets
+// o [B, Hq, d] in q's dtype (o_part and lse are then the workspace, tickets
 // B * Hkv * chunks zeroed ints, chunks = cdiv(group, 8), cdiv(group, 4)
 // at d > 128, cdiv(group, 2) at d > 256); 0 writes the partials only (o
 // and tickets unused).  q_f32: 0 for bf16 q and o, 1 for f32.
@@ -26,7 +26,7 @@ extern "C" int eft_paged_decode(const void* q, const void* pages,
   const int cap = d > 256 ? 2 : d > 128 ? 4 : 8;
   if (batch <= 0 || batch > 65535 || hkv <= 0 || hq % hkv != 0 ||
       int64_t(hkv) * ((group + cap - 1) / cap) > 65535 || d < 1 ||
-      d > (q_f32 ? 256 : 512) || page_size % PAGE_TILE != 0 ||
+      d > 512 || page_size % PAGE_TILE != 0 ||
       page_size <= 0 ||
       max_pages <= 0 || int64_t(max_pages) * page_size > INT32_MAX ||
       window < 0 || n_split <= 0 || n_split > INT32_MAX / 65535 ||

@@ -65,7 +65,7 @@
 //     per token), O rescaled by alpha per tile; the four warps' sums meet
 //     in shared memory at the end.
 //
-// Head dims and groups.  d is any from 1 to 512 (f32 q: 256), on
+// Head dims and groups.  d is any from 1 to 512, bf16 or f32 q, on
 // instances D = 32, 64, 128, 256 and 512 (the smallest D >= d; at D=512 a
 // stage is 64 tokens, 66 KB, the ring 198 KB): a token's row is
 // d bytes in the pages and in the ring, S takes D / 16 lanes a token of
@@ -590,22 +590,13 @@ int launch(const Args& a, cudaStream_t stream) {
 // one)
 template <bool ODD, int D, int GMAX, bool FUSED>
 int launch_exact(const Args& a, cudaStream_t stream) {
-  // f32 q up to D=256 (the C entry refuses it past)
-  if constexpr (D > 256) {
-    if (a.q_f32) return int(cudaErrorInvalidValue);
-  }
   if constexpr (ODD) {
-    if constexpr (D <= 256) {
-      if (a.q_f32) return launch<D, GMAX, FUSED, false, true, true>(a, stream);
-    }
+    if (a.q_f32) return launch<D, GMAX, FUSED, false, true, true>(a, stream);
     return launch<D, GMAX, FUSED, false, false, true>(a, stream);
   } else {
     // f32 q takes the general instances alone: the tuned EXACT form is
     // the bf16 path's
-    if constexpr (D <= 256) {
-      if (a.q_f32)
-        return launch<D, GMAX, FUSED, false, true, false>(a, stream);
-    }
+    if (a.q_f32) return launch<D, GMAX, FUSED, false, true, false>(a, stream);
     if (a.d == D && a.hq / a.hkv <= GMAX)
       return launch<D, GMAX, FUSED, true, false, false>(a, stream);
     return launch<D, GMAX, FUSED, false, false, false>(a, stream);

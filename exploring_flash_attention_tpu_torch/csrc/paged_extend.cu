@@ -59,8 +59,9 @@
 // Budget at d=128, as H4-kvq's: Q 32 KB, two converted stages of K and V
 // 128 KB, three code slots 48 KB, scales 2 KB.
 //
-// Head dims, groups and pages.  d is any from 1 to 256 (bf16 257 to 512:
-// paged_extend_wide.cu, on H5's block), on
+// Head dims, groups and pages.  d is any from 1 to 256 (257 to 512:
+// paged_extend_wide.cu, on H5's block, and at f32 q
+// paged_extend_wide_f32.cu, on H5's f32 block in clusters of two), on
 // instances D = 64, 128 and 256 (the smallest D >= d): the code tiles are
 // loaded by TMA as boxes of D columns from the pages described with their
 // true d, so the columns past d arrive as zero codes, convert to zero K and
@@ -104,6 +105,15 @@ int launch_wide(const void* q, const void* pages, const void* scales,
                 const void* slots, void* o, int batch, int c, int hq,
                 int hkv, int d, int ps, int max_pages, int max_seqs,
                 int n_pages, int window, float scale, cudaStream_t stream);
+
+// its launch at f32 q, d 257 to 512 (paged_extend_wide_f32.cu, on H5's f32
+// block in clusters of two: bf16x3 against the codes)
+int launch_wide_f32(const void* q, const void* pages, const void* scales,
+                    const void* page_table, const void* seq_lens,
+                    const void* slots, void* o, int batch, int c, int hq,
+                    int hkv, int d, int ps, int max_pages, int max_seqs,
+                    int n_pages, int window, float scale,
+                    cudaStream_t stream);
 
 }  // namespace extend
 }  // namespace eft
@@ -812,9 +822,10 @@ int launch_f32(const void* q, const void* pages, const void* scales,
 // Returns the cudaError_t of the launch (0 on success).  The wrapper in
 // serving/decode.py has already checked shapes, dtypes, contiguity and
 // alignment; the checks here only refuse what would index out of bounds.
-// d: 1 to 256, and at bf16 257 to 512 (launch_wide); page_size: a
-// multiple of 128.  window: 0 for none.  q_f32: 0 for bf16 q and O, 1 for
-// f32 (the f32 core, bf16x3).
+// d: 1 to 512 at both dtypes, 257 to 512 on the wide blocks (launch_wide,
+// launch_wide_f32); page_size: a multiple of 128.  window: 0 for none.
+// q_f32: 0 for bf16 q and O, 1 for f32 (bf16x3: the f32 core up to d 256,
+// H5's f32 block past it).
 extern "C" int eft_paged_extend(const void* q, const void* pages,
                                 const void* scales, const void* page_table,
                                 const void* seq_lens, const void* slots,
@@ -825,7 +836,7 @@ extern "C" int eft_paged_extend(const void* q, const void* pages,
                                 void* stream) {
   if (batch <= 0 || batch > 65535 || c <= 0 || hkv <= 0 || hkv > 65535 ||
       hq % hkv != 0 || page_size <= 0 || page_size % 128 != 0 ||
-      d < 1 || d > (q_f32 ? 256 : 512) || max_pages <= 0 || n_pages <= 0 ||
+      d < 1 || d > 512 || max_pages <= 0 || n_pages <= 0 ||
       int64_t(max_pages) * page_size > INT32_MAX ||
       int64_t(n_pages) * 2 * hkv > INT32_MAX ||
       int64_t(c) * (hq / hkv) > INT32_MAX - BQ || window < 0 ||
@@ -835,6 +846,11 @@ extern "C" int eft_paged_extend(const void* q, const void* pages,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return int(dev_err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_f32 && d > 256)
+    return eft::extend::launch_wide_f32(q, pages, scales, page_table,
+                                        seq_lens, slots, o, batch, c, hq,
+                                        hkv, d, page_size, max_pages,
+                                        max_seqs, n_pages, window, scale, s);
   if (!q_f32 && d > 256)
     return eft::extend::launch_wide(q, pages, scales, page_table, seq_lens,
                                     slots, o, batch, c, hq, hkv, d,

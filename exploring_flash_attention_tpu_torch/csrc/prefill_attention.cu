@@ -1,9 +1,10 @@
 // H1: the attention forward on Hopper (sm_90a). bf16 in, f32 accumulate,
 // one kernel for three masks (none, causal, sliding window) and every head
-// dim d from 1 to 256 (bf16 257 to 512: prefill_attention_wide.cu, on
-// H5's block), on instances D = 32, 64, 128 and 256: a d below its
-// instance's D (1-31 on 32, 33-63 on 64, 65-127 on 128, 129-255 on 256) is
-// described to TMA with its true d, so the tiles' columns past d land as
+// dim d from 1 to 256 (257 to 512: prefill_attention_wide.cu and at f32
+// prefill_attention_wide_f32.cu, on H5's blocks), on instances D = 32,
+// 64, 128 and 256: a d below its instance's D (1-31 on 32, 33-63 on 64,
+// 65-127 on 128, 129-255 on 256) is described to TMA with its true d, so
+// the tiles' columns past d land as
 // zeros (wgmma_tile.cuh), and the epilogue stores the first d columns of
 // O; a d that is not a multiple of 8, whose rows no tensor map takes, is
 // loaded by the staged producer below into the same tiles.  The padded
@@ -11,7 +12,9 @@
 // d = D.  f32 q/k/v take a second kernel, prefill_attention_f32_kernel
 // (prefill_attention_f32.cu, compiled beside this file), on the f32 core
 // of f32_attention.cuh (bf16x6 on wgmma, f32-accurate as the JAX
-// package's HIGHEST), with the same masks, spans, offsets and bound form.
+// package's HIGHEST), with the same masks, spans, offsets and bound form;
+// f32 d 257 to 512 run on H5's f32 block in clusters of two
+// (prefill_attention_wide_f32.cu).
 //
 // Replaces the TPU kernels of the JAX package's dense forward, which
 // compute one function and differ from each other only by a VMEM rule
@@ -703,11 +706,13 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // kv_span: 0 for one span over the whole KV, else a multiple of 128 keys,
 // and o / lse hold cdiv(lkv, kv_span) partials per row.  q_rows: the Q
 // tile, 64 or 128.  kmax: null (the exact statistic) or the bound form's
-// f32 [batch * hkv, cdiv(lkv, 128)] prefix maxima of |k|^2.  d: 1 to 256,
-// run on the smallest instance D >= d (bf16 d % 8 != 0 in the staged form),
-// and at bf16 257 to 512 on the wide block (launch_wide).  in_f32: 0 for
-// bf16 q/k/v, 1 for f32 (the f32 core, bf16x6; instances D = 64, 128, 256;
-// rows of d % 4 != 0 read a float at a time; d up to 256).
+// f32 [batch * hkv, cdiv(lkv, 128)] prefix maxima of |k|^2.  d: 1 to 512
+// at both dtypes; up to 256 on the smallest instance D >= d (bf16 d % 8 !=
+// 0 in the staged form), 257 to 512 on the wide blocks (bf16 launch_wide,
+// f32 launch_wide_f32).  in_f32: 0 for bf16 q/k/v, 1 for f32 (bf16x6: up
+// to d 256 the f32 core's instances D = 64, 128, 256, rows of d % 4 != 0
+// read a float at a time; past it H5's f32 block in clusters of two, rows
+// of d % 4 != 0 staged).
 extern "C" int eft_prefill_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int batch, int hq, int hkv, int lq,
@@ -720,7 +725,7 @@ extern "C" int eft_prefill_attention(const void* q, const void* k,
       mask < MASK_NONE || mask > MASK_WINDOW ||
       (mask == MASK_WINDOW && window < 1) || kv_span < 0 ||
       kv_span % SPAN_TILE != 0 || (q_rows != 64 && q_rows != 128) ||
-      d < 1 || d > (in_f32 ? 256 : 512) || (in_f32 != 0 && in_f32 != 1))
+      d < 1 || d > 512 || (in_f32 != 0 && in_f32 != 1))
     return int(cudaErrorInvalidValue);
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -735,6 +740,11 @@ extern "C" int eft_prefill_attention(const void* q, const void* k,
         q, k, v, o, out_f32, lse, batch, hq, hkv, lq, lkv, d, mask,
         diag_off, window, o_offs, kv_span, scale, km, s);
   };
+  if (in_f32 && d > 256)
+    return eft::prefill::launch_wide_f32(q, k, v, o, out_f32, lse, batch, hq,
+                                         hkv, lq, lkv, d, mask, diag_off,
+                                         window, o_offs, kv_span, scale, km,
+                                         s);
   if (in_f32)
     return eft::prefill::launch_f32(q, k, v, o, out_f32, lse, batch, hq, hkv,
                                     lq, lkv, d, mask, diag_off, window,

@@ -1,7 +1,7 @@
-// What H1's three translation units share: prefill_attention.cu (the bf16
+// What H1's four translation units share: prefill_attention.cu (the bf16
 // kernel of d up to 256 and the C entry), prefill_attention_f32.cu (the f32
-// kernel) and prefill_attention_wide.cu (bf16 d 257 to 512), which compile
-// at once.
+// kernel of d up to 256), prefill_attention_wide.cu (bf16 d 257 to 512) and
+// prefill_attention_wide_f32.cu (f32 d 257 to 512), which compile at once.
 
 #pragma once
 
@@ -44,6 +44,16 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
                 int lkv, int d, int mask, int diag_off, int window,
                 const int* offs, int kv_span, float scale, const float* kmax,
                 cudaStream_t stream);
+
+// H1 at f32 d 257 to 512 (prefill_attention_wide_f32.cu):
+// eft_prefill_attention's launch with in_f32 on H5's f32 block in clusters
+// of two (dtiled_attention.cuh, with the masks, spans, LSE and the bound
+// statistic), at 64-row Q tiles whatever q_rows
+int launch_wide_f32(const void* q, const void* k, const void* v, void* o,
+                    int out_f32, void* lse, int batch, int hq, int hkv,
+                    int lq, int lkv, int d, int mask, int diag_off,
+                    int window, const int* offs, int kv_span, float scale,
+                    const float* kmax, cudaStream_t stream);
 
 }  // namespace prefill
 }  // namespace eft

@@ -203,17 +203,18 @@ def diagonal(diag_off: DiagOff):
     return diag_off
 
 
-# The head dims of the serving kernels H1, H2, H6-decode and H6-extend:
-# every d up to their largest instance, 256 (512 at bf16, where H1 and
-# H6-extend run on H5's block of d-chunks, csrc/wide_attention.cuh, and
-# H6-decode on its D=512 instance).  A d below its instance's D runs on
-# zero-filled columns; where a row of q, k, v or the codes is not a
-# multiple of 16 bytes (bf16 d % 8, f32 d % 4, codes d % 16) the kernels
-# load it at the alignment it has instead of by TMA boxes or 16-byte loads
+# The head dims of the serving kernels H1, H2, H6-decode and H6-extend, at
+# bf16 and at f32: every d up to their largest instance, 512 (past 256 H1
+# and H6-extend run on H5's blocks of d-chunks, csrc/wide_attention.cuh at
+# bf16 and H5's f32 block in clusters of two at f32, and H6-decode on its
+# D=512 instances).  A d below its instance's D runs on zero-filled
+# columns; where a row of q, k, v or the codes is not a multiple of 16
+# bytes (bf16 d % 8, f32 d % 4, codes d % 16) the kernels load it at the
+# alignment it has instead of by TMA boxes or 16-byte loads
 SERVING_HEAD_DIM_RULE = "d from 1 to 512"
-# The head dims of the backward pair H3-dkv and H3-dq, of the quantized
-# pair H4-kvq and H4-int8, and of the serving kernels at f32: every d up to
-# their largest instance, 256, loaded as the serving kernels load it
+# The head dims of the backward pair H3-dkv and H3-dq and of the quantized
+# pair H4-kvq and H4-int8: every d up to their largest instance, 256,
+# loaded as the serving kernels load it
 NARROW_HEAD_DIM_RULE = "d from 1 to 256"
 # The head dims of H5 (ops.attention_v1_dtiled.h5_plan), d cut into
 # 128-column chunks across the blocks of a cluster, rows loaded as the
@@ -223,19 +224,20 @@ H5_HEAD_DIM_RULE = "d from 1 to 2048"
 
 def kernel_head_dim(d: int) -> bool:
     """Whether the serving kernels H1, H2, H6-decode and H6-extend take
-    head dim ``d`` at bf16 (:data:`SERVING_HEAD_DIM_RULE`; at f32
-    :func:`narrow_head_dim`).  H1 and the paged pair run a d below their
-    next instance's (32, 64, 128, 256, or H6-decode's 512) on zero-filled
-    columns, and H1 and H6-extend past 256 on H5's block (3 or 4 d-chunks
-    of 128); H2 has one instance per multiple of 16 and runs any other d on
-    the instance of its lanes with d read at run time."""
+    head dim ``d`` (:data:`SERVING_HEAD_DIM_RULE`), at bf16 and at f32.
+    H1 and the paged pair run a d below their next instance's (32, 64,
+    128, 256, or H6-decode's 512) on zero-filled columns, and H1 and
+    H6-extend past 256 on H5's blocks (bf16: 3 or 4 d-chunks of 128; f32:
+    a cluster of two blocks of 2 chunks each); H2 has one instance per
+    multiple of 16 and runs any other d on the instance of its lanes with
+    d read at run time."""
     return 1 <= d <= 512
 
 
 def narrow_head_dim(d: int) -> bool:
-    """Whether the backward pair H3-dkv and H3-dq, the quantized pair
-    H4-kvq and H4-int8, and the serving kernels at f32 take head dim ``d``
-    (:data:`NARROW_HEAD_DIM_RULE`), on instances up to 256."""
+    """Whether the backward pair H3-dkv and H3-dq and the quantized pair
+    H4-kvq and H4-int8 take head dim ``d`` (:data:`NARROW_HEAD_DIM_RULE`),
+    on instances up to 256."""
     return 1 <= d <= 256
 
 
@@ -318,10 +320,10 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H1 (``csrc/prefill_attention.cu``), once per call, or raise: it takes
     contiguous q/k/v of one dtype, bf16 or f32 (bf16x6 on wgmma, at f32
     accuracy: :data:`KERNEL_DTYPES`), with :data:`SERVING_HEAD_DIM_RULE`
-    (f32: :data:`NARROW_HEAD_DIM_RULE`) and writes bf16 or f32 O.  Past d
-    256 it runs 64-row Q tiles whatever ``q_rows``.  ``prefill_attention.launches`` counts kernel
-    launches; the bound form's statistic adds :func:`bound_kmax`'s torch
-    ops before it."""
+    at both dtypes, and writes bf16 or f32 O.  Past d 256 it runs 64-row Q
+    tiles whatever ``q_rows``.  ``prefill_attention.launches`` counts
+    kernel launches; the bound form's statistic adds :func:`bound_kmax`'s
+    torch ops before it."""
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     out_dtype = out_dtype or q.dtype
@@ -359,7 +361,6 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"H1 takes q [B,Hq,Lq,d], k/v [B,Hkv,Lkv,d] with Hq % Hkv == 0 "
             f"and {SERVING_HEAD_DIM_RULE}; got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}")
-    check_f32_head_dim("H1", in_dtype, d)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"H1 writes bf16 or f32 O, not {out_dtype}")
     if kv_span is not None and kv_span % H1_KV_TILE:
@@ -425,14 +426,6 @@ def kernel_dtype(kernel: str, *tensors: torch.Tensor) -> torch.dtype:
     if dtype not in takes:
         raise TypeError(f"{kernel} takes {names}, got {dtype}")
     return dtype
-
-
-def check_f32_head_dim(kernel: str, dtype: torch.dtype, d: int) -> None:
-    """A serving kernel at f32 takes :data:`NARROW_HEAD_DIM_RULE`: its f32
-    instances stop at 256.  ``ValueError`` naming the rule otherwise."""
-    if dtype == torch.float32 and not narrow_head_dim(d):
-        raise ValueError(f"{kernel} takes {NARROW_HEAD_DIM_RULE} at f32 "
-                         f"(bf16: {SERVING_HEAD_DIM_RULE}); got d={d}")
 
 
 def _check_cuda_inputs(kernel: str, name: str,

@@ -120,10 +120,11 @@ def flash_attention_splitkv_partial(
     CPU tensors take H1's plain version over each span.  CUDA tensors
     launch H1 once over every span (``prefill_attention``), or raise: H1
     takes bf16 or f32 q/k/v with ``ops.attention.SERVING_HEAD_DIM_RULE``
-    (f32: ``NARROW_HEAD_DIM_RULE``), writes bf16 or f32 partials
-    and takes spans of whole 128-key tiles.  H1 reads ``block_q`` (its Q
-    tile) and ``kv_tiles_per_block`` (the span) of ``config``.  A single span covering the
-    whole KV is handed to H1 rounded up to whole tiles (the same result)."""
+    at both dtypes, writes bf16 or f32 partials and takes spans of whole
+    128-key tiles.  H1 reads ``block_q`` (its Q tile) and
+    ``kv_tiles_per_block`` (the span) of ``config``.  A single span
+    covering the whole KV is handed to H1 rounded up to whole tiles (the
+    same result)."""
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     if (k.shape != (b, hkv, lkv, d) or v.shape != (b, hkv, lkv, d)

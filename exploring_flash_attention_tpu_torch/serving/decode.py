@@ -39,7 +39,6 @@ from exploring_flash_attention_tpu_torch import kernels
 from exploring_flash_attention_tpu_torch.configs import cdiv
 from exploring_flash_attention_tpu_torch.ops.attention import (
     SERVING_HEAD_DIM_RULE,
-    check_f32_head_dim,
     kernel_dtype,
     kernel_head_dim,
 )
@@ -197,7 +196,7 @@ def _check_paged_inputs(name: str, q: torch.Tensor, cache: PagedKVCache,
                         window: Optional[int]) -> None:
     """What both paged kernels take: bf16 or f32 q
     (``ops.attention.kernel_dtype``) with ``SERVING_HEAD_DIM_RULE`` (the
-    cache's d; at f32 ``NARROW_HEAD_DIM_RULE``), any GQA group, a page size
+    cache's d, at both dtypes), any GQA group, a page size
     that is a multiple of 128 below 2^15
     (``kv_cache.check_page_size``), the cache's dtypes, one CUDA device,
     contiguous 16-byte aligned tensors.  Raises otherwise."""
@@ -206,7 +205,7 @@ def _check_paged_inputs(name: str, q: torch.Tensor, cache: PagedKVCache,
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError(f"{name}: q, the cache and the slots must share one "
                          "CUDA device")
-    check_f32_head_dim(name, kernel_dtype(name, q), q.shape[-1])
+    kernel_dtype(name, q)
     if (cache.kv_pages.dtype != torch.int8
             or cache.kv_scales.dtype != torch.float32
             or any(t.dtype != torch.int32 for t in tensors[3:])):
@@ -358,9 +357,8 @@ def paged_decode_attention(
     kernel H6-decode once, with its merge (counted in
     ``paged_decode_partials.launches``), or raise: it takes bf16 or f32 q
     (f32 O, f32 arithmetic throughout) with
-    ``ops.attention.SERVING_HEAD_DIM_RULE`` (f32 q:
-    ``NARROW_HEAD_DIM_RULE``), any GQA group and page sizes that are a
-    multiple of 128 below 2^15.
+    ``ops.attention.SERVING_HEAD_DIM_RULE`` at both dtypes, any GQA group
+    and page sizes that are a multiple of 128 below 2^15.
     The f32 partials' workspace and O are allocated per call; the tickets
     (:func:`ticket_buffer`) are kept per device, zero between launches, and
     belong to one stream: the port launches on the current stream only, and
@@ -393,8 +391,8 @@ def paged_extend_attention(
     CPU tensors take :func:`paged_extend_plain`.  CUDA tensors launch kernel
     H6-extend (``csrc/paged_extend.cu``), which takes bf16 q or f32 q
     (bf16x3 on wgmma against the exact codes, f32 O) with
-    ``ops.attention.SERVING_HEAD_DIM_RULE`` (f32 q:
-    ``NARROW_HEAD_DIM_RULE``; past d 256 on ``csrc/paged_extend_wide.cu``),
+    ``ops.attention.SERVING_HEAD_DIM_RULE`` at both dtypes (past d 256 on
+    ``csrc/paged_extend_wide.cu``, at f32 ``csrc/paged_extend_wide_f32.cu``),
     any GQA group and page sizes that are a multiple of 128 below 2^15, or
     raise.  ``paged_extend_attention.launches`` counts kernel launches."""
     b, c, hq, d = q.shape

@@ -32,9 +32,9 @@ the flagship's shapes (``time_serve``); with ``--f32``, of the f32 core's
 kernels and H5 at f32, and their accuracy over long key counts
 (``time_f32``); with ``--clusters``, of H5's cluster launches beside its
 single-block launches on the same work a block (``time_clusters``); with
-``--heads``, of H1, H2, H6-decode and H6-extend at d 80, 128 and 256
-(``time_heads``); with ``--quant-heads``, of H4-kvq, H4-int8 and H5 at d
-80, 128 and 256 (``time_quant_heads``).
+``--heads``, of H1, H2, H6-decode and H6-extend at d 80, 128 and 256, H1
+also at 512 (``time_heads``); with ``--quant-heads``, of H4-kvq, H4-int8
+and H5 at d 80, 128 and 256 (``time_quant_heads``).
 Alternate two roots in one call (parent, change, change, parent) to
 compare them on one card.
 """
@@ -271,7 +271,9 @@ HEADS_H1 = (("H1 d=80", 32, 16, 16, 1024, 80, False),
             ("H1 d=128", 32, 16, 16, 1024, 128, False),
             ("H1 d=128 causal", 32, 16, 16, 1024, 128, True),
             ("H1 d=256", 8, 16, 16, 1024, 256, False),
-            ("H1 d=256 causal", 8, 16, 16, 1024, 256, True))
+            ("H1 d=256 causal", 8, 16, 16, 1024, 256, True),
+            ("H1 d=512", 4, 8, 8, 1024, 512, False),
+            ("H1 d=512 causal", 4, 8, 8, 1024, 512, True))
 HEADS_H2 = (2, 16, 4, 1024)
 HEADS_H2_DIMS = (80, 128, 256)
 HEADS_PAGED = (("d=80 G=16", 8, 16, 1, 80, 128),
@@ -280,8 +282,9 @@ HEADS_PAGED = (("d=80 G=16", 8, 16, 1, 80, 128),
 
 
 def time_heads(root: Path) -> str:
-    """The serving kernels at d 80, 128 and 256 (HEADS_H1, HEADS_H2,
-    HEADS_PAGED), L2 flushed, with this file's timing harness: H1 alone
+    """The serving kernels at d 80, 128 and 256, H1 also at 512 (HEADS_H1,
+    HEADS_H2, HEADS_PAGED), L2 flushed, with this file's timing harness:
+    H1 alone
     (``prefill_attention``, bf16 O, no LSE), H2 (``splitkv_combine``, bf16
     O), ``paged_decode_attention`` and ``paged_extend_attention``."""
     import torch
@@ -346,14 +349,17 @@ F32_TIMED = (("canonical", 32, 8, 8, 1024, 1024, 128, False, None),
              ("B2", 8, 8, 2, 1000, 1100, 128, False, None),
              ("B4", 8, 8, 4, 512, 1024, 128, True, None),
              ("B5", 4, 8, 4, 4096, 4096, 128, True, 512),
-             ("B3 route d=256", 2, 8, 8, 1024, 8200, 256, False, None))
+             ("B3 route d=256", 2, 8, 8, 1024, 8200, 256, False, None),
+             ("d=80", 32, 16, 16, 1024, 1024, 80, False, None))
 
 
 def time_f32(root: Path) -> str:
     """The f32 core's kernels (``csrc/f32_attention.cuh``), L2 flushed,
     with this file's timing harness: H1 f32 at ``F32_TIMED``,
     ``paged_extend_attention`` with f32 q at the multi-turn turn (C=256
-    after 257..280) and ``flash_attention_kvquant`` with f32 q at the
+    after 257..280), ``paged_decode_attention`` with f32 q at the slice
+    (contexts 257..280), both at ``HEADS_PAGED`` (contexts 257..1100, a
+    64-token chunk), and ``flash_attention_kvquant`` with f32 q at the
     canonical shape (int8 and e4m3, block 512); then max|O - oracle| of H1
     f32 at ``F32_LONG_KEYS`` against the plain attention in f64 on the
     card, and of H4-kvq f32 over 8192 keys (B16's route, int8, block 128,
@@ -381,6 +387,7 @@ def time_f32(root: Path) -> str:
         quantize_int8,
     )
     from exploring_flash_attention_tpu_torch.serving import (
+        paged_decode_attention,
         paged_extend_attention,
     )
 
@@ -402,6 +409,25 @@ def time_f32(root: Path) -> str:
     q = q.float()
     ms = time_cuda(lambda: paged_extend_attention(q, cache, slots), n_iter=50)
     out.append(f"H6-extend f32 multi-turn {ms:.4f} ms")
+    q, cache, slots = _paged_case(8, 8, 4, (257, 280), 1024)
+    q = q.float()
+    ms = time_cuda(lambda: paged_decode_attention(q, cache, slots),
+                   n_iter=100)
+    out.append(f"H6-decode f32 slice {ms:.4f} ms")
+    for name, b, hq, hkv, d, ps in HEADS_PAGED:
+        q, cache, slots = _paged_case(b, hq, hkv, (257, 1100), 1200, ps=ps,
+                                      d=d)
+        q = q.float()
+        ms = time_cuda(lambda: paged_decode_attention(q, cache, slots),
+                       n_iter=100)
+        out.append(f"H6-decode f32 {name} {ms:.4f} ms")
+        q, cache, slots = _paged_case(b, hq, hkv, (257, 1100), 1200, ps=ps,
+                                      chunk=64, d=d)
+        q = q.float()
+        ms = time_cuda(lambda: paged_extend_attention(q, cache, slots),
+                       n_iter=50)
+        out.append(f"H6-extend f32 {name} {ms:.4f} ms")
+    del q, cache, slots
     q, k, v = f32(32, 8, 8, 1024, 1024, 128, 1)
     for kind, quant in (("int8", quantize_int8), ("fp8", quantize_fp8)):
         kq, vq = quant(k, 512), quant(v, 512)

@@ -14,9 +14,9 @@ reads d at run time, the paged pair reads the codes at their rows'
 alignment (``tests/test_torch_kernels.py`` holds them against these plain
 versions there).
 
-Also here: the head-dim rules, the serving kernels' (``d from 1 to
-512``), the one H3, H4 and the serving kernels at f32 share (``d from 1 to
-256``), and H5's (``d from 1 to 2048``).
+Also here: the head-dim rules, the serving kernels' at both dtypes (``d
+from 1 to 512``), the one H3 and H4 share (``d from 1 to 256``), and H5's
+(``d from 1 to 2048``).
 """
 
 import re

@@ -7,12 +7,13 @@ The same NumPy inputs go through the JAX function (Pallas in interpret
 mode on the CPU, as the JAX package's tests run it) and through the port's
 CPU path (the plain versions of H1, H2, H6-decode and H6-extend), in f32,
 at the tolerance of the JAX test of each function, stated in each test.
-On the card these d run at bf16 on H5's block of d-chunks (H1 and
-H6-extend, ``csrc/wide_attention.cuh``), H2's instances up to 512 and
-H6-decode's D=512 instance (``tests/test_torch_kernels.py`` holds them
-against these plain versions there).  JAX takes any head dim; the port's
-serving kernels take ``SERVING_HEAD_DIM_RULE`` (d from 1 to 512), the
-backward and quantized kernels ``NARROW_HEAD_DIM_RULE`` (1 to 256).
+On the card these d run on H5's blocks of d-chunks (H1 and H6-extend:
+``csrc/wide_attention.cuh`` at bf16, H5's f32 block in clusters of two at
+f32), H2's instances up to 512 and H6-decode's D=512 instances
+(``tests/test_torch_kernels.py`` holds them against these plain versions
+there).  JAX takes any head dim; the port's serving kernels take
+``SERVING_HEAD_DIM_RULE`` (d from 1 to 512) at both dtypes, the backward
+and quantized kernels ``NARROW_HEAD_DIM_RULE`` (1 to 256).
 """
 
 import jax
@@ -43,6 +44,7 @@ from exploring_flash_attention_tpu_torch.models import (
     params_from_jax,
 )
 from exploring_flash_attention_tpu_torch.oracle import naive_attention
+from exploring_flash_attention_tpu_torch.ops import attention as ops_attention
 from exploring_flash_attention_tpu_torch.ops import flash_attention_v1
 from exploring_flash_attention_tpu_torch.ops.attention import (
     NARROW_HEAD_DIM_RULE,
@@ -52,6 +54,9 @@ from exploring_flash_attention_tpu_torch.ops.attention import (
 )
 from exploring_flash_attention_tpu_torch.ops.attention_v2_splitkv import (
     flash_attention_v2,
+)
+from exploring_flash_attention_tpu_torch.serving import (
+    decode as serving_decode,
 )
 from exploring_flash_attention_tpu_torch.serving import (
     decode_chunks,
@@ -71,9 +76,12 @@ GROUP = 2                       # q heads over one KV head, as heads512
 
 
 def test_serving_and_narrow_rules():
-    """The serving kernels take every d from 1 to 512; H3, H4 and the
-    serving kernels at f32 every d from 1 to 256, each rule under its own
-    name; H6-decode cuts a group into chunks of 2 q heads past 256."""
+    """The serving kernels take every d from 1 to 512 at bf16 and at f32
+    (no check of their own at f32: ``check_f32_head_dim`` is gone); H3
+    and H4 every d from 1 to 256, each rule under its own name; H6-decode
+    cuts a group into chunks of 2 q heads past 256."""
+    assert not hasattr(ops_attention, "check_f32_head_dim")
+    assert not hasattr(serving_decode, "check_f32_head_dim")
     assert SERVING_HEAD_DIM_RULE == "d from 1 to 512"
     assert NARROW_HEAD_DIM_RULE == "d from 1 to 256"
     assert [d for d in range(1, 600) if kernel_head_dim(d)] == list(

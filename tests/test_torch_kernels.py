@@ -46,7 +46,7 @@ Tolerances (bf16 inputs, f32 accumulation on both sides):
 - f32 inputs (H1's f32 kernel, bf16x6 on wgmma; H6-extend's, bf16x3
   against the exact codes; H6-decode's f32 instances, f32 FMA): H1 within 1e-5 of an f64
   run of the plain version at bench/suite.py's referee row (B=2, H=4,
-  L=256, d=128) and 2e-5 at d 16-256 on a group of 16 (the JAX package's
+  L=256, d=128) and 2e-5 at d 1-512 on a group of 16 (the JAX package's
   f32 tiers, ``tests/test_attention_v1.py:24-27``), V2 within 1e-4, the
   paged pair within 1e-5 of their plain f32 versions; H3-dkv and H3-dq
   (bf16x6 on wgmma, d up to 128) within 1e-4 of max|ref| per gradient of
@@ -475,9 +475,11 @@ def test_h1_refuses_what_it_cannot_take(cuda_device):
     before = prefill_attention.launches
     with pytest.raises(ValueError, match=re.escape(SERVING_HEAD_DIM_RULE)):
         flash_attention_v1(q, k, v)
-    # past 256 at bf16 only: the f32 instances take NARROW_HEAD_DIM_RULE
+    # f32 takes SERVING_HEAD_DIM_RULE too: d=300 launches H1, 513 raises
     q, k, v = (x.float() for x in _qkv(cuda_device, 1, 2, 2, 64, 64, 300))
-    with pytest.raises(ValueError, match=re.escape(NARROW_HEAD_DIM_RULE)):
+    assert flash_attention_v1(q, k, v).dtype == torch.float32
+    q, k, v = (x.float() for x in _qkv(cuda_device, 1, 2, 2, 64, 64, 513))
+    with pytest.raises(ValueError, match=re.escape(SERVING_HEAD_DIM_RULE)):
         flash_attention_v1(q, k, v)
     q, k, v = _qkv(cuda_device, 1, 2, 2, 64, 64, 64)
     with pytest.raises(TypeError, match="bf16"):
@@ -486,7 +488,7 @@ def test_h1_refuses_what_it_cannot_take(cuda_device):
         flash_attention_v1(q, k, v, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="multiple of 128"):
         prefill_attention(q, k, v, 0.125, 0, kv_span=64)   # half a K/V tile
-    assert prefill_attention.launches == before
+    assert prefill_attention.launches == before + 1
 
 
 @pytest.mark.parametrize("causal,lq,lkv,span,d", [
@@ -877,10 +879,9 @@ def test_kernels_refuse_head_dims_outside_the_rule(cuda_device, d):
 
 
 def test_wide_head_dims_split_the_rules(cuda_device):
-    """At d=300 the serving kernels take bf16 (one launch each of H1, H2,
-    H6-decode and H6-extend), while H3-dkv and H3-dq, and the serving
-    kernels at f32, refuse it naming ``NARROW_HEAD_DIM_RULE`` and launch
-    nothing."""
+    """At d=300 the serving kernels take bf16 and f32 (one launch each of
+    H1, H2, H6-decode and H6-extend at each dtype), while H3-dkv and H3-dq
+    refuse it naming ``NARROW_HEAD_DIM_RULE`` and launch nothing."""
     counted = (prefill_attention, splitkv_combine, paged_decode_partials,
                paged_extend_attention, attention_bwd_dkv, attention_bwd_dq)
     before = [fn.launches for fn in counted]
@@ -893,20 +894,24 @@ def test_wide_head_dims_split_the_rules(cuda_device):
     torch.cuda.synchronize()
     assert [fn.launches for fn in counted] == [
         x + 1 for x in before[:4]] + before[4:]
-    narrow = re.escape(NARROW_HEAD_DIM_RULE)
-    lse = torch.zeros(1, 4, 64, device=cuda_device)
-    with pytest.raises(ValueError, match=narrow):
-        flash_attention_bwd(q, k, v, q, q, lse, scale=1.0, causal=True)
-    with pytest.raises(ValueError, match=narrow):
-        prefill_attention(q.float(), k.float(), v.float(), 0.05, 0)
-    with pytest.raises(ValueError, match=narrow):
-        paged_decode_attention(qd.float(), cache, slots)
-    with pytest.raises(ValueError, match=narrow):
-        paged_extend_attention(qd[:, None].float().contiguous(), cache,
-                               slots)
+    o, lse = prefill_attention(q.float(), k.float(), v.float(), 0.05, 0,
+                               False, kv_span=128)
+    assert splitkv_combine(o, lse).dtype == torch.float32
+    assert paged_decode_attention(qd.float(), cache, slots).dtype == (
+        torch.float32)
+    paged_extend_attention(qd[:, None].float().contiguous(), cache, slots)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counted] == [
-        x + 1 for x in before[:4]] + before[4:]
+        x + 2 for x in before[:4]] + before[4:]
+    narrow = re.escape(NARROW_HEAD_DIM_RULE)
+    lse = torch.zeros(1, 4, 64, device=cuda_device)
+    for dt in (torch.bfloat16, torch.float32):
+        x, kx, vx = q.to(dt), k.to(dt), v.to(dt)
+        with pytest.raises(ValueError, match=narrow):
+            flash_attention_bwd(x, kx, vx, x, x, lse, scale=1.0, causal=True)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == [
+        x + 2 for x in before[:4]] + before[4:]
 
 
 # (hq, hkv, d, page size) of the paged kernels at the rule's new points:
@@ -919,7 +924,7 @@ PAGED_HEADS = [(16, 1, 80, 512), (32, 1, 16, 1024), (4, 4, 256, 128),
                # 40), 4-byte (36), 2-byte (250), 1-byte (33)
                (16, 16, 72, 128), (8, 1, 40, 256), (32, 2, 36, 512),
                (16, 1, 33, 1024), (8, 4, 250, 128)]
-# past 256 (bf16; the f32 tests take PAGED_HEADS): heads512's geometry, a
+# past 256 (bf16, and f32 q in the f32 tests): heads512's geometry, a
 # group of 16 in chunks of 2 q heads, code rows of 16 (384, 512), 8 (264),
 # 4 (300) and 1-byte (257, 385) alignment
 PAGED_WIDE = [(2, 1, 512, 256), (16, 1, 512, 128), (4, 4, 264, 512),
@@ -1034,8 +1039,9 @@ EXTEND_CASES = [
     (16, 1, 33, 1024, [1100, 0], 64),
     (8, 4, 250, 128, [130, 3], 77),
 ]
-# past 256 (PAGED_WIDE; bf16 only): H5's block with the codes by TMA (264,
-# 384, 512) or copied at their rows' alignment (257, 300, 385)
+# past 256 (PAGED_WIDE, and at f32 q in the f32 tests): H5's blocks with
+# the codes by TMA (384, 512; bf16 also 264) or copied at their rows'
+# alignment (257, 300, 385; f32 also 264, whose rows are no multiple of 16)
 EXTEND_WIDE = [
     (2, 1, 512, 256, [257 + 3 * i for i in range(8)], 256),  # heads512 turn 2
     (16, 1, 512, 128, [0, 300, 900], 129),
@@ -1834,6 +1840,43 @@ def test_generate_serves_new_head_geometries(cuda_device, n_heads,
     assert eng.allocator.free_pages == eng.allocator.n_pages
 
 
+@pytest.mark.parametrize("window", [None, 48])
+def test_generate_serves_d512_at_f32(cuda_device, window):
+    """A small LM with heads512's attention (2 heads of 512 over one KV
+    head) at f32, the JAX ModelConfig's default dtype, without and with a
+    window: ``generate`` replays its decode graph bitwise the eager loop
+    (H1 and H6-decode counted per replay), and ``continue_generation`` runs
+    H6-extend once a layer; both turns' greedy tokens equal those of the
+    same engine on the CPU (the plain path, on the same weights)."""
+    cfg = ModelConfig(vocab_size=512, n_layers=2, n_heads=2, n_kv_heads=1,
+                      d_model=256, d_head=512, d_ff=512, window=window,
+                      dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=cuda_device)
+    eng = GenerationEngine(params, cfg, max_seqs=4, max_len=512,
+                           page_size=256)
+    plain = GenerationEngine(tree_map(lambda t: t.cpu(), params), cfg,
+                             max_seqs=4, max_len=512, page_size=256)
+    prompt = np.random.default_rng(0).integers(0, 512, (3, 150)).astype(
+        np.int32)
+    ref = eager_generate(eng, prompt, 12)
+    before = (prefill_attention.launches, paged_decode_partials.launches)
+    out = eng.generate(prompt, 12)
+    assert (prefill_attention.launches - before[0],
+            paged_decode_partials.launches - before[1]) == (2, 2 * 11)
+    assert np.array_equal(out, ref)
+    assert np.array_equal(eng.generate(prompt, 8, hold=True),
+                          plain.generate(prompt, 8, hold=True))
+    turn = np.random.default_rng(1).integers(0, 512, (3, 140))
+    before = (paged_extend_attention.launches, paged_decode_partials.launches)
+    out = eng.continue_generation(turn, 6)
+    assert (paged_extend_attention.launches - before[0],
+            paged_decode_partials.launches - before[1]) == (2, 2 * 5)
+    assert np.array_equal(out, plain.continue_generation(turn, 6))
+    eng.release()
+    plain.release()
+    assert eng.allocator.free_pages == eng.allocator.n_pages
+
+
 def _spec_state(eng, loop):
     state = [loop.pending, loop.count, loop.out, loop.rounds, loop.accepted,
              *[t for kv in loop.bufs for t in kv]]
@@ -2022,6 +2065,13 @@ def _f64_plain(q, k, v, scale, causal, diag_off, window=None):
     (1, 16, 1, 200, 330, 33, F32_TOL),
     (2, 4, 2, 100, 150, 36, F32_TOL),
     (1, 8, 4, 200, 330, 250, F32_TOL),
+    # past 256: H5's f32 block in clusters of two, rows by TMA (264, 300,
+    # 512) or staged (257, 385: rows of 4-byte alignment)
+    (1, 16, 1, 200, 330, 257, F32_TOL),
+    (2, 4, 2, 200, 330, 264, F32_TOL),
+    (1, 8, 4, 200, 330, 300, F32_TOL),
+    (1, 4, 4, 80, 48, 385, F32_TOL),             # rows that see no key
+    (1, 16, 1, 200, 330, 512, F32_TOL),
 ])
 @pytest.mark.parametrize("mode", ["none", "causal", "window"])
 def test_h1_f32_matches_the_f64_plain_run(cuda_device, mode, b, hq, hkv, lq,
@@ -2051,7 +2101,8 @@ def test_h1_f32_matches_the_f64_plain_run(cuda_device, mode, b, hq, hkv, lq,
     assert (bad.double() - ref).abs().max().item() > tol
 
 
-@pytest.mark.parametrize("d", [32, 80, 128, 256, 1, 33, 72, 250])
+@pytest.mark.parametrize("d", [32, 80, 128, 256, 1, 33, 72, 250, 257, 264,
+                               300, 385, 512])
 def test_h1_f32_forms_spans_and_offsets(cuda_device, d):
     """H1 at f32 over KV spans (each span's partial and LSE), in the bound
     form and the 64-row Q tile (each within 2e-5 of the f64 run; the bf16
@@ -2088,6 +2139,7 @@ def test_h1_f32_forms_spans_and_offsets(cuda_device, d):
     (2, 8, 8, 1024, 8200, 256, False, None, "exact"),   # 513 tiles of 16 keys
     (1, 8, 1, 256, 32768, 128, False, None, "exact"),   # the windowed model's
     (1, 8, 1, 256, 32768, 128, True, 4096, "exact"),    # keys and window
+    (1, 4, 2, 512, 8200, 512, False, None, "exact"),    # 257 tiles of 32 keys
 ])
 def test_h1_f32_over_long_key_counts(cuda_device, b, hq, hkv, lq, lkv, d,
                                      causal, window, softmax):
@@ -2149,7 +2201,8 @@ def test_v2_f32_runs_h1_spans_then_h2(cuda_device, causal):
 
 
 @pytest.mark.parametrize("window", [None, 100])
-@pytest.mark.parametrize("hq,hkv,d,ps", [(8, 4, 128, 128)] + PAGED_HEADS)
+@pytest.mark.parametrize("hq,hkv,d,ps",
+                         [(8, 4, 128, 128)] + PAGED_HEADS + PAGED_WIDE)
 def test_decode_f32_matches_plain(cuda_device, hq, hkv, d, ps, window):
     """H6-decode at f32 q (fused, its runs merged in its last block): one
     launch, f32 O within 1e-5 of the plain f32 version and of the f64
@@ -2182,7 +2235,7 @@ def test_decode_f32_matches_plain(cuda_device, hq, hkv, d, ps, window):
 @pytest.mark.parametrize("window", [None, 1, 77])
 @pytest.mark.parametrize("hq,hkv,d,ps,hist,c", EXTEND_CASES[:3] + [
     (16, 1, 80, 512, [257, 600], 64), (8, 2, 256, 128, [130, 3], 40),
-    (32, 1, 16, 1024, [5, 1100], 33)] + EXTEND_CASES[-5:])
+    (32, 1, 16, 1024, [5, 1100], 33)] + EXTEND_CASES[-5:] + EXTEND_WIDE)
 def test_extend_f32_matches_plain(cuda_device, hq, hkv, d, ps, hist, c,
                                   window):
     """H6-extend at f32 q: one launch, f32 O within 1e-5 of the plain f32
